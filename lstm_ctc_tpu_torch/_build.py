@@ -1,0 +1,114 @@
+"""Build the CUDA kernels in ``csrc/`` and load them with ctypes.
+
+The sources are compiled at first use by ``nvcc`` into one shared library
+with a plain C interface, under ``lstm_ctc_tpu_torch/build/`` and named by a
+hash of the sources and flags, so an unchanged tree reuses it.  Nothing
+here runs at import time: this module is imported on machines without
+``nvcc`` or a GPU, where only the plain PyTorch versions run.  A failed
+build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (all return a cudaError_t as int)
+SIGNATURES = {
+    # device, gx, lengths, keep, wh slices, proj slices, peep, forget_bias,
+    # T, B, H, P, out, c_all, h_all, cfin, hfin, stream
+    "lstm_fwd_f32": [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                     _P, _P, _P, _P, _P, _P],
+    "lstm_fwd_bf16": [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
+    # device, x, w, b, gate, N, D, E, V, tau, keep_prob, seed, out, stream
+    "moe_fwd_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                    ctypes.c_uint32, _P, _P],
+    "moe_fwd_bf16": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                     ctypes.c_uint32, _P, _P],
+}
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built on this machine")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile the kernels if the library for these sources is missing.
+    Returns ``{"path", "seconds", "log"}``; ``log`` holds nvcc's
+    ``-Xptxas -v`` report (registers, shared memory, spills) when it ran."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, "liblstm_ctc_kernels_%s.so" % _digest())
+    if os.path.exists(path):
+        return {"path": path, "seconds": 0.0, "log": "(cached)"}
+    cu = [p for p in sources() if p.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    start = time.perf_counter()
+    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR,
+                                                    "-o", tmp] + cu,
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("nvcc failed (%d):\n%s%s"
+                           % (proc.returncode, proc.stdout, proc.stderr))
+    os.replace(tmp, path)  # atomic: a concurrent build never sees a partial
+    return {"path": path, "seconds": seconds,
+            "log": proc.stdout + proc.stderr}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.kernels_error_string.argtypes = [ctypes.c_int]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    lib.lstm_fwd_cluster_size.argtypes = []
+    lib.lstm_fwd_cluster_size.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (refused launch etc.)."""
+    if err != 0:
+        msg = library().kernels_error_string(err).decode()
+        raise RuntimeError("%s: CUDA error %d (%s)" % (what, err, msg))

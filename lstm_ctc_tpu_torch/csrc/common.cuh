@@ -1,0 +1,60 @@
+// Shared helpers for the port's kernels: compute-dtype conversions and the
+// bf16 tensor-core primitives (ldmatrix, mma.sync m16n8k16) as PTX.
+//
+// Every matrix product in the kernels rounds its operands to the compute
+// dtype (float32 or bfloat16) and sums the products in float32, as the
+// reference's dot_general(..., preferred_element_type=float32) does.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+template <typename T>
+struct Dtype;
+
+template <>
+struct Dtype<float> {
+  static __device__ __forceinline__ float to_float(float v) { return v; }
+  static __device__ __forceinline__ float from_float(float v) { return v; }
+};
+
+template <>
+struct Dtype<__nv_bfloat16> {
+  static __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from_float(float v) {
+    return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+  }
+};
+
+// Largest dynamic shared memory one block may use on sm_90 (227 KB).
+constexpr size_t kMaxSmemPerBlock = 232448;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices from shared memory, each lane giving one row
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// d += a (16x16, row) · b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

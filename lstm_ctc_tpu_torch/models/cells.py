@@ -1,0 +1,315 @@
+"""LSTM cell primitives: parameter init and the plain dual-direction scan.
+
+Counterpart of ``lstm_ctc_tpu/models/cells.py``.  Semantics are TF1's
+``LSTMCell`` as the reference uses it: optional diagonal peepholes, optional
+output projection, a forget-gate bias added at run time, TF gate order
+(i, j, f, o) and ``dynamic_rnn`` masking (outputs are zero past
+``sequence_length`` and the carried state freezes there).
+
+``dual_recurrence`` is the plain PyTorch version of the BLSTM layer kernel
+(``csrc/lstm_fwd.cu``): the CPU path, and the reference the kernel is held
+to on the card.
+"""
+
+from __future__ import annotations
+
+import math
+import weakref
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+
+def glorot_uniform(generator: torch.Generator, shape, device="cpu"):
+    if len(shape) == 1:
+        fan_in = fan_out = shape[0]
+    else:
+        fan_in, fan_out = shape[0], shape[1]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return (u * (2.0 * limit) - limit).to(device)
+
+
+def truncated_normal(generator: torch.Generator, shape, stddev,
+                     device="cpu"):
+    """Normal(0, stddev) truncated to ±2 stddev, by inverting the CDF (as
+    ``jax.random.truncated_normal`` does)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+    u = lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                    dtype=torch.float64)
+    z = math.sqrt(2.0) * torch.special.erfinv(2.0 * u - 1.0)
+    return (stddev * z.clamp(-2.0, 2.0)).to(torch.float32).to(device)
+
+
+def init_lstm_cell(generator: torch.Generator,
+                   input_dim: int,
+                   num_units: int,
+                   num_proj: Optional[int] = None,
+                   use_peepholes: bool = False,
+                   device="cpu") -> Dict:
+    """Parameters for one LSTM cell.  The TF cell's single ``[D+P, 4H]``
+    kernel is split into input (``wx``) and recurrent (``wh``) halves so
+    the input half can be applied to the whole sequence at once."""
+    out_dim = num_proj if num_proj else num_units
+    kernel = glorot_uniform(generator, (input_dim + out_dim, 4 * num_units),
+                            device)
+    params = {
+        "wx": kernel[:input_dim].clone(),
+        "wh": kernel[input_dim:].clone(),
+        "bias": torch.zeros(4 * num_units, device=device),
+    }
+    if use_peepholes:
+        for name in ("w_i_diag", "w_f_diag", "w_o_diag"):
+            params[name] = glorot_uniform(generator, (num_units,), device)
+    if num_proj:
+        params["proj"] = glorot_uniform(generator, (num_units, num_proj),
+                                        device)
+    return params
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``a @ b`` with both operands rounded to ``dtype`` and the products
+    summed in float32 — the arithmetic of the kernels (and of JAX's
+    ``preferred_element_type=float32``)."""
+    if dtype == torch.float32:
+        return torch.matmul(a.float(), b.float())
+    return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
+
+
+_DERIVED: Dict = {}
+
+
+def derived(sources: Sequence[torch.Tensor], tag, build: Callable):
+    """``build()``, made once and kept for as long as every tensor of
+    ``sources`` lives and is not modified in place: the weights in the
+    kernels' layout are made once per model, not once per batch.
+
+    ``tag`` tells apart what is made from the same sources.  ``build``
+    must return new tensors, never one of ``sources`` (an entry holding its
+    own source would never be dropped).  An inference tensor keeps no
+    version counter and is taken as unchanged."""
+    key = (tag, torch.is_inference_mode_enabled()) + tuple(
+        id(t) for t in sources)
+    versions = tuple(None if t.is_inference() else t._version
+                     for t in sources)
+    hit = _DERIVED.get(key)
+    if hit is not None and hit[1] == versions and all(
+            ref() is t for ref, t in zip(hit[0], sources)):
+        return hit[2]
+    value = build()
+    refs = tuple(weakref.ref(t, lambda _, k=key: _DERIVED.pop(k, None))
+                 for t in sources)
+    _DERIVED[key] = (refs, versions, value)
+    return value
+
+
+def recurrent_weights(fw_params: Dict, bw_params: Dict, compute_dtype):
+    """``(wh, proj, peep)`` of one layer, both directions stacked: wh
+    ``[2, P, 4H]`` and proj ``[2, H, P]`` (or None) in the compute dtype,
+    peep ``[2, 3, H]`` float32 (i, f, o diagonals; or None).  Made once per
+    model and dtype (``derived``)."""
+    diag = ("w_i_diag", "w_f_diag", "w_o_diag")
+    sources = [p[n] for n in ("wh", "proj") + diag
+               for p in (fw_params, bw_params) if n in p]
+
+    def build():
+        pair = (fw_params, bw_params)
+        wh = torch.stack([p["wh"] for p in pair]).to(compute_dtype)
+        proj = None
+        if "proj" in fw_params:
+            proj = torch.stack([p["proj"] for p in pair]).to(compute_dtype)
+            proj = proj.contiguous()
+        peep = None
+        if "w_i_diag" in fw_params:
+            peep = torch.stack([torch.stack([p[n] for n in diag])
+                                for p in pair]).float().contiguous()
+        return wh.contiguous(), proj, peep
+
+    return derived(sources, ("recurrent", compute_dtype), build)
+
+
+def layer_inputs(fw_params: Dict, bw_params: Dict, x, x_rev,
+                 compute_dtype=None):
+    """Everything the layer recurrence reads, in the kernel's layout.
+
+    Returns ``(gx, wh, proj, peep)``: gx ``[T, 2B, 4H]`` float32 (the
+    input projection of both directions, forward rows first), and the
+    weights as ``recurrent_weights`` returns them."""
+    batch, time_steps, _ = x.shape
+    cdt = compute_dtype or x.dtype
+    num_units = fw_params["bias"].shape[0] // 4
+    wx = torch.stack([fw_params["wx"], bw_params["wx"]]).to(cdt)
+    bias = torch.stack([fw_params["bias"], bw_params["bias"]]).float()
+    x2 = torch.stack([x, x_rev]).to(cdt)                      # [2, B, T, D]
+    # one large GEMM for the whole sequence, outside the recurrence
+    gx = torch.matmul(x2.reshape(2, batch * time_steps, -1), wx).float()
+    gx = gx.reshape(2, batch, time_steps, 4 * num_units) \
+        + bias[:, None, None, :]
+    gx = gx.permute(2, 0, 1, 3).reshape(time_steps, 2 * batch,
+                                        4 * num_units).contiguous()
+    return (gx,) + recurrent_weights(fw_params, bw_params, cdt)
+
+
+def step_masks(sequence_length, reset_mask, time_steps, device):
+    """``(valid [T, B], keep [T, B] or None)`` float32: valid is 1 before
+    ``sequence_length``; keep is 0 where a packed segment starts (the
+    carried state is zeroed there)."""
+    t = torch.arange(time_steps, device=device)[:, None]
+    valid = (t < sequence_length.to(device)[None, :]).float()
+    keep = None
+    if reset_mask is not None:
+        keep = (1.0 - reset_mask.to(device).float().t()).contiguous()
+    return valid, keep
+
+
+def _dual_step(gx_t, keep_t, valid_t, c, h, wh, proj, peep,
+               forget_bias: float):
+    """One step of both directions, on leading dims ``[..., 2, B]``: gx_t
+    ``[..., 2, B, 4H]``; keep_t (or None) and valid_t ``[..., 1, B, 1]``;
+    c, h the carried states.  Returns (out, c, h) after masking."""
+    num_units = c.shape[-1]
+    cdt = wh.dtype
+    if keep_t is not None:
+        c = keep_t * c
+        h = keep_t * h
+    gates = gx_t + matmul_f32(h, wh, cdt)
+    i, j, f, o = gates.split(num_units, dim=-1)
+    if peep is not None:
+        i = i + peep[:, 0, None, :] * c
+        f = f + peep[:, 1, None, :] * c
+    c_new = (torch.sigmoid(f + forget_bias) * c
+             + torch.sigmoid(i) * torch.tanh(j))
+    if peep is not None:
+        o = o + peep[:, 2, None, :] * c_new
+    out = torch.sigmoid(o) * torch.tanh(c_new)
+    if proj is not None:
+        out = matmul_f32(out, proj, cdt)
+    m = valid_t
+    return m * out, m * c_new + (1.0 - m) * c, m * out + (1.0 - m) * h
+
+
+def _step_views(gx, sequence_length, keep):
+    time_steps, b2, h4 = gx.shape
+    valid, _ = step_masks(sequence_length, None, time_steps, gx.device)
+    keep = None if keep is None else keep.view(time_steps, 1, b2 // 2, 1)
+    return (gx.view(time_steps, 2, b2 // 2, h4), keep,
+            valid.view(time_steps, 1, b2 // 2, 1))
+
+
+def dual_recurrence(gx, sequence_length, keep, wh, proj, peep,
+                    forget_bias: float, states: bool = False):
+    """Plain version of the BLSTM layer kernel.
+
+    gx ``[T, 2B, 4H]`` f32; sequence_length ``[B]``; keep ``[T, B]`` or
+    None; wh, proj, peep as ``layer_inputs`` returns them.  Returns out
+    ``[T, 2B, P]`` f32 (zero past each length), c ``[2B, H]``, h ``[2B, P]``
+    (the final carried states) and, with ``states``, the carried states
+    after every step, c_all ``[T, 2B, H]`` and h_all ``[T, 2B, P]``."""
+    time_steps, b2, h4 = gx.shape
+    batch, num_units = b2 // 2, h4 // 4
+    out_dim = proj.shape[2] if proj is not None else num_units
+    gx4, keep4, valid4 = _step_views(gx, sequence_length, keep)
+    c = gx.new_zeros(2, batch, num_units)
+    h = gx.new_zeros(2, batch, out_dim)
+    outs, cs, hs = [], [], []
+    for t in range(time_steps):
+        out, c, h = _dual_step(gx4[t], None if keep4 is None else keep4[t],
+                               valid4[t], c, h, wh, proj, peep, forget_bias)
+        outs.append(out)
+        if states:
+            cs.append(c)
+            hs.append(h)
+    result = (torch.stack(outs).reshape(time_steps, b2, out_dim),
+              c.reshape(b2, num_units), h.reshape(b2, out_dim))
+    if states:
+        result += (torch.stack(cs).reshape(time_steps, b2, num_units),
+                   torch.stack(hs).reshape(time_steps, b2, out_dim))
+    return result
+
+
+def replay_steps(gx, sequence_length, keep, wh, proj, peep,
+                 forget_bias: float, c_all, h_all):
+    """Every step of the plain recurrence at once, each started from the
+    carried states of the step before as given by c_all ``[T, 2B, H]`` and
+    h_all ``[T, 2B, P]`` (zeros before the first).  Returns (out, c_all,
+    h_all) as those steps give them.
+
+    Held against a kernel's own per-step states, this checks each step
+    alone: a rounding difference is not carried on through the sequence."""
+    time_steps, b2, _ = gx.shape
+    gx4, keep4, valid4 = _step_views(gx, sequence_length, keep)
+
+    def before(s):
+        s = torch.cat([torch.zeros_like(s[:1]), s[:-1]])
+        return s.view(time_steps, 2, b2 // 2, s.shape[-1])
+
+    out, c, h = _dual_step(gx4, keep4, valid4, before(c_all), before(h_all),
+                           wh, proj, peep, forget_bias)
+    return (out.reshape(time_steps, b2, -1), c.reshape(time_steps, b2, -1),
+            h.reshape(time_steps, b2, -1))
+
+
+def split_directions(out, cfin, hfin, batch: int):
+    """Kernel layout → the scan's return value: (fw_out [B,T,P], bw_out
+    [B,T,P] (still reversed), ((c_fw, h_fw), (c_bw, h_bw)))."""
+    fw_out = out[:, :batch].transpose(0, 1)
+    bw_out = out[:, batch:].transpose(0, 1)
+    return fw_out, bw_out, ((cfin[:batch], hfin[:batch]),
+                            (cfin[batch:], hfin[batch:]))
+
+
+def bilstm_dual_scan(fw_params: Dict,
+                     bw_params: Dict,
+                     x: torch.Tensor,
+                     x_rev: torch.Tensor,
+                     sequence_length: torch.Tensor,
+                     forget_bias: float = 1.0,
+                     compute_dtype=None,
+                     reset_mask=None):
+    """Forward and backward cells of one BLSTM layer, in plain PyTorch.
+
+    x is the layer input, x_rev its ``reverse_sequence``; both use the same
+    time mask.  Returns (fw_out [B,T,P], bw_out [B,T,P] (still reversed),
+    (fw_state, bw_state)) like the reference's ``bilstm_dual_scan``."""
+    gx, wh, proj, peep = layer_inputs(fw_params, bw_params, x, x_rev,
+                                      compute_dtype)
+    _, keep = step_masks(sequence_length, reset_mask, x.shape[1], x.device)
+    out, cfin, hfin = dual_recurrence(gx, sequence_length, keep, wh, proj,
+                                      peep, forget_bias)
+    return split_directions(out, cfin, hfin, x.shape[0])
+
+
+def _take_time(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(
+        idx.shape + x.shape[2:])
+    return torch.gather(x, 1, idx)
+
+
+def reverse_sequence(x: torch.Tensor,
+                     sequence_length: torch.Tensor) -> torch.Tensor:
+    """Reverse the first ``sequence_length`` steps of each row, leaving
+    padding in place (``tf.reverse_sequence``)."""
+    t = torch.arange(x.shape[1], device=x.device)[None, :]
+    lengths = sequence_length.to(x.device).long()[:, None]
+    return _take_time(x, torch.where(t < lengths, lengths - 1 - t, t))
+
+
+def reverse_segments(x: torch.Tensor,
+                     sequence_length: torch.Tensor,
+                     reset_mask: torch.Tensor) -> torch.Tensor:
+    """Segment-wise ``reverse_sequence`` for packed rows: each segment
+    (delimited by ``reset_mask`` starts) is reversed in place; padding
+    past ``sequence_length`` stays put."""
+    batch, time_steps = x.shape[0], x.shape[1]
+    t = torch.arange(time_steps, device=x.device)[None, :].expand(batch, -1)
+    r = reset_mask.to(x.device) > 0.5
+    start = torch.cummax(torch.where(r, t, torch.zeros_like(t)), dim=1)[0]
+    nxt = torch.where(r, t, torch.full_like(t, time_steps))
+    nxt_after = torch.cat(
+        [nxt[:, 1:], torch.full_like(nxt[:, :1], time_steps)], dim=1)
+    nxt_after = torch.cummin(nxt_after.flip(1), dim=1)[0].flip(1)
+    lengths = sequence_length.to(x.device).long()[:, None]
+    end = torch.minimum(nxt_after, lengths)
+    idx = torch.where(t < lengths, start + end - 1 - t, t)
+    return _take_time(x, idx.clamp(0, time_steps - 1))

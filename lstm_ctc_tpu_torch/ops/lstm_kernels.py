@@ -1,0 +1,143 @@
+"""Fused BLSTM layer forward: the wrapper around ``csrc/lstm_fwd.cu``.
+
+Counterpart of ``lstm_ctc_tpu/ops/lstm_pallas.py`` ``bilstm_dual_scan_fused``
+(:694), whose Pallas kernel ``_make_fwd_kernel`` (:57-131) runs one layer's
+whole-sequence recurrence for both directions.  The input projection stays
+one ``torch.matmul`` outside the kernel, as it is an einsum outside the
+Pallas kernel there.
+
+On a CPU tensor the wrapper runs the plain version
+(``models/cells.dual_recurrence``); on a CUDA tensor it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..models import cells
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
+                       forget_bias: float, states: bool = False):
+    """One BLSTM layer's recurrence over the whole sequence.
+
+    Arguments and return value as ``cells.dual_recurrence``: gx
+    ``[T, 2B, 4H]`` f32, sequence_length ``[B]``, keep ``[T, B]`` f32 or
+    None, wh ``[2, P, 4H]`` and proj ``[2, H, P]`` (or None) in the
+    compute dtype (float32 or bfloat16), peep ``[2, 3, H]`` f32 or None.
+    Returns (out ``[T, 2B, P]``, c ``[2B, H]``, h ``[2B, P]``), f32, and
+    with ``states`` the per-step carried states c_all ``[T, 2B, H]`` and
+    h_all ``[T, 2B, P]``.  The weights' cluster layout is made once per
+    weight tensor (``cells.derived``)."""
+    if gx.device.type == "cpu":
+        return cells.dual_recurrence(gx, sequence_length, keep, wh, proj,
+                                     peep, forget_bias, states)
+    if gx.device.type != "cuda":
+        raise ValueError("lstm_layer_forward: unsupported device %s"
+                         % gx.device)
+    time_steps, b2, h4 = gx.shape
+    batch, num_units = b2 // 2, h4 // 4
+    out_dim = proj.shape[2] if proj is not None else num_units
+    if gx.dtype != torch.float32 or not gx.is_contiguous() or b2 % 2:
+        raise ValueError("gx must be a contiguous float32 [T, 2B, 4H]")
+    if wh.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("compute dtype must be float32 or bfloat16, got %s"
+                         % wh.dtype)
+    _expect(wh, (2, out_dim, h4), wh.dtype, gx.device, "wh")
+    if proj is not None:
+        _expect(proj, (2, num_units, out_dim), wh.dtype, gx.device, "proj")
+    if peep is not None:
+        _expect(peep, (2, 3, num_units), torch.float32, gx.device, "peep")
+    if keep is not None:
+        _expect(keep, (time_steps, batch), torch.float32, gx.device, "keep")
+    lengths = sequence_length.to(device=gx.device,
+                                 dtype=torch.int32).contiguous()
+    if lengths.shape != (batch,):
+        raise ValueError("sequence_length must be [B]")
+
+    lib = _build.library()
+    cluster = lib.lstm_fwd_cluster_size()
+    wh_sl, proj_sl = cells.derived(
+        [t for t in (wh, proj) if t is not None], ("cluster slices", cluster),
+        lambda: _slices(wh, proj, cluster))
+    out = torch.empty(time_steps, b2, out_dim, device=gx.device)
+    cfin = torch.empty(b2, num_units, device=gx.device)
+    hfin = torch.empty(b2, out_dim, device=gx.device)
+    c_all = h_all = None
+    if states:
+        c_all = torch.empty(time_steps, b2, num_units, device=gx.device)
+        h_all = torch.empty(time_steps, b2, out_dim, device=gx.device)
+    launch = lib.lstm_fwd_bf16 if wh.dtype == torch.bfloat16 \
+        else lib.lstm_fwd_f32
+    err = launch(gx.device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
+                 _ptr(wh_sl), _ptr(proj_sl), _ptr(peep), float(forget_bias),
+                 time_steps, batch, num_units, out_dim,
+                 _ptr(out), _ptr(c_all), _ptr(h_all), _ptr(cfin), _ptr(hfin),
+                 torch.cuda.current_stream(gx.device).cuda_stream)
+    _build.check(err, "lstm_fwd")
+    lstm_layer_forward.launches += 1
+    return (out, cfin, hfin) + ((c_all, h_all) if states else ())
+
+
+lstm_layer_forward.launches = 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _slices(wh, proj, cluster: int):
+    """The weights as the kernel's cluster blocks own them: block q holds
+    hidden units [q·US, (q+1)·US) of all four gates and projection columns
+    [q·PS, (q+1)·PS): wh ``[2, P, 4H]`` → ``[2, cluster, P16, 4, US]``,
+    proj ``[2, H, P]`` → ``[2, cluster, H16, PS]``, zero-padded.  US is a
+    multiple of 8, PS of 16, P16 and H16 are P and H rounded up to 16, as
+    in ``csrc/lstm_fwd.cu`` ``plan``."""
+    _, out_dim, h4 = wh.shape
+    units = h4 // 4
+    us = _round_up(-(-units // cluster), 8)
+    if 8 * us > 512:
+        raise ValueError("the kernel takes at most %d units, got %d"
+                         % (64 * cluster, units))
+    p16, h16 = _round_up(out_dim, 16), _round_up(units, 16)
+    wh_sl = F.pad(wh.view(2, out_dim, 4, units),
+                  (0, cluster * us - units, 0, 0, 0, p16 - out_dim))
+    wh_sl = wh_sl.view(2, p16, 4, cluster, us).permute(0, 3, 1, 2, 4)
+    if proj is None:
+        return wh_sl.contiguous(), None
+    ps = _round_up(-(-out_dim // cluster), 16)
+    proj_sl = F.pad(proj, (0, cluster * ps - out_dim, 0, h16 - units))
+    proj_sl = proj_sl.view(2, h16, cluster, ps).permute(0, 2, 1, 3)
+    return wh_sl.contiguous(), proj_sl.contiguous()
+
+
+def _expect(t, shape, dtype, device, name):
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError("%s: expected contiguous %s %s on %s, got %s %s on "
+                         "%s" % (name, dtype, tuple(shape), device, t.dtype,
+                                 tuple(t.shape), t.device))
+
+
+def bilstm_dual_scan_fused(fw_params, bw_params, x, x_rev,
+                           sequence_length, forget_bias,
+                           compute_dtype=None, reset_mask=None):
+    """Drop-in for ``cells.bilstm_dual_scan`` through the layer kernel.
+
+    Returns (fw_out [B,T,P], bw_out [B,T,P] reversed, (fw_state,
+    bw_state)) with the same semantics (peepholes, forget bias,
+    projection, ``dynamic_rnn`` masking, packed-row resets)."""
+    gx, wh, proj, peep = cells.layer_inputs(fw_params, bw_params, x, x_rev,
+                                            compute_dtype)
+    _, keep = cells.step_masks(sequence_length, reset_mask, x.shape[1],
+                               x.device)
+    out, cfin, hfin = lstm_layer_forward(gx, sequence_length, keep, wh,
+                                         proj, peep, forget_bias)
+    return cells.split_directions(out, cfin, hfin, x.shape[0])
