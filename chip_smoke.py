@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile both kernels from lstm_ctc_tpu_torch/csrc/;
+  2. build: compile the kernels from lstm_ctc_tpu_torch/csrc/ (one nvcc per
+     source, all started together);
   3. kernel A (BLSTM layer forward) against its plain PyTorch version at
      B=32, T=384, H=P=320, D=640, ragged lengths, with and without packed-row
      resets, in float32 (TF32 off) and bfloat16;
@@ -21,8 +22,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      gave it, and each launch must have the compute dtype bfloat16: kernel
      B's output, and each step of each layer of kernel A, replayed from the
      kernel's own per-step states;
-  6. prints the kernels' JSON line, the nvidia-smi line, and as the last
-     line ``{"ok": true, "device": {...}}``.
+  6. K10/K11 (CTC alpha and beta DP) against their plain versions at
+     N=96 slots, T=400, S=301, ragged time and label lengths, repeated
+     labels, an infeasible pair and an empty label; timed in turns with
+     the plain versions, and F.ctc_loss timed on the same shapes as the
+     library yardstick;
+  7. K2 (BLSTM layer backward) against its plain version at B=32, T=384,
+     H=P=320, D=640, ragged lengths, with and without resets, float32
+     (TF32 off) and bfloat16 (in bfloat16 also each step replayed from
+     the kernel's own carries); timed in turns;
+  8. training end to end: the flagship's dense-head model (4x320 BLSTM,
+     proj 320, peepholes, 72-way head; random weights from a seed) on a
+     synthetic labeled corpus of 288 utterances, through nnet_init, then
+     nnet_validate, then two epochs of nnet_train (adam 1e-3, batch 32,
+     pack factor 3, bf16) each followed by nnet_validate, on cuda: finite
+     losses, the last cv_loss below the first, loadable checkpoints, and
+     the launch counts (per train step 4 K1, 4 K2, 1 K10, 1 K11; per CV
+     batch 4 K1, 1 K10).  One float32 train step through the kernels,
+     each K1 and K2 launch held to its plain version on its own tensors,
+     against the same step through the plain versions (loss and every
+     gradient leaf, next to the plain versions' own response to a
+     last-bit change of the weights), one bfloat16 step with every K2, K10 and K11 launch
+     held to its plain version on the model's own tensors, and a
+     torch.profiler breakdown of one warm train step;
+  9. prints the kernels' JSON line, a summary line, the nvidia-smi line,
+     and as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
 float32, max|diff| / max|plain| <= 1e-4 per output; bfloat16 kernel A, the
@@ -31,7 +55,17 @@ bfloat16 path: kernel A's steps, the ratio <= 1e-3 (one step's rounding
 differences only); kernel B, max|diff| <= 5e-2.  End to end on log-posteriors,
 float32 kernels vs plain: mean |diff| <= 1e-3 and max |diff| <= 2e-2 (the
 random-weight model amplifies last-bit differences about a thousandfold
-over 4 layers and ~400 steps).
+over 4 layers and ~400 steps).  K10/K11, float32: |diff| <= 1e-4 ·
+max(1, |plain|) on finite entries and NEG_INF at the same places.  K2,
+float32: max|diff| / max|plain| <= 1e-4 per output; bfloat16, each step
+replayed: the carries' ratio <= 1e-3 and dgates within one bf16 rounding
+step.  The float32 train step: each K1 and K2 launch, max|diff| /
+max|plain| <= 1e-4 on its own tensors; kernels vs plain end to end, loss
+within 1e-4 relative, and the whole gradient's ||diff|| / ||plain|| and
+the worst leaf's max|diff| / max|plain| each within 10x what the plain
+versions themselves give when every weight is moved one unit in the
+last place (the trained model amplifies last-bit differences through
+~450 steps and 4 layers; the first layer's input weights show it most).
 """
 
 from __future__ import annotations
@@ -56,6 +90,13 @@ BF16_STEP_REL_TOL = 1e-3
 E2E_F32_MEAN_TOL = 1e-3
 E2E_F32_MAX_TOL = 2e-2
 LOGSUMEXP_TOL = 1e-4
+CTC_TOL = 1e-4
+STEP_LOSS_TOL = 1e-4
+STEP_NUDGE_FACTOR = 10.0
+# peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet)
+HBM_BYTES_PER_MS = 3.35e9
+BF16_FLOPS_PER_MS = 989e9
+F32_FLOPS_PER_MS = 67e9
 
 FLAGSHIP_CONFIG = {
     # the flagship WSJ treatment model (egs/wsj/run_wsj_phn.sh)
@@ -218,11 +259,26 @@ def write_corpus(pkg, work, rng, count=64):
 
 @contextlib.contextmanager
 def plain_versions(pkg):
-    """Route the model through the plain PyTorch versions on the card."""
-    with mock.patch.object(pkg["lstm_kernels"], "lstm_layer_forward",
-                           pkg["cells"].dual_recurrence), \
-            mock.patch.object(pkg["moe_kernels"], "moe_mix_fused",
-                              pkg["moe_kernels"].moe_mix_reference):
+    """Route the model and the loss through the plain PyTorch versions on
+    the card: every kernel wrapper replaced by what it runs on the CPU."""
+    cells, lstm_kernels, moe_kernels, ctc_kernels = (
+        pkg["cells"], pkg["lstm_kernels"], pkg["moe_kernels"],
+        pkg["ctc_kernels"])
+
+    def forward(*args, states=False, store_dtype=None):
+        out = cells.dual_recurrence(*args, states=states)
+        return out if not states else \
+            out[:3] + tuple(s.to(store_dtype) for s in out[3:])
+
+    with mock.patch.object(lstm_kernels, "lstm_layer_forward", forward), \
+            mock.patch.object(lstm_kernels, "lstm_layer_backward",
+                              cells.dual_recurrence_backward), \
+            mock.patch.object(moe_kernels, "moe_mix_fused",
+                              moe_kernels.moe_mix_reference), \
+            mock.patch.object(ctc_kernels, "ctc_alpha",
+                              ctc_kernels.alpha_reference), \
+            mock.patch.object(ctc_kernels, "ctc_beta",
+                              ctc_kernels.beta_reference):
         yield
 
 
@@ -434,6 +490,597 @@ def end_to_end(torch, pkg, device, rng):
     return result
 
 
+def dp_errors(got, ref, neg_inf):
+    """(max |diff| on finite entries, worst |diff| / max(1, |plain|)), and
+    whether NEG_INF sits at the same places."""
+    neg = ref <= neg_inf * 0.5
+    same = bool(((got <= neg_inf * 0.5) == neg).all())
+    diff = (got - ref).abs()[~neg]
+    rel = diff / ref.abs()[~neg].clamp(min=1.0)
+    return float(diff.max()), float(rel.max()), same
+
+
+def ctc_case(torch, device, rng, slots=96, steps=400, max_u=150, vocab=72):
+    """Logits and labels for the DP check: ragged time and label lengths,
+    a row of repeated labels, an infeasible pair and an empty label."""
+    logits = torch.from_numpy(
+        rng.randn(slots, steps, vocab).astype(np.float32)).to(device)
+    seq = rng.randint(steps // 2, steps + 1, slots)
+    seq[0] = steps
+    label_len = np.minimum(rng.randint(max_u // 3, max_u + 1, slots), seq // 2)
+    label_len[0] = max_u
+    labels = np.full((slots, max_u), -1, np.int64)
+    for n in range(slots):
+        labels[n, :label_len[n]] = rng.randint(0, vocab - 1, label_len[n])
+    labels[1, :label_len[1]] = 7            # every label repeated
+    label_len[2], seq[2] = max_u, max_u - 10  # more labels than frames
+    labels[2] = rng.randint(0, vocab - 1, max_u)
+    label_len[3] = 0                          # empty label
+    labels[3] = -1
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)
+    return logits, t(seq.astype(np.int32)), t(labels), t(label_len)
+
+
+def dp_args(torch, pkg, logits, seq, labels, label_len):
+    """The alpha and beta kernels' arguments, as ops/ctc builds them."""
+    ctc, NEG = pkg["ctc"], pkg["ctc_kernels"].NEG_INF
+    steps, vocab = logits.shape[1], logits.shape[2]
+    lengths = label_len.long()
+    ext, valid, can_skip = ctc._lattice(labels, lengths, vocab - 1)
+    lp = torch.log_softmax(logits, -1)
+    lp_ext = torch.gather(lp, 2, ext[:, None, :].expand(-1, steps, -1)
+                          ).transpose(0, 1).contiguous()
+    s = torch.arange(ext.shape[1], device=logits.device)[None, :]
+    init = (s == 0) | ((s == 1) & (lengths[:, None] > 0))
+    alpha0 = torch.where(init & valid, lp_ext[0],
+                         torch.full_like(lp_ext[0], NEG))
+    tt = torch.arange(steps, device=logits.device)[:, None]
+    time_mask = (tt < seq.long()[None, :]).contiguous()
+    end = 2 * lengths[:, None]
+    final = (((s == end) | ((s == end - 1) & (lengths[:, None] > 0)))
+             & valid).contiguous()
+    skip_from = torch.cat([can_skip[:, 2:], torch.zeros_like(
+        can_skip[:, :2])], 1).contiguous()
+    is_last = (tt == (seq.long() - 1)[None, :]).contiguous()
+    valid, can_skip = valid.contiguous(), can_skip.contiguous()
+    return ((lp_ext, time_mask, valid, can_skip, alpha0),
+            (lp_ext, time_mask, is_last, valid, skip_from, final))
+
+
+def check_ctc_dp(torch, pkg, device, rng):
+    ctc_kernels = pkg["ctc_kernels"]
+    F = torch.nn.functional
+    logits, seq, labels, label_len = ctc_case(torch, device, rng)
+    alpha_args, beta_args = dp_args(torch, pkg, logits, seq, labels,
+                                    label_len)
+    steps, slots, width = alpha_args[0].shape
+    say("  lattice: N=%d T=%d S=%d" % (slots, steps, width))
+    result = {}
+    for name, kernel, plain, args in (
+            ("ctc_alpha", ctc_kernels.ctc_alpha, ctc_kernels.alpha_reference,
+             alpha_args),
+            ("ctc_beta", ctc_kernels.ctc_beta, ctc_kernels.beta_reference,
+             beta_args)):
+        got = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        abs_err, rel_err, same = dp_errors(got, ref, ctc_kernels.NEG_INF)
+        say("  %s max_abs %.3e  max |diff|/max(1,|plain|) %.3e  NEG_INF "
+            "places identical: %s" % (name, abs_err, rel_err, same))
+        if not same or rel_err > CTC_TOL:
+            fail("%s differs from its plain version (rel %.3e, bound %.0e, "
+                 "NEG_INF places identical: %s)"
+                 % (name, rel_err, CTC_TOL, same))
+        ms, plain_ms = time_in_turns(torch, lambda: kernel(*args),
+                                     lambda: plain(*args), rounds=3)
+        # bytes: lp_ext read and the result written once (masks are small
+        # but counted); operations: ~10 per lattice entry and step
+        nbytes = (2 * 4 * steps * slots * width + steps * slots * 2
+                  + 3 * slots * width + 4 * slots * width)
+        bound_ms = max(nbytes / HBM_BYTES_PER_MS,
+                       10 * steps * slots * width / F32_FLOPS_PER_MS)
+        say("  %s kernel %.3f ms  plain %.3f ms  bound %.4f ms (bytes)"
+            % (name, ms, plain_ms, bound_ms))
+        result[name] = {"max_abs_err": abs_err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+    # the library yardstick: F.ctc_loss (native CUDA), blank = V-1
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+    lib_args = (labels.clamp(min=0), seq.long(), label_len.long())
+
+    def lib_forward():
+        return F.ctc_loss(lp, *lib_args, blank=logits.shape[2] - 1,
+                          reduction="none", zero_infinity=True)
+
+    def lib_both():
+        x = lp.detach().requires_grad_()
+        F.ctc_loss(x, *lib_args, blank=logits.shape[2] - 1,
+                   reduction="none", zero_infinity=True).sum().backward()
+
+    def port_both():
+        x = logits.detach().requires_grad_()
+        pkg["ctc"].ctc_loss(x, seq, labels, label_len).sum().backward()
+
+    fwd_ms, both_ms = time_in_turns(torch, lib_forward, lib_both, rounds=3)
+    port_ms, _ = time_in_turns(torch, port_both, lib_both, rounds=3,
+                               kernel_reps=1)
+    say("  F.ctc_loss forward %.3f ms, forward+backward %.3f ms; the port's "
+        "ctc_loss forward+backward (K10, K11 and the glue) %.3f ms"
+        % (fwd_ms, both_ms, port_ms))
+    result["ctc_alpha"]["library_ms"] = fwd_ms
+    result["ctc_beta"]["library_ms"] = both_ms
+    result["port_loss_ms"] = port_ms
+    return result
+
+
+def ratio(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30)
+
+
+def lstm_bwd_case(torch, pkg, device, dtype, reset, rng):
+    """K2's arguments at the flagship layer shape: a K1 forward with its
+    per-step states in the store dtype, and random output cotangents."""
+    cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
+    batch, steps, dim, units = 32, 384, 640, 320
+    gen = torch.Generator().manual_seed(13)
+    fw = cells.init_lstm_cell(gen, dim, units, units, True, device)
+    bw = cells.init_lstm_cell(gen, dim, units, units, True, device)
+    x = torch.from_numpy(rng.randn(batch, steps, dim).astype(np.float32)).to(device)
+    lengths = rng.randint(steps // 2, steps + 1, batch)
+    lengths[0] = steps
+    seq = torch.from_numpy(lengths.astype(np.int32)).to(device)
+    reset_mask = None
+    if reset:
+        starts = np.zeros((batch, steps), np.float32)
+        starts[:, 0] = 1.0
+        for b in range(batch):
+            starts[b, rng.randint(1, lengths[b], 2)] = 1.0
+        reset_mask = torch.from_numpy(starts).to(device)
+    gx, wh, proj, peep = cells.layer_inputs(
+        fw, bw, x, cells.reverse_sequence(x, seq), dtype)
+    _, keep = cells.step_masks(seq, reset_mask, steps, device)
+    args = (gx, seq, keep, wh, proj, peep, 5.0)
+    out, cfin, hfin, c_all, h_all = lstm_kernels.lstm_layer_forward(
+        *args, states=True, store_dtype=dtype)
+    dout = torch.from_numpy((0.1 * rng.randn(*out.shape)).astype(
+        np.float32)).to(device)
+    return args + (c_all, h_all, dout, torch.zeros_like(cfin),
+                   torch.zeros_like(hfin))
+
+
+def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
+    cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
+    args = lstm_bwd_case(torch, pkg, device, dtype, reset, rng)
+    name = str(dtype).split(".")[-1]
+    got = lstm_kernels.lstm_layer_backward(*args, store_dtype=dtype)
+    ref = cells.dual_recurrence_backward(*args, store_dtype=dtype)
+    torch.cuda.synchronize()
+    worst_abs = worst_rel = 0.0
+    for out, g, r in zip(("dgates", "dwh", "dproj", "dpeep"), got, ref):
+        if not torch.isfinite(g.float()).all():
+            fail("K2 %s: non-finite %s" % (name, out))
+        abs_err = float((g.float() - r.float()).abs().max())
+        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel,
+                                                            ratio(g, r))
+        say("  K2 %-8s reset=%-5s %-6s max_abs %.3e  rel %.3e"
+            % (name, reset, out, abs_err, ratio(g, r)))
+    if dtype == torch.float32 and worst_rel > F32_REL_TOL:
+        fail("K2 f32 reset=%s: relative error %.3e > %.1e"
+             % (reset, worst_rel, F32_REL_TOL))
+    if dtype == torch.bfloat16:
+        # each step from the kernel's own carries (bf16 rounding flips
+        # carry on along the sequence, as for K1)
+        dgates, _, _, _, dc_in, dh_in = lstm_kernels.lstm_layer_backward(
+            *args, store_dtype=dtype, steps=True)
+        dg, dc_out, dh_out = cells.replay_backward_steps(
+            *args[:-2], dc_in, dh_in, store_dtype=dtype)
+        step_rel = max(ratio(dc_out[1:], dc_in[:-1]),
+                       ratio(dh_out[1:], dh_in[:-1]))
+        rounding = bool(((dgates.float() - dg.float()).abs()
+                         <= 2.0 ** -7 * dg.float().abs() + 1e-6).all())
+        say("  K2 bfloat16 reset=%-5s per step: carries max rel %.3e (bound "
+            "%.0e); dgates within one bf16 rounding step: %s"
+            % (reset, step_rel, BF16_STEP_REL_TOL, rounding))
+        if step_rel > BF16_STEP_REL_TOL or not rounding:
+            fail("K2 bf16 per-step replay outside its bounds")
+    ms, plain_ms = time_in_turns(
+        torch, lambda: lstm_kernels.lstm_layer_backward(*args,
+                                                        store_dtype=dtype),
+        lambda: cells.dual_recurrence_backward(*args, store_dtype=dtype),
+        rounds=3, kernel_reps=2)
+    gx, c_all, dgates = args[0], args[7], got[0]
+    steps, b2, h4 = gx.shape
+    units, out_dim = h4 // 4, args[8].shape[2]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (gx, c_all, args[8], args[9], dgates) + tuple(
+                     w for w in got[1:] + args[3:6] if w is not None))
+    flops = 2 * steps * b2 * out_dim * (2 * h4 + units) \
+        + 2 * steps * b2 * (out_dim * h4 + units * out_dim)
+    peak = BF16_FLOPS_PER_MS if dtype == torch.bfloat16 else F32_FLOPS_PER_MS
+    bound_ms = max(nbytes / HBM_BYTES_PER_MS, flops / peak)
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_MS >= flops / peak \
+        else "operations"
+    say("  K2 %-8s reset=%-5s kernel %.3f ms (%.1f us/step)  plain %.3f ms  "
+        "bound %.4f ms (%s: %.1f MB, %.1f GFLOP)"
+        % (name, reset, ms, 1e3 * ms / steps, plain_ms, bound_ms, bound_by,
+           nbytes / 1e6, flops / 1e9))
+    return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def write_labeled_corpus(pkg, work, rng, count=288):
+    """288 utterances of 600-1200 raw 40-dim frames, each with raw/8
+    labels drawn from the 71 non-blank classes."""
+    records = pkg["records"]
+    scp = os.path.join(work, "train.scp")
+    with records.RecordShardWriter(os.path.join(work, "train.rec")) as writer:
+        for i in range(count):
+            frames = int(rng.randint(600, 1201))
+            labels = rng.randint(0, 71, frames // 8).astype(np.int32)
+            writer.write("spk%03d" % i, rng.randn(frames, 40).astype(
+                np.float32), labels)
+        metas = writer.metas
+    with open(scp, "w") as fh:
+        for meta in metas:
+            fh.write(meta.scp_line())
+    return scp
+
+
+class Tee:
+    """stderr that is also kept, so the log lines can be read back."""
+
+    def __init__(self, stream):
+        self.stream, self.lines = stream, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def value(self, name):
+        hits = [ln for ln in "".join(self.lines).splitlines()
+                if ln.startswith("INFO:") and (" %s = " % name in ln
+                                               or ":%s = " % name in ln)]
+        if not hits:
+            fail("no %s line in the log" % name)
+        return float(hits[-1].rsplit("=", 1)[1])
+
+
+KERNEL_NAMES = ("lstm_fwd", "lstm_bwd", "ctc_alpha", "ctc_beta", "moe_fwd")
+
+
+def counters(pkg):
+    return {"lstm_fwd": pkg["lstm_kernels"].lstm_layer_forward,
+            "lstm_bwd": pkg["lstm_kernels"].lstm_layer_backward,
+            "ctc_alpha": pkg["ctc_kernels"].ctc_alpha,
+            "ctc_beta": pkg["ctc_kernels"].ctc_beta,
+            "moe_fwd": pkg["moe_kernels"].moe_mix_fused}
+
+
+def run_counted(torch, pkg, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; return
+    (its value, the counts just after, seconds)."""
+    wrappers = counters(pkg)
+    for w in wrappers.values():
+        w.launches = 0
+    tee = Tee(sys.stderr)
+    start = time.perf_counter()
+    with contextlib.redirect_stderr(tee):
+        value = fn()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return value, tee, {k: w.launches for k, w in wrappers.items()}, seconds
+
+
+def expect_counts(what, got, want):
+    if got != want:
+        fail("%s: launch counts %s, expected %s" % (what, got, want))
+
+
+def train_end_to_end(torch, pkg, device, rng):
+    from lstm_ctc_tpu_torch.bin import nnet_init, nnet_train, nnet_validate
+    from lstm_ctc_tpu_torch.cli import (build_batcher, init_from_config,
+                                        make_shard_fn)
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.host.data import iterate_batches
+    from lstm_ctc_tpu_torch.train.checkpoint import (leaves_with_path,
+                                                     load_checkpoint,
+                                                     tree_map)
+    from lstm_ctc_tpu_torch.train.graph import (compute_losses, l2_loss,
+                                                make_train_step, param_leaves)
+    config = dict(FLAGSHIP_CONFIG, num_experts=0)
+    result = {"launches": {k: 0 for k in KERNEL_NAMES}}
+    with tempfile.TemporaryDirectory() as work:
+        config_path = os.path.join(work, "nnet.config")
+        with open(config_path, "w") as fh:
+            fh.write(format_config(config))
+        scp = write_labeled_corpus(pkg, work, rng)
+        common = ["--objective", "ctc", "--batch-size", "32", "--device",
+                  "cuda", "--report-interval", "0"]
+        cv_batches = len(build_batcher(scp, config, 32).batch_plan(False,
+                                                                    None))
+        train_batcher = build_batcher(scp, config, 32, pack_factor=3)
+        train_steps = len(train_batcher.batch_plan(True, 777))
+        say("  corpus: 288 utterances; %d CV batches; %d train steps an "
+            "epoch (pack factor 3, rows of %d frames)"
+            % (cv_batches, train_steps, train_batcher.row_time))
+        cv_counts = {"lstm_fwd": 4 * cv_batches, "lstm_bwd": 0,
+                     "ctc_alpha": cv_batches, "ctc_beta": 0, "moe_fwd": 0}
+        train_counts = {"lstm_fwd": 4 * train_steps,
+                        "lstm_bwd": 4 * train_steps,
+                        "ctc_alpha": train_steps, "ctc_beta": train_steps,
+                        "moe_fwd": 0}
+
+        def counted(name, fn, want):
+            _, tee, got, seconds = run_counted(torch, pkg, fn)
+            expect_counts(name, got, want)
+            for k in KERNEL_NAMES:
+                result["launches"][k] += got[k]
+            return tee, seconds
+
+        nnets = [os.path.join(work, "nnet%d.npz" % i) for i in range(3)]
+        tee, _ = counted("nnet_init", lambda: nnet_init.main(
+            [scp, config_path, nnets[0]] + common), cv_counts)
+        cv = [tee.value("cv_loss")]
+        tee, _ = counted("nnet_validate", lambda: nnet_validate.main(
+            [scp, config_path, nnets[0]] + common), cv_counts)
+        cv.append(tee.value("cv_loss"))
+        tr, epoch_s, metrics = [], [], []
+        for epoch in (1, 2):
+            metrics_file = os.path.join(work, "metrics%d.jsonl" % epoch)
+            tee, seconds = counted("nnet_train", lambda: nnet_train.main(
+                [scp, config_path, nnets[epoch - 1], nnets[epoch],
+                 "--optimizer", "adam", "--learn-rate", "1e-3",
+                 "--pack-factor", "3", "--metrics-file", metrics_file]
+                + common), train_counts)
+            tr.append(tee.value("tr_loss"))
+            epoch_s.append(seconds)
+            with open(metrics_file) as fh:
+                metrics.append([json.loads(ln) for ln in fh])
+            tee, _ = counted("nnet_validate", lambda: nnet_validate.main(
+                [scp, config_path, nnets[epoch]] + common), cv_counts)
+            cv.append(tee.value("cv_loss"))
+        say("  cv_loss %s; tr_loss %s; epochs %.1f s, %.1f s (checkpoint "
+            "load, batching and save included)"
+            % (["%.4f" % v for v in cv], ["%.4f" % v for v in tr],
+               epoch_s[0], epoch_s[1]))
+        if not all(math.isfinite(v) for v in cv + tr):
+            fail("non-finite tr_loss or cv_loss")
+        if not cv[-1] < cv[0]:
+            fail("the last cv_loss %.4f is not below the first %.4f"
+                 % (cv[-1], cv[0]))
+        template, state = init_from_config(config, device)
+        for path in nnets:
+            params, _, _ = load_checkpoint(path, template, state)
+            if not all(torch.isfinite(p).all() for p in param_leaves(params)):
+                fail("%s holds non-finite weights" % path)
+        say("  launches on the main path (init, 3 validations, 2 epochs): %s"
+            % result["launches"])
+
+        # the warm epoch's steps: host clock around each step, which ends in
+        # reading the loss (a synchronisation); every utterance's frames
+        # are trained once an epoch
+        steps = metrics[1]
+        frames = sum(train_batcher._lengths)
+        fill = frames / (len(steps) * 32 * train_batcher.row_time)
+        result.update(
+            step_ms=1e3 * statistics.median(m["step_time"] for m in steps),
+            fps=frames / sum(m["step_time"] for m in steps), fill=fill)
+        say("  epoch 2: median train step %.1f ms; %.1f real frames/s; "
+            "packing fill %.3f" % (result["step_ms"], result["fps"], fill))
+
+        # one batch of the packed training stream, for the step checks
+        shard = make_shard_fn(device)
+        batch = shard(next(iter(iterate_batches(train_batcher, shuffle=True,
+                                                seed=777))))
+        train_config = dict(config, packed_slots_rank_major=True)
+        base, _, _ = load_checkpoint(nnets[2], template, state)
+
+        def fresh(nudge=None):
+            """A differentiable copy of the trained weights; with a
+            generator ``nudge``, each weight moved one unit in the last
+            place, up or down at random."""
+            def copy(t):
+                t = t.detach().clone()
+                if nudge is not None:
+                    up = torch.rand(t.shape, generator=nudge,
+                                    device=t.device) < 0.5
+                    t = torch.nextafter(t, torch.where(up, math.inf,
+                                                       -math.inf))
+                return t.requires_grad_()
+            return tree_map(copy, base)
+
+        # float32: one step's loss and gradients, kernels vs plain
+        f32 = dict(train_config, compute_dtype="float32",
+                   store_dtype="float32", dropout_rate=1.0)
+
+        def grads(plain, nudge=None):
+            params = fresh(nudge)
+            with (plain_versions(pkg) if plain else contextlib.nullcontext()):
+                metrics_, _, _ = compute_losses(params, {}, batch, f32,
+                                                train=True)
+                total = metrics_["loss"] + 1e-5 * l2_loss(params)
+                g = torch.autograd.grad(total, param_leaves(params))
+            return float(total.detach()), g
+
+        worst32 = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
+        with held_f32(torch, pkg, worst32):
+            loss_k, grad_k = grads(False)
+        say("  float32 train step, each K1 and K2 launch vs its plain version "
+            "on the same tensors: K1 max rel %.3e, K2 max rel %.3e (bound "
+            "%.0e)" % (worst32["lstm_fwd"], worst32["lstm_bwd"], F32_REL_TOL))
+        if max(worst32.values()) > F32_REL_TOL:
+            fail("a float32 K1 or K2 launch of the train step differs from "
+                 "its plain version")
+        loss_p, grad_p = grads(True)
+
+        def versus_plain(loss, grad):
+            """(loss rel, ||diff||/||plain||, [(leaf ratio, leaf)] worst
+            first) of one step's loss and gradients against the plain
+            versions'."""
+            grad_rel = math.sqrt(
+                sum(float(((a - b) ** 2).sum()) for a, b in zip(grad, grad_p))
+                / sum(float((b ** 2).sum()) for b in grad_p))
+            leaves = sorted(((ratio(a, b), key) for a, b, (key, _)
+                             in zip(grad, grad_p, leaves_with_path(base))),
+                            reverse=True)
+            return abs(loss - loss_p) / abs(loss_p), grad_rel, leaves
+
+        loss_rel, grad_rel, leaves = versus_plain(loss_k, grad_k)
+        # what the plain versions themselves make of a last-bit change of
+        # every weight: the yardstick for the differences above
+        nudged = versus_plain(*grads(
+            True, torch.Generator(device).manual_seed(3)))
+        grad_bound = STEP_NUDGE_FACTOR * nudged[1]
+        leaf_bound = STEP_NUDGE_FACTOR * nudged[2][0][0]
+        say("  the plain versions with every weight moved one unit in the "
+            "last place, vs unmoved: loss rel %.3e; gradient ||diff||/"
+            "||plain|| %.3e; worst leaf %s max|diff|/max|plain| %.3e"
+            % (nudged[0], nudged[1], nudged[2][0][1], nudged[2][0][0]))
+        say("  float32 train step, kernels vs plain versions: loss %.6f vs "
+            "%.6f (rel %.3e, bound %.0e); gradient ||diff||/||plain|| %.3e "
+            "(bound %.3e); worst leaf %s %.3e (bound %.3e)"
+            % (loss_k, loss_p, loss_rel, STEP_LOSS_TOL, grad_rel, grad_bound,
+               leaves[0][1], leaves[0][0], leaf_bound))
+        say("  gradient leaves, largest max|diff|/max|plain| first: kernels "
+            "%s; nudged plain %s"
+            % tuple(", ".join("%s %.2e" % (k, r) for r, k in rels[:6])
+                    for rels in (leaves, nudged[2])))
+        if (loss_rel > STEP_LOSS_TOL or grad_rel > grad_bound
+                or leaves[0][0] > leaf_bound):
+            fail("the float32 train step differs from the plain versions "
+                 "by more than %.0fx a last-bit change of the weights does"
+                 % STEP_NUDGE_FACTOR)
+
+        # bfloat16: one step, every K2/K10/K11 launch held to its plain
+        # version on the tensors the model gave it
+        worst = {"lstm_bwd": 0.0, "ctc_alpha": 0.0, "ctc_beta": 0.0}
+        init_opt, step = make_train_step(train_config, 1e-3, "adam")
+        params = fresh()
+        with held_in_training(torch, pkg, worst):
+            step(params, init_opt(params), {},
+                 torch.Generator(device).manual_seed(1), batch)
+            torch.cuda.synchronize()
+        say("  bfloat16 train step, each launch vs its plain version: K2 "
+            "per-step carries max rel %.3e (bound %.0e); K10 %.3e, K11 %.3e "
+            "(bound %.0e on |diff|/max(1,|plain|))"
+            % (worst["lstm_bwd"], BF16_STEP_REL_TOL, worst["ctc_alpha"],
+               worst["ctc_beta"], CTC_TOL))
+
+        profile_step(torch, init_opt, step, fresh(), batch, device,
+                     result["step_ms"])
+    return result
+
+
+@contextlib.contextmanager
+def held_f32(torch, pkg, worst):
+    """Run each K1 and K2 launch, then its plain version on the same
+    tensors; ``worst`` collects the largest ratio per kernel."""
+    cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
+    k1, k2 = lstm_kernels.lstm_layer_forward, lstm_kernels.lstm_layer_backward
+
+    def forward(*args, states=False, store_dtype=None):
+        got = k1(*args, states=states, store_dtype=store_dtype)
+        ref = cells.dual_recurrence(*args, states=states)
+        worst["lstm_fwd"] = max(worst["lstm_fwd"],
+                                max(ratio(g, r) for g, r in zip(got, ref)))
+        return got
+
+    def backward(*args, store_dtype=None):
+        got = k2(*args, store_dtype=store_dtype)
+        ref = cells.dual_recurrence_backward(*args, store_dtype=store_dtype)
+        worst["lstm_bwd"] = max(worst["lstm_bwd"], max(
+            ratio(g, r) for g, r in zip(got, ref) if g is not None))
+        return got
+
+    forward.launches = backward.launches = 0
+    with mock.patch.object(lstm_kernels, "lstm_layer_forward", forward), \
+            mock.patch.object(lstm_kernels, "lstm_layer_backward", backward):
+        yield
+
+
+@contextlib.contextmanager
+def held_in_training(torch, pkg, worst):
+    cells, lstm_kernels, ctc_kernels = (pkg["cells"], pkg["lstm_kernels"],
+                                        pkg["ctc_kernels"])
+    k2, k10, k11 = (lstm_kernels.lstm_layer_backward, ctc_kernels.ctc_alpha,
+                    ctc_kernels.ctc_beta)
+
+    def backward(*args, store_dtype=None, steps=False):
+        if args[3].dtype != torch.bfloat16 or store_dtype != torch.bfloat16:
+            fail("K2 launched in %s with store %s, expected bfloat16"
+                 % (args[3].dtype, store_dtype))
+        out = k2(*args, store_dtype=store_dtype, steps=True)
+        dgates, dc_in, dh_in = out[0], out[4], out[5]
+        dg, dc_out, dh_out = cells.replay_backward_steps(
+            *args[:-2], dc_in, dh_in, store_dtype=store_dtype)
+        rel = max(ratio(dc_out[1:], dc_in[:-1]), ratio(dh_out[1:], dh_in[:-1]))
+        rounding = bool(((dgates.float() - dg.float()).abs()
+                         <= 2.0 ** -7 * dg.float().abs() + 1e-6).all())
+        worst["lstm_bwd"] = max(worst["lstm_bwd"], rel)
+        if rel > BF16_STEP_REL_TOL or not rounding:
+            fail("K2 on the main path: a step's carries differ by %.3e "
+                 "(bound %.0e); dgates within one rounding step: %s"
+                 % (rel, BF16_STEP_REL_TOL, rounding))
+        return out[:4] if not steps else out
+
+    def held_dp(name, kernel, plain):
+        def run(*args):
+            got = kernel(*args)
+            _, rel, same = dp_errors(got, plain(*args), ctc_kernels.NEG_INF)
+            worst[name] = max(worst[name], rel)
+            if rel > CTC_TOL or not same:
+                fail("%s on the main path: rel %.3e, NEG_INF places "
+                     "identical: %s" % (name, rel, same))
+            return got
+        run.launches = 0
+        return run
+
+    backward.launches = 0
+    with mock.patch.object(lstm_kernels, "lstm_layer_backward", backward), \
+            mock.patch.object(ctc_kernels, "ctc_alpha", held_dp(
+                "ctc_alpha", k10, ctc_kernels.alpha_reference)), \
+            mock.patch.object(ctc_kernels, "ctc_beta", held_dp(
+                "ctc_beta", k11, ctc_kernels.beta_reference)):
+        yield
+
+
+def profile_step(torch, init_opt, step, params, batch, device, step_ms):
+    """torch.profiler over one warm bf16 train step: device time by kernel,
+    and the device's busy share of the median unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    opt_state = init_opt(params)
+    gen = torch.Generator(device).manual_seed(2)
+    for _ in range(2):                                  # warm
+        step(params, opt_state, {}, gen, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, {}, gen, batch)
+        torch.cuda.synchronize()
+    rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA
+                   and evt.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    say("  profiled train step: device kernels %.1f ms, %.0f%% of the "
+        "median step (%.1f ms)" % (busy, 100 * busy / step_ms, step_ms))
+    for ms, count, key in rows[:14]:
+        say("    %9.3f ms  %5d x  %s" % (ms, count, key[:90]))
+
+
+def reference_files():
+    """Modules loaded from a file of the JAX package's directory."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ref = os.path.join(here, "lstm_ctc_tpu") + os.sep
+    return sorted(name for name, mod in list(sys.modules.items())
+                  if (getattr(mod, "__file__", None) or "").startswith(ref))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -445,11 +1092,11 @@ def main() -> None:
     from lstm_ctc_tpu_torch import _build
     from lstm_ctc_tpu_torch.host.data import records
     from lstm_ctc_tpu_torch.models import cells, moe
-    from lstm_ctc_tpu_torch.ops import lstm_kernels, moe_kernels
+    from lstm_ctc_tpu_torch.ops import (ctc, ctc_kernels, lstm_kernels,
+                                        moe_kernels)
     pkg = {"cells": cells, "moe": moe, "lstm_kernels": lstm_kernels,
-           "moe_kernels": moe_kernels, "records": records}
-    if "jax" in sys.modules or "lstm_ctc_tpu" in sys.modules:
-        fail("the port imported jax or the reference package")
+           "moe_kernels": moe_kernels, "records": records, "ctc": ctc,
+           "ctc_kernels": ctc_kernels}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -470,41 +1117,97 @@ def main() -> None:
             say("  ptxas: " + line.strip())
 
     rng = np.random.RandomState(0)
-    say("phase 3 kernel A (BLSTM layer forward)")
+    say("phase 3 K1 (BLSTM layer forward)")
     lstm = {}
     for dtype in (torch.float32, torch.bfloat16):
         for reset in (False, True):
             lstm[(dtype, reset)] = check_lstm(torch, pkg, device, dtype, reset, rng)
-    say("phase 4 kernel B (MoE expert mix)")
+    say("phase 4 K4 (MoE expert mix)")
     moe_res = {}
     for dtype in (torch.float32, torch.bfloat16):
         for keep_prob in (1.0, 0.9):
             moe_res[(dtype, keep_prob)] = check_moe(torch, pkg, device, dtype,
                                                     keep_prob, rng)
-    say("phase 5 end to end (nnet_forward, flagship model, cuda)")
+    say("phase 5 serving end to end (nnet_forward, flagship model, cuda)")
     e2e = end_to_end(torch, pkg, device, rng)
+    say("phase 6 K10/K11 (CTC alpha and beta DP)")
+    dp = check_ctc_dp(torch, pkg, device, rng)
+    say("phase 7 K2 (BLSTM layer backward)")
+    bwd = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for reset in (False, True):
+            bwd[(dtype, reset)] = check_lstm_bwd(torch, pkg, device, dtype,
+                                                 reset, rng)
+    say("phase 8 training end to end (nnet_init / nnet_train / "
+        "nnet_validate, flagship dense-head model, cuda)")
+    train = train_end_to_end(torch, pkg, device, rng)
 
+    bad = reference_files()
+    if "jax" in sys.modules or bad:
+        fail("the port imported jax or files of the reference package: %s"
+             % bad[:5])
+
+    launches = dict(train["launches"])
+    for k, v in e2e["launches"].items():
+        launches[k] += v
+    for name in KERNEL_NAMES:
+        if launches[name] == 0:
+            fail("%s was never launched on the main paths" % name)
     a_err, a_ms, a_plain = lstm[(torch.bfloat16, False)]
     b_err, b_ms, b_plain = moe_res[(torch.bfloat16, 1.0)]
+    # K1: gx read and out written once (f32) at B=32, T=384, H=P=320
+    k1_bytes = 384 * 64 * (4 * 320 + 320) * 4
+    k1_flops = 2 * 384 * 64 * 320 * (4 * 320 + 320)
+    # K4: 2·N·D·E·V at N=12288, D=640, E=V=72; x, out and W (bf16) once
+    k4_flops = 2 * 12288 * 640 * 72 * 72
+    k4_bytes = 12288 * 640 * 4 + 12288 * 72 * 4 + 640 * 72 * 72 * 2
+    k2 = bwd[(torch.bfloat16, True)]
     kernels = [
         {"name": "lstm_fwd", "route": "cuda",
          "source": "lstm_ctc_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "lstm_ctc_tpu/ops/lstm_pallas.py:57",
-         "launches": e2e["launches"]["lstm_fwd"], "max_abs_err": a_err,
-         "ms": a_ms, "plain_ms": a_plain},
+         "launches": launches["lstm_fwd"], "max_abs_err": a_err,
+         "ms": a_ms, "plain_ms": a_plain,
+         "bound_ms": max(k1_bytes / HBM_BYTES_PER_MS,
+                         k1_flops / BF16_FLOPS_PER_MS),
+         "bound_by": "bytes", "library_ms": None},
         {"name": "moe_fwd", "route": "cuda",
          "source": "lstm_ctc_tpu_torch/csrc/moe_fwd.cu",
          "replaces": "lstm_ctc_tpu/ops/moe_pallas.py:212",
-         "launches": e2e["launches"]["moe_fwd"], "max_abs_err": b_err,
-         "ms": b_ms, "plain_ms": b_plain},
+         "launches": launches["moe_fwd"], "max_abs_err": b_err,
+         "ms": b_ms, "plain_ms": b_plain,
+         "bound_ms": max(k4_bytes / HBM_BYTES_PER_MS,
+                         k4_flops / BF16_FLOPS_PER_MS),
+         "bound_by": "operations", "library_ms": None},
+        {"name": "lstm_bwd", "route": "cuda",
+         "source": "lstm_ctc_tpu_torch/csrc/lstm_bwd.cu",
+         "replaces": "lstm_ctc_tpu/ops/lstm_pallas.py:134",
+         "launches": launches["lstm_bwd"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None},
     ]
+    for name, line in (("ctc_alpha", 46), ("ctc_beta", 78)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "lstm_ctc_tpu_torch/csrc/ctc_dp.cu",
+            "replaces": "lstm_ctc_tpu/ops/ctc_pallas.py:%d" % line,
+            "launches": launches[name],
+            "max_abs_err": dp[name]["max_abs_err"], "ms": dp[name]["ms"],
+            "plain_ms": dp[name]["plain_ms"],
+            "bound_ms": dp[name]["bound_ms"], "bound_by": "bytes",
+            "library_ms": dp[name]["library_ms"]})
     say("summary on %s: nnet_forward %.1f frames/s (64 utterances, model "
         "init and checkpoint load included); flagship forward B=32 T=384 "
-        "%.1f frames/s"
-        % (smi, e2e["fps_warm"], 32 * 384 / e2e["model_ms"] * 1e3))
+        "%.1f frames/s; flagship dense-head train step (B=32, pack 3) "
+        "median %.1f ms, %.1f real frames/s, packing fill %.3f"
+        % (smi, e2e["fps_warm"], 32 * 384 / e2e["model_ms"] * 1e3,
+           train["step_ms"], train["fps"], train["fill"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
-    if not all(math.isfinite(v) for v in (a_ms, b_ms, e2e["fps_warm"])):
+    numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
+        e2e["fps_warm"], train["step_ms"]]
+    if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

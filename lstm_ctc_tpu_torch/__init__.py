@@ -1,9 +1,11 @@
 """lstm_ctc_tpu_torch — the PyTorch/CUDA port of lstm_ctc_tpu.
 
-The serving path (``nnet-forward``: BLSTM + MoE head) runs through two
-kernels written by hand for Hopper (``csrc/``).  Host modules that need no
-JAX are shared with the reference package through ``host`` (see its
-docstring).  This package imports torch and never jax.
+The serving path (``nnet-forward``: BLSTM + MoE head) and the training
+path (``nnet-init`` / ``nnet-train`` / ``nnet-validate``: CTC loss, BLSTM
+backward, adam) run through kernels written by hand for Hopper
+(``csrc/``).  The host modules (config, logging, records and batching,
+Kaldi I/O, decoding) are the port's own copies, in ``host``.  This package
+imports torch, never jax, and nothing of ``lstm_ctc_tpu``.
 """
 
 __version__ = "0.1.0"

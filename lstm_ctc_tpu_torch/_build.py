@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``csrc/`` and load them with ctypes.
 
-The sources are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface, under ``lstm_ctc_tpu_torch/build/`` and named by a
-hash of the sources and flags, so an unchanged tree reuses it.  Nothing
+The sources are compiled at first use by ``nvcc``, one process per ``.cu``
+file, all started together, and linked into one shared library with a
+plain C interface, under ``lstm_ctc_tpu_torch/build/`` and named by a hash
+of the sources and flags, so an unchanged tree reuses it.  Nothing
 here runs at import time: this module is imported on machines without
 ``nvcc`` or a GPU, where only the plain PyTorch versions run.  A failed
 build raises; there is no fallback.
@@ -24,7 +25,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,11 +33,25 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (all return a cudaError_t as int)
 SIGNATURES = {
     # device, gx, lengths, keep, wh slices, proj slices, peep, forget_bias,
-    # T, B, H, P, out, c_all, h_all, cfin, hfin, stream
+    # T, B, H, P, out, c_all, h_all, states_bf16, cfin, hfin, stream
     "lstm_fwd_f32": [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P],
+                     _P, _P, _P, _I, _P, _P, _P],
     "lstm_fwd_bf16": [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P],
+                      _P, _P, _P, _I, _P, _P, _P],
+    # device, gx, lengths, keep, c_all, h_all, wh, whT, projT, peep,
+    # forget_bias, dout, dcfin, dhfin, T, B, H, P, store_bf16, dgates,
+    # c_new, out_blk, dout_p stashes, dc_in, dh_in, dwh, dproj, dpeep,
+    # scratch, stream
+    "lstm_bwd_f32": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
+                    + [_P] * 11,
+    "lstm_bwd_bf16": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
+                     + [_P] * 11,
+    # device, lp_ext, time_mask, valid, can_skip, alpha0, T, N, S, out,
+    # stream
+    "ctc_alpha": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # device, lp_ext, time_mask, is_last, valid, skip_from, final_mask,
+    # T, N, S, out, stream
+    "ctc_beta": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # device, x, w, b, gate, N, D, E, V, tau, keep_prob, seed, out, stream
     "moe_fwd_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                     ctypes.c_uint32, _P, _P],
@@ -76,20 +91,29 @@ def build() -> dict:
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": "(cached)"}
     cu = [p for p in sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR,
-                                                    "-o", tmp] + cu,
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (%d):\n%s%s"
-                           % (proc.returncode, proc.stdout, proc.stderr))
-    os.replace(tmp, path)  # atomic: a concurrent build never sees a partial
-    return {"path": path, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, os.path.basename(p) + ".o") for p in cu]
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-I", CSRC_DIR, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src, proc.returncode, out) for src, proc, out
+                  in zip(cu, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                "%s (%d):\n%s" % f for f in failed))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp] + objs,
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed (%d):\n%s%s"
+                               % (link.returncode, link.stdout, link.stderr))
+        os.replace(tmp, path)  # atomic: a concurrent build never sees a partial
+    return {"path": path, "seconds": time.perf_counter() - start,
+            "log": "".join(logs)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,6 +128,8 @@ def library() -> ctypes.CDLL:
     lib.kernels_error_string.restype = ctypes.c_char_p
     lib.lstm_fwd_cluster_size.argtypes = []
     lib.lstm_fwd_cluster_size.restype = ctypes.c_int
+    lib.lstm_bwd_scratch_floats.argtypes = [_I, _I, _I, _I]
+    lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 

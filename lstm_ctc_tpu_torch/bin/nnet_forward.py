@@ -26,7 +26,7 @@ from ..host import kaldi
 from ..host import logging_util as log
 from ..host.config import parse_config
 from ..host.data import iterate_batches
-from ..host.train.class_prior import get_class_prior, subtract_log_prior
+from ..host.class_prior import get_class_prior, subtract_log_prior
 from ..models import apply_model
 from ..train.checkpoint import load_checkpoint
 
@@ -48,7 +48,8 @@ def forward(args) -> int:
     template_params, template_state = init_from_config(config, device)
     params, net_state, _ = load_checkpoint(args.nnet_in, template_params,
                                            template_state)
-    batcher = build_batcher(args.tfrecords_scp, config, args.batch_size)
+    batcher = build_batcher(args.tfrecords_scp, config, args.batch_size,
+                            need_labels=False)
     writer = kaldi.BaseFloatMatrixWriter(args.nnet_output)
     processed = 0
     with torch.inference_mode():

@@ -47,7 +47,8 @@
 // [2, 8, H16, PS]: US a multiple of 8, PS of 16, the depths P16 and H16
 // rounded up to 16, zero-padded).  The kernel allocates nothing and
 // launches on the caller's stream.  c_all and h_all (the per-step states a
-// backward pass needs) are written only when non-null.
+// backward pass needs) are written only when non-null, in float32 or, with
+// states_bf16, in bfloat16 (the store dtype of lstm_pallas.py:483-484).
 
 #include <cooperative_groups.h>
 
@@ -73,6 +74,14 @@ constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
 __device__ __forceinline__ float sigmoidf(float v) {
   return 1.0f / (1.0f + expf(-v));
+}
+
+// one per-step state, in float32 or bfloat16
+__device__ __forceinline__ void put_state(void* p, size_t i, float v, bool bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  else
+    static_cast<float*>(p)[i] = v;
 }
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -291,8 +300,9 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
     const float* __restrict__ peep,    // [2, 3, H] or null
     float forget_bias, int steps, int batch, int units, int out_dim,
     float* __restrict__ out,           // [T, 2B, P]
-    float* __restrict__ c_all,         // [T, 2B, H] or null
-    float* __restrict__ h_all,         // [T, 2B, P] or null
+    void* __restrict__ c_all,          // [T, 2B, H] or null
+    void* __restrict__ h_all,          // [T, 2B, P] or null
+    bool states_bf16,                  // c_all, h_all in bfloat16
     float* __restrict__ cfin,          // [2B, H]
     float* __restrict__ hfin) {        // [2B, P]
   cg::cluster_group cluster = cg::this_cluster();
@@ -401,14 +411,14 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
         const float m = t < len_b ? 1.0f : 0.0f;
         const float cv = m * cn + (1.0f - m) * cp;
         c_own[ib] = cv;
-        if (c_all) c_all[(row0 + rb) * H + ub] = cv;
+        if (c_all) put_state(c_all, (row0 + rb) * H + ub, cv, states_bf16);
         if (has_proj) {
           share = o;
         } else {
           const float hv = m * o + (1.0f - m) * h_own[ib];
           h_own[ib] = hv;
           out[(row0 + rb) * P + ub] = m * o;
-          if (h_all) h_all[(row0 + rb) * P + ub] = hv;
+          if (h_all) put_state(h_all, (row0 + rb) * P + ub, hv, states_bf16);
           share = hv;
         }
         if (t + 1 < steps) {
@@ -447,7 +457,7 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
         const float hv = m * o + (1.0f - m) * h_own[i];
         h_own[i] = hv;
         out[(row0 + r) * P + p] = m * o;
-        if (h_all) h_all[(row0 + r) * P + p] = hv;
+        if (h_all) put_state(h_all, (row0 + r) * P + p, hv, states_bf16);
         share = hv;
       }
       stage[i] = Dtype<T>::from_float(share);
@@ -473,7 +483,9 @@ struct Args {
   const void *gx, *lengths, *keep, *wh_sl, *proj_sl, *peep;
   float forget_bias;
   int steps, batch, units, out_dim;
-  void *out, *c_all, *h_all, *cfin, *hfin;
+  void *out, *c_all, *h_all;
+  bool states_bf16;
+  void *cfin, *hfin;
   cudaStream_t stream;
 };
 
@@ -515,7 +527,7 @@ cudaError_t launch_rows(const Args& a, bool force, bool* launched) {
       &cfg, lstm_fwd_kernel<T, R>, (const float*)a.gx, (const int*)a.lengths,
       (const float*)a.keep, (const T*)a.wh_sl, (const T*)a.proj_sl,
       (const float*)a.peep, a.forget_bias, a.steps, a.batch, a.units,
-      a.out_dim, (float*)a.out, (float*)a.c_all, (float*)a.h_all,
+      a.out_dim, (float*)a.out, a.c_all, a.h_all, a.states_bf16,
       (float*)a.cfin, (float*)a.hfin);
   if (err != cudaSuccess) return err;
   *launched = true;
@@ -543,11 +555,12 @@ int launch(int device, const Args& a) {
   int device, const void *gx, const void *lengths, const void *keep,          \
       const void *wh_sl, const void *proj_sl, const void *peep,               \
       float forget_bias, int steps, int batch, int units, int out_dim,        \
-      void *out, void *c_all, void *h_all, void *cfin, void *hfin,            \
-      void *stream
+      void *out, void *c_all, void *h_all, int states_bf16, void *cfin,       \
+      void *hfin, void *stream
 #define LSTM_FWD_PACK                                                          \
   Args{gx, lengths, keep, wh_sl, proj_sl, peep, forget_bias, steps, batch,    \
-       units, out_dim, out, c_all, h_all, cfin, hfin, (cudaStream_t)stream}
+       units, out_dim, out, c_all, h_all, states_bf16 != 0, cfin, hfin,       \
+       (cudaStream_t)stream}
 
 extern "C" int lstm_fwd_f32(LSTM_FWD_ARGS) {
   return launch<float>(device, LSTM_FWD_PACK);

@@ -1,4 +1,4 @@
-"""Residual projected bidirectional LSTM acoustic model (evaluation).
+"""Residual projected bidirectional LSTM acoustic model.
 
 Counterpart of ``lstm_ctc_tpu/models/blstm.py:40-257``:
   * per-layer forward and backward LSTM cells (peepholes, projection,
@@ -9,8 +9,11 @@ Counterpart of ``lstm_ctc_tpu/models/blstm.py:40-257``:
   * head: dense, or the MoE mixture-of-softmaxes head when
     ``num_experts > 0``;
   * the uniform / prior label-smoothing KL regularizers;
-  * an ``encoder`` vector: concat of both final states.
-Training (dropout) is a later slice.
+  * an ``encoder`` vector: concat of both final states;
+  * in training, per-direction output dropout with *keep* probability
+    ``dropout_rate`` after every layer, and each layer differentiable
+    through the backward kernel (``lstm_kernels.bilstm_dual_scan_train``).
+The MoE head's training is a later slice.
 """
 
 from __future__ import annotations
@@ -20,10 +23,10 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ..host.train.class_prior import get_class_prior
+from ..host.class_prior import get_class_prior
 from ..ops import lstm_kernels
-from .cells import (init_lstm_cell, reverse_segments, reverse_sequence,
-                    truncated_normal)
+from .cells import (dropout, init_lstm_cell, reverse_segments,
+                    reverse_sequence, truncated_normal)
 from .moe import apply_moe, init_moe
 
 FORGET_BIAS = 5.0
@@ -56,6 +59,15 @@ def _compute_dtype(config: Dict, device) -> torch.dtype:
         return torch.float32
     return torch.bfloat16 if torch.device(device).type == "cuda" \
         else torch.float32
+
+
+def _store_dtype(config: Dict) -> torch.dtype:
+    """Precision of the per-step states kept for the backward and of the
+    dgates stream (``store_dtype`` in nnet.config; bfloat16 by default, as
+    ``blstm._fused_store_dtype`` of the reference)."""
+    raw = str(config.get("store_dtype", "") or "").lower()
+    return torch.float32 if raw in ("float32", "f32", "fp32") \
+        else torch.bfloat16
 
 
 def init_blstm(generator: torch.Generator, config: Dict,
@@ -110,15 +122,24 @@ def apply_blstm(params: Dict,
                 nnet_input: torch.Tensor,
                 sequence_length: torch.Tensor,
                 config: Dict,
-                reset_mask=None) -> Tuple[torch.Tensor, torch.Tensor, List]:
+                reset_mask=None,
+                train: bool = False,
+                generator=None) -> Tuple[torch.Tensor, torch.Tensor, List]:
     """nnet_input ``[B, T, D·ctx]`` (already spliced) → (logits [B, T, V],
     encoder [B, 2(H+P)], reg_losses).
 
     ``reset_mask`` ``[B, T]`` marks the first frame of each segment when
     rows pack several utterances: the carry is zeroed there and the
-    backward direction reverses each segment in place."""
+    backward direction reverses each segment in place.  With ``train``
+    the layers are differentiable, and ``generator`` (on the input's
+    device) draws the dropout masks."""
     dims = _model_dims(config)
     compute_dtype = _compute_dtype(config, nnet_input.device)
+    keep_prob = float(config.get("dropout_rate", 1.0)) if train else 1.0
+    if train and dims["num_experts"] > 0:
+        raise NotImplementedError(
+            "training the MoE head is not ported to PyTorch yet (ROADMAP "
+            "queue 1: the MoE head's training slice)")
 
     if reset_mask is None:
         def rev(v):
@@ -130,11 +151,21 @@ def apply_blstm(params: Dict,
     finput = nnet_input
     binput = rev(nnet_input)
     for i in range(dims["num_layers"]):
-        fw_out, bw_out, (fw_state, bw_state) = \
-            lstm_kernels.bilstm_dual_scan_fused(
-                params["fwd"][i], params["bwd"][i], finput, binput,
-                sequence_length, FORGET_BIAS, compute_dtype=compute_dtype,
-                reset_mask=reset_mask)
+        if train:
+            fw_out, bw_out, (fw_state, bw_state) = \
+                lstm_kernels.bilstm_dual_scan_train(
+                    params["fwd"][i], params["bwd"][i], finput, binput,
+                    sequence_length, FORGET_BIAS, compute_dtype=compute_dtype,
+                    reset_mask=reset_mask, store_dtype=_store_dtype(config))
+        else:
+            fw_out, bw_out, (fw_state, bw_state) = \
+                lstm_kernels.bilstm_dual_scan_fused(
+                    params["fwd"][i], params["bwd"][i], finput, binput,
+                    sequence_length, FORGET_BIAS,
+                    compute_dtype=compute_dtype, reset_mask=reset_mask)
+        if keep_prob < 1.0 and generator is not None:
+            fw_out = dropout(generator, fw_out, keep_prob)
+            bw_out = dropout(generator, bw_out, keep_prob)
         cat = torch.cat([fw_out, rev(bw_out)], dim=2)
         if i == 0 and dims["input_dim"] == dims["output_dim"]:
             finput = finput + cat

@@ -1,4 +1,5 @@
-"""LSTM cell primitives: parameter init and the plain dual-direction scan.
+"""LSTM cell primitives: parameter init, the plain dual-direction scan and
+its backward, dropout.
 
 Counterpart of ``lstm_ctc_tpu/models/cells.py``.  Semantics are TF1's
 ``LSTMCell`` as the reference uses it: optional diagonal peepholes, optional
@@ -6,9 +7,10 @@ output projection, a forget-gate bias added at run time, TF gate order
 (i, j, f, o) and ``dynamic_rnn`` masking (outputs are zero past
 ``sequence_length`` and the carried state freezes there).
 
-``dual_recurrence`` is the plain PyTorch version of the BLSTM layer kernel
-(``csrc/lstm_fwd.cu``): the CPU path, and the reference the kernel is held
-to on the card.
+``dual_recurrence`` and ``dual_recurrence_backward`` are the plain PyTorch
+versions of the BLSTM layer kernels (``csrc/lstm_fwd.cu``,
+``csrc/lstm_bwd.cu``): the CPU path, and the references the kernels are
+held to on the card.
 """
 
 from __future__ import annotations
@@ -126,6 +128,10 @@ def recurrent_weights(fw_params: Dict, bw_params: Dict, compute_dtype):
                                 for p in pair]).float().contiguous()
         return wh.contiguous(), proj, peep
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        # under autograd the stack and cast belong to the graph; a copy
+        # kept from another step would cut the weights off from it
+        return build()
     return derived(sources, ("recurrent", compute_dtype), build)
 
 
@@ -248,6 +254,170 @@ def replay_steps(gx, sequence_length, keep, wh, proj, peep,
                            wh, proj, peep, forget_bias)
     return (out.reshape(time_steps, b2, -1), c.reshape(time_steps, b2, -1),
             h.reshape(time_steps, b2, -1))
+
+
+def _bwd_step(gx_t, keep_t, valid_t, c_prev, h_prev, dout_t, dc, dh, wh,
+              proj, peep, forget_bias: float):
+    """The backward of one step of both directions (``lstm_pallas.
+    _make_bwd_kernel`` :230-319), on leading dims ``[..., 2, B]``: the
+    gates are recomputed from the stored previous states (already zeroed
+    at segment starts), then (dc, dh), the cotangents of the carried
+    states after the step, are carried back through it.  Returns (dgates,
+    dc_prev, dh_prev, c_new, out_blk, dout_p)."""
+    num_units = c_prev.shape[-1]
+    cdt = wh.dtype
+    m = valid_t
+    gates = gx_t + matmul_f32(h_prev, wh, cdt)
+    i, j, f, o = gates.split(num_units, dim=-1)
+    if peep is not None:
+        i = i + peep[:, 0, None, :] * c_prev
+        f = f + peep[:, 1, None, :] * c_prev
+    si, tj = torch.sigmoid(i), torch.tanh(j)
+    sf = torch.sigmoid(f + forget_bias)
+    c_new = sf * c_prev + si * tj
+    if peep is not None:
+        o = o + peep[:, 2, None, :] * c_new
+    so, tc = torch.sigmoid(o), torch.tanh(c_new)
+    out_blk = so * tc
+    # h_next = m·out_p + (1-m)·h_prev, and the emitted out is m·out_p
+    dout_p = m * (dout_t + dh)
+    dout_blk = dout_p if proj is None else matmul_f32(
+        dout_p, proj.transpose(-1, -2), cdt)
+    do = dout_blk * tc * so * (1.0 - so)
+    # c_next = m·c_new + (1-m)·c_prev
+    dc_new = dout_blk * so * (1.0 - tc * tc) + m * dc
+    if peep is not None:
+        dc_new = dc_new + do * peep[:, 2, None, :]
+    df = dc_new * c_prev * sf * (1.0 - sf)
+    di = dc_new * tj * si * (1.0 - si)
+    dj = dc_new * si * (1.0 - tj * tj)
+    dc_prev = dc_new * sf + (1.0 - m) * dc
+    if peep is not None:
+        dc_prev = dc_prev + df * peep[:, 1, None, :] + di * peep[:, 0, None, :]
+    dgates = torch.cat([di, dj, df, do], dim=-1)
+    dh_prev = (1.0 - m) * dh + matmul_f32(dgates, wh.transpose(-1, -2), cdt)
+    if keep_t is not None:
+        dc_prev = keep_t * dc_prev
+        dh_prev = keep_t * dh_prev
+    return dgates, dc_prev, dh_prev, c_new, out_blk, dout_p
+
+
+def _previous(states, keep4):
+    """Per-step states ``[T, 2B, X]`` → the states each step starts from,
+    ``[T, 2, B, X]`` float32: shifted by one step (zeros first) and zeroed
+    where a packed segment starts."""
+    time_steps, b2, width = states.shape
+    prev = torch.cat([torch.zeros_like(states[:1]), states[:-1]]).float()
+    prev = prev.view(time_steps, 2, b2 // 2, width)
+    return prev if keep4 is None else prev * keep4
+
+
+def dual_recurrence_backward(gx, sequence_length, keep, wh, proj, peep,
+                             forget_bias: float, c_all, h_all, dout, dcfin,
+                             dhfin, store_dtype=torch.float32,
+                             steps: bool = False):
+    """Plain version of the BLSTM layer backward kernel (``csrc/
+    lstm_bwd.cu``, replacing ``lstm_pallas._make_bwd_kernel``).
+
+    gx, sequence_length, keep, wh, proj, peep as ``dual_recurrence``;
+    c_all ``[T, 2B, H]`` and h_all ``[T, 2B, P]`` the forward's per-step
+    states (in the store dtype); dout ``[T, 2B, P]``, dcfin ``[2B, H]``,
+    dhfin ``[2B, P]`` the cotangents of the layer's outputs.  Returns
+    (dgates ``[T, 2B, 4H]`` in ``store_dtype``, dwh ``[2, P, 4H]``, dproj
+    ``[2, H, P]`` or None, dpeep ``[2, 3, H]`` or None), float32.  With
+    ``steps``, also the cotangents of the carried states entering each
+    step, dc_in ``[T, 2B, H]`` and dh_in ``[T, 2B, P]`` (the last step's
+    are dcfin, dhfin).
+
+    Weight gradients are summed over (t, b) after the loop, with operands
+    rounded to the compute dtype, as the reference kernel accumulates
+    them per time block: dwh = Σ h_prevᵀ·dgates, dproj = Σ out_blkᵀ·dout_p,
+    and the peephole sums from dgates as stored."""
+    time_steps, b2, h4 = gx.shape
+    batch, num_units = b2 // 2, h4 // 4
+    out_dim = h_all.shape[2]
+    cdt = wh.dtype
+    gx4, keep4, valid4 = _step_views(gx, sequence_length, keep)
+    c_prev = _previous(c_all, keep4)
+    h_prev = _previous(h_all, keep4)
+    dout4 = dout.float().reshape(time_steps, 2, batch, out_dim)
+    dc = dcfin.float().reshape(2, batch, num_units)
+    dh = dhfin.float().reshape(2, batch, out_dim)
+    dgs, c_news, out_blks, dout_ps, dc_in, dh_in = [], [], [], [], [], []
+    for t in range(time_steps - 1, -1, -1):
+        if steps:
+            dc_in.append(dc)
+            dh_in.append(dh)
+        dg, dc, dh, c_new, out_blk, dout_p = _bwd_step(
+            gx4[t], None if keep4 is None else keep4[t], valid4[t],
+            c_prev[t], h_prev[t], dout4[t], dc, dh, wh, proj, peep,
+            forget_bias)
+        dgs.append(dg.to(store_dtype))
+        c_news.append(c_new)
+        out_blks.append(out_blk)
+        dout_ps.append(dout_p)
+
+    def stacked(rows):                       # forward time order
+        return torch.stack(rows[::-1])       # [T, 2, B, X]
+
+    def rows_of(x):                          # [T, 2, B, X] -> [2, T·B, X]
+        return x.transpose(0, 1).reshape(2, time_steps * batch, x.shape[-1])
+
+    dgates = stacked(dgs)
+    dwh = matmul_f32(rows_of(h_prev).transpose(1, 2), rows_of(dgates), cdt)
+    dproj = None
+    if proj is not None:
+        dproj = matmul_f32(rows_of(stacked(out_blks)).transpose(1, 2),
+                           rows_of(stacked(dout_ps)), cdt)
+    dpeep = None
+    if peep is not None:
+        dg32 = dgates.float()
+        dpeep = torch.stack([
+            (dg32[..., :num_units] * c_prev).sum((0, 2)),
+            (dg32[..., 2 * num_units:3 * num_units] * c_prev).sum((0, 2)),
+            (dg32[..., 3 * num_units:] * stacked(c_news)).sum((0, 2))],
+            dim=1)
+    result = (dgates.reshape(time_steps, b2, h4), dwh, dproj, dpeep)
+    if steps:
+        result += (stacked(dc_in).reshape(time_steps, b2, num_units),
+                   stacked(dh_in).reshape(time_steps, b2, out_dim))
+    return result
+
+
+def replay_backward_steps(gx, sequence_length, keep, wh, proj, peep,
+                          forget_bias: float, c_all, h_all, dout, dc_in,
+                          dh_in, store_dtype=torch.float32):
+    """Every step of the plain backward at once, each started from the
+    carried cotangents entering it as given by dc_in ``[T, 2B, H]`` and
+    dh_in ``[T, 2B, P]``.  Returns (dgates in ``store_dtype``, dc_out,
+    dh_out): dc_out[t] and dh_out[t] are what step t carries on to step
+    t-1, to be held against dc_in[t-1] and dh_in[t-1].
+
+    Held against a kernel's own per-step carries, this checks each step
+    alone: a rounding difference is not carried on through the sequence."""
+    time_steps, b2, h4 = gx.shape
+    gx4, keep4, valid4 = _step_views(gx, sequence_length, keep)
+
+    def view(x):
+        return x.float().reshape(time_steps, 2, b2 // 2, x.shape[-1])
+
+    dg, dc, dh, _, _, _ = _bwd_step(
+        gx4, keep4, valid4, _previous(c_all, keep4), _previous(h_all, keep4),
+        view(dout), view(dc_in), view(dh_in), wh, proj, peep, forget_bias)
+    return (dg.reshape(time_steps, b2, h4).to(store_dtype),
+            dc.reshape(time_steps, b2, -1), dh.reshape(time_steps, b2, -1))
+
+
+def dropout(generator: torch.Generator, x: torch.Tensor,
+            keep_prob: float) -> torch.Tensor:
+    """Inverted dropout with *keep* probability (``cells.dropout`` of the
+    reference; the reference's ``dropout_rate = 0.9`` means keep 0.9).
+    The mask is drawn from ``generator``, which lies on x's device; its
+    stream differs from ``jax.random``'s."""
+    if keep_prob >= 1.0:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
 def split_directions(out, cfin, hfin, batch: int):

@@ -6,7 +6,9 @@ Counterpart of ``lstm_ctc_tpu/models/registry.py``:
     logits, encoder, reg_losses, new_state = apply_model(
         params, state, nnet_input, sequence_length, config, train=False)
 
-Only ``blstm`` is ported, and only for evaluation.
+Only ``blstm`` is ported; training runs its dense head (the MoE head's
+training is a later slice).  ``generator`` (a ``torch.Generator`` on the
+input's device) stands in for the reference's ``dropout_rng``.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ def _init_blstm(generator, config, device):
 
 
 def _apply_blstm(params, state, nnet_input, sequence_length, config,
-                 reset_mask=None):
+                 reset_mask=None, train=False, generator=None):
     logits, encoder, reg = _blstm.apply_blstm(
-        params, nnet_input, sequence_length, config, reset_mask=reset_mask)
+        params, nnet_input, sequence_length, config, reset_mask=reset_mask,
+        train=train, generator=generator)
     return logits, encoder, reg, state
 
 
@@ -58,11 +61,7 @@ def init_model(generator: torch.Generator, config: Dict,
 
 
 def apply_model(params, state, nnet_input, sequence_length, config,
-                train=False, dropout_rng=None, reset_mask=None):
-    if train:
-        raise NotImplementedError(
-            "training mode is not ported to PyTorch yet (ROADMAP queue 1, "
-            "item 6: train and eval steps)")
+                train=False, generator=None, reset_mask=None):
     _, apply_fn = get_model(config["nnet_type"])
     return apply_fn(params, state, nnet_input, sequence_length, config,
-                    reset_mask=reset_mask)
+                    reset_mask=reset_mask, train=train, generator=generator)

@@ -1,14 +1,18 @@
-"""Fused BLSTM layer forward: the wrapper around ``csrc/lstm_fwd.cu``.
+"""Fused BLSTM layer forward and backward: the wrappers around
+``csrc/lstm_fwd.cu`` (K1) and ``csrc/lstm_bwd.cu`` (K2).
 
 Counterpart of ``lstm_ctc_tpu/ops/lstm_pallas.py`` ``bilstm_dual_scan_fused``
-(:694), whose Pallas kernel ``_make_fwd_kernel`` (:57-131) runs one layer's
-whole-sequence recurrence for both directions.  The input projection stays
-one ``torch.matmul`` outside the kernel, as it is an einsum outside the
-Pallas kernel there.
+(:694), whose Pallas kernels ``_make_fwd_kernel`` (:57-131) and
+``_make_bwd_kernel`` (:134-418) run one layer's whole-sequence recurrence
+and its backward for both directions.  The input projection stays one
+``torch.matmul`` outside the kernels, as it is an einsum outside the Pallas
+kernels there; in training its gradients (dx, dwx, dbias) are autograd's
+products over the dgates stream K2 emits, as XLA's are in ``fused_bwd``
+(:597-619).
 
-On a CPU tensor the wrapper runs the plain version
-(``models/cells.dual_recurrence``); on a CUDA tensor it launches the kernel
-or raises.
+On a CPU tensor a wrapper runs its plain version
+(``models/cells.dual_recurrence``, ``dual_recurrence_backward``); on a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ def _ptr(t):
 
 
 def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
-                       forget_bias: float, states: bool = False):
+                       forget_bias: float, states: bool = False,
+                       store_dtype=torch.float32):
     """One BLSTM layer's recurrence over the whole sequence.
 
     Arguments and return value as ``cells.dual_recurrence``: gx
@@ -34,11 +39,19 @@ def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
     compute dtype (float32 or bfloat16), peep ``[2, 3, H]`` f32 or None.
     Returns (out ``[T, 2B, P]``, c ``[2B, H]``, h ``[2B, P]``), f32, and
     with ``states`` the per-step carried states c_all ``[T, 2B, H]`` and
-    h_all ``[T, 2B, P]``.  The weights' cluster layout is made once per
-    weight tensor (``cells.derived``)."""
+    h_all ``[T, 2B, P]`` in ``store_dtype`` (float32 or bfloat16).  The
+    weights' cluster layout is made once per weight tensor
+    (``cells.derived``)."""
+    if store_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("store dtype must be float32 or bfloat16, got %s"
+                         % store_dtype)
     if gx.device.type == "cpu":
-        return cells.dual_recurrence(gx, sequence_length, keep, wh, proj,
-                                     peep, forget_bias, states)
+        result = cells.dual_recurrence(gx, sequence_length, keep, wh, proj,
+                                       peep, forget_bias, states)
+        if states:
+            result = result[:3] + tuple(s.to(store_dtype)
+                                        for s in result[3:])
+        return result
     if gx.device.type != "cuda":
         raise ValueError("lstm_layer_forward: unsupported device %s"
                          % gx.device)
@@ -72,14 +85,17 @@ def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
     hfin = torch.empty(b2, out_dim, device=gx.device)
     c_all = h_all = None
     if states:
-        c_all = torch.empty(time_steps, b2, num_units, device=gx.device)
-        h_all = torch.empty(time_steps, b2, out_dim, device=gx.device)
+        c_all = torch.empty(time_steps, b2, num_units, device=gx.device,
+                            dtype=store_dtype)
+        h_all = torch.empty(time_steps, b2, out_dim, device=gx.device,
+                            dtype=store_dtype)
     launch = lib.lstm_fwd_bf16 if wh.dtype == torch.bfloat16 \
         else lib.lstm_fwd_f32
     err = launch(gx.device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
                  _ptr(wh_sl), _ptr(proj_sl), _ptr(peep), float(forget_bias),
                  time_steps, batch, num_units, out_dim,
-                 _ptr(out), _ptr(c_all), _ptr(h_all), _ptr(cfin), _ptr(hfin),
+                 _ptr(out), _ptr(c_all), _ptr(h_all),
+                 int(store_dtype == torch.bfloat16), _ptr(cfin), _ptr(hfin),
                  torch.cuda.current_stream(gx.device).cuda_stream)
     _build.check(err, "lstm_fwd")
     lstm_layer_forward.launches += 1
@@ -140,4 +156,134 @@ def bilstm_dual_scan_fused(fw_params, bw_params, x, x_rev,
                                x.device)
     out, cfin, hfin = lstm_layer_forward(gx, sequence_length, keep, wh,
                                          proj, peep, forget_bias)
+    return cells.split_directions(out, cfin, hfin, x.shape[0])
+
+
+def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
+                        forget_bias: float, c_all, h_all, dout, dcfin, dhfin,
+                        store_dtype=torch.float32, steps: bool = False):
+    """One BLSTM layer's backward over the whole sequence.
+
+    Arguments and return value as ``cells.dual_recurrence_backward``:
+    (dgates ``[T, 2B, 4H]`` in ``store_dtype``, dwh ``[2, P, 4H]``, dproj
+    ``[2, H, P]`` or None, dpeep ``[2, 3, H]`` or None), and with
+    ``steps`` the cotangents of the carried states entering each step,
+    dc_in ``[T, 2B, H]`` and dh_in ``[T, 2B, P]``.  c_all and h_all are
+    in ``store_dtype``."""
+    if gx.device.type == "cpu":
+        return cells.dual_recurrence_backward(
+            gx, sequence_length, keep, wh, proj, peep, forget_bias, c_all,
+            h_all, dout, dcfin, dhfin, store_dtype, steps)
+    if gx.device.type != "cuda":
+        raise ValueError("lstm_layer_backward: unsupported device %s"
+                         % gx.device)
+    time_steps, b2, h4 = gx.shape
+    batch, num_units = b2 // 2, h4 // 4
+    out_dim = wh.shape[1]
+    if gx.dtype != torch.float32 or not gx.is_contiguous() or b2 % 2:
+        raise ValueError("gx must be a contiguous float32 [T, 2B, 4H]")
+    if wh.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("compute dtype must be float32 or bfloat16, got %s"
+                         % wh.dtype)
+    if num_units % 4 or out_dim % 4:
+        raise ValueError("the backward kernel takes H and P divisible by 4, "
+                         "got H=%d P=%d" % (num_units, out_dim))
+    device = gx.device
+    _expect(wh, (2, out_dim, h4), wh.dtype, device, "wh")
+    if proj is not None:
+        _expect(proj, (2, num_units, out_dim), wh.dtype, device, "proj")
+    if peep is not None:
+        _expect(peep, (2, 3, num_units), torch.float32, device, "peep")
+    if keep is not None:
+        _expect(keep, (time_steps, batch), torch.float32, device, "keep")
+    _expect(c_all, (time_steps, b2, num_units), store_dtype, device, "c_all")
+    _expect(h_all, (time_steps, b2, out_dim), store_dtype, device, "h_all")
+    lengths = sequence_length.to(device=device, dtype=torch.int32).contiguous()
+    dout = dout.float().contiguous()
+    dcfin = dcfin.float().contiguous()
+    dhfin = dhfin.float().contiguous()
+    _expect(dout, (time_steps, b2, out_dim), torch.float32, device, "dout")
+    _expect(dcfin, (b2, num_units), torch.float32, device, "dcfin")
+    _expect(dhfin, (b2, out_dim), torch.float32, device, "dhfin")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=device, dtype=dtype)
+
+    wht = wh.transpose(1, 2).contiguous()
+    projt = None if proj is None else proj.transpose(1, 2).contiguous()
+    dgates = empty(time_steps, b2, h4, dtype=store_dtype)
+    cnew = empty(time_steps, b2, num_units)
+    outb = doutp = dproj = None
+    if proj is not None:
+        outb = empty(time_steps, b2, num_units)
+        doutp = empty(time_steps, b2, out_dim)
+        dproj = empty(2, num_units, out_dim)
+    dc_in = dh_in = None
+    if steps:
+        dc_in = empty(time_steps, b2, num_units)
+        dh_in = empty(time_steps, b2, out_dim)
+    dwh = empty(2, out_dim, h4)
+    lib = _build.library()
+    dpeep = None if peep is None else empty(2, 3, num_units)
+    scratch = empty(lib.lstm_bwd_scratch_floats(time_steps, batch,
+                                                num_units, out_dim))
+    launch = lib.lstm_bwd_bf16 if wh.dtype == torch.bfloat16 \
+        else lib.lstm_bwd_f32
+    err = launch(device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
+                 _ptr(c_all), _ptr(h_all), _ptr(wh), _ptr(wht), _ptr(projt),
+                 _ptr(peep), float(forget_bias), _ptr(dout), _ptr(dcfin),
+                 _ptr(dhfin), time_steps, batch, num_units, out_dim,
+                 int(store_dtype == torch.bfloat16), _ptr(dgates), _ptr(cnew),
+                 _ptr(outb), _ptr(doutp), _ptr(dc_in), _ptr(dh_in), _ptr(dwh),
+                 _ptr(dproj), _ptr(dpeep), _ptr(scratch),
+                 torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "lstm_bwd")
+    lstm_layer_backward.launches += 1
+    result = (dgates, dwh, dproj, dpeep)
+    return result + ((dc_in, dh_in) if steps else ())
+
+
+lstm_layer_backward.launches = 0
+
+
+class _LstmLayer(torch.autograd.Function):
+    """One BLSTM layer under autograd: K1 with its per-step states stored
+    in the store dtype, and K2 for the backward."""
+
+    @staticmethod
+    def forward(ctx, gx, wh, proj, peep, sequence_length, keep,
+                forget_bias, store_dtype):
+        out, cfin, hfin, c_all, h_all = lstm_layer_forward(
+            gx, sequence_length, keep, wh, proj, peep, forget_bias,
+            states=True, store_dtype=store_dtype)
+        ctx.save_for_backward(gx, wh, proj, peep, sequence_length, keep,
+                              c_all, h_all)
+        ctx.forget_bias, ctx.store_dtype = forget_bias, store_dtype
+        return out, cfin, hfin
+
+    @staticmethod
+    def backward(ctx, dout, dcfin, dhfin):
+        gx, wh, proj, peep, sequence_length, keep, c_all, h_all = \
+            ctx.saved_tensors
+        dgates, dwh, dproj, dpeep = lstm_layer_backward(
+            gx, sequence_length, keep, wh, proj, peep, ctx.forget_bias,
+            c_all, h_all, dout, dcfin, dhfin, store_dtype=ctx.store_dtype)
+        return (dgates.float(), dwh.to(wh.dtype),
+                None if dproj is None else dproj.to(proj.dtype), dpeep,
+                None, None, None, None)
+
+
+def bilstm_dual_scan_train(fw_params, bw_params, x, x_rev, sequence_length,
+                           forget_bias, compute_dtype=None, reset_mask=None,
+                           store_dtype=torch.bfloat16):
+    """``bilstm_dual_scan_fused`` under autograd: the same forward through
+    K1, differentiable through K2.  ``store_dtype`` is the precision of
+    the per-step states K1 keeps for K2 and of the dgates stream K2 emits
+    (``lstm_pallas`` ``store_dtype``)."""
+    gx, wh, proj, peep = cells.layer_inputs(fw_params, bw_params, x, x_rev,
+                                            compute_dtype)
+    _, keep = cells.step_masks(sequence_length, reset_mask, x.shape[1],
+                               x.device)
+    out, cfin, hfin = _LstmLayer.apply(gx, wh, proj, peep, sequence_length,
+                                       keep, float(forget_bias), store_dtype)
     return cells.split_directions(out, cfin, hfin, x.shape[0])

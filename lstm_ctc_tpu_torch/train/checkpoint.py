@@ -24,13 +24,15 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def _leaves_with_path(tree, prefix=()):
+def leaves_with_path(tree, prefix=()):
+    """(checkpoint key, leaf) for every leaf of a nested dict/list tree, in
+    a fixed order (sorted keys); the key is the '/'-joined path."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves_with_path(tree[k], prefix + (str(k),))
+            yield from leaves_with_path(tree[k], prefix + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves_with_path(v, prefix + (str(i),))
+            yield from leaves_with_path(v, prefix + (str(i),))
     else:
         yield "/".join(prefix), tree
 
@@ -55,7 +57,7 @@ def params_from_numpy(tree, device="cpu"):
 
 def flatten_tree(tree) -> Dict[str, np.ndarray]:
     flat = {}
-    for key, leaf in _leaves_with_path(tree):
+    for key, leaf in leaves_with_path(tree):
         if key in flat:
             raise ValueError("duplicate checkpoint key %s" % key)
         flat[key] = _to_numpy(leaf)
@@ -65,7 +67,7 @@ def flatten_tree(tree) -> Dict[str, np.ndarray]:
 def unflatten_into(template, flat: Dict[str, np.ndarray]):
     """Fill a template tree with stored arrays, validating shapes.  Each
     leaf lands on its template leaf's device with the stored dtype."""
-    keys = {key for key, _ in _leaves_with_path(template)}
+    keys = {key for key, _ in leaves_with_path(template)}
     extra = set(flat) - keys
     if extra:
         raise KeyError("checkpoint has unexpected parameters: %s"

@@ -1,0 +1,238 @@
+"""The BLSTM layer backward (``cells.dual_recurrence_backward``, kernel K2).
+
+On the CPU the autograd layer (``lstm_kernels.bilstm_dual_scan_train``)
+runs the plain forward and the plain backward.  Its gradients (every
+parameter, and both inputs) are held against ``jax.vjp`` of the JAX
+package's fused layer in interpret mode with store f32, and of its scan
+``cells.bilstm_dual_scan`` (rtol = atol = 1e-5: float32 on both sides).
+The ``cuda`` tests hold K2 against its plain version on the card:
+max|diff| / max|plain| <= 1e-4 per output in float32, and in bfloat16 each
+step replayed from the kernel's own carries within 1e-3.  JAX is imported
+by a fixture, so the ``cuda`` tests also run where JAX is not installed
+(pytest --noconftest).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from lstm_ctc_tpu_torch.models import cells
+from lstm_ctc_tpu_torch.ops import lstm_kernels
+
+FORGET_BIAS = 5.0
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from lstm_ctc_tpu.models import cells as jcells
+    from lstm_ctc_tpu.ops.lstm_pallas import bilstm_dual_scan_fused
+    return types.SimpleNamespace(jax=jax, jnp=jnp, cells=jcells,
+                                 fused=bilstm_dual_scan_fused)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def random_case(seed, batch=3, time_steps=13, dim=6, units=16, proj=8,
+                peepholes=True, reset=False):
+    """Port parameters, numpy inputs and output cotangents from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    fw = cells.init_lstm_cell(gen, dim, units, proj, peepholes)
+    bw = cells.init_lstm_cell(gen, dim, units, proj, peepholes)
+    rng = np.random.RandomState(seed)
+    out_dim = proj or units
+    x = rng.randn(batch, time_steps, dim).astype(np.float32)
+    seq_len = rng.randint(time_steps // 2, time_steps + 1,
+                          batch).astype(np.int32)
+    seq_len[0] = time_steps
+    reset_mask = None
+    if reset:
+        reset_mask = np.zeros((batch, time_steps), np.float32)
+        reset_mask[:, 0] = 1.0
+        for b in range(batch):
+            reset_mask[b, rng.randint(1, seq_len[b], 2)] = 1.0
+    cots = [rng.randn(batch, time_steps, out_dim).astype(np.float32)
+            for _ in range(2)]
+    cots += [rng.randn(batch, n).astype(np.float32)
+             for n in (units, out_dim, units, out_dim)]
+    return fw, bw, x, seq_len, reset_mask, cots
+
+
+def jax_vjp(jref, fn, fw, bw, x, seq_len, reset_mask, cots):
+    """Gradients (fw params, bw params, x, x_rev) of the JAX layer ``fn``
+    under the given output cotangents."""
+    jnp = jref.jnp
+    jfw = {k: jnp.asarray(v.numpy()) for k, v in fw.items()}
+    jbw = {k: jnp.asarray(v.numpy()) for k, v in bw.items()}
+    seq = jnp.asarray(seq_len)
+    reset = None if reset_mask is None else jnp.asarray(reset_mask)
+    x_rev = jref.cells.reverse_sequence(jnp.asarray(x), seq) \
+        if reset is None else \
+        jref.cells.reverse_segments(jnp.asarray(x), seq, reset)
+
+    def layer(a, b, xx, xr):
+        return fn(a, b, xx, xr, seq, FORGET_BIAS, reset_mask=reset)
+
+    _, vjp = jref.jax.vjp(layer, jfw, jbw, jnp.asarray(x), x_rev)
+    c = [jnp.asarray(v) for v in cots]
+    grads = vjp((c[0], c[1], ((c[2], c[3]), (c[4], c[5]))))
+    return grads, np.array(x_rev)
+
+
+def port_grads(fw, bw, x, x_rev, seq_len, reset_mask, cots):
+    fw = {k: v.clone().requires_grad_() for k, v in fw.items()}
+    bw = {k: v.clone().requires_grad_() for k, v in bw.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    xr = torch.from_numpy(x_rev).requires_grad_()
+    fw_out, bw_out, ((cf, hf), (cb, hb)) = \
+        lstm_kernels.bilstm_dual_scan_train(
+            fw, bw, xt, xr, torch.from_numpy(seq_len), FORGET_BIAS,
+            reset_mask=None if reset_mask is None
+            else torch.from_numpy(reset_mask), store_dtype=torch.float32)
+    total = sum((o * torch.from_numpy(c)).sum()
+                for o, c in zip((fw_out, bw_out, cf, hf, cb, hb), cots))
+    total.backward()
+    return ({k: v.grad for k, v in fw.items()},
+            {k: v.grad for k, v in bw.items()}, xt.grad, xr.grad)
+
+
+def scan_fn(jref):
+    return jref.cells.bilstm_dual_scan
+
+
+def fused_fn(jref):
+    def fused(*args, **kwargs):
+        return jref.fused(*args, time_block=4, store_dtype="float32",
+                          interpret=True, **kwargs)
+    return fused
+
+
+@pytest.mark.parametrize("reference", [fused_fn, scan_fn])
+@pytest.mark.parametrize("seed,peep,proj,reset", [
+    (0, True, 8, False), (1, False, 8, False), (2, True, None, False),
+    (3, True, 8, True), (4, False, None, True)])
+def test_layer_backward_matches_jax(jref, reference, seed, peep, proj,
+                                    reset):
+    fw, bw, x, seq_len, reset_mask, cots = random_case(
+        seed, peepholes=peep, proj=proj, reset=reset)
+    ref, x_rev = jax_vjp(jref, reference(jref), fw, bw, x, seq_len,
+                         reset_mask, cots)
+    before = lstm_kernels.lstm_layer_backward.launches
+    got = port_grads(fw, bw, x, x_rev, seq_len, reset_mask, cots)
+    # the CPU path runs the plain versions: no kernel launch is counted
+    assert lstm_kernels.lstm_layer_backward.launches == before
+    for side in (0, 1):
+        assert sorted(got[side]) == sorted(ref[side])
+        for name in got[side]:
+            np.testing.assert_allclose(got[side][name].numpy(),
+                                       np.asarray(ref[side][name]),
+                                       err_msg=name, **TOL)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), **TOL)
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), **TOL)
+
+
+def backward_args(seed, device="cpu", dtype=torch.float32, store=None,
+                  proj=8, reset=True, **shape):
+    """The backward wrapper's arguments for one layer: the forward run
+    through ``lstm_layer_forward`` with states in the store dtype."""
+    store = store or dtype
+    fw, bw, x, seq_len, reset_mask, _ = random_case(seed, proj=proj,
+                                                    reset=reset, **shape)
+    fw = {k: v.to(device) for k, v in fw.items()}
+    bw = {k: v.to(device) for k, v in bw.items()}
+    xt = torch.from_numpy(x).to(device)
+    seq = torch.from_numpy(seq_len).to(device)
+    gx, wh, pj, peep = cells.layer_inputs(
+        fw, bw, xt, cells.reverse_sequence(xt, seq), dtype)
+    _, keep = cells.step_masks(
+        seq, None if reset_mask is None else torch.from_numpy(reset_mask),
+        x.shape[1], device)
+    args = (gx, seq, keep, wh, pj, peep, FORGET_BIAS)
+    out, cfin, hfin, c_all, h_all = lstm_kernels.lstm_layer_forward(
+        *args, states=True, store_dtype=store)
+    gen = torch.Generator().manual_seed(seed + 100)
+    dout = torch.randn(out.shape, generator=gen).to(device)
+    dcfin = torch.randn(cfin.shape, generator=gen).to(device)
+    dhfin = torch.randn(hfin.shape, generator=gen).to(device)
+    return args + (c_all, h_all, dout, dcfin, dhfin)
+
+
+@pytest.mark.parametrize("proj,reset", [(8, True), (None, False)])
+def test_replay_backward_steps_reproduces_plain_carries(proj, reset):
+    """Each step replayed from the carries entering it gives the carries
+    entering the step before, and the same dgates."""
+    args = backward_args(5, proj=proj, reset=reset)
+    dgates, _, _, _, dc_in, dh_in = lstm_kernels.lstm_layer_backward(
+        *args, steps=True)
+    assert torch.equal(dc_in[-1], args[-2]) and torch.equal(dh_in[-1],
+                                                            args[-1])
+    dg, dc_out, dh_out = cells.replay_backward_steps(*args[:-2], dc_in,
+                                                     dh_in)
+    np.testing.assert_allclose(dg.numpy(), dgates.numpy(), **TOL)
+    np.testing.assert_allclose(dc_out[1:].numpy(), dc_in[:-1].numpy(), **TOL)
+    np.testing.assert_allclose(dh_out[1:].numpy(), dh_in[:-1].numpy(), **TOL)
+
+
+def test_store_dtype_rounds_states_and_dgates():
+    args = backward_args(6, store=torch.bfloat16)
+    assert args[7].dtype == torch.bfloat16 and args[8].dtype == torch.bfloat16
+    dgates, dwh, dproj, dpeep = lstm_kernels.lstm_layer_backward(
+        *args, store_dtype=torch.bfloat16)
+    assert dgates.dtype == torch.bfloat16
+    assert dwh.dtype == dproj.dtype == dpeep.dtype == torch.float32
+
+
+def test_backward_wrapper_refuses_other_devices():
+    args = backward_args(7)
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_kernels.lstm_layer_backward(*meta)
+
+
+def ratio(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proj,reset", [(8, True), (8, False),
+                                        (None, True)])
+def test_kernel_matches_plain_on_gpu_f32(cuda, proj, reset):
+    args = backward_args(8, cuda, proj=proj, reset=reset, batch=5,
+                         time_steps=40)
+    before = lstm_kernels.lstm_layer_backward.launches
+    got = lstm_kernels.lstm_layer_backward(*args)
+    ref = cells.dual_recurrence_backward(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernels.lstm_layer_backward.launches == before + 1
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert ratio(g, r) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_steps_replay_on_gpu_bf16(cuda):
+    args = backward_args(9, cuda, dtype=torch.bfloat16, batch=5,
+                         time_steps=40)
+    dgates, _, _, _, dc_in, dh_in = lstm_kernels.lstm_layer_backward(
+        *args, store_dtype=torch.bfloat16, steps=True)
+    dg, dc_out, dh_out = cells.replay_backward_steps(
+        *args[:-2], dc_in, dh_in, store_dtype=torch.bfloat16)
+    assert ratio(dc_out[1:], dc_in[:-1]) <= 1e-3
+    assert ratio(dh_out[1:], dh_in[:-1]) <= 1e-3
+    # dgates is stored in bf16: one rounding step apart at most
+    diff = (dgates.float() - dg.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * dg.float().abs() + 1e-6).all())
