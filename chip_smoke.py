@@ -42,10 +42,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      each K1 and K2 launch held to its plain version on its own tensors,
      against the same step through the plain versions (loss and every
      gradient leaf, next to the plain versions' own response to a
-     last-bit change of the weights), one bfloat16 step with every K2, K10 and K11 launch
-     held to its plain version on the model's own tensors, and a
-     torch.profiler breakdown of one warm train step;
-  9. prints the kernels' JSON line, a summary line, the nvidia-smi line,
+     last-bit change of the weights), one bfloat16 step with every K2,
+     K10 and K11 launch held to its plain version on the model's own
+     tensors, and a torch.profiler breakdown of one warm train step;
+  9. K5 (MoE forward with the tanh stash), K6 (its backward to x and the
+     gate, with dz), K8 (K6 without dz) and K9 (the weight gradient) at
+     the training shape N=14336, D=640, E=V=72, tau=10, float32 (TF32 off)
+     and bfloat16, keep 1.0 and 0.9, each against its plain version (the
+     backward ones fed the kernel's own stash); timed in turns with the
+     plain versions, and the opt-in twokernel backward (K8 + K9) timed
+     against the default (K6 + one torch product for dw);
+ 10. the flagship MoE model (72 experts, the paper's treatment) trains for
+     two iterations of nnet_train_loop (the newbob loop in one process;
+     adam 1e-3, keep 0.9, batch 32, pack factor 3, bf16) on the same
+     corpus: finite losses, the last cv_loss below the first, and the
+     launch counts (per train step 4 K1, 4 K2, 1 K5, 1 K6, 1 K10, 1 K11
+     and no K4; per CV batch 4 K1, 1 K4, 1 K10).  Then two train steps in
+     the twokernel mode (per step 1 K5, 1 K8, 1 K9 and no K6), and the
+     checks of phase 8 on the MoE model: the float32 step (each K1, K2,
+     K5 and K6 launch on its own tensors, then end to end under the
+     nudge yardstick), a bfloat16 step with every K2, K5, K6, K10 and K11
+     launch held to its plain version, and a profiled step;
+ 11. prints the kernels' JSON line, a summary line, the nvidia-smi line,
      and as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
@@ -59,18 +77,24 @@ over 4 layers and ~400 steps).  K10/K11, float32: |diff| <= 1e-4 ·
 max(1, |plain|) on finite entries and NEG_INF at the same places.  K2,
 float32: max|diff| / max|plain| <= 1e-4 per output; bfloat16, each step
 replayed: the carries' ratio <= 1e-3 and dgates within one bf16 rounding
-step.  The float32 train step: each K1 and K2 launch, max|diff| /
-max|plain| <= 1e-4 on its own tensors; kernels vs plain end to end, loss
-within 1e-4 relative, and the whole gradient's ||diff|| / ||plain|| and
-the worst leaf's max|diff| / max|plain| each within 10x what the plain
-versions themselves give when every weight is moved one unit in the
-last place (the trained model amplifies last-bit differences through
-~450 steps and 4 layers; the first layer's input weights show it most).
+step.  K5/K6/K8/K9, bfloat16: the mixed output max|diff| <= 5e-2 (as K4),
+th and dz within one bf16 rounding step of the plain versions' (a last-bit
+difference of the float32 sums may flip a rounding), dx, dgate, dw and db
+max|diff| / max|plain| <= 1e-2 (dz's flipped roundings reach them), K8's
+dx and dgate equal to K6's bit for bit.  The float32 train step: each
+launch, max|diff| / max|plain| <= 1e-4 on its own tensors; kernels vs
+plain end to end, loss within 1e-4 relative, and the whole gradient's
+||diff|| / ||plain|| and the worst leaf's max|diff| / max|plain| each
+within 10x what the plain versions themselves give when every weight is
+moved one unit in the last place (the trained model amplifies last-bit
+differences through ~450 steps and 4 layers; the first layer's input
+weights show it most).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -87,12 +111,14 @@ F32_REL_TOL = 1e-4
 BF16_LSTM_REL_TOL = 2e-2
 BF16_ABS_TOL = 5e-2
 BF16_STEP_REL_TOL = 1e-3
+BF16_MOE_REL_TOL = 1e-2
 E2E_F32_MEAN_TOL = 1e-3
 E2E_F32_MAX_TOL = 2e-2
 LOGSUMEXP_TOL = 1e-4
 CTC_TOL = 1e-4
 STEP_LOSS_TOL = 1e-4
 STEP_NUDGE_FACTOR = 10.0
+MOE_TRAIN_ROWS = 32 * 448  # a train step's rows: B=32 rows of 448 frames
 # peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_MS = 3.35e9
 BF16_FLOPS_PER_MS = 989e9
@@ -270,15 +296,20 @@ def plain_versions(pkg):
         return out if not states else \
             out[:3] + tuple(s.to(store_dtype) for s in out[3:])
 
-    with mock.patch.object(lstm_kernels, "lstm_layer_forward", forward), \
-            mock.patch.object(lstm_kernels, "lstm_layer_backward",
-                              cells.dual_recurrence_backward), \
-            mock.patch.object(moe_kernels, "moe_mix_fused",
-                              moe_kernels.moe_mix_reference), \
-            mock.patch.object(ctc_kernels, "ctc_alpha",
-                              ctc_kernels.alpha_reference), \
-            mock.patch.object(ctc_kernels, "ctc_beta",
-                              ctc_kernels.beta_reference):
+    plain = [(lstm_kernels, "lstm_layer_forward", forward),
+             (lstm_kernels, "lstm_layer_backward",
+              cells.dual_recurrence_backward),
+             (ctc_kernels, "ctc_alpha", ctc_kernels.alpha_reference),
+             (ctc_kernels, "ctc_beta", ctc_kernels.beta_reference)] + [
+        (moe_kernels, name, getattr(moe_kernels, ref)) for name, ref in (
+            ("moe_mix_forward", "moe_mix_reference"),
+            ("moe_mix_forward_stash", "moe_stash_reference"),
+            ("moe_mix_backward", "moe_backward_reference"),
+            ("moe_mix_backward_noemit", "moe_backward_noemit_reference"),
+            ("moe_mix_wgrad", "moe_wgrad_reference"))]
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in plain:
+            stack.enter_context(mock.patch.object(module, name, fn))
         yield
 
 
@@ -290,7 +321,7 @@ def held_to_plain(torch, pkg, dtype, worst):
     cells, lstm_kernels, moe_kernels = (
         pkg["cells"], pkg["lstm_kernels"], pkg["moe_kernels"])
     kernel_a, kernel_b = lstm_kernels.lstm_layer_forward, \
-        moe_kernels.moe_mix_fused
+        moe_kernels.moe_mix_forward
 
     def layer(*args):
         out, cfin, hfin, c_all, h_all = kernel_a(*args, states=True)
@@ -313,12 +344,12 @@ def held_to_plain(torch, pkg, dtype, worst):
             errors(g, r)[1] for g, r in zip((out, cfin, hfin), free)))
         return out, cfin, hfin
 
-    def mix(*args, **kwargs):
-        got = kernel_b(*args, **kwargs)
-        if kwargs.get("compute_dtype") != dtype:
-            fail("kernel B launched in %s, expected %s"
-                 % (kwargs.get("compute_dtype"), dtype))
-        err = errors(got, moe_kernels.moe_mix_reference(*args, **kwargs))[0]
+    def mix(*args):
+        # (x, w, b, gate, E, tau, keep_prob, seed, compute_dtype)
+        got = kernel_b(*args)
+        if args[8] != dtype:
+            fail("kernel B launched in %s, expected %s" % (args[8], dtype))
+        err = errors(got, moe_kernels.moe_mix_reference(*args))[0]
         worst["moe_fwd"] = max(worst["moe_fwd"], err)
         if err > BF16_ABS_TOL:
             fail("kernel B on the main path: abs error %.3e > %.1e"
@@ -329,7 +360,7 @@ def held_to_plain(torch, pkg, dtype, worst):
     # the stand-in's while patched; the counted main run is unpatched
     layer.launches = mix.launches = 0
     with mock.patch.object(lstm_kernels, "lstm_layer_forward", layer), \
-            mock.patch.object(moe_kernels, "moe_mix_fused", mix):
+            mock.patch.object(moe_kernels, "moe_mix_forward", mix):
         yield
 
 
@@ -388,13 +419,13 @@ def end_to_end(torch, pkg, device, rng):
 
         # the main path: bf16, as a user runs it
         lstm_kernels.lstm_layer_forward.launches = 0
-        moe_kernels.moe_mix_fused.launches = 0
+        moe_kernels.moe_mix_forward.launches = 0
         start = time.perf_counter()
         written = nnet_forward.main(argv)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - start
         launches = {"lstm_fwd": lstm_kernels.lstm_layer_forward.launches,
-                    "moe_fwd": moe_kernels.moe_mix_fused.launches}
+                    "moe_fwd": moe_kernels.moe_mix_forward.launches}
         say("  nnet_forward wrote %d utterances in %d batches; launches %s"
             % (written, num_batches, launches))
         if launches["lstm_fwd"] != 4 * num_batches:
@@ -749,15 +780,27 @@ class Tee:
         return float(hits[-1].rsplit("=", 1)[1])
 
 
-KERNEL_NAMES = ("lstm_fwd", "lstm_bwd", "ctc_alpha", "ctc_beta", "moe_fwd")
+KERNEL_NAMES = ("lstm_fwd", "lstm_bwd", "ctc_alpha", "ctc_beta", "moe_fwd",
+                "moe_fwd_stash", "moe_bwd", "moe_bwd_noemit", "moe_wgrad")
 
 
 def counters(pkg):
-    return {"lstm_fwd": pkg["lstm_kernels"].lstm_layer_forward,
-            "lstm_bwd": pkg["lstm_kernels"].lstm_layer_backward,
-            "ctc_alpha": pkg["ctc_kernels"].ctc_alpha,
-            "ctc_beta": pkg["ctc_kernels"].ctc_beta,
-            "moe_fwd": pkg["moe_kernels"].moe_mix_fused}
+    lstm_kernels, ctc_kernels, moe_kernels = (
+        pkg["lstm_kernels"], pkg["ctc_kernels"], pkg["moe_kernels"])
+    return {"lstm_fwd": lstm_kernels.lstm_layer_forward,
+            "lstm_bwd": lstm_kernels.lstm_layer_backward,
+            "ctc_alpha": ctc_kernels.ctc_alpha,
+            "ctc_beta": ctc_kernels.ctc_beta,
+            "moe_fwd": moe_kernels.moe_mix_forward,
+            "moe_fwd_stash": moe_kernels.moe_mix_forward_stash,
+            "moe_bwd": moe_kernels.moe_mix_backward,
+            "moe_bwd_noemit": moe_kernels.moe_mix_backward_noemit,
+            "moe_wgrad": moe_kernels.moe_mix_wgrad}
+
+
+def counts(**given):
+    """Launch counts of every kernel: 0 but those given."""
+    return dict({k: 0 for k in KERNEL_NAMES}, **given)
 
 
 def run_counted(torch, pkg, fn):
@@ -780,234 +823,273 @@ def expect_counts(what, got, want):
         fail("%s: launch counts %s, expected %s" % (what, got, want))
 
 
-def train_end_to_end(torch, pkg, device, rng):
+def train_end_to_end(torch, pkg, device, work, scp):
     from lstm_ctc_tpu_torch.bin import nnet_init, nnet_train, nnet_validate
-    from lstm_ctc_tpu_torch.cli import (build_batcher, init_from_config,
-                                        make_shard_fn)
+    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
     from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
+    from lstm_ctc_tpu_torch.train.graph import param_leaves
+    config = dict(FLAGSHIP_CONFIG, num_experts=0)
+    result = {"launches": counts()}
+    config_path = os.path.join(work, "nnet.config")
+    with open(config_path, "w") as fh:
+        fh.write(format_config(config))
+    common = ["--objective", "ctc", "--batch-size", "32", "--device",
+              "cuda", "--report-interval", "0"]
+    cv_batches = len(build_batcher(scp, config, 32).batch_plan(False, None))
+    train_batcher = build_batcher(scp, config, 32, pack_factor=3)
+    train_steps = len(train_batcher.batch_plan(True, 777))
+    say("  corpus: %d utterances; %d CV batches; %d train steps an "
+        "epoch (pack factor 3, rows of %d frames)"
+        % (len(train_batcher._lengths), cv_batches, train_steps,
+           train_batcher.row_time))
+    cv_counts = counts(lstm_fwd=4 * cv_batches, ctc_alpha=cv_batches)
+    train_counts = counts(lstm_fwd=4 * train_steps, lstm_bwd=4 * train_steps,
+                          ctc_alpha=train_steps, ctc_beta=train_steps)
+
+    def counted(name, fn, want):
+        _, tee, got, seconds = run_counted(torch, pkg, fn)
+        expect_counts(name, got, want)
+        for k in KERNEL_NAMES:
+            result["launches"][k] += got[k]
+        return tee, seconds
+
+    nnets = [os.path.join(work, "nnet%d.npz" % i) for i in range(3)]
+    tee, _ = counted("nnet_init", lambda: nnet_init.main(
+        [scp, config_path, nnets[0]] + common), cv_counts)
+    cv = [tee.value("cv_loss")]
+    tee, _ = counted("nnet_validate", lambda: nnet_validate.main(
+        [scp, config_path, nnets[0]] + common), cv_counts)
+    cv.append(tee.value("cv_loss"))
+    tr, epoch_s, metrics = [], [], []
+    for epoch in (1, 2):
+        metrics_file = os.path.join(work, "metrics%d.jsonl" % epoch)
+        tee, seconds = counted("nnet_train", lambda: nnet_train.main(
+            [scp, config_path, nnets[epoch - 1], nnets[epoch],
+             "--optimizer", "adam", "--learn-rate", "1e-3",
+             "--pack-factor", "3", "--metrics-file", metrics_file]
+            + common), train_counts)
+        tr.append(tee.value("tr_loss"))
+        epoch_s.append(seconds)
+        with open(metrics_file) as fh:
+            metrics.append([json.loads(ln) for ln in fh])
+        tee, _ = counted("nnet_validate", lambda: nnet_validate.main(
+            [scp, config_path, nnets[epoch]] + common), cv_counts)
+        cv.append(tee.value("cv_loss"))
+    say("  cv_loss %s; tr_loss %s; epochs %.1f s, %.1f s (checkpoint "
+        "load, batching and save included)"
+        % (["%.4f" % v for v in cv], ["%.4f" % v for v in tr],
+           epoch_s[0], epoch_s[1]))
+    if not all(math.isfinite(v) for v in cv + tr):
+        fail("non-finite tr_loss or cv_loss")
+    if not cv[-1] < cv[0]:
+        fail("the last cv_loss %.4f is not below the first %.4f"
+             % (cv[-1], cv[0]))
+    template, state = init_from_config(config, device)
+    for path in nnets:
+        params, _, _ = load_checkpoint(path, template, state)
+        if not all(torch.isfinite(p).all() for p in param_leaves(params)):
+            fail("%s holds non-finite weights" % path)
+    say("  launches on the main path (init, 3 validations, 2 epochs): %s"
+        % result["launches"])
+    result.update(step_stats(metrics[1], train_batcher))
+    say("  epoch 2: median train step %.1f ms; %.1f real frames/s; "
+        "packing fill %.3f" % (result["step_ms"], result["fps"],
+                               result["fill"]))
+    check_steps(torch, pkg, device, config, nnets[2], train_batcher,
+                result["step_ms"])
+    return result
+
+
+def step_stats(steps, train_batcher):
+    """An epoch's steps, from its metrics file: the host clock around each
+    step, which ends in reading the loss (a synchronisation); every
+    utterance's frames are trained once an epoch."""
+    frames = sum(train_batcher._lengths)
+    return {"step_ms": 1e3 * statistics.median(m["step_time"] for m in steps),
+            "fps": frames / sum(m["step_time"] for m in steps),
+            "fill": frames / (len(steps) * 32 * train_batcher.row_time)}
+
+
+def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
+    """On one packed batch of the training stream, from the trained weights
+    in ``nnet``: the float32 step against the plain versions (each launch
+    on its own tensors, then end to end under the nudge yardstick), one
+    bfloat16 step with every launch held to its plain version, and a
+    profiled bfloat16 step."""
+    from lstm_ctc_tpu_torch.cli import init_from_config, make_shard_fn
     from lstm_ctc_tpu_torch.host.data import iterate_batches
     from lstm_ctc_tpu_torch.train.checkpoint import (leaves_with_path,
                                                      load_checkpoint,
                                                      tree_map)
     from lstm_ctc_tpu_torch.train.graph import (compute_losses, l2_loss,
                                                 make_train_step, param_leaves)
-    config = dict(FLAGSHIP_CONFIG, num_experts=0)
-    result = {"launches": {k: 0 for k in KERNEL_NAMES}}
-    with tempfile.TemporaryDirectory() as work:
-        config_path = os.path.join(work, "nnet.config")
-        with open(config_path, "w") as fh:
-            fh.write(format_config(config))
-        scp = write_labeled_corpus(pkg, work, rng)
-        common = ["--objective", "ctc", "--batch-size", "32", "--device",
-                  "cuda", "--report-interval", "0"]
-        cv_batches = len(build_batcher(scp, config, 32).batch_plan(False,
-                                                                    None))
-        train_batcher = build_batcher(scp, config, 32, pack_factor=3)
-        train_steps = len(train_batcher.batch_plan(True, 777))
-        say("  corpus: 288 utterances; %d CV batches; %d train steps an "
-            "epoch (pack factor 3, rows of %d frames)"
-            % (cv_batches, train_steps, train_batcher.row_time))
-        cv_counts = {"lstm_fwd": 4 * cv_batches, "lstm_bwd": 0,
-                     "ctc_alpha": cv_batches, "ctc_beta": 0, "moe_fwd": 0}
-        train_counts = {"lstm_fwd": 4 * train_steps,
-                        "lstm_bwd": 4 * train_steps,
-                        "ctc_alpha": train_steps, "ctc_beta": train_steps,
-                        "moe_fwd": 0}
+    moe = bool(config.get("num_experts"))
+    batch = make_shard_fn(device)(next(iter(iterate_batches(
+        train_batcher, shuffle=True, seed=777))))
+    train_config = dict(config, packed_slots_rank_major=True)
+    template, state = init_from_config(config, device)
+    base, _, _ = load_checkpoint(nnet, template, state)
 
-        def counted(name, fn, want):
-            _, tee, got, seconds = run_counted(torch, pkg, fn)
-            expect_counts(name, got, want)
-            for k in KERNEL_NAMES:
-                result["launches"][k] += got[k]
-            return tee, seconds
+    def fresh(nudge=None):
+        """A differentiable copy of the trained weights; with a generator
+        ``nudge``, each weight moved one unit in the last place, up or
+        down at random."""
+        def copy(t):
+            t = t.detach().clone()
+            if nudge is not None:
+                up = torch.rand(t.shape, generator=nudge,
+                                device=t.device) < 0.5
+                t = torch.nextafter(t, torch.where(up, math.inf, -math.inf))
+            return t.requires_grad_()
+        return tree_map(copy, base)
 
-        nnets = [os.path.join(work, "nnet%d.npz" % i) for i in range(3)]
-        tee, _ = counted("nnet_init", lambda: nnet_init.main(
-            [scp, config_path, nnets[0]] + common), cv_counts)
-        cv = [tee.value("cv_loss")]
-        tee, _ = counted("nnet_validate", lambda: nnet_validate.main(
-            [scp, config_path, nnets[0]] + common), cv_counts)
-        cv.append(tee.value("cv_loss"))
-        tr, epoch_s, metrics = [], [], []
-        for epoch in (1, 2):
-            metrics_file = os.path.join(work, "metrics%d.jsonl" % epoch)
-            tee, seconds = counted("nnet_train", lambda: nnet_train.main(
-                [scp, config_path, nnets[epoch - 1], nnets[epoch],
-                 "--optimizer", "adam", "--learn-rate", "1e-3",
-                 "--pack-factor", "3", "--metrics-file", metrics_file]
-                + common), train_counts)
-            tr.append(tee.value("tr_loss"))
-            epoch_s.append(seconds)
-            with open(metrics_file) as fh:
-                metrics.append([json.loads(ln) for ln in fh])
-            tee, _ = counted("nnet_validate", lambda: nnet_validate.main(
-                [scp, config_path, nnets[epoch]] + common), cv_counts)
-            cv.append(tee.value("cv_loss"))
-        say("  cv_loss %s; tr_loss %s; epochs %.1f s, %.1f s (checkpoint "
-            "load, batching and save included)"
-            % (["%.4f" % v for v in cv], ["%.4f" % v for v in tr],
-               epoch_s[0], epoch_s[1]))
-        if not all(math.isfinite(v) for v in cv + tr):
-            fail("non-finite tr_loss or cv_loss")
-        if not cv[-1] < cv[0]:
-            fail("the last cv_loss %.4f is not below the first %.4f"
-                 % (cv[-1], cv[0]))
-        template, state = init_from_config(config, device)
-        for path in nnets:
-            params, _, _ = load_checkpoint(path, template, state)
-            if not all(torch.isfinite(p).all() for p in param_leaves(params)):
-                fail("%s holds non-finite weights" % path)
-        say("  launches on the main path (init, 3 validations, 2 epochs): %s"
-            % result["launches"])
+    # float32: one step's loss and gradients, kernels vs plain
+    f32 = dict(train_config, compute_dtype="float32", store_dtype="float32",
+               dropout_rate=1.0)
 
-        # the warm epoch's steps: host clock around each step, which ends in
-        # reading the loss (a synchronisation); every utterance's frames
-        # are trained once an epoch
-        steps = metrics[1]
-        frames = sum(train_batcher._lengths)
-        fill = frames / (len(steps) * 32 * train_batcher.row_time)
-        result.update(
-            step_ms=1e3 * statistics.median(m["step_time"] for m in steps),
-            fps=frames / sum(m["step_time"] for m in steps), fill=fill)
-        say("  epoch 2: median train step %.1f ms; %.1f real frames/s; "
-            "packing fill %.3f" % (result["step_ms"], result["fps"], fill))
+    def grads(plain, nudge=None):
+        params = fresh(nudge)
+        with (plain_versions(pkg) if plain else contextlib.nullcontext()):
+            metrics_, _, _ = compute_losses(params, {}, batch, f32,
+                                            train=True)
+            total = metrics_["loss"] + 1e-5 * l2_loss(params)
+            g = torch.autograd.grad(total, param_leaves(params))
+        return float(total.detach()), g
 
-        # one batch of the packed training stream, for the step checks
-        shard = make_shard_fn(device)
-        batch = shard(next(iter(iterate_batches(train_batcher, shuffle=True,
-                                                seed=777))))
-        train_config = dict(config, packed_slots_rank_major=True)
-        base, _, _ = load_checkpoint(nnets[2], template, state)
+    held = ("lstm_fwd", "lstm_bwd") + (("moe_fwd_stash", "moe_bwd")
+                                       if moe else ())
+    worst32 = {k: 0.0 for k in held}
+    with held_f32(torch, pkg, worst32):
+        loss_k, grad_k = grads(False)
+    say("  float32 train step, each launch vs its plain version on the same "
+        "tensors, max rel: %s (bound %.0e)"
+        % (", ".join("%s %.3e" % kv for kv in worst32.items()), F32_REL_TOL))
+    if max(worst32.values()) > F32_REL_TOL:
+        fail("a float32 launch of the train step differs from its plain "
+             "version")
+    loss_p, grad_p = grads(True)
 
-        def fresh(nudge=None):
-            """A differentiable copy of the trained weights; with a
-            generator ``nudge``, each weight moved one unit in the last
-            place, up or down at random."""
-            def copy(t):
-                t = t.detach().clone()
-                if nudge is not None:
-                    up = torch.rand(t.shape, generator=nudge,
-                                    device=t.device) < 0.5
-                    t = torch.nextafter(t, torch.where(up, math.inf,
-                                                       -math.inf))
-                return t.requires_grad_()
-            return tree_map(copy, base)
+    def versus_plain(loss, grad):
+        """(loss rel, ||diff||/||plain||, [(leaf ratio, leaf)] worst
+        first) of one step's loss and gradients against the plain
+        versions'."""
+        grad_rel = math.sqrt(
+            sum(float(((a - b) ** 2).sum()) for a, b in zip(grad, grad_p))
+            / sum(float((b ** 2).sum()) for b in grad_p))
+        leaves = sorted(((ratio(a, b), key) for a, b, (key, _)
+                         in zip(grad, grad_p, leaves_with_path(base))),
+                        reverse=True)
+        return abs(loss - loss_p) / abs(loss_p), grad_rel, leaves
 
-        # float32: one step's loss and gradients, kernels vs plain
-        f32 = dict(train_config, compute_dtype="float32",
-                   store_dtype="float32", dropout_rate=1.0)
+    loss_rel, grad_rel, leaves = versus_plain(loss_k, grad_k)
+    # what the plain versions themselves make of a last-bit change of
+    # every weight: the yardstick for the differences above
+    nudged = versus_plain(*grads(True, torch.Generator(device).manual_seed(3)))
+    grad_bound = STEP_NUDGE_FACTOR * nudged[1]
+    leaf_bound = STEP_NUDGE_FACTOR * nudged[2][0][0]
+    say("  the plain versions with every weight moved one unit in the "
+        "last place, vs unmoved: loss rel %.3e; gradient ||diff||/"
+        "||plain|| %.3e; worst leaf %s max|diff|/max|plain| %.3e"
+        % (nudged[0], nudged[1], nudged[2][0][1], nudged[2][0][0]))
+    say("  float32 train step, kernels vs plain versions: loss %.6f vs "
+        "%.6f (rel %.3e, bound %.0e); gradient ||diff||/||plain|| %.3e "
+        "(bound %.3e); worst leaf %s %.3e (bound %.3e)"
+        % (loss_k, loss_p, loss_rel, STEP_LOSS_TOL, grad_rel, grad_bound,
+           leaves[0][1], leaves[0][0], leaf_bound))
+    say("  gradient leaves, largest max|diff|/max|plain| first: kernels "
+        "%s; nudged plain %s"
+        % tuple(", ".join("%s %.2e" % (k, r) for r, k in rels[:6])
+                for rels in (leaves, nudged[2])))
+    if (loss_rel > STEP_LOSS_TOL or grad_rel > grad_bound
+            or leaves[0][0] > leaf_bound):
+        fail("the float32 train step differs from the plain versions "
+             "by more than %.0fx a last-bit change of the weights does"
+             % STEP_NUDGE_FACTOR)
 
-        def grads(plain, nudge=None):
-            params = fresh(nudge)
-            with (plain_versions(pkg) if plain else contextlib.nullcontext()):
-                metrics_, _, _ = compute_losses(params, {}, batch, f32,
-                                                train=True)
-                total = metrics_["loss"] + 1e-5 * l2_loss(params)
-                g = torch.autograd.grad(total, param_leaves(params))
-            return float(total.detach()), g
+    # bfloat16: one step, every launch held to its plain version on the
+    # tensors the model gave it
+    held = ("lstm_bwd", "ctc_alpha", "ctc_beta") + (
+        ("moe_fwd_stash", "moe_bwd") if moe else ())
+    worst = {k: 0.0 for k in held}
+    init_opt, step = make_train_step(train_config, 1e-3, "adam")
+    params = fresh()
+    with held_in_training(torch, pkg, worst):
+        step(params, init_opt(params), {},
+             torch.Generator(device).manual_seed(1), batch)
+        torch.cuda.synchronize()
+    say("  bfloat16 train step, each launch vs its plain version: K2 "
+        "per-step carries max rel %.3e (bound %.0e); K10 %.3e, K11 %.3e "
+        "(bound %.0e on |diff|/max(1,|plain|))"
+        % (worst["lstm_bwd"], BF16_STEP_REL_TOL, worst["ctc_alpha"],
+           worst["ctc_beta"], CTC_TOL))
+    if moe:
+        say("  bfloat16 train step: K5 out max_abs %.3e (bound %.0e), th "
+            "within one bf16 rounding step; K6 dx/dgate max rel %.3e (bound "
+            "%.0e), dz within one bf16 rounding step"
+            % (worst["moe_fwd_stash"], BF16_ABS_TOL, worst["moe_bwd"],
+               BF16_MOE_REL_TOL))
 
-        worst32 = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
-        with held_f32(torch, pkg, worst32):
-            loss_k, grad_k = grads(False)
-        say("  float32 train step, each K1 and K2 launch vs its plain version "
-            "on the same tensors: K1 max rel %.3e, K2 max rel %.3e (bound "
-            "%.0e)" % (worst32["lstm_fwd"], worst32["lstm_bwd"], F32_REL_TOL))
-        if max(worst32.values()) > F32_REL_TOL:
-            fail("a float32 K1 or K2 launch of the train step differs from "
-                 "its plain version")
-        loss_p, grad_p = grads(True)
-
-        def versus_plain(loss, grad):
-            """(loss rel, ||diff||/||plain||, [(leaf ratio, leaf)] worst
-            first) of one step's loss and gradients against the plain
-            versions'."""
-            grad_rel = math.sqrt(
-                sum(float(((a - b) ** 2).sum()) for a, b in zip(grad, grad_p))
-                / sum(float((b ** 2).sum()) for b in grad_p))
-            leaves = sorted(((ratio(a, b), key) for a, b, (key, _)
-                             in zip(grad, grad_p, leaves_with_path(base))),
-                            reverse=True)
-            return abs(loss - loss_p) / abs(loss_p), grad_rel, leaves
-
-        loss_rel, grad_rel, leaves = versus_plain(loss_k, grad_k)
-        # what the plain versions themselves make of a last-bit change of
-        # every weight: the yardstick for the differences above
-        nudged = versus_plain(*grads(
-            True, torch.Generator(device).manual_seed(3)))
-        grad_bound = STEP_NUDGE_FACTOR * nudged[1]
-        leaf_bound = STEP_NUDGE_FACTOR * nudged[2][0][0]
-        say("  the plain versions with every weight moved one unit in the "
-            "last place, vs unmoved: loss rel %.3e; gradient ||diff||/"
-            "||plain|| %.3e; worst leaf %s max|diff|/max|plain| %.3e"
-            % (nudged[0], nudged[1], nudged[2][0][1], nudged[2][0][0]))
-        say("  float32 train step, kernels vs plain versions: loss %.6f vs "
-            "%.6f (rel %.3e, bound %.0e); gradient ||diff||/||plain|| %.3e "
-            "(bound %.3e); worst leaf %s %.3e (bound %.3e)"
-            % (loss_k, loss_p, loss_rel, STEP_LOSS_TOL, grad_rel, grad_bound,
-               leaves[0][1], leaves[0][0], leaf_bound))
-        say("  gradient leaves, largest max|diff|/max|plain| first: kernels "
-            "%s; nudged plain %s"
-            % tuple(", ".join("%s %.2e" % (k, r) for r, k in rels[:6])
-                    for rels in (leaves, nudged[2])))
-        if (loss_rel > STEP_LOSS_TOL or grad_rel > grad_bound
-                or leaves[0][0] > leaf_bound):
-            fail("the float32 train step differs from the plain versions "
-                 "by more than %.0fx a last-bit change of the weights does"
-                 % STEP_NUDGE_FACTOR)
-
-        # bfloat16: one step, every K2/K10/K11 launch held to its plain
-        # version on the tensors the model gave it
-        worst = {"lstm_bwd": 0.0, "ctc_alpha": 0.0, "ctc_beta": 0.0}
-        init_opt, step = make_train_step(train_config, 1e-3, "adam")
-        params = fresh()
-        with held_in_training(torch, pkg, worst):
-            step(params, init_opt(params), {},
-                 torch.Generator(device).manual_seed(1), batch)
-            torch.cuda.synchronize()
-        say("  bfloat16 train step, each launch vs its plain version: K2 "
-            "per-step carries max rel %.3e (bound %.0e); K10 %.3e, K11 %.3e "
-            "(bound %.0e on |diff|/max(1,|plain|))"
-            % (worst["lstm_bwd"], BF16_STEP_REL_TOL, worst["ctc_alpha"],
-               worst["ctc_beta"], CTC_TOL))
-
-        profile_step(torch, init_opt, step, fresh(), batch, device,
-                     result["step_ms"])
-    return result
+    profile_step(torch, init_opt, step, fresh(), batch, device, step_ms)
 
 
 @contextlib.contextmanager
 def held_f32(torch, pkg, worst):
-    """Run each K1 and K2 launch, then its plain version on the same
-    tensors; ``worst`` collects the largest ratio per kernel."""
-    cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
+    """Run each K1, K2, K5 and K6 launch, then its plain version on the
+    same tensors; ``worst`` collects the largest ratio per kernel."""
+    cells, lstm_kernels, moe_kernels = (pkg["cells"], pkg["lstm_kernels"],
+                                        pkg["moe_kernels"])
     k1, k2 = lstm_kernels.lstm_layer_forward, lstm_kernels.lstm_layer_backward
+    k5, k6 = moe_kernels.moe_mix_forward_stash, moe_kernels.moe_mix_backward
 
-    def forward(*args, states=False, store_dtype=None):
-        got = k1(*args, states=states, store_dtype=store_dtype)
-        ref = cells.dual_recurrence(*args, states=states)
-        worst["lstm_fwd"] = max(worst["lstm_fwd"],
-                                max(ratio(g, r) for g, r in zip(got, ref)))
-        return got
-
-    def backward(*args, store_dtype=None):
-        got = k2(*args, store_dtype=store_dtype)
-        ref = cells.dual_recurrence_backward(*args, store_dtype=store_dtype)
-        worst["lstm_bwd"] = max(worst["lstm_bwd"], max(
+    def note(name, got, ref):
+        worst[name] = max(worst[name], max(
             ratio(g, r) for g, r in zip(got, ref) if g is not None))
         return got
 
-    forward.launches = backward.launches = 0
-    with mock.patch.object(lstm_kernels, "lstm_layer_forward", forward), \
-            mock.patch.object(lstm_kernels, "lstm_layer_backward", backward):
+    def forward(*args, states=False, store_dtype=None):
+        return note("lstm_fwd", k1(*args, states=states,
+                                   store_dtype=store_dtype),
+                    cells.dual_recurrence(*args, states=states))
+
+    def backward(*args, store_dtype=None):
+        return note("lstm_bwd", k2(*args, store_dtype=store_dtype),
+                    cells.dual_recurrence_backward(*args,
+                                                   store_dtype=store_dtype))
+
+    def stash(*args):
+        return note("moe_fwd_stash", k5(*args),
+                    moe_kernels.moe_stash_reference(*args))
+
+    def mix_backward(*args):
+        return note("moe_bwd", k6(*args),
+                    moe_kernels.moe_backward_reference(*args))
+
+    stand_ins = ((lstm_kernels, "lstm_layer_forward", forward),
+                 (lstm_kernels, "lstm_layer_backward", backward),
+                 (moe_kernels, "moe_mix_forward_stash", stash),
+                 (moe_kernels, "moe_mix_backward", mix_backward))
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in stand_ins:
+            fn.launches = 0
+            stack.enter_context(mock.patch.object(module, name, fn))
         yield
+
+
+def within_bf16_step(got, ref):
+    """Every element within one bf16 rounding step of the plain version's."""
+    return bool(((got.float() - ref.float()).abs()
+                 <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
 
 
 @contextlib.contextmanager
 def held_in_training(torch, pkg, worst):
-    cells, lstm_kernels, ctc_kernels = (pkg["cells"], pkg["lstm_kernels"],
-                                        pkg["ctc_kernels"])
+    cells, lstm_kernels, ctc_kernels, moe_kernels = (
+        pkg["cells"], pkg["lstm_kernels"], pkg["ctc_kernels"],
+        pkg["moe_kernels"])
     k2, k10, k11 = (lstm_kernels.lstm_layer_backward, ctc_kernels.ctc_alpha,
                     ctc_kernels.ctc_beta)
+    k5, k6 = moe_kernels.moe_mix_forward_stash, moe_kernels.moe_mix_backward
 
     def backward(*args, store_dtype=None, steps=False):
         if args[3].dtype != torch.bfloat16 or store_dtype != torch.bfloat16:
@@ -1018,8 +1100,7 @@ def held_in_training(torch, pkg, worst):
         dg, dc_out, dh_out = cells.replay_backward_steps(
             *args[:-2], dc_in, dh_in, store_dtype=store_dtype)
         rel = max(ratio(dc_out[1:], dc_in[:-1]), ratio(dh_out[1:], dh_in[:-1]))
-        rounding = bool(((dgates.float() - dg.float()).abs()
-                         <= 2.0 ** -7 * dg.float().abs() + 1e-6).all())
+        rounding = within_bf16_step(dgates, dg)
         worst["lstm_bwd"] = max(worst["lstm_bwd"], rel)
         if rel > BF16_STEP_REL_TOL or not rounding:
             fail("K2 on the main path: a step's carries differ by %.3e "
@@ -1036,15 +1117,44 @@ def held_in_training(torch, pkg, worst):
                 fail("%s on the main path: rel %.3e, NEG_INF places "
                      "identical: %s" % (name, rel, same))
             return got
-        run.launches = 0
         return run
 
-    backward.launches = 0
-    with mock.patch.object(lstm_kernels, "lstm_layer_backward", backward), \
-            mock.patch.object(ctc_kernels, "ctc_alpha", held_dp(
-                "ctc_alpha", k10, ctc_kernels.alpha_reference)), \
-            mock.patch.object(ctc_kernels, "ctc_beta", held_dp(
-                "ctc_beta", k11, ctc_kernels.beta_reference)):
+    def stash(*args):
+        # (x, w, b, gate, seed, E, tau, keep_prob)
+        if args[1].dtype != torch.bfloat16:
+            fail("K5 launched in %s, expected bfloat16" % args[1].dtype)
+        out, th = k5(*args)
+        ref_out, ref_th = moe_kernels.moe_stash_reference(*args)
+        err = errors(out, ref_out)[0]
+        worst["moe_fwd_stash"] = max(worst["moe_fwd_stash"], err)
+        if err > BF16_ABS_TOL or not within_bf16_step(th, ref_th):
+            fail("K5 on the main path: out max_abs %.3e (bound %.0e), th "
+                 "within one bf16 rounding step: %s"
+                 % (err, BF16_ABS_TOL, within_bf16_step(th, ref_th)))
+        return out, th
+
+    def mix_backward(*args):
+        dx, dgate, dz = k6(*args)
+        ref_dx, ref_dgate, ref_dz = moe_kernels.moe_backward_reference(*args)
+        rel = max(ratio(dx, ref_dx), ratio(dgate, ref_dgate))
+        worst["moe_bwd"] = max(worst["moe_bwd"], rel)
+        if rel > BF16_MOE_REL_TOL or not within_bf16_step(dz, ref_dz):
+            fail("K6 on the main path: dx/dgate max rel %.3e (bound %.0e), "
+                 "dz within one bf16 rounding step: %s"
+                 % (rel, BF16_MOE_REL_TOL, within_bf16_step(dz, ref_dz)))
+        return dx, dgate, dz
+
+    stand_ins = ((lstm_kernels, "lstm_layer_backward", backward),
+                 (ctc_kernels, "ctc_alpha",
+                  held_dp("ctc_alpha", k10, ctc_kernels.alpha_reference)),
+                 (ctc_kernels, "ctc_beta",
+                  held_dp("ctc_beta", k11, ctc_kernels.beta_reference)),
+                 (moe_kernels, "moe_mix_forward_stash", stash),
+                 (moe_kernels, "moe_mix_backward", mix_backward))
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in stand_ins:
+            fn.launches = 0
+            stack.enter_context(mock.patch.object(module, name, fn))
         yield
 
 
@@ -1069,8 +1179,256 @@ def profile_step(torch, init_opt, step, params, batch, device, step_ms):
     busy = sum(r[0] for r in rows)
     say("  profiled train step: device kernels %.1f ms, %.0f%% of the "
         "median step (%.1f ms)" % (busy, 100 * busy / step_ms, step_ms))
-    for ms, count, key in rows[:14]:
+    for ms, count, key in rows[:16]:
         say("    %9.3f ms  %5d x  %s" % (ms, count, key[:90]))
+    # the host's side of the same step: where the device can wait on it
+    host = sorted(((evt.self_cpu_time_total / 1e3, evt.count, evt.key)
+                   for evt in prof.key_averages()
+                   if evt.self_cpu_time_total > 0), reverse=True)
+    waits = {evt.key: evt.count for evt in prof.key_averages()
+             if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                            "aten::_local_scalar_dense")}
+    say("  host: %.1f ms of CPU time in the profiled step; waits on the "
+        "device %s; most CPU: %s"
+        % (sum(h[0] for h in host), waits, ", ".join(
+            "%s %.1f ms (%d x)" % (key[:40], ms, count)
+            for ms, count, key in host[:8])))
+
+
+def moe_train_case(torch, pkg, device, rng):
+    """K5-K9's inputs at the training shape: x [N, 640], the expert
+    weights, bias, gate, an output cotangent and a device seed."""
+    n, dim, experts, targets = MOE_TRAIN_ROWS, 640, 72, 72
+    gen = torch.Generator().manual_seed(14)
+    w = pkg["moe"].init_moe(gen, dim, targets, experts, device)["w_expert"]
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    x = t(0.5 * rng.randn(n, dim))
+    b = t(0.1 * rng.randn(experts * targets))
+    gate = torch.softmax(t(rng.randn(n, experts)), dim=-1)
+    gout = t(rng.randn(n, targets))
+    seed = torch.tensor([-123457], dtype=torch.int32, device=device)
+    return x, w, b, gate, gout, seed
+
+
+def bound(nbytes, flops, peak):
+    """(least ms, what sets it) for ``nbytes`` moved and ``flops`` done."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, flops / peak
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def check_moe_training(torch, pkg, device, rng):
+    """K5, K6, K8 and K9 against their plain versions at the training
+    shape, then timed in turns with them (keep 0.9, as training runs)."""
+    mk = pkg["moe_kernels"]
+    x, w32, b, gate, gout, seed = moe_train_case(torch, pkg, device, rng)
+    n, dim = x.shape
+    experts, targets, tau = 72, 72, 10.0
+    ev = experts * targets
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        w = w32.to(dtype).contiguous()
+        for keep in (1.0, 0.9):
+            args = (seed, experts, tau, keep)
+            out, th = mk.moe_mix_forward_stash(x, w, b, gate, *args)
+            ref_out, ref_th = mk.moe_stash_reference(x, w, b, gate, *args)
+            dx, dgate, dz = mk.moe_mix_backward(th, w, gate, gout, *args)
+            ref_dx, ref_dgate, ref_dz = mk.moe_backward_reference(
+                th, w, gate, gout, *args)
+            dx8, dgate8 = mk.moe_mix_backward_noemit(th, w, gate, gout, *args)
+            dw, db = mk.moe_mix_wgrad(x, th, gate, gout, *args)
+            ref_dw, ref_db = mk.moe_wgrad_reference(x, th, gate, gout, *args)
+            torch.cuda.synchronize()
+            pairs = {"out": (out, ref_out), "th": (th, ref_th),
+                     "dx": (dx, ref_dx), "dgate": (dgate, ref_dgate),
+                     "dz": (dz, ref_dz), "dw": (dw, ref_dw),
+                     "db": (db, ref_db)}
+            for key, (g, _) in pairs.items():
+                if not torch.isfinite(g.float()).all():
+                    fail("K5-K9 %s keep=%.1f: non-finite %s"
+                         % (name, keep, key))
+            rels = {key: ratio(g, r) for key, (g, r) in pairs.items()}
+            same8 = torch.equal(dx8, dx) and torch.equal(dgate8, dgate)
+            say("  K5/K6/K9 %-8s keep=%.1f max|diff|/max|plain|: %s; K8's "
+                "dx and dgate equal K6's: %s"
+                % (name, keep, ", ".join("%s %.2e" % kv
+                                         for kv in rels.items()), same8))
+            if not same8:
+                fail("K8 differs from K6 (%s keep=%.1f)" % (name, keep))
+            if dtype == torch.float32:
+                if max(rels.values()) > F32_REL_TOL:
+                    fail("K5-K9 f32 keep=%.1f: relative error %.3e > %.1e"
+                         % (keep, max(rels.values()), F32_REL_TOL))
+            else:
+                out_abs = errors(out, ref_out)[0]
+                steps_ok = (within_bf16_step(th, ref_th),
+                            within_bf16_step(dz, ref_dz))
+                grad_rel = max(rels[k] for k in ("dx", "dgate", "dw", "db"))
+                say("  K5-K9 bfloat16 keep=%.1f: out max_abs %.3e (bound "
+                    "%.0e); th, dz within one bf16 rounding step: %s, %s; "
+                    "dx, dgate, dw, db max rel %.3e (bound %.0e)"
+                    % ((keep, out_abs, BF16_ABS_TOL) + steps_ok
+                       + (grad_rel, BF16_MOE_REL_TOL)))
+                if (out_abs > BF16_ABS_TOL or not all(steps_ok)
+                        or grad_rel > BF16_MOE_REL_TOL):
+                    fail("K5-K9 bf16 keep=%.1f outside its bounds" % keep)
+            if keep == 1.0:
+                continue
+            # timed in turns with the plain versions, at keep 0.9
+            isz = dtype.itemsize
+            peak = BF16_FLOPS_PER_MS if dtype == torch.bfloat16 \
+                else F32_FLOPS_PER_MS
+            flops = 2 * n * dim * ev
+            small = n * experts * 4 + n * targets * 4 + dim * ev * isz
+            k8_bytes = n * ev * isz + small + n * dim * 4 + n * experts * 4
+            cases = (
+                ("moe_fwd_stash", mk.moe_mix_forward_stash,
+                 mk.moe_stash_reference, (x, w, b, gate) + args,
+                 n * dim * 4 + ev * 4 + small + n * ev * isz, out, ref_out),
+                ("moe_bwd", mk.moe_mix_backward, mk.moe_backward_reference,
+                 (th, w, gate, gout) + args, k8_bytes + n * ev * isz, dx,
+                 ref_dx),
+                ("moe_bwd_noemit", mk.moe_mix_backward_noemit,
+                 mk.moe_backward_noemit_reference, (th, w, gate, gout) + args,
+                 k8_bytes, dx8, ref_dx),
+                ("moe_wgrad", mk.moe_mix_wgrad, mk.moe_wgrad_reference,
+                 (x, th, gate, gout) + args,
+                 n * dim * 4 + n * ev * isz + small - dim * ev * isz
+                 + dim * ev * 4 + ev * 4, dw, ref_dw))
+            for kname, kernel, plain, kargs, nbytes, got, ref in cases:
+                ms, plain_ms = time_in_turns(
+                    torch, lambda: kernel(*kargs), lambda: plain(*kargs),
+                    rounds=3, kernel_reps=3)
+                bound_ms, bound_by = bound(nbytes, flops, peak)
+                say("  %-14s %-8s kernel %.3f ms  plain %.3f ms  bound %.4f "
+                    "ms (%s: %.1f MB, %.1f GFLOP)"
+                    % (kname, name, ms, plain_ms, bound_ms, bound_by,
+                       nbytes / 1e6, flops / 1e9))
+                result[(kname, dtype)] = {
+                    "max_abs_err": errors(got, ref)[0], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+
+            def default():
+                _, _, dz_ = mk.moe_mix_backward(th, w, gate, gout, *args)
+                return mk.product_f32(x.to(dtype).t(), dz_), dz_.float().sum(0)
+
+            def twokernel():
+                mk.moe_mix_backward_noemit(th, w, gate, gout, *args)
+                return mk.moe_mix_wgrad(x, th, gate, gout, *args)
+
+            two_ms, default_ms = time_in_turns(torch, twokernel, default,
+                                               rounds=3, kernel_reps=3)
+            dw_default = default()[0]
+            say("  %-8s backward: twokernel (K8 + K9) %.3f ms, default (K6 + "
+                "torch dw product) %.3f ms; dw twokernel vs default max rel "
+                "%.2e" % (name, two_ms, default_ms,
+                          ratio(dw, dw_default)))
+            result[("twokernel", dtype)] = (two_ms, default_ms)
+    return result
+
+
+def train_moe_end_to_end(torch, pkg, device, work, scp):
+    """The treatment model trains through nnet_train_loop; then two steps
+    of the twokernel path, and phase 8's step checks on the MoE model."""
+    from lstm_ctc_tpu_torch.bin import nnet_train_loop
+    from lstm_ctc_tpu_torch.cli import (build_batcher, init_from_config,
+                                        make_shard_fn)
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.host.data import iterate_batches
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint, tree_map
+    from lstm_ctc_tpu_torch.train.graph import make_train_step, param_leaves
+    config = dict(FLAGSHIP_CONFIG)
+    config_path = os.path.join(work, "nnet_moe.config")
+    with open(config_path, "w") as fh:
+        fh.write(format_config(config))
+    exp = os.path.join(work, "exp_moe")
+    cv_batches = len(build_batcher(scp, config, 32).batch_plan(False, None))
+    train_batcher = build_batcher(scp, config, 32, pack_factor=3)
+    # the loop's epoch i shuffles with seed i
+    steps = sum(len(train_batcher.batch_plan(True, it)) for it in (1, 2))
+    cvs = 3 * cv_batches
+    want = counts(lstm_fwd=4 * (cvs + steps), lstm_bwd=4 * steps,
+                  moe_fwd=cvs, moe_fwd_stash=steps, moe_bwd=steps,
+                  ctc_alpha=cvs + steps, ctc_beta=steps)
+    argv = ["--tr-tfrecords-scp", scp, "--cv-tfrecords-scp", scp,
+            "--nnet-config", config_path, "--dir", exp, "--objective", "ctc",
+            "--optimizer", "adam", "--learn-rate", "1e-3", "--max-iter", "2",
+            "--batch-size", "32", "--pack-factor", "3", "--shuffle", "true",
+            "--cv-goal", "loss", "--report-interval", "0", "--device", "cuda"]
+    _, _, got, seconds = run_counted(torch, pkg,
+                                     lambda: nnet_train_loop.main(argv))
+    expect_counts("nnet_train_loop", got, want)
+    result = {"launches": got}
+    done = [nnet_train_loop.read_done(os.path.join(exp, "nnet.%d.done" % i))
+            for i in range(3)]
+    cv = [d["cv_loss"] for d in done]
+    tr = [d["tr_loss"] for d in done[1:]]
+    with open(os.path.join(exp, "final.nnet")) as fh:
+        final = fh.read().strip()
+    say("  nnet_train_loop, 2 iterations in %.1f s (3 CV passes of %d "
+        "batches, %d train steps): cv_loss %s; tr_loss %s; final model %s; "
+        "launches %s" % (seconds, cv_batches, steps,
+                         ["%.4f" % v for v in cv], ["%.4f" % v for v in tr],
+                         final, got))
+    if not all(math.isfinite(v) for v in cv + tr):
+        fail("non-finite tr_loss or cv_loss in the MoE training")
+    if not cv[-1] < cv[0]:
+        fail("MoE training: the last cv_loss %.4f is not below the first "
+             "%.4f" % (cv[-1], cv[0]))
+    template, state = init_from_config(config, device)
+    for i in range(3):
+        params, _, _ = load_checkpoint(os.path.join(exp, "nnet.%d" % i),
+                                       template, state)
+        if not all(torch.isfinite(p).all() for p in param_leaves(params)):
+            fail("nnet.%d holds non-finite weights" % i)
+    with open(os.path.join(exp, "nnet.2.metrics.jsonl")) as fh:
+        result.update(step_stats([json.loads(ln) for ln in fh],
+                                 train_batcher))
+    result["cv"] = cv
+    say("  iteration 2: median MoE train step %.1f ms; %.1f real frames/s; "
+        "packing fill %.3f" % (result["step_ms"], result["fps"],
+                               result["fill"]))
+
+    # the opt-in twokernel weight gradient: two steps of its own, counted
+    base, _, _ = load_checkpoint(os.path.join(exp, "nnet.2"), template,
+                                 state)
+    shard = make_shard_fn(device)
+    batches = [shard(b) for b in itertools.islice(
+        iterate_batches(train_batcher, shuffle=True, seed=2), 2)]
+    train_config = dict(config, packed_slots_rank_major=True)
+
+    def run_steps(mode, some):
+        init_opt, step = make_train_step(
+            dict(train_config, moe_wgrad_mode=mode), 1e-3, "adam")
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                          base)
+        opt_state = init_opt(params)
+        gen = torch.Generator(device).manual_seed(5)
+        for batch in some:
+            step(params, opt_state, {}, gen, batch)
+
+    _, _, got2, _ = run_counted(torch, pkg,
+                                lambda: run_steps("twokernel", batches))
+    expect_counts("twokernel steps", got2, counts(
+        lstm_fwd=8, lstm_bwd=8, moe_fwd_stash=2, moe_bwd_noemit=2,
+        moe_wgrad=2, ctc_alpha=2, ctc_beta=2))
+    for k in KERNEL_NAMES:
+        result["launches"][k] += got2[k]
+    two_ms, xla_ms = time_in_turns(
+        torch, lambda: run_steps("twokernel", batches[:1]),
+        lambda: run_steps("xla", batches[:1]), rounds=2, kernel_reps=1)
+    say("  MoE train step on the device clock: twokernel %.1f ms, default "
+        "%.1f ms; twokernel launches %s" % (two_ms, xla_ms, got2))
+    result["twokernel_step_ms"], result["xla_step_ms"] = two_ms, xla_ms
+
+    check_steps(torch, pkg, device, config, os.path.join(exp, "nnet.2"),
+                train_batcher, result["step_ms"])
+    return result
 
 
 def reference_files():
@@ -1138,9 +1496,16 @@ def main() -> None:
         for reset in (False, True):
             bwd[(dtype, reset)] = check_lstm_bwd(torch, pkg, device, dtype,
                                                  reset, rng)
-    say("phase 8 training end to end (nnet_init / nnet_train / "
-        "nnet_validate, flagship dense-head model, cuda)")
-    train = train_end_to_end(torch, pkg, device, rng)
+    with tempfile.TemporaryDirectory() as work:
+        scp = write_labeled_corpus(pkg, work, rng)
+        say("phase 8 training end to end (nnet_init / nnet_train / "
+            "nnet_validate, flagship dense-head model, cuda)")
+        train = train_end_to_end(torch, pkg, device, work, scp)
+        say("phase 9 K5/K6/K8/K9 (MoE head training kernels)")
+        moe_train = check_moe_training(torch, pkg, device, rng)
+        say("phase 10 MoE training end to end (nnet_train_loop, flagship "
+            "MoE model, cuda)")
+        moe_loop = train_moe_end_to_end(torch, pkg, device, work, scp)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -1148,8 +1513,9 @@ def main() -> None:
              % bad[:5])
 
     launches = dict(train["launches"])
-    for k, v in e2e["launches"].items():
-        launches[k] += v
+    for run in (e2e, moe_loop):
+        for k, v in run["launches"].items():
+            launches[k] += v
     for name in KERNEL_NAMES:
         if launches[name] == 0:
             fail("%s was never launched on the main paths" % name)
@@ -1187,6 +1553,17 @@ def main() -> None:
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
     ]
+    # K5-K9: bf16 at keep 0.9, the training shape N=14336
+    for name, source, line in (("moe_fwd_stash", "moe_fwd.cu", 217),
+                               ("moe_bwd", "moe_bwd.cu", 271),
+                               ("moe_bwd_noemit", "moe_bwd.cu", 282),
+                               ("moe_wgrad", "moe_wgrad.cu", 289)):
+        kernels.append(dict(
+            {"name": name, "route": "cuda",
+             "source": "lstm_ctc_tpu_torch/csrc/" + source,
+             "replaces": "lstm_ctc_tpu/ops/moe_pallas.py:%d" % line,
+             "launches": launches[name], "library_ms": None},
+            **moe_train[(name, torch.bfloat16)]))
     for name, line in (("ctc_alpha", 46), ("ctc_beta", 78)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -1197,16 +1574,22 @@ def main() -> None:
             "plain_ms": dp[name]["plain_ms"],
             "bound_ms": dp[name]["bound_ms"], "bound_by": "bytes",
             "library_ms": dp[name]["library_ms"]})
+    two_ms, default_ms = moe_train[("twokernel", torch.bfloat16)]
     say("summary on %s: nnet_forward %.1f frames/s (64 utterances, model "
         "init and checkpoint load included); flagship forward B=32 T=384 "
-        "%.1f frames/s; flagship dense-head train step (B=32, pack 3) "
-        "median %.1f ms, %.1f real frames/s, packing fill %.3f"
+        "%.1f frames/s; train step (B=32 rows of 448 frames, pack 3, bf16), "
+        "median: dense head %.1f ms, %.1f real frames/s (fill %.3f); MoE "
+        "head %.1f ms, %.1f real frames/s (fill %.3f); MoE backward at "
+        "N=14336: twokernel %.3f ms vs default %.3f ms"
         % (smi, e2e["fps_warm"], 32 * 384 / e2e["model_ms"] * 1e3,
-           train["step_ms"], train["fps"], train["fill"]))
+           train["step_ms"], train["fps"], train["fill"],
+           moe_loop["step_ms"], moe_loop["fps"], moe_loop["fill"], two_ms,
+           default_ms))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
-        e2e["fps_warm"], train["step_ms"]]
+        e2e["fps_warm"], train["step_ms"], moe_loop["step_ms"], two_ms,
+        default_ms]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

@@ -57,6 +57,18 @@ SIGNATURES = {
                     ctypes.c_uint32, _P, _P],
     "moe_fwd_bf16": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                      ctypes.c_uint32, _P, _P],
+    # device, x, w, b, gate, seed, N, D, E, V, tau, keep_prob, out, th,
+    # stream
+    "moe_fwd_stash_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
+    "moe_fwd_stash_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
+    # device, th, w, gate, gout, seed, N, D, E, V, tau, keep_prob, dx,
+    # dgate, dz (NULL: no dz stream), stream
+    "moe_bwd_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 4,
+    "moe_bwd_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 4,
+    # device, x, th, gate, gout, seed, N, D, E, V, tau, keep_prob, dw, db,
+    # stream
+    "moe_wgrad_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
+    "moe_wgrad_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
 }
 
 

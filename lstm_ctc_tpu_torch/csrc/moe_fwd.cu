@@ -1,22 +1,28 @@
-// Kernel B: the MoE head's fused expert mix, forward.
+// K4 and K5: the MoE head's fused expert mix, forward.
 //
-// Replaces the TPU kernel lstm_ctc_tpu/ops/moe_pallas.py _fwd_kernel (:212,
-// body _fwd_body :189-210), launched by _pallas_fwd (:358) from
-// moe_mix_fused (:574):
+// Replaces the TPU kernels lstm_ctc_tpu/ops/moe_pallas.py _fwd_kernel (:212,
+// K4) and _fwd_kernel_res (:217, K5), both with the body _fwd_body
+// (:189-210), launched by _pallas_fwd (:358) from moe_mix_fused (:574):
 //
 //   out[n, v] = sum_e gate[n, e] * drop(tau * tanh(x[n] · W_e + b_e))[v]
 //
-// without writing the [N, E·V] expert tile to memory.  Dropout keeps an
-// element where hash_uniform(n, e·V + v, seed) < keep_prob and scales it by
-// 1 / keep_prob; the hash is the reference's murmur3 finalizer, bit for bit.
+// K4 (serving, evaluation) does not write the [N, E·V] expert tile to
+// memory.  K5 (training) also stores th = tanh(x · W + b) [N, E·V] in the
+// compute dtype for the backward (moe_bwd.cu), as the TPU kernel stashes
+// it (:199-202, :369).  Dropout keeps an element where hash_uniform(n,
+// e·V + v, seed) < keep_prob and scales it by 1 / keep_prob; the hash is
+// the reference's murmur3 finalizer, bit for bit.  K4 takes the seed as an
+// argument; K5 reads it from device memory, where the training step drew
+// it, so the host never waits for it.
 //
 // What bounds it on the H100: the expert product, 2·N·D·E·V flops
-// (81.5 GFLOP at N = 12288, D = 640, E = V = 72), far above the byte
-// traffic (x and out once; W, 6.6 MB in bf16, re-read from L2 by every
-// row tile).  So the tensor cores should set the pace: the bf16 path
-// issues ldmatrix and mma.sync m16n8k16; the float32 path, which must not
-// round to TF32, uses FMA.  The TPU kernel's R/S fold matrices and
-// expert padding are lane tricks of the TPU and are not carried over.
+// (95.1 GFLOP at N = 14336, D = 640, E = V = 72), above the byte traffic
+// (x and out once, W, 6.6 MB in bf16, re-read from L2 by every row tile;
+// K5 adds the 149 MB bf16 stash, ~0.04 ms at 3.35 TB/s).  So the tensor
+// cores should set the pace: the bf16 path issues ldmatrix and mma.sync
+// m16n8k16; the float32 path, which must not round to TF32, uses FMA.  The
+// TPU kernel's R/S fold matrices and expert padding are lane tricks of the
+// TPU and are not carried over.
 //
 // Design: one block per tile of NB rows loops over all E experts.  The x
 // tile, cast to the compute dtype inside the kernel, stays in shared
@@ -26,64 +32,32 @@
 // chunk suffices.  z = x·W_e lands in shared memory (aliasing the W
 // buffers; ~104 KB a block, so two blocks share an SM); the epilogue adds
 // b_e, takes tau·tanh, applies the mask and adds gate[n, e]·a into a
-// [NB, V] accumulator held in registers, written once at the end.  No
-// atomics, no cross-block reduction.  A TMA/wgmma pipeline is later work.
+// [NB, V] accumulator held in registers, written once at the end.  K5
+// first turns the z tile into th in place with all threads, row-major, so
+// that its stash is written in whole rows.  No atomics, no cross-block
+// reduction.  A TMA/wgmma pipeline is later work.
 
-#include "common.cuh"
+#include "moe_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kChunk = 64;     // rows of W_e per shared-memory chunk
-constexpr int kMaxV = 128;     // widest expert output a block can hold
+constexpr int kChunk = 64;  // rows of W_e per shared-memory chunk
 
-__device__ __forceinline__ float hash_uniform(uint32_t row, uint32_t col,
-                                              uint32_t seed) {
-  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u + seed * 0xC2B2AE3Du;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return (float)(x >> 9) * (1.0f / 8388608.0f);
-}
-
-__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
-
-template <typename T>
-struct Tile;  // rows per block, shared-memory row padding (elements)
-
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int kRows = 64;
-  static constexpr int kPad = 8;  // 16 bytes: rows fall on other banks
-};
-
-template <>
-struct Tile<float> {
-  static constexpr int kRows = 32;
-  static constexpr int kPad = 4;
-};
-
-struct Layout {
-  int dp, vp, ldx, ldw, ldz;
+struct FwdLayout {
+  Layout l;
   size_t x_bytes, w_elems, wz_bytes;
 };
 
 template <typename T>
-__host__ __device__ Layout layout(int d, int v) {
-  Layout l;
-  l.dp = round16(d);
-  l.vp = round16(v);
-  l.ldx = l.dp + Tile<T>::kPad;
-  l.ldw = l.vp + Tile<T>::kPad;
-  l.ldz = l.vp + 4;
-  l.x_bytes = sizeof(T) * Tile<T>::kRows * (size_t)l.ldx;
-  l.w_elems = (size_t)kChunk * l.ldw;
-  const size_t w_bytes = 2 * sizeof(T) * l.w_elems;  // two chunk buffers
-  const size_t z_bytes = sizeof(float) * Tile<T>::kRows * (size_t)l.ldz;
-  l.wz_bytes = w_bytes > z_bytes ? w_bytes : z_bytes;
-  return l;
+__host__ __device__ FwdLayout fwd_layout(int d, int v) {
+  FwdLayout f;
+  f.l = layout<T>(d, v);
+  f.x_bytes = sizeof(T) * Tile<T>::kRows * (size_t)f.l.ldx;
+  f.w_elems = (size_t)kChunk * f.l.ldw;
+  const size_t w_bytes = 2 * sizeof(T) * f.w_elems;  // two chunk buffers
+  const size_t z_bytes = sizeof(float) * Tile<T>::kRows * (size_t)f.l.ldz;
+  f.wz_bytes = w_bytes > z_bytes ? w_bytes : z_bytes;
+  return f;
 }
 
 // One chunk of W_e (rows k0 .. k0 + 64, columns e·V .. e·V + V, zero
@@ -135,136 +109,31 @@ __device__ void stage_scalar(T* ws, const T* __restrict__ w, int k0, int d,
   }
 }
 
-// Partial expert product over one chunk, bf16 on the tensor cores
-// (ldmatrix, mma.sync m16n8k16).  Warp w owns row tile w % 4 and column
-// tiles w / 4, w / 4 + 2, ... of 16 columns each.
-struct MmaAcc {
-  static constexpr int kTiles = (kMaxV / 16 + 1) / 2;
-  float acc[kTiles][2][4];  // [column tile][8-column half][mma C registers]
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][h][i] = 0.0f;
-  }
-
-  __device__ void product(const __nv_bfloat16* xs, const __nv_bfloat16* ws,
-                          int k0, int kc, const Layout& l) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-    const int tm = warp % 4, tn0 = warp / 4, ntn = l.vp / 16;
-    // ldmatrix row addresses: x rows tm·16 + lane % 16 at k + 8·(lane / 16);
-    // W rows k = lane % 16 at column 8·(lane / 16)
-    const __nv_bfloat16* x_lane = xs + (tm * 16 + (lane & 15)) * l.ldx + (lane >> 4) * 8;
-    const __nv_bfloat16* w_lane = ws + (lane & 15) * l.ldw + (lane >> 4) * 8;
-    for (int kk = 0; kk < kc; kk += 16) {
-      uint32_t fa[4];
-      ldsm_x4(fa, x_lane + k0 + kk);
-#pragma unroll
-      for (int j = 0; j < kTiles; ++j) {
-        const int tn = tn0 + 2 * j;
-        if (tn < ntn) {
-          uint32_t fb[4];
-          ldsm_x4_trans(fb, w_lane + kk * l.ldw + tn * 16);
-          mma_16816(acc[j][0], fa, fb[0], fb[1]);
-          mma_16816(acc[j][1], fa, fb[2], fb[3]);
-        }
-      }
-    }
-  }
-
-  // lane holds rows lane / 4 and + 8, columns 2·(lane % 4) and + 1 of each
-  // 8-column half
-  __device__ void store(float* zs, const Layout& l) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-    const int tm = warp % 4, tn0 = warp / 4;
-    float* row = zs + (tm * 16 + (lane >> 2)) * l.ldz + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      const int tn = tn0 + 2 * j;
-      if (tn < l.vp / 16) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* dst = row + tn * 16 + h * 8;
-          *reinterpret_cast<float2*>(dst) = make_float2(acc[j][h][0], acc[j][h][1]);
-          *reinterpret_cast<float2*>(dst + 8 * l.ldz) =
-              make_float2(acc[j][h][2], acc[j][h][3]);
-        }
-      }
-    }
-  }
-};
-
-// Partial expert product over one chunk in float32 FMA (no TF32 rounding).
-// Thread (rg, cg) owns rows 2·rg, 2·rg + 1 and columns cg + 16·j.
-struct FmaAcc {
-  static constexpr int kRowsPer = Tile<float>::kRows / 16;
-  static constexpr int kColsPer = kMaxV / 16;
-  float acc[kRowsPer][kColsPer];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j) acc[i][j] = 0.0f;
-  }
-
-  __device__ void product(const float* xs, const float* ws, int k0, int kc,
-                          const Layout& l) {
-    const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-    for (int kk = 0; kk < kc; ++kk) {
-      float a[kRowsPer];
-#pragma unroll
-      for (int i = 0; i < kRowsPer; ++i) a[i] = xs[(rg * kRowsPer + i) * l.ldx + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j) {
-        if (j * 16 < l.vp) {
-          const float b = ws[kk * l.ldw + cg + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kRowsPer; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-        }
-      }
-    }
-  }
-
-  __device__ void store(float* zs, const Layout& l) const {
-    const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j)
-        if (j * 16 < l.vp) zs[(rg * kRowsPer + i) * l.ldz + cg + 16 * j] = acc[i][j];
-  }
-};
-
-template <typename T>
-struct Product;
-template <>
-struct Product<__nv_bfloat16> { using Acc = MmaAcc; };
-template <>
-struct Product<float> { using Acc = FmaAcc; };
-
-template <typename T>
+template <typename T, bool kStash>
 __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
     const float* __restrict__ x,     // [N, D] float32
     const T* __restrict__ w,         // [D, E·V] compute dtype
     const float* __restrict__ b,     // [E·V]
     const float* __restrict__ gate,  // [N, E]
     int n, int d, int experts, int v, float tau, float keep_prob,
-    uint32_t seed, float* __restrict__ out) {  // [N, V]
+    uint32_t seed_arg,               // K4's seed
+    const int32_t* __restrict__ seed_dev,  // K5's seed [1] (read if dropout)
+    float* __restrict__ out,         // [N, V]
+    T* __restrict__ th) {            // [N, E·V] (K5)
   constexpr int kRows = Tile<T>::kRows;
   constexpr int kPerRow = kThreads / kRows;  // threads per output row
   constexpr int kCols = kMaxV / kPerRow;     // output columns per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Layout l = layout<T>(d, v);
+  const FwdLayout f = fwd_layout<T>(d, v);
+  const Layout& l = f.l;
   T* xs = reinterpret_cast<T*>(smem_raw);                       // [NB][ldx]
-  T* ws = reinterpret_cast<T*>(smem_raw + l.x_bytes);           // 2 x [64][ldw]
-  float* zs = reinterpret_cast<float*>(smem_raw + l.x_bytes);   // [NB][ldz]
+  T* ws = reinterpret_cast<T*>(smem_raw + f.x_bytes);           // 2 x [64][ldw]
+  float* zs = reinterpret_cast<float*>(smem_raw + f.x_bytes);   // [NB][ldz]
   const int n0 = blockIdx.x * kRows;
   const int ev = experts * v;
   const bool vec = (v * (int)sizeof(T)) % 16 == 0;
+  const bool dropout = keep_prob < 1.0f;
+  const uint32_t seed = kStash ? (dropout ? (uint32_t)seed_dev[0] : 0u) : seed_arg;
 
   // the x tile, cast to the compute dtype once for all experts
   for (int i = threadIdx.x; i < kRows * l.dp; i += kThreads) {
@@ -275,7 +144,6 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
 
   const int row = threadIdx.x / kPerRow, lane = threadIdx.x % kPerRow;
   const bool row_ok = n0 + row < n;
-  const bool dropout = keep_prob < 1.0f;
   const float inv_keep = 1.0f / keep_prob;
   float mix[kCols];
 #pragma unroll
@@ -289,7 +157,7 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
   if (vec) next.load(w, 0, d, ev, 0, v, l);
   for (int it = 0; it < total; ++it) {
     const int e = it / chunks, k0 = (it - e * chunks) * kChunk;
-    T* buf = ws + (it & 1) * l.w_elems;
+    T* buf = ws + (it & 1) * f.w_elems;
     if (vec)
       next.store(buf, l);
     else
@@ -307,13 +175,24 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
     acc.store(zs, l);
     acc.zero();
     __syncthreads();
+    if (kStash) {
+      // z -> th in place, and th to the stash in whole rows
+      for (int i = threadIdx.x; i < kRows * v; i += kThreads) {
+        const int r = i / v, c = i - r * v;
+        const float t = tanhf(zs[r * l.ldz + c] + b[e * v + c]);
+        zs[r * l.ldz + c] = t;
+        if (n0 + r < n) th[(size_t)(n0 + r) * ev + e * v + c] = Dtype<T>::from_float(t);
+      }
+      __syncthreads();
+    }
     if (row_ok) {
       const float g = gate[(size_t)(n0 + row) * experts + e];
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int c = lane + kPerRow * j;
         if (c < v) {
-          float a = tau * tanhf(zs[row * l.ldz + c] + b[e * v + c]);
+          const float t = kStash ? zs[row * l.ldz + c] : tanhf(zs[row * l.ldz + c] + b[e * v + c]);
+          float a = tau * t;
           if (dropout) {
             const float u = hash_uniform((uint32_t)(n0 + row), (uint32_t)(e * v + c), seed);
             a = u < keep_prob ? a * inv_keep : 0.0f;
@@ -334,28 +213,25 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kStash>
 int launch(int device, const void* x, const void* w, const void* b,
            const void* gate, int n, int d, int experts, int v, float tau,
-           float keep_prob, uint32_t seed, void* out, void* stream) {
+           float keep_prob, uint32_t seed, const void* seed_dev, void* out,
+           void* th, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
   if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
-  const Layout l = layout<T>(d, v);
-  const size_t smem = l.x_bytes + l.wz_bytes;
-  if (smem > kMaxSmemPerBlock) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(moe_fwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  // all of the SM's unified L1/shared storage as shared memory: two blocks
-  err = cudaFuncSetAttribute(moe_fwd_kernel<T>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (kStash && keep_prob < 1.0f && seed_dev == nullptr) return cudaErrorInvalidValue;
+  const FwdLayout f = fwd_layout<T>(d, v);
+  const size_t smem = f.x_bytes + f.wz_bytes;
+  err = set_smem(moe_fwd_kernel<T, kStash>, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + Tile<T>::kRows - 1) / Tile<T>::kRows;
-  moe_fwd_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  moe_fwd_kernel<T, kStash><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const T*)w, (const float*)b, (const float*)gate, n, d,
-      experts, v, tau, keep_prob, seed, (float*)out);
+      experts, v, tau, keep_prob, seed, (const int32_t*)seed_dev, (float*)out,
+      (T*)th);
   return cudaGetLastError();
 }
 
@@ -365,11 +241,24 @@ int launch(int device, const void* x, const void* w, const void* b,
   int device, const void *x, const void *w, const void *b, const void *gate, \
       int n, int d, int experts, int v, float tau, float keep_prob,          \
       uint32_t seed, void *out, void *stream
-#define MOE_FWD_PASS \
-  device, x, w, b, gate, n, d, experts, v, tau, keep_prob, seed, out, stream
+#define MOE_FWD_PASS(T)                                                 \
+  launch<T, false>(device, x, w, b, gate, n, d, experts, v, tau, keep_prob, \
+                   seed, nullptr, out, nullptr, stream)
 
-extern "C" int moe_fwd_f32(MOE_FWD_ARGS) { return launch<float>(MOE_FWD_PASS); }
+extern "C" int moe_fwd_f32(MOE_FWD_ARGS) { return MOE_FWD_PASS(float); }
 
-extern "C" int moe_fwd_bf16(MOE_FWD_ARGS) {
-  return launch<__nv_bfloat16>(MOE_FWD_PASS);
+extern "C" int moe_fwd_bf16(MOE_FWD_ARGS) { return MOE_FWD_PASS(__nv_bfloat16); }
+
+#define MOE_STASH_ARGS                                                        \
+  int device, const void *x, const void *w, const void *b, const void *gate, \
+      const void *seed, int n, int d, int experts, int v, float tau,         \
+      float keep_prob, void *out, void *th, void *stream
+#define MOE_STASH_PASS(T)                                                    \
+  launch<T, true>(device, x, w, b, gate, n, d, experts, v, tau, keep_prob, 0u, \
+                  seed, out, th, stream)
+
+extern "C" int moe_fwd_stash_f32(MOE_STASH_ARGS) { return MOE_STASH_PASS(float); }
+
+extern "C" int moe_fwd_stash_bf16(MOE_STASH_ARGS) {
+  return MOE_STASH_PASS(__nv_bfloat16);
 }

@@ -11,9 +11,12 @@ Counterpart of ``lstm_ctc_tpu/models/blstm.py:40-257``:
   * the uniform / prior label-smoothing KL regularizers;
   * an ``encoder`` vector: concat of both final states;
   * in training, per-direction output dropout with *keep* probability
-    ``dropout_rate`` after every layer, and each layer differentiable
-    through the backward kernel (``lstm_kernels.bilstm_dual_scan_train``).
-The MoE head's training is a later slice.
+    ``dropout_rate`` after every layer, each layer differentiable through
+    the backward kernel (``lstm_kernels.bilstm_dual_scan_train``), and the
+    MoE head's gate and expert dropout at the same keep probability, the
+    head differentiable through its backward kernels.  ``moe_wgrad_mode``
+    in nnet.config (``xla``, the default, or ``twokernel``) picks how the
+    head's weight gradient is computed (``moe_kernels.moe_mix_fused``).
 """
 
 from __future__ import annotations
@@ -136,10 +139,6 @@ def apply_blstm(params: Dict,
     dims = _model_dims(config)
     compute_dtype = _compute_dtype(config, nnet_input.device)
     keep_prob = float(config.get("dropout_rate", 1.0)) if train else 1.0
-    if train and dims["num_experts"] > 0:
-        raise NotImplementedError(
-            "training the MoE head is not ported to PyTorch yet (ROADMAP "
-            "queue 1: the MoE head's training slice)")
 
     if reset_mask is None:
         def rev(v):
@@ -179,7 +178,9 @@ def apply_blstm(params: Dict,
     flat = finput.reshape(batch * time_steps, dims["output_dim"])
     if dims["num_experts"] > 0:
         y = apply_moe(params["moe"], flat, dims["num_experts"],
-                      dims["moe_temp"], compute_dtype=compute_dtype)
+                      dims["moe_temp"], compute_dtype=compute_dtype,
+                      keep_prob=keep_prob, generator=generator,
+                      wgrad_mode=str(config.get("moe_wgrad_mode") or "xla"))
     else:
         y = flat @ params["head"]["w"] + params["head"]["b"]
     logits = y.reshape(batch, time_steps, dims["num_targets"])

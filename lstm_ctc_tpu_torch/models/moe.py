@@ -1,11 +1,13 @@
 """High-rank mixture-of-softmaxes output head.
 
 Counterpart of ``lstm_ctc_tpu/models/moe.py:67-140``: a softmax gate over
-``num_experts`` mixes per-expert logit vectors ``tau * tanh(xW + b)``; the
-mixed result is used directly as CTC logits.  The gate linear and softmax
-are plain torch; the expert mix goes through the fused kernel
-(``ops/moe_kernels.moe_mix_fused``), which runs its plain version on the
-CPU.  Evaluation only: the head's dropout belongs to training.
+``num_experts`` (with dropout on the gate probabilities in training) mixes
+per-expert logit vectors ``tau * tanh(xW + b)`` (with hash dropout on the
+expert logits); the mixed result is used directly as CTC logits.  The gate
+linear, softmax and dropout are plain torch; the expert mix goes through
+the fused kernels (``ops/moe_kernels.moe_mix_fused``: K4 in evaluation, K5
+with the K6 backward in training), which run their plain versions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Dict
 import torch
 
 from ..ops import moe_kernels
-from .cells import truncated_normal
+from .cells import dropout, truncated_normal
 
 
 def init_moe(generator: torch.Generator, output_dim: int, num_targets: int,
@@ -34,11 +36,28 @@ def init_moe(generator: torch.Generator, output_dim: int, num_targets: int,
 
 
 def apply_moe(params: Dict, x: torch.Tensor, num_experts: int,
-              moe_temperature: float, compute_dtype=None) -> torch.Tensor:
+              moe_temperature: float, compute_dtype=None,
+              keep_prob: float = 1.0, generator=None,
+              wgrad_mode: str = "xla") -> torch.Tensor:
     """x ``[N, output_dim]`` → mixed logits ``[N, num_targets]``.
+
     ``compute_dtype`` is the expert product's operand precision (None:
-    x's dtype)."""
+    x's dtype).  With keep_prob < 1 and a ``generator`` (on x's device)
+    the gate probabilities are dropped (``cells.dropout``) and the expert
+    dropout seed is drawn as a one-element int32 tensor on the device, as
+    the reference draws it with ``jax.random.randint(k, (1,), -2**31,
+    2**31 - 1)`` (:118-120); the kernels read it there, so the step never
+    waits for it.  ``wgrad_mode`` picks the backward of the weight
+    gradient (``moe_kernels.moe_mix_fused``)."""
     gate = torch.softmax(x @ params["w_prior"] + params["b_prior"], dim=-1)
+    seed = None
+    if keep_prob < 1.0 and generator is not None:
+        gate = dropout(generator, gate, keep_prob)
+        seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
+                             device=x.device, dtype=torch.int32)
+    else:
+        keep_prob = 1.0
     return moe_kernels.moe_mix_fused(
         x, params["w_expert"], params["b_expert"], gate, num_experts,
-        moe_temperature, compute_dtype=compute_dtype or x.dtype)
+        moe_temperature, keep_prob=keep_prob, seed=seed,
+        compute_dtype=compute_dtype or x.dtype, wgrad_mode=wgrad_mode)

@@ -6,9 +6,9 @@ Counterpart of ``lstm_ctc_tpu/models/registry.py``:
     logits, encoder, reg_losses, new_state = apply_model(
         params, state, nnet_input, sequence_length, config, train=False)
 
-Only ``blstm`` is ported; training runs its dense head (the MoE head's
-training is a later slice).  ``generator`` (a ``torch.Generator`` on the
-input's device) stands in for the reference's ``dropout_rng``.
+Only ``blstm`` is ported, with either head (dense or MoE), for evaluation
+and training.  ``generator`` (a ``torch.Generator`` on the input's device)
+stands in for the reference's ``dropout_rng``.
 """
 
 from __future__ import annotations

@@ -1,17 +1,31 @@
-"""Fused MoE expert mix forward: the wrapper around ``csrc/moe_fwd.cu``.
+"""Fused MoE expert mix, forward and backward: the wrappers around
+``csrc/moe_fwd.cu`` (K4, K5), ``csrc/moe_bwd.cu`` (K6, K8) and
+``csrc/moe_wgrad.cu`` (K9).
 
-Counterpart of ``lstm_ctc_tpu/ops/moe_pallas.py`` ``moe_mix_fused`` (:574),
-whose Pallas kernel ``_fwd_kernel`` (:212, body ``_fwd_body`` :189-210)
-computes
+Counterpart of ``lstm_ctc_tpu/ops/moe_pallas.py`` ``moe_mix_fused`` (:574)
+and its custom VJP (``fused_fwd`` / ``fused_bwd`` :544-570).  The mix is
 
     out[n, v] = sum_e gate[n, e] * drop(tau * tanh(x[n] @ W_e + b_e))[v]
 
-without writing the ``[N, E·V]`` expert tile to memory.  Expert dropout
-uses the counter-based hash ``hash_uniform`` at global (row n, column
-e·V + v), bit for bit the reference's, so masks agree across packages.
+computed without writing the ``[N, E·V]`` expert logits to memory.  In
+training the forward (K5) also keeps th = tanh(x·W + b) in the compute
+dtype, and the backward reads it:
 
-On a CPU tensor the wrapper runs the plain version (``moe_mix_reference``);
-on a CUDA tensor it launches the kernel or raises.
+  * ``wgrad_mode="xla"`` (the default): K6 gives dx, dgate and dz; dw =
+    x(cdt)ᵀ·dz is one ``torch`` product with float32 sums and db = Σ dz,
+    as XLA computes them outside the Pallas kernel there;
+  * ``wgrad_mode="twokernel"``: K8 gives dx and dgate, and K9 recomputes
+    dz for dw and db; no dz is written.
+
+Expert dropout uses the counter-based hash ``hash_uniform`` at global (row
+n, column e·V + v), bit for bit the reference's, so masks agree across
+packages and between the forward and the backward.  The training seed is
+a one-element int32 tensor on the device, which the kernels read there.
+
+On a CPU tensor a wrapper runs its plain version (``moe_mix_reference``,
+``moe_stash_reference``, ``moe_backward_reference``,
+``moe_backward_noemit_reference``, ``moe_wgrad_reference``); on a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ from .. import _build
 from ..models.cells import derived, matmul_f32
 
 _M32 = 0xFFFFFFFF
+WGRAD_MODES = ("xla", "twokernel")
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -32,16 +47,18 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def hash_uniform(seed: int, row0: int, col0: int, nrows: int, ncols: int,
+def hash_uniform(seed, row0: int, col0: int, nrows: int, ncols: int,
                  device="cpu") -> torch.Tensor:
     """Uniforms in [0, 1) from the murmur3 finalizer over (global row,
     global col, seed): ``moe_pallas.hash_uniform`` (:85-101) in int64
-    arithmetic masked to 32 bits, bit for bit."""
+    arithmetic masked to 32 bits, bit for bit.  ``seed`` is an int or a
+    one-element integer tensor (read where it lies, without a host wait)."""
     rows = torch.arange(row0, row0 + nrows, dtype=torch.int64,
                         device=device)[:, None] & _M32
     cols = torch.arange(col0, col0 + ncols, dtype=torch.int64,
                         device=device)[None, :] & _M32
-    s = torch.tensor(int(seed) & _M32, dtype=torch.int64, device=device)
+    s = torch.as_tensor(seed).to(device=device, dtype=torch.int64)
+    s = s.reshape(()) & _M32
     x = (_mul32(rows, 0x9E3779B1) + _mul32(cols, 0x85EBCA77)
          + _mul32(s, 0xC2B2AE3D)) & _M32
     x = x ^ (x >> 16)
@@ -52,10 +69,16 @@ def hash_uniform(seed: int, row0: int, col0: int, nrows: int, ncols: int,
     return (x >> 9).to(torch.float32) * (1.0 / (1 << 23))
 
 
+def _drop_factor(seed, n: int, cols: int, keep_prob: float, device):
+    """``[n, cols]``: 1 / keep_prob where the hash keeps an element, else 0."""
+    u = hash_uniform(seed if seed is not None else 0, 0, 0, n, cols, device)
+    return (u < keep_prob).float() * (1.0 / keep_prob)
+
+
 def moe_mix_reference(x, w_expert, b_expert, gate, num_experts: int,
                       moe_temperature: float, keep_prob: float = 1.0,
                       seed=None, compute_dtype=torch.float32):
-    """Plain version of the expert-mix kernel, hash dropout included.
+    """Plain version of K4, hash dropout included.
 
     x ``[N, D]``, w_expert ``[D, E·V]``, b_expert ``[E·V]``, gate ``[N, E]``
     (softmaxed) → ``[N, V]`` float32.  The expert product rounds its
@@ -65,45 +88,86 @@ def moe_mix_reference(x, w_expert, b_expert, gate, num_experts: int,
     z = matmul_f32(x, w_expert, compute_dtype) + b_expert.float()
     a = moe_temperature * torch.tanh(z)                         # [N, E·V]
     if keep_prob < 1.0:
-        u = hash_uniform(seed or 0, 0, 0, n, num_experts * v, x.device)
-        a = a * ((u < keep_prob).float() * (1.0 / keep_prob))
+        a = a * _drop_factor(seed, n, num_experts * v, keep_prob, x.device)
     return torch.einsum("ne,nev->nv", gate.float(),
                         a.view(n, num_experts, v))
 
 
-def moe_mix_fused(x, w_expert, b_expert, gate, num_experts: int,
-                  moe_temperature: float, keep_prob: float = 1.0,
-                  seed=None, compute_dtype=torch.bfloat16):
-    """Mixed logits ``[N, V]`` through the expert-mix kernel.
+def _check(x, d: int, cols: int, num_experts: int, keep_prob: float,
+           what: str, tensors=()):
+    """The limits the kernels take (x's device, D, E·V); returns V."""
+    if x.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (what, x.device))
+    v = cols // num_experts
+    if v * num_experts != cols:
+        raise ValueError("%s: %d columns do not split into %d experts"
+                         % (what, cols, num_experts))
+    if v > 128 or d > 1024:
+        raise ValueError("%s: the kernel takes V <= 128 and D <= 1024, got "
+                         "V=%d D=%d" % (what, v, d))
+    if not 0.0 < keep_prob <= 1.0:
+        raise ValueError("keep_prob must be in (0, 1]")
+    for t in tensors:
+        if t is not None and t.device != x.device:
+            raise ValueError("%s: tensors on different devices" % what)
+    return v
+
+
+def _expect(t, shape, dtype, name, what):
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or not t.is_contiguous()):
+        raise ValueError("%s: %s must be a contiguous %s %s, got %s %s"
+                         % (what, name, dtype, tuple(shape), t.dtype,
+                            tuple(t.shape)))
+
+
+def _seed_ptr(seed, keep_prob: float, device):
+    """The device seed's address (None when nothing is dropped)."""
+    if keep_prob >= 1.0:
+        return None
+    if (not isinstance(seed, torch.Tensor) or seed.dtype != torch.int32
+            or seed.numel() != 1 or seed.device != device):
+        raise ValueError("the training kernels take the dropout seed as an "
+                         "int32 tensor of one element on %s" % device)
+    return seed.data_ptr()
+
+
+def _compute_dtype_of(w):
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("compute dtype must be float32 or bfloat16, got %s"
+                         % w.dtype)
+    return w.dtype
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def moe_mix_forward(x, w_expert, b_expert, gate, num_experts: int,
+                    moe_temperature: float, keep_prob: float = 1.0,
+                    seed=None, compute_dtype=torch.bfloat16):
+    """K4: mixed logits ``[N, V]``, no stash (serving and evaluation).
 
     Same arguments as ``moe_mix_reference``; ``seed`` (an int in int32 or
-    uint32 range) drives the expert dropout when keep_prob < 1."""
+    uint32 range, or a one-element tensor) drives the expert dropout when
+    keep_prob < 1."""
     if x.device.type == "cpu":
         return moe_mix_reference(x, w_expert, b_expert, gate, num_experts,
                                  moe_temperature, keep_prob, seed,
                                  compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError("moe_mix_fused: unsupported device %s" % x.device)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("compute dtype must be float32 or bfloat16, got %s"
                          % compute_dtype)
     n, d = x.shape
-    cols = w_expert.shape[1]
-    v = cols // num_experts
-    if (w_expert.shape[0] != d or v * num_experts != cols
-            or b_expert.shape != (cols,) or gate.shape != (n, num_experts)):
-        raise ValueError("moe_mix_fused: inconsistent shapes x %s w %s b %s "
-                         "gate %s" % (tuple(x.shape), tuple(w_expert.shape),
-                                      tuple(b_expert.shape),
-                                      tuple(gate.shape)))
-    if v > 128 or d > 1024:
-        raise ValueError("moe_mix_fused: the kernel takes V <= 128 and "
-                         "D <= 1024, got V=%d D=%d" % (v, d))
-    if not 0.0 < keep_prob <= 1.0:
-        raise ValueError("keep_prob must be in (0, 1]")
-    for t in (w_expert, b_expert, gate):
-        if t.device != x.device:
-            raise ValueError("moe_mix_fused: tensors on different devices")
+    v = _check(x, w_expert.shape[0], w_expert.shape[1], num_experts,
+               keep_prob, "moe_mix_forward", (w_expert, b_expert, gate))
+    if (w_expert.shape[0] != d or b_expert.shape != (num_experts * v,)
+            or gate.shape != (n, num_experts)):
+        raise ValueError("moe_mix_forward: inconsistent shapes x %s w %s b "
+                         "%s gate %s" % (tuple(x.shape),
+                                         tuple(w_expert.shape),
+                                         tuple(b_expert.shape),
+                                         tuple(gate.shape)))
     xc = x.float().contiguous()
     w = derived([w_expert], ("expert weights", compute_dtype),
                 lambda: w_expert.to(compute_dtype, copy=True).contiguous())
@@ -116,11 +180,268 @@ def moe_mix_fused(x, w_expert, b_expert, gate, num_experts: int,
     err = launch(x.device.index or 0, xc.data_ptr(), w.data_ptr(),
                  b.data_ptr(), g.data_ptr(), n, d, num_experts, v,
                  float(moe_temperature), float(keep_prob),
-                 int(seed or 0) & _M32, out.data_ptr(),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 int(seed if seed is not None else 0) & _M32,
+                 out.data_ptr(), _stream(x.device))
     _build.check(err, "moe_fwd")
-    moe_mix_fused.launches += 1
+    moe_mix_forward.launches += 1
     return out
 
 
-moe_mix_fused.launches = 0
+moe_mix_forward.launches = 0
+
+
+def moe_stash_reference(x, w, b, gate, seed, num_experts: int, tau: float,
+                        keep_prob: float):
+    """Plain version of K5: (out ``[N, V]`` float32, th ``[N, E·V]`` in
+    w's dtype, the compute dtype).  x ``[N, D]`` float32, w ``[D, E·V]``,
+    b ``[E·V]`` and gate ``[N, E]`` float32, seed an int32 tensor of one
+    element (None at keep_prob 1)."""
+    n = x.shape[0]
+    v = w.shape[1] // num_experts
+    th = torch.tanh(matmul_f32(x, w, w.dtype) + b.float())
+    a = tau * th
+    if keep_prob < 1.0:
+        a = a * _drop_factor(seed, n, num_experts * v, keep_prob, x.device)
+    out = torch.einsum("ne,nev->nv", gate.float(), a.view(n, num_experts, v))
+    return out, th.to(w.dtype)
+
+
+def moe_mix_forward_stash(x, w, b, gate, seed, num_experts: int, tau: float,
+                          keep_prob: float):
+    """K5: ``moe_mix_forward``'s output plus the stash th; arguments and
+    result as ``moe_stash_reference``."""
+    if x.device.type == "cpu":
+        return moe_stash_reference(x, w, b, gate, seed, num_experts, tau,
+                                   keep_prob)
+    what = "moe_mix_forward_stash"
+    n, d = x.shape
+    v = _check(x, d, w.shape[1], num_experts, keep_prob, what,
+               (w, b, gate, seed))
+    cdt = _compute_dtype_of(w)
+    _expect(x, (n, d), torch.float32, "x", what)
+    _expect(w, (d, num_experts * v), cdt, "w", what)
+    _expect(b, (num_experts * v,), torch.float32, "b", what)
+    _expect(gate, (n, num_experts), torch.float32, "gate", what)
+    out = torch.empty(n, v, device=x.device)
+    th = torch.empty(n, num_experts * v, device=x.device, dtype=cdt)
+    lib = _build.library()
+    launch = lib.moe_fwd_stash_bf16 if cdt == torch.bfloat16 \
+        else lib.moe_fwd_stash_f32
+    err = launch(x.device.index or 0, x.data_ptr(), w.data_ptr(),
+                 b.data_ptr(), gate.data_ptr(),
+                 _seed_ptr(seed, keep_prob, x.device), n, d, num_experts, v,
+                 float(tau), float(keep_prob), out.data_ptr(), th.data_ptr(),
+                 _stream(x.device))
+    _build.check(err, "moe_fwd_stash")
+    moe_mix_forward_stash.launches += 1
+    return out, th
+
+
+moe_mix_forward_stash.launches = 0
+
+
+def _dz(th, gate, gout, seed, num_experts: int, tau: float,
+        keep_prob: float):
+    """float32 (dz ``[N, E, V]``, a ``[N, E, V]``) from the stash, as
+    ``moe_pallas._dz_core`` (:222-243) computes them."""
+    n = th.shape[0]
+    v = gout.shape[1]
+    t = th.float().view(n, num_experts, v)
+    q = gout.float()[:, None, :]
+    dz = gate.float()[:, :, None] * q * (tau * (1.0 - t * t))
+    a = tau * t
+    if keep_prob < 1.0:
+        m = _drop_factor(seed, n, num_experts * v, keep_prob,
+                         th.device).view(n, num_experts, v)
+        dz = dz * m
+        a = a * m
+    return dz, a
+
+
+def moe_backward_reference(th, w, gate, gout, seed, num_experts: int,
+                           tau: float, keep_prob: float):
+    """Plain version of K6: (dx ``[N, D]``, dgate ``[N, E]``, float32; dz
+    ``[N, E·V]`` in the compute dtype).  th ``[N, E·V]`` and w ``[D, E·V]``
+    in the compute dtype, gate ``[N, E]`` and gout ``[N, V]`` float32."""
+    n = th.shape[0]
+    dz, a = _dz(th, gate, gout, seed, num_experts, tau, keep_prob)
+    dgate = (gout.float()[:, None, :] * a).sum(-1)
+    dzc = dz.reshape(n, -1).to(w.dtype)
+    return matmul_f32(dzc, w.t(), w.dtype), dgate, dzc
+
+
+def moe_backward_noemit_reference(th, w, gate, gout, seed, num_experts: int,
+                                  tau: float, keep_prob: float):
+    """Plain version of K8: K6's (dx, dgate) without dz."""
+    return moe_backward_reference(th, w, gate, gout, seed, num_experts, tau,
+                                  keep_prob)[:2]
+
+
+def moe_wgrad_reference(x, th, gate, gout, seed, num_experts: int,
+                        tau: float, keep_prob: float):
+    """Plain version of K9: (dw ``[D, E·V]``, db ``[E·V]``), float32, with
+    dz recomputed from the stash: dw = x(cdt)ᵀ·dz(cdt), db = Σ dz (dz
+    unrounded, ``moe_pallas._wgrad_kernel`` :303-309)."""
+    n = th.shape[0]
+    dz, _ = _dz(th, gate, gout, seed, num_experts, tau, keep_prob)
+    dz = dz.reshape(n, -1)
+    return matmul_f32(x.t(), dz, th.dtype), dz.sum(0)
+
+
+def _backward_launch(th, w, gate, gout, seed, num_experts, tau, keep_prob,
+                     emit_dz: bool, what: str):
+    n = th.shape[0]
+    d = w.shape[0]
+    v = _check(th, d, w.shape[1], num_experts, keep_prob, what,
+               (w, gate, gout, seed))
+    cdt = _compute_dtype_of(w)
+    _expect(th, (n, num_experts * v), cdt, "th", what)
+    _expect(w, (d, num_experts * v), cdt, "w", what)
+    _expect(gate, (n, num_experts), torch.float32, "gate", what)
+    _expect(gout, (n, v), torch.float32, "gout", what)
+    dx = torch.empty(n, d, device=th.device)
+    dgate = torch.empty(n, num_experts, device=th.device)
+    dz = torch.empty_like(th) if emit_dz else None
+    lib = _build.library()
+    launch = lib.moe_bwd_bf16 if cdt == torch.bfloat16 else lib.moe_bwd_f32
+    err = launch(th.device.index or 0, th.data_ptr(), w.data_ptr(),
+                 gate.data_ptr(), gout.data_ptr(),
+                 _seed_ptr(seed, keep_prob, th.device), n, d, num_experts, v,
+                 float(tau), float(keep_prob), dx.data_ptr(), dgate.data_ptr(),
+                 None if dz is None else dz.data_ptr(), _stream(th.device))
+    _build.check(err, what)
+    return dx, dgate, dz
+
+
+def moe_mix_backward(th, w, gate, gout, seed, num_experts: int, tau: float,
+                     keep_prob: float):
+    """K6: (dx, dgate, dz); arguments and result as
+    ``moe_backward_reference``."""
+    if th.device.type == "cpu":
+        return moe_backward_reference(th, w, gate, gout, seed, num_experts,
+                                      tau, keep_prob)
+    result = _backward_launch(th, w, gate, gout, seed, num_experts, tau,
+                              keep_prob, True, "moe_bwd")
+    moe_mix_backward.launches += 1
+    return result
+
+
+moe_mix_backward.launches = 0
+
+
+def moe_mix_backward_noemit(th, w, gate, gout, seed, num_experts: int,
+                            tau: float, keep_prob: float):
+    """K8: (dx, dgate), K6 without the dz stream."""
+    if th.device.type == "cpu":
+        return moe_backward_noemit_reference(th, w, gate, gout, seed,
+                                             num_experts, tau, keep_prob)
+    dx, dgate, _ = _backward_launch(th, w, gate, gout, seed, num_experts,
+                                    tau, keep_prob, False, "moe_bwd_noemit")
+    moe_mix_backward_noemit.launches += 1
+    return dx, dgate
+
+
+moe_mix_backward_noemit.launches = 0
+
+
+def moe_mix_wgrad(x, th, gate, gout, seed, num_experts: int, tau: float,
+                  keep_prob: float):
+    """K9: (dw, db); arguments and result as ``moe_wgrad_reference``."""
+    if x.device.type == "cpu":
+        return moe_wgrad_reference(x, th, gate, gout, seed, num_experts, tau,
+                                   keep_prob)
+    what = "moe_wgrad"
+    n, d = x.shape
+    cdt = _compute_dtype_of(th)
+    cols = th.shape[1]
+    v = _check(x, d, cols, num_experts, keep_prob, what,
+               (th, gate, gout, seed))
+    _expect(x, (n, d), torch.float32, "x", what)
+    _expect(th, (n, num_experts * v), cdt, "th", what)
+    _expect(gate, (n, num_experts), torch.float32, "gate", what)
+    _expect(gout, (n, v), torch.float32, "gout", what)
+    dw = torch.empty(d, cols, device=x.device)
+    db = torch.empty(cols, device=x.device)
+    lib = _build.library()
+    launch = lib.moe_wgrad_bf16 if cdt == torch.bfloat16 \
+        else lib.moe_wgrad_f32
+    err = launch(x.device.index or 0, x.data_ptr(), th.data_ptr(),
+                 gate.data_ptr(), gout.data_ptr(),
+                 _seed_ptr(seed, keep_prob, x.device), n, d, num_experts, v,
+                 float(tau), float(keep_prob), dw.data_ptr(), db.data_ptr(),
+                 _stream(x.device))
+    _build.check(err, what)
+    moe_mix_wgrad.launches += 1
+    return dw, db
+
+
+moe_mix_wgrad.launches = 0
+
+
+def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two tensors of one compute dtype with float32 sums and
+    a float32 result (cuBLAS's bf16 product with a float32 output on the
+    card; the products of the rounded operands in float32 elsewhere)."""
+    if a.dtype == torch.bfloat16 and a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class _MoeMix(torch.autograd.Function):
+    """The expert mix under autograd: K5 forward, then K6 and one product
+    (``"xla"``) or K8 and K9 (``"twokernel"``) backward."""
+
+    @staticmethod
+    def forward(ctx, x, w_expert, b_expert, gate, seed, num_experts, tau,
+                keep_prob, compute_dtype, wgrad_mode):
+        xc = x.float().contiguous()
+        w = w_expert.to(compute_dtype).contiguous()
+        g = gate.float().contiguous()
+        out, th = moe_mix_forward_stash(xc, w, b_expert.float().contiguous(),
+                                        g, seed, num_experts, tau, keep_prob)
+        ctx.save_for_backward(xc, w, g, seed, th)
+        ctx.args = (num_experts, tau, keep_prob, wgrad_mode)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        xc, w, g, seed, th = ctx.saved_tensors
+        num_experts, tau, keep_prob, wgrad_mode = ctx.args
+        gout = gout.float().contiguous()
+        args = (seed, num_experts, tau, keep_prob)
+        if wgrad_mode == "twokernel":
+            dx, dgate = moe_mix_backward_noemit(th, w, g, gout, *args)
+            dw, db = moe_mix_wgrad(xc, th, g, gout, *args)
+        else:
+            dx, dgate, dz = moe_mix_backward(th, w, g, gout, *args)
+            dw = product_f32(xc.to(w.dtype).t(), dz)
+            db = dz.float().sum(0)
+        return (dx, dw, db, dgate) + (None,) * 6
+
+
+def moe_mix_fused(x, w_expert, b_expert, gate, num_experts: int,
+                  moe_temperature: float, keep_prob: float = 1.0,
+                  seed=None, compute_dtype=torch.bfloat16,
+                  wgrad_mode: str = "xla"):
+    """Mixed logits ``[N, V]`` through the expert-mix kernels.
+
+    Same arguments as ``moe_mix_reference``.  When autograd records (grad
+    enabled and an input requires grad) the mix is differentiable: K5
+    forward, and the backward ``wgrad_mode`` names (``"xla"`` or
+    ``"twokernel"``); ``seed`` must then be an int32 tensor of one element
+    on x's device (or None at keep_prob 1).  Otherwise K4 runs."""
+    if wgrad_mode == "kernel":
+        raise NotImplementedError(
+            "wgrad_mode 'kernel' (K7, the single-kernel dw accumulator) is "
+            "not ported (ROADMAP queue 2, the opt-in folds)")
+    if wgrad_mode not in WGRAD_MODES:
+        raise ValueError("wgrad_mode must be one of %s, got %r"
+                         % (WGRAD_MODES, wgrad_mode))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_expert, b_expert, gate)):
+        return _MoeMix.apply(x, w_expert, b_expert, gate,
+                             seed if keep_prob < 1.0 else None, num_experts,
+                             float(moe_temperature), float(keep_prob),
+                             compute_dtype, wgrad_mode)
+    return moe_mix_forward(x, w_expert, b_expert, gate, num_experts,
+                           moe_temperature, keep_prob, seed, compute_dtype)

@@ -121,9 +121,19 @@ def test_unported_families_raise(nnet_type):
 
 
 def test_training_mode_raises():
+    """The MoE model trains (its head's dropout and backward are ported);
+    only the unported single-kernel weight gradient (K7) raises."""
     params, state = init_model(torch.Generator().manual_seed(0),
                                FLAGSHIP_SMALL)
+    params["moe"]["w_expert"].requires_grad_()
     x, seq_len, _ = batch(FLAGSHIP_SMALL)
-    with pytest.raises(NotImplementedError, match="training"):
-        apply_model(params, state, torch.from_numpy(x),
-                    torch.from_numpy(seq_len), FLAGSHIP_SMALL, train=True)
+    args = (params, state, torch.from_numpy(x), torch.from_numpy(seq_len))
+    logits = apply_model(*args, FLAGSHIP_SMALL, train=True,
+                         generator=torch.Generator().manual_seed(1))[0]
+    (grad,) = torch.autograd.grad(logits.sum(), params["moe"]["w_expert"])
+    assert bool(torch.isfinite(grad).all()) and bool((grad != 0).any())
+    with torch.no_grad():
+        assert not torch.equal(logits, apply_model(*args, FLAGSHIP_SMALL)[0])
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        apply_model(*args, dict(FLAGSHIP_SMALL, moe_wgrad_mode="kernel"),
+                    train=True)

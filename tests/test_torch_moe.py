@@ -114,11 +114,11 @@ def test_reference_bf16_rounds_operands_only():
 def test_kernel_matches_plain_on_gpu(cuda, dtype, e, v, keep_prob):
     x, w, b, gate = make_case(3, n=150, d=40, e=e, v=v)
     args = [torch.from_numpy(a).to(cuda) for a in (x, w, b, gate)]
-    before = moe_kernels.moe_mix_fused.launches
+    before = moe_kernels.moe_mix_forward.launches
     got = moe_kernels.moe_mix_fused(*args, e, 10.0, keep_prob, 99, dtype)
     ref = moe_kernels.moe_mix_reference(*args, e, 10.0, keep_prob, 99, dtype)
     torch.cuda.synchronize()
-    assert moe_kernels.moe_mix_fused.launches == before + 1
+    assert moe_kernels.moe_mix_forward.launches == before + 1
     err = float((got - ref).abs().max())
     if dtype == torch.float32:
         assert err <= 1e-4 * float(ref.abs().max())

@@ -6,7 +6,10 @@ the same weights and batch, at keep 1.0 and store float32: the loss, and
 the parameters after 1 and 3 steps of adam, sgd and momentum, at
 rtol = atol = 1e-4 (float32 on both sides; adam's first steps move each
 weight by about the learning rate whatever the gradient's size, so a
-rounding difference in a gradient shows in full).  A CLI run writes a
+rounding difference in a gradient shows in full).  The MoE-head model's
+step is held to JAX's the same way (through the JAX package's fused mix
+in interpret mode), in both of the port's weight-gradient modes; its
+keep-0.9 step gives finite gradients and repeats under the same seed.  A CLI run writes a
 checkpoint the JAX package loads, and loads one the JAX package wrote.
 """
 
@@ -93,6 +96,79 @@ def test_train_step_matches_jax(optimizer):
         assert int(metrics["size"]) == int(ref_metrics["size"])
         if i in (0, 2):
             assert_params_close(params, ref)
+
+
+MOE_CONFIG = dict(CONFIG, num_experts=3, moe_temp=10.0)
+
+
+@pytest.mark.parametrize("wgrad_mode", ["xla", "twokernel"])
+def test_moe_train_step_matches_jax(wgrad_mode):
+    batch = labeled_batch(1)
+    jparams, jstate = jax_init_model(jax.random.PRNGKey(4), MOE_CONFIG)
+    init, step = jax_make_train_step(MOE_CONFIG, 1e-2, "adam")
+    ref = jax.tree.map(jnp.array, jparams)
+    ref_opt = init(ref)
+    params = port_params(jparams)
+    assert sorted(params["moe"]) == ["b_expert", "b_prior", "w_expert",
+                                     "w_prior"]
+    port_init, port_step = make_train_step(
+        dict(MOE_CONFIG, moe_wgrad_mode=wgrad_mode), 1e-2, "adam")
+    opt_state = port_init(params)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for i in range(3):
+        ref, ref_opt, jstate, ref_metrics = step(
+            ref, ref_opt, jstate, jax.random.PRNGKey(i),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+        params, opt_state, _, metrics = port_step(params, opt_state, {},
+                                                  None, tbatch)
+        np.testing.assert_allclose(float(metrics["loss"]),
+                                   float(ref_metrics["loss"]), **TOL)
+        if i in (0, 2):
+            assert_params_close(params, ref)
+
+
+def test_moe_dropout_step_is_finite_and_repeats():
+    """keep 0.9: gate and expert dropout in the head (and after each
+    layer); the same generator seed gives the same loss and gradients."""
+    jparams, _ = jax_init_model(jax.random.PRNGKey(4), MOE_CONFIG)
+    tbatch = {k: torch.from_numpy(v) for k, v in labeled_batch(2).items()}
+    config = dict(MOE_CONFIG, dropout_rate=0.9)
+
+    def grads(seed, cfg=config):
+        params = port_params(jparams)
+        metrics, _, _ = compute_losses(
+            params, {}, tbatch, cfg, train=True,
+            generator=torch.Generator().manual_seed(seed))
+        total = metrics["loss"] + 1e-5 * l2_loss(params)
+        return float(total.detach()), torch.autograd.grad(
+            total, param_leaves(params))
+
+    loss, g = grads(5)
+    again, g_again = grads(5)
+    assert np.isfinite(loss) and all(torch.isfinite(t).all() for t in g)
+    assert again == loss
+    assert all(torch.equal(a, b) for a, b in zip(g, g_again))
+    assert grads(6)[0] != loss
+    assert grads(5, MOE_CONFIG)[0] != loss
+
+
+def test_l2_covers_the_moe_head():
+    """No MoE leaf is named "bias", so all four are regularized, as in the
+    reference."""
+    jparams, _ = jax_init_model(jax.random.PRNGKey(4), MOE_CONFIG)
+    params = port_params(jparams)
+    with torch.no_grad():
+        for name in ("w_prior", "b_prior", "w_expert", "b_expert"):
+            params["moe"][name].fill_(0.5)
+    want = sum(0.5 * float((v.detach() ** 2).sum())
+               for direction in ("fwd", "bwd") for layer in params[direction]
+               for k, v in layer.items() if k != "bias")
+    want += sum(0.5 * 0.25 * v.numel() for v in params["moe"].values())
+    got = float(l2_loss(params).detach())
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    ref = jax_l2_loss(jax.tree.map(
+        lambda t: jnp.asarray(t.detach().numpy()), params))
+    np.testing.assert_allclose(got, float(ref), rtol=1e-5)
 
 
 def test_l2_regularizes_every_leaf_not_named_bias():
