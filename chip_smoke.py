@@ -63,7 +63,36 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      K5 and K6 launch on its own tensors, then end to end under the
      nudge yardstick), a bfloat16 step with every K2, K5, K6, K10 and K11
      launch held to its plain version, and a profiled step;
- 11. prints the kernels' JSON line, a summary line, the nvidia-smi line,
+ 11. K12 (the unidirectional stack's forward) against its plain version
+     at the lstm width (4 layers of 320 cells, projection 320, peepholes,
+     layers 1-3 residual) and the cudnnlstm width, B=32, T=384, a 120-wide
+     input, ragged lengths: float32 (TF32 off) and bfloat16 (each step
+     replayed from the kernel's own states), plain, at keep 0.9 (the
+     dropped positions zero where the plain mask drops), with the eval-BN
+     affine and with non-zero initial states; timed in turns; cuDNN's LSTM
+     (torch.nn.LSTM) first checked to give K12's outputs at the cudnnlstm
+     width, then timed beside it as the library yardstick in bf16, with its
+     weights in one buffer (no copy at a call), the profiler's device time
+     of each call beside its time on the events;
+ 12. K13 (its backward) against its plain version at both widths (keep 0.9
+     for lstm), under phase 7's rules (bfloat16: each step replayed from the
+     kernel's own carries and input cotangents); timed in turns;
+ 13. serving: nnet_forward for an lstm and a cudnnlstm model (random
+     weights from a seed) on phase 5's corpus, bf16 (launch counts, the
+     archive, a float32 run against the plain versions, every bf16 K12
+     launch replayed step by step), then 8 utterances of the lstm model
+     through --streaming true --chunk-frames 16 (one K12 launch a chunk),
+     its output against the offline output, ms per chunk and the
+     real-time factor of a session on the card;
+ 14. training: lstm (keep 0.9), cudnnlstm and lstm_bn through nnet_init,
+     then two epochs of nnet_train (adam 1e-3, batch 32, unpacked, bf16)
+     each followed by nnet_validate, on phase 8's corpus: launch counts
+     (per train step 1 K12 and 1 K13, or for lstm_bn 4 K1 and 4 K2; per CV
+     batch 1 K12, through the BN affine for lstm_bn), finite losses, the
+     lstm model's last cv_loss below its first, the median step and real
+     frames/s, one float32 step with every launch held to its plain
+     version, and a profiled lstm train step;
+ 15. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
      and as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
@@ -88,7 +117,16 @@ plain end to end, loss within 1e-4 relative, and the whole gradient's
 within 10x what the plain versions themselves give when every weight is
 moved one unit in the last place (the trained model amplifies last-bit
 differences through ~450 steps and 4 layers; the first layer's input
-weights show it most).
+weights show it most).  K12/K13, float32: max|diff| / max|plain| <= 1e-4
+per output; bfloat16, each step replayed from the kernel's own states,
+carries and input cotangents: the same ratio <= 1e-3, K13's dgates within
+one bf16 rounding step; at keep 0.9 the chain is zero wherever the plain
+mask drops and non-zero wherever it keeps a non-zero plain value.  cuDNN's
+LSTM against K12 in float32: <= 1e-4.  Streaming against offline
+log-posteriors (the same kernel runs both, row by row): max|diff| /
+max|offline| <= 1e-4 in float32 and <= 1e-3 in bfloat16.  The families' float32
+train step: each launch <= 1e-4 on its own tensors, the loss within 1e-4
+relative.
 """
 
 from __future__ import annotations
@@ -103,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -296,7 +335,16 @@ def plain_versions(pkg):
         return out if not states else \
             out[:3] + tuple(s.to(store_dtype) for s in out[3:])
 
-    plain = [(lstm_kernels, "lstm_layer_forward", forward),
+    sk = pkg["lstm_stack_kernels"]
+
+    def stack_forward(*args, states=False, **kwargs):
+        out, chain, c_all, h_all, cfin, hfin = sk.stack_forward_reference(
+            *args, **kwargs)
+        return (out, cfin, hfin) + ((chain, c_all, h_all) if states else ())
+
+    plain = [(sk, "lstm_stack_forward", stack_forward),
+             (sk, "lstm_stack_backward", sk.stack_backward_reference),
+             (lstm_kernels, "lstm_layer_forward", forward),
              (lstm_kernels, "lstm_layer_backward",
               cells.dual_recurrence_backward),
              (ctc_kernels, "ctc_alpha", ctc_kernels.alpha_reference),
@@ -781,13 +829,17 @@ class Tee:
 
 
 KERNEL_NAMES = ("lstm_fwd", "lstm_bwd", "ctc_alpha", "ctc_beta", "moe_fwd",
-                "moe_fwd_stash", "moe_bwd", "moe_bwd_noemit", "moe_wgrad")
+                "moe_fwd_stash", "moe_bwd", "moe_bwd_noemit", "moe_wgrad",
+                "lstm_stack_fwd", "lstm_stack_bwd")
 
 
 def counters(pkg):
-    lstm_kernels, ctc_kernels, moe_kernels = (
-        pkg["lstm_kernels"], pkg["ctc_kernels"], pkg["moe_kernels"])
-    return {"lstm_fwd": lstm_kernels.lstm_layer_forward,
+    lstm_kernels, ctc_kernels, moe_kernels, sk = (
+        pkg["lstm_kernels"], pkg["ctc_kernels"], pkg["moe_kernels"],
+        pkg["lstm_stack_kernels"])
+    return {"lstm_stack_fwd": sk.lstm_stack_forward,
+            "lstm_stack_bwd": sk.lstm_stack_backward,
+            "lstm_fwd": lstm_kernels.lstm_layer_forward,
             "lstm_bwd": lstm_kernels.lstm_layer_backward,
             "ctc_alpha": ctc_kernels.ctc_alpha,
             "ctc_beta": ctc_kernels.ctc_beta,
@@ -1065,10 +1117,26 @@ def held_f32(torch, pkg, worst):
         return note("moe_bwd", k6(*args),
                     moe_kernels.moe_backward_reference(*args))
 
+    sk = pkg["lstm_stack_kernels"]
+    k12, k13 = sk.lstm_stack_forward, sk.lstm_stack_backward
+
+    def stack_forward(*args, states=False, **kwargs):
+        got = k12(*args, states=states, **kwargs)
+        out, chain, c_all, h_all, cfin, hfin = sk.stack_forward_reference(
+            *args, **kwargs)
+        return note("lstm_stack_fwd", got, (out, cfin, hfin) + (
+            (chain, c_all, h_all) if states else ()))
+
+    def stack_backward(*args, **kwargs):
+        return note("lstm_stack_bwd", k13(*args, **kwargs),
+                    sk.stack_backward_reference(*args, **kwargs))
+
     stand_ins = ((lstm_kernels, "lstm_layer_forward", forward),
                  (lstm_kernels, "lstm_layer_backward", backward),
                  (moe_kernels, "moe_mix_forward_stash", stash),
-                 (moe_kernels, "moe_mix_backward", mix_backward))
+                 (moe_kernels, "moe_mix_backward", mix_backward),
+                 (sk, "lstm_stack_forward", stack_forward),
+                 (sk, "lstm_stack_backward", stack_backward))
     with contextlib.ExitStack() as stack:
         for module, name, fn in stand_ins:
             fn.launches = 0
@@ -1158,10 +1226,19 @@ def held_in_training(torch, pkg, worst):
         yield
 
 
+def kernel_rows(prof):
+    """(device ms, count, name) of each kernel a profile saw, longest
+    first."""
+    from torch.autograd import DeviceType
+    return sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA
+                   and evt.self_device_time_total > 0), reverse=True)
+
+
 def profile_step(torch, init_opt, step, params, batch, device, step_ms):
     """torch.profiler over one warm bf16 train step: device time by kernel,
     and the device's busy share of the median unprofiled step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     opt_state = init_opt(params)
     gen = torch.Generator(device).manual_seed(2)
@@ -1172,10 +1249,7 @@ def profile_step(torch, init_opt, step, params, batch, device, step_ms):
                              ProfilerActivity.CUDA]) as prof:
         step(params, opt_state, {}, gen, batch)
         torch.cuda.synchronize()
-    rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
-                   for evt in prof.key_averages()
-                   if evt.device_type == DeviceType.CUDA
-                   and evt.self_device_time_total > 0), reverse=True)
+    rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     say("  profiled train step: device kernels %.1f ms, %.0f%% of the "
         "median step (%.1f ms)" % (busy, 100 * busy / step_ms, step_ms))
@@ -1431,6 +1505,680 @@ def train_moe_end_to_end(torch, pkg, device, work, scp):
     return result
 
 
+# --- phases 11-14: the unidirectional families through K12 and K13 ---
+
+# bench.py:494-513's family rows on the flagship front end
+LSTM_CONFIG = dict(FLAGSHIP_CONFIG, nnet_type="lstm", num_experts=0)
+CUDNN_CONFIG = dict(LSTM_CONFIG, nnet_type="cudnnlstm", num_projects=0,
+                    use_peepholes=False)
+LSTM_BN_CONFIG = dict(LSTM_CONFIG, use_bn=True)
+STACK_LAYERS = 4
+CHUNK_ROWS = 16
+FRAME_SHIFT_S = 0.01  # one raw fbank frame
+
+
+def stack_case(torch, pkg, device, dtype, family, rng, keep=1.0,
+               affine=False, init=False, full=False):
+    """K12's arguments at a family's full width (4 layers of 320 cells;
+    ``lstm``: projection 320, peepholes, layers 1-3 residual; ``cudnnlstm``:
+    neither), B=32, T=384, a 120-wide input, built as lstm_stack_fused
+    builds them; ragged lengths unless ``full``."""
+    cells, sk = pkg["cells"], pkg["lstm_stack_kernels"]
+    batch, steps, dim, units, layers = 32, 384, 120, 320, STACK_LAYERS
+    proj = 320 if family == "lstm" else None
+    gen = torch.Generator().manual_seed(15)
+    params, d = [], dim
+    for _ in range(layers):
+        params.append(cells.init_lstm_cell(gen, d, units, proj,
+                                           proj is not None, device))
+        d = proj or units
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    for p in params:
+        p["bias"] = t(0.1 * rng.randn(4 * units))
+    x = t(rng.randn(batch, steps, dim))
+    lengths = np.full(batch, steps) if full else \
+        rng.randint(steps // 2, steps + 1, batch)
+    lengths[0] = steps
+    seq = torch.from_numpy(lengths.astype(np.int32)).to(device)
+    wz, bias, proj_w, peep = sk.stack_weights(params, dtype)
+    gx = torch.matmul(x.to(dtype), params[0]["wx"].to(dtype)).float() \
+        + params[0]["bias"]
+    gx0 = torch.nn.functional.pad(gx.transpose(0, 1),
+                                  (0, 0, 0, 0, 0, layers - 1)).contiguous()
+    out_dim, lb = proj or units, layers * batch
+    scale = 0.1 if init else 0.0
+    case = dict(gx0=gx0, mask=sk.stack_mask(seq, steps, layers, device),
+                wz=wz, bias=bias, proj=proj_w, peep=peep,
+                cinit=t(scale * rng.randn(lb, units)),
+                hinit=t(scale * rng.randn(lb, out_dim)),
+                residual=(False,) + (family == "lstm",) * (layers - 1),
+                forget_bias=1.0, keep_prob=keep,
+                seed=torch.tensor([-1234567], dtype=torch.int32,
+                                  device=device),
+                affine=(t(0.5 + rng.rand(layers, out_dim)),
+                        t(0.2 * rng.randn(layers, out_dim))) if affine
+                else None)
+    return case, params, x, seq
+
+
+def tensor_bytes(torch, *objs):
+    """Bytes of every tensor in ``objs`` (nested in tuples, lists, dicts)."""
+    total = 0
+    for obj in objs:
+        if isinstance(obj, torch.Tensor):
+            total += obj.numel() * obj.element_size()
+        elif isinstance(obj, dict):
+            total += tensor_bytes(torch, *obj.values())
+        elif isinstance(obj, (tuple, list)):
+            total += tensor_bytes(torch, *obj)
+    return total
+
+
+def stack_bound(torch, args, outputs, dtype, backward=False):
+    """(least ms, what sets it) of K12 (or K13) called with ``args`` and
+    returning ``outputs``: each input read and each output written once;
+    the products this run's data needs, at the compute dtype's peak.  Only
+    the live rows count (the mask's: T steps a layer, cut by each length).
+    A layer's gate product is [in, h]·wz, 2P x 4H; layer 0's is h·wh alone,
+    P x 4H, since its input product gx0 is done outside (its wz slab is
+    zero).  The projection is H x P.  K13 recomputes the gate products and
+    adds their two transposes (dz = dgates·wzᵀ, dwz = zᵀ·dgates) and the
+    projection's two (dout_blk = dout_p·projᵀ, dproj = out_blkᵀ·dout_p)."""
+    wz, proj = args["wz"], args["proj"]
+    layers, p2, h4 = wz.shape
+    out_dim, units = p2 // 2, h4 // 4
+    live = args["mask"].view(args["mask"].shape[0], layers, -1).sum(
+        dim=(0, 2)).tolist()
+    gate0, gate = 2 * out_dim * h4, 2 * p2 * h4
+    projection = 0 if proj is None else 2 * units * out_dim
+    if backward:
+        gate0, gate, projection = 3 * gate0, 3 * gate, 2 * projection
+    flops = live[0] * (gate0 + projection) + sum(live[1:]) * (gate
+                                                             + projection)
+    nbytes = tensor_bytes(torch, args, outputs)
+    peak = BF16_FLOPS_PER_MS if dtype == torch.bfloat16 else F32_FLOPS_PER_MS
+    return bound(nbytes, flops, peak)
+
+
+def check_stack_fwd(torch, pkg, device, rng):
+    """Phase 11: K12 against its plain version at both families' widths."""
+    sk = pkg["lstm_stack_kernels"]
+    result = {}
+    for family in ("lstm", "cudnnlstm"):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            worst_abs = 0.0
+            for keep, affine, init in ((1.0, False, False),
+                                       (0.9, False, True),
+                                       (1.0, True, True)):
+                case, _, _, _ = stack_case(torch, pkg, device, dtype, family,
+                                           rng, keep, affine, init)
+                got = sk.lstm_stack_forward(**case, states=True)
+                if dtype == torch.float32:
+                    out, chain, c_all, h_all, cfin, hfin = \
+                        sk.stack_forward_reference(**case)
+                    ref = (out, cfin, hfin, chain, c_all, h_all)
+                    names = ("out", "cfin", "hfin", "chain", "c_all",
+                             "h_all")
+                    tol = F32_REL_TOL
+                else:
+                    # each step from the kernel's own states of the step
+                    # before (bf16 rounding flips carry on, as for K1)
+                    ref = sk.stack_replay_steps(
+                        **case, chain=got[3], c_all=got[4], h_all=got[5])
+                    got, names, tol = got[3:], ("chain", "c_all", "h_all"), \
+                        BF16_STEP_REL_TOL
+                torch.cuda.synchronize()
+                for n, g in zip(names, got):
+                    if not torch.isfinite(g).all():
+                        fail("K12 %s %s: non-finite %s" % (family, name, n))
+                rels = {n: ratio(g, r) for n, g, r in zip(names, got, ref)}
+                worst_abs = max(worst_abs, max(errors(g, r)[0]
+                                               for g, r in zip(got, ref)))
+                dropped = True
+                if keep < 1.0:
+                    # the dropped positions are the plain mask's: zero
+                    # where it drops, not zero where it keeps a value the
+                    # plain version makes non-zero
+                    kchain, pchain = got[names.index("chain")], \
+                        ref[names.index("chain")]
+                    steps, lb, out_dim = kchain.shape
+                    drop = sk._drop_mask(case["seed"], keep, steps,
+                                         STACK_LAYERS, lb // STACK_LAYERS,
+                                         out_dim, device).view(kchain.shape)
+                    dropped = bool((kchain[drop == 0] == 0).all()) and bool(
+                        (kchain[(drop > 0) & (pchain.abs() > 1e-6)] != 0)
+                        .all())
+                say("  K12 %-9s %-8s keep=%.1f affine=%-5s init=%-5s max rel "
+                    "%s; dropped positions as the plain mask's: %s"
+                    % (family, name, keep, affine, init,
+                       ", ".join("%s %.2e" % kv for kv in rels.items()),
+                       dropped))
+                if max(rels.values()) > tol or not dropped:
+                    fail("K12 %s %s keep=%.1f affine=%s: outside its bounds "
+                         "(ratio bound %.0e)" % (family, name, keep, affine,
+                                                 tol))
+            # timed in turns with the plain version: the serving case
+            case, _, _, _ = stack_case(torch, pkg, device, dtype, family, rng)
+            ms, plain_ms = time_in_turns(
+                torch, lambda: sk.lstm_stack_forward(**case),
+                lambda: sk.stack_forward_reference(**case), rounds=3,
+                kernel_reps=3)
+            bound_ms, bound_by = stack_bound(
+                torch, case, sk.lstm_stack_forward(**case), dtype)
+            steps = case["gx0"].shape[0]
+            say("  K12 %-9s %-8s kernel %.3f ms (%.1f us per layer-step)  "
+                "plain %.3f ms  bound %.4f ms (%s)"
+                % (family, name, ms, 1e3 * ms / (steps * STACK_LAYERS),
+                   plain_ms, bound_ms, bound_by))
+            result[(family, dtype)] = {
+                "max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
+
+
+def cudnn_lstm(torch, params, device):
+    """torch.nn.LSTM (cuDNN) carrying a cudnnlstm stack's weights: TF's
+    gate order (i, j, f, o) mapped to torch's (i, f, g, o), the forget bias
+    folded into bias_ih."""
+    units = params[0]["bias"].shape[0] // 4
+    lstm = torch.nn.LSTM(params[0]["wx"].shape[0], units,
+                         num_layers=len(params)).to(device)
+
+    def order(w):
+        i, j, f, o = w.split(units, dim=-1)
+        return torch.cat([i, f, j, o], dim=-1)
+
+    forget = torch.zeros(4 * units, device=device)
+    forget[units:2 * units] = 1.0
+    with torch.no_grad():
+        for k, p in enumerate(params):
+            getattr(lstm, "weight_ih_l%d" % k).copy_(order(p["wx"]).t())
+            getattr(lstm, "weight_hh_l%d" % k).copy_(order(p["wh"]).t())
+            getattr(lstm, "bias_ih_l%d" % k).copy_(order(p["bias"]) + forget)
+            getattr(lstm, "bias_hh_l%d" % k).zero_()
+    lstm.flatten_parameters()
+    return lstm
+
+
+def flatten_cudnn(torch, lstm):
+    """Lay an nn.LSTM's weights out in one cuDNN buffer.  flatten_parameters()
+    leaves bf16 weights where they are (torch.backends.cudnn.is_acceptable
+    takes only f16, f32 and f64), and cuDNN then copies them into one buffer
+    at every call; fail unless they share one storage after."""
+    from torch.backends.cudnn import rnn
+    with torch.no_grad():
+        torch._cudnn_rnn_flatten_weight(
+            lstm._flat_weights, 4, lstm.input_size,
+            rnn.get_cudnn_mode(lstm.mode), lstm.hidden_size, lstm.proj_size,
+            lstm.num_layers, lstm.batch_first, lstm.bidirectional)
+    if len({w.untyped_storage().data_ptr() for w in lstm._flat_weights}) != 1:
+        fail("cuDNN's LSTM weights are not in one buffer")
+
+
+def device_ms(torch, fn):
+    """torch.profiler over one warm call of ``fn``: the device time of its
+    kernels, and (ms, count, name) of each, longest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    return sum(r[0] for r in rows), rows
+
+
+def cudnn_yardstick(torch, pkg, device, rng):
+    """The library yardstick at the cudnnlstm width (full lengths): cuDNN's
+    LSTM gives K12's outputs in float32 (TF32 off); then cuDNN's forward,
+    and its forward plus backward, timed in bf16 beside K12 and K13, with
+    its weights in one buffer (no copy at a call), and each call's device
+    time from the profiler beside its time on the CUDA events."""
+    sk = pkg["lstm_stack_kernels"]
+    case, params, x, _ = stack_case(torch, pkg, device, torch.float32,
+                                    "cudnnlstm", rng, full=True)
+    lstm = cudnn_lstm(torch, params, device)
+    steps = x.shape[1]
+    with torch.no_grad():
+        want = lstm(x.transpose(0, 1))[0]
+        got = sk.lstm_stack_forward(**case)[0][STACK_LAYERS - 1:
+                                               STACK_LAYERS - 1 + steps]
+    rel = ratio(got, want)
+    say("  cuDNN LSTM vs K12, float32, cudnnlstm width: max rel %.3e (bound "
+        "%.0e)" % (rel, F32_REL_TOL))
+    if rel > F32_REL_TOL:
+        fail("cuDNN's LSTM and K12 disagree: the weights are not mapped")
+    case16, _, _, _ = stack_case(torch, pkg, device, torch.bfloat16,
+                                 "cudnnlstm", rng, full=True)
+    lstm16 = lstm.to(torch.bfloat16)
+    flatten_cudnn(torch, lstm16)
+    x16 = x.transpose(0, 1).to(torch.bfloat16).contiguous()
+
+    def forward():
+        with torch.no_grad():
+            lstm16(x16)
+
+    def both():
+        xg = x16.detach().requires_grad_()
+        y = lstm16(xg)[0]
+        y.backward(torch.ones_like(y))
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        lib_fwd, k12_ms = time_in_turns(
+            torch, forward, lambda: sk.lstm_stack_forward(**case16),
+            rounds=3, kernel_reps=3)
+        lib_both, _ = time_in_turns(torch, both, forward, rounds=3,
+                                    kernel_reps=2)
+        fwd_dev, fwd_rows = device_ms(torch, forward)
+        both_dev, both_rows = device_ms(torch, both)
+    compacted = [w for w in caught if "contiguous chunk" in str(w.message)]
+    if compacted:
+        fail("cuDNN copied its weights at a call: %s" % compacted[0].message)
+    say("  cuDNN bf16, cudnnlstm width, full lengths, weights in one buffer "
+        "(no compaction warning): forward %.3f ms on the events, %.3f ms of "
+        "device kernels (K12, one launch, %.3f ms); forward + backward %.3f "
+        "ms, %.3f ms of device kernels"
+        % (lib_fwd, fwd_dev, k12_ms, lib_both, both_dev))
+    for tag, rows in (("forward", fwd_rows), ("forward + backward",
+                                              both_rows)):
+        say("    cuDNN %s kernels: %s" % (tag, "; ".join(
+            "%.3f ms %d x %s" % (ms, count, key[:60])
+            for ms, count, key in rows[:5])))
+    return {"forward": lib_fwd, "both": lib_both}
+
+
+def check_stack_bwd(torch, pkg, device, rng):
+    """Phase 12: K13 against its plain version, under phase 7's rules."""
+    sk = pkg["lstm_stack_kernels"]
+    names = ("dgates", "dwz", "dbias", "dproj", "dpeep", "dcinit", "dhinit")
+    result = {}
+    for family in ("lstm", "cudnnlstm"):
+        keep = 0.9 if family == "lstm" else 1.0
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            case, _, _, _ = stack_case(torch, pkg, device, dtype, family, rng,
+                                       keep)
+            case.pop("affine")
+            out, cfin, hfin, chain, c_all, h_all = sk.lstm_stack_forward(
+                **case, states=True, store_dtype=dtype)
+            dout = torch.from_numpy((0.1 * rng.randn(*out.shape)).astype(
+                np.float32)).to(device)
+            args = dict(case, chain=chain, c_all=c_all, h_all=h_all,
+                        dout=dout, dcfin=torch.zeros_like(cfin),
+                        dhfin=torch.zeros_like(hfin), store_dtype=dtype)
+            got = sk.lstm_stack_backward(**args)
+            ref = sk.stack_backward_reference(**args)
+            torch.cuda.synchronize()
+            rels = {}
+            for n, g, r in zip(names, got, ref):
+                if g is None:
+                    continue
+                if not torch.isfinite(g.float()).all():
+                    fail("K13 %s %s: non-finite %s" % (family, name, n))
+                rels[n] = ratio(g, r)
+            say("  K13 %-9s %-8s keep=%.1f max|diff|/max|plain|: %s"
+                % (family, name, keep, ", ".join("%s %.2e" % kv
+                                                 for kv in rels.items())))
+            if dtype == torch.float32 and max(rels.values()) > F32_REL_TOL:
+                fail("K13 %s f32: relative error %.3e > %.1e"
+                     % (family, max(rels.values()), F32_REL_TOL))
+            if dtype == torch.bfloat16:
+                full = sk.lstm_stack_backward(**args, steps_out=True)
+                dc_in, dh_in, din = full[7:]
+                replay = {k: v for k, v in args.items()
+                          if k not in ("dcfin", "dhfin")}
+                dg, dc_out, dh_out, din_out = sk.stack_replay_backward_steps(
+                    **replay, dc_in=dc_in, dh_in=dh_in, din=din)
+                step_rel = max(ratio(dc_out[1:], dc_in[:-1]),
+                               ratio(dh_out[1:], dh_in[:-1]),
+                               ratio(din_out[1:], din[1:]))
+                rounding = within_bf16_step(full[0], dg)
+                say("  K13 %-9s bfloat16 per step: carries and din max rel "
+                    "%.3e (bound %.0e); dgates within one bf16 rounding "
+                    "step: %s" % (family, step_rel, BF16_STEP_REL_TOL,
+                                  rounding))
+                if step_rel > BF16_STEP_REL_TOL or not rounding:
+                    fail("K13 %s bf16 per-step replay outside its bounds"
+                         % family)
+            ms, plain_ms = time_in_turns(
+                torch, lambda: sk.lstm_stack_backward(**args),
+                lambda: sk.stack_backward_reference(**args), rounds=2,
+                kernel_reps=2)
+            bound_ms, bound_by = stack_bound(torch, args, got, dtype, True)
+            steps = case["gx0"].shape[0]
+            say("  K13 %-9s %-8s kernel %.3f ms (%.1f us per layer-step)  "
+                "plain %.3f ms  bound %.4f ms (%s)"
+                % (family, name, ms, 1e3 * ms / (steps * STACK_LAYERS),
+                   plain_ms, bound_ms, bound_by))
+            result[(family, dtype)] = {
+                "max_abs_err": float((got[0].float() - ref[0].float()).abs()
+                                     .max()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+    return result
+
+
+def check_posteriors(posts, raw_lengths, subsample=3):
+    """The archive holds every key, (raw // subsample) x 72 finite
+    log-posteriors whose rows sum to one; returns the frame count."""
+    if sorted(posts) != sorted(raw_lengths):
+        fail("archive keys differ from the corpus keys")
+    frames = 0
+    for key, mat in posts.items():
+        if mat.shape != (raw_lengths[key] // subsample, 72):
+            fail("%s: shape %s, expected (%d, 72)"
+                 % (key, mat.shape, raw_lengths[key] // subsample))
+        if not np.isfinite(mat).all():
+            fail("%s: non-finite log-posteriors" % key)
+        m = mat.max(axis=1, keepdims=True)
+        lse = m[:, 0] + np.log(np.exp(mat - m).sum(axis=1))
+        if np.abs(lse).max() > LOGSUMEXP_TOL:
+            fail("%s: row logsumexp up to %.3e" % (key, np.abs(lse).max()))
+        frames += mat.shape[0]
+    return frames
+
+
+@contextlib.contextmanager
+def held_stack(torch, pkg, dtype, worst):
+    """Run each K12 launch with its per-step states, then replay every step
+    from them with the plain version; fail on a launch of another compute
+    dtype or a step outside the bound."""
+    sk = pkg["lstm_stack_kernels"]
+    k12 = sk.lstm_stack_forward
+    names = ("gx0", "mask", "wz", "bias", "proj", "peep", "cinit", "hinit",
+             "residual", "forget_bias", "keep_prob", "seed", "affine")
+
+    def stand_in(*args, states=False, store_dtype=None, **kwargs):
+        kw = dict({"keep_prob": 1.0, "seed": None, "affine": None},
+                  **dict(zip(names, args)), **kwargs)
+        if kw["wz"].dtype != dtype:
+            fail("K12 launched with weights in %s, expected %s"
+                 % (kw["wz"].dtype, dtype))
+        got = k12(**kw, states=True)
+        ref = sk.stack_replay_steps(**kw, chain=got[3], c_all=got[4],
+                                    h_all=got[5])
+        rel = max(ratio(g, r) for g, r in zip(got[3:], ref))
+        worst["lstm_stack_fwd"] = max(worst["lstm_stack_fwd"], rel)
+        if rel > BF16_STEP_REL_TOL:
+            fail("K12 on the main path: a step's relative error %.3e > %.1e"
+                 % (rel, BF16_STEP_REL_TOL))
+        return got[:3]
+
+    stand_in.launches = 0
+    with mock.patch.object(sk, "lstm_stack_forward", stand_in):
+        yield
+
+
+def serve_families(torch, pkg, device, rng):
+    """Phase 13: nnet_forward for an lstm and a cudnnlstm model, then the
+    lstm model through --streaming."""
+    from lstm_ctc_tpu_torch.bin import nnet_forward
+    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
+    from lstm_ctc_tpu_torch.host import kaldi
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.models.streaming import StreamingSession
+    from lstm_ctc_tpu_torch.host.data import RecordLoader, scan_scp
+    from lstm_ctc_tpu_torch.train.checkpoint import save_checkpoint
+    result = {"launches": counts()}
+    with tempfile.TemporaryDirectory() as work:
+        scp, raw_lengths = write_corpus(pkg, work, rng)
+        for name, config in (("lstm", LSTM_CONFIG),
+                             ("cudnnlstm", CUDNN_CONFIG)):
+            paths = {}
+            for tag, cfg in (("bf16", config),
+                             ("f32", dict(config, compute_dtype="float32"))):
+                paths[tag] = os.path.join(work, "%s_%s.config" % (name, tag))
+                with open(paths[tag], "w") as fh:
+                    fh.write(format_config(cfg))
+            params, state = init_from_config(dict(config), device)
+            nnet = os.path.join(work, "%s.npz" % name)
+            save_checkpoint(nnet, params, state)
+            batcher = build_batcher(scp, config, 32)
+            batches = len(batcher.batch_plan(False, None))
+
+            def run(config_path, ark, *extra):
+                return nnet_forward.main(
+                    [scp if not extra else extra[0], config_path, nnet,
+                     "ark:" + ark, "--device", "cuda", "--batch-size", "32",
+                     "--report-interval", "0"] + list(extra[1:]))
+
+            ark = os.path.join(work, "%s.ark" % name)
+            _, _, got, _ = run_counted(torch, pkg,
+                                       lambda: run(paths["bf16"], ark))
+            expect_counts("nnet_forward %s" % name, got,
+                          counts(lstm_stack_fwd=batches))
+            for k in KERNEL_NAMES:
+                result["launches"][k] += got[k]
+            posts = read_archive(kaldi, ark)
+            frames = check_posteriors(posts, raw_lengths)
+            start = time.perf_counter()
+            run(paths["bf16"], ark)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - start
+            ark32 = os.path.join(work, "%s_f32.ark" % name)
+            run(paths["f32"], ark32)
+            posts32 = read_archive(kaldi, ark32)
+            ref32 = plain_logposts(torch, pkg, params, state, batcher,
+                                   dict(config, compute_dtype="float32"),
+                                   device)
+            worst32, mean32 = diff_stats(posts32, ref32)
+            say("  %s: nnet_forward wrote %d utterances in %d batches "
+                "(launches %s); %.1f frames/s (second run, %.3f s); float32 "
+                "kernels vs plain versions, log-posteriors max_abs %.3e "
+                "mean_abs %.3e" % (name, len(posts), batches, got,
+                                   frames / warm_s, warm_s, worst32, mean32))
+            if mean32 > E2E_F32_MEAN_TOL or worst32 > E2E_F32_MAX_TOL:
+                fail("%s float32 log-posteriors differ from the plain "
+                     "versions beyond the bounds" % name)
+            worst = {"lstm_stack_fwd": 0.0}
+            with held_stack(torch, pkg, torch.bfloat16, worst):
+                run(paths["bf16"], os.path.join(work, "held.ark"))
+            say("  %s bfloat16 main path, each K12 launch's steps vs the "
+                "plain version: max rel %.3e (bound %.0e)"
+                % (name, worst["lstm_stack_fwd"], BF16_STEP_REL_TOL))
+            result[name] = {"fps": frames / warm_s}
+            if name != "lstm":
+                continue
+
+            # streaming: 8 utterances through --streaming, chunks of 16
+            # model rows, against the offline archives
+            keys = sorted(raw_lengths)[:8]
+            sub_scp = os.path.join(work, "stream.scp")
+            metas = {m.key: m for m in scan_scp(scp)}
+            with open(sub_scp, "w") as fh:
+                for key in keys:
+                    fh.write(metas[key].scp_line())
+            chunks = sum(-(-(raw_lengths[k] // 3) // CHUNK_ROWS)
+                         for k in keys)
+            stream = {}
+            for tag, offline in (("bf16", posts), ("f32", posts32)):
+                sark = os.path.join(work, "stream_%s.ark" % tag)
+                _, _, got, _ = run_counted(torch, pkg, lambda: run(
+                    paths[tag], sark, sub_scp, "--streaming", "true",
+                    "--chunk-frames", str(CHUNK_ROWS)))
+                expect_counts("nnet_forward --streaming", got,
+                              counts(lstm_stack_fwd=chunks))
+                for k in KERNEL_NAMES:
+                    result["launches"][k] += got[k]
+                sposts = read_archive(kaldi, sark)
+                check_posteriors(sposts, {k: raw_lengths[k] for k in keys})
+                worst, mean = diff_stats(sposts, {k: offline[k]
+                                                  for k in keys})
+                scale = max(float(np.abs(offline[k]).max()) for k in keys)
+                stream[tag] = (worst, mean, worst / scale)
+            # the same kernel on both sides: held to phase 11's ratio bounds
+            # (f32 1e-4, bf16 1e-3), which a chunk-boundary fault that moves
+            # a few rows a chunk would break
+            say("  --streaming --chunk-frames %d, %d utterances, %d chunks "
+                "(launches as counted): vs offline log-posteriors, float32 "
+                "max_abs %.3e mean_abs %.3e max|diff|/max|offline| %.3e "
+                "(bound %.0e); bfloat16 max_abs %.3e mean_abs %.3e ratio "
+                "%.3e (bound %.0e)"
+                % ((CHUNK_ROWS, len(keys), chunks) + stream["f32"]
+                   + (F32_REL_TOL,) + stream["bf16"] + (BF16_STEP_REL_TOL,)))
+            if stream["f32"][2] > F32_REL_TOL \
+                    or stream["bf16"][2] > BF16_STEP_REL_TOL:
+                fail("streaming output differs from the offline output")
+
+            # ms per chunk and real-time factor: a session on the card
+            session = StreamingSession(params, state, config,
+                                       chunk_size=CHUNK_ROWS)
+            loader = RecordLoader()
+            raws = [loader.load(metas[k])[1] for k in keys]
+            loader.close()
+            session.process(raws[0], flush=True)       # warm
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for raw in raws:
+                session.reset()
+                session.process(raw, flush=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            audio_s = FRAME_SHIFT_S * sum(raw.shape[0] for raw in raws)
+            result["chunk_ms"] = 1e3 * seconds / chunks
+            result["rtf"] = audio_s / seconds
+            say("  streaming session on the card: %.3f ms per chunk of %d "
+                "rows (%.2f s of audio), real-time factor %.1f (audio "
+                "seconds per second, as bench.py defines it; %.4f seconds "
+                "per audio second)"
+                % (result["chunk_ms"], CHUNK_ROWS,
+                   CHUNK_ROWS * 3 * FRAME_SHIFT_S, result["rtf"],
+                   seconds / audio_s))
+    return result
+
+
+def family_step_check(torch, pkg, device, config, nnet, batcher, held):
+    """One float32 train step from the weights in ``nnet``: each kernel
+    launch held to its plain version on its own tensors, and the loss to
+    the plain versions' loss."""
+    from lstm_ctc_tpu_torch.cli import init_from_config, make_shard_fn
+    from lstm_ctc_tpu_torch.host.data import iterate_batches
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint, tree_map
+    from lstm_ctc_tpu_torch.train.graph import (compute_losses, l2_loss,
+                                                param_leaves)
+    batch = make_shard_fn(device)(next(iter(iterate_batches(
+        batcher, shuffle=True, seed=777))))
+    template, state = init_from_config(config, device)
+    base, state, _ = load_checkpoint(nnet, template, state)
+    f32 = dict(config, compute_dtype="float32", store_dtype="float32",
+               dropout_rate=1.0)
+
+    def loss(plain):
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                          base)
+        with (plain_versions(pkg) if plain else contextlib.nullcontext()):
+            metrics, _, _ = compute_losses(params, state, batch, f32,
+                                           train=True)
+            total = metrics["loss"] + 1e-5 * l2_loss(params)
+            torch.autograd.grad(total, param_leaves(params))
+        return float(total.detach())
+
+    worst = {k: 0.0 for k in held}
+    with held_f32(torch, pkg, worst):
+        got = loss(False)
+    want = loss(True)
+    rel = abs(got - want) / abs(want)
+    say("  %s float32 train step: each launch vs its plain version on the "
+        "same tensors, max rel %s (bound %.0e); loss %.6f vs plain %.6f "
+        "(rel %.3e, bound %.0e)"
+        % (config.get("use_bn") and "lstm_bn" or config["nnet_type"],
+           ", ".join("%s %.3e" % kv for kv in worst.items()), F32_REL_TOL,
+           got, want, rel, STEP_LOSS_TOL))
+    if max(worst.values()) > F32_REL_TOL or rel > STEP_LOSS_TOL:
+        fail("a float32 launch of the family's train step differs from its "
+             "plain version")
+    return worst
+
+
+def train_families(torch, pkg, device, work, scp):
+    """Phase 14: lstm (keep 0.9), cudnnlstm and lstm_bn through nnet_init /
+    nnet_train / nnet_validate on the phase-8 corpus, unpacked."""
+    from lstm_ctc_tpu_torch.bin import nnet_init, nnet_train, nnet_validate
+    from lstm_ctc_tpu_torch.cli import build_batcher
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.train.graph import make_train_step
+    result = {"launches": counts()}
+    common = ["--objective", "ctc", "--batch-size", "32", "--device",
+              "cuda", "--report-interval", "0"]
+    batcher = build_batcher(scp, LSTM_CONFIG, 32)
+    cv_batches = len(batcher.batch_plan(False, None))
+    steps = len(batcher.batch_plan(True, 777))
+    frames = sum(batcher._lengths)
+    for name, config in (("lstm", LSTM_CONFIG), ("cudnnlstm", CUDNN_CONFIG),
+                         ("lstm_bn", LSTM_BN_CONFIG)):
+        if name == "lstm_bn":
+            train_counts = counts(lstm_fwd=4 * steps, lstm_bwd=4 * steps,
+                                  ctc_alpha=steps, ctc_beta=steps)
+        else:
+            train_counts = counts(lstm_stack_fwd=steps, lstm_stack_bwd=steps,
+                                  ctc_alpha=steps, ctc_beta=steps)
+        cv_counts = counts(lstm_stack_fwd=cv_batches, ctc_alpha=cv_batches)
+        config_path = os.path.join(work, "%s.config" % name)
+        with open(config_path, "w") as fh:
+            fh.write(format_config(config))
+        nnets = [os.path.join(work, "%s%d.npz" % (name, i)) for i in range(3)]
+
+        def counted(what, fn, want):
+            _, tee, got, _ = run_counted(torch, pkg, fn)
+            expect_counts("%s %s" % (name, what), got, want)
+            for k in KERNEL_NAMES:
+                result["launches"][k] += got[k]
+            return tee
+
+        cv = [counted("nnet_init", lambda: nnet_init.main(
+            [scp, config_path, nnets[0]] + common), cv_counts
+        ).value("cv_loss")]
+        tr, metrics = [], None
+        for epoch in (1, 2):
+            metrics_file = os.path.join(work, "%s_metrics%d.jsonl"
+                                        % (name, epoch))
+            tr.append(counted("nnet_train", lambda: nnet_train.main(
+                [scp, config_path, nnets[epoch - 1], nnets[epoch],
+                 "--optimizer", "adam", "--learn-rate", "1e-3",
+                 "--metrics-file", metrics_file] + common),
+                train_counts).value("tr_loss"))
+            cv.append(counted("nnet_validate", lambda: nnet_validate.main(
+                [scp, config_path, nnets[epoch]] + common),
+                cv_counts).value("cv_loss"))
+            with open(metrics_file) as fh:
+                metrics = [json.loads(ln) for ln in fh]
+        step_ms = 1e3 * statistics.median(m["step_time"] for m in metrics)
+        fps = frames / sum(m["step_time"] for m in metrics)
+        say("  %s: cv_loss %s; tr_loss %s; epoch 2 median train step %.1f "
+            "ms, %.1f real frames/s (%d steps of 32 unpacked utterances)"
+            % (name, ["%.4f" % v for v in cv], ["%.4f" % v for v in tr],
+               step_ms, fps, steps))
+        if not all(math.isfinite(v) for v in cv + tr):
+            fail("%s: non-finite tr_loss or cv_loss" % name)
+        if name == "lstm" and not cv[-1] < cv[0]:
+            fail("lstm: the last cv_loss %.4f is not below the first %.4f"
+                 % (cv[-1], cv[0]))
+        result[name] = {"step_ms": step_ms, "fps": fps, "cv": cv}
+        held = ("lstm_fwd", "lstm_bwd") if name == "lstm_bn" \
+            else ("lstm_stack_fwd", "lstm_stack_bwd")
+        family_step_check(torch, pkg, device, config, nnets[2], batcher, held)
+        if name == "lstm":
+            from lstm_ctc_tpu_torch.cli import init_from_config, make_shard_fn
+            from lstm_ctc_tpu_torch.host.data import iterate_batches
+            from lstm_ctc_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                             tree_map)
+            template, state = init_from_config(config, device)
+            base, _, _ = load_checkpoint(nnets[2], template, state)
+            init_opt, step = make_train_step(config, 1e-3, "adam")
+            batch = make_shard_fn(device)(next(iter(iterate_batches(
+                batcher, shuffle=True, seed=777))))
+            profile_step(torch, init_opt, step, tree_map(
+                lambda t: t.detach().clone().requires_grad_(), base),
+                batch, device, step_ms)
+    return result
+
+
 def reference_files():
     """Modules loaded from a file of the JAX package's directory."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1451,10 +2199,11 @@ def main() -> None:
     from lstm_ctc_tpu_torch.host.data import records
     from lstm_ctc_tpu_torch.models import cells, moe
     from lstm_ctc_tpu_torch.ops import (ctc, ctc_kernels, lstm_kernels,
-                                        moe_kernels)
+                                        lstm_stack_kernels, moe_kernels)
     pkg = {"cells": cells, "moe": moe, "lstm_kernels": lstm_kernels,
            "moe_kernels": moe_kernels, "records": records, "ctc": ctc,
-           "ctc_kernels": ctc_kernels}
+           "ctc_kernels": ctc_kernels,
+           "lstm_stack_kernels": lstm_stack_kernels}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1506,6 +2255,17 @@ def main() -> None:
         say("phase 10 MoE training end to end (nnet_train_loop, flagship "
             "MoE model, cuda)")
         moe_loop = train_moe_end_to_end(torch, pkg, device, work, scp)
+        say("phase 11 K12 (unidirectional stack forward)")
+        k12 = check_stack_fwd(torch, pkg, device, rng)
+        library = cudnn_yardstick(torch, pkg, device, rng)
+        say("phase 12 K13 (unidirectional stack backward)")
+        k13 = check_stack_bwd(torch, pkg, device, rng)
+        say("phase 13 serving the unidirectional families (nnet_forward, "
+            "offline and --streaming, cuda)")
+        serve = serve_families(torch, pkg, device, rng)
+        say("phase 14 training the unidirectional families (nnet_init / "
+            "nnet_train / nnet_validate, lstm, cudnnlstm, lstm_bn, cuda)")
+        families = train_families(torch, pkg, device, work, scp)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -1513,7 +2273,7 @@ def main() -> None:
              % bad[:5])
 
     launches = dict(train["launches"])
-    for run in (e2e, moe_loop):
+    for run in (e2e, moe_loop, serve, families):
         for k, v in run["launches"].items():
             launches[k] += v
     for name in KERNEL_NAMES:
@@ -1574,6 +2334,18 @@ def main() -> None:
             "plain_ms": dp[name]["plain_ms"],
             "bound_ms": dp[name]["bound_ms"], "bound_by": "bytes",
             "library_ms": dp[name]["library_ms"]})
+    # K12, K13: bf16 at the lstm width (B=32, T=384, 4 layers of 320,
+    # projection 320); the library yardstick is cuDNN at the cudnnlstm
+    # width (no PyTorch call has the peephole projected cell)
+    for name, line, res, lib in (
+            ("lstm_stack_fwd", 64, k12, library["forward"]),
+            ("lstm_stack_bwd", 184, k13, library["both"])):
+        kernels.append(dict(
+            {"name": name, "route": "cuda",
+             "source": "lstm_ctc_tpu_torch/csrc/%s.cu" % name,
+             "replaces": "lstm_ctc_tpu/ops/lstm_stack_pallas.py:%d" % line,
+             "launches": launches[name], "library_ms": lib},
+            **res[("lstm", torch.bfloat16)]))
     two_ms, default_ms = moe_train[("twokernel", torch.bfloat16)]
     say("summary on %s: nnet_forward %.1f frames/s (64 utterances, model "
         "init and checkpoint load included); flagship forward B=32 T=384 "
@@ -1585,11 +2357,28 @@ def main() -> None:
            train["step_ms"], train["fps"], train["fill"],
            moe_loop["step_ms"], moe_loop["fps"], moe_loop["fill"], two_ms,
            default_ms))
+    say("summary of the unidirectional families on %s: K12 bf16 %.3f ms "
+        "(lstm width) / %.3f ms (cudnnlstm width, cuDNN forward %.3f ms); "
+        "K13 bf16 %.3f ms / %.3f ms (cuDNN forward + backward %.3f ms); "
+        "nnet_forward lstm %.1f frames/s, cudnnlstm %.1f frames/s; "
+        "streaming %.3f ms per chunk of %d rows, real-time factor %.1f; "
+        "train step (B=32 unpacked, bf16), median: lstm %.1f ms, %.1f real "
+        "frames/s; cudnnlstm %.1f ms, %.1f; lstm_bn %.1f ms, %.1f"
+        % (smi, k12[("lstm", torch.bfloat16)]["ms"],
+           k12[("cudnnlstm", torch.bfloat16)]["ms"], library["forward"],
+           k13[("lstm", torch.bfloat16)]["ms"],
+           k13[("cudnnlstm", torch.bfloat16)]["ms"], library["both"],
+           serve["lstm"]["fps"], serve["cudnnlstm"]["fps"],
+           serve["chunk_ms"], CHUNK_ROWS, serve["rtf"],
+           families["lstm"]["step_ms"], families["lstm"]["fps"],
+           families["cudnnlstm"]["step_ms"], families["cudnnlstm"]["fps"],
+           families["lstm_bn"]["step_ms"], families["lstm_bn"]["fps"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
         e2e["fps_warm"], train["step_ms"], moe_loop["step_ms"], two_ms,
-        default_ms]
+        default_ms, library["forward"], library["both"], serve["chunk_ms"]] \
+        + [families[f]["step_ms"] for f in ("lstm", "cudnnlstm", "lstm_bn")]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

@@ -10,7 +10,11 @@ flags plus ``--device`` (default ``cuda``; there is no silent CPU run):
   * ``--apply-log`` implies softmax and takes the log;
   * ``--class-prior`` subtracts the (blank-rotated) log prior;
   * utterances are batched through the length-bucketed pipeline and
-    written per key through any Kaldi wspecifier.
+    written per key through any Kaldi wspecifier;
+  * ``--streaming true`` runs a causal model (``lstm``, ``cudnnlstm``)
+    utterance by utterance through one ``StreamingSession`` in chunks of
+    ``--chunk-frames`` model rows (after splice and subsampling); a
+    ``blstm`` is refused.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from ..cli import build_batcher, init_from_config, resolve_device, str2bool
 from ..host import kaldi
 from ..host import logging_util as log
 from ..host.config import parse_config
-from ..host.data import iterate_batches
+from ..host.data import iterate_batches, iterate_utterances, scan_scp
 from ..host.class_prior import get_class_prior, subtract_log_prior
 from ..models import apply_model
 from ..train.checkpoint import load_checkpoint
@@ -33,10 +37,6 @@ from ..train.checkpoint import load_checkpoint
 
 def forward(args) -> int:
     """Run the forward pass; returns the number of utterances written."""
-    if args.streaming:
-        raise NotImplementedError(
-            "--streaming is not ported to PyTorch yet (ROADMAP queue 1, "
-            "item 13)")
     device = resolve_device(args.device)
     config = parse_config(args.nnet_config)
     config["is_training"] = False
@@ -48,6 +48,9 @@ def forward(args) -> int:
     template_params, template_state = init_from_config(config, device)
     params, net_state, _ = load_checkpoint(args.nnet_in, template_params,
                                            template_state)
+    if args.streaming:
+        return _forward_streaming(args, config, params, net_state,
+                                  class_prior)
     batcher = build_batcher(args.tfrecords_scp, config, args.batch_size,
                             need_labels=False)
     writer = kaldi.BaseFloatMatrixWriter(args.nnet_output)
@@ -74,6 +77,36 @@ def forward(args) -> int:
                 if args.report_interval \
                         and processed % args.report_interval == 0:
                     log.info("processed = %d" % processed)
+    log.info("done")
+    writer.Close()
+    return processed
+
+
+def _forward_streaming(args, config, params, net_state, class_prior) -> int:
+    """``bin/nnet-forward.py --streaming`` (:64-87): one session for the
+    whole archive, reset between utterances; each utterance's raw frames
+    go in at once and the session splices, subsamples and chunks them."""
+    from ..models.streaming import StreamingSession
+    session = StreamingSession(params, net_state, config,
+                               chunk_size=args.chunk_frames)
+    writer = kaldi.BaseFloatMatrixWriter(args.nnet_output)
+    processed = 0
+    for key, raw, _ in iterate_utterances(scan_scp(args.tfrecords_scp)):
+        session.reset()
+        out = session.process(raw, flush=True)
+        if args.apply_softmax:
+            z = args.smooth_factor * out
+            e = np.exp(z - z.max(axis=1, keepdims=True))
+            out = e / e.sum(axis=1, keepdims=True)
+        if args.apply_log:
+            with np.errstate(divide="ignore"):
+                out = np.log(out)
+        if class_prior is not None:
+            out = subtract_log_prior(out, class_prior)
+        writer.Write(key, out.astype(np.float32))
+        processed += 1
+        if args.report_interval and processed % args.report_interval == 0:
+            log.info("processed = %d" % processed)
     log.info("done")
     writer.Close()
     return processed
@@ -109,10 +142,12 @@ def build_parser() -> argparse.ArgumentParser:
                         default=16, help="inference batch size.")
     parser.add_argument("--streaming", metavar="streaming", type=str2bool,
                         default="false",
-                        help="chunked causal streaming inference (not "
-                             "ported yet).")
+                        help="chunked causal streaming inference "
+                             "(lstm/cudnnlstm).")
     parser.add_argument("--chunk-frames", metavar="chunk-frames", type=int,
-                        default=32, help="streaming chunk size (frames).")
+                        default=32,
+                        help="streaming chunk size (model rows, after "
+                             "splice and subsampling).")
     parser.add_argument("--device", metavar="device", type=str,
                         default="cuda", help="cuda, cuda:N or cpu.")
     return parser

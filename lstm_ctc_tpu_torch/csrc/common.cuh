@@ -1,5 +1,6 @@
-// Shared helpers for the port's kernels: compute-dtype conversions and the
-// bf16 tensor-core primitives (ldmatrix, mma.sync m16n8k16) as PTX.
+// Shared helpers for the port's kernels: compute-dtype conversions, the
+// bf16 tensor-core primitives (ldmatrix, mma.sync m16n8k16) as PTX, and the
+// counter-based dropout hash.
 //
 // Every matrix product in the kernels rounds its operands to the compute
 // dtype (float32 or bfloat16) and sums the products in float32, as the
@@ -57,4 +58,28 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Uniform in [0, 1) from the murmur3 finalizer over (global row, global
+// column, seed): lstm_ctc_tpu/ops/moe_pallas.py hash_uniform (:85-101),
+// bit for bit.  The MoE head's kernels draw their mask from it at the
+// element's global (n, e·V + v), the LSTM stack's (lstm_stack_fwd.cu,
+// lstm_stack_bwd.cu) at (s·L·B + l·B + b, p), whatever order they visit the
+// elements in.
+__device__ __forceinline__ float hash_uniform(uint32_t row, uint32_t col,
+                                              uint32_t seed) {
+  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u + seed * 0xC2B2AE3Du;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return (float)(x >> 9) * (1.0f / 8388608.0f);
+}
+
+// the dropout factor of one element: 1 / keep_prob where kept, else 0
+__device__ __forceinline__ float drop_factor(uint32_t row, uint32_t col,
+                                             uint32_t seed, float keep_prob,
+                                             float inv_keep) {
+  return hash_uniform(row, col, seed) < keep_prob ? inv_keep : 0.0f;
 }

@@ -19,9 +19,10 @@
 // The weight gradients (:331-371) are this file's own kernels too, over
 // per-step stashes the recurrence writes (c_new, the pre-projection output
 // out_blk, dout_p; the TPU kernel keeps them in VMEM):
-//   dwh = Σ_(t,b) h_prevᵀ·dgates,  dproj = Σ out_blkᵀ·dout_p  (wgrad_kernel),
+//   dwh = Σ_(t,b) h_prevᵀ·dgates,  dproj = Σ out_blkᵀ·dout_p
+//   (lstm_bwd_common.cuh's wgrad_kernel),
 //   dpeep = Σ dgates_i·c_prev, Σ dgates_f·c_prev, Σ dgates_o·c_new
-//   (peep_partial_kernel, then peep_sum_kernel, in a fixed order).
+//   (peep_partial_kernel, then split_sum_kernel, in a fixed order).
 // Operands of every product are rounded to the compute dtype; sums, the
 // carry and every output except dgates stay float32.  The float32 path
 // uses FMA only, never TF32.
@@ -41,95 +42,9 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "lstm_bwd_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 1024;
-constexpr int kRows = 2;        // batch rows per block
-constexpr int kMaxSlices = 16;  // most k-slices one product is split into
-constexpr int kTile = 128;      // wgrad output tile
-constexpr int kDepth = 16;      // wgrad k-chunk
-constexpr int kPeepRows = 256;  // rows of one peephole partial sum
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-__device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return Dtype<T>::to_float(Dtype<T>::from_float(v));
-}
-
-template <typename T>
-__device__ __forceinline__ float ld(const T* p, size_t i) {
-  return Dtype<T>::to_float(p[i]);
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-  v[0] = __low2float(lo); v[1] = __high2float(lo);
-  v[2] = __low2float(hi); v[3] = __high2float(hi);
-}
-
-struct Split {
-  int per, slices;
-};
-
-__host__ __device__ Split split_of(int cols, int depth) {
-  int most = kThreads / (cols / 4);
-  most = most < 1 ? 1 : (most > kMaxSlices ? kMaxSlices : most);
-  Split sp;
-  sp.per = cdiv(depth, most);
-  sp.slices = cdiv(depth, sp.per);
-  return sp;
-}
-
-// part[s][r][cols] = Σ over the s-th slice of k of a[r][k]·w[k][cols]:
-// a is [kRows][lda] float in shared memory (already rounded), w is
-// [depth][cols] row-major in global memory.
-template <typename W>
-__device__ void block_product(const float* a, int lda, int depth,
-                              const W* __restrict__ w, int cols, float* part) {
-  const Split sp = split_of(cols, depth);
-  const int quads = cols / 4;
-  for (int task = threadIdx.x; task < quads * sp.slices; task += kThreads) {
-    const int g = task % quads, s = task / quads;
-    const int k0 = s * sp.per, k1 = min(depth, k0 + sp.per);
-    float acc[kRows][4] = {};
-    // unrolled so that several loads of w are in flight at once: each
-    // load is an L2 round trip, and the loop is bound by their latency
-#pragma unroll 8
-    for (int k = k0; k < k1; ++k) {
-      float wv[4];
-      load4(w + (size_t)k * cols + 4 * g, wv);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float av = a[r * lda + k];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av, wv[c], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      *reinterpret_cast<float4*>(part + ((size_t)s * kRows + r) * cols + 4 * g) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  }
-}
-
-__device__ __forceinline__ float part_sum(const float* part, int slices,
-                                          int cols, int r, int c) {
-  float v = 0.0f;
-  for (int s = 0; s < slices; ++s) v += part[((size_t)s * kRows + r) * cols + c];
-  return v;
-}
 
 // Shared-memory plan (floats): operands and carries, then the partials.
 struct Plan {
@@ -230,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     }
     __syncthreads();
     // 2. the gates, recomputed
-    block_product(a_h, P, P, wh_d, G, part);
+    block_product(a_h, P, P, wh_d, G, G, part);
     __syncthreads();
     for (int i = tid; i < nr * G; i += kThreads) {
       const int r = i / G, g = i - r * G;
@@ -239,7 +154,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     __syncthreads();
     // 3. dout_blk = dout_p · projᵀ
     if (has_proj) {
-      block_product(a_dp, P, P, pj_d, H, part);
+      block_product(a_dp, P, P, pj_d, H, H, part);
       __syncthreads();
       for (int i = tid; i < nr * H; i += kThreads)
         dob[i] = part_sum(part, sp.slices, H, i / H, i % H);
@@ -286,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     }
     __syncthreads();
     // 5. dh_prev = (1-m)·dh + dgates · whᵀ
-    block_product(a_dg, G, G, wht_d, P, part);
+    block_product(a_dg, G, G, wht_d, P, P, part);
     __syncthreads();
     for (int i = tid; i < nr * P; i += kThreads) {
       const int r = i / P, p = i - r * P;
@@ -298,103 +213,26 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
   }
 }
 
-// partial[split][dir][m][n] = Σ over the split's rows (t, b) of
-// a(t, b)[m] · bm(t, b)[n], over the rows of one direction of [T, 2B, ·]
-// streams; with a_prev, a(t, b) is row (t-1, b) times keep[t, b] (zeros at
-// t = 0), the states a step starts from.  Operands rounded to bf16 when
-// round_bf16.  A block owns a 128x128 tile, a thread 8x8 of it.
-template <typename TA, typename TB>
-__global__ void __launch_bounds__(256) wgrad_kernel(
-    const TA* __restrict__ a, const TB* __restrict__ bm,
-    const float* __restrict__ keep, bool a_prev, bool round_bf16,
-    int steps, int batch, int M, int N, int split_rows,
-    float* __restrict__ partial) {
-  __shared__ __align__(16) float as[kDepth][kTile];
-  __shared__ __align__(16) float bs[kDepth][kTile];
-  const int dir = blockIdx.z & 1, split = blockIdx.z >> 1;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k_begin = split * split_rows;
-  const int k_end = min(steps * batch, k_begin + split_rows);
-  float acc[8][8] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += kDepth) {
-    for (int i = tid; i < kDepth * kTile; i += 256) {
-      const int kk = i / kTile, j = i - kk * kTile;
-      const int k = k0 + kk;
-      float av = 0.0f, bv = 0.0f;
-      if (k < k_end) {
-        const int t = k / batch, b = k - t * batch;
-        const size_t row = (size_t)t * 2 * batch + (size_t)dir * batch + b;
-        if (m0 + j < M && (!a_prev || t > 0)) {
-          const size_t arow = a_prev ? row - 2 * (size_t)batch : row;
-          av = ld(a, arow * M + m0 + j);
-          if (a_prev && keep) av *= keep[(size_t)t * batch + b];
-        }
-        if (n0 + j < N) bv = ld(bm, row * N + n0 + j);
-      }
-      if (round_bf16) {
-        av = rnd<__nv_bfloat16>(av);
-        bv = rnd<__nv_bfloat16>(bv);
-      }
-      as[kk][j] = av;
-      bs[kk][j] = bv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][tx * 8 + 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+// h of the step before, times this step's keep (the states a step starts
+// from; zeros at t = 0): the dwh product's left operand, of direction dir
+template <typename S>
+struct PrevKept {
+  const S* h;
+  const float* keep;
+  int batch, width;
+  __device__ float operator()(int dir, int t, int b, int m) const {
+    if (t == 0) return 0.0f;
+    const float v = ld(h, ((size_t)(t - 1) * 2 * batch + (size_t)dir * batch + b) * width + m);
+    return keep ? v * keep[(size_t)t * batch + b] : v;
   }
-  float* out = partial + ((size_t)split * 2 + dir) * M * N;
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty * 8 + i;
-    if (m >= M) continue;
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx * 8 + j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
-
-// out[i] = Σ over splits of partial[split][i], in split order
-__global__ void split_sum_kernel(const float* __restrict__ partial,
-                                 int splits, size_t count,
-                                 float* __restrict__ out) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.0f;
-    for (int s = 0; s < splits; ++s) v += partial[s * count + i];
-    out[i] = v;
-  }
-}
-
-// Rows per split of a weight-gradient product: enough splits that the
-// tiles of both directions fill the card about twice over, and no split
-// shorter than 512 rows.
-__host__ int wgrad_splits(int rows, int M, int N) {
-  const int tiles = 2 * cdiv(M, kTile) * cdiv(N, kTile);
-  int splits = cdiv(264, tiles);
-  splits = splits < 1 ? 1 : splits;
-  const int most = cdiv(rows, 512);
-  return splits < most ? splits : (most < 1 ? 1 : most);
-}
+};
 
 // Scratch floats K2 needs: the split partials of both products and the
 // peephole partials.
 __host__ size_t scratch_floats(int steps, int batch, int H, int P) {
   const int rows = steps * batch;
-  return (size_t)wgrad_splits(rows, P, 4 * H) * 2 * P * 4 * H
-         + (size_t)wgrad_splits(rows, H, P) * 2 * H * P
+  return (size_t)wgrad_splits(rows, 2, P, 4 * H) * 2 * P * 4 * H
+         + (size_t)wgrad_splits(rows, 2, H, P) * 2 * H * P
          + (size_t)cdiv(rows, kPeepRows) * 2 * 3 * H;
 }
 
@@ -428,17 +266,6 @@ __global__ void __launch_bounds__(256) peep_partial_kernel(
   }
 }
 
-// dpeep[dir][3][H] = Σ over chunks of the partials, in chunk order
-__global__ void peep_sum_kernel(const float* __restrict__ partial, int chunks,
-                                int H, float* __restrict__ dpeep) {
-  const int dir = blockIdx.x;
-  for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) {
-    float v = 0.0f;
-    for (int c = 0; c < chunks; ++c) v += partial[((size_t)c * 2 + dir) * 3 * H + i];
-    dpeep[(size_t)dir * 3 * H + i] = v;
-  }
-}
-
 struct Args {
   const void *gx, *lengths, *keep, *c_all, *h_all, *wh, *wht, *projt, *peep;
   float forget_bias;
@@ -448,26 +275,6 @@ struct Args {
   void *dwh, *dproj, *dpeep, *scratch;
   cudaStream_t stream;
 };
-
-// out [2, M, N] = the weight-gradient product, split over the rows, the
-// partials in `partial`, summed in a fixed order
-template <typename TA, typename TB>
-cudaError_t wgrad(const Args& a, const TA* x, const TB* y, bool a_prev,
-                  bool round_bf16, int M, int N, float* partial, void* out) {
-  const int rows = a.steps * a.batch;
-  const int splits = wgrad_splits(rows, M, N);
-  const int split_rows = cdiv(cdiv(rows, splits), kDepth) * kDepth;
-  dim3 grid(cdiv(N, kTile), cdiv(M, kTile), 2 * splits);
-  wgrad_kernel<TA, TB><<<grid, 256, 0, a.stream>>>(
-      x, y, (const float*)a.keep, a_prev, round_bf16, a.steps, a.batch, M, N,
-      split_rows, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t count = (size_t)2 * M * N;
-  split_sum_kernel<<<264, 256, 0, a.stream>>>(partial, splits, count,
-                                              (float*)out);
-  return cudaGetLastError();
-}
 
 template <typename T, typename S>
 int launch(int device, const Args& a) {
@@ -497,14 +304,17 @@ int launch(int device, const Args& a) {
   const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   const int rows = a.steps * a.batch;
   float* wh_partial = (float*)a.scratch;
-  float* proj_partial = wh_partial + (size_t)wgrad_splits(rows, P, 4 * H) * 2 * P * 4 * H;
-  float* peep_partial = proj_partial + (size_t)wgrad_splits(rows, H, P) * 2 * H * P;
-  err = wgrad(a, (const S*)a.h_all, (const S*)a.dgates, true, bf16, P, 4 * H,
-              wh_partial, a.dwh);
+  float* proj_partial = wh_partial + (size_t)wgrad_splits(rows, 2, P, 4 * H) * 2 * P * 4 * H;
+  float* peep_partial = proj_partial + (size_t)wgrad_splits(rows, 2, H, P) * 2 * H * P;
+  const int B2 = 2 * a.batch;
+  err = wgrad(PrevKept<S>{(const S*)a.h_all, (const float*)a.keep, a.batch, P},
+              Rows<S>{(const S*)a.dgates, B2, a.batch, 4 * H}, bf16, a.steps, 2,
+              a.batch, P, 4 * H, wh_partial, a.dwh, a.stream);
   if (err != cudaSuccess) return err;
   if (a.projt) {
-    err = wgrad(a, (const float*)a.outb_st, (const float*)a.doutp_st, false,
-                bf16, H, P, proj_partial, a.dproj);
+    err = wgrad(Rows<float>{(const float*)a.outb_st, B2, a.batch, H},
+                Rows<float>{(const float*)a.doutp_st, B2, a.batch, P}, bf16, a.steps, 2,
+                a.batch, H, P, proj_partial, a.dproj, a.stream);
     if (err != cudaSuccess) return err;
   }
   if (a.peep) {
@@ -514,8 +324,8 @@ int launch(int device, const Args& a) {
         (const float*)a.keep, a.steps, a.batch, H, peep_partial);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    peep_sum_kernel<<<2, 256, 0, a.stream>>>(peep_partial, chunks, H,
-                                             (float*)a.dpeep);
+    split_sum_kernel<<<264, 256, 0, a.stream>>>(peep_partial, chunks,
+                                                (size_t)2 * 3 * H, (float*)a.dpeep);
     err = cudaGetLastError();
   }
   return err;

@@ -1,6 +1,6 @@
 // Shared pieces of the MoE head's kernels (moe_fwd.cu, moe_bwd.cu,
-// moe_wgrad.cu): the expert-dropout hash, the shared-memory tile layout and
-// the two tile products (bf16 mma.sync, float32 FMA) over it.
+// moe_wgrad.cu): the shared-memory tile layout and the two tile products
+// (bf16 mma.sync, float32 FMA) over it.  The dropout hash is in common.cuh.
 //
 // A tile product computes acc[M, N] += A[M, K] · B[K, N] with A held in
 // shared memory row-major ([M][ldx], K contiguous) and B row-major
@@ -14,28 +14,6 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxV = 128;     // widest N of a tile product
-
-// Uniform in [0, 1) from the murmur3 finalizer over (global row, global
-// column, seed): lstm_ctc_tpu/ops/moe_pallas.py hash_uniform (:85-101),
-// bit for bit.  Every kernel of the head draws its mask from it at the
-// element's global (n, e·V + v), whatever order it visits the elements in.
-__device__ __forceinline__ float hash_uniform(uint32_t row, uint32_t col,
-                                              uint32_t seed) {
-  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u + seed * 0xC2B2AE3Du;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return (float)(x >> 9) * (1.0f / 8388608.0f);
-}
-
-// the dropout factor of one element: 1 / keep_prob where kept, else 0
-__device__ __forceinline__ float drop_factor(uint32_t row, uint32_t col,
-                                             uint32_t seed, float keep_prob,
-                                             float inv_keep) {
-  return hash_uniform(row, col, seed) < keep_prob ? inv_keep : 0.0f;
-}
 
 __host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 

@@ -1,5 +1,5 @@
-"""LSTM cell primitives: parameter init, the plain dual-direction scan and
-its backward, dropout.
+"""LSTM cell primitives: parameter init, the plain unidirectional scan, the
+plain dual-direction scan and its backward, dropout.
 
 Counterpart of ``lstm_ctc_tpu/models/cells.py``.  Semantics are TF1's
 ``LSTMCell`` as the reference uses it: optional diagonal peepholes, optional
@@ -406,6 +406,49 @@ def replay_backward_steps(gx, sequence_length, keep, wh, proj, peep,
         view(dout), view(dc_in), view(dh_in), wh, proj, peep, forget_bias)
     return (dg.reshape(time_steps, b2, h4).to(store_dtype),
             dc.reshape(time_steps, b2, -1), dh.reshape(time_steps, b2, -1))
+
+
+def lstm_scan(params: Dict, x: torch.Tensor, sequence_length: torch.Tensor,
+              forget_bias: float = 1.0, initial_state=None,
+              compute_dtype=None):
+    """One unidirectional LSTM layer, in plain PyTorch (``cells.lstm_scan``
+    of the reference, :62-129, without ``reverse``): x ``[B, T, D]`` →
+    (outputs ``[B, T, P]``, zero past each length; final (c ``[B, H]``,
+    h ``[B, P]``)).  ``initial_state`` is an optional (c, h); matmul
+    operands are rounded to ``compute_dtype`` (x's dtype if None), sums and
+    the carried state stay float32.  Differentiable by autograd; the
+    oracle the stack and layer kernels are held to."""
+    batch, time_steps, _ = x.shape
+    num_units = params["bias"].shape[0] // 4
+    out_dim = params["proj"].shape[1] if "proj" in params else num_units
+    cdt = compute_dtype or x.dtype
+    peep = "w_i_diag" in params
+    gx = matmul_f32(x, params["wx"], cdt) + params["bias"]
+    valid, _ = step_masks(sequence_length, None, time_steps, x.device)
+    if initial_state is None:
+        c = x.new_zeros(batch, num_units, dtype=torch.float32)
+        h = x.new_zeros(batch, out_dim, dtype=torch.float32)
+    else:
+        c, h = (s.float() for s in initial_state)
+    outs = []
+    for t in range(time_steps):
+        gates = gx[:, t] + matmul_f32(h, params["wh"], cdt)
+        i, j, f, o = gates.split(num_units, dim=-1)
+        if peep:
+            i = i + params["w_i_diag"] * c
+            f = f + params["w_f_diag"] * c
+        c_new = (torch.sigmoid(f + forget_bias) * c
+                 + torch.sigmoid(i) * torch.tanh(j))
+        if peep:
+            o = o + params["w_o_diag"] * c_new
+        out = torch.sigmoid(o) * torch.tanh(c_new)
+        if "proj" in params:
+            out = matmul_f32(out, params["proj"], cdt)
+        m = valid[t][:, None]
+        c = m * c_new + (1.0 - m) * c
+        h = m * out + (1.0 - m) * h
+        outs.append(m * out)
+    return torch.stack(outs, dim=1), (c, h)
 
 
 def dropout(generator: torch.Generator, x: torch.Tensor,

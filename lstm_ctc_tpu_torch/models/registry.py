@@ -6,9 +6,13 @@ Counterpart of ``lstm_ctc_tpu/models/registry.py``:
     logits, encoder, reg_losses, new_state = apply_model(
         params, state, nnet_input, sequence_length, config, train=False)
 
-Only ``blstm`` is ported, with either head (dense or MoE), for evaluation
-and training.  ``generator`` (a ``torch.Generator`` on the input's device)
-stands in for the reference's ``dropout_rng``.
+The three ``nnet_type`` values of the reference: ``blstm``, ``lstm`` and
+``cudnnlstm``, for evaluation and training.  ``generator`` (a
+``torch.Generator`` on the input's device) stands in for the reference's
+``dropout_rng``.  ``state`` carries the batch-norm running moments of an
+``lstm`` with ``use_bn``; it is empty for the other models.  Packed rows
+(``reset_mask``) are refused for the unidirectional families, as the
+reference refuses them.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import blstm as _blstm
+from . import lstm as _lstm
 
 
 def _init_blstm(generator, config, device):
@@ -32,18 +37,41 @@ def _apply_blstm(params, state, nnet_input, sequence_length, config,
     return logits, encoder, reg, state
 
 
-def _not_ported(nnet_type):
-    def fail(*args, **kwargs):
+def _refuse_packed(reset_mask):
+    if reset_mask is not None:
         raise NotImplementedError(
-            "nnet_type %s is not ported to PyTorch yet (ROADMAP queue 1, "
-            "item 12: unidirectional families)" % nnet_type)
-    return fail, fail
+            "pack_factor (packed rows) is only supported for nnet_type "
+            "blstm")
+
+
+def _init_lstm(generator, config, device):
+    return _lstm.init_lstm(generator, config, device)
+
+
+def _apply_lstm(params, state, nnet_input, sequence_length, config,
+                reset_mask=None, train=False, generator=None):
+    _refuse_packed(reset_mask)
+    return _lstm.apply_lstm(params, state, nnet_input, sequence_length,
+                            config, train=train, generator=generator)
+
+
+def _init_cudnnlstm(generator, config, device):
+    return _lstm.init_cudnnlstm(generator, config, device), {}
+
+
+def _apply_cudnnlstm(params, state, nnet_input, sequence_length, config,
+                     reset_mask=None, train=False, generator=None):
+    _refuse_packed(reset_mask)
+    logits, encoder, reg = _lstm.apply_cudnnlstm(
+        params, nnet_input, sequence_length, config, train=train,
+        generator=generator)
+    return logits, encoder, reg, state
 
 
 _REGISTRY = {
     "blstm": (_init_blstm, _apply_blstm),
-    "lstm": _not_ported("lstm"),
-    "cudnnlstm": _not_ported("cudnnlstm"),
+    "lstm": (_init_lstm, _apply_lstm),
+    "cudnnlstm": (_init_cudnnlstm, _apply_cudnnlstm),
 }
 
 

@@ -112,25 +112,26 @@ def _round_up(v: int, m: int) -> int:
 def _slices(wh, proj, cluster: int):
     """The weights as the kernel's cluster blocks own them: block q holds
     hidden units [q·US, (q+1)·US) of all four gates and projection columns
-    [q·PS, (q+1)·PS): wh ``[2, P, 4H]`` → ``[2, cluster, P16, 4, US]``,
-    proj ``[2, H, P]`` → ``[2, cluster, H16, PS]``, zero-padded.  US is a
-    multiple of 8, PS of 16, P16 and H16 are P and H rounded up to 16, as
-    in ``csrc/lstm_fwd.cu`` ``plan``."""
-    _, out_dim, h4 = wh.shape
+    [q·PS, (q+1)·PS): wh ``[n, P, 4H]`` → ``[n, cluster, P16, 4, US]``,
+    proj ``[n, H, P]`` → ``[n, cluster, H16, PS]``, zero-padded (n: the
+    directions of a layer, or the layers of a stack).  US is a multiple of
+    8, PS of 16, P16 and H16 are P and H rounded up to 16, as in
+    ``csrc/lstm_cluster.cuh`` ``plan``."""
+    n, out_dim, h4 = wh.shape
     units = h4 // 4
     us = _round_up(-(-units // cluster), 8)
     if 8 * us > 512:
         raise ValueError("the kernel takes at most %d units, got %d"
                          % (64 * cluster, units))
     p16, h16 = _round_up(out_dim, 16), _round_up(units, 16)
-    wh_sl = F.pad(wh.view(2, out_dim, 4, units),
+    wh_sl = F.pad(wh.reshape(n, out_dim, 4, units),
                   (0, cluster * us - units, 0, 0, 0, p16 - out_dim))
-    wh_sl = wh_sl.view(2, p16, 4, cluster, us).permute(0, 3, 1, 2, 4)
+    wh_sl = wh_sl.view(n, p16, 4, cluster, us).permute(0, 3, 1, 2, 4)
     if proj is None:
         return wh_sl.contiguous(), None
     ps = _round_up(-(-out_dim // cluster), 16)
     proj_sl = F.pad(proj, (0, cluster * ps - out_dim, 0, h16 - units))
-    proj_sl = proj_sl.view(2, h16, cluster, ps).permute(0, 2, 1, 3)
+    proj_sl = proj_sl.view(n, h16, cluster, ps).permute(0, 2, 1, 3)
     return wh_sl.contiguous(), proj_sl.contiguous()
 
 

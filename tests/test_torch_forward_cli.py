@@ -132,8 +132,9 @@ def test_cuda_without_gpu_raises(corpus):
                            "ark:/dev/null"])
 
 
-def test_streaming_is_not_ported(corpus):
-    with pytest.raises(NotImplementedError, match="streaming"):
+def test_streaming_rejects_blstm(corpus):
+    """Only causal models stream; the reference raises the same error."""
+    with pytest.raises(ValueError, match="causal model"):
         nnet_forward.main([corpus["scp"], corpus["config"], corpus["nnet"],
                            "ark:/dev/null", "--device", "cpu",
                            "--streaming", "true"])

@@ -114,10 +114,18 @@ def test_bf16_on_cpu_stays_close_to_f32():
 
 
 @pytest.mark.parametrize("nnet_type", ["lstm", "cudnnlstm"])
-def test_unported_families_raise(nnet_type):
-    config = dict(FLAGSHIP_SMALL, nnet_type=nnet_type)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        init_model(torch.Generator().manual_seed(0), config)
+def test_unidirectional_families_run(nnet_type):
+    """The unidirectional families build and run (their parity with JAX is
+    in tests/test_torch_lstm_family.py)."""
+    config = dict(FLAGSHIP_SMALL, nnet_type=nnet_type, num_experts=0)
+    params, state = init_model(torch.Generator().manual_seed(0), config)
+    x, seq_len, _ = batch(config)
+    logits, encoder, reg, new_state = apply_model(
+        params, state, torch.from_numpy(x), torch.from_numpy(seq_len),
+        config)
+    assert logits.shape == (3, 20, 7) and encoder is None and reg == []
+    assert bool(torch.isfinite(logits).all())
+    assert new_state == state
 
 
 def test_training_mode_raises():
