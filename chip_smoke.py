@@ -92,7 +92,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      lstm model's last cv_loss below its first, the median step and real
      frames/s, one float32 step with every launch held to its plain
      version, and a profiled lstm train step;
- 15. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
+ 15. K3 (the BLSTM layer backward with the input side folded in) against
+     its plain version at phase 7's shapes with a 640-wide input (the
+     flagship's layers 1-3), with and without resets, float32 (TF32 off)
+     and bfloat16 (each step replayed from the kernel's own carries, and
+     dx, dwx and dbias against the plain input side over the kernel's own
+     dgates); timed in turns;
+ 16. K7 (the MoE head's whole backward in one kernel) against its plain
+     version at phase 9's shapes, float32 and bfloat16, keep 1.0 and 0.9,
+     fed K5's stash; timed in turns, beside the default (K6 + one torch
+     product) and the twokernel (K8 + K9) backwards;
+ 17. the opt-in folds end to end: two train steps of the flagship MoE model
+     from phase 10's weights with lstm_fold_dx = true and moe_wgrad_mode =
+     kernel in nnet.config, through nnet_train, bf16: finite losses and the
+     launch counts (per step 4 K1, 1 K2, 3 K3, 1 K5, 1 K7, 1 K10, 1 K11, no
+     K6, K8 or K9); one float32 step with every K3 and K7 launch held to its
+     plain version on its own tensors, and the step against the same step
+     with both folds off; a profiled bf16 step of each backward variant;
+     and the A/B tool (python -m lstm_ctc_tpu_torch.scripts.ab_train_step)
+     on default, fold, k7 and twokernel at B=32, T=384;
+ 18. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
      and as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
@@ -126,7 +145,15 @@ LSTM against K12 in float32: <= 1e-4.  Streaming against offline
 log-posteriors (the same kernel runs both, row by row): max|diff| /
 max|offline| <= 1e-4 in float32 and <= 1e-3 in bfloat16.  The families' float32
 train step: each launch <= 1e-4 on its own tensors, the loss within 1e-4
-relative.
+relative.  K3, float32: max|diff| / max|plain| <= 1e-4 per output;
+bfloat16: K2's per-step rules, dx within one bf16 rounding step of the
+plain input side over the kernel's own dgates, plus 2^-20 of the sum of
+its terms' magnitudes (two orders of one f32 sum differ by that much near
+a cancellation), dwx and dbias ratio <= 1e-3.
+K7: K6's rules for dx and dgate and K9's for dw and db (float32 ratio <=
+1e-4, bfloat16 <= 1e-2).  The float32 step with both folds against the same
+step without them: the loss within 1e-4 relative, the gradient under the
+nudge yardstick (in float32 the folds change only the order of sums).
 """
 
 from __future__ import annotations
@@ -151,6 +178,9 @@ BF16_LSTM_REL_TOL = 2e-2
 BF16_ABS_TOL = 5e-2
 BF16_STEP_REL_TOL = 1e-3
 BF16_MOE_REL_TOL = 1e-2
+# two orders of one float32 sum differ by up to a few ulps of the terms'
+# magnitude, which near a cancellation exceeds a rounding step of the sum
+SUM_ORDER_TOL = 2.0 ** -20  # 16 float32 ulps of sum |terms|
 E2E_F32_MEAN_TOL = 1e-3
 E2E_F32_MAX_TOL = 2e-2
 LOGSUMEXP_TOL = 1e-4
@@ -191,6 +221,14 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+START = time.perf_counter()
+
+
+def phase(msg: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    say("%s [at %.1f s]" % (msg, time.perf_counter() - START))
+
+
 def elapsed_ms(torch, fn) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -217,6 +255,13 @@ def time_in_turns(torch, kernel, plain, rounds: int, kernel_reps: int = 4):
             else:
                 plain_ms.append(elapsed_ms(torch, plain))
     return statistics.median(kernel_ms), statistics.median(plain_ms)
+
+
+def median_ms(torch, fn, reps: int) -> float:
+    """Median ms of ``fn`` on the CUDA events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(elapsed_ms(torch, fn) for _ in range(reps))
 
 
 def errors(got, ref):
@@ -347,6 +392,8 @@ def plain_versions(pkg):
              (lstm_kernels, "lstm_layer_forward", forward),
              (lstm_kernels, "lstm_layer_backward",
               cells.dual_recurrence_backward),
+             (lstm_kernels, "lstm_layer_backward_fold",
+              cells.dual_recurrence_backward_fold),
              (ctc_kernels, "ctc_alpha", ctc_kernels.alpha_reference),
              (ctc_kernels, "ctc_beta", ctc_kernels.beta_reference)] + [
         (moe_kernels, name, getattr(moe_kernels, ref)) for name, ref in (
@@ -354,7 +401,8 @@ def plain_versions(pkg):
             ("moe_mix_forward_stash", "moe_stash_reference"),
             ("moe_mix_backward", "moe_backward_reference"),
             ("moe_mix_backward_noemit", "moe_backward_noemit_reference"),
-            ("moe_mix_wgrad", "moe_wgrad_reference"))]
+            ("moe_mix_wgrad", "moe_wgrad_reference"),
+            ("moe_mix_backward_wgrad", "moe_backward_wgrad_reference"))]
     with contextlib.ExitStack() as stack:
         for module, name, fn in plain:
             stack.enter_context(mock.patch.object(module, name, fn))
@@ -697,9 +745,10 @@ def ratio(got, ref):
         float(ref.float().abs().max()), 1e-30)
 
 
-def lstm_bwd_case(torch, pkg, device, dtype, reset, rng):
+def lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=False):
     """K2's arguments at the flagship layer shape: a K1 forward with its
-    per-step states in the store dtype, and random output cotangents."""
+    per-step states in the store dtype, and random output cotangents; with
+    ``fold``, K3's: x2 (the 640-wide input and its reverse) and wx first."""
     cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
     batch, steps, dim, units = 32, 384, 640, 320
     gen = torch.Generator().manual_seed(13)
@@ -716,16 +765,18 @@ def lstm_bwd_case(torch, pkg, device, dtype, reset, rng):
         for b in range(batch):
             starts[b, rng.randint(1, lengths[b], 2)] = 1.0
         reset_mask = torch.from_numpy(starts).to(device)
-    gx, wh, proj, peep = cells.layer_inputs(
-        fw, bw, x, cells.reverse_sequence(x, seq), dtype)
+    x2 = torch.stack([x, cells.reverse_sequence(x, seq)])
+    wx, bias = cells.input_weights(fw, bw, dtype)
+    gx = cells.input_projection(x2, wx, bias)
+    wh, proj, peep = cells.recurrent_weights(fw, bw, dtype)
     _, keep = cells.step_masks(seq, reset_mask, steps, device)
     args = (gx, seq, keep, wh, proj, peep, 5.0)
     out, cfin, hfin, c_all, h_all = lstm_kernels.lstm_layer_forward(
         *args, states=True, store_dtype=dtype)
     dout = torch.from_numpy((0.1 * rng.randn(*out.shape)).astype(
         np.float32)).to(device)
-    return args + (c_all, h_all, dout, torch.zeros_like(cfin),
-                   torch.zeros_like(hfin))
+    return ((x2, wx) if fold else ()) + args + (
+        c_all, h_all, dout, torch.zeros_like(cfin), torch.zeros_like(hfin))
 
 
 def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
@@ -768,24 +819,97 @@ def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
                                                         store_dtype=dtype),
         lambda: cells.dual_recurrence_backward(*args, store_dtype=dtype),
         rounds=3, kernel_reps=2)
-    gx, c_all, dgates = args[0], args[7], got[0]
-    steps, b2, h4 = gx.shape
-    units, out_dim = h4 // 4, args[8].shape[2]
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (gx, c_all, args[8], args[9], dgates) + tuple(
-                     w for w in got[1:] + args[3:6] if w is not None))
-    flops = 2 * steps * b2 * out_dim * (2 * h4 + units) \
-        + 2 * steps * b2 * (out_dim * h4 + units * out_dim)
-    peak = BF16_FLOPS_PER_MS if dtype == torch.bfloat16 else F32_FLOPS_PER_MS
-    bound_ms = max(nbytes / HBM_BYTES_PER_MS, flops / peak)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_MS >= flops / peak \
-        else "operations"
+    bound_ms, bound_by = lstm_bwd_bound(torch, args, got, dtype)
     say("  K2 %-8s reset=%-5s kernel %.3f ms (%.1f us/step)  plain %.3f ms  "
-        "bound %.4f ms (%s: %.1f MB, %.1f GFLOP)"
-        % (name, reset, ms, 1e3 * ms / steps, plain_ms, bound_ms, bound_by,
-           nbytes / 1e6, flops / 1e9))
+        "bound %.4f ms (%s)" % (name, reset, ms, 1e3 * ms / args[0].shape[0],
+                                plain_ms, bound_ms, bound_by))
     return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def lstm_bwd_bound(torch, inputs, outputs, dtype, fold=False):
+    """(least ms, what sets it) of K2 (or, with ``fold``, K3) called on
+    ``inputs`` (K3: x2, wx, then K2's) and returning ``outputs``: each
+    tensor read or written once; the products this run's data needs, over
+    the live rows only (each sequence's length, in both directions; past
+    it a row's dgates are zero): the recurrence's (the gate recompute,
+    dout_blk and dh_prev), dwh and dproj, and K3's dwx and dx."""
+    gx, seq, wh = (inputs[2 * fold + i] for i in (0, 1, 3))
+    h4 = gx.shape[-1]
+    units, out_dim = h4 // 4, wh.shape[1]
+    rows = 2 * int(seq.sum())
+    flops = 2 * rows * out_dim * (2 * h4 + units) \
+        + 2 * rows * (out_dim * h4 + units * out_dim)
+    if fold:
+        flops += 2 * 2 * rows * h4 * inputs[0].shape[-1]
+    peak = BF16_FLOPS_PER_MS if dtype == torch.bfloat16 else F32_FLOPS_PER_MS
+    return bound(tensor_bytes(torch, inputs, outputs), flops, peak)
+
+
+def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
+    """Phase 15: K3 against its plain version under phase 7's rules, and
+    its input side against the plain one over the kernel's own dgates."""
+    cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
+    args = lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=True)
+    name = str(dtype).split(".")[-1]
+    names = ("dx", "dwx", "dbias", "dwh", "dproj", "dpeep")
+    got = lstm_kernels.lstm_layer_backward_fold(*args, store_dtype=dtype)
+    torch.cuda.synchronize()
+    for out, g in zip(names, got):
+        if not torch.isfinite(g.float()).all():
+            fail("K3 %s: non-finite %s" % (name, out))
+    if dtype == torch.float32:
+        ref = cells.dual_recurrence_backward_fold(*args, store_dtype=dtype)
+        rels = {out: ratio(g, r) for out, g, r in zip(names, got, ref)}
+        say("  K3 float32 reset=%-5s max|diff|/max|plain|: %s"
+            % (reset, ", ".join("%s %.2e" % kv for kv in rels.items())))
+        if max(rels.values()) > F32_REL_TOL:
+            fail("K3 f32 reset=%s: relative error %.3e > %.1e"
+                 % (reset, max(rels.values()), F32_REL_TOL))
+        worst_abs = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    else:
+        # each step from the kernel's own carries, as for K2, and the
+        # input side over the kernel's own dgates
+        full = lstm_kernels.lstm_layer_backward_fold(*args, store_dtype=dtype,
+                                                     steps=True)
+        dgates, dc_in, dh_in = full[6:]
+        dg, dc_out, dh_out = cells.replay_backward_steps(
+            *args[2:-2], dc_in, dh_in, store_dtype=dtype)
+        step_rel = max(ratio(dc_out[1:], dc_in[:-1]),
+                       ratio(dh_out[1:], dh_in[:-1]))
+        rounding = within_bf16_step(dgates, dg)
+        dx, dwx, dbias = cells.fold_input_side(args[0], args[1], dgates,
+                                               dtype)
+        terms = cells.fold_input_side(args[0], args[1].abs(), dgates.abs(),
+                                      torch.float32)[0]
+        dx_ok = bool(((full[0].float() - dx.float()).abs()
+                      <= 2.0 ** -7 * dx.float().abs()
+                      + SUM_ORDER_TOL * terms).all())
+        side_rel = max(ratio(full[1], dwx), ratio(full[2], dbias))
+        say("  K3 bfloat16 reset=%-5s per step: carries max rel %.3e (bound "
+            "%.0e); dgates within one bf16 rounding step: %s; over the "
+            "kernel's dgates: dx within one bf16 rounding step (and 16 f32 "
+            "ulps of its terms' sum): %s, dwx and dbias max rel %.3e (bound "
+            "%.0e)"
+            % (reset, step_rel, BF16_STEP_REL_TOL, rounding, dx_ok, side_rel,
+               BF16_STEP_REL_TOL))
+        if (step_rel > BF16_STEP_REL_TOL or not rounding or not dx_ok
+                or side_rel > BF16_STEP_REL_TOL):
+            fail("K3 bf16 per-step replay or input side outside its bounds")
+        worst_abs = float((full[0].float() - dx.float()).abs().max())
+    ms, plain_ms = time_in_turns(
+        torch, lambda: lstm_kernels.lstm_layer_backward_fold(
+            *args, store_dtype=dtype),
+        lambda: cells.dual_recurrence_backward_fold(*args, store_dtype=dtype),
+        rounds=3, kernel_reps=2)
+    k2_ms = median_ms(torch, lambda: lstm_kernels.lstm_layer_backward(
+        *args[2:], store_dtype=dtype), reps=4)
+    bound_ms, bound_by = lstm_bwd_bound(torch, args, got, dtype, fold=True)
+    say("  K3 %-8s reset=%-5s kernel %.3f ms (K2 alone on the same inputs "
+        "%.3f ms)  plain %.3f ms  bound %.4f ms (%s)"
+        % (name, reset, ms, k2_ms, plain_ms, bound_ms, bound_by))
+    return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "k2_ms": k2_ms}
 
 
 def write_labeled_corpus(pkg, work, rng, count=288):
@@ -830,7 +954,8 @@ class Tee:
 
 KERNEL_NAMES = ("lstm_fwd", "lstm_bwd", "ctc_alpha", "ctc_beta", "moe_fwd",
                 "moe_fwd_stash", "moe_bwd", "moe_bwd_noemit", "moe_wgrad",
-                "lstm_stack_fwd", "lstm_stack_bwd")
+                "lstm_stack_fwd", "lstm_stack_bwd", "lstm_bwd_fold",
+                "moe_bwd_wgrad")
 
 
 def counters(pkg):
@@ -841,13 +966,15 @@ def counters(pkg):
             "lstm_stack_bwd": sk.lstm_stack_backward,
             "lstm_fwd": lstm_kernels.lstm_layer_forward,
             "lstm_bwd": lstm_kernels.lstm_layer_backward,
+            "lstm_bwd_fold": lstm_kernels.lstm_layer_backward_fold,
             "ctc_alpha": ctc_kernels.ctc_alpha,
             "ctc_beta": ctc_kernels.ctc_beta,
             "moe_fwd": moe_kernels.moe_mix_forward,
             "moe_fwd_stash": moe_kernels.moe_mix_forward_stash,
             "moe_bwd": moe_kernels.moe_mix_backward,
             "moe_bwd_noemit": moe_kernels.moe_mix_backward_noemit,
-            "moe_wgrad": moe_kernels.moe_mix_wgrad}
+            "moe_wgrad": moe_kernels.moe_mix_wgrad,
+            "moe_bwd_wgrad": moe_kernels.moe_mix_backward_wgrad}
 
 
 def counts(**given):
@@ -963,6 +1090,79 @@ def step_stats(steps, train_batcher):
             "fill": frames / (len(steps) * 32 * train_batcher.row_time)}
 
 
+def fresh_weights(torch, base, nudge=None):
+    """A differentiable copy of the weights ``base``; with a generator
+    ``nudge``, each weight moved one unit in the last place, up or down at
+    random."""
+    from lstm_ctc_tpu_torch.train.checkpoint import tree_map
+
+    def copy(t):
+        t = t.detach().clone()
+        if nudge is not None:
+            up = torch.rand(t.shape, generator=nudge, device=t.device) < 0.5
+            t = torch.nextafter(t, torch.where(up, math.inf, -math.inf))
+        return t.requires_grad_()
+    return tree_map(copy, base)
+
+
+def step_grads(torch, base, batch, config, nudge=None, context=None):
+    """(loss, gradients) of one train step, the L2 term included, from a
+    copy of the weights ``base`` (nudged as ``fresh_weights`` does), run
+    under ``context``."""
+    from lstm_ctc_tpu_torch.train.graph import (compute_losses, l2_loss,
+                                                param_leaves)
+    params = fresh_weights(torch, base, nudge)
+    with context or contextlib.nullcontext():
+        metrics, _, _ = compute_losses(params, {}, batch, config, train=True)
+        total = metrics["loss"] + 1e-5 * l2_loss(params)
+        grads = torch.autograd.grad(total, param_leaves(params))
+    return float(total.detach()), grads
+
+
+def versus(base, step, ref):
+    """(loss rel, ||diff||/||ref||, [(leaf ratio, leaf)] worst first) of
+    one step's (loss, gradients) against ``ref``'s."""
+    from lstm_ctc_tpu_torch.train.checkpoint import leaves_with_path
+    (loss, grad), (loss_r, grad_r) = step, ref
+    grad_rel = math.sqrt(
+        sum(float(((a - b) ** 2).sum()) for a, b in zip(grad, grad_r))
+        / sum(float((b ** 2).sum()) for b in grad_r))
+    leaves = sorted(((ratio(a, b), key) for a, b, (key, _)
+                     in zip(grad, grad_r, leaves_with_path(base))),
+                    reverse=True)
+    return abs(loss - loss_r) / abs(loss_r), grad_rel, leaves
+
+
+def hold_to_nudge(base, what, step, ref_what, ref, nudged):
+    """Fail unless ``step`` is within 1e-4 of ``ref`` in the loss, and its
+    gradients within 10x of what ``nudged`` (``ref``'s step with every
+    weight moved one unit in the last place) gives, as a whole and in the
+    worst leaf."""
+    loss_rel, grad_rel, leaves = versus(base, step, ref)
+    n_loss, n_grad, n_leaves = versus(base, nudged, ref)
+    grad_bound = STEP_NUDGE_FACTOR * n_grad
+    leaf_bound = STEP_NUDGE_FACTOR * n_leaves[0][0]
+    say("  the %s with every weight moved one unit in the last place, vs "
+        "unmoved: loss rel %.3e; gradient ||diff||/||plain|| %.3e; worst "
+        "leaf %s max|diff|/max|plain| %.3e"
+        % (ref_what, n_loss, n_grad, n_leaves[0][1], n_leaves[0][0]))
+    say("  float32 train step, %s vs %s: loss %.6f vs %.6f (rel %.3e, bound "
+        "%.0e); gradient ||diff||/||plain|| %.3e (bound %.3e); worst leaf "
+        "%s %.3e (bound %.3e)"
+        % (what, ref_what, step[0], ref[0], loss_rel, STEP_LOSS_TOL,
+           grad_rel, grad_bound, leaves[0][1], leaves[0][0], leaf_bound))
+    say("  gradient leaves, largest max|diff|/max|plain| first: %s %s; "
+        "nudged %s %s"
+        % (what, ", ".join("%s %.2e" % (k, r) for r, k in leaves[:6]),
+           ref_what, ", ".join("%s %.2e" % (k, r) for r, k in n_leaves[:6])))
+    if (loss_rel > STEP_LOSS_TOL or grad_rel > grad_bound
+            or leaves[0][0] > leaf_bound):
+        fail("the float32 train step (%s) differs from the %s by more than "
+             "%.0fx a last-bit change of the weights does"
+             % (what, ref_what, STEP_NUDGE_FACTOR))
+    return loss_rel, grad_rel
+
+
 def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
     """On one packed batch of the training stream, from the trained weights
     in ``nnet``: the float32 step against the plain versions (each launch
@@ -971,11 +1171,8 @@ def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
     profiled bfloat16 step."""
     from lstm_ctc_tpu_torch.cli import init_from_config, make_shard_fn
     from lstm_ctc_tpu_torch.host.data import iterate_batches
-    from lstm_ctc_tpu_torch.train.checkpoint import (leaves_with_path,
-                                                     load_checkpoint,
-                                                     tree_map)
-    from lstm_ctc_tpu_torch.train.graph import (compute_losses, l2_loss,
-                                                make_train_step, param_leaves)
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
+    from lstm_ctc_tpu_torch.train.graph import make_train_step
     moe = bool(config.get("num_experts"))
     batch = make_shard_fn(device)(next(iter(iterate_batches(
         train_batcher, shuffle=True, seed=777))))
@@ -983,81 +1180,30 @@ def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
     template, state = init_from_config(config, device)
     base, _, _ = load_checkpoint(nnet, template, state)
 
-    def fresh(nudge=None):
-        """A differentiable copy of the trained weights; with a generator
-        ``nudge``, each weight moved one unit in the last place, up or
-        down at random."""
-        def copy(t):
-            t = t.detach().clone()
-            if nudge is not None:
-                up = torch.rand(t.shape, generator=nudge,
-                                device=t.device) < 0.5
-                t = torch.nextafter(t, torch.where(up, math.inf, -math.inf))
-            return t.requires_grad_()
-        return tree_map(copy, base)
-
     # float32: one step's loss and gradients, kernels vs plain
     f32 = dict(train_config, compute_dtype="float32", store_dtype="float32",
                dropout_rate=1.0)
 
     def grads(plain, nudge=None):
-        params = fresh(nudge)
-        with (plain_versions(pkg) if plain else contextlib.nullcontext()):
-            metrics_, _, _ = compute_losses(params, {}, batch, f32,
-                                            train=True)
-            total = metrics_["loss"] + 1e-5 * l2_loss(params)
-            g = torch.autograd.grad(total, param_leaves(params))
-        return float(total.detach()), g
+        return step_grads(torch, base, batch, f32, nudge,
+                          plain_versions(pkg) if plain else None)
 
     held = ("lstm_fwd", "lstm_bwd") + (("moe_fwd_stash", "moe_bwd")
                                        if moe else ())
     worst32 = {k: 0.0 for k in held}
     with held_f32(torch, pkg, worst32):
-        loss_k, grad_k = grads(False)
+        kernels = grads(False)
     say("  float32 train step, each launch vs its plain version on the same "
         "tensors, max rel: %s (bound %.0e)"
         % (", ".join("%s %.3e" % kv for kv in worst32.items()), F32_REL_TOL))
     if max(worst32.values()) > F32_REL_TOL:
         fail("a float32 launch of the train step differs from its plain "
              "version")
-    loss_p, grad_p = grads(True)
-
-    def versus_plain(loss, grad):
-        """(loss rel, ||diff||/||plain||, [(leaf ratio, leaf)] worst
-        first) of one step's loss and gradients against the plain
-        versions'."""
-        grad_rel = math.sqrt(
-            sum(float(((a - b) ** 2).sum()) for a, b in zip(grad, grad_p))
-            / sum(float((b ** 2).sum()) for b in grad_p))
-        leaves = sorted(((ratio(a, b), key) for a, b, (key, _)
-                         in zip(grad, grad_p, leaves_with_path(base))),
-                        reverse=True)
-        return abs(loss - loss_p) / abs(loss_p), grad_rel, leaves
-
-    loss_rel, grad_rel, leaves = versus_plain(loss_k, grad_k)
     # what the plain versions themselves make of a last-bit change of
-    # every weight: the yardstick for the differences above
-    nudged = versus_plain(*grads(True, torch.Generator(device).manual_seed(3)))
-    grad_bound = STEP_NUDGE_FACTOR * nudged[1]
-    leaf_bound = STEP_NUDGE_FACTOR * nudged[2][0][0]
-    say("  the plain versions with every weight moved one unit in the "
-        "last place, vs unmoved: loss rel %.3e; gradient ||diff||/"
-        "||plain|| %.3e; worst leaf %s max|diff|/max|plain| %.3e"
-        % (nudged[0], nudged[1], nudged[2][0][1], nudged[2][0][0]))
-    say("  float32 train step, kernels vs plain versions: loss %.6f vs "
-        "%.6f (rel %.3e, bound %.0e); gradient ||diff||/||plain|| %.3e "
-        "(bound %.3e); worst leaf %s %.3e (bound %.3e)"
-        % (loss_k, loss_p, loss_rel, STEP_LOSS_TOL, grad_rel, grad_bound,
-           leaves[0][1], leaves[0][0], leaf_bound))
-    say("  gradient leaves, largest max|diff|/max|plain| first: kernels "
-        "%s; nudged plain %s"
-        % tuple(", ".join("%s %.2e" % (k, r) for r, k in rels[:6])
-                for rels in (leaves, nudged[2])))
-    if (loss_rel > STEP_LOSS_TOL or grad_rel > grad_bound
-            or leaves[0][0] > leaf_bound):
-        fail("the float32 train step differs from the plain versions "
-             "by more than %.0fx a last-bit change of the weights does"
-             % STEP_NUDGE_FACTOR)
+    # every weight: the yardstick for the differences of the kernels
+    hold_to_nudge(base, "kernels", kernels, "plain versions",
+                  grads(True), grads(True, torch.Generator(device)
+                                     .manual_seed(3)))
 
     # bfloat16: one step, every launch held to its plain version on the
     # tensors the model gave it
@@ -1065,7 +1211,7 @@ def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
         ("moe_fwd_stash", "moe_bwd") if moe else ())
     worst = {k: 0.0 for k in held}
     init_opt, step = make_train_step(train_config, 1e-3, "adam")
-    params = fresh()
+    params = fresh_weights(torch, base)
     with held_in_training(torch, pkg, worst):
         step(params, init_opt(params), {},
              torch.Generator(device).manual_seed(1), batch)
@@ -1082,13 +1228,15 @@ def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
             % (worst["moe_fwd_stash"], BF16_ABS_TOL, worst["moe_bwd"],
                BF16_MOE_REL_TOL))
 
-    profile_step(torch, init_opt, step, fresh(), batch, device, step_ms)
+    profile_step(torch, init_opt, step, fresh_weights(torch, base), batch,
+                 device, step_ms)
 
 
 @contextlib.contextmanager
 def held_f32(torch, pkg, worst):
-    """Run each K1, K2, K5 and K6 launch, then its plain version on the
-    same tensors; ``worst`` collects the largest ratio per kernel."""
+    """Run each K1, K2, K3, K5, K6, K7, K12 and K13 launch, then its plain
+    version on the same tensors; ``worst`` collects the largest ratio per
+    kernel."""
     cells, lstm_kernels, moe_kernels = (pkg["cells"], pkg["lstm_kernels"],
                                         pkg["moe_kernels"])
     k1, k2 = lstm_kernels.lstm_layer_forward, lstm_kernels.lstm_layer_backward
@@ -1117,6 +1265,18 @@ def held_f32(torch, pkg, worst):
         return note("moe_bwd", k6(*args),
                     moe_kernels.moe_backward_reference(*args))
 
+    k3, k7 = (lstm_kernels.lstm_layer_backward_fold,
+              moe_kernels.moe_mix_backward_wgrad)
+
+    def backward_fold(*args, store_dtype=None):
+        return note("lstm_bwd_fold", k3(*args, store_dtype=store_dtype),
+                    cells.dual_recurrence_backward_fold(
+                        *args, store_dtype=store_dtype))
+
+    def mix_backward_wgrad(*args):
+        return note("moe_bwd_wgrad", k7(*args),
+                    moe_kernels.moe_backward_wgrad_reference(*args))
+
     sk = pkg["lstm_stack_kernels"]
     k12, k13 = sk.lstm_stack_forward, sk.lstm_stack_backward
 
@@ -1135,6 +1295,8 @@ def held_f32(torch, pkg, worst):
                  (lstm_kernels, "lstm_layer_backward", backward),
                  (moe_kernels, "moe_mix_forward_stash", stash),
                  (moe_kernels, "moe_mix_backward", mix_backward),
+                 (lstm_kernels, "lstm_layer_backward_fold", backward_fold),
+                 (moe_kernels, "moe_mix_backward_wgrad", mix_backward_wgrad),
                  (sk, "lstm_stack_forward", stack_forward),
                  (sk, "lstm_stack_backward", stack_backward))
     with contextlib.ExitStack() as stack:
@@ -1406,6 +1568,61 @@ def check_moe_training(torch, pkg, device, rng):
     return result
 
 
+def check_moe_single_kernel(torch, pkg, device, rng):
+    """Phase 16: K7 against its plain version at the training shape, fed
+    K5's stash, then timed in turns with it (keep 0.9, as training runs;
+    phase 9 times the default and twokernel backwards at the same
+    shape)."""
+    mk = pkg["moe_kernels"]
+    x, w32, b, gate, gout, seed = moe_train_case(torch, pkg, device, rng)
+    n, dim = x.shape
+    experts, tau = 72, 10.0
+    ev = experts * 72
+    names = ("dx", "dgate", "dw", "db")
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        w = w32.to(dtype).contiguous()
+        tol = F32_REL_TOL if dtype == torch.float32 else BF16_MOE_REL_TOL
+        for keep in (1.0, 0.9):
+            args = (seed, experts, tau, keep)
+            _, th = mk.moe_mix_forward_stash(x, w, b, gate, *args)
+            kargs = (x, th, w, gate, gout) + args
+            got = mk.moe_mix_backward_wgrad(*kargs)
+            ref = mk.moe_backward_wgrad_reference(*kargs)
+            torch.cuda.synchronize()
+            for key, g in zip(names, got):
+                if not torch.isfinite(g).all():
+                    fail("K7 %s keep=%.1f: non-finite %s" % (name, keep, key))
+            rels = {key: ratio(g, r) for key, g, r in zip(names, got, ref)}
+            say("  K7 %-8s keep=%.1f max|diff|/max|plain|: %s (bound %.0e)"
+                % (name, keep, ", ".join("%s %.2e" % kv
+                                         for kv in rels.items()), tol))
+            if max(rels.values()) > tol:
+                fail("K7 %s keep=%.1f: relative error %.3e > %.0e"
+                     % (name, keep, max(rels.values()), tol))
+            if keep == 1.0:
+                continue
+            ms, plain_ms = time_in_turns(
+                torch, lambda: mk.moe_mix_backward_wgrad(*kargs),
+                lambda: mk.moe_backward_wgrad_reference(*kargs), rounds=3,
+                kernel_reps=3)
+            nbytes = tensor_bytes(torch, kargs, got)
+            peak = BF16_FLOPS_PER_MS if dtype == torch.bfloat16 \
+                else F32_FLOPS_PER_MS
+            bound_ms, bound_by = bound(nbytes, 2 * 2 * n * dim * ev, peak)
+            say("  moe_bwd_wgrad  %-8s kernel %.3f ms  plain %.3f ms  bound "
+                "%.4f ms (%s: %.1f MB, %.1f GFLOP)"
+                % (name, ms, plain_ms, bound_ms, bound_by, nbytes / 1e6,
+                   4 * n * dim * ev / 1e9))
+            result[dtype] = {
+                "max_abs_err": max(float((g - r).abs().max())
+                                   for g, r in zip(got, ref)),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+    return result
+
+
 def train_moe_end_to_end(torch, pkg, device, work, scp):
     """The treatment model trains through nnet_train_loop; then two steps
     of the twokernel path, and phase 8's step checks on the MoE model."""
@@ -1502,6 +1719,149 @@ def train_moe_end_to_end(torch, pkg, device, work, scp):
 
     check_steps(torch, pkg, device, config, os.path.join(exp, "nnet.2"),
                 train_batcher, result["step_ms"])
+    return result
+
+
+# --- phases 15-17: the opt-in folds, K3 and K7 ---
+
+# the A/B's variants (python -m lstm_ctc_tpu_torch.scripts.ab_train_step)
+AB_VARIANTS = ("default=", "fold=lstm_fold_dx=true",
+               "k7=moe_wgrad_mode=kernel", "twokernel=moe_wgrad_mode=twokernel")
+AB_STEPS = 30
+
+
+def fold_subset(work, scp, config, steps=2):
+    """An scp of the first utterances of ``scp`` that nnet_train packs
+    (pack factor 3, batch 32, its shuffle seed 777) into ``steps`` steps;
+    returns (its path, its batcher)."""
+    from lstm_ctc_tpu_torch.cli import build_batcher
+    from lstm_ctc_tpu_torch.host.data import scan_scp
+    metas = scan_scp(scp)
+    path = os.path.join(work, "folds.scp")
+    for count in range(32, len(metas) + 1, 4):
+        with open(path, "w") as fh:
+            for meta in metas[:count]:
+                fh.write(meta.scp_line())
+        batcher = build_batcher(path, config, 32, pack_factor=3)
+        if len(batcher.batch_plan(True, 777)) >= steps:
+            return path, batcher
+    fail("the corpus is too small for %d packed train steps" % steps)
+
+
+def train_folds_end_to_end(torch, pkg, device, work, scp):
+    """Phase 17: the flagship MoE model trains two steps with both folds
+    through nnet_train (launch counts, finite loss and weights); a float32
+    step with both folds against the step without them; a profiled bf16
+    step of each A/B variant; and the A/B tool."""
+    from lstm_ctc_tpu_torch.bin import nnet_train
+    from lstm_ctc_tpu_torch.cli import (build_batcher, init_from_config,
+                                        make_shard_fn)
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.host.data import iterate_batches
+    from lstm_ctc_tpu_torch.scripts import ab_train_step as ab
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint, tree_map
+    from lstm_ctc_tpu_torch.train.graph import make_train_step, param_leaves
+    config = dict(FLAGSHIP_CONFIG, lstm_fold_dx=True, moe_wgrad_mode="kernel")
+    config_path = os.path.join(work, "nnet_folds.config")
+    with open(config_path, "w") as fh:
+        fh.write(format_config(config))
+    sub_scp, batcher = fold_subset(work, scp, config)
+    steps = len(batcher.batch_plan(True, 777))
+    nnet_out = os.path.join(work, "nnet_folds.npz")
+    _, tee, got, seconds = run_counted(torch, pkg, lambda: nnet_train.main(
+        [sub_scp, config_path, os.path.join(work, "exp_moe", "nnet.2"),
+         nnet_out, "--optimizer", "adam", "--learn-rate", "1e-3",
+         "--pack-factor", "3", "--objective", "ctc", "--batch-size", "32",
+         "--device", "cuda", "--report-interval", "0"]))
+    expect_counts("nnet_train with both folds", got, counts(
+        lstm_fwd=4 * steps, lstm_bwd=steps, lstm_bwd_fold=3 * steps,
+        moe_fwd_stash=steps, moe_bwd_wgrad=steps, ctc_alpha=steps,
+        ctc_beta=steps))
+    tr_loss = tee.value("tr_loss")
+    template, state = init_from_config(config, device)
+    base, _, _ = load_checkpoint(nnet_out, template, state)
+    if not math.isfinite(tr_loss) or not all(
+            torch.isfinite(p).all() for p in param_leaves(base)):
+        fail("the train steps with both folds gave a non-finite loss or "
+             "weights")
+    say("  nnet_train, lstm_fold_dx = true and moe_wgrad_mode = kernel: %d "
+        "steps (%d utterances, pack factor 3) in %.1f s; tr_loss %.4f; "
+        "launches %s" % (steps, len(batcher._lengths), seconds, tr_loss, got))
+
+    # float32: the step with both folds (each K3 and K7 launch held to its
+    # plain version) against the same step with both folds off; in float32
+    # the folds change only the order of sums
+    batch = make_shard_fn(device)(next(iter(iterate_batches(
+        build_batcher(scp, config, 32, pack_factor=3), shuffle=True,
+        seed=777))))
+    f32 = dict(config, packed_slots_rank_major=True, compute_dtype="float32",
+               store_dtype="float32", dropout_rate=1.0)
+    off = dict(f32, lstm_fold_dx=False, moe_wgrad_mode="xla")
+    worst = {k: 0.0 for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_fold",
+                              "moe_fwd_stash", "moe_bwd_wgrad")}
+    with held_f32(torch, pkg, worst):
+        folded = step_grads(torch, base, batch, f32)
+    say("  float32 step with both folds, each launch vs its plain version on "
+        "the same tensors, max rel: %s (bound %.0e)"
+        % (", ".join("%s %.3e" % kv for kv in worst.items()), F32_REL_TOL))
+    if max(worst.values()) > F32_REL_TOL:
+        fail("a float32 K3 or K7 launch differs from its plain version")
+    loss_rel, grad_rel = hold_to_nudge(
+        base, "both folds", folded, "folds off",
+        step_grads(torch, base, batch, off),
+        step_grads(torch, base, batch, off,
+                   torch.Generator(device).manual_seed(3)))
+    result = {"launches": got, "steps": steps, "tr_loss": tr_loss,
+              "loss_rel": loss_rel, "grad_rel": grad_rel, "device_ms": {}}
+
+    # one profiled bf16 step of each A/B variant, on the A/B's batch, in
+    # this process: the profiler's first use in a process is slow, and each
+    # of the A/B tool's subprocesses would pay it again
+    ab_batch = make_shard_fn(device)(ab.example_batch(ab.FLAGSHIP_CONFIG, 32,
+                                                      384))
+    for spec in AB_VARIANTS:
+        name, overrides = ab.parse_variant(spec)
+        cfg = dict(ab.FLAGSHIP_CONFIG, dropout_rate=1.0, **overrides)
+        params, net_state = init_from_config(cfg, device)
+        params = tree_map(lambda t: t.requires_grad_(), params)
+        init_opt, step = make_train_step(cfg, 1e-3, "adam")
+        opt_state = init_opt(params)
+        gen = torch.Generator(device).manual_seed(1)
+        busy, rows = device_ms(torch, lambda: step(params, opt_state,
+                                                   net_state, gen, ab_batch))
+        result["device_ms"][name] = busy
+        say("  profiled bf16 train step (B=32, T=384, keep 1.0), %s: device "
+            "kernels %.3f ms; longest: %s"
+            % (name, busy, "; ".join("%.3f ms %d x %s" % (ms, n, key[:50])
+                                     for ms, n, key in rows[:5])))
+
+    # the A/B tool, one subprocess a variant
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "lstm_ctc_tpu_torch.scripts.ab_train_step"]
+    cmd += list(AB_VARIANTS) + ["--batch", "32", "--time-steps", "384",
+                                "--steps", str(AB_STEPS), "--repeats", "1",
+                                "--device", "cuda", "--timeout", "300"]
+    start = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, cwd=here,
+                         timeout=1000)
+    lines = [json.loads(ln) for ln in run.stdout.splitlines()
+             if ln.startswith("{")]
+    if run.returncode != 0 or not lines or any("error" in ln
+                                               for ln in lines):
+        fail("the A/B tool failed (%d): %s %s"
+             % (run.returncode, run.stdout[-1500:], run.stderr[-1500:]))
+    summary = lines[-1]["summary"]
+    names = [ab.parse_variant(spec)[0] for spec in AB_VARIANTS]
+    if sorted(summary) != sorted(names):
+        fail("the A/B tool reported %s, expected %s" % (sorted(summary),
+                                                          names))
+    result["ab"] = summary
+    say("  A/B tool (%d steps a variant, %.1f s): %s"
+        % (AB_STEPS, time.perf_counter() - start, "; ".join(
+            "%s %.1f frames/s (%.1f ms a step)%s"
+            % (n, summary[n]["best"], 32 * 384 / summary[n]["best"] * 1e3,
+               "" if n == names[0] else ", %+.2f%% vs %s"
+               % (summary[n]["vs_" + names[0]], names[0])) for n in names)))
     return result
 
 
@@ -2212,34 +2572,34 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    say("phase 1 device: %s (%d visible); nvidia-smi: %s"
+    phase("phase 1 device: %s (%d visible); nvidia-smi: %s"
         % (kind, torch.cuda.device_count(), smi))
     say("  torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
 
     info = _build.build()
     _build.library()
-    say("phase 2 build: %.1f s -> %s" % (info["seconds"], info["path"]))
+    phase("phase 2 build: %.1f s -> %s" % (info["seconds"], info["path"]))
     for line in info["log"].splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             say("  ptxas: " + line.strip())
 
     rng = np.random.RandomState(0)
-    say("phase 3 K1 (BLSTM layer forward)")
+    phase("phase 3 K1 (BLSTM layer forward)")
     lstm = {}
     for dtype in (torch.float32, torch.bfloat16):
         for reset in (False, True):
             lstm[(dtype, reset)] = check_lstm(torch, pkg, device, dtype, reset, rng)
-    say("phase 4 K4 (MoE expert mix)")
+    phase("phase 4 K4 (MoE expert mix)")
     moe_res = {}
     for dtype in (torch.float32, torch.bfloat16):
         for keep_prob in (1.0, 0.9):
             moe_res[(dtype, keep_prob)] = check_moe(torch, pkg, device, dtype,
                                                     keep_prob, rng)
-    say("phase 5 serving end to end (nnet_forward, flagship model, cuda)")
+    phase("phase 5 serving end to end (nnet_forward, flagship model, cuda)")
     e2e = end_to_end(torch, pkg, device, rng)
-    say("phase 6 K10/K11 (CTC alpha and beta DP)")
+    phase("phase 6 K10/K11 (CTC alpha and beta DP)")
     dp = check_ctc_dp(torch, pkg, device, rng)
-    say("phase 7 K2 (BLSTM layer backward)")
+    phase("phase 7 K2 (BLSTM layer backward)")
     bwd = {}
     for dtype in (torch.float32, torch.bfloat16):
         for reset in (False, True):
@@ -2247,25 +2607,37 @@ def main() -> None:
                                                  reset, rng)
     with tempfile.TemporaryDirectory() as work:
         scp = write_labeled_corpus(pkg, work, rng)
-        say("phase 8 training end to end (nnet_init / nnet_train / "
+        phase("phase 8 training end to end (nnet_init / nnet_train / "
             "nnet_validate, flagship dense-head model, cuda)")
         train = train_end_to_end(torch, pkg, device, work, scp)
-        say("phase 9 K5/K6/K8/K9 (MoE head training kernels)")
+        phase("phase 9 K5/K6/K8/K9 (MoE head training kernels)")
         moe_train = check_moe_training(torch, pkg, device, rng)
-        say("phase 10 MoE training end to end (nnet_train_loop, flagship "
+        phase("phase 10 MoE training end to end (nnet_train_loop, flagship "
             "MoE model, cuda)")
         moe_loop = train_moe_end_to_end(torch, pkg, device, work, scp)
-        say("phase 11 K12 (unidirectional stack forward)")
+        phase("phase 11 K12 (unidirectional stack forward)")
         k12 = check_stack_fwd(torch, pkg, device, rng)
         library = cudnn_yardstick(torch, pkg, device, rng)
-        say("phase 12 K13 (unidirectional stack backward)")
+        phase("phase 12 K13 (unidirectional stack backward)")
         k13 = check_stack_bwd(torch, pkg, device, rng)
-        say("phase 13 serving the unidirectional families (nnet_forward, "
+        phase("phase 13 serving the unidirectional families (nnet_forward, "
             "offline and --streaming, cuda)")
         serve = serve_families(torch, pkg, device, rng)
-        say("phase 14 training the unidirectional families (nnet_init / "
+        phase("phase 14 training the unidirectional families (nnet_init / "
             "nnet_train / nnet_validate, lstm, cudnnlstm, lstm_bn, cuda)")
         families = train_families(torch, pkg, device, work, scp)
+        phase("phase 15 K3 (BLSTM layer backward, input side folded in)")
+        fold = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for reset in (False, True):
+                fold[(dtype, reset)] = check_lstm_bwd_fold(
+                    torch, pkg, device, dtype, reset, rng)
+        phase("phase 16 K7 (MoE head backward in one kernel)")
+        k7 = check_moe_single_kernel(torch, pkg, device, rng)
+        phase("phase 17 the opt-in folds end to end (nnet_train, flagship MoE "
+            "model, lstm_fold_dx and moe_wgrad_mode = kernel, cuda; the A/B "
+            "tool)")
+        folds = train_folds_end_to_end(torch, pkg, device, work, scp)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -2273,7 +2645,7 @@ def main() -> None:
              % bad[:5])
 
     launches = dict(train["launches"])
-    for run in (e2e, moe_loop, serve, families):
+    for run in (e2e, moe_loop, serve, families, folds):
         for k, v in run["launches"].items():
             launches[k] += v
     for name in KERNEL_NAMES:
@@ -2346,6 +2718,20 @@ def main() -> None:
              "replaces": "lstm_ctc_tpu/ops/lstm_stack_pallas.py:%d" % line,
              "launches": launches[name], "library_ms": lib},
             **res[("lstm", torch.bfloat16)]))
+    # K3: bf16 with resets at the flagship's layers 1-3; K7: bf16 at keep
+    # 0.9, the training shape N=14336
+    for name, source, replaces, res in (
+            ("lstm_bwd_fold", "lstm_bwd_fold.cu", "lstm_pallas.py:544",
+             fold[(torch.bfloat16, True)]),
+            ("moe_bwd_wgrad", "moe_bwd_wgrad.cu", "moe_pallas.py:311",
+             k7[torch.bfloat16])):
+        kernels.append(dict(
+            {"name": name, "route": "cuda",
+             "source": "lstm_ctc_tpu_torch/csrc/" + source,
+             "replaces": "lstm_ctc_tpu/ops/" + replaces,
+             "launches": launches[name], "library_ms": None},
+            **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}))
     two_ms, default_ms = moe_train[("twokernel", torch.bfloat16)]
     say("summary on %s: nnet_forward %.1f frames/s (64 utterances, model "
         "init and checkpoint load included); flagship forward B=32 T=384 "
@@ -2373,12 +2759,28 @@ def main() -> None:
            families["lstm"]["step_ms"], families["lstm"]["fps"],
            families["cudnnlstm"]["step_ms"], families["cudnnlstm"]["fps"],
            families["lstm_bn"]["step_ms"], families["lstm_bn"]["fps"]))
+    k3 = fold[(torch.bfloat16, True)]
+    say("summary of the opt-in folds on %s: K3 bf16 %.3f ms a layer (K2 "
+        "alone on the same inputs %.3f ms); K7 bf16 %.3f ms (default "
+        "backward %.3f ms, twokernel %.3f ms); float32 step with both folds "
+        "vs without: loss rel %.3e, gradient ||diff||/||plain|| %.3e; "
+        "profiled bf16 train step (B=32, T=384, keep 1.0), device ms: %s; "
+        "A/B frames/s: %s"
+        % (smi, k3["ms"], k3["k2_ms"], k7[torch.bfloat16]["ms"],
+           default_ms, two_ms, folds["loss_rel"],
+           folds["grad_rel"], ", ".join(
+               "%s %.3f" % kv for kv in folds["device_ms"].items()),
+           ", ".join("%s %.1f" % (n, v["best"])
+                     for n, v in folds["ab"].items())))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
         e2e["fps_warm"], train["step_ms"], moe_loop["step_ms"], two_ms,
         default_ms, library["forward"], library["both"], serve["chunk_ms"]] \
-        + [families[f]["step_ms"] for f in ("lstm", "cudnnlstm", "lstm_bn")]
+        + [families[f]["step_ms"] for f in ("lstm", "cudnnlstm", "lstm_bn")] \
+        + [k3["k2_ms"]] \
+        + list(folds["device_ms"].values()) \
+        + [v["best"] for v in folds["ab"].values()]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

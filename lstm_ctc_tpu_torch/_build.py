@@ -46,6 +46,11 @@ SIGNATURES = {
                     + [_P] * 11,
     "lstm_bwd_bf16": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
                      + [_P] * 11,
+    # K2's arguments (dgates: scratch), then x, wxT, D, dx, dwx, dbias
+    "lstm_bwd_fold_f32": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
+                         + [_P] * 11 + [_P, _P, _I, _P, _P, _P],
+    "lstm_bwd_fold_bf16": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
+                          + [_P] * 11 + [_P, _P, _I, _P, _P, _P],
     # device, lp_ext, time_mask, valid, can_skip, alpha0, T, N, S, out,
     # stream
     "ctc_alpha": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
@@ -86,6 +91,10 @@ SIGNATURES = {
     # stream
     "moe_wgrad_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
     "moe_wgrad_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
+    # device, x, th, w, gate, gout, seed, N, D, E, V, tau, keep_prob, dx,
+    # dgate, dw, db, scratch, stream
+    "moe_bwd_wgrad_f32": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F] + [_P] * 6,
+    "moe_bwd_wgrad_bf16": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F] + [_P] * 6,
 }
 
 
@@ -159,8 +168,12 @@ def library() -> ctypes.CDLL:
     lib.lstm_fwd_cluster_size.restype = ctypes.c_int
     lib.lstm_bwd_scratch_floats.argtypes = [_I, _I, _I, _I]
     lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 7
+    lib.lstm_bwd_fold_scratch_floats.restype = ctypes.c_longlong
     lib.lstm_stack_bwd_scratch_floats.argtypes = [_I] * 5
     lib.lstm_stack_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.moe_bwd_wgrad_scratch_floats.argtypes = [_I] * 4
+    lib.moe_bwd_wgrad_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 

@@ -1,6 +1,7 @@
 // Shared helpers for the port's kernels: compute-dtype conversions, the
-// bf16 tensor-core primitives (ldmatrix, mma.sync m16n8k16) as PTX, and the
-// counter-based dropout hash.
+// bf16 tensor-core primitives (ldmatrix, mma.sync m16n8k16) as PTX, the
+// counter-based dropout hash, and the fixed-order pass that adds the
+// partial sums of split products.
 //
 // Every matrix product in the kernels rounds its operands to the compute
 // dtype (float32 or bfloat16) and sums the products in float32, as the
@@ -83,3 +84,23 @@ __device__ __forceinline__ float drop_factor(uint32_t row, uint32_t col,
                                              float inv_keep) {
   return hash_uniform(row, col, seed) < keep_prob ? inv_keep : 0.0f;
 }
+
+namespace {
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// out[i] = Σ over splits of partial[split][i], in split order: the second
+// pass of the kernels whose blocks write partial sums (no atomics, so the
+// result does not depend on the schedule)
+__global__ void split_sum_kernel(const float* __restrict__ partial,
+                                 int splits, size_t count,
+                                 float* __restrict__ out) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.0f;
+    for (int s = 0; s < splits; ++s) v += partial[s * count + i];
+    out[i] = v;
+  }
+}
+
+}  // namespace

@@ -14,7 +14,8 @@
 // and the keep channel zeroes (dc_prev, dh_prev) at segment starts.  Past
 // the length m = 0 and dc, dh pass through unchanged.  dgates is emitted
 // in the store dtype; dx, dwx and dbias are products over it outside the
-// kernel, as XLA does them outside the TPU kernel.
+// kernel, as XLA does them outside the TPU kernel (K3, lstm_bwd_fold.cu,
+// runs this launch and then computes them itself).
 //
 // The weight gradients (:331-371) are this file's own kernels too, over
 // per-step stashes the recurrence writes (c_new, the pre-projection output
@@ -43,6 +44,7 @@
 #include <type_traits>
 
 #include "lstm_bwd_common.cuh"
+#include "lstm_bwd_entry.cuh"
 
 namespace {
 
@@ -333,15 +335,7 @@ int launch(int device, const Args& a) {
 
 }  // namespace
 
-#define LSTM_BWD_ARGS                                                          \
-  int device, const void *gx, const void *lengths, const void *keep,          \
-      const void *c_all, const void *h_all, const void *wh, const void *wht,  \
-      const void *projt, const void *peep, float forget_bias,                 \
-      const void *dout, const void *dcfin, const void *dhfin, int steps,      \
-      int batch, int units, int out_dim, int store_bf16, void *dgates,        \
-      void *cnew_st, void *outb_st, void *doutp_st, void *dc_in, void *dh_in, \
-      void *dwh, void *dproj, void *dpeep, void *scratch, void *stream
-#define LSTM_BWD_PACK                                                          \
+#define LSTM_BWD_PACK                                                         \
   Args{gx, lengths, keep, c_all, h_all, wh, wht, projt, peep, forget_bias,    \
        dout, dcfin, dhfin, steps, batch, units, out_dim, dgates, cnew_st,     \
        outb_st, doutp_st, dc_in, dh_in, dwh, dproj, dpeep, scratch,           \

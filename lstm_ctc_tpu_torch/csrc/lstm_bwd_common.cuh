@@ -18,8 +18,6 @@ constexpr int kTile = 128;      // wgrad output tile
 constexpr int kDepth = 16;      // wgrad k-chunk
 constexpr int kPeepRows = 256;  // rows of one peephole partial sum
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 __device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 template <typename T>
@@ -96,18 +94,6 @@ __device__ __forceinline__ float part_sum(const float* part, int slices,
   float v = 0.0f;
   for (int s = 0; s < slices; ++s) v += part[((size_t)s * kRows + r) * cols + c];
   return v;
-}
-
-// out[i] = Σ over splits of partial[split][i], in split order
-__global__ void split_sum_kernel(const float* __restrict__ partial,
-                                 int splits, size_t count,
-                                 float* __restrict__ out) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.0f;
-    for (int s = 0; s < splits; ++s) v += partial[s * count + i];
-    out[i] = v;
-  }
 }
 
 // What a weight-gradient product reads at row (s, b) of group g (a

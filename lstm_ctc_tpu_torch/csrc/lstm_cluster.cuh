@@ -24,7 +24,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlices = 16; // most k-slices one FMA product is split into
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int round_up(int v, int m) { return cdiv(v, m) * m; }
 __host__ __device__ constexpr size_t align128(size_t v) { return (v + 127) / 128 * 128; }
 

@@ -35,7 +35,7 @@
 // tile's th from L2.  dgate sums the 16 lanes of a row with shuffles in a
 // fixed order.  No atomics: the result does not depend on the schedule.
 
-#include "moe_common.cuh"
+#include "tile_product.cuh"
 
 namespace {
 

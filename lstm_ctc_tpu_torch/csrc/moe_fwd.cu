@@ -37,7 +37,7 @@
 // that its stash is written in whole rows.  No atomics, no cross-block
 // reduction.  A TMA/wgmma pipeline is later work.
 
-#include "moe_common.cuh"
+#include "tile_product.cuh"
 
 namespace {
 

@@ -29,7 +29,7 @@
 // is recomputed by every slice of an expert (D / NB times) from th, which
 // then comes from L2.
 
-#include "moe_common.cuh"
+#include "tile_product.cuh"
 
 namespace {
 

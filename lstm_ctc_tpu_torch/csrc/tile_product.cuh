@@ -1,6 +1,8 @@
-// Shared pieces of the MoE head's kernels (moe_fwd.cu, moe_bwd.cu,
-// moe_wgrad.cu): the shared-memory tile layout and the two tile products
-// (bf16 mma.sync, float32 FMA) over it.  The dropout hash is in common.cuh.
+// The tile products shared by the MoE head's kernels (moe_fwd.cu,
+// moe_bwd.cu, moe_wgrad.cu, moe_bwd_wgrad.cu) and K3's input-side products
+// (lstm_bwd_fold.cu): the shared-memory tile layout and the two tile
+// products (bf16 mma.sync, float32 FMA) over it.  The dropout hash is in
+// common.cuh.
 //
 // A tile product computes acc[M, N] += A[M, K] · B[K, N] with A held in
 // shared memory row-major ([M][ldx], K contiguous) and B row-major
@@ -111,6 +113,27 @@ struct MmaAcc {
       }
     }
   }
+
+  // zs += acc, each element by the thread that holds it (store's places)
+  __device__ void accumulate(float* zs, const Layout& l) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+    const int tm = warp % 4, tn0 = warp / 4;
+    float* row = zs + (tm * 16 + (lane >> 2)) * l.ldz + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      const int tn = tn0 + 2 * j;
+      if (tn < l.vp / 16) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* dst = row + tn * 16 + h * 8;
+          dst[0] += acc[j][h][0];
+          dst[1] += acc[j][h][1];
+          dst[8 * l.ldz] += acc[j][h][2];
+          dst[8 * l.ldz + 1] += acc[j][h][3];
+        }
+      }
+    }
+  }
 };
 
 // Tile product in float32 FMA (no TF32 rounding).  Thread (rg, cg) owns
@@ -152,6 +175,15 @@ struct FmaAcc {
 #pragma unroll
       for (int j = 0; j < kColsPer; ++j)
         if (j * 16 < l.vp) zs[(rg * kRowsPer + i) * l.ldz + cg + 16 * j] = acc[i][j];
+  }
+
+  __device__ void accumulate(float* zs, const Layout& l) const {
+    const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
+#pragma unroll
+    for (int i = 0; i < kRowsPer; ++i)
+#pragma unroll
+      for (int j = 0; j < kColsPer; ++j)
+        if (j * 16 < l.vp) zs[(rg * kRowsPer + i) * l.ldz + cg + 16 * j] += acc[i][j];
   }
 };
 

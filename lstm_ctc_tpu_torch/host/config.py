@@ -20,7 +20,8 @@ from typing import Dict, Union
 ConfigValue = Union[int, float, bool, str]
 
 
-def _coerce(text: str) -> ConfigValue:
+def coerce(text: str) -> ConfigValue:
+    """One value typed as nnet.config types it."""
     try:
         return int(text)
     except ValueError:
@@ -47,7 +48,7 @@ def parse_config(path: str) -> Dict[str, ConfigValue]:
             tokens = [t for t in line.split() if not t.startswith("#")]
             if not tokens:
                 continue
-            config[tokens[0]] = _coerce(tokens[-1])
+            config[tokens[0]] = coerce(tokens[-1])
     return config
 
 

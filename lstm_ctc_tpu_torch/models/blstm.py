@@ -14,9 +14,18 @@ Counterpart of ``lstm_ctc_tpu/models/blstm.py:40-257``:
     ``dropout_rate`` after every layer, each layer differentiable through
     the backward kernel (``lstm_kernels.bilstm_dual_scan_train``), and the
     MoE head's gate and expert dropout at the same keep probability, the
-    head differentiable through its backward kernels.  ``moe_wgrad_mode``
-    in nnet.config (``xla``, the default, or ``twokernel``) picks how the
-    head's weight gradient is computed (``moe_kernels.moe_mix_fused``).
+    head differentiable through its backward kernels.
+
+Two nnet.config keys choose among the backward kernels, as two env knobs
+do in the reference:
+
+  * ``lstm_fold_dx`` (default false; ``LSTM_CTC_TPU_LSTM_FOLD_DX=1``
+    there): every layer whose input width is a multiple of 128 trains
+    through the folded backward (K3), which also computes the layer's
+    input side; the others, through K2;
+  * ``moe_wgrad_mode`` (``LSTM_CTC_TPU_MOE_WGRAD`` there): ``xla`` (the
+    default), ``twokernel`` or ``kernel`` picks how the head's weight
+    gradient is computed (``moe_kernels.moe_mix_fused``).
 """
 
 from __future__ import annotations
@@ -147,15 +156,20 @@ def apply_blstm(params: Dict,
         def rev(v):
             return reverse_segments(v, sequence_length, reset_mask)
 
+    fold_dx = bool(config.get("lstm_fold_dx", False))
     finput = nnet_input
     binput = rev(nnet_input)
     for i in range(dims["num_layers"]):
         if train:
+            # the reference folds only where its TPU lanes allow it (an
+            # input width of 128k); the same layers fold here, so that both
+            # packages round dx to the store dtype at the same places
             fw_out, bw_out, (fw_state, bw_state) = \
                 lstm_kernels.bilstm_dual_scan_train(
                     params["fwd"][i], params["bwd"][i], finput, binput,
                     sequence_length, FORGET_BIAS, compute_dtype=compute_dtype,
-                    reset_mask=reset_mask, store_dtype=_store_dtype(config))
+                    reset_mask=reset_mask, store_dtype=_store_dtype(config),
+                    fold_dx=fold_dx and finput.shape[-1] % 128 == 0)
         else:
             fw_out, bw_out, (fw_state, bw_state) = \
                 lstm_kernels.bilstm_dual_scan_fused(

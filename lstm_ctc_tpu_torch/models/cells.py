@@ -7,10 +7,11 @@ output projection, a forget-gate bias added at run time, TF gate order
 (i, j, f, o) and ``dynamic_rnn`` masking (outputs are zero past
 ``sequence_length`` and the carried state freezes there).
 
-``dual_recurrence`` and ``dual_recurrence_backward`` are the plain PyTorch
-versions of the BLSTM layer kernels (``csrc/lstm_fwd.cu``,
-``csrc/lstm_bwd.cu``): the CPU path, and the references the kernels are
-held to on the card.
+``dual_recurrence``, ``dual_recurrence_backward`` and
+``dual_recurrence_backward_fold`` are the plain PyTorch versions of the
+BLSTM layer kernels (``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``,
+``csrc/lstm_bwd_fold.cu``): the CPU path, and the references the kernels
+are held to on the card.
 """
 
 from __future__ import annotations
@@ -142,19 +143,32 @@ def layer_inputs(fw_params: Dict, bw_params: Dict, x, x_rev,
     Returns ``(gx, wh, proj, peep)``: gx ``[T, 2B, 4H]`` float32 (the
     input projection of both directions, forward rows first), and the
     weights as ``recurrent_weights`` returns them."""
-    batch, time_steps, _ = x.shape
     cdt = compute_dtype or x.dtype
-    num_units = fw_params["bias"].shape[0] // 4
-    wx = torch.stack([fw_params["wx"], bw_params["wx"]]).to(cdt)
-    bias = torch.stack([fw_params["bias"], bw_params["bias"]]).float()
-    x2 = torch.stack([x, x_rev]).to(cdt)                      # [2, B, T, D]
-    # one large GEMM for the whole sequence, outside the recurrence
-    gx = torch.matmul(x2.reshape(2, batch * time_steps, -1), wx).float()
-    gx = gx.reshape(2, batch, time_steps, 4 * num_units) \
-        + bias[:, None, None, :]
-    gx = gx.permute(2, 0, 1, 3).reshape(time_steps, 2 * batch,
-                                        4 * num_units).contiguous()
+    wx, bias = input_weights(fw_params, bw_params, cdt)
+    gx = input_projection(torch.stack([x, x_rev]), wx, bias)
     return (gx,) + recurrent_weights(fw_params, bw_params, cdt)
+
+
+def input_weights(fw_params: Dict, bw_params: Dict, compute_dtype):
+    """``(wx, bias)`` of one layer, both directions stacked: wx
+    ``[2, D, 4H]`` in the compute dtype, bias ``[2, 4H]`` float32."""
+    wx = torch.stack([fw_params["wx"], bw_params["wx"]]).to(compute_dtype)
+    bias = torch.stack([fw_params["bias"], bw_params["bias"]]).float()
+    return wx, bias
+
+
+def input_projection(x2, wx, bias):
+    """gx ``[T, 2B, 4H]`` float32, forward rows first: x2 ``[2, B, T, D]``
+    (the layer input and its reverse) times wx ``[2, D, 4H]`` in wx's
+    dtype, plus bias ``[2, 4H]``."""
+    _, batch, time_steps, dim = x2.shape
+    h4 = wx.shape[2]
+    # one large GEMM for the whole sequence, outside the recurrence
+    gx = torch.matmul(x2.to(wx.dtype).reshape(2, batch * time_steps, dim),
+                      wx).float()
+    gx = gx.reshape(2, batch, time_steps, h4) + bias[:, None, None, :]
+    return gx.permute(2, 0, 1, 3).reshape(time_steps, 2 * batch,
+                                          h4).contiguous()
 
 
 def step_masks(sequence_length, reset_mask, time_steps, device):
@@ -382,6 +396,47 @@ def dual_recurrence_backward(gx, sequence_length, keep, wh, proj, peep,
         result += (stacked(dc_in).reshape(time_steps, b2, num_units),
                    stacked(dh_in).reshape(time_steps, b2, out_dim))
     return result
+
+
+def fold_input_side(x2, wx, dgates, store_dtype=torch.float32):
+    """The input side of a BLSTM layer over its dgates, as the folded
+    backward kernel (``csrc/lstm_bwd_fold.cu``, replacing ``lstm_pallas.
+    _make_bwd_kernel(fold_dx=True)`` :373-399) computes it.
+
+    x2 ``[2, B, T, D]`` the layer input and its reverse, wx ``[2, D, 4H]``
+    in the compute dtype, dgates ``[T, 2B, 4H]`` as stored.  Returns (dx2
+    ``[2, B, T, D]`` in ``store_dtype``, dwx ``[2, D, 4H]``, dbias
+    ``[2, 4H]``): dwx = x(cdt)ᵀ·dg(cdt) and dx = dg(cdt)·wx(cdt)ᵀ with
+    float32 sums, dbias = Σ dg in float32."""
+    _, batch, time_steps, dim = x2.shape
+    h4 = dgates.shape[2]
+    cdt = wx.dtype
+    dg = dgates.view(time_steps, 2, batch, h4).permute(1, 2, 0, 3).reshape(
+        2, batch * time_steps, h4)
+    dwx = matmul_f32(x2.reshape(2, batch * time_steps, dim).transpose(1, 2),
+                     dg, cdt)
+    dx2 = matmul_f32(dg, wx.transpose(1, 2), cdt).to(store_dtype)
+    return (dx2.view(2, batch, time_steps, dim), dwx,
+            dg.float().sum(1))
+
+
+def dual_recurrence_backward_fold(x2, wx, gx, sequence_length, keep, wh,
+                                  proj, peep, forget_bias: float, c_all,
+                                  h_all, dout, dcfin, dhfin,
+                                  store_dtype=torch.float32,
+                                  steps: bool = False):
+    """Plain version of the folded BLSTM layer backward kernel (``csrc/
+    lstm_bwd_fold.cu``): ``dual_recurrence_backward``, then
+    ``fold_input_side`` over its dgates.
+
+    x2 and wx as ``fold_input_side``; the rest as
+    ``dual_recurrence_backward``.  Returns (dx2, dwx, dbias, dwh, dproj,
+    dpeep) and, with ``steps``, also (dgates, dc_in, dh_in)."""
+    out = dual_recurrence_backward(gx, sequence_length, keep, wh, proj, peep,
+                                   forget_bias, c_all, h_all, dout, dcfin,
+                                   dhfin, store_dtype, steps)
+    result = fold_input_side(x2, wx, out[0], store_dtype) + out[1:4]
+    return result + ((out[0],) + out[4:] if steps else ())
 
 
 def replay_backward_steps(gx, sequence_length, keep, wh, proj, peep,

@@ -1,18 +1,22 @@
 """Fused BLSTM layer forward and backward: the wrappers around
-``csrc/lstm_fwd.cu`` (K1) and ``csrc/lstm_bwd.cu`` (K2).
+``csrc/lstm_fwd.cu`` (K1), ``csrc/lstm_bwd.cu`` (K2) and
+``csrc/lstm_bwd_fold.cu`` (K3).
 
 Counterpart of ``lstm_ctc_tpu/ops/lstm_pallas.py`` ``bilstm_dual_scan_fused``
 (:694), whose Pallas kernels ``_make_fwd_kernel`` (:57-131) and
 ``_make_bwd_kernel`` (:134-418) run one layer's whole-sequence recurrence
 and its backward for both directions.  The input projection stays one
 ``torch.matmul`` outside the kernels, as it is an einsum outside the Pallas
-kernels there; in training its gradients (dx, dwx, dbias) are autograd's
-products over the dgates stream K2 emits, as XLA's are in ``fused_bwd``
-(:597-619).
+kernels there.  In training its gradients (dx, dwx, dbias) are, by
+default, autograd's products over the dgates stream K2 emits, as XLA's are
+in ``fused_bwd`` (:597-619); with ``fold_dx`` K3 computes them itself from
+the dgates its recurrence keeps, as ``fusedx_bwd`` (:651-672) does with
+``LSTM_CTC_TPU_LSTM_FOLD_DX=1``.
 
 On a CPU tensor a wrapper runs its plain version
-(``models/cells.dual_recurrence``, ``dual_recurrence_backward``); on a CUDA
-tensor it launches its kernel or raises.
+(``models/cells.dual_recurrence``, ``dual_recurrence_backward``,
+``dual_recurrence_backward_fold``); on a CUDA tensor it launches its kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -163,7 +167,7 @@ def bilstm_dual_scan_fused(fw_params, bw_params, x, x_rev,
 def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
                         forget_bias: float, c_all, h_all, dout, dcfin, dhfin,
                         store_dtype=torch.float32, steps: bool = False):
-    """One BLSTM layer's backward over the whole sequence.
+    """One BLSTM layer's backward over the whole sequence (K2).
 
     Arguments and return value as ``cells.dual_recurrence_backward``:
     (dgates ``[T, 2B, 4H]`` in ``store_dtype``, dwh ``[2, P, 4H]``, dproj
@@ -175,9 +179,53 @@ def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
         return cells.dual_recurrence_backward(
             gx, sequence_length, keep, wh, proj, peep, forget_bias, c_all,
             h_all, dout, dcfin, dhfin, store_dtype, steps)
+    dgates, dwh, dproj, dpeep, dc_in, dh_in, _ = _backward_launch(
+        "lstm_layer_backward", None, gx, sequence_length, keep, wh, proj,
+        peep, forget_bias, c_all, h_all, dout, dcfin, dhfin, store_dtype,
+        steps)
+    lstm_layer_backward.launches += 1
+    result = (dgates, dwh, dproj, dpeep)
+    return result + ((dc_in, dh_in) if steps else ())
+
+
+lstm_layer_backward.launches = 0
+
+
+def lstm_layer_backward_fold(x2, wx, gx, sequence_length, keep, wh, proj,
+                             peep, forget_bias: float, c_all, h_all, dout,
+                             dcfin, dhfin, store_dtype=torch.float32,
+                             steps: bool = False):
+    """One BLSTM layer's backward with its input side folded in (K3).
+
+    Arguments and return value as ``cells.dual_recurrence_backward_fold``:
+    x2 ``[2, B, T, D]`` float32 (the layer input and its reverse) and wx
+    ``[2, D, 4H]`` in the compute dtype, then K2's arguments.  Returns (dx2
+    ``[2, B, T, D]`` in ``store_dtype``, dwx ``[2, D, 4H]``, dbias
+    ``[2, 4H]``, dwh, dproj, dpeep) and, with ``steps``, (dgates, dc_in,
+    dh_in) after them."""
+    if gx.device.type == "cpu":
+        return cells.dual_recurrence_backward_fold(
+            x2, wx, gx, sequence_length, keep, wh, proj, peep, forget_bias,
+            c_all, h_all, dout, dcfin, dhfin, store_dtype, steps)
+    dgates, dwh, dproj, dpeep, dc_in, dh_in, folded = _backward_launch(
+        "lstm_layer_backward_fold", (x2, wx), gx, sequence_length, keep, wh,
+        proj, peep, forget_bias, c_all, h_all, dout, dcfin, dhfin,
+        store_dtype, steps)
+    lstm_layer_backward_fold.launches += 1
+    result = folded + (dwh, dproj, dpeep)
+    return result + ((dgates, dc_in, dh_in) if steps else ())
+
+
+lstm_layer_backward_fold.launches = 0
+
+
+def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
+                     forget_bias, c_all, h_all, dout, dcfin, dhfin,
+                     store_dtype, steps):
+    """Launch K2, or K3 when ``fold`` is (x2, wx).  Returns (dgates, dwh,
+    dproj, dpeep, dc_in, dh_in, (dx2, dwx, dbias) or None)."""
     if gx.device.type != "cuda":
-        raise ValueError("lstm_layer_backward: unsupported device %s"
-                         % gx.device)
+        raise ValueError("%s: unsupported device %s" % (what, gx.device))
     time_steps, b2, h4 = gx.shape
     batch, num_units = b2 // 2, h4 // 4
     out_dim = wh.shape[1]
@@ -206,6 +254,11 @@ def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
     _expect(dout, (time_steps, b2, out_dim), torch.float32, device, "dout")
     _expect(dcfin, (b2, num_units), torch.float32, device, "dcfin")
     _expect(dhfin, (b2, out_dim), torch.float32, device, "dhfin")
+    if fold is not None:
+        x2, wx = fold
+        dim = x2.shape[-1]
+        _expect(x2, (2, batch, time_steps, dim), torch.float32, device, "x2")
+        _expect(wx, (2, dim, h4), wh.dtype, device, "wx")
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=device, dtype=dtype)
@@ -225,26 +278,38 @@ def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
         dh_in = empty(time_steps, b2, out_dim)
     dwh = empty(2, out_dim, h4)
     lib = _build.library()
+    bf16 = wh.dtype == torch.bfloat16
     dpeep = None if peep is None else empty(2, 3, num_units)
-    scratch = empty(lib.lstm_bwd_scratch_floats(time_steps, batch,
-                                                num_units, out_dim))
-    launch = lib.lstm_bwd_bf16 if wh.dtype == torch.bfloat16 \
-        else lib.lstm_bwd_f32
-    err = launch(device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
-                 _ptr(c_all), _ptr(h_all), _ptr(wh), _ptr(wht), _ptr(projt),
-                 _ptr(peep), float(forget_bias), _ptr(dout), _ptr(dcfin),
-                 _ptr(dhfin), time_steps, batch, num_units, out_dim,
-                 int(store_dtype == torch.bfloat16), _ptr(dgates), _ptr(cnew),
-                 _ptr(outb), _ptr(doutp), _ptr(dc_in), _ptr(dh_in), _ptr(dwh),
-                 _ptr(dproj), _ptr(dpeep), _ptr(scratch),
-                 torch.cuda.current_stream(device).cuda_stream)
-    _build.check(err, "lstm_bwd")
-    lstm_layer_backward.launches += 1
-    result = (dgates, dwh, dproj, dpeep)
-    return result + ((dc_in, dh_in) if steps else ())
-
-
-lstm_layer_backward.launches = 0
+    if fold is None:
+        scratch = empty(lib.lstm_bwd_scratch_floats(time_steps, batch,
+                                                    num_units, out_dim))
+    else:
+        floats = lib.lstm_bwd_fold_scratch_floats(
+            device.index or 0, time_steps, batch, num_units, out_dim, dim,
+            int(bf16))
+        if floats < 0:
+            raise RuntimeError("lstm_bwd_fold: the device's SM count cannot "
+                               "be read")
+        scratch = empty(floats)
+    args = [device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
+            _ptr(c_all), _ptr(h_all), _ptr(wh), _ptr(wht), _ptr(projt),
+            _ptr(peep), float(forget_bias), _ptr(dout), _ptr(dcfin),
+            _ptr(dhfin), time_steps, batch, num_units, out_dim,
+            int(store_dtype == torch.bfloat16), _ptr(dgates), _ptr(cnew),
+            _ptr(outb), _ptr(doutp), _ptr(dc_in), _ptr(dh_in), _ptr(dwh),
+            _ptr(dproj), _ptr(dpeep), _ptr(scratch),
+            torch.cuda.current_stream(device).cuda_stream]
+    folded = None
+    if fold is None:
+        launch = lib.lstm_bwd_bf16 if bf16 else lib.lstm_bwd_f32
+    else:
+        wxt = wx.transpose(1, 2).contiguous()
+        folded = (empty(2, batch, time_steps, dim, dtype=store_dtype),
+                  empty(2, dim, h4), empty(2, h4))
+        args += [_ptr(x2), _ptr(wxt), dim] + [_ptr(t) for t in folded]
+        launch = lib.lstm_bwd_fold_bf16 if bf16 else lib.lstm_bwd_fold_f32
+    _build.check(launch(*args), "lstm_bwd_fold" if fold else "lstm_bwd")
+    return dgates, dwh, dproj, dpeep, dc_in, dh_in, folded
 
 
 class _LstmLayer(torch.autograd.Function):
@@ -274,17 +339,59 @@ class _LstmLayer(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _LstmLayerFold(torch.autograd.Function):
+    """One BLSTM layer with its input projection under autograd (``fusedx``,
+    ``lstm_pallas.py`` :634-675): the projection as one torch product, K1
+    with its per-step states stored in the store dtype, and K3 for the
+    whole backward, the input side included."""
+
+    @staticmethod
+    def forward(ctx, x2, wx, bias, wh, proj, peep, sequence_length, keep,
+                forget_bias, store_dtype):
+        gx = cells.input_projection(x2, wx, bias)
+        out, cfin, hfin, c_all, h_all = lstm_layer_forward(
+            gx, sequence_length, keep, wh, proj, peep, forget_bias,
+            states=True, store_dtype=store_dtype)
+        ctx.save_for_backward(x2, wx, gx, wh, proj, peep, sequence_length,
+                              keep, c_all, h_all)
+        ctx.forget_bias, ctx.store_dtype = forget_bias, store_dtype
+        return out, cfin, hfin
+
+    @staticmethod
+    def backward(ctx, dout, dcfin, dhfin):
+        (x2, wx, gx, wh, proj, peep, sequence_length, keep, c_all,
+         h_all) = ctx.saved_tensors
+        dx2, dwx, dbias, dwh, dproj, dpeep = lstm_layer_backward_fold(
+            x2, wx, gx, sequence_length, keep, wh, proj, peep,
+            ctx.forget_bias, c_all, h_all, dout, dcfin, dhfin,
+            store_dtype=ctx.store_dtype)
+        return (dx2.to(x2.dtype), dwx.to(wx.dtype), dbias, dwh.to(wh.dtype),
+                None if dproj is None else dproj.to(proj.dtype), dpeep,
+                None, None, None, None)
+
+
 def bilstm_dual_scan_train(fw_params, bw_params, x, x_rev, sequence_length,
                            forget_bias, compute_dtype=None, reset_mask=None,
-                           store_dtype=torch.bfloat16):
+                           store_dtype=torch.bfloat16, fold_dx: bool = False):
     """``bilstm_dual_scan_fused`` under autograd: the same forward through
-    K1, differentiable through K2.  ``store_dtype`` is the precision of
-    the per-step states K1 keeps for K2 and of the dgates stream K2 emits
-    (``lstm_pallas`` ``store_dtype``)."""
-    gx, wh, proj, peep = cells.layer_inputs(fw_params, bw_params, x, x_rev,
-                                            compute_dtype)
+    K1, differentiable through K2, or with ``fold_dx`` through K3, which
+    also computes the input side (dx, dwx, dbias; ``lstm_pallas``
+    ``LSTM_CTC_TPU_LSTM_FOLD_DX``).  ``store_dtype`` is the precision of
+    the per-step states K1 keeps for the backward, of the dgates stream K2
+    emits and of the dx K3 emits (``lstm_pallas`` ``store_dtype``)."""
     _, keep = cells.step_masks(sequence_length, reset_mask, x.shape[1],
                                x.device)
-    out, cfin, hfin = _LstmLayer.apply(gx, wh, proj, peep, sequence_length,
-                                       keep, float(forget_bias), store_dtype)
+    if fold_dx:
+        cdt = compute_dtype or x.dtype
+        wx, bias = cells.input_weights(fw_params, bw_params, cdt)
+        wh, proj, peep = cells.recurrent_weights(fw_params, bw_params, cdt)
+        out, cfin, hfin = _LstmLayerFold.apply(
+            torch.stack([x, x_rev]), wx, bias, wh, proj, peep,
+            sequence_length, keep, float(forget_bias), store_dtype)
+    else:
+        gx, wh, proj, peep = cells.layer_inputs(fw_params, bw_params, x,
+                                                x_rev, compute_dtype)
+        out, cfin, hfin = _LstmLayer.apply(gx, wh, proj, peep,
+                                           sequence_length, keep,
+                                           float(forget_bias), store_dtype)
     return cells.split_directions(out, cfin, hfin, x.shape[0])

@@ -1,6 +1,6 @@
 """Fused MoE expert mix, forward and backward: the wrappers around
-``csrc/moe_fwd.cu`` (K4, K5), ``csrc/moe_bwd.cu`` (K6, K8) and
-``csrc/moe_wgrad.cu`` (K9).
+``csrc/moe_fwd.cu`` (K4, K5), ``csrc/moe_bwd.cu`` (K6, K8),
+``csrc/moe_wgrad.cu`` (K9) and ``csrc/moe_bwd_wgrad.cu`` (K7).
 
 Counterpart of ``lstm_ctc_tpu/ops/moe_pallas.py`` ``moe_mix_fused`` (:574)
 and its custom VJP (``fused_fwd`` / ``fused_bwd`` :544-570).  The mix is
@@ -15,7 +15,12 @@ dtype, and the backward reads it:
     x(cdt)ᵀ·dz is one ``torch`` product with float32 sums and db = Σ dz,
     as XLA computes them outside the Pallas kernel there;
   * ``wgrad_mode="twokernel"``: K8 gives dx and dgate, and K9 recomputes
-    dz for dw and db; no dz is written.
+    dz for dw and db; no dz is written;
+  * ``wgrad_mode="kernel"``: K7 gives dx, dgate, dw and db in one launch,
+    from one dz; no dz is written.
+
+The modes are the reference's ``LSTM_CTC_TPU_MOE_WGRAD`` values, chosen
+here by ``moe_wgrad_mode`` in nnet.config.
 
 Expert dropout uses the counter-based hash ``hash_uniform`` at global (row
 n, column e·V + v), bit for bit the reference's, so masks agree across
@@ -24,8 +29,9 @@ a one-element int32 tensor on the device, which the kernels read there.
 
 On a CPU tensor a wrapper runs its plain version (``moe_mix_reference``,
 ``moe_stash_reference``, ``moe_backward_reference``,
-``moe_backward_noemit_reference``, ``moe_wgrad_reference``); on a CUDA
-tensor it launches its kernel or raises.
+``moe_backward_noemit_reference``, ``moe_wgrad_reference``,
+``moe_backward_wgrad_reference``); on a CUDA tensor it launches its kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from .. import _build
 from ..models.cells import derived, matmul_f32
 
 _M32 = 0xFFFFFFFF
-WGRAD_MODES = ("xla", "twokernel")
+WGRAD_MODES = ("xla", "twokernel", "kernel")
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -288,6 +294,18 @@ def moe_wgrad_reference(x, th, gate, gout, seed, num_experts: int,
     return matmul_f32(x.t(), dz, th.dtype), dz.sum(0)
 
 
+def moe_backward_wgrad_reference(x, th, w, gate, gout, seed,
+                                 num_experts: int, tau: float,
+                                 keep_prob: float):
+    """Plain version of K7: (dx, dgate) as K8 and (dw, db) as K9 from the
+    same dz (``moe_pallas._bwd_kernel_wgrad`` :311-333: dw from dz rounded
+    to the compute dtype, db from dz unrounded).  x ``[N, D]`` float32; the
+    rest as ``moe_backward_reference``."""
+    args = (seed, num_experts, tau, keep_prob)
+    return (moe_backward_noemit_reference(th, w, gate, gout, *args)
+            + moe_wgrad_reference(x, th, gate, gout, *args))
+
+
 def _backward_launch(th, w, gate, gout, seed, num_experts, tau, keep_prob,
                      emit_dz: bool, what: str):
     n = th.shape[0]
@@ -378,6 +396,48 @@ def moe_mix_wgrad(x, th, gate, gout, seed, num_experts: int, tau: float,
 moe_mix_wgrad.launches = 0
 
 
+def moe_mix_backward_wgrad(x, th, w, gate, gout, seed, num_experts: int,
+                           tau: float, keep_prob: float):
+    """K7: (dx, dgate, dw, db) in one launch; arguments and result as
+    ``moe_backward_wgrad_reference``."""
+    if x.device.type == "cpu":
+        return moe_backward_wgrad_reference(x, th, w, gate, gout, seed,
+                                            num_experts, tau, keep_prob)
+    what = "moe_bwd_wgrad"
+    n, d = x.shape
+    v = _check(x, d, w.shape[1], num_experts, keep_prob, what,
+               (th, w, gate, gout, seed))
+    cdt = _compute_dtype_of(w)
+    cols = num_experts * v
+    _expect(x, (n, d), torch.float32, "x", what)
+    _expect(th, (n, cols), cdt, "th", what)
+    _expect(w, (d, cols), cdt, "w", what)
+    _expect(gate, (n, num_experts), torch.float32, "gate", what)
+    _expect(gout, (n, v), torch.float32, "gout", what)
+    lib = _build.library()
+    dx = torch.empty(n, d, device=x.device)
+    dgate = torch.empty(n, num_experts, device=x.device)
+    dw = torch.empty(d, cols, device=x.device)
+    db = torch.empty(cols, device=x.device)
+    scratch = torch.empty(lib.moe_bwd_wgrad_scratch_floats(n, d, num_experts,
+                                                           v),
+                          device=x.device)
+    launch = lib.moe_bwd_wgrad_bf16 if cdt == torch.bfloat16 \
+        else lib.moe_bwd_wgrad_f32
+    err = launch(x.device.index or 0, x.data_ptr(), th.data_ptr(),
+                 w.data_ptr(), gate.data_ptr(), gout.data_ptr(),
+                 _seed_ptr(seed, keep_prob, x.device), n, d, num_experts, v,
+                 float(tau), float(keep_prob), dx.data_ptr(), dgate.data_ptr(),
+                 dw.data_ptr(), db.data_ptr(), scratch.data_ptr(),
+                 _stream(x.device))
+    _build.check(err, what)
+    moe_mix_backward_wgrad.launches += 1
+    return dx, dgate, dw, db
+
+
+moe_mix_backward_wgrad.launches = 0
+
+
 def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of two tensors of one compute dtype with float32 sums and
     a float32 result (cuBLAS's bf16 product with a float32 output on the
@@ -389,7 +449,8 @@ def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class _MoeMix(torch.autograd.Function):
     """The expert mix under autograd: K5 forward, then K6 and one product
-    (``"xla"``) or K8 and K9 (``"twokernel"``) backward."""
+    (``"xla"``), K8 and K9 (``"twokernel"``) or K7 (``"kernel"``)
+    backward."""
 
     @staticmethod
     def forward(ctx, x, w_expert, b_expert, gate, seed, num_experts, tau,
@@ -412,6 +473,9 @@ class _MoeMix(torch.autograd.Function):
         if wgrad_mode == "twokernel":
             dx, dgate = moe_mix_backward_noemit(th, w, g, gout, *args)
             dw, db = moe_mix_wgrad(xc, th, g, gout, *args)
+        elif wgrad_mode == "kernel":
+            dx, dgate, dw, db = moe_mix_backward_wgrad(xc, th, w, g, gout,
+                                                       *args)
         else:
             dx, dgate, dz = moe_mix_backward(th, w, g, gout, *args)
             dw = product_f32(xc.to(w.dtype).t(), dz)
@@ -427,13 +491,9 @@ def moe_mix_fused(x, w_expert, b_expert, gate, num_experts: int,
 
     Same arguments as ``moe_mix_reference``.  When autograd records (grad
     enabled and an input requires grad) the mix is differentiable: K5
-    forward, and the backward ``wgrad_mode`` names (``"xla"`` or
-    ``"twokernel"``); ``seed`` must then be an int32 tensor of one element
+    forward, and the backward ``wgrad_mode`` names (one of
+    ``WGRAD_MODES``); ``seed`` must then be an int32 tensor of one element
     on x's device (or None at keep_prob 1).  Otherwise K4 runs."""
-    if wgrad_mode == "kernel":
-        raise NotImplementedError(
-            "wgrad_mode 'kernel' (K7, the single-kernel dw accumulator) is "
-            "not ported (ROADMAP queue 2, the opt-in folds)")
     if wgrad_mode not in WGRAD_MODES:
         raise ValueError("wgrad_mode must be one of %s, got %r"
                          % (WGRAD_MODES, wgrad_mode))

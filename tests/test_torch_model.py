@@ -129,8 +129,9 @@ def test_unidirectional_families_run(nnet_type):
 
 
 def test_training_mode_raises():
-    """The MoE model trains (its head's dropout and backward are ported);
-    only the unported single-kernel weight gradient (K7) raises."""
+    """The MoE model trains (its head's dropout and backward are ported).
+    Once the single-kernel weight gradient (K7) raised; now it trains too,
+    with the default mode's gradient, and an unknown mode raises."""
     params, state = init_model(torch.Generator().manual_seed(0),
                                FLAGSHIP_SMALL)
     params["moe"]["w_expert"].requires_grad_()
@@ -142,6 +143,13 @@ def test_training_mode_raises():
     assert bool(torch.isfinite(grad).all()) and bool((grad != 0).any())
     with torch.no_grad():
         assert not torch.equal(logits, apply_model(*args, FLAGSHIP_SMALL)[0])
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        apply_model(*args, dict(FLAGSHIP_SMALL, moe_wgrad_mode="kernel"),
+    config = dict(FLAGSHIP_SMALL, dropout_rate=1.0)
+    grads = []
+    for mode in ("xla", "kernel"):
+        logits = apply_model(*args, dict(config, moe_wgrad_mode=mode),
+                             train=True)[0]
+        grads += torch.autograd.grad(logits.sum(), params["moe"]["w_expert"])
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="wgrad_mode"):
+        apply_model(*args, dict(FLAGSHIP_SMALL, moe_wgrad_mode="fold"),
                     train=True)

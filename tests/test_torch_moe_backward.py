@@ -1,12 +1,15 @@
 """The MoE head's training: K5 (forward with the tanh stash), K6 and K8
-(backward to x and the gate), K9 (weight gradient), and the autograd
-function around them (``moe_kernels._MoeMix`` through ``moe_mix_fused``).
+(backward to x and the gate), K9 (weight gradient), K7 (the whole backward
+in one kernel), and the autograd function around them
+(``moe_kernels._MoeMix`` through ``moe_mix_fused``).
 
 On the CPU the four head gradients (dx, dw, db, dgate) of the port's
 autograd function, under a random cotangent, are held against ``jax.grad``
 through the JAX package's fused Pallas mix in interpret mode, in float32,
-at keep 1.0 and at keep 0.9 with the same seed, in both of the port's
-weight-gradient modes (rtol = atol = 1e-5).  The ``cuda`` tests hold each
+at keep 1.0 and at keep 0.9 with the same seed, in each of the port's three
+weight-gradient modes, and the ``"kernel"`` mode also against the JAX
+package's own ``"kernel"`` backward at keep 1.0 and 0.8 (rtol = atol =
+1e-5).  The ``cuda`` tests hold each
 kernel against its plain version on the card, in float32 and bfloat16 at
 keep 1.0 and 0.9; they skip without a GPU.  JAX is imported by a fixture,
 so the ``cuda`` tests also run where JAX is not installed.
@@ -67,7 +70,7 @@ def port_grads(case, e, keep_prob, wgrad_mode, device="cpu",
     return out.detach(), grads
 
 
-@pytest.mark.parametrize("wgrad_mode", ["xla", "twokernel"])
+@pytest.mark.parametrize("wgrad_mode", ["xla", "twokernel", "kernel"])
 @pytest.mark.parametrize("keep_prob", [1.0, 0.9])
 @pytest.mark.parametrize("e,v", [(5, 7), (3, 16), (4, 72)])
 def test_head_gradients_match_jax_fused_vjp(jref, e, v, keep_prob,
@@ -89,6 +92,34 @@ def test_head_gradients_match_jax_fused_vjp(jref, e, v, keep_prob,
                                atol=1e-5)
     for name, g, r in zip(("dx", "dw", "db", "dgate"), got, ref):
         assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("keep_prob", [1.0, 0.8])
+@pytest.mark.parametrize("e,v", [(5, 7), (4, 72)])
+def test_kernel_mode_matches_jax_kernel_mode(jref, monkeypatch, e, v,
+                                             keep_prob):
+    """K7's plain version against the JAX package's single-kernel backward
+    (``LSTM_CTC_TPU_MOE_WGRAD=kernel``, ``_bwd_kernel_wgrad`` in interpret
+    mode): the same hash mask, bit for bit, at keep 0.8."""
+    monkeypatch.setenv("LSTM_CTC_TPU_MOE_WGRAD", "kernel")
+    case = make_case(2 * e + v, n=29, e=e, v=v)
+    jnp = jref.jnp
+
+    def loss(x, w, b, gate):
+        out = jref.pallas.moe_mix_fused(
+            x, w, b, gate, e, TAU, keep_prob=keep_prob, seed=jnp.int32(SEED),
+            compute_dtype=jnp.float32, n_block=8, interpret=True)
+        return jnp.sum(out * jnp.asarray(case[4]))
+
+    ref = jref.jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in case[:4]))
+    before = moe_kernels.moe_mix_backward_wgrad.launches
+    _, got = port_grads(case, e, keep_prob, "kernel")
+    # the CPU path runs the plain version: no kernel launch is counted
+    assert moe_kernels.moe_mix_backward_wgrad.launches == before
+    for name, g, r in zip(("dx", "dw", "db", "dgate"), got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
                                    atol=1e-5, err_msg=name)
 
@@ -124,10 +155,25 @@ def test_mask_is_shared_by_forward_and_backward():
 
 
 def test_wgrad_mode_kernel_is_not_ported():
-    x, w, b, gate, _ = (torch.from_numpy(a) for a in make_case(1))
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        moe_kernels.moe_mix_fused(x, w.requires_grad_(), b, gate, 5, TAU,
-                                  wgrad_mode="kernel")
+    """Once K7 was missing and "kernel" raised; now it runs, its plain
+    version is K8's and K9's together, and the mode gives the default's
+    gradients.  An unknown mode still raises."""
+    case = make_case(1, e=5, v=7)
+    x, w, b, gate, gout = (torch.from_numpy(a) for a in case)
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    out, th = moe_kernels.moe_stash_reference(x, w, b, gate, seed, 5, TAU,
+                                              0.9)
+    args = (seed, 5, TAU, 0.9)
+    got = moe_kernels.moe_mix_backward_wgrad(x, th, w, gate, gout, *args)
+    want = (moe_kernels.moe_backward_noemit_reference(th, w, gate, gout,
+                                                      *args)
+            + moe_kernels.moe_wgrad_reference(x, th, gate, gout, *args))
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    _, grads_k = port_grads(case, 5, 0.9, "kernel")
+    _, grads_x = port_grads(case, 5, 0.9, "xla")
+    for a, c in zip(grads_k, grads_x):
+        torch.testing.assert_close(a, c, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="wgrad_mode"):
         moe_kernels.moe_mix_fused(x, w, b, gate, 5, TAU, wgrad_mode="fold")
 
@@ -236,7 +282,33 @@ def test_kernels_match_plain_on_gpu(cuda, dtype, keep_prob, e, v, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wgrad_mode", ["xla", "twokernel"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("keep_prob", [1.0, 0.9])
+@pytest.mark.parametrize("n,e,v,d", [(150, 5, 7, 40), (1100, 4, 72, 200)])
+def test_single_kernel_backward_matches_plain_on_gpu(cuda, dtype, keep_prob,
+                                                     n, e, v, d):
+    """K7 against its plain version, fed the stash K5 wrote: dx and dgate
+    as K6's rules, dw and db as K9's (n = 1100 spans three row groups)."""
+    case = make_case(8, n=n, d=d, e=e, v=v)
+    x, w32, b, gate, gout = (torch.from_numpy(a).to(cuda) for a in case)
+    w = w32.to(dtype).contiguous()
+    seed = torch.tensor([SEED], dtype=torch.int32, device=cuda)
+    args = (seed, e, TAU, keep_prob)
+    _, th = moe_kernels.moe_mix_forward_stash(x, w, b, gate, *args)
+    before = moe_kernels.moe_mix_backward_wgrad.launches
+    got = moe_kernels.moe_mix_backward_wgrad(x, th, w, gate, gout, *args)
+    ref = moe_kernels.moe_backward_wgrad_reference(x, th, w, gate, gout,
+                                                   *args)
+    torch.cuda.synchronize()
+    assert moe_kernels.moe_mix_backward_wgrad.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert ratio(g, r) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgrad_mode", ["xla", "twokernel", "kernel"])
 def test_autograd_on_gpu_matches_cpu(cuda, wgrad_mode):
     """The autograd function through the kernels (f32, TF32 off) against
     the same function on the CPU, through the plain versions."""
