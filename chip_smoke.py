@@ -800,31 +800,49 @@ def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
              % (reset, worst_rel, F32_REL_TOL))
     if dtype == torch.bfloat16:
         # each step from the kernel's own carries (bf16 rounding flips
-        # carry on along the sequence, as for K1)
-        dgates, _, _, _, dc_in, dh_in = lstm_kernels.lstm_layer_backward(
-            *args, store_dtype=dtype, steps=True)
-        dg, dc_out, dh_out = cells.replay_backward_steps(
-            *args[:-2], dc_in, dh_in, store_dtype=dtype)
+        # carry on along the sequence, as for K1), and the weight gradients
+        # over the kernel's own dgates and the steps' stashes
+        full = lstm_kernels.lstm_layer_backward(*args, store_dtype=dtype,
+                                                steps=True)
+        dgates, dc_in, dh_in = full[0], full[4], full[5]
+        dg, dc_out, dh_out, wgrads = cells.replay_backward_steps(
+            *args[:-2], dc_in, dh_in, store_dtype=dtype, dgates=dgates)
         step_rel = max(ratio(dc_out[1:], dc_in[:-1]),
                        ratio(dh_out[1:], dh_in[:-1]))
-        rounding = bool(((dgates.float() - dg.float()).abs()
-                         <= 2.0 ** -7 * dg.float().abs() + 1e-6).all())
+        rounding = within_bf16_step(dgates, dg)
+        wgrad_rel = weight_grads_rel(full[1:4], wgrads)
         say("  K2 bfloat16 reset=%-5s per step: carries max rel %.3e (bound "
-            "%.0e); dgates within one bf16 rounding step: %s"
-            % (reset, step_rel, BF16_STEP_REL_TOL, rounding))
-        if step_rel > BF16_STEP_REL_TOL or not rounding:
-            fail("K2 bf16 per-step replay outside its bounds")
+            "%.0e); dgates within one bf16 rounding step: %s; over the "
+            "kernel's dgates: dwh, dproj and dpeep max rel %.3e (bound %.0e)"
+            % (reset, step_rel, BF16_STEP_REL_TOL, rounding, wgrad_rel,
+               BF16_STEP_REL_TOL))
+        if (step_rel > BF16_STEP_REL_TOL or not rounding
+                or wgrad_rel > BF16_STEP_REL_TOL):
+            fail("K2 bf16 per-step replay or weight gradients outside their "
+                 "bounds")
     ms, plain_ms = time_in_turns(
         torch, lambda: lstm_kernels.lstm_layer_backward(*args,
                                                         store_dtype=dtype),
         lambda: cells.dual_recurrence_backward(*args, store_dtype=dtype),
         rounds=3, kernel_reps=2)
     bound_ms, bound_by = lstm_bwd_bound(torch, args, got, dtype)
-    say("  K2 %-8s reset=%-5s kernel %.3f ms (%.1f us/step)  plain %.3f ms  "
-        "bound %.4f ms (%s)" % (name, reset, ms, 1e3 * ms / args[0].shape[0],
-                                plain_ms, bound_ms, bound_by))
+    steps, b2, h4 = args[0].shape
+    how = lstm_kernels.backward_config(device, b2 // 2, h4 // 4,
+                                       args[3].shape[1], args[4] is not None,
+                                       dtype)
+    say("  K2 %-8s reset=%-5s kernel %.3f ms (%.1f us/step; R=%d rows a "
+        "cluster, %d clusters, %d bytes of shared memory a block)  plain "
+        "%.3f ms  bound %.4f ms (%s)"
+        % (name, reset, ms, 1e3 * ms / steps, how["rows"], how["clusters"],
+           how["smem_bytes"], plain_ms, bound_ms, bound_by))
     return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def weight_grads_rel(got, ref):
+    """The largest max|diff|/max|plain| of K2's (dwh, dproj, dpeep) against
+    the plain sums ``ref`` (None where the layer has no such weight)."""
+    return max(ratio(g, r) for g, r in zip(got, ref) if r is not None)
 
 
 def lstm_bwd_bound(torch, inputs, outputs, dtype, fold=False):
@@ -873,8 +891,8 @@ def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
         full = lstm_kernels.lstm_layer_backward_fold(*args, store_dtype=dtype,
                                                      steps=True)
         dgates, dc_in, dh_in = full[6:]
-        dg, dc_out, dh_out = cells.replay_backward_steps(
-            *args[2:-2], dc_in, dh_in, store_dtype=dtype)
+        dg, dc_out, dh_out, wgrads = cells.replay_backward_steps(
+            *args[2:-2], dc_in, dh_in, store_dtype=dtype, dgates=dgates)
         step_rel = max(ratio(dc_out[1:], dc_in[:-1]),
                        ratio(dh_out[1:], dh_in[:-1]))
         rounding = within_bf16_step(dgates, dg)
@@ -885,12 +903,13 @@ def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
         dx_ok = bool(((full[0].float() - dx.float()).abs()
                       <= 2.0 ** -7 * dx.float().abs()
                       + SUM_ORDER_TOL * terms).all())
-        side_rel = max(ratio(full[1], dwx), ratio(full[2], dbias))
+        side_rel = max(ratio(full[1], dwx), ratio(full[2], dbias),
+                       weight_grads_rel(full[3:6], wgrads))
         say("  K3 bfloat16 reset=%-5s per step: carries max rel %.3e (bound "
             "%.0e); dgates within one bf16 rounding step: %s; over the "
             "kernel's dgates: dx within one bf16 rounding step (and 16 f32 "
-            "ulps of its terms' sum): %s, dwx and dbias max rel %.3e (bound "
-            "%.0e)"
+            "ulps of its terms' sum): %s, dwx, dbias, dwh, dproj and dpeep "
+            "max rel %.3e (bound %.0e)"
             % (reset, step_rel, BF16_STEP_REL_TOL, rounding, dx_ok, side_rel,
                BF16_STEP_REL_TOL))
         if (step_rel > BF16_STEP_REL_TOL or not rounding or not dx_ok

@@ -38,19 +38,19 @@ SIGNATURES = {
                      _P, _P, _P, _I, _P, _P, _P],
     "lstm_fwd_bf16": [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                       _P, _P, _P, _I, _P, _P, _P],
-    # device, gx, lengths, keep, c_all, h_all, wh, whT, projT, peep,
+    # device, gx, lengths, keep, c_all, h_all, wh slices, proj rows, peep,
     # forget_bias, dout, dcfin, dhfin, T, B, H, P, store_bf16, dgates,
-    # c_new, out_blk, dout_p stashes, dc_in, dh_in, dwh, dproj, dpeep,
+    # out_blk and dout_p stashes, dc_in, dh_in, dwh, dproj, dpeep,
     # scratch, stream
-    "lstm_bwd_f32": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
-                    + [_P] * 11,
-    "lstm_bwd_bf16": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
-                     + [_P] * 11,
+    "lstm_bwd_f32": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
+                    + [_P] * 10,
+    "lstm_bwd_bf16": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
+                     + [_P] * 10,
     # K2's arguments (dgates: scratch), then x, wxT, D, dx, dwx, dbias
-    "lstm_bwd_fold_f32": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
-                         + [_P] * 11 + [_P, _P, _I, _P, _P, _P],
-    "lstm_bwd_fold_bf16": [_I] + [_P] * 9 + [_F] + [_P] * 3 + [_I] * 5
-                          + [_P] * 11 + [_P, _P, _I, _P, _P, _P],
+    "lstm_bwd_fold_f32": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
+                         + [_P] * 10 + [_P, _P, _I, _P, _P, _P],
+    "lstm_bwd_fold_bf16": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
+                          + [_P] * 10 + [_P, _P, _I, _P, _P, _P],
     # device, lp_ext, time_mask, valid, can_skip, alpha0, T, N, S, out,
     # stream
     "ctc_alpha": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
@@ -168,6 +168,10 @@ def library() -> ctypes.CDLL:
     lib.lstm_fwd_cluster_size.restype = ctypes.c_int
     lib.lstm_bwd_scratch_floats.argtypes = [_I, _I, _I, _I]
     lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
+    # device, B, H, P, has_proj, bf16 -> rows a cluster, clusters, bytes
+    lib.lstm_bwd_config.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 2 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.lstm_bwd_config.restype = ctypes.c_int
     lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 7
     lib.lstm_bwd_fold_scratch_floats.restype = ctypes.c_longlong
     lib.lstm_stack_bwd_scratch_floats.argtypes = [_I] * 5

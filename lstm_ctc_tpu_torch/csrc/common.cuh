@@ -51,6 +51,28 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row)
                : "r"(smem_addr(row)));
 }
 
+// four elements from global into shared memory, asynchronously (cp.async;
+// both addresses aligned to their 4·sizeof(X) bytes; 16 bytes bypass L1);
+// commit, then wait for all before reading them
+template <typename X>
+__device__ __forceinline__ void cp_async4(X* dst, const X* src) {
+  static_assert(sizeof(X) == 2 || sizeof(X) == 4, "8 or 16 bytes a copy");
+  if constexpr (sizeof(X) == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // d += a (16x16, row) · b (16x8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {

@@ -15,78 +15,244 @@
 // the length m = 0 and dc, dh pass through unchanged.  dgates is emitted
 // in the store dtype; dx, dwx and dbias are products over it outside the
 // kernel, as XLA does them outside the TPU kernel (K3, lstm_bwd_fold.cu,
-// runs this launch and then computes them itself).
+// runs this launch and then computes them itself).  The weight gradients
+// (:331-371) dwh = Σ h_prevᵀ·dgates and dproj = Σ out_blkᵀ·dout_p run
+// after the recurrence over the streams it writes (lstm_bwd_wgrad.cu, on
+// the tensor cores in bf16); the peephole sums Σ dg_i·c_prev, Σ dg_f·c_prev
+// and Σ dg_o·c_new are kept by the recurrence itself.  Operands of every
+// product are rounded to the compute dtype; sums, the carries and every
+// output except dgates stay float32.  The float32 path uses FMA only,
+// never TF32.
 //
-// The weight gradients (:331-371) are this file's own kernels too, over
-// per-step stashes the recurrence writes (c_new, the pre-projection output
-// out_blk, dout_p; the TPU kernel keeps them in VMEM):
-//   dwh = Σ_(t,b) h_prevᵀ·dgates,  dproj = Σ out_blkᵀ·dout_p
-//   (lstm_bwd_common.cuh's wgrad_kernel),
-//   dpeep = Σ dgates_i·c_prev, Σ dgates_f·c_prev, Σ dgates_o·c_new
-//   (peep_partial_kernel, then split_sum_kernel, in a fixed order).
-// Operands of every product are rounded to the compute dtype; sums, the
-// carry and every output except dgates stay float32.  The float32 path
-// uses FMA only, never TF32.
+// What bounds it on the H100: the recurrence is sequential, so each step's
+// latency counts.  A step needs the direction's wh twice (as wh and whᵀ)
+// and proj once, 1.0 MB in bf16 at H = P = 320; read from L2 at every step
+// they cost ~45 us a step.  Design: K1's (lstm_fwd.cu, lstm_cluster.cuh).
+// An 8-block cluster per (direction, tile of R batch rows) owns the time
+// loop; block q owns hidden units [q·US, (q+1)·US), all four gates of them,
+// and keeps in its shared memory, for the whole sequence, its wh slice
+// [P, 4·US] (which serves both h·wh and dgates·whᵀ) and its rows of proj
+// [US, P] (dout_blk of its units needs all of dout_p but no reduction):
+// ~140 KB at H = P = 320.  Per step:
+//   1. dout_p over the full P from the block's full copy of dh;
+//   2. dout_blk of the owned units;
+//   3. the cell backward of the owned units (dc never leaves the block):
+//      dgates, the out_blk and dout_p stashes of the wgrad pass, the
+//      peephole sums in registers;
+//   4. the block's partial dh_prev, dgates_q·wh_qᵀ [R, P];
+//   5. reduce-scatter over distributed shared memory: block j receives the
+//      eight partials of its P-slice, cluster barrier, adds them in block
+//      order (deterministic), applies dh = kp·((1-m)·dh + Σ), and writes
+//      the new slice into every block (all-gather), cluster barrier.
+// The gate recompute of the step before (h_prev·wh_q, which does not
+// depend on the carries) runs between the two halves of the first barrier,
+// off the critical path; that step's loads (h_prev, dout, gx, c_prev) are
+// started at the start of this one, by cp.async into staging buffers.  In
+// bf16 the products run on the tensor cores (ldmatrix, mma.sync m16n8k16,
+// operands padded to 16 rows), their running sums kept in float32 adds
+// rounded to nearest (mma_product_f32add: near a cancellation in dc_new the
+// tensor cores' own accumulation moved dgates by more than a bf16 rounding
+// step against the plain version's, and the steps' mma no longer wait on
+// one another); bf16 slices too wide for shared memory (H or P above 320)
+// are refused, as K1 refuses them.  In float32 the products are FMA split
+// over all threads and the slices are read from L2 (they do not fit in
+// shared memory at the flagship width).  R is the smallest of {4, 6, 8} whose
+// 2·ceil(B/R) clusters are all resident, as the occupancy API says (B = 32:
+// R = 6, 12 clusters); else the largest R with one cluster resident (they
+// then run in waves); if none fits, the launch is refused.
 //
-// What bounds it on the H100: like the forward, the recurrence is
-// sequential, so each step's latency counts; a step reads the direction's
-// wh twice (as wh and whᵀ) and proj once, 1.8 MB in bf16 at H = P = 320.
-// This first version is the simple one: one block per (direction, tile of
-// kRows batch rows) owns the time loop and reads the weights from L2 at
-// every step, with FMA products split over all threads (4 columns and a
-// slice of k each).  Holding the weights in a cluster's shared memory, as
-// the forward does, needs a cluster-wide reduction for the two transposed
-// products (the split dimension is the one summed over) and is later work.
-// The weight-gradient products are plain tiled FMA GEMMs over the
-// T·B rows (128x128 output tiles, 8x8 a thread), split over the rows so
-// that the card is full, with the partial sums added in a fixed order.
+// The wrapper lays the weights out per slice: wh as K1 does ([2, 8, P16,
+// 4, US]) and proj as rows ([2, 8, U16, P16], U16 = US rounded up to 16),
+// zero-padded.  The kernel allocates nothing and launches on the caller's
+// stream.
 
-#include <type_traits>
-
-#include "lstm_bwd_common.cuh"
+#include "lstm_cluster.cuh"
 #include "lstm_bwd_entry.cuh"
 
 namespace {
 
-// Shared-memory plan (floats): operands and carries, then the partials.
-struct Plan {
-  size_t a_h, a_dp, cp, dc, dh, dp, gates, dob, a_dg, part, total;
+// Shared-memory plan of the backward, common to host and device.  US: units
+// a block; U16: its proj rows (rounded up to 16); G = 4·US; PS: the dh
+// columns a block owns in the reduction (a multiple of 4), PW = 8·PS;
+// arow/prow as K1's; lda, ldg: row strides of the A operands (h_prev and
+// dout_p over P16 columns, dgates over G); nd: columns of the dout_blk
+// product; wrows: rows of the wh slice in shared memory (dh_prev's product
+// reads PW of them, the rows past P16 zero).
+struct BwdPlan {
+  int us, u16, g, ps, pw, p16, nd, wrows, arow, prow, lda, ldg, lwh, lpj;
+  Split gates, dob, dh;
+  size_t off_dq, off_gq, off_dh, off_dnx, off_dnx2, off_hraw, off_craw, off_gxs,
+      off_rows, off_dc, off_inbox, off_part, off_wh, off_pj, bytes;
 };
 
-__host__ __device__ Plan plan(int H, int P) {
-  Plan p;
-  const int G = 4 * H;
-  size_t o = 0;
-  p.a_h = o;   o += (size_t)kRows * P;
-  p.a_dp = o;  o += (size_t)kRows * P;
-  p.cp = o;    o += (size_t)kRows * H;
-  p.dc = o;    o += (size_t)kRows * H;
-  p.dh = o;    o += (size_t)kRows * P;
-  p.dp = o;    o += (size_t)kRows * P;
-  p.gates = o; o += (size_t)kRows * G;
-  p.dob = o;   o += (size_t)kRows * H;
-  p.a_dg = o;  o += (size_t)kRows * G;
-  o = (o + 3) / 4 * 4;  // 16-byte aligned partials
-  p.part = o;
-  const size_t pg = (size_t)split_of(G, P).slices * G;
-  const size_t pp = (size_t)split_of(H, P).slices * H;
-  const size_t ph = (size_t)split_of(P, G).slices * P;
-  size_t most = pg > pp ? pg : pp;
-  most = most > ph ? most : ph;
-  p.total = o + kRows * most;
+// T: the compute dtype, S: the store dtype of the per-step states
+template <typename T, typename S>
+__host__ __device__ BwdPlan bwd_plan(int H, int P, bool has_proj, int R) {
+  BwdPlan p;
+  p.us = round_up(cdiv(H, kCluster), 8);
+  p.u16 = round_up(p.us, 16);
+  p.g = 4 * p.us;
+  p.ps = round_up(cdiv(P, kCluster), 4);
+  p.pw = kCluster * p.ps;
+  p.p16 = round_up(P, 16);
+  p.nd = kMma<T> ? p.u16 : p.us;
+  p.wrows = p.p16 > p.pw ? p.p16 : p.pw;
+  const int pad = 16 / (int)sizeof(T);
+  p.arow = kMma<T> ? 16 : R;
+  p.prow = kMma<T> ? 8 : R;
+  p.lda = p.p16 + pad;
+  p.ldg = p.g + pad;
+  p.lwh = p.g + pad;
+  p.lpj = p.p16 + pad;
+  if constexpr (kMma<T>) {
+    // at most two slices where the partials are large: shared memory is full
+    p.gates = mma_split(p.g, p.p16, 2);
+    p.dob = mma_split(p.nd, p.p16);
+    p.dh = mma_split(p.pw, p.g, 2);
+  } else {
+    p.gates = fma_split(p.g, p.p16);
+    p.dob = fma_split(p.nd, p.p16);
+    p.dh = fma_split(p.pw, p.g);
+  }
+  const size_t part_g = (size_t)p.gates.slices * p.prow * p.g;
+  const size_t part_d = has_proj ? (size_t)p.dob.slices * p.prow * p.nd : 0;
+  const size_t part_h = (size_t)p.dh.slices * p.prow * p.pw;
+  const size_t part = part_g + part_d > part_h ? part_g + part_d : part_h;
+  p.off_dq = align128(sizeof(T) * (size_t)p.arow * p.lda);
+  p.off_gq = p.off_dq + align128(sizeof(T) * (size_t)p.arow * p.lda);
+  p.off_dh = p.off_gq + align128(sizeof(T) * (size_t)p.arow * p.ldg);
+  p.off_dnx = p.off_dh + align128(sizeof(float) * (size_t)R * p.pw);
+  p.off_dnx2 = p.off_dnx + align128(sizeof(float) * (size_t)R * p.pw);
+  p.off_hraw = p.off_dnx2 + align128(sizeof(float) * (size_t)R * p.pw);
+  p.off_craw = p.off_hraw + align128(sizeof(S) * (size_t)R * P);
+  p.off_gxs = p.off_craw + align128(sizeof(S) * (size_t)R * p.us);
+  p.off_rows = p.off_gxs + align128(sizeof(float) * (size_t)R * 4 * p.us);
+  p.off_dc = p.off_rows + align128(sizeof(float) * 3 * (size_t)R);
+  p.off_inbox = p.off_dc + align128(sizeof(float) * (size_t)R * p.us);
+  p.off_part = p.off_inbox + align128(sizeof(float) * (size_t)kCluster * R * p.ps);
+  p.off_wh = p.off_part + align128(sizeof(float) * part);
+  p.off_pj = p.off_wh + (kMma<T> ? align128(sizeof(T) * (size_t)p.wrows * p.lwh) : 0);
+  p.bytes = p.off_pj + (kMma<T> && has_proj ? align128(sizeof(T) * (size_t)p.u16 * p.lpj) : 0);
   return p;
 }
 
-template <typename T, typename S>
-__global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
+template <typename X>
+__device__ __forceinline__ float ld(const X* p, size_t i) {
+  return Dtype<X>::to_float(p[i]);
+}
+
+// part[s] = a · w over the s-th slice of k on the tensor cores, as
+// lstm_cluster.cuh's mma_product (a [16][lda] bf16, rows past R zero; part
+// [8][cols] a slice), but each 16-deep step is summed by the tensor cores
+// into a zero accumulator and the steps are added in float32 rounded to
+// nearest: a long sum keeps the accuracy of an FMA chain (near a
+// cancellation in dc_new the tensor cores' own running sum, aligned and
+// rounded their own way, moved dgates by more than a bf16 rounding step),
+// and the steps' mma do not wait on one another.  w is [depth rounded to
+// 16][cols] (kNK false: fragments by ldmatrix.trans) or [cols][ldw], one
+// row per output column with k contiguous (kNK true: a weight used
+// transposed, fragments by ldmatrix).
+template <bool kNK>
+__device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int lda,
+                                                   int depth, const __nv_bfloat16* w,
+                                                   int ldw, int cols, Split sp,
+                                                   float* part) {
+  const int lane = threadIdx.x & 31;
+  const int tiles = cols / 16, steps = cdiv(depth, 16);
+  const __nv_bfloat16* a_lane = a + (lane & 15) * lda + (lane >> 4) * 8;
+  // kNK: w rows n = 8·(lane / 16) + lane % 8 at k + 8·((lane / 8) % 2), the
+  // four matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15,
+  // k 8-15), the b0 and b1 of each 8-column half; else w rows k = lane % 16
+  // at column n + 8·(lane / 16)
+  const __nv_bfloat16* w_lane =
+      kNK ? w + (size_t)((lane >> 4) * 8 + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8
+          : w + (size_t)(lane & 15) * ldw + (lane >> 4) * 8;
+  for (int task = threadIdx.x / 32; task < tiles * sp.slices; task += kWarps) {
+    const int n = task % tiles, s = task / tiles;
+    const int k0 = s * sp.per, k1 = min(steps, k0 + sp.per);
+    float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    // the steps' products are independent: unrolled, their loads and mma
+    // run ahead of the adds
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      uint32_t fa[4], fb[4];
+      ldsm_x4(fa, a_lane + k * 16);
+      if constexpr (kNK)
+        ldsm_x4(fb, w_lane + (size_t)n * 16 * ldw + k * 16);
+      else
+        ldsm_x4_trans(fb, w_lane + (size_t)k * 16 * ldw + n * 16);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[h][i] += z[i];
+      }
+    }
+    // lane holds rows lane / 4 (and + 8: padding, dropped), columns
+    // 2·(lane % 4) and + 1 of each 8-column half
+    float* dst = part + ((size_t)s * 8 + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
+    *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
+  }
+}
+
+// lstm_cluster.cuh's fma_product with w stored the other way, [cols][ldw]
+// float, k contiguous; rows of w at or past `rows` are taken as zero.  depth
+// is a multiple of 4.
+template <int R>
+__device__ __forceinline__ void fma_product_nk(const float* a, int lda, int depth,
+                                               const float* w, int ldw, int cols,
+                                               int rows, Split sp, float* part) {
+  const int quads = cols / 4;
+  for (int task = threadIdx.x; task < quads * sp.slices; task += kThreads) {
+    const int g = task % quads, s = task / quads;
+    const int k0 = s * sp.per, k1 = min(depth, k0 + sp.per);
+    float acc[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+    for (int k = k0; k < k1; k += 4) {
+      float av[R][4], wv[4][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) load4(a + r * lda + k, av[r]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = 4 * g + c;
+        if (n < rows) {
+          load4(w + (size_t)n * ldw + k, wv[c]);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wv[c][kk] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r][kk], wv[c][kk], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      *reinterpret_cast<float4*>(part + ((size_t)s * R + r) * cols + 4 * g) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+}
+
+// T: the compute dtype (bf16: the products on the tensor cores, the slices
+// in shared memory; float32: FMA, the slices read from L2); S: the store
+// dtype
+template <typename T, typename S, int R>
+__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(
     const float* __restrict__ gx,     // [T, 2B, 4H]
     const int* __restrict__ lengths,  // [B]
     const float* __restrict__ keep,   // [T, B] or null
     const S* __restrict__ c_all,      // [T, 2B, H] store dtype
     const S* __restrict__ h_all,      // [T, 2B, P] store dtype
-    const T* __restrict__ wh,         // [2, P, 4H]
-    const T* __restrict__ wht,        // [2, 4H, P]
-    const T* __restrict__ projt,      // [2, P, H] or null (P == H)
+    const T* __restrict__ wh_sl,      // [2, 8, P16, 4, US]
+    const T* __restrict__ pj_sl,      // [2, 8, U16, P16] or null (P == H)
     const float* __restrict__ peep,   // [2, 3, H] or null
     float forget_bias,
     const float* __restrict__ dout,   // [T, 2B, P]
@@ -94,189 +260,405 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     const float* __restrict__ dhfin,  // [2B, P]
     int steps, int batch, int H, int P,
     S* __restrict__ dgates,           // [T, 2B, 4H]
-    float* __restrict__ cnew_st,      // [T, 2B, H]
-    float* __restrict__ outb_st,      // [T, 2B, H] or null
-    float* __restrict__ doutp_st,     // [T, 2B, P] or null
+    T* __restrict__ outb_st,          // [T, 2B, H] or null
+    T* __restrict__ doutp_st,         // [T, 2B, P] or null
     float* __restrict__ dc_in,        // [T, 2B, H] or null
-    float* __restrict__ dh_in) {      // [T, 2B, P] or null
-  const int dir = blockIdx.y, b0 = blockIdx.x * kRows;
-  const int nr = min(kRows, batch - b0);
-  const int G = 4 * H, tid = threadIdx.x;
-  const bool has_proj = projt != nullptr;
-  const Plan pl = plan(H, P);
-  extern __shared__ __align__(16) float sm[];
-  float *a_h = sm + pl.a_h, *a_dp = sm + pl.a_dp, *cp = sm + pl.cp;
-  float *dc = sm + pl.dc, *dh = sm + pl.dh, *dp = sm + pl.dp;
-  float *gates = sm + pl.gates, *dob = sm + pl.dob, *a_dg = sm + pl.a_dg;
-  float* part = sm + pl.part;
-  for (int i = tid; i < (int)pl.part; i += kThreads) sm[i] = 0.0f;
-  __syncthreads();
+    float* __restrict__ dh_in,        // [T, 2B, P] or null
+    float* __restrict__ peep_part) {  // [tiles, 2, 3, H] or null
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const int dir = blockIdx.y, tile = blockIdx.x / kCluster, b0 = tile * R;
+  const int nr = min(R, batch - b0);
+  const bool has_proj = pj_sl != nullptr;
+  const BwdPlan pl = bwd_plan<T, S>(H, P, has_proj, R);
+  const int US = pl.us, G = pl.g, PS = pl.ps, PW = pl.pw, P16 = pl.p16;
+  const int prow = pl.prow, nd = pl.nd;
+  const int u0 = q * US, nu = max(0, min(US, H - u0));
+  const int p0 = q * PS;
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* hq = reinterpret_cast<T*>(smem_raw);                  // [arow][lda] h_prev
+  T* dq = reinterpret_cast<T*>(smem_raw + pl.off_dq);      // [arow][lda] dout_p
+  T* gq = reinterpret_cast<T*>(smem_raw + pl.off_gq);      // [arow][ldg] dgates
+  float* dh = reinterpret_cast<float*>(smem_raw + pl.off_dh);    // [R][PW]
+  float* dnx = reinterpret_cast<float*>(smem_raw + pl.off_dnx);  // [R][PW] dout
+  // the step before's loads, staged by cp.async: dout (swapped with dnx),
+  // the raw h and c rows, the owned units' gx
+  float* dnx_next = reinterpret_cast<float*>(smem_raw + pl.off_dnx2);  // [R][PW]
+  S* h_raw = reinterpret_cast<S*>(smem_raw + pl.off_hraw);             // [R][P]
+  S* c_raw = reinterpret_cast<S*>(smem_raw + pl.off_craw);             // [R][US]
+  float* gx_s = reinterpret_cast<float*>(smem_raw + pl.off_gxs);       // [R][4][US]
+  // each row's keep at steps of either parity, and its length
+  float* keep_s = reinterpret_cast<float*>(smem_raw + pl.off_rows);    // [2][R]
+  int* len_s = reinterpret_cast<int*>(keep_s + 2 * R);                 // [R]
+  float* dc = reinterpret_cast<float*>(smem_raw + pl.off_dc);    // [R][US]
+  float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [8][R][PS]
+  float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
+  float* part_d = part + (size_t)pl.gates.slices * prow * G;
+  T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_wh);
+  T* pj_s = reinterpret_cast<T*>(smem_raw + pl.off_pj);
+
+  const size_t slot = (size_t)dir * kCluster + q;
+  const T* wh_g = wh_sl + slot * (size_t)P16 * G;
+  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * P16 : nullptr;
+  const T zero = Dtype<T>::from_float(0.0f);
+  if constexpr (kMma<T>) {
+    copy_rows(wh_s, pl.lwh, wh_g, G, P16);
+    for (int i = tid; i < (pl.wrows - P16) * pl.lwh; i += kThreads)
+      wh_s[(size_t)P16 * pl.lwh + i] = zero;
+    if (has_proj) copy_rows(pj_s, pl.lpj, pj_g, P16, pl.u16);
+  }
+  for (int i = tid; i < pl.arow * pl.lda; i += kThreads) hq[i] = dq[i] = zero;
+  for (int i = tid; i < pl.arow * pl.ldg; i += kThreads) gq[i] = zero;
   const size_t frow = (size_t)dir * batch + b0;
-  for (int i = tid; i < nr * H; i += kThreads)
-    dc[i] = dcfin[(frow + i / H) * H + i % H];
-  for (int i = tid; i < nr * P; i += kThreads)
-    dh[i] = dhfin[(frow + i / P) * P + i % P];
-  const T* wh_d = wh + (size_t)dir * P * G;
-  const T* wht_d = wht + (size_t)dir * G * P;
-  const T* pj_d = has_proj ? projt + (size_t)dir * P * H : nullptr;
+  for (int i = tid; i < R * PW; i += kThreads) {
+    const int r = i / PW, p = i - r * PW;
+    dh[i] = r < nr && p < P ? dhfin[(frow + r) * P + p] : 0.0f;
+    dnx[i] = dnx_next[i] = 0.0f;
+  }
+  for (int i = tid; i < R * US; i += kThreads) {
+    const int r = i / US, j = i - r * US;
+    dc[i] = r < nr && j < nu ? dcfin[(frow + r) * H + u0 + j] : 0.0f;
+  }
+  if (tid < R) len_s[tid] = tid < nr ? lengths[b0 + tid] : 0;
+
+  // the cell phase: thread (rb, jb) owns one unit of one row
+  const int rb = tid / US, jb = tid - rb * US;
+  const bool in_b = tid < R * US && rb < nr;
+  const bool own_b = in_b && jb < nu;
+  const int ub = u0 + jb;
+  const int len_b = own_b ? lengths[b0 + rb] : 0;
   const float* pd = peep ? peep + (size_t)dir * 3 * H : nullptr;
-  const Split sg = split_of(G, P), sp = split_of(H, P), sh = split_of(P, G);
+  float pi = 0.0f, pf = 0.0f, po = 0.0f;
+  if (pd && own_b) {
+    pi = pd[ub];
+    pf = pd[H + ub];
+    po = pd[2 * H + ub];
+  }
+  float sum_i = 0.0f, sum_f = 0.0f, sum_o = 0.0f;  // the peephole sums
+  float gnext[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cnext = 0.0f;
+
+  // What step tt reads that no carry feeds: dout, the previous h (for hq,
+  // kept and rounded) and, for the owned units, gx and the previous c.
+  // fetch_step starts their copies into the staging buffers a step ahead
+  // (cp.async, 4 elements a copy: H and P are multiples of 4, and so are
+  // u0 and nu); stash_step, after they landed, puts them where the step
+  // reads them.
+  float keep_next = 1.0f;  // thread r < nr: row r's keep at the step fetched
+  auto fetch_step = [&](int tt) {
+    const size_t r0 = (size_t)tt * 2 * batch + frow;
+    const size_t rp = r0 - 2 * (size_t)batch;
+    if (keep && tid < nr) keep_next = keep[(size_t)tt * batch + b0 + tid];
+    const int pq = P / 4;
+    for (int i = tid; i < nr * pq; i += kThreads) {
+      const int r = i / pq, p = 4 * (i - r * pq);
+      cp_async4(dnx_next + r * PW + p, dout + (r0 + r) * P + p);
+      if (tt > 0) cp_async4(h_raw + r * P + p, h_all + (rp + r) * P + p);
+    }
+    const int uq = nu / 4;
+    for (int i = tid; i < nr * 5 * uq; i += kThreads) {
+      const int r = i / (5 * uq), e = i - r * 5 * uq, k = e / uq, j = 4 * (e - k * uq);
+      if (k < 4)
+        cp_async4(gx_s + (r * 4 + k) * US + j, gx + (r0 + r) * 4 * H + k * H + u0 + j);
+      else if (tt > 0)
+        cp_async4(c_raw + r * US + j, c_all + (rp + r) * H + u0 + j);
+    }
+    cp_async_commit();
+  };
+  // after the copies landed: the row keeps of step tt, then a barrier,
+  // then stash_step
+  auto land_step = [&](int tt) {
+    cp_async_wait_all();
+    if (tid < nr) keep_s[(tt & 1) * R + tid] = keep_next;
+    __syncthreads();
+  };
+  auto stash_step = [&](int tt) {
+    float* d = dnx;
+    dnx = dnx_next;
+    dnx_next = d;
+    const float* kps = keep_s + (tt & 1) * R;
+    for (int i = tid; i < nr * P; i += kThreads) {
+      const int r = i / P, p = i - r * P;
+      hq[r * pl.lda + p] =
+          Dtype<T>::from_float(tt > 0 ? kps[r] * ld(h_raw, (size_t)r * P + p) : 0.0f);
+    }
+    if (own_b) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) gnext[k] = gx_s[(rb * 4 + k) * US + jb];
+      cnext = tt > 0 ? kps[rb] * ld(c_raw, (size_t)rb * US + jb) : 0.0f;
+    }
+  };
+  auto gate_product = [&]() {
+    if constexpr (kMma<T>)
+      mma_product_f32add<false>(hq, pl.lda, P16, wh_s, pl.lwh, G, pl.gates, part);
+    else
+      fma_product<R>(hq, pl.lda, P16, wh_g, G, G, pl.gates, part);
+  };
+
+  cluster.sync();  // every block is resident and initialised
+  if (steps > 0) {
+    fetch_step(steps - 1);
+    land_step(steps - 1);
+    stash_step(steps - 1);
+    __syncthreads();
+    gate_product();
+  }
   __syncthreads();
 
   for (int t = steps - 1; t >= 0; --t) {
-    const size_t row0 = (size_t)t * 2 * batch + frow;   // this step's rows
-    const size_t prev0 = row0 - 2 * (size_t)batch;      // the step before
-    // 1. operands: the previous states, dout_p; the incoming carries
+    const size_t row0 = (size_t)t * 2 * batch + frow;
+    if (t > 0) fetch_step(t - 1);
+
+    // 1. dout_p over the full P; the stashes of the owned P-slice
     for (int i = tid; i < nr * P; i += kThreads) {
       const int r = i / P, p = i - r * P;
-      const float kp = keep ? keep[(size_t)t * batch + b0 + r] : 1.0f;
-      const float m = t < lengths[b0 + r] ? 1.0f : 0.0f;
-      const float hp = t > 0 ? kp * ld(h_all, (prev0 + r) * P + p) : 0.0f;
-      a_h[r * P + p] = rnd<T>(hp);
-      const float v = m * (dout[(row0 + r) * P + p] + dh[i]);
-      dp[i] = v;
-      a_dp[r * P + p] = rnd<T>(v);
-      if (doutp_st) doutp_st[(row0 + r) * P + p] = v;
-      if (dh_in) dh_in[(row0 + r) * P + p] = dh[i];
-    }
-    for (int i = tid; i < nr * H; i += kThreads) {
-      const int r = i / H, u = i - r * H;
-      const float kp = keep ? keep[(size_t)t * batch + b0 + r] : 1.0f;
-      cp[i] = t > 0 ? kp * ld(c_all, (prev0 + r) * H + u) : 0.0f;
-      if (dc_in) dc_in[(row0 + r) * H + u] = dc[i];
+      const float m = t < len_s[r] ? 1.0f : 0.0f;
+      const float dhv = dh[r * PW + p];
+      const float v = m * (dnx[r * PW + p] + dhv);
+      dq[r * pl.lda + p] = Dtype<T>::from_float(v);
+      if (p >= p0 && p < p0 + PS) {
+        if (doutp_st) doutp_st[(row0 + r) * P + p] = dq[r * pl.lda + p];
+        if (dh_in) dh_in[(row0 + r) * P + p] = dhv;
+      }
     }
     __syncthreads();
-    // 2. the gates, recomputed
-    block_product(a_h, P, P, wh_d, G, G, part);
-    __syncthreads();
-    for (int i = tid; i < nr * G; i += kThreads) {
-      const int r = i / G, g = i - r * G;
-      gates[i] = gx[(row0 + r) * G + g] + part_sum(part, sg.slices, G, r, g);
-    }
-    __syncthreads();
-    // 3. dout_blk = dout_p · projᵀ
+
+    // 2. dout_blk of the owned units
     if (has_proj) {
-      block_product(a_dp, P, P, pj_d, H, H, part);
+      if constexpr (kMma<T>)
+        mma_product_f32add<true>(dq, pl.lda, P16, pj_s, pl.lpj, nd, pl.dob, part_d);
+      else
+        fma_product_nk<R>(dq, pl.lda, P16, pj_g, P16, nd, pl.u16, pl.dob, part_d);
       __syncthreads();
-      for (int i = tid; i < nr * H; i += kThreads)
-        dob[i] = part_sum(part, sp.slices, H, i / H, i % H);
-    } else {
-      for (int i = tid; i < nr * H; i += kThreads) dob[i] = dp[i];
     }
-    __syncthreads();
-    // 4. the cell's backward, one (row, unit) a thread
-    for (int i = tid; i < nr * H; i += kThreads) {
-      const int r = i / H, u = i - r * H;
-      const float* g = gates + r * G;
-      const float m = t < lengths[b0 + r] ? 1.0f : 0.0f;
-      const float kp = keep ? keep[(size_t)t * batch + b0 + r] : 1.0f;
-      const float c0 = cp[i];
-      float gi = g[u], gf = g[2 * H + u], go = g[3 * H + u];
-      if (pd) {
-        gi += pd[u] * c0;
-        gf += pd[H + u] * c0;
-      }
-      const float si = sigmoidf(gi), tj = tanhf(g[H + u]);
-      const float sf = sigmoidf(gf + forget_bias);
-      const float cn = sf * c0 + si * tj;
-      if (pd) go += pd[2 * H + u] * cn;
-      const float so = sigmoidf(go), tc = tanhf(cn);
-      const float db = dob[i];
-      const float d_o = db * tc * so * (1.0f - so);
-      float dcn = db * so * (1.0f - tc * tc) + m * dc[i];
-      if (pd) dcn += d_o * pd[2 * H + u];
-      const float d_f = dcn * c0 * sf * (1.0f - sf);
-      const float d_i = dcn * tj * si * (1.0f - si);
-      const float d_j = dcn * si * (1.0f - tj * tj);
-      float dcp = dcn * sf + (1.0f - m) * dc[i];
-      if (pd) dcp += d_f * pd[H + u] + d_i * pd[u];
-      dc[i] = kp * dcp;
-      const float dgv[4] = {d_i, d_j, d_f, d_o};
-      S* dg_row = dgates + (row0 + r) * G;
+
+    // 3. the cell backward of the owned units
+    if (in_b) {
+      float dgv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (own_b) {
+        float gate[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        dg_row[k * H + u] = Dtype<S>::from_float(dgv[k]);
-        a_dg[r * G + k * H + u] = rnd<T>(dgv[k]);
+        for (int k = 0; k < 4; ++k) {
+          float v = gnext[k];
+          for (int s = 0; s < pl.gates.slices; ++s)
+            v += part[((size_t)s * prow + rb) * G + k * US + jb];
+          gate[k] = v;
+        }
+        const float m = t < len_b ? 1.0f : 0.0f;
+        const float kp = keep_s[(t & 1) * R + rb];
+        const float c0 = cnext;
+        gate[0] += pi * c0;
+        gate[2] += pf * c0;
+        const float si = sigmoidf(gate[0]), tj = tanhf(gate[1]);
+        const float sf = sigmoidf(gate[2] + forget_bias);
+        const float cn = sf * c0 + si * tj;
+        gate[3] += po * cn;
+        const float so = sigmoidf(gate[3]), tc = tanhf(cn);
+        float db;
+        if (has_proj) {
+          db = 0.0f;
+          for (int s = 0; s < pl.dob.slices; ++s)
+            db += part_d[((size_t)s * prow + rb) * nd + jb];
+        } else {
+          db = m * (dnx[rb * PW + ub] + dh[rb * PW + ub]);
+        }
+        const int ib = rb * US + jb;
+        const float dcv = dc[ib];
+        if (dc_in) dc_in[(row0 + rb) * H + ub] = dcv;
+        const float d_o = db * tc * so * (1.0f - so);
+        const float dcn = db * so * (1.0f - tc * tc) + m * dcv + d_o * po;
+        const float d_f = dcn * c0 * sf * (1.0f - sf);
+        const float d_i = dcn * tj * si * (1.0f - si);
+        const float d_j = dcn * si * (1.0f - tj * tj);
+        dc[ib] = kp * (dcn * sf + (1.0f - m) * dcv + d_f * pf + d_i * pi);
+        dgv[0] = d_i;
+        dgv[1] = d_j;
+        dgv[2] = d_f;
+        dgv[3] = d_o;
+        S* dg_row = dgates + (row0 + rb) * 4 * H;
+        float stored[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const S v = Dtype<S>::from_float(dgv[k]);
+          dg_row[k * H + ub] = v;
+          stored[k] = Dtype<S>::to_float(v);
+        }
+        // the peephole sums take dgates as stored
+        sum_i = fmaf(stored[0], c0, sum_i);
+        sum_f = fmaf(stored[2], c0, sum_f);
+        sum_o = fmaf(stored[3], cn, sum_o);
+        if (outb_st) outb_st[(row0 + rb) * H + ub] = Dtype<T>::from_float(so * tc);
       }
-      cnew_st[(row0 + r) * H + u] = cn;
-      if (outb_st) outb_st[(row0 + r) * H + u] = so * tc;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) gq[rb * pl.ldg + k * US + jb] = Dtype<T>::from_float(dgv[k]);
     }
     __syncthreads();
-    // 5. dh_prev = (1-m)·dh + dgates · whᵀ
-    block_product(a_dg, G, G, wht_d, P, P, part);
+
+    // 4. this block's partial dh_prev: dgates_q · wh_qᵀ, [R, PW]
+    float* part_h = part;
+    if constexpr (kMma<T>)
+      mma_product_f32add<true>(gq, pl.ldg, G, wh_s, pl.lwh, PW, pl.dh, part_h);
+    else
+      fma_product_nk<R>(gq, pl.ldg, G, wh_g, G, PW, P16, pl.dh, part_h);
     __syncthreads();
-    for (int i = tid; i < nr * P; i += kThreads) {
-      const int r = i / P, p = i - r * P;
-      const float m = t < lengths[b0 + r] ? 1.0f : 0.0f;
-      const float kp = keep ? keep[(size_t)t * batch + b0 + r] : 1.0f;
-      dh[i] = kp * ((1.0f - m) * dh[i] + part_sum(part, sh.slices, P, r, p));
-    }
-    __syncthreads();
-  }
-}
 
-// h of the step before, times this step's keep (the states a step starts
-// from; zeros at t = 0): the dwh product's left operand, of direction dir
-template <typename S>
-struct PrevKept {
-  const S* h;
-  const float* keep;
-  int batch, width;
-  __device__ float operator()(int dir, int t, int b, int m) const {
-    if (t == 0) return 0.0f;
-    const float v = ld(h, ((size_t)(t - 1) * 2 * batch + (size_t)dir * batch + b) * width + m);
-    return keep ? v * keep[(size_t)t * batch + b] : v;
-  }
-};
-
-// Scratch floats K2 needs: the split partials of both products and the
-// peephole partials.
-__host__ size_t scratch_floats(int steps, int batch, int H, int P) {
-  const int rows = steps * batch;
-  return (size_t)wgrad_splits(rows, 2, P, 4 * H) * 2 * P * 4 * H
-         + (size_t)wgrad_splits(rows, 2, H, P) * 2 * H * P
-         + (size_t)cdiv(rows, kPeepRows) * 2 * 3 * H;
-}
-
-// partial[chunk][dir][3][H]: the three peephole sums over kPeepRows rows
-template <typename S>
-__global__ void __launch_bounds__(256) peep_partial_kernel(
-    const S* __restrict__ dgates, const S* __restrict__ c_all,
-    const float* __restrict__ cnew, const float* __restrict__ keep,
-    int steps, int batch, int H, float* __restrict__ partial) {
-  const int chunk = blockIdx.x, dir = blockIdx.y, G = 4 * H;
-  const int rows = steps * batch;
-  const int k0 = chunk * kPeepRows, k1 = min(rows, k0 + kPeepRows);
-  for (int u = threadIdx.x; u < H; u += 256) {
-    float si = 0.0f, sf = 0.0f, so = 0.0f;
-    for (int k = k0; k < k1; ++k) {
-      const int t = k / batch, b = k - t * batch;
-      const size_t row = (size_t)t * 2 * batch + (size_t)dir * batch + b;
-      float c0 = 0.0f;
-      if (t > 0) {
-        c0 = ld(c_all, (row - 2 * (size_t)batch) * H + u);
-        if (keep) c0 *= keep[(size_t)t * batch + b];
+    // 5a. reduce-scatter: each P-slice's partial into its owner's inbox
+    const int quads = PW / 4;
+    for (int i = tid; i < nr * quads; i += kThreads) {
+      const int r = i / quads, p = 4 * (i - r * quads);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int s = 0; s < pl.dh.slices; ++s) {
+        const float4 w = *reinterpret_cast<const float4*>(part_h + ((size_t)s * prow + r) * PW + p);
+        v.x += w.x;
+        v.y += w.y;
+        v.z += w.z;
+        v.w += w.w;
       }
-      si = fmaf(ld(dgates, row * G + u), c0, si);
-      sf = fmaf(ld(dgates, row * G + 2 * H + u), c0, sf);
-      so = fmaf(ld(dgates, row * G + 3 * H + u), cnew[row * H + u], so);
+      const int owner = p / PS;
+      float* dst = cluster.map_shared_rank(inbox, owner) + ((size_t)q * R + r) * PS + p - owner * PS;
+      *reinterpret_cast<float4*>(dst) = v;
     }
-    float* out = partial + ((size_t)chunk * 2 + dir) * 3 * H;
-    out[u] = si;
-    out[H + u] = sf;
-    out[2 * H + u] = so;
+    __syncthreads();  // part_h is read before the next gate sums overwrite it
+    cluster_arrive();
+    if (t > 0) {
+      land_step(t - 1);
+      stash_step(t - 1);
+      __syncthreads();
+      gate_product();
+    }
+    cluster_wait();
+
+    // 5b. the eight partials of the owned slice, in block order; the carry
+    // update; the new slice into every block
+    const int squads = PS / 4;
+    for (int i = tid; i < nr * squads; i += kThreads) {
+      const int r = i / squads, c = 4 * (i - r * squads), p = p0 + c;
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int b = 0; b < kCluster; ++b) {
+        const float4 w = *reinterpret_cast<const float4*>(inbox + ((size_t)b * R + r) * PS + c);
+        s[0] += w.x;
+        s[1] += w.y;
+        s[2] += w.z;
+        s[3] += w.w;
+      }
+      const float m = t < len_s[r] ? 1.0f : 0.0f;
+      const float kp = keep_s[(t & 1) * R + r];
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = p + e < P ? kp * ((1.0f - m) * dh[r * PW + p + e] + s[e]) : 0.0f;
+      const float4 nv = make_float4(v[0], v[1], v[2], v[3]);
+      for (int b = 0; b < kCluster; ++b)
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(dh, b) + r * PW + p) = nv;
+    }
+    cluster.sync();
+  }
+
+  // this row tile's peephole sums: the rows added in order
+  if (peep_part) {
+    float* sums = part;  // [3][R][US]
+    if (in_b) {
+      sums[(0 * R + rb) * US + jb] = sum_i;
+      sums[(1 * R + rb) * US + jb] = sum_f;
+      sums[(2 * R + rb) * US + jb] = sum_o;
+    }
+    __syncthreads();
+    float* out = peep_part + (size_t)(tile * 2 + dir) * 3 * H;
+    for (int i = tid; i < 3 * nu; i += kThreads) {
+      const int k = i / nu, j = i - k * nu;
+      float v = 0.0f;
+      for (int r = 0; r < nr; ++r) v += sums[(k * R + r) * US + j];
+      out[k * H + u0 + j] = v;
+    }
   }
 }
 
 struct Args {
-  const void *gx, *lengths, *keep, *c_all, *h_all, *wh, *wht, *projt, *peep;
+  const void *gx, *lengths, *keep, *c_all, *h_all, *wh_sl, *proj_rows, *peep;
   float forget_bias;
   const void *dout, *dcfin, *dhfin;
   int steps, batch, units, out_dim;
-  void *dgates, *cnew_st, *outb_st, *doutp_st, *dc_in, *dh_in;
-  void *dwh, *dproj, *dpeep, *scratch;
+  void *dgates, *outb_st, *doutp_st, *dc_in, *dh_in, *dwh, *dproj, *dpeep, *scratch;
   cudaStream_t stream;
 };
+
+// How the recurrence is launched: batch rows a cluster, clusters, dynamic
+// shared memory a block (rows = 0: not with this R).
+struct Launch {
+  int rows, clusters;
+  size_t smem;
+};
+
+// Set up the launch with R rows a cluster, if its shared memory fits and
+// the occupancy API says all 2·ceil(B/R) clusters are resident at once (with
+// `all`) or at least one is; launch unless `dry`.  how->rows = 0: not with
+// this R.
+template <typename T, typename S, int R>
+cudaError_t launch_rows(const Args& a, bool all, bool dry, Launch* how) {
+  how->rows = 0;
+  const bool has_proj = a.proj_rows != nullptr;
+  const BwdPlan pl = bwd_plan<T, S>(a.units, a.out_dim, has_proj, R);
+  if (R * pl.us > kThreads || pl.bytes > kMaxSmemPerBlock) return cudaSuccess;
+  auto kernel = lstm_bwd_kernel<T, S, R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
+  if (err != cudaSuccess) return err;
+  const int clusters = 2 * cdiv(a.batch, R);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * cdiv(a.batch, R), 2, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = pl.bytes;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (fit < (all ? clusters : 1)) return cudaSuccess;
+  how->rows = R;
+  how->clusters = clusters;
+  how->smem = pl.bytes;
+  if (dry) return cudaSuccess;
+  const bool peeps = a.peep != nullptr;
+  float* peep_part = peeps ? (float*)a.scratch : nullptr;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, (const float*)a.gx, (const int*)a.lengths, (const float*)a.keep,
+      (const S*)a.c_all, (const S*)a.h_all, (const T*)a.wh_sl, (const T*)a.proj_rows,
+      (const float*)a.peep, a.forget_bias, (const float*)a.dout, (const float*)a.dcfin,
+      (const float*)a.dhfin, a.steps, a.batch, a.units, a.out_dim, (S*)a.dgates,
+      (T*)a.outb_st, (T*)a.doutp_st, (float*)a.dc_in, (float*)a.dh_in, peep_part);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The smallest R of {4, 6, 8} whose clusters are all resident at once;
+// else the largest with at least one resident (the clusters then run in
+// waves); else the launch is refused, as it is for bf16 slices that do not
+// fit in shared memory (H or P above 320, as for K1).
+template <typename T, typename S>
+cudaError_t choose(const Args& a, bool dry, Launch* how) {
+  cudaError_t err;
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool all = pass == 0;
+    err = all ? launch_rows<T, S, 4>(a, all, dry, how) : launch_rows<T, S, 8>(a, all, dry, how);
+    if (err != cudaSuccess || how->rows) return err;
+    err = launch_rows<T, S, 6>(a, all, dry, how);
+    if (err != cudaSuccess || how->rows) return err;
+    err = all ? launch_rows<T, S, 8>(a, all, dry, how) : launch_rows<T, S, 4>(a, all, dry, how);
+    if (err != cudaSuccess || how->rows) return err;
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// the peephole partials lead the scratch: one [2, 3, H] per row tile of the
+// smallest R
+size_t peep_floats(int batch, int units) { return (size_t)cdiv(batch, 4) * 2 * 3 * units; }
 
 template <typename T, typename S>
 int launch(int device, const Args& a) {
@@ -284,62 +666,25 @@ int launch(int device, const Args& a) {
   if (err != cudaSuccess) return err;
   const int H = a.units, P = a.out_dim;
   if (a.batch <= 0 || a.steps <= 0) return cudaSuccess;
-  if (H <= 0 || P <= 0 || H % 4 || P % 4 || (!a.projt && P != H))
+  if (H <= 0 || P <= 0 || H % 4 || P % 4 || (!a.proj_rows && P != H))
     return cudaErrorInvalidValue;
-  const Plan pl = plan(H, P);
-  const size_t smem = pl.total * sizeof(float);
-  if (smem > kMaxSmemPerBlock) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(lstm_bwd_kernel<T, S>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  Launch how;
+  err = choose<T, S>(a, false, &how);
   if (err != cudaSuccess) return err;
-  dim3 grid(cdiv(a.batch, kRows), 2);
-  lstm_bwd_kernel<T, S><<<grid, kThreads, smem, a.stream>>>(
-      (const float*)a.gx, (const int*)a.lengths, (const float*)a.keep,
-      (const S*)a.c_all, (const S*)a.h_all, (const T*)a.wh, (const T*)a.wht,
-      (const T*)a.projt, (const float*)a.peep, a.forget_bias,
-      (const float*)a.dout, (const float*)a.dcfin, (const float*)a.dhfin,
-      a.steps, a.batch, H, P, (S*)a.dgates, (float*)a.cnew_st,
-      (float*)a.outb_st, (float*)a.doutp_st, (float*)a.dc_in, (float*)a.dh_in);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  const int rows = a.steps * a.batch;
-  float* wh_partial = (float*)a.scratch;
-  float* proj_partial = wh_partial + (size_t)wgrad_splits(rows, 2, P, 4 * H) * 2 * P * 4 * H;
-  float* peep_partial = proj_partial + (size_t)wgrad_splits(rows, 2, H, P) * 2 * H * P;
-  const int B2 = 2 * a.batch;
-  err = wgrad(PrevKept<S>{(const S*)a.h_all, (const float*)a.keep, a.batch, P},
-              Rows<S>{(const S*)a.dgates, B2, a.batch, 4 * H}, bf16, a.steps, 2,
-              a.batch, P, 4 * H, wh_partial, a.dwh, a.stream);
-  if (err != cudaSuccess) return err;
-  if (a.projt) {
-    err = wgrad(Rows<float>{(const float*)a.outb_st, B2, a.batch, H},
-                Rows<float>{(const float*)a.doutp_st, B2, a.batch, P}, bf16, a.steps, 2,
-                a.batch, H, P, proj_partial, a.dproj, a.stream);
-    if (err != cudaSuccess) return err;
-  }
-  if (a.peep) {
-    const int chunks = cdiv(a.steps * a.batch, kPeepRows);
-    peep_partial_kernel<S><<<dim3(chunks, 2), 256, 0, a.stream>>>(
-        (const S*)a.dgates, (const S*)a.c_all, (const float*)a.cnew_st,
-        (const float*)a.keep, a.steps, a.batch, H, peep_partial);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    split_sum_kernel<<<264, 256, 0, a.stream>>>(peep_partial, chunks,
-                                                (size_t)2 * 3 * H, (float*)a.dpeep);
-    err = cudaGetLastError();
-  }
-  return err;
+  constexpr bool kBf16 = kMma<T>;
+  return lstm_bwd_wgrad(kBf16, std::is_same<S, __nv_bfloat16>::value, a.h_all, a.keep,
+                        a.dgates, a.proj_rows ? a.outb_st : nullptr, a.doutp_st,
+                        a.peep ? (const float*)a.scratch : nullptr,
+                        cdiv(a.batch, how.rows), a.steps, a.batch, H, P, a.dwh, a.dproj,
+                        a.dpeep, (float*)a.scratch + peep_floats(a.batch, H), a.stream);
 }
 
 }  // namespace
 
-#define LSTM_BWD_PACK                                                         \
-  Args{gx, lengths, keep, c_all, h_all, wh, wht, projt, peep, forget_bias,    \
-       dout, dcfin, dhfin, steps, batch, units, out_dim, dgates, cnew_st,     \
-       outb_st, doutp_st, dc_in, dh_in, dwh, dproj, dpeep, scratch,           \
-       (cudaStream_t)stream}
+#define LSTM_BWD_PACK                                                          \
+  Args{gx, lengths, keep, c_all, h_all, wh_sl, proj_rows, peep, forget_bias,  \
+       dout, dcfin, dhfin, steps, batch, units, out_dim, dgates, outb_st,     \
+       doutp_st, dc_in, dh_in, dwh, dproj, dpeep, scratch, (cudaStream_t)stream}
 
 extern "C" int lstm_bwd_f32(LSTM_BWD_ARGS) {
   return store_bf16 ? launch<float, __nv_bfloat16>(device, LSTM_BWD_PACK)
@@ -353,5 +698,27 @@ extern "C" int lstm_bwd_bf16(LSTM_BWD_ARGS) {
 
 extern "C" long long lstm_bwd_scratch_floats(int steps, int batch, int units,
                                              int out_dim) {
-  return (long long)scratch_floats(steps, batch, units, out_dim);
+  return (long long)peep_floats(batch, units) +
+         lstm_bwd_wgrad_scratch_floats(steps, batch, units, out_dim);
+}
+
+// How K2 would launch on `device` at this shape: rows a cluster, clusters,
+// and dynamic shared memory a block; a CUDA error if it cannot.
+extern "C" int lstm_bwd_config(int device, int batch, int units, int out_dim,
+                               int has_proj, int bf16, int* rows, int* clusters,
+                               long long* smem) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Args a = {};
+  a.batch = batch;
+  a.units = units;
+  a.out_dim = out_dim;
+  a.proj_rows = has_proj ? (const void*)1 : nullptr;
+  Launch how = {0, 0, 0};
+  err = bf16 ? choose<__nv_bfloat16, __nv_bfloat16>(a, true, &how)
+             : choose<float, float>(a, true, &how);
+  *rows = how.rows;
+  *clusters = how.clusters;
+  *smem = (long long)how.smem;
+  return err;
 }

@@ -1,10 +1,11 @@
-// Shared pieces of the LSTM backward kernels (lstm_bwd.cu, K2;
-// lstm_stack_bwd.cu, K13): one block of kThreads threads owns kRows batch
-// rows and walks the steps in reverse, its products split over all threads
-// (4 columns and a slice of k each) with the weights read from L2; the
-// partial sums of a split product are added in a fixed order.  The weight
-// gradients of both are one tiled FMA GEMM over the steps·batch rows of each
-// group (direction or layer), reading its operands through row accessors.
+// Shared pieces of the unidirectional stack's backward (lstm_stack_bwd.cu,
+// K13): one block of kThreads threads owns kRows batch rows and walks the
+// steps in reverse, its products split over all threads (4 columns and a
+// slice of k each) with the weights read from L2; the partial sums of a
+// split product are added in a fixed order.  Its weight gradients are one
+// tiled FMA GEMM over the steps·batch rows of each group (layer), reading
+// its operands through row accessors; K2's float32 weight gradients
+// (lstm_bwd_wgrad.cu, a direction a group) are the same GEMM.
 #pragma once
 
 #include "common.cuh"

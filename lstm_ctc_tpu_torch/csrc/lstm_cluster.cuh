@@ -1,6 +1,7 @@
-// The cluster machinery of the LSTM forward kernels (lstm_fwd.cu, K1;
-// lstm_stack_fwd.cu, K12): an 8-block cluster per tile of R batch rows, each
-// block owning 1/8 of the hidden units (all four gates of them) and of the
+// The cluster machinery of the LSTM kernels (lstm_fwd.cu, K1;
+// lstm_stack_fwd.cu, K12; lstm_bwd.cu, K2, which keeps its own products and
+// adds the split cluster barrier): an 8-block cluster per tile of R batch
+// rows, each block owning 1/8 of the hidden units (all four gates of them) and of the
 // projection columns; its slices of the recurrent and projection weights
 // stay in its shared memory (bf16) or are read from L2 (float32).  Per step:
 // the gate sums of the owned units from the full rounded h (mma_product or
@@ -66,12 +67,13 @@ __host__ __device__ Split fma_split(int cols, int depth) {
   return sp;
 }
 
-// the k-split that gives the busiest warp the fewest 16-deep steps
-__host__ __device__ Split mma_split(int cols, int depth) {
+// the k-split, into at most `most` slices, that gives the busiest warp the
+// fewest 16-deep steps
+__host__ __device__ Split mma_split(int cols, int depth, int most = kMaxSlices) {
   const int steps = cdiv(depth, 16), tiles = cols / 16;
   Split best = {steps, 1};
   int best_cost = cdiv(tiles, kWarps) * steps;
-  for (int ks = 2; ks <= kMaxSlices && ks <= steps; ++ks) {
+  for (int ks = 2; ks <= most && ks <= steps; ++ks) {
     const int per = cdiv(steps, ks);
     const int cost = cdiv(tiles * cdiv(steps, per), kWarps) * per;
     if (cost < best_cost) {
@@ -216,6 +218,18 @@ __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
     *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
     *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
   }
+}
+
+// The two halves of a cluster barrier (arrive releases this thread's writes,
+// wait acquires the others'): work that neither reads what other blocks
+// write before the barrier nor writes what they read after it can run
+// between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // Write stage [nr][width] (this block's slice) into rows of `target`

@@ -326,6 +326,33 @@ def _previous(states, keep4):
     return prev if keep4 is None else prev * keep4
 
 
+def _weight_grads(dgates, h_prev, c_prev, c_new, out_blk, dout_p, cdt):
+    """The layer backward's weight gradients over its per-step tensors
+    ``[T, 2, B, X]`` (dgates as stored, h_prev and c_prev kept): dwh =
+    Σ h_prevᵀ·dgates, dproj = Σ out_blkᵀ·dout_p (None when out_blk is) with
+    operands rounded to ``cdt`` and float32 sums, and the peephole sums
+    (None when c_new is) from dgates as stored."""
+    time_steps, _, batch, h4 = dgates.shape
+    num_units = h4 // 4
+
+    def rows_of(x):                          # [T, 2, B, X] -> [2, T·B, X]
+        return x.transpose(0, 1).reshape(2, time_steps * batch, x.shape[-1])
+
+    dwh = matmul_f32(rows_of(h_prev).transpose(1, 2), rows_of(dgates), cdt)
+    dproj = None
+    if out_blk is not None:
+        dproj = matmul_f32(rows_of(out_blk).transpose(1, 2), rows_of(dout_p),
+                           cdt)
+    dpeep = None
+    if c_new is not None:
+        dg32 = dgates.float()
+        dpeep = torch.stack([
+            (dg32[..., :num_units] * c_prev).sum((0, 2)),
+            (dg32[..., 2 * num_units:3 * num_units] * c_prev).sum((0, 2)),
+            (dg32[..., 3 * num_units:] * c_new).sum((0, 2))], dim=1)
+    return dwh, dproj, dpeep
+
+
 def dual_recurrence_backward(gx, sequence_length, keep, wh, proj, peep,
                              forget_bias: float, c_all, h_all, dout, dcfin,
                              dhfin, store_dtype=torch.float32,
@@ -374,23 +401,10 @@ def dual_recurrence_backward(gx, sequence_length, keep, wh, proj, peep,
     def stacked(rows):                       # forward time order
         return torch.stack(rows[::-1])       # [T, 2, B, X]
 
-    def rows_of(x):                          # [T, 2, B, X] -> [2, T·B, X]
-        return x.transpose(0, 1).reshape(2, time_steps * batch, x.shape[-1])
-
     dgates = stacked(dgs)
-    dwh = matmul_f32(rows_of(h_prev).transpose(1, 2), rows_of(dgates), cdt)
-    dproj = None
-    if proj is not None:
-        dproj = matmul_f32(rows_of(stacked(out_blks)).transpose(1, 2),
-                           rows_of(stacked(dout_ps)), cdt)
-    dpeep = None
-    if peep is not None:
-        dg32 = dgates.float()
-        dpeep = torch.stack([
-            (dg32[..., :num_units] * c_prev).sum((0, 2)),
-            (dg32[..., 2 * num_units:3 * num_units] * c_prev).sum((0, 2)),
-            (dg32[..., 3 * num_units:] * stacked(c_news)).sum((0, 2))],
-            dim=1)
+    dwh, dproj, dpeep = _weight_grads(
+        dgates, h_prev, c_prev, None if peep is None else stacked(c_news),
+        None if proj is None else stacked(out_blks), stacked(dout_ps), cdt)
     result = (dgates.reshape(time_steps, b2, h4), dwh, dproj, dpeep)
     if steps:
         result += (stacked(dc_in).reshape(time_steps, b2, num_units),
@@ -441,26 +455,37 @@ def dual_recurrence_backward_fold(x2, wx, gx, sequence_length, keep, wh,
 
 def replay_backward_steps(gx, sequence_length, keep, wh, proj, peep,
                           forget_bias: float, c_all, h_all, dout, dc_in,
-                          dh_in, store_dtype=torch.float32):
+                          dh_in, store_dtype=torch.float32, dgates=None):
     """Every step of the plain backward at once, each started from the
     carried cotangents entering it as given by dc_in ``[T, 2B, H]`` and
     dh_in ``[T, 2B, P]``.  Returns (dgates in ``store_dtype``, dc_out,
     dh_out): dc_out[t] and dh_out[t] are what step t carries on to step
-    t-1, to be held against dc_in[t-1] and dh_in[t-1].
+    t-1, to be held against dc_in[t-1] and dh_in[t-1].  With ``dgates`` (a
+    kernel's own ``[T, 2B, 4H]``, as stored), also (dwh, dproj, dpeep)
+    summed as ``dual_recurrence_backward`` sums them, over those dgates and
+    the steps' c_new, out_blk and dout_p.
 
     Held against a kernel's own per-step carries, this checks each step
-    alone: a rounding difference is not carried on through the sequence."""
+    alone: a rounding difference is not carried on through the sequence;
+    and held against its weight gradients, their products alone."""
     time_steps, b2, h4 = gx.shape
     gx4, keep4, valid4 = _step_views(gx, sequence_length, keep)
 
     def view(x):
         return x.float().reshape(time_steps, 2, b2 // 2, x.shape[-1])
 
-    dg, dc, dh, _, _, _ = _bwd_step(
-        gx4, keep4, valid4, _previous(c_all, keep4), _previous(h_all, keep4),
-        view(dout), view(dc_in), view(dh_in), wh, proj, peep, forget_bias)
-    return (dg.reshape(time_steps, b2, h4).to(store_dtype),
-            dc.reshape(time_steps, b2, -1), dh.reshape(time_steps, b2, -1))
+    c_prev, h_prev = _previous(c_all, keep4), _previous(h_all, keep4)
+    dg, dc, dh, c_new, out_blk, dout_p = _bwd_step(
+        gx4, keep4, valid4, c_prev, h_prev, view(dout), view(dc_in),
+        view(dh_in), wh, proj, peep, forget_bias)
+    result = (dg.reshape(time_steps, b2, h4).to(store_dtype),
+              dc.reshape(time_steps, b2, -1), dh.reshape(time_steps, b2, -1))
+    if dgates is None:
+        return result
+    return result + (_weight_grads(
+        dgates.reshape(time_steps, 2, b2 // 2, h4), h_prev, c_prev,
+        None if peep is None else c_new, None if proj is None else out_blk,
+        dout_p, wh.dtype),)
 
 
 def lstm_scan(params: Dict, x: torch.Tensor, sequence_length: torch.Tensor,

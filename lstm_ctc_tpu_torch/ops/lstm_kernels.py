@@ -21,6 +21,8 @@ or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -263,21 +265,20 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=device, dtype=dtype)
 
-    wht = wh.transpose(1, 2).contiguous()
-    projt = None if proj is None else proj.transpose(1, 2).contiguous()
+    lib = _build.library()
+    wh_sl, proj_rows = _backward_slices(wh, proj, lib.lstm_fwd_cluster_size())
     dgates = empty(time_steps, b2, h4, dtype=store_dtype)
-    cnew = empty(time_steps, b2, num_units)
     outb = doutp = dproj = None
     if proj is not None:
-        outb = empty(time_steps, b2, num_units)
-        doutp = empty(time_steps, b2, out_dim)
+        # the dproj product's operands, stashed in the compute dtype
+        outb = empty(time_steps, b2, num_units, dtype=wh.dtype)
+        doutp = empty(time_steps, b2, out_dim, dtype=wh.dtype)
         dproj = empty(2, num_units, out_dim)
     dc_in = dh_in = None
     if steps:
         dc_in = empty(time_steps, b2, num_units)
         dh_in = empty(time_steps, b2, out_dim)
     dwh = empty(2, out_dim, h4)
-    lib = _build.library()
     bf16 = wh.dtype == torch.bfloat16
     dpeep = None if peep is None else empty(2, 3, num_units)
     if fold is None:
@@ -292,11 +293,10 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
                                "be read")
         scratch = empty(floats)
     args = [device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
-            _ptr(c_all), _ptr(h_all), _ptr(wh), _ptr(wht), _ptr(projt),
+            _ptr(c_all), _ptr(h_all), _ptr(wh_sl), _ptr(proj_rows),
             _ptr(peep), float(forget_bias), _ptr(dout), _ptr(dcfin),
             _ptr(dhfin), time_steps, batch, num_units, out_dim,
-            int(store_dtype == torch.bfloat16), _ptr(dgates), _ptr(cnew),
-            _ptr(outb), _ptr(doutp), _ptr(dc_in), _ptr(dh_in), _ptr(dwh),
+            int(store_dtype == torch.bfloat16), _ptr(dgates), _ptr(outb), _ptr(doutp), _ptr(dc_in), _ptr(dh_in), _ptr(dwh),
             _ptr(dproj), _ptr(dpeep), _ptr(scratch),
             torch.cuda.current_stream(device).cuda_stream]
     folded = None
@@ -310,6 +310,47 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
         launch = lib.lstm_bwd_fold_bf16 if bf16 else lib.lstm_bwd_fold_f32
     _build.check(launch(*args), "lstm_bwd_fold" if fold else "lstm_bwd")
     return dgates, dwh, dproj, dpeep, dc_in, dh_in, folded
+
+
+def _proj_rows(proj, cluster: int):
+    """proj as the backward's cluster blocks own it: block q holds the rows
+    of its hidden units [q·US, (q+1)·US), proj ``[n, H, P]`` → ``[n,
+    cluster, U16, P16]`` (U16: US rounded up to 16, P16: P rounded up to
+    16), zero-padded, as in ``csrc/lstm_bwd.cu`` ``bwd_plan``."""
+    n, units, out_dim = proj.shape
+    us = _round_up(-(-units // cluster), 8)
+    rows = F.pad(proj, (0, _round_up(out_dim, 16) - out_dim,
+                        0, cluster * us - units))
+    rows = rows.view(n, cluster, us, rows.shape[-1])
+    return F.pad(rows, (0, 0, 0, _round_up(us, 16) - us)).contiguous()
+
+
+def _backward_slices(wh, proj, cluster: int):
+    """(wh slices as K1 holds them, proj rows or None) for K2, made once
+    per weight tensor (``cells.derived``)."""
+    sources = [t for t in (wh, proj) if t is not None]
+    wh_sl = cells.derived(sources, ("cluster slices", cluster),
+                          lambda: _slices(wh, proj, cluster))[0]
+    if proj is None:
+        return wh_sl, None
+    return wh_sl, cells.derived([proj], ("proj rows", cluster),
+                                lambda: _proj_rows(proj, cluster))
+
+
+def backward_config(device, batch: int, units: int, out_dim: int,
+                    has_proj: bool, dtype) -> dict:
+    """How K2 launches on ``device`` at this shape: ``rows`` (batch rows a
+    cluster), ``clusters`` and ``smem_bytes`` (shared memory a block) (the occupancy API's choice of R, as the launcher makes it)."""
+    lib = _build.library()
+    rows, clusters = ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_longlong()
+    err = lib.lstm_bwd_config(device.index or 0, batch, units, out_dim,
+                              int(has_proj), int(dtype == torch.bfloat16),
+                              ctypes.byref(rows), ctypes.byref(clusters),
+                              ctypes.byref(smem))
+    _build.check(err, "lstm_bwd_config")
+    return {"rows": rows.value, "clusters": clusters.value,
+            "smem_bytes": smem.value}
 
 
 class _LstmLayer(torch.autograd.Function):

@@ -143,9 +143,10 @@ def test_layer_backward_matches_jax(jref, reference, seed, peep, proj,
 
 
 def backward_args(seed, device="cpu", dtype=torch.float32, store=None,
-                  proj=8, reset=True, **shape):
+                  proj=8, reset=True, cot_scale=1.0, **shape):
     """The backward wrapper's arguments for one layer: the forward run
-    through ``lstm_layer_forward`` with states in the store dtype."""
+    through ``lstm_layer_forward`` with states in the store dtype, and
+    cotangents drawn from N(0, cot_scale²)."""
     store = store or dtype
     fw, bw, x, seq_len, reset_mask, _ = random_case(seed, proj=proj,
                                                     reset=reset, **shape)
@@ -162,9 +163,9 @@ def backward_args(seed, device="cpu", dtype=torch.float32, store=None,
     out, cfin, hfin, c_all, h_all = lstm_kernels.lstm_layer_forward(
         *args, states=True, store_dtype=store)
     gen = torch.Generator().manual_seed(seed + 100)
-    dout = torch.randn(out.shape, generator=gen).to(device)
-    dcfin = torch.randn(cfin.shape, generator=gen).to(device)
-    dhfin = torch.randn(hfin.shape, generator=gen).to(device)
+    dout = (cot_scale * torch.randn(out.shape, generator=gen)).to(device)
+    dcfin = (cot_scale * torch.randn(cfin.shape, generator=gen)).to(device)
+    dhfin = (cot_scale * torch.randn(hfin.shape, generator=gen)).to(device)
     return args + (c_all, h_all, dout, dcfin, dhfin)
 
 
@@ -206,12 +207,21 @@ def ratio(got, ref):
         float(ref.float().abs().max()), 1e-30)
 
 
+# the tests' small widths (padded in the cluster layout), and the flagship
+# layer, B=32, T=384, H=P=320, with the cotangents' scale of chip_smoke.py's
+# phase 7 (0.1): dgates' one-rounding-step bound has an absolute floor of
+# 1e-6, and at unit scale, near a cancellation in dout_blk, two float32
+# orders of its sum can put one of the 31M dgates past it
+SMALL = dict(batch=5, time_steps=40)
+FLAGSHIP = dict(batch=32, time_steps=384, units=320, cot_scale=0.1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("proj,reset", [(8, True), (8, False),
-                                        (None, True)])
-def test_kernel_matches_plain_on_gpu_f32(cuda, proj, reset):
-    args = backward_args(8, cuda, proj=proj, reset=reset, batch=5,
-                         time_steps=40)
+@pytest.mark.parametrize("proj,reset,shape", [
+    (8, True, SMALL), (8, False, SMALL), (None, True, SMALL),
+    (320, True, FLAGSHIP), (None, False, FLAGSHIP)])
+def test_kernel_matches_plain_on_gpu_f32(cuda, proj, reset, shape):
+    args = backward_args(8, cuda, proj=proj, reset=reset, **shape)
     before = lstm_kernels.lstm_layer_backward.launches
     got = lstm_kernels.lstm_layer_backward(*args)
     ref = cells.dual_recurrence_backward(*args)
@@ -224,15 +234,45 @@ def test_kernel_matches_plain_on_gpu_f32(cuda, proj, reset):
 
 
 @pytest.mark.cuda
-def test_kernel_steps_replay_on_gpu_bf16(cuda):
-    args = backward_args(9, cuda, dtype=torch.bfloat16, batch=5,
-                         time_steps=40)
-    dgates, _, _, _, dc_in, dh_in = lstm_kernels.lstm_layer_backward(
-        *args, store_dtype=torch.bfloat16, steps=True)
-    dg, dc_out, dh_out = cells.replay_backward_steps(
-        *args[:-2], dc_in, dh_in, store_dtype=torch.bfloat16)
+@pytest.mark.parametrize("proj,shape", [(8, SMALL), (320, FLAGSHIP),
+                                        (None, FLAGSHIP)])
+def test_kernel_steps_replay_on_gpu_bf16(cuda, proj, shape):
+    args = backward_args(9, cuda, dtype=torch.bfloat16, proj=proj, **shape)
+    dgates, dwh, dproj, dpeep, dc_in, dh_in = (
+        lstm_kernels.lstm_layer_backward(*args, store_dtype=torch.bfloat16,
+                                         steps=True))
+    dg, dc_out, dh_out, wgrads = cells.replay_backward_steps(
+        *args[:-2], dc_in, dh_in, store_dtype=torch.bfloat16, dgates=dgates)
     assert ratio(dc_out[1:], dc_in[:-1]) <= 1e-3
     assert ratio(dh_out[1:], dh_in[:-1]) <= 1e-3
     # dgates is stored in bf16: one rounding step apart at most
     diff = (dgates.float() - dg.float()).abs()
     assert bool((diff <= 2.0 ** -7 * dg.float().abs() + 1e-6).all())
+    # the tensor-core weight gradients against the plain sums over the
+    # kernel's own dgates and the steps' stashes
+    for g, r in zip((dwh, dproj, dpeep), wgrads):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert ratio(g, r) <= 1e-3
+
+
+def test_replay_weight_grads_match_the_backward():
+    # over the plain backward's own dgates and carries, the replay's weight
+    # gradients are the plain backward's
+    args = backward_args(10)
+    dgates, dwh, dproj, dpeep, dc_in, dh_in = cells.dual_recurrence_backward(
+        *args, steps=True)
+    _, _, _, wgrads = cells.replay_backward_steps(*args[:-2], dc_in, dh_in,
+                                                  dgates=dgates)
+    for g, r in zip((dwh, dproj, dpeep), wgrads):
+        torch.testing.assert_close(r, g, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_bf16_slices_past_shared_memory(cuda):
+    # as K1 does: at H = P = 384 the bf16 slices do not fit in a block's
+    # shared memory; float32 reads its slices from L2 and launches
+    with pytest.raises(RuntimeError, match="lstm_bwd_config"):
+        lstm_kernels.backward_config(cuda, 5, 384, 384, True, torch.bfloat16)
+    assert lstm_kernels.backward_config(cuda, 5, 384, 384, True,
+                                        torch.float32)["rows"] > 0
