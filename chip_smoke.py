@@ -1982,6 +1982,23 @@ def stack_bound(torch, args, outputs, dtype, backward=False):
     return bound(nbytes, flops, peak)
 
 
+def stack_launch(sk, device, case, ms, backward=False, store_dtype=None):
+    """How K12 (K13) launched on ``case``: R rows a cluster, the clusters,
+    the waves, the lag K, the shared memory a block, and the us per
+    wavefront step (``ms`` over the waves' S steps each)."""
+    steps, batch, h4 = case["gx0"].shape
+    layers, p2, _ = case["wz"].shape
+    how = sk.stack_config(device, steps, layers, batch, h4 // 4, p2 // 2,
+                          case["proj"] is not None, case["wz"].dtype,
+                          backward, store_dtype or case["wz"].dtype)
+    return ("R=%d rows a cluster, %d clusters in %d wave(s) of up to %d, "
+            "lag K=%d, %d bytes of shared memory a block, %.2f us per "
+            "wavefront step" % (
+                how["rows"], layers * how["tiles"], how["waves"],
+                layers * how["per_wave"], how["lag"], how["smem_bytes"],
+                1e3 * ms / (steps * how["waves"])))
+
+
 def check_stack_fwd(torch, pkg, device, rng):
     """Phase 11: K12 against its plain version at both families' widths."""
     sk = pkg["lstm_stack_kernels"]
@@ -2049,10 +2066,11 @@ def check_stack_fwd(torch, pkg, device, rng):
             bound_ms, bound_by = stack_bound(
                 torch, case, sk.lstm_stack_forward(**case), dtype)
             steps = case["gx0"].shape[0]
-            say("  K12 %-9s %-8s kernel %.3f ms (%.1f us per layer-step)  "
-                "plain %.3f ms  bound %.4f ms (%s)"
+            say("  K12 %-9s %-8s kernel %.3f ms (%.1f us per layer-step; "
+                "%s)  plain %.3f ms  bound %.4f ms (%s)"
                 % (family, name, ms, 1e3 * ms / (steps * STACK_LAYERS),
-                   plain_ms, bound_ms, bound_by))
+                   stack_launch(sk, device, case, ms), plain_ms, bound_ms,
+                   bound_by))
             result[(family, dtype)] = {
                 "max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
@@ -2218,23 +2236,36 @@ def check_stack_bwd(torch, pkg, device, rng):
                                ratio(dh_out[1:], dh_in[:-1]),
                                ratio(din_out[1:], din[1:]))
                 rounding = within_bf16_step(full[0], dg)
+                # the weight gradients over the kernel's own dgates and the
+                # replayed steps' stashes
+                wgrads = sk.stack_replay_backward_steps(
+                    **replay, dc_in=dc_in, dh_in=dh_in, din=din,
+                    dgates=full[0])[4]
+                wgrad_rels = {n: ratio(g, r) for n, g, r in zip(
+                    ("dwz", "dbias", "dproj", "dpeep"),
+                    (full[1], full[2], full[3], full[4]), wgrads)
+                    if r is not None}
                 say("  K13 %-9s bfloat16 per step: carries and din max rel "
                     "%.3e (bound %.0e); dgates within one bf16 rounding "
-                    "step: %s" % (family, step_rel, BF16_STEP_REL_TOL,
-                                  rounding))
-                if step_rel > BF16_STEP_REL_TOL or not rounding:
-                    fail("K13 %s bf16 per-step replay outside its bounds"
-                         % family)
+                    "step: %s; over the kernel's dgates: %s (bound %.0e)"
+                    % (family, step_rel, BF16_STEP_REL_TOL, rounding,
+                       ", ".join("%s %.2e" % kv for kv in wgrad_rels.items()),
+                       BF16_STEP_REL_TOL))
+                if step_rel > BF16_STEP_REL_TOL or not rounding or max(
+                        wgrad_rels.values()) > BF16_STEP_REL_TOL:
+                    fail("K13 %s bf16 per-step replay or weight gradients "
+                         "outside their bounds" % family)
             ms, plain_ms = time_in_turns(
                 torch, lambda: sk.lstm_stack_backward(**args),
                 lambda: sk.stack_backward_reference(**args), rounds=2,
                 kernel_reps=2)
             bound_ms, bound_by = stack_bound(torch, args, got, dtype, True)
             steps = case["gx0"].shape[0]
-            say("  K13 %-9s %-8s kernel %.3f ms (%.1f us per layer-step)  "
-                "plain %.3f ms  bound %.4f ms (%s)"
+            say("  K13 %-9s %-8s kernel %.3f ms (%.1f us per layer-step; "
+                "%s)  plain %.3f ms  bound %.4f ms (%s)"
                 % (family, name, ms, 1e3 * ms / (steps * STACK_LAYERS),
-                   plain_ms, bound_ms, bound_by))
+                   stack_launch(sk, device, case, ms, True, dtype), plain_ms,
+                   bound_ms, bound_by))
             result[(family, dtype)] = {
                 "max_abs_err": float((got[0].float() - ref[0].float()).abs()
                                      .max()),
@@ -2429,6 +2460,16 @@ def serve_families(torch, pkg, device, rng):
                 % (result["chunk_ms"], CHUNK_ROWS,
                    CHUNK_ROWS * 3 * FRAME_SHIFT_S, result["rtf"],
                    seconds / audio_s))
+            steps = CHUNK_ROWS + STACK_LAYERS - 1
+            how = pkg["lstm_stack_kernels"].stack_config(
+                device, steps, STACK_LAYERS, 1, 320, 320, True,
+                torch.bfloat16)
+            say("  K12 on a chunk (B=1, S=%d): R=%d, %d clusters, lag K=%d: "
+                "a chain of about S + (L-1)·K = %d steps (the layers one "
+                "after another: %d)" % (
+                    steps, how["rows"], STACK_LAYERS * how["tiles"],
+                    how["lag"], steps + (STACK_LAYERS - 1) * how["lag"],
+                    STACK_LAYERS * steps))
     return result
 
 

@@ -57,23 +57,23 @@ SIGNATURES = {
     # device, lp_ext, time_mask, is_last, valid, skip_from, final_mask,
     # T, N, S, out, stream
     "ctc_beta": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # device, seed, gx0, mask, wx slices, wh slices, proj slices, bias,
-    # peep, cinit, hinit, affine a, affine b, forget_bias, keep_prob,
-    # residual bits, S, L, B, H, P, out, chain, c_all, h_all, states_bf16,
-    # cfin, hfin, gxl and in32 scratch, stream
+    # device, seed, gx0, mask, wx rows, wh slices, proj slices, bias, peep,
+    # cinit, hinit, affine a, affine b, forget_bias, keep_prob, residual
+    # bits, S, L, B, H, P, out, chain, c_all, h_all, states_bf16, cfin,
+    # hfin, scratch, stream
     "lstm_stack_fwd_f32": [_I] + [_P] * 12 + [_F, _F] + [_I] * 6 + [_P] * 4
-                          + [_I] + [_P] * 5,
+                          + [_I] + [_P] * 4,
     "lstm_stack_fwd_bf16": [_I] + [_P] * 12 + [_F, _F] + [_I] * 6 + [_P] * 4
-                           + [_I] + [_P] * 5,
-    # device, seed, gx0, mask, chain, c_all, h_all, cinit, hinit, wz, wzT,
-    # projT, bias, peep, forget_bias, keep_prob, residual bits, dout, dcfin,
-    # dhfin, S, L, B, H, P, store_bf16, dgates, c_new, out_blk, dout_p
-    # stashes, dcinit, dhinit, din, dc_in, dh_in, dwz, dproj, dcols,
-    # scratch, stream
+                           + [_I] + [_P] * 4,
+    # device, seed, gx0, mask, chain, c_all, h_all, cinit, hinit, wz, wh
+    # slices, proj rows, bias, peep, forget_bias, keep_prob,
+    # residual bits, dout, dcfin, dhfin, S, L, B, H, P, store_bf16, dgates,
+    # out_blk and dout_p stashes, dcinit, dhinit, din, dc_in, dh_in, dwz,
+    # dproj, dcols, scratch, stream
     "lstm_stack_bwd_f32": [_I] + [_P] * 13 + [_F, _F, _I] + [_P] * 3
-                          + [_I] * 6 + [_P] * 14,
+                          + [_I] * 6 + [_P] * 13,
     "lstm_stack_bwd_bf16": [_I] + [_P] * 13 + [_F, _F, _I] + [_P] * 3
-                           + [_I] * 6 + [_P] * 14,
+                           + [_I] * 6 + [_P] * 13,
     # device, x, w, b, gate, N, D, E, V, tau, keep_prob, seed, out, stream
     "moe_fwd_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                     ctypes.c_uint32, _P, _P],
@@ -174,8 +174,13 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_config.restype = ctypes.c_int
     lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 7
     lib.lstm_bwd_fold_scratch_floats.restype = ctypes.c_longlong
-    lib.lstm_stack_bwd_scratch_floats.argtypes = [_I] * 5
-    lib.lstm_stack_bwd_scratch_floats.restype = ctypes.c_longlong
+    # device, S, L, B, H, P, has_proj, bf16 (K13: and store_bf16) ->
+    # {rows, tiles, tiles a wave, waves, lag, bytes}, scratch floats
+    _LL = ctypes.POINTER(ctypes.c_longlong)
+    lib.lstm_stack_fwd_config.argtypes = [_I] * 8 + [_LL, _LL]
+    lib.lstm_stack_fwd_config.restype = ctypes.c_int
+    lib.lstm_stack_bwd_config.argtypes = [_I] * 9 + [_LL, _LL]
+    lib.lstm_stack_bwd_config.restype = ctypes.c_int
     lib.moe_bwd_wgrad_scratch_floats.argtypes = [_I] * 4
     lib.moe_bwd_wgrad_scratch_floats.restype = ctypes.c_longlong
     return lib

@@ -136,111 +136,6 @@ __host__ __device__ BwdPlan bwd_plan(int H, int P, bool has_proj, int R) {
   return p;
 }
 
-template <typename X>
-__device__ __forceinline__ float ld(const X* p, size_t i) {
-  return Dtype<X>::to_float(p[i]);
-}
-
-// part[s] = a · w over the s-th slice of k on the tensor cores, as
-// lstm_cluster.cuh's mma_product (a [16][lda] bf16, rows past R zero; part
-// [8][cols] a slice), but each 16-deep step is summed by the tensor cores
-// into a zero accumulator and the steps are added in float32 rounded to
-// nearest: a long sum keeps the accuracy of an FMA chain (near a
-// cancellation in dc_new the tensor cores' own running sum, aligned and
-// rounded their own way, moved dgates by more than a bf16 rounding step),
-// and the steps' mma do not wait on one another.  w is [depth rounded to
-// 16][cols] (kNK false: fragments by ldmatrix.trans) or [cols][ldw], one
-// row per output column with k contiguous (kNK true: a weight used
-// transposed, fragments by ldmatrix).
-template <bool kNK>
-__device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int lda,
-                                                   int depth, const __nv_bfloat16* w,
-                                                   int ldw, int cols, Split sp,
-                                                   float* part) {
-  const int lane = threadIdx.x & 31;
-  const int tiles = cols / 16, steps = cdiv(depth, 16);
-  const __nv_bfloat16* a_lane = a + (lane & 15) * lda + (lane >> 4) * 8;
-  // kNK: w rows n = 8·(lane / 16) + lane % 8 at k + 8·((lane / 8) % 2), the
-  // four matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15,
-  // k 8-15), the b0 and b1 of each 8-column half; else w rows k = lane % 16
-  // at column n + 8·(lane / 16)
-  const __nv_bfloat16* w_lane =
-      kNK ? w + (size_t)((lane >> 4) * 8 + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8
-          : w + (size_t)(lane & 15) * ldw + (lane >> 4) * 8;
-  for (int task = threadIdx.x / 32; task < tiles * sp.slices; task += kWarps) {
-    const int n = task % tiles, s = task / tiles;
-    const int k0 = s * sp.per, k1 = min(steps, k0 + sp.per);
-    float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-    // the steps' products are independent: unrolled, their loads and mma
-    // run ahead of the adds
-#pragma unroll 4
-    for (int k = k0; k < k1; ++k) {
-      uint32_t fa[4], fb[4];
-      ldsm_x4(fa, a_lane + k * 16);
-      if constexpr (kNK)
-        ldsm_x4(fb, w_lane + (size_t)n * 16 * ldw + k * 16);
-      else
-        ldsm_x4_trans(fb, w_lane + (size_t)k * 16 * ldw + n * 16);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) d[h][i] += z[i];
-      }
-    }
-    // lane holds rows lane / 4 (and + 8: padding, dropped), columns
-    // 2·(lane % 4) and + 1 of each 8-column half
-    float* dst = part + ((size_t)s * 8 + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
-    *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
-    *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
-  }
-}
-
-// lstm_cluster.cuh's fma_product with w stored the other way, [cols][ldw]
-// float, k contiguous; rows of w at or past `rows` are taken as zero.  depth
-// is a multiple of 4.
-template <int R>
-__device__ __forceinline__ void fma_product_nk(const float* a, int lda, int depth,
-                                               const float* w, int ldw, int cols,
-                                               int rows, Split sp, float* part) {
-  const int quads = cols / 4;
-  for (int task = threadIdx.x; task < quads * sp.slices; task += kThreads) {
-    const int g = task % quads, s = task / quads;
-    const int k0 = s * sp.per, k1 = min(depth, k0 + sp.per);
-    float acc[R][4];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-    for (int k = k0; k < k1; k += 4) {
-      float av[R][4], wv[4][4];
-#pragma unroll
-      for (int r = 0; r < R; ++r) load4(a + r * lda + k, av[r]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = 4 * g + c;
-        if (n < rows) {
-          load4(w + (size_t)n * ldw + k, wv[c]);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wv[c][kk] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r][kk], wv[c][kk], acc[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      *reinterpret_cast<float4*>(part + ((size_t)s * R + r) * cols + 4 * g) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  }
-}
-
 // T: the compute dtype (bf16: the products on the tensor cores, the slices
 // in shared memory; float32: FMA, the slices read from L2); S: the store
 // dtype

@@ -1,6 +1,6 @@
 // The C entry points of K2 (lstm_bwd.cu), which K3 (lstm_bwd_fold.cu) runs
 // first: the argument list as a macro, so that both files spell it once;
-// and K2's weight-gradient pass (lstm_bwd_wgrad.cu).
+// and the weight-gradient passes of K2 and K13 (lstm_bwd_wgrad.cu).
 #pragma once
 
 #define LSTM_BWD_ARGS                                                          \
@@ -35,3 +35,22 @@ extern "C" int lstm_bwd_wgrad(int bf16, int store_bf16, const void* h_all,
                               void* stream);
 extern "C" long long lstm_bwd_wgrad_scratch_floats(int steps, int batch, int units,
                                                    int out_dim);
+
+// K13's dwz [L, 2P, 4H] and dproj [L, H, P] (when outb is not null) from the
+// stack's streams: chain, h_all and dgates in the store dtype, hinit
+// float32, the out_blk and dout_p stashes in the compute dtype; scratch:
+// lstm_stack_wgrad_scratch_floats.
+extern "C" int lstm_stack_wgrad(int bf16, int store_bf16, const void* chain,
+                                const void* h_all, const float* hinit,
+                                const void* dgates, const void* outb, const void* doutp,
+                                int steps, int layers, int batch, int units, int out_dim,
+                                void* dwz, void* dproj, float* scratch, void* stream);
+extern "C" long long lstm_stack_wgrad_scratch_floats(int steps, int layers, int batch,
+                                                     int units, int out_dim);
+
+// K13's gate inputs before its recurrence: gxl [L-1, S, B, 4H] float32,
+// gxl[l-1][s] = (layer l-1's chain at s-1, zero at s = 0)·wx_l for l >= 1,
+// wx_l the first P rows of wz[l] (compute dtype), operands rounded to it.
+extern "C" int lstm_stack_gate_inputs(int bf16, int store_bf16, const void* chain,
+                                      const void* wz, int steps, int layers, int batch,
+                                      int units, int out_dim, float* gxl, void* stream);

@@ -1,13 +1,20 @@
 // The cluster machinery of the LSTM kernels (lstm_fwd.cu, K1;
-// lstm_stack_fwd.cu, K12; lstm_bwd.cu, K2, which keeps its own products and
-// adds the split cluster barrier): an 8-block cluster per tile of R batch
-// rows, each block owning 1/8 of the hidden units (all four gates of them) and of the
-// projection columns; its slices of the recurrent and projection weights
-// stay in its shared memory (bf16) or are read from L2 (float32).  Per step:
-// the gate sums of the owned units from the full rounded h (mma_product or
+// lstm_stack_fwd.cu, K12; lstm_bwd.cu, K2; lstm_stack_bwd.cu, K13): an
+// 8-block cluster per tile of R batch rows, each block owning 1/8 of the
+// hidden units (all four gates of them) and of the projection columns; its
+// slices of the recurrent and projection weights stay in its shared memory
+// (bf16) or are read from L2 (float32).  Per step of a forward: the gate
+// sums of the owned units from the full rounded h (mma_product or
 // fma_product), the cell update, the rounded cell output written into every
 // block of the cluster (share_slice), the owned projection columns, and the
-// new rounded h written into every block.  See lstm_fwd.cu for the design.
+// new rounded h written into every block.  The backwards add the products
+// with float32 adds of each 16-deep step (mma_product_f32add) and the
+// weights used transposed (fma_product_nk), the split cluster barrier; the
+// stacks add the products of a layer's input side off its recurrence (K12's
+// input_product, K13's din product, both from frag_step's 16-byte
+// fragments) and the step counters through which a layer's clusters hand
+// their results to the next layer's (wait_blocks, publish).  See
+// lstm_fwd.cu for the design.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -89,8 +96,8 @@ __host__ __device__ Split mma_split(int cols, int depth, int most = kMaxSlices) 
 // projection columns per block; HS, QS: row strides of the full cell
 // output and of the full h (8·US, 8·PS, plus 16 bytes so that rows fall on
 // other banks); arow: rows of those buffers (16 for the tensor cores, else
-// R); prow: rows of each partial-sum block (8 for the tensor cores, else
-// R); LWA, LWD: row strides of the bf16 weight slices in shared memory
+// R); prow: rows of each partial-sum block (8 for the tensor cores, 16
+// past 8 rows, else R); LWA, LWD: row strides of the bf16 weight slices in shared memory
 // (also padded by 16 bytes); weight_bytes: their size (0 in f32, whose
 // slices stay in global memory).
 struct Plan {
@@ -110,7 +117,7 @@ __host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows) {
   p.qs = kCluster * p.ps + pad;
   p.own = has_proj ? p.ps : p.us;
   p.arow = kMma<T> ? 16 : rows;
-  p.prow = kMma<T> ? 8 : rows;
+  p.prow = kMma<T> ? (rows > 8 ? 16 : 8) : rows;
   const int g = 4 * p.us;
   p.gates = kMma<T> ? mma_split(g, out_dim) : fma_split(g, out_dim);
   p.proj = kMma<T> ? mma_split(p.ps, units) : fma_split(p.ps, units);
@@ -189,12 +196,13 @@ __device__ __forceinline__ void fma_product(const float* a, int lda,
 
 // The same product on the tensor cores, both operands in shared memory: a
 // is [16][lda] bf16 (rows past R are zero), w is [depth rounded to 16]
-// [cols] bf16 with row stride ldw; part[s] is [8][cols] (rows < R <= 8).
-// A warp owns one 16-column tile and `per` 16-deep steps of k.
+// [cols] bf16 with row stride ldw; part[s] is [prow][cols] (rows < R <=
+// prow, prow 8 or 16).  A warp owns one 16-column tile and `per` 16-deep
+// steps of k.
 __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
                                             int depth, const __nv_bfloat16* w,
                                             int ldw, int cols, Split sp,
-                                            float* part) {
+                                            float* part, int prow = 8) {
   const int lane = threadIdx.x & 31;
   const int tiles = cols / 16, steps = cdiv(depth, 16);
   // ldmatrix row addresses: a rows m = lane % 16 at k + 8·(lane / 16);
@@ -212,11 +220,15 @@ __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
       mma_16816(d[0], fa, fb[0], fb[1]);
       mma_16816(d[1], fa, fb[2], fb[3]);
     }
-    // lane holds rows lane / 4 (and + 8: padding, dropped), columns
-    // 2·(lane % 4) and + 1 of each 8-column half
-    float* dst = part + ((size_t)s * 8 + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
+    // lane holds rows lane / 4 and + 8 (padding unless prow is 16),
+    // columns 2·(lane % 4) and + 1 of each 8-column half
+    float* dst = part + ((size_t)s * prow + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
     *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
     *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
+    if (prow > 8) {
+      *reinterpret_cast<float2*>(dst + 8 * cols) = make_float2(d[0][2], d[0][3]);
+      *reinterpret_cast<float2*>(dst + 8 * cols + 8) = make_float2(d[1][2], d[1][3]);
+    }
   }
 }
 
@@ -260,6 +272,325 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
     reinterpret_cast<uint4*>(dst + (size_t)r * ld)[c] =
         reinterpret_cast<const uint4*>(src + (size_t)r * cols)[c];
   }
+}
+
+template <typename X>
+__device__ __forceinline__ float ld(const X* p, size_t i) {
+  return Dtype<X>::to_float(p[i]);
+}
+
+// part[s] = a · w over the s-th slice of k on the tensor cores, as
+// mma_product (a [16][lda] bf16, rows past R zero; part
+// [8][cols] a slice), but each 16-deep step is summed by the tensor cores
+// into a zero accumulator and the steps are added in float32 rounded to
+// nearest: a long sum keeps the accuracy of an FMA chain (near a
+// cancellation in dc_new the tensor cores' own running sum, aligned and
+// rounded their own way, moved dgates by more than a bf16 rounding step),
+// and the steps' mma do not wait on one another.  w is [depth rounded to
+// 16][cols] (kNK false: fragments by ldmatrix.trans) or [cols][ldw], one
+// row per output column with k contiguous (kNK true: a weight used
+// transposed, fragments by ldmatrix).
+template <bool kNK>
+__device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int lda,
+                                                   int depth, const __nv_bfloat16* w,
+                                                   int ldw, int cols, Split sp,
+                                                   float* part) {
+  const int lane = threadIdx.x & 31;
+  const int tiles = cols / 16, steps = cdiv(depth, 16);
+  const __nv_bfloat16* a_lane = a + (lane & 15) * lda + (lane >> 4) * 8;
+  // kNK: w rows n = 8·(lane / 16) + lane % 8 at k + 8·((lane / 8) % 2), the
+  // four matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15,
+  // k 8-15), the b0 and b1 of each 8-column half; else w rows k = lane % 16
+  // at column n + 8·(lane / 16)
+  const __nv_bfloat16* w_lane =
+      kNK ? w + (size_t)((lane >> 4) * 8 + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8
+          : w + (size_t)(lane & 15) * ldw + (lane >> 4) * 8;
+  for (int task = threadIdx.x / 32; task < tiles * sp.slices; task += kWarps) {
+    const int n = task % tiles, s = task / tiles;
+    const int k0 = s * sp.per, k1 = min(steps, k0 + sp.per);
+    float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    // the steps' products are independent: unrolled, their loads and mma
+    // run ahead of the adds
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      uint32_t fa[4], fb[4];
+      ldsm_x4(fa, a_lane + k * 16);
+      if constexpr (kNK)
+        ldsm_x4(fb, w_lane + (size_t)n * 16 * ldw + k * 16);
+      else
+        ldsm_x4_trans(fb, w_lane + (size_t)k * 16 * ldw + n * 16);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[h][i] += z[i];
+      }
+    }
+    // lane holds rows lane / 4 (and + 8: padding, dropped), columns
+    // 2·(lane % 4) and + 1 of each 8-column half
+    float* dst = part + ((size_t)s * 8 + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
+    *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
+  }
+}
+
+// fma_product with w stored the other way, [cols][ldw]
+// float, k contiguous; rows of w at or past `rows` are taken as zero.  depth
+// is a multiple of 4.
+template <int R>
+__device__ __forceinline__ void fma_product_nk(const float* a, int lda, int depth,
+                                               const float* w, int ldw, int cols,
+                                               int rows, Split sp, float* part) {
+  const int quads = cols / 4;
+  for (int task = threadIdx.x; task < quads * sp.slices; task += kThreads) {
+    const int g = task % quads, s = task / quads;
+    const int k0 = s * sp.per, k1 = min(depth, k0 + sp.per);
+    float acc[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+    for (int k = k0; k < k1; k += 4) {
+      float av[R][4], wv[4][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) load4(a + r * lda + k, av[r]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = 4 * g + c;
+        if (n < rows) {
+          load4(w + (size_t)n * ldw + k, wv[c]);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wv[c][kk] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r][kk], wv[c][kk], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      *reinterpret_cast<float4*>(part + ((size_t)s * R + r) * cols + 4 * g) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+}
+
+// Input products of a layer, off its recurrence (K12, a chunk of steps at a
+// time): out(i, c) = Σ_k a(i, k)·w[c][k] for rows i < n, each a (step,
+// batch row) pair, and the block's gate columns c < cols, plus bias_of(c),
+// handed to put(i, c, v).  (The bias of a thread's columns is loaded once,
+// before the loop: a load between the stores of put would wait out an L2
+// round trip each.)  a(i, k, v) gives the inputs k .. k+3 of row i as
+// float32 (zero past the depth; rounded to T here); w is the block's rows
+// of the layer's wx, [cols][ldw] with k contiguous and zero past the depth
+// (ldw a multiple of 16), read from L2 at every use.  The rows are staged
+// kStage at a time into `as` ([kStage][lda] T in shared memory), each
+// thread's loads of a stage in flight together.  bf16: a warp owns a
+// 16-column tile and both 16-row tiles of a stage, its B fragments loaded
+// from L2 straight into registers and its A fragments from shared memory,
+// 16 bytes a lane (frag_step); float32: a thread owns a column and 8 rows,
+// FMA.
+constexpr int kStage = 32;
+
+// One 32-deep step of d += a · b on the tensor cores, from fragments each
+// lane loads as 16 bytes: qa0 and qa1 hold k = 8·(lane % 4) .. + 7 of A's
+// rows lane / 4 and + 8, qb the same k of B's column lane / 4 (B stored a
+// column to a row, k contiguous).  The k of a 32-deep step are taken in
+// another order than mma's (its k 2·t, 2·t+1, 2·t+8, 2·t+9 of each 16 are
+// this lane's 4·j .. 4·j+3, for the two 16-deep halves j): the same for A
+// and B, so the sum is the same, and each lane's loads are whole 16 bytes.
+__device__ __forceinline__ void frag_step(float (&d)[4], const uint4& qa0, const uint4& qa1,
+                                          const uint4& qb) {
+  const uint32_t a0[4] = {qa0.x, qa1.x, qa0.y, qa1.y};
+  const uint32_t a1[4] = {qa0.z, qa1.z, qa0.w, qa1.w};
+  mma_16816(d, a0, qb.x, qb.y);
+  mma_16816(d, a1, qb.z, qb.w);
+}
+
+// values k .. k+3 of a row of `depth` values (zero past it), from L2: one
+// vector load when `vec` (the row's start is 16-byte aligned in float32,
+// 8-byte in bf16) and all four lie inside the row
+template <typename X>
+__device__ __forceinline__ void row4(const X* row, int k, int depth, bool vec,
+                                     float (&v)[4]) {
+  if (vec && k + 4 <= depth) {
+    if constexpr (std::is_same<X, float>::value) {
+      const float4 q = __ldcg(reinterpret_cast<const float4*>(row + k));
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else {
+      const uint2 q = __ldcg(reinterpret_cast<const uint2*>(row + k));
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+      v[0] = __low2float(lo);
+      v[1] = __high2float(lo);
+      v[2] = __low2float(hi);
+      v[3] = __high2float(hi);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = k + c < depth ? Dtype<X>::to_float(row[k + c]) : 0.0f;
+  }
+}
+
+template <typename T, typename A, typename Bias, typename Put>
+__device__ __forceinline__ void input_product(int n, int depth, const A& a, T* as,
+                                              int lda, const T* __restrict__ w,
+                                              int ldw, int cols, Bias bias_of, Put put) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int dpad = kMma<T> ? round_up(depth, 16) : round_up(depth, 4);
+  // bf16: a warp owns at most one 16-column tile when cols <= 256 (US <=
+  // 64, as the slices' layout requires); its lane's four columns' bias
+  float bcol[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  if constexpr (kMma<T>) {
+    const int tile = tid / 32;
+    if (tile < cols / 16)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) bcol[h][e] = bias_of(tile * 16 + 8 * h + 2 * (lane & 3) + e);
+  }
+  for (int i0 = 0; i0 < n; i0 += kStage) {
+    const int rows = min(kStage, n - i0);
+    const int dq = dpad / 4;
+    for (int e0 = 0; e0 < kStage * dq; e0 += 8 * kThreads) {
+      float v[8][4];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * kThreads + tid, r = e / dq, k = 4 * (e - r * dq);
+        if (e < kStage * dq && r < rows && k < depth) {
+          a(i0 + r, k, v[u]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[u][c] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * kThreads + tid, r = e / dq, k = 4 * (e - r * dq);
+        if (e < kStage * dq)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) as[r * lda + k + c] = Dtype<T>::from_float(v[u][c]);
+      }
+    }
+    __syncthreads();
+    if constexpr (kMma<T>) {
+      const int g = lane >> 2, t4 = lane & 3;
+      const int mt = cdiv(rows, 16);
+      for (int tile = tid / 32; tile < cols / 16; tile += kWarps) {
+        if (tile >= kWarps)  // past 256 columns: each tile's bias anew
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) bcol[h][e] = bias_of(tile * 16 + 8 * h + 2 * t4 + e);
+        float d[2][2][4] = {};
+        // B rows n = 16·tile + 8·h + g, eight k from 8·t4 of each 32-deep
+        // step (frag_step's order)
+        const T* w_lane = w + (size_t)(tile * 16 + g) * ldw + 8 * t4;
+        const T* a_lane = as + g * lda + 8 * t4;
+        // kBatch 32-deep steps at a time: their B loads are issued together
+        // before the products (the mma asm keeps program order, so loads
+        // interleaved with them would each wait out an L2 round trip)
+        constexpr int kBatch = 4;
+        for (int k0 = 0; k0 < dpad; k0 += 32 * kBatch) {
+          uint4 qb[kBatch][2];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k = k0 + 32 * u;
+              qb[u][h] = k + 8 * t4 + 8 <= dpad
+                             ? __ldg(reinterpret_cast<const uint4*>(w_lane + (size_t)h * 8 * ldw + k))
+                             : make_uint4(0u, 0u, 0u, 0u);
+            }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int k = k0 + 32 * u;
+            if (k >= dpad) break;
+            const bool in = k + 8 * t4 + 8 <= dpad;
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              if (m < mt) {
+                const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+                const T* ap = a_lane + m * 16 * lda + k;
+                const uint4 qa0 = in ? *reinterpret_cast<const uint4*>(ap) : z;
+                const uint4 qa1 = in ? *reinterpret_cast<const uint4*>(ap + 8 * lda) : z;
+                frag_step(d[m][0], qa0, qa1, qb[u][0]);
+                frag_step(d[m][1], qa0, qa1, qb[u][1]);
+              }
+            }
+          }
+        }
+        // lane holds rows lane / 4 and + 8, columns 2·(lane % 4) and + 1
+        // of each 8-column half
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = m * 16 + (lane >> 2) + 8 * (e >> 1);
+              if (r < rows)
+                put(i0 + r, tile * 16 + 8 * h + 2 * (lane & 3) + (e & 1),
+                    d[m][h][e] + bcol[h][e & 1]);
+            }
+      }
+    } else {
+      for (int task = tid; task < cols * (kStage / 8); task += kThreads) {
+        const int c = task % cols, rg = task / cols;
+        if (rg * 8 >= rows) continue;
+        const float b = bias_of(c);
+        float acc[8] = {};
+        for (int k = 0; k < dpad; k += 4) {
+          float wv[4];
+          load4(reinterpret_cast<const float*>(w) + (size_t)c * ldw + k, wv);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            float av[4];
+            load4(reinterpret_cast<const float*>(as) + (rg * 8 + r) * lda + k, av);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) acc[r] = fmaf(av[kk], wv[kk], acc[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (rg * 8 + r < rows) put(i0 + rg * 8 + r, c, acc[r] + b);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The step counters of a stack's clusters: each block of a cluster counts
+// the steps whose results it has written (int32, zero at launch).  publish:
+// every thread's writes are fenced, then one thread stores the count.
+__device__ __forceinline__ void publish(int* counter, int done) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicExch(counter, done);
+}
+
+// Wait until each of the 8 counters of another cluster (counters[0..7])
+// reaches `want`; the data they count is then read from L2 (__ldcg).
+// Thread q < 8 keeps in `seen` the last count it read of counter q and
+// polls only when that is short.  A wait of seconds means a fault: the
+// launch ends with an error rather than hang (a step takes microseconds).
+__device__ __forceinline__ void wait_blocks(int* counters, int want, int& seen) {
+  if (threadIdx.x < kCluster && seen < want) {
+    int* c = counters + threadIdx.x;
+    for (long long spins = 0; (seen = atomicAdd(c, 0)) < want; ++spins) {
+      if (spins > (1LL << 26)) __trap();
+      __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 }  // namespace

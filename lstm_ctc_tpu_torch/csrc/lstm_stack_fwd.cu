@@ -24,24 +24,35 @@
 // [wx; wh] plus proj is 1.84 MB, 230 KB a block in an 8-block cluster, which
 // does not fit one block's 227 KB of shared memory.
 //
-// Design: K1's cluster machinery (lstm_cluster.cuh).  One 8-block cluster
-// per tile of R batch rows owns those rows through the whole stack, layer
-// after layer.  Rows never interact, so clusters never wait on each other:
-// no flags, no co-residency requirement, no possible deadlock.  For each
-// layer l >= 1 a block first computes its units' input product in(s)·wx_l +
-// bias_l for every s (off the recurrence: in is known, layer l-1 is done),
-// with wx_l's slice staged in the shared memory that wh_l's slice takes
-// next, into the float32 scratch gxl (in bf16, 16 (step, row) pairs to a
-// tensor-core tile, each warp a 16-column tile over the whole depth); then
-// it loads wh_l and proj_l's slices and runs K1's step loop over s with gxl
-// as its gx.  A layer's float32
-// chain goes to a ping-pong scratch (the last layer's is `out`), which the
-// next layer reads for its input product and its residual.  The sequential
-// chain is L·S steps, where the wavefront's is S: a layer pipeline (one
-// cluster per layer and row tile, chains passed through flags) is later
-// work.  The input projection of layer 0 (gx0) is a GEMM outside, as it is
-// outside the TPU kernel; gx0 stays float32 here (JAX rounds it to the
-// compute dtype, :670; a bfloat16-only difference, ROADMAP queue 3).
+// Design: the wavefront, in chunks.  One 8-block cluster per (layer, tile
+// of R batch rows) owns that layer's rows for the whole sequence, with K1's
+// step loop (lstm_cluster.cuh): block q keeps its slices of wh_l and proj_l
+// in shared memory for the whole launch.  The sequence is cut into chunks
+// of K steps (the lag).  For chunk c a layer l >= 1 first waits until layer
+// l-1's eight blocks of the same rows have counted the chunk's inputs
+// (their chains up to the chunk's last step but one), then computes the
+// chunk's input product in(s)·wx_l + bias_l for its owned units on the
+// tensor cores (input_product: the chunk's K·R (step, row) pairs 32 at a
+// time, wx_l's rows of the block read from L2 and amortised over them)
+// into a float32 ring gxl, runs the chunk's steps with gxl as its gx, and
+// counts the chunk's chains (a fence, then an atomic store; the next layer
+// reads them from L2).  So layer l runs chunk c while layer l-1 runs chunk
+// c+1, and the sequential chain is about S + (L-1)·K steps, where running
+// the layers one after another took L·S.  Layer 0's input product gx0 is a
+// GEMM outside, as it is outside the TPU kernel; gx0 stays float32 here
+// (JAX rounds it to the compute dtype, :670; a bfloat16-only difference,
+// ROADMAP queue 3).  A layer's chain goes to a float32 scratch of its own
+// (the last layer's is `out`).
+//
+// Layers wait on the layer below, so all L clusters of a row tile must be
+// resident together: the launcher takes R from {4, 6, 8, 12} and as many
+// row tiles a launch (a wave) as the occupancy API says are resident for
+// all L layers at once; the fewest waves win, then the smallest R (B = 32
+// at L = 4: R = 12, 3 tiles, 12 clusters, one wave).  A fault that stalls
+// a wait traps instead of hanging.  The grid puts the lower layers first.
+// K = min(8, max(2, ceil(S / 8))): 8 for the training and serving
+// sequences (16 and 32 measured slower: PERF.md), 3 for a streaming chunk
+// of 16 rows (S = 19 at L = 4).
 //
 // Operands of every product are rounded to the compute dtype; sums, the
 // carries and `out` stay float32; chain, c_all and h_all are written in the
@@ -51,35 +62,11 @@
 
 namespace {
 
-// The input product of one 16-row tile on the tensor cores: a is [16][lda]
-// bf16 in shared memory, w [depth rounded to 16][cols] bf16 with row stride
-// ldw.  A warp owns a 16-column tile and the whole depth, and hands each sum
-// (row, column, value) to `put`: no partial sums to add.
-template <typename Put>
-__device__ __forceinline__ void input_tile(const __nv_bfloat16* a, int lda,
-                                           int depth, const __nv_bfloat16* w,
-                                           int ldw, int cols, Put put) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* a_lane = a + (lane & 15) * lda + (lane >> 4) * 8;
-  const __nv_bfloat16* w_lane = w + (size_t)(lane & 15) * ldw + (lane >> 4) * 8;
-  for (int n = threadIdx.x / 32; n < cols / 16; n += kWarps) {
-    float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-    for (int k = 0; k < cdiv(depth, 16); ++k) {
-      uint32_t fa[4], fb[4];
-      ldsm_x4(fa, a_lane + k * 16);
-      ldsm_x4_trans(fb, w_lane + (size_t)k * 16 * ldw + n * 16);
-      mma_16816(d[0], fa, fb[0], fb[1]);
-      mma_16816(d[1], fa, fb[2], fb[3]);
-    }
-    // lane holds rows lane / 4 and + 8, columns 2·(lane % 4) and + 1 of
-    // each 8-column half
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        put((lane >> 2) + 8 * (e >> 1), n * 16 + 8 * h + 2 * (lane & 3) + (e & 1),
-            d[h][e]);
-  }
+// the input rows a block stages for a chunk's product: kStage rows of the
+// padded input width
+template <typename T>
+__host__ __device__ size_t in_stage_bytes(int P) {
+  return align128(sizeof(T) * (size_t)kStage * (round_up(P, 16) + 16 / (int)sizeof(T)));
 }
 
 template <typename T, int R>
@@ -87,7 +74,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     const int* __restrict__ seed,       // [1] or null (no dropout)
     const float* __restrict__ gx0,      // [S, B, 4H] layer 0's x·wx0 + b0
     const float* __restrict__ mask,     // [S, L·B]
-    const T* __restrict__ wx_sl,        // [L, 8, P16, 4, US] (layer 0 unread)
+    const T* __restrict__ wx_rows,      // [L, 8, 4, US, P16] (layer 0 unread)
     const T* __restrict__ wh_sl,        // [L, 8, P16, 4, US]
     const T* __restrict__ proj_sl,      // [L, 8, H16, PS] or null (P == H)
     const float* __restrict__ bias,     // [L, 4H] (layer 0 unread)
@@ -106,11 +93,14 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     bool states_bf16,
     float* __restrict__ cfin,           // [L·B, H]
     float* __restrict__ hfin,           // [L·B, P]
-    float* __restrict__ gxl,            // scratch [S, B, 4H]
-    float* __restrict__ in32) {         // scratch [2, S, B, P]
+    float* __restrict__ gxl,            // scratch [L, K, B, 4H]
+    float* __restrict__ in32,           // scratch [L-1, S, B, P]
+    int* __restrict__ counters,         // [L, tiles, 8], zero at the first wave
+    int tile0, int tiles, int lag) {
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / kCluster) * R;
+  const int l = blockIdx.y, tile = tile0 + blockIdx.x / kCluster;
+  const int b0 = tile * R;
   const int nr = min(R, batch - b0);
   const int H = units, P = out_dim, LB = layers * batch;
   const bool has_proj = proj_sl != nullptr;
@@ -119,6 +109,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   const int u0 = q * US, nu = max(0, min(US, H - u0));
   const int p0 = q * PS, np = max(0, min(PS, P - p0));
   const int own_n = has_proj ? np : nu, own_0 = has_proj ? p0 : u0;
+  const int P16 = round_up(P, 16), lda_in = P16 + 16 / (int)sizeof(T);
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -129,15 +120,64 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   T* stage = reinterpret_cast<T*>(smem_raw + pl.off_stage);  // [R][US or PS]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
   T* wh_s = reinterpret_cast<T*>(smem_raw + pl.base_bytes);  // bf16 slices
-  T* pj_s = wh_s + (size_t)round_up(P, 16) * pl.lwa;
+  T* pj_s = wh_s + (size_t)P16 * pl.lwa;
+  T* ain = reinterpret_cast<T*>(smem_raw + pl.base_bytes + pl.weight_bytes);
 
-  const size_t wh_elems = (size_t)round_up(P, 16) * G;
+  const size_t slot = (size_t)l * kCluster + q;
+  const size_t wh_elems = (size_t)P16 * G;
   const size_t pj_elems = has_proj ? (size_t)round_up(H, 16) * PS : 0;
   const size_t plane = (size_t)steps * batch * P;  // one [S, B, P] chain
+  const size_t lrow = (size_t)l * batch + b0;      // the tile's first row in [L·B]
+  const T* wx_g = wx_rows + slot * wh_elems;
+  const T* wh_g = wh_sl + slot * wh_elems;
+  const T* pj_g = has_proj ? proj_sl + slot * pj_elems : nullptr;
+  const float* prev = l > 0 ? in32 + (size_t)(l - 1) * plane : nullptr;
+  float* next = l == layers - 1 ? out : in32 + (size_t)l * plane;
+  float* ring = gxl + (size_t)l * lag * batch * 4 * H;
+  const bool res = l > 0 && ((residual >> l) & 1);
+  const float* pd = peep ? peep + (size_t)l * 3 * H : nullptr;
+  const float* aa = aff_a ? aff_a + (size_t)l * P : nullptr;
+  const float* ab = aff_b ? aff_b + (size_t)l * P : nullptr;
   const T zero = Dtype<T>::from_float(0.0f);
   const bool drop = seed != nullptr && keep_prob < 1.0f;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
   const float inv_keep = 1.0f / keep_prob;
+  int* const below = l > 0 ? counters + ((size_t)(l - 1) * tiles + tile) * kCluster : nullptr;
+  int* const mine = counters + ((size_t)l * tiles + tile) * kCluster + q;
+
+  // the finished chain value of (step s, row r, column p)
+  auto finish = [&](float v, int s, int r, int p) {
+    if (drop)
+      v *= drop_factor((uint32_t)((size_t)s * LB + lrow + r), (uint32_t)p, sd,
+                       keep_prob, inv_keep);
+    if (aa) v = v * aa[p] + ab[p];
+    return v;
+  };
+  // the row of gate inputs of step s (of the current chunk from s0)
+  auto gx_row = [&](int s, int s0, int r) -> const float* {
+    return l == 0 ? gx0 + ((size_t)s * batch + b0 + r) * 4 * H
+                  : ring + ((size_t)(s - s0) * batch + b0 + r) * 4 * H;
+  };
+
+  // the layer's recurrent weights and its initial states
+  if constexpr (kMma<T>) {
+    copy_rows(wh_s, pl.lwa, wh_g, G, P16);
+    if (has_proj) copy_rows(pj_s, pl.lwd, pj_g, PS, round_up(H, 16));
+  }
+  for (int i = tid; i < pl.arow * pl.qs; i += kThreads) {
+    const int r = i / pl.qs, k = i - r * pl.qs;
+    hq[i] = Dtype<T>::from_float(r < nr && k < P ? hinit[(lrow + r) * P + k] : 0.0f);
+  }
+  for (int i = tid; i < pl.arow * pl.hs; i += kThreads) cellf[i] = zero;
+  for (int i = tid; i < R * US; i += kThreads) {
+    const int r = i / US, j = i - r * US;
+    c_own[i] = r < nr && j < nu ? cinit[(lrow + r) * H + u0 + j] : 0.0f;
+  }
+  for (int i = tid; i < R * own; i += kThreads) {
+    const int r = i / own, j = i - r * own;
+    h_own[i] = r < nr && j < own_n ? hinit[(lrow + r) * P + own_0 + j] : 0.0f;
+  }
+  cluster.sync();  // every block's states and weights are in place
 
   // phase b: thread (rb, jb) owns one unit of one row
   const int rb = tid / US, jb = tid - rb * US;
@@ -145,103 +185,50 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   const bool own_b = in_b && jb < nu;
   const int ub = u0 + jb;
 
-  for (int l = 0; l < layers; ++l) {
-    const size_t slot = (size_t)l * kCluster + q;
-    const size_t lrow = (size_t)l * batch + b0;  // first row of the tile in [L·B]
-    const float* prev = l > 0 ? in32 + (size_t)((l - 1) & 1) * plane : nullptr;
-    float* next = l == layers - 1 ? out : in32 + (size_t)(l & 1) * plane;
-    const bool res = l > 0 && ((residual >> l) & 1);
-    const float* pd = peep ? peep + (size_t)l * 3 * H : nullptr;
-    const float* aa = aff_a ? aff_a + (size_t)l * P : nullptr;
-    const float* ab = aff_b ? aff_b + (size_t)l * P : nullptr;
-    const float* gx = gx0;
-
-    // the finished chain value of (step s, row r, column p)
-    auto finish = [&](float v, int s, int r, int p) {
-      if (drop)
-        v *= drop_factor((uint32_t)((size_t)s * LB + lrow + r), (uint32_t)p, sd,
-                         keep_prob, inv_keep);
-      if (aa) v = v * aa[p] + ab[p];
-      return v;
-    };
-
-    // 1. layer l >= 1: gxl[s] = in(s)·wx_l + bias_l for the owned units,
-    // `per` steps at a time: the rows of hq are (step, row) pairs
+  int seen = 0;  // thread q < 8: the count last read of block q below
+  for (int s0 = 0; s0 < steps; s0 += lag) {
+    const int s1 = min(steps, s0 + lag);
+    // 1. layer l >= 1: the chunk's input product, once layer l-1 has
+    // counted the chains it reads (up to step s1 - 2)
     if (l > 0) {
-      const T* wx_g = wx_sl + slot * wh_elems;
-      if constexpr (kMma<T>) copy_rows(wh_s, pl.lwa, wx_g, G, round_up(P, 16));
-      const int per = pl.arow / R;
-      for (int s0 = 0; s0 < steps; s0 += per) {
-        for (int i = tid; i < pl.arow * pl.qs; i += kThreads) {
-          const int row = i / pl.qs, k = i - row * pl.qs;
-          const int s = s0 + row / R, r = row % R;
-          float v = 0.0f;
-          if (row < per * R && s > 0 && s < steps && r < nr && k < P)
-            v = prev[((size_t)(s - 1) * batch + b0 + r) * P + k];
-          hq[i] = Dtype<T>::from_float(v);
-        }
-        __syncthreads();
-        if constexpr (kMma<T>) {
-          input_tile(hq, pl.qs, P, wh_s, pl.lwa, G, [&](int row, int c, float v) {
-            const int s = s0 + row / R, r = row % R, k = c / US, j = c - k * US;
-            if (row < per * R && s < steps && r < nr && j < nu)
-              gxl[((size_t)s * batch + b0 + r) * 4 * H + k * H + u0 + j] =
-                  v + bias[(size_t)l * 4 * H + k * H + u0 + j];
-          });
-        } else {
-          fma_product<R>(hq, pl.qs, P, wx_g, G, G, pl.gates, part);
-          __syncthreads();
-          for (int i = tid; i < nr * G; i += kThreads) {
-            const int r = i / G, c = i - r * G, k = c / US, j = c - k * US;
-            if (j < nu) {
-              float v = bias[(size_t)l * 4 * H + k * H + u0 + j];
-              for (int sl = 0; sl < pl.gates.slices; ++sl)
-                v += part[((size_t)sl * prow + r) * G + c];
-              gxl[((size_t)s0 * batch + b0 + r) * 4 * H + k * H + u0 + j] = v;
+      wait_blocks(below, s1 - 1, seen);
+      input_product<T>(
+          (s1 - s0) * nr, P,
+          [&](int i, int k, float (&v)[4]) {
+            const int s = s0 + i / nr, r = i % nr;
+            if (s > 0) {
+              row4(prev + ((size_t)(s - 1) * batch + b0 + r) * P, k, P, P % 4 == 0, v);
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) v[c] = 0.0f;
             }
-          }
-        }
-        __syncthreads();
-      }
-      gx = gxl;
-    }
-
-    // 2. the layer's recurrent weights and its initial states
-    const T* wh_g = wh_sl + slot * wh_elems;
-    const T* pj_g = has_proj ? proj_sl + slot * pj_elems : nullptr;
-    if constexpr (kMma<T>) {
-      copy_rows(wh_s, pl.lwa, wh_g, G, round_up(P, 16));
-      if (has_proj) copy_rows(pj_s, pl.lwd, pj_g, PS, round_up(H, 16));
-    }
-    for (int i = tid; i < pl.arow * pl.qs; i += kThreads) {
-      const int r = i / pl.qs, k = i - r * pl.qs;
-      hq[i] = Dtype<T>::from_float(r < nr && k < P ? hinit[(lrow + r) * P + k] : 0.0f);
-    }
-    for (int i = tid; i < pl.arow * pl.hs; i += kThreads) cellf[i] = zero;
-    for (int i = tid; i < R * US; i += kThreads) {
-      const int r = i / US, j = i - r * US;
-      c_own[i] = r < nr && j < nu ? cinit[(lrow + r) * H + u0 + j] : 0.0f;
-    }
-    for (int i = tid; i < R * own; i += kThreads) {
-      const int r = i / own, j = i - r * own;
-      h_own[i] = r < nr && j < own_n ? hinit[(lrow + r) * P + own_0 + j] : 0.0f;
+          },
+          ain, lda_in, wx_g, P16, G,
+          [&](int c) {
+            const int k = c / US, j = c - k * US;
+            return j < nu ? bias[(size_t)l * 4 * H + k * H + u0 + j] : 0.0f;
+          },
+          [&](int i, int c, float v) {
+            const int s = s0 + i / nr, r = i % nr, k = c / US, j = c - k * US;
+            if (j < nu) ring[((size_t)(s - s0) * batch + b0 + r) * 4 * H + k * H + u0 + j] = v;
+          });
     }
     float gnext[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (own_b && steps > 0) {
-      const float* g = gx + (size_t)(b0 + rb) * 4 * H;
+    if (own_b) {
+      const float* g = gx_row(s0, s0, rb);
 #pragma unroll
       for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
     }
-    cluster.sync();  // every block's states and weights are in place
 
-    // 3. the step loop (K1's, with the chain and the layer's rows)
-    for (int s = 0; s < steps; ++s) {
+    // 2. the chunk's steps (K1's step loop, with the chain and the layer's
+    // rows)
+    for (int s = s0; s < s1; ++s) {
       const size_t srow = (size_t)s * LB + lrow;    // rows of [S, L·B, ·]
       const size_t brow = (size_t)s * batch + b0;   // rows of [S, B, ·]
 
       // a. gate sums for the owned units
       if constexpr (kMma<T>)
-        mma_product(hq, pl.qs, P, wh_s, pl.lwa, G, pl.gates, part);
+        mma_product(hq, pl.qs, P, wh_s, pl.lwa, G, pl.gates, part, prow);
       else
         fma_product<R>(hq, pl.qs, P, wh_g, G, G, pl.gates, part);
       if (has_proj)
@@ -282,14 +269,14 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
             h_own[ib] = hv;
             if (h_all) put_state(h_all, (srow + rb) * P + ub, hv, states_bf16);
             float ch = m * o;
-            if (res && s > 0) ch += prev[(brow - batch + rb) * P + ub];
+            if (res && s > 0) ch += __ldcg(prev + (brow - batch + rb) * P + ub);
             ch = finish(ch, s, rb, ub);
             next[(brow + rb) * P + ub] = ch;
             if (chain) put_state(chain, (srow + rb) * P + ub, ch, states_bf16);
             share = hv;
           }
-          if (s + 1 < steps) {
-            const float* g = gx + (brow + batch + rb) * 4 * H;
+          if (s + 1 < s1) {
+            const float* g = gx_row(s + 1, s0, rb);
 #pragma unroll
             for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
           }
@@ -306,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
 
       // d. the owned projection columns
       if constexpr (kMma<T>)
-        mma_product(cellf, pl.hs, H, pj_s, pl.lwd, PS, pl.proj, part);
+        mma_product(cellf, pl.hs, H, pj_s, pl.lwd, PS, pl.proj, part, prow);
       else
         fma_product<R>(cellf, pl.hs, H, pj_g, PS, PS, pl.proj, part);
       __syncthreads();
@@ -325,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           h_own[i] = hv;
           if (h_all) put_state(h_all, (srow + r) * P + p, hv, states_bf16);
           float ch = m * o;
-          if (res && s > 0) ch += prev[(brow - batch + r) * P + p];
+          if (res && s > 0) ch += __ldcg(prev + (brow - batch + r) * P + p);
           ch = finish(ch, s, r, p);
           next[(brow + r) * P + p] = ch;
           if (chain) put_state(chain, (srow + r) * P + p, ch, states_bf16);
@@ -337,80 +324,139 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
       share_slice(cluster, stage, nr, PS, hq, pl.qs, p0);
       cluster.sync();
     }
+    // 3. the chunk's chains of this block's columns are counted for the
+    // layer above
+    if (l + 1 < layers) publish(mine, s1);
+  }
 
-    // 4. the layer's final states; its chain is visible to the whole
-    // cluster before the next layer reads it
-    for (int i = tid; i < nr * US; i += kThreads) {
-      const int r = i / US, j = i - r * US;
-      if (j < nu) cfin[(lrow + r) * H + u0 + j] = c_own[i];
-    }
-    for (int i = tid; i < nr * own; i += kThreads) {
-      const int r = i / own, j = i - r * own;
-      if (j < own_n) hfin[(lrow + r) * P + own_0 + j] = h_own[i];
-    }
-    __threadfence();
-    cluster.sync();
+  // the layer's final states
+  for (int i = tid; i < nr * US; i += kThreads) {
+    const int r = i / US, j = i - r * US;
+    if (j < nu) cfin[(lrow + r) * H + u0 + j] = c_own[i];
+  }
+  for (int i = tid; i < nr * own; i += kThreads) {
+    const int r = i / own, j = i - r * own;
+    if (j < own_n) hfin[(lrow + r) * P + own_0 + j] = h_own[i];
   }
 }
 
 struct StackArgs {
-  const void *seed, *gx0, *mask, *wx_sl, *wh_sl, *proj_sl, *bias, *peep;
+  const void *seed, *gx0, *mask, *wx_rows, *wh_sl, *proj_sl, *bias, *peep;
   const void *cinit, *hinit, *aff_a, *aff_b;
   float forget_bias, keep_prob;
   int residual, steps, layers, batch, units, out_dim;
   void *out, *chain, *c_all, *h_all;
   bool states_bf16;
-  void *cfin, *hfin, *gxl, *in32;
+  void *cfin, *hfin, *scratch;
   cudaStream_t stream;
 };
 
-// Launch with R rows per cluster.  Clusters never wait on each other, so
-// any grid is safe; unless `force`, first ask the occupancy API whether all
-// ceil(B/R) clusters fit at once (one wave), and launch nothing
-// (*launched = false) if they do not.
+// How K12 launches: rows a cluster, row tiles, tiles a wave, waves, the
+// lag K, dynamic shared memory a block (rows = 0: not with this R).
+struct Launch {
+  int rows, tiles, per_wave, waves, lag;
+  size_t smem;
+};
+
+__host__ int lag_of(int steps) {
+  const int k = cdiv(steps, 8);
+  return k < 2 ? 2 : (k > 8 ? 8 : k);
+}
+
+// The scratch: the gxl ring [L, K, B, 4H], the chains of layers 0 .. L-2
+// [L-1, S, B, P] (float32), the counters [L, tiles, 8] (int32).
+__host__ size_t scratch_floats(const StackArgs& a, const Launch& how) {
+  return (size_t)a.layers * how.lag * a.batch * 4 * a.units
+         + (size_t)(a.layers - 1) * a.steps * a.batch * a.out_dim
+         + (size_t)a.layers * how.tiles * kCluster;
+}
+
 template <typename T, int R>
-cudaError_t launch_rows(const StackArgs& a, bool force, bool* launched) {
-  *launched = false;
+cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
+                   cudaLaunchAttribute* attr, Launch* how) {
+  how->rows = 0;
   const bool has_proj = a.proj_sl != nullptr;
   const Plan pl = plan<T>(a.units, a.out_dim, has_proj, R);
-  if (R * pl.us > kThreads) return cudaErrorInvalidValue;
-  const size_t smem = pl.base_bytes + pl.weight_bytes;
-  if (smem > kMaxSmemPerBlock) return cudaErrorInvalidConfiguration;
+  if (R * pl.us > kThreads) return cudaSuccess;
+  const size_t smem = pl.base_bytes + pl.weight_bytes + in_stage_bytes<T>(a.out_dim);
+  if (smem > kMaxSmemPerBlock) return cudaSuccess;
+  auto kernel = stack_fwd_kernel<T, R>;
   cudaError_t err = cudaFuncSetAttribute(
-      stack_fwd_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-
-  const int clusters = cdiv(a.batch, R);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * clusters, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cudaLaunchAttribute attr[1];
+  const int tiles = cdiv(a.batch, R);
+  *cfg = {};
+  cfg->gridDim = dim3(kCluster, a.layers, 1);
+  cfg->blockDim = dim3(kThreads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = a.stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (!force) {
-    int fit = 0;
-    err = cudaOccupancyMaxActiveClusters(&fit, (const void*)stack_fwd_kernel<T, R>, &cfg);
-    if (err != cudaSuccess) return err;
-    if (fit < clusters) return cudaSuccess;
-  }
-  err = cudaLaunchKernelEx(
-      &cfg, stack_fwd_kernel<T, R>, (const int*)a.seed, (const float*)a.gx0,
-      (const float*)a.mask, (const T*)a.wx_sl, (const T*)a.wh_sl,
-      (const T*)a.proj_sl, (const float*)a.bias, (const float*)a.peep,
-      (const float*)a.cinit, (const float*)a.hinit, (const float*)a.aff_a,
-      (const float*)a.aff_b, a.forget_bias, a.keep_prob, a.residual, a.steps,
-      a.layers, a.batch, a.units, a.out_dim, (float*)a.out, a.chain, a.c_all,
-      a.h_all, a.states_bf16, (float*)a.cfin, (float*)a.hfin, (float*)a.gxl,
-      (float*)a.in32);
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, cfg);
   if (err != cudaSuccess) return err;
-  *launched = true;
+  const int per_wave = min(tiles, fit / a.layers);
+  if (per_wave < 1) return cudaSuccess;
+  how->rows = R;
+  how->tiles = tiles;
+  how->per_wave = per_wave;
+  how->waves = cdiv(tiles, per_wave);
+  how->lag = lag_of(a.steps);
+  how->smem = smem;
+  return cudaSuccess;
+}
+
+// every wave: all L layers of its row tiles, resident together
+template <typename T, int R>
+cudaError_t run(const StackArgs& a, const Launch& how) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Launch again;
+  cudaError_t err = config<T, R>(a, &cfg, attr, &again);
+  if (err != cudaSuccess) return err;
+  const int H = a.units, P = a.out_dim, L = a.layers;
+  float* gxl = (float*)a.scratch;
+  float* in32 = gxl + (size_t)L * how.lag * a.batch * 4 * H;
+  int* counters = (int*)(in32 + (size_t)(L - 1) * a.steps * a.batch * P);
+  err = cudaMemsetAsync(counters, 0, sizeof(int) * L * how.tiles * kCluster, a.stream);
+  if (err != cudaSuccess) return err;
+  for (int tile0 = 0; tile0 < how.tiles; tile0 += how.per_wave) {
+    const int n = min(how.per_wave, how.tiles - tile0);
+    cfg.gridDim = dim3(kCluster * n, L, 1);
+    err = cudaLaunchKernelEx(
+        &cfg, stack_fwd_kernel<T, R>, (const int*)a.seed, (const float*)a.gx0,
+        (const float*)a.mask, (const T*)a.wx_rows, (const T*)a.wh_sl,
+        (const T*)a.proj_sl, (const float*)a.bias, (const float*)a.peep,
+        (const float*)a.cinit, (const float*)a.hinit, (const float*)a.aff_a,
+        (const float*)a.aff_b, a.forget_bias, a.keep_prob, a.residual, a.steps,
+        a.layers, a.batch, a.units, a.out_dim, (float*)a.out, a.chain, a.c_all,
+        a.h_all, a.states_bf16, (float*)a.cfin, (float*)a.hfin, gxl, in32, counters,
+        tile0, how.tiles, how.lag);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
+}
+
+// The R of {4, 6, 8, 12} with the fewest waves, then the smallest; no R:
+// the launch is refused (bf16 slices wider than shared memory, as K1's).
+template <typename T>
+cudaError_t choose(const StackArgs& a, Launch* how) {
+  how->rows = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Launch c;
+  cudaError_t err;
+#define TRY(R)                                                          \
+  err = config<T, R>(a, &cfg, attr, &c);                                \
+  if (err != cudaSuccess) return err;                                   \
+  if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;
+  TRY(4) TRY(6) TRY(8) TRY(12)
+#undef TRY
+  return how->rows ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 template <typename T>
@@ -421,30 +467,33 @@ int launch(int device, const StackArgs& a) {
   if (a.units <= 0 || a.out_dim <= 0 || (!a.proj_sl && a.out_dim != a.units) ||
       (a.aff_a == nullptr) != (a.aff_b == nullptr))
     return cudaErrorInvalidValue;
-  bool launched = false;
-  err = launch_rows<T, 4>(a, false, &launched);
-  if (err != cudaSuccess || launched) return err;
-  err = launch_rows<T, 6>(a, false, &launched);
-  if (err != cudaSuccess || launched) return err;
-  return launch_rows<T, 8>(a, true, &launched);
+  Launch how;
+  err = choose<T>(a, &how);
+  if (err != cudaSuccess) return err;
+  switch (how.rows) {
+    case 4: return run<T, 4>(a, how);
+    case 6: return run<T, 6>(a, how);
+    case 8: return run<T, 8>(a, how);
+    default: return run<T, 12>(a, how);
+  }
 }
 
 }  // namespace
 
 #define LSTM_STACK_FWD_ARGS                                                    \
   int device, const void *seed, const void *gx0, const void *mask,            \
-      const void *wx_sl, const void *wh_sl, const void *proj_sl,              \
+      const void *wx_rows, const void *wh_sl, const void *proj_sl,            \
       const void *bias, const void *peep, const void *cinit,                  \
       const void *hinit, const void *aff_a, const void *aff_b,                \
       float forget_bias, float keep_prob, int residual, int steps,            \
       int layers, int batch, int units, int out_dim, void *out, void *chain,  \
       void *c_all, void *h_all, int states_bf16, void *cfin, void *hfin,      \
-      void *gxl, void *in32, void *stream
+      void *scratch, void *stream
 #define LSTM_STACK_FWD_PACK                                                    \
-  StackArgs{seed, gx0, mask, wx_sl, wh_sl, proj_sl, bias, peep, cinit, hinit, \
-            aff_a, aff_b, forget_bias, keep_prob, residual, steps, layers,    \
-            batch, units, out_dim, out, chain, c_all, h_all,                  \
-            states_bf16 != 0, cfin, hfin, gxl, in32, (cudaStream_t)stream}
+  StackArgs{seed, gx0, mask, wx_rows, wh_sl, proj_sl, bias, peep, cinit,      \
+            hinit, aff_a, aff_b, forget_bias, keep_prob, residual, steps,     \
+            layers, batch, units, out_dim, out, chain, c_all, h_all,          \
+            states_bf16 != 0, cfin, hfin, scratch, (cudaStream_t)stream}
 
 extern "C" int lstm_stack_fwd_f32(LSTM_STACK_FWD_ARGS) {
   return launch<float>(device, LSTM_STACK_FWD_PACK);
@@ -452,4 +501,29 @@ extern "C" int lstm_stack_fwd_f32(LSTM_STACK_FWD_ARGS) {
 
 extern "C" int lstm_stack_fwd_bf16(LSTM_STACK_FWD_ARGS) {
   return launch<__nv_bfloat16>(device, LSTM_STACK_FWD_PACK);
+}
+
+// How K12 would launch on `device` at this shape: info = {rows a cluster,
+// row tiles, tiles a wave, waves, lag K, shared memory bytes a block}, and
+// the scratch floats the launch needs; a CUDA error if it cannot.
+extern "C" int lstm_stack_fwd_config(int device, int steps, int layers, int batch,
+                                     int units, int out_dim, int has_proj, int bf16,
+                                     long long* info, long long* scratch) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  StackArgs a = {};
+  a.steps = steps;
+  a.layers = layers;
+  a.batch = batch;
+  a.units = units;
+  a.out_dim = out_dim;
+  a.proj_sl = has_proj ? (const void*)1 : nullptr;
+  Launch how = {};
+  err = bf16 ? choose<__nv_bfloat16>(a, &how) : choose<float>(a, &how);
+  if (err != cudaSuccess) return err;
+  const long long v[6] = {how.rows, how.tiles, how.per_wave, how.waves, how.lag,
+                          (long long)how.smem};
+  for (int i = 0; i < 6; ++i) info[i] = v[i];
+  *scratch = (long long)scratch_floats(a, how);
+  return cudaSuccess;
 }

@@ -10,9 +10,11 @@ step s layer l runs time t = s - l, for S = T + L - 1 steps, and every
 per-step stream is laid out by s with the layers stacked on the row axis
 ([S, L·B, ·]).  The kernels here keep that layout, its masks and its hash
 dropout (drawn at row s·L·B + l·B + b, column p), so they compute the same
-function, ordering the work for the card: K12 runs the layers one after
-another, K13 as a pipeline of layers (``csrc/lstm_stack_fwd.cu``,
-``csrc/lstm_stack_bwd.cu``).
+function, ordering the work for the card: both run one 8-block cluster per
+(layer, tile of batch rows) with the layer's recurrent weights in its
+shared memory, the layers pipelined in chunks of K steps (the lag), each
+layer's input products off its recurrence (``csrc/lstm_stack_fwd.cu``,
+``csrc/lstm_stack_bwd.cu``; ``stack_config`` says how they launch).
 
 Layer 0's input projection gx0 = x·wx0 + b0 is one GEMM outside the
 kernels, and in training its gradients are autograd's products over the
@@ -20,7 +22,9 @@ dgates rows of layer 0 that K13 emits, as XLA's are outside the TPU kernel.
 The packed weights: wz ``[L, 2P, 4H]`` (wz[l] = [wx_l; wh_l], layer 0's
 input slab zero) and proj ``[L, H, P]`` in the compute dtype; bias
 ``[L, 4H]`` (layer 0's zero, it is in gx0), peep ``[L, 3, H]`` (the i, f, o
-diagonals) in float32.
+diagonals) in float32.  The kernels take them cut per cluster block
+(``stack_slices``): wh and proj as K1's slices, wx as rows of the block's
+gate columns (``_input_rows``), proj also as K2's rows for K13.
 
 On a CPU tensor a wrapper runs its plain version (``stack_forward_reference``,
 ``stack_backward_reference``); on a CUDA tensor it launches its kernel or
@@ -29,6 +33,8 @@ raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, List, Sequence
 
 import torch
@@ -36,7 +42,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..models import cells
-from .lstm_kernels import _expect, _ptr, _slices
+from .lstm_kernels import _expect, _proj_rows, _ptr, _round_up, _slices
 from .moe_kernels import _seed_ptr, hash_uniform
 
 _DIAG = ("w_i_diag", "w_f_diag", "w_o_diag")
@@ -292,6 +298,35 @@ def _chain_cotangents(dout, din_above, drop):
     return dchain if drop is None else dchain * drop
 
 
+def _weight_grads(z, dgates, c_prev, c_new, out_blk, dout_p, cdt):
+    """The stack backward's weight gradients over its per-step tensors
+    ``[S, L, B, X]`` (dgates as stored): dwz = Σ zᵀ·dgates, dproj =
+    Σ out_blkᵀ·dout_p (None when out_blk is) with operands rounded to
+    ``cdt`` and float32 sums; dbias = Σ dgates and the peephole sums (None
+    when c_new is), from dgates as stored."""
+    steps, layers, batch, h4 = dgates.shape
+    units = h4 // 4
+
+    def per_layer(x):                       # [S, L, B, X] -> [L, S·B, X]
+        return x.transpose(0, 1).reshape(layers, steps * batch, x.shape[-1])
+
+    dwz = cells.matmul_f32(per_layer(z).transpose(1, 2), per_layer(dgates),
+                           cdt)
+    dproj = None
+    if out_blk is not None:
+        dproj = cells.matmul_f32(per_layer(out_blk).transpose(1, 2),
+                                 per_layer(dout_p), cdt)
+    dg32 = dgates.float()
+    dbias = dg32.sum((0, 2))
+    dpeep = None
+    if c_new is not None:
+        dpeep = torch.stack([
+            (dg32[..., :units] * c_prev).sum((0, 2)),
+            (dg32[..., 2 * units:3 * units] * c_prev).sum((0, 2)),
+            (dg32[..., 3 * units:] * c_new).sum((0, 2))], dim=1)
+    return dwz, dbias, dproj, dpeep
+
+
 def stack_backward_reference(gx0, mask, wz, bias, proj, peep, cinit, hinit,
                              residual, forget_bias: float, keep_prob, seed,
                              chain, c_all, h_all, dout, dcfin, dhfin,
@@ -344,24 +379,10 @@ def stack_backward_reference(gx0, mask, wz, bias, proj, peep, cinit, hinit,
         rows["din"].append(din)
     st = {k: torch.stack(v[::-1]) for k, v in rows.items()}  # [S, L, B, X]
 
-    def per_layer(x):                       # [S, L, B, X] -> [L, S·B, X]
-        return x.transpose(0, 1).reshape(layers, steps * batch, x.shape[-1])
-
     dgates = st["dg"]
-    dwz = cells.matmul_f32(per_layer(z).transpose(1, 2), per_layer(dgates),
-                           cdt)
-    dproj = None
-    if proj is not None:
-        dproj = cells.matmul_f32(per_layer(st["out_blk"]).transpose(1, 2),
-                                 per_layer(st["dout_p"]), cdt)
-    dg32 = dgates.float()
-    dbias = dg32.sum((0, 2))
-    dpeep = None
-    if peep is not None:
-        dpeep = torch.stack([
-            (dg32[..., :units] * c_prev).sum((0, 2)),
-            (dg32[..., 2 * units:3 * units] * c_prev).sum((0, 2)),
-            (dg32[..., 3 * units:] * st["c_new"]).sum((0, 2))], dim=1)
+    dwz, dbias, dproj, dpeep = _weight_grads(
+        z, dgates, c_prev, None if peep is None else st["c_new"],
+        None if proj is None else st["out_blk"], st["dout_p"], cdt)
     lb = layers * batch
     result = (dgates.reshape(steps, lb, 4 * units), dwz, dbias, dproj, dpeep,
               dc.reshape(lb, units), dh.reshape(lb, out_dim))
@@ -376,13 +397,18 @@ def stack_backward_reference(gx0, mask, wz, bias, proj, peep, cinit, hinit,
 def stack_replay_backward_steps(gx0, mask, wz, bias, proj, peep, cinit,
                                 hinit, residual, forget_bias: float,
                                 keep_prob, seed, chain, c_all, h_all, dout,
-                                dc_in, dh_in, din, store_dtype=torch.float32):
+                                dc_in, dh_in, din, store_dtype=torch.float32,
+                                dgates=None):
     """Every step of the plain backward at once, each started from a
     kernel's own carried cotangents (dc_in, dh_in ``[S, L·B, ·]``) and its
     layers' input cotangents din ``[L, S, B, P]``.  Returns (dgates in
     ``store_dtype``, dc_out, dh_out, din_out): dc_out[s] and dh_out[s] are
     what step s carries on to step s-1 (to hold against dc_in[s-1] and
-    dh_in[s-1]), din_out ``[L, S, B, P]`` against din."""
+    dh_in[s-1]), din_out ``[L, S, B, P]`` against din.  With ``dgates`` (a
+    kernel's own ``[S, L·B, 4H]``, as stored), also (dwz, dbias, dproj,
+    dpeep) summed as ``stack_backward_reference`` sums them, over those
+    dgates and the replayed steps' c_new, out_blk and dout_p: held against
+    the kernel's weight gradients, this checks their products alone."""
     steps, layers, batch, units, out_dim = _dims(gx0, wz)
     drop = _drop_mask(seed, keep_prob, steps, layers, batch, out_dim,
                       gx0.device)
@@ -394,14 +420,21 @@ def stack_replay_backward_steps(gx0, mask, wz, bias, proj, peep, cinit,
     def view(x):
         return x.float().view(steps, layers, batch, x.shape[-1])
 
-    dg, dc, dh, dinr, _, _, _ = _backward_step(
-        gx0, mask.view(steps, layers, batch, 1).float(), z,
-        _previous(c_all, cinit, layers), dchain, view(dc_in), view(dh_in),
-        wz, bias, proj, peep, _residual_vector(residual, layers, gx0.device),
-        forget_bias)
+    c_prev = _previous(c_all, cinit, layers)
+    dg, dc, dh, dinr, c_new, out_blk, dout_p = _backward_step(
+        gx0, mask.view(steps, layers, batch, 1).float(), z, c_prev, dchain,
+        view(dc_in), view(dh_in), wz, bias, proj, peep,
+        _residual_vector(residual, layers, gx0.device), forget_bias)
     lb = layers * batch
-    return (dg.reshape(steps, lb, -1).to(store_dtype), dc.reshape(steps, lb, -1),
-            dh.reshape(steps, lb, -1), dinr.transpose(0, 1))
+    result = (dg.reshape(steps, lb, -1).to(store_dtype),
+              dc.reshape(steps, lb, -1), dh.reshape(steps, lb, -1),
+              dinr.transpose(0, 1))
+    if dgates is None:
+        return result
+    return result + (_weight_grads(
+        z, dgates.view(steps, layers, batch, -1), c_prev,
+        None if peep is None else c_new, None if proj is None else out_blk,
+        dout_p, wz.dtype),)
 
 
 def _residual_bits(residual) -> int:
@@ -428,6 +461,75 @@ def _check_weights(gx0, mask, wz, bias, proj, peep, cinit, hinit):
         _expect(peep, (layers, 3, units), torch.float32, device, "peep")
     _expect(cinit, (lb, units), torch.float32, device, "cinit")
     _expect(hinit, (lb, out_dim), torch.float32, device, "hinit")
+
+
+def _input_rows(wx, cluster: int):
+    """wx ``[L, P, 4H]`` as the stack kernels' cluster blocks read it for a
+    layer's input products: block q's gate columns (units [q·US, (q+1)·US)
+    of the four gates, in K1's slice order) as rows with the input index
+    contiguous, ``[L, cluster, 4, US, P16]`` (P16: P rounded up to 16),
+    zero-padded."""
+    layers, out_dim, h4 = wx.shape
+    units = h4 // 4
+    us = _round_up(-(-units // cluster), 8)
+    rows = F.pad(wx.reshape(layers, out_dim, 4, units),
+                 (0, cluster * us - units, 0, 0,
+                  0, _round_up(out_dim, 16) - out_dim))
+    rows = rows.view(layers, rows.shape[1], 4, cluster, us)
+    return rows.permute(0, 3, 2, 4, 1).contiguous()
+
+
+def stack_slices(wz, proj, cluster: int, backward: bool = False) -> Dict:
+    """The stack's weights cut per cluster block, made once per weight
+    tensor (``cells.derived``): ``wh_sl`` as K1's slices; for K12
+    ``wx_rows`` (``_input_rows``) and ``proj_sl`` as K1's slices; for K13
+    (``backward``) ``proj_rows`` as K2's (K13 reads wx from wz itself)."""
+    out_dim = wz.shape[1] // 2
+    sources = [t for t in (wz, proj) if t is not None]
+
+    def build():
+        wh_sl, proj_sl = _slices(wz[:, out_dim:], proj, cluster)
+        if backward:
+            return {"wh_sl": wh_sl, "proj_rows": None if proj is None
+                    else _proj_rows(proj, cluster)}
+        return {"wx_rows": _input_rows(wz[:, :out_dim], cluster),
+                "wh_sl": wh_sl, "proj_sl": proj_sl}
+
+    return cells.derived(sources, ("stack slices", cluster, backward), build)
+
+
+def stack_config(device, steps: int, layers: int, batch: int, units: int,
+                 out_dim: int, has_proj: bool, dtype, backward: bool = False,
+                 store_dtype=torch.float32) -> dict:
+    """How K12 (or, with ``backward``, K13) launches on ``device`` at this
+    shape: ``rows`` (batch rows a cluster), ``tiles`` (row tiles),
+    ``per_wave`` (row tiles a launch, all L layers of each resident
+    together), ``waves``, ``lag`` (the chunk of steps a layer runs ahead of
+    the next), ``smem_bytes`` (shared memory a block) and
+    ``scratch_floats``, as the launcher chooses them."""
+    return dict(_config(device.index or 0, steps, layers, batch, units,
+                        out_dim, bool(has_proj), dtype == torch.bfloat16,
+                        backward, store_dtype == torch.bfloat16))
+
+
+@functools.lru_cache(maxsize=256)
+def _config(device: int, steps, layers, batch, units, out_dim, has_proj,
+            bf16, backward, store_bf16):
+    """``stack_config`` once per shape: the launcher's choice depends only
+    on these and on the device."""
+    lib = _build.library()
+    info = (ctypes.c_longlong * 6)()
+    scratch = ctypes.c_longlong()
+    args = [device, steps, layers, batch, units, out_dim, int(has_proj),
+            int(bf16)]
+    if backward:
+        err = lib.lstm_stack_bwd_config(*args, int(store_bf16), info,
+                                        ctypes.byref(scratch))
+    else:
+        err = lib.lstm_stack_fwd_config(*args, info, ctypes.byref(scratch))
+    _build.check(err, "lstm_stack_%s_config" % ("bwd" if backward else "fwd"))
+    keys = ("rows", "tiles", "per_wave", "waves", "lag", "smem_bytes")
+    return tuple(zip(keys, list(info))) + (("scratch_floats", scratch.value),)
 
 
 def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
@@ -457,16 +559,9 @@ def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
         _expect(aff_a, (layers, out_dim), torch.float32, device, "affine a")
         _expect(aff_b, (layers, out_dim), torch.float32, device, "affine b")
     lib = _build.library()
-    cluster = lib.lstm_fwd_cluster_size()
-
-    def slices():
-        wx_sl, _ = _slices(wz[:, :out_dim], None, cluster)
-        wh_sl, proj_sl = _slices(wz[:, out_dim:], proj, cluster)
-        return wx_sl, wh_sl, proj_sl
-
-    wx_sl, wh_sl, proj_sl = cells.derived(
-        [t for t in (wz, proj) if t is not None], ("stack slices", cluster),
-        slices)
+    sl = stack_slices(wz, proj, lib.lstm_fwd_cluster_size())
+    how = stack_config(device, steps, layers, batch, units, out_dim,
+                       proj is not None, wz.dtype)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=device, dtype=dtype)
@@ -479,20 +574,17 @@ def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
         chain = empty(steps, lb, out_dim, dtype=store_dtype)
         c_all = empty(steps, lb, units, dtype=store_dtype)
         h_all = empty(steps, lb, out_dim, dtype=store_dtype)
-    gxl = in32 = None
-    if layers > 1:
-        gxl = empty(steps, batch, 4 * units)
-        in32 = empty(2, steps, batch, out_dim)
+    scratch = empty(how["scratch_floats"])
     launch = lib.lstm_stack_fwd_bf16 if wz.dtype == torch.bfloat16 \
         else lib.lstm_stack_fwd_f32
     err = launch(device.index or 0, _seed_ptr(seed, keep_prob, device),
-                 _ptr(gx0), _ptr(mask), _ptr(wx_sl), _ptr(wh_sl),
-                 _ptr(proj_sl), _ptr(bias), _ptr(peep), _ptr(cinit),
+                 _ptr(gx0), _ptr(mask), _ptr(sl["wx_rows"]), _ptr(sl["wh_sl"]),
+                 _ptr(sl["proj_sl"]), _ptr(bias), _ptr(peep), _ptr(cinit),
                  _ptr(hinit), _ptr(aff_a), _ptr(aff_b), float(forget_bias),
                  float(keep_prob), _residual_bits(residual), steps, layers,
                  batch, units, out_dim, _ptr(out), _ptr(chain), _ptr(c_all),
                  _ptr(h_all), int(store_dtype == torch.bfloat16), _ptr(cfin),
-                 _ptr(hfin), _ptr(gxl), _ptr(in32),
+                 _ptr(hfin), _ptr(scratch),
                  torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "lstm_stack_fwd")
     lstm_stack_forward.launches += 1
@@ -535,13 +627,17 @@ def lstm_stack_backward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=device, dtype=dtype)
 
-    wzt = wz.transpose(1, 2).contiguous()
-    projt = None if proj is None else proj.transpose(1, 2).contiguous()
+    lib = _build.library()
+    sl = stack_slices(wz, proj, lib.lstm_fwd_cluster_size(), backward=True)
+    how = stack_config(device, steps, layers, batch, units, out_dim,
+                       proj is not None, wz.dtype, backward=True,
+                       store_dtype=store_dtype)
     dgates = empty(steps, lb, h4, dtype=store_dtype)
-    cnew = empty(steps, lb, units)
     outb = doutp = dproj = None
     if proj is not None:
-        outb, doutp = empty(steps, lb, units), empty(steps, lb, out_dim)
+        # the dproj product's operands, stashed in the compute dtype
+        outb = empty(steps, lb, units, dtype=wz.dtype)
+        doutp = empty(steps, lb, out_dim, dtype=wz.dtype)
         dproj = empty(layers, units, out_dim)
     dcinit, dhinit = empty(lb, units), empty(lb, out_dim)
     din = empty(layers, steps, batch, out_dim)
@@ -551,21 +647,20 @@ def lstm_stack_backward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
         dc_in, dh_in = empty(steps, lb, units), empty(steps, lb, out_dim)
     dwz = empty(layers, 2 * out_dim, h4)
     dcols = empty(layers, h4 + 3 * units)
-    lib = _build.library()
-    scratch = empty(lib.lstm_stack_bwd_scratch_floats(steps, layers, batch,
-                                                      units, out_dim))
+    scratch = empty(how["scratch_floats"])
     launch = lib.lstm_stack_bwd_bf16 if wz.dtype == torch.bfloat16 \
         else lib.lstm_stack_bwd_f32
     err = launch(device.index or 0, _seed_ptr(seed, keep_prob, device),
                  _ptr(gx0), _ptr(mask), _ptr(chain), _ptr(c_all),
-                 _ptr(h_all), _ptr(cinit), _ptr(hinit), _ptr(wz), _ptr(wzt),
-                 _ptr(projt), _ptr(bias), _ptr(peep), float(forget_bias),
+                 _ptr(h_all), _ptr(cinit), _ptr(hinit), _ptr(wz),
+                 _ptr(sl["wh_sl"]), _ptr(sl["proj_rows"]),
+                 _ptr(bias), _ptr(peep), float(forget_bias),
                  float(keep_prob), _residual_bits(residual), _ptr(dout),
                  _ptr(dcfin), _ptr(dhfin), steps, layers, batch, units,
                  out_dim, int(store_dtype == torch.bfloat16), _ptr(dgates),
-                 _ptr(cnew), _ptr(outb), _ptr(doutp), _ptr(dcinit),
-                 _ptr(dhinit), _ptr(din), _ptr(dc_in), _ptr(dh_in),
-                 _ptr(dwz), _ptr(dproj), _ptr(dcols), _ptr(scratch),
+                 _ptr(outb), _ptr(doutp), _ptr(dcinit), _ptr(dhinit),
+                 _ptr(din), _ptr(dc_in), _ptr(dh_in), _ptr(dwz), _ptr(dproj),
+                 _ptr(dcols), _ptr(scratch),
                  torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "lstm_stack_bwd")
     lstm_stack_backward.launches += 1

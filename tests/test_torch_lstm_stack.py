@@ -10,8 +10,10 @@ both families, with ragged lengths and residual flags; initial states and
 their gradients; hash dropout at keep 0.8 from the same int32 seed, whose
 mask must equal JAX's bit for bit; the eval-BN affine, whose backward
 raises.  The ``cuda`` tests hold K12 and K13 against their plain versions
-on the card: max|diff| / max|plain| <= 1e-4 per output in float32, and in
-bfloat16 each step replayed from the kernels' own states within 1e-3.
+on the card, narrow and at the ``lstm`` and ``cudnnlstm`` widths: max|diff|
+/ max|plain| <= 1e-4 per output in float32, and in bfloat16 each step
+replayed from the kernels' own states within 1e-3, as are K13's weight
+gradients over its own dgates.
 JAX is imported by a fixture, so the ``cuda`` tests also run where JAX is
 not installed (pytest --noconftest).
 """
@@ -372,13 +374,43 @@ def test_replays_reproduce_the_plain_streams():
     close(dc_out[0], grads[5].numpy())
 
 
+@pytest.mark.parametrize("proj", [P, None])
+def test_replay_weight_grads_match_the_backward(proj):
+    """Over the plain backward's own dgates, the replay's weight gradients
+    (what the ``cuda`` tests and ``chip_smoke.py`` hold K13's to) are the
+    plain backward's."""
+    case = stack_case(14, "cpu", torch.float32, keep=0.8, init=True,
+                      proj=proj)
+    case.pop("affine")
+    out, cfin, hfin, chain, c_all, h_all = sk.lstm_stack_forward(
+        **case, states=True)
+    dout = torch.from_numpy(np.random.RandomState(14).randn(
+        *out.shape).astype(np.float32))
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all, dout=dout)
+    grads = sk.lstm_stack_backward(**args, dcfin=torch.zeros_like(cfin),
+                                   dhfin=torch.zeros_like(hfin),
+                                   steps_out=True)
+    *_, wgrads = sk.stack_replay_backward_steps(
+        **args, dc_in=grads[7], dh_in=grads[8], din=grads[9],
+        dgates=grads[0])
+    for got, want in zip(grads[1:5], wgrads):
+        if got is None:
+            assert want is None
+        else:
+            close(want, got.numpy())
+
+
+# (units, proj): narrow, and the lstm and cudnnlstm widths
+WIDTHS = [(16, P), (16, None), (320, 320), (320, None)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("keep,affine,init", [
     (1.0, False, False), (0.9, False, True), (1.0, True, True)])
-@pytest.mark.parametrize("proj", [P, None])
-def test_k12_matches_plain_f32(cuda, keep, affine, init, proj):
+@pytest.mark.parametrize("units,proj", WIDTHS)
+def test_k12_matches_plain_f32(cuda, keep, affine, init, units, proj):
     case = stack_case(11, cuda, torch.float32, keep, affine, init, batch=5,
-                      proj=proj, units=16)
+                      proj=proj, units=units)
     got = sk.lstm_stack_forward(**case, states=True)
     ref = sk.stack_forward_reference(**case)
     ref = (ref[0], ref[4], ref[5]) + ref[1:4]
@@ -389,11 +421,12 @@ def test_k12_matches_plain_f32(cuda, keep, affine, init, proj):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("keep", [1.0, 0.9])
-@pytest.mark.parametrize("proj", [P, None])
-@pytest.mark.parametrize("batch", [5, 301])  # 301: more than one launch
-def test_k13_matches_plain_f32(cuda, keep, proj, batch):
+@pytest.mark.parametrize("units,proj", WIDTHS)
+@pytest.mark.parametrize("batch", [5, 301])  # 301: more than one wave
+def test_k13_matches_plain_f32(cuda, keep, units, proj, batch):
     case = stack_case(12, cuda, torch.float32, keep, init=True, batch=batch,
-                      proj=proj, time_steps=T if batch < 100 else 6,
+                      proj=proj, units=units,
+                      time_steps=T if batch < 100 else 6,
                       lengths=None if batch < 100 else
                       np.random.RandomState(batch).randint(1, 7, batch))
     case.pop("affine")
@@ -414,10 +447,14 @@ def test_k13_matches_plain_f32(cuda, keep, proj, batch):
 
 
 @pytest.mark.cuda
-def test_k12_k13_bf16_steps_replay(cuda):
-    """bfloat16: each step of both kernels from their own states."""
+@pytest.mark.parametrize("units,proj", [(32, 16), (320, 320), (320, None)])
+def test_k12_k13_bf16_steps_replay(cuda, units, proj):
+    """bfloat16: each step of both kernels from their own states, and K13's
+    weight gradients over its own dgates and the replayed steps' stashes.
+    The cotangents are scaled by 0.1, as chip_smoke.py's: at unit scale a
+    dgates value near a cancellation lies past the bound's floor."""
     case = stack_case(13, cuda, torch.bfloat16, keep=0.9, init=True,
-                      batch=6, time_steps=40, units=32, proj=16)
+                      batch=6, time_steps=40, units=units, proj=proj)
     case.pop("affine")
     out, cfin, hfin, chain, c_all, h_all = sk.lstm_stack_forward(
         **case, states=True)
@@ -425,15 +462,19 @@ def test_k12_k13_bf16_steps_replay(cuda):
                                    c_all=c_all, h_all=h_all)
     assert max(ratio(g, r) for g, r in zip((chain, c_all, h_all), replay)) \
         <= 1e-3
-    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(
-        0)).to(cuda)
+    dout = 0.1 * torch.randn(out.shape, generator=torch.Generator()
+                             .manual_seed(0)).to(cuda)
     grads = sk.lstm_stack_backward(
         **case, chain=chain, c_all=c_all, h_all=h_all, dout=dout,
         dcfin=torch.zeros_like(cfin), dhfin=torch.zeros_like(hfin),
         steps_out=True)
     dc_in, dh_in, din = grads[7:]
-    _, dc_out, dh_out, din_out = sk.stack_replay_backward_steps(
+    _, dc_out, dh_out, din_out, wgrads = sk.stack_replay_backward_steps(
         **case, chain=chain, c_all=c_all, h_all=h_all, dout=dout,
-        dc_in=dc_in, dh_in=dh_in, din=din)
+        dc_in=dc_in, dh_in=dh_in, din=din, dgates=grads[0])
     assert max(ratio(dc_out[1:], dc_in[:-1]), ratio(dh_out[1:], dh_in[:-1]),
                ratio(din_out[1:], din[1:])) <= 1e-3
+    # dwz, dbias, dproj, dpeep
+    for got, want in zip((grads[1], grads[2], grads[3], grads[4]), wgrads):
+        if want is not None:
+            assert ratio(got, want) <= 1e-3
