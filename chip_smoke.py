@@ -7,9 +7,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the kernels from lstm_ctc_tpu_torch/csrc/ (one nvcc per
      source, all started together);
-  3. kernel A (BLSTM layer forward) against its plain PyTorch version at
-     B=32, T=384, H=P=320, D=640, ragged lengths, with and without packed-row
-     resets, in float32 (TF32 off) and bfloat16;
+  3. kernel A (K1, BLSTM layer forward) against its plain PyTorch version
+     at B=32, T=384, H=P=320, D=640, ragged lengths, with and without
+     packed-row resets, in float32 (TF32 off) and bfloat16; each time also
+     in us a step, and bfloat16 with resets timed once more as the train
+     step calls it (per-step states kept in bfloat16);
   4. kernel B (MoE expert mix) against its plain version at N=12288, D=640,
      E=V=72, tau=10, keep 1.0 and 0.9;
   5. end to end: the flagship model (random weights from a seed) serves
@@ -21,12 +23,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      kernel launch held to its plain version on the very tensors the model
      gave it, and each launch must have the compute dtype bfloat16: kernel
      B's output, and each step of each layer of kernel A, replayed from the
-     kernel's own per-step states;
+     kernel's own per-step states; then the flagship forward at B=32,
+     T=384 timed, and profiled for K1's share of its device time;
   6. K10/K11 (CTC alpha and beta DP) against their plain versions at
      N=96 slots, T=400, S=301, ragged time and label lengths, repeated
      labels, an infeasible pair and an empty label; timed in turns with
-     the plain versions, and F.ctc_loss timed on the same shapes as the
-     library yardstick;
+     the plain versions (each also in us a step), and F.ctc_loss timed on
+     the same shapes as the library yardstick;
   7. K2 (BLSTM layer backward) against its plain version at B=32, T=384,
      H=P=320, D=640, ragged lengths, with and without resets, float32
      (TF32 off) and bfloat16 (in bfloat16 also each step replayed from
@@ -62,7 +65,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      checks of phase 8 on the MoE model: the float32 step (each K1, K2,
      K5 and K6 launch on its own tensors, then end to end under the
      nudge yardstick), a bfloat16 step with every K2, K5, K6, K10 and K11
-     launch held to its plain version, and a profiled step;
+     launch held to its plain version, and a profiled step (here and in
+     phase 8 with K1's share of the step's device time);
  11. K12 (the unidirectional stack's forward) against its plain version
      at the lstm width (4 layers of 320 cells, projection 320, peepholes,
      layers 1-3 residual) and the cudnnlstm width, B=32, T=384, a 120-wide
@@ -309,8 +313,16 @@ def check_lstm(torch, pkg, device, dtype, reset, rng):
     ms, plain_ms = time_in_turns(
         torch, lambda: lstm_kernels.lstm_layer_forward(*args),
         lambda: cells.dual_recurrence(*args), rounds=5)
-    say("  kernel A %-8s reset=%-5s kernel %.3f ms  plain %.3f ms"
-        % (str(dtype).split(".")[-1], reset, ms, plain_ms))
+    say("  kernel A %-8s reset=%-5s kernel %.3f ms (%.2f us a step)  plain "
+        "%.3f ms" % (str(dtype).split(".")[-1], reset, ms, ms / steps * 1e3,
+                     plain_ms))
+    if dtype == torch.bfloat16 and reset:
+        # as the train step calls it: the per-step states kept in bf16
+        train_ms = median_ms(torch, lambda: lstm_kernels.lstm_layer_forward(
+            *args, states=True, store_dtype=torch.bfloat16), reps=20)
+        say("  kernel A bfloat16 reset=True as the train step calls it "
+            "(states=True, bf16 c_all and h_all): %.3f ms (%.2f us a step)"
+            % (train_ms, train_ms / steps * 1e3))
     return worst_abs, ms, plain_ms
 
 
@@ -613,6 +625,9 @@ def end_to_end(torch, pkg, device, rng):
         say("  flagship forward B=32 T=384: kernels %.3f ms (%.1f frames/s), "
             "plain versions %.3f ms (%.1f frames/s)"
             % (ms, 32 * 384 / ms * 1e3, plain_ms, 32 * 384 / plain_ms * 1e3))
+        busy, rows = device_ms(torch, model)
+        say("  flagship forward, profiled: device kernels %.3f ms; %s"
+            % (busy, k1_share(rows, busy)))
         result["model_ms"], result["model_plain_ms"] = ms, plain_ms
     return result
 
@@ -706,8 +721,9 @@ def check_ctc_dp(torch, pkg, device, rng):
                   + 3 * slots * width + 4 * slots * width)
         bound_ms = max(nbytes / HBM_BYTES_PER_MS,
                        10 * steps * slots * width / F32_FLOPS_PER_MS)
-        say("  %s kernel %.3f ms  plain %.3f ms  bound %.4f ms (bytes)"
-            % (name, ms, plain_ms, bound_ms))
+        say("  %s kernel %.3f ms (%.3f us a step)  plain %.3f ms  bound "
+            "%.4f ms (bytes)" % (name, ms, ms / steps * 1e3, plain_ms,
+                                 bound_ms))
         result[name] = {"max_abs_err": abs_err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms}
 
@@ -1417,6 +1433,15 @@ def kernel_rows(prof):
                    and evt.self_device_time_total > 0), reverse=True)
 
 
+def k1_share(rows, busy):
+    """K1's launches in a profile's kernel rows, and its share of the
+    device time."""
+    k1 = [(ms, count) for ms, count, key in rows if "lstm_fwd_kernel" in key]
+    ms = sum(r[0] for r in k1)
+    return "K1 (lstm_fwd_kernel) %.3f ms in %d launches, %.1f%% of it" % (
+        ms, sum(r[1] for r in k1), 100 * ms / max(busy, 1e-9))
+
+
 def profile_step(torch, init_opt, step, params, batch, device, step_ms):
     """torch.profiler over one warm bf16 train step: device time by kernel,
     and the device's busy share of the median unprofiled step."""
@@ -1433,7 +1458,8 @@ def profile_step(torch, init_opt, step, params, batch, device, step_ms):
     rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     say("  profiled train step: device kernels %.1f ms, %.0f%% of the "
-        "median step (%.1f ms)" % (busy, 100 * busy / step_ms, step_ms))
+        "median step (%.1f ms); %s" % (busy, 100 * busy / step_ms, step_ms,
+                                       k1_share(rows, busy)))
     for ms, count, key in rows[:16]:
         say("    %9.3f ms  %5d x  %s" % (ms, count, key[:90]))
     # the host's side of the same step: where the device can wait on it

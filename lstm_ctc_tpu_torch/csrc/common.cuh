@@ -73,6 +73,34 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// 16 or 4 bytes from global into shared memory, asynchronously, of which
+// the first `src_bytes` are read and the rest are zero-filled (16: both
+// addresses 16-byte aligned, L1 bypassed; 4: 4-byte aligned)
+__device__ __forceinline__ void cp_async16_fill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4_fill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+// wait until at most `n` (0-7) of this thread's latest committed groups
+// are still in flight
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
 // d += a (16x16, row) · b (16x8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {

@@ -13,7 +13,10 @@
 // stacks add the products of a layer's input side off its recurrence (K12's
 // input_product, K13's din product, both from frag_step's 16-byte
 // fragments) and the step counters through which a layer's clusters hand
-// their results to the next layer's (wait_blocks, publish).  See
+// their results to the next layer's (wait_blocks, publish).  K1 has its
+// own plan and products (mma_product_t: the weights as mma's A, the rows as
+// its n) and hands its slices off point to point (send_slice, st.async on
+// the receiver's mbarrier) instead of through cluster barriers.  See
 // lstm_fwd.cu for the design.
 #pragma once
 
@@ -258,6 +261,180 @@ __device__ __forceinline__ void share_slice(cg::cluster_group& cluster,
     T* dst = cluster.map_shared_rank(target, peer) + r * stride + col0;
     reinterpret_cast<uint4*>(dst)[c] =
         reinterpret_cast<const uint4*>(stage + r * width)[c];
+  }
+}
+
+// K1's products on the tensor cores with the roles turned: part[s][n][c]
+// (row stride ldp) = Σ over the s-th slice of k of a[n][k]·w[k][c], for
+// the (at most 8) rows n of a, as wᵀ·aᵀ: a 16-column tile of w (read
+// transposed) is mma's A, the 8 rows of a its B (n = 8), so no padding
+// rows are multiplied (half the mma of mma_product), and each warp loads
+// its B fragments once for all its tiles.  Warp (g, s) owns tiles [g·tiles, (g+1)·tiles) and
+// the 16-deep steps [s·per, (s+1)·per); each tile's steps are summed in
+// order into one accumulator, the slices in slice order by the reader.
+// KMAX and TMAX bound per and tiles at compile time, so that the loads of
+// a warp are issued ahead of its mma: steps past a slice's end multiply a
+// zero B fragment and tiles past the group's end go to a discarded
+// accumulator.  A lane stores rows 2·(lane % 4) and + 1 of columns lane / 4
+// and + 8: with ldp ≡ 4 (mod 16) the four lanes of a column store to four
+// banks (at ldp a multiple of 32 they would share one).
+struct TSplit {
+  int per, slices, groups, tiles;
+};
+
+// the split with the fewest slices whose per and tiles fit KMAX and TMAX
+// and whose slices x groups fit the block's warps (per = 0: none fits)
+__host__ __device__ inline TSplit tsplit(int cols, int depth, int kmax, int tmax) {
+  const int tm = cols / 16, ks = cdiv(depth, 16);
+  for (int per = kmax; per >= 1; --per) {
+    const int slices = cdiv(ks, per), groups = cdiv(tm, tmax);
+    if (slices * groups <= kWarps) {
+      const int tiles = cdiv(tm, groups);
+      return TSplit{per, slices, cdiv(tm, tiles), tiles};
+    }
+  }
+  return TSplit{0, 0, 0, 0};
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
+template <int KMAX, int TMAX>
+__device__ __forceinline__ void mma_product_t(const __nv_bfloat16* a, int lda, int depth,
+                                              const __nv_bfloat16* w, int ldw, int cols,
+                                              TSplit sp, float* part, int ldp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  if (warp >= sp.slices * sp.groups) return;
+  const int s = warp % sp.slices, g = warp / sp.slices;
+  const int tm = cols / 16, steps = cdiv(depth, 16);
+  const int k0 = s * sp.per, nk = min(steps, k0 + sp.per) - k0;
+  const int t0 = g * sp.tiles, nt = min(tm, t0 + sp.tiles) - t0;
+  // B, the rows of a: rows n = lane % 8 at k + 8·(lane / 8 % 2)
+  const __nv_bfloat16* b_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8 + k0 * 16;
+  // A, a tile of w read transposed: rows k = lane % 16 at column
+  // 8·(lane / 16) of the tile, as mma_product reads its B
+  const __nv_bfloat16* w_lane = w + (size_t)((lane & 15) + k0 * 16) * ldw + (lane >> 4) * 8 + t0 * 16;
+  uint32_t fb[KMAX][2];
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk) {
+    ldsm_x2(fb[kk], b_lane + min(kk, nk - 1) * 16);
+    if (kk >= nk) fb[kk][0] = fb[kk][1] = 0u;
+  }
+  float d[TMAX][4] = {};
+#pragma unroll
+  for (int i = 0; i < TMAX; ++i) {
+    const __nv_bfloat16* wt = w_lane + min(i, nt - 1) * 16;
+#pragma unroll
+    for (int kk = 0; kk < KMAX; ++kk) {
+      uint32_t fw[4];
+      ldsm_x4_trans(fw, wt + (size_t)min(kk, nk - 1) * 16 * ldw);
+      const uint32_t fa[4] = {fw[0], fw[2], fw[1], fw[3]};
+      mma_16816(d[i], fa, fb[kk][0], fb[kk][1]);
+    }
+  }
+  // lane holds columns 16·tile + lane / 4 (and + 8) of rows 2·(lane % 4)
+  // and + 1
+  float* dst = part + ((size_t)s * 8 + 2 * (lane & 3)) * ldp + t0 * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < TMAX; ++i) {
+    if (i < nt) {
+      dst[i * 16] = d[i][0];
+      dst[i * 16 + ldp] = d[i][1];
+      dst[i * 16 + 8] = d[i][2];
+      dst[i * 16 + ldp + 8] = d[i][3];
+    }
+  }
+}
+
+// Point-to-point hand-offs inside a cluster (K1): a block writes its slice
+// into every block's buffer with st.async, each 16-byte store completing its
+// bytes on the receiving block's mbarrier; a receiver arms its own barrier
+// for the bytes of a phase (arrive.expect_tx, count 1) and waits on that
+// phase's parity.  Unlike a cluster barrier this orders nothing else: the
+// sender's other loads and stores, global ones included, are not waited
+// for, and a block waits for the slices it reads, not for every block.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+// makes initialised barriers visible to the cluster (before its barrier)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of this parity has completed; it acquires, at
+// cluster scope, the stores that completed it.  A wait of seconds means a
+// fault: the launch ends with an error rather than hang (a step takes
+// microseconds).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1LL << 26)) __trap();
+  }
+}
+
+// the address of `p` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_async16(uint32_t dst, const uint4& v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// One value a thread, the threads of a slice in element order, the lane's
+// value going to element `at` of `target`: groups of E = 16 / sizeof(T)
+// lanes (E-aligned, within a row of the slice) gather their values into
+// 16 bytes by shuffles, and lane p of a group stores them into the blocks
+// p, p + E, .. of the cluster at the group's first element, completing 16
+// bytes on each one's `bar`.  Every lane of the warp calls it (the
+// shuffles); only lanes with `send` store.
+template <typename T>
+__device__ __forceinline__ void send_slice(float v, bool send, const T* target, int at,
+                                           uint64_t* bar) {
+  constexpr int E = 16 / (int)sizeof(T);
+  const int lane = threadIdx.x & 31, g0 = lane & ~(E - 1), p = lane - g0;
+  uint32_t word;
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t bits = __bfloat16_as_ushort(__float2bfloat16(v));
+    word = bits | (__shfl_down_sync(0xffffffffu, bits, 1) << 16);  // even lanes
+  } else {
+    word = __float_as_uint(v);
+  }
+  constexpr int step = 4 / (int)sizeof(T);  // lanes a 32-bit word
+  uint4 q;
+  q.x = __shfl_sync(0xffffffffu, word, g0);
+  q.y = __shfl_sync(0xffffffffu, word, g0 + step);
+  q.z = __shfl_sync(0xffffffffu, word, g0 + 2 * step);
+  q.w = __shfl_sync(0xffffffffu, word, g0 + 3 * step);
+  if (send) {
+#pragma unroll
+    for (int peer = p; peer < kCluster; peer += E)
+      st_async16(cluster_addr(target + at - p, peer), q, cluster_addr(bar, peer));
   }
 }
 

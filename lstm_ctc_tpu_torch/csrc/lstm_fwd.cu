@@ -1,4 +1,4 @@
-// Kernel A: one BLSTM layer's whole-sequence forward, both directions.
+// Kernel K1: one BLSTM layer's whole-sequence forward, both directions.
 //
 // Replaces the TPU kernel lstm_ctc_tpu/ops/lstm_pallas.py _make_fwd_kernel
 // (:57-131), launched by pallas_fwd (:474) from bilstm_dual_scan_fused
@@ -8,40 +8,93 @@
 // then dynamic_rnn masking (c and h freeze past the length, out is zero
 // there) and the packed-row reset (keep = 0 zeroes the carry first).
 //
-// What bounds it on the H100: the recurrence is sequential, so each step's
-// latency is what counts.  A step needs the direction's recurrent and
-// projection weights (320x1280 + 320x320: 1.0 MB in bf16).  The TPU kernel
-// keeps them in VMEM; one block here has at most 227 KB of shared memory,
-// and a block that re-reads them from L2 every step spends ~30 us a step
-// (measured, PERF.md).
+// What bounds it on the H100: the recurrence is sequential, so a step's
+// latency is what counts; the bytes (gx read once, out written once: 0.047
+// ms at B = 32, T = 384, H = P = 320) and the operations are far below it.
+// A step needs the direction's recurrent and projection weights (320x1280
+// + 320x320: 1.0 MB in bf16), which one block's 227 KB cannot hold; a
+// block that re-reads them from L2 every step spends ~30 us a step.  Split
+// over a cluster, a block still reads its slices (100 KB of wh, 30 KB of
+// proj at the flagship width) from shared memory at every step: ~1,000
+// cycles at the SM's 128 bytes a cycle, the floor of this design's
+// products; the rest of a step is the chain of hand-offs, block barriers
+// and the cell's transcendentals.
 //
 // Design: a thread-block cluster of 8 blocks per (direction, tile of R
-// batch rows) owns the whole time loop.  Block q of a cluster owns hidden
-// units [q·US, (q+1)·US) (all four gates of them) and projection columns
-// [q·PS, (q+1)·PS); its slices of wh and proj are copied into its shared
-// memory once and stay there.  Per step:
-//   a. gate sums: the full rounded h [R, P] times the wh slice;
+// batch rows) owns the whole time loop.  Block q owns hidden units [q·US,
+// (q+1)·US) (all four gates of them) and projection columns [q·PS,
+// (q+1)·PS); its slices of wh and proj are copied into its shared memory
+// once and stay there (bf16; in f32, which must not round to TF32, they
+// are read from L2 and the products are FMA split over all threads).  A
+// step with a projection:
+//   a. wait for h(t-1) on this block's own mbarrier; the gate sums of the
+//      owned units from the full rounded h [R, P] times the wh slice, on
+//      the tensor cores with the roles turned (mma_product_t: the slice as
+//      mma.sync's A, the R <= 8 rows as its n, so no padding rows are
+//      multiplied; at H = P = 320 5 k-slices of 4 steps x 2 groups of 5
+//      tiles, each warp's loads issued ahead of its mma); one block barrier
+//      for the partial sums, whose rows are padded against bank conflicts.
+//      wh's columns are interleaved in shared memory (unit-major), so a
+//      cell thread reads the four gates of its unit in a slice as one
+//      16-byte load;
 //   b. the cell update of the owned units; the rounded cell output is
-//      staged and written into every block of the cluster (distributed
-//      shared memory, 16-byte stores);
-//   c. cluster barrier;
-//   d. the owned projection columns from the full cell output;
-//   e. masking; the new rounded h slice is written into every block;
-//   f. cluster barrier.
-// Without a projection (P == H) the cell output is the step output, and the
-// cluster barriers sit after a and after b.  Operands of both products are
+//      handed to every block of the cluster (below);
+//   c. wait for the eight cell-output slices;
+//   d. the owned projection columns from the full cell output; one block
+//      barrier;
+//   e. masking; the new rounded h slice is handed to every block.
+// Without a projection (P == H) the cell output is h, and a step is a, b.
+//
+// The hand-offs.  The threads of a slice gather 16 bytes by shuffles and
+// write them into every block with st.async, each store completing its
+// bytes on the receiver's mbarrier; a receiver arms its own barrier with
+// the bytes of the next phase (count 1, arrive.expect_tx) and waits only on
+// that phase's parity.  So nothing waits for all eight blocks at once, and
+// no store but these is released: the global stores of out, c_all and h_all
+// are issued after the hand-off and nothing ever waits for them (a
+// cluster barrier in its place would release them too).  Why each buffer
+// is safe:
+//   - the cell-output buffer (one): a peer writes cell(t+1) into it only
+//     after it has all of h(t), and this block hands off its h(t) after the
+//     block barrier of d, i.e. after it is done reading cell(t);
+//   - h with a projection (one buffer): a peer writes h(t) only after it
+//     has all of cell(t), which this block hands off after the block
+//     barrier of a, i.e. after it is done reading h(t-1);
+//   - h without a projection: a peer writes h(t) right after its own gate
+//     product, which needs only h(t-1), so it may run a step ahead of a
+//     block still reading h(t-1): h(t) goes to buffer t & 1 (a peer writes
+//     h(t+1) into the buffer of h(t-1) only after it has this block's
+//     h(t), handed off after this block's barrier of a at step t);
+//   - the barriers: a receiver arms a barrier's next phase right after its
+//     wait on the current one, before it hands off the slice that a peer
+//     needs before it can send that next phase (the same chains), so every
+//     phase is armed before its first byte lands and is waited on before
+//     the next one can start;
+//   - the partial sums: the cell (or h) threads read them before they hand
+//     their values off, and the product that overwrites them waits for the
+//     hand-off that includes this block's own slice.
+// A last cluster barrier keeps every block resident until all hand-offs
+// have landed.
+//
+// The packed-row reset is part of the step: keep(t+1) is applied where
+// c and h are kept for the next step (c in a register, h as staged for the
+// hand-off, in float32 before the rounding, as the plain version does:
+// exact for any keep, and the wrapper's keep, cells.step_masks, is 0 or
+// 1), while out, c_all, h_all, cfin and hfin take the values before it.
+// gx of each step (R rows x 4 x US floats) and keep reach a ring of 3 to 6
+// steps (as shared memory allows) by cp.async, issued by the block's last
+// threads (off the cell threads) a ring's depth less one ahead; lengths,
+// the peepholes and the
+// carried c and h stay in registers.  Operands of both products are
 // rounded to the compute dtype; sums, the carry and every output stay
-// float32.  In bf16 both products run on the tensor cores (ldmatrix and
-// mma.sync m16n8k16, h padded to 16 rows), and the slices (~140 KB at
-// H = P = 320, the recipes' widest) must fit in shared memory.  In f32,
-// which must not round to TF32, they are FMA split over all threads (4
-// columns and a slice of k each), and the slices are read from L2 at every
-// width (at the flagship size they do not fit in shared memory).
+// float32, and the partial sums of the k-slices are added in slice order.
 //
 // One bf16 block fills an SM, and only so many 8-block clusters are
 // resident at once (14 on an H100 SXM): the launcher asks the occupancy API
 // and takes the smallest R of {4, 6, 8} whose 2·ceil(B/R) clusters all fit,
-// so the grid runs in one wave (B = 32: R = 6, 12 clusters).
+// so the grid runs in one wave (B = 32: R = 6, 12 clusters).  The slices
+// (~140 KB at H = P = 320, the recipes' widest) and the ring must fit in
+// shared memory; wider bf16 layers are refused.
 //
 // The wrapper lays the weights out per slice ([2, 8, P16, 4, US] and
 // [2, 8, H16, PS]: US a multiple of 8, PS of 16, the depths P16 and H16
@@ -53,6 +106,69 @@
 #include "lstm_cluster.cuh"
 
 namespace {
+
+constexpr int kMaxRing = 6;  // steps of gx the ring holds, at most
+constexpr int kMinRing = 3;  // gx(t) and keep(t+1) in, t+2 in flight
+// the bf16 products' compile-time bounds (mma_product_t): 16-deep steps a
+// slice and tiles a warp; at H = P = 320 the gate product runs 5 slices of
+// 4 steps x 2 groups of 5 tiles, the projection 5 slices of 4 x 3 tiles
+constexpr int kGateK = 4, kGateT = 5, kProjK = 4, kProjT = 1;
+
+
+// K1's shared memory, common to host and device.  US, PS: units and
+// projection columns a block; QS, HS: row strides of the full h and of the
+// full cell output (8·PS, 8·US, plus 16 bytes so that rows fall on other
+// banks); arow: their rows (8 in bf16, whose products take the rows as
+// mma's n; else R); LWA, LWD: row strides of the bf16 weight slices (also
+// padded by 16 bytes).  part holds the partial sums of the larger product,
+// [slices][arow][ld], split as tsplit says in bf16 (ld = cols + 4, which
+// puts the rows a lane stores on other banks) and as fma_split says in f32
+// (ld = cols).  Then the three hand-off barriers (h in buffer 0, h in
+// buffer 1, the cell output), the gx ring [depth][R][4][US] and the keep
+// ring [depth][R].
+struct FwdPlan {
+  int us, ps, qs, hs, arow, lwa, lwd, ldg, ldp;
+  TSplit tg, tp;  // bf16
+  Split fg, fp;   // f32
+  int gslices, pslices;
+  size_t off_cell, off_part, off_w, off_bar, off_ring, off_keep, bytes;
+};
+
+template <typename T>
+__host__ __device__ FwdPlan fwd_plan(int units, int out_dim, bool has_proj, int rows,
+                                     int depth) {
+  FwdPlan p;
+  p.us = round_up(cdiv(units, kCluster), 8);
+  p.ps = has_proj ? round_up(cdiv(out_dim, kCluster), 16) : p.us;
+  const int pad = 16 / (int)sizeof(T);
+  p.hs = kCluster * p.us + pad;
+  p.qs = kCluster * p.ps + pad;
+  p.arow = kMma<T> ? 8 : rows;
+  p.lwa = 4 * p.us + pad;
+  p.lwd = p.ps + pad;
+  const int g = 4 * p.us;
+  p.ldg = kMma<T> ? g + 4 : g;
+  p.ldp = kMma<T> ? p.ps + 4 : p.ps;
+  p.tg = tsplit(g, out_dim, kGateK, kGateT);
+  p.tp = has_proj ? tsplit(p.ps, units, kProjK, kProjT) : TSplit{1, 0, 0, 0};
+  p.fg = fma_split(g, out_dim);
+  p.fp = fma_split(p.ps, units);
+  p.gslices = kMma<T> ? p.tg.slices : p.fg.slices;
+  p.pslices = kMma<T> ? p.tp.slices : p.fp.slices;
+  const size_t part_g = (size_t)p.gslices * p.arow * p.ldg;
+  const size_t part_p = has_proj ? (size_t)p.pslices * p.arow * p.ldp : 0;
+  p.off_cell = align128(sizeof(T) * (size_t)p.arow * p.qs);
+  p.off_part = p.off_cell + align128(sizeof(T) * (size_t)p.arow * p.hs);
+  p.off_w = p.off_part + align128(sizeof(float) * (part_g > part_p ? part_g : part_p));
+  const size_t wbytes = !kMma<T> ? 0 : sizeof(T) *
+      ((size_t)round_up(out_dim, 16) * p.lwa
+       + (has_proj ? (size_t)round_up(units, 16) * p.lwd : 0));
+  p.off_bar = p.off_w + align128(wbytes);
+  p.off_ring = p.off_bar + 128;
+  p.off_keep = p.off_ring + align128(sizeof(float) * (size_t)depth * rows * 4 * p.us);
+  p.bytes = p.off_keep + align128(sizeof(float) * (size_t)depth * rows);
+  return p;
+}
 
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
@@ -68,7 +184,8 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
     void* __restrict__ h_all,          // [T, 2B, P] or null
     bool states_bf16,                  // c_all, h_all in bfloat16
     float* __restrict__ cfin,          // [2B, H]
-    float* __restrict__ hfin) {        // [2B, P]
+    float* __restrict__ hfin,          // [2B, P]
+    int depth) {                       // steps in the ring
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int dir = blockIdx.y;
@@ -76,171 +193,247 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
   const int nr = min(R, batch - b0);
   const int H = units, P = out_dim;
   const bool has_proj = proj_sl != nullptr;
-  const Plan pl = plan<T>(H, P, has_proj, R);
-  const int US = pl.us, PS = pl.ps, G = 4 * US, own = pl.own, prow = pl.prow;
+  const FwdPlan pl = fwd_plan<T>(H, P, has_proj, R, depth);
+  const int US = pl.us, PS = pl.ps, G = 4 * US, arow = pl.arow;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
   const int p0 = q * PS, np = max(0, min(PS, P - p0));
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* hq = reinterpret_cast<T*>(smem_raw);                    // [arow][QS] h
+  // h(t) lands in hq[0] with a projection; without one in hq[t & 1], the
+  // second being the cell-output buffer, which is then unused (HS == QS)
+  T* hq0 = reinterpret_cast<T*>(smem_raw);                   // [arow][QS]
   T* cellf = reinterpret_cast<T*>(smem_raw + pl.off_cell);   // [arow][HS]
-  float* c_own = reinterpret_cast<float*>(smem_raw + pl.off_c);  // [R][US]
-  float* h_own = reinterpret_cast<float*>(smem_raw + pl.off_h);  // [R][own]
-  T* stage = reinterpret_cast<T*>(smem_raw + pl.off_stage);  // [R][US or PS]
+  T* hq1 = has_proj ? hq0 : cellf;
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
-  T* wres = reinterpret_cast<T*>(smem_raw + pl.base_bytes);  // bf16 slices
+  T* wres = reinterpret_cast<T*>(smem_raw + pl.off_w);       // bf16 slices
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
+  float* ring = reinterpret_cast<float*>(smem_raw + pl.off_ring);
+  float* ring_keep = reinterpret_cast<float*>(smem_raw + pl.off_keep);
 
-  const size_t slot = (size_t)dir * kCluster + q;
+  const size_t slot_q = (size_t)dir * kCluster + q;
   const size_t wh_elems = (size_t)round_up(P, 16) * G;
   const size_t pj_elems = has_proj ? (size_t)round_up(H, 16) * PS : 0;
-  const T* wh_g = wh_sl + slot * wh_elems;
-  const T* pj_g = has_proj ? proj_sl + slot * pj_elems : nullptr;
+  const T* wh_g = wh_sl + slot_q * wh_elems;
+  const T* pj_g = has_proj ? proj_sl + slot_q * pj_elems : nullptr;
   T* wh_s = wres;  // the shared-memory copies (bf16 only)
   T* pj_s = wres + (size_t)round_up(P, 16) * pl.lwa;
   if constexpr (kMma<T>) {
-    copy_rows(wh_s, pl.lwa, wh_g, G, round_up(P, 16));
+    // wh's columns interleaved, unit-major (column 4·u + gate), so that the
+    // four gates of a unit's partial sums lie side by side: one 16-byte
+    // load a slice in the cell update
+    for (int i = tid; i < round_up(P, 16) * G; i += kThreads) {
+      const int k = i / G, c = i - k * G, gate = c / US, u = c - gate * US;
+      wh_s[(size_t)k * pl.lwa + 4 * u + gate] = wh_g[i];
+    }
     if (has_proj) copy_rows(pj_s, pl.lwd, pj_g, PS, round_up(H, 16));
   }
   const T zero = Dtype<T>::from_float(0.0f);
-  for (int i = tid; i < pl.arow * pl.qs; i += kThreads) hq[i] = zero;
-  for (int i = tid; i < pl.arow * pl.hs; i += kThreads) cellf[i] = zero;
-  for (int i = tid; i < R * US; i += kThreads) c_own[i] = 0.0f;
-  for (int i = tid; i < R * own; i += kThreads) h_own[i] = 0.0f;
-  const float* pd = peep ? peep + (size_t)dir * 3 * H : nullptr;
+  for (int i = tid; i < arow * pl.qs; i += kThreads) hq0[i] = zero;
+  for (int i = tid; i < arow * pl.hs; i += kThreads) cellf[i] = zero;
 
-  // phase b: thread (rb, jb) owns one unit of one row; its gx is fetched
-  // a step ahead
+  // h(s) is handed off when a step s + 1 follows, the cell output at every
+  // step; each barrier is armed for its first phase here
+  const uint32_t bytes_c = kCluster * nr * US * (uint32_t)sizeof(T);
+  const uint32_t bytes_h = kCluster * nr * PS * (uint32_t)sizeof(T);
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + i, 1);
+    mbar_init_fence();
+    if (steps > 1) mbar_expect(bar, bytes_h);                      // h(0)
+    if (!has_proj && steps > 2) mbar_expect(bar + 1, bytes_h);     // h(1)
+    if (has_proj && steps > 0) mbar_expect(bar + 2, bytes_c);      // cell(0)
+  }
+
+  // phase b: thread (rb, jb) owns one unit of one row; phase e: thread
+  // (rh, jh) one projection column of one row; each keeps its carry (c, or
+  // h) in a register
   const int rb = tid / US, jb = tid - rb * US;
-  const bool in_b = tid < R * US && rb < nr;
+  const bool in_b = tid < nr * US;
   const bool own_b = in_b && jb < nu;
   const int ub = u0 + jb;
-  const int len_b = own_b ? lengths[b0 + rb] : 0;
-  float gnext[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (own_b && steps > 0) {
-    const float* g = gx + ((size_t)dir * batch + b0 + rb) * 4 * H;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
+  const int len_b = in_b ? lengths[b0 + rb] : 0;
+  const int rh = tid / PS, jh = tid - rh * PS;
+  const bool in_h = has_proj && tid < nr * PS;
+  const bool own_h = in_h && jh < np;
+  const int len_h = in_h ? lengths[b0 + rh] : 0;
+  const float* pd = peep ? peep + (size_t)dir * 3 * H : nullptr;
+  float pi = 0.0f, pf = 0.0f, po = 0.0f;
+  if (pd && own_b) {
+    pi = pd[ub];
+    pf = pd[H + ub];
+    po = pd[2 * H + ub];
   }
-  cluster.sync();  // every block is resident and initialised
+  float c_reg = 0.0f, h_reg = 0.0f;
+  // the partial sums this thread adds: gate k of its unit in slice s at
+  // pg[s·sg + 4·jb + k] in bf16 (the columns interleaved), at pg[s·sg +
+  // k·US + jb] in f32; its projection column at ph[s·sp]
+  const int sg = arow * pl.ldg, sp = arow * pl.ldp;
+  const float* pg = part + rb * pl.ldg + (kMma<T> ? 4 * jb : jb);
+  const float* ph = part + rh * pl.ldp + jh;
 
+  // the ring: gx(s) of this block's rows and units as 16-byte chunks (4
+  // gates x US / 4 a row), then keep(s) of its rows; the block's last
+  // threads copy, at most two each, their offsets worked out once
+  const int nchunk = nr * US, ncopy = nchunk + (keep ? nr : 0);
+  const size_t row_elems = (size_t)2 * batch * 4 * H;  // gx a step
+  const bool vec = H % 4 == 0;
+  int cp_n = 0, cp_dst[2] = {0, 0}, cp_have[2] = {0, 0};
+  long long cp_src[2] = {0, 0};  // gx elements past step 0, or keep's
+  for (int i = kThreads - 1 - tid; i < ncopy; i += kThreads, ++cp_n) {
+    if (i < nchunk) {
+      const int r = i / US, e = i - r * US, k = e / (US / 4), c = 4 * (e - k * (US / 4));
+      cp_dst[cp_n] = ((r * 4 + k) * US + c);
+      cp_src[cp_n] = ((long long)dir * batch + b0 + r) * 4 * H + (long long)k * H + u0 + c;
+      cp_have[cp_n] = max(0, min(4, H - u0 - c));  // of the chunk's units, those < H
+    } else {
+      cp_dst[cp_n] = -1 - (i - nchunk);  // keep of row i - nchunk
+      cp_src[cp_n] = b0 + (i - nchunk);
+    }
+  }
+  auto fetch = [&](int s, int slot) {
+    if (s < steps) {
+      for (int m = 0; m < cp_n; ++m) {
+        if (cp_dst[m] >= 0) {
+          float* dst = ring + (size_t)slot * R * 4 * US + cp_dst[m];
+          const float* src = gx + (size_t)s * row_elems + cp_src[m];
+          const int have = cp_have[m];
+          if (vec) {
+            cp_async16_fill(dst, have > 0 ? src : gx, 4 * have);
+          } else {
+            for (int e = 0; e < 4; ++e)
+              cp_async4_fill(dst + e, e < have ? src + e : gx, e < have ? 4 : 0);
+          }
+        } else {
+          cp_async4_fill(ring_keep + (size_t)slot * R - 1 - cp_dst[m],
+                         keep + (size_t)s * batch + cp_src[m], 4);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s + 1 < depth; ++s) fetch(s, s);
+  cluster.sync();  // every block is resident, its barriers initialised
+
+  uint32_t parity = 0;  // bit i: the parity of barrier i's next phase
+  int slot = 0;         // the ring's slot of step t
   for (int t = 0; t < steps; ++t) {
     const size_t row0 = (size_t)t * 2 * batch + (size_t)dir * batch + b0;
+    const bool next = t + 1 < steps;
+    const int slot1 = slot + 1 == depth ? 0 : slot + 1;   // step t+1's
+    const int slot_prev = slot == 0 ? depth - 1 : slot - 1;  // step t-1's
 
-    // 0. packed-row reset of the carry (the same on every block)
-    if (keep) {
-      for (int i = tid; i < nr * pl.qs; i += kThreads) {
-        const float kp = keep[(size_t)t * batch + b0 + i / pl.qs];
-        hq[i] = Dtype<T>::from_float(Dtype<T>::to_float(hq[i]) * kp);
-      }
-      for (int i = tid; i < nr * US; i += kThreads)
-        c_own[i] *= keep[(size_t)t * batch + b0 + i / US];
-      for (int i = tid; i < nr * own; i += kThreads)
-        h_own[i] *= keep[(size_t)t * batch + b0 + i / own];
+    // a. h(t-1) (zero before the first step), then the gate sums
+    const int hb = has_proj ? 0 : (t + 1) & 1;
+    const T* hq = hb ? hq1 : hq0;
+    if (t > 0) {
+      mbar_wait(bar + hb, (parity >> hb) & 1);
+      parity ^= 1u << hb;
+      // the barrier's next phase: h(t) with a projection, h(t+1) without
+      const int s_next = has_proj ? t : t + 1;
+      if (tid == 0 && s_next + 1 < steps) mbar_expect(bar + hb, bytes_h);
     }
-    __syncthreads();
-
-    // a. gate sums for the owned units
     if constexpr (kMma<T>)
-      mma_product(hq, pl.qs, P, wh_s, pl.lwa, G, pl.gates, part);
+      mma_product_t<kGateK, kGateT>(hq, pl.qs, P, wh_s, pl.lwa, G, pl.tg, part, pl.ldg);
     else
-      fma_product<R>(hq, pl.qs, P, wh_g, G, G, pl.gates, part);
-    if (has_proj)
-      __syncthreads();
-    else
-      cluster.sync();  // every block is done reading hq before b rewrites it
+      fma_product<R>(hq, pl.qs, P, wh_g, G, G, pl.fg, part);
+    cp_async_wait_pending(depth - kMinRing);  // gx(t) and keep(t+1) are in
+    __syncthreads();
+    fetch(t + depth - 1, slot_prev);  // step t-1's slot: every thread is done with it
 
-    // b. cell update of the owned units
+    // b. cell update of the owned units; hand off the cell output (or h)
+    float share = 0.0f, cv = 0.0f, hv = 0.0f, ov = 0.0f;
     if (in_b) {
-      float share = 0.0f;
+      const float kn = keep && next ? ring_keep[slot1 * R + rb] : 1.0f;
       if (own_b) {
+        const float* gxs = ring + ((size_t)slot * R + rb) * 4 * US + jb;
         float gate[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float v = gnext[k];
-          for (int s = 0; s < pl.gates.slices; ++s)
-            v += part[((size_t)s * prow + rb) * G + k * US + jb];
-          gate[k] = v;
+        for (int k = 0; k < 4; ++k) gate[k] = gxs[k * US];
+        for (int s = 0; s < pl.gslices; ++s) {
+          if constexpr (kMma<T>) {
+            const float4 v = *reinterpret_cast<const float4*>(pg + s * sg);
+            gate[0] += v.x;
+            gate[1] += v.y;
+            gate[2] += v.z;
+            gate[3] += v.w;
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) gate[k] += pg[s * sg + k * US];
+          }
         }
-        const int ib = rb * US + jb;
-        const float cp = c_own[ib];
+        const float cp = c_reg;
         if (pd) {
-          gate[0] += pd[ub] * cp;
-          gate[2] += pd[H + ub] * cp;
+          gate[0] += pi * cp;
+          gate[2] += pf * cp;
         }
         const float cn = sigmoidf(gate[2] + forget_bias) * cp
                          + sigmoidf(gate[0]) * tanhf(gate[1]);
-        if (pd) gate[3] += pd[2 * H + ub] * cn;
+        if (pd) gate[3] += po * cn;
         const float o = sigmoidf(gate[3]) * tanhf(cn);
         const float m = t < len_b ? 1.0f : 0.0f;
-        const float cv = m * cn + (1.0f - m) * cp;
-        c_own[ib] = cv;
-        if (c_all) put_state(c_all, (row0 + rb) * H + ub, cv, states_bf16);
+        cv = m * cn + (1.0f - m) * cp;
+        c_reg = kn * cv;
         if (has_proj) {
           share = o;
         } else {
-          const float hv = m * o + (1.0f - m) * h_own[ib];
-          h_own[ib] = hv;
-          out[(row0 + rb) * P + ub] = m * o;
-          if (h_all) put_state(h_all, (row0 + rb) * P + ub, hv, states_bf16);
-          share = hv;
-        }
-        if (t + 1 < steps) {
-          const float* g = gx + (row0 + 2 * (size_t)batch + rb) * 4 * H;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
+          hv = m * o + (1.0f - m) * h_reg;
+          ov = m * o;
+          h_reg = kn * hv;
+          share = h_reg;
         }
       }
-      stage[rb * US + jb] = Dtype<T>::from_float(share);
     }
-    __syncthreads();
     if (has_proj)
-      share_slice(cluster, stage, nr, US, cellf, pl.hs, u0);
-    else
-      share_slice(cluster, stage, nr, US, hq, pl.qs, u0);
-    cluster.sync();
+      send_slice<T>(share, in_b, cellf, rb * pl.hs + u0 + jb, bar + 2);
+    else if (next)
+      send_slice<T>(share, in_b, t & 1 ? hq1 : hq0, rb * pl.qs + u0 + jb, bar + (t & 1));
+    if (own_b) {
+      if (c_all) put_state(c_all, (row0 + rb) * H + ub, cv, states_bf16);
+      if (!has_proj) {
+        out[(row0 + rb) * P + ub] = ov;
+        if (h_all) put_state(h_all, (row0 + rb) * P + ub, hv, states_bf16);
+      }
+    }
+    slot = slot1;
     if (!has_proj) continue;
 
-    // d. the owned projection columns
+    // c. the full cell output; d. the owned projection columns
+    mbar_wait(bar + 2, (parity >> 2) & 1);
+    parity ^= 4u;
+    if (tid == 0 && next) mbar_expect(bar + 2, bytes_c);
     if constexpr (kMma<T>)
-      mma_product(cellf, pl.hs, H, pj_s, pl.lwd, PS, pl.proj, part);
+      mma_product_t<kProjK, kProjT>(cellf, pl.hs, H, pj_s, pl.lwd, PS, pl.tp, part, pl.ldp);
     else
-      fma_product<R>(cellf, pl.hs, H, pj_g, PS, PS, pl.proj, part);
+      fma_product<R>(cellf, pl.hs, H, pj_g, PS, PS, pl.fp, part);
     __syncthreads();
 
-    // e. masking; share the new h slice
-    for (int i = tid; i < nr * PS; i += kThreads) {
-      const int r = i / PS, j = i - r * PS;
-      float share = 0.0f;
-      if (j < np) {
-        const int p = p0 + j;
+    // e. masking; hand off h(t)
+    share = hv = ov = 0.0f;
+    if (in_h) {
+      const float kn = keep && next ? ring_keep[slot1 * R + rh] : 1.0f;
+      if (own_h) {
         float o = 0.0f;
-        for (int s = 0; s < pl.proj.slices; ++s)
-          o += part[((size_t)s * prow + r) * PS + j];
-        const float m = t < lengths[b0 + r] ? 1.0f : 0.0f;
-        const float hv = m * o + (1.0f - m) * h_own[i];
-        h_own[i] = hv;
-        out[(row0 + r) * P + p] = m * o;
-        if (h_all) put_state(h_all, (row0 + r) * P + p, hv, states_bf16);
-        share = hv;
+        for (int s = 0; s < pl.pslices; ++s) o += ph[s * sp];
+        const float m = t < len_h ? 1.0f : 0.0f;
+        hv = m * o + (1.0f - m) * h_reg;
+        ov = m * o;
+        h_reg = kn * hv;
+        share = h_reg;
       }
-      stage[i] = Dtype<T>::from_float(share);
     }
-    __syncthreads();
-    share_slice(cluster, stage, nr, PS, hq, pl.qs, p0);
-    cluster.sync();
+    if (next) send_slice<T>(share, in_h, hq0, rh * pl.qs + p0 + jh, bar);
+    if (own_h) {
+      out[(row0 + rh) * P + p0 + jh] = ov;
+      if (h_all) put_state(h_all, (row0 + rh) * P + p0 + jh, hv, states_bf16);
+    }
   }
 
   const size_t frow = (size_t)dir * batch + b0;
-  for (int i = tid; i < nr * US; i += kThreads) {
-    const int r = i / US, j = i - r * US;
-    if (j < nu) cfin[(frow + r) * H + u0 + j] = c_own[i];
-  }
-  const int own_n = has_proj ? np : nu, own_0 = has_proj ? p0 : u0;
-  for (int i = tid; i < nr * own; i += kThreads) {
-    const int r = i / own, j = i - r * own;
-    if (j < own_n) hfin[(frow + r) * P + own_0 + j] = h_own[i];
-  }
+  if (own_b) cfin[(frow + rb) * H + ub] = c_reg;
+  if (has_proj ? own_h : own_b)
+    hfin[(frow + (has_proj ? rh : rb)) * P + (has_proj ? p0 + jh : ub)] = h_reg;
+  cp_async_wait_pending(0);
+  cluster.sync();  // every hand-off has landed before any block leaves
 }
 
 struct Args {
@@ -260,9 +453,15 @@ template <typename T, int R>
 cudaError_t launch_rows(const Args& a, bool force, bool* launched) {
   *launched = false;
   const bool has_proj = a.proj_sl != nullptr;
-  const Plan pl = plan<T>(a.units, a.out_dim, has_proj, R);
-  if (R * pl.us > kThreads) return cudaErrorInvalidValue;
-  const size_t smem = pl.base_bytes + pl.weight_bytes;
+  int depth = kMaxRing;
+  while (depth > kMinRing
+         && fwd_plan<T>(a.units, a.out_dim, has_proj, R, depth).bytes > kMaxSmemPerBlock)
+    --depth;
+  const FwdPlan pl = fwd_plan<T>(a.units, a.out_dim, has_proj, R, depth);
+  if (R * pl.us > kThreads || R * pl.ps > kThreads) return cudaErrorInvalidValue;
+  if (kMma<T> && (pl.tg.per == 0 || (has_proj && pl.tp.per == 0)))
+    return cudaErrorInvalidValue;  // no split fits the products' bounds
+  const size_t smem = pl.bytes;
   if (smem > kMaxSmemPerBlock) return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       lstm_fwd_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -292,7 +491,7 @@ cudaError_t launch_rows(const Args& a, bool force, bool* launched) {
       (const float*)a.keep, (const T*)a.wh_sl, (const T*)a.proj_sl,
       (const float*)a.peep, a.forget_bias, a.steps, a.batch, a.units,
       a.out_dim, (float*)a.out, a.c_all, a.h_all, a.states_bf16,
-      (float*)a.cfin, (float*)a.hfin);
+      (float*)a.cfin, (float*)a.hfin, depth);
   if (err != cudaSuccess) return err;
   *launched = true;
   return cudaGetLastError();

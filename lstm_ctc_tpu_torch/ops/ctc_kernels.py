@@ -30,11 +30,14 @@ def _log3sum(a, b, c):
 
 def _shift(x, amount):
     """x moved ``amount`` places along the last axis (right if positive),
-    NEG_INF filling the vacated places."""
-    pad = x.new_full(x.shape[:-1] + (abs(amount),), NEG_INF)
+    NEG_INF filling the vacated places (all of them on a row shorter than
+    the move)."""
+    width = x.shape[-1]
+    k = min(abs(amount), width)
+    pad = x.new_full(x.shape[:-1] + (k,), NEG_INF)
     if amount > 0:
-        return torch.cat([pad, x[..., :-amount]], dim=-1)
-    return torch.cat([x[..., -amount:], pad], dim=-1)
+        return torch.cat([pad, x[..., :width - k]], dim=-1)
+    return torch.cat([x[..., k:], pad], dim=-1)
 
 
 def alpha_reference(lp_ext, time_mask, valid, can_skip, alpha0):

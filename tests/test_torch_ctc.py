@@ -236,6 +236,22 @@ def test_dp_kernels_match_plain_on_gpu(cuda, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 31, 32, 33, 64, 301, 1024])
+def test_alpha_kernel_lane_edges_on_gpu(cuda, width):
+    """K10 on widths that end inside, at and past a warp's 32 lanes, with
+    valid, can_skip and time_mask patterns that cross lane and 32-step
+    word boundaries: bit-equal to the plain version."""
+    from test_torch_ctc_alpha_lanes import lattice_inputs
+    args = [t.to(cuda) for t in lattice_inputs(width)]
+    before = ctc_kernels.ctc_alpha.launches
+    got = ctc_kernels.ctc_alpha(*args)
+    ref = ctc_kernels.alpha_reference(*args)
+    torch.cuda.synchronize()
+    assert ctc_kernels.ctc_alpha.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
 def test_loss_on_gpu_matches_cpu(cuda):
     logits, seq_len, labels, label_len = make_case(6)
     weights = np.ones(5, np.float32)

@@ -185,13 +185,18 @@ def test_replay_steps_reproduces_plain_states(peep, proj, reset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("proj,peep,reset", [
+    (8, True, True), (None, True, True), (8, False, False),
+    (None, False, False)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-3)])
-def test_kernel_states_replay_on_gpu(cuda, dtype, tol):
+def test_kernel_states_replay_on_gpu(cuda, dtype, tol, proj, peep, reset):
     """The kernel's per-step states, each step replayed by the plain
-    version from the kernel's states of the step before."""
+    version from the kernel's states of the step before (resets applied
+    inside the step, with and without a projection and peepholes)."""
     fw, bw, x, seq_len, reset_mask = random_case(11, batch=6, time_steps=40,
-                                                 reset=True)
+                                                 proj=proj, peepholes=peep,
+                                                 reset=reset)
     fw = {k: v.to(cuda) for k, v in fw.items()}
     bw = {k: v.to(cuda) for k, v in bw.items()}
     args = layer_args(fw, bw, x, seq_len, reset_mask, dtype, cuda)
@@ -205,12 +210,16 @@ def test_kernel_states_replay_on_gpu(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,proj,reset", [
-    (torch.float32, 8, False), (torch.float32, 8, True),
-    (torch.float32, None, False), (torch.bfloat16, 8, True)])
-def test_kernel_matches_plain_on_gpu(cuda, dtype, proj, reset):
+@pytest.mark.parametrize("dtype,proj,reset,peep", [
+    (torch.float32, 8, False, True), (torch.float32, 8, True, True),
+    (torch.float32, None, False, True), (torch.bfloat16, 8, True, True),
+    (torch.float32, None, True, False), (torch.float32, 8, True, False),
+    (torch.bfloat16, None, True, True), (torch.bfloat16, 8, False, False),
+    (torch.bfloat16, None, False, False)])
+def test_kernel_matches_plain_on_gpu(cuda, dtype, proj, reset, peep):
     fw, bw, x, seq_len, reset_mask = random_case(6, batch=6, time_steps=40,
-                                                 proj=proj, reset=reset)
+                                                 proj=proj, peepholes=peep,
+                                                 reset=reset)
     fw = {k: v.to(cuda) for k, v in fw.items()}
     bw = {k: v.to(cuda) for k, v in bw.items()}
     xt = torch.from_numpy(x).to(cuda)
@@ -230,6 +239,28 @@ def test_kernel_matches_plain_on_gpu(cuda, dtype, proj, reset):
     for g, r in zip(got, ref):
         err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
         assert err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units,proj,time_steps", [
+    (18, 8, 40), (18, None, 40), (16, 8, 1), (16, 8, 2), (16, None, 2),
+    (16, None, 3)])
+def test_kernel_odd_widths_and_short_sequences_on_gpu(cuda, units, proj,
+                                                      time_steps):
+    """A width whose gate rows are not 16-byte aligned (gx reaches the
+    ring element by element) and sequences of 1-3 steps (hand-offs that
+    are never armed), in float32 against the plain version."""
+    fw, bw, x, seq_len, _ = random_case(12, batch=5, time_steps=time_steps,
+                                        units=units, proj=proj)
+    fw = {k: v.to(cuda) for k, v in fw.items()}
+    bw = {k: v.to(cuda) for k, v in bw.items()}
+    args = layer_args(fw, bw, x, seq_len, None, torch.float32, cuda)
+    got = lstm_kernels.lstm_layer_forward(*args, states=True)
+    ref = cells.dual_recurrence(*args, states=True)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        assert err <= 1e-4
 
 
 @pytest.mark.parametrize("units,out_dim,proj", [(16, 8, True), (20, 20, False),
