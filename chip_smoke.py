@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      in us a step, and bfloat16 with resets timed once more as the train
      step calls it (per-step states kept in bfloat16);
   4. kernel B (MoE expert mix) against its plain version at N=12288, D=640,
-     E=V=72, tau=10, keep 1.0 and 0.9;
+     E=V=72, tau=10, keep 1.0 and 0.9; beside the bf16 kernel, cuBLAS's bare
+     product x·W at the same shape (the product alone, not K4's function);
   5. end to end: the flagship model (random weights from a seed) serves
      64 synthetic utterances through ``lstm_ctc_tpu_torch.bin.nnet_forward``
      on cuda, batch 32, in bfloat16 (the default on CUDA); the archive is
@@ -24,7 +25,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      gave it, and each launch must have the compute dtype bfloat16: kernel
      B's output, and each step of each layer of kernel A, replayed from the
      kernel's own per-step states; then the flagship forward at B=32,
-     T=384 timed, and profiled for K1's share of its device time;
+     T=384 timed, and profiled for K1's and K4's shares of its device time;
   6. K10/K11 (CTC alpha and beta DP) against their plain versions at
      N=96 slots, T=400, S=301, ragged time and label lengths, repeated
      labels, an infeasible pair and an empty label; timed in turns with
@@ -54,7 +55,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and bfloat16, keep 1.0 and 0.9, each against its plain version (the
      backward ones fed the kernel's own stash); timed in turns with the
      plain versions, and the opt-in twokernel backward (K8 + K9) timed
-     against the default (K6 + one torch product for dw);
+     against the default (K6 + one torch product for dw); beside K6,
+     cuBLAS's bare product dz·Wᵀ (the product alone, not K6's function)
+     and the time of W's two packed images (fwd_pack, bwd_pack: once a
+     train step);
  10. the flagship MoE model (72 experts, the paper's treatment) trains for
      two iterations of nnet_train_loop (the newbob loop in one process;
      adam 1e-3, keep 0.9, batch 32, pack factor 3, bf16) on the same
@@ -66,7 +70,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      K5 and K6 launch on its own tensors, then end to end under the
      nudge yardstick), a bfloat16 step with every K2, K5, K6, K10 and K11
      launch held to its plain version, and a profiled step (here and in
-     phase 8 with K1's share of the step's device time);
+     phase 8 with K1's share of the step's device time, here also K5's and
+     K6's);
  11. K12 (the unidirectional stack's forward) against its plain version
      at the lstm width (4 layers of 320 cells, projection 320, peepholes,
      layers 1-3 residual) and the cudnnlstm width, B=32, T=384, a 120-wide
@@ -167,6 +172,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -359,6 +365,15 @@ def check_moe(torch, pkg, device, dtype, keep_prob, rng):
         lambda: moe_kernels.moe_mix_reference(*args), rounds=10)
     say("  kernel B %-8s keep=%.1f kernel %.3f ms  plain %.3f ms"
         % (str(dtype).split(".")[-1], keep_prob, ms, plain_ms))
+    if dtype == torch.bfloat16 and keep_prob == 1.0:
+        xb = x.to(dtype)
+        wb = params["w_expert"].to(dtype)
+        bare = median_ms(torch, lambda: torch.mm(xb, wb,
+                                                 out_dtype=torch.float32),
+                         reps=20)
+        say("  the product alone (not K4's function): cuBLAS x(bf16) "
+            "[%d, %d] x W [%d, %d] -> float32 %.3f ms, K4 %.3f ms"
+            % (n, dim, dim, experts * targets, bare, ms))
     return abs_err, ms, plain_ms
 
 
@@ -627,7 +642,7 @@ def end_to_end(torch, pkg, device, rng):
             % (ms, 32 * 384 / ms * 1e3, plain_ms, 32 * 384 / plain_ms * 1e3))
         busy, rows = device_ms(torch, model)
         say("  flagship forward, profiled: device kernels %.3f ms; %s"
-            % (busy, k1_share(rows, busy)))
+            % (busy, kernel_shares(rows, busy)))
         result["model_ms"], result["model_plain_ms"] = ms, plain_ms
     return result
 
@@ -1433,13 +1448,28 @@ def kernel_rows(prof):
                    and evt.self_device_time_total > 0), reverse=True)
 
 
-def k1_share(rows, busy):
-    """K1's launches in a profile's kernel rows, and its share of the
-    device time."""
-    k1 = [(ms, count) for ms, count, key in rows if "lstm_fwd_kernel" in key]
-    ms = sum(r[0] for r in k1)
-    return "K1 (lstm_fwd_kernel) %.3f ms in %d launches, %.1f%% of it" % (
-        ms, sum(r[1] for r in k1), 100 * ms / max(busy, 1e-9))
+# kernels whose share of a profile's device time is reported: label and a
+# pattern of the demangled name (K4 and K5 are one body, K5 with the stash;
+# K6 is moe_bwd_wgmma with the dz stream)
+SHARE_KERNELS = (
+    ("K1 (lstm_fwd_kernel)", r"lstm_fwd_kernel"),
+    ("K4 (moe_fwd_wgmma, no stash)", r"moe_fwd_wgmma<[^>]*false>"),
+    ("K5 (moe_fwd_wgmma, stash)", r"moe_fwd_wgmma<[^>]*true>"),
+    ("K6 (moe_bwd_wgmma, dz)", r"moe_bwd_wgmma<[^>]*true>"))
+
+
+def kernel_shares(rows, busy):
+    """K1's launches in a profile's kernel rows and its share of the device
+    time, and K4's, K5's and K6's where they ran."""
+    parts = []
+    for label, pattern in SHARE_KERNELS:
+        hit = [(ms, count) for ms, count, key in rows
+               if re.search(pattern, key)]
+        if hit or label.startswith("K1"):
+            ms = sum(r[0] for r in hit)
+            parts.append("%s %.3f ms in %d launches, %.1f%% of it" % (
+                label, ms, sum(r[1] for r in hit), 100 * ms / max(busy, 1e-9)))
+    return "; ".join(parts)
 
 
 def profile_step(torch, init_opt, step, params, batch, device, step_ms):
@@ -1459,7 +1489,7 @@ def profile_step(torch, init_opt, step, params, batch, device, step_ms):
     busy = sum(r[0] for r in rows)
     say("  profiled train step: device kernels %.1f ms, %.0f%% of the "
         "median step (%.1f ms); %s" % (busy, 100 * busy / step_ms, step_ms,
-                                       k1_share(rows, busy)))
+                                       kernel_shares(rows, busy)))
     for ms, count, key in rows[:16]:
         say("    %9.3f ms  %5d x  %s" % (ms, count, key[:90]))
     # the host's side of the same step: where the device can wait on it
@@ -1602,6 +1632,19 @@ def check_moe_training(torch, pkg, device, rng):
                 mk.moe_mix_backward_noemit(th, w, gate, gout, *args)
                 return mk.moe_mix_wgrad(x, th, gate, gout, *args)
 
+            if dtype == torch.bfloat16:
+                dzb = dz.to(dtype)
+                wt = w.t()
+                bare = median_ms(torch, lambda: torch.mm(
+                    dzb, wt, out_dtype=torch.float32), reps=20)
+                pack_ms = [median_ms(torch, lambda: pack(w, experts), reps=20)
+                           for pack in (mk.fwd_pack, mk.bwd_pack)]
+                say("  the product alone (not K6's function): cuBLAS dz(bf16) "
+                    "[%d, %d] x W^T [%d, %d] -> float32 %.3f ms, K6 %.3f ms; "
+                    "W's packed images (once a train step): fwd_pack %.3f ms, "
+                    "bwd_pack %.3f ms"
+                    % ((n, ev, ev, dim, bare,
+                        result[("moe_bwd", dtype)]["ms"]) + tuple(pack_ms)))
             two_ms, default_ms = time_in_turns(torch, twokernel, default,
                                                rounds=3, kernel_reps=3)
             dw_default = default()[0]

@@ -137,6 +137,45 @@ __device__ __forceinline__ float drop_factor(uint32_t row, uint32_t col,
 
 namespace {
 
+// mbarriers (the LSTM kernels' point-to-point hand-offs, the MoE kernels'
+// copy rings): init with an arrival count, arm a phase for a number of
+// bytes, wait for a phase by its parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+// makes initialised barriers visible to the cluster (before its barrier)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of this parity has completed; it acquires, at
+// cluster scope, the stores that completed it.  A wait of seconds means a
+// fault: the launch ends with an error rather than hang (a step takes
+// microseconds).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1LL << 26)) __trap();
+  }
+}
+
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // out[i] = Σ over splits of partial[split][i], in split order: the second

@@ -15,27 +15,59 @@
 // K6 also writes dz in the compute dtype, for the weight gradient dw =
 // xᵀ·dz that stays one torch.matmul outside (as it is one XLA dot outside
 // the Pallas kernel there).  K8, the first pass of the opt-in "twokernel"
-// backward, does not: K9 (moe_wgrad.cu) recomputes dz for dw and db.
+// backward, does not: K9 (moe_wgrad.cu) recomputes dz for dw and db.  Both
+// are moe_bwd_wgmma with and without the dz store, so they agree bit for
+// bit.
 //
-// What bounds it on the H100: bytes.  At N = 14336, D = 640, E = V = 72 it
-// reads th (149 MB in bf16) and writes dz (149 MB), dx (37 MB) and small
-// rest, ~353 MB or 0.105 ms at 3.35 TB/s, against 2·N·D·E·V = 95.1 GFLOP
-// of the dx product (0.096 ms on the bf16 tensor cores).  K8 writes no dz
-// and is bound by its operations.
+// bf16, the main path (moe_bwd_wgmma).  What bounds it on the H100: by
+// count, bytes (th read and dz written once, 149 MB each at N = 14336, D =
+// 640, E = V = 72: 0.105 ms at 3.35 TB/s) just above the dx product's
+// 95.1 GFLOP (0.096 ms); in fact the elementwise dz stage, latency-bound
+// on the 8 warps that the 160-register accumulators leave a block (PERF.md
+// section 6).
 //
-// Design: a [NB, D] float32 dx tile of a row tile is too large for one
-// block's registers (64 × 640 × 4 bytes), so one block owns a (row tile of
-// NB rows, slice of 128 columns of D) and loops over the experts.  For
-// each expert it computes the elementwise dz of its row tile into shared
-// memory (rounded to the compute dtype) and stages W_eᵀ for its slice
-// ([V][128], zero padded); the two are double-buffered, so one barrier a
-// expert suffices, and the product dz_e · W_eᵀ accumulates in registers
-// (bf16: ldmatrix + mma.sync; float32: FMA, no TF32).  Only the blocks of
-// slice 0 write dz and dgate; the others recompute dz and read the row
-// tile's th from L2.  dgate sums the 16 lanes of a row with shuffles in a
-// fixed order.  No atomics: the result does not depend on the schedule.
+// dz once per element: a block owns 64 rows and a slice of 4·NI columns
+// of D (NI = 160 for D > 256), all of D up to 640, so there dz of its rows
+// is made once (a wider D takes slices that each make it again).  dx = dz
+// · Wᵀ is one product of depth E·V, chunked by 64 across expert
+// boundaries (no padding at V = 72); the gate factor is per element.
+//
+// Roles: both warpgroups make dz of chunk c + 1 (16 columns a thread, four
+// threads a row, th and the gates loaded a chunk ahead) into a swizzled
+// shared-memory slot, the products' A, while the products of chunk c run:
+// warpgroup g owns dx columns [2 NI g, 2 NI (g + 1)) of the slice as two
+// m64nNIk16 accumulators, 160 registers a thread, which is why the block
+// has 256 threads (255 registers each) and no copy warp.  W comes packed
+// (ops/moe_kernels.py bwd_pack: per slice and chunk, Wᵀ as [4 NI][64],
+// swizzled; W is [D, E·V], already K-major for this product).
+//
+// The ring: two W stages of [4 NI][64] (80 KB each at NI = 160) and two dz
+// slots.  full[c % 2] completes by the bytes of chunk c's copy; after the
+// products of chunk c complete (wgmma.wait_group 0), every warp arrives on
+// empty[c % 2] and thread 0, once all have, copies chunk c + 2 into the
+// stage; a block barrier a chunk then publishes the next dz slot.  Slot
+// (c + 1) % 2 is free when dz of chunk c + 1 is written: chunk c - 1's
+// products, its last reader, completed before the previous barrier.
+//
+// dgate: each thread sums gout · a over its 16 columns in k order, one
+// sum per expert segment; a segment that starts and ends inside the thread
+// is complete and written; the thread's first and last segments go to
+// lane 0 of the row, which joins them in lane order to the expert carried
+// from the previous chunk.  tests/test_torch_moe_layout.py emulates the
+// order.  For V >= 8 a unit of 8 columns holds at most one expert
+// boundary, so its columns pick gate and sum by select, with no branch.
+//
+// The grid: one block a 64-row tile and slice, one block an SM (~200 KB
+// of shared memory); 224 blocks at N = 14336 run in two waves on 132 SMs.
+// Clusters of two sharing each W stage by multicast were measured slower
+// (the pair of blocks then waits for each other every chunk), so they are
+// not used.  Deterministic: fixed sums, no atomics.
+//
+// float32: the FMA tile product of tile_product.cuh (no TF32), one block a
+// (row tile, 128 columns of D) looping over the experts (moe_bwd_kernel).
 
 #include "tile_product.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -47,38 +79,38 @@ struct BwdLayout {
   size_t dz_elems, w_elems, buf_bytes;
 };
 
-template <typename T>
+constexpr int kRows = Tile<float>::kRows;  // rows of a block
+
 __host__ __device__ BwdLayout bwd_layout(int v) {
   BwdLayout b;
-  b.l = layout<T>(v, kSlice);
-  b.dz_elems = (size_t)Tile<T>::kRows * b.l.ldx;  // dz tile [NB][ldx]
-  b.w_elems = (size_t)b.l.dp * b.l.ldw;           // W_eᵀ slice [vp16][ldw]
-  b.buf_bytes = sizeof(T) * (b.dz_elems + b.w_elems);
+  b.l = layout<float>(v, kSlice);
+  b.dz_elems = (size_t)kRows * b.l.ldx;   // dz tile [NB][ldx]
+  b.w_elems = (size_t)b.l.dp * b.l.ldw;   // W_eᵀ slice [vp16][ldw]
+  b.buf_bytes = sizeof(float) * (b.dz_elems + b.w_elems);
   return b;
 }
 
-template <typename T>
 size_t bwd_smem(int v) {
-  const BwdLayout b = bwd_layout<T>(v);
-  const size_t z_bytes = sizeof(float) * Tile<T>::kRows * (size_t)b.l.ldz;
+  const BwdLayout b = bwd_layout(v);
+  const size_t z_bytes = sizeof(float) * kRows * (size_t)b.l.ldz;
   return 2 * b.buf_bytes > z_bytes ? 2 * b.buf_bytes : z_bytes;
 }
 
-template <typename T, bool kEmit>
+// The float32 path: the FMA tile product of tile_product.cuh (no TF32).
+template <bool kEmit>
 __global__ void __launch_bounds__(kThreads) moe_bwd_kernel(
-    const T* __restrict__ th,        // [N, E·V] compute dtype
-    const T* __restrict__ w,         // [D, E·V] compute dtype
+    const float* __restrict__ th,    // [N, E·V]
+    const float* __restrict__ w,     // [D, E·V]
     const float* __restrict__ gate,  // [N, E]
     const float* __restrict__ gout,  // [N, V]
     const int32_t* __restrict__ seed_dev,  // [1] (read if dropout)
     int n, int d, int experts, int v, float tau, float keep_prob,
     float* __restrict__ dx,          // [N, D]
     float* __restrict__ dgate,       // [N, E]
-    T* __restrict__ dz_out) {        // [N, E·V] (K6)
-  constexpr int kRows = Tile<T>::kRows;
+    float* __restrict__ dz_out) {    // [N, E·V] (K6)
   constexpr int kRowsPerPass = kThreads / kRowLanes;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const BwdLayout bl = bwd_layout<T>(v);
+  const BwdLayout bl = bwd_layout(v);
   const Layout& l = bl.l;
   // the D slices of one row tile are neighbours in the grid, so they run
   // together and share the tile's th through L2
@@ -90,16 +122,15 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_kernel(
   const uint32_t seed = dropout ? (uint32_t)seed_dev[0] : 0u;
   const int rlane = threadIdx.x % kRowLanes, rsub = threadIdx.x / kRowLanes;
 
-  typename Product<T>::Acc acc;
+  Product<float>::Acc acc;
   acc.zero();
   for (int e = 0; e < experts; ++e) {
-    T* dzs = reinterpret_cast<T*>(smem_raw + (e & 1) * bl.buf_bytes);
-    T* ws = dzs + bl.dz_elems;
+    float* dzs = reinterpret_cast<float*>(smem_raw + (e & 1) * bl.buf_bytes);
+    float* ws = dzs + bl.dz_elems;
     // W_eᵀ for this slice: ws[c][j] = W[d0 + j, e·V + c], zero padded
     for (int i = threadIdx.x; i < kSlice * l.dp; i += kThreads) {
       const int j = i / l.dp, c = i - j * l.dp;
-      ws[c * l.ldw + j] = (c < v && d0 + j < d) ? w[(size_t)(d0 + j) * ev + e * v + c]
-                                                : Dtype<T>::from_float(0.0f);
+      ws[c * l.ldw + j] = (c < v && d0 + j < d) ? w[(size_t)(d0 + j) * ev + e * v + c] : 0.0f;
     }
     // dz of the row tile for expert e, and dgate[:, e]
     for (int r0 = 0; r0 < kRows; r0 += kRowsPerPass) {
@@ -113,7 +144,7 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_kernel(
         if (c < l.dp) {
           float dz = 0.0f;
           if (row_ok && c < v) {
-            const float t = Dtype<T>::to_float(th[(size_t)nn * ev + e * v + c]);
+            const float t = th[(size_t)nn * ev + e * v + c];
             const float q = gout[(size_t)nn * v + c];
             float a = tau * t;
             dz = g * q * (tau * (1.0f - t * t));
@@ -125,9 +156,8 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_kernel(
             }
             dg = fmaf(q, a, dg);
           }
-          const T dzc = Dtype<T>::from_float(dz);
-          dzs[r * l.ldx + c] = dzc;
-          if (kEmit && lead && row_ok && c < v) dz_out[(size_t)nn * ev + e * v + c] = dzc;
+          dzs[r * l.ldx + c] = dz;
+          if (kEmit && lead && row_ok && c < v) dz_out[(size_t)nn * ev + e * v + c] = dz;
         }
       }
 #pragma unroll
@@ -149,40 +179,486 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_kernel(
   }
 }
 
-template <typename T>
-int launch(int device, const void* th, const void* w, const void* gate,
-           const void* gout, const void* seed, int n, int d, int experts, int v,
-           float tau, float keep_prob, void* dx, void* dgate, void* dz,
-           void* stream) {
+int launch_f32(int device, const void* th, const void* w, const void* gate, const void* gout,
+               const void* seed, int n, int d, int experts, int v, float tau, float keep_prob,
+               void* dx, void* dgate, void* dz, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
   if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
   if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
-  if ((n + Tile<T>::kRows - 1) / Tile<T>::kRows > 65535) return cudaErrorInvalidValue;
-  const size_t smem = bwd_smem<T>(v);
-  const dim3 grid((d + kSlice - 1) / kSlice, (n + Tile<T>::kRows - 1) / Tile<T>::kRows);
-  if (dz != nullptr) {
-    err = set_smem(moe_bwd_kernel<T, true>, smem);
-    if (err != cudaSuccess) return err;
-    moe_bwd_kernel<T, true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const T*)th, (const T*)w, (const float*)gate, (const float*)gout,
-        (const int32_t*)seed, n, d, experts, v, tau, keep_prob, (float*)dx,
-        (float*)dgate, (T*)dz);
-  } else {
-    err = set_smem(moe_bwd_kernel<T, false>, smem);
-    if (err != cudaSuccess) return err;
-    moe_bwd_kernel<T, false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const T*)th, (const T*)w, (const float*)gate, (const float*)gout,
-        (const int32_t*)seed, n, d, experts, v, tau, keep_prob, (float*)dx,
-        (float*)dgate, nullptr);
-  }
+  if (cdiv(n, kRows) > 65535) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(v);
+  const dim3 grid(cdiv(d, kSlice), cdiv(n, kRows));
+  auto kernel = dz != nullptr ? moe_bwd_kernel<true> : moe_bwd_kernel<false>;
+  err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)th, (const float*)w, (const float*)gate, (const float*)gout,
+      (const int32_t*)seed, n, d, experts, v, tau, keep_prob, (float*)dx, (float*)dgate,
+      (float*)dz);
   return cudaGetLastError();
+}
+
+
+// ---- bf16: warpgroup products fed by bulk copies ----
+
+constexpr int kWgRows = 64;                    // rows of a block (wgmma's M)
+constexpr int kWgThreads = 256;                // two warpgroups, up to 255 registers a thread
+constexpr int kSlots = 2;                      // W stages [4 NI][64] and dz slots [64][64]
+constexpr int kDzSlot = kWgRows * kSwRow;
+constexpr int kLanesPerRow = 4;                // threads a row of a chunk in the dz stage
+constexpr int kPerLane = 64 / kLanesPerRow;    // and the columns of each
+constexpr int kUnits = kPerLane / 8;           // in 16-byte units of bf16
+
+// wgmma's N: a block's slice of D is 4 NI columns, NI for each of the two
+// products of each warpgroup; ops/moe_kernels.py bwd_pack_width gives the
+// same
+__host__ __device__ constexpr int bwd_ni(int d) { return d <= 256 ? 64 : 160; }
+
+// W stages, dz slots, the gout tile [64][V] float32, the barriers; 1 KB
+// of slack for alignment
+inline size_t bwd_wg_smem(int ni, int v) {
+  return 1024 + (size_t)kSlots * (4 * ni * kSwRow + kDzSlot) +
+         (size_t)kWgRows * v * sizeof(float) + 2 * kSlots * sizeof(uint64_t);
+}
+
+// One thread in the dz stage: row `row` of the block, columns k = 64c + 16
+// part .. + 15 of each chunk c; the four threads of a row are neighbouring
+// lanes.  Lane part 0 carries the sum of the expert still open at a chunk's
+// end into the next chunk.
+struct DzLane {
+  int row, part, nn;
+  bool ok;
+  uint32_t hrow;  // the hash's row and seed terms
+  int run_e;      // part 0: the open expert (-1 before the first)
+  float run;      // and its sum so far
+};
+
+// 16 bytes that are read once: not kept in L1, where the gate rows stay
+__device__ __forceinline__ uint4 load_once(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// What a thread's part of chunk c reads from memory, loaded a chunk ahead
+// of its use: its th (zero where there is none; rows of E·V a multiple of
+// 8 only, else dz_chunk reads th itself) and the gates of the (at most
+// three, for V >= 8) experts its 16 columns touch.
+struct Ahead {
+  uint4 th[kUnits];
+  float g[3];
+};
+
+__device__ __forceinline__ void fetch_ahead(Ahead& a, const __nv_bfloat16* __restrict__ th,
+                                            const float* __restrict__ gate, const DzLane& st,
+                                            int c, int experts, int v) {
+  const int kk = experts * v, kb = c * 64 + st.part * kPerLane;
+  const bool live = st.ok && kb < kk;
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    const int k0 = kb + 8 * u;
+    a.th[u] = live && (kk & 7) == 0 && k0 < kk ? load_once(th + (size_t)st.nn * kk + k0)
+                                              : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const int e0 = live ? kb / v : experts;
+  const float* row = gate + (size_t)st.nn * experts;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) a.g[i] = e0 + i < experts ? __ldg(row + e0 + i) : 0.0f;
+}
+
+// A thread's walk over its columns of a chunk: the expert e of the next
+// column, its position vv in e's V columns and e's gate g, the sum of the
+// open segment, and the thread's first segment once one closed.
+struct Walk {
+  int e, vv;
+  float g, sum;
+  int first_e;
+  float first_sum;
+  bool single;  // no segment closed yet in this chunk
+};
+
+// expert w.e's segment ends with this sum: the thread's first segment goes
+// to the lane join, a later one is complete and written
+__device__ __forceinline__ void close_segment(Walk& w, float sum, float* dgate_row) {
+  if (w.single) {
+    w.first_e = w.e;
+    w.first_sum = sum;
+    w.single = false;
+  } else {
+    dgate_row[w.e] = sum;
+  }
+}
+
+// dz of 8 columns (any V, columns past E·V zero)
+__device__ __forceinline__ void dz_unit(const float (&t)[8], float (&dzf)[8], Walk& w, int k0,
+                                        int kk, const float* grow, const float* __restrict__ gate_row,
+                                        float* __restrict__ dgate_row, int experts, int v,
+                                        float tau, bool dropout, uint32_t hx, uint32_t thr,
+                                        float inv_keep) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float dz = 0.0f;
+    if (k0 + i < kk) {
+      const float q = grow[w.vv];
+      float a = tau * t[i];
+      dz = w.g * q * (tau * (1.0f - t[i] * t[i]));
+      if (dropout) {
+        const float m = hash_keeps(hx + (uint32_t)i * kHashCol, thr) ? inv_keep : 0.0f;
+        a *= m;
+        dz *= m;
+      }
+      w.sum = fmaf(q, a, w.sum);
+      if (++w.vv == v) {  // expert w.e ends here
+        close_segment(w, w.sum, dgate_row);
+        w.sum = 0.0f;
+        w.vv = 0;
+        ++w.e;
+        w.g = w.e < experts ? __ldg(gate_row + w.e) : 0.0f;
+      }
+    }
+    dzf[i] = dz;
+  }
+}
+
+// the same for V >= 8 and 8 columns inside E·V: at most one expert ends in
+// them, at column bnd - 1, so the columns take their gate and sum by select
+// and the code has no branch per column (the sums in the same order)
+template <bool kDrop>
+__device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8], Walk& w,
+                                             const float* grow, const float (&gates)[3], int e0,
+                                             float* __restrict__ dgate_row, int v, float tau,
+                                             uint32_t hx, uint32_t thr, float inv_keep) {
+  const int bnd = v - w.vv;
+  const bool ends = bnd <= 8;
+  const float gn = w.e == e0 ? gates[1] : gates[2];  // the next expert's (zero past E)
+  float lo = w.sum, hi = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool next = i >= bnd;
+    const float q = grow[next ? w.vv + i - v : w.vv + i];
+    float a = tau * t[i];
+    float dz = (next ? gn : w.g) * q * (tau * (1.0f - t[i] * t[i]));
+    if (kDrop) {
+      const float m = hash_keeps(hx + (uint32_t)i * kHashCol, thr) ? inv_keep : 0.0f;
+      a *= m;
+      dz *= m;
+    }
+    const float s = fmaf(q, a, next ? hi : lo);
+    lo = next ? lo : s;
+    hi = next ? s : hi;
+    dzf[i] = dz;
+  }
+  if (ends) {
+    close_segment(w, lo, dgate_row);
+    ++w.e;
+    w.g = gn;
+    w.sum = hi;
+    w.vv = 8 - bnd;
+  } else {
+    w.sum = lo;
+    w.vv += 8;
+  }
+}
+
+// dz of chunk c into `slot` (swizzled, the products' A), K6's dz stream, and
+// dgate: each thread sums gout · a over its elements in k order, one sum
+// per expert segment; a segment that starts and ends inside the thread is
+// complete and written at once; the first and the last go to lane part 0
+// of the row, which joins them in lane order to the expert carried from
+// the previous chunk.  The order of every sum is fixed.
+template <bool kEmit>
+__device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st, const Ahead& ah,
+                                         const __nv_bfloat16* __restrict__ th,
+                                         const float* __restrict__ gate, const float* gs,
+                                         float* __restrict__ dgate,
+                                         __nv_bfloat16* __restrict__ dz_out, int experts, int v,
+                                         float tau, bool dropout, uint32_t thr, float inv_keep) {
+  const int kk = experts * v, kb = c * 64 + st.part * kPerLane;
+  const int lane = threadIdx.x & 31, base = lane & ~(kLanesPerRow - 1);
+  const bool live = st.ok && kb < kk;
+  const bool vec = (kk & 7) == 0;  // th and dz rows in whole 16-byte units
+  const bool wide = vec && v >= 8;
+  const float* gate_row = gate + (size_t)st.nn * experts;
+  float* dgate_row = dgate + (size_t)st.nn * experts;
+  Walk w;
+  w.e = experts;
+  w.vv = 0;
+  w.g = 0.0f;
+  w.sum = 0.0f;
+  w.first_e = experts;
+  w.first_sum = 0.0f;
+  w.single = true;
+  const int e0 = live ? kb / v : experts;
+  if (live) {
+    w.e = e0;
+    w.vv = kb - e0 * v;
+    w.g = ah.g[0];
+  }
+  const __nv_bfloat16* trow = th + (size_t)st.nn * kk;
+  const float* grow = gs + st.row * v;
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    const int k0 = kb + 8 * u;
+    const uint32_t hx = st.hrow + (uint32_t)k0 * kHashCol;
+    uint32_t words[4] = {0u, 0u, 0u, 0u};
+    const bool unit = live && k0 < kk;
+    if (unit) {
+      float t[8];
+      if (vec) {
+        const uint32_t* rw = &ah.th[u].x;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rw[i]));
+          t[2 * i] = f.x;
+          t[2 * i + 1] = f.y;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) t[i] = k0 + i < kk ? __bfloat162float(trow[k0 + i]) : 0.0f;
+      }
+      float dzf[8];
+      if (wide && dropout)
+        dz_unit_wide<true>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr, inv_keep);
+      else if (wide)
+        dz_unit_wide<false>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr, inv_keep);
+      else
+        dz_unit(t, dzf, w, k0, kk, grow, gate_row, dgate_row, experts, v, tau, dropout, hx, thr,
+                inv_keep);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(dzf[2 * i], dzf[2 * i + 1]);
+        words[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    const uint4 packed = make_uint4(words[0], words[1], words[2], words[3]);
+    *reinterpret_cast<uint4*>(slot + sw128_offset(st.row, st.part * kUnits + u)) = packed;
+    if (kEmit && unit) {
+      __nv_bfloat16* drow = dz_out + (size_t)st.nn * kk + k0;
+      if (vec) {
+        *reinterpret_cast<uint4*>(drow) = packed;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (k0 + i < kk)
+            drow[i] = __ushort_as_bfloat16((unsigned short)(words[i >> 1] >> (16 * (i & 1))));
+      }
+    }
+  }
+
+  const int fe = w.single ? w.e : w.first_e;
+  const float fs = w.single ? w.sum : w.first_sum;
+#pragma unroll
+  for (int j = 0; j < kLanesPerRow; ++j) {
+    const int sfe = __shfl_sync(0xffffffffu, fe, base + j);
+    const float sfs = __shfl_sync(0xffffffffu, fs, base + j);
+    const int sle = __shfl_sync(0xffffffffu, w.e, base + j);
+    const float sls = __shfl_sync(0xffffffffu, w.sum, base + j);
+    const int ssingle = __shfl_sync(0xffffffffu, (int)w.single, base + j);
+    if (st.part == 0 && st.ok) {
+      if (sfe == st.run_e) {
+        st.run += sfs;
+      } else {
+        if (st.run_e >= 0 && st.run_e < experts)
+          dgate[(size_t)st.nn * experts + st.run_e] = st.run;
+        st.run_e = sfe;
+        st.run = sfs;
+      }
+      if (!ssingle) {  // the lane's first segment closed inside it
+        if (st.run_e < experts) dgate[(size_t)st.nn * experts + st.run_e] = st.run;
+        st.run_e = sle;
+        st.run = sls;
+      }
+    }
+  }
+}
+
+// dx columns col0 .. col0 + NI of rows r0 and r0 + 8 from an accumulator
+template <int NI>
+__device__ __forceinline__ void store_dx(const float (&acc)[NI / 2], float* __restrict__ dx,
+                                         int n0, int r0, int cb, int col0, int n, int d) {
+  const bool pairs = (d & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < NI / 8; ++j) {
+    const int col = col0 + 8 * j + cb;
+    if (col >= d) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nn = n0 + r0 + 8 * h;
+      if (nn >= n) continue;
+      float* dst = dx + (size_t)nn * d + col;
+      const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+      } else {
+        dst[0] = a;
+        if (col + 1 < d) dst[1] = b;
+      }
+    }
+  }
+}
+
+// Both warpgroups compute dz of chunk c + 1 into slot (c + 1) % 2 while the
+// products of chunk c run on the tensor cores: warpgroup g owns dx columns
+// [2 NI g, 2 NI (g + 1)) of the block's slice as two m64nNIk16
+// accumulators (160 registers a thread at NI = 160, which is why the block
+// has no third warpgroup: 256 threads may use 255 registers each).  Thread
+// 0 keeps the W ring full: chunk c + 2 goes into stage c % 2 once both
+// blocks' warps released chunk c.
+template <int NI, bool kEmit>
+__global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
+    const __nv_bfloat16* __restrict__ th,  // [N, E·V]
+    const __nv_bfloat16* __restrict__ wp,  // [slices][chunks][4 NI][64], swizzled
+    const float* __restrict__ gate,        // [N, E]
+    const float* __restrict__ gout,        // [N, V]
+    const int32_t* __restrict__ seed_dev,  // [1] (read if dropout)
+    int n, int d, int experts, int v, float tau, float keep_prob,
+    float* __restrict__ dx,                // [N, D]
+    float* __restrict__ dgate,             // [N, E]
+    __nv_bfloat16* __restrict__ dz_out) {  // [N, E·V] (K6)
+  constexpr uint32_t kStage = 4 * NI * kSwRow;
+  constexpr int kRegs = NI / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ws = align1024(smem_raw);
+  unsigned char* dzs = ws + kSlots * kStage;
+  float* gs = reinterpret_cast<float*>(dzs + kSlots * kDzSlot);
+  uint64_t* full = reinterpret_cast<uint64_t*>(gs + kWgRows * v);
+  uint64_t* empty = full + kSlots;
+  const int kk = experts * v, chunks = cdiv(kk, 64);
+  const int n0 = blockIdx.x * kWgRows, slice = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const unsigned char* src =
+      reinterpret_cast<const unsigned char*>(wp) + (size_t)slice * chunks * kStage;
+
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // every warp
+    }
+    mbar_init_fence();
+  }
+  for (int i = tid; i < kWgRows * v; i += kWgThreads)
+    gs[i] = n0 + i / v < n ? gout[(size_t)n0 * v + i] : 0.0f;
+  __syncthreads();
+
+  // chunk c of W into stage c % 2
+  auto copy_w = [&](int c) {
+    const int s = c % kSlots;
+    mbar_expect(&full[s], kStage);
+    bulk_copy(ws + (size_t)s * kStage, src + (size_t)c * kStage, kStage, &full[s]);
+  };
+  if (tid == 0)
+    for (int c = 0; c < kSlots && c < chunks; ++c) copy_w(c);
+
+  const bool dropout = keep_prob < 1.0f;
+  const uint32_t seed = dropout ? (uint32_t)seed_dev[0] : 0u;
+  const uint32_t thr = keep_threshold(keep_prob);
+  const float inv_keep = 1.0f / keep_prob;
+  DzLane st;
+  st.row = tid / kLanesPerRow;
+  st.part = tid % kLanesPerRow;
+  st.nn = n0 + st.row;
+  st.ok = st.nn < n;
+  st.hrow = (uint32_t)st.nn * kHashRow + seed * kHashSeed;
+  st.run_e = -1;
+  st.run = 0.0f;
+  Ahead ahead;
+  fetch_ahead(ahead, th, gate, st, 0, experts, v);
+
+  const int g = tid / 128, wq = warp & 3;
+  float acc0[kRegs], acc1[kRegs];
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) acc0[i] = acc1[i] = 0.0f;
+  const uint32_t dz_a = smem_addr(dzs), w_a = smem_addr(ws) + 2 * NI * g * kSwRow;
+  // step c runs the products of chunk c (none at c = -1) and makes dz of
+  // chunk c + 1 meanwhile
+  for (int c = -1; c < chunks; ++c) {
+    const int s = c & 1;
+    if (c >= 0) {
+      mbar_wait(&full[s], (c / kSlots) & 1);
+      __syncwarp();
+      wg_fence();
+      const uint32_t a = dz_a + s * kDzSlot, b = w_a + s * kStage;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int add = (c | ks) != 0;
+        Wgmma<NI>::mma(acc0, sw128_desc(a + ks * 32), sw128_desc(b + ks * 32), add);
+        Wgmma<NI>::mma(acc1, sw128_desc(a + ks * 32), sw128_desc(b + NI * kSwRow + ks * 32),
+                       add);
+      }
+      wg_commit();
+    }
+    if (c + 1 < chunks) {
+      // slot (c + 1) % 2 was read by chunk c - 1, done before the last barrier
+      dz_chunk<kEmit>(c + 1, dzs + ((c + 1) & 1) * kDzSlot, st, ahead, th, gate, gs, dgate,
+                      dz_out, experts, v, tau, dropout, thr, inv_keep);
+      if (c + 2 < chunks) fetch_ahead(ahead, th, gate, st, c + 2, experts, v);
+    }
+    if (c >= 0) {
+      wg_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (tid == 0 && c + kSlots < chunks) {
+        mbar_wait(&empty[s], (c / kSlots) & 1);  // every warp is done with chunk c
+        copy_w(c + kSlots);
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+  }
+  wg_hold(acc0);
+  wg_hold(acc1);
+  if (st.part == 0 && st.ok && st.run_e >= 0 && st.run_e < experts)
+    dgate[(size_t)st.nn * experts + st.run_e] = st.run;
+  const int r0 = 16 * wq + (lane >> 2), cb = 2 * (lane & 3);
+  const int col0 = slice * 4 * NI + 2 * NI * g;
+  store_dx<NI>(acc0, dx, n0, r0, cb, col0, n, d);
+  store_dx<NI>(acc1, dx, n0, r0, cb, col0 + NI, n, d);
+}
+
+template <int NI, bool kEmit>
+cudaError_t launch_bwd_wgmma(const void* th, const void* wp, const void* gate, const void* gout,
+                             const void* seed, int n, int d, int experts, int v, float tau,
+                             float keep_prob, void* dx, void* dgate, void* dz,
+                             cudaStream_t stream) {
+  const size_t smem = bwd_wg_smem(NI, v);
+  auto kernel = moe_bwd_wgmma<NI, kEmit>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(n, kWgRows), cdiv(d, 4 * NI));
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      (const __nv_bfloat16*)th, (const __nv_bfloat16*)wp, (const float*)gate, (const float*)gout,
+      (const int32_t*)seed, n, d, experts, v, tau, keep_prob, (float*)dx, (float*)dgate,
+      (__nv_bfloat16*)dz);
+  return cudaGetLastError();
+}
+
+int launch_bf16(int device, const void* th, const void* wp, const void* gate, const void* gout,
+                const void* seed, int n, int d, int experts, int v, float tau, float keep_prob,
+                void* dx, void* dgate, void* dz, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n <= 0) return cudaSuccess;
+  if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
+  if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bwd_ni(d) == 64)
+    return dz != nullptr ? launch_bwd_wgmma<64, true>(th, wp, gate, gout, seed, n, d, experts, v,
+                                                      tau, keep_prob, dx, dgate, dz, s)
+                         : launch_bwd_wgmma<64, false>(th, wp, gate, gout, seed, n, d, experts,
+                                                       v, tau, keep_prob, dx, dgate, dz, s);
+  return dz != nullptr ? launch_bwd_wgmma<160, true>(th, wp, gate, gout, seed, n, d, experts, v,
+                                                     tau, keep_prob, dx, dgate, dz, s)
+                       : launch_bwd_wgmma<160, false>(th, wp, gate, gout, seed, n, d, experts, v,
+                                                      tau, keep_prob, dx, dgate, dz, s);
 }
 
 }  // namespace
 
-// dz == NULL launches K8 (no dz stream); otherwise K6
+// dz == NULL launches K8 (no dz stream); otherwise K6.  bf16: w is the
+// packed image of ops/moe_kernels.py bwd_pack
 #define MOE_BWD_ARGS                                                          \
   int device, const void *th, const void *w, const void *gate,               \
       const void *gout, const void *seed, int n, int d, int experts, int v,  \
@@ -190,8 +666,6 @@ int launch(int device, const void* th, const void* w, const void* gate,
 #define MOE_BWD_PASS \
   device, th, w, gate, gout, seed, n, d, experts, v, tau, keep_prob, dx, dgate, dz, stream
 
-extern "C" int moe_bwd_f32(MOE_BWD_ARGS) { return launch<float>(MOE_BWD_PASS); }
+extern "C" int moe_bwd_f32(MOE_BWD_ARGS) { return launch_f32(MOE_BWD_PASS); }
 
-extern "C" int moe_bwd_bf16(MOE_BWD_ARGS) {
-  return launch<__nv_bfloat16>(MOE_BWD_PASS);
-}
+extern "C" int moe_bwd_bf16(MOE_BWD_ARGS) { return launch_bf16(MOE_BWD_PASS); }

@@ -32,11 +32,17 @@ On a CPU tensor a wrapper runs its plain version (``moe_mix_reference``,
 ``moe_backward_noemit_reference``, ``moe_wgrad_reference``,
 ``moe_backward_wgrad_reference``); on a CUDA tensor it launches its kernel
 or raises.
+
+The bf16 bodies of K4/K5 and K6/K8 read W as a packed image, the exact
+shared-memory operand tiles of their warpgroup products (``fwd_pack``,
+``bwd_pack``), made once per weight tensor (``cells.derived``: once per
+model in serving, once per step in training, where the weights change).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from ..models.cells import derived, matmul_f32
@@ -75,6 +81,68 @@ def hash_uniform(seed, row0: int, col0: int, nrows: int, ncols: int,
     return (x >> 9).to(torch.float32) * (1.0 / (1 << 23))
 
 
+# The wgmma widths (N) compiled into K4/K5 (csrc/moe_fwd.cu fwd_np): an
+# expert's V columns are padded to the first that holds them.
+FWD_PACK_WIDTHS = (16, 32, 64, 72, 128)
+
+
+def fwd_pack_width(v: int) -> int:
+    """K4/K5's padded expert width for V (csrc/moe_fwd.cu ``fwd_np``)."""
+    for width in FWD_PACK_WIDTHS:
+        if v <= width:
+            return width
+    raise ValueError("the kernels take V <= 128, got %d" % v)
+
+
+def bwd_pack_width(d: int) -> int:
+    """K6/K8's product width NI for D (csrc/moe_bwd.cu ``bwd_ni``): a
+    block computes 4·NI columns of dx."""
+    return 64 if d <= 256 else 160
+
+
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle of the kernels' operand tiles over the last two
+    dims ``[rows (a multiple of 8), 64]``: the 16-byte unit j (8 bf16) of
+    row r goes to unit j ^ (r % 8) (csrc/wgmma.cuh ``sw128_offset``).  Its
+    own inverse."""
+    *lead, rows, cols = t.shape
+    if cols != 64 or rows % 8:
+        raise ValueError("swizzle128 takes [rows (8k), 64] tiles, got %s"
+                         % (tuple(t.shape),))
+    r = torch.arange(8, device=t.device)
+    units = t.reshape(*lead, rows // 8, 8, 8, 8)  # [.., group, r % 8, j, 8]
+    return units[..., r[:, None], r[:, None] ^ r[None, :], :].reshape(t.shape)
+
+
+def fwd_pack(w: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """W ``[D, E·V]`` as K4/K5's image ``[E, chunks, NP, 64]`` in w's dtype
+    (the kernels take bf16; chunks = ceil(D / 64), NP =
+    ``fwd_pack_width(V)``): tile (e, c) is W_eᵀ, rows v and columns d = 64c
+    .. 64c + 63, zero past V and D, swizzled; one bulk copy of NP·128 bytes
+    a tile."""
+    d, cols = w.shape
+    v = cols // num_experts
+    width, chunks = fwd_pack_width(v), -(-d // 64)
+    t = w.reshape(d, num_experts, v).permute(1, 2, 0)
+    t = F.pad(t, (0, chunks * 64 - d, 0, width - v))
+    t = t.reshape(num_experts, width, chunks, 64).transpose(1, 2)
+    return swizzle128(t.contiguous())
+
+
+def bwd_pack(w: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """W ``[D, E·V]`` as K6/K8's image ``[slices, chunks, 4·NI, 64]`` in
+    w's dtype (the kernels take bf16; NI = ``bwd_pack_width(D)``, chunks =
+    ceil(E·V / 64)): tile (s, c) is rows d = 4·NI·s .. and columns k = 64c
+    .. 64c + 63 of W (Wᵀ, K-major, across expert boundaries), zero past D
+    and E·V, swizzled."""
+    d, cols = w.shape
+    rows = 4 * bwd_pack_width(d)
+    slices, chunks = -(-d // rows), -(-cols // 64)
+    t = F.pad(w, (0, chunks * 64 - cols, 0, slices * rows - d))
+    t = t.reshape(slices, rows, chunks, 64).transpose(1, 2)
+    return swizzle128(t.contiguous())
+
+
 def _drop_factor(seed, n: int, cols: int, keep_prob: float, device):
     """``[n, cols]``: 1 / keep_prob where the hash keeps an element, else 0."""
     u = hash_uniform(seed if seed is not None else 0, 0, 0, n, cols, device)
@@ -100,15 +168,17 @@ def moe_mix_reference(x, w_expert, b_expert, gate, num_experts: int,
 
 
 def _check(x, d: int, cols: int, num_experts: int, keep_prob: float,
-           what: str, tensors=()):
-    """The limits the kernels take (x's device, D, E·V); returns V."""
+           what: str, tensors=(), any_d: bool = False):
+    """The limits the kernels take (x's device, D, E·V); returns V.  The
+    bf16 bodies of K4/K5 and K6/K8 take any D (``any_d``), the others D <=
+    1024."""
     if x.device.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (what, x.device))
     v = cols // num_experts
     if v * num_experts != cols:
         raise ValueError("%s: %d columns do not split into %d experts"
                          % (what, cols, num_experts))
-    if v > 128 or d > 1024:
+    if v > 128 or (d > 1024 and not any_d):
         raise ValueError("%s: the kernel takes V <= 128 and D <= 1024, got "
                          "V=%d D=%d" % (what, v, d))
     if not 0.0 < keep_prob <= 1.0:
@@ -166,7 +236,8 @@ def moe_mix_forward(x, w_expert, b_expert, gate, num_experts: int,
                          % compute_dtype)
     n, d = x.shape
     v = _check(x, w_expert.shape[0], w_expert.shape[1], num_experts,
-               keep_prob, "moe_mix_forward", (w_expert, b_expert, gate))
+               keep_prob, "moe_mix_forward", (w_expert, b_expert, gate),
+               any_d=compute_dtype == torch.bfloat16)
     if (w_expert.shape[0] != d or b_expert.shape != (num_experts * v,)
             or gate.shape != (n, num_experts)):
         raise ValueError("moe_mix_forward: inconsistent shapes x %s w %s b "
@@ -175,8 +246,12 @@ def moe_mix_forward(x, w_expert, b_expert, gate, num_experts: int,
                                          tuple(b_expert.shape),
                                          tuple(gate.shape)))
     xc = x.float().contiguous()
-    w = derived([w_expert], ("expert weights", compute_dtype),
-                lambda: w_expert.to(compute_dtype, copy=True).contiguous())
+    if compute_dtype == torch.bfloat16:
+        w = derived([w_expert], ("fwd pack", num_experts),
+                    lambda: fwd_pack(w_expert.to(torch.bfloat16), num_experts))
+    else:
+        w = derived([w_expert], ("expert weights", compute_dtype),
+                    lambda: w_expert.to(compute_dtype, copy=True).contiguous())
     b = b_expert.float().contiguous()
     g = gate.float().contiguous()
     out = torch.empty(n, v, device=x.device)
@@ -222,7 +297,7 @@ def moe_mix_forward_stash(x, w, b, gate, seed, num_experts: int, tau: float,
     what = "moe_mix_forward_stash"
     n, d = x.shape
     v = _check(x, d, w.shape[1], num_experts, keep_prob, what,
-               (w, b, gate, seed))
+               (w, b, gate, seed), any_d=w.dtype == torch.bfloat16)
     cdt = _compute_dtype_of(w)
     _expect(x, (n, d), torch.float32, "x", what)
     _expect(w, (d, num_experts * v), cdt, "w", what)
@@ -230,6 +305,9 @@ def moe_mix_forward_stash(x, w, b, gate, seed, num_experts: int, tau: float,
     _expect(gate, (n, num_experts), torch.float32, "gate", what)
     out = torch.empty(n, v, device=x.device)
     th = torch.empty(n, num_experts * v, device=x.device, dtype=cdt)
+    if cdt == torch.bfloat16:
+        w = derived([w], ("fwd pack", num_experts),
+                    lambda: fwd_pack(w, num_experts))
     lib = _build.library()
     launch = lib.moe_fwd_stash_bf16 if cdt == torch.bfloat16 \
         else lib.moe_fwd_stash_f32
@@ -311,7 +389,7 @@ def _backward_launch(th, w, gate, gout, seed, num_experts, tau, keep_prob,
     n = th.shape[0]
     d = w.shape[0]
     v = _check(th, d, w.shape[1], num_experts, keep_prob, what,
-               (w, gate, gout, seed))
+               (w, gate, gout, seed), any_d=w.dtype == torch.bfloat16)
     cdt = _compute_dtype_of(w)
     _expect(th, (n, num_experts * v), cdt, "th", what)
     _expect(w, (d, num_experts * v), cdt, "w", what)
@@ -320,6 +398,9 @@ def _backward_launch(th, w, gate, gout, seed, num_experts, tau, keep_prob,
     dx = torch.empty(n, d, device=th.device)
     dgate = torch.empty(n, num_experts, device=th.device)
     dz = torch.empty_like(th) if emit_dz else None
+    if cdt == torch.bfloat16:
+        w = derived([w], ("bwd pack", num_experts),
+                    lambda: bwd_pack(w, num_experts))
     lib = _build.library()
     launch = lib.moe_bwd_bf16 if cdt == torch.bfloat16 else lib.moe_bwd_f32
     err = launch(th.device.index or 0, th.data_ptr(), w.data_ptr(),

@@ -124,3 +124,28 @@ def test_kernel_matches_plain_on_gpu(cuda, dtype, e, v, keep_prob):
         assert err <= 1e-4 * float(ref.abs().max())
     else:
         assert err <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 65, 150, 1100])
+@pytest.mark.parametrize("e,v,d", [(1, 8, 40), (1, 128, 40), (4, 8, 37),
+                                   (3, 128, 1000), (3, 72, 1408),
+                                   (3, 128, 1408), (3, 72, 1600),
+                                   (3, 128, 1600)])
+def test_kernel_edge_shapes_on_gpu(cuda, n, e, v, d):
+    """bf16 K4 at ragged row counts (one row, a tile less or more one, an
+    odd number of tiles), one expert, V at the narrowest and widest
+    products, an odd D, a D of 16 chunks, and D whose x tile leaves too
+    little shared memory for two W stages, so that x streams with W."""
+    x, w, b, gate = make_case(4, n=n, d=d, e=e, v=v)
+    args = [torch.from_numpy(a).to(cuda) for a in (x, w, b, gate)]
+    for keep_prob in (1.0, 0.9):
+        before = moe_kernels.moe_mix_forward.launches
+        got = moe_kernels.moe_mix_fused(*args, e, 10.0, keep_prob, 7,
+                                        torch.bfloat16)
+        ref = moe_kernels.moe_mix_reference(*args, e, 10.0, keep_prob, 7,
+                                            torch.bfloat16)
+        torch.cuda.synchronize()
+        assert moe_kernels.moe_mix_forward.launches == before + 1
+        assert got.shape == (n, v) and bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= 5e-2

@@ -282,6 +282,42 @@ def test_kernels_match_plain_on_gpu(cuda, dtype, keep_prob, e, v, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 65, 150, 1100])
+@pytest.mark.parametrize("e,v,d", [(1, 8, 40), (1, 128, 40), (4, 8, 37),
+                                   (3, 128, 1000), (3, 72, 1408),
+                                   (3, 128, 1408), (3, 72, 1600),
+                                   (3, 128, 1600)])
+def test_kernels_edge_shapes_on_gpu(cuda, n, e, v, d):
+    """bf16 K5, K6 and K8 at ragged row counts, one expert, V at the
+    narrowest and widest products, an odd D, a D of two dx slices, and D
+    where K5 streams x with W; keep 0.9, the rules of
+    test_kernels_match_plain_on_gpu."""
+    case = make_case(7, n=n, d=d, e=e, v=v)
+    x, w32, b, gate, gout = (torch.from_numpy(a).to(cuda) for a in case)
+    w = w32.to(torch.bfloat16).contiguous()
+    seed = torch.tensor([SEED], dtype=torch.int32, device=cuda)
+    args = (seed, e, TAU, 0.9)
+    out, th = moe_kernels.moe_mix_forward_stash(x, w, b, gate, *args)
+    ref_out, ref_th = moe_kernels.moe_stash_reference(x, w, b, gate, *args)
+    assert float((out - ref_out).abs().max()) <= 5e-2
+    # two orders of the float32 sum x·W can differ by 2^-20 of the sum of
+    # its terms' magnitudes, which near a cancellation (th near 0) exceeds
+    # a rounding step of th
+    terms = x.to(torch.bfloat16).float().abs() @ w.float().abs()
+    assert bool(((th.float() - ref_th.float()).abs()
+                 <= bf16_step(ref_th) + 2.0 ** -20 * terms).all())
+    dx, dgate, dz = moe_kernels.moe_mix_backward(th, w, gate, gout, *args)
+    ref = moe_kernels.moe_backward_reference(th, w, gate, gout, *args)
+    assert ratio(dx, ref[0]) <= 1e-2 and ratio(dgate, ref[1]) <= 1e-2
+    assert bool(((dz.float() - ref[2].float()).abs()
+                 <= bf16_step(ref[2])).all())
+    dx8, dgate8 = moe_kernels.moe_mix_backward_noemit(th, w, gate, gout,
+                                                      *args)
+    torch.cuda.synchronize()
+    assert torch.equal(dx8, dx) and torch.equal(dgate8, dgate)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("keep_prob", [1.0, 0.9])
 @pytest.mark.parametrize("n,e,v,d", [(150, 5, 7, 40), (1100, 4, 72, 200)])
