@@ -958,8 +958,60 @@ def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
     say("  K3 %-8s reset=%-5s kernel %.3f ms (K2 alone on the same inputs "
         "%.3f ms)  plain %.3f ms  bound %.4f ms (%s)"
         % (name, reset, ms, k2_ms, plain_ms, bound_ms, bound_by))
-    return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "k2_ms": k2_ms}
+    result = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "k2_ms": k2_ms}
+    if dtype == torch.bfloat16:
+        result.update(fold_yardsticks(torch, lstm_kernels, args, dtype))
+    return result
+
+
+# K3's launches by kernel: K2's recurrence and weight gradients, then the
+# input side (csrc/lstm_bwd_fold.cu and csrc/wg_product.cuh)
+K3_KERNELS = (("dx product", r"wg_product_kernel<.*DxOp"),
+              ("dwx product", r"wg_product_kernel<.*DwxOp"),
+              ("x cast", r"cast_rows_bf16"),
+              ("dbias side sum", r"dg_column_sums"),
+              ("sums of partials", r"split_sum4|group_sum"),
+              ("K2", r"lstm_bwd|lstm_wgrad|peep|wgrad|split_sum_kernel"))
+
+
+def fold_yardsticks(torch, lstm_kernels, args, dtype):
+    """Beside K3 in bf16: cuBLAS's bare products dx = dg·wxᵀ and dwx =
+    x(bf16)ᵀ·dg on the same operands (one torch.mm per direction, float32
+    out; dg's rows gathered into (b, t) order beforehand, untimed), and one
+    profiled K3 launch split by kernel."""
+    x2, wx = args[:2]
+    full = lstm_kernels.lstm_layer_backward_fold(*args, store_dtype=dtype,
+                                                 steps=True)
+    steps, b2, h4 = full[6].shape
+    batch = b2 // 2
+    dg = full[6].view(steps, 2, batch, h4).permute(1, 2, 0, 3).reshape(
+        2, batch * steps, h4).contiguous()
+    xb = x2.to(torch.bfloat16).reshape(2, batch * steps, -1)
+    wxb = wx.to(torch.bfloat16)
+
+    def dx_products():
+        for g in range(2):
+            torch.mm(dg[g], wxb[g].t(), out_dtype=torch.float32)
+
+    def dwx_products():
+        for g in range(2):
+            torch.mm(xb[g].t(), dg[g], out_dtype=torch.float32)
+
+    dx_ms = median_ms(torch, dx_products, reps=8)
+    dwx_ms = median_ms(torch, dwx_products, reps=8)
+    busy, split, whole = profiled_split(
+        torch, lambda: lstm_kernels.lstm_layer_backward_fold(
+            *args, store_dtype=dtype), K3_KERNELS,
+        ("dx product", "dwx product", "K2"))
+    say("  K3 bfloat16 yardstick: cuBLAS's bare products on the same operands "
+        "dx %.4f ms, dwx %.4f ms (both directions); one profiled K3 launch, "
+        "device %.3f ms%s: %s"
+        % (dx_ms, dwx_ms, busy, "" if whole else " (INCOMPLETE: the profiler "
+           "missed kernels in 3 tries)",
+           ", ".join("%s %.4f" % kv for kv in split.items())))
+    return {"cublas_dx_ms": dx_ms, "cublas_dwx_ms": dwx_ms,
+            "device_split": split}
 
 
 def write_labeled_corpus(pkg, work, rng, count=288):
@@ -1708,7 +1760,48 @@ def check_moe_single_kernel(torch, pkg, device, rng):
                                    for g, r in zip(got, ref)),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by}
+            result[dtype].update(k7_yardsticks(torch, mk, kargs, got))
     return result
+
+
+# K7's launches by kernel (csrc/moe_bwd_wgrad.cu): stage 1 is K6's body
+# with the db epilogue, stage 2 the engine's dw product
+K7_KERNELS = (("stage 1 (K6's body, dz, db partials)", r"moe_bwd_wgmma"),
+              ("stage 2 dw product", r"wg_product_kernel"),
+              ("x cast", r"cast_rows_bf16"),
+              ("sums of partials", r"split_sum|group_sum"),
+              ("stage 1 (float32 body)", r"moe_bwd_wgrad_kernel"))
+
+
+def k7_yardsticks(torch, mk, kargs, got):
+    """Beside K7: K6 alone on the same inputs (for bf16 K7's dx and dgate
+    must equal K6's bit for bit), cuBLAS's bare x(cdt)ᵀ·dz (float32 out),
+    and one profiled K7 call split by kernel."""
+    x, th, w = kargs[:3]
+    args = kargs[5:]
+    k6 = mk.moe_mix_backward(th, w, kargs[3], kargs[4], *args)
+    k6_ms = median_ms(torch, lambda: mk.moe_mix_backward(
+        th, w, kargs[3], kargs[4], *args), reps=6)
+    xc = x.to(w.dtype)
+    cublas_ms = median_ms(torch, lambda: mk.product_f32(xc.t(), k6[2]),
+                          reps=6)
+    bf16 = w.dtype == torch.bfloat16
+    busy, split, whole = profiled_split(
+        torch, lambda: mk.moe_mix_backward_wgrad(*kargs), K7_KERNELS,
+        (K7_KERNELS[0][0], K7_KERNELS[1][0]) if bf16 else (K7_KERNELS[4][0],))
+    same = bool(torch.equal(got[0], k6[0]) and torch.equal(got[1], k6[1]))
+    name = str(w.dtype).split(".")[-1]
+    say("  K7 %-8s K6 alone %.3f ms; cuBLAS's bare x(cdt)ᵀ·dz %.4f ms; "
+        "dx and dgate equal to K6's bit for bit: %s; one profiled K7 call, "
+        "device %.3f ms%s: %s"
+        % (name, k6_ms, cublas_ms,
+           same if bf16 else "n/a (the float32 body is one kernel of its "
+           "own)", busy, "" if whole else " (INCOMPLETE: the profiler missed "
+           "kernels in 3 tries)",
+           ", ".join("%s %.4f" % kv for kv in split.items())))
+    if bf16 and not same:
+        fail("K7 bf16: dx or dgate differ from K6's")
+    return {"k6_ms": k6_ms, "cublas_ms": cublas_ms, "device_split": split}
 
 
 def train_moe_end_to_end(torch, pkg, device, work, scp):
@@ -2187,16 +2280,47 @@ def flatten_cudnn(torch, lstm):
 
 def device_ms(torch, fn):
     """torch.profiler over one warm call of ``fn``: the device time of its
-    kernels, and (ms, count, name) of each, longest first."""
+    kernels, and (ms, count, name) of each, longest first.  The profiled
+    region starts with 64 short spin kernels, left out of the rows: late in
+    a long run the profiler lost the records of a region's first kernels
+    (phase 16 saw none of K7's seven, phase 15 not K2's within K3)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    rows = kernel_rows(prof)
+    rows = [r for r in kernel_rows(prof) if "spin_kernel" not in r[2]]
     return sum(r[0] for r in rows), rows
+
+
+def profiled_split(torch, fn, groups, need, tries=3):
+    """(device ms, kernel_split) of one profiled call of ``fn``, taken again
+    (up to ``tries`` times) while a group of ``need`` saw no kernel; the
+    split of the last try, and whether it is complete."""
+    for _ in range(tries):
+        busy, rows = device_ms(torch, fn)
+        split = kernel_split(rows, groups)
+        if all(split[label] > 0 for label in need):
+            return busy, split, True
+    return busy, split, False
+
+
+def kernel_split(rows, groups):
+    """Device ms of a profile's kernel rows by group: ``groups`` is (label,
+    pattern of the demangled name) in order, the first match wins; the
+    rest is "other"."""
+    split = {label: 0.0 for label, _ in groups}
+    split["other"] = 0.0
+    for ms, _, key in rows:
+        label = next((lb for lb, pattern in groups
+                      if re.search(pattern, key)), "other")
+        split[label] += ms
+    return split
 
 
 def cudnn_yardstick(torch, pkg, device, rng):
@@ -2761,7 +2885,8 @@ def main() -> None:
             for reset in (False, True):
                 fold[(dtype, reset)] = check_lstm_bwd_fold(
                     torch, pkg, device, dtype, reset, rng)
-        phase("phase 16 K7 (MoE head backward in one kernel)")
+        phase("phase 16 K7 (MoE head backward with the weight gradient: "
+              "bf16 K6's body then the dw product, float32 one kernel)")
         k7 = check_moe_single_kernel(torch, pkg, device, rng)
         phase("phase 17 the opt-in folds end to end (nnet_train, flagship MoE "
             "model, lstm_fold_dx and moe_wgrad_mode = kernel, cuda; the A/B "
@@ -2889,13 +3014,17 @@ def main() -> None:
            families["cudnnlstm"]["step_ms"], families["cudnnlstm"]["fps"],
            families["lstm_bn"]["step_ms"], families["lstm_bn"]["fps"]))
     k3 = fold[(torch.bfloat16, True)]
+    k7b = k7[torch.bfloat16]
     say("summary of the opt-in folds on %s: K3 bf16 %.3f ms a layer (K2 "
-        "alone on the same inputs %.3f ms); K7 bf16 %.3f ms (default "
-        "backward %.3f ms, twokernel %.3f ms); float32 step with both folds "
+        "alone on the same inputs %.3f ms; cuBLAS's bare dx and dwx "
+        "products %.4f + %.4f ms); K7 bf16 %.3f ms (K6 alone %.3f ms, "
+        "cuBLAS's bare x(cdt)ᵀ·dz %.4f ms; default backward %.3f ms, "
+        "twokernel %.3f ms); float32 step with both folds "
         "vs without: loss rel %.3e, gradient ||diff||/||plain|| %.3e; "
         "profiled bf16 train step (B=32, T=384, keep 1.0), device ms: %s; "
         "A/B frames/s: %s"
-        % (smi, k3["ms"], k3["k2_ms"], k7[torch.bfloat16]["ms"],
+        % (smi, k3["ms"], k3["k2_ms"], k3["cublas_dx_ms"],
+           k3["cublas_dwx_ms"], k7b["ms"], k7b["k6_ms"], k7b["cublas_ms"],
            default_ms, two_ms, folds["loss_rel"],
            folds["grad_rel"], ", ".join(
                "%s %.3f" % kv for kv in folds["device_ms"].items()),
@@ -2907,7 +3036,8 @@ def main() -> None:
         e2e["fps_warm"], train["step_ms"], moe_loop["step_ms"], two_ms,
         default_ms, library["forward"], library["both"], serve["chunk_ms"]] \
         + [families[f]["step_ms"] for f in ("lstm", "cudnnlstm", "lstm_bn")] \
-        + [k3["k2_ms"]] \
+        + [k3["k2_ms"], k3["cublas_dx_ms"], k3["cublas_dwx_ms"],
+           k7b["k6_ms"], k7b["cublas_ms"]] \
         + list(folds["device_ms"].values()) \
         + [v["best"] for v in folds["ab"].values()]
     if not all(math.isfinite(v) for v in numbers):

@@ -46,7 +46,7 @@ SIGNATURES = {
                     + [_P] * 10,
     "lstm_bwd_bf16": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
                      + [_P] * 10,
-    # K2's arguments (dgates: scratch), then x, wxT, D, dx, dwx, dbias
+    # K2's arguments (dgates: scratch), then x, wx, D, dx, dwx, dbias
     "lstm_bwd_fold_f32": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
                          + [_P] * 10 + [_P, _P, _I, _P, _P, _P],
     "lstm_bwd_fold_bf16": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
@@ -91,8 +91,8 @@ SIGNATURES = {
     # stream
     "moe_wgrad_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
     "moe_wgrad_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
-    # device, x, th, w, gate, gout, seed, N, D, E, V, tau, keep_prob, dx,
-    # dgate, dw, db, scratch, stream
+    # device, x, th, w (bf16: K6's packed image), gate, gout, seed, N, D,
+    # E, V, tau, keep_prob, dx, dgate, dw, db, scratch, stream
     "moe_bwd_wgrad_f32": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F] + [_P] * 6,
     "moe_bwd_wgrad_bf16": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F] + [_P] * 6,
 }
@@ -172,7 +172,8 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_config.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 2 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.lstm_bwd_config.restype = ctypes.c_int
-    lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 7
+    # device, T, B, H, P, D, bf16, store_bf16
+    lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 8
     lib.lstm_bwd_fold_scratch_floats.restype = ctypes.c_longlong
     # device, S, L, B, H, P, has_proj, bf16 (K13: and store_bf16) ->
     # {rows, tiles, tiles a wave, waves, lag, bytes}, scratch floats
@@ -181,7 +182,8 @@ def library() -> ctypes.CDLL:
     lib.lstm_stack_fwd_config.restype = ctypes.c_int
     lib.lstm_stack_bwd_config.argtypes = [_I] * 9 + [_LL, _LL]
     lib.lstm_stack_bwd_config.restype = ctypes.c_int
-    lib.moe_bwd_wgrad_scratch_floats.argtypes = [_I] * 4
+    # device, N, D, E, V, bf16
+    lib.moe_bwd_wgrad_scratch_floats.argtypes = [_I] * 6
     lib.moe_bwd_wgrad_scratch_floats.restype = ctypes.c_longlong
     return lib
 

@@ -63,6 +63,16 @@
 // (the pair of blocks then waits for each other every chunk), so they are
 // not used.  Deterministic: fixed sums, no atomics.
 //
+// K7's first stage (moe_bwd_wgrad.cu) is this body with two changes that
+// leave dx and dgate bit for bit K6's: dz goes to a scratch whose rows are
+// `ldz` apart (E·V rounded up to 8, 16-byte aligned rows for the copy
+// engine), and the blocks of slice 0 also write db's partials: per 64-row
+// tile and column, the float32 sum of the unrounded dz over the tile's rows
+// (in each warp over its 8 rows by three exchanges, ((r0 + r1) + (r2 + r3))
+// + ((r4 + r5) + (r6 + r7)); then the 8 warps' sums in warp order, by 64
+// threads while the next chunk's products run), which a last pass adds
+// over the tiles (wg_product.cuh's group_sum order).
+//
 // float32: the FMA tile product of tile_product.cuh (no TF32), one block a
 // (row tile, 128 columns of D) looping over the experts (moe_bwd_kernel).
 
@@ -216,11 +226,32 @@ constexpr int kUnits = kPerLane / 8;           // in 16-byte units of bf16
 // same
 __host__ __device__ constexpr int bwd_ni(int d) { return d <= 256 ? 64 : 160; }
 
-// W stages, dz slots, the gout tile [64][V] float32, the barriers; 1 KB
-// of slack for alignment
-inline size_t bwd_wg_smem(int ni, int v) {
+constexpr int kWarpSums = 8 * 64;               // db: a chunk's column sums of 8 warps
+
+// W stages, dz slots, the gout tile [64][V] float32, the barriers, with
+// `db` two chunks' warp sums; 1 KB of slack for alignment
+inline size_t bwd_wg_smem(int ni, int v, bool db) {
   return 1024 + (size_t)kSlots * (4 * ni * kSwRow + kDzSlot) +
-         (size_t)kWgRows * v * sizeof(float) + 2 * kSlots * sizeof(uint64_t);
+         (size_t)kWgRows * v * sizeof(float) + 2 * kSlots * sizeof(uint64_t) +
+         (db ? 2 * kWarpSums * sizeof(float) : 0);
+}
+
+// The sums of one 8-column unit's unrounded dz over the 8 rows of a warp
+// (row = lane / 4; the lanes of one part, lane % 4, hold the same columns):
+// three exchanges, each keeping half of the columns, so that lane l ends
+// with column 4 ((l >> 2) & 1) + 2 ((l >> 3) & 1) + ((l >> 4) & 1) of the
+// unit, summed ((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7)) (an add of
+// two lanes gives the same sum on both: float addition commutes)
+__device__ __forceinline__ float unit_column_sum(const float (&v)[8], int lane) {
+  const bool h1 = lane & 4, h2 = lane & 8, h3 = lane & 16;
+  float s4[4], s2[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    s4[i] = (h1 ? v[4 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, h1 ? v[i] : v[4 + i], 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    s2[i] = (h2 ? s4[2 + i] : s4[i]) + __shfl_xor_sync(0xffffffffu, h2 ? s4[i] : s4[2 + i], 8);
+  return (h3 ? s2[1] : s2[0]) + __shfl_xor_sync(0xffffffffu, h3 ? s2[0] : s2[1], 16);
 }
 
 // One thread in the dz stage: row `row` of the block, columns k = 64c + 16
@@ -370,13 +401,14 @@ __device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8
 // complete and written at once; the first and the last go to lane part 0
 // of the row, which joins them in lane order to the expert carried from
 // the previous chunk.  The order of every sum is fixed.
-template <bool kEmit>
+template <bool kEmit, bool kDb>
 __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st, const Ahead& ah,
                                          const __nv_bfloat16* __restrict__ th,
                                          const float* __restrict__ gate, const float* gs,
                                          float* __restrict__ dgate,
-                                         __nv_bfloat16* __restrict__ dz_out, int experts, int v,
-                                         float tau, bool dropout, uint32_t thr, float inv_keep) {
+                                         __nv_bfloat16* __restrict__ dz_out, int ldz,
+                                         float* wsum, int experts, int v, float tau,
+                                         bool dropout, uint32_t thr, float inv_keep) {
   const int kk = experts * v, kb = c * 64 + st.part * kPerLane;
   const int lane = threadIdx.x & 31, base = lane & ~(kLanesPerRow - 1);
   const bool live = st.ok && kb < kk;
@@ -405,6 +437,7 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
     const int k0 = kb + 8 * u;
     const uint32_t hx = st.hrow + (uint32_t)k0 * kHashCol;
     uint32_t words[4] = {0u, 0u, 0u, 0u};
+    float dzf[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     const bool unit = live && k0 < kk;
     if (unit) {
       float t[8];
@@ -420,7 +453,6 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
 #pragma unroll
         for (int i = 0; i < 8; ++i) t[i] = k0 + i < kk ? __bfloat162float(trow[k0 + i]) : 0.0f;
       }
-      float dzf[8];
       if (wide && dropout)
         dz_unit_wide<true>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr, inv_keep);
       else if (wide)
@@ -436,8 +468,11 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
     }
     const uint4 packed = make_uint4(words[0], words[1], words[2], words[3]);
     *reinterpret_cast<uint4*>(slot + sw128_offset(st.row, st.part * kUnits + u)) = packed;
+    if (kDb && wsum != nullptr)
+      wsum[(threadIdx.x / 32) * 64 + st.part * kPerLane + 8 * u + 4 * ((lane >> 2) & 1) +
+           2 * ((lane >> 3) & 1) + ((lane >> 4) & 1)] = unit_column_sum(dzf, lane);
     if (kEmit && unit) {
-      __nv_bfloat16* drow = dz_out + (size_t)st.nn * kk + k0;
+      __nv_bfloat16* drow = dz_out + (size_t)st.nn * ldz + k0;
       if (vec) {
         *reinterpret_cast<uint4*>(drow) = packed;
       } else {
@@ -508,7 +543,7 @@ __device__ __forceinline__ void store_dx(const float (&acc)[NI / 2], float* __re
 // has no third warpgroup: 256 threads may use 255 registers each).  Thread
 // 0 keeps the W ring full: chunk c + 2 goes into stage c % 2 once both
 // blocks' warps released chunk c.
-template <int NI, bool kEmit>
+template <int NI, bool kEmit, bool kDb>
 __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
     const __nv_bfloat16* __restrict__ th,  // [N, E·V]
     const __nv_bfloat16* __restrict__ wp,  // [slices][chunks][4 NI][64], swizzled
@@ -518,7 +553,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
     int n, int d, int experts, int v, float tau, float keep_prob,
     float* __restrict__ dx,                // [N, D]
     float* __restrict__ dgate,             // [N, E]
-    __nv_bfloat16* __restrict__ dz_out) {  // [N, E·V] (K6)
+    __nv_bfloat16* __restrict__ dz_out,    // [N, ldz] (K6, K7)
+    int ldz,
+    float* __restrict__ db_part) {         // [row tiles, E·V] (K7)
   constexpr uint32_t kStage = 4 * NI * kSwRow;
   constexpr int kRegs = NI / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -527,8 +564,10 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
   float* gs = reinterpret_cast<float*>(dzs + kSlots * kDzSlot);
   uint64_t* full = reinterpret_cast<uint64_t*>(gs + kWgRows * v);
   uint64_t* empty = full + kSlots;
+  float* wsums = reinterpret_cast<float*>(empty + kSlots);  // [2][8 warps][64]
   const int kk = experts * v, chunks = cdiv(kk, 64);
   const int n0 = blockIdx.x * kWgRows, slice = blockIdx.y;
+  const bool db = kDb && slice == 0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const unsigned char* src =
       reinterpret_cast<const unsigned char*>(wp) + (size_t)slice * chunks * kStage;
@@ -591,10 +630,20 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
       }
       wg_commit();
     }
+    if (db && c >= 0 && tid < 64) {
+      // chunk c's column sums, made by the last step's dz stage, in warp order
+      const float* w = wsums + (c & 1) * kWarpSums;
+      float sum = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sum += w[q * 64 + tid];
+      if (c * 64 + tid < kk) db_part[(size_t)blockIdx.x * kk + c * 64 + tid] = sum;
+    }
     if (c + 1 < chunks) {
-      // slot (c + 1) % 2 was read by chunk c - 1, done before the last barrier
-      dz_chunk<kEmit>(c + 1, dzs + ((c + 1) & 1) * kDzSlot, st, ahead, th, gate, gs, dgate,
-                      dz_out, experts, v, tau, dropout, thr, inv_keep);
+      // slot (c + 1) % 2 was read by chunk c - 1, done before the last
+      // barrier; so were the warp sums of chunk c - 1
+      dz_chunk<kEmit, kDb>(c + 1, dzs + ((c + 1) & 1) * kDzSlot, st, ahead, th, gate, gs, dgate,
+                           dz_out, ldz, db ? wsums + ((c + 1) & 1) * kWarpSums : nullptr,
+                           experts, v, tau, dropout, thr, inv_keep);
       if (c + 2 < chunks) fetch_ahead(ahead, th, gate, st, c + 2, experts, v);
     }
     if (c >= 0) {
@@ -618,20 +667,20 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
   store_dx<NI>(acc1, dx, n0, r0, cb, col0 + NI, n, d);
 }
 
-template <int NI, bool kEmit>
+template <int NI, bool kEmit, bool kDb>
 cudaError_t launch_bwd_wgmma(const void* th, const void* wp, const void* gate, const void* gout,
                              const void* seed, int n, int d, int experts, int v, float tau,
-                             float keep_prob, void* dx, void* dgate, void* dz,
-                             cudaStream_t stream) {
-  const size_t smem = bwd_wg_smem(NI, v);
-  auto kernel = moe_bwd_wgmma<NI, kEmit>;
+                             float keep_prob, void* dx, void* dgate, void* dz, int ldz,
+                             float* db_part, cudaStream_t stream) {
+  const size_t smem = bwd_wg_smem(NI, v, kDb);
+  auto kernel = moe_bwd_wgmma<NI, kEmit, kDb>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(n, kWgRows), cdiv(d, 4 * NI));
   kernel<<<grid, kWgThreads, smem, stream>>>(
       (const __nv_bfloat16*)th, (const __nv_bfloat16*)wp, (const float*)gate, (const float*)gout,
       (const int32_t*)seed, n, d, experts, v, tau, keep_prob, (float*)dx, (float*)dgate,
-      (__nv_bfloat16*)dz);
+      (__nv_bfloat16*)dz, ldz, db_part);
   return cudaGetLastError();
 }
 
@@ -644,15 +693,19 @@ int launch_bf16(int device, const void* th, const void* wp, const void* gate, co
   if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
   if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int kk = experts * v;
   if (bwd_ni(d) == 64)
-    return dz != nullptr ? launch_bwd_wgmma<64, true>(th, wp, gate, gout, seed, n, d, experts, v,
-                                                      tau, keep_prob, dx, dgate, dz, s)
-                         : launch_bwd_wgmma<64, false>(th, wp, gate, gout, seed, n, d, experts,
-                                                       v, tau, keep_prob, dx, dgate, dz, s);
-  return dz != nullptr ? launch_bwd_wgmma<160, true>(th, wp, gate, gout, seed, n, d, experts, v,
-                                                     tau, keep_prob, dx, dgate, dz, s)
-                       : launch_bwd_wgmma<160, false>(th, wp, gate, gout, seed, n, d, experts, v,
-                                                      tau, keep_prob, dx, dgate, dz, s);
+    return dz != nullptr
+               ? launch_bwd_wgmma<64, true, false>(th, wp, gate, gout, seed, n, d, experts, v,
+                                                   tau, keep_prob, dx, dgate, dz, kk, nullptr, s)
+               : launch_bwd_wgmma<64, false, false>(th, wp, gate, gout, seed, n, d, experts, v,
+                                                    tau, keep_prob, dx, dgate, dz, kk, nullptr,
+                                                    s);
+  return dz != nullptr
+             ? launch_bwd_wgmma<160, true, false>(th, wp, gate, gout, seed, n, d, experts, v, tau,
+                                                  keep_prob, dx, dgate, dz, kk, nullptr, s)
+             : launch_bwd_wgmma<160, false, false>(th, wp, gate, gout, seed, n, d, experts, v,
+                                                   tau, keep_prob, dx, dgate, dz, kk, nullptr, s);
 }
 
 }  // namespace
@@ -669,3 +722,21 @@ int launch_bf16(int device, const void* th, const void* wp, const void* gate, co
 extern "C" int moe_bwd_f32(MOE_BWD_ARGS) { return launch_f32(MOE_BWD_PASS); }
 
 extern "C" int moe_bwd_bf16(MOE_BWD_ARGS) { return launch_bf16(MOE_BWD_PASS); }
+
+// K7's first stage (moe_bwd_wgrad.cu): K6's bf16 body with dz rows ldz
+// apart (a multiple of 8, at least E·V) and db's partials [ceil(N / 64),
+// E·V]; N > 0
+extern "C" int moe_bwd_dz_db_bf16(MOE_BWD_ARGS, int ldz, float* db_part) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0 || n <= 0 || dz == nullptr ||
+      ldz < experts * v || ldz % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bwd_ni(d) == 64)
+    return launch_bwd_wgmma<64, true, true>(th, w, gate, gout, seed, n, d, experts, v, tau,
+                                            keep_prob, dx, dgate, dz, ldz, db_part, s);
+  return launch_bwd_wgmma<160, true, true>(th, w, gate, gout, seed, n, d, experts, v, tau,
+                                           keep_prob, dx, dgate, dz, ldz, db_part, s);
+}

@@ -1,5 +1,5 @@
-// K7: the MoE head's whole backward in one kernel: dx and dgate as K6, and
-// the expert weight and bias gradients from the same dz.
+// K7: the MoE head's whole backward: dx and dgate as K6, and the expert
+// weight and bias gradients from the same dz.
 //
 // Replaces the TPU kernel lstm_ctc_tpu/ops/moe_pallas.py _bwd_kernel_wgrad
 // (:311-333), launched by _pallas_bwd_wgrad (:428) from fused_bwd
@@ -14,38 +14,57 @@
 //   dw    = x (compute dtype)ᵀ · dz (compute dtype)            float32 sums
 //   db    = sum_n dz                                          float32
 //
-// dz is computed once per element of a block and used for dx and dw; no dz
-// is written to memory.
-//
 // What bounds it on the H100: the two products, 2·N·D·E·V each, 190.2
 // GFLOP at N = 14336, D = 640, E = V = 72 (0.19 ms on the bf16 tensor
 // cores), against ~213 MB of bytes (th 149 MB, x and dx 37 MB each; 0.064
 // ms).
 //
-// Design.  On the TPU the grid runs in order, so one dw in VMEM carries
-// the sum over every row block.  Here blocks run in parallel: dx sums over
-// the experts and dw over the rows, so one of the two sums must cross
-// blocks.  One block owns a slice of kM columns of D and a group of
-// kGroupRows rows (kM-row tiles), and walks the experts in the outer loop
-// and its row tiles in the inner one:
+// Why no one pass.  On the TPU the grid runs in order, so one dw in VMEM
+// carries the sum over every row block.  Here blocks run in parallel: dx
+// sums over the experts and dw over the rows, so one of the two sums must
+// cross blocks.  dw is [D, E·V] float32 (13.3 MB at the flagship), more
+// than the SMs' shared memory holds beside the operands, so a deterministic
+// one-pass kernel must either make dz again for each slice of D or write a
+// dw partial for each row group, which is what the float32 body below does
+// and pays for both.
+//
+// bf16, the main path: two stages, as K3 is K2's launch and its products.
+//   1. K6's bf16 body (moe_bwd.cu moe_bwd_dz_db_bf16): dz made once per
+//      element, dx and dgate bit for bit K6's; dz written in bf16 to a
+//      scratch with rows E·V rounded up to 8 apart; and db's partials, the
+//      float32 sums of the unrounded dz per 64-row tile, which a last pass
+//      adds over the tiles in wg_product.cuh's group_sum order.
+//   2. dw = x(bf16)ᵀ · dz(bf16) on wg_product.cuh's engine (MN-major: both
+//      operands' rows are the depth), x cast to bf16 rows padded to 8 by one
+//      pass; the depth split over blocks where the (D/128)·(E·V/128) tiles
+//      cannot fill the card, the partials added in split order.
+// No atomics: the results do not depend on the schedule.
+//
+// float32: one kernel.  One block owns a slice of kM columns of D and a
+// group of kGroupRows rows (kM-row tiles), and walks the experts in the
+// outer loop and its row tiles in the inner one:
 //   * dx of its rows and columns accumulates over the experts in shared
-//     memory (float32, each element by the thread that holds it in the
-//     tile product);
+//     memory (each element by the thread that holds it in the tile product);
 //   * dw of its columns and expert e accumulates over its row tiles in
 //     registers and is written once per expert, as the group's partial;
 //   * a second pass (common.cuh's split_sum_kernel) adds the groups'
 //     partials of dw and db in a fixed order.
-// No atomics: the result does not depend on the schedule.  For each (row
-// tile, expert) the block stages xᵀ of its slice and computes the dz tile
-// (rounded to the compute dtype) into shared memory, with W_eᵀ of its
-// slice staged once per expert; the products are tile_product.cuh's (bf16:
-// ldmatrix + mma.sync; float32: FMA, no TF32).  Like K6, every slice of a
-// row tile recomputes dz from th, which then comes from L2, and the
-// blocks of slice 0 write dgate and sum db (each thread one column's sum
-// over its rows, the 16 sums of a column added in a fixed order).  The
-// partials take groups · D · E·V floats (28 · 13.3 MB at the flagship).
+// For each (row tile, expert) the block stages xᵀ of its slice and
+// computes the dz tile into shared memory, with W_eᵀ of its slice staged
+// once per expert; the products are tile_product.cuh's FMA (no TF32).
+// Every slice of a row tile recomputes dz from th, which then comes from
+// L2, and the blocks of slice 0 write dgate and sum db (each thread one
+// column's sum over its rows, the 16 sums of a column added in a fixed
+// order).  The partials take groups · D · E·V floats.
 
-#include "tile_product.cuh"
+#include "wg_product.cuh"
+
+// K7's first stage: K6's bf16 body with dz rows `ldz` apart and db's
+// partials per 64-row tile (moe_bwd.cu)
+extern "C" int moe_bwd_dz_db_bf16(int device, const void* th, const void* w, const void* gate,
+                                  const void* gout, const void* seed, int n, int d, int experts,
+                                  int v, float tau, float keep_prob, void* dx, void* dgate,
+                                  void* dz, void* stream, int ldz, float* db_part);
 
 namespace {
 
@@ -63,21 +82,20 @@ struct Plan {
   size_t dxs, ws, dzs, xts, zs, dbs, bytes;
 };
 
-template <typename T>
 __host__ __device__ Plan plan(int v) {
-  constexpr int kM = Tile<T>::kRows;
+  constexpr int kM = Tile<float>::kRows;
   Plan p;
-  p.dxl = layout<T>(v, kM);
-  p.dwl = layout<T>(kM, v);  // its B (dz) rows: dwl.ldw == dxl.ldx
+  p.dxl = layout<float>(v, kM);
+  p.dwl = layout<float>(kM, v);  // its B (dz) rows: dwl.ldw == dxl.ldx
   size_t o = 0;
   p.dxs = o;
   o += align16(sizeof(float) * (kGroupRows / kM) * kM * p.dxl.ldz);
   p.ws = o;
-  o += align16(sizeof(T) * p.dxl.dp * p.dxl.ldw);
+  o += align16(sizeof(float) * p.dxl.dp * p.dxl.ldw);
   p.dzs = o;
-  o += align16(sizeof(T) * kM * p.dxl.ldx);
+  o += align16(sizeof(float) * kM * p.dxl.ldx);
   p.xts = o;
-  o += align16(sizeof(T) * kM * p.dwl.ldx);
+  o += align16(sizeof(float) * kM * p.dwl.ldx);
   p.zs = o;
   o += align16(sizeof(float) * kM * p.dwl.ldz);
   p.dbs = o;
@@ -86,11 +104,10 @@ __host__ __device__ Plan plan(int v) {
   return p;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
     const float* __restrict__ x,     // [N, D] float32
-    const T* __restrict__ th,        // [N, E·V] compute dtype
-    const T* __restrict__ w,         // [D, E·V] compute dtype
+    const float* __restrict__ th,    // [N, E·V]
+    const float* __restrict__ w,     // [D, E·V]
     const float* __restrict__ gate,  // [N, E]
     const float* __restrict__ gout,  // [N, V]
     const int32_t* __restrict__ seed_dev,  // [1] (read if dropout)
@@ -99,15 +116,15 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
     float* __restrict__ dgate,       // [N, E]
     float* __restrict__ dw_part,     // [groups, D, E·V]
     float* __restrict__ db_part) {   // [groups, E·V]
-  constexpr int kM = Tile<T>::kRows;
+  constexpr int kM = Tile<float>::kRows;
   constexpr int kTiles = kGroupRows / kM;
   constexpr int kCols = kMaxV / kRowLanes;  // dz columns per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Plan p = plan<T>(v);
+  const Plan p = plan(v);
   float* dxs = reinterpret_cast<float*>(smem_raw + p.dxs);
-  T* ws = reinterpret_cast<T*>(smem_raw + p.ws);
-  T* dzs = reinterpret_cast<T*>(smem_raw + p.dzs);
-  T* xts = reinterpret_cast<T*>(smem_raw + p.xts);
+  float* ws = reinterpret_cast<float*>(smem_raw + p.ws);
+  float* dzs = reinterpret_cast<float*>(smem_raw + p.dzs);
+  float* xts = reinterpret_cast<float*>(smem_raw + p.xts);
   float* zs = reinterpret_cast<float*>(smem_raw + p.zs);
   float* dbs = reinterpret_cast<float*>(smem_raw + p.dbs);
   const int d0 = blockIdx.x * kM, group = blockIdx.y;
@@ -128,10 +145,10 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
     for (int i = threadIdx.x; i < kM * p.dxl.dp; i += kThreads) {
       const int j = i / p.dxl.dp, c = i - j * p.dxl.dp;
       ws[c * p.dxl.ldw + j] = (c < v && d0 + j < d) ? w[(size_t)(d0 + j) * ev + e * v + c]
-                                                    : Dtype<T>::from_float(0.0f);
+                                                    : 0.0f;
     }
     float db_sum[kCols] = {};
-    typename Product<T>::Acc acc_dw;
+    FmaAcc acc_dw;
     acc_dw.zero();
     for (int t = 0; t < tiles; ++t) {
       const int n0 = g0 + t * kM;
@@ -139,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
       for (int i = threadIdx.x; i < kM * kM; i += kThreads) {
         const int r = i / kM, j = i - r * kM;
         const float val = (n0 + r < n && d0 + j < d) ? x[(size_t)(n0 + r) * d + d0 + j] : 0.0f;
-        xts[j * p.dwl.ldx + r] = Dtype<T>::from_float(val);
+        xts[j * p.dwl.ldx + r] = val;
       }
       // dz of the row tile for expert e, dgate[:, e] and db's sums
       for (int r0 = 0; r0 < kM; r0 += kRowsPerPass) {
@@ -153,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
           if (c < p.dxl.dp) {
             float dz = 0.0f;
             if (row_ok && c < v) {
-              const float tt = Dtype<T>::to_float(th[(size_t)nn * ev + e * v + c]);
+              const float tt = th[(size_t)nn * ev + e * v + c];
               const float q = gout[(size_t)nn * v + c];
               float a = tau * tt;
               dz = g * q * (tau * (1.0f - tt * tt));
@@ -166,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
               dg = fmaf(q, a, dg);
               db_sum[jc] += dz;
             }
-            dzs[r * p.dxl.ldx + c] = Dtype<T>::from_float(dz);
+            dzs[r * p.dxl.ldx + c] = dz;
           }
         }
 #pragma unroll
@@ -175,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
         if (lead && row_ok && rlane == 0) dgate[(size_t)nn * experts + e] = dg;
       }
       __syncthreads();
-      typename Product<T>::Acc acc_dx;
+      FmaAcc acc_dx;
       acc_dx.zero();
       acc_dx.product(dzs, ws, 0, p.dxl.dp, p.dxl);
       acc_dx.accumulate(dxs + t * dx_tile, p.dxl);
@@ -214,16 +231,15 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_wgrad_kernel(
   }
 }
 
-__host__ size_t scratch_floats(int n, int d, int experts, int v) {
+size_t f32_scratch_floats(int n, int d, int experts, int v) {
   const size_t groups = (size_t)cdiv(n, kGroupRows);
   return groups * ((size_t)d + 1) * experts * v;
 }
 
-template <typename T>
-int launch(int device, const void* x, const void* th, const void* w, const void* gate,
-           const void* gout, const void* seed, int n, int d, int experts, int v,
-           float tau, float keep_prob, void* dx, void* dgate, void* dw, void* db,
-           void* scratch, void* stream) {
+int launch_f32(int device, const void* x, const void* th, const void* w, const void* gate,
+               const void* gout, const void* seed, int n, int d, int experts, int v, float tau,
+               float keep_prob, void* dx, void* dgate, void* dw, void* db, void* scratch,
+               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0 || n < 0) return cudaErrorInvalidValue;
@@ -233,12 +249,12 @@ int launch(int device, const void* x, const void* th, const void* w, const void*
   float* db_part = dw_part + (size_t)groups * d * ev;
   const cudaStream_t s = (cudaStream_t)stream;
   if (groups > 0) {
-    const Plan p = plan<T>(v);
-    err = set_smem(moe_bwd_wgrad_kernel<T>, p.bytes);
+    const Plan p = plan(v);
+    err = set_smem(moe_bwd_wgrad_kernel, p.bytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid((d + Tile<T>::kRows - 1) / Tile<T>::kRows, groups);
-    moe_bwd_wgrad_kernel<T><<<grid, kThreads, p.bytes, s>>>(
-        (const float*)x, (const T*)th, (const T*)w, (const float*)gate,
+    const dim3 grid((d + Tile<float>::kRows - 1) / Tile<float>::kRows, groups);
+    moe_bwd_wgrad_kernel<<<grid, kThreads, p.bytes, s>>>(
+        (const float*)x, (const float*)th, (const float*)w, (const float*)gate,
         (const float*)gout, (const int32_t*)seed, n, d, experts, v, tau, keep_prob,
         (float*)dx, (float*)dgate, dw_part, db_part);
     err = cudaGetLastError();
@@ -251,10 +267,128 @@ int launch(int device, const void* x, const void* th, const void* w, const void*
   return cudaGetLastError();
 }
 
+// ---- bf16: K6's body, then the engine ----
+
+// dw = x(bf16)ᵀ · dz(bf16), MN-major: tile = tm·tiles_n + tn, chunk k the
+// rows 64 k .. 64 k + 63; split `split` writes its partial to out +
+// split·D·E·V
+struct DwOp {
+  static constexpr int kTrans = 1;
+  int tiles_n, chunks, splits, d, kk;
+  float* out;  // [splits, D, E·V]
+
+  __device__ void range(int, int split, int& k0, int& k1) const {
+    split_range(chunks, splits, split, k0, k1);
+  }
+  // x(bf16) [N, Dp] as (D, N, 1, 1): 64 columns of D, 64 rows
+  __device__ Coord a_box(int tile, int wg, int k) const {
+    return Coord{{kEngTile * (tile / tiles_n) + 64 * wg, 64 * k, 0, 0}};
+  }
+  // dz(bf16) [N, ldz] as (E·V, N, 1, 1): 64 columns of E·V, 64 rows
+  __device__ Coord b_box(int tile, int j, int k) const {
+    return Coord{{kEngTile * (tile % tiles_n) + 64 * j, 64 * k, 0, 0}};
+  }
+  __device__ void store(int tile, int split, const float (&acc)[64], const Frag& f) const {
+    const int tm = tile / tiles_n, tn = tile % tiles_n;
+    float* part = out + (size_t)split * d * kk;
+    const bool pairs = (kk & 1) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = kEngTile * tm + 64 * f.wg + f.row + 8 * h;
+      if (m >= d) continue;
+      float* row = part + (size_t)m * kk;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = kEngTile * tn + 8 * j + f.col;
+        if (c >= kk) continue;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+        } else {
+          row[c] = v0;
+          if (c + 1 < kk) row[c + 1] = v1;
+        }
+      }
+    }
+  }
+};
+
+// The bf16 path's scratch, in floats from a 256-byte aligned start: dz in
+// bf16 [N, ldz], x in bf16 [N, Dp], db's partials [ceil(N / 64), E·V],
+// dw's partials (more than one split only)
+struct Bf16Plan {
+  int ldz, dp, tiles, chunks, splits;
+  size_t dz, xb, db_part, dw_part, floats;
+};
+
+inline Bf16Plan bf16_plan(int n, int d, int experts, int v, int sms) {
+  Bf16Plan p;
+  const int kk = experts * v;
+  p.ldz = round8(kk);
+  p.dp = round8(d);
+  p.chunks = cdiv(n, 64);
+  p.tiles = cdiv(d, kEngTile) * cdiv(kk, kEngTile);
+  p.splits = engine_splits(p.tiles, p.chunks, sms);
+  size_t o = 0;
+  p.dz = o;
+  o += align64((size_t)n * p.ldz / 2);
+  p.xb = o;
+  o += align64((size_t)n * p.dp / 2);
+  p.db_part = o;
+  o += align64((size_t)p.chunks * kk);
+  p.dw_part = o;
+  if (p.splits > 1) o += align64((size_t)p.splits * d * kk);
+  p.floats = o + 64;  // slack for the alignment of the start
+  return p;
+}
+
+int launch_bf16(int device, const void* x, const void* th, const void* w, const void* gate,
+                const void* gout, const void* seed, int n, int d, int experts, int v, float tau,
+                float keep_prob, void* dx, void* dgate, void* dw, void* db, void* scratch,
+                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0 || n < 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int kk = experts * v;
+  if (n == 0) {
+    err = cudaMemsetAsync(dw, 0, sizeof(float) * d * kk, s);
+    return err != cudaSuccess ? err : cudaMemsetAsync(db, 0, sizeof(float) * kk, s);
+  }
+  const int sms = device_sms(device);
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const Bf16Plan p = bf16_plan(n, d, experts, v, sms);
+  float* base = (float*)(((uintptr_t)scratch + 255) & ~(uintptr_t)255);
+  __nv_bfloat16* dz = (__nv_bfloat16*)(base + p.dz);
+  __nv_bfloat16* xb = (__nv_bfloat16*)(base + p.xb);
+  float* db_part = base + p.db_part;
+  float* dw_part = p.splits > 1 ? base + p.dw_part : (float*)dw;
+
+  err = (cudaError_t)moe_bwd_dz_db_bf16(device, th, w, gate, gout, seed, n, d, experts, v, tau,
+                                        keep_prob, dx, dgate, dz, stream, p.ldz, db_part);
+  if (err != cudaSuccess) return err;
+  if ((err = sum_groups(db_part, p.chunks, kk, (float*)db, s)) != cudaSuccess) return err;
+  if ((err = cast_rows((const float*)x, n, d, p.dp, xb, s)) != cudaSuccess) return err;
+
+  CUtensorMap x_map, dz_map;
+  const uint64_t xrow = (uint64_t)p.dp * 2, zrow = (uint64_t)p.ldz * 2;
+  if ((err = bf16_map(&x_map, xb, {(uint64_t)d, (uint64_t)n, 1, 1},
+                      {xrow, xrow * n, xrow * n}, 64, 1)) != cudaSuccess)
+    return err;
+  if ((err = bf16_map(&dz_map, dz, {(uint64_t)kk, (uint64_t)n, 1, 1},
+                      {zrow, zrow * n, zrow * n}, 64, 1)) != cudaSuccess)
+    return err;
+  const DwOp op{cdiv(kk, kEngTile), p.chunks, p.splits, d, kk, dw_part};
+  err = run_engine(x_map, dz_map, op, p.tiles, p.splits, s);
+  if (err != cudaSuccess || p.splits == 1) return err;
+  return sum_splits(dw_part, p.splits, (size_t)d * kk, (float*)dw, sms, s);
+}
+
 }  // namespace
 
 // device, x, th, w, gate, gout, seed, N, D, E, V, tau, keep_prob, dx, dgate,
-// dw, db, scratch (moe_bwd_wgrad_scratch_floats), stream
+// dw, db, scratch (moe_bwd_wgrad_scratch_floats), stream; bf16: w is the
+// packed image of ops/moe_kernels.py bwd_pack (K6's)
 #define MOE_BWD_WGRAD_ARGS                                                      \
   int device, const void *x, const void *th, const void *w, const void *gate,  \
       const void *gout, const void *seed, int n, int d, int experts, int v,    \
@@ -264,14 +398,15 @@ int launch(int device, const void* x, const void* th, const void* w, const void*
   device, x, th, w, gate, gout, seed, n, d, experts, v, tau, keep_prob, dx,     \
       dgate, dw, db, scratch, stream
 
-extern "C" int moe_bwd_wgrad_f32(MOE_BWD_WGRAD_ARGS) {
-  return launch<float>(MOE_BWD_WGRAD_PASS);
-}
+extern "C" int moe_bwd_wgrad_f32(MOE_BWD_WGRAD_ARGS) { return launch_f32(MOE_BWD_WGRAD_PASS); }
 
-extern "C" int moe_bwd_wgrad_bf16(MOE_BWD_WGRAD_ARGS) {
-  return launch<__nv_bfloat16>(MOE_BWD_WGRAD_PASS);
-}
+extern "C" int moe_bwd_wgrad_bf16(MOE_BWD_WGRAD_ARGS) { return launch_bf16(MOE_BWD_WGRAD_PASS); }
 
-extern "C" long long moe_bwd_wgrad_scratch_floats(int n, int d, int experts, int v) {
-  return (long long)scratch_floats(n, d, experts, v);
+// Scratch floats K7 needs on ``device`` at this shape and compute dtype; -1
+// if the device's SM count cannot be read
+extern "C" long long moe_bwd_wgrad_scratch_floats(int device, int n, int d, int experts, int v,
+                                                  int bf16) {
+  if (!bf16) return (long long)f32_scratch_floats(n, d, experts, v);
+  const int sms = device_sms(device);
+  return sms <= 0 ? -1 : (long long)bf16_plan(n, d, experts, v, sms).floats;
 }

@@ -287,7 +287,7 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
     else:
         floats = lib.lstm_bwd_fold_scratch_floats(
             device.index or 0, time_steps, batch, num_units, out_dim, dim,
-            int(bf16))
+            int(bf16), int(store_dtype == torch.bfloat16))
         if floats < 0:
             raise RuntimeError("lstm_bwd_fold: the device's SM count cannot "
                                "be read")
@@ -303,10 +303,9 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
     if fold is None:
         launch = lib.lstm_bwd_bf16 if bf16 else lib.lstm_bwd_f32
     else:
-        wxt = wx.transpose(1, 2).contiguous()
         folded = (empty(2, batch, time_steps, dim, dtype=store_dtype),
                   empty(2, dim, h4), empty(2, h4))
-        args += [_ptr(x2), _ptr(wxt), dim] + [_ptr(t) for t in folded]
+        args += [_ptr(x2), _ptr(wx), dim] + [_ptr(t) for t in folded]
         launch = lib.lstm_bwd_fold_bf16 if bf16 else lib.lstm_bwd_fold_f32
     _build.check(launch(*args), "lstm_bwd_fold" if fold else "lstm_bwd")
     return dgates, dwh, dproj, dpeep, dc_in, dh_in, folded

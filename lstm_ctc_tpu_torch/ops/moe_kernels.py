@@ -16,8 +16,10 @@ dtype, and the backward reads it:
     as XLA computes them outside the Pallas kernel there;
   * ``wgrad_mode="twokernel"``: K8 gives dx and dgate, and K9 recomputes
     dz for dw and db; no dz is written;
-  * ``wgrad_mode="kernel"``: K7 gives dx, dgate, dw and db in one launch,
-    from one dz; no dz is written.
+  * ``wgrad_mode="kernel"``: K7 gives dx, dgate, dw and db from one dz:
+    in bf16 K6's body writes dz once to a scratch and the product engine
+    (``csrc/wg_product.cuh``) makes dw from it; in float32 one kernel, no
+    dz written.
 
 The modes are the reference's ``LSTM_CTC_TPU_MOE_WGRAD`` values, chosen
 here by ``moe_wgrad_mode`` in nnet.config.
@@ -479,15 +481,17 @@ moe_mix_wgrad.launches = 0
 
 def moe_mix_backward_wgrad(x, th, w, gate, gout, seed, num_experts: int,
                            tau: float, keep_prob: float):
-    """K7: (dx, dgate, dw, db) in one launch; arguments and result as
-    ``moe_backward_wgrad_reference``."""
+    """K7: (dx, dgate, dw, db) in one call; arguments and result as
+    ``moe_backward_wgrad_reference``.  bf16: K6's body (dx and dgate bit
+    for bit K6's, dz once into a scratch, db's partials), then dw on the
+    product engine; float32: one kernel."""
     if x.device.type == "cpu":
         return moe_backward_wgrad_reference(x, th, w, gate, gout, seed,
                                             num_experts, tau, keep_prob)
     what = "moe_bwd_wgrad"
     n, d = x.shape
     v = _check(x, d, w.shape[1], num_experts, keep_prob, what,
-               (th, w, gate, gout, seed))
+               (th, w, gate, gout, seed), any_d=w.dtype == torch.bfloat16)
     cdt = _compute_dtype_of(w)
     cols = num_experts * v
     _expect(x, (n, d), torch.float32, "x", what)
@@ -500,9 +504,16 @@ def moe_mix_backward_wgrad(x, th, w, gate, gout, seed, num_experts: int,
     dgate = torch.empty(n, num_experts, device=x.device)
     dw = torch.empty(d, cols, device=x.device)
     db = torch.empty(cols, device=x.device)
-    scratch = torch.empty(lib.moe_bwd_wgrad_scratch_floats(n, d, num_experts,
-                                                           v),
-                          device=x.device)
+    bf16 = cdt == torch.bfloat16
+    floats = lib.moe_bwd_wgrad_scratch_floats(x.device.index or 0, n, d,
+                                              num_experts, v, int(bf16))
+    if floats < 0:
+        raise RuntimeError("moe_bwd_wgrad: the device's SM count cannot be "
+                           "read")
+    scratch = torch.empty(floats, device=x.device)
+    if bf16:  # the first stage is K6's body, which reads W's packed image
+        w = derived([w], ("bwd pack", num_experts),
+                    lambda: bwd_pack(w, num_experts))
     launch = lib.moe_bwd_wgrad_bf16 if cdt == torch.bfloat16 \
         else lib.moe_bwd_wgrad_f32
     err = launch(x.device.index or 0, x.data_ptr(), th.data_ptr(),

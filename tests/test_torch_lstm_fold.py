@@ -371,3 +371,37 @@ def test_kernel_steps_replay_on_gpu_bf16(cuda):
     assert bool(((got[0].float() - dx2.float()).abs()
                  <= bf16_step(dx2) + 2.0 ** -20 * terms).all())
     assert ratio(got[1], dwx) <= 1e-3 and ratio(got[2], dbias) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim", [36, 120, 1000])
+def test_kernel_input_side_edge_shapes_on_gpu_bf16(cuda, dim, store):
+    """K3's bf16 input side on the product engine at 200 rows a direction
+    (B = 5, T = 40: no multiple of 64), input widths of one and eight 128-
+    column tiles and one not a multiple of 8, with dgates stored in bf16
+    and in float32 (cast to bf16 for the products): over the kernel's own
+    dgates, dx within one bf16 rounding step plus 2^-20 of its terms' sum
+    (float32 store: ratio <= 1e-3), dwx and dbias ratio <= 1e-3; and two
+    launches on the same inputs bit-equal."""
+    args = fold_args(10, cuda, dtype=torch.bfloat16, store=store, batch=5,
+                     time_steps=40, dim=dim)
+    got = lstm_kernels.lstm_layer_backward_fold(*args, store_dtype=store,
+                                                steps=True)
+    again = lstm_kernels.lstm_layer_backward_fold(*args, store_dtype=store,
+                                                  steps=True)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert (g is None) == (a is None)
+        if g is not None:
+            assert torch.equal(g, a)
+    dx2, dwx, dbias = cells.fold_input_side(args[0], args[1], got[6], store)
+    assert got[0].dtype == store
+    if store == torch.bfloat16:
+        terms = cells.fold_input_side(args[0], args[1].abs(), got[6].abs(),
+                                      torch.float32)[0]
+        assert bool(((got[0].float() - dx2.float()).abs()
+                     <= bf16_step(dx2) + 2.0 ** -20 * terms).all())
+    else:
+        assert ratio(got[0], dx2) <= 1e-3
+    assert ratio(got[1], dwx) <= 1e-3 and ratio(got[2], dbias) <= 1e-3

@@ -344,6 +344,35 @@ def test_single_kernel_backward_matches_plain_on_gpu(cuda, dtype, keep_prob,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 65, 150, 1100])
+@pytest.mark.parametrize("e,v,d", [(1, 8, 40), (5, 7, 120), (3, 128, 1000),
+                                   (4, 72, 1000)])
+def test_single_kernel_backward_edge_shapes_on_gpu(cuda, n, e, v, d):
+    """bf16 K7 (K6's body, then the dw product) at ragged row counts, E·V
+    not a multiple of 8, D of one and of two dx slices, keep 0.9: dx and
+    dgate equal K6's bit for bit, the rest within test_single_kernel_
+    backward_matches_plain_on_gpu's bounds, and two calls on the same
+    inputs bit-equal."""
+    case = make_case(9, n=n, d=d, e=e, v=v)
+    x, w32, b, gate, gout = (torch.from_numpy(a).to(cuda) for a in case)
+    w = w32.to(torch.bfloat16).contiguous()
+    seed = torch.tensor([SEED], dtype=torch.int32, device=cuda)
+    args = (seed, e, TAU, 0.9)
+    _, th = moe_kernels.moe_mix_forward_stash(x, w, b, gate, *args)
+    got = moe_kernels.moe_mix_backward_wgrad(x, th, w, gate, gout, *args)
+    again = moe_kernels.moe_mix_backward_wgrad(x, th, w, gate, gout, *args)
+    k6 = moe_kernels.moe_mix_backward(th, w, gate, gout, *args)
+    ref = moe_kernels.moe_backward_wgrad_reference(x, th, w, gate, gout,
+                                                   *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], k6[0]) and torch.equal(got[1], k6[1])
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert ratio(g, r) <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wgrad_mode", ["xla", "twokernel", "kernel"])
 def test_autograd_on_gpu_matches_cpu(cuda, wgrad_mode):
     """The autograd function through the kernels (f32, TF32 off) against
