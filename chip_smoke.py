@@ -28,9 +28,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      T=384 timed, and profiled for K1's and K4's shares of its device time;
   6. K10/K11 (CTC alpha and beta DP) against their plain versions at
      N=96 slots, T=400, S=301, ragged time and label lengths, repeated
-     labels, an infeasible pair and an empty label; timed in turns with
+     labels, an infeasible pair and an empty label (K11 bit-equal, also at
+     widths 1-1024 with resets across 32-step words); timed in turns with
      the plain versions (each also in us a step), and F.ctc_loss timed on
-     the same shapes as the library yardstick;
+     the same shapes as the library yardstick; then one shape each wrapper
+     module refuses, routed before any launch to the plain version (a CTC
+     lattice of 1101 positions, a MoE head of V=136 in bf16 and of D=1100
+     in float32, a bf16 BLSTM layer of H=P=384 in training): equal to the
+     plain version, one warning, no kernel launch;
   7. K2 (BLSTM layer backward) against its plain version at B=32, T=384,
      H=P=320, D=640, ragged lengths, with and without resets, float32
      (TF32 off) and bfloat16 (in bfloat16 also each step replayed from
@@ -55,7 +60,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and bfloat16, keep 1.0 and 0.9, each against its plain version (the
      backward ones fed the kernel's own stash); timed in turns with the
      plain versions, and the opt-in twokernel backward (K8 + K9) timed
-     against the default (K6 + one torch product for dw); beside K6,
+     against the default (K6 + one torch product for dw), bf16 K9's dw and
+     db equal to K7's bit for bit and one K9 call profiled by kernel
+     (stage 1 dz and db's partials, stage 2 K7's); beside K6,
      cuBLAS's bare product dz·Wᵀ (the product alone, not K6's function)
      and the time of W's two packed images (fwd_pack, bwd_pack: once a
      train step);
@@ -110,7 +117,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  16. K7 (the MoE head's whole backward in one kernel) against its plain
      version at phase 9's shapes, float32 and bfloat16, keep 1.0 and 0.9,
      fed K5's stash; timed in turns, beside the default (K6 + one torch
-     product) and the twokernel (K8 + K9) backwards;
+     product) and the twokernel (K8 + K9) backwards, and bf16 K9 on the same
+     inputs (dw and db equal to K7's bit for bit, timed in turns);
  17. the opt-in folds end to end: two train steps of the flagship MoE model
      from phase 10's weights with lstm_fold_dx = true and moe_wgrad_mode =
      kernel in nnet.config, through nnet_train, bf16: finite losses and the
@@ -160,7 +168,10 @@ plain input side over the kernel's own dgates, plus 2^-20 of the sum of
 its terms' magnitudes (two orders of one f32 sum differ by that much near
 a cancellation), dwx and dbias ratio <= 1e-3.
 K7: K6's rules for dx and dgate and K9's for dw and db (float32 ratio <=
-1e-4, bfloat16 <= 1e-2).  The float32 step with both folds against the same
+1e-4, bfloat16 <= 1e-2).  K11 bit-equal to its plain version; bf16 K9's dw
+and db equal to K7's bit for bit.  The routes: the CTC loss and gradient
+within 1e-4 · max(1, |plain|) of the CPU's plain versions; the MoE head and
+the BLSTM layer equal to their plain versions on the same tensors.  The float32 step with both folds against the same
 step without them: the loss within 1e-4 relative, the gradient under the
 nudge yardstick (in float32 the folds change only the order of sums).
 """
@@ -232,6 +243,8 @@ def say(msg: str) -> None:
 
 
 START = time.perf_counter()
+# the card's name and power limit, as nvidia-smi prints them (set by main)
+SMI = "not read"
 
 
 def phase(msg: str) -> None:
@@ -704,6 +717,32 @@ def dp_args(torch, pkg, logits, seq, labels, label_len):
             (lp_ext, time_mask, is_last, valid, skip_from, final))
 
 
+# K11's lane edges: widths that end inside, at and past a warp's 32 lanes
+BETA_EDGE_WIDTHS = (1, 2, 31, 32, 33, 64, 301, 1024)
+K11_FIRST_MS = 0.355  # K11's first design's time, PERF.md section 6
+
+
+def beta_edge_inputs(torch, device, width, rng, slots=3, steps=90):
+    """K11's arguments at one edge width: a time mask with gaps across
+    32-step words, resets (is_last) three times in two rows, at both edges
+    of a word and inside one, and random valid, skip_from and final bits."""
+    lp = np.log(rng.rand(steps, slots, width).astype(np.float32) + 1e-3)
+    time_mask = rng.rand(steps, slots) < 0.85
+    time_mask[:, 0] = np.arange(steps) < steps - 3
+    is_last = np.zeros((steps, slots), bool)
+    is_last[steps - 4, 0] = True
+    is_last[[31, 64, 80], 1] = True
+    is_last[[12, 32, 63], 2] = True
+    time_mask[[12, 31, 32, 63, 64, 80], 1:] = True
+    valid = rng.rand(slots, width) < 0.9
+    skip_from = rng.rand(slots, width) < 0.5
+    skip_from[:, max(width - 2, 0):] = False
+    final = rng.rand(slots, width) < 0.3
+    final[:, width - 1] = True
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (lp, time_mask, is_last, valid, skip_from, final)]
+
+
 def check_ctc_dp(torch, pkg, device, rng):
     ctc_kernels = pkg["ctc_kernels"]
     F = torch.nn.functional
@@ -722,12 +761,16 @@ def check_ctc_dp(torch, pkg, device, rng):
         ref = plain(*args)
         torch.cuda.synchronize()
         abs_err, rel_err, same = dp_errors(got, ref, ctc_kernels.NEG_INF)
+        equal = bool(torch.equal(got, ref))
         say("  %s max_abs %.3e  max |diff|/max(1,|plain|) %.3e  NEG_INF "
-            "places identical: %s" % (name, abs_err, rel_err, same))
+            "places identical: %s; bit-equal: %s"
+            % (name, abs_err, rel_err, same, equal))
         if not same or rel_err > CTC_TOL:
             fail("%s differs from its plain version (rel %.3e, bound %.0e, "
                  "NEG_INF places identical: %s)"
                  % (name, rel_err, CTC_TOL, same))
+        if name == "ctc_beta" and not equal:
+            fail("K11 is not bit-equal to its plain version")
         ms, plain_ms = time_in_turns(torch, lambda: kernel(*args),
                                      lambda: plain(*args), rounds=3)
         # bytes: lp_ext read and the result written once (masks are small
@@ -741,6 +784,23 @@ def check_ctc_dp(torch, pkg, device, rng):
                                  bound_ms))
         result[name] = {"max_abs_err": abs_err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms}
+    say("  K11 %.3f ms (%.3f us a step) against its first design's %.3f ms "
+        "(PERF.md), on %s" % (result["ctc_beta"]["ms"],
+                              result["ctc_beta"]["ms"] / steps * 1e3,
+                              K11_FIRST_MS, SMI))
+    # K11's lane edges, resets across 32-step words: bit-equal to plain
+    # (inputs from their own seed: the later phases' draws stay as they were)
+    edge_rng = np.random.RandomState(11)
+    for width in BETA_EDGE_WIDTHS:
+        args = beta_edge_inputs(torch, device, width, edge_rng)
+        got = ctc_kernels.ctc_beta(*args)
+        ref = ctc_kernels.beta_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail("K11 at width %d is not bit-equal to its plain version"
+                 % width)
+    say("  K11 at widths %s (resets across 32-step words): bit-equal to "
+        "the plain version" % (BETA_EDGE_WIDTHS,))
 
     # the library yardstick: F.ctc_loss (native CUDA), blank = V-1
     lp = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
@@ -774,6 +834,153 @@ def check_ctc_dp(torch, pkg, device, rng):
 def ratio(got, ref):
     return float((got.float() - ref.float()).abs().max()) / max(
         float(ref.float().abs().max()), 1e-30)
+
+
+def long_lattice_case(rng, time_steps=600, vocab=5, max_u=550, peak=6.0):
+    """Two rows on a lattice of 2·550 + 1 = 1101 positions, past K10/K11's
+    1024: labels without adjacent repeats (row 1: 300 labels in 500
+    frames), random logits peaked along one alignment of each row."""
+    label_len = np.array([max_u, 300], np.int32)
+    seq_len = np.array([time_steps, 500], np.int32)
+    labels = np.full((2, max_u), -1, np.int64)
+    logits = rng.randn(2, time_steps, vocab).astype(np.float32)
+    for b in range(2):
+        t = 0
+        for u in range(label_len[b]):
+            c = rng.randint(0, vocab - 1)
+            while u and c == labels[b, u - 1]:
+                c = rng.randint(0, vocab - 1)
+            labels[b, u] = c
+            logits[b, t, c] += peak
+            t += 1
+            if seq_len[b] - t > label_len[b] - u - 1 and rng.rand() < 0.15:
+                logits[b, t, vocab - 1] += peak
+                t += 1
+    return logits, seq_len, labels, label_len
+
+
+def routed(torch, fn, wrappers, match):
+    """Run ``fn`` (a shape the kernels refuse, on the card): its value, and
+    a failure unless the launch counts of ``wrappers`` stayed and one
+    warning matched ``match``."""
+    before = [w.launches for w in wrappers]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        value = fn()
+        torch.cuda.synchronize()
+    texts = [str(w.message) for w in seen if re.search(match, str(w.message))]
+    if [w.launches for w in wrappers] != before or len(texts) != 1:
+        fail("a route launched a kernel or did not warn once: %s, %s"
+             % ([w.launches for w in wrappers], texts))
+    return value, texts[0]
+
+
+def check_routes(torch, pkg, device, rng):
+    """One refused shape per wrapper module, decided before any launch:
+    each runs the plain version on the card, equal to it at the existing
+    bounds, warns once, and launches no kernel."""
+    from lstm_ctc_tpu_torch.models import blstm
+    cells, moe, mk, lk = (pkg["cells"], pkg["moe"], pkg["moe_kernels"],
+                          pkg["lstm_kernels"])
+    ck = pkg["ctc_kernels"]
+    # CTC, a lattice of 1101 positions: loss and gradient as on the CPU
+    logits, seq_len, labels, label_len = long_lattice_case(rng)
+    args = [torch.from_numpy(a) for a in (seq_len, labels, label_len)]
+    x = torch.from_numpy(logits).requires_grad_()
+    pkg["ctc"].ctc_loss(x, *args).sum().backward()
+    xg = torch.from_numpy(logits).to(device).requires_grad_()
+
+    def ctc_step():
+        loss = pkg["ctc"].ctc_loss(xg, *[a.to(device) for a in args])
+        loss.sum().backward()
+        return loss
+
+    loss, text = routed(torch, ctc_step, (ck.ctc_alpha, ck.ctc_beta),
+                        "S=1101")
+    ref = pkg["ctc"].ctc_loss(x.detach(), *args)
+    worst = max(float((loss.detach().cpu() - ref).abs().max()),
+                float((xg.grad.cpu() - x.grad).abs().max()))
+    say("  route, CTC S=1101: loss and gradient vs the plain version on the "
+        "CPU max |diff| %.3e (bound %.0e), no K10/K11 launch; warned: %s"
+        % (worst, CTC_TOL, text))
+    if worst > CTC_TOL * max(1.0, float(ref.abs().max())):
+        fail("the routed CTC differs from its plain version")
+
+    # MoE, V = 136 in bf16 and D = 1100 in float32, one training step each
+    wrappers = (mk.moe_mix_forward, mk.moe_mix_forward_stash,
+                mk.moe_mix_backward, mk.moe_mix_backward_noemit,
+                mk.moe_mix_wgrad, mk.moe_mix_backward_wgrad)
+    for d, v, dtype, match in ((640, 136, torch.bfloat16, "136 targets"),
+                               (1100, 72, torch.float32, "width of 1100")):
+        gen = torch.Generator().manual_seed(v)
+        params = {k: t.to(device).requires_grad_()
+                  for k, t in moe.init_moe(gen, d, v, 4).items()}
+        xm = torch.from_numpy(rng.randn(2048, d).astype(np.float32)).to(
+            device).requires_grad_()
+        gout = torch.from_numpy(rng.randn(2048, v).astype(np.float32)).to(
+            device)
+        leaves = [xm] + list(params.values())
+
+        def head(generator):
+            out = moe.apply_moe(params, xm, 4, 10.0, compute_dtype=dtype,
+                                keep_prob=0.9, generator=generator,
+                                wgrad_mode="twokernel")
+            return out, torch.autograd.grad(out, leaves, gout)
+
+        (out, grads), text = routed(
+            torch, lambda: head(torch.Generator(device).manual_seed(0)),
+            wrappers, match)
+        g = torch.Generator(device).manual_seed(0)
+        gate = cells.dropout(g, torch.softmax(
+            xm @ params["w_prior"] + params["b_prior"], -1), 0.9)
+        seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=g,
+                             device=device, dtype=torch.int32)
+        ref = mk.moe_mix_reference(xm, params["w_expert"],
+                                   params["b_expert"], gate, 4, 10.0, 0.9,
+                                   seed, dtype)
+        ref_grads = torch.autograd.grad(ref, leaves, gout)
+        same = bool(torch.equal(out, ref)) and all(
+            torch.equal(a, b) for a, b in zip(grads, ref_grads))
+        say("  route, MoE D=%d V=%d %s training step: output and gradients "
+            "equal to the plain version's: %s; no K4-K9 launch; warned: %s"
+            % (d, v, str(dtype).split(".")[-1], same, text))
+        if not same:
+            fail("the routed MoE head differs from its plain version")
+
+    # BLSTM, bf16 H = P = 384 in training
+    config = {"nnet_type": "blstm", "input_dim": 40, "num_layers": 1,
+              "num_neurons": 384, "num_projects": 384, "num_targets": 72,
+              "use_peepholes": True, "compute_dtype": "bfloat16"}
+    params = blstm.init_blstm(torch.Generator().manual_seed(384), config,
+                              device)
+    leaves = [t.requires_grad_() for t in params["fwd"][0].values()]
+    xb = torch.from_numpy(rng.randn(4, 50, 40).astype(np.float32)).to(device)
+    seq = torch.tensor([50, 31, 44, 12], device=device)
+
+    def layer():
+        logits, _, _ = blstm.apply_blstm(params, xb, seq, config, train=True)
+        return logits, torch.autograd.grad(logits.sum(), leaves)
+
+    (logits, grads), text = routed(
+        torch, layer, (lk.lstm_layer_forward, lk.lstm_layer_backward,
+                       lk.lstm_layer_backward_fold),
+        r"forward \(K1\) has no launch plan for a bfloat16 layer of "
+        "H=384 P=384")
+    fw, bw, _ = cells.bilstm_dual_scan(
+        params["fwd"][0], params["bwd"][0], xb,
+        cells.reverse_sequence(xb, seq), seq, blstm.FORGET_BIAS,
+        compute_dtype=torch.bfloat16)
+    cat = torch.cat([fw, cells.reverse_sequence(bw, seq)], dim=2)
+    ref = (cat.reshape(-1, 768) @ params["head"]["w"]
+           + params["head"]["b"]).reshape(logits.shape)
+    ref_grads = torch.autograd.grad(ref.sum(), leaves)
+    same = bool(torch.equal(logits, ref)) and all(
+        torch.equal(a, b) for a, b in zip(grads, ref_grads))
+    say("  route, BLSTM bf16 H=P=384 training: logits and gradients equal "
+        "to the plain recurrence's: %s; no K1/K2/K3 launch; warned: %s"
+        % (same, text))
+    if not same:
+        fail("the routed BLSTM layer differs from its plain version")
 
 
 def lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=False):
@@ -1605,6 +1812,15 @@ def check_moe_training(torch, pkg, device, rng):
             dx8, dgate8 = mk.moe_mix_backward_noemit(th, w, gate, gout, *args)
             dw, db = mk.moe_mix_wgrad(x, th, gate, gout, *args)
             ref_dw, ref_db = mk.moe_wgrad_reference(x, th, gate, gout, *args)
+            if dtype == torch.bfloat16:
+                # bf16 K9 makes K7's dz bits and db partials, then runs
+                # K7's second stage: (dw, db) equal K7's bit for bit
+                k7 = mk.moe_mix_backward_wgrad(x, th, w, gate, gout, *args)
+                if not (torch.equal(dw, k7[2]) and torch.equal(db, k7[3])):
+                    fail("K9 bf16 keep=%.1f: dw or db differ from K7's"
+                         % keep)
+                say("  K9 bfloat16 keep=%.1f: dw and db equal K7's bit for "
+                    "bit" % keep)
             torch.cuda.synchronize()
             pairs = {"out": (out, ref_out), "th": (th, ref_th),
                      "dx": (dx, ref_dx), "dgate": (dgate, ref_dgate),
@@ -1697,6 +1913,19 @@ def check_moe_training(torch, pkg, device, rng):
                     "bwd_pack %.3f ms"
                     % ((n, ev, ev, dim, bare,
                         result[("moe_bwd", dtype)]["ms"]) + tuple(pack_ms)))
+            k9 = result[("moe_wgrad", dtype)]
+            busy, split, whole = profiled_split(
+                torch, lambda: mk.moe_mix_wgrad(x, th, gate, gout, *args),
+                K9_KERNELS, (K9_KERNELS[0][0], K9_KERNELS[1][0])
+                if dtype == torch.bfloat16 else (K9_KERNELS[4][0],))
+            k9["device_split"] = split
+            first = (" against its first design's %.3f ms (PERF.md)"
+                     % K9_FIRST_MS if dtype == torch.bfloat16 else "")
+            say("  K9 %-8s %.3f ms%s, on %s; one profiled call, device %.3f "
+                "ms%s: %s"
+                % (name, k9["ms"], first, SMI, busy, "" if whole else
+                   " (INCOMPLETE: the profiler missed kernels in 3 tries)",
+                   ", ".join("%s %.4f" % kv for kv in split.items())))
             two_ms, default_ms = time_in_turns(torch, twokernel, default,
                                                rounds=3, kernel_reps=3)
             dw_default = default()[0]
@@ -1706,6 +1935,16 @@ def check_moe_training(torch, pkg, device, rng):
                           ratio(dw, dw_default)))
             result[("twokernel", dtype)] = (two_ms, default_ms)
     return result
+
+
+# K9's launches by kernel (csrc/moe_wgrad.cu): bf16 stage 1 makes dz and
+# db's partials (csrc/moe_bwd.cu), stage 2 is K7's (csrc/moe_dw.cuh)
+K9_KERNELS = (("stage 1 (dz, db partials)", r"moe_dz_db_kernel"),
+              ("stage 2 dw product", r"wg_product_kernel"),
+              ("x cast", r"cast_rows_bf16"),
+              ("sums of partials", r"split_sum|group_sum"),
+              ("float32 body", r"moe_wgrad_kernel"))
+K9_FIRST_MS = 7.577  # bf16 K9's first design's time, PERF.md section 6
 
 
 def check_moe_single_kernel(torch, pkg, device, rng):
@@ -1761,6 +2000,21 @@ def check_moe_single_kernel(torch, pkg, device, rng):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by}
             result[dtype].update(k7_yardsticks(torch, mk, kargs, got))
+            if dtype == torch.bfloat16:
+                wargs = (x, th, gate, gout) + args
+                k9 = mk.moe_mix_wgrad(*wargs)
+                torch.cuda.synchronize()
+                if not (torch.equal(k9[0], got[2])
+                        and torch.equal(k9[1], got[3])):
+                    fail("K9 bf16: dw or db differ from K7's")
+                k9_ms, plain9_ms = time_in_turns(
+                    torch, lambda: mk.moe_mix_wgrad(*wargs),
+                    lambda: mk.moe_wgrad_reference(*wargs), rounds=3,
+                    kernel_reps=3)
+                say("  K9 bfloat16 on K7's inputs: dw and db equal K7's bit "
+                    "for bit; K9 %.3f ms (plain %.3f ms) beside K7 %.3f ms, "
+                    "on %s" % (k9_ms, plain9_ms, ms, SMI))
+                result[dtype]["k9_ms"] = k9_ms
     return result
 
 
@@ -2825,6 +3079,8 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
+    global SMI
+    SMI = smi
     phase("phase 1 device: %s (%d visible); nvidia-smi: %s"
         % (kind, torch.cuda.device_count(), smi))
     say("  torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
@@ -2850,8 +3106,10 @@ def main() -> None:
                                                     keep_prob, rng)
     phase("phase 5 serving end to end (nnet_forward, flagship model, cuda)")
     e2e = end_to_end(torch, pkg, device, rng)
-    phase("phase 6 K10/K11 (CTC alpha and beta DP)")
+    phase("phase 6 K10/K11 (CTC alpha and beta DP), and the routes of "
+          "refused shapes")
     dp = check_ctc_dp(torch, pkg, device, rng)
+    check_routes(torch, pkg, device, np.random.RandomState(12))
     phase("phase 7 K2 (BLSTM layer backward)")
     bwd = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3030,6 +3288,16 @@ def main() -> None:
                "%s %.3f" % kv for kv in folds["device_ms"].items()),
            ", ".join("%s %.1f" % (n, v["best"])
                      for n, v in folds["ab"].items())))
+    k9b, k9f = (moe_train[("moe_wgrad", t)] for t in (torch.bfloat16,
+                                                      torch.float32))
+    say("summary of the redesigned K11 and K9 on %s: K11 %.3f ms (first "
+        "design %.3f); K9 bf16 %.3f ms (first design %.3f), by kernel: %s; "
+        "on K7's inputs %.3f ms beside K7 %.3f; K9 float32 %.3f ms; "
+        "twokernel backward (K8 + K9) %.3f ms vs default %.3f ms"
+        % (smi, dp["ctc_beta"]["ms"], K11_FIRST_MS, k9b["ms"],
+           K9_FIRST_MS, ", ".join(
+               "%s %.4f" % kv for kv in k9b["device_split"].items()),
+           k7b["k9_ms"], k7b["ms"], k9f["ms"], two_ms, default_ms))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -3037,7 +3305,7 @@ def main() -> None:
         default_ms, library["forward"], library["both"], serve["chunk_ms"]] \
         + [families[f]["step_ms"] for f in ("lstm", "cudnnlstm", "lstm_bn")] \
         + [k3["k2_ms"], k3["cublas_dx_ms"], k3["cublas_dwx_ms"],
-           k7b["k6_ms"], k7b["cublas_ms"]] \
+           k7b["k6_ms"], k7b["cublas_ms"], k7b["k9_ms"], k9f["ms"]] \
         + list(folds["device_ms"].values()) \
         + [v["best"] for v in folds["ab"].values()]
     if not all(math.isfinite(v) for v in numbers):

@@ -88,9 +88,9 @@ SIGNATURES = {
     "moe_bwd_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 4,
     "moe_bwd_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 4,
     # device, x, th, gate, gout, seed, N, D, E, V, tau, keep_prob, dw, db,
-    # stream
-    "moe_wgrad_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
-    "moe_wgrad_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 3,
+    # scratch (bf16), stream
+    "moe_wgrad_f32": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 4,
+    "moe_wgrad_bf16": [_I] + [_P] * 5 + [_I] * 4 + [_F, _F] + [_P] * 4,
     # device, x, th, w (bf16: K6's packed image), gate, gout, seed, N, D,
     # E, V, tau, keep_prob, dx, dgate, dw, db, scratch, stream
     "moe_bwd_wgrad_f32": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F] + [_P] * 6,
@@ -166,6 +166,12 @@ def library() -> ctypes.CDLL:
     lib.kernels_error_string.restype = ctypes.c_char_p
     lib.lstm_fwd_cluster_size.argtypes = []
     lib.lstm_fwd_cluster_size.restype = ctypes.c_int
+    # H, P, has_proj, bf16 (K2: and store_bf16) -> 1 if the kernel has a
+    # launch plan for the shape, else 0 (host arithmetic only)
+    lib.lstm_fwd_fits.argtypes = [_I] * 4
+    lib.lstm_fwd_fits.restype = ctypes.c_int
+    lib.lstm_bwd_fits.argtypes = [_I] * 5
+    lib.lstm_bwd_fits.restype = ctypes.c_int
     lib.lstm_bwd_scratch_floats.argtypes = [_I, _I, _I, _I]
     lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
     # device, B, H, P, has_proj, bf16 -> rows a cluster, clusters, bytes

@@ -45,18 +45,29 @@
 // order of operations (expf/logf, no fast-math), so alpha is bit-equal.
 // One warp a row, with no block barrier at all, was slower: a row's ~10
 // log3 a lane then issue from one of the SM's four schedulers.
-// beta (K11): one block per lattice row, one thread per lattice position;
-// the carried row is double-buffered in shared memory, so a step costs one
-// __syncthreads; each thread loads its lp entry a step ahead.
+// beta (K11): K10's design mirrored.  The same block of W warps a row and
+// the same positions in registers; the neighbours s + 1 and s + 2 come by
+// one shuffle each from the lanes after, and for lanes 30 and 31 from
+// lanes 0 and 1 of the register after, so the registers are updated from
+// the first up, each shuffle still seeing the old row.  Only the two
+// positions after a warp's range cross warps: each warp writes its first
+// two old values into one of the two edge buffers, warp w reads warp
+// w + 1's after the step's block barrier, and the last warp reads NEG_INF.
+// lp(t) comes down a ring of kLpRing steps from t = T - 1, kLpRing - 1
+// steps ahead; time_mask and is_last come as two ballot words of 32 steps,
+// each loaded a word ahead walking down; a reset step (is_last, which a
+// packed row has once per utterance) needs no neighbour and takes no
+// barrier.  valid, skip_from and final & valid are bit masks in registers.
+// Bit-equal to the plain version, as K10 (the same log3).
 
 #include "common.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxLattice = 1024;  // beta: one thread per position
-constexpr int kMaxRowWarps = 16;  // alpha: warps a lattice row, at most
-constexpr int kLpRing = 8;         // alpha: steps of lp a warp holds
+constexpr int kMaxLattice = 1024;  // positions a row, at most (16 warps of 2 registers)
+constexpr int kMaxRowWarps = 16;   // warps a lattice row, at most
+constexpr int kLpRing = 8;         // steps of lp a warp holds
 
 __device__ __forceinline__ float log3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
@@ -160,55 +171,143 @@ __global__ void __launch_bounds__(32 * kMaxRowWarps) ctc_alpha_kernel(
   cp_async_wait_pending(0);
 }
 
-__global__ void ctc_beta_kernel(const float* __restrict__ lp,        // [T, N, S]
-                                const bool* __restrict__ time_mask,  // [T, N]
-                                const bool* __restrict__ is_last,    // [T, N]
-                                const bool* __restrict__ valid,      // [N, S]
-                                const bool* __restrict__ skip_from,  // [N, S]
-                                const bool* __restrict__ final_mask, // [N, S]
-                                int steps, int slots, int width,
-                                float* __restrict__ out) {           // [T, N, S]
-  extern __shared__ float row[];  // [2][width]
-  const int n = blockIdx.x, s = threadIdx.x;
-  const bool in = s < width;
-  const size_t ns = (size_t)n * width + s;
-  const bool ok = in && valid[ns];
-  const bool skip = in && s + 2 < width && skip_from[ns];
-  const bool fin = in && final_mask[ns];
-  float b = kNegInf;
-  if (in) row[s] = b;
-  float lp_next = (in && steps > 0) ? lp[((size_t)(steps - 1) * slots) * width + ns] : 0.0f;
-  __syncthreads();
-  int cur = 0;
-  for (int t = steps - 1; t >= 0; --t) {
-    const float lpt = lp_next;
-    if (in && t > 0) lp_next = lp[((size_t)(t - 1) * slots) * width + ns];
-    const float* r = row + cur * width;
-    if (in && time_mask[(size_t)t * slots + n]) {
-      if (is_last[(size_t)t * slots + n]) {
-        b = (fin && ok) ? lpt : kNegInf;
-      } else {
-        const float b1 = s + 1 < width ? r[s + 1] : kNegInf;
-        const float b2 = skip ? r[s + 2] : kNegInf;
-        b = ok ? log3(b, b1, b2) + lpt : kNegInf;
+// beta: alpha's layout, walked down in time with the neighbours after
+template <int P>
+__global__ void __launch_bounds__(32 * kMaxRowWarps) ctc_beta_kernel(
+    const float* __restrict__ lp,         // [T, N, S]
+    const bool* __restrict__ time_mask,   // [T, N]
+    const bool* __restrict__ is_last,     // [T, N]
+    const bool* __restrict__ valid,       // [N, S]
+    const bool* __restrict__ skip_from,   // [N, S]
+    const bool* __restrict__ final_mask,  // [N, S]
+    int steps, int slots, int width,
+    float* __restrict__ out) {            // [T, N, S]
+  extern __shared__ float smem[];  // lp rings [W][kLpRing][P][32], edges
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const int n = blockIdx.x;
+  float* ring = smem + (size_t)w * kLpRing * P * 32;
+  // the old values of the first two positions of each warp's range, in two
+  // buffers taken in turn by the live steps that are not resets: [2][W][2]
+  float* edges = smem + (size_t)W * kLpRing * P * 32;
+  const int base = w * 32 * P;  // the warp's first position
+  const size_t ns = (size_t)n * width, stride = (size_t)slots * width;
+
+  float b[P];
+  uint32_t ok = 0, skip = 0, fin = 0;  // bit j: position base + lane + 32·j
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int s = base + lane + 32 * j;
+    const bool in = s < width;
+    b[j] = kNegInf;
+    const bool v = in && valid[ns + s];
+    if (v) ok |= 1u << j;
+    if (in && skip_from[ns + s]) skip |= 1u << j;
+    if (v && final_mask[ns + s]) fin |= 1u << j;
+  }
+  // lp(t) of the warp's positions, each lane its own, kLpRing - 1 steps
+  // ahead on the way down
+  auto fetch = [&](int t) {
+    if (t >= 0) {
+      float* slot = ring + (size_t)(t % kLpRing) * P * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int s = base + lane + 32 * j;
+        if (s < width) cp_async4_fill(slot + 32 * j, lp + t * stride + ns + s, 4);
       }
     }
-    cur ^= 1;
-    if (in) {
-      row[cur * width + s] = b;
-      out[(size_t)t * slots * width + ns] = b;
+    cp_async_commit();
+  };
+  for (int i = 0; i < kLpRing - 1; ++i) fetch(steps - 1 - i);
+  // a mask, 32 steps a word (lane i: step t0 + i), the word below loaded a
+  // word ahead
+  auto bit_of = [&](const bool* mask, int t0) {
+    const int t = t0 + lane;
+    return t >= 0 && t < steps && mask[(size_t)t * slots + n];
+  };
+  const int top = (steps - 1) & ~31;  // the first step of the top word
+  uint32_t live = __ballot_sync(0xffffffffu, bit_of(time_mask, top));
+  uint32_t reset = __ballot_sync(0xffffffffu, bit_of(is_last, top));
+  bool live_next = bit_of(time_mask, top - 32), reset_next = bit_of(is_last, top - 32);
+  int turn = 0;  // the edge buffer of the next update
+
+  for (int t = steps - 1; t >= 0; --t) {
+    if ((t & 31) == 31 && t != steps - 1) {  // into the word below
+      live = __ballot_sync(0xffffffffu, live_next);
+      reset = __ballot_sync(0xffffffffu, reset_next);
+      live_next = bit_of(time_mask, t - 63);
+      reset_next = bit_of(is_last, t - 63);
     }
-    __syncthreads();
+    cp_async_wait_pending(kLpRing - 2);  // lp(t) is in
+    const float* lpt = ring + (size_t)(t % kLpRing) * P * 32 + lane;
+    // live and reset are the same for the row's warps
+    if ((reset >> (t & 31)) & (live >> (t & 31)) & 1) {
+      // the sequence's last frame: b' = final & valid ? lp : NEG_INF
+#pragma unroll
+      for (int j = 0; j < P; ++j) b[j] = (fin >> j) & 1 ? lpt[32 * j] : kNegInf;
+    } else if ((live >> (t & 31)) & 1) {
+      // positions base + 32P and base + 32P + 1 (the warp after, NEG_INF
+      // for the last), for lanes 0 and 1 to hand to lanes 31 and 30, 31
+      float edge = kNegInf;
+      if (W > 1) {
+        // a warp rewrites a buffer two updates on, after the barrier of the
+        // update between, which its readers reach only after reading it
+        float* e = edges + turn * W * 2;
+        turn ^= 1;
+        if (lane < 2) e[w * 2 + lane] = b[0];
+        __syncthreads();
+        if (w + 1 < W && lane < 2) edge = e[(w + 1) * 2 + lane];
+      }
+      // from the first register up, so that b[j + 1] is still the old row:
+      // position s + 1 is lane l + 1 of register j, or lane 0 of j + 1 for
+      // lane 31 (the lane supplies what its reader needs); s + 2 likewise
+      // from lanes 0 and 1
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float next = j + 1 < P ? b[j + 1] : edge;
+        const float b1 = __shfl_sync(0xffffffffu, lane == 0 ? next : b[j], (lane + 1) & 31);
+        const float b2 = __shfl_sync(0xffffffffu, lane < 2 ? next : b[j], (lane + 2) & 31);
+        b[j] = (ok >> j) & 1 ? log3(b[j], b1, (skip >> j) & 1 ? b2 : kNegInf) + lpt[32 * j]
+                             : kNegInf;
+      }
+    }
+    fetch(t - (kLpRing - 1));  // into step t + 1's slot
+    float* row = out + t * stride + ns;
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (base + lane + 32 * j < width) row[base + lane + 32 * j] = b[j];
   }
+  cp_async_wait_pending(0);
 }
 
-int block_threads(int width) { return (width + 31) / 32 * 32; }
+// warps a row: one for every 32 positions, up to kMaxRowWarps (then two
+// positions a lane)
+int row_warps(int width) {
+  return cdiv(width, 32) < kMaxRowWarps ? cdiv(width, 32) : kMaxRowWarps;
+}
+
+size_t row_smem(int warps, int per) {
+  return sizeof(float) * (warps * kLpRing * per * 32 + 2 * warps * 2);
+}
+
+template <int P>
+int beta_launch(const void* lp, const void* time_mask, const void* is_last, const void* valid,
+                const void* skip_from, const void* final_mask, int steps, int slots, int width,
+                int warps, void* out, void* stream) {
+  const size_t smem = row_smem(warps, P);
+  cudaError_t err = cudaFuncSetAttribute(ctc_beta_kernel<P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ctc_beta_kernel<P><<<slots, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const float*)lp, (const bool*)time_mask, (const bool*)is_last, (const bool*)valid,
+      (const bool*)skip_from, (const bool*)final_mask, steps, slots, width, (float*)out);
+  return cudaGetLastError();
+}
 
 template <int P>
 int alpha_launch(const void* lp, const void* time_mask, const void* valid, const void* can_skip,
                  const void* alpha0, int steps, int slots, int width, int warps, void* out,
                  void* stream) {
-  const size_t smem = sizeof(float) * (warps * kLpRing * P * 32 + 2 * warps * 2);
+  const size_t smem = row_smem(warps, P);
   cudaError_t err = cudaFuncSetAttribute(ctc_alpha_kernel<P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -228,8 +327,7 @@ extern "C" int ctc_alpha(int device, const void* lp, const void* time_mask,
   if (err != cudaSuccess) return err;
   if (width <= 0 || width > kMaxLattice) return cudaErrorInvalidValue;
   if (slots <= 0 || steps <= 0) return cudaSuccess;
-  // a warp for every 32 positions, up to 16 warps (then two positions a lane)
-  const int warps = cdiv(width, 32) < kMaxRowWarps ? cdiv(width, 32) : kMaxRowWarps;
+  const int warps = row_warps(width);
   if (cdiv(width, 32 * warps) == 1)
     return alpha_launch<1>(lp, time_mask, valid, can_skip, alpha0, steps, slots, width, warps, out,
                            stream);
@@ -246,10 +344,10 @@ extern "C" int ctc_beta(int device, const void* lp, const void* time_mask,
   if (err != cudaSuccess) return err;
   if (width <= 0 || width > kMaxLattice) return cudaErrorInvalidValue;
   if (slots <= 0 || steps <= 0) return cudaSuccess;
-  ctc_beta_kernel<<<slots, block_threads(width), 2 * width * sizeof(float),
-                    (cudaStream_t)stream>>>(
-      (const float*)lp, (const bool*)time_mask, (const bool*)is_last,
-      (const bool*)valid, (const bool*)skip_from, (const bool*)final_mask,
-      steps, slots, width, (float*)out);
-  return cudaGetLastError();
+  const int warps = row_warps(width);
+  if (cdiv(width, 32 * warps) == 1)
+    return beta_launch<1>(lp, time_mask, is_last, valid, skip_from, final_mask, steps, slots,
+                          width, warps, out, stream);
+  return beta_launch<2>(lp, time_mask, is_last, valid, skip_from, final_mask, steps, slots,
+                        width, warps, out, stream);
 }

@@ -485,6 +485,14 @@ struct Launch {
   size_t smem;
 };
 
+// K2's plan with R rows a cluster, and whether its threads and shared
+// memory fit a block
+template <typename T, typename S>
+bool bwd_fits(int H, int P, bool has_proj, int rows, BwdPlan* plan) {
+  *plan = bwd_plan<T, S>(H, P, has_proj, rows);
+  return rows * plan->us <= kThreads && plan->bytes <= kMaxSmemPerBlock;
+}
+
 // Set up the launch with R rows a cluster, if its shared memory fits and
 // the occupancy API says all 2·ceil(B/R) clusters are resident at once (with
 // `all`) or at least one is; launch unless `dry`.  how->rows = 0: not with
@@ -492,9 +500,8 @@ struct Launch {
 template <typename T, typename S, int R>
 cudaError_t launch_rows(const Args& a, bool all, bool dry, Launch* how) {
   how->rows = 0;
-  const bool has_proj = a.proj_rows != nullptr;
-  const BwdPlan pl = bwd_plan<T, S>(a.units, a.out_dim, has_proj, R);
-  if (R * pl.us > kThreads || pl.bytes > kMaxSmemPerBlock) return cudaSuccess;
+  BwdPlan pl;
+  if (!bwd_fits<T, S>(a.units, a.out_dim, a.proj_rows != nullptr, R, &pl)) return cudaSuccess;
   auto kernel = lstm_bwd_kernel<T, S, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
@@ -595,6 +602,22 @@ extern "C" long long lstm_bwd_scratch_floats(int steps, int batch, int units,
                                              int out_dim) {
   return (long long)peep_floats(batch, units) +
          lstm_bwd_wgrad_scratch_floats(steps, batch, units, out_dim);
+}
+
+// Whether K2 has a launch plan for this shape (1) or not (0): host
+// arithmetic only, no CUDA call.  R = 4 needs the least threads and shared
+// memory, so K2 takes a shape when its R = 4 plan fits; whether any of its
+// clusters is resident is the occupancy API's to say at the launch.
+extern "C" int lstm_bwd_fits(int units, int out_dim, int has_proj, int bf16,
+                             int store_bf16) {
+  if (units <= 0 || out_dim <= 0) return 0;
+  const bool proj = has_proj != 0;
+  BwdPlan pl;
+  if (bf16)
+    return store_bf16 ? bwd_fits<__nv_bfloat16, __nv_bfloat16>(units, out_dim, proj, 4, &pl)
+                      : bwd_fits<__nv_bfloat16, float>(units, out_dim, proj, 4, &pl);
+  return store_bf16 ? bwd_fits<float, __nv_bfloat16>(units, out_dim, proj, 4, &pl)
+                    : bwd_fits<float, float>(units, out_dim, proj, 4, &pl);
 }
 
 // How K2 would launch on `device` at this shape: rows a cluster, clusters,

@@ -446,23 +446,36 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Launch with R rows per cluster.  Unless `force`, first ask the occupancy
-// API whether all 2·ceil(B/R) clusters fit at once, and launch nothing
-// (*launched = false) if they do not.
+// K1's plan with R rows a cluster and the deepest gx ring that fits, and
+// whether K1 has it at all: R·US and R·PS threads at most, the bf16
+// products within mma_product_t's bounds, shared memory within a block's.
+// Host arithmetic only: the route asks it before any launch (R = 4 needs
+// the least of each, so K1 takes a shape when its R = 4 plan fits).
+template <typename T>
+bool fwd_fits(int units, int out_dim, bool has_proj, int rows, FwdPlan* plan, int* depth) {
+  int d = kMaxRing;
+  while (d > kMinRing && fwd_plan<T>(units, out_dim, has_proj, rows, d).bytes > kMaxSmemPerBlock)
+    --d;
+  const FwdPlan pl = fwd_plan<T>(units, out_dim, has_proj, rows, d);
+  *plan = pl;
+  *depth = d;
+  if (rows * pl.us > kThreads || rows * pl.ps > kThreads) return false;
+  if (kMma<T> && (pl.tg.per == 0 || (has_proj && pl.tp.per == 0)))
+    return false;  // no split fits the products' bounds
+  return pl.bytes <= kMaxSmemPerBlock;
+}
+
+// Launch with R rows per cluster if its plan fits.  Unless `force`, first
+// ask the occupancy API whether all 2·ceil(B/R) clusters fit at once, and
+// launch nothing (*launched = false) if they do not.
 template <typename T, int R>
 cudaError_t launch_rows(const Args& a, bool force, bool* launched) {
   *launched = false;
   const bool has_proj = a.proj_sl != nullptr;
-  int depth = kMaxRing;
-  while (depth > kMinRing
-         && fwd_plan<T>(a.units, a.out_dim, has_proj, R, depth).bytes > kMaxSmemPerBlock)
-    --depth;
-  const FwdPlan pl = fwd_plan<T>(a.units, a.out_dim, has_proj, R, depth);
-  if (R * pl.us > kThreads || R * pl.ps > kThreads) return cudaErrorInvalidValue;
-  if (kMma<T> && (pl.tg.per == 0 || (has_proj && pl.tp.per == 0)))
-    return cudaErrorInvalidValue;  // no split fits the products' bounds
+  FwdPlan pl;
+  int depth;
+  if (!fwd_fits<T>(a.units, a.out_dim, has_proj, R, &pl, &depth)) return cudaSuccess;
   const size_t smem = pl.bytes;
-  if (smem > kMaxSmemPerBlock) return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       lstm_fwd_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -497,6 +510,9 @@ cudaError_t launch_rows(const Args& a, bool force, bool* launched) {
   return cudaGetLastError();
 }
 
+// The smallest R of {4, 6} whose clusters are all resident at once; else
+// the largest R whose plan fits, its clusters in waves.  A shape whose R = 4
+// plan does not fit is refused.
 template <typename T>
 int launch(int device, const Args& a) {
   cudaError_t err = cudaSetDevice(device);
@@ -509,7 +525,13 @@ int launch(int device, const Args& a) {
   if (err != cudaSuccess || launched) return err;
   err = launch_rows<T, 6>(a, false, &launched);
   if (err != cudaSuccess || launched) return err;
-  return launch_rows<T, 8>(a, true, &launched);
+  err = launch_rows<T, 8>(a, true, &launched);
+  if (err != cudaSuccess || launched) return err;
+  err = launch_rows<T, 6>(a, true, &launched);
+  if (err != cudaSuccess || launched) return err;
+  err = launch_rows<T, 4>(a, true, &launched);
+  if (err == cudaSuccess && !launched) return cudaErrorInvalidConfiguration;
+  return err;
 }
 
 }  // namespace
@@ -534,6 +556,16 @@ extern "C" int lstm_fwd_bf16(LSTM_FWD_ARGS) {
 }
 
 extern "C" int lstm_fwd_cluster_size() { return kCluster; }
+
+// Whether K1 has a launch plan for this shape (1) or not (0): host
+// arithmetic only, no CUDA call (fwd_fits at R = 4)
+extern "C" int lstm_fwd_fits(int units, int out_dim, int has_proj, int bf16) {
+  FwdPlan pl;
+  int depth;
+  if (units <= 0 || out_dim <= 0) return 0;
+  return bf16 ? fwd_fits<__nv_bfloat16>(units, out_dim, has_proj != 0, 4, &pl, &depth)
+              : fwd_fits<float>(units, out_dim, has_proj != 0, 4, &pl, &depth);
+}
 
 extern "C" const char* kernels_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

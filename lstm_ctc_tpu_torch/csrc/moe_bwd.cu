@@ -63,6 +63,9 @@
 // (the pair of blocks then waits for each other every chunk), so they are
 // not used.  Deterministic: fixed sums, no atomics.
 //
+// K9's first stage (moe_dz_db_kernel) is this body's dz units alone, with
+// no product and no dgate, on blocks of 64 rows and 8 chunks.
+//
 // K7's first stage (moe_bwd_wgrad.cu) is this body with two changes that
 // leave dx and dgate bit for bit K6's: dz goes to a scratch whose rows are
 // `ldz` apart (E·V rounded up to 8, 16-byte aligned rows for the copy
@@ -254,6 +257,15 @@ __device__ __forceinline__ float unit_column_sum(const float (&v)[8], int lane) 
   return (h3 ? s2[1] : s2[0]) + __shfl_xor_sync(0xffffffffu, h3 ? s2[0] : s2[1], 16);
 }
 
+// db's partial of one 64-row tile and column `col` of a chunk: the 8 warps'
+// sums of the unrounded dz (unit_column_sum's) added in warp order
+__device__ __forceinline__ float db_tile_sum(const float* wsums, int col) {
+  float sum = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) sum += wsums[q * 64 + col];
+  return sum;
+}
+
 // One thread in the dz stage: row `row` of the block, columns k = 64c + 16
 // part .. + 15 of each chunk c; the four threads of a row are neighbouring
 // lanes.  Lane part 0 carries the sum of the expert still open at a chunk's
@@ -324,7 +336,9 @@ __device__ __forceinline__ void close_segment(Walk& w, float sum, float* dgate_r
   }
 }
 
-// dz of 8 columns (any V, columns past E·V zero)
+// dz of 8 columns (any V, columns past E·V zero); kGate: also the dgate
+// sums (K6's body; K9's dz stage leaves them out)
+template <bool kGate>
 __device__ __forceinline__ void dz_unit(const float (&t)[8], float (&dzf)[8], Walk& w, int k0,
                                         int kk, const float* grow, const float* __restrict__ gate_row,
                                         float* __restrict__ dgate_row, int experts, int v,
@@ -344,7 +358,7 @@ __device__ __forceinline__ void dz_unit(const float (&t)[8], float (&dzf)[8], Wa
       }
       w.sum = fmaf(q, a, w.sum);
       if (++w.vv == v) {  // expert w.e ends here
-        close_segment(w, w.sum, dgate_row);
+        if (kGate) close_segment(w, w.sum, dgate_row);
         w.sum = 0.0f;
         w.vv = 0;
         ++w.e;
@@ -358,7 +372,7 @@ __device__ __forceinline__ void dz_unit(const float (&t)[8], float (&dzf)[8], Wa
 // the same for V >= 8 and 8 columns inside E·V: at most one expert ends in
 // them, at column bnd - 1, so the columns take their gate and sum by select
 // and the code has no branch per column (the sums in the same order)
-template <bool kDrop>
+template <bool kDrop, bool kGate>
 __device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8], Walk& w,
                                              const float* grow, const float (&gates)[3], int e0,
                                              float* __restrict__ dgate_row, int v, float tau,
@@ -384,7 +398,7 @@ __device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8
     dzf[i] = dz;
   }
   if (ends) {
-    close_segment(w, lo, dgate_row);
+    if (kGate) close_segment(w, lo, dgate_row);
     ++w.e;
     w.g = gn;
     w.sum = hi;
@@ -400,8 +414,10 @@ __device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8
 // per expert segment; a segment that starts and ends inside the thread is
 // complete and written at once; the first and the last go to lane part 0
 // of the row, which joins them in lane order to the expert carried from
-// the previous chunk.  The order of every sum is fixed.
-template <bool kEmit, bool kDb>
+// the previous chunk.  The order of every sum is fixed.  Without kGate
+// (K9's dz stage) there is no slot and no dgate: dz and db's warp sums
+// only, their bits those of K6's body.
+template <bool kEmit, bool kDb, bool kGate = true>
 __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st, const Ahead& ah,
                                          const __nv_bfloat16* __restrict__ th,
                                          const float* __restrict__ gate, const float* gs,
@@ -415,7 +431,7 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
   const bool vec = (kk & 7) == 0;  // th and dz rows in whole 16-byte units
   const bool wide = vec && v >= 8;
   const float* gate_row = gate + (size_t)st.nn * experts;
-  float* dgate_row = dgate + (size_t)st.nn * experts;
+  float* dgate_row = kGate ? dgate + (size_t)st.nn * experts : nullptr;
   Walk w;
   w.e = experts;
   w.vv = 0;
@@ -454,12 +470,14 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
         for (int i = 0; i < 8; ++i) t[i] = k0 + i < kk ? __bfloat162float(trow[k0 + i]) : 0.0f;
       }
       if (wide && dropout)
-        dz_unit_wide<true>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr, inv_keep);
+        dz_unit_wide<true, kGate>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr,
+                                  inv_keep);
       else if (wide)
-        dz_unit_wide<false>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr, inv_keep);
+        dz_unit_wide<false, kGate>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr,
+                                   inv_keep);
       else
-        dz_unit(t, dzf, w, k0, kk, grow, gate_row, dgate_row, experts, v, tau, dropout, hx, thr,
-                inv_keep);
+        dz_unit<kGate>(t, dzf, w, k0, kk, grow, gate_row, dgate_row, experts, v, tau, dropout, hx,
+                       thr, inv_keep);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const __nv_bfloat162 h = __floats2bfloat162_rn(dzf[2 * i], dzf[2 * i + 1]);
@@ -467,7 +485,7 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
       }
     }
     const uint4 packed = make_uint4(words[0], words[1], words[2], words[3]);
-    *reinterpret_cast<uint4*>(slot + sw128_offset(st.row, st.part * kUnits + u)) = packed;
+    if (kGate) *reinterpret_cast<uint4*>(slot + sw128_offset(st.row, st.part * kUnits + u)) = packed;
     if (kDb && wsum != nullptr)
       wsum[(threadIdx.x / 32) * 64 + st.part * kPerLane + 8 * u + 4 * ((lane >> 2) & 1) +
            2 * ((lane >> 3) & 1) + ((lane >> 4) & 1)] = unit_column_sum(dzf, lane);
@@ -484,6 +502,7 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
     }
   }
 
+  if (!kGate) return;
   const int fe = w.single ? w.e : w.first_e;
   const float fs = w.single ? w.sum : w.first_sum;
 #pragma unroll
@@ -632,10 +651,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
     }
     if (db && c >= 0 && tid < 64) {
       // chunk c's column sums, made by the last step's dz stage, in warp order
-      const float* w = wsums + (c & 1) * kWarpSums;
-      float sum = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) sum += w[q * 64 + tid];
+      const float sum = db_tile_sum(wsums + (c & 1) * kWarpSums, tid);
       if (c * 64 + tid < kk) db_part[(size_t)blockIdx.x * kk + c * 64 + tid] = sum;
     }
     if (c + 1 < chunks) {
@@ -708,6 +724,64 @@ int launch_bf16(int device, const void* th, const void* wp, const void* gate, co
                                                    tau, keep_prob, dx, dgate, dz, kk, nullptr, s);
 }
 
+// K9's first stage (moe_wgrad.cu): K6's dz units alone, with no dx product
+// and no dgate sums (K8 made those), so nothing holds a block to one SM:
+// a block owns 64 rows and kDzChunks chunks of 64 columns, its threads
+// placed as in K6's body (a row a group of 4 lanes, 8 rows a warp), so dz
+// and db's partials come out bit for bit as K7's first stage gives them.
+// Each thread's th and gates of chunk c + 1 are loaded while chunk c's dz
+// is made; one block barrier a chunk publishes the warp sums (two buffers,
+// taken in turn), which 64 threads add in warp order.
+constexpr int kDzChunks = 8;
+
+__global__ void __launch_bounds__(kWgThreads) moe_dz_db_kernel(
+    const __nv_bfloat16* __restrict__ th,  // [N, E·V]
+    const float* __restrict__ gate,        // [N, E]
+    const float* __restrict__ gout,        // [N, V]
+    const int32_t* __restrict__ seed_dev,  // [1] (read if dropout)
+    int n, int experts, int v, float tau, float keep_prob,
+    __nv_bfloat16* __restrict__ dz_out,    // [N, ldz]
+    int ldz,
+    float* __restrict__ db_part) {         // [row tiles, E·V]
+  extern __shared__ float dz_smem[];
+  float* gs = dz_smem;                    // gout of the block's rows [64][V]
+  float* wsums = dz_smem + kWgRows * v;   // [2][8 warps][64]
+  const int kk = experts * v;
+  const int n0 = blockIdx.x * kWgRows, tid = threadIdx.x;
+  const int c0 = blockIdx.y * kDzChunks, c1 = min(c0 + kDzChunks, cdiv(kk, 64));
+  for (int i = tid; i < kWgRows * v; i += kWgThreads)
+    gs[i] = n0 + i / v < n ? gout[(size_t)n0 * v + i] : 0.0f;
+
+  const bool dropout = keep_prob < 1.0f;
+  const uint32_t seed = dropout ? (uint32_t)seed_dev[0] : 0u;
+  const uint32_t thr = keep_threshold(keep_prob);
+  const float inv_keep = 1.0f / keep_prob;
+  DzLane st;
+  st.row = tid / kLanesPerRow;
+  st.part = tid % kLanesPerRow;
+  st.nn = n0 + st.row;
+  st.ok = st.nn < n;
+  st.hrow = (uint32_t)st.nn * kHashRow + seed * kHashSeed;
+  st.run_e = -1;
+  st.run = 0.0f;
+  Ahead ahead, next;
+  fetch_ahead(ahead, th, gate, st, c0, experts, v);
+  __syncthreads();  // gs is in
+
+  for (int c = c0; c < c1; ++c) {
+    if (c + 1 < c1) fetch_ahead(next, th, gate, st, c + 1, experts, v);
+    // chunk c - 2's sums, the last readers of this buffer, were added
+    // before the last barrier
+    float* w = wsums + (c & 1) * kWarpSums;
+    dz_chunk<true, true, false>(c, nullptr, st, ahead, th, gate, gs, nullptr, dz_out, ldz, w,
+                                experts, v, tau, dropout, thr, inv_keep);
+    __syncthreads();
+    if (tid < 64 && c * 64 + tid < kk)
+      db_part[(size_t)blockIdx.x * kk + c * 64 + tid] = db_tile_sum(w, tid);
+    if (c + 1 < c1) ahead = next;
+  }
+}
+
 }  // namespace
 
 // dz == NULL launches K8 (no dz stream); otherwise K6.  bf16: w is the
@@ -739,4 +813,27 @@ extern "C" int moe_bwd_dz_db_bf16(MOE_BWD_ARGS, int ldz, float* db_part) {
                                             keep_prob, dx, dgate, dz, ldz, db_part, s);
   return launch_bwd_wgmma<160, true, true>(th, w, gate, gout, seed, n, d, experts, v, tau,
                                            keep_prob, dx, dgate, dz, ldz, db_part, s);
+}
+
+// K9's first stage: dz in bf16 rows ldz apart (a multiple of 8, at least
+// E·V) and db's partials [ceil(N / 64), E·V], bit for bit those of
+// moe_bwd_dz_db_bf16; N > 0
+extern "C" int moe_dz_db_bf16(int device, const void* th, const void* gate, const void* gout,
+                              const void* seed, int n, int experts, int v, float tau,
+                              float keep_prob, void* dz, int ldz, float* db_part, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (v <= 0 || v > kMaxV || experts <= 0 || n <= 0 || dz == nullptr ||
+      ldz < experts * v || ldz % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
+  if (cdiv(cdiv(experts * v, 64), kDzChunks) > 65535) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)kWgRows * v + 2 * kWarpSums);
+  err = set_smem(moe_dz_db_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(n, kWgRows), cdiv(cdiv(experts * v, 64), kDzChunks));
+  moe_dz_db_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)th, (const float*)gate, (const float*)gout, (const int32_t*)seed, n,
+      experts, v, tau, keep_prob, (__nv_bfloat16*)dz, ldz, db_part);
+  return cudaGetLastError();
 }

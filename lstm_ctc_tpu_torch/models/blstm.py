@@ -14,7 +14,11 @@ Counterpart of ``lstm_ctc_tpu/models/blstm.py:40-257``:
     ``dropout_rate`` after every layer, each layer differentiable through
     the backward kernel (``lstm_kernels.bilstm_dual_scan_train``), and the
     MoE head's gate and expert dropout at the same keep probability, the
-    head differentiable through its backward kernels.
+    head differentiable through its backward kernels;
+  * a layer the kernels refuse (``lstm_kernels.layer_eligible``: past 512
+    units, a backward with H or P not divisible by 4, no launch plan of K1
+    or K2 that fits a block) runs the plain recurrence
+    (``cells.bilstm_dual_scan``) under autograd, with one warning.
 
 Two nnet.config keys choose among the backward kernels, as two env knobs
 do in the reference:
@@ -37,8 +41,8 @@ import torch
 
 from ..host.class_prior import get_class_prior
 from ..ops import lstm_kernels
-from .cells import (dropout, init_lstm_cell, reverse_segments,
-                    reverse_sequence, truncated_normal)
+from .cells import (bilstm_dual_scan, dropout, init_lstm_cell,
+                    reverse_segments, reverse_sequence, truncated_normal)
 from .moe import apply_moe, init_moe
 
 FORGET_BIAS = 5.0
@@ -159,8 +163,18 @@ def apply_blstm(params: Dict,
     fold_dx = bool(config.get("lstm_fold_dx", False))
     finput = nnet_input
     binput = rev(nnet_input)
+    kernels = lstm_kernels.layer_eligible(
+        nnet_input.device, dims["num_neurons"],
+        dims["num_projects"] or dims["num_neurons"],
+        dims["num_projects"] is not None, compute_dtype, train,
+        _store_dtype(config), warn=nnet_input.device.type == "cuda")
     for i in range(dims["num_layers"]):
-        if train:
+        if not kernels:
+            fw_out, bw_out, (fw_state, bw_state) = bilstm_dual_scan(
+                params["fwd"][i], params["bwd"][i], finput, binput,
+                sequence_length, FORGET_BIAS, compute_dtype=compute_dtype,
+                reset_mask=reset_mask)
+        elif train:
             # the reference folds only where its TPU lanes allow it (an
             # input width of 128k); the same layers fold here, so that both
             # packages round dx to the store dtype at the same places

@@ -16,7 +16,12 @@ rides in as per-layer chain affines.  Training with batch norm needs each
 layer's batch statistics first, so it runs layer by layer, each BN affine
 folded into the next layer's input weights (or the dense head), through
 the bidirectional layer kernels (K1, K2) with the two half-batches as the
-two directions; so does a stack that is not uniform.  Batch statistics
+two directions; so does a stack that is not uniform, or that the stack
+kernels refuse (``stack_eligible``: past 512 units, a backward with H or P
+not divisible by 4), and a layer the layer kernels refuse
+(``lstm_kernels.layer_eligible``) runs the plain recurrence under
+autograd, with one warning (streaming, with carried states, the plain
+``cells.lstm_scan`` past 512 units).  Batch statistics
 are taken over every (b, t), padding included, as
 ``tf.layers.batch_normalization`` takes them; the running moments are
 ``state``, returned updated as ``new_state`` in training.
@@ -31,9 +36,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import lstm_kernels
+from ..ops.lstm_kernels import MAX_UNITS
 from ..ops.lstm_stack_kernels import lstm_stack_fused, stack_eligible
 from .blstm import _compute_dtype, _store_dtype
-from .cells import dropout, init_lstm_cell, recurrent_weights, truncated_normal
+from .cells import (dropout, dual_recurrence, init_lstm_cell, lstm_scan,
+                    recurrent_weights, truncated_normal)
 from .moe import apply_moe, init_moe
 
 FORGET_BIAS = 1.0
@@ -183,8 +190,15 @@ def layer_forward(cell: Dict, x, sequence_length, compute_dtype,
     gx = torch.matmul(x.to(cdt), cell["wx"].to(cdt)).float() + cell["bias"]
     gx = gx.transpose(0, 1).contiguous()                # [T, 2·half, 4H]
     wh, proj, peep = recurrent_weights(cell, cell, cdt)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (gx, wh, proj, peep)):
+    train = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (gx, wh, proj, peep))
+    units = wh.shape[2] // 4
+    if not lstm_kernels.layer_eligible(
+            x.device, units, wh.shape[1], proj is not None, cdt, train,
+            store_dtype, warn=x.device.type == "cuda"):
+        out, _, _ = dual_recurrence(gx, lengths, None, wh, proj, peep,
+                                    FORGET_BIAS)
+    elif train:
         out, _, _ = lstm_kernels._LstmLayer.apply(
             gx, wh, proj, peep, lengths, None, FORGET_BIAS, store_dtype)
     else:
@@ -205,7 +219,9 @@ def stack_layers(layers: List[Dict], x, sequence_length, residual_flags,
     states or None)."""
     if not (keep_prob < 1.0 and generator is not None):
         keep_prob = 1.0
-    if stack_eligible(layers):
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for cell in layers for t in cell.values())
+    if stack_eligible(layers, train, warn=x.device.type == "cuda"):
         seed = None
         if keep_prob < 1.0:
             seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
@@ -218,7 +234,14 @@ def stack_layers(layers: List[Dict], x, sequence_length, residual_flags,
             keep_prob=keep_prob, seed=seed, affine=affine)
     states = [] if initial_states is not None else None
     for i, cell in enumerate(layers):
-        if initial_states is not None:
+        if initial_states is not None and \
+                cell["bias"].shape[0] // 4 > MAX_UNITS:
+            # past the stack kernel's units (stack_eligible warned): the
+            # plain scan carries the state
+            out, state = lstm_scan(cell, x, sequence_length, FORGET_BIAS,
+                                   initial_states[i], compute_dtype)
+            states.append(state)
+        elif initial_states is not None:
             out, (state,) = lstm_stack_fused(
                 [cell], x, sequence_length, FORGET_BIAS,
                 compute_dtype=compute_dtype, store_dtype=store_dtype,

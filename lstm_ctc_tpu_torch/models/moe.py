@@ -7,7 +7,10 @@ expert logits); the mixed result is used directly as CTC logits.  The gate
 linear, softmax and dropout are plain torch; the expert mix goes through
 the fused kernels (``ops/moe_kernels.moe_mix_fused``: K4 in evaluation, K5
 with the K6 backward in training), which run their plain versions on the
-CPU.
+CPU.  A head the kernels refuse (``moe_kernels.mix_eligible``: more than
+128 targets, or a float32 input past 1024) takes the plain mix under
+autograd instead, with one warning, as the reference takes XLA's einsum
+(:110-140).
 """
 
 from __future__ import annotations
@@ -57,7 +60,15 @@ def apply_moe(params: Dict, x: torch.Tensor, num_experts: int,
                              device=x.device, dtype=torch.int32)
     else:
         keep_prob = 1.0
+    cdt = compute_dtype or x.dtype
+    w_expert = params["w_expert"]
+    if not moe_kernels.mix_eligible(
+            w_expert.shape[0], w_expert.shape[1] // num_experts, cdt,
+            wgrad_mode, warn=x.device.type == "cuda"):
+        return moe_kernels.moe_mix_reference(
+            x, w_expert, params["b_expert"], gate, num_experts,
+            moe_temperature, keep_prob, seed, cdt)
     return moe_kernels.moe_mix_fused(
-        x, params["w_expert"], params["b_expert"], gate, num_experts,
-        moe_temperature, keep_prob=keep_prob, seed=seed,
-        compute_dtype=compute_dtype or x.dtype, wgrad_mode=wgrad_mode)
+        x, w_expert, params["b_expert"], gate, num_experts, moe_temperature,
+        keep_prob=keep_prob, seed=seed, compute_dtype=cdt,
+        wgrad_mode=wgrad_mode)

@@ -12,11 +12,13 @@ Counterpart of ``lstm_ctc_tpu/ops/ctc.py``, the mirror of
     gradient 0.
 
 The alpha recursion runs through kernel K10 and the beta recursion through
-K11 (``ctc_kernels``); the glue around them (log-softmax, the lattice
-gather, the occupancy and its scatter back to classes) is plain PyTorch,
-as it is XLA outside the kernels in the reference.  The gradient is the
-analytic ``softmax - occupancy`` of ``ctc._backward`` (:245-326), not
-autograd through the DP.
+K11 (``ctc_kernels``), or, for a lattice the kernels refuse
+(``ctc_kernels.dp_eligible``), through their plain versions, with one
+warning, as the reference runs its scan (:197); the glue around them
+(log-softmax, the lattice gather, the occupancy and its scatter back to
+classes) is plain PyTorch, as it is XLA outside the kernels in the
+reference.  The gradient is the analytic ``softmax - occupancy`` of
+``ctc._backward`` (:245-326), not autograd through the DP.
 """
 
 from __future__ import annotations
@@ -44,6 +46,13 @@ def _lattice(labels, label_length, blank_id: int):
     return ext, valid, can_skip
 
 
+def _kernels(lp_ext) -> bool:
+    """Whether the DP goes through K10 and K11 (else their plain versions):
+    decided from the lattice's width before any launch."""
+    return ctc_kernels.dp_eligible(lp_ext.shape[2],
+                                   warn=lp_ext.device.type == "cuda")
+
+
 def _forward(logits, sequence_length, labels, label_length, blank_id):
     """Returns (loss [B], what the backward needs)."""
     max_t = logits.shape[1]
@@ -62,8 +71,10 @@ def _forward(logits, sequence_length, labels, label_length, blank_id):
                          torch.full_like(lp_ext[0], NEG_INF))
     time_mask = (torch.arange(max_t, device=device)[:, None]
                  < sequence_length.to(device).long()[None, :]).contiguous()
-    alpha_all = ctc_kernels.ctc_alpha(lp_ext, time_mask, valid.contiguous(),
-                                      can_skip.contiguous(), alpha0)
+    alpha = ctc_kernels.ctc_alpha if _kernels(lp_ext) \
+        else ctc_kernels.alpha_reference
+    alpha_all = alpha(lp_ext, time_mask, valid.contiguous(),
+                      can_skip.contiguous(), alpha0)
     alpha_last = alpha_all[-1]
 
     end = 2 * lengths[:, None]
@@ -100,9 +111,10 @@ def _backward(saved, grad_loss):
     seq = time_mask.sum(0)
     is_last = (torch.arange(max_t, device=device)[:, None]
                == (seq - 1)[None, :]).contiguous()
-    beta_all = ctc_kernels.ctc_beta(lp_ext, time_mask, is_last,
-                                    valid.contiguous(), skip_from.contiguous(),
-                                    (final_mask & valid).contiguous())
+    beta = ctc_kernels.ctc_beta if _kernels(lp_ext) \
+        else ctc_kernels.beta_reference
+    beta_all = beta(lp_ext, time_mask, is_last, valid.contiguous(),
+                    skip_from.contiguous(), (final_mask & valid).contiguous())
 
     gamma_log = alpha_all + beta_all - lp_ext - log_lik[None, :, None]
     keep = valid[None] & time_mask[:, :, None] & feasible[None, :, None]

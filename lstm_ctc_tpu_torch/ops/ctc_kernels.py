@@ -8,7 +8,10 @@ log-space DP over the 2U+1 lattice.  ``alpha_reference`` and
 ``lstm_ctc_tpu/ops/ctc.py`` (:211-225 and :290-306) in PyTorch.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.  Masks are bool tensors.
+launches its kernel or raises.  Masks are bool tensors.  The kernels take
+lattices of at most ``MAX_LATTICE`` positions; ``ops/ctc`` asks
+``dp_eligible`` first and runs the plain versions past that, as the
+reference runs its scan when the lattice leaves Pallas.
 """
 
 from __future__ import annotations
@@ -16,8 +19,23 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .route import warn_once
 
 NEG_INF = -1e30
+MAX_LATTICE = 1024  # positions a lattice row, at most (csrc/ctc_dp.cu)
+
+
+def dp_eligible(width: int, warn: bool = False) -> bool:
+    """Whether K10 and K11 take a lattice of ``width`` positions; with
+    ``warn``, a refusal warns once per process (``route.warn_once``)."""
+    if width <= MAX_LATTICE:
+        return True
+    if warn:
+        warn_once("ctc lattice", "ctc_loss: a lattice of S=%d positions "
+                  "exceeds the CUDA DP kernels' %d; using the plain "
+                  "recursion. Reduce the max label length to stay on the "
+                  "kernel path." % (width, MAX_LATTICE))
+    return False
 
 
 def _log3sum(a, b, c):
@@ -83,9 +101,9 @@ def _check(lp_ext, masks, name):
         raise ValueError("%s: lp_ext must be a contiguous float32 [T, N, S]"
                          % name)
     steps, slots, width = lp_ext.shape
-    if width > 1024:
-        raise ValueError("%s: the kernel takes lattices of at most 1024 "
-                         "positions, got %d" % (name, width))
+    if not dp_eligible(width):
+        raise ValueError("%s: the kernel takes lattices of at most %d "
+                         "positions, got %d" % (name, MAX_LATTICE, width))
     for mask, shape in masks:
         if (mask.dtype != torch.bool or tuple(mask.shape) != shape
                 or mask.device != lp_ext.device or not mask.is_contiguous()):

@@ -16,22 +16,87 @@ the dgates its recurrence keeps, as ``fusedx_bwd`` (:651-672) does with
 On a CPU tensor a wrapper runs its plain version
 (``models/cells.dual_recurrence``, ``dual_recurrence_backward``,
 ``dual_recurrence_backward_fold``); on a CUDA tensor it launches its kernel
-or raises.
+or raises.  The models ask ``layer_eligible`` first and run a layer the
+kernels refuse (past 512 units, a backward with H or P not divisible by 4,
+a shape for which K1 or K2 has no launch plan that fits a block, such as
+a bf16 layer of H = P = 384) through the plain recurrence under
+autograd.  Any other error of a kernel raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 from ..models import cells
+from .route import warn_once
+
+MAX_UNITS = 512  # hidden units of a layer, at most (8 blocks of 64: _slices)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _unplanned(units: int, out_dim: int, has_proj: bool, bf16: bool,
+               store_bf16: bool, train: bool):
+    """Which of K1 and, with ``train``, K2 has no launch plan for this
+    shape, or None: the plans' own arithmetic in the library, no CUDA call,
+    asked once a shape."""
+    lib = _build.library()
+    if not lib.lstm_fwd_fits(units, out_dim, int(has_proj), int(bf16)):
+        return "forward (K1)"
+    if train and not lib.lstm_bwd_fits(units, out_dim, int(has_proj),
+                                       int(bf16), int(store_bf16)):
+        return "backward (K2)"
+    return None
+
+
+def _refusal(device, units: int, out_dim: int, has_proj: bool, dtype,
+             train: bool, store_dtype):
+    """(reason, message) why the layer kernels refuse this layer, or
+    None."""
+    if units > MAX_UNITS:
+        return ("lstm units", "lstm: a layer of %d units exceeds the CUDA "
+                "layer kernels' %d" % (units, MAX_UNITS))
+    if train and (units % 4 or out_dim % 4):
+        return ("lstm backward width", "lstm: the CUDA layer backward takes "
+                "H and P divisible by 4, got H=%d P=%d" % (units, out_dim))
+    if torch.device(device).type != "cuda":
+        return None
+    what = _unplanned(units, out_dim, has_proj, dtype == torch.bfloat16,
+                      store_dtype == torch.bfloat16, train)
+    if what is None:
+        return None
+    return ("lstm %s plan" % what, "lstm: the CUDA layer %s has no launch "
+            "plan for a %s layer of H=%d P=%d (its threads, products or "
+            "shared memory exceed a block's)"
+            % (what, str(dtype).split(".")[-1], units, out_dim))
+
+
+def layer_eligible(device, units: int, out_dim: int, has_proj: bool, dtype,
+                   train: bool, store_dtype=torch.bfloat16,
+                   warn: bool = False) -> bool:
+    """Whether the layer kernels take a BLSTM layer (or ``models/lstm``'s
+    two half-batches) of ``units`` cells and ``out_dim`` outputs in the
+    compute ``dtype``: K1, and with ``train`` K2 (K3 takes what K2 takes),
+    its per-step states in ``store_dtype``.  A function of the shape: at
+    most 512 units; in training H and P divisible by 4; on a CUDA
+    ``device``, a launch plan of K1 (and K2) that fits a block.  With
+    ``warn``, a refusal warns once per process for each reason."""
+    refusal = _refusal(device, units, out_dim, has_proj, dtype, train,
+                       store_dtype)
+    if refusal is None:
+        return True
+    if warn:
+        warn_once(refusal[0], refusal[1] + "; using the plain recurrence "
+                  "under autograd.")
+    return False
 
 
 def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,

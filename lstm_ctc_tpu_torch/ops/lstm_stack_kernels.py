@@ -42,23 +42,34 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..models import cells
-from .lstm_kernels import _expect, _proj_rows, _ptr, _round_up, _slices
+from .lstm_kernels import (MAX_UNITS, _expect, _proj_rows, _ptr, _round_up,
+                           _slices)
 from .moe_kernels import _seed_ptr, hash_uniform
+from .route import warn_once
 
 _DIAG = ("w_i_diag", "w_f_diag", "w_o_diag")
 
 
-def stack_eligible(params_list: Sequence[Dict]) -> bool:
+def stack_eligible(params_list: Sequence[Dict], train: bool = False,
+                   warn: bool = False) -> bool:
     """The stack kernels apply when the stack is uniform (the same units,
     projection and peephole structure on every layer, every layer past the
     first fed P-wide) and layer 0 has no residual (an input as wide as the
     output would need the raw input inside the kernel), with at least two
-    layers (``lstm_stack_pallas.stack_eligible``)."""
-    if len(params_list) < 2:
-        return False
+    layers (``lstm_stack_pallas.stack_eligible``); and when the kernels
+    take its shape: at most 512 units (K1's slices), and with ``train``
+    (K13) H and P divisible by 4.  With ``warn``, a refusal of the shape
+    warns once per process for each reason."""
     p0 = params_list[0]
-    out_dim = p0["proj"].shape[1] if "proj" in p0 else p0["bias"].shape[0] // 4
-    if p0["wx"].shape[0] == out_dim:
+    units = p0["bias"].shape[0] // 4
+    out_dim = p0["proj"].shape[1] if "proj" in p0 else units
+    if units > MAX_UNITS:
+        if warn:
+            warn_once("lstm stack units", "lstm: a stack of %d units exceeds "
+                      "the CUDA stack kernels' %d; running it layer by "
+                      "layer." % (units, MAX_UNITS))
+        return False
+    if len(params_list) < 2 or p0["wx"].shape[0] == out_dim:
         return False
     for p in params_list[1:]:
         if (p["wx"].shape[0] != out_dim or p["bias"].shape != p0["bias"].shape
@@ -67,6 +78,12 @@ def stack_eligible(params_list: Sequence[Dict]) -> bool:
             return False
         if "proj" in p0 and p["proj"].shape != p0["proj"].shape:
             return False
+    if train and (units % 4 or out_dim % 4):
+        if warn:
+            warn_once("lstm stack backward width", "lstm: the CUDA stack "
+                      "backward takes H and P divisible by 4, got H=%d P=%d; "
+                      "running the stack layer by layer." % (units, out_dim))
+        return False
     return True
 
 

@@ -15,7 +15,8 @@ dtype, and the backward reads it:
     x(cdt)ᵀ·dz is one ``torch`` product with float32 sums and db = Σ dz,
     as XLA computes them outside the Pallas kernel there;
   * ``wgrad_mode="twokernel"``: K8 gives dx and dgate, and K9 recomputes
-    dz for dw and db; no dz is written;
+    dz for dw and db: in bf16 once, into a scratch, then K7's second stage
+    makes dw and db from it; in float32 one kernel, no dz written;
   * ``wgrad_mode="kernel"``: K7 gives dx, dgate, dw and db from one dz:
     in bf16 K6's body writes dz once to a scratch and the product engine
     (``csrc/wg_product.cuh``) makes dw from it; in float32 one kernel, no
@@ -33,7 +34,10 @@ On a CPU tensor a wrapper runs its plain version (``moe_mix_reference``,
 ``moe_stash_reference``, ``moe_backward_reference``,
 ``moe_backward_noemit_reference``, ``moe_wgrad_reference``,
 ``moe_backward_wgrad_reference``); on a CUDA tensor it launches its kernel
-or raises.
+or raises.  The kernels take V <= 128, and D <= 1024 where a float32
+body runs; ``models/moe.py`` asks ``mix_eligible`` first and runs the plain
+mix under autograd past that, as the reference takes XLA's einsum where
+``fused_eligible`` refuses.
 
 The bf16 bodies of K4/K5 and K6/K8 read W as a packed image, the exact
 shared-memory operand tiles of their warpgroup products (``fwd_pack``,
@@ -48,9 +52,37 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..models.cells import derived, matmul_f32
+from .route import warn_once
 
 _M32 = 0xFFFFFFFF
 WGRAD_MODES = ("xla", "twokernel", "kernel")
+MAX_V = 128    # an expert's targets, at most (every body)
+MAX_D = 1024   # input width, at most, of the float32 bodies (bf16: any)
+
+
+def mix_eligible(d: int, v: int, compute_dtype, wgrad_mode: str = "xla",
+                 warn: bool = False) -> bool:
+    """Whether the kernels of the expert mix take input width ``d`` and
+    ``v`` targets an expert in ``compute_dtype``, under ``wgrad_mode``
+    (K4 or K5 forward, and its backward: K6, K8 + K9 or K7): V <= 128,
+    and D <= 1024 where a float32 body runs (every bf16 body takes any D).
+    With ``warn``, a refusal warns once per process for each reason."""
+    if wgrad_mode not in WGRAD_MODES:
+        raise ValueError("wgrad_mode must be one of %s, got %r"
+                         % (WGRAD_MODES, wgrad_mode))
+    if v > MAX_V:
+        if warn:
+            warn_once("moe targets", "moe: %d targets an expert exceed the "
+                      "CUDA kernels' %d; using the plain mix under "
+                      "autograd." % (v, MAX_V))
+        return False
+    if d > MAX_D and compute_dtype != torch.bfloat16:
+        if warn:
+            warn_once("moe f32 width", "moe: an input width of %d exceeds the "
+                      "float32 kernels' %d; using the plain mix under "
+                      "autograd (bfloat16 takes any width)." % (d, MAX_D))
+        return False
+    return True
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -172,17 +204,17 @@ def moe_mix_reference(x, w_expert, b_expert, gate, num_experts: int,
 def _check(x, d: int, cols: int, num_experts: int, keep_prob: float,
            what: str, tensors=(), any_d: bool = False):
     """The limits the kernels take (x's device, D, E·V); returns V.  The
-    bf16 bodies of K4/K5 and K6/K8 take any D (``any_d``), the others D <=
-    1024."""
+    bf16 bodies take any D (``any_d``), the float32 ones D <= 1024
+    (``mix_eligible``)."""
     if x.device.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (what, x.device))
     v = cols // num_experts
     if v * num_experts != cols:
         raise ValueError("%s: %d columns do not split into %d experts"
                          % (what, cols, num_experts))
-    if v > 128 or (d > 1024 and not any_d):
-        raise ValueError("%s: the kernel takes V <= 128 and D <= 1024, got "
-                         "V=%d D=%d" % (what, v, d))
+    if v > MAX_V or (d > MAX_D and not any_d):
+        raise ValueError("%s: the kernel takes V <= %d and D <= %d, got "
+                         "V=%d D=%d" % (what, MAX_V, MAX_D, v, d))
     if not 0.0 < keep_prob <= 1.0:
         raise ValueError("keep_prob must be in (0, 1]")
     for t in tensors:
@@ -447,7 +479,9 @@ moe_mix_backward_noemit.launches = 0
 
 def moe_mix_wgrad(x, th, gate, gout, seed, num_experts: int, tau: float,
                   keep_prob: float):
-    """K9: (dw, db); arguments and result as ``moe_wgrad_reference``."""
+    """K9: (dw, db); arguments and result as ``moe_wgrad_reference``.
+    bf16: dz made once into a scratch, then K7's second stage, so (dw, db)
+    are K7's bit for bit; float32: one kernel."""
     if x.device.type == "cpu":
         return moe_wgrad_reference(x, th, gate, gout, seed, num_experts, tau,
                                    keep_prob)
@@ -455,8 +489,9 @@ def moe_mix_wgrad(x, th, gate, gout, seed, num_experts: int, tau: float,
     n, d = x.shape
     cdt = _compute_dtype_of(th)
     cols = th.shape[1]
+    bf16 = cdt == torch.bfloat16
     v = _check(x, d, cols, num_experts, keep_prob, what,
-               (th, gate, gout, seed))
+               (th, gate, gout, seed), any_d=bf16)
     _expect(x, (n, d), torch.float32, "x", what)
     _expect(th, (n, num_experts * v), cdt, "th", what)
     _expect(gate, (n, num_experts), torch.float32, "gate", what)
@@ -464,12 +499,20 @@ def moe_mix_wgrad(x, th, gate, gout, seed, num_experts: int, tau: float,
     dw = torch.empty(d, cols, device=x.device)
     db = torch.empty(cols, device=x.device)
     lib = _build.library()
-    launch = lib.moe_wgrad_bf16 if cdt == torch.bfloat16 \
-        else lib.moe_wgrad_f32
+    scratch = None
+    if bf16:  # dz and db's partials, then K7's second stage: K7's plan
+        floats = lib.moe_bwd_wgrad_scratch_floats(x.device.index or 0, n, d,
+                                                  num_experts, v, 1)
+        if floats < 0:
+            raise RuntimeError("moe_wgrad: the device's SM count cannot be "
+                               "read")
+        scratch = torch.empty(floats, device=x.device)
+    launch = lib.moe_wgrad_bf16 if bf16 else lib.moe_wgrad_f32
     err = launch(x.device.index or 0, x.data_ptr(), th.data_ptr(),
                  gate.data_ptr(), gout.data_ptr(),
                  _seed_ptr(seed, keep_prob, x.device), n, d, num_experts, v,
                  float(tau), float(keep_prob), dw.data_ptr(), db.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
                  _stream(x.device))
     _build.check(err, what)
     moe_mix_wgrad.launches += 1

@@ -6,7 +6,8 @@ scan path and its Pallas path in interpret mode (rtol = atol = 1e-5: the
 same float32 arithmetic, summed in another order), and against brute-force
 enumeration of the alignments on tiny lattices.  The ``cuda`` tests hold
 kernels K10 and K11 against their plain versions on the card: finite
-entries within 1e-4·max(1, |plain|) and NEG_INF at the same places.  JAX is
+entries within 1e-4·max(1, |plain|) and NEG_INF at the same places, and
+bit-equal at the lane edges.  JAX is
 imported by a fixture, so the ``cuda`` tests also run where JAX is not
 installed (pytest --noconftest).
 """
@@ -248,6 +249,23 @@ def test_alpha_kernel_lane_edges_on_gpu(cuda, width):
     ref = ctc_kernels.alpha_reference(*args)
     torch.cuda.synchronize()
     assert ctc_kernels.ctc_alpha.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 31, 32, 33, 64, 301, 1024])
+def test_beta_kernel_lane_edges_on_gpu(cuda, width):
+    """K11 on widths that end inside, at and past a warp's 32 lanes, with
+    resets several times a row at and across 32-step words, and valid,
+    skip_from and time_mask patterns that cross lane and word boundaries:
+    bit-equal to the plain version."""
+    from test_torch_ctc_beta_lanes import lattice_inputs
+    args = [t.to(cuda) for t in lattice_inputs(width)]
+    before = ctc_kernels.ctc_beta.launches
+    got = ctc_kernels.ctc_beta(*args)
+    ref = ctc_kernels.beta_reference(*args)
+    torch.cuda.synchronize()
+    assert ctc_kernels.ctc_beta.launches == before + 1
     assert torch.equal(got, ref)
 
 

@@ -373,6 +373,36 @@ def test_single_kernel_backward_edge_shapes_on_gpu(cuda, n, e, v, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("keep_prob", [1.0, 0.9])
+@pytest.mark.parametrize("n", [1, 63, 65, 150, 1100])
+@pytest.mark.parametrize("e,v,d", [(1, 8, 36), (5, 7, 120), (3, 128, 1000),
+                                   (4, 72, 1408)])
+def test_wgrad_equals_single_kernel_on_gpu(cuda, keep_prob, n, e, v, d):
+    """bf16 K9 (dz and db's partials made once, then K7's second stage) at
+    ragged row counts, E·V not a multiple of 8, V at 8 and 128, D of one
+    and of two dx slices and past 1024: (dw, db) equal K7's bit for bit,
+    within the plain bounds of test_kernels_match_plain_on_gpu, and two
+    calls on the same inputs bit-equal."""
+    case = make_case(10, n=n, d=d, e=e, v=v)
+    x, w32, b, gate, gout = (torch.from_numpy(a).to(cuda) for a in case)
+    w = w32.to(torch.bfloat16).contiguous()
+    seed = torch.tensor([SEED], dtype=torch.int32, device=cuda)
+    args = (seed, e, TAU, keep_prob)
+    _, th = moe_kernels.moe_mix_forward_stash(x, w, b, gate, *args)
+    before = moe_kernels.moe_mix_wgrad.launches
+    got = moe_kernels.moe_mix_wgrad(x, th, gate, gout, *args)
+    again = moe_kernels.moe_mix_wgrad(x, th, gate, gout, *args)
+    k7 = moe_kernels.moe_mix_backward_wgrad(x, th, w, gate, gout, *args)
+    ref = moe_kernels.moe_wgrad_reference(x, th, gate, gout, *args)
+    torch.cuda.synchronize()
+    assert moe_kernels.moe_mix_wgrad.launches == before + 2
+    for g, a, k, r in zip(got, again, k7[2:], ref):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert torch.equal(g, a) and torch.equal(g, k)
+        assert ratio(g, r) <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wgrad_mode", ["xla", "twokernel", "kernel"])
 def test_autograd_on_gpu_matches_cpu(cuda, wgrad_mode):
     """The autograd function through the kernels (f32, TF32 off) against
