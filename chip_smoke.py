@@ -34,8 +34,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the same shapes as the library yardstick; then one shape each wrapper
      module refuses, routed before any launch to the plain version (a CTC
      lattice of 1101 positions, a MoE head of V=136 in bf16 and of D=1100
-     in float32, a bf16 BLSTM layer of H=P=384 in training): equal to the
-     plain version, one warning, no kernel launch;
+     in float32, a bf16 BLSTM layer of H=P=384 in training, a bf16 lstm
+     stack of H=P=384 in training, which K12 has no plan for): equal to
+     the plain version, one warning, no kernel launch;
   7. K2 (BLSTM layer backward) against its plain version at B=32, T=384,
      H=P=320, D=640, ragged lengths, with and without resets, float32
      (TF32 off) and bfloat16 (in bfloat16 also each step replayed from
@@ -128,7 +129,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with both folds off; a profiled bf16 step of each backward variant;
      and the A/B tool (python -m lstm_ctc_tpu_torch.scripts.ab_train_step)
      on default, fold, k7 and twokernel at B=32, T=384;
- 18. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
+ 18. the shipped recipe: ``egs/synthetic/run.sh`` stages 0-5 (data and LM,
+     TLG graph, fbank + CMVN, labels + records, training through
+     train_oplr.sh with nnet-init / nnet-train / nnet-validate as separate
+     processes, lattice decode + WER) with PYTHON set to the port's shim
+     (lstm_ctc_tpu_torch/recipe_python.py --device cuda) and FSTBIN and
+     PATH to the native tools lstm_ctc_tpu_torch/_native.py builds (beside
+     the kernels' build, phase 2), at the flagship widths (BLSTM 4 x 320,
+     projection 320, 72 experts, the capacity corpus), 2 iterations; one
+     run.sh a stage, each timed, and the start of a tool through the shim
+     (python3 alone, a data tool, a model tool).  Every stage exits 0 and a
+     summary WER line exists (~95% after 2 iterations: not gated); no log
+     under exp holds a warning, and every model tool's log names the CUDA
+     device; a counted in-process nnet_forward of final.nnet with the
+     recipe's arguments (--apply-log, the class prior, smoothing 1) over
+     the test records equals the recipe's post.ark bit for bit (the same
+     kernels on the same batches), with 4 K1 and 1 K4 launches a batch;
+     nnet_decode on the dev records, greedy and at beam 4, writes one
+     hypothesis a key, and the greedy archive equals
+     host.decode.greedy_decode of the same log-posteriors;
+ 19. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
      and as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
@@ -188,6 +208,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from unittest import mock
@@ -981,6 +1002,41 @@ def check_routes(torch, pkg, device, rng):
         % (same, text))
     if not same:
         fail("the routed BLSTM layer differs from its plain version")
+
+    # the unidirectional stack, bf16 H = P = 384 in training: K12 has no
+    # plan, so layer by layer (where K1 refuses too: the plain recurrence)
+    from lstm_ctc_tpu_torch.models import lstm
+    stack, width = [], 40
+    for _ in range(3):
+        stack.append({k: t.to(device) for k, t in cells.init_lstm_cell(
+            torch.Generator().manual_seed(width), width, 384, 384,
+            True).items()})
+        width = 384
+    leaves = [t.requires_grad_() for c in stack for t in c.values()]
+    flags = [False, True, True]
+
+    def stack_step():
+        out, _ = lstm.stack_layers(stack, xb, seq, flags, torch.bfloat16)
+        return out, torch.autograd.grad(out.sum(), leaves)
+
+    sk = pkg["lstm_stack_kernels"]
+    (out, grads), text = routed(
+        torch, stack_step, (sk.lstm_stack_forward, sk.lstm_stack_backward,
+                            lk.lstm_layer_forward, lk.lstm_layer_backward),
+        r"stack forward \(K12\) has no launch plan for a bfloat16 stack "
+        "of H=384 P=384")
+    ref = xb
+    for cell, residual in zip(stack, flags):
+        o = lstm.layer_forward(cell, ref, seq, torch.bfloat16)
+        ref = o + ref if residual else o
+    ref_grads = torch.autograd.grad(ref.sum(), leaves)
+    same = bool(torch.equal(out, ref)) and all(
+        torch.equal(a, b) for a, b in zip(grads, ref_grads))
+    say("  route, lstm stack bf16 H=P=384 training: outputs and gradients "
+        "equal to the layer-by-layer plain recurrence's: %s; no K12/K13/"
+        "K1/K2 launch; warned: %s" % (same, text))
+    if not same:
+        fail("the routed lstm stack differs from its layer-by-layer version")
 
 
 def lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=False):
@@ -3046,6 +3102,190 @@ def train_families(torch, pkg, device, work, scp):
     return result
 
 
+# --- phase 18: the shipped recipe through the shim ---
+
+RECIPE_FLAGS = ["--profile", "capacity", "--num-layers", "4",
+                "--num-neurons", "320", "--num-projects", "320",
+                "--num-experts", "72", "--max-iter", "2", "--min-iters", "2"]
+RECIPE_STAGES = ("data + LM", "TLG graph", "fbank + CMVN",
+                 "labels + records", "training (train_oplr.sh)",
+                 "lattice decode + WER")
+
+
+def start_seconds(argv, env, reps=3):
+    """Median wall seconds of a command that does little but start."""
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        proc = subprocess.run(argv, env=env, capture_output=True, timeout=300)
+        times.append(time.perf_counter() - start)
+        if proc.returncode != 0:
+            fail("%s: exit %d: %s" % (argv[2:4], proc.returncode,
+                                       proc.stderr.decode()[-800:]))
+    return statistics.median(times)
+
+
+def tool_start_times(here, env, work):
+    """The start of a port tool through the shim on the card's host:
+    python3 alone, a data tool (copy-feats on one utterance; no torch) and
+    a model tool (nnet-forward --help: torch and the models imported)."""
+    from lstm_ctc_tpu_torch.host import kaldi
+    one = os.path.join(work, "one.ark")
+    with kaldi.TableWriter("ark:" + one, "matrix") as writer:
+        writer.Write("u", np.zeros((100, 40), np.float32))
+    shim = [sys.executable, os.path.join(here, "lstm_ctc_tpu_torch",
+                                         "recipe_python.py"),
+            "--device", "cuda"]
+    bin_dir = os.path.join(here, "bin")
+    return {
+        "python3": start_seconds([sys.executable, "-c", "pass"], env),
+        "copy-feats (data tool)": start_seconds(
+            shim + [os.path.join(bin_dir, "copy-feats.py"), "ark:" + one,
+                    "ark:/dev/null"], env),
+        "nnet-forward --help (model tool)": start_seconds(
+            shim + [os.path.join(bin_dir, "nnet-forward.py"), "--help"],
+            env)}
+
+
+def recipe_end_to_end(torch, pkg, device, work, native):
+    """Phase 18: ``egs/synthetic/run.sh`` stages 0-5 at the flagship widths
+    through the shim on cuda (one ``run.sh`` a stage, timed), then the
+    recipe's posteriors against a counted in-process forward, and
+    ``nnet_decode`` greedy and at beam 4."""
+    from lstm_ctc_tpu_torch.bin import nnet_decode, nnet_forward
+    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
+    from lstm_ctc_tpu_torch.host import kaldi
+    from lstm_ctc_tpu_torch.host.config import parse_config
+    from lstm_ctc_tpu_torch.host.data import iterate_batches
+    from lstm_ctc_tpu_torch.host.decode import greedy_decode
+    from lstm_ctc_tpu_torch.models import apply_model
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    shim = os.path.join(here, "lstm_ctc_tpu_torch", "recipe_python.py")
+    env = dict(os.environ, FSTBIN=native["dir"],
+               PATH=native["dir"] + os.pathsep + os.environ["PATH"],
+               PYTHON="%s %s --device cuda" % (sys.executable, shim))
+    rwork = os.path.join(work, "recipe")
+    say("  native tools: %d built in %.1f s (overlapping the kernels' "
+        "build) -> %s" % (len(native["built"]), native["seconds"],
+                          native["dir"]))
+    starts = tool_start_times(here, env, work)
+    say("  start of a tool, median of 3 (s): %s" % ", ".join(
+        "%s %.3f" % kv for kv in starts.items()))
+    seconds = {}
+    out = ""
+    for stage, name in enumerate(RECIPE_STAGES):
+        start = time.perf_counter()
+        proc = subprocess.run(
+            ["bash", os.path.join(here, "egs", "synthetic", "run.sh"),
+             "--work", rwork, "--stage", str(stage), "--stop-stage",
+             str(stage)] + RECIPE_FLAGS,
+            env=env, capture_output=True, text=True, timeout=900)
+        seconds[name] = time.perf_counter() - start
+        if proc.returncode != 0:
+            fail("recipe stage %d (%s) exit %d:\n%s\n%s"
+                 % (stage, name, proc.returncode, proc.stdout[-2000:],
+                    proc.stderr[-2000:]))
+        out = proc.stdout
+    say("  recipe stages, wall s: %s; total %.1f" % (", ".join(
+        "%d %s %.1f" % (i, n, seconds[n])
+        for i, n in enumerate(RECIPE_STAGES)), sum(seconds.values())))
+    best = re.search(r"best WER =====\n(\S+summary [^\n]*)", out)
+    if not best:
+        fail("no summary WER line in stage 5's output:\n" + out[-2000:])
+    say("  best WER (2 iterations; ~95% expected): " + best.group(1))
+
+    exp = os.path.join(rwork, "exp")
+    logs = sorted(os.path.join(base, f) for base, _, files in os.walk(exp)
+                  for f in files if f.endswith(".log"))
+    model_logs = [os.path.join(exp, f) for f in (
+        "nnet.0.cv.log", "nnet.1.tr.log", "nnet.1.cv.log", "nnet.2.tr.log",
+        "nnet.2.cv.log")] + [os.path.join(exp, "decode_test", "forward.log")]
+    for log in logs:
+        text = open(log).read()
+        if "Warning" in text:
+            fail("%s holds a warning: %s" % (log, text[-800:]))
+    for log in model_logs:
+        if "INFO:tensorflow:device cuda" not in open(log).read():
+            fail("%s does not name the CUDA device" % log)
+
+    # the recipe's posteriors against a counted in-process forward
+    config_path = os.path.join(exp, "nnet.config")
+    final = os.path.join(exp, open(os.path.join(exp,
+                                                "final.nnet")).read().strip())
+    decode_dir = os.path.join(exp, "decode_test")
+    scp = os.path.join(decode_dir, "tfrecords.scp")
+    ark = os.path.join(work, "post_inproc.ark")
+    config = parse_config(config_path)
+    num_batches = len(build_batcher(scp, config, 16).batch_plan(False, None))
+    written, _, launches, _ = run_counted(torch, pkg, lambda: nnet_forward.main(
+        [scp, config_path, final, "ark:" + ark, "--apply-log", "true",
+         "--class-prior", os.path.join(exp, "label.counts"),
+         "--smooth-factor", "1", "--device", "cuda"]))
+    want = counts(lstm_fwd=4 * num_batches, moe_fwd=num_batches)
+    expect_counts("the in-process forward of final.nnet", launches, want)
+    recipe_posts = {k: v for k, v in kaldi.SequentialBaseFloatMatrixReader(
+        "scp:" + os.path.join(decode_dir, "post.scp"))}
+    posts = read_archive(kaldi, ark)
+    if sorted(posts) != sorted(recipe_posts) or written != len(posts):
+        fail("the in-process forward's keys differ from the recipe's")
+    unequal = [k for k in posts if not np.array_equal(posts[k],
+                                                      recipe_posts[k])]
+    if unequal:
+        worst = max(float(np.abs(posts[k] - recipe_posts[k]).max())
+                    for k in unequal)
+        fail("the recipe's post.ark differs from the in-process forward "
+             "on %d of %d utterances (max |diff| %.3e)"
+             % (len(unequal), len(posts), worst))
+    say("  the recipe's post.ark = the counted in-process forward of %s, "
+        "bit for bit (%d utterances, %d batches; launches %s)"
+        % (os.path.basename(final), len(posts), num_batches,
+           {k: v for k, v in launches.items() if v}))
+
+    # nnet_decode on the dev records, greedy and at beam 4
+    dev = os.path.join(rwork, "records", "dev", "tfrecords.scp")
+    keys = sorted(line.split()[0] for line in open(dev) if line.strip())
+    hyps = {}
+    for beam in (1, 4):
+        out_ark = os.path.join(work, "hyp_%d.ark" % beam)
+        start = time.perf_counter()
+        nnet_decode.main([dev, config_path, final, "ark:" + out_ark,
+                          "--beam-width", str(beam), "--device", "cuda"])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - start
+        hyps[beam] = {k: [int(x) for x in v] for k, v in
+                      kaldi.SequentialInt32VectorReader("ark:" + out_ark)}
+        if sorted(hyps[beam]) != keys:
+            fail("nnet_decode --beam-width %d: %d hypotheses for %d keys"
+                 % (beam, len(hyps[beam]), len(keys)))
+        say("  nnet_decode --beam-width %d: %d hypotheses in %.2f s, %d "
+            "labels" % (beam, len(keys), took,
+                        sum(len(h) for h in hyps[beam].values())))
+    params, state = init_from_config(config, device)
+    params, state, _ = load_checkpoint(final, params, state)
+    greedy = {}
+    with torch.inference_mode():
+        for batch in iterate_batches(build_batcher(dev, config, 16),
+                                     shuffle=False):
+            logits, _, _, _ = apply_model(
+                params, state, torch.from_numpy(batch.nnet_input).to(device),
+                torch.from_numpy(batch.sequence_length).to(device), config)
+            lp = torch.log_softmax(logits.float(), dim=-1).cpu().numpy()
+            n = len(batch.keys)
+            for key, hyp in zip(batch.keys, greedy_decode(
+                    lp[:n], batch.sequence_length[:n])):
+                greedy[key] = hyp
+    if greedy != hyps[1]:
+        fail("nnet_decode's greedy archive differs from greedy_decode of "
+             "the same log-posteriors")
+    say("  nnet_decode greedy = host.decode.greedy_decode of the same "
+        "log-posteriors; beam 4 differs from greedy on %d of %d keys"
+        % (sum(hyps[4][k] != hyps[1][k] for k in keys), len(keys)))
+    return {"launches": launches, "seconds": seconds, "starts": starts,
+            "wer": best.group(1)}
+
+
 def reference_files():
     """Modules loaded from a file of the JAX package's directory."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3085,6 +3325,18 @@ def main() -> None:
         % (kind, torch.cuda.device_count(), smi))
     say("  torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
 
+    # the native tools of the recipe (phase 18) build beside the kernels
+    from lstm_ctc_tpu_torch import _native
+    native = {}
+
+    def build_native():
+        try:
+            native.update(_native.ensure_built())
+        except (RuntimeError, OSError) as exc:
+            native["error"] = str(exc)
+
+    native_build = threading.Thread(target=build_native)
+    native_build.start()
     info = _build.build()
     _build.library()
     phase("phase 2 build: %.1f s -> %s" % (info["seconds"], info["path"]))
@@ -3150,6 +3402,12 @@ def main() -> None:
             "model, lstm_fold_dx and moe_wgrad_mode = kernel, cuda; the A/B "
             "tool)")
         folds = train_folds_end_to_end(torch, pkg, device, work, scp)
+        phase("phase 18 the shipped recipe end to end (egs/synthetic/run.sh "
+              "stages 0-5 through the shim, flagship widths, cuda)")
+        native_build.join()
+        if "error" in native:
+            fail("the native tools did not build: %s" % native["error"])
+        recipe = recipe_end_to_end(torch, pkg, device, work, native)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -3157,7 +3415,7 @@ def main() -> None:
              % bad[:5])
 
     launches = dict(train["launches"])
-    for run in (e2e, moe_loop, serve, families, folds):
+    for run in (e2e, moe_loop, serve, families, folds, recipe):
         for k, v in run["launches"].items():
             launches[k] += v
     for name in KERNEL_NAMES:
@@ -3298,6 +3556,13 @@ def main() -> None:
            K9_FIRST_MS, ", ".join(
                "%s %.4f" % kv for kv in k9b["device_split"].items()),
            k7b["k9_ms"], k7b["ms"], k9f["ms"], two_ms, default_ms))
+    say("summary of the recipe on %s (egs/synthetic/run.sh through the "
+        "shim, flagship widths, 2 iterations): stages 0-5 %.1f s (%s); "
+        "start of a tool: %s; %s"
+        % (smi, sum(recipe["seconds"].values()), ", ".join(
+            "%s %.1f" % kv for kv in recipe["seconds"].items()), ", ".join(
+            "%s %.3f s" % kv for kv in recipe["starts"].items()),
+           recipe["wer"].rsplit("/", 1)[-1]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -3307,7 +3572,8 @@ def main() -> None:
         + [k3["k2_ms"], k3["cublas_dx_ms"], k3["cublas_dwx_ms"],
            k7b["k6_ms"], k7b["cublas_ms"], k7b["k9_ms"], k9f["ms"]] \
         + list(folds["device_ms"].values()) \
-        + [v["best"] for v in folds["ab"].values()]
+        + [v["best"] for v in folds["ab"].values()] \
+        + list(recipe["seconds"].values()) + list(recipe["starts"].values())
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

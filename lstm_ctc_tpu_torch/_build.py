@@ -172,6 +172,11 @@ def library() -> ctypes.CDLL:
     lib.lstm_fwd_fits.restype = ctypes.c_int
     lib.lstm_bwd_fits.argtypes = [_I] * 5
     lib.lstm_bwd_fits.restype = ctypes.c_int
+    # the same of K12 and (with store_bf16) K13, at any of their R
+    lib.lstm_stack_fwd_fits.argtypes = [_I] * 4
+    lib.lstm_stack_fwd_fits.restype = ctypes.c_int
+    lib.lstm_stack_bwd_fits.argtypes = [_I] * 5
+    lib.lstm_stack_bwd_fits.restype = ctypes.c_int
     lib.lstm_bwd_scratch_floats.argtypes = [_I, _I, _I, _I]
     lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
     # device, B, H, P, has_proj, bf16 -> rows a cluster, clusters, bytes

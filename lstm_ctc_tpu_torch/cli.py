@@ -1,5 +1,6 @@
 """Shared plumbing for the port's command-line tools (counterpart of
-``lstm_ctc_tpu/cli.py``)."""
+``lstm_ctc_tpu/cli.py``).  torch is imported by the helpers that need it,
+so the data tools that use this module start without it."""
 
 from __future__ import annotations
 
@@ -9,11 +10,8 @@ import os
 import sys
 from typing import Dict, Optional
 
-import torch
-
 from .host import logging_util as log
 from .host.data import BucketedBatcher, scan_label_lengths, scan_scp
-from .models import init_model
 
 
 def str2bool(v: str) -> bool:
@@ -29,8 +27,10 @@ def log_invocation(name: str, argv=None) -> None:
 
 
 def resolve_device(arg: str) -> torch.device:
-    """``cuda``, ``cuda:N`` or ``cpu``.  Asking for CUDA where there is no
-    GPU raises: the run never carries on on the CPU."""
+    """``cuda``, ``cuda:N`` or ``cpu``, logged with the card's name.
+    Asking for CUDA where there is no GPU raises: the run never carries on
+    on the CPU."""
+    import torch
     device = torch.device(arg)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -40,6 +40,8 @@ def resolve_device(arg: str) -> torch.device:
             device = torch.device("cuda", torch.cuda.current_device())
     elif device.type != "cpu":
         raise ValueError("unsupported device %r (cuda or cpu)" % arg)
+    log.info("device %s%s" % (device, " (%s)" % torch.cuda.get_device_name(
+        device) if device.type == "cuda" else ""))
     return device
 
 
@@ -70,6 +72,7 @@ def build_batcher(records_scp: str, config: Dict, batch_size: int,
 def make_shard_fn(device: torch.device):
     """Batch → dict of tensors on ``device`` (one device: a plain move;
     data parallelism is a later item)."""
+    import torch
 
     def shard_fn(batch):
         arrays = {
@@ -90,6 +93,8 @@ def make_shard_fn(device: torch.device):
 
 def init_from_config(config: Dict, device="cpu"):
     """Deterministic model init seeded from the config's ``seed`` key."""
+    import torch
+    from .models import init_model
     seed = int(config.get("seed", 777) or 777)
     generator = torch.Generator().manual_seed(seed)
     return init_model(generator, config, device)
@@ -112,6 +117,7 @@ def profile(profile_dir: Optional[str], device: torch.device):
     if not profile_dir:
         yield
         return
+    import torch
     from torch.profiler import ProfilerActivity
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":

@@ -687,13 +687,27 @@ __host__ Scratch scratch_of(const Args& a, const Launch& how) {
   return s;
 }
 
+// Whether a block of R rows a cluster fits this shape: its slices' threads
+// and its shared memory within a block's.  Host arithmetic only.
+template <typename T, typename S, int R>
+__host__ bool fits(int units, int out_dim, bool has_proj) {
+  const StackPlan pl = stack_plan<T, S>(units, out_dim, has_proj, R);
+  return R * pl.us <= kThreads && pl.bytes <= kMaxSmemPerBlock;
+}
+
+template <typename T, typename S>
+__host__ bool fits_any(int units, int out_dim, bool has_proj) {
+  return fits<T, S, 4>(units, out_dim, has_proj) || fits<T, S, 6>(units, out_dim, has_proj) ||
+         fits<T, S, 8>(units, out_dim, has_proj);
+}
+
 template <typename T, typename S, int R>
 cudaError_t config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                    Launch* how) {
   how->rows = 0;
   const bool has_proj = a.pj_rows != nullptr;
+  if (!fits<T, S, R>(a.units, a.out_dim, has_proj)) return cudaSuccess;
   const StackPlan pl = stack_plan<T, S>(a.units, a.out_dim, has_proj, R);
-  if (R * pl.us > kThreads || pl.bytes > kMaxSmemPerBlock) return cudaSuccess;
   auto kernel = stack_bwd_kernel<T, S, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
@@ -835,6 +849,19 @@ extern "C" int lstm_stack_bwd_f32(LSTM_STACK_BWD_ARGS) {
 extern "C" int lstm_stack_bwd_bf16(LSTM_STACK_BWD_ARGS) {
   return store_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(device, LSTM_STACK_BWD_PACK)
                     : launch<__nv_bfloat16, float>(device, LSTM_STACK_BWD_PACK);
+}
+
+// Whether K13 has a launch plan for this shape (1) or not (0): some R of
+// choose's whose block fits, host arithmetic only, no CUDA call.  The
+// clusters the card holds at once, which config also asks, are not counted.
+extern "C" int lstm_stack_bwd_fits(int units, int out_dim, int has_proj, int bf16,
+                                   int store_bf16) {
+  if (units <= 0 || out_dim <= 0 || units % 4 || out_dim % 4) return 0;
+  using bf = __nv_bfloat16;
+  const bool pj = has_proj != 0;
+  if (bf16)
+    return store_bf16 ? fits_any<bf, bf>(units, out_dim, pj) : fits_any<bf, float>(units, out_dim, pj);
+  return store_bf16 ? fits_any<float, bf>(units, out_dim, pj) : fits_any<float, float>(units, out_dim, pj);
 }
 
 // How K13 would launch on `device` at this shape: info = {rows a cluster,

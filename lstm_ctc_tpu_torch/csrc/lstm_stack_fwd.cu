@@ -371,15 +371,21 @@ __host__ size_t scratch_floats(const StackArgs& a, const Launch& how) {
          + (size_t)a.layers * how.tiles * kCluster;
 }
 
+// Whether a block of R rows a cluster fits this shape: its slices' threads
+// and its shared memory (`smem`) within a block's.  Host arithmetic only.
+template <typename T, int R>
+__host__ bool fits(int units, int out_dim, bool has_proj, size_t* smem) {
+  const Plan pl = plan<T>(units, out_dim, has_proj, R);
+  *smem = pl.base_bytes + pl.weight_bytes + in_stage_bytes<T>(out_dim);
+  return R * pl.us <= kThreads && *smem <= kMaxSmemPerBlock;
+}
+
 template <typename T, int R>
 cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
                    cudaLaunchAttribute* attr, Launch* how) {
   how->rows = 0;
-  const bool has_proj = a.proj_sl != nullptr;
-  const Plan pl = plan<T>(a.units, a.out_dim, has_proj, R);
-  if (R * pl.us > kThreads) return cudaSuccess;
-  const size_t smem = pl.base_bytes + pl.weight_bytes + in_stage_bytes<T>(a.out_dim);
-  if (smem > kMaxSmemPerBlock) return cudaSuccess;
+  size_t smem;
+  if (!fits<T, R>(a.units, a.out_dim, a.proj_sl != nullptr, &smem)) return cudaSuccess;
   auto kernel = stack_fwd_kernel<T, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -501,6 +507,20 @@ extern "C" int lstm_stack_fwd_f32(LSTM_STACK_FWD_ARGS) {
 
 extern "C" int lstm_stack_fwd_bf16(LSTM_STACK_FWD_ARGS) {
   return launch<__nv_bfloat16>(device, LSTM_STACK_FWD_PACK);
+}
+
+// Whether K12 has a launch plan for this shape (1) or not (0): some R of
+// choose's whose block fits, host arithmetic only, no CUDA call.  The
+// clusters the card holds at once, which config also asks, are not counted.
+extern "C" int lstm_stack_fwd_fits(int units, int out_dim, int has_proj, int bf16) {
+  if (units <= 0 || out_dim <= 0) return 0;
+  size_t smem;
+  const bool pj = has_proj != 0;
+#define FITS(T)                                                         \
+  (fits<T, 4>(units, out_dim, pj, &smem) || fits<T, 6>(units, out_dim, pj, &smem) || \
+   fits<T, 8>(units, out_dim, pj, &smem) || fits<T, 12>(units, out_dim, pj, &smem))
+  return bf16 ? FITS(__nv_bfloat16) : FITS(float);
+#undef FITS
 }
 
 // How K12 would launch on `device` at this shape: info = {rows a cluster,

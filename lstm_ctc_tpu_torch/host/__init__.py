@@ -12,6 +12,14 @@ nothing of ``lstm_ctc_tpu``.
   shards, splice/subsample, ``BucketedBatcher``
 * ``host.kaldi``         ``lstm_ctc_tpu/kaldi/{binio,specifiers,streams,table}.py``:
   Kaldi archive/scp readers and writers
-* ``host.decode``        the numpy part of ``lstm_ctc_tpu/ops/decode.py``:
-  greedy CTC decoding and edit distance (``cv_eval``)
+* ``host.decode``        ``lstm_ctc_tpu/ops/decode.py``: greedy and beam CTC
+  decoding, edit distance (``cv_eval``)
+* ``host.beam_native``   ``lstm_ctc_tpu/ops/beam_native.py``: the native beam
+  search (``libctc_beam.so`` of ``lstm_ctc_tpu_torch/_native.py``)
+* ``host.featbin``       ``lstm_ctc_tpu/featbin.py``: Kaldi-style flags,
+  column ranges, WAV reading, for the data tools
+* ``host.data.features`` ``lstm_ctc_tpu/data/features.py``: fbank, MFCC,
+  CMVN, deltas
+* ``host.lm``            ``lstm_ctc_tpu/lm/``: n-gram estimation, ARPA
+* ``host.wfst``          ``lstm_ctc_tpu/wfst/``: the CTC token FST
 """

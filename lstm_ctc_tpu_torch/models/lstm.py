@@ -18,10 +18,11 @@ folded into the next layer's input weights (or the dense head), through
 the bidirectional layer kernels (K1, K2) with the two half-batches as the
 two directions; so does a stack that is not uniform, or that the stack
 kernels refuse (``stack_eligible``: past 512 units, a backward with H or P
-not divisible by 4), and a layer the layer kernels refuse
+not divisible by 4, a shape for which K12 or K13 has no launch plan that
+fits a block), and a layer the layer kernels refuse
 (``lstm_kernels.layer_eligible``) runs the plain recurrence under
 autograd, with one warning (streaming, with carried states, the plain
-``cells.lstm_scan`` past 512 units).  Batch statistics
+``cells.lstm_scan`` where K12 refuses the layer).  Batch statistics
 are taken over every (b, t), padding included, as
 ``tf.layers.batch_normalization`` takes them; the running moments are
 ``state``, returned updated as ``new_state`` in training.
@@ -36,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import lstm_kernels
-from ..ops.lstm_kernels import MAX_UNITS
-from ..ops.lstm_stack_kernels import lstm_stack_fused, stack_eligible
+from ..ops.lstm_stack_kernels import (lstm_stack_fused, stack_eligible,
+                                      stack_layer_eligible)
 from .blstm import _compute_dtype, _store_dtype
 from .cells import (dropout, dual_recurrence, init_lstm_cell, lstm_scan,
                     recurrent_weights, truncated_normal)
@@ -221,7 +222,9 @@ def stack_layers(layers: List[Dict], x, sequence_length, residual_flags,
         keep_prob = 1.0
     train = torch.is_grad_enabled() and any(
         t.requires_grad for cell in layers for t in cell.values())
-    if stack_eligible(layers, train, warn=x.device.type == "cuda"):
+    if stack_eligible(layers, train, warn=x.device.type == "cuda",
+                      device=x.device, dtype=compute_dtype,
+                      store_dtype=store_dtype):
         seed = None
         if keep_prob < 1.0:
             seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
@@ -234,10 +237,10 @@ def stack_layers(layers: List[Dict], x, sequence_length, residual_flags,
             keep_prob=keep_prob, seed=seed, affine=affine)
     states = [] if initial_states is not None else None
     for i, cell in enumerate(layers):
-        if initial_states is not None and \
-                cell["bias"].shape[0] // 4 > MAX_UNITS:
-            # past the stack kernel's units (stack_eligible warned): the
-            # plain scan carries the state
+        if initial_states is not None and not stack_layer_eligible(
+                cell, x.device, compute_dtype, warn=x.device.type == "cuda"):
+            # past the stack kernel's units or plans (stack_eligible
+            # warned): the plain scan carries the state
             out, state = lstm_scan(cell, x, sequence_length, FORGET_BIAS,
                                    initial_states[i], compute_dtype)
             states.append(state)

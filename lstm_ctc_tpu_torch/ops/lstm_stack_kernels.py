@@ -50,16 +50,55 @@ from .route import warn_once
 _DIAG = ("w_i_diag", "w_f_diag", "w_o_diag")
 
 
+@functools.lru_cache(maxsize=None)
+def _unplanned(units: int, out_dim: int, has_proj: bool, bf16: bool,
+               store_bf16: bool, train: bool):
+    """Which of K12 and, with ``train``, K13 has no launch plan for this
+    shape, or None: the plans' own arithmetic in the library, no CUDA call,
+    asked once a shape (the plans do not depend on the batch, the steps or
+    the layers but through the clusters the card holds at once)."""
+    lib = _build.library()
+    if not lib.lstm_stack_fwd_fits(units, out_dim, int(has_proj), int(bf16)):
+        return "forward (K12)"
+    if train and not lib.lstm_stack_bwd_fits(units, out_dim, int(has_proj),
+                                             int(bf16), int(store_bf16)):
+        return "backward (K13)"
+    return None
+
+
+def _plan_refusal(device, units: int, out_dim: int, has_proj: bool, dtype,
+                  train: bool, store_dtype, warn: bool) -> bool:
+    """Whether, on a CUDA ``device``, K12 (or in training K13) has no
+    launch plan for this shape; with ``warn``, warn once per reason."""
+    if device is None or torch.device(device).type != "cuda":
+        return False
+    what = _unplanned(units, out_dim, has_proj, dtype == torch.bfloat16,
+                      store_dtype == torch.bfloat16, train)
+    if what is None:
+        return False
+    if warn:
+        warn_once("lstm stack %s plan" % what, "lstm: the CUDA stack %s has "
+                  "no launch plan for a %s stack of H=%d P=%d (its threads or "
+                  "shared memory exceed a block's); running it layer by "
+                  "layer." % (what, str(dtype).split(".")[-1], units,
+                              out_dim))
+    return True
+
+
 def stack_eligible(params_list: Sequence[Dict], train: bool = False,
-                   warn: bool = False) -> bool:
+                   warn: bool = False, device=None, dtype=torch.float32,
+                   store_dtype=torch.float32) -> bool:
     """The stack kernels apply when the stack is uniform (the same units,
     projection and peephole structure on every layer, every layer past the
     first fed P-wide) and layer 0 has no residual (an input as wide as the
     output would need the raw input inside the kernel), with at least two
     layers (``lstm_stack_pallas.stack_eligible``); and when the kernels
-    take its shape: at most 512 units (K1's slices), and with ``train``
-    (K13) H and P divisible by 4.  With ``warn``, a refusal of the shape
-    warns once per process for each reason."""
+    take its shape: at most 512 units (K1's slices), with ``train`` (K13)
+    H and P divisible by 4, and on a CUDA ``device`` a launch plan of K12
+    (and K13) in the compute ``dtype`` (K13's states in ``store_dtype``)
+    that fits a block, as ``lstm_kernels.layer_eligible`` asks K1's.  With
+    ``warn``, a refusal of the shape warns once per process for each
+    reason."""
     p0 = params_list[0]
     units = p0["bias"].shape[0] // 4
     out_dim = p0["proj"].shape[1] if "proj" in p0 else units
@@ -84,7 +123,19 @@ def stack_eligible(params_list: Sequence[Dict], train: bool = False,
                       "backward takes H and P divisible by 4, got H=%d P=%d; "
                       "running the stack layer by layer." % (units, out_dim))
         return False
-    return True
+    return not _plan_refusal(device, units, out_dim, "proj" in p0, dtype,
+                             train, store_dtype, warn)
+
+
+def stack_layer_eligible(cell: Dict, device, dtype, warn: bool = False) -> bool:
+    """Whether K12 runs this one layer forward with carried states (the
+    streaming path of a stack the stack route refused): at most 512 units
+    and, on a CUDA ``device``, a launch plan of K12 in ``dtype``."""
+    units = cell["bias"].shape[0] // 4
+    out_dim = cell["proj"].shape[1] if "proj" in cell else units
+    return units <= MAX_UNITS and not _plan_refusal(
+        device, units, out_dim, "proj" in cell, dtype, False, torch.float32,
+        warn)
 
 
 def stack_weights(params_list: Sequence[Dict], compute_dtype):

@@ -48,6 +48,10 @@ def test_port_loads_no_reference_module_and_no_jax():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "lstm_ctc_tpu_torch.host.data.pipeline" in result["imported"]
     assert "lstm_ctc_tpu_torch.bin.nnet_train" in result["imported"]
+    for name in ("recipe_python", "_native", "bin.nnet_decode",
+                 "bin.train_lm", "host.lm.ngram", "host.wfst.ctc_token_fst",
+                 "host.featbin", "host.data.features", "host.beam_native"):
+        assert "lstm_ctc_tpu_torch." + name in result["imported"]
     assert result["reference_files"] == []
     assert result["jax"] is False
 

@@ -197,6 +197,106 @@ def test_stack_eligible_shape_rules(units, out_dim, train, eligible):
     assert lstm_stack_kernels.stack_eligible(stack, train) is eligible
 
 
+class FakeStackPlans:
+    """K12's and K13's plan queries, answering from a table of shapes and
+    counting the questions; no other entry (no CUDA call) exists."""
+
+    def __init__(self, fwd, bwd):
+        self.fwd, self.bwd, self.asked = fwd, bwd, []
+
+    def lstm_stack_fwd_fits(self, units, out_dim, has_proj, bf16):
+        self.asked.append(("fwd", units, out_dim, has_proj, bf16))
+        return int((units, out_dim) in self.fwd)
+
+    def lstm_stack_bwd_fits(self, units, out_dim, has_proj, bf16,
+                            store_bf16):
+        self.asked.append(("bwd", units, out_dim, has_proj, bf16,
+                           store_bf16))
+        return int((units, out_dim) in self.bwd)
+
+
+@pytest.fixture
+def fake_stack_plans(monkeypatch, fresh_warnings):
+    plans = FakeStackPlans(fwd={(320, 320), (200, 448)}, bwd={(320, 320)})
+    monkeypatch.setattr(lstm_stack_kernels._build, "library", lambda: plans)
+    lstm_stack_kernels._unplanned.cache_clear()
+    yield plans
+    lstm_stack_kernels._unplanned.cache_clear()
+
+
+@pytest.mark.parametrize("units,out_dim,train,refused_by", [
+    (320, 320, True, None), (320, 320, False, None),
+    (384, 384, False, "forward (K12)"), (384, 384, True, "forward (K12)"),
+    (200, 448, False, None), (200, 448, True, "backward (K13)")])
+def test_stack_eligible_asks_the_plans_once_a_shape(fake_stack_plans, units,
+                                                    out_dim, train,
+                                                    refused_by):
+    """On a CUDA device the stack predicate asks K12's plan and, in
+    training, K13's (with the compute and store dtypes), once a shape: the
+    second question, for a stack of another depth, is answered from the
+    cache.  A refusal names the kernel that has no plan and warns once;
+    nothing but the two plan queries is called."""
+    cuda = torch.device("cuda")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for layers in (3, 2):
+            stack = make_stack(units, out_dim, layers=layers)
+            got = lstm_stack_kernels.stack_eligible(
+                stack, train, warn=True, device=cuda, dtype=torch.bfloat16,
+                store_dtype=torch.float32)
+            assert got is (refused_by is None)
+    want = [("fwd", units, out_dim, 1, 1)]
+    if train and refused_by != "forward (K12)":
+        want.append(("bwd", units, out_dim, 1, 1, 0))
+    assert fake_stack_plans.asked == want
+    texts = [str(w.message) for w in seen]
+    if refused_by is None:
+        assert texts == []
+    else:
+        assert len(texts) == 1
+        assert ("the CUDA stack %s has no launch plan for a bfloat16 stack "
+                "of H=%d P=%d" % (refused_by, units, out_dim)) in texts[0]
+        assert "layer by layer" in texts[0]
+
+
+def test_stack_eligible_asks_no_plan_past_the_shape_rules(fake_stack_plans):
+    """Past 512 units, a stack that is not uniform, a single layer, a
+    backward with H or P not divisible by 4, and any stack on the CPU are
+    decided before any plan is asked."""
+    cuda = torch.device("cuda")
+    bf16 = dict(dtype=torch.bfloat16, store_dtype=torch.bfloat16)
+    assert not lstm_stack_kernels.stack_eligible(make_stack(516, 516), False,
+                                                 device=cuda, **bf16)
+    mixed = make_stack(320, 320)[:2] + make_stack(384, 320)[2:]
+    assert not lstm_stack_kernels.stack_eligible(mixed, False, device=cuda,
+                                                 **bf16)
+    assert not lstm_stack_kernels.stack_eligible(make_stack(320, 320)[:1],
+                                                 False, device=cuda, **bf16)
+    assert not lstm_stack_kernels.stack_eligible(make_stack(6, 8), True,
+                                                 device=cuda, **bf16)
+    assert lstm_stack_kernels.stack_eligible(make_stack(384, 384), True,
+                                             device="cpu", **bf16)
+    assert lstm_stack_kernels.stack_eligible(make_stack(384, 384), True,
+                                             **bf16)
+    assert fake_stack_plans.asked == []
+
+
+@pytest.mark.parametrize("units,out_dim,device,eligible,asked", [
+    (320, 320, "cuda", True, True), (384, 384, "cuda", False, True),
+    (516, 516, "cuda", False, False), (384, 384, "cpu", True, False),
+    (516, 516, "cpu", False, False)])
+def test_stack_layer_eligible_edges(fake_stack_plans, units, out_dim, device,
+                                    eligible, asked):
+    """One layer with carried states (streaming, after the stack route
+    refused): K12 at most 512 units and, on a CUDA device, with a forward
+    plan; the backward is never asked."""
+    cell = make_stack(units, out_dim, layers=1)[0]
+    assert lstm_stack_kernels.stack_layer_eligible(
+        cell, torch.device(device), torch.bfloat16) is eligible
+    assert fake_stack_plans.asked == (
+        [("fwd", units, out_dim, 1, 1)] if asked else [])
+
+
 def test_refusals_warn_once_per_reason(fresh_warnings):
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
@@ -549,3 +649,122 @@ def test_layer_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
             with pytest.raises(RuntimeError, match="lstm_bwd_config"):
                 lstm_kernels.backward_config(cuda, batch, units, out_dim,
                                              True, dtype)
+
+
+# the stack shapes held against the launchers on the card: the flagship
+# lstm width, the widths past it up to K12/K13's 512 units, a narrow H
+# under a wide P, and float32
+STACK_SHAPES = [(320, 320, torch.bfloat16), (384, 384, torch.bfloat16),
+                (448, 448, torch.bfloat16), (512, 512, torch.bfloat16),
+                (200, 448, torch.bfloat16), (384, 384, torch.float32),
+                (512, 512, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units,out_dim,dtype", STACK_SHAPES,
+                         ids=["bf16-320", "bf16-384", "bf16-448", "bf16-512",
+                              "bf16-200x448", "f32-384", "f32-512"])
+def test_stack_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
+                                                         out_dim, dtype):
+    """The stack predicate's plans are the launchers' own, and depend on
+    the shape alone: at B = 3, 64 and 512 (one row tile, and waves of
+    them), where it takes a 4-layer stack K12's (in training also K13's)
+    launch plan is found, and where it refuses the launcher's plan query
+    raises.  The answers are printed for the record."""
+    stack = make_stack(units, out_dim, layers=4, d=out_dim + 8)
+    forward = lstm_stack_kernels.stack_eligible(stack, False, device=cuda,
+                                                dtype=dtype)
+    backward = lstm_stack_kernels.stack_eligible(
+        stack, True, device=cuda, dtype=dtype, store_dtype=torch.bfloat16)
+    print("stack H=%d P=%d %s: forward %s, training %s"
+          % (units, out_dim, dtype, forward, backward))
+    for batch in (3, 64, 512):
+        for train, eligible in ((False, forward), (True, backward)):
+            if train and not forward:
+                continue  # the forward's refusal decides first
+
+            def plan():
+                return lstm_stack_kernels.stack_config(
+                    cuda, 40, 4, batch, units, out_dim, True, dtype,
+                    backward=train, store_dtype=torch.bfloat16)
+
+            if eligible:
+                assert plan()["rows"] > 0
+            else:
+                with pytest.raises(RuntimeError,
+                                   match="lstm_stack_%s_config"
+                                   % ("bwd" if train else "fwd")):
+                    plan()
+
+
+def refused_stack_case(cuda, layers=3, d=20, batch=3, time_steps=17):
+    """A bf16 lstm stack of H = P = 384 (layer 0 fed D = 20, the others
+    residual) on the card, its inputs and lengths."""
+    rng = np.random.RandomState(384)
+    stack = [{k: t.to(cuda) for k, t in c.items()}
+             for c in make_stack(384, 384, layers=layers, d=d)]
+    x = torch.from_numpy(rng.randn(batch, time_steps, d).astype(
+        np.float32)).to(cuda)
+    seq = torch.tensor([time_steps, 9, 12], device=cuda)
+    return stack, x, seq, [False] + [True] * (layers - 1)
+
+
+@pytest.mark.cuda
+def test_stack_route_on_gpu(cuda, fresh_warnings):
+    """A bf16 lstm stack of H = P = 384 in training, for which K12 has no
+    launch plan (its weight slices and input stage exceed a block's shared
+    memory, as K1's do): the stack runs layer by layer (there K1 refuses
+    too: the plain recurrence under autograd), equal bit for bit to that
+    composition on the same tensors, with the stack's warning and no K12,
+    K13, K1 or K2 launch."""
+    stack, x, seq, flags = refused_stack_case(cuda)
+    leaves = [t.requires_grad_() for c in stack for t in c.values()]
+    wrappers = (lstm_stack_kernels.lstm_stack_forward,
+                lstm_stack_kernels.lstm_stack_backward,
+                lstm_kernels.lstm_layer_forward,
+                lstm_kernels.lstm_layer_backward)
+    before = counted(*wrappers)
+    with pytest.warns(UserWarning,
+                      match=r"stack forward \(K12\) has no launch plan for a "
+                      "bfloat16 stack of H=384 P=384"):
+        got, _ = lstm.stack_layers(stack, x, seq, flags, torch.bfloat16)
+    grads = torch.autograd.grad(got.sum(), leaves)
+    torch.cuda.synchronize()
+    assert counted(*wrappers) == before
+    ref = x
+    for cell, residual in zip(stack, flags):
+        out = lstm.layer_forward(cell, ref, seq, torch.bfloat16)
+        ref = out + ref if residual else out
+    ref_grads = torch.autograd.grad(ref.sum(), leaves)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ref)
+    for g, r in zip(grads, ref_grads):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_stack_streaming_route_on_gpu(cuda, fresh_warnings):
+    """The same stack with carried states (streaming): each layer through
+    the plain scan, since K12 has no plan for one layer of it either; equal
+    bit for bit to that composition, no K12 launch."""
+    stack, x, seq, flags = refused_stack_case(cuda)
+    rng = np.random.RandomState(5)
+    states = [tuple(torch.from_numpy(rng.randn(3, 384).astype(
+        np.float32)).to(cuda) for _ in range(2)) for _ in stack]
+    before = lstm_stack_kernels.lstm_stack_forward.launches
+    with torch.no_grad():
+        with pytest.warns(UserWarning, match=r"stack forward \(K12\)"):
+            got, got_states = lstm.stack_layers(stack, x, seq, flags,
+                                                torch.bfloat16,
+                                                initial_states=states)
+        ref, ref_states = x, []
+        for cell, residual, state in zip(stack, flags, states):
+            out, st = cells.lstm_scan(cell, ref, seq, lstm.FORGET_BIAS,
+                                      state, torch.bfloat16)
+            ref = out + ref if residual else out
+            ref_states.append(st)
+    torch.cuda.synchronize()
+    assert lstm_stack_kernels.lstm_stack_forward.launches == before
+    assert torch.equal(got, ref)
+    for g, r in zip(got_states, ref_states):
+        assert torch.equal(g[0], r[0]) and torch.equal(g[1], r[1])
