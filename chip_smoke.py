@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-  1. device: require CUDA; print the card's name and power limit;
+  1. device: require CUDA; print the card's name and power limit; import
+     the last slice's modules (bench, graft_entry, parallel, profile_step,
+     dp_check, the last host copies) with jax, lstm_ctc_tpu, bench and
+     __graft_entry__ refused;
   2. build: compile the kernels from lstm_ctc_tpu_torch/csrc/ (one nvcc per
      source, all started together);
   3. kernel A (K1, BLSTM layer forward) against its plain PyTorch version
@@ -148,7 +151,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      nnet_decode on the dev records, greedy and at beam 4, writes one
      hypothesis a key, and the greedy archive equals
      host.decode.greedy_decode of the same log-posteriors;
- 19. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
+ 19. the bench: ``python -m lstm_ctc_tpu_torch.bench`` at the full widths
+     (bench.py's rows; bf16), every row's rate finite and above 0, every
+     MFU in (0, 1] and the device naming the card, its JSON line printed;
+     then ``python -m lstm_ctc_tpu_torch.scripts.profile_step`` at B=32,
+     T=384: its segments and decomposition, and the full step's device ms
+     by kernel;
+ 20. data parallel on the one card: the flagship MoE model at full width,
+     float32 (TF32 off), keep 1.0, on 32 packed rows (pack factor 3): two
+     gloo ranks in two processes sharing the card (NCCL refuses two ranks
+     on one device), 16 rows each, two adam steps against the same two
+     steps in one process: the loss within 1e-4 relative, the parameters'
+     update (after - before) within 10x of what the 1-process steps give
+     from weights moved one unit in the last place (as a whole and in the
+     worst leaf), the ranks' weights equal bit for bit, and each rank's
+     launches the 1-process steps' (K1, K2, K5, K6, K10, K11); then an
+     NCCL group of one rank at keep 0.9: the 1-process steps bit for bit;
+ 21. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
      and as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
@@ -3286,6 +3305,318 @@ def recipe_end_to_end(torch, pkg, device, work, native):
             "wer": best.group(1)}
 
 
+# --- phases 19-20: the bench, profile_step and data parallelism ---
+
+BENCH_ROWS = ("flagship_b32_t384", "flagship_b64_t384",
+              "recipe_packed_pf3_b32", "lstm_b32_t384", "cudnnlstm_b32_t384",
+              "lstm_bn_b32_t384", "streaming_lstm_b1_chunk16")
+PROFILE_SEGMENTS = ("fwd_chain", "fwd_logits", "ctc_fwd", "ctc_fwdbwd",
+                    "fwd_loss", "grad", "full_step")
+
+
+def port_module(here, module, args, timeout):
+    """``python -m module args`` from the checkout; (the process, seconds).
+    A non-zero exit fails the phase."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module] + list(args),
+                          cwd=here, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        fail("python -m %s exit %d:\n%s\n%s" % (module, proc.returncode,
+                                                proc.stdout[-2000:],
+                                                proc.stderr[-3000:]))
+    return proc, seconds
+
+
+def bench_on_card(here, kind):
+    """Phase 19: ``python -m lstm_ctc_tpu_torch.bench`` at full widths,
+    every row's rate finite and above 0, every MFU in (0, 1], the device
+    named; then ``profile_step`` at B=32, T=384."""
+    proc, seconds = port_module(here, "lstm_ctc_tpu_torch.bench", [], 900)
+    line = proc.stdout.strip().splitlines()[-1]
+    result = json.loads(line)
+    rows = result["configs"]
+    if tuple(r["config"] for r in rows) != BENCH_ROWS:
+        fail("the bench's rows are %s" % [r["config"] for r in rows])
+    rates = [r["frames_per_sec"] for r in rows if "frames_per_sec" in r] + [
+        rows[-1]["ms_per_chunk"], rows[-1]["real_time_factor"],
+        result["value"], result["forward_frames_per_sec"]]
+    mfus = [result["mfu"]] + [r["mfu"] for r in rows if "mfu" in r]
+    if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+               for v in rates):
+        fail("the bench has a rate that is not finite and above 0: %s"
+             % line)
+    if not all(0 < m <= 1 for m in mfus):
+        fail("the bench has an MFU outside (0, 1]: %s" % mfus)
+    if kind not in result["device"]:
+        fail("the bench's device %r does not name %s" % (result["device"],
+                                                        kind))
+    say("  the bench (python -m lstm_ctc_tpu_torch.bench) in %.1f s:" %
+        seconds)
+    say(line)
+    proc, seconds = port_module(
+        here, "lstm_ctc_tpu_torch.scripts.profile_step",
+        ["--batch", "32", "--time-steps", "384"], 600)
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    segments = report["segments_ms"]
+    if tuple(segments) != PROFILE_SEGMENTS or not all(
+            math.isfinite(v) and v > 0 for v in segments.values()):
+        fail("profile_step's segments: %s" % segments)
+    kernels = report["full_step_device_ms_by_kernel"] or {}
+    if not kernels:
+        fail("profile_step's full_step profile saw no kernel")
+    say("  profile_step (B=32, T=384) in %.1f s: segments ms %s; "
+        "decomposition ms %s; %.1f train frames/s, mfu %.4f; full_step "
+        "device %.3f ms, longest kernels: %s"
+        % (seconds, segments, report["decomposition_ms"],
+           report["train_frames_per_sec"], report["mfu"],
+           report["full_step_device_ms"], ", ".join(
+               "%s %.3f" % (k[:60], v) for k, v in list(kernels.items())[:6])))
+    return {"bench": result, "profile": report}
+
+
+def dp_config(keep):
+    """Phase 20's model: the flagship MoE model at full width in float32."""
+    return dict(FLAGSHIP_CONFIG, dropout_rate=keep, compute_dtype="float32",
+                store_dtype="float32", packed_slots_rank_major=True)
+
+
+def dp_steps(torch, pkg, device, work, keep, nudge=False):
+    """Two adam steps of the MoE model from ``work``'s weights on its batch
+    (pack factor 3, 32 rows): this rank's rows under a process group, else
+    the whole batch; optionally from the weights moved one unit in the
+    last place.  → {"loss", "size", "counts" (JSON), "p0/<leaf>",
+    "p/<leaf>"}, the launches counted around the two steps."""
+    from lstm_ctc_tpu_torch import parallel
+    from lstm_ctc_tpu_torch.cli import init_from_config
+    from lstm_ctc_tpu_torch.models.cells import DropoutStreams
+    from lstm_ctc_tpu_torch.train.checkpoint import (flatten_tree,
+                                                     load_checkpoint)
+    from lstm_ctc_tpu_torch.train.graph import make_train_step
+    config = dp_config(keep)
+    template, state = init_from_config(config, device)
+    base, state, _ = load_checkpoint(os.path.join(work, "init.npz"),
+                                     template, state)
+    params = fresh_weights(torch, base, torch.Generator(device).manual_seed(
+        3) if nudge else None)
+    p0 = {k: v.copy() for k, v in flatten_tree(params).items()}
+    host = dict(np.load(os.path.join(work, "batch.npz")))
+    batch = parallel.shard_batch(host, device)
+    init_opt, step = make_train_step(config, 1e-3, "adam")
+    opt_state = init_opt(params)
+    streams = DropoutStreams.for_rank(device, 1, parallel.rank())
+
+    def two_steps():
+        out = []
+        for _ in range(2):
+            _, _, _, m = step(params, opt_state, state, streams, batch)
+            out.append((float(m["loss"]), int(m["size"])))
+        return out
+
+    metrics, _, launches, _ = run_counted(torch, pkg, two_steps)
+    result = {"loss": np.array([m[0] for m in metrics]),
+              "size": np.array([m[1] for m in metrics]),
+              "counts": np.array(json.dumps(launches))}
+    result.update({"p0/" + k: v for k, v in p0.items()})
+    result.update({"p/" + k: v for k, v in flatten_tree(params).items()})
+    return result
+
+
+def port_pkg():
+    from lstm_ctc_tpu_torch.host.data import records
+    from lstm_ctc_tpu_torch.models import cells, moe
+    from lstm_ctc_tpu_torch.ops import (ctc, ctc_kernels, lstm_kernels,
+                                        lstm_stack_kernels, moe_kernels)
+    return {"cells": cells, "moe": moe, "lstm_kernels": lstm_kernels,
+            "moe_kernels": moe_kernels, "records": records, "ctc": ctc,
+            "ctc_kernels": ctc_kernels,
+            "lstm_stack_kernels": lstm_stack_kernels}
+
+
+def dp_worker(argv):
+    """``chip_smoke.py --dp-worker WORK RANK WORLD BACKEND PORT KEEP``: one
+    rank of phase 20's process group on card 0; writes its two steps to
+    WORK/BACKEND_rankRANK.npz."""
+    import torch
+    work, rank, world, backend, port, keep = argv
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lstm_ctc_tpu_torch import parallel
+    device = torch.device("cuda", 0)
+    if not parallel.join(device, backend):
+        fail("rank %s did not join the %s group" % (rank, backend))
+    result = dp_steps(torch, port_pkg(), device, work, float(keep))
+    parallel.barrier()
+    parallel.leave()
+    np.savez(os.path.join(work, "%s_rank%s.npz" % (backend, rank)),
+             **result)
+
+
+def run_ranks(here, work, backend, world, keep):
+    """``world`` processes of ``dp_worker`` on card 0, started together
+    and all stopped before this returns; each rank's result."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", work,
+         str(r), str(world), backend, str(port), str(keep)], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail("%s rank %d of %d exit %d:\n%s" % (backend, r, world,
+                                                   p.returncode, log[-3000:]))
+    return [dict(np.load(os.path.join(work, "%s_rank%d.npz" % (backend, r))))
+            for r in range(world)]
+
+
+def update_gap(got, ref):
+    """(||Δgot − Δref|| / ||Δref||, [(leaf max|diff| / max|Δref|, leaf)]
+    worst first) of two runs' parameter updates over their own starts."""
+    keys = sorted(k[2:] for k in ref if k.startswith("p/"))
+    num = den = 0.0
+    leaves = []
+    for k in keys:
+        d_got = got["p/" + k] - got["p0/" + k]
+        d_ref = ref["p/" + k] - ref["p0/" + k]
+        num += float(((d_got - d_ref) ** 2).sum())
+        den += float((d_ref ** 2).sum())
+        leaves.append((float(np.abs(d_got - d_ref).max())
+                       / max(float(np.abs(d_ref).max()), 1e-30), k))
+    return math.sqrt(num / den), sorted(leaves, reverse=True)
+
+
+def data_parallel_on_card(torch, pkg, device, work, here):
+    """Phase 20: two gloo ranks sharing the card, each on 16 of 32 packed
+    rows of the flagship MoE model (float32, TF32 off, keep 1.0), against
+    the 1-process steps: the loss within 1e-4, the parameters' update
+    within 10x of a last-bit change of the weights, the ranks' weights
+    equal, each rank's launches the 1-process step's; then an NCCL group
+    of one rank at keep 0.9, bit for bit the 1-process steps."""
+    from lstm_ctc_tpu_torch.cli import init_from_config
+    from lstm_ctc_tpu_torch.graft_entry import _packed_batch
+    from lstm_ctc_tpu_torch.train.checkpoint import save_checkpoint
+    dp_dir = os.path.join(work, "dp")
+    os.makedirs(dp_dir, exist_ok=True)
+    config = dp_config(1.0)
+    params, state = init_from_config(config, device)
+    save_checkpoint(os.path.join(dp_dir, "init.npz"), params, state)
+    np.savez(os.path.join(dp_dir, "batch.npz"),
+             **_packed_batch(config, num_rows=32, pack_factor=3))
+    one = dp_steps(torch, pkg, device, dp_dir, 1.0)
+    nudged = dp_steps(torch, pkg, device, dp_dir, 1.0, nudge=True)
+    one_keep = dp_steps(torch, pkg, device, dp_dir, 0.9)
+    start = time.perf_counter()
+    gloo = run_ranks(here, dp_dir, "gloo", 2, 1.0)
+    gloo_s = time.perf_counter() - start
+    start = time.perf_counter()
+    nccl, = run_ranks(here, dp_dir, "nccl", 1, 0.9)
+    nccl_s = time.perf_counter() - start
+
+    want = json.loads(str(one["counts"]))
+    for name in ("lstm_fwd", "lstm_bwd", "moe_fwd_stash", "moe_bwd",
+                 "ctc_alpha", "ctc_beta"):
+        if want[name] == 0:
+            fail("the 1-process steps launched no %s" % name)
+    for r, res in enumerate(gloo):
+        got = json.loads(str(res["counts"]))
+        if got != want:
+            fail("gloo rank %d launched %s, the 1-process steps %s"
+                 % (r, got, want))
+    loss_rel = float(np.max(np.abs(gloo[0]["loss"] - one["loss"])
+                            / np.abs(one["loss"])))
+    grad_rel, leaves = update_gap(gloo[0], one)
+    n_rel, n_leaves = update_gap(nudged, one)
+    say("  two gloo ranks on one card (16 rows each, f32, %.1f s): loss %s "
+        "vs 1-process %s (rel %.3e, bound %.0e); sizes %s vs %s"
+        % (gloo_s, gloo[0]["loss"].tolist(), one["loss"].tolist(), loss_rel,
+           STEP_LOSS_TOL, gloo[0]["size"].tolist(), one["size"].tolist()))
+    say("  parameter update after 2 steps, ranks vs 1-process: "
+        "||diff||/||update|| %.3e (bound %.3e), worst leaf %s %.3e (bound "
+        "%.3e); the 1-process steps from weights moved one unit in the "
+        "last place: %.3e, worst leaf %s %.3e"
+        % (grad_rel, STEP_NUDGE_FACTOR * n_rel, leaves[0][1], leaves[0][0],
+           STEP_NUDGE_FACTOR * n_leaves[0][0], n_rel, n_leaves[0][1],
+           n_leaves[0][0]))
+    if (loss_rel > STEP_LOSS_TOL or gloo[0]["size"].tolist()
+            != one["size"].tolist()
+            or grad_rel > STEP_NUDGE_FACTOR * n_rel
+            or leaves[0][0] > STEP_NUDGE_FACTOR * n_leaves[0][0]):
+        fail("two data-parallel ranks differ from the 1-process steps by "
+             "more than the float32 train-step bounds")
+    unequal = [k for k in gloo[0] if k.startswith("p/")
+               and not np.array_equal(gloo[0][k], gloo[1][k])]
+    if unequal:
+        fail("the two ranks' weights differ after 2 steps: %s" % unequal[:4])
+    nccl_counts = json.loads(str(nccl["counts"]))
+    same = [k for k in one_keep if k.startswith("p/")
+            and np.array_equal(nccl[k], one_keep[k])]
+    say("  NCCL group of 1 rank (keep 0.9, %.1f s): loss %s vs 1-process "
+        "%s; %d of %d weight leaves bit-equal; launches %s"
+        % (nccl_s, nccl["loss"].tolist(), one_keep["loss"].tolist(),
+           len(same), sum(k.startswith("p/") for k in one_keep),
+           {k: v for k, v in nccl_counts.items() if v}))
+    if (not np.array_equal(nccl["loss"], one_keep["loss"])
+            or len(same) != sum(k.startswith("p/") for k in one_keep)
+            or nccl_counts != json.loads(str(one_keep["counts"]))):
+        fail("the NCCL group of one rank is not the 1-process steps bit "
+             "for bit")
+    launches = dict(want)
+    for res in gloo + [nccl, one_keep, nudged]:
+        for k, v in json.loads(str(res["counts"])).items():
+            launches[k] += v
+    return {"launches": launches, "loss_rel": loss_rel,
+            "update_rel": grad_rel, "gloo_s": gloo_s, "nccl_s": nccl_s}
+
+
+# the modules of the last slice, imported in phase 1 while jax, the JAX
+# package and its top-level scripts cannot be imported at all
+BLOCKED = ("jax", "jaxlib", "lstm_ctc_tpu", "bench", "__graft_entry__")
+SLICE_MODULES = ("bench", "graft_entry", "parallel", "parallel.mesh",
+                 "scripts.profile_step", "scripts.dp_check", "host.nbest",
+                 "host.kaldi.nnet1", "host.kaldi.nnet_example",
+                 "host.kaldi.randomizer")
+
+
+def import_blocked():
+    """Import ``SLICE_MODULES`` with the names of ``BLOCKED`` refused; fail
+    if one of them needs such a module."""
+    import importlib
+    import importlib.abc
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked: " + name)
+            return None
+
+    blocker = Blocker()
+    sys.meta_path.insert(0, blocker)
+    try:
+        for name in SLICE_MODULES:
+            try:
+                importlib.import_module("lstm_ctc_tpu_torch." + name)
+            except ImportError as exc:
+                fail("lstm_ctc_tpu_torch.%s imports a blocked module: %s"
+                     % (name, exc))
+    finally:
+        sys.meta_path.remove(blocker)
+
+
 def reference_files():
     """Modules loaded from a file of the JAX package's directory."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3302,15 +3633,9 @@ def main() -> None:
     sys.path.insert(0, here)
     if not os.path.isdir(os.path.join(here, "lstm_ctc_tpu_torch")):
         fail("the lstm_ctc_tpu_torch package is not beside this script")
+    import_blocked()
     from lstm_ctc_tpu_torch import _build
-    from lstm_ctc_tpu_torch.host.data import records
-    from lstm_ctc_tpu_torch.models import cells, moe
-    from lstm_ctc_tpu_torch.ops import (ctc, ctc_kernels, lstm_kernels,
-                                        lstm_stack_kernels, moe_kernels)
-    pkg = {"cells": cells, "moe": moe, "lstm_kernels": lstm_kernels,
-           "moe_kernels": moe_kernels, "records": records, "ctc": ctc,
-           "ctc_kernels": ctc_kernels,
-           "lstm_stack_kernels": lstm_stack_kernels}
+    pkg = port_pkg()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3323,7 +3648,9 @@ def main() -> None:
     SMI = smi
     phase("phase 1 device: %s (%d visible); nvidia-smi: %s"
         % (kind, torch.cuda.device_count(), smi))
-    say("  torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
+    say("  torch %s, CUDA %s; imported with %s blocked: %s"
+        % (torch.__version__, torch.version.cuda, ", ".join(BLOCKED),
+           ", ".join(SLICE_MODULES)))
 
     # the native tools of the recipe (phase 18) build beside the kernels
     from lstm_ctc_tpu_torch import _native
@@ -3408,6 +3735,12 @@ def main() -> None:
         if "error" in native:
             fail("the native tools did not build: %s" % native["error"])
         recipe = recipe_end_to_end(torch, pkg, device, work, native)
+        phase("phase 19 the bench (python -m lstm_ctc_tpu_torch.bench, full "
+              "widths) and profile_step (B=32, T=384)")
+        bench = bench_on_card(here, kind)
+        phase("phase 20 data parallel on the one card (two gloo ranks, "
+              "flagship MoE model, f32; an NCCL group of one rank)")
+        dp_run = data_parallel_on_card(torch, pkg, device, work, here)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -3415,7 +3748,7 @@ def main() -> None:
              % bad[:5])
 
     launches = dict(train["launches"])
-    for run in (e2e, moe_loop, serve, families, folds, recipe):
+    for run in (e2e, moe_loop, serve, families, folds, recipe, dp_run):
         for k, v in run["launches"].items():
             launches[k] += v
     for name in KERNEL_NAMES:
@@ -3563,6 +3896,18 @@ def main() -> None:
             "%s %.1f" % kv for kv in recipe["seconds"].items()), ", ".join(
             "%s %.3f s" % kv for kv in recipe["starts"].items()),
            recipe["wer"].rsplit("/", 1)[-1]))
+    headline = bench["bench"]
+    say("summary of the bench on %s: flagship_b32_t384 %.1f frames/s (mfu "
+        "%.4f), forward %.1f frames/s; rows %s; profile_step decomposition "
+        "ms %s; data parallel, two gloo ranks vs 1 process: loss rel %.3e, "
+        "update rel %.3e; NCCL group of 1 bit-equal"
+        % (smi, headline["value"], headline["mfu"],
+           headline["forward_frames_per_sec"], ", ".join(
+               "%s %s" % (r["config"], r.get("frames_per_sec",
+                                             r.get("ms_per_chunk")))
+               for r in headline["configs"]),
+           bench["profile"]["decomposition_ms"], dp_run["loss_rel"],
+           dp_run["update_rel"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -3573,7 +3918,9 @@ def main() -> None:
            k7b["k6_ms"], k7b["cublas_ms"], k7b["k9_ms"], k9f["ms"]] \
         + list(folds["device_ms"].values()) \
         + [v["best"] for v in folds["ab"].values()] \
-        + list(recipe["seconds"].values()) + list(recipe["starts"].values())
+        + list(recipe["seconds"].values()) + list(recipe["starts"].values()) \
+        + list(bench["profile"]["segments_ms"].values()) \
+        + [dp_run["gloo_s"], dp_run["nccl_s"]]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {
@@ -3582,4 +3929,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2:])
+    else:
+        main()

@@ -11,18 +11,24 @@ Restores the parameters only: the optimizer state is made fresh for each
 epoch, as the reference does.  Trains one full pass, logs the ``tr_loss``
 line and saves the shared ``.npz`` checkpoint.  ``--profile-dir`` writes
 a ``torch.profiler`` trace of the epoch.
+
+Data parallel as the reference is over every local device: under the
+standard launcher (``python -m torch.distributed.run --nproc_per_node N
+-m lstm_ctc_tpu_torch.bin.nnet_train ...``) each rank trains its rows of
+every batch; with several cards visible and no launcher, one process per
+card is started (``cli.spawn_over_cards``).  Rank 0 logs and saves.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
-import torch
-
-from .. import cli
+from .. import cli, parallel
 from ..host import logging_util as log
 from ..host.config import parse_config
 from ..host.data import iterate_batches
+from ..models.cells import DropoutStreams
 from ..train.checkpoint import load_checkpoint, save_checkpoint, tree_map
 from ..train.graph import make_train_step
 from ..train.loop import MetricsWriter, run_training_epoch
@@ -30,6 +36,11 @@ from ..train.loop import MetricsWriter, run_training_epoch
 
 def run(args) -> None:
     device = cli.resolve_device(args.device)
+    with cli.data_parallel(device) as rank:
+        train(args, device, rank)
+
+
+def train(args, device, rank: int) -> None:
     config = parse_config(args.nnet_config)
     config["is_training"] = True
     cli.check_objective_and_type(args, config)
@@ -48,21 +59,23 @@ def run(args) -> None:
         config, learn_rate=args.learn_rate, optimizer=args.optimizer,
         clip_norm=args.clip_norm)
     opt_state = init_opt(params)
-    generator = torch.Generator(device).manual_seed(args.seed)
-    metrics_writer = MetricsWriter(args.metrics_file)
+    streams = DropoutStreams.for_rank(device, args.seed, rank)
+    metrics_writer = MetricsWriter(args.metrics_file if rank == 0 else None)
     try:
-        with cli.profile(args.profile_dir, device):
+        with cli.profile(args.profile_dir if rank == 0 else None, device):
             params, opt_state, net_state, _ = run_training_epoch(
                 train_step, params, opt_state, net_state,
                 iterate_batches(batcher, shuffle=args.shuffle,
                                 seed=args.seed),
-                cli.make_shard_fn(device), generator,
+                cli.make_shard_fn(device), streams,
                 report_interval=args.report_interval,
                 metrics_writer=metrics_writer)
     finally:
         metrics_writer.close()
-    log.info('saving nnet to "%s"' % args.nnet_out)
-    save_checkpoint(args.nnet_out, params, net_state)
+    parallel.barrier()
+    if rank == 0:
+        log.info('saving nnet to "%s"' % args.nnet_out)
+        save_checkpoint(args.nnet_out, params, net_state)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,6 +116,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    code = cli.spawn_over_cards(
+        "lstm_ctc_tpu_torch.bin.nnet_train",
+        sys.argv[1:] if argv is None else argv, args.device)
+    if code is not None:
+        sys.exit(code)
+    cli.quiet_unless_rank0()
     cli.log_invocation("nnet_train", argv)
     run(args)
 

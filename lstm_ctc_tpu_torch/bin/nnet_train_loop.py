@@ -20,6 +20,11 @@ artifacts (``nnet.N`` checkpoints, ``nnet.N.done``, ``final.nnet``,
 ``nnet.N.metrics.jsonl``), prints the same lines, and resumes from the
 ``.done`` markers.
 
+Over a process group (the standard launcher, or one process per card when
+several are visible: ``cli.spawn_over_cards``) every rank runs the same
+state machine on the global losses; rank 0 alone prints and writes, and
+the others wait for its files at a barrier.
+
 The train step updates the parameter tensors in place, so the best model
 so far is kept as a detached copy and each epoch trains a copy of its own:
 a rejected epoch must not leave its weights in the next one's start.
@@ -33,11 +38,10 @@ import os
 import sys
 import time
 
-import torch
-
-from .. import cli
+from .. import cli, parallel
 from ..host.config import parse_config
 from ..host.data import iterate_batches
+from ..models.cells import DropoutStreams
 from ..train.checkpoint import load_checkpoint, save_checkpoint, tree_map
 from ..train.graph import make_eval_step, make_train_step
 from ..train.loop import (MetricsWriter, run_training_epoch,
@@ -71,12 +75,20 @@ def write_done(path, **vals):
 
 def run(args) -> None:
     device = cli.resolve_device(args.device)
+    with cli.data_parallel(device) as rank:
+        train_loop(args, device, rank)
+
+
+def train_loop(args, device, rank: int) -> None:
+    lead = rank == 0   # rank 0 alone writes; the others read after a barrier
     outdir = args.dir
-    os.makedirs(outdir, exist_ok=True)
     config_dst = os.path.join(outdir, "nnet.config")
-    if os.path.realpath(args.nnet_config) != os.path.realpath(config_dst):
-        with open(args.nnet_config) as src, open(config_dst, "w") as dst:
-            dst.write(src.read())
+    if lead:
+        os.makedirs(outdir, exist_ok=True)
+        if os.path.realpath(args.nnet_config) != os.path.realpath(config_dst):
+            with open(args.nnet_config) as src, open(config_dst, "w") as dst:
+                dst.write(src.read())
+    parallel.barrier()
     config = parse_config(config_dst)
     config["is_training"] = True
     cli.check_objective_and_type(args, config)
@@ -111,12 +123,12 @@ def run(args) -> None:
         # fresh optimizer state every epoch: the checkpoints hold the
         # trainable parameters only
         opt_state = init_opt(params)
-        writer = MetricsWriter(metrics_path)
+        writer = MetricsWriter(metrics_path if lead else None)
         try:
             params, _, net_state, stats = run_training_epoch(
                 train_step, params, opt_state, net_state,
                 iterate_batches(tr_batcher, shuffle=args.shuffle, seed=seed),
-                shard_fn, torch.Generator(device).manual_seed(seed),
+                shard_fn, DropoutStreams.for_rank(device, seed, rank),
                 report_interval=args.report_interval, metrics_writer=writer)
         finally:
             writer.close()
@@ -135,9 +147,12 @@ def run(args) -> None:
         cv_loss_best, cv_eval_best = vals["cv_loss"], vals["cv_eval"]
     else:
         params, net_state = template_params, template_state
-        save_checkpoint(nnet0, params, net_state)
+        if lead:
+            save_checkpoint(nnet0, params, net_state)
         cv_loss_best, cv_eval_best = validate(params, net_state)
-        write_done(done0, cv_loss=cv_loss_best, cv_eval=cv_eval_best)
+        if lead:
+            write_done(done0, cv_loss=cv_loss_best, cv_eval=cv_eval_best)
+        parallel.barrier()
     cv_goal_best = cv_loss_best if args.cv_goal == "loss" else cv_eval_best
     print("cv_goal_best = %.6f" % cv_goal_best, flush=True)
 
@@ -182,15 +197,18 @@ def run(args) -> None:
                     print("(ERROR) tr_loss = nan", flush=True)
                     sys.exit(1)
             params, net_state, tr_loss = result
-            save_checkpoint(nnet_out, params, net_state)
+            if lead:
+                save_checkpoint(nnet_out, params, net_state)
             cv_loss, cv_eval = validate(params, net_state)
             if not (math.isfinite(cv_loss) and math.isfinite(cv_eval)):
                 print("(ERROR) cv_loss = nan", flush=True)
                 sys.exit(1)
-            write_done(done, tr_loss=tr_loss, cv_loss=cv_loss,
-                       cv_eval=cv_eval)
-            with open(os.path.join(outdir, "final.nnet"), "w") as fh:
-                fh.write("nnet.%d\n" % it)
+            if lead:
+                write_done(done, tr_loss=tr_loss, cv_loss=cv_loss,
+                           cv_eval=cv_eval)
+                with open(os.path.join(outdir, "final.nnet"), "w") as fh:
+                    fh.write("nnet.%d\n" % it)
+            parallel.barrier()
         print("tr_loss = %.6f cv_loss = %.6f cv_eval = %.6f"
               % (tr_loss, cv_loss, cv_eval), flush=True)
 
@@ -243,8 +261,10 @@ def run(args) -> None:
                              args.min_learning_rate)
             print("halved learning rate to %g" % learn_rate, flush=True)
 
-    with open(os.path.join(outdir, "final.nnet"), "w") as fh:
-        fh.write("%s\n" % best_name)
+    if lead:
+        with open(os.path.join(outdir, "final.nnet"), "w") as fh:
+            fh.write("%s\n" % best_name)
+    parallel.barrier()
     print("%s training finished, the final model is %s/%s"
           % (stamp(), outdir, best_name), flush=True)
 
@@ -281,6 +301,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    code = cli.spawn_over_cards(
+        "lstm_ctc_tpu_torch.bin.nnet_train_loop",
+        sys.argv[1:] if argv is None else argv, args.device)
+    if code is not None:
+        sys.exit(code)
+    cli.quiet_unless_rank0()
     cli.log_invocation("nnet_train_loop", argv)
     run(args)
 

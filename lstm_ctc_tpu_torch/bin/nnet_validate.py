@@ -5,11 +5,16 @@ switches plus ``--device`` (default ``cuda``; there is no silent CPU run):
 
     python -m lstm_ctc_tpu_torch.bin.nnet_validate <records-scp> \\
         <nnet-config> <nnet-in> --objective ctc [--device cuda]
+
+Over a process group (the standard launcher, or one process per card when
+several are visible: ``cli.spawn_over_cards``) each rank evaluates its
+rows of every batch and the losses are summed over the ranks.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 from .. import cli
 from ..host.config import parse_config
@@ -21,10 +26,11 @@ def run(args) -> None:
     config = parse_config(args.nnet_config)
     config["is_training"] = False
     cli.check_objective_and_type(args, config)
-    template_params, template_state = cli.init_from_config(config, device)
-    params, net_state, _ = load_checkpoint(args.nnet_in, template_params,
-                                           template_state)
-    cli.validate(args, config, params, net_state, device)
+    with cli.data_parallel(device):
+        template_params, template_state = cli.init_from_config(config, device)
+        params, net_state, _ = load_checkpoint(args.nnet_in, template_params,
+                                               template_state)
+        cli.validate(args, config, params, net_state, device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,6 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    code = cli.spawn_over_cards(
+        "lstm_ctc_tpu_torch.bin.nnet_validate",
+        sys.argv[1:] if argv is None else argv, args.device)
+    if code is not None:
+        sys.exit(code)
+    cli.quiet_unless_rank0()
     cli.log_invocation("nnet_validate", argv)
     run(args)
 

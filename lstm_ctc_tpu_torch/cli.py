@@ -27,11 +27,14 @@ def log_invocation(name: str, argv=None) -> None:
 
 
 def resolve_device(arg: str) -> torch.device:
-    """``cuda``, ``cuda:N`` or ``cpu``, logged with the card's name.
-    Asking for CUDA where there is no GPU raises: the run never carries on
-    on the CPU."""
+    """``cuda``, ``cuda:N`` or ``cpu``, logged with the card's name; under
+    the launcher's environment ``cuda`` is this rank's card
+    (``LOCAL_RANK``).  Asking for CUDA where there is no GPU raises: the
+    run never carries on on the CPU."""
     import torch
-    device = torch.device(arg)
+
+    from .parallel import local_device
+    device = local_device(torch.device(arg))
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("--device %s: no CUDA device is available "
@@ -69,10 +72,80 @@ def build_batcher(records_scp: str, config: Dict, batch_size: int,
     )
 
 
-def make_shard_fn(device: torch.device):
-    """Batch → dict of tensors on ``device`` (one device: a plain move;
-    data parallelism is a later item)."""
+def quiet_unless_rank0() -> None:
+    """Under the launcher's environment only rank 0 logs the ``INFO:``
+    lines and prints: every other rank's are dropped from here on."""
+    if os.environ.get("RANK", "0") != "0":
+        log.quiet()
+        sys.stdout = open(os.devnull, "w")
+
+
+@contextlib.contextmanager
+def data_parallel(device: torch.device):
+    """Within the block, the process group the launcher's environment
+    describes, if any (``parallel.join``; left at the end if entered
+    here); yields this process's rank, rank 0 alone logging."""
+    from . import parallel
+    quiet_unless_rank0()
+    joined = parallel.join(device)
+    rank = parallel.rank()
+    try:
+        yield rank
+    finally:
+        if joined:
+            parallel.leave()
+
+
+def spawn_over_cards(module: str, argv, device_arg: str) -> Optional[int]:
+    """With more than one card visible, ``--device cuda`` and no launcher
+    environment, run ``python -m module argv`` once per card as the
+    standard launcher would (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), so that one call of a training tool
+    trains on every card, as the reference takes every local device; waits
+    for them and returns the first non-zero exit code (stopping the
+    others), else 0.  Returns None, having started nothing, otherwise."""
+    import socket
+    import subprocess
+    import time
+
     import torch
+    from . import parallel
+    if parallel.launched() or device_arg != "cuda" \
+            or not torch.cuda.is_available() \
+            or torch.cuda.device_count() < 2:
+        return None
+    count = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.environ.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", module] + list(argv),
+        env=dict(os.environ, WORLD_SIZE=str(count), RANK=str(r),
+                 LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(count),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                 PYTHONPATH=root + (os.pathsep + path if path else "")))
+        for r in range(count)]
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes):
+                return failed[0] if failed else 0
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            p.wait()
+
+
+def make_shard_fn(device: torch.device):
+    """Batch → dict of tensors on ``device``: the whole batch, or under a
+    process group this rank's rows (``parallel.shard_batch``)."""
+    from .parallel import shard_batch
 
     def shard_fn(batch):
         arrays = {
@@ -85,8 +158,7 @@ def make_shard_fn(device: torch.device):
             arrays["reset_mask"] = batch.reset_mask
             arrays["utt_time_index"] = batch.utt_time_index
             arrays["utt_sequence_length"] = batch.utt_sequence_length
-        return {k: torch.from_numpy(v).to(device, non_blocking=True)
-                for k, v in arrays.items()}
+        return shard_batch(arrays, device)
 
     return shard_fn
 

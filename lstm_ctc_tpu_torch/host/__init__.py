@@ -11,7 +11,10 @@ nothing of ``lstm_ctc_tpu``.
 * ``host.data``          ``lstm_ctc_tpu/data/{records,pipeline}.py``: record
   shards, splice/subsample, ``BucketedBatcher``
 * ``host.kaldi``         ``lstm_ctc_tpu/kaldi/{binio,specifiers,streams,table}.py``:
-  Kaldi archive/scp readers and writers
+  Kaldi archive/scp readers and writers; ``kaldi/nnet1.py`` (nnet1 model
+  reader), ``kaldi/nnet_example.py`` (nnet3 example reader) and
+  ``kaldi/randomizer.py`` (frame randomizers), exported as the reference
+  exports them
 * ``host.decode``        ``lstm_ctc_tpu/ops/decode.py``: greedy and beam CTC
   decoding, edit distance (``cv_eval``)
 * ``host.beam_native``   ``lstm_ctc_tpu/ops/beam_native.py``: the native beam
@@ -22,4 +25,6 @@ nothing of ``lstm_ctc_tpu``.
   CMVN, deltas
 * ``host.lm``            ``lstm_ctc_tpu/lm/``: n-gram estimation, ARPA
 * ``host.wfst``          ``lstm_ctc_tpu/wfst/``: the CTC token FST
+* ``host.nbest``         ``lstm_ctc_tpu/ops/nbest.py``: n-best targets and
+  framewise CTC paths
 """

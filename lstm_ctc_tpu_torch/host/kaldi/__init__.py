@@ -1,8 +1,9 @@
 """Kaldi-compatible binary I/O runtime (host side).
 
-The port's copy of ``lstm_ctc_tpu/kaldi/``, trimmed to the modules the port
-reaches (binio, specifiers, streams, table).  Public surface mirrors the
-reference's pyKaldiIO package (reference pyKaldiIO/__init__.py:15-34).
+The port's copy of ``lstm_ctc_tpu/kaldi/``: binio, specifiers, streams,
+table, and the nnet1 model reader, the nnet3 example reader and the
+frame randomizers.  Public surface mirrors the reference's pyKaldiIO
+package (reference pyKaldiIO/__init__.py:15-34).
 """
 
 from .binio import (
@@ -26,6 +27,15 @@ from .specifiers import (
 )
 from .streams import Input, InputStream, Output, OutputStream, open_input, open_output
 from .table import RandomAccessTableReader, SequentialTableReader, TableWriter
+from .nnet_example import NnetExample, NnetIo, read_nnet_example
+from .nnet1 import Nnet1Model
+from .randomizer import (
+    FloatVectorRandomizer,
+    Int32VectorRandomizer,
+    MatrixRandomizer,
+    NnetDataRandomizerOptions,
+    RandomizerMask,
+)
 
 
 def is_token(text: str) -> bool:

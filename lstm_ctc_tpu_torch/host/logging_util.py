@@ -18,9 +18,19 @@ import os
 import sys
 
 _TAG = os.environ.get("LSTM_CTC_TPU_LOG_TAG", "tensorflow")
+_QUIET = False
+
+
+def quiet() -> None:
+    """Drop the ``INFO:`` lines of this process from now on (the ranks of
+    a process group other than 0); warnings and fatals still show."""
+    global _QUIET
+    _QUIET = True
 
 
 def info(msg: str, *args) -> None:
+    if _QUIET:
+        return
     if args:
         msg = msg % args
     sys.stderr.write("INFO:%s:%s\n" % (_TAG, msg))

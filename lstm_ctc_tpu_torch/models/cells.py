@@ -531,15 +531,66 @@ def lstm_scan(params: Dict, x: torch.Tensor, sequence_length: torch.Tensor,
     return torch.stack(outs, dim=1), (c, h)
 
 
-def dropout(generator: torch.Generator, x: torch.Tensor,
-            keep_prob: float) -> torch.Tensor:
+class DropoutStreams:
+    """The two random streams of a training step, on one device: ``masks``
+    draws the dropout masks, ``seeds`` the hash-dropout seeds of the fused
+    kernels, and ``seed_offset`` is added to each seed drawn.  Under data
+    parallelism every rank draws its own masks (the reference's masks are
+    slices of one global mask) and the same seeds, offset by 7919·rank as
+    the reference's shard offsets them (``parallel/mesh.py``).  A plain
+    ``torch.Generator`` in their place draws both, with no offset."""
+
+    def __init__(self, masks: torch.Generator, seeds: torch.Generator,
+                 seed_offset: int = 0):
+        self.masks, self.seeds, self.seed_offset = masks, seeds, seed_offset
+
+    @classmethod
+    def for_rank(cls, device, seed: int, rank: int = 0) -> "DropoutStreams":
+        """Rank ``rank``'s streams of a run seeded with ``seed``: its own
+        masks, the seeds every rank draws, offset by 7919·rank
+        (``parallel.SEED_STRIDE``)."""
+        from ..parallel.mesh import SEED_STRIDE
+        masks = torch.Generator(device).manual_seed(seed + ((rank + 1) << 32))
+        seeds = torch.Generator(device).manual_seed(seed)
+        return cls(masks, seeds, SEED_STRIDE * rank)
+
+    def whole(self) -> "DropoutStreams":
+        """The streams of a batch every rank computes whole: the masks drawn
+        from the shared stream and no offset, so the ranks agree."""
+        return DropoutStreams(self.seeds, self.seeds, 0)
+
+
+def mask_generator(generator):
+    """The generator that draws dropout masks."""
+    return generator.masks if isinstance(generator, DropoutStreams) \
+        else generator
+
+
+def draw_seed(generator, device) -> torch.Tensor:
+    """A hash-dropout seed as a one-element int32 tensor on ``device``,
+    drawn as the reference draws it (``jax.random.randint(k, (1,),
+    -2**31, 2**31 - 1)``), plus the streams' offset (int32, wrapping)."""
+    offset = 0
+    if isinstance(generator, DropoutStreams):
+        generator, offset = generator.seeds, generator.seed_offset
+    seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
+                         device=device, dtype=torch.int32)
+    if offset:
+        seed = (seed.long() + offset).remainder(2 ** 32)
+        seed = torch.where(seed >= 2 ** 31, seed - 2 ** 32, seed).int()
+    return seed
+
+
+def dropout(generator, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
     """Inverted dropout with *keep* probability (``cells.dropout`` of the
     reference; the reference's ``dropout_rate = 0.9`` means keep 0.9).
-    The mask is drawn from ``generator``, which lies on x's device; its
-    stream differs from ``jax.random``'s."""
+    The mask is drawn from ``generator`` (a ``torch.Generator`` or the
+    masks of ``DropoutStreams``), which lies on x's device; its stream
+    differs from ``jax.random``'s."""
     if keep_prob >= 1.0:
         return x
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = torch.rand(x.shape, generator=mask_generator(generator),
+                   device=x.device)
     return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 

@@ -39,9 +39,10 @@ import torch.nn.functional as F
 from ..ops import lstm_kernels
 from ..ops.lstm_stack_kernels import (lstm_stack_fused, stack_eligible,
                                       stack_layer_eligible)
+from ..parallel.mesh import batch_moments
 from .blstm import _compute_dtype, _store_dtype
-from .cells import (dropout, dual_recurrence, init_lstm_cell, lstm_scan,
-                    recurrent_weights, truncated_normal)
+from .cells import (draw_seed, dropout, dual_recurrence, init_lstm_cell,
+                    lstm_scan, recurrent_weights, truncated_normal)
 from .moe import apply_moe, init_moe
 
 FORGET_BIAS = 1.0
@@ -140,14 +141,15 @@ def apply_bn_eval(bn_params: Dict, bn_state: Dict, x: torch.Tensor):
     return x * a + b
 
 
-def _bn_train_affine(bn_params: Dict, bn_state: Dict, x: torch.Tensor):
+def _bn_train_affine(bn_params: Dict, bn_state: Dict, x: torch.Tensor,
+                     shard=None):
     """Train-mode batch norm as a per-channel affine: ((a, b), the updated
-    running moments).  The statistics are unmasked over every leading axis;
-    the moments are detached (they are state, not a function of the
-    parameters to differentiate)."""
-    flat = x.reshape(-1, x.shape[-1])
-    mean = flat.mean(0)
-    var = flat.var(0, unbiased=False)
+    running moments).  The statistics are unmasked over every leading axis,
+    and over the global batch when ``shard`` says the rows are split over
+    a process group (``parallel.batch_moments``, differentiable); the
+    moments are detached (they are state, not a function of the parameters
+    to differentiate)."""
+    mean, var = batch_moments(x.reshape(-1, x.shape[-1]), shard)
     new_state = {
         "mean": (BN_MOMENTUM * bn_state["mean"]
                  + (1 - BN_MOMENTUM) * mean).detach(),
@@ -227,9 +229,7 @@ def stack_layers(layers: List[Dict], x, sequence_length, residual_flags,
                       store_dtype=store_dtype):
         seed = None
         if keep_prob < 1.0:
-            seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
-                                 generator=generator, device=x.device,
-                                 dtype=torch.int32)
+            seed = draw_seed(generator, x.device)
         return lstm_stack_fused(
             layers, x, sequence_length, FORGET_BIAS,
             residual_flags=residual_flags, compute_dtype=compute_dtype,
@@ -269,11 +269,14 @@ def _residual_flags(dims: Dict) -> List[bool]:
 
 
 def apply_lstm(params: Dict, state: Dict, nnet_input, sequence_length,
-               config: Dict, train: bool = False, generator=None):
+               config: Dict, train: bool = False, generator=None,
+               shard=None):
     """nnet_input ``[B, T, D·ctx]`` → (logits ``[B, T, V]``, None, [],
     new_state).  With ``train``, dropout at keep ``dropout_rate`` from
     ``generator`` (on the input's device), and batch norm with batch
-    statistics, its running moments updated in ``new_state``."""
+    statistics (global ones when ``shard``, a ``parallel.Shard``, says the
+    rows are split over a process group), its running moments updated in
+    ``new_state``."""
     dims = _dims(config)
     cdt = _compute_dtype(config, nnet_input.device)
     sdt = _store_dtype(config)
@@ -289,7 +292,7 @@ def apply_lstm(params: Dict, state: Dict, nnet_input, sequence_length,
         # kernel (the input BN into layer 0's): nothing normalized is
         # materialized between layers
         pending, new_state["bn_in"] = _bn_train_affine(
-            params["bn_in"], state["bn_in"], x)
+            params["bn_in"], state["bn_in"], x, shard)
         for i, layer in enumerate(params["layers"]):
             cell = _fold_affine_into_cell(layer, *pending)
             out = layer_forward(cell, x, sequence_length, cdt, sdt)
@@ -299,7 +302,7 @@ def apply_lstm(params: Dict, state: Dict, nnet_input, sequence_length,
             if keep_prob < 1.0:
                 out = dropout(generator, out, keep_prob)
             pending, new_state["bn"][i] = _bn_train_affine(
-                params["bn"][i], state["bn"][i], out)
+                params["bn"][i], state["bn"][i], out, shard)
             x = out
         head_affine = pending          # the last BN folds into the head
     else:

@@ -21,7 +21,7 @@ from typing import Dict
 import torch
 
 from ..ops import moe_kernels
-from .cells import dropout, truncated_normal
+from .cells import draw_seed, dropout, truncated_normal
 
 
 def init_moe(generator: torch.Generator, output_dim: int, num_targets: int,
@@ -45,19 +45,18 @@ def apply_moe(params: Dict, x: torch.Tensor, num_experts: int,
     """x ``[N, output_dim]`` → mixed logits ``[N, num_targets]``.
 
     ``compute_dtype`` is the expert product's operand precision (None:
-    x's dtype).  With keep_prob < 1 and a ``generator`` (on x's device)
-    the gate probabilities are dropped (``cells.dropout``) and the expert
-    dropout seed is drawn as a one-element int32 tensor on the device, as
-    the reference draws it with ``jax.random.randint(k, (1,), -2**31,
-    2**31 - 1)`` (:118-120); the kernels read it there, so the step never
-    waits for it.  ``wgrad_mode`` picks the backward of the weight
+    x's dtype).  With keep_prob < 1 and a ``generator`` (on x's device;
+    or ``cells.DropoutStreams``) the gate probabilities are dropped
+    (``cells.dropout``) and the expert dropout seed is drawn as a
+    one-element int32 tensor on the device (``cells.draw_seed``), as the
+    reference draws it (:118-120); the kernels read it there, so the step
+    never waits for it.  ``wgrad_mode`` picks the backward of the weight
     gradient (``moe_kernels.moe_mix_fused``)."""
     gate = torch.softmax(x @ params["w_prior"] + params["b_prior"], dim=-1)
     seed = None
     if keep_prob < 1.0 and generator is not None:
         gate = dropout(generator, gate, keep_prob)
-        seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
-                             device=x.device, dtype=torch.int32)
+        seed = draw_seed(generator, x.device)
     else:
         keep_prob = 1.0
     cdt = compute_dtype or x.dtype

@@ -9,8 +9,11 @@ Counterpart of ``lstm_ctc_tpu/models/registry.py``:
 The three ``nnet_type`` values of the reference: ``blstm``, ``lstm`` and
 ``cudnnlstm``, for evaluation and training.  ``generator`` (a
 ``torch.Generator`` on the input's device) stands in for the reference's
-``dropout_rng``.  ``state`` carries the batch-norm running moments of an
-``lstm`` with ``use_bn``; it is empty for the other models.  Packed rows
+``dropout_rng`` (or ``cells.DropoutStreams``, its two streams).
+``shard`` (a ``parallel.Shard``) says how the batch lies over a process
+group: batch-norm statistics of a split batch are global.  ``state``
+carries the batch-norm running moments of an ``lstm`` with ``use_bn``; it
+is empty for the other models.  Packed rows
 (``reset_mask``) are refused for the unidirectional families, as the
 reference refuses them.
 """
@@ -30,7 +33,7 @@ def _init_blstm(generator, config, device):
 
 
 def _apply_blstm(params, state, nnet_input, sequence_length, config,
-                 reset_mask=None, train=False, generator=None):
+                 reset_mask=None, train=False, generator=None, shard=None):
     logits, encoder, reg = _blstm.apply_blstm(
         params, nnet_input, sequence_length, config, reset_mask=reset_mask,
         train=train, generator=generator)
@@ -49,10 +52,11 @@ def _init_lstm(generator, config, device):
 
 
 def _apply_lstm(params, state, nnet_input, sequence_length, config,
-                reset_mask=None, train=False, generator=None):
+                reset_mask=None, train=False, generator=None, shard=None):
     _refuse_packed(reset_mask)
     return _lstm.apply_lstm(params, state, nnet_input, sequence_length,
-                            config, train=train, generator=generator)
+                            config, train=train, generator=generator,
+                            shard=shard)
 
 
 def _init_cudnnlstm(generator, config, device):
@@ -60,7 +64,8 @@ def _init_cudnnlstm(generator, config, device):
 
 
 def _apply_cudnnlstm(params, state, nnet_input, sequence_length, config,
-                     reset_mask=None, train=False, generator=None):
+                     reset_mask=None, train=False, generator=None,
+                     shard=None):
     _refuse_packed(reset_mask)
     logits, encoder, reg = _lstm.apply_cudnnlstm(
         params, nnet_input, sequence_length, config, train=train,
@@ -89,7 +94,8 @@ def init_model(generator: torch.Generator, config: Dict,
 
 
 def apply_model(params, state, nnet_input, sequence_length, config,
-                train=False, generator=None, reset_mask=None):
+                train=False, generator=None, reset_mask=None, shard=None):
     _, apply_fn = get_model(config["nnet_type"])
     return apply_fn(params, state, nnet_input, sequence_length, config,
-                    reset_mask=reset_mask, train=train, generator=generator)
+                    reset_mask=reset_mask, train=train, generator=generator,
+                    shard=shard)

@@ -37,18 +37,11 @@ import sys
 
 import numpy as np
 
+from lstm_ctc_tpu_torch.graft_entry import FLAGSHIP_CONFIG
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-# the flagship WSJ treatment model (egs/wsj/run_wsj_phn.sh, as
-# __graft_entry__.py:16-36 has it)
-FLAGSHIP_CONFIG = {
-    "nnet_type": "blstm", "input_dim": 40, "left_context": 1,
-    "right_context": 1, "subsample": 3, "num_layers": 4, "num_neurons": 320,
-    "num_projects": 320, "num_targets": 72, "use_peepholes": True,
-    "dropout_rate": 0.9, "num_experts": 72, "moe_temp": 10.0, "seed": 777,
-    "packed_slots_rank_major": True,
-}
 TINY = {"num_layers": 2, "num_neurons": 16, "num_projects": 16,
         "num_experts": 4}
 
@@ -67,22 +60,11 @@ def parse_variant(spec: str):
 
 
 def example_batch(config, batch, time_steps, rng_seed=0):
-    """Full-length random rows and short random labels (the port's copy of
-    ``__graft_entry__._example_batch``)."""
+    """``graft_entry._example_batch`` as a host batch: full-length random
+    rows and short random labels."""
+    from lstm_ctc_tpu_torch.graft_entry import _example_batch
     from lstm_ctc_tpu_torch.host.data.pipeline import Batch
-    rng = np.random.RandomState(rng_seed)
-    dim = config["input_dim"] * (
-        1 + config["left_context"] + config["right_context"])
-    max_u = 8
-    feats = rng.randn(batch, time_steps, dim).astype(np.float32)
-    labels = np.full((batch, max_u), -1, np.int32)
-    tgt_len = np.zeros((batch,), np.int32)
-    for b in range(batch):
-        u = rng.randint(2, max_u)
-        labels[b, :u] = rng.randint(0, config["num_targets"] - 1, u)
-        tgt_len[b] = u
-    return Batch(feats, np.full((batch,), time_steps, np.int32), labels,
-                 tgt_len)
+    return Batch(**_example_batch(config, batch, time_steps, rng_seed))
 
 
 def packed_batches(config, batch_size, pack_factor, tiny):

@@ -16,8 +16,14 @@ nnet/graph.py:51-209):
 PyTorch runs eagerly: a step is the model forward, the CTC loss,
 ``torch.autograd.grad`` and an in-place update of the parameter tensors.
 Packed batches use the row-batched rank-major view (the default under
-``packed_slots_rank_major``) or the flat gather; the reference's opt-in
-tiered view is not ported.
+``packed_slots_rank_major``), its opt-in tiered form (``ctc_tiered_slots``)
+or the flat gather.
+
+Under data parallelism (``parallel/mesh.py``) a device batch carries its
+``parallel.Shard``: each rank computes its rows' loss and gradients, the
+gradients and metrics are summed over the ranks (``parallel.combine``), and
+the L2 term's gradient is added once after that, so the clip and the
+optimizer see the global gradient and every rank stays equal.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .. import parallel
 from ..models import apply_model
+from ..models.cells import DropoutStreams
 from ..ops.ctc import ctc_loss
 from .checkpoint import leaves_with_path
 
@@ -36,13 +44,23 @@ def param_leaves(params) -> List[torch.Tensor]:
     return [leaf for _, leaf in leaves_with_path(params)]
 
 
+def _l2_leaf(key: str) -> bool:
+    return "bias" not in key.split("/")
+
+
 def l2_loss(params) -> torch.Tensor:
     """0.5·Σv² over the leaves with no path key equal to "bias"
     (``graph._l2_loss``)."""
     terms = [0.5 * torch.sum(leaf * leaf)
-             for key, leaf in leaves_with_path(params)
-             if "bias" not in key.split("/")]
+             for key, leaf in leaves_with_path(params) if _l2_leaf(key)]
     return torch.stack(terms).sum()
+
+
+def l2_grads(params, weight: float) -> List:
+    """The gradient of ``weight``·``l2_loss``: weight·v on its leaves,
+    None on the others."""
+    return [weight * leaf.detach() if _l2_leaf(key) else None
+            for key, leaf in leaves_with_path(params)]
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], clip_norm: float):
@@ -109,22 +127,52 @@ def _row_relative_slots(batch: Dict, num_rows: int, row_t: int, pf: int):
     return rel.reshape(pf, num_rows, t_u)
 
 
+def ctc_tiered_enabled(config: Dict) -> bool:
+    """The opt-in rank-tier CTC gather (``ctc_tiered_slots`` in
+    nnet.config; the reference also reads a TPU environment variable,
+    which means nothing here)."""
+    return str(config.get("ctc_tiered_slots", "") or "") in (
+        "1", "true", "True")
+
+
 def compute_losses(params, net_state, batch: Dict, config: Dict,
                    train: bool, generator=None) -> Tuple[Dict, torch.Tensor,
                                                          Dict]:
     """The shared forward → (metrics, logits, net_state).  ``batch`` is a
-    dict of tensors on the device (``cli.make_shard_fn``)."""
+    dict of tensors on the device (``cli.make_shard_fn``); under data
+    parallelism it holds this rank's rows and their ``parallel.Shard``,
+    and the metrics are this rank's."""
+    shard = batch.get(parallel.SHARD_KEY)
+    if (shard is not None and not shard.split
+            and isinstance(generator, DropoutStreams)):
+        generator = generator.whole()   # every rank computes it alike
     logits, _, reg_losses, new_state = apply_model(
         params, net_state, batch["nnet_input"], batch["sequence_length"],
         config, train=train, generator=generator,
-        reset_mask=batch.get("reset_mask"))
+        reset_mask=batch.get("reset_mask"), shard=shard)
     if "utt_time_index" in batch:
         num_rows, row_t, vocab = logits.shape
         n_slots = batch["utt_time_index"].shape[0]
         pf = n_slots // num_rows
         rank_major = (bool(config.get("packed_slots_rank_major"))
                       and pf >= 1 and n_slots == pf * num_rows)
-        if rank_major:
+        if rank_major and pf >= 2 and ctc_tiered_enabled(config):
+            # slot k·B + r holds row r's (k+1)-th longest utterance, at
+            # most ⌈row_t/(k+1)⌉ frames: each rank tier is gathered at that
+            # width and gets a CTC of its own (row-local: under data
+            # parallelism it runs on this rank's rows)
+            rel3 = _row_relative_slots(batch, num_rows, row_t, pf)
+            parts = []
+            for k in range(pf):
+                width = -(-row_t // (k + 1))
+                sl = slice(k * num_rows, (k + 1) * num_rows)
+                index = rel3[k, :, :width, None].expand(-1, -1, vocab)
+                parts.append(ctc_loss(
+                    torch.gather(logits, 1, index),
+                    batch["utt_sequence_length"][sl],
+                    batch["nnet_target"][sl], batch["target_length"][sl]))
+            per_seq = torch.cat(parts)
+        elif rank_major:
             rel3 = _row_relative_slots(batch, num_rows, row_t, pf)
             # [B, pf, T_u, V]: a gather along time, rows aligned; slots
             # fold out row-major (per_seq is only summed, so the order
@@ -159,12 +207,19 @@ def compute_losses(params, net_state, batch: Dict, config: Dict,
 
 
 def make_eval_step(config: Dict, with_logits: bool = False):
-    """Returns eval_step(params, net_state, batch) → metrics[, logits]."""
+    """Returns eval_step(params, net_state, batch) → metrics[, logits].
+    Under data parallelism the metrics are the global batch's and the
+    logits its rows, gathered from the ranks."""
 
     def eval_step(params, net_state, batch):
         with torch.no_grad():
             metrics, logits, _ = compute_losses(params, net_state, batch,
                                                 config, train=False)
+            shard = batch.get(parallel.SHARD_KEY)
+            if shard is not None:
+                _, metrics = parallel.combine(shard, [], metrics)
+                if with_logits:
+                    logits = parallel.gather_rows(shard, logits)
         return (metrics, logits) if with_logits else metrics
 
     return eval_step
@@ -178,7 +233,11 @@ def make_train_step(config: Dict, learn_rate: float, optimizer: str = "sgd",
         → (params, opt_state, net_state, metrics)
 
     The parameter tensors are updated in place (and returned); each must
-    be a float32 leaf that requires grad."""
+    be a float32 leaf that requires grad.  ``generator`` is a
+    ``torch.Generator`` on the device or ``cells.DropoutStreams``.  Under
+    data parallelism the loss's gradients and the metrics are combined
+    over the ranks (``parallel.combine``) before the L2 term's gradient is
+    added, once."""
     tx = get_optimizer(optimizer, learn_rate)
 
     def init_opt_state(params):
@@ -188,11 +247,15 @@ def make_train_step(config: Dict, learn_rate: float, optimizer: str = "sgd",
         leaves = param_leaves(params)
         metrics, _, new_state = compute_losses(
             params, net_state, batch, config, train=True, generator=generator)
-        total = metrics["loss"] + l2_decay_weight * l2_loss(params)
-        grads = torch.autograd.grad(total, leaves)
-        grads, _ = clip_by_global_norm(list(grads), clip_norm)
-        tx.update(leaves, grads, opt_state)
+        grads = list(torch.autograd.grad(metrics["loss"], leaves))
         metrics = {k: v.detach() for k, v in metrics.items()}
+        shard = batch.get(parallel.SHARD_KEY)
+        if shard is not None:
+            grads, metrics = parallel.combine(shard, grads, metrics)
+        grads = [g if d is None else g + d
+                 for g, d in zip(grads, l2_grads(params, l2_decay_weight))]
+        grads, _ = clip_by_global_norm(grads, clip_norm)
+        tx.update(leaves, grads, opt_state)
         return params, opt_state, new_state, metrics
 
     return init_opt_state, train_step

@@ -1,8 +1,9 @@
 """The port's own host modules (``lstm_ctc_tpu_torch/host``).
 
-The port imports nothing of the JAX package: a fresh interpreter that
-imports every module of ``lstm_ctc_tpu_torch`` holds no module loaded from
-a file under ``lstm_ctc_tpu/``, and no ``jax``.  The port's copy of the
+The port imports nothing of the JAX package: a fresh interpreter in which
+``jax``, ``lstm_ctc_tpu``, ``bench`` and ``__graft_entry__`` cannot be
+imported imports every module of ``lstm_ctc_tpu_torch`` and holds no
+module loaded from a file under ``lstm_ctc_tpu/``, and no ``jax``.  The port's copy of the
 batcher yields the JAX package's batches, packed and unpacked.
 """
 
@@ -25,7 +26,21 @@ from lstm_ctc_tpu_torch.host.data import (BucketedBatcher, RecordShardWriter,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 WALK = r"""
-import json, os, pkgutil, sys
+import importlib.abc, json, os, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "lstm_ctc_tpu", "bench", "__graft_entry__")
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    # the JAX package, jax and the reference's top-level scripts cannot
+    # be imported at all
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
 import lstm_ctc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     lstm_ctc_tpu_torch.__path__, "lstm_ctc_tpu_torch.")]
@@ -50,7 +65,11 @@ def test_port_loads_no_reference_module_and_no_jax():
     assert "lstm_ctc_tpu_torch.bin.nnet_train" in result["imported"]
     for name in ("recipe_python", "_native", "bin.nnet_decode",
                  "bin.train_lm", "host.lm.ngram", "host.wfst.ctc_token_fst",
-                 "host.featbin", "host.data.features", "host.beam_native"):
+                 "host.featbin", "host.data.features", "host.beam_native",
+                 "bench", "graft_entry", "parallel", "parallel.mesh",
+                 "scripts.profile_step", "host.kaldi.nnet1",
+                 "host.kaldi.nnet_example", "host.kaldi.randomizer",
+                 "host.nbest"):
         assert "lstm_ctc_tpu_torch." + name in result["imported"]
     assert result["reference_files"] == []
     assert result["jax"] is False
