@@ -14,7 +14,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      at B=32, T=384, H=P=320, D=640, ragged lengths, with and without
      packed-row resets, in float32 (TF32 off) and bfloat16; each time also
      in us a step, and bfloat16 with resets timed once more as the train
-     step calls it (per-step states kept in bfloat16);
+     step calls it (per-step states kept in bfloat16); then, with resets,
+     at the widths only 16-block clusters take (H=1024 P=256 D=512, H=P=512
+     D=1024, H=P=384 D=768), bfloat16 also each step replayed from the
+     kernel's own states; each timing line prints the launch: blocks a
+     cluster (the flagship's must be 8), R, clusters, those resident at
+     once and the waves;
   4. kernel B (MoE expert mix) against its plain version at N=12288, D=640,
      E=V=72, tau=10, keep 1.0 and 0.9; beside the bf16 kernel, cuBLAS's bare
      product x·W at the same shape (the product alone, not K4's function);
@@ -37,13 +42,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the same shapes as the library yardstick; then one shape each wrapper
      module refuses, routed before any launch to the plain version (a CTC
      lattice of 1101 positions, a MoE head of V=136 in bf16 and of D=1100
-     in float32, a bf16 BLSTM layer of H=P=384 in training, a bf16 lstm
-     stack of H=P=384 in training, which K12 has no plan for): equal to
-     the plain version, one warning, no kernel launch;
+     in float32, a bf16 BLSTM layer of H=P=1024 without a projection in
+     training): equal to the plain version, one warning, no kernel launch;
+     and a bf16 lstm stack of H=P=384 in training, which K12 has no plan
+     for, layer by layer through K1 and K2 (once each a layer);
   7. K2 (BLSTM layer backward) against its plain version at B=32, T=384,
      H=P=320, D=640, ragged lengths, with and without resets, float32
      (TF32 off) and bfloat16 (in bfloat16 also each step replayed from
-     the kernel's own carries); timed in turns;
+     the kernel's own carries); timed in turns; then at phase 3's wide
+     shapes, with resets;
   8. training end to end: the flagship's dense-head model (4x320 BLSTM,
      proj 320, peepholes, 72-way head; random weights from a seed) on a
      synthetic labeled corpus of 288 utterances, through nnet_init, then
@@ -117,7 +124,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      flagship's layers 1-3), with and without resets, float32 (TF32 off)
      and bfloat16 (each step replayed from the kernel's own carries, and
      dx, dwx and dbias against the plain input side over the kernel's own
-     dgates); timed in turns;
+     dgates); timed in turns; then at phase 3's wide shapes, with resets;
  16. K7 (the MoE head's whole backward in one kernel) against its plain
      version at phase 9's shapes, float32 and bfloat16, keep 1.0 and 0.9,
      fed K5's stash; timed in turns, beside the default (K6 + one torch
@@ -167,8 +174,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      worst leaf), the ranks' weights equal bit for bit, and each rank's
      launches the 1-process steps' (K1, K2, K5, K6, K10, K11); then an
      NCCL group of one rank at keep 0.9: the 1-process steps bit for bit;
- 21. prints the kernels' JSON line, the summary lines, the nvidia-smi line,
-     and as the last line ``{"ok": true, "device": {...}}``.
+ 21. Kaldi's BLSTMP widths end to end: the flagship MoE model at cell 1024
+     and projection 256 (layers 2-4 fed 512 wide; random weights from a
+     seed), on 16-block K1 and K2: nnet_init, 3 steps of nnet_train (adam
+     1e-3, keep 0.9, batch 32, pack factor 3, bf16), 3 more with
+     lstm_fold_dx = true (K3 on layers 2-4), nnet_forward on 64
+     utterances, on phase 8's corpus: each run counted from zero (per
+     train step 4 K1, 4 K2 (or 1 K2 and 3 K3), 1 K5, 1 K6, 1 K10, 1 K11;
+     per CV or forward batch 4 K1, 1 K4 and, in CV, 1 K10), no route
+     warning and no plain recurrence on the card, finite losses and
+     weights, the archive checked; float32 log-posteriors against the
+     plain versions';
+ 22. prints the kernels' JSON line (with rows for K1, K2 and K3 at
+     H=1024, P=256, their launches from phase 21), the summary lines, the
+     nvidia-smi line, and as the last line
+     ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
 float32, max|diff| / max|plain| <= 1e-4 per output; bfloat16 kernel A, the
@@ -333,12 +353,60 @@ def errors(got, ref):
     return diff, diff / max(scale, 1e-30)
 
 
-def check_lstm(torch, pkg, device, dtype, reset, rng):
+# the flagship's layers 1-3 (H, P, D) and the widths past its 8-block plans
+# that K1, K2 and K3 take with 16 blocks: Kaldi's BLSTMP cell and
+# projection (layers 2-4 fed 2P = 512 wide), and H = P = 512 and 384
+FLAGSHIP_LAYER = (320, 320, 640)
+WIDE_LAYERS = ((1024, 256, 512), (512, 512, 1024), (384, 384, 768))
+
+
+def layer_name(dtype, shape):
+    """'bfloat16' at the flagship's layer shape, else with H, P and D."""
+    name = str(dtype).split(".")[-1]
+    return name if shape == FLAGSHIP_LAYER else "%s H=%d P=%d D=%d" % (
+        (name,) + tuple(shape))
+
+
+def launch_line(how):
+    """A layer kernel's launch, as its launcher chooses it."""
+    return ("%d blocks a cluster, R=%d rows a cluster, %d clusters, %d "
+            "resident at once, %d wave(s), %d bytes of shared memory a block"
+            % (how["blocks"], how["rows"], how["clusters"], how["resident"],
+               how["waves"], how["smem_bytes"]))
+
+
+def layer_launch(lstm_kernels, device, which, args, dtype):
+    """K1's (``which`` forward) or K2's launch at this layer's shape, the
+    flagship's held to its 8-block plan."""
+    steps, b2, h4 = args[0].shape
+    units, out_dim = h4 // 4, args[3].shape[1]
+    config = getattr(lstm_kernels, which + "_config")
+    how = config(device, b2 // 2, units, out_dim, args[4] is not None, dtype)
+    if (units, out_dim) == FLAGSHIP_LAYER[:2] and how["blocks"] != 8:
+        fail("the flagship layer's %s launch has %d blocks a cluster, not 8"
+             % (which, how["blocks"]))
+    return how
+
+
+def lstm_fwd_bound(torch, args, outputs, dtype):
+    """(least ms, what sets it) of K1 called on ``args`` and returning
+    ``outputs``: each tensor once; the two products over the live rows
+    (each sequence's length, in both directions)."""
+    gx, seq, wh = args[0], args[1], args[3]
+    units, out_dim = gx.shape[-1] // 4, wh.shape[1]
+    rows = 2 * int(seq.sum())
+    flops = 2 * rows * (out_dim * 4 * units + units * out_dim)
+    peak = BF16_FLOPS_PER_MS if dtype == torch.bfloat16 else F32_FLOPS_PER_MS
+    return bound(tensor_bytes(torch, args, outputs), flops, peak)
+
+
+def check_lstm(torch, pkg, device, dtype, reset, rng, shape=FLAGSHIP_LAYER):
     cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
-    batch, steps, dim, units = 32, 384, 640, 320
+    units, out_dim, dim = shape
+    batch, steps = 32, 384
     gen = torch.Generator().manual_seed(11)
-    fw = cells.init_lstm_cell(gen, dim, units, units, True, device)
-    bw = cells.init_lstm_cell(gen, dim, units, units, True, device)
+    fw = cells.init_lstm_cell(gen, dim, units, out_dim, True, device)
+    bw = cells.init_lstm_cell(gen, dim, units, out_dim, True, device)
     x = torch.from_numpy(rng.randn(batch, steps, dim).astype(np.float32)).to(device)
     lengths = rng.randint(steps // 2, steps + 1, batch)
     lengths[0] = steps
@@ -357,24 +425,44 @@ def check_lstm(torch, pkg, device, dtype, reset, rng):
     got = lstm_kernels.lstm_layer_forward(*args)
     ref = cells.dual_recurrence(*args)
     torch.cuda.synchronize()
+    name = layer_name(dtype, shape)
     worst_abs = worst_rel = 0.0
-    for name, g, r in zip(("out", "c_fin", "h_fin"), got, ref):
+    for out, g, r in zip(("out", "c_fin", "h_fin"), got, ref):
         if not torch.isfinite(g).all():
-            fail("kernel A %s: non-finite %s" % (dtype, name))
+            fail("kernel A %s: non-finite %s" % (name, out))
         abs_err, rel_err = errors(g, r)
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel_err)
         say("  kernel A %-8s reset=%-5s %-5s max_abs %.3e  rel %.3e"
-            % (str(dtype).split(".")[-1], reset, name, abs_err, rel_err))
+            % (name, reset, out, abs_err, rel_err))
     tol = F32_REL_TOL if dtype == torch.float32 else BF16_LSTM_REL_TOL
     if worst_rel > tol:
         fail("kernel A %s reset=%s: relative error %.3e > %.1e"
-             % (dtype, reset, worst_rel, tol))
+             % (name, reset, worst_rel, tol))
+    if dtype == torch.bfloat16 and shape != FLAGSHIP_LAYER:
+        # each step from the kernel's own states of the step before, as on
+        # the main path (phase 5)
+        full = lstm_kernels.lstm_layer_forward(*args, states=True)
+        step_rel = max(errors(g, r)[1] for g, r in zip(
+            (full[0], full[3], full[4]),
+            cells.replay_steps(*args, full[3], full[4])))
+        say("  kernel A %s reset=%-5s per step max rel %.3e (bound %.0e)"
+            % (name, reset, step_rel, BF16_STEP_REL_TOL))
+        if step_rel > BF16_STEP_REL_TOL:
+            fail("kernel A %s: a step's relative error %.3e > %.1e"
+                 % (name, step_rel, BF16_STEP_REL_TOL))
     ms, plain_ms = time_in_turns(
         torch, lambda: lstm_kernels.lstm_layer_forward(*args),
         lambda: cells.dual_recurrence(*args), rounds=5)
-    say("  kernel A %-8s reset=%-5s kernel %.3f ms (%.2f us a step)  plain "
-        "%.3f ms" % (str(dtype).split(".")[-1], reset, ms, ms / steps * 1e3,
-                     plain_ms))
+    how = layer_launch(lstm_kernels, device, "forward", args, dtype)
+    say("  kernel A %-8s reset=%-5s kernel %.3f ms (%.2f us a step; %s)  "
+        "plain %.3f ms" % (name, reset, ms, ms / steps * 1e3, launch_line(how),
+                           plain_ms))
+    if shape != FLAGSHIP_LAYER:
+        bound_ms, bound_by = lstm_fwd_bound(torch, args, got, dtype)
+        say("  kernel A %s reset=%-5s bound %.4f ms (%s)"
+            % (name, reset, bound_ms, bound_by))
+        return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
     if dtype == torch.bfloat16 and reset:
         # as the train step calls it: the per-step states kept in bf16
         train_ms = median_ms(torch, lambda: lstm_kernels.lstm_layer_forward(
@@ -987,9 +1075,10 @@ def check_routes(torch, pkg, device, rng):
         if not same:
             fail("the routed MoE head differs from its plain version")
 
-    # BLSTM, bf16 H = P = 384 in training
+    # BLSTM, bf16 H = P = 1024 without a projection in training (wh's
+    # slices exceed shared memory even with 16 blocks)
     config = {"nnet_type": "blstm", "input_dim": 40, "num_layers": 1,
-              "num_neurons": 384, "num_projects": 384, "num_targets": 72,
+              "num_neurons": 1024, "num_projects": 0, "num_targets": 72,
               "use_peepholes": True, "compute_dtype": "bfloat16"}
     params = blstm.init_blstm(torch.Generator().manual_seed(384), config,
                               device)
@@ -1005,25 +1094,26 @@ def check_routes(torch, pkg, device, rng):
         torch, layer, (lk.lstm_layer_forward, lk.lstm_layer_backward,
                        lk.lstm_layer_backward_fold),
         r"forward \(K1\) has no launch plan for a bfloat16 layer of "
-        "H=384 P=384")
+        "H=1024 P=1024")
     fw, bw, _ = cells.bilstm_dual_scan(
         params["fwd"][0], params["bwd"][0], xb,
         cells.reverse_sequence(xb, seq), seq, blstm.FORGET_BIAS,
         compute_dtype=torch.bfloat16)
     cat = torch.cat([fw, cells.reverse_sequence(bw, seq)], dim=2)
-    ref = (cat.reshape(-1, 768) @ params["head"]["w"]
+    ref = (cat.reshape(-1, 2048) @ params["head"]["w"]
            + params["head"]["b"]).reshape(logits.shape)
     ref_grads = torch.autograd.grad(ref.sum(), leaves)
     same = bool(torch.equal(logits, ref)) and all(
         torch.equal(a, b) for a, b in zip(grads, ref_grads))
-    say("  route, BLSTM bf16 H=P=384 training: logits and gradients equal "
-        "to the plain recurrence's: %s; no K1/K2/K3 launch; warned: %s"
+    say("  route, BLSTM bf16 H=P=1024 (no projection) training: logits and "
+        "gradients equal to the plain recurrence's: %s; no K1/K2/K3 launch; "
+        "warned: %s"
         % (same, text))
     if not same:
         fail("the routed BLSTM layer differs from its plain version")
 
     # the unidirectional stack, bf16 H = P = 384 in training: K12 has no
-    # plan, so layer by layer (where K1 refuses too: the plain recurrence)
+    # plan, so layer by layer, through K1 and K2 (16-block clusters)
     from lstm_ctc_tpu_torch.models import lstm
     stack, width = [], 40
     for _ in range(3):
@@ -1039,11 +1129,17 @@ def check_routes(torch, pkg, device, rng):
         return out, torch.autograd.grad(out.sum(), leaves)
 
     sk = pkg["lstm_stack_kernels"]
+    layer_before = [lk.lstm_layer_forward.launches,
+                    lk.lstm_layer_backward.launches]
     (out, grads), text = routed(
-        torch, stack_step, (sk.lstm_stack_forward, sk.lstm_stack_backward,
-                            lk.lstm_layer_forward, lk.lstm_layer_backward),
+        torch, stack_step, (sk.lstm_stack_forward, sk.lstm_stack_backward),
         r"stack forward \(K12\) has no launch plan for a bfloat16 stack "
         "of H=384 P=384")
+    layer_launches = [lk.lstm_layer_forward.launches - layer_before[0],
+                      lk.lstm_layer_backward.launches - layer_before[1]]
+    if layer_launches != [len(stack)] * 2:
+        fail("the refused stack's layers launched K1 and K2 %s times, "
+             "expected once each a layer" % layer_launches)
     ref = xb
     for cell, residual in zip(stack, flags):
         o = lstm.layer_forward(cell, ref, seq, torch.bfloat16)
@@ -1052,21 +1148,24 @@ def check_routes(torch, pkg, device, rng):
     same = bool(torch.equal(out, ref)) and all(
         torch.equal(a, b) for a, b in zip(grads, ref_grads))
     say("  route, lstm stack bf16 H=P=384 training: outputs and gradients "
-        "equal to the layer-by-layer plain recurrence's: %s; no K12/K13/"
-        "K1/K2 launch; warned: %s" % (same, text))
+        "equal to the layer-by-layer composition's: %s; no K12/K13 launch, "
+        "K1 and K2 once each a layer; warned: %s" % (same, text))
     if not same:
         fail("the routed lstm stack differs from its layer-by-layer version")
 
 
-def lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=False):
-    """K2's arguments at the flagship layer shape: a K1 forward with its
-    per-step states in the store dtype, and random output cotangents; with
-    ``fold``, K3's: x2 (the 640-wide input and its reverse) and wx first."""
+def lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=False,
+                  shape=FLAGSHIP_LAYER):
+    """K2's arguments at a layer shape (H, P, D; the flagship's by
+    default): a K1 forward with its per-step states in the store dtype,
+    and random output cotangents; with ``fold``, K3's: x2 (the D-wide input
+    and its reverse) and wx first."""
     cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
-    batch, steps, dim, units = 32, 384, 640, 320
+    units, out_dim, dim = shape
+    batch, steps = 32, 384
     gen = torch.Generator().manual_seed(13)
-    fw = cells.init_lstm_cell(gen, dim, units, units, True, device)
-    bw = cells.init_lstm_cell(gen, dim, units, units, True, device)
+    fw = cells.init_lstm_cell(gen, dim, units, out_dim, True, device)
+    bw = cells.init_lstm_cell(gen, dim, units, out_dim, True, device)
     x = torch.from_numpy(rng.randn(batch, steps, dim).astype(np.float32)).to(device)
     lengths = rng.randint(steps // 2, steps + 1, batch)
     lengths[0] = steps
@@ -1092,10 +1191,11 @@ def lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=False):
         c_all, h_all, dout, torch.zeros_like(cfin), torch.zeros_like(hfin))
 
 
-def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
+def check_lstm_bwd(torch, pkg, device, dtype, reset, rng,
+                   shape=FLAGSHIP_LAYER):
     cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
-    args = lstm_bwd_case(torch, pkg, device, dtype, reset, rng)
-    name = str(dtype).split(".")[-1]
+    args = lstm_bwd_case(torch, pkg, device, dtype, reset, rng, shape=shape)
+    name = layer_name(dtype, shape)
     got = lstm_kernels.lstm_layer_backward(*args, store_dtype=dtype)
     ref = cells.dual_recurrence_backward(*args, store_dtype=dtype)
     torch.cuda.synchronize()
@@ -1109,8 +1209,8 @@ def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
         say("  K2 %-8s reset=%-5s %-6s max_abs %.3e  rel %.3e"
             % (name, reset, out, abs_err, ratio(g, r)))
     if dtype == torch.float32 and worst_rel > F32_REL_TOL:
-        fail("K2 f32 reset=%s: relative error %.3e > %.1e"
-             % (reset, worst_rel, F32_REL_TOL))
+        fail("K2 %s reset=%s: relative error %.3e > %.1e"
+             % (name, reset, worst_rel, F32_REL_TOL))
     if dtype == torch.bfloat16:
         # each step from the kernel's own carries (bf16 rounding flips
         # carry on along the sequence, as for K1), and the weight gradients
@@ -1124,10 +1224,10 @@ def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
                        ratio(dh_out[1:], dh_in[:-1]))
         rounding = within_bf16_step(dgates, dg)
         wgrad_rel = weight_grads_rel(full[1:4], wgrads)
-        say("  K2 bfloat16 reset=%-5s per step: carries max rel %.3e (bound "
+        say("  K2 %s reset=%-5s per step: carries max rel %.3e (bound "
             "%.0e); dgates within one bf16 rounding step: %s; over the "
             "kernel's dgates: dwh, dproj and dpeep max rel %.3e (bound %.0e)"
-            % (reset, step_rel, BF16_STEP_REL_TOL, rounding, wgrad_rel,
+            % (name, reset, step_rel, BF16_STEP_REL_TOL, rounding, wgrad_rel,
                BF16_STEP_REL_TOL))
         if (step_rel > BF16_STEP_REL_TOL or not rounding
                 or wgrad_rel > BF16_STEP_REL_TOL):
@@ -1139,17 +1239,14 @@ def check_lstm_bwd(torch, pkg, device, dtype, reset, rng):
         lambda: cells.dual_recurrence_backward(*args, store_dtype=dtype),
         rounds=3, kernel_reps=2)
     bound_ms, bound_by = lstm_bwd_bound(torch, args, got, dtype)
-    steps, b2, h4 = args[0].shape
-    how = lstm_kernels.backward_config(device, b2 // 2, h4 // 4,
-                                       args[3].shape[1], args[4] is not None,
-                                       dtype)
-    say("  K2 %-8s reset=%-5s kernel %.3f ms (%.1f us/step; R=%d rows a "
-        "cluster, %d clusters, %d bytes of shared memory a block)  plain "
+    steps = args[0].shape[0]
+    how = layer_launch(lstm_kernels, device, "backward", args, dtype)
+    say("  K2 %-8s reset=%-5s kernel %.3f ms (%.1f us/step; %s)  plain "
         "%.3f ms  bound %.4f ms (%s)"
-        % (name, reset, ms, 1e3 * ms / steps, how["rows"], how["clusters"],
-           how["smem_bytes"], plain_ms, bound_ms, bound_by))
+        % (name, reset, ms, 1e3 * ms / steps, launch_line(how), plain_ms,
+           bound_ms, bound_by))
     return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
 
 
 def weight_grads_rel(got, ref):
@@ -1177,12 +1274,14 @@ def lstm_bwd_bound(torch, inputs, outputs, dtype, fold=False):
     return bound(tensor_bytes(torch, inputs, outputs), flops, peak)
 
 
-def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
+def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng,
+                        shape=FLAGSHIP_LAYER):
     """Phase 15: K3 against its plain version under phase 7's rules, and
     its input side against the plain one over the kernel's own dgates."""
     cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
-    args = lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=True)
-    name = str(dtype).split(".")[-1]
+    args = lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=True,
+                         shape=shape)
+    name = layer_name(dtype, shape)
     names = ("dx", "dwx", "dbias", "dwh", "dproj", "dpeep")
     got = lstm_kernels.lstm_layer_backward_fold(*args, store_dtype=dtype)
     torch.cuda.synchronize()
@@ -1192,11 +1291,11 @@ def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
     if dtype == torch.float32:
         ref = cells.dual_recurrence_backward_fold(*args, store_dtype=dtype)
         rels = {out: ratio(g, r) for out, g, r in zip(names, got, ref)}
-        say("  K3 float32 reset=%-5s max|diff|/max|plain|: %s"
-            % (reset, ", ".join("%s %.2e" % kv for kv in rels.items())))
+        say("  K3 %s reset=%-5s max|diff|/max|plain|: %s"
+            % (name, reset, ", ".join("%s %.2e" % kv for kv in rels.items())))
         if max(rels.values()) > F32_REL_TOL:
-            fail("K3 f32 reset=%s: relative error %.3e > %.1e"
-                 % (reset, max(rels.values()), F32_REL_TOL))
+            fail("K3 %s reset=%s: relative error %.3e > %.1e"
+                 % (name, reset, max(rels.values()), F32_REL_TOL))
         worst_abs = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     else:
         # each step from the kernel's own carries, as for K2, and the
@@ -1218,13 +1317,13 @@ def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
                       + SUM_ORDER_TOL * terms).all())
         side_rel = max(ratio(full[1], dwx), ratio(full[2], dbias),
                        weight_grads_rel(full[3:6], wgrads))
-        say("  K3 bfloat16 reset=%-5s per step: carries max rel %.3e (bound "
+        say("  K3 %s reset=%-5s per step: carries max rel %.3e (bound "
             "%.0e); dgates within one bf16 rounding step: %s; over the "
             "kernel's dgates: dx within one bf16 rounding step (and 16 f32 "
             "ulps of its terms' sum): %s, dwx, dbias, dwh, dproj and dpeep "
             "max rel %.3e (bound %.0e)"
-            % (reset, step_rel, BF16_STEP_REL_TOL, rounding, dx_ok, side_rel,
-               BF16_STEP_REL_TOL))
+            % (name, reset, step_rel, BF16_STEP_REL_TOL, rounding, dx_ok,
+               side_rel, BF16_STEP_REL_TOL))
         if (step_rel > BF16_STEP_REL_TOL or not rounding or not dx_ok
                 or side_rel > BF16_STEP_REL_TOL):
             fail("K3 bf16 per-step replay or input side outside its bounds")
@@ -1237,12 +1336,16 @@ def check_lstm_bwd_fold(torch, pkg, device, dtype, reset, rng):
     k2_ms = median_ms(torch, lambda: lstm_kernels.lstm_layer_backward(
         *args[2:], store_dtype=dtype), reps=4)
     bound_ms, bound_by = lstm_bwd_bound(torch, args, got, dtype, fold=True)
+    how = layer_launch(lstm_kernels, device, "backward", args[2:],
+                       dtype)
     say("  K3 %-8s reset=%-5s kernel %.3f ms (K2 alone on the same inputs "
-        "%.3f ms)  plain %.3f ms  bound %.4f ms (%s)"
-        % (name, reset, ms, k2_ms, plain_ms, bound_ms, bound_by))
+        "%.3f ms; K2's %s)  plain %.3f ms  bound %.4f ms (%s)"
+        % (name, reset, ms, k2_ms, launch_line(how), plain_ms, bound_ms,
+           bound_by))
     result = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "k2_ms": k2_ms}
-    if dtype == torch.bfloat16:
+              "bound_ms": bound_ms, "bound_by": bound_by, "k2_ms": k2_ms,
+              "launch": how}
+    if dtype == torch.bfloat16 and shape == FLAGSHIP_LAYER:
         result.update(fold_yardsticks(torch, lstm_kernels, args, dtype))
     return result
 
@@ -2240,14 +2343,14 @@ AB_VARIANTS = ("default=", "fold=lstm_fold_dx=true",
 AB_STEPS = 30
 
 
-def fold_subset(work, scp, config, steps=2):
-    """An scp of the first utterances of ``scp`` that nnet_train packs
-    (pack factor 3, batch 32, its shuffle seed 777) into ``steps`` steps;
-    returns (its path, its batcher)."""
+def fold_subset(work, scp, config, steps=2, name="folds.scp"):
+    """An scp ``name`` of the first utterances of ``scp`` that nnet_train
+    packs (pack factor 3, batch 32, its shuffle seed 777) into ``steps``
+    steps; returns (its path, its batcher)."""
     from lstm_ctc_tpu_torch.cli import build_batcher
     from lstm_ctc_tpu_torch.host.data import scan_scp
     metas = scan_scp(scp)
-    path = os.path.join(work, "folds.scp")
+    path = os.path.join(work, name)
     for count in range(32, len(metas) + 1, 4):
         with open(path, "w") as fh:
             for meta in metas[:count]:
@@ -3583,6 +3686,157 @@ def data_parallel_on_card(torch, pkg, device, work, here):
             "update_rel": grad_rel, "gloo_s": gloo_s, "nccl_s": nccl_s}
 
 
+# --- phase 21: Kaldi's BLSTMP widths through 16-block K1 and K2 ---
+
+# the flagship treatment model at the cell and projection widths of Kaldi's
+# nnet3 (B)LSTMP recipes for Switchboard (cell-dim 1024, recurrent
+# projection 256): layers 2-4 fed 512 wide, the MoE head at D = 512
+WIDE_CONFIG = dict(FLAGSHIP_CONFIG, num_neurons=1024, num_projects=256)
+WIDE_STEPS = 3
+
+
+def wide_end_to_end(torch, pkg, device, work, scp, rng):
+    """Phase 21: the wide model through nnet_init, nnet_train (WIDE_STEPS
+    steps, then as many with lstm_fold_dx = true) and nnet_forward on 64
+    utterances, bf16, on phase 8's corpus: each run counted from zero (K1
+    and K2 once a layer a step, K3 on layers 2-4 with the fold), no route
+    warning and no plain recurrence on the card, finite losses and
+    weights; then float32 log-posteriors against the plain versions'."""
+    from lstm_ctc_tpu_torch.bin import nnet_forward, nnet_init, nnet_train
+    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
+    from lstm_ctc_tpu_torch.host import kaldi
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.ops import route
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
+    from lstm_ctc_tpu_torch.train.graph import param_leaves
+    cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
+    wdir = os.path.join(work, "wide")
+    os.makedirs(wdir)
+    configs = {"bf16": WIDE_CONFIG,
+               "fold": dict(WIDE_CONFIG, lstm_fold_dx=True),
+               "f32": dict(WIDE_CONFIG, compute_dtype="float32")}
+    paths = {}
+    for name, config in configs.items():
+        paths[name] = os.path.join(wdir, "nnet_%s.config" % name)
+        with open(paths[name], "w") as fh:
+            fh.write(format_config(config))
+    units, out_dim = WIDE_CONFIG["num_neurons"], WIDE_CONFIG["num_projects"]
+    for which, kernel in (("forward", "K1"), ("backward", "K2")):
+        how = getattr(lstm_kernels, which + "_config")(
+            device, 32, units, out_dim, True, torch.bfloat16)
+        say("  %s at H=%d P=%d, B=32, bf16: %s"
+            % (kernel, units, out_dim, launch_line(how)))
+        if how["blocks"] != 16:
+            fail("%s at Kaldi's BLSTMP widths has %d blocks a cluster, not "
+                 "16" % (kernel, how["blocks"]))
+    sub_scp, batcher = fold_subset(wdir, scp, WIDE_CONFIG, WIDE_STEPS,
+                                   "wide.scp")
+    steps = len(batcher.batch_plan(True, 777))
+    cv_batches = len(build_batcher(sub_scp, WIDE_CONFIG, 32).batch_plan(
+        False, None))
+    common = ["--objective", "ctc", "--batch-size", "32", "--device",
+              "cuda", "--report-interval", "0"]
+    result = {"launches": counts()}
+    plain_on_card = []
+    real_recurrence = cells.dual_recurrence
+
+    def watched(gx, *args, **kwargs):
+        if gx.is_cuda:
+            plain_on_card.append(tuple(gx.shape))
+        return real_recurrence(gx, *args, **kwargs)
+
+    def counted(what, fn, want):
+        """Run an entry point from zero counts, with the route warnings
+        of this process forgotten: it must warn of no route and run no
+        plain recurrence on the card."""
+        warned = set()  # the reasons the routes warn of
+        with mock.patch.object(route, "_warned", warned), \
+                mock.patch.object(cells, "dual_recurrence", watched):
+            _, tee, got, seconds = run_counted(torch, pkg, fn)
+        if warned or plain_on_card:
+            fail("%s at the wide widths warned of routes %s and ran the "
+                 "plain recurrence on the card %d times"
+                 % (what, sorted(warned), len(plain_on_card)))
+        expect_counts(what, got, want)
+        for k in KERNEL_NAMES:
+            result["launches"][k] += got[k]
+        say("  %s: %.1f s; launches %s" % (what, seconds, {
+            k: v for k, v in got.items() if v}))
+        return tee, seconds
+
+    nnets = [os.path.join(wdir, "nnet%d.npz" % i) for i in range(3)]
+    tee, _ = counted("nnet_init", lambda: nnet_init.main(
+        [sub_scp, paths["bf16"], nnets[0]] + common), counts(
+            lstm_fwd=4 * cv_batches, moe_fwd=cv_batches,
+            ctc_alpha=cv_batches))
+    losses = [tee.value("cv_loss")]
+    train_args = ["--optimizer", "adam", "--learn-rate", "1e-3",
+                  "--pack-factor", "3"]
+    metrics_file = os.path.join(wdir, "metrics.jsonl")
+    tee, _ = counted("nnet_train", lambda: nnet_train.main(
+        [sub_scp, paths["bf16"], nnets[0], nnets[1], "--metrics-file",
+         metrics_file] + train_args + common), counts(
+            lstm_fwd=4 * steps, lstm_bwd=4 * steps, moe_fwd_stash=steps,
+            moe_bwd=steps, ctc_alpha=steps, ctc_beta=steps))
+    losses.append(tee.value("tr_loss"))
+    # layers 2-4 (fed 2P = 512 wide, a multiple of 128) fold; layer 1 (fed
+    # the 120-wide spliced input) trains through K2
+    tee, _ = counted("nnet_train with lstm_fold_dx", lambda: nnet_train.main(
+        [sub_scp, paths["fold"], nnets[1], nnets[2]] + train_args + common),
+        counts(lstm_fwd=4 * steps, lstm_bwd=steps, lstm_bwd_fold=3 * steps,
+               moe_fwd_stash=steps, moe_bwd=steps, ctc_alpha=steps,
+               ctc_beta=steps))
+    losses.append(tee.value("tr_loss"))
+    with open(metrics_file) as fh:
+        result.update(step_stats([json.loads(ln) for ln in fh], batcher))
+    template, state = init_from_config(WIDE_CONFIG, device)
+    for path in nnets:
+        params, _, _ = load_checkpoint(path, template, state)
+        if not all(torch.isfinite(p).all() for p in param_leaves(params)):
+            fail("%s holds non-finite weights" % path)
+    if not all(math.isfinite(v) for v in losses):
+        fail("non-finite losses at the wide widths: %s" % losses)
+    say("  cv_loss %.4f, tr_loss %.4f, tr_loss with the fold %.4f (%d steps "
+        "each, %d utterances, pack factor 3); median train step %.1f ms, "
+        "%.1f real frames/s (packing fill %.3f)" % (tuple(losses) + (
+            steps, len(batcher._lengths), result["step_ms"], result["fps"],
+            result["fill"])))
+
+    # serving: 64 utterances, bf16, as a user runs it
+    scp64, raw_lengths = write_corpus(pkg, wdir, rng)
+    fwd_batches = len(build_batcher(scp64, WIDE_CONFIG, 32).batch_plan(
+        False, None))
+    ark = os.path.join(wdir, "post.ark")
+    _, seconds = counted("nnet_forward", lambda: nnet_forward.main(
+        [scp64, paths["bf16"], nnets[2], "ark:" + ark, "--device", "cuda",
+         "--batch-size", "32"]), counts(lstm_fwd=4 * fwd_batches,
+                                        moe_fwd=fwd_batches))
+    posts = read_archive(kaldi, ark)
+    check_posteriors(posts, raw_lengths)
+    frames = sum(m.shape[0] for m in posts.values())
+    result["forward_fps"] = frames / seconds
+    say("  nnet_forward: %d utterances, %d frames in %.2f s (%.1f frames/s, "
+        "checkpoint load included)" % (len(posts), frames, seconds,
+                                       result["forward_fps"]))
+
+    # float32 through the kernels against the plain versions
+    ark32 = os.path.join(wdir, "post_f32.ark")
+    nnet_forward.main([scp64, paths["f32"], nnets[2], "ark:" + ark32,
+                       "--device", "cuda", "--batch-size", "32"])
+    params, _, _ = load_checkpoint(nnets[2], template, state)
+    ref32 = plain_logposts(torch, pkg, params, state, build_batcher(
+        scp64, configs["f32"], 32), configs["f32"], device)
+    worst32, mean32 = diff_stats(read_archive(kaldi, ark32), ref32)
+    say("  float32 kernels vs plain versions, log-posteriors: max_abs %.3e "
+        "mean_abs %.3e (bounds %.0e, %.0e)" % (worst32, mean32,
+                                               E2E_F32_MAX_TOL,
+                                               E2E_F32_MEAN_TOL))
+    if mean32 > E2E_F32_MEAN_TOL or worst32 > E2E_F32_MAX_TOL:
+        fail("wide float32 log-posteriors differ from the plain versions by "
+             "%.3e on average, %.3e at most" % (mean32, worst32))
+    return result
+
+
 # the modules of the last slice, imported in phase 1 while jax, the JAX
 # package and its top-level scripts cannot be imported at all
 BLOCKED = ("jax", "jaxlib", "lstm_ctc_tpu", "bench", "__graft_entry__")
@@ -3677,6 +3931,13 @@ def main() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         for reset in (False, True):
             lstm[(dtype, reset)] = check_lstm(torch, pkg, device, dtype, reset, rng)
+    # the widths only 16-block clusters take, from their own seed (the
+    # later phases' draws stay as they were)
+    wide_rng = np.random.RandomState(21)
+    for shape in WIDE_LAYERS:
+        for dtype in (torch.float32, torch.bfloat16):
+            lstm[(dtype, shape)] = check_lstm(torch, pkg, device, dtype, True,
+                                              wide_rng, shape)
     phase("phase 4 K4 (MoE expert mix)")
     moe_res = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3695,6 +3956,10 @@ def main() -> None:
         for reset in (False, True):
             bwd[(dtype, reset)] = check_lstm_bwd(torch, pkg, device, dtype,
                                                  reset, rng)
+    for shape in WIDE_LAYERS:
+        for dtype in (torch.float32, torch.bfloat16):
+            bwd[(dtype, shape)] = check_lstm_bwd(torch, pkg, device, dtype,
+                                                 True, wide_rng, shape)
     with tempfile.TemporaryDirectory() as work:
         scp = write_labeled_corpus(pkg, work, rng)
         phase("phase 8 training end to end (nnet_init / nnet_train / "
@@ -3722,6 +3987,10 @@ def main() -> None:
             for reset in (False, True):
                 fold[(dtype, reset)] = check_lstm_bwd_fold(
                     torch, pkg, device, dtype, reset, rng)
+        for shape in WIDE_LAYERS:
+            for dtype in (torch.float32, torch.bfloat16):
+                fold[(dtype, shape)] = check_lstm_bwd_fold(
+                    torch, pkg, device, dtype, True, wide_rng, shape)
         phase("phase 16 K7 (MoE head backward with the weight gradient: "
               "bf16 K6's body then the dw product, float32 one kernel)")
         k7 = check_moe_single_kernel(torch, pkg, device, rng)
@@ -3741,6 +4010,10 @@ def main() -> None:
         phase("phase 20 data parallel on the one card (two gloo ranks, "
               "flagship MoE model, f32; an NCCL group of one rank)")
         dp_run = data_parallel_on_card(torch, pkg, device, work, here)
+        phase("phase 21 Kaldi's BLSTMP widths end to end (4 x 1024 cells, "
+              "projection 256, MoE head; nnet_init / nnet_train / "
+              "nnet_forward on 16-block K1 and K2, cuda)")
+        wide = wide_end_to_end(torch, pkg, device, work, scp, wide_rng)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -3748,7 +4021,7 @@ def main() -> None:
              % bad[:5])
 
     launches = dict(train["launches"])
-    for run in (e2e, moe_loop, serve, families, folds, recipe, dp_run):
+    for run in (e2e, moe_loop, serve, families, folds, recipe, dp_run, wide):
         for k, v in run["launches"].items():
             launches[k] += v
     for name in KERNEL_NAMES:
@@ -3835,6 +4108,23 @@ def main() -> None:
              "launches": launches[name], "library_ms": None},
             **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by")}))
+    # K1, K2 and K3 at Kaldi's BLSTMP widths (H=1024, P=256, D=512; bf16,
+    # resets), on 16-block clusters; launches from phase 21's runs
+    wide_shape = WIDE_LAYERS[0]
+    for name, source, replaces, res in (
+            ("lstm_fwd", "lstm_fwd.cu", "lstm_pallas.py:57",
+             lstm[(torch.bfloat16, wide_shape)]),
+            ("lstm_bwd", "lstm_bwd.cu", "lstm_pallas.py:134",
+             bwd[(torch.bfloat16, wide_shape)]),
+            ("lstm_bwd_fold", "lstm_bwd_fold.cu", "lstm_pallas.py:544",
+             fold[(torch.bfloat16, wide_shape)])):
+        kernels.append(dict(
+            {"name": name + "_wide", "route": "cuda",
+             "source": "lstm_ctc_tpu_torch/csrc/" + source,
+             "replaces": "lstm_ctc_tpu/ops/" + replaces,
+             "launches": wide["launches"][name], "library_ms": None},
+            **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}))
     two_ms, default_ms = moe_train[("twokernel", torch.bfloat16)]
     say("summary on %s: nnet_forward %.1f frames/s (64 utterances, model "
         "init and checkpoint load included); flagship forward B=32 T=384 "
@@ -3908,6 +4198,20 @@ def main() -> None:
                for r in headline["configs"]),
            bench["profile"]["decomposition_ms"], dp_run["loss_rel"],
            dp_run["update_rel"]))
+    say("summary of Kaldi's BLSTMP widths on %s (H=1024, P=256; B=32, "
+        "T=384, bf16, resets): K1 %.3f ms (%s), K2 %.3f ms (%s), K3 %.3f "
+        "ms; H=P=512: K1 %.3f, K2 %.3f, K3 %.3f ms; H=P=384: K1 %.3f, K2 "
+        "%.3f, K3 %.3f ms; the wide model's train step (B=32 rows of 448 "
+        "frames, pack 3, bf16), median %.1f ms, %.1f real frames/s; "
+        "nnet_forward %.1f frames/s"
+        % ((smi, lstm[(torch.bfloat16, wide_shape)]["ms"],
+            launch_line(lstm[(torch.bfloat16, wide_shape)]["launch"]),
+            bwd[(torch.bfloat16, wide_shape)]["ms"],
+            launch_line(bwd[(torch.bfloat16, wide_shape)]["launch"]),
+            fold[(torch.bfloat16, wide_shape)]["ms"])
+           + tuple(res[(torch.bfloat16, shape)]["ms"]
+                   for shape in WIDE_LAYERS[1:] for res in (lstm, bwd, fold))
+           + (wide["step_ms"], wide["fps"], wide["forward_fps"])))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -3920,7 +4224,8 @@ def main() -> None:
         + [v["best"] for v in folds["ab"].values()] \
         + list(recipe["seconds"].values()) + list(recipe["starts"].values()) \
         + list(bench["profile"]["segments_ms"].values()) \
-        + [dp_run["gloo_s"], dp_run["nccl_s"]]
+        + [dp_run["gloo_s"], dp_run["nccl_s"]] \
+        + [wide["step_ms"], wide["fps"], wide["forward_fps"]]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

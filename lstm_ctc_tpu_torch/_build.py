@@ -166,8 +166,9 @@ def library() -> ctypes.CDLL:
     lib.kernels_error_string.restype = ctypes.c_char_p
     lib.lstm_fwd_cluster_size.argtypes = []
     lib.lstm_fwd_cluster_size.restype = ctypes.c_int
-    # H, P, has_proj, bf16 (K2: and store_bf16) -> 1 if the kernel has a
-    # launch plan for the shape, else 0 (host arithmetic only)
+    # H, P, has_proj, bf16 (K2: and store_bf16) -> the blocks a cluster of
+    # the kernel's launch plan for the shape (8 or 16), 0 if it has none
+    # (host arithmetic only)
     lib.lstm_fwd_fits.argtypes = [_I] * 4
     lib.lstm_fwd_fits.restype = ctypes.c_int
     lib.lstm_bwd_fits.argtypes = [_I] * 5
@@ -179,10 +180,13 @@ def library() -> ctypes.CDLL:
     lib.lstm_stack_bwd_fits.restype = ctypes.c_int
     lib.lstm_bwd_scratch_floats.argtypes = [_I, _I, _I, _I]
     lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
-    # device, B, H, P, has_proj, bf16 -> rows a cluster, clusters, bytes
-    lib.lstm_bwd_config.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 2 + [
-        ctypes.POINTER(ctypes.c_longlong)]
-    lib.lstm_bwd_config.restype = ctypes.c_int
+    # device, B, H, P, has_proj, bf16 -> blocks a cluster, rows a cluster,
+    # clusters, clusters resident at once, bytes (K1's launch and K2's)
+    for name in ("lstm_fwd_config", "lstm_bwd_config"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
     # device, T, B, H, P, D, bf16, store_bf16
     lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 8
     lib.lstm_bwd_fold_scratch_floats.restype = ctypes.c_longlong

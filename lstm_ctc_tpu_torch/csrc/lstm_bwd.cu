@@ -28,7 +28,7 @@
 // latency counts.  A step needs the direction's wh twice (as wh and whᵀ)
 // and proj once, 1.0 MB in bf16 at H = P = 320; read from L2 at every step
 // they cost ~45 us a step.  Design: K1's (lstm_fwd.cu, lstm_cluster.cuh).
-// An 8-block cluster per (direction, tile of R batch rows) owns the time
+// An 8-block cluster (16, below) per (direction, tile of R batch rows) owns the time
 // loop; block q owns hidden units [q·US, (q+1)·US), all four gates of them,
 // and keeps in its shared memory, for the whole sequence, its wh slice
 // [P, 4·US] (which serves both h·wh and dgates·whᵀ) and its rows of proj
@@ -41,7 +41,7 @@
 //      peephole sums in registers;
 //   4. the block's partial dh_prev, dgates_q·wh_qᵀ [R, P];
 //   5. reduce-scatter over distributed shared memory: block j receives the
-//      eight partials of its P-slice, cluster barrier, adds them in block
+//      partials of its P-slice from every block, cluster barrier, adds them in block
 //      order (deterministic), applies dh = kp·((1-m)·dh + Σ), and writes
 //      the new slice into every block (all-gather), cluster barrier.
 // The gate recompute of the step before (h_prev·wh_q, which does not
@@ -49,20 +49,31 @@
 // off the critical path; that step's loads (h_prev, dout, gx, c_prev) are
 // started at the start of this one, by cp.async into staging buffers.  In
 // bf16 the products run on the tensor cores (ldmatrix, mma.sync m16n8k16,
-// operands padded to 16 rows), their running sums kept in float32 adds
+// the 8 rows of an A operand loaded once for mma's 16), their running sums kept in float32 adds
 // rounded to nearest (mma_product_f32add: near a cancellation in dc_new the
 // tensor cores' own accumulation moved dgates by more than a bf16 rounding
 // step against the plain version's, and the steps' mma no longer wait on
-// one another); bf16 slices too wide for shared memory (H or P above 320)
-// are refused, as K1 refuses them.  In float32 the products are FMA split
-// over all threads and the slices are read from L2 (they do not fit in
-// shared memory at the flagship width).  R is the smallest of {4, 6, 8} whose
-// 2·ceil(B/R) clusters are all resident, as the occupancy API says (B = 32:
-// R = 6, 12 clusters); else the largest R with one cluster resident (they
-// then run in waves); if none fits, the launch is refused.
+// one another).  In float32 the products are FMA split over all threads
+// and the slices are read from L2 (they do not fit in shared memory at the
+// flagship width).  R is the smallest of {4, 6, 8} whose 2·ceil(B/R)
+// clusters are all resident, as the occupancy API says (B = 32: R = 6, 12
+// clusters); else the largest R with one cluster resident (they then run
+// in waves); if none fits, the launch is refused.
 //
-// The wrapper lays the weights out per slice: wh as K1 does ([2, 8, P16,
-// 4, US]) and proj as rows ([2, 8, U16, P16], U16 = US rounded up to 16),
+// Where no 8-block plan fits (bf16 slices past shared memory, from H = P =
+// 324; any layer past 512 units), the cluster has 16 blocks, as K1's
+// (lstm_fwd.cu): a block owns at most 64 units, so H <= 1024, and keeps
+// its wh slice [P, 4·US] and proj rows [US, P] (~160 KB at H = 1024, P =
+// 256); dh is reduced over 16 blocks' partials, in block order, and
+// all-gathered to 16.  The buffers of R rows grow with P (dh, dout and its
+// staging, the inbox: 16 bytes a row and column), so at H = P = 512 only
+// R = 2 fits beside the slices: the 16-block plans add R = 2, tried last.
+// Fewer 16-block clusters are resident at once, so the clusters run in
+// waves more often.  Wider bf16 slices (H = P = 1024 without a projection)
+// and any H past 1024 are refused.
+//
+// The wrapper lays the weights out per slice: wh as K1 does ([2, C, P16,
+// 4, US]) and proj as rows ([2, C, U16, P16], U16 = US rounded up to 16),
 // zero-padded.  The kernel allocates nothing and launches on the caller's
 // stream.
 
@@ -71,10 +82,11 @@
 
 namespace {
 
-// Shared-memory plan of the backward, common to host and device.  US: units
-// a block; U16: its proj rows (rounded up to 16); G = 4·US; PS: the dh
-// columns a block owns in the reduction (a multiple of 4), PW = 8·PS;
-// arow/prow as K1's; lda, ldg: row strides of the A operands (h_prev and
+// Shared-memory plan of the backward with C blocks a cluster, common to host
+// and device.  US: units a block; U16: its proj rows (rounded up to 16); G =
+// 4·US; PS: the dh columns a block owns in the reduction (a multiple of 4),
+// PW = C·PS; arow: rows of the A operands (8 in bf16, R in float32); prow:
+// rows of each partial-sum block (8 in bf16); lda, ldg: row strides of the A operands (h_prev and
 // dout_p over P16 columns, dgates over G); nd: columns of the dout_blk
 // product; wrows: rows of the wh slice in shared memory (dh_prev's product
 // reads PW of them, the rows past P16 zero).
@@ -87,18 +99,18 @@ struct BwdPlan {
 
 // T: the compute dtype, S: the store dtype of the per-step states
 template <typename T, typename S>
-__host__ __device__ BwdPlan bwd_plan(int H, int P, bool has_proj, int R) {
+__host__ __device__ BwdPlan bwd_plan(int H, int P, bool has_proj, int R, int C) {
   BwdPlan p;
-  p.us = round_up(cdiv(H, kCluster), 8);
+  p.us = round_up(cdiv(H, C), 8);
   p.u16 = round_up(p.us, 16);
   p.g = 4 * p.us;
-  p.ps = round_up(cdiv(P, kCluster), 4);
-  p.pw = kCluster * p.ps;
+  p.ps = round_up(cdiv(P, C), 4);
+  p.pw = C * p.ps;
   p.p16 = round_up(P, 16);
   p.nd = kMma<T> ? p.u16 : p.us;
   p.wrows = p.p16 > p.pw ? p.p16 : p.pw;
   const int pad = 16 / (int)sizeof(T);
-  p.arow = kMma<T> ? 16 : R;
+  p.arow = kMma<T> ? 8 : R;
   p.prow = kMma<T> ? 8 : R;
   p.lda = p.p16 + pad;
   p.ldg = p.g + pad;
@@ -129,7 +141,7 @@ __host__ __device__ BwdPlan bwd_plan(int H, int P, bool has_proj, int R) {
   p.off_rows = p.off_gxs + align128(sizeof(float) * (size_t)R * 4 * p.us);
   p.off_dc = p.off_rows + align128(sizeof(float) * 3 * (size_t)R);
   p.off_inbox = p.off_dc + align128(sizeof(float) * (size_t)R * p.us);
-  p.off_part = p.off_inbox + align128(sizeof(float) * (size_t)kCluster * R * p.ps);
+  p.off_part = p.off_inbox + align128(sizeof(float) * (size_t)C * R * p.ps);
   p.off_wh = p.off_part + align128(sizeof(float) * part);
   p.off_pj = p.off_wh + (kMma<T> ? align128(sizeof(T) * (size_t)p.wrows * p.lwh) : 0);
   p.bytes = p.off_pj + (kMma<T> && has_proj ? align128(sizeof(T) * (size_t)p.u16 * p.lpj) : 0);
@@ -139,15 +151,15 @@ __host__ __device__ BwdPlan bwd_plan(int H, int P, bool has_proj, int R) {
 // T: the compute dtype (bf16: the products on the tensor cores, the slices
 // in shared memory; float32: FMA, the slices read from L2); S: the store
 // dtype
-template <typename T, typename S, int R>
+template <typename T, typename S, int R, int C>
 __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(
     const float* __restrict__ gx,     // [T, 2B, 4H]
     const int* __restrict__ lengths,  // [B]
     const float* __restrict__ keep,   // [T, B] or null
     const S* __restrict__ c_all,      // [T, 2B, H] store dtype
     const S* __restrict__ h_all,      // [T, 2B, P] store dtype
-    const T* __restrict__ wh_sl,      // [2, 8, P16, 4, US]
-    const T* __restrict__ pj_sl,      // [2, 8, U16, P16] or null (P == H)
+    const T* __restrict__ wh_sl,      // [2, C, P16, 4, US]
+    const T* __restrict__ pj_sl,      // [2, C, U16, P16] or null (P == H)
     const float* __restrict__ peep,   // [2, 3, H] or null
     float forget_bias,
     const float* __restrict__ dout,   // [T, 2B, P]
@@ -162,10 +174,10 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(
     float* __restrict__ peep_part) {  // [tiles, 2, 3, H] or null
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
-  const int dir = blockIdx.y, tile = blockIdx.x / kCluster, b0 = tile * R;
+  const int dir = blockIdx.y, tile = blockIdx.x / C, b0 = tile * R;
   const int nr = min(R, batch - b0);
   const bool has_proj = pj_sl != nullptr;
-  const BwdPlan pl = bwd_plan<T, S>(H, P, has_proj, R);
+  const BwdPlan pl = bwd_plan<T, S>(H, P, has_proj, R, C);
   const int US = pl.us, G = pl.g, PS = pl.ps, PW = pl.pw, P16 = pl.p16;
   const int prow = pl.prow, nd = pl.nd;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
@@ -188,13 +200,13 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(
   float* keep_s = reinterpret_cast<float*>(smem_raw + pl.off_rows);    // [2][R]
   int* len_s = reinterpret_cast<int*>(keep_s + 2 * R);                 // [R]
   float* dc = reinterpret_cast<float*>(smem_raw + pl.off_dc);    // [R][US]
-  float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [8][R][PS]
+  float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [C][R][PS]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
   float* part_d = part + (size_t)pl.gates.slices * prow * G;
   T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_wh);
   T* pj_s = reinterpret_cast<T*>(smem_raw + pl.off_pj);
 
-  const size_t slot = (size_t)dir * kCluster + q;
+  const size_t slot = (size_t)dir * C + q;
   const T* wh_g = wh_sl + slot * (size_t)P16 * G;
   const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * P16 : nullptr;
   const T zero = Dtype<T>::from_float(0.0f);
@@ -424,13 +436,13 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(
     }
     cluster_wait();
 
-    // 5b. the eight partials of the owned slice, in block order; the carry
+    // 5b. the C partials of the owned slice, in block order; the carry
     // update; the new slice into every block
     const int squads = PS / 4;
     for (int i = tid; i < nr * squads; i += kThreads) {
       const int r = i / squads, c = 4 * (i - r * squads), p = p0 + c;
       float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int b = 0; b < kCluster; ++b) {
+      for (int b = 0; b < C; ++b) {
         const float4 w = *reinterpret_cast<const float4*>(inbox + ((size_t)b * R + r) * PS + c);
         s[0] += w.x;
         s[1] += w.y;
@@ -444,7 +456,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(
       for (int e = 0; e < 4; ++e)
         v[e] = p + e < P ? kp * ((1.0f - m) * dh[r * PW + p + e] + s[e]) : 0.0f;
       const float4 nv = make_float4(v[0], v[1], v[2], v[3]);
-      for (int b = 0; b < kCluster; ++b)
+      for (int b = 0; b < C; ++b)
         *reinterpret_cast<float4*>(cluster.map_shared_rank(dh, b) + r * PW + p) = nv;
     }
     cluster.sync();
@@ -478,43 +490,60 @@ struct Args {
   cudaStream_t stream;
 };
 
-// How the recurrence is launched: batch rows a cluster, clusters, dynamic
+// How the recurrence is launched: blocks a cluster, batch rows a cluster,
+// clusters, those resident at once (the occupancy API's answer), dynamic
 // shared memory a block (rows = 0: not with this R).
 struct Launch {
-  int rows, clusters;
+  int blocks, rows, clusters, resident;
   size_t smem;
 };
 
-// K2's plan with R rows a cluster, and whether its threads and shared
-// memory fit a block
+// K2's plan with C blocks and R rows a cluster, and whether its units a
+// block, threads and shared memory fit a block
 template <typename T, typename S>
-bool bwd_fits(int H, int P, bool has_proj, int rows, BwdPlan* plan) {
-  *plan = bwd_plan<T, S>(H, P, has_proj, rows);
-  return rows * plan->us <= kThreads && plan->bytes <= kMaxSmemPerBlock;
+bool bwd_fits(int H, int P, bool has_proj, int rows, int C, BwdPlan* plan) {
+  *plan = bwd_plan<T, S>(H, P, has_proj, rows, C);
+  return plan->us <= kBlockUnits && rows * plan->us <= kThreads &&
+         plan->bytes <= kMaxSmemPerBlock;
+}
+
+// The blocks a cluster of K2's plan: 8 where its R = 4 plan fits, else 16
+// where its R = 2 plan fits, else 0 (no plan).  Host arithmetic only.
+template <typename T, typename S>
+int bwd_cluster(int H, int P, bool has_proj) {
+  BwdPlan pl;
+  if (bwd_fits<T, S>(H, P, has_proj, 4, kCluster, &pl)) return kCluster;
+  if (bwd_fits<T, S>(H, P, has_proj, 2, kWideCluster, &pl)) return kWideCluster;
+  return 0;
 }
 
 // Set up the launch with R rows a cluster, if its shared memory fits and
 // the occupancy API says all 2·ceil(B/R) clusters are resident at once (with
 // `all`) or at least one is; launch unless `dry`.  how->rows = 0: not with
 // this R.
-template <typename T, typename S, int R>
+template <typename T, typename S, int R, int C>
 cudaError_t launch_rows(const Args& a, bool all, bool dry, Launch* how) {
   how->rows = 0;
   BwdPlan pl;
-  if (!bwd_fits<T, S>(a.units, a.out_dim, a.proj_rows != nullptr, R, &pl)) return cudaSuccess;
-  auto kernel = lstm_bwd_kernel<T, S, R>;
+  if (!bwd_fits<T, S>(a.units, a.out_dim, a.proj_rows != nullptr, R, C, &pl))
+    return cudaSuccess;
+  auto kernel = lstm_bwd_kernel<T, S, R, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
   if (err != cudaSuccess) return err;
+  if (C > kCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   const int clusters = 2 * cdiv(a.batch, R);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * cdiv(a.batch, R), 2, 1);
+  cfg.gridDim = dim3(C * cdiv(a.batch, R), 2, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = pl.bytes;
   cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -523,9 +552,7 @@ cudaError_t launch_rows(const Args& a, bool all, bool dry, Launch* how) {
   err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &cfg);
   if (err != cudaSuccess) return err;
   if (fit < (all ? clusters : 1)) return cudaSuccess;
-  how->rows = R;
-  how->clusters = clusters;
-  how->smem = pl.bytes;
+  *how = Launch{C, R, clusters, fit, pl.bytes};
   if (dry) return cudaSuccess;
   const bool peeps = a.peep != nullptr;
   float* peep_part = peeps ? (float*)a.scratch : nullptr;
@@ -541,26 +568,43 @@ cudaError_t launch_rows(const Args& a, bool all, bool dry, Launch* how) {
 
 // The smallest R of {4, 6, 8} whose clusters are all resident at once;
 // else the largest with at least one resident (the clusters then run in
-// waves); else the launch is refused, as it is for bf16 slices that do not
-// fit in shared memory (H or P above 320, as for K1).
-template <typename T, typename S>
-cudaError_t choose(const Args& a, bool dry, Launch* how) {
+// waves; with 16 blocks R = 2 last); else the launch is refused, as it is
+// for shapes with no plan (bwd_cluster).
+template <typename T, typename S, int C>
+cudaError_t choose_rows(const Args& a, bool dry, Launch* how) {
   cudaError_t err;
   for (int pass = 0; pass < 2; ++pass) {
     const bool all = pass == 0;
-    err = all ? launch_rows<T, S, 4>(a, all, dry, how) : launch_rows<T, S, 8>(a, all, dry, how);
+    err = all ? launch_rows<T, S, 4, C>(a, all, dry, how) : launch_rows<T, S, 8, C>(a, all, dry, how);
     if (err != cudaSuccess || how->rows) return err;
-    err = launch_rows<T, S, 6>(a, all, dry, how);
+    err = launch_rows<T, S, 6, C>(a, all, dry, how);
     if (err != cudaSuccess || how->rows) return err;
-    err = all ? launch_rows<T, S, 8>(a, all, dry, how) : launch_rows<T, S, 4>(a, all, dry, how);
+    err = all ? launch_rows<T, S, 8, C>(a, all, dry, how) : launch_rows<T, S, 4, C>(a, all, dry, how);
+    if (err != cudaSuccess || how->rows) return err;
+  }
+  if constexpr (C > kCluster) {
+    err = launch_rows<T, S, 2, C>(a, false, dry, how);
     if (err != cudaSuccess || how->rows) return err;
   }
   return cudaErrorInvalidConfiguration;
 }
 
+template <typename T, typename S>
+cudaError_t choose(const Args& a, bool dry, Launch* how) {
+  *how = Launch{0, 0, 0, 0, 0};
+  switch (bwd_cluster<T, S>(a.units, a.out_dim, a.proj_rows != nullptr)) {
+    case kCluster:
+      return choose_rows<T, S, kCluster>(a, dry, how);
+    case kWideCluster:
+      return choose_rows<T, S, kWideCluster>(a, dry, how);
+    default:
+      return cudaErrorInvalidConfiguration;
+  }
+}
+
 // the peephole partials lead the scratch: one [2, 3, H] per row tile of the
-// smallest R
-size_t peep_floats(int batch, int units) { return (size_t)cdiv(batch, 4) * 2 * 3 * units; }
+// smallest R (2)
+size_t peep_floats(int batch, int units) { return (size_t)cdiv(batch, 2) * 2 * 3 * units; }
 
 template <typename T, typename S>
 int launch(int device, const Args& a) {
@@ -604,27 +648,28 @@ extern "C" long long lstm_bwd_scratch_floats(int steps, int batch, int units,
          lstm_bwd_wgrad_scratch_floats(steps, batch, units, out_dim);
 }
 
-// Whether K2 has a launch plan for this shape (1) or not (0): host
-// arithmetic only, no CUDA call.  R = 4 needs the least threads and shared
-// memory, so K2 takes a shape when its R = 4 plan fits; whether any of its
-// clusters is resident is the occupancy API's to say at the launch.
+// The blocks a cluster of K2's launch plan for this shape (8 or 16), or 0
+// when K2 has none: host arithmetic only, no CUDA call.  R = 4 (16 blocks:
+// R = 2) needs the least threads and shared memory, so K2 takes a shape
+// when that plan fits; whether any of its clusters is resident is the
+// occupancy API's to say at the launch.
 extern "C" int lstm_bwd_fits(int units, int out_dim, int has_proj, int bf16,
                              int store_bf16) {
   if (units <= 0 || out_dim <= 0) return 0;
   const bool proj = has_proj != 0;
-  BwdPlan pl;
   if (bf16)
-    return store_bf16 ? bwd_fits<__nv_bfloat16, __nv_bfloat16>(units, out_dim, proj, 4, &pl)
-                      : bwd_fits<__nv_bfloat16, float>(units, out_dim, proj, 4, &pl);
-  return store_bf16 ? bwd_fits<float, __nv_bfloat16>(units, out_dim, proj, 4, &pl)
-                    : bwd_fits<float, float>(units, out_dim, proj, 4, &pl);
+    return store_bf16 ? bwd_cluster<__nv_bfloat16, __nv_bfloat16>(units, out_dim, proj)
+                      : bwd_cluster<__nv_bfloat16, float>(units, out_dim, proj);
+  return store_bf16 ? bwd_cluster<float, __nv_bfloat16>(units, out_dim, proj)
+                    : bwd_cluster<float, float>(units, out_dim, proj);
 }
 
-// How K2 would launch on `device` at this shape: rows a cluster, clusters,
-// and dynamic shared memory a block; a CUDA error if it cannot.
+// How K2 would launch on `device` at this shape: blocks a cluster, rows a
+// cluster, clusters, clusters resident at once, and dynamic shared memory
+// a block; a CUDA error if it cannot.
 extern "C" int lstm_bwd_config(int device, int batch, int units, int out_dim,
-                               int has_proj, int bf16, int* rows, int* clusters,
-                               long long* smem) {
+                               int has_proj, int bf16, int* blocks, int* rows,
+                               int* clusters, int* resident, long long* smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Args a = {};
@@ -632,11 +677,13 @@ extern "C" int lstm_bwd_config(int device, int batch, int units, int out_dim,
   a.units = units;
   a.out_dim = out_dim;
   a.proj_rows = has_proj ? (const void*)1 : nullptr;
-  Launch how = {0, 0, 0};
+  Launch how;
   err = bf16 ? choose<__nv_bfloat16, __nv_bfloat16>(a, true, &how)
              : choose<float, float>(a, true, &how);
+  *blocks = how.blocks;
   *rows = how.rows;
   *clusters = how.clusters;
+  *resident = how.resident;
   *smem = (long long)how.smem;
   return err;
 }

@@ -1,7 +1,8 @@
 // The cluster machinery of the LSTM kernels (lstm_fwd.cu, K1;
 // lstm_stack_fwd.cu, K12; lstm_bwd.cu, K2; lstm_stack_bwd.cu, K13): an
-// 8-block cluster per tile of R batch rows, each block owning 1/8 of the
-// hidden units (all four gates of them) and of the projection columns; its
+// 8-block cluster per tile of R batch rows (K1 and K2: 16 blocks where an
+// 8-block plan does not fit, lstm_fwd.cu), each block owning 1/8 (1/16) of
+// the hidden units (all four gates of them) and of the projection columns; its
 // slices of the recurrent and projection weights stay in its shared memory
 // (bf16) or are read from L2 (float32).  Per step of a forward: the gate
 // sums of the owned units from the full rounded h (mma_product or
@@ -30,7 +31,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;    // blocks per cluster
+constexpr int kCluster = 8;    // blocks per cluster (K12, K13; K1, K2 where it fits)
+constexpr int kWideCluster = 16;  // K1, K2 past that: the H100's non-portable most
+constexpr int kBlockUnits = 64;   // hidden units a block owns, at most (the slices' layout)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlices = 16; // most k-slices one FMA product is split into
@@ -375,9 +378,10 @@ __device__ __forceinline__ void st_async16(uint32_t dst, const uint4& v, uint32_
 // lanes (E-aligned, within a row of the slice) gather their values into
 // 16 bytes by shuffles, and lane p of a group stores them into the blocks
 // p, p + E, .. of the cluster at the group's first element, completing 16
-// bytes on each one's `bar`.  Every lane of the warp calls it (the
-// shuffles); only lanes with `send` store.
-template <typename T>
+// bytes on each one's `bar` (C blocks: 16-byte stores to C / E peers a
+// lane).  Every lane of the warp calls it (the shuffles); only lanes with
+// `send` store.
+template <typename T, int C>
 __device__ __forceinline__ void send_slice(float v, bool send, const T* target, int at,
                                            uint64_t* bar) {
   constexpr int E = 16 / (int)sizeof(T);
@@ -397,7 +401,7 @@ __device__ __forceinline__ void send_slice(float v, bool send, const T* target, 
   q.w = __shfl_sync(0xffffffffu, word, g0 + 3 * step);
   if (send) {
 #pragma unroll
-    for (int peer = p; peer < kCluster; peer += E)
+    for (int peer = p; peer < C; peer += E)
       st_async16(cluster_addr(target + at - p, peer), q, cluster_addr(bar, peer));
   }
 }
@@ -421,8 +425,9 @@ __device__ __forceinline__ float ld(const X* p, size_t i) {
 }
 
 // part[s] = a · w over the s-th slice of k on the tensor cores, as
-// mma_product (a [16][lda] bf16, rows past R zero; part
-// [8][cols] a slice), but each 16-deep step is summed by the tensor cores
+// mma_product (part [8][cols] a slice), but a is [8][lda] bf16 (rows past
+// R zero; mma's rows 8-15 are rows 0-7 again, their sums never stored, so
+// the rows of a are loaded once, by ldmatrix.x2), each 16-deep step is summed by the tensor cores
 // into a zero accumulator and the steps are added in float32 rounded to
 // nearest: a long sum keeps the accuracy of an FMA chain (near a
 // cancellation in dc_new the tensor cores' own running sum, aligned and
@@ -438,7 +443,9 @@ __device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int l
                                                    float* part) {
   const int lane = threadIdx.x & 31;
   const int tiles = cols / 16, steps = cdiv(depth, 16);
-  const __nv_bfloat16* a_lane = a + (lane & 15) * lda + (lane >> 4) * 8;
+  // rows m = lane % 8 at k + 8·(lane / 8 % 2): A's fragments a0 = a1 and
+  // a2 = a3
+  const __nv_bfloat16* a_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
   // kNK: w rows n = 8·(lane / 16) + lane % 8 at k + 8·((lane / 8) % 2), the
   // four matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15,
   // k 8-15), the b0 and b1 of each 8-column half; else w rows k = lane % 16
@@ -454,8 +461,9 @@ __device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int l
     // run ahead of the adds
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) {
-      uint32_t fa[4], fb[4];
-      ldsm_x4(fa, a_lane + k * 16);
+      uint32_t fr[2], fb[4];
+      ldsm_x2(fr, a_lane + k * 16);
+      const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
       if constexpr (kNK)
         ldsm_x4(fb, w_lane + (size_t)n * 16 * ldw + k * 16);
       else

@@ -20,7 +20,7 @@
 // products; the rest of a step is the chain of hand-offs, block barriers
 // and the cell's transcendentals.
 //
-// Design: a thread-block cluster of 8 blocks per (direction, tile of R
+// Design: a thread-block cluster of 8 blocks (or 16, below) per (direction, tile of R
 // batch rows) owns the whole time loop.  Block q owns hidden units [q·US,
 // (q+1)·US) (all four gates of them) and projection columns [q·PS,
 // (q+1)·PS); its slices of wh and proj are copied into its shared memory
@@ -39,7 +39,7 @@
 //      16-byte load;
 //   b. the cell update of the owned units; the rounded cell output is
 //      handed to every block of the cluster (below);
-//   c. wait for the eight cell-output slices;
+//   c. wait for the cell-output slices of all the cluster's blocks;
 //   d. the owned projection columns from the full cell output; one block
 //      barrier;
 //   e. masking; the new rounded h slice is handed to every block.
@@ -49,7 +49,7 @@
 // write them into every block with st.async, each store completing its
 // bytes on the receiver's mbarrier; a receiver arms its own barrier with
 // the bytes of the next phase (count 1, arrive.expect_tx) and waits only on
-// that phase's parity.  So nothing waits for all eight blocks at once, and
+// that phase's parity.  So nothing waits for all the blocks at once, and
 // no store but these is released: the global stores of out, c_all and h_all
 // are issued after the hand-off and nothing ever waits for them (a
 // cluster barrier in its place would release them too).  Why each buffer
@@ -94,10 +94,26 @@
 // and takes the smallest R of {4, 6, 8} whose 2·ceil(B/R) clusters all fit,
 // so the grid runs in one wave (B = 32: R = 6, 12 clusters).  The slices
 // (~140 KB at H = P = 320, the recipes' widest) and the ring must fit in
-// shared memory; wider bf16 layers are refused.
+// shared memory.
 //
-// The wrapper lays the weights out per slice ([2, 8, P16, 4, US] and
-// [2, 8, H16, PS]: US a multiple of 8, PS of 16, the depths P16 and H16
+// Wider layers take 16-block clusters (C = 16, the H100's non-portable
+// most), where no 8-block plan fits: a block owns US = H/16 units, at most
+// 64, so H <= 1024 (Kaldi's BLSTMP widths, H = 1024 with P = 256: wh's
+// slice [256, 256] is 128 KB, proj's [1024, 16] 32 KB).  To fit beside
+// them in 227 KB the gate product runs fewer, deeper k-slices (at most 8
+// steps of 16 a slice, 2 tiles a warp: 16 warps at H = 1024, P = 256, half
+// the partial sums of 8-block's 4-step slices), and proj's slice, 16 or 32
+// columns wide, is not padded (its loads' bank conflicts cost less than a
+// third more of its bytes).  Each hand-off goes to 16 blocks, two stores a
+// lane in bf16, and each barrier waits for 16 slices.  Fewer 16-block
+// clusters are resident at once (7-8 on an H100 SXM), so the grid may run
+// in waves.  8 blocks stay wherever their plan fits: the flagship's layers
+// (H = P = 320) are unchanged.  A bf16 layer whose slices do not fit even
+// 16 blocks (H = P = 1024 without a projection: 8 MB of wh a direction) and
+// any H past 1024 are refused.
+//
+// The wrapper lays the weights out per slice ([2, C, P16, 4, US] and
+// [2, C, H16, PS]: US a multiple of 8, PS of 16, the depths P16 and H16
 // rounded up to 16, zero-padded).  The kernel allocates nothing and
 // launches on the caller's stream.  c_all and h_all (the per-step states a
 // backward pass needs) are written only when non-null, in float32 or, with
@@ -110,17 +126,23 @@ namespace {
 constexpr int kMaxRing = 6;  // steps of gx the ring holds, at most
 constexpr int kMinRing = 3;  // gx(t) and keep(t+1) in, t+2 in flight
 // the bf16 products' compile-time bounds (mma_product_t): 16-deep steps a
-// slice and tiles a warp; at H = P = 320 the gate product runs 5 slices of
-// 4 steps x 2 groups of 5 tiles, the projection 5 slices of 4 x 3 tiles
-constexpr int kGateK = 4, kGateT = 5, kProjK = 4, kProjT = 1;
+// slice and tiles a warp, for C blocks a cluster; at H = P = 320 (C = 8) the
+// gate product runs 5 slices of 4 steps x 2 groups of 5 tiles, the
+// projection 5 slices of 4 x 3 tiles; at H = 1024, P = 256 (C = 16) the
+// gate product 2 slices of 8 steps x 8 groups of 2 tiles, the projection 16
+// slices of 4 steps of its one tile
+__host__ __device__ constexpr int gate_k(int C) { return C == kCluster ? 4 : 8; }
+__host__ __device__ constexpr int gate_t(int C) { return C == kCluster ? 5 : 2; }
+constexpr int kProjK = 4, kProjT = 1;
 
 
-// K1's shared memory, common to host and device.  US, PS: units and
-// projection columns a block; QS, HS: row strides of the full h and of the
-// full cell output (8·PS, 8·US, plus 16 bytes so that rows fall on other
-// banks); arow: their rows (8 in bf16, whose products take the rows as
-// mma's n; else R); LWA, LWD: row strides of the bf16 weight slices (also
-// padded by 16 bytes).  part holds the partial sums of the larger product,
+// K1's shared memory with C blocks a cluster, common to host and device.
+// US, PS: units and projection columns a block; QS, HS: row strides of the
+// full h and of the full cell output (C·PS, C·US, plus 16 bytes so that
+// rows fall on other banks); arow: their rows (8 in bf16, whose products
+// take the rows as mma's n; else R); LWA, LWD: row strides of the bf16
+// weight slices (also padded by 16 bytes, but LWD not with 16 blocks).
+// part holds the partial sums of the larger product,
 // [slices][arow][ld], split as tsplit says in bf16 (ld = cols + 4, which
 // puts the rows a lane stores on other banks) and as fma_split says in f32
 // (ld = cols).  Then the three hand-off barriers (h in buffer 0, h in
@@ -136,20 +158,20 @@ struct FwdPlan {
 
 template <typename T>
 __host__ __device__ FwdPlan fwd_plan(int units, int out_dim, bool has_proj, int rows,
-                                     int depth) {
+                                     int depth, int C) {
   FwdPlan p;
-  p.us = round_up(cdiv(units, kCluster), 8);
-  p.ps = has_proj ? round_up(cdiv(out_dim, kCluster), 16) : p.us;
+  p.us = round_up(cdiv(units, C), 8);
+  p.ps = has_proj ? round_up(cdiv(out_dim, C), 16) : p.us;
   const int pad = 16 / (int)sizeof(T);
-  p.hs = kCluster * p.us + pad;
-  p.qs = kCluster * p.ps + pad;
+  p.hs = C * p.us + pad;
+  p.qs = C * p.ps + pad;
   p.arow = kMma<T> ? 8 : rows;
   p.lwa = 4 * p.us + pad;
-  p.lwd = p.ps + pad;
+  p.lwd = p.ps + (C == kCluster ? pad : 0);
   const int g = 4 * p.us;
   p.ldg = kMma<T> ? g + 4 : g;
   p.ldp = kMma<T> ? p.ps + 4 : p.ps;
-  p.tg = tsplit(g, out_dim, kGateK, kGateT);
+  p.tg = tsplit(g, out_dim, gate_k(C), gate_t(C));
   p.tp = has_proj ? tsplit(p.ps, units, kProjK, kProjT) : TSplit{1, 0, 0, 0};
   p.fg = fma_split(g, out_dim);
   p.fp = fma_split(p.ps, units);
@@ -170,13 +192,13 @@ __host__ __device__ FwdPlan fwd_plan(int units, int out_dim, bool has_proj, int 
   return p;
 }
 
-template <typename T, int R>
+template <typename T, int R, int C>
 __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
     const float* __restrict__ gx,      // [T, 2B, 4H], forward rows first
     const int* __restrict__ lengths,   // [B]
     const float* __restrict__ keep,    // [T, B] or null
-    const T* __restrict__ wh_sl,       // [2, 8, P16, 4, US]
-    const T* __restrict__ proj_sl,     // [2, 8, H16, PS] or null (P == H)
+    const T* __restrict__ wh_sl,       // [2, C, P16, 4, US]
+    const T* __restrict__ proj_sl,     // [2, C, H16, PS] or null (P == H)
     const float* __restrict__ peep,    // [2, 3, H] or null
     float forget_bias, int steps, int batch, int units, int out_dim,
     float* __restrict__ out,           // [T, 2B, P]
@@ -189,11 +211,11 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int dir = blockIdx.y;
-  const int b0 = (blockIdx.x / kCluster) * R;
+  const int b0 = (blockIdx.x / C) * R;
   const int nr = min(R, batch - b0);
   const int H = units, P = out_dim;
   const bool has_proj = proj_sl != nullptr;
-  const FwdPlan pl = fwd_plan<T>(H, P, has_proj, R, depth);
+  const FwdPlan pl = fwd_plan<T>(H, P, has_proj, R, depth, C);
   const int US = pl.us, PS = pl.ps, G = 4 * US, arow = pl.arow;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
   const int p0 = q * PS, np = max(0, min(PS, P - p0));
@@ -211,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
   float* ring = reinterpret_cast<float*>(smem_raw + pl.off_ring);
   float* ring_keep = reinterpret_cast<float*>(smem_raw + pl.off_keep);
 
-  const size_t slot_q = (size_t)dir * kCluster + q;
+  const size_t slot_q = (size_t)dir * C + q;
   const size_t wh_elems = (size_t)round_up(P, 16) * G;
   const size_t pj_elems = has_proj ? (size_t)round_up(H, 16) * PS : 0;
   const T* wh_g = wh_sl + slot_q * wh_elems;
@@ -234,8 +256,8 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
 
   // h(s) is handed off when a step s + 1 follows, the cell output at every
   // step; each barrier is armed for its first phase here
-  const uint32_t bytes_c = kCluster * nr * US * (uint32_t)sizeof(T);
-  const uint32_t bytes_h = kCluster * nr * PS * (uint32_t)sizeof(T);
+  const uint32_t bytes_c = C * nr * US * (uint32_t)sizeof(T);
+  const uint32_t bytes_h = C * nr * PS * (uint32_t)sizeof(T);
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(bar + i, 1);
     mbar_init_fence();
@@ -333,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
       if (tid == 0 && s_next + 1 < steps) mbar_expect(bar + hb, bytes_h);
     }
     if constexpr (kMma<T>)
-      mma_product_t<kGateK, kGateT>(hq, pl.qs, P, wh_s, pl.lwa, G, pl.tg, part, pl.ldg);
+      mma_product_t<gate_k(C), gate_t(C)>(hq, pl.qs, P, wh_s, pl.lwa, G, pl.tg, part, pl.ldg);
     else
       fma_product<R>(hq, pl.qs, P, wh_g, G, G, pl.fg, part);
     cp_async_wait_pending(depth - kMinRing);  // gx(t) and keep(t+1) are in
@@ -384,9 +406,9 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
       }
     }
     if (has_proj)
-      send_slice<T>(share, in_b, cellf, rb * pl.hs + u0 + jb, bar + 2);
+      send_slice<T, C>(share, in_b, cellf, rb * pl.hs + u0 + jb, bar + 2);
     else if (next)
-      send_slice<T>(share, in_b, t & 1 ? hq1 : hq0, rb * pl.qs + u0 + jb, bar + (t & 1));
+      send_slice<T, C>(share, in_b, t & 1 ? hq1 : hq0, rb * pl.qs + u0 + jb, bar + (t & 1));
     if (own_b) {
       if (c_all) put_state(c_all, (row0 + rb) * H + ub, cv, states_bf16);
       if (!has_proj) {
@@ -421,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
         share = h_reg;
       }
     }
-    if (next) send_slice<T>(share, in_h, hq0, rh * pl.qs + p0 + jh, bar);
+    if (next) send_slice<T, C>(share, in_h, hq0, rh * pl.qs + p0 + jh, bar);
     if (own_h) {
       out[(row0 + rh) * P + p0 + jh] = ov;
       if (h_all) put_state(h_all, (row0 + rh) * P + p0 + jh, hv, states_bf16);
@@ -446,92 +468,131 @@ struct Args {
   cudaStream_t stream;
 };
 
-// K1's plan with R rows a cluster and the deepest gx ring that fits, and
-// whether K1 has it at all: R·US and R·PS threads at most, the bf16
-// products within mma_product_t's bounds, shared memory within a block's.
-// Host arithmetic only: the route asks it before any launch (R = 4 needs
-// the least of each, so K1 takes a shape when its R = 4 plan fits).
+// K1's plan with C blocks a cluster, R rows a cluster and the deepest gx
+// ring that fits, and whether K1 has it at all: at most kBlockUnits units a
+// block, R·US and R·PS threads at most, the bf16 products within
+// mma_product_t's bounds, shared memory within a block's.  Host arithmetic
+// only: the route asks it before any launch (R = 4 needs the least of each,
+// so K1 takes a shape with C blocks when its R = 4 plan fits).
 template <typename T>
-bool fwd_fits(int units, int out_dim, bool has_proj, int rows, FwdPlan* plan, int* depth) {
+bool fwd_fits(int units, int out_dim, bool has_proj, int rows, int C, FwdPlan* plan,
+              int* depth) {
   int d = kMaxRing;
-  while (d > kMinRing && fwd_plan<T>(units, out_dim, has_proj, rows, d).bytes > kMaxSmemPerBlock)
+  while (d > kMinRing && fwd_plan<T>(units, out_dim, has_proj, rows, d, C).bytes > kMaxSmemPerBlock)
     --d;
-  const FwdPlan pl = fwd_plan<T>(units, out_dim, has_proj, rows, d);
+  const FwdPlan pl = fwd_plan<T>(units, out_dim, has_proj, rows, d, C);
   *plan = pl;
   *depth = d;
-  if (rows * pl.us > kThreads || rows * pl.ps > kThreads) return false;
+  if (pl.us > kBlockUnits || rows * pl.us > kThreads || rows * pl.ps > kThreads) return false;
   if (kMma<T> && (pl.tg.per == 0 || (has_proj && pl.tp.per == 0)))
     return false;  // no split fits the products' bounds
   return pl.bytes <= kMaxSmemPerBlock;
 }
 
-// Launch with R rows per cluster if its plan fits.  Unless `force`, first
-// ask the occupancy API whether all 2·ceil(B/R) clusters fit at once, and
-// launch nothing (*launched = false) if they do not.
-template <typename T, int R>
-cudaError_t launch_rows(const Args& a, bool force, bool* launched) {
-  *launched = false;
+// The blocks a cluster of K1's plan: 8 where its R = 4 plan fits, else 16
+// where that fits, else 0 (no plan)
+template <typename T>
+int fwd_cluster(int units, int out_dim, bool has_proj) {
+  FwdPlan pl;
+  int depth;
+  const int sizes[2] = {kCluster, kWideCluster};
+  for (int C : sizes)
+    if (fwd_fits<T>(units, out_dim, has_proj, 4, C, &pl, &depth)) return C;
+  return 0;
+}
+
+// How K1 launches: C blocks a cluster, R batch rows a cluster, clusters,
+// those resident at once (the occupancy API's answer), dynamic shared
+// memory a block (rows = 0: not with this R).
+struct Launch {
+  int blocks, rows, clusters, resident;
+  size_t smem;
+};
+
+// Set up the launch with R rows per cluster if its plan fits.  Unless
+// `force`, first ask the occupancy API whether all 2·ceil(B/R) clusters fit
+// at once, and launch nothing (how->rows = 0) if they do not.  Launch
+// unless `dry`.
+template <typename T, int R, int C>
+cudaError_t launch_rows(const Args& a, bool force, bool dry, Launch* how) {
+  how->rows = 0;
   const bool has_proj = a.proj_sl != nullptr;
   FwdPlan pl;
   int depth;
-  if (!fwd_fits<T>(a.units, a.out_dim, has_proj, R, &pl, &depth)) return cudaSuccess;
+  if (!fwd_fits<T>(a.units, a.out_dim, has_proj, R, C, &pl, &depth)) return cudaSuccess;
   const size_t smem = pl.bytes;
+  auto kernel = lstm_fwd_kernel<T, R, C>;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if (C > kCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
 
   const int clusters = 2 * cdiv(a.batch, R);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * cdiv(a.batch, R), 2, 1);
+  cfg.gridDim = dim3(C * cdiv(a.batch, R), 2, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (!force) {
-    int fit = 0;
-    err = cudaOccupancyMaxActiveClusters(&fit, (const void*)lstm_fwd_kernel<T, R>, &cfg);
-    if (err != cudaSuccess) return err;
-    if (fit < clusters) return cudaSuccess;
-  }
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (!force && fit < clusters) return cudaSuccess;
+  *how = Launch{C, R, clusters, fit, smem};
+  if (dry) return cudaSuccess;
   err = cudaLaunchKernelEx(
-      &cfg, lstm_fwd_kernel<T, R>, (const float*)a.gx, (const int*)a.lengths,
+      &cfg, kernel, (const float*)a.gx, (const int*)a.lengths,
       (const float*)a.keep, (const T*)a.wh_sl, (const T*)a.proj_sl,
       (const float*)a.peep, a.forget_bias, a.steps, a.batch, a.units,
       a.out_dim, (float*)a.out, a.c_all, a.h_all, a.states_bf16,
       (float*)a.cfin, (float*)a.hfin, depth);
   if (err != cudaSuccess) return err;
-  *launched = true;
   return cudaGetLastError();
 }
 
 // The smallest R of {4, 6} whose clusters are all resident at once; else
 // the largest R whose plan fits, its clusters in waves.  A shape whose R = 4
 // plan does not fit is refused.
+template <typename T, int C>
+cudaError_t choose(const Args& a, bool dry, Launch* how) {
+  cudaError_t err = launch_rows<T, 4, C>(a, false, dry, how);
+  if (err != cudaSuccess || how->rows) return err;
+  err = launch_rows<T, 6, C>(a, false, dry, how);
+  if (err != cudaSuccess || how->rows) return err;
+  err = launch_rows<T, 8, C>(a, true, dry, how);
+  if (err != cudaSuccess || how->rows) return err;
+  err = launch_rows<T, 6, C>(a, true, dry, how);
+  if (err != cudaSuccess || how->rows) return err;
+  err = launch_rows<T, 4, C>(a, true, dry, how);
+  if (err == cudaSuccess && !how->rows) return cudaErrorInvalidConfiguration;
+  return err;
+}
+
 template <typename T>
-int launch(int device, const Args& a) {
+int launch(int device, const Args& a, bool dry, Launch* how) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  *how = Launch{0, 0, 0, 0, 0};
   if (a.batch <= 0) return cudaSuccess;
   if (a.units <= 0 || a.out_dim <= 0 || (!a.proj_sl && a.out_dim != a.units))
     return cudaErrorInvalidValue;
-  bool launched = false;
-  err = launch_rows<T, 4>(a, false, &launched);
-  if (err != cudaSuccess || launched) return err;
-  err = launch_rows<T, 6>(a, false, &launched);
-  if (err != cudaSuccess || launched) return err;
-  err = launch_rows<T, 8>(a, true, &launched);
-  if (err != cudaSuccess || launched) return err;
-  err = launch_rows<T, 6>(a, true, &launched);
-  if (err != cudaSuccess || launched) return err;
-  err = launch_rows<T, 4>(a, true, &launched);
-  if (err == cudaSuccess && !launched) return cudaErrorInvalidConfiguration;
-  return err;
+  switch (fwd_cluster<T>(a.units, a.out_dim, a.proj_sl != nullptr)) {
+    case kCluster:
+      return choose<T, kCluster>(a, dry, how);
+    case kWideCluster:
+      return choose<T, kWideCluster>(a, dry, how);
+    default:
+      return cudaErrorInvalidConfiguration;
+  }
 }
 
 }  // namespace
@@ -548,23 +609,47 @@ int launch(int device, const Args& a) {
        (cudaStream_t)stream}
 
 extern "C" int lstm_fwd_f32(LSTM_FWD_ARGS) {
-  return launch<float>(device, LSTM_FWD_PACK);
+  Launch how;
+  return launch<float>(device, LSTM_FWD_PACK, false, &how);
 }
 
 extern "C" int lstm_fwd_bf16(LSTM_FWD_ARGS) {
-  return launch<__nv_bfloat16>(device, LSTM_FWD_PACK);
+  Launch how;
+  return launch<__nv_bfloat16>(device, LSTM_FWD_PACK, false, &how);
 }
 
+// The blocks a cluster of K12's and K13's plans (and of the 8-block plans
+// of K1 and K2)
 extern "C" int lstm_fwd_cluster_size() { return kCluster; }
 
-// Whether K1 has a launch plan for this shape (1) or not (0): host
-// arithmetic only, no CUDA call (fwd_fits at R = 4)
+// The blocks a cluster of K1's launch plan for this shape (8 or 16), or 0
+// when K1 has none: host arithmetic only, no CUDA call (fwd_fits at R = 4)
 extern "C" int lstm_fwd_fits(int units, int out_dim, int has_proj, int bf16) {
-  FwdPlan pl;
-  int depth;
   if (units <= 0 || out_dim <= 0) return 0;
-  return bf16 ? fwd_fits<__nv_bfloat16>(units, out_dim, has_proj != 0, 4, &pl, &depth)
-              : fwd_fits<float>(units, out_dim, has_proj != 0, 4, &pl, &depth);
+  return bf16 ? fwd_cluster<__nv_bfloat16>(units, out_dim, has_proj != 0)
+              : fwd_cluster<float>(units, out_dim, has_proj != 0);
+}
+
+// How K1 would launch on `device` at this shape: blocks a cluster, rows a
+// cluster, clusters, clusters resident at once, and dynamic shared memory
+// a block; a CUDA error if it cannot.
+extern "C" int lstm_fwd_config(int device, int batch, int units, int out_dim,
+                               int has_proj, int bf16, int* blocks, int* rows,
+                               int* clusters, int* resident, long long* smem) {
+  Args a = {};
+  a.batch = batch;
+  a.units = units;
+  a.out_dim = out_dim;
+  a.proj_sl = has_proj ? (const void*)1 : nullptr;
+  Launch how;
+  const int err = bf16 ? launch<__nv_bfloat16>(device, a, true, &how)
+                       : launch<float>(device, a, true, &how);
+  *blocks = how.blocks;
+  *rows = how.rows;
+  *clusters = how.clusters;
+  *resident = how.resident;
+  *smem = (long long)how.smem;
+  return err;
 }
 
 extern "C" const char* kernels_error_string(int err) {

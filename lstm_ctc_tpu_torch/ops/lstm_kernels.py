@@ -16,11 +16,14 @@ the dgates its recurrence keeps, as ``fusedx_bwd`` (:651-672) does with
 On a CPU tensor a wrapper runs its plain version
 (``models/cells.dual_recurrence``, ``dual_recurrence_backward``,
 ``dual_recurrence_backward_fold``); on a CUDA tensor it launches its kernel
-or raises.  The models ask ``layer_eligible`` first and run a layer the
-kernels refuse (past 512 units, a backward with H or P not divisible by 4,
-a shape for which K1 or K2 has no launch plan that fits a block, such as
-a bf16 layer of H = P = 384) through the plain recurrence under
-autograd.  Any other error of a kernel raises.
+or raises.  Each kernel runs a cluster of 8 blocks where its 8-block plan
+fits and of 16 where only that fits (up to 1024 units, 64 a block); the
+weights are laid out for the cluster size its plan gives.  The models ask
+``layer_eligible`` first and run a layer the kernels refuse (past 1024
+units, a backward with H or P not divisible by 4, a shape for which K1 or
+K2 has no launch plan that fits a block, such as a bf16 layer of H = P =
+1024 without a projection) through the plain recurrence under autograd.
+Any other error of a kernel raises.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from .. import _build
 from ..models import cells
 from .route import warn_once
 
-MAX_UNITS = 512  # hidden units of a layer, at most (8 blocks of 64: _slices)
+MAX_UNITS = 1024  # hidden units of a layer, at most (16 blocks of 64: _slices)
+BLOCK_UNITS = 64  # hidden units a cluster block owns, at most
 
 
 def _ptr(t):
@@ -46,8 +50,9 @@ def _ptr(t):
 def _unplanned(units: int, out_dim: int, has_proj: bool, bf16: bool,
                store_bf16: bool, train: bool):
     """Which of K1 and, with ``train``, K2 has no launch plan for this
-    shape, or None: the plans' own arithmetic in the library, no CUDA call,
-    asked once a shape."""
+    shape, or None: the plans' own arithmetic in the library (each answers
+    the blocks a cluster of its plan, 0 for none), no CUDA call, asked once
+    a shape."""
     lib = _build.library()
     if not lib.lstm_fwd_fits(units, out_dim, int(has_proj), int(bf16)):
         return "forward (K1)"
@@ -86,7 +91,7 @@ def layer_eligible(device, units: int, out_dim: int, has_proj: bool, dtype,
     two half-batches) of ``units`` cells and ``out_dim`` outputs in the
     compute ``dtype``: K1, and with ``train`` K2 (K3 takes what K2 takes),
     its per-step states in ``store_dtype``.  A function of the shape: at
-    most 512 units; in training H and P divisible by 4; on a CUDA
+    most 1024 units; in training H and P divisible by 4; on a CUDA
     ``device``, a launch plan of K1 (and K2) that fits a block.  With
     ``warn``, a refusal warns once per process for each reason."""
     refusal = _refusal(device, units, out_dim, has_proj, dtype, train,
@@ -147,7 +152,12 @@ def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
         raise ValueError("sequence_length must be [B]")
 
     lib = _build.library()
-    cluster = lib.lstm_fwd_cluster_size()
+    cluster = lib.lstm_fwd_fits(num_units, out_dim, int(proj is not None),
+                                int(wh.dtype == torch.bfloat16))
+    if not cluster:
+        raise RuntimeError("lstm_fwd: no launch plan for a %s layer of H=%d "
+                           "P=%d" % (str(wh.dtype).split(".")[-1], num_units,
+                                     out_dim))
     wh_sl, proj_sl = cells.derived(
         [t for t in (wh, proj) if t is not None], ("cluster slices", cluster),
         lambda: _slices(wh, proj, cluster))
@@ -186,14 +196,15 @@ def _slices(wh, proj, cluster: int):
     [q·PS, (q+1)·PS): wh ``[n, P, 4H]`` → ``[n, cluster, P16, 4, US]``,
     proj ``[n, H, P]`` → ``[n, cluster, H16, PS]``, zero-padded (n: the
     directions of a layer, or the layers of a stack).  US is a multiple of
-    8, PS of 16, P16 and H16 are P and H rounded up to 16, as in
-    ``csrc/lstm_cluster.cuh`` ``plan``."""
+    8 and at most 64, PS a multiple of 16, P16 and H16 are P and H rounded
+    up to 16, as in ``csrc/lstm_fwd.cu`` ``fwd_plan`` (8 or 16 blocks) and
+    ``csrc/lstm_cluster.cuh`` ``plan`` (8)."""
     n, out_dim, h4 = wh.shape
     units = h4 // 4
     us = _round_up(-(-units // cluster), 8)
-    if 8 * us > 512:
+    if us > BLOCK_UNITS:
         raise ValueError("the kernel takes at most %d units, got %d"
-                         % (64 * cluster, units))
+                         % (BLOCK_UNITS * cluster, units))
     p16, h16 = _round_up(out_dim, 16), _round_up(units, 16)
     wh_sl = F.pad(wh.reshape(n, out_dim, 4, units),
                   (0, cluster * us - units, 0, 0, 0, p16 - out_dim))
@@ -331,7 +342,15 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
         return torch.empty(shape, device=device, dtype=dtype)
 
     lib = _build.library()
-    wh_sl, proj_rows = _backward_slices(wh, proj, lib.lstm_fwd_cluster_size())
+    name = "lstm_bwd_fold" if fold else "lstm_bwd"
+    cluster = lib.lstm_bwd_fits(num_units, out_dim, int(proj is not None),
+                                int(wh.dtype == torch.bfloat16),
+                                int(store_dtype == torch.bfloat16))
+    if not cluster:
+        raise RuntimeError("%s: no launch plan for a %s layer of H=%d P=%d"
+                           % (name, str(wh.dtype).split(".")[-1], num_units,
+                              out_dim))
+    wh_sl, proj_rows = _backward_slices(wh, proj, cluster)
     dgates = empty(time_steps, b2, h4, dtype=store_dtype)
     outb = doutp = dproj = None
     if proj is not None:
@@ -372,7 +391,7 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
                   empty(2, dim, h4), empty(2, h4))
         args += [_ptr(x2), _ptr(wx), dim] + [_ptr(t) for t in folded]
         launch = lib.lstm_bwd_fold_bf16 if bf16 else lib.lstm_bwd_fold_f32
-    _build.check(launch(*args), "lstm_bwd_fold" if fold else "lstm_bwd")
+    _build.check(launch(*args), name)
     return dgates, dwh, dproj, dpeep, dc_in, dh_in, folded
 
 
@@ -401,20 +420,38 @@ def _backward_slices(wh, proj, cluster: int):
                                 lambda: _proj_rows(proj, cluster))
 
 
+def _config(what, device, batch, units, out_dim, has_proj, dtype) -> dict:
+    lib = _build.library()
+    ints = [ctypes.c_int() for _ in range(4)]
+    smem = ctypes.c_longlong()
+    err = getattr(lib, what)(device.index or 0, batch, units, out_dim,
+                             int(has_proj), int(dtype == torch.bfloat16),
+                             *[ctypes.byref(v) for v in ints],
+                             ctypes.byref(smem))
+    _build.check(err, what)
+    blocks, rows, clusters, resident = (v.value for v in ints)
+    return {"blocks": blocks, "rows": rows, "clusters": clusters,
+            "resident": resident, "waves": -(-clusters // max(resident, 1)),
+            "smem_bytes": smem.value}
+
+
+def forward_config(device, batch: int, units: int, out_dim: int,
+                   has_proj: bool, dtype) -> dict:
+    """How K1 launches on ``device`` at this shape, as its launcher
+    chooses: ``blocks`` a cluster (8 or 16), ``rows`` (batch rows a
+    cluster, R), ``clusters``, ``resident`` (clusters resident at once, the
+    occupancy API's answer), ``waves`` and ``smem_bytes`` (shared memory a
+    block)."""
+    return _config("lstm_fwd_config", device, batch, units, out_dim,
+                   has_proj, dtype)
+
+
 def backward_config(device, batch: int, units: int, out_dim: int,
                     has_proj: bool, dtype) -> dict:
-    """How K2 launches on ``device`` at this shape: ``rows`` (batch rows a
-    cluster), ``clusters`` and ``smem_bytes`` (shared memory a block) (the occupancy API's choice of R, as the launcher makes it)."""
-    lib = _build.library()
-    rows, clusters = ctypes.c_int(), ctypes.c_int()
-    smem = ctypes.c_longlong()
-    err = lib.lstm_bwd_config(device.index or 0, batch, units, out_dim,
-                              int(has_proj), int(dtype == torch.bfloat16),
-                              ctypes.byref(rows), ctypes.byref(clusters),
-                              ctypes.byref(smem))
-    _build.check(err, "lstm_bwd_config")
-    return {"rows": rows.value, "clusters": clusters.value,
-            "smem_bytes": smem.value}
+    """How K2 launches on ``device`` at this shape (its per-step states in
+    ``dtype``), as ``forward_config`` says K1's."""
+    return _config("lstm_bwd_config", device, batch, units, out_dim,
+                   has_proj, dtype)
 
 
 class _LstmLayer(torch.autograd.Function):

@@ -42,12 +42,15 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..models import cells
-from .lstm_kernels import (MAX_UNITS, _expect, _proj_rows, _ptr, _round_up,
-                           _slices)
+from .lstm_kernels import (BLOCK_UNITS, _expect, _proj_rows, _ptr,
+                           _round_up, _slices)
 from .moe_kernels import _seed_ptr, hash_uniform
 from .route import warn_once
 
 _DIAG = ("w_i_diag", "w_f_diag", "w_o_diag")
+# hidden units of a stack, at most: its clusters have 8 blocks (K1's
+# slices, lstm_fwd_cluster_size) of at most 64 units
+MAX_UNITS = 8 * BLOCK_UNITS
 
 
 @functools.lru_cache(maxsize=None)

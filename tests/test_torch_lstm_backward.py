@@ -270,9 +270,15 @@ def test_replay_weight_grads_match_the_backward():
 
 @pytest.mark.cuda
 def test_kernel_refuses_bf16_slices_past_shared_memory(cuda):
-    # as K1 does: at H = P = 384 the bf16 slices do not fit in a block's
-    # shared memory; float32 reads its slices from L2 and launches
+    # as K1 does: at H = P = 1024 without a projection the bf16 slices do
+    # not fit in a block's shared memory even with 16 blocks; float32 reads
+    # its slices from L2 and launches, with 16 blocks of 64 units
     with pytest.raises(RuntimeError, match="lstm_bwd_config"):
-        lstm_kernels.backward_config(cuda, 5, 384, 384, True, torch.bfloat16)
+        lstm_kernels.backward_config(cuda, 5, 1024, 1024, False,
+                                     torch.bfloat16)
+    how = lstm_kernels.backward_config(cuda, 5, 1024, 1024, False,
+                                       torch.float32)
+    assert how["rows"] > 0 and how["blocks"] == 16
+    # H = P = 384 in bf16, which 8 blocks cannot hold, takes 16
     assert lstm_kernels.backward_config(cuda, 5, 384, 384, True,
-                                        torch.float32)["rows"] > 0
+                                        torch.bfloat16)["blocks"] == 16

@@ -1,12 +1,13 @@
 """K2's cluster partition (``csrc/lstm_bwd.cu``), on the CPU.
 
-The kernel splits one BLSTM layer's backward over an 8-block cluster per
-(direction, tile of R batch rows): block q owns hidden units [q·US,
+The kernel splits one BLSTM layer's backward over a cluster of 8 blocks
+(16 where no 8-block plan fits, up to H = 1024) per (direction, tile of R
+batch rows): block q owns hidden units [q·US,
 (q+1)·US) and holds its slice of wh and its rows of proj
 (``lstm_kernels._backward_slices``).  Here the slices are checked to
 reassemble to the weights exactly, and a plain emulation of the partition
 (the cell backward of each block's units from its own slices, dh_prev as the
-sum of the eight blocks' partials in block order, the peephole sums as
+sum of the blocks' partials in block order, the peephole sums as
 per-row-tile partials added in order) is held to
 ``cells.dual_recurrence_backward`` at rtol = atol = 1e-5 in float32.
 """
@@ -18,9 +19,18 @@ import torch
 from lstm_ctc_tpu_torch.models import cells
 from lstm_ctc_tpu_torch.ops import lstm_kernels
 
-CLUSTER = 8
 FORGET_BIAS = 5.0
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one intra-op thread: the emulation's many small ops slow
+    down when their thread pool shares busy cores (the suite's workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def weights(seed, units, proj):
@@ -29,17 +39,21 @@ def weights(seed, units, proj):
     return cells.recurrent_weights(pair[0], pair[1], torch.float32)
 
 
-@pytest.mark.parametrize("units,proj", [(320, 320), (16, 8), (16, None)])
-def test_backward_slices_reassemble_to_the_weights(units, proj):
+@pytest.mark.parametrize("units,proj,cluster", [
+    (320, 320, 8), (16, 8, 8), (16, None, 8), (320, 320, 16), (16, 8, 16),
+    (1024, 256, 16), (512, 512, 16), (384, 384, 16), (1024, None, 16)],
+    ids=["320-320", "16-8", "16-None", "320-320-16", "16-8-16",
+         "1024-256-16", "512-512-16", "384-384-16", "1024-None-16"])
+def test_backward_slices_reassemble_to_the_weights(units, proj, cluster):
     wh, pj, _ = weights(0, units, proj)
-    wh_sl, rows = lstm_kernels._backward_slices(wh, pj, CLUSTER)
+    wh_sl, rows = lstm_kernels._backward_slices(wh, pj, cluster)
     out_dim = wh.shape[1]
     us = wh_sl.shape[-1]
     p16 = -(-out_dim // 16) * 16
-    assert us % 8 == 0 and CLUSTER * us >= units
-    assert wh_sl.shape == (2, CLUSTER, p16, 4, us)
+    assert us % 8 == 0 and cluster * us >= units
+    assert wh_sl.shape == (2, cluster, p16, 4, us)
     # block q's slice holds all four gates of units [q·US, (q+1)·US)
-    full = wh_sl.permute(0, 2, 3, 1, 4).reshape(2, p16, 4, CLUSTER * us)
+    full = wh_sl.permute(0, 2, 3, 1, 4).reshape(2, p16, 4, cluster * us)
     assert torch.equal(full[:, :out_dim, :, :units],
                        wh.view(2, out_dim, 4, units))
     assert not full[:, out_dim:].any() and not full[..., units:].any()
@@ -47,24 +61,24 @@ def test_backward_slices_reassemble_to_the_weights(units, proj):
         assert rows is None
         return
     u16 = -(-us // 16) * 16
-    assert rows.shape == (2, CLUSTER, u16, p16)
-    assert torch.equal(rows[:, :, :us].reshape(2, CLUSTER * us, p16)
+    assert rows.shape == (2, cluster, u16, p16)
+    assert torch.equal(rows[:, :, :us].reshape(2, cluster * us, p16)
                        [:, :units, :out_dim], pj)
     assert not rows[:, :, us:].any() and not rows[..., out_dim:].any()
-    assert not rows[:, :, :us].reshape(2, CLUSTER * us, p16)[:, units:].any()
+    assert not rows[:, :, :us].reshape(2, cluster * us, p16)[:, units:].any()
     # the wh slices are K1's own, made once
-    assert wh_sl is cells.derived([wh, pj], ("cluster slices", CLUSTER),
+    assert wh_sl is cells.derived([wh, pj], ("cluster slices", cluster),
                                   lambda: None)[0]
 
 
 def cluster_backward(gx, seq, keep, wh, proj, peep, c_all, h_all, dout,
-                     dcfin, dhfin, rows):
-    """The kernel's partition in plain torch (float32): (dgates, dh_in,
-    dpeep)."""
+                     dcfin, dhfin, rows, cluster=8):
+    """The kernel's partition with ``cluster`` blocks a cluster in plain
+    torch (float32): (dgates, dh_in, dpeep)."""
     steps, b2, h4 = gx.shape
     batch, units = b2 // 2, h4 // 4
     out_dim = h_all.shape[2]
-    wh_sl, pj_rows = lstm_kernels._backward_slices(wh, proj, CLUSTER)
+    wh_sl, pj_rows = lstm_kernels._backward_slices(wh, proj, cluster)
     us = wh_sl.shape[-1]
     dgates = torch.zeros(steps, b2, h4)
     dh_in = torch.zeros(steps, b2, out_dim)
@@ -85,7 +99,7 @@ def cluster_backward(gx, seq, keep, wh, proj, peep, c_all, h_all, dout,
                 dout_p = m * (dout[t, rr] + dh)
                 partials = []
                 dg_rows = torch.zeros(len(br), 4, units)
-                for q in range(CLUSTER):
+                for q in range(cluster):
                     u = torch.arange(min(units, q * us), min(units, (q + 1) * us))
                     nu = len(u)
                     w = wh_sl[d, q, :out_dim, :, :nu]          # [P, 4, nu]
@@ -132,12 +146,10 @@ def cluster_backward(gx, seq, keep, wh, proj, peep, c_all, h_all, dout,
     return dgates, dh_in, dpeep
 
 
-@pytest.mark.parametrize("batch,proj,reset", [
-    (4, 8, False), (5, 8, True), (5, None, False), (3, None, True),
-    (7, 8, True)])
-def test_cluster_partition_matches_plain(batch, proj, reset):
+def partition_case(batch, proj, reset, steps=11, units=16):
+    """A layer's inputs, its plain forward's states and random cotangents,
+    from a numpy seed."""
     rng = np.random.RandomState(batch + 10 * reset)
-    steps, units, rows = 11, 16, 2
     wh, pj, peep = weights(batch, units, proj)
     out_dim = wh.shape[1]
     seq = torch.from_numpy(rng.randint(steps // 2, steps + 1, batch))
@@ -158,12 +170,37 @@ def test_cluster_partition_matches_plain(batch, proj, reset):
                             .astype(np.float32))
     dcfin = torch.from_numpy(rng.randn(2 * batch, units).astype(np.float32))
     dhfin = torch.from_numpy(rng.randn(2 * batch, out_dim).astype(np.float32))
-    args = (gx, seq, keep, wh, pj, peep, FORGET_BIAS, c_all, h_all, dout,
+    return (gx, seq, keep, wh, pj, peep, FORGET_BIAS, c_all, h_all, dout,
             dcfin, dhfin)
+
+
+def check_partition(args, rows, cluster):
     dgates, _, _, dpeep, _, dh_in = cells.dual_recurrence_backward(
         *args, steps=True)
-    got = cluster_backward(gx, seq, keep, wh, pj, peep, c_all, h_all, dout,
-                           dcfin, dhfin, rows)
+    gx, seq, keep, wh, pj, peep = args[:6]
+    got = cluster_backward(gx, seq, keep, wh, pj, peep, *args[7:], rows,
+                           cluster)
     np.testing.assert_allclose(got[0].numpy(), dgates.numpy(), **TOL)
     np.testing.assert_allclose(got[1].numpy(), dh_in.numpy(), **TOL)
     np.testing.assert_allclose(got[2].numpy(), dpeep.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("batch,proj,reset,cluster", [
+    (4, 8, False, 8), (5, 8, True, 8), (5, None, False, 8),
+    (3, None, True, 8), (7, 8, True, 8), (4, 8, False, 16),
+    (5, 8, True, 16), (3, None, True, 16)],
+    ids=["4-8-False", "5-8-True", "5-None-False", "3-None-True",
+         "7-8-True", "4-8-False-16", "5-8-True-16", "3-None-True-16"])
+def test_cluster_partition_matches_plain(batch, proj, reset, cluster):
+    check_partition(partition_case(batch, proj, reset), 2, cluster)
+
+
+@pytest.mark.parametrize("units,proj", [(1024, 256), (512, 512),
+                                        (384, 384), (512, None)])
+def test_wide_cluster_partition_matches_plain(units, proj):
+    """The widths only 16 blocks take (64 units a block and PS = 16 dh
+    columns at H = 1024, P = 256), R = 2 (H = P = 512's only R), two row
+    tiles, T = 4, resets: dgates, the carried dh and the peephole sums as
+    the plain backward's."""
+    check_partition(partition_case(3, proj, True, steps=4, units=units), 2,
+                    16)

@@ -1,8 +1,9 @@
 """K1's step (``csrc/lstm_fwd.cu``), emulated on the CPU.
 
-The kernel runs one 8-block cluster per (direction, tile of R batch rows):
-block q owns hidden units [q·US, (q+1)·US) and projection columns [q·PS,
-(q+1)·PS) and holds its slices of wh and proj (``lstm_kernels._slices``).
+The kernel runs one cluster of 8 blocks (16 where no 8-block plan fits,
+up to H = 1024) per (direction, tile of R batch rows): block q owns hidden
+units [q·US, (q+1)·US) and projection columns [q·PS, (q+1)·PS) and holds
+its slices of wh and proj (``lstm_kernels._slices``).
 A step hands the cell output, then h, from every block to every block by
 stores that complete bytes on the receiver's barrier, and each block waits
 only on its own barrier.  The packed-row reset is folded into the step:
@@ -10,7 +11,7 @@ keep(t+1) scales c and h where they are kept for the next step (h as staged
 for the hand-off), while out, c_all, h_all and the final states take the
 values before it; gx and keep come from a ring of ``depth`` steps.
 
-Here the eight blocks of each cluster run as separate programs under a
+Here the blocks of each cluster (8 or 16) run as separate programs under a
 scheduler that interleaves them at every point where the kernel's warps
 could be overtaken by another block (random orders, and one that runs
 each block as far as it can).  Every slice of every buffer carries the
@@ -29,7 +30,7 @@ import torch
 from lstm_ctc_tpu_torch.models import cells
 from lstm_ctc_tpu_torch.ops import lstm_kernels
 
-CLUSTER = 8
+CLUSTERS = [8, 16]
 THREADS = 512
 FORGET_BIAS = 5.0
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -59,6 +60,17 @@ def tsplit(cols, depth, kmax, tmax):
         if slices * groups <= THREADS // 32:
             return per * 16, slices
     raise ValueError("no split")
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one intra-op thread: the emulation's thousands of small ops
+    slow down ~30x when their thread pool shares busy cores (the suite's
+    workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class Hazard(AssertionError):
@@ -96,37 +108,43 @@ class Barrier:
         return (self.completed & 1) != parity
 
 
+def gate_bounds(cluster):
+    """``lstm_fwd.cu`` gate_k, gate_t: the gate product's bf16 bounds (16-deep
+    steps a slice, tiles a warp) with ``cluster`` blocks."""
+    return (4, 5) if cluster == 8 else (8, 2)
+
+
 class Block:
     """One block's shared memory: h in two buffers (only the first with a
-    projection) and the cell output, each [R, 8·W] with the step each
+    projection) and the cell output, each [R, C·W] with the step each
     block's slice holds, and the three barriers."""
 
-    def __init__(self, rows, ps, us):
-        self.hq = [torch.zeros(rows, CLUSTER * ps) for _ in range(2)]
-        self.hq_step = [[-1] * CLUSTER for _ in range(2)]
-        self.cell = torch.zeros(rows, CLUSTER * us)
-        self.cell_step = [-1] * CLUSTER
+    def __init__(self, rows, ps, us, cluster):
+        self.hq = [torch.zeros(rows, cluster * ps) for _ in range(2)]
+        self.hq_step = [[-1] * cluster for _ in range(2)]
+        self.cell = torch.zeros(rows, cluster * us)
+        self.cell_step = [-1] * cluster
         self.bar = [Barrier() for _ in range(3)]
 
 
 def cluster_forward(gx, seq, keep, wh, proj, peep, rows, depth, order,
-                    double_h=True, split="f32"):
-    """The kernel's partition and hand-offs in plain torch (float32):
-    (out, cfin, hfin, c_all, h_all).  ``order(runnable)`` picks the next
-    block to run; ``split`` the k-splits of the two products, as the
-    kernel's float32 path or its bf16 path splits them (the arithmetic
-    stays float32 here)."""
+                    double_h=True, split="f32", cluster=8):
+    """The kernel's partition and hand-offs in plain torch (float32), with
+    ``cluster`` blocks a cluster: (out, cfin, hfin, c_all, h_all).
+    ``order(runnable)`` picks the next block to run; ``split`` the k-splits
+    of the two products, as the kernel's float32 path or its bf16 path
+    splits them (the arithmetic stays float32 here)."""
     steps, b2, h4 = gx.shape
     batch, units = b2 // 2, h4 // 4
     has_proj = proj is not None
     out_dim = proj.shape[2] if has_proj else units
-    wh_sl, pj_sl = lstm_kernels._slices(wh, proj, CLUSTER)
+    wh_sl, pj_sl = lstm_kernels._slices(wh, proj, cluster)
     us = wh_sl.shape[-1]
     ps = pj_sl.shape[-1] if has_proj else us
     if split == "f32":
         gate_split, proj_split = fma_split(4 * us, out_dim), fma_split(ps, units)
     else:
-        gate_split = tsplit(4 * us, out_dim, 4, 5)   # kGateK, kGateT
+        gate_split = tsplit(4 * us, out_dim, *gate_bounds(cluster))
         proj_split = tsplit(ps, units, 4, 1)         # kProjK, kProjT
     out = torch.zeros(steps, b2, out_dim)
     c_all = torch.zeros(steps, b2, units)
@@ -208,11 +226,11 @@ def cluster_forward(gx, seq, keep, wh, proj, peep, rows, depth, order,
             return buf[:nr].clone()
 
         if steps > 1:
-            me.bar[0].arm(CLUSTER)
+            me.bar[0].arm(cluster)
         if not has_proj and double_h and steps > 2:
-            me.bar[1].arm(CLUSTER)
+            me.bar[1].arm(cluster)
         if has_proj and steps > 0:
-            me.bar[2].arm(CLUSTER)
+            me.bar[2].arm(cluster)
         for s in range(depth - 1):
             fetch(s)
         yield ("sync",)                                   # cluster.sync
@@ -223,7 +241,7 @@ def cluster_forward(gx, seq, keep, wh, proj, peep, rows, depth, order,
                 yield ("wait", hb)
                 s_next = t if has_proj or not double_h else t + 1
                 if s_next + 1 < steps:
-                    me.bar[hb].arm(CLUSTER)
+                    me.bar[hb].arm(cluster)
             yield ("run",)
             # block q's slice of a buffer holds columns q·W .., so the
             # buffer's first P (or H) columns are h (or the cell output)
@@ -261,7 +279,7 @@ def cluster_forward(gx, seq, keep, wh, proj, peep, rows, depth, order,
                 continue
             yield ("wait", 2)
             if nxt:
-                me.bar[2].arm(CLUSTER)
+                me.bar[2].arm(cluster)
             yield ("run",)
             cfull = read(me.cell, me.cell_step, t)[:, :units]
             o = sliced(cfull, w_p, proj_split, units)     # [nr, PS]
@@ -284,8 +302,8 @@ def cluster_forward(gx, seq, keep, wh, proj, peep, rows, depth, order,
 
     for d in range(2):
         for b0 in range(0, batch, rows):
-            blocks = [Block(rows, ps, us) for _ in range(CLUSTER)]
-            _run(blocks, [program(d, b0, q, blocks) for q in range(CLUSTER)],
+            blocks = [Block(rows, ps, us, cluster) for _ in range(cluster)]
+            _run(blocks, [program(d, b0, q, blocks) for q in range(cluster)],
                  order)
     return out, cfin, hfin, c_all, h_all
 
@@ -359,17 +377,24 @@ ORDERS = [("random0", random_order(0)), ("random1", random_order(1)),
           ("greedy", greedy_order)]
 
 
-@pytest.mark.parametrize("split", ["f32", "bf16"])
+# each split with 8 blocks a cluster, then with 16
+SPLITS = [(split, cluster) for cluster in CLUSTERS for split in ("f32", "bf16")]
+SPLIT_IDS = [split if cluster == 8 else "%s-%d" % (split, cluster)
+             for split, cluster in SPLITS]
+
+
+@pytest.mark.parametrize("split,cluster", SPLITS, ids=SPLIT_IDS)
 @pytest.mark.parametrize("order", [o for _, o in ORDERS],
                          ids=[n for n, _ in ORDERS])
 @pytest.mark.parametrize("proj,peep,reset", [
     (128, True, False), (128, True, True), (128, False, True),
     (None, True, False), (None, True, True), (None, False, False)])
-def test_cluster_step_matches_plain(proj, peep, reset, order, split):
+def test_cluster_step_matches_plain(proj, peep, reset, order, split,
+                                    cluster):
     gx, seq, keep, wh, pj, pp = make_case(3, proj=proj, peepholes=peep,
                                           reset=reset)
     got = cluster_forward(gx, seq, keep, wh, pj, pp, rows=3, depth=6,
-                          order=order, split=split)
+                          order=order, split=split, cluster=cluster)
     ref = cells.dual_recurrence(gx, seq, keep, wh, pj, pp, FORGET_BIAS,
                                 states=True)
     for name, g, r in zip(("out", "cfin", "hfin", "c_all", "h_all"), got,
@@ -378,15 +403,19 @@ def test_cluster_step_matches_plain(proj, peep, reset, order, split):
 
 
 @pytest.mark.parametrize("steps,depth", [(1, 3), (2, 3), (3, 4), (7, 3)])
-@pytest.mark.parametrize("proj", [48, None])
-def test_cluster_step_short_sequences_and_rings(steps, depth, proj):
+@pytest.mark.parametrize("proj,cluster", [(48, 8), (None, 8), (48, 16),
+                                          (None, 16)],
+                         ids=["48", "None", "48-16", "None-16"])
+def test_cluster_step_short_sequences_and_rings(steps, depth, proj,
+                                                cluster):
     """Sequences of 1-3 steps (the barriers' first phases armed or not)
     and the shallowest ring; block 3 onwards owns no projection column at
-    P = 48, and the units past H are padding."""
+    P = 48, and the units past H are padding (with 16 blocks, blocks 5
+    onwards own no unit)."""
     gx, seq, keep, wh, pj, pp = make_case(5, batch=4, steps=steps,
                                           units=36, proj=proj, reset=True)
     got = cluster_forward(gx, seq, keep, wh, pj, pp, rows=3, depth=depth,
-                          order=random_order(steps))
+                          order=random_order(steps), cluster=cluster)
     ref = cells.dual_recurrence(gx, seq, keep, wh, pj, pp, FORGET_BIAS,
                                 states=True)
     for name, g, r in zip(("out", "cfin", "hfin", "c_all", "h_all"), got,
@@ -419,3 +448,26 @@ def test_reset_at_staging_equals_reset_pass(reset):
     for name, g, r in zip(("out", "cfin", "hfin", "c_all", "h_all"), got,
                           ref):
         np.testing.assert_allclose(g.numpy(), r.numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("order", [o for _, o in ORDERS[:2]],
+                         ids=[n for n, _ in ORDERS[:2]])
+@pytest.mark.parametrize("units,proj", [(1024, 256), (512, 512),
+                                        (384, 384), (512, None)])
+def test_wide_cluster_step_matches_plain(units, proj, order):
+    """The widths only 16 blocks take (64 units a block at H = 1024, PS =
+    16 projection columns a block at P = 256; 24 units and 32 columns at
+    H = P = 384, where blocks 12-15 own no projection column), in both
+    products' splits, at B = 3 with R = 2 (two row tiles), T = 4 and resets:
+    the same outputs as the plain recurrence."""
+    gx, seq, keep, wh, pj, pp = make_case(8, batch=3, steps=4, units=units,
+                                          proj=proj, reset=True)
+    ref = cells.dual_recurrence(gx, seq, keep, wh, pj, pp, FORGET_BIAS,
+                                states=True)
+    for split in ("f32", "bf16"):
+        got = cluster_forward(gx, seq, keep, wh, pj, pp, rows=2, depth=3,
+                              order=order, split=split, cluster=16)
+        for name, g, r in zip(("out", "cfin", "hfin", "c_all", "h_all"),
+                              got, ref):
+            np.testing.assert_allclose(g.numpy(), r.numpy(),
+                                       err_msg=name, **TOL)

@@ -94,12 +94,15 @@ def test_mix_eligible_refuses_unknown_modes():
 
 
 @pytest.mark.parametrize("units,out_dim,train,eligible", [
-    (512, 512, True, True), (513, 512, False, False), (513, 4, True, False),
+    (512, 512, True, True), (513, 512, False, True), (513, 4, True, False),
+    (1024, 1024, True, True), (1025, 1024, False, False),
+    (1025, 4, True, False), (1024, 256, True, True),
     (320, 320, True, True), (6, 8, True, False), (8, 6, True, False),
     (6, 6, False, True), (10, 320, True, False)])
 def test_layer_eligible_shape_edges(units, out_dim, train, eligible):
     """The shape-only part (a CPU device asks the library nothing): at most
-    512 units; in training H and P divisible by 4 (6 and 10 are 2 mod 4)."""
+    1024 units (16 blocks of 64); in training H and P divisible by 4 (6 and
+    10 are 2 mod 4)."""
     assert lstm_kernels.layer_eligible(torch.device("cpu"), units, out_dim,
                                        out_dim != units, torch.bfloat16,
                                        train) is eligible
@@ -165,14 +168,53 @@ def test_layer_eligible_asks_the_plans_once_a_shape(fake_plans, units,
 
 
 def test_layer_eligible_asks_no_plan_past_the_shape_rules(fake_plans):
-    """Past 512 units, or a backward with H or P not divisible by 4, the
+    """Past 1024 units, or a backward with H or P not divisible by 4, the
     shape rules refuse before any plan is asked."""
     cuda = torch.device("cuda")
-    assert not lstm_kernels.layer_eligible(cuda, 516, 516, False,
+    assert not lstm_kernels.layer_eligible(cuda, 1028, 1028, False,
                                            torch.float32, False)
     assert not lstm_kernels.layer_eligible(cuda, 6, 8, True, torch.float32,
                                            True)
     assert fake_plans.asked == []
+
+
+# the widths past the 8-block plans that the 16-block ones take: Kaldi's
+# BLSTMP cell and projection (1024, 256), and H = P = 512 and 384
+WIDE = [(1024, 256), (512, 512), (384, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("train", [False, True], ids=["serve", "train"])
+@pytest.mark.parametrize("units,out_dim", WIDE)
+def test_layer_eligible_takes_the_wide_shapes(monkeypatch, fresh_warnings,
+                                              units, out_dim, train, dtype):
+    """Where the plans take a wide layer (the library answers 16, the
+    blocks a cluster of its plan), so does the predicate, on a CUDA device,
+    in serving and in training, asking nothing but the two plan queries;
+    H = 1025 is refused before any question."""
+    plans = FakePlans(fwd=set(WIDE), bwd=set(WIDE))
+    plans.lstm_fwd_fits = lambda *a: 16 * FakePlans.lstm_fwd_fits(plans, *a)
+    plans.lstm_bwd_fits = lambda *a: 16 * FakePlans.lstm_bwd_fits(plans, *a)
+    monkeypatch.setattr(lstm_kernels._build, "library", lambda: plans)
+    lstm_kernels._unplanned.cache_clear()
+    cuda = torch.device("cuda")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert lstm_kernels.layer_eligible(
+                cuda, units, out_dim, out_dim != units, dtype, train, dtype,
+                warn=True)
+            assert not lstm_kernels.layer_eligible(
+                cuda, 1025, out_dim, True, dtype, train, dtype)
+    finally:
+        lstm_kernels._unplanned.cache_clear()
+    bf16 = int(dtype == torch.bfloat16)
+    want = [("fwd", units, out_dim, int(out_dim != units), bf16)]
+    if train:
+        want.append(("bwd", units, out_dim, int(out_dim != units), bf16,
+                     bf16))
+    assert plans.asked == want
 
 
 def make_stack(units, out_dim, layers=3, d=10):
@@ -564,14 +606,13 @@ def test_streaming_route_on_gpu(cuda, fresh_warnings):
 
 @pytest.mark.cuda
 def test_blstm_route_on_gpu(cuda, fresh_warnings):
-    """A bf16 BLSTM layer of H = P = 384 in training, for which K1 has no
-    launch plan (its gate product needs more warps than a block has within
-    the products' bounds; K2's weight slices would not fit shared memory
-    either): the plain recurrence under autograd, equal to
-    cells.bilstm_dual_scan on the same tensors, one warning, no K1, K2 or
-    K3 launch."""
+    """A bf16 BLSTM layer of H = P = 1024 without a projection in
+    training, for which K1 has no launch plan (its wh slice, 1024 x 256 a
+    block even with 16 blocks, exceeds shared memory; K2's too): the plain
+    recurrence under autograd, equal to cells.bilstm_dual_scan on the same
+    tensors, one warning, no K1, K2 or K3 launch."""
     config = {"nnet_type": "blstm", "input_dim": 20, "num_layers": 1,
-              "num_neurons": 384, "num_projects": 384, "num_targets": 9,
+              "num_neurons": 1024, "num_projects": 0, "num_targets": 9,
               "use_peepholes": True, "compute_dtype": "bfloat16"}
     gen = torch.Generator().manual_seed(5)
     params = blstm.init_blstm(gen, config, cuda)
@@ -585,7 +626,7 @@ def test_blstm_route_on_gpu(cuda, fresh_warnings):
     before = counted(*wrappers)
     with pytest.warns(UserWarning,
                       match=r"forward \(K1\) has no launch plan for a "
-                      "bfloat16 layer of H=384 P=384"):
+                      "bfloat16 layer of H=1024 P=1024"):
         logits, _, _ = blstm.apply_blstm(params, x, seq, config, train=True)
     grads = torch.autograd.grad(logits.sum(), leaves)
     torch.cuda.synchronize()
@@ -595,7 +636,7 @@ def test_blstm_route_on_gpu(cuda, fresh_warnings):
                                        rev, seq, blstm.FORGET_BIAS,
                                        compute_dtype=torch.bfloat16)
     cat = torch.cat([fw, cells.reverse_sequence(bw, seq)], dim=2)
-    ref = (cat.reshape(-1, 768) @ params["head"]["w"]
+    ref = (cat.reshape(-1, 2048) @ params["head"]["w"]
            + params["head"]["b"]).reshape(3, 17, 9)
     ref_grads = torch.autograd.grad(ref.sum(), leaves)
     assert torch.equal(logits, ref)
@@ -608,16 +649,21 @@ def test_blstm_route_on_gpu(cuda, fresh_warnings):
     (320, 320, torch.bfloat16), (384, 384, torch.bfloat16),
     (200, 448, torch.bfloat16), (324, 324, torch.bfloat16),
     (384, 384, torch.float32), (512, 512, torch.float32),
-    (64, 640, torch.float32)],
+    (64, 640, torch.float32), (1024, 256, torch.bfloat16),
+    (512, 512, torch.bfloat16), (1024, 256, torch.float32),
+    (1024, 1024, torch.bfloat16), (1028, 256, torch.float32)],
     ids=["bf16-320", "bf16-384", "bf16-200x448", "bf16-324", "f32-384",
-         "f32-512", "f32-64x640"])
+         "f32-512", "f32-64x640", "bf16-1024x256", "bf16-512",
+         "f32-1024x256", "bf16-1024", "f32-1028x256"])
 def test_layer_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
                                                          out_dim, dtype):
     """The predicate's plans are the launchers' own: where it takes a
     layer, K1 launches and K2's launch plan is found; where it refuses,
     K1's wrapper and K2's plan query raise.  B = 3, 64 and 512 reach K1's
     launches of all clusters at once and in waves; at P = 640 in float32
-    R = 8 has no plan, so the waves run with R = 6."""
+    R = 8 has no plan, so the waves run with R = 6.  The widths past the
+    8-block plans run 16-block clusters; bf16 H = P = 1024 (with a
+    projection: 1024 x 256 of wh a block) and H = 1028 have no plan."""
     forward = lstm_kernels.layer_eligible(cuda, units, out_dim, True, dtype,
                                           False)
     backward = lstm_kernels.layer_eligible(cuda, units, out_dim, True,
@@ -713,10 +759,10 @@ def refused_stack_case(cuda, layers=3, d=20, batch=3, time_steps=17):
 def test_stack_route_on_gpu(cuda, fresh_warnings):
     """A bf16 lstm stack of H = P = 384 in training, for which K12 has no
     launch plan (its weight slices and input stage exceed a block's shared
-    memory, as K1's do): the stack runs layer by layer (there K1 refuses
-    too: the plain recurrence under autograd), equal bit for bit to that
-    composition on the same tensors, with the stack's warning and no K12,
-    K13, K1 or K2 launch."""
+    memory): the stack runs layer by layer, through K1 and K2 on 16-block
+    clusters (one launch of each a layer), equal bit for bit to that
+    composition on the same tensors, with the stack's warning and no K12
+    or K13 launch."""
     stack, x, seq, flags = refused_stack_case(cuda)
     leaves = [t.requires_grad_() for c in stack for t in c.values()]
     wrappers = (lstm_stack_kernels.lstm_stack_forward,
@@ -730,7 +776,9 @@ def test_stack_route_on_gpu(cuda, fresh_warnings):
         got, _ = lstm.stack_layers(stack, x, seq, flags, torch.bfloat16)
     grads = torch.autograd.grad(got.sum(), leaves)
     torch.cuda.synchronize()
-    assert counted(*wrappers) == before
+    layers = len(stack)
+    assert counted(*wrappers) == [before[0], before[1], before[2] + layers,
+                                  before[3] + layers]
     ref = x
     for cell, residual in zip(stack, flags):
         out = lstm.layer_forward(cell, ref, seq, torch.bfloat16)
