@@ -44,8 +44,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      lattice of 1101 positions, a MoE head of V=136 in bf16 and of D=1100
      in float32, a bf16 BLSTM layer of H=P=1024 without a projection in
      training): equal to the plain version, one warning, no kernel launch;
-     and a bf16 lstm stack of H=P=384 in training, which K12 has no plan
-     for, layer by layer through K1 and K2 (once each a layer);
+     a bf16 lstm stack of 8 layers of H=P=384 in training, deeper than the
+     sixteen-block clusters the card holds at once, layer by layer through
+     K1 and K2 (once each a layer); and a streamed bf16 stack of H=P=1024
+     without a projection, which K12 has no plan for, each layer through
+     the plain scan;
   7. K2 (BLSTM layer backward) against its plain version at B=32, T=384,
      H=P=320, D=640, ragged lengths, with and without resets, float32
      (TF32 off) and bfloat16 (in bfloat16 also each step replayed from
@@ -100,17 +103,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (torch.nn.LSTM) first checked to give K12's outputs at the cudnnlstm
      width, then timed beside it as the library yardstick in bf16, with its
      weights in one buffer (no copy at a call), the profiler's device time
-     of each call beside its time on the events;
+     of each call beside its time on the events; then, on 16-block
+     clusters, at H=1024 P=256 and H=P=512, 448, 384 (lstm), H=P=512
+     (cudnnlstm; cuDNN's yardstick there too) and a streaming chunk (B=1,
+     16 rows): float32 and bfloat16 at keep 0.9 (lstm) with initial
+     states, two bfloat16 launches bit-equal, the launch (blocks, R,
+     clusters, waves, those resident at once), timed (beside the plain
+     version at 1024/256 and cudnnlstm 512) and through stack_layers
+     beside the parent's route, layer by layer through K1;
  12. K13 (its backward) against its plain version at both widths (keep 0.9
      for lstm), under phase 7's rules (bfloat16: each step replayed from the
-     kernel's own carries and input cotangents); timed in turns;
+     kernel's own carries and input cotangents); timed in turns; then at
+     phase 11's 16-block shapes, also two launches bit-equal, and a
+     training forward + backward through stack_layers beside the parent's
+     route through K1 and K2;
  13. serving: nnet_forward for an lstm and a cudnnlstm model (random
      weights from a seed) on phase 5's corpus, bf16 (launch counts, the
      archive, a float32 run against the plain versions, every bf16 K12
      launch replayed step by step), then 8 utterances of the lstm model
      through --streaming true --chunk-frames 16 (one K12 launch a chunk),
      its output against the offline output, ms per chunk and the
-     real-time factor of a session on the card;
+     real-time factor of a session on the card; then a session of phase
+     22's model (Kaldi's LSTMP widths, random weights) on 8 utterances:
+     one K12 and one K4 launch a chunk, no plain scan on the card, ms per
+     chunk beside the parent's route (each layer the plain scan);
  14. training: lstm (keep 0.9), cudnnlstm and lstm_bn through nnet_init,
      then two epochs of nnet_train (adam 1e-3, batch 32, unpacked, bf16)
      each followed by nnet_validate, on phase 8's corpus: launch counts
@@ -185,10 +201,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      warning and no plain recurrence on the card, finite losses and
      weights, the archive checked; float32 log-posteriors against the
      plain versions';
- 22. prints the kernels' JSON line (with rows for K1, K2 and K3 at
-     H=1024, P=256, their launches from phase 21), the summary lines, the
-     nvidia-smi line, and as the last line
-     ``{"ok": true, "device": {...}}``.
+ 22. Kaldi's LSTMP widths end to end: the lstm family at cell 1024 and
+     projection 256 (peepholes, residual layers 1-3, the MoE head, keep
+     0.9; random weights from a seed) on 16-block K12 and K13: nnet_init,
+     nnet_train (adam 1e-3, batch 32, unpacked, bf16), nnet_forward on 64
+     utterances and nnet_forward --streaming --chunk-frames 16 on the same
+     utterances, each run counted from zero (per train step 1 K12, 1 K13,
+     1 K5, 1 K6, 1 K10, 1 K11; per CV or forward batch 1 K12, 1 K4 and, in
+     CV, 1 K10; per chunk 1 K12 and 1 K4), no route warning, no K1 or K2
+     and no plain scan on the card; float32 log-posteriors against the
+     plain versions', the streamed against the offline in float32 and
+     bfloat16; the train step and the forward on the parent's route
+     (layer by layer through K1 and K2) for the record; then a cudnnlstm
+     of H=P=512 through nnet_init, nnet_train and nnet_forward;
+ 23. prints the kernels' JSON line (with rows for K1, K2 and K3 at
+     H=1024, P=256, their launches from phase 21, and for K12 and K13 on
+     16 blocks at H=1024, P=256 and at the cudnnlstm H=P=512, their
+     launches from phase 22), the summary lines, the nvidia-smi line, and
+     as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
 float32, max|diff| / max|plain| <= 1e-4 per output; bfloat16 kernel A, the
@@ -216,8 +246,9 @@ weights show it most).  K12/K13, float32: max|diff| / max|plain| <= 1e-4
 per output; bfloat16, each step replayed from the kernel's own states,
 carries and input cotangents: the same ratio <= 1e-3, K13's dgates within
 one bf16 rounding step; at keep 0.9 the chain is zero wherever the plain
-mask drops and non-zero wherever it keeps a non-zero plain value.  cuDNN's
-LSTM against K12 in float32: <= 1e-4.  Streaming against offline
+mask drops and non-zero wherever it keeps a non-zero plain value; on 16
+blocks also two bfloat16 launches bit-equal.  cuDNN's LSTM against K12
+in float32: <= 1e-4.  Streaming against offline
 log-posteriors (the same kernel runs both, row by row): max|diff| /
 max|offline| <= 1e-4 in float32 and <= 1e-3 in bfloat16.  The families' float32
 train step: each launch <= 1e-4 on its own tensors, the loss within 1e-4
@@ -1112,29 +1143,36 @@ def check_routes(torch, pkg, device, rng):
     if not same:
         fail("the routed BLSTM layer differs from its plain version")
 
-    # the unidirectional stack, bf16 H = P = 384 in training: K12 has no
-    # plan, so layer by layer, through K1 and K2 (16-block clusters)
+    # the unidirectional stack, bf16, 8 layers of H = P = 384 in training:
+    # K12 and K13 have 16-block plans, but the card holds fewer such
+    # clusters at once than the layers of a row tile, so layer by layer,
+    # through K1 and K2 (16-block clusters)
     from lstm_ctc_tpu_torch.models import lstm
-    stack, width = [], 40
-    for _ in range(3):
-        stack.append({k: t.to(device) for k, t in cells.init_lstm_cell(
-            torch.Generator().manual_seed(width), width, 384, 384,
-            True).items()})
-        width = 384
+    sk = pkg["lstm_stack_kernels"]
+
+    def make_stack(units, out_dim, layers):
+        stack, width = [], 40
+        for _ in range(layers):
+            stack.append({k: t.to(device) for k, t in cells.init_lstm_cell(
+                torch.Generator().manual_seed(width + units), width, units,
+                out_dim, True).items()})
+            width = out_dim or units
+        return stack
+
+    stack = make_stack(384, 384, 8)
     leaves = [t.requires_grad_() for c in stack for t in c.values()]
-    flags = [False, True, True]
+    flags = [False] + [True] * (len(stack) - 1)
 
     def stack_step():
         out, _ = lstm.stack_layers(stack, xb, seq, flags, torch.bfloat16)
         return out, torch.autograd.grad(out.sum(), leaves)
 
-    sk = pkg["lstm_stack_kernels"]
     layer_before = [lk.lstm_layer_forward.launches,
                     lk.lstm_layer_backward.launches]
     (out, grads), text = routed(
         torch, stack_step, (sk.lstm_stack_forward, sk.lstm_stack_backward),
-        r"stack forward \(K12\) has no launch plan for a bfloat16 stack "
-        "of H=384 P=384")
+        r"clusters of the CUDA stack forward \(K12\) at once for a bfloat16 "
+        "stack of H=384 P=384, fewer than its 8 layers")
     layer_launches = [lk.lstm_layer_forward.launches - layer_before[0],
                       lk.lstm_layer_backward.launches - layer_before[1]]
     if layer_launches != [len(stack)] * 2:
@@ -1147,11 +1185,48 @@ def check_routes(torch, pkg, device, rng):
     ref_grads = torch.autograd.grad(ref.sum(), leaves)
     same = bool(torch.equal(out, ref)) and all(
         torch.equal(a, b) for a, b in zip(grads, ref_grads))
-    say("  route, lstm stack bf16 H=P=384 training: outputs and gradients "
+    how = sk.stack_config(device, 1, len(stack), 1, 384, 384, True,
+                          torch.bfloat16)
+    say("  route, lstm stack bf16 of 8 layers of H=P=384 in training (%d "
+        "blocks a cluster, %d resident at once): outputs and gradients "
         "equal to the layer-by-layer composition's: %s; no K12/K13 launch, "
-        "K1 and K2 once each a layer; warned: %s" % (same, text))
+        "K1 and K2 once each a layer; warned: %s"
+        % (how["blocks"], how["resident"], same, text))
+    if not same or how["rows"]:
+        fail("the deep lstm stack was not routed, or differs from its "
+             "layer-by-layer version")
+
+    # a bf16 stack of H = P = 1024 without a projection, streamed (carried
+    # states): K12 has no plan for it (8 MB of wh a layer), nor for one
+    # layer of it, so each layer runs the plain scan
+    stack = make_stack(1024, None, 2)
+    states = [tuple(torch.from_numpy(0.1 * rng.randn(4, 1024).astype(
+        np.float32)).to(device) for _ in range(2)) for _ in stack]
+
+    def stream():
+        with torch.no_grad():
+            return lstm.stack_layers(stack, xb, seq, [False, True],
+                                     torch.bfloat16, initial_states=states)
+
+    (got, got_states), text = routed(
+        torch, stream, (sk.lstm_stack_forward,),
+        r"stack forward \(K12\) has no launch plan for a bfloat16 stack of "
+        "H=1024 P=1024")
+    ref, ref_states = xb, []
+    with torch.no_grad():
+        for cell, residual, state in zip(stack, [False, True], states):
+            o, st = cells.lstm_scan(cell, ref, seq, lstm.FORGET_BIAS, state,
+                                    torch.bfloat16)
+            ref = o + ref if residual else o
+            ref_states.append(st)
+    same = bool(torch.equal(got, ref)) and all(
+        torch.equal(g, r) for a, b in zip(got_states, ref_states)
+        for g, r in zip(a, b))
+    say("  route, streamed lstm stack bf16 H=P=1024 without a projection: "
+        "outputs and carried states equal to the plain scans': %s; no K12 "
+        "launch; warned: %s" % (same, text))
     if not same:
-        fail("the routed lstm stack differs from its layer-by-layer version")
+        fail("the routed streamed stack differs from its plain scans")
 
 
 def lstm_bwd_case(torch, pkg, device, dtype, reset, rng, fold=False,
@@ -2343,9 +2418,10 @@ AB_VARIANTS = ("default=", "fold=lstm_fold_dx=true",
 AB_STEPS = 30
 
 
-def fold_subset(work, scp, config, steps=2, name="folds.scp"):
+def fold_subset(work, scp, config, steps=2, name="folds.scp",
+                pack_factor=3):
     """An scp ``name`` of the first utterances of ``scp`` that nnet_train
-    packs (pack factor 3, batch 32, its shuffle seed 777) into ``steps``
+    packs (``pack_factor``, batch 32, its shuffle seed 777) into ``steps``
     steps; returns (its path, its batcher)."""
     from lstm_ctc_tpu_torch.cli import build_batcher
     from lstm_ctc_tpu_torch.host.data import scan_scp
@@ -2355,7 +2431,7 @@ def fold_subset(work, scp, config, steps=2, name="folds.scp"):
         with open(path, "w") as fh:
             for meta in metas[:count]:
                 fh.write(meta.scp_line())
-        batcher = build_batcher(path, config, 32, pack_factor=3)
+        batcher = build_batcher(path, config, 32, pack_factor=pack_factor)
         if len(batcher.batch_plan(True, 777)) >= steps:
             return path, batcher
     fail("the corpus is too small for %d packed train steps" % steps)
@@ -2491,14 +2567,16 @@ FRAME_SHIFT_S = 0.01  # one raw fbank frame
 
 
 def stack_case(torch, pkg, device, dtype, family, rng, keep=1.0,
-               affine=False, init=False, full=False):
+               affine=False, init=False, full=False, shape=None, batch=32,
+               steps=384):
     """K12's arguments at a family's full width (4 layers of 320 cells;
     ``lstm``: projection 320, peepholes, layers 1-3 residual; ``cudnnlstm``:
-    neither), B=32, T=384, a 120-wide input, built as lstm_stack_fused
-    builds them; ragged lengths unless ``full``."""
+    neither; ``shape``: (H, P or None) instead), B=32, T=384, a 120-wide
+    input, built as lstm_stack_fused builds them; ragged lengths unless
+    ``full``."""
     cells, sk = pkg["cells"], pkg["lstm_stack_kernels"]
-    batch, steps, dim, units, layers = 32, 384, 120, 320, STACK_LAYERS
-    proj = 320 if family == "lstm" else None
+    dim, layers = 120, STACK_LAYERS
+    units, proj = shape or (320, 320 if family == "lstm" else None)
     gen = torch.Generator().manual_seed(15)
     params, d = [], dim
     for _ in range(layers):
@@ -2576,20 +2654,29 @@ def stack_bound(torch, args, outputs, dtype, backward=False):
     return bound(nbytes, flops, peak)
 
 
-def stack_launch(sk, device, case, ms, backward=False, store_dtype=None):
-    """How K12 (K13) launched on ``case``: R rows a cluster, the clusters,
-    the waves, the lag K, the shared memory a block, and the us per
-    wavefront step (``ms`` over the waves' S steps each)."""
+def stack_how(sk, device, case, backward=False, store_dtype=None):
+    """K12's (K13's) launch plan for ``case``, as its launcher chooses it."""
     steps, batch, h4 = case["gx0"].shape
     layers, p2, _ = case["wz"].shape
-    how = sk.stack_config(device, steps, layers, batch, h4 // 4, p2 // 2,
-                          case["proj"] is not None, case["wz"].dtype,
-                          backward, store_dtype or case["wz"].dtype)
-    return ("R=%d rows a cluster, %d clusters in %d wave(s) of up to %d, "
-            "lag K=%d, %d bytes of shared memory a block, %.2f us per "
-            "wavefront step" % (
-                how["rows"], layers * how["tiles"], how["waves"],
-                layers * how["per_wave"], how["lag"], how["smem_bytes"],
+    return sk.stack_config(device, steps, layers, batch, h4 // 4, p2 // 2,
+                           case["proj"] is not None, case["wz"].dtype,
+                           backward, store_dtype or case["wz"].dtype)
+
+
+def stack_launch(sk, device, case, ms, backward=False, store_dtype=None):
+    """How K12 (K13) launched on ``case``: blocks a cluster, R rows a
+    cluster, the clusters, the waves, those resident at once, the lag K,
+    the shared memory a block, and the us per wavefront step (``ms`` over
+    the waves' S steps each)."""
+    steps, batch, h4 = case["gx0"].shape
+    layers = case["wz"].shape[0]
+    how = stack_how(sk, device, case, backward, store_dtype)
+    return ("%d blocks a cluster, R=%d rows a cluster, %d clusters in %d "
+            "wave(s) of up to %d (%d resident at once), lag K=%d, %d bytes "
+            "of shared memory a block, %.2f us per wavefront step" % (
+                how["blocks"], how["rows"], layers * how["tiles"],
+                how["waves"], layers * how["per_wave"], how["resident"],
+                how["lag"], how["smem_bytes"],
                 1e3 * ms / (steps * how["waves"])))
 
 
@@ -2628,20 +2715,9 @@ def check_stack_fwd(torch, pkg, device, rng):
                 rels = {n: ratio(g, r) for n, g, r in zip(names, got, ref)}
                 worst_abs = max(worst_abs, max(errors(g, r)[0]
                                                for g, r in zip(got, ref)))
-                dropped = True
-                if keep < 1.0:
-                    # the dropped positions are the plain mask's: zero
-                    # where it drops, not zero where it keeps a value the
-                    # plain version makes non-zero
-                    kchain, pchain = got[names.index("chain")], \
-                        ref[names.index("chain")]
-                    steps, lb, out_dim = kchain.shape
-                    drop = sk._drop_mask(case["seed"], keep, steps,
-                                         STACK_LAYERS, lb // STACK_LAYERS,
-                                         out_dim, device).view(kchain.shape)
-                    dropped = bool((kchain[drop == 0] == 0).all()) and bool(
-                        (kchain[(drop > 0) & (pchain.abs() > 1e-6)] != 0)
-                        .all())
+                dropped = keep == 1.0 or dropped_as_plain(
+                    sk, case, got[names.index("chain")],
+                    ref[names.index("chain")])
                 say("  K12 %-9s %-8s keep=%.1f affine=%-5s init=%-5s max rel "
                     "%s; dropped positions as the plain mask's: %s"
                     % (family, name, keep, affine, init,
@@ -2660,6 +2736,8 @@ def check_stack_fwd(torch, pkg, device, rng):
             bound_ms, bound_by = stack_bound(
                 torch, case, sk.lstm_stack_forward(**case), dtype)
             steps = case["gx0"].shape[0]
+            if stack_how(sk, device, case)["blocks"] != 8:
+                fail("K12 at the %s width left its 8-block plan" % family)
             say("  K12 %-9s %-8s kernel %.3f ms (%.1f us per layer-step; "
                 "%s)  plain %.3f ms  bound %.4f ms (%s)"
                 % (family, name, ms, 1e3 * ms / (steps * STACK_LAYERS),
@@ -2755,15 +2833,17 @@ def kernel_split(rows, groups):
     return split
 
 
-def cudnn_yardstick(torch, pkg, device, rng):
-    """The library yardstick at the cudnnlstm width (full lengths): cuDNN's
-    LSTM gives K12's outputs in float32 (TF32 off); then cuDNN's forward,
-    and its forward plus backward, timed in bf16 beside K12 and K13, with
-    its weights in one buffer (no copy at a call), and each call's device
-    time from the profiler beside its time on the CUDA events."""
+def cudnn_yardstick(torch, pkg, device, rng, shape=None):
+    """The library yardstick at the cudnnlstm width (``shape``: (H, None)
+    instead of 320; full lengths): cuDNN's LSTM gives K12's outputs in
+    float32 (TF32 off); then cuDNN's forward, and its forward plus
+    backward, timed in bf16 beside K12 and K13, with its weights in one
+    buffer (no copy at a call), and each call's device time from the
+    profiler beside its time on the CUDA events."""
     sk = pkg["lstm_stack_kernels"]
+    width = "H=P=%d" % (shape or (320,))[0]
     case, params, x, _ = stack_case(torch, pkg, device, torch.float32,
-                                    "cudnnlstm", rng, full=True)
+                                    "cudnnlstm", rng, full=True, shape=shape)
     lstm = cudnn_lstm(torch, params, device)
     steps = x.shape[1]
     with torch.no_grad():
@@ -2771,12 +2851,12 @@ def cudnn_yardstick(torch, pkg, device, rng):
         got = sk.lstm_stack_forward(**case)[0][STACK_LAYERS - 1:
                                                STACK_LAYERS - 1 + steps]
     rel = ratio(got, want)
-    say("  cuDNN LSTM vs K12, float32, cudnnlstm width: max rel %.3e (bound "
-        "%.0e)" % (rel, F32_REL_TOL))
+    say("  cuDNN LSTM vs K12, float32, cudnnlstm %s: max rel %.3e (bound "
+        "%.0e)" % (width, rel, F32_REL_TOL))
     if rel > F32_REL_TOL:
         fail("cuDNN's LSTM and K12 disagree: the weights are not mapped")
     case16, _, _, _ = stack_case(torch, pkg, device, torch.bfloat16,
-                                 "cudnnlstm", rng, full=True)
+                                 "cudnnlstm", rng, full=True, shape=shape)
     lstm16 = lstm.to(torch.bfloat16)
     flatten_cudnn(torch, lstm16)
     x16 = x.transpose(0, 1).to(torch.bfloat16).contiguous()
@@ -2802,11 +2882,11 @@ def cudnn_yardstick(torch, pkg, device, rng):
     compacted = [w for w in caught if "contiguous chunk" in str(w.message)]
     if compacted:
         fail("cuDNN copied its weights at a call: %s" % compacted[0].message)
-    say("  cuDNN bf16, cudnnlstm width, full lengths, weights in one buffer "
+    say("  cuDNN bf16, cudnnlstm %s, full lengths, weights in one buffer "
         "(no compaction warning): forward %.3f ms on the events, %.3f ms of "
         "device kernels (K12, one launch, %.3f ms); forward + backward %.3f "
         "ms, %.3f ms of device kernels"
-        % (lib_fwd, fwd_dev, k12_ms, lib_both, both_dev))
+        % (width, lib_fwd, fwd_dev, k12_ms, lib_both, both_dev))
     for tag, rows in (("forward", fwd_rows), ("forward + backward",
                                               both_rows)):
         say("    cuDNN %s kernels: %s" % (tag, "; ".join(
@@ -2886,6 +2966,8 @@ def check_stack_bwd(torch, pkg, device, rng):
                 kernel_reps=2)
             bound_ms, bound_by = stack_bound(torch, args, got, dtype, True)
             steps = case["gx0"].shape[0]
+            if stack_how(sk, device, case, True, dtype)["blocks"] != 8:
+                fail("K13 at the %s width left its 8-block plan" % family)
             say("  K13 %-9s %-8s kernel %.3f ms (%.1f us per layer-step; "
                 "%s)  plain %.3f ms  bound %.4f ms (%s)"
                 % (family, name, ms, 1e3 * ms / (steps * STACK_LAYERS),
@@ -2896,6 +2978,267 @@ def check_stack_bwd(torch, pkg, device, rng):
                                      .max()),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by}
+    return result
+
+
+# phases 11-12 at the widths past the 8-block plans, on 16-block clusters:
+# Kaldi's nnet3 LSTMP cell and projection, the lstm family at H = P = 512,
+# 448 and 384, and the cudnnlstm family at H = P = 512 (cuDNN's LSTM takes
+# it too); (family, H, P or None); then a streaming chunk at Kaldi's
+# widths (batch 1, 16 model rows)
+WIDE_STACKS = (("lstm", 1024, 256), ("lstm", 512, 512), ("lstm", 448, 448),
+               ("lstm", 384, 384), ("cudnnlstm", 512, None))
+STREAM_SHAPE = dict(batch=1, steps=CHUNK_ROWS)
+
+
+def wide_name(family, units, proj, batch=32):
+    return "%s H=%d P=%d%s" % (family, units, proj or units,
+                               "" if batch == 32 else " B=%d T=%d"
+                               % (batch, CHUNK_ROWS))
+
+
+def dropped_as_plain(sk, case, kchain, pchain):
+    """The kernel's chain is zero where the plain mask drops and non-zero
+    where the plain version keeps a non-zero value."""
+    steps, lb, out_dim = kchain.shape
+    drop = sk._drop_mask(case["seed"], case["keep_prob"], steps,
+                         STACK_LAYERS, lb // STACK_LAYERS, out_dim,
+                         kchain.device).view(kchain.shape)
+    return bool((kchain[drop == 0] == 0).all()) and bool(
+        (kchain[(drop > 0) & (pchain.float().abs() > 1e-6)] != 0).all())
+
+
+def stack_routes(torch, pkg, params, x, seq, family, dtype, train):
+    """Two callables running a stack through ``models.lstm.stack_layers``
+    as the model does: through the stack kernels (K12, and K13 with
+    ``train``), and through the parent's route for the shapes K12 had no
+    plan for, layer by layer through K1 (and K2), the stack route refused;
+    each counted once, K12 (K13) once, K1 (K2) once a layer."""
+    from lstm_ctc_tpu_torch.models import lstm
+    flags = [False] + [family == "lstm"] * (len(params) - 1)
+    cells_ = [{k: v.detach().clone().requires_grad_(train)
+               for k, v in p.items()} for p in params]
+    leaves = [t for c in cells_ for t in c.values()]
+
+    def stack():
+        with torch.set_grad_enabled(train):
+            out, _ = lstm.stack_layers(cells_, x, seq, flags, dtype)
+            if train:
+                torch.autograd.grad(out.float().square().sum(), leaves)
+
+    def route():
+        with mock.patch.object(lstm, "stack_eligible",
+                               lambda *args, **kwargs: False):
+            stack()
+
+    layers = len(params)
+    for fn, want in ((stack, counts(lstm_stack_fwd=1,
+                                    lstm_stack_bwd=int(train))),
+                     (route, counts(lstm_fwd=layers,
+                                    lstm_bwd=layers * int(train)))):
+        _, _, got, _ = run_counted(torch, pkg, fn)
+        expect_counts("the stack's %s" % ("route" if fn is route else
+                                          "kernels"), got, want)
+    return stack, route
+
+
+def check_stack_fwd_wide(torch, pkg, device, rng):
+    """Phase 11 at WIDE_STACKS and the streaming chunk: K12 on 16-block
+    clusters against its plain version (float32 ratio; bfloat16 each step
+    replayed; keep 0.9 dropped as the plain mask), two bfloat16 launches
+    bit-equal, its launch, and its time beside the parent's route (the
+    stack through stack_layers, by K12 and layer by layer through K1)."""
+    sk = pkg["lstm_stack_kernels"]
+    result = {}
+    for family, units, proj in WIDE_STACKS + (("lstm", 1024, 256),):
+        stream = len(result) == len(WIDE_STACKS)
+        shape = dict(shape=(units, proj), **(STREAM_SHAPE if stream else {}))
+        name = wide_name(family, units, proj, shape.get("batch", 32))
+        keep = 0.9 if family == "lstm" else 1.0
+        worst = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            case, _, _, _ = stack_case(torch, pkg, device, dtype, family, rng,
+                                       keep, init=True, **shape)
+            how = stack_how(sk, device, case)
+            if dtype == torch.bfloat16 and how["blocks"] != 16:
+                fail("K12 %s bf16 has %d blocks a cluster, not 16"
+                     % (name, how["blocks"]))
+            got = sk.lstm_stack_forward(**case, states=True)
+            if dtype == torch.float32:
+                out, chain, c_all, h_all, cfin, hfin = \
+                    sk.stack_forward_reference(**case)
+                ref, names = (out, cfin, hfin, chain, c_all, h_all), \
+                    ("out", "cfin", "hfin", "chain", "c_all", "h_all")
+                tol, same = F32_REL_TOL, True
+            else:
+                again = sk.lstm_stack_forward(**case, states=True)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ref = sk.stack_replay_steps(**case, chain=got[3],
+                                            c_all=got[4], h_all=got[5])
+                got, names, tol = got[3:], ("chain", "c_all", "h_all"), \
+                    BF16_STEP_REL_TOL
+            torch.cuda.synchronize()
+            for n, g in zip(names, got):
+                if not torch.isfinite(g).all():
+                    fail("K12 %s: non-finite %s" % (name, n))
+            rels = {n: ratio(g, r) for n, g, r in zip(names, got, ref)}
+            worst = max(worst, max(errors(g, r)[0] for g, r in zip(got, ref)))
+            dropped = keep == 1.0 or dropped_as_plain(
+                sk, case, got[names.index("chain")],
+                ref[names.index("chain")])
+            say("  K12 %s %s keep=%.1f init: max rel %s; dropped as the "
+                "plain mask: %s; %s"
+                % (name, str(dtype).split(".")[-1], keep, ", ".join(
+                    "%s %.2e" % kv for kv in rels.items()), dropped,
+                   "two launches bit-equal: %s" % same
+                   if dtype == torch.bfloat16 else "f32 %d blocks a "
+                   "cluster" % how["blocks"]))
+            if max(rels.values()) > tol or not dropped or not same:
+                fail("K12 %s %s outside its bounds (ratio bound %.0e)"
+                     % (name, dtype, tol))
+        # timed, bf16: K12 alone (beside its plain version at Kaldi's
+        # widths and cuDNN's), and the stack beside the parent's route
+        case, params, x, seq = stack_case(torch, pkg, device, torch.bfloat16,
+                                          family, rng, **shape)
+        if not stream and (units, proj) in ((1024, 256), (512, None)):
+            ms, plain_ms = time_in_turns(
+                torch, lambda: sk.lstm_stack_forward(**case),
+                lambda: sk.stack_forward_reference(**case), rounds=2,
+                kernel_reps=3)
+        else:
+            ms, plain_ms = median_ms(
+                torch, lambda: sk.lstm_stack_forward(**case), 5), None
+        bound_ms, bound_by = stack_bound(
+            torch, case, sk.lstm_stack_forward(**case), torch.bfloat16)
+        res = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "launch": stack_how(sk, device, case)}
+        line = ("  K12 %s bfloat16 kernel %.3f ms (%s)%s bound %.4f ms (%s)"
+                % (name, ms, stack_launch(sk, device, case, ms),
+                   "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
+                   bound_ms, bound_by))
+        if not stream:
+            stack, route = stack_routes(torch, pkg, params, x, seq, family,
+                                        torch.bfloat16, False)
+            res["stack_ms"], res["route_ms"] = time_in_turns(
+                torch, stack, route, rounds=3, kernel_reps=2)
+            line += ("; forward through stack_layers: the stack %.3f ms, "
+                     "layer by layer through K1 (the parent's route) %.3f ms"
+                     % (res["stack_ms"], res["route_ms"]))
+        say(line)
+        result[(family, units, proj, stream)] = res
+    return result
+
+
+def check_stack_bwd_wide(torch, pkg, device, rng):
+    """Phase 12 at WIDE_STACKS and the streaming chunk: K13 on 16-block
+    clusters against its plain version (float32 ratio; bfloat16 each step
+    replayed, dgates within one rounding step, the weight gradients over
+    its own dgates), two bfloat16 launches bit-equal, its launch, and a
+    training forward and backward beside the parent's route (layer by
+    layer through K1 and K2)."""
+    sk = pkg["lstm_stack_kernels"]
+    names = ("dgates", "dwz", "dbias", "dproj", "dpeep", "dcinit", "dhinit")
+    result = {}
+    for family, units, proj in WIDE_STACKS + (("lstm", 1024, 256),):
+        stream = len(result) == len(WIDE_STACKS)
+        shape = dict(shape=(units, proj), **(STREAM_SHAPE if stream else {}))
+        name = wide_name(family, units, proj, shape.get("batch", 32))
+        keep = 0.9 if family == "lstm" else 1.0
+        for dtype in (torch.float32, torch.bfloat16):
+            case, params, x, seq = stack_case(torch, pkg, device, dtype,
+                                              family, rng, keep, init=True,
+                                              **shape)
+            case.pop("affine")
+            how = stack_how(sk, device, case, True, dtype)
+            if dtype == torch.bfloat16 and how["blocks"] != 16:
+                fail("K13 %s bf16 has %d blocks a cluster, not 16"
+                     % (name, how["blocks"]))
+            out, cfin, hfin, chain, c_all, h_all = sk.lstm_stack_forward(
+                **case, states=True, store_dtype=dtype)
+            dout = torch.from_numpy((0.1 * rng.randn(*out.shape)).astype(
+                np.float32)).to(device)
+            args = dict(case, chain=chain, c_all=c_all, h_all=h_all,
+                        dout=dout, dcfin=torch.zeros_like(cfin),
+                        dhfin=torch.zeros_like(hfin), store_dtype=dtype)
+            if dtype == torch.float32:
+                got = sk.lstm_stack_backward(**args)
+                ref = sk.stack_backward_reference(**args)
+                rels = {n: ratio(g, r) for n, g, r in zip(names, got, ref)
+                        if g is not None}
+                say("  K13 %s float32 keep=%.1f max|diff|/max|plain|: %s "
+                    "(%d blocks a cluster)" % (name, keep, ", ".join(
+                        "%s %.2e" % kv for kv in rels.items()),
+                        how["blocks"]))
+                if max(rels.values()) > F32_REL_TOL:
+                    fail("K13 %s f32: relative error %.3e > %.1e"
+                         % (name, max(rels.values()), F32_REL_TOL))
+                worst = float((got[0].float() - ref[0].float()).abs().max())
+                continue
+            full = sk.lstm_stack_backward(**args, steps_out=True)
+            again = sk.lstm_stack_backward(**args, steps_out=True)
+            same = all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(full, again))
+            dc_in, dh_in, din = full[7:]
+            replay = {k: v for k, v in args.items()
+                      if k not in ("dcfin", "dhfin")}
+            dg, dc_out, dh_out, din_out, wgrads = \
+                sk.stack_replay_backward_steps(**replay, dc_in=dc_in,
+                                               dh_in=dh_in, din=din,
+                                               dgates=full[0])
+            step_rel = max(ratio(dc_out[1:], dc_in[:-1]),
+                           ratio(dh_out[1:], dh_in[:-1]),
+                           ratio(din_out[1:], din[1:]))
+            rounding = within_bf16_step(full[0], dg)
+            wgrad_rels = {n: ratio(g, r) for n, g, r in zip(
+                ("dwz", "dbias", "dproj", "dpeep"), full[1:5], wgrads)
+                if r is not None}
+            finite = all(torch.isfinite(t.float()).all() for t in full
+                         if t is not None)
+            say("  K13 %s bfloat16 per step: carries and din max rel %.3e "
+                "(bound %.0e); dgates within one bf16 rounding step: %s; "
+                "over the kernel's dgates: %s (bound %.0e); two launches "
+                "bit-equal: %s" % (name, step_rel, BF16_STEP_REL_TOL,
+                                   rounding, ", ".join(
+                                       "%s %.2e" % kv
+                                       for kv in wgrad_rels.items()),
+                                   BF16_STEP_REL_TOL, same))
+            if step_rel > BF16_STEP_REL_TOL or not rounding or max(
+                    wgrad_rels.values()) > BF16_STEP_REL_TOL or not same \
+                    or not finite:
+                fail("K13 %s bf16 outside its bounds" % name)
+        # timed, bf16: K13 alone (beside its plain version at Kaldi's
+        # widths and cuDNN's), and a training step's stack beside the
+        # parent's route
+        if not stream and (units, proj) in ((1024, 256), (512, None)):
+            ms, plain_ms = time_in_turns(
+                torch, lambda: sk.lstm_stack_backward(**args),
+                lambda: sk.stack_backward_reference(**args), rounds=2,
+                kernel_reps=2)
+        else:
+            ms, plain_ms = median_ms(
+                torch, lambda: sk.lstm_stack_backward(**args), 5), None
+        bound_ms, bound_by = stack_bound(torch, args, full[:7],
+                                         torch.bfloat16, True)
+        res = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "launch": stack_how(sk, device, case, True, torch.bfloat16)}
+        line = ("  K13 %s bfloat16 kernel %.3f ms (%s)%s bound %.4f ms (%s)"
+                % (name, ms, stack_launch(sk, device, case, ms, True,
+                                          torch.bfloat16),
+                   "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
+                   bound_ms, bound_by))
+        if not stream:
+            stack, route = stack_routes(torch, pkg, params, x, seq, family,
+                                        torch.bfloat16, True)
+            res["stack_ms"], res["route_ms"] = time_in_turns(
+                torch, stack, route, rounds=3, kernel_reps=2)
+            line += ("; forward + backward through stack_layers: the stack "
+                     "%.3f ms, layer by layer through K1 and K2 (the "
+                     "parent's route) %.3f ms"
+                     % (res["stack_ms"], res["route_ms"]))
+        say(line)
+        result[(family, units, proj, stream)] = res
     return result
 
 
@@ -3686,6 +4029,44 @@ def data_parallel_on_card(torch, pkg, device, work, here):
             "update_rel": grad_rel, "gloo_s": gloo_s, "nccl_s": nccl_s}
 
 
+@contextlib.contextmanager
+def plain_on_card(module, name, seen):
+    """Record in ``seen`` each call of the plain recurrence ``module.name``
+    given a tensor on the card."""
+    real = getattr(module, name)
+
+    def watched(*args, **kwargs):
+        if any(getattr(a, "is_cuda", False) for a in args):
+            seen.append(name)
+        return real(*args, **kwargs)
+
+    with mock.patch.object(module, name, watched):
+        yield
+
+
+def counted_entry(torch, pkg, what, fn, want, watch, launches=None):
+    """Run an entry point from zero counts, with the route warnings of this
+    process forgotten and under ``watch(seen)`` (a context that lists in
+    ``seen`` each plain recurrence run on the card): it must warn of no
+    route, run none and launch ``want``; its launches are added to
+    ``launches`` when given.  Returns (its log, its seconds)."""
+    from lstm_ctc_tpu_torch.ops import route
+    warned, seen = set(), []  # the reasons the routes warn of
+    with mock.patch.object(route, "_warned", warned), watch(seen):
+        _, tee, got, seconds = run_counted(torch, pkg, fn)
+    if warned or seen:
+        fail("%s at the wide widths warned of routes %s and ran a plain "
+             "recurrence on the card %d times" % (what, sorted(warned),
+                                                   len(seen)))
+    expect_counts(what, got, want)
+    if launches is not None:
+        for k in KERNEL_NAMES:
+            launches[k] += got[k]
+    say("  %s: %.1f s; launches %s" % (what, seconds, {
+        k: v for k, v in got.items() if v}))
+    return tee, seconds
+
+
 # --- phase 21: Kaldi's BLSTMP widths through 16-block K1 and K2 ---
 
 # the flagship treatment model at the cell and projection widths of Kaldi's
@@ -3706,7 +4087,6 @@ def wide_end_to_end(torch, pkg, device, work, scp, rng):
     from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
     from lstm_ctc_tpu_torch.host import kaldi
     from lstm_ctc_tpu_torch.host.config import format_config
-    from lstm_ctc_tpu_torch.ops import route
     from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
     from lstm_ctc_tpu_torch.train.graph import param_leaves
     cells, lstm_kernels = pkg["cells"], pkg["lstm_kernels"]
@@ -3737,32 +4117,12 @@ def wide_end_to_end(torch, pkg, device, work, scp, rng):
     common = ["--objective", "ctc", "--batch-size", "32", "--device",
               "cuda", "--report-interval", "0"]
     result = {"launches": counts()}
-    plain_on_card = []
-    real_recurrence = cells.dual_recurrence
-
-    def watched(gx, *args, **kwargs):
-        if gx.is_cuda:
-            plain_on_card.append(tuple(gx.shape))
-        return real_recurrence(gx, *args, **kwargs)
 
     def counted(what, fn, want):
-        """Run an entry point from zero counts, with the route warnings
-        of this process forgotten: it must warn of no route and run no
-        plain recurrence on the card."""
-        warned = set()  # the reasons the routes warn of
-        with mock.patch.object(route, "_warned", warned), \
-                mock.patch.object(cells, "dual_recurrence", watched):
-            _, tee, got, seconds = run_counted(torch, pkg, fn)
-        if warned or plain_on_card:
-            fail("%s at the wide widths warned of routes %s and ran the "
-                 "plain recurrence on the card %d times"
-                 % (what, sorted(warned), len(plain_on_card)))
-        expect_counts(what, got, want)
-        for k in KERNEL_NAMES:
-            result["launches"][k] += got[k]
-        say("  %s: %.1f s; launches %s" % (what, seconds, {
-            k: v for k, v in got.items() if v}))
-        return tee, seconds
+        return counted_entry(
+            torch, pkg, what, fn, want,
+            lambda seen: plain_on_card(cells, "dual_recurrence", seen),
+            result["launches"])
 
     nnets = [os.path.join(wdir, "nnet%d.npz" % i) for i in range(3)]
     tee, _ = counted("nnet_init", lambda: nnet_init.main(
@@ -3834,6 +4194,310 @@ def wide_end_to_end(torch, pkg, device, work, scp, rng):
     if mean32 > E2E_F32_MEAN_TOL or worst32 > E2E_F32_MAX_TOL:
         fail("wide float32 log-posteriors differ from the plain versions by "
              "%.3e on average, %.3e at most" % (mean32, worst32))
+    return result
+
+
+# --- phases 13 and 22: Kaldi's LSTMP widths through 16-block K12 and K13 ---
+
+# the lstm family at the cell and recurrent-projection widths of Kaldi's
+# nnet3 LSTMP recipes for Switchboard (cell-dim 1024, projection 256), the
+# rest the flagship's: 40-dim fbank spliced +-1 and subsampled by 3,
+# peepholes, residual layers 1-3, the MoE head (72 experts over 72
+# targets, tau 10), keep 0.9, 4 layers; and the cudnnlstm family at H = P
+# = 512 (the no-projection shape, which cuDNN's LSTM also computes)
+WIDE_LSTM_CONFIG = dict(FLAGSHIP_CONFIG, nnet_type="lstm", num_neurons=1024,
+                        num_projects=256)
+WIDE_CUDNN_CONFIG = dict(CUDNN_CONFIG, num_neurons=512)
+SESSION_UTTERANCES = 8
+
+
+@contextlib.contextmanager
+def parent_route():
+    """The parent's route for a stack K12 had no plan for: the stack route
+    refused, layer by layer through K1 (and K2), and with carried states
+    each layer through the plain scan."""
+    from lstm_ctc_tpu_torch.models import lstm
+
+    def refuse(*args, **kwargs):
+        return False
+
+    with mock.patch.object(lstm, "stack_eligible", refuse), \
+            mock.patch.object(lstm, "stack_layer_eligible", refuse):
+        yield
+
+
+def wide_session(torch, pkg, device, rng):
+    """Phase 13 at Kaldi's LSTMP widths: a streaming session of the wide
+    lstm model (random weights) over SESSION_UTTERANCES utterances in
+    chunks of CHUNK_ROWS rows: one K12 and one K4 launch a chunk, no plain
+    scan on the card, ms per chunk and the real-time factor; then the same
+    on the parent's route (each layer the plain scan), timed in turns."""
+    from lstm_ctc_tpu_torch.cli import init_from_config
+    from lstm_ctc_tpu_torch.models import lstm
+    from lstm_ctc_tpu_torch.models.streaming import StreamingSession
+    params, state = init_from_config(dict(WIDE_LSTM_CONFIG), device)
+    raws = [rng.randn(int(rng.randint(600, 1201)), 40).astype(np.float32)
+            for _ in range(SESSION_UTTERANCES)]
+    chunks = sum(-(-(raw.shape[0] // 3) // CHUNK_ROWS) for raw in raws)
+    audio_s = FRAME_SHIFT_S * sum(raw.shape[0] for raw in raws)
+    session = StreamingSession(params, state, WIDE_LSTM_CONFIG,
+                               chunk_size=CHUNK_ROWS)
+
+    def serve():
+        outs = []
+        for raw in raws:
+            session.reset()
+            outs.append(session.process(raw, flush=True))
+        return outs
+
+    seen = []
+    with plain_on_card(lstm, "lstm_scan", seen):
+        outs, _, got, _ = run_counted(torch, pkg, serve)
+    expect_counts("the wide streaming session", got,
+                  counts(lstm_stack_fwd=chunks, moe_fwd=chunks))
+    if seen or not all(np.isfinite(o).all() for o in outs):
+        fail("the wide streaming session ran the plain scan on the card %d "
+             "times, or wrote non-finite posteriors" % len(seen))
+    result = {"chunks": chunks}
+    for route in (False, True, True, False):   # in turns
+        with parent_route() if route else contextlib.nullcontext():
+            serve()   # warm
+            start = time.perf_counter()
+            serve()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+        key = "route_chunk_ms" if route else "chunk_ms"
+        result[key] = min(result.get(key, math.inf), 1e3 * seconds / chunks)
+    result["rtf"] = audio_s / (result["chunk_ms"] * chunks / 1e3)
+    result["route_rtf"] = audio_s / (result["route_chunk_ms"] * chunks / 1e3)
+    steps = CHUNK_ROWS + STACK_LAYERS - 1
+    how = pkg["lstm_stack_kernels"].stack_config(
+        device, steps, STACK_LAYERS, 1, 1024, 256, True, torch.bfloat16)
+    say("  wide streaming session (H=1024, P=256, MoE head, bf16), %d "
+        "utterances, %d chunks of %d rows: %.3f ms per chunk, real-time "
+        "factor %.1f (the best of two runs); on the parent's route (each "
+        "layer the plain scan) %.3f ms per chunk, real-time factor %.1f; "
+        "K12 on a chunk: %d blocks a cluster, R=%d, %d clusters, lag K=%d"
+        % (SESSION_UTTERANCES, chunks, CHUNK_ROWS, result["chunk_ms"],
+           result["rtf"], result["route_chunk_ms"], result["route_rtf"],
+           how["blocks"], how["rows"], STACK_LAYERS * how["tiles"],
+           how["lag"]))
+    if how["blocks"] != 16:
+        fail("K12 on a wide streaming chunk has %d blocks a cluster, not 16"
+             % how["blocks"])
+    return result
+
+
+def wide_lstm_end_to_end(torch, pkg, device, work, scp, rng):
+    """Phase 22: the lstm family at Kaldi's LSTMP widths (WIDE_LSTM_CONFIG)
+    through nnet_init, WIDE_STEPS steps of nnet_train (unpacked, keep 0.9),
+    nnet_forward on 64 utterances and nnet_forward --streaming on the same
+    utterances, bf16, each run counted from zero (per train step 1 K12, 1
+    K13, 1 K5, 1 K6, 1 K10, 1 K11; per CV or forward batch 1 K12, 1 K4
+    and, in CV, 1 K10; per streamed chunk 1 K12 and 1 K4), no route
+    warning, no K1 or K2 and no plain scan on the card; float32
+    log-posteriors against the plain versions', streamed against offline
+    in both dtypes; the parent's route (layer by layer through K1 and K2)
+    timed for the train step and the forward; then the cudnnlstm family at
+    H = P = 512 through nnet_init, nnet_train and nnet_forward."""
+    from lstm_ctc_tpu_torch.bin import nnet_forward, nnet_init, nnet_train
+    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
+    from lstm_ctc_tpu_torch.host import kaldi
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.models import lstm
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
+    from lstm_ctc_tpu_torch.train.graph import param_leaves
+    sk = pkg["lstm_stack_kernels"]
+    wdir = os.path.join(work, "wide_lstm")
+    os.makedirs(wdir)
+    configs = {"bf16": WIDE_LSTM_CONFIG,
+               "f32": dict(WIDE_LSTM_CONFIG, compute_dtype="float32"),
+               "cudnn": WIDE_CUDNN_CONFIG}
+    paths = {}
+    for name, config in configs.items():
+        paths[name] = os.path.join(wdir, "nnet_%s.config" % name)
+        with open(paths[name], "w") as fh:
+            fh.write(format_config(config))
+    for backward, kernel in ((False, "K12"), (True, "K13")):
+        for config in (WIDE_LSTM_CONFIG, WIDE_CUDNN_CONFIG):
+            units = config["num_neurons"]
+            out_dim = config["num_projects"] or units
+            how = sk.stack_config(device, 384 + STACK_LAYERS - 1,
+                                  STACK_LAYERS, 32, units, out_dim,
+                                  bool(config["num_projects"]),
+                                  torch.bfloat16, backward, torch.bfloat16)
+            say("  %s at %s H=%d P=%d, B=32, T=384, bf16: %d blocks a "
+                "cluster, R=%d, %d clusters in %d wave(s), %d resident at "
+                "once, lag K=%d, %d bytes of shared memory a block"
+                % (kernel, config["nnet_type"], units, out_dim, how["blocks"],
+                   how["rows"], STACK_LAYERS * how["tiles"], how["waves"],
+                   how["resident"], how["lag"], how["smem_bytes"]))
+            if how["blocks"] != 16:
+                fail("%s at H=%d P=%d has %d blocks a cluster, not 16"
+                     % (kernel, units, out_dim, how["blocks"]))
+    sub_scp, batcher = fold_subset(wdir, scp, WIDE_LSTM_CONFIG, WIDE_STEPS,
+                                   "wide.scp", pack_factor=1)
+    steps = len(batcher.batch_plan(True, 777))
+    cv_batches = len(build_batcher(sub_scp, WIDE_LSTM_CONFIG, 32).batch_plan(
+        False, None))
+    frames = sum(batcher._lengths)
+    common = ["--objective", "ctc", "--batch-size", "32", "--device",
+              "cuda", "--report-interval", "0"]
+    result = {"launches": counts(), "cudnn_launches": counts()}
+
+    @contextlib.contextmanager
+    def watch(seen, parent=False):
+        with parent_route() if parent else contextlib.nullcontext(), \
+                plain_on_card(lstm, "lstm_scan", seen):
+            yield
+
+    def counted(what, fn, want, parent=False, into="launches"):
+        """counted_entry with no plain scan on the card; on the parent's
+        route the launches are not added to ``into``."""
+        return counted_entry(
+            torch, pkg, what, fn, want,
+            lambda seen: watch(seen, parent),
+            None if parent else result[into])
+
+    nnets = [os.path.join(wdir, "nnet%d.npz" % i) for i in range(3)]
+    tee, _ = counted("nnet_init", lambda: nnet_init.main(
+        [sub_scp, paths["bf16"], nnets[0]] + common), counts(
+            lstm_stack_fwd=cv_batches, moe_fwd=cv_batches,
+            ctc_alpha=cv_batches))
+    losses = [tee.value("cv_loss")]
+    train_counts = dict(moe_fwd_stash=steps, moe_bwd=steps, ctc_alpha=steps,
+                        ctc_beta=steps)
+    stats = {}
+    for name, parent, out, want in (
+            ("stack", False, nnets[1], counts(lstm_stack_fwd=steps,
+                                               lstm_stack_bwd=steps,
+                                               **train_counts)),
+            ("route", True, nnets[2], counts(lstm_fwd=STACK_LAYERS * steps,
+                                              lstm_bwd=STACK_LAYERS * steps,
+                                              **train_counts))):
+        metrics_file = os.path.join(wdir, "metrics_%s.jsonl" % name)
+        tee, _ = counted(
+            "nnet_train" + (" on the parent's route" if parent else ""),
+            lambda: nnet_train.main(
+                [sub_scp, paths["bf16"], nnets[0], out, "--metrics-file",
+                 metrics_file, "--optimizer", "adam", "--learn-rate",
+                 "1e-3"] + common), want, parent)
+        losses.append(tee.value("tr_loss"))
+        with open(metrics_file) as fh:
+            times = [json.loads(ln)["step_time"] for ln in fh]
+        stats[name] = (1e3 * statistics.median(times), frames / sum(times))
+    result["step_ms"], result["fps"] = stats["stack"]
+    result["route_step_ms"], result["route_fps"] = stats["route"]
+    template, state = init_from_config(WIDE_LSTM_CONFIG, device)
+    for path in nnets:
+        params, _, _ = load_checkpoint(path, template, state)
+        if not all(torch.isfinite(p).all() for p in param_leaves(params)):
+            fail("%s holds non-finite weights" % path)
+    if not all(math.isfinite(v) for v in losses):
+        fail("non-finite losses at the wide widths: %s" % losses)
+    say("  cv_loss %.4f, tr_loss %.4f (the parent's route from the same "
+        "weights %.4f; %d steps of 32 unpacked utterances, keep 0.9); "
+        "median train step %.1f ms, %.1f real frames/s; on the parent's "
+        "route %.1f ms, %.1f real frames/s"
+        % (tuple(losses) + (steps, result["step_ms"], result["fps"],
+                            result["route_step_ms"], result["route_fps"])))
+
+    # serving: 64 utterances, offline and streamed, as a user runs them
+    scp64, raw_lengths = write_corpus(pkg, wdir, rng)
+    fwd_batches = len(build_batcher(scp64, WIDE_LSTM_CONFIG, 32).batch_plan(
+        False, None))
+    chunks = sum(-(-(n // 3) // CHUNK_ROWS) for n in raw_lengths.values())
+    posts, seconds = {}, {}
+    for tag in ("bf16", "f32"):
+        for streaming in (False, True):
+            ark = os.path.join(wdir, "post_%s%s.ark"
+                               % (tag, "_stream" if streaming else ""))
+            want = counts(lstm_stack_fwd=chunks, moe_fwd=chunks) \
+                if streaming else counts(lstm_stack_fwd=fwd_batches,
+                                         moe_fwd=fwd_batches)
+            extra = ["--streaming", "true", "--chunk-frames",
+                     str(CHUNK_ROWS)] if streaming else []
+            _, seconds[(tag, streaming)] = counted(
+                "nnet_forward %s%s" % (tag, " --streaming" if streaming
+                                       else ""),
+                lambda: nnet_forward.main(
+                    [scp64, paths[tag], nnets[1], "ark:" + ark, "--device",
+                     "cuda", "--batch-size", "32"] + extra), want)
+            posts[(tag, streaming)] = read_archive(kaldi, ark)
+            check_posteriors(posts[(tag, streaming)], raw_lengths)
+    total = sum(m.shape[0] for m in posts[("bf16", False)].values())
+    result["forward_fps"] = total / seconds[("bf16", False)]
+    result["stream_chunk_ms"] = 1e3 * seconds[("bf16", True)] / chunks
+    _, route_s = counted("nnet_forward on the parent's route",
+                         lambda: nnet_forward.main(
+                             [scp64, paths["bf16"], nnets[1],
+                              "ark:" + os.path.join(wdir, "route.ark"),
+                              "--device", "cuda", "--batch-size", "32"]),
+                         counts(lstm_fwd=STACK_LAYERS * fwd_batches,
+                                moe_fwd=fwd_batches), parent=True)
+    result["route_forward_fps"] = total / route_s
+    stream = {}
+    for tag in ("bf16", "f32"):
+        offline = posts[(tag, False)]
+        worst, mean = diff_stats(posts[(tag, True)], offline)
+        scale = max(float(np.abs(m).max()) for m in offline.values())
+        stream[tag] = (worst, mean, worst / scale)
+    params, _, _ = load_checkpoint(nnets[1], template, state)
+    ref32 = plain_logposts(torch, pkg, params, state, build_batcher(
+        scp64, configs["f32"], 32), configs["f32"], device)
+    worst32, mean32 = diff_stats(posts[("f32", False)], ref32)
+    say("  nnet_forward: %d utterances, %d frames in %.2f s (%.1f frames/s, "
+        "checkpoint load included; the parent's route %.1f frames/s); "
+        "--streaming in %d chunks of %d rows: %.2f s (%.3f ms a chunk, the "
+        "CLI's whole run); float32 kernels vs plain versions, "
+        "log-posteriors: max_abs %.3e mean_abs %.3e (bounds %.0e, %.0e); "
+        "streamed vs offline: float32 max_abs %.3e mean_abs %.3e ratio %.3e "
+        "(bound %.0e), bfloat16 max_abs %.3e mean_abs %.3e ratio %.3e "
+        "(bound %.0e)"
+        % ((len(raw_lengths), total, seconds[("bf16", False)],
+            result["forward_fps"], result["route_forward_fps"], chunks,
+            CHUNK_ROWS, seconds[("bf16", True)], result["stream_chunk_ms"],
+            worst32, mean32, E2E_F32_MAX_TOL, E2E_F32_MEAN_TOL)
+           + stream["f32"] + (F32_REL_TOL,) + stream["bf16"]
+           + (BF16_STEP_REL_TOL,)))
+    if mean32 > E2E_F32_MEAN_TOL or worst32 > E2E_F32_MAX_TOL:
+        fail("wide lstm float32 log-posteriors differ from the plain "
+             "versions by %.3e on average, %.3e at most" % (mean32, worst32))
+    if stream["f32"][2] > F32_REL_TOL or stream["bf16"][2] > \
+            BF16_STEP_REL_TOL:
+        fail("the wide lstm's streamed output differs from its offline "
+             "output")
+
+    # cudnnlstm at H = P = 512: trains and serves on 16-block K12 and K13
+    cnets = [os.path.join(wdir, "cudnn%d.npz" % i) for i in range(2)]
+    cscp, cbatcher = fold_subset(wdir, scp, WIDE_CUDNN_CONFIG, WIDE_STEPS,
+                                 "cudnn.scp", pack_factor=1)
+    csteps = len(cbatcher.batch_plan(True, 777))
+    ccv = len(build_batcher(cscp, WIDE_CUDNN_CONFIG, 32).batch_plan(False,
+                                                                    None))
+    tee, _ = counted("cudnnlstm nnet_init", lambda: nnet_init.main(
+        [cscp, paths["cudnn"], cnets[0]] + common),
+        counts(lstm_stack_fwd=ccv, ctc_alpha=ccv), into="cudnn_launches")
+    closses = [tee.value("cv_loss")]
+    tee, _ = counted("cudnnlstm nnet_train", lambda: nnet_train.main(
+        [cscp, paths["cudnn"], cnets[0], cnets[1], "--optimizer", "adam",
+         "--learn-rate", "1e-3"] + common),
+        counts(lstm_stack_fwd=csteps, lstm_stack_bwd=csteps,
+               ctc_alpha=csteps, ctc_beta=csteps), into="cudnn_launches")
+    closses.append(tee.value("tr_loss"))
+    cark = os.path.join(wdir, "cudnn.ark")
+    _, cseconds = counted("cudnnlstm nnet_forward", lambda: nnet_forward.main(
+        [scp64, paths["cudnn"], cnets[1], "ark:" + cark, "--device", "cuda",
+         "--batch-size", "32"]), counts(lstm_stack_fwd=fwd_batches),
+        into="cudnn_launches")
+    cposts = read_archive(kaldi, cark)
+    check_posteriors(cposts, raw_lengths)
+    if not all(math.isfinite(v) for v in closses):
+        fail("non-finite cudnnlstm losses at H=P=512: %s" % closses)
+    result["cudnn_forward_fps"] = total / cseconds
+    say("  cudnnlstm H=P=512: cv_loss %.4f, tr_loss %.4f (%d steps); "
+        "nnet_forward %.1f frames/s" % (closses[0], closses[1], csteps,
+                                        result["cudnn_forward_fps"]))
     return result
 
 
@@ -3973,11 +4637,18 @@ def main() -> None:
         phase("phase 11 K12 (unidirectional stack forward)")
         k12 = check_stack_fwd(torch, pkg, device, rng)
         library = cudnn_yardstick(torch, pkg, device, rng)
+        # the widths only 16-block clusters take, from their own seed
+        stack_rng = np.random.RandomState(22)
+        k12_wide = check_stack_fwd_wide(torch, pkg, device, stack_rng)
+        library_wide = cudnn_yardstick(torch, pkg, device, stack_rng,
+                                       shape=(512, None))
         phase("phase 12 K13 (unidirectional stack backward)")
         k13 = check_stack_bwd(torch, pkg, device, rng)
+        k13_wide = check_stack_bwd_wide(torch, pkg, device, stack_rng)
         phase("phase 13 serving the unidirectional families (nnet_forward, "
             "offline and --streaming, cuda)")
         serve = serve_families(torch, pkg, device, rng)
+        session = wide_session(torch, pkg, device, stack_rng)
         phase("phase 14 training the unidirectional families (nnet_init / "
             "nnet_train / nnet_validate, lstm, cudnnlstm, lstm_bn, cuda)")
         families = train_families(torch, pkg, device, work, scp)
@@ -4014,6 +4685,12 @@ def main() -> None:
               "projection 256, MoE head; nnet_init / nnet_train / "
               "nnet_forward on 16-block K1 and K2, cuda)")
         wide = wide_end_to_end(torch, pkg, device, work, scp, wide_rng)
+        phase("phase 22 Kaldi's LSTMP widths end to end (the lstm family, 4 "
+              "x 1024 cells, projection 256, MoE head; nnet_init / "
+              "nnet_train / nnet_forward, offline and --streaming, on "
+              "16-block K12 and K13; cudnnlstm H=P=512, cuda)")
+        wide_lstm = wide_lstm_end_to_end(torch, pkg, device, work, scp,
+                                         stack_rng)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -4021,9 +4698,12 @@ def main() -> None:
              % bad[:5])
 
     launches = dict(train["launches"])
-    for run in (e2e, moe_loop, serve, families, folds, recipe, dp_run, wide):
+    for run in (e2e, moe_loop, serve, families, folds, recipe, dp_run, wide,
+                wide_lstm):
         for k, v in run["launches"].items():
             launches[k] += v
+    for k, v in wide_lstm["cudnn_launches"].items():
+        launches[k] += v
     for name in KERNEL_NAMES:
         if launches[name] == 0:
             fail("%s was never launched on the main paths" % name)
@@ -4125,6 +4805,28 @@ def main() -> None:
              "launches": wide["launches"][name], "library_ms": None},
             **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by")}))
+    # K12 and K13 on 16-block clusters (bf16, B=32, T=384, 4 layers): at
+    # Kaldi's LSTMP widths (launches from phase 22's lstm runs; no PyTorch
+    # call has the peephole projected cell) and at the cudnnlstm H = P =
+    # 512 (launches from phase 22's cudnnlstm runs; cuDNN's LSTM the
+    # library yardstick)
+    for suffix, key, lib_ms, runs in (
+            ("_wide", ("lstm", 1024, 256, False), (None, None), "launches"),
+            ("_wide_cudnnlstm", ("cudnnlstm", 512, None, False),
+             (library_wide["forward"], library_wide["both"]),
+             "cudnn_launches")):
+        for name, line, res, lib in (("lstm_stack_fwd", 64, k12_wide,
+                                      lib_ms[0]),
+                                     ("lstm_stack_bwd", 184, k13_wide,
+                                      lib_ms[1])):
+            kernels.append(dict(
+                {"name": name + suffix, "route": "cuda",
+                 "source": "lstm_ctc_tpu_torch/csrc/%s.cu" % name,
+                 "replaces": "lstm_ctc_tpu/ops/lstm_stack_pallas.py:%d"
+                 % line, "launches": wide_lstm[runs][name],
+                 "library_ms": lib},
+                **{k: res[key][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")}))
     two_ms, default_ms = moe_train[("twokernel", torch.bfloat16)]
     say("summary on %s: nnet_forward %.1f frames/s (64 utterances, model "
         "init and checkpoint load included); flagship forward B=32 T=384 "
@@ -4212,6 +4914,38 @@ def main() -> None:
            + tuple(res[(torch.bfloat16, shape)]["ms"]
                    for shape in WIDE_LAYERS[1:] for res in (lstm, bwd, fold))
            + (wide["step_ms"], wide["fps"], wide["forward_fps"])))
+    wide_rows = []
+    for family, units, proj in WIDE_STACKS + (("lstm", 1024, 256),):
+        stream = len(wide_rows) == len(WIDE_STACKS)
+        f, b = (res[(family, units, proj, stream)] for res in (k12_wide,
+                                                              k13_wide))
+        wide_rows.append("%s: K12 %.3f ms, K13 %.3f ms (%s)%s" % (
+            wide_name(family, units, proj, 1 if stream else 32), f["ms"],
+            b["ms"], "K12 R=%d in %d wave(s), K13 R=%d in %d wave(s)" % (
+                f["launch"]["rows"], f["launch"]["waves"],
+                b["launch"]["rows"], b["launch"]["waves"]),
+            "" if stream else "; through stack_layers forward %.3f ms (the "
+            "parent's route %.3f), forward + backward %.3f ms (%.3f)" % (
+                f["stack_ms"], f["route_ms"], b["stack_ms"], b["route_ms"])))
+    say("summary of the unidirectional stack on 16-block clusters on %s "
+        "(bf16, B=32, T=384, 4 layers; cuDNN's LSTM at H=P=512: forward "
+        "%.3f ms, forward + backward %.3f ms): %s"
+        % (smi, library_wide["forward"], library_wide["both"],
+           "; ".join(wide_rows)))
+    say("summary of Kaldi's LSTMP widths on %s (lstm, H=1024, P=256, MoE "
+        "head, bf16): train step (B=32 unpacked, keep 0.9), median %.1f "
+        "ms, %.1f real frames/s (the parent's route %.1f ms, %.1f); "
+        "nnet_forward %.1f frames/s (the parent's route %.1f); a streaming "
+        "session %.3f ms per chunk of %d rows, real-time factor %.1f (the "
+        "parent's route, the plain scan: %.3f ms, %.1f); nnet_forward "
+        "--streaming %.3f ms a chunk (the whole CLI run); cudnnlstm "
+        "H=P=512 nnet_forward %.1f frames/s"
+        % (smi, wide_lstm["step_ms"], wide_lstm["fps"],
+           wide_lstm["route_step_ms"], wide_lstm["route_fps"],
+           wide_lstm["forward_fps"], wide_lstm["route_forward_fps"],
+           session["chunk_ms"], CHUNK_ROWS, session["rtf"],
+           session["route_chunk_ms"], session["route_rtf"],
+           wide_lstm["stream_chunk_ms"], wide_lstm["cudnn_forward_fps"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -4225,7 +4959,16 @@ def main() -> None:
         + list(recipe["seconds"].values()) + list(recipe["starts"].values()) \
         + list(bench["profile"]["segments_ms"].values()) \
         + [dp_run["gloo_s"], dp_run["nccl_s"]] \
-        + [wide["step_ms"], wide["fps"], wide["forward_fps"]]
+        + [wide["step_ms"], wide["fps"], wide["forward_fps"]] \
+        + [res[k] for res in list(k12_wide.values())
+           + list(k13_wide.values())
+           for k in ("stack_ms", "route_ms") if k in res] \
+        + [library_wide["forward"], library_wide["both"]] \
+        + [session[k] for k in ("chunk_ms", "route_chunk_ms")] \
+        + [wide_lstm[k] for k in ("step_ms", "fps", "route_step_ms",
+                                  "route_fps", "forward_fps",
+                                  "route_forward_fps", "stream_chunk_ms",
+                                  "cudnn_forward_fps")]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

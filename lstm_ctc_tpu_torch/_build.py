@@ -164,8 +164,6 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.kernels_error_string.argtypes = [ctypes.c_int]
     lib.kernels_error_string.restype = ctypes.c_char_p
-    lib.lstm_fwd_cluster_size.argtypes = []
-    lib.lstm_fwd_cluster_size.restype = ctypes.c_int
     # H, P, has_proj, bf16 (K2: and store_bf16) -> the blocks a cluster of
     # the kernel's launch plan for the shape (8 or 16), 0 if it has none
     # (host arithmetic only)
@@ -174,6 +172,7 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_fits.argtypes = [_I] * 5
     lib.lstm_bwd_fits.restype = ctypes.c_int
     # the same of K12 and (with store_bf16) K13, at any of their R
+    # (the clusters the card holds at once not counted)
     lib.lstm_stack_fwd_fits.argtypes = [_I] * 4
     lib.lstm_stack_fwd_fits.restype = ctypes.c_int
     lib.lstm_stack_bwd_fits.argtypes = [_I] * 5
@@ -191,7 +190,9 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 8
     lib.lstm_bwd_fold_scratch_floats.restype = ctypes.c_longlong
     # device, S, L, B, H, P, has_proj, bf16 (K13: and store_bf16) ->
-    # {rows, tiles, tiles a wave, waves, lag, bytes}, scratch floats
+    # {blocks, rows, tiles, tiles a wave, waves, lag, bytes, clusters
+    # resident at once} (rows 0: the L layers are not resident together),
+    # scratch floats
     _LL = ctypes.POINTER(ctypes.c_longlong)
     lib.lstm_stack_fwd_config.argtypes = [_I] * 8 + [_LL, _LL]
     lib.lstm_stack_fwd_config.restype = ctypes.c_int

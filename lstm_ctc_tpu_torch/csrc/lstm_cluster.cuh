@@ -1,7 +1,7 @@
 // The cluster machinery of the LSTM kernels (lstm_fwd.cu, K1;
 // lstm_stack_fwd.cu, K12; lstm_bwd.cu, K2; lstm_stack_bwd.cu, K13): an
-// 8-block cluster per tile of R batch rows (K1 and K2: 16 blocks where an
-// 8-block plan does not fit, lstm_fwd.cu), each block owning 1/8 (1/16) of
+// 8-block cluster per tile of R batch rows (16 blocks where an 8-block plan
+// does not fit, up to 1024 units), each block owning 1/8 (1/16) of
 // the hidden units (all four gates of them) and of the projection columns; its
 // slices of the recurrent and projection weights stay in its shared memory
 // (bf16) or are read from L2 (float32).  Per step of a forward: the gate
@@ -31,8 +31,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;    // blocks per cluster (K12, K13; K1, K2 where it fits)
-constexpr int kWideCluster = 16;  // K1, K2 past that: the H100's non-portable most
+constexpr int kCluster = 8;       // blocks per cluster where an 8-block plan fits
+constexpr int kWideCluster = 16;  // past that: the H100's non-portable most
 constexpr int kBlockUnits = 64;   // hidden units a block owns, at most (the slices' layout)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -98,14 +98,22 @@ __host__ __device__ Split mma_split(int cols, int depth, int most = kMaxSlices) 
   return best;
 }
 
-// Shared-memory plan, common to host and device.  US, PS: units and
-// projection columns per block; HS, QS: row strides of the full cell
-// output and of the full h (8·US, 8·PS, plus 16 bytes so that rows fall on
-// other banks); arow: rows of those buffers (16 for the tensor cores, else
-// R); prow: rows of each partial-sum block (8 for the tensor cores, 16
-// past 8 rows, else R); LWA, LWD: row strides of the bf16 weight slices in shared memory
-// (also padded by 16 bytes); weight_bytes: their size (0 in f32, whose
-// slices stay in global memory).
+// K12's shared-memory plan with C blocks a cluster, common to host and
+// device.  US, PS: units and projection columns per block; HS, QS: row
+// strides of the full cell output and of the full h (C·US, C·PS, plus 16
+// bytes so that rows fall on other banks); arow: rows of those buffers
+// (the tensor cores' A operands: 8 up to 8 rows, loaded once for mma's 16,
+// else 16; R in float32); prow: rows of each partial-sum block (arow in
+// bf16); LWA, LWD: row strides of the bf16 weight slices in shared memory
+// (padded by 16 bytes, LWD not with 16 blocks, as K1's); weight_bytes:
+// their size (0 in f32, whose slices stay in global memory).  The cell
+// output's buffer exists only with a projection.  The region of the
+// partial sums also holds the input rows a layer stages for a chunk's
+// product (kStage rows of the padded input width): the stage is used
+// before a chunk's steps, the partial sums within a step, and both only
+// by the block's own threads.
+constexpr int kStage = 32;
+
 struct Plan {
   int us, ps, hs, qs, own, arow, prow, part, lwa, lwd;
   Split gates, proj;
@@ -114,31 +122,33 @@ struct Plan {
 };
 
 template <typename T>
-__host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows) {
+__host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows, int C) {
   Plan p;
-  p.us = round_up(cdiv(units, kCluster), 8);
-  p.ps = has_proj ? round_up(cdiv(out_dim, kCluster), 16) : p.us;
+  p.us = round_up(cdiv(units, C), 8);
+  p.ps = has_proj ? round_up(cdiv(out_dim, C), 16) : p.us;
   const int pad = 16 / (int)sizeof(T);
-  p.hs = kCluster * p.us + pad;
-  p.qs = kCluster * p.ps + pad;
+  p.hs = C * p.us + pad;
+  p.qs = C * p.ps + pad;
   p.own = has_proj ? p.ps : p.us;
-  p.arow = kMma<T> ? 16 : rows;
-  p.prow = kMma<T> ? (rows > 8 ? 16 : 8) : rows;
+  p.arow = kMma<T> ? (rows > 8 ? 16 : 8) : rows;
+  p.prow = p.arow;
   const int g = 4 * p.us;
   p.gates = kMma<T> ? mma_split(g, out_dim) : fma_split(g, out_dim);
   p.proj = kMma<T> ? mma_split(p.ps, units) : fma_split(p.ps, units);
   const int part_gates = p.gates.slices * p.prow * g;
   const int part_proj = has_proj ? p.proj.slices * p.prow * p.ps : 0;
   p.part = part_gates > part_proj ? part_gates : part_proj;
+  const size_t in_stage = sizeof(T) * (size_t)kStage * (round_up(out_dim, 16) + pad);
+  const size_t part_bytes = sizeof(float) * (size_t)p.part;
   const int stage = p.us > p.ps ? p.us : p.ps;
   p.off_cell = align128(sizeof(T) * (size_t)p.arow * p.qs);
-  p.off_c = p.off_cell + align128(sizeof(T) * (size_t)p.arow * p.hs);
+  p.off_c = p.off_cell + (has_proj ? align128(sizeof(T) * (size_t)p.arow * p.hs) : 0);
   p.off_h = p.off_c + align128(sizeof(float) * (size_t)rows * p.us);
   p.off_stage = p.off_h + align128(sizeof(float) * (size_t)rows * p.own);
   p.off_part = p.off_stage + align128(sizeof(T) * (size_t)rows * stage);
-  p.base_bytes = p.off_part + align128(sizeof(float) * (size_t)p.part);
+  p.base_bytes = p.off_part + align128(part_bytes > in_stage ? part_bytes : in_stage);
   p.lwa = g + pad;
-  p.lwd = p.ps + pad;
+  p.lwd = p.ps + (C == kCluster ? pad : 0);
   p.weight_bytes = !kMma<T> ? 0 : sizeof(T) *
       ((size_t)round_up(out_dim, 16) * p.lwa
        + (has_proj ? (size_t)round_up(units, 16) * p.lwd : 0));
@@ -200,20 +210,31 @@ __device__ __forceinline__ void fma_product(const float* a, int lda,
   }
 }
 
+// ldmatrix of two 8x8 bf16 matrices, each lane giving one row
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
 // The same product on the tensor cores, both operands in shared memory: a
-// is [16][lda] bf16 (rows past R are zero), w is [depth rounded to 16]
-// [cols] bf16 with row stride ldw; part[s] is [prow][cols] (rows < R <=
-// prow, prow 8 or 16).  A warp owns one 16-column tile and `per` 16-deep
-// steps of k.
+// is [prow][lda] bf16 (rows past R are zero; prow 8 or 16), w is [depth
+// rounded to 16][cols] bf16 with row stride ldw; part[s] is [prow][cols].
+// At prow 8 the rows of a are loaded once by ldmatrix.x2 and are mma's
+// rows 8-15 again, whose sums are never stored.  A warp owns one 16-column
+// tile and `per` 16-deep steps of k.
 __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
                                             int depth, const __nv_bfloat16* w,
                                             int ldw, int cols, Split sp,
                                             float* part, int prow = 8) {
   const int lane = threadIdx.x & 31;
   const int tiles = cols / 16, steps = cdiv(depth, 16);
-  // ldmatrix row addresses: a rows m = lane % 16 at k + 8·(lane / 16);
-  // w rows k = lane % 16 at column n + 8·(lane / 16)
-  const __nv_bfloat16* a_lane = a + (lane & 15) * lda + (lane >> 4) * 8;
+  // ldmatrix row addresses: a rows m = lane % 16 at k + 8·(lane / 16)
+  // (prow 8: m = lane % 8 at k + 8·(lane / 8 % 2)); w rows k = lane % 16
+  // at column n + 8·(lane / 16)
+  const bool wide = prow > 8;
+  const __nv_bfloat16* a_lane = wide ? a + (lane & 15) * lda + (lane >> 4) * 8
+                                     : a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
   const __nv_bfloat16* w_lane = w + (size_t)(lane & 15) * ldw + (lane >> 4) * 8;
   for (int task = threadIdx.x / 32; task < tiles * sp.slices; task += kWarps) {
     const int n = task % tiles, s = task / tiles;
@@ -221,17 +242,24 @@ __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
     float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
     for (int k = k0; k < k1; ++k) {
       uint32_t fa[4], fb[4];
-      ldsm_x4(fa, a_lane + k * 16);
+      if (wide) {
+        ldsm_x4(fa, a_lane + k * 16);
+      } else {
+        uint32_t fr[2];
+        ldsm_x2(fr, a_lane + k * 16);
+        fa[0] = fa[1] = fr[0];
+        fa[2] = fa[3] = fr[1];
+      }
       ldsm_x4_trans(fb, w_lane + (size_t)k * 16 * ldw + n * 16);
       mma_16816(d[0], fa, fb[0], fb[1]);
       mma_16816(d[1], fa, fb[2], fb[3]);
     }
-    // lane holds rows lane / 4 and + 8 (padding unless prow is 16),
+    // lane holds rows lane / 4 and + 8 (a copy of them unless prow is 16),
     // columns 2·(lane % 4) and + 1 of each 8-column half
     float* dst = part + ((size_t)s * prow + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
     *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
     *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
-    if (prow > 8) {
+    if (wide) {
       *reinterpret_cast<float2*>(dst + 8 * cols) = make_float2(d[0][2], d[0][3]);
       *reinterpret_cast<float2*>(dst + 8 * cols + 8) = make_float2(d[1][2], d[1][3]);
     }
@@ -251,14 +279,14 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // Write stage [nr][width] (this block's slice) into rows of `target`
-// (stride `stride`, columns col0 ..) in every block of the cluster, as
-// 16-byte stores.
-template <typename T>
+// (stride `stride`, columns col0 ..) in every block of the C-block
+// cluster, as 16-byte stores.
+template <typename T, int C>
 __device__ __forceinline__ void share_slice(cg::cluster_group& cluster,
                                             const T* stage, int nr, int width,
                                             T* target, int stride, int col0) {
   const int n16 = width * (int)sizeof(T) / 16;
-  for (int i = threadIdx.x; i < kCluster * nr * n16; i += kThreads) {
+  for (int i = threadIdx.x; i < C * nr * n16; i += kThreads) {
     const int peer = i / (nr * n16), e = i - peer * nr * n16;
     const int r = e / n16, c = e - r * n16;
     T* dst = cluster.map_shared_rank(target, peer) + r * stride + col0;
@@ -297,12 +325,6 @@ __host__ __device__ inline TSplit tsplit(int cols, int depth, int kmax, int tmax
     }
   }
   return TSplit{0, 0, 0, 0};
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(row)));
 }
 
 template <int KMAX, int TMAX>
@@ -543,7 +565,6 @@ __device__ __forceinline__ void fma_product_nk(const float* a, int lda, int dept
 // from L2 straight into registers and its A fragments from shared memory,
 // 16 bytes a lane (frag_step); float32: a thread owns a column and 8 rows,
 // FMA.
-constexpr int kStage = 32;
 
 // One 32-deep step of d += a · b on the tensor cores, from fragments each
 // lane loads as 16 bytes: qa0 and qa1 hold k = 8·(lane % 4) .. + 7 of A's
@@ -725,13 +746,14 @@ __device__ __forceinline__ void publish(int* counter, int done) {
   if (threadIdx.x == 0) atomicExch(counter, done);
 }
 
-// Wait until each of the 8 counters of another cluster (counters[0..7])
+// Wait until each of the C counters of another cluster (counters[0..C-1])
 // reaches `want`; the data they count is then read from L2 (__ldcg).
-// Thread q < 8 keeps in `seen` the last count it read of counter q and
+// Thread q < C keeps in `seen` the last count it read of counter q and
 // polls only when that is short.  A wait of seconds means a fault: the
 // launch ends with an error rather than hang (a step takes microseconds).
+template <int C>
 __device__ __forceinline__ void wait_blocks(int* counters, int want, int& seen) {
-  if (threadIdx.x < kCluster && seen < want) {
+  if (threadIdx.x < C && seen < want) {
     int* c = counters + threadIdx.x;
     for (long long spins = 0; (seen = atomicAdd(c, 0)) < want; ++spins) {
       if (spins > (1LL << 26)) __trap();

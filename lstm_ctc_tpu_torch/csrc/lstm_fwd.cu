@@ -618,10 +618,6 @@ extern "C" int lstm_fwd_bf16(LSTM_FWD_ARGS) {
   return launch<__nv_bfloat16>(device, LSTM_FWD_PACK, false, &how);
 }
 
-// The blocks a cluster of K12's and K13's plans (and of the 8-block plans
-// of K1 and K2)
-extern "C" int lstm_fwd_cluster_size() { return kCluster; }
-
 // The blocks a cluster of K1's launch plan for this shape (8 or 16), or 0
 // when K1 has none: host arithmetic only, no CUDA call (fwd_fits at R = 4)
 extern "C" int lstm_fwd_fits(int units, int out_dim, int has_proj, int bf16) {

@@ -36,8 +36,9 @@
 // H = P = 320, 230 KB a block over 8: more than a block's shared memory.
 //
 // Design: K2's (lstm_bwd.cu), a cluster per layer and row tile, with the
-// input side taken off the recurrence.  One 8-block cluster per (layer l,
-// tile of R batch rows); block q owns hidden units [q·US, (q+1)·US) and
+// input side taken off the recurrence.  One 8-block cluster (16, below)
+// per (layer l, tile of R batch rows); block q owns hidden units [q·US,
+// (q+1)·US) and
 // keeps its slice of wh_l and its rows of proj_l in shared memory for the
 // whole sequence (~139 KB at H = P = 320).
 //   0. Before the recurrence one tensor-core product gives the input half
@@ -50,28 +51,41 @@
 //      their cell
 //      backward; the block's partial dh_prev = dgates_q·wh_qᵀ scattered over
 //      distributed shared memory to the owner of each P-slice, which adds the
-//      eight in block order and all-gathers the new dh (two cluster barriers
-//      a step).  The gate recompute of the step before runs between the
+//      C partials in block order and all-gathers the new dh (two cluster
+//      barriers a step).  The gate recompute of the step before runs between the
 //      halves of the first barrier, and that step's loads are staged by
 //      cp.async a step ahead.  In bf16 the products run on the tensor cores
 //      with float32 adds of each 16-deep step (mma_product_f32add).
 //   2. Every K steps (the lag) a layer l >= 1 adds dgates·wx_lᵀ of those
 //      steps to din (which step 1 has set to residual_l·dchain): each block
 //      its P-slice, its rows of dgates (a compute-dtype ring, written by all
-//      eight blocks) and wx_l read from L2 straight into tensor-core
+//      the cluster's blocks) and wx_l read from L2 straight into tensor-core
 //      fragments; then each block counts the steps whose din it has
 //      finished (a fence, then an atomic store).
 // So the layers run as a pipeline, as the reverse wavefront does: layer l-1
-// stages dchain of step s (layer l's din at s+1) from L2 once layer l's eight
+// stages dchain of step s (layer l's din at s+1) from L2 once layer l's C
 // blocks have counted it, and lags layer l by about K steps; the sequential
 // chain is about S + (L-1)·K steps.  A layer waits only on the layer above,
 // and all L clusters of a row tile must be resident together: the launcher
 // takes R from {4, 6, 8} and as many row tiles a launch (a wave) as the
 // occupancy API says are resident for all L layers at once, the fewest
 // waves first, then the smallest R (B = 32, L = 4: R = 6, three tiles a
-// wave, two waves); a wait of seconds traps rather than hang.  K = max(2,
-// min(8, ceil(S / 16))).  In float32 the products are FMA and the slices are
-// read from L2.
+// wave, two waves); a stack whose L clusters are not resident together has
+// no launch (the route runs it layer by layer, as K12's); a wait of seconds
+// traps rather than hang.  K = max(2, min(8, ceil(S / 16))).  In float32
+// the products are FMA and the slices are read from L2.
+//
+// Where no 8-block plan fits (bf16 slices past shared memory, from H = P =
+// 324 with a projection; any stack past 512 units) the cluster has 16
+// blocks, as K2's: a block owns at most 64 units, so H <= 1024, and keeps
+// its wh slice [P, 4·US] and proj rows [US, P] (~165 KB at H = 1024, P =
+// 256); dh is reduced over 16 blocks' partials in block order and
+// all-gathered to 16, and each layer waits for the 16 blocks of the layer
+// above.  The A operands hold the 8 rows of R (mma_product_f32add loads
+// them once for mma's 16), as K2's.  The buffers of R rows grow with P, so
+// at H = P = 512 with a projection only R = 2 fits beside the slices: the
+// 16-block plans add R = 2, tried last.  Only 7 sixteen-block clusters are
+// resident at once on an H100 SXM: at L = 4 a wave holds one row tile.
 
 #include <type_traits>
 
@@ -86,9 +100,10 @@ __device__ __forceinline__ float rnd(float v) {
 }
 
 // Shared-memory plan, common to host and device: K2's (lstm_bwd.cu
-// bwd_plan), with each row's mask in place of K2's keep and length, room
-// for the seven column sums of a row tile, and (float32, whose slices stay
-// in L2) the rows of din's product staged where bf16 keeps its slices.
+// bwd_plan, with C blocks a cluster), with each row's mask in place of K2's
+// keep and length, room for the seven column sums of a row tile, and
+// (float32, whose slices stay in L2) the rows of din's product staged where
+// bf16 keeps its slices.
 struct StackPlan {
   int us, u16, g, ps, pw, p16, nd, wrows, arow, prow, lda, ldg, lwh, lpj, lin;
   Split gates, dob, dh;
@@ -97,18 +112,18 @@ struct StackPlan {
 };
 
 template <typename T, typename S>
-__host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R) {
+__host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int C) {
   StackPlan p;
-  p.us = round_up(cdiv(H, kCluster), 8);
+  p.us = round_up(cdiv(H, C), 8);
   p.u16 = round_up(p.us, 16);
   p.g = 4 * p.us;
-  p.ps = round_up(cdiv(P, kCluster), 4);
-  p.pw = kCluster * p.ps;
+  p.ps = round_up(cdiv(P, C), 4);
+  p.pw = C * p.ps;
   p.p16 = round_up(P, 16);
   p.nd = kMma<T> ? p.u16 : p.us;
   p.wrows = p.p16 > p.pw ? p.p16 : p.pw;
   const int pad = 16 / (int)sizeof(T);
-  p.arow = kMma<T> ? 16 : R;
+  p.arow = kMma<T> ? 8 : R;
   p.prow = kMma<T> ? 8 : R;
   p.lda = p.p16 + pad;
   p.ldg = p.g + pad;
@@ -141,7 +156,7 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R) {
   p.off_rows = p.off_gxs + align128(sizeof(float) * (size_t)R * 4 * p.us);
   p.off_dc = p.off_rows + align128(sizeof(float) * 2 * (size_t)R);
   p.off_inbox = p.off_dc + align128(sizeof(float) * (size_t)R * p.us);
-  p.off_part = p.off_inbox + align128(sizeof(float) * (size_t)kCluster * R * p.ps);
+  p.off_part = p.off_inbox + align128(sizeof(float) * (size_t)C * R * p.ps);
   p.off_wh = p.off_part + align128(sizeof(float) * part);
   p.off_pj = p.off_wh + (kMma<T> ? align128(sizeof(T) * (size_t)p.wrows * p.lwh) : 0);
   const size_t end = p.off_pj + (kMma<T> && has_proj ? align128(sizeof(T) * (size_t)p.u16 * p.lpj) : 0);
@@ -153,7 +168,7 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R) {
 // T: the compute dtype (bf16: the products on the tensor cores, the slices
 // in shared memory; float32: FMA, the slices read from L2); S: the store
 // dtype
-template <typename T, typename S, int R>
+template <typename T, typename S, int R, int C>
 __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     const int* __restrict__ seed,     // [1] or null (no dropout)
     const float* __restrict__ gx0,    // [S, B, 4H]
@@ -164,8 +179,8 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     const float* __restrict__ cinit,  // [L·B, H]
     const float* __restrict__ hinit,  // [L·B, P]
     const T* __restrict__ wz,         // [L, 2P, 4H]: wx_l is its first P rows
-    const T* __restrict__ wh_sl,      // [L, 8, P16, 4, US]
-    const T* __restrict__ pj_sl,      // [L, 8, U16, P16] or null (P == H)
+    const T* __restrict__ wh_sl,      // [L, C, P16, 4, US]
+    const T* __restrict__ pj_sl,      // [L, C, U16, P16] or null (P == H)
     const float* __restrict__ bias,   // [L, 4H]
     const float* __restrict__ peep,   // [L, 3, H] or null
     float forget_bias, float keep_prob, int residual,
@@ -184,15 +199,15 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     const float* __restrict__ gxl,    // [L-1, S, B, 4H] in_prev·wx_l, l >= 1
     T* __restrict__ dgc,              // scratch ring [L, 2K, B, 4H]
     float* __restrict__ col_part,     // [tiles, L, 7H]
-    int* __restrict__ counters,       // [L, tiles, 8], zero at the first wave
+    int* __restrict__ counters,       // [L, tiles, C], zero at the first wave
     int tile0, int tiles, int lag) {
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int l = layers - 1 - (int)blockIdx.y;  // the layers above come first
-  const int tile = tile0 + blockIdx.x / kCluster, b0 = tile * R;
+  const int tile = tile0 + blockIdx.x / C, b0 = tile * R;
   const int nr = min(R, batch - b0);
   const bool has_proj = pj_sl != nullptr;
-  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R);
+  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C);
   const int US = pl.us, G = pl.g, PS = pl.ps, PW = pl.pw, P16 = pl.p16;
   const int prow = pl.prow, nd = pl.nd, H4 = 4 * H;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
@@ -214,14 +229,14 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   float* gx_s = reinterpret_cast<float*>(smem_raw + pl.off_gxs);       // [R][4][US]
   float* mask_s = reinterpret_cast<float*>(smem_raw + pl.off_rows);    // [2][R]
   float* dc = reinterpret_cast<float*>(smem_raw + pl.off_dc);    // [R][US]
-  float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [8][R][PS]
+  float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [C][R][PS]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
   float* part_d = part + (size_t)pl.gates.slices * prow * G;
   T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_wh);
   T* pj_s = reinterpret_cast<T*>(smem_raw + pl.off_pj);
   T* in_s = wh_s;  // float32: din's staged rows (no slices in shared memory)
 
-  const size_t slot = (size_t)l * kCluster + q;
+  const size_t slot = (size_t)l * C + q;
   const T* wh_g = wh_sl + slot * (size_t)P16 * G;
   const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * P16 : nullptr;
   const T* wx_l = wz + (size_t)l * 2 * P * H4;
@@ -235,8 +250,8 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   const bool drop = seed != nullptr && keep_prob < 1.0f;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
   const float inv_keep = 1.0f / keep_prob;
-  int* const above = last ? nullptr : counters + ((size_t)(l + 1) * tiles + tile) * kCluster;
-  int* const mine = counters + ((size_t)l * tiles + tile) * kCluster + q;
+  int* const above = last ? nullptr : counters + ((size_t)(l + 1) * tiles + tile) * C;
+  int* const mine = counters + ((size_t)l * tiles + tile) * C + q;
   const T zero = Dtype<T>::from_float(0.0f);
   auto ring_row = [&](int s, int r) {
     return ring + ((size_t)((steps - 1 - s) % (2 * lag)) * batch + b0 + r) * H4;
@@ -286,9 +301,9 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   // copies a step ahead (cp.async, 4 elements a copy); stash_step puts them
   // where the step reads them.
   float mask_next = 0.0f;  // thread r < nr: row r's mask at the step fetched
-  int seen = 0;            // thread q < 8: the count last read of block q above
+  int seen = 0;            // thread q < C: the count last read of block q above
   auto fetch_step = [&](int tt) {
-    if (!last && tt + 1 < steps) wait_blocks(above, steps - 1 - tt, seen);
+    if (!last && tt + 1 < steps) wait_blocks<C>(above, steps - 1 - tt, seen);
     const size_t r0 = (size_t)tt * LB + lrow, rp = r0 - LB;
     const size_t d0 = ((size_t)(last ? tt : tt + 1) * batch + b0) * P;
     const float* dsrc = last ? dout + d0 : (tt + 1 < steps ? din_above + d0 : nullptr);
@@ -401,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
       // wx_l's row read from L2 once for the 8
       constexpr int kPiece = 64;
       float* as = reinterpret_cast<float*>(in_s);
-      const int most = min(kCluster * (kThreads / max(np, 1)), kStage * pl.lin / kPiece / 8 * 8);
+      const int most = min(8 * (kThreads / max(np, 1)), kStage * pl.lin / kPiece / 8 * 8);
       for (int i0 = 0; i0 < rows; i0 += most) {
         const int nrow = min(most, rows - i0), groups = cdiv(nrow, 8);
         const bool active = tid < np * groups;
@@ -588,13 +603,13 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     }
     cluster_wait();
 
-    // 5b. the eight partials of the owned slice, in block order; the carry
+    // 5b. the C partials of the owned slice, in block order; the carry
     // update; the new slice into every block
     const int squads = PS / 4;
     for (int i = tid; i < nr * squads; i += kThreads) {
       const int r = i / squads, c = 4 * (i - r * squads), p = p0 + c;
       float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int b = 0; b < kCluster; ++b) {
+      for (int b = 0; b < C; ++b) {
         const float4 w = *reinterpret_cast<const float4*>(inbox + ((size_t)b * R + r) * PS + c);
         s[0] += w.x;
         s[1] += w.y;
@@ -607,7 +622,7 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
       for (int e = 0; e < 4; ++e)
         v[e] = p + e < P ? (1.0f - m) * dh[r * PW + p + e] + s[e] : 0.0f;
       const float4 nv = make_float4(v[0], v[1], v[2], v[3]);
-      for (int b = 0; b < kCluster; ++b)
+      for (int b = 0; b < C; ++b)
         *reinterpret_cast<float4*>(cluster.map_shared_rank(dh, b) + r * PW + p) = nv;
     }
     cluster.sync();
@@ -655,11 +670,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-// How K13 launches: rows a cluster, row tiles, tiles a wave, waves, the
-// lag K, dynamic shared memory a block (rows = 0: not with this R).
+// How K13 launches: C blocks a cluster, rows a cluster, row tiles, tiles a
+// wave, waves, the lag K, dynamic shared memory a block, and the clusters
+// resident at once (rows = 0: not with this R, or no R whose L layers are
+// resident together).
 struct Launch {
-  int rows, tiles, per_wave, waves, lag;
+  int blocks, rows, tiles, per_wave, waves, lag;
   size_t smem;
+  int resident;
 };
 
 __host__ int lag_of(int steps) {
@@ -669,7 +687,7 @@ __host__ int lag_of(int steps) {
 
 // The scratch floats: gxl [L-1, S, B, 4H], the dgates ring [L, 2K, B, 4H]
 // (compute dtype), the column sums [tiles, L, 7H], the weight-gradient
-// products', and the counters [L, tiles, 8] (int32).
+// products', and the counters [L, tiles, C] (int32).
 struct Scratch {
   size_t gxl, ring, cols, wgrad, counters;
 };
@@ -683,43 +701,60 @@ __host__ Scratch scratch_of(const Args& a, const Launch& how) {
   s.cols = (size_t)how.tiles * a.layers * 7 * a.units;
   s.wgrad = (size_t)lstm_stack_wgrad_scratch_floats(a.steps, a.layers, a.batch, a.units,
                                                     a.out_dim);
-  s.counters = (size_t)a.layers * how.tiles * kCluster;
+  s.counters = (size_t)a.layers * how.tiles * how.blocks;
   return s;
 }
 
-// Whether a block of R rows a cluster fits this shape: its slices' threads
-// and its shared memory within a block's.  Host arithmetic only.
+// Whether a block of R rows of a C-block cluster fits this shape: at most
+// kBlockUnits units a block, its slices' threads and its shared memory
+// within a block's.  Host arithmetic only.
 template <typename T, typename S, int R>
-__host__ bool fits(int units, int out_dim, bool has_proj) {
-  const StackPlan pl = stack_plan<T, S>(units, out_dim, has_proj, R);
-  return R * pl.us <= kThreads && pl.bytes <= kMaxSmemPerBlock;
+__host__ bool fits(int units, int out_dim, bool has_proj, int C) {
+  const StackPlan pl = stack_plan<T, S>(units, out_dim, has_proj, R, C);
+  return pl.us <= kBlockUnits && R * pl.us <= kThreads && pl.bytes <= kMaxSmemPerBlock;
 }
 
+// The blocks a cluster of K13's plan: 8 where some R of {4, 6, 8} fits 8
+// blocks, else 16 where some R of {2, 4, 6, 8} fits 16, else 0 (no plan).
+// Host arithmetic only.
 template <typename T, typename S>
-__host__ bool fits_any(int units, int out_dim, bool has_proj) {
-  return fits<T, S, 4>(units, out_dim, has_proj) || fits<T, S, 6>(units, out_dim, has_proj) ||
-         fits<T, S, 8>(units, out_dim, has_proj);
+__host__ int stack_cluster(int units, int out_dim, bool has_proj) {
+  if (fits<T, S, 4>(units, out_dim, has_proj, kCluster) ||
+      fits<T, S, 6>(units, out_dim, has_proj, kCluster) ||
+      fits<T, S, 8>(units, out_dim, has_proj, kCluster))
+    return kCluster;
+  if (fits<T, S, 2>(units, out_dim, has_proj, kWideCluster) ||
+      fits<T, S, 4>(units, out_dim, has_proj, kWideCluster) ||
+      fits<T, S, 6>(units, out_dim, has_proj, kWideCluster) ||
+      fits<T, S, 8>(units, out_dim, has_proj, kWideCluster))
+    return kWideCluster;
+  return 0;
 }
 
-template <typename T, typename S, int R>
+template <typename T, typename S, int R, int C>
 cudaError_t config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                    Launch* how) {
   how->rows = 0;
+  how->resident = 0;
   const bool has_proj = a.pj_rows != nullptr;
-  if (!fits<T, S, R>(a.units, a.out_dim, has_proj)) return cudaSuccess;
-  const StackPlan pl = stack_plan<T, S>(a.units, a.out_dim, has_proj, R);
-  auto kernel = stack_bwd_kernel<T, S, R>;
+  if (!fits<T, S, R>(a.units, a.out_dim, has_proj, C)) return cudaSuccess;
+  const StackPlan pl = stack_plan<T, S>(a.units, a.out_dim, has_proj, R, C);
+  auto kernel = stack_bwd_kernel<T, S, R, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
   if (err != cudaSuccess) return err;
+  if (C > kCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   const int tiles = cdiv(a.batch, R);
   *cfg = {};
-  cfg->gridDim = dim3(kCluster, a.layers, 1);
+  cfg->gridDim = dim3(C, a.layers, 1);
   cfg->blockDim = dim3(kThreads, 1, 1);
   cfg->dynamicSmemBytes = pl.bytes;
   cfg->stream = a.stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
@@ -727,8 +762,10 @@ cudaError_t config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* 
   int fit = 0;
   err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, cfg);
   if (err != cudaSuccess) return err;
+  how->resident = fit;
   const int per_wave = min(tiles, fit / a.layers);
   if (per_wave < 1) return cudaSuccess;
+  how->blocks = C;
   how->rows = R;
   how->tiles = tiles;
   how->per_wave = per_wave;
@@ -738,30 +775,52 @@ cudaError_t config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* 
   return cudaSuccess;
 }
 
-// The R of {4, 6, 8} with the fewest waves, then the smallest; no R: the
-// launch is refused (bf16 slices wider than shared memory, as K2's).
-template <typename T, typename S>
-cudaError_t choose(const Args& a, Launch* how) {
-  how->rows = 0;
+// The R of {4, 6, 8} with the fewest waves, then the smallest; with 16
+// blocks R = 2 last; rows = 0 when no R's L clusters are resident together
+// (how->resident: the most resident of any R).
+template <typename T, typename S, int C>
+cudaError_t choose_rows(const Args& a, Launch* how) {
+  *how = Launch{C, 0, 0, 0, 0, 0, 0, 0};
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch c;
   cudaError_t err;
 #define TRY(R)                                                          \
-  err = config<T, S, R>(a, &cfg, attr, &c);                             \
+  err = config<T, S, R, C>(a, &cfg, attr, &c);                          \
   if (err != cudaSuccess) return err;                                   \
-  if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;
+  if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
+  how->resident = max(how->resident, c.resident);
   TRY(4) TRY(6) TRY(8)
+  if constexpr (C > kCluster) {
+    TRY(2)
+  }
 #undef TRY
-  return how->rows ? cudaSuccess : cudaErrorInvalidConfiguration;
+  return cudaSuccess;
 }
 
-template <typename T, typename S, int R>
+// The launch plan, or an error: no plan for the shape
+// (cudaErrorInvalidConfiguration: bf16 slices wider than shared memory, as
+// K2's, or past 1024 units).  rows = 0: the plan exists but its L layers
+// are not resident together.
+template <typename T, typename S>
+cudaError_t choose(const Args& a, Launch* how) {
+  switch (stack_cluster<T, S>(a.units, a.out_dim, a.pj_rows != nullptr)) {
+    case kCluster:
+      return choose_rows<T, S, kCluster>(a, how);
+    case kWideCluster:
+      return choose_rows<T, S, kWideCluster>(a, how);
+    default:
+      *how = Launch{0, 0, 0, 0, 0, 0, 0, 0};
+      return cudaErrorInvalidConfiguration;
+  }
+}
+
+template <typename T, typename S, int R, int C>
 cudaError_t run(const Args& a, const Launch& how) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch again;
-  cudaError_t err = config<T, S, R>(a, &cfg, attr, &again);
+  cudaError_t err = config<T, S, R, C>(a, &cfg, attr, &again);
   if (err != cudaSuccess) return err;
   const int L = a.layers;
   const Scratch sc = scratch_of<T>(a, how);
@@ -779,9 +838,9 @@ cudaError_t run(const Args& a, const Launch& how) {
   if (err != cudaSuccess) return err;
   for (int tile0 = 0; tile0 < how.tiles; tile0 += how.per_wave) {
     const int n = min(how.per_wave, how.tiles - tile0);
-    cfg.gridDim = dim3(kCluster * n, L, 1);
+    cfg.gridDim = dim3(C * n, L, 1);
     err = cudaLaunchKernelEx(
-        &cfg, stack_bwd_kernel<T, S, R>, (const int*)a.seed, (const float*)a.gx0,
+        &cfg, stack_bwd_kernel<T, S, R, C>, (const int*)a.seed, (const float*)a.gx0,
         (const float*)a.mask, (const S*)a.chain, (const S*)a.c_all, (const S*)a.h_all,
         (const float*)a.cinit, (const float*)a.hinit, (const T*)a.wz, (const T*)a.wh_sl, (const T*)a.pj_rows, (const float*)a.bias,
         (const float*)a.peep, a.forget_bias, a.keep_prob, a.residual,
@@ -814,10 +873,19 @@ int launch(int device, const Args& a) {
   Launch how;
   err = choose<T, S>(a, &how);
   if (err != cudaSuccess) return err;
+  if (!how.rows) return cudaErrorInvalidConfiguration;  // the layers not resident together
+  if (how.blocks == kCluster) {
+    switch (how.rows) {
+      case 4: return run<T, S, 4, kCluster>(a, how);
+      case 6: return run<T, S, 6, kCluster>(a, how);
+      default: return run<T, S, 8, kCluster>(a, how);
+    }
+  }
   switch (how.rows) {
-    case 4: return run<T, S, 4>(a, how);
-    case 6: return run<T, S, 6>(a, how);
-    default: return run<T, S, 8>(a, how);
+    case 2: return run<T, S, 2, kWideCluster>(a, how);
+    case 4: return run<T, S, 4, kWideCluster>(a, how);
+    case 6: return run<T, S, 6, kWideCluster>(a, how);
+    default: return run<T, S, 8, kWideCluster>(a, how);
   }
 }
 
@@ -851,22 +919,26 @@ extern "C" int lstm_stack_bwd_bf16(LSTM_STACK_BWD_ARGS) {
                     : launch<__nv_bfloat16, float>(device, LSTM_STACK_BWD_PACK);
 }
 
-// Whether K13 has a launch plan for this shape (1) or not (0): some R of
-// choose's whose block fits, host arithmetic only, no CUDA call.  The
-// clusters the card holds at once, which config also asks, are not counted.
+// The blocks a cluster of K13's launch plan for this shape (8 or 16), or 0
+// when K13 has none: host arithmetic only, no CUDA call.  The clusters the
+// card holds at once, which config also asks, are not counted.
 extern "C" int lstm_stack_bwd_fits(int units, int out_dim, int has_proj, int bf16,
                                    int store_bf16) {
   if (units <= 0 || out_dim <= 0 || units % 4 || out_dim % 4) return 0;
   using bf = __nv_bfloat16;
   const bool pj = has_proj != 0;
   if (bf16)
-    return store_bf16 ? fits_any<bf, bf>(units, out_dim, pj) : fits_any<bf, float>(units, out_dim, pj);
-  return store_bf16 ? fits_any<float, bf>(units, out_dim, pj) : fits_any<float, float>(units, out_dim, pj);
+    return store_bf16 ? stack_cluster<bf, bf>(units, out_dim, pj)
+                      : stack_cluster<bf, float>(units, out_dim, pj);
+  return store_bf16 ? stack_cluster<float, bf>(units, out_dim, pj)
+                    : stack_cluster<float, float>(units, out_dim, pj);
 }
 
-// How K13 would launch on `device` at this shape: info = {rows a cluster,
-// row tiles, tiles a wave, waves, lag K, shared memory bytes a block}, and
-// the scratch floats the launch needs; a CUDA error if it cannot.
+// How K13 would launch on `device` at this shape: info = {blocks a
+// cluster, rows a cluster, row tiles, tiles a wave, waves, lag K, shared
+// memory bytes a block, clusters resident at once}, and the scratch floats
+// the launch needs; rows = 0 when the card cannot hold the stack's L
+// clusters of a row tile together; a CUDA error if the shape has no plan.
 extern "C" int lstm_stack_bwd_config(int device, int steps, int layers, int batch,
                                      int units, int out_dim, int has_proj, int bf16,
                                      int store_bf16, long long* info, long long* scratch) {
@@ -890,9 +962,9 @@ extern "C" int lstm_stack_bwd_config(int device, int steps, int layers, int batc
     sc = scratch_of<float>(a, how);
   }
   if (err != cudaSuccess) return err;
-  const long long v[6] = {how.rows, how.tiles, how.per_wave, how.waves, how.lag,
-                          (long long)how.smem};
-  for (int i = 0; i < 6; ++i) info[i] = v[i];
+  const long long v[8] = {how.blocks, how.rows, how.tiles, how.per_wave, how.waves,
+                          how.lag, (long long)how.smem, how.resident};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
   *scratch = (long long)(sc.gxl + sc.ring + sc.cols + sc.wgrad + sc.counters);
   return cudaSuccess;
 }

@@ -24,12 +24,13 @@
 // [wx; wh] plus proj is 1.84 MB, 230 KB a block in an 8-block cluster, which
 // does not fit one block's 227 KB of shared memory.
 //
-// Design: the wavefront, in chunks.  One 8-block cluster per (layer, tile
-// of R batch rows) owns that layer's rows for the whole sequence, with K1's
+// Design: the wavefront, in chunks.  One 8-block cluster (16, below) per
+// (layer, tile of R batch rows) owns that layer's rows for the whole
+// sequence, with K1's
 // step loop (lstm_cluster.cuh): block q keeps its slices of wh_l and proj_l
 // in shared memory for the whole launch.  The sequence is cut into chunks
 // of K steps (the lag).  For chunk c a layer l >= 1 first waits until layer
-// l-1's eight blocks of the same rows have counted the chunk's inputs
+// l-1's blocks of the same rows have counted the chunk's inputs
 // (their chains up to the chunk's last step but one), then computes the
 // chunk's input product in(s)·wx_l + bias_l for its owned units on the
 // tensor cores (input_product: the chunk's K·R (step, row) pairs 32 at a
@@ -48,11 +49,31 @@
 // resident together: the launcher takes R from {4, 6, 8, 12} and as many
 // row tiles a launch (a wave) as the occupancy API says are resident for
 // all L layers at once; the fewest waves win, then the smallest R (B = 32
-// at L = 4: R = 12, 3 tiles, 12 clusters, one wave).  A fault that stalls
-// a wait traps instead of hanging.  The grid puts the lower layers first.
+// at L = 4: R = 12, 3 tiles, 12 clusters, one wave).  A stack whose L
+// clusters are not all resident at once has no launch: the config export
+// says so (rows 0, and the clusters resident), and the route runs such a
+// stack layer by layer before any launch.  A fault that stalls a wait
+// traps instead of hanging.  The grid puts the lower layers first.
 // K = min(8, max(2, ceil(S / 8))): 8 for the training and serving
 // sequences (16 and 32 measured slower: PERF.md), 3 for a streaming chunk
 // of 16 rows (S = 19 at L = 4).
+//
+// Wider stacks take 16-block clusters (C = 16, the H100's non-portable
+// most), where no 8-block plan fits, as K1 does (lstm_fwd.cu): a block
+// owns US = H/16 units, at most 64, so H <= 1024 (Kaldi's LSTMP widths, H
+// = 1024 with P = 256: wh's slice [256, 256] is 132 KB with its padding,
+// proj's [1024, 16] 32 KB, unpadded as K1's).  To fit beside them the A
+// operands of the products hold the 8 rows of R <= 8 (loaded once for
+// mma's 16) instead of 16, and the chunk's input stage shares the region
+// of the partial sums, which a step uses only after the chunk's product
+// is done.  The counters of a row tile are [L, C]: each layer waits for
+// the C blocks of the layer below; each hand-off goes to C blocks.  Only
+// 7 sixteen-block clusters are resident at once on an H100 SXM, so at L =
+// 4 a wave holds one row tile, and a stack of 8 or more such layers has no
+// launch.  8 blocks stay wherever their plan fits: the lstm family's
+// flagship width (H = P = 320) is unchanged.  A bf16 stack whose slices
+// do not fit even 16 blocks (H = P = 1024 without a projection: 8 MB of
+// wh a layer) and any H past 1024 are refused.
 //
 // Operands of every product are rounded to the compute dtype; sums, the
 // carries and `out` stay float32; chain, c_all and h_all are written in the
@@ -62,21 +83,14 @@
 
 namespace {
 
-// the input rows a block stages for a chunk's product: kStage rows of the
-// padded input width
-template <typename T>
-__host__ __device__ size_t in_stage_bytes(int P) {
-  return align128(sizeof(T) * (size_t)kStage * (round_up(P, 16) + 16 / (int)sizeof(T)));
-}
-
-template <typename T, int R>
+template <typename T, int R, int C>
 __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     const int* __restrict__ seed,       // [1] or null (no dropout)
     const float* __restrict__ gx0,      // [S, B, 4H] layer 0's x·wx0 + b0
     const float* __restrict__ mask,     // [S, L·B]
-    const T* __restrict__ wx_rows,      // [L, 8, 4, US, P16] (layer 0 unread)
-    const T* __restrict__ wh_sl,        // [L, 8, P16, 4, US]
-    const T* __restrict__ proj_sl,      // [L, 8, H16, PS] or null (P == H)
+    const T* __restrict__ wx_rows,      // [L, C, 4, US, P16] (layer 0 unread)
+    const T* __restrict__ wh_sl,        // [L, C, P16, 4, US]
+    const T* __restrict__ proj_sl,      // [L, C, H16, PS] or null (P == H)
     const float* __restrict__ bias,     // [L, 4H] (layer 0 unread)
     const float* __restrict__ peep,     // [L, 3, H] or null
     const float* __restrict__ cinit,    // [L·B, H]
@@ -95,16 +109,16 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     float* __restrict__ hfin,           // [L·B, P]
     float* __restrict__ gxl,            // scratch [L, K, B, 4H]
     float* __restrict__ in32,           // scratch [L-1, S, B, P]
-    int* __restrict__ counters,         // [L, tiles, 8], zero at the first wave
+    int* __restrict__ counters,         // [L, tiles, C], zero at the first wave
     int tile0, int tiles, int lag) {
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
-  const int l = blockIdx.y, tile = tile0 + blockIdx.x / kCluster;
+  const int l = blockIdx.y, tile = tile0 + blockIdx.x / C;
   const int b0 = tile * R;
   const int nr = min(R, batch - b0);
   const int H = units, P = out_dim, LB = layers * batch;
   const bool has_proj = proj_sl != nullptr;
-  const Plan pl = plan<T>(H, P, has_proj, R);
+  const Plan pl = plan<T>(H, P, has_proj, R, C);
   const int US = pl.us, PS = pl.ps, G = 4 * US, own = pl.own, prow = pl.prow;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
   const int p0 = q * PS, np = max(0, min(PS, P - p0));
@@ -121,9 +135,9 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
   T* wh_s = reinterpret_cast<T*>(smem_raw + pl.base_bytes);  // bf16 slices
   T* pj_s = wh_s + (size_t)P16 * pl.lwa;
-  T* ain = reinterpret_cast<T*>(smem_raw + pl.base_bytes + pl.weight_bytes);
+  T* ain = reinterpret_cast<T*>(smem_raw + pl.off_part);     // the input stage
 
-  const size_t slot = (size_t)l * kCluster + q;
+  const size_t slot = (size_t)l * C + q;
   const size_t wh_elems = (size_t)P16 * G;
   const size_t pj_elems = has_proj ? (size_t)round_up(H, 16) * PS : 0;
   const size_t plane = (size_t)steps * batch * P;  // one [S, B, P] chain
@@ -142,8 +156,8 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   const bool drop = seed != nullptr && keep_prob < 1.0f;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
   const float inv_keep = 1.0f / keep_prob;
-  int* const below = l > 0 ? counters + ((size_t)(l - 1) * tiles + tile) * kCluster : nullptr;
-  int* const mine = counters + ((size_t)l * tiles + tile) * kCluster + q;
+  int* const below = l > 0 ? counters + ((size_t)(l - 1) * tiles + tile) * C : nullptr;
+  int* const mine = counters + ((size_t)l * tiles + tile) * C + q;
 
   // the finished chain value of (step s, row r, column p)
   auto finish = [&](float v, int s, int r, int p) {
@@ -168,7 +182,8 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     const int r = i / pl.qs, k = i - r * pl.qs;
     hq[i] = Dtype<T>::from_float(r < nr && k < P ? hinit[(lrow + r) * P + k] : 0.0f);
   }
-  for (int i = tid; i < pl.arow * pl.hs; i += kThreads) cellf[i] = zero;
+  if (has_proj)
+    for (int i = tid; i < pl.arow * pl.hs; i += kThreads) cellf[i] = zero;
   for (int i = tid; i < R * US; i += kThreads) {
     const int r = i / US, j = i - r * US;
     c_own[i] = r < nr && j < nu ? cinit[(lrow + r) * H + u0 + j] : 0.0f;
@@ -185,13 +200,13 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   const bool own_b = in_b && jb < nu;
   const int ub = u0 + jb;
 
-  int seen = 0;  // thread q < 8: the count last read of block q below
+  int seen = 0;  // thread q < C: the count last read of block q below
   for (int s0 = 0; s0 < steps; s0 += lag) {
     const int s1 = min(steps, s0 + lag);
     // 1. layer l >= 1: the chunk's input product, once layer l-1 has
     // counted the chains it reads (up to step s1 - 2)
     if (l > 0) {
-      wait_blocks(below, s1 - 1, seen);
+      wait_blocks<C>(below, s1 - 1, seen);
       input_product<T>(
           (s1 - s0) * nr, P,
           [&](int i, int k, float (&v)[4]) {
@@ -285,9 +300,9 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
       }
       __syncthreads();
       if (has_proj)
-        share_slice(cluster, stage, nr, US, cellf, pl.hs, u0);
+        share_slice<T, C>(cluster, stage, nr, US, cellf, pl.hs, u0);
       else
-        share_slice(cluster, stage, nr, US, hq, pl.qs, u0);
+        share_slice<T, C>(cluster, stage, nr, US, hq, pl.qs, u0);
       cluster.sync();
       if (!has_proj) continue;
 
@@ -321,7 +336,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
         stage[i] = Dtype<T>::from_float(share);
       }
       __syncthreads();
-      share_slice(cluster, stage, nr, PS, hq, pl.qs, p0);
+      share_slice<T, C>(cluster, stage, nr, PS, hq, pl.qs, p0);
       cluster.sync();
     }
     // 3. the chunk's chains of this block's columns are counted for the
@@ -351,11 +366,14 @@ struct StackArgs {
   cudaStream_t stream;
 };
 
-// How K12 launches: rows a cluster, row tiles, tiles a wave, waves, the
-// lag K, dynamic shared memory a block (rows = 0: not with this R).
+// How K12 launches: C blocks a cluster, rows a cluster, row tiles, tiles a
+// wave, waves, the lag K, dynamic shared memory a block, and the clusters
+// resident at once (rows = 0: not with this R, or no R whose L layers are
+// resident together).
 struct Launch {
-  int rows, tiles, per_wave, waves, lag;
+  int blocks, rows, tiles, per_wave, waves, lag;
   size_t smem;
+  int resident;
 };
 
 __host__ int lag_of(int steps) {
@@ -364,40 +382,64 @@ __host__ int lag_of(int steps) {
 }
 
 // The scratch: the gxl ring [L, K, B, 4H], the chains of layers 0 .. L-2
-// [L-1, S, B, P] (float32), the counters [L, tiles, 8] (int32).
+// [L-1, S, B, P] (float32), the counters [L, tiles, C] (int32).
 __host__ size_t scratch_floats(const StackArgs& a, const Launch& how) {
   return (size_t)a.layers * how.lag * a.batch * 4 * a.units
          + (size_t)(a.layers - 1) * a.steps * a.batch * a.out_dim
-         + (size_t)a.layers * how.tiles * kCluster;
+         + (size_t)a.layers * how.tiles * how.blocks;
 }
 
-// Whether a block of R rows a cluster fits this shape: its slices' threads
-// and its shared memory (`smem`) within a block's.  Host arithmetic only.
+// Whether a block of R rows of a C-block cluster fits this shape: at most
+// kBlockUnits units a block, its slices' threads and its shared memory
+// (`smem`) within a block's.  Host arithmetic only.
 template <typename T, int R>
-__host__ bool fits(int units, int out_dim, bool has_proj, size_t* smem) {
-  const Plan pl = plan<T>(units, out_dim, has_proj, R);
-  *smem = pl.base_bytes + pl.weight_bytes + in_stage_bytes<T>(out_dim);
-  return R * pl.us <= kThreads && *smem <= kMaxSmemPerBlock;
+__host__ bool fits(int units, int out_dim, bool has_proj, int C, size_t* smem) {
+  const Plan pl = plan<T>(units, out_dim, has_proj, R, C);
+  *smem = pl.base_bytes + pl.weight_bytes;
+  return pl.us <= kBlockUnits && R * pl.us <= kThreads && *smem <= kMaxSmemPerBlock;
 }
 
-template <typename T, int R>
+template <typename T>
+__host__ bool fits_any(int units, int out_dim, bool has_proj, int C) {
+  size_t smem;
+  return fits<T, 4>(units, out_dim, has_proj, C, &smem) ||
+         fits<T, 6>(units, out_dim, has_proj, C, &smem) ||
+         fits<T, 8>(units, out_dim, has_proj, C, &smem) ||
+         fits<T, 12>(units, out_dim, has_proj, C, &smem);
+}
+
+// The blocks a cluster of K12's plan: 8 where some R fits 8 blocks, else 16
+// where some R fits 16, else 0 (no plan).  Host arithmetic only.
+template <typename T>
+__host__ int stack_cluster(int units, int out_dim, bool has_proj) {
+  if (fits_any<T>(units, out_dim, has_proj, kCluster)) return kCluster;
+  if (fits_any<T>(units, out_dim, has_proj, kWideCluster)) return kWideCluster;
+  return 0;
+}
+
+template <typename T, int R, int C>
 cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
                    cudaLaunchAttribute* attr, Launch* how) {
   how->rows = 0;
+  how->resident = 0;
   size_t smem;
-  if (!fits<T, R>(a.units, a.out_dim, a.proj_sl != nullptr, &smem)) return cudaSuccess;
-  auto kernel = stack_fwd_kernel<T, R>;
+  if (!fits<T, R>(a.units, a.out_dim, a.proj_sl != nullptr, C, &smem)) return cudaSuccess;
+  auto kernel = stack_fwd_kernel<T, R, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if (C > kCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   const int tiles = cdiv(a.batch, R);
   *cfg = {};
-  cfg->gridDim = dim3(kCluster, a.layers, 1);
+  cfg->gridDim = dim3(C, a.layers, 1);
   cfg->blockDim = dim3(kThreads, 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = a.stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
@@ -405,8 +447,10 @@ cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
   int fit = 0;
   err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, cfg);
   if (err != cudaSuccess) return err;
+  how->resident = fit;
   const int per_wave = min(tiles, fit / a.layers);
   if (per_wave < 1) return cudaSuccess;
+  how->blocks = C;
   how->rows = R;
   how->tiles = tiles;
   how->per_wave = per_wave;
@@ -417,24 +461,24 @@ cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
 }
 
 // every wave: all L layers of its row tiles, resident together
-template <typename T, int R>
+template <typename T, int R, int C>
 cudaError_t run(const StackArgs& a, const Launch& how) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch again;
-  cudaError_t err = config<T, R>(a, &cfg, attr, &again);
+  cudaError_t err = config<T, R, C>(a, &cfg, attr, &again);
   if (err != cudaSuccess) return err;
   const int H = a.units, P = a.out_dim, L = a.layers;
   float* gxl = (float*)a.scratch;
   float* in32 = gxl + (size_t)L * how.lag * a.batch * 4 * H;
   int* counters = (int*)(in32 + (size_t)(L - 1) * a.steps * a.batch * P);
-  err = cudaMemsetAsync(counters, 0, sizeof(int) * L * how.tiles * kCluster, a.stream);
+  err = cudaMemsetAsync(counters, 0, sizeof(int) * L * how.tiles * C, a.stream);
   if (err != cudaSuccess) return err;
   for (int tile0 = 0; tile0 < how.tiles; tile0 += how.per_wave) {
     const int n = min(how.per_wave, how.tiles - tile0);
-    cfg.gridDim = dim3(kCluster * n, L, 1);
+    cfg.gridDim = dim3(C * n, L, 1);
     err = cudaLaunchKernelEx(
-        &cfg, stack_fwd_kernel<T, R>, (const int*)a.seed, (const float*)a.gx0,
+        &cfg, stack_fwd_kernel<T, R, C>, (const int*)a.seed, (const float*)a.gx0,
         (const float*)a.mask, (const T*)a.wx_rows, (const T*)a.wh_sl,
         (const T*)a.proj_sl, (const float*)a.bias, (const float*)a.peep,
         (const float*)a.cinit, (const float*)a.hinit, (const float*)a.aff_a,
@@ -447,22 +491,41 @@ cudaError_t run(const StackArgs& a, const Launch& how) {
   return cudaGetLastError();
 }
 
-// The R of {4, 6, 8, 12} with the fewest waves, then the smallest; no R:
-// the launch is refused (bf16 slices wider than shared memory, as K1's).
-template <typename T>
-cudaError_t choose(const StackArgs& a, Launch* how) {
-  how->rows = 0;
+// The R of {4, 6, 8, 12} with the fewest waves, then the smallest; rows =
+// 0 when no R's L clusters are resident together (how->resident: the most
+// resident of any R).
+template <typename T, int C>
+cudaError_t choose_rows(const StackArgs& a, Launch* how) {
+  *how = Launch{C, 0, 0, 0, 0, 0, 0, 0};
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch c;
   cudaError_t err;
 #define TRY(R)                                                          \
-  err = config<T, R>(a, &cfg, attr, &c);                                \
+  err = config<T, R, C>(a, &cfg, attr, &c);                             \
   if (err != cudaSuccess) return err;                                   \
-  if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;
+  if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
+  how->resident = max(how->resident, c.resident);
   TRY(4) TRY(6) TRY(8) TRY(12)
 #undef TRY
-  return how->rows ? cudaSuccess : cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+// The launch plan, or an error: no plan for the shape
+// (cudaErrorInvalidConfiguration: bf16 slices wider than shared memory, as
+// K1's, or past 1024 units).  rows = 0: the plan exists but its L layers
+// are not resident together.
+template <typename T>
+cudaError_t choose(const StackArgs& a, Launch* how) {
+  switch (stack_cluster<T>(a.units, a.out_dim, a.proj_sl != nullptr)) {
+    case kCluster:
+      return choose_rows<T, kCluster>(a, how);
+    case kWideCluster:
+      return choose_rows<T, kWideCluster>(a, how);
+    default:
+      *how = Launch{0, 0, 0, 0, 0, 0, 0, 0};
+      return cudaErrorInvalidConfiguration;
+  }
 }
 
 template <typename T>
@@ -476,11 +539,20 @@ int launch(int device, const StackArgs& a) {
   Launch how;
   err = choose<T>(a, &how);
   if (err != cudaSuccess) return err;
+  if (!how.rows) return cudaErrorInvalidConfiguration;  // the layers not resident together
+  if (how.blocks == kCluster) {
+    switch (how.rows) {
+      case 4: return run<T, 4, kCluster>(a, how);
+      case 6: return run<T, 6, kCluster>(a, how);
+      case 8: return run<T, 8, kCluster>(a, how);
+      default: return run<T, 12, kCluster>(a, how);
+    }
+  }
   switch (how.rows) {
-    case 4: return run<T, 4>(a, how);
-    case 6: return run<T, 6>(a, how);
-    case 8: return run<T, 8>(a, how);
-    default: return run<T, 12>(a, how);
+    case 4: return run<T, 4, kWideCluster>(a, how);
+    case 6: return run<T, 6, kWideCluster>(a, how);
+    case 8: return run<T, 8, kWideCluster>(a, how);
+    default: return run<T, 12, kWideCluster>(a, how);
   }
 }
 
@@ -509,23 +581,21 @@ extern "C" int lstm_stack_fwd_bf16(LSTM_STACK_FWD_ARGS) {
   return launch<__nv_bfloat16>(device, LSTM_STACK_FWD_PACK);
 }
 
-// Whether K12 has a launch plan for this shape (1) or not (0): some R of
-// choose's whose block fits, host arithmetic only, no CUDA call.  The
-// clusters the card holds at once, which config also asks, are not counted.
+// The blocks a cluster of K12's launch plan for this shape (8 or 16), or 0
+// when K12 has none: host arithmetic only, no CUDA call.  The clusters the
+// card holds at once, which config also asks, are not counted.
 extern "C" int lstm_stack_fwd_fits(int units, int out_dim, int has_proj, int bf16) {
   if (units <= 0 || out_dim <= 0) return 0;
-  size_t smem;
   const bool pj = has_proj != 0;
-#define FITS(T)                                                         \
-  (fits<T, 4>(units, out_dim, pj, &smem) || fits<T, 6>(units, out_dim, pj, &smem) || \
-   fits<T, 8>(units, out_dim, pj, &smem) || fits<T, 12>(units, out_dim, pj, &smem))
-  return bf16 ? FITS(__nv_bfloat16) : FITS(float);
-#undef FITS
+  return bf16 ? stack_cluster<__nv_bfloat16>(units, out_dim, pj)
+              : stack_cluster<float>(units, out_dim, pj);
 }
 
-// How K12 would launch on `device` at this shape: info = {rows a cluster,
-// row tiles, tiles a wave, waves, lag K, shared memory bytes a block}, and
-// the scratch floats the launch needs; a CUDA error if it cannot.
+// How K12 would launch on `device` at this shape: info = {blocks a
+// cluster, rows a cluster, row tiles, tiles a wave, waves, lag K, shared
+// memory bytes a block, clusters resident at once}, and the scratch floats
+// the launch needs; rows = 0 when the card cannot hold the stack's L
+// clusters of a row tile together; a CUDA error if the shape has no plan.
 extern "C" int lstm_stack_fwd_config(int device, int steps, int layers, int batch,
                                      int units, int out_dim, int has_proj, int bf16,
                                      long long* info, long long* scratch) {
@@ -541,9 +611,9 @@ extern "C" int lstm_stack_fwd_config(int device, int steps, int layers, int batc
   Launch how = {};
   err = bf16 ? choose<__nv_bfloat16>(a, &how) : choose<float>(a, &how);
   if (err != cudaSuccess) return err;
-  const long long v[6] = {how.rows, how.tiles, how.per_wave, how.waves, how.lag,
-                          (long long)how.smem};
-  for (int i = 0; i < 6; ++i) info[i] = v[i];
+  const long long v[8] = {how.blocks, how.rows, how.tiles, how.per_wave, how.waves,
+                          how.lag, (long long)how.smem, how.resident};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
   *scratch = (long long)scratch_floats(a, how);
   return cudaSuccess;
 }

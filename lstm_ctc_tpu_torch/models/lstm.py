@@ -17,12 +17,17 @@ layer's batch statistics first, so it runs layer by layer, each BN affine
 folded into the next layer's input weights (or the dense head), through
 the bidirectional layer kernels (K1, K2) with the two half-batches as the
 two directions; so does a stack that is not uniform, or that the stack
-kernels refuse (``stack_eligible``: past 512 units, a backward with H or P
+kernels refuse (``stack_eligible``: past 1024 units, a backward with H or P
 not divisible by 4, a shape for which K12 or K13 has no launch plan that
-fits a block), and a layer the layer kernels refuse
-(``lstm_kernels.layer_eligible``) runs the plain recurrence under
-autograd, with one warning (streaming, with carried states, the plain
-``cells.lstm_scan`` where K12 refuses the layer).  Batch statistics
+fits a block, a stack deeper than the clusters the card holds at once),
+and a layer the layer kernels refuse (``lstm_kernels.layer_eligible``)
+runs the plain recurrence under autograd, with one warning (streaming,
+with carried states, each layer through K12 alone, or the plain
+``cells.lstm_scan`` where K12 refuses the layer).  A uniform stack routed
+layer by layer keeps the kernels' hash dropout, so it computes what K12
+computes; a stack that is not uniform, and batch-norm training, draw
+their dropout from the generator, as the reference draws them from
+``jax.random``.  Batch statistics
 are taken over every (b, t), padding included, as
 ``tf.layers.batch_normalization`` takes them; the running moments are
 ``state``, returned updated as ``new_state`` in training.
@@ -37,8 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import lstm_kernels
-from ..ops.lstm_stack_kernels import (lstm_stack_fused, stack_eligible,
-                                      stack_layer_eligible)
+from ..ops.lstm_stack_kernels import (layer_drop_factors, lstm_stack_fused,
+                                      stack_eligible, stack_layer_eligible,
+                                      stack_uniform)
 from ..parallel.mesh import batch_moments
 from .blstm import _compute_dtype, _store_dtype
 from .cells import (draw_seed, dropout, dual_recurrence, init_lstm_cell,
@@ -218,24 +224,35 @@ def stack_layers(layers: List[Dict], x, sequence_length, residual_flags,
     (its dropout seed, a one-element int32 tensor, drawn on the device from
     ``generator``); any other runs layer by layer: through K1 (and K2), or,
     with carried states, through the stack kernel one layer at a time,
-    with the residual, dropout and affine outside.  Returns (outputs, final
-    states or None)."""
+    with the residual, dropout and affine outside.  A uniform stack the
+    kernels refuse draws the same seed and applies the same hash mask;
+    another stack draws its masks from ``generator``.  Returns (outputs,
+    final states or None)."""
     if not (keep_prob < 1.0 and generator is not None):
         keep_prob = 1.0
     train = torch.is_grad_enabled() and any(
         t.requires_grad for cell in layers for t in cell.values())
+    uniform = stack_uniform(layers)
+    seed = None
+    if uniform and keep_prob < 1.0:
+        seed = draw_seed(generator, x.device)
     if stack_eligible(layers, train, warn=x.device.type == "cuda",
                       device=x.device, dtype=compute_dtype,
                       store_dtype=store_dtype):
-        seed = None
-        if keep_prob < 1.0:
-            seed = draw_seed(generator, x.device)
         return lstm_stack_fused(
             layers, x, sequence_length, FORGET_BIAS,
             residual_flags=residual_flags, compute_dtype=compute_dtype,
             store_dtype=store_dtype, initial_states=initial_states,
             keep_prob=keep_prob, seed=seed, affine=affine)
     states = [] if initial_states is not None else None
+    drop = None
+    if seed is not None:
+        # the hash mask K12 applies: layer l's step t at wavefront step t + l
+        batch, time_steps, _ = x.shape
+        out_dim = layers[0]["proj"].shape[1] if "proj" in layers[0] \
+            else layers[0]["bias"].shape[0] // 4
+        drop = layer_drop_factors(seed, keep_prob, time_steps, len(layers),
+                                  batch, out_dim, x.device)
     for i, cell in enumerate(layers):
         if initial_states is not None and not stack_layer_eligible(
                 cell, x.device, compute_dtype, warn=x.device.type == "cuda"):
@@ -255,7 +272,9 @@ def stack_layers(layers: List[Dict], x, sequence_length, residual_flags,
                                 store_dtype)
         if residual_flags[i]:
             out = out + x
-        if keep_prob < 1.0:
+        if drop is not None:
+            out = out * drop[i]
+        elif keep_prob < 1.0:
             out = dropout(generator, out, keep_prob)
         if affine is not None:
             out = out * affine[i][0] + affine[i][1]

@@ -198,7 +198,7 @@ def _slices(wh, proj, cluster: int):
     directions of a layer, or the layers of a stack).  US is a multiple of
     8 and at most 64, PS a multiple of 16, P16 and H16 are P and H rounded
     up to 16, as in ``csrc/lstm_fwd.cu`` ``fwd_plan`` (8 or 16 blocks) and
-    ``csrc/lstm_cluster.cuh`` ``plan`` (8)."""
+    ``csrc/lstm_cluster.cuh`` ``plan`` (K12: 8 or 16)."""
     n, out_dim, h4 = wh.shape
     units = h4 // 4
     us = _round_up(-(-units // cluster), 8)

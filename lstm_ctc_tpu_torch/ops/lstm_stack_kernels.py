@@ -10,11 +10,15 @@ step s layer l runs time t = s - l, for S = T + L - 1 steps, and every
 per-step stream is laid out by s with the layers stacked on the row axis
 ([S, L·B, ·]).  The kernels here keep that layout, its masks and its hash
 dropout (drawn at row s·L·B + l·B + b, column p), so they compute the same
-function, ordering the work for the card: both run one 8-block cluster per
-(layer, tile of batch rows) with the layer's recurrent weights in its
-shared memory, the layers pipelined in chunks of K steps (the lag), each
-layer's input products off its recurrence (``csrc/lstm_stack_fwd.cu``,
-``csrc/lstm_stack_bwd.cu``; ``stack_config`` says how they launch).
+function, ordering the work for the card: both run one cluster per (layer,
+tile of batch rows), of 8 blocks where the 8-block plan fits and of 16
+where only that fits (up to 1024 units, 64 a block), with the layer's
+recurrent weights in its shared memory, the layers pipelined in chunks of
+K steps (the lag), each layer's input products off its recurrence
+(``csrc/lstm_stack_fwd.cu``, ``csrc/lstm_stack_bwd.cu``; ``stack_config``
+says how they launch).  A row tile's L clusters run together, so a stack
+deeper than the clusters the card holds at once has no launch: the route
+(``stack_eligible``) runs it layer by layer.
 
 Layer 0's input projection gx0 = x·wx0 + b0 is one GEMM outside the
 kernels, and in training its gradients are autograd's products over the
@@ -22,9 +26,10 @@ dgates rows of layer 0 that K13 emits, as XLA's are outside the TPU kernel.
 The packed weights: wz ``[L, 2P, 4H]`` (wz[l] = [wx_l; wh_l], layer 0's
 input slab zero) and proj ``[L, H, P]`` in the compute dtype; bias
 ``[L, 4H]`` (layer 0's zero, it is in gx0), peep ``[L, 3, H]`` (the i, f, o
-diagonals) in float32.  The kernels take them cut per cluster block
-(``stack_slices``): wh and proj as K1's slices, wx as rows of the block's
-gate columns (``_input_rows``), proj also as K2's rows for K13.
+diagonals) in float32.  The kernels take them cut per cluster block for
+the blocks of the plan that launches (``stack_slices``): wh and proj as
+K1's slices, wx as rows of the block's gate columns (``_input_rows``),
+proj also as K2's rows for K13.
 
 On a CPU tensor a wrapper runs its plain version (``stack_forward_reference``,
 ``stack_backward_reference``); on a CUDA tensor it launches its kernel or
@@ -48,18 +53,19 @@ from .moe_kernels import _seed_ptr, hash_uniform
 from .route import warn_once
 
 _DIAG = ("w_i_diag", "w_f_diag", "w_o_diag")
-# hidden units of a stack, at most: its clusters have 8 blocks (K1's
-# slices, lstm_fwd_cluster_size) of at most 64 units
-MAX_UNITS = 8 * BLOCK_UNITS
+# hidden units of a stack, at most: its clusters have at most 16 blocks of
+# at most 64 units
+MAX_UNITS = 16 * BLOCK_UNITS
 
 
 @functools.lru_cache(maxsize=None)
 def _unplanned(units: int, out_dim: int, has_proj: bool, bf16: bool,
                store_bf16: bool, train: bool):
     """Which of K12 and, with ``train``, K13 has no launch plan for this
-    shape, or None: the plans' own arithmetic in the library, no CUDA call,
-    asked once a shape (the plans do not depend on the batch, the steps or
-    the layers but through the clusters the card holds at once)."""
+    shape, or None: the plans' own arithmetic in the library (each answers
+    the blocks a cluster of its plan, 0 for none), no CUDA call, asked once
+    a shape (the plans do not depend on the batch, the steps or the layers
+    but through the clusters the card holds at once: ``_unheld``)."""
     lib = _build.library()
     if not lib.lstm_stack_fwd_fits(units, out_dim, int(has_proj), int(bf16)):
         return "forward (K12)"
@@ -69,48 +75,62 @@ def _unplanned(units: int, out_dim: int, has_proj: bool, bf16: bool,
     return None
 
 
+def _unheld(device, layers: int, units: int, out_dim: int, has_proj: bool,
+            bf16: bool, store_bf16: bool, train: bool):
+    """(kernel, clusters resident at once) of K12 or, with ``train``, K13
+    when the card cannot hold a row tile's ``layers`` clusters together,
+    or None: the launchers' own choice (``stack_config`` at one row and one
+    step: residency does not depend on the batch or the steps), cached a
+    shape and depth."""
+    index = torch.device(device).index or 0
+    kernels = (("forward (K12)", False), ("backward (K13)", True))
+    for what, backward in kernels[:1 + int(train)]:
+        how = dict(_config(index, 1, layers, 1, units, out_dim, has_proj, bf16,
+                           backward, store_bf16))
+        if not how["rows"]:
+            return what, how["resident"]
+    return None
+
+
 def _plan_refusal(device, units: int, out_dim: int, has_proj: bool, dtype,
-                  train: bool, store_dtype, warn: bool) -> bool:
+                  train: bool, store_dtype, warn: bool, layers: int = 1) -> bool:
     """Whether, on a CUDA ``device``, K12 (or in training K13) has no
-    launch plan for this shape; with ``warn``, warn once per reason."""
+    launch plan for this shape, or (``layers`` > 1) the card cannot hold a
+    row tile's layers at once; with ``warn``, warn once per reason."""
     if device is None or torch.device(device).type != "cuda":
         return False
-    what = _unplanned(units, out_dim, has_proj, dtype == torch.bfloat16,
-                      store_dtype == torch.bfloat16, train)
-    if what is None:
+    bf16, store_bf16 = dtype == torch.bfloat16, store_dtype == torch.bfloat16
+    name = str(dtype).split(".")[-1]
+    what = _unplanned(units, out_dim, has_proj, bf16, store_bf16, train)
+    if what is not None:
+        if warn:
+            warn_once("lstm stack %s plan" % what, "lstm: the CUDA stack %s "
+                      "has no launch plan for a %s stack of H=%d P=%d (its "
+                      "threads or shared memory exceed a block's); running "
+                      "it layer by layer." % (what, name, units, out_dim))
+        return True
+    unheld = None if layers < 2 else _unheld(
+        device, layers, units, out_dim, has_proj, bf16, store_bf16, train)
+    if unheld is None:
         return False
     if warn:
-        warn_once("lstm stack %s plan" % what, "lstm: the CUDA stack %s has "
-                  "no launch plan for a %s stack of H=%d P=%d (its threads or "
-                  "shared memory exceed a block's); running it layer by "
-                  "layer." % (what, str(dtype).split(".")[-1], units,
-                              out_dim))
+        warn_once("lstm stack resident", "lstm: the card holds %d clusters "
+                  "of the CUDA stack %s at once for a %s stack of H=%d P=%d, "
+                  "fewer than its %d layers (a row tile's layers run "
+                  "together); running it layer by layer."
+                  % (unheld[1], unheld[0], name, units, out_dim, layers))
     return True
 
 
-def stack_eligible(params_list: Sequence[Dict], train: bool = False,
-                   warn: bool = False, device=None, dtype=torch.float32,
-                   store_dtype=torch.float32) -> bool:
-    """The stack kernels apply when the stack is uniform (the same units,
-    projection and peephole structure on every layer, every layer past the
-    first fed P-wide) and layer 0 has no residual (an input as wide as the
-    output would need the raw input inside the kernel), with at least two
-    layers (``lstm_stack_pallas.stack_eligible``); and when the kernels
-    take its shape: at most 512 units (K1's slices), with ``train`` (K13)
-    H and P divisible by 4, and on a CUDA ``device`` a launch plan of K12
-    (and K13) in the compute ``dtype`` (K13's states in ``store_dtype``)
-    that fits a block, as ``lstm_kernels.layer_eligible`` asks K1's.  With
-    ``warn``, a refusal of the shape warns once per process for each
-    reason."""
+def stack_uniform(params_list: Sequence[Dict]) -> bool:
+    """Whether a stack has the stack kernels' structure, as
+    ``lstm_stack_pallas.stack_eligible`` asks it: at least two layers, the
+    same units, projection and peephole structure on every layer, every
+    layer past the first fed P-wide, and no residual on layer 0 (an input
+    as wide as the output would need the raw input inside the kernel)."""
     p0 = params_list[0]
     units = p0["bias"].shape[0] // 4
     out_dim = p0["proj"].shape[1] if "proj" in p0 else units
-    if units > MAX_UNITS:
-        if warn:
-            warn_once("lstm stack units", "lstm: a stack of %d units exceeds "
-                      "the CUDA stack kernels' %d; running it layer by "
-                      "layer." % (units, MAX_UNITS))
-        return False
     if len(params_list) < 2 or p0["wx"].shape[0] == out_dim:
         return False
     for p in params_list[1:]:
@@ -120,6 +140,31 @@ def stack_eligible(params_list: Sequence[Dict], train: bool = False,
             return False
         if "proj" in p0 and p["proj"].shape != p0["proj"].shape:
             return False
+    return True
+
+
+def stack_eligible(params_list: Sequence[Dict], train: bool = False,
+                   warn: bool = False, device=None, dtype=torch.float32,
+                   store_dtype=torch.float32) -> bool:
+    """The stack kernels apply when the stack is uniform
+    (``stack_uniform``) and the kernels take its shape: at most 1024 units
+    (16 blocks of 64), with ``train`` (K13) H and P divisible by 4, and on
+    a CUDA ``device`` a launch plan of K12 (and K13) in the compute
+    ``dtype`` (K13's states in ``store_dtype``) that fits a block, as
+    ``lstm_kernels.layer_eligible`` asks K1's, and whose L clusters of a
+    row tile the card holds at once.  With ``warn``, a refusal of the
+    shape warns once per process for each reason."""
+    p0 = params_list[0]
+    units = p0["bias"].shape[0] // 4
+    out_dim = p0["proj"].shape[1] if "proj" in p0 else units
+    if units > MAX_UNITS:
+        if warn:
+            warn_once("lstm stack units", "lstm: a stack of %d units exceeds "
+                      "the CUDA stack kernels' %d; running it layer by "
+                      "layer." % (units, MAX_UNITS))
+        return False
+    if not stack_uniform(params_list):
+        return False
     if train and (units % 4 or out_dim % 4):
         if warn:
             warn_once("lstm stack backward width", "lstm: the CUDA stack "
@@ -127,12 +172,12 @@ def stack_eligible(params_list: Sequence[Dict], train: bool = False,
                       "running the stack layer by layer." % (units, out_dim))
         return False
     return not _plan_refusal(device, units, out_dim, "proj" in p0, dtype,
-                             train, store_dtype, warn)
+                             train, store_dtype, warn, len(params_list))
 
 
 def stack_layer_eligible(cell: Dict, device, dtype, warn: bool = False) -> bool:
     """Whether K12 runs this one layer forward with carried states (the
-    streaming path of a stack the stack route refused): at most 512 units
+    streaming path of a stack the stack route refused): at most 1024 units
     and, on a CUDA ``device``, a launch plan of K12 in ``dtype``."""
     units = cell["bias"].shape[0] // 4
     out_dim = cell["proj"].shape[1] if "proj" in cell else units
@@ -190,6 +235,20 @@ def _drop_mask(seed, keep_prob: float, steps: int, layers: int, batch: int,
     u = hash_uniform(seed, 0, 0, steps * layers * batch, out_dim, device)
     keep = (u < keep_prob).float() * (1.0 / keep_prob)
     return keep.view(steps, layers, batch, out_dim)
+
+
+def layer_drop_factors(seed, keep_prob: float, time_steps: int, layers: int,
+                       batch: int, out_dim: int, device):
+    """The stack's dropout factors as each layer's outputs meet them,
+    ``[L, B, T, P]``: layer l's step t is wavefront step s = t + l (None at
+    keep 1).  A uniform stack run layer by layer applies these, so it
+    computes what K12 computes."""
+    drop = _drop_mask(seed, keep_prob, time_steps + layers - 1, layers, batch,
+                      out_dim, device)
+    if drop is None:
+        return None
+    return torch.stack([drop[l:l + time_steps, l] for l in range(layers)]
+                       ).transpose(1, 2)
 
 
 def _dims(gx0, wz):
@@ -551,8 +610,9 @@ def _input_rows(wx, cluster: int):
 
 
 def stack_slices(wz, proj, cluster: int, backward: bool = False) -> Dict:
-    """The stack's weights cut per cluster block, made once per weight
-    tensor (``cells.derived``): ``wh_sl`` as K1's slices; for K12
+    """The stack's weights cut per block of a ``cluster``-block cluster (8
+    or 16, as the kernel's plan answers), made once per weight tensor and
+    cluster size (``cells.derived``): ``wh_sl`` as K1's slices; for K12
     ``wx_rows`` (``_input_rows``) and ``proj_sl`` as K1's slices; for K13
     (``backward``) ``proj_rows`` as K2's (K13 reads wx from wz itself)."""
     out_dim = wz.shape[1] // 2
@@ -573,11 +633,14 @@ def stack_config(device, steps: int, layers: int, batch: int, units: int,
                  out_dim: int, has_proj: bool, dtype, backward: bool = False,
                  store_dtype=torch.float32) -> dict:
     """How K12 (or, with ``backward``, K13) launches on ``device`` at this
-    shape: ``rows`` (batch rows a cluster), ``tiles`` (row tiles),
-    ``per_wave`` (row tiles a launch, all L layers of each resident
-    together), ``waves``, ``lag`` (the chunk of steps a layer runs ahead of
-    the next), ``smem_bytes`` (shared memory a block) and
-    ``scratch_floats``, as the launcher chooses them."""
+    shape: ``blocks`` (a cluster: 8, or 16 where no 8-block plan fits),
+    ``rows`` (batch rows a cluster; 0 when the card cannot hold the L
+    clusters of a row tile at once), ``tiles`` (row tiles), ``per_wave``
+    (row tiles a launch, all L layers of each resident together),
+    ``waves``, ``lag`` (the chunk of steps a layer runs ahead of the next),
+    ``smem_bytes`` (shared memory a block), ``resident`` (clusters the card
+    holds at once) and ``scratch_floats``, as the launcher chooses them.
+    Raises where the shape has no plan."""
     return dict(_config(device.index or 0, steps, layers, batch, units,
                         out_dim, bool(has_proj), dtype == torch.bfloat16,
                         backward, store_dtype == torch.bfloat16))
@@ -589,7 +652,7 @@ def _config(device: int, steps, layers, batch, units, out_dim, has_proj,
     """``stack_config`` once per shape: the launcher's choice depends only
     on these and on the device."""
     lib = _build.library()
-    info = (ctypes.c_longlong * 6)()
+    info = (ctypes.c_longlong * 8)()
     scratch = ctypes.c_longlong()
     args = [device, steps, layers, batch, units, out_dim, int(has_proj),
             int(bf16)]
@@ -599,8 +662,18 @@ def _config(device: int, steps, layers, batch, units, out_dim, has_proj,
     else:
         err = lib.lstm_stack_fwd_config(*args, info, ctypes.byref(scratch))
     _build.check(err, "lstm_stack_%s_config" % ("bwd" if backward else "fwd"))
-    keys = ("rows", "tiles", "per_wave", "waves", "lag", "smem_bytes")
+    keys = ("blocks", "rows", "tiles", "per_wave", "waves", "lag",
+            "smem_bytes", "resident")
     return tuple(zip(keys, list(info))) + (("scratch_floats", scratch.value),)
+
+
+def _held(how: dict, layers: int, what: str) -> None:
+    """Raise unless the card holds a row tile's ``layers`` clusters at once
+    (``stack_eligible`` routes such a stack before it gets here)."""
+    if not how["rows"]:
+        raise RuntimeError("%s: the card holds %d of the stack's clusters at "
+                           "once, fewer than its %d layers"
+                           % (what, how["resident"], layers))
 
 
 def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
@@ -630,9 +703,10 @@ def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
         _expect(aff_a, (layers, out_dim), torch.float32, device, "affine a")
         _expect(aff_b, (layers, out_dim), torch.float32, device, "affine b")
     lib = _build.library()
-    sl = stack_slices(wz, proj, lib.lstm_fwd_cluster_size())
     how = stack_config(device, steps, layers, batch, units, out_dim,
                        proj is not None, wz.dtype)
+    _held(how, layers, "lstm_stack_fwd")
+    sl = stack_slices(wz, proj, how["blocks"])
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=device, dtype=dtype)
@@ -699,10 +773,11 @@ def lstm_stack_backward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
         return torch.empty(shape, device=device, dtype=dtype)
 
     lib = _build.library()
-    sl = stack_slices(wz, proj, lib.lstm_fwd_cluster_size(), backward=True)
     how = stack_config(device, steps, layers, batch, units, out_dim,
                        proj is not None, wz.dtype, backward=True,
                        store_dtype=store_dtype)
+    _held(how, layers, "lstm_stack_bwd")
+    sl = stack_slices(wz, proj, how["blocks"], backward=True)
     dgates = empty(steps, lb, h4, dtype=store_dtype)
     outb = doutp = dproj = None
     if proj is not None:

@@ -10,10 +10,11 @@ both families, with ragged lengths and residual flags; initial states and
 their gradients; hash dropout at keep 0.8 from the same int32 seed, whose
 mask must equal JAX's bit for bit; the eval-BN affine, whose backward
 raises.  The ``cuda`` tests hold K12 and K13 against their plain versions
-on the card, narrow and at the ``lstm`` and ``cudnnlstm`` widths: max|diff|
+on the card, narrow, at the ``lstm`` and ``cudnnlstm`` widths, and at the
+widths that take 16-block clusters (up to H = 1024, P = 256): max|diff|
 / max|plain| <= 1e-4 per output in float32, and in bfloat16 each step
 replayed from the kernels' own states within 1e-3, as are K13's weight
-gradients over its own dgates.
+gradients over its own dgates; two bfloat16 launches bit-equal.
 JAX is imported by a fixture, so the ``cuda`` tests also run where JAX is
 not installed (pytest --noconftest).
 """
@@ -478,3 +479,88 @@ def test_k12_k13_bf16_steps_replay(cuda, units, proj):
     for got, want in zip((grads[1], grads[2], grads[3], grads[4]), wgrads):
         if want is not None:
             assert ratio(got, want) <= 1e-3
+
+
+# the widths past the 8-block plans, on 16-block clusters: Kaldi's LSTMP
+# cell and projection, H = P = 384-512 with a projection, and 512 without
+WIDE = [(1024, 256), (512, 512), (448, 448), (384, 384), (512, None)]
+
+
+def blocks(cuda, case, backward=False):
+    steps, batch, h4 = case["gx0"].shape
+    layers, p2, _ = case["wz"].shape
+    return sk.stack_config(cuda, steps, layers, batch, h4 // 4, p2 // 2,
+                           case["proj"] is not None, case["wz"].dtype,
+                           backward, case["wz"].dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units,proj", WIDE)
+def test_k12_k13_wide_on_16_blocks(cuda, units, proj):
+    """K12 and K13 on 16-block clusters: float32 against the plain versions
+    at keep 0.9 with initial states (ratio <= 1e-4), at B = 5 (one row
+    tile) and B = 20 (row tiles in waves); bfloat16 each step replayed from
+    the kernels' own states within 1e-3, and K13's weight gradients over
+    its own dgates; two bfloat16 launches bit-equal.  In float32, whose
+    slices stay in L2, 8 blocks hold up to 512 units.  The flagship width
+    keeps 8 blocks."""
+    for batch in (5, 20):
+        case = stack_case(16, cuda, torch.float32, keep=0.9, init=True,
+                          batch=batch, time_steps=12, units=units, proj=proj,
+                          layers=4)
+        case.pop("affine")
+        f32_blocks = 16 if units > 512 else 8
+        assert blocks(cuda, case)["blocks"] == f32_blocks
+        assert blocks(cuda, case, True)["blocks"] == f32_blocks
+        got = sk.lstm_stack_forward(**case, states=True)
+        ref = sk.stack_forward_reference(**case)
+        ref = (ref[0], ref[4], ref[5]) + ref[1:4]
+        for g, r in zip(got, ref):
+            assert ratio(g, r) <= 1e-4
+        out, cfin, hfin, chain, c_all, h_all = got
+        rng = np.random.RandomState(batch)
+        cots = [torch.from_numpy(0.1 * rng.randn(*t.shape).astype(
+            np.float32)).to(cuda) for t in (out, cfin, hfin)]
+        args = dict(case, chain=chain, c_all=c_all, h_all=h_all, dout=cots[0],
+                    dcfin=cots[1], dhfin=cots[2])
+        grads = sk.lstm_stack_backward(**args)
+        want = sk.stack_backward_reference(**args)
+        torch.cuda.synchronize()
+        for g, r in zip(grads, want):
+            if r is not None:
+                assert ratio(g, r) <= 1e-4
+    case = stack_case(17, cuda, torch.bfloat16, keep=0.9, init=True, batch=6,
+                      time_steps=24, units=units, proj=proj, layers=4)
+    case.pop("affine")
+    assert blocks(cuda, case)["blocks"] == 16
+    assert blocks(cuda, case, True)["blocks"] == 16
+    first = sk.lstm_stack_forward(**case, states=True)
+    again = sk.lstm_stack_forward(**case, states=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    out, cfin, hfin, chain, c_all, h_all = first
+    replay = sk.stack_replay_steps(**case, affine=None, chain=chain,
+                                   c_all=c_all, h_all=h_all)
+    assert max(ratio(g, r) for g, r in zip((chain, c_all, h_all), replay)) \
+        <= 1e-3
+    dout = 0.1 * torch.randn(out.shape, generator=torch.Generator()
+                             .manual_seed(0)).to(cuda)
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all, dout=dout,
+                dcfin=torch.zeros_like(cfin), dhfin=torch.zeros_like(hfin))
+    grads = sk.lstm_stack_backward(**args, steps_out=True)
+    twice = sk.lstm_stack_backward(**args, steps_out=True)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(grads, twice))
+    dc_in, dh_in, din = grads[7:]
+    replay_args = {k: v for k, v in args.items() if k not in ("dcfin",
+                                                             "dhfin")}
+    _, dc_out, dh_out, din_out, wgrads = sk.stack_replay_backward_steps(
+        **replay_args, dc_in=dc_in, dh_in=dh_in, din=din, dgates=grads[0])
+    assert max(ratio(dc_out[1:], dc_in[:-1]), ratio(dh_out[1:], dh_in[:-1]),
+               ratio(din_out[1:], din[1:])) <= 1e-3
+    for got, want in zip(grads[1:5], wgrads):
+        if want is not None:
+            assert ratio(got, want) <= 1e-3
+    flagship = stack_case(18, cuda, torch.bfloat16, batch=32, time_steps=8,
+                          units=320, proj=320, layers=4)
+    assert blocks(cuda, flagship)["blocks"] == 8
+    assert blocks(cuda, flagship, True)["blocks"] == 8

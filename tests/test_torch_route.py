@@ -218,78 +218,123 @@ def test_layer_eligible_takes_the_wide_shapes(monkeypatch, fresh_warnings,
 
 
 def make_stack(units, out_dim, layers=3, d=10):
+    """``layers`` peephole cells of ``units`` (with a projection to
+    ``out_dim``, none when it is None), layer 0 fed ``d`` wide."""
     gen = torch.Generator().manual_seed(units)
     cells_ = []
     width = d
     for _ in range(layers):
         cells_.append(cells.init_lstm_cell(gen, width, units, out_dim,
                                            True))
-        width = out_dim
+        width = out_dim or units
     return cells_
 
 
 @pytest.mark.parametrize("units,out_dim,train,eligible", [
     (8, 4, True, True), (8, 4, False, True), (6, 4, True, False),
-    (6, 4, False, True), (8, 6, True, False), (513, 4, False, False),
-    (512, 4, True, True)])
+    (6, 4, False, True), (8, 6, True, False), (1028, 4, False, False),
+    (512, 4, True, True), (1024, 4, True, True), (1025, 4, False, False)])
 def test_stack_eligible_shape_rules(units, out_dim, train, eligible):
     """K13 takes H and P divisible by 4 (training only); K12 and K13 at
-    most 512 units."""
+    most 1024 units (16 blocks of 64)."""
     stack = make_stack(units, out_dim)
     assert lstm_stack_kernels.stack_eligible(stack, train) is eligible
 
 
 class FakeStackPlans:
-    """K12's and K13's plan queries, answering from a table of shapes and
-    counting the questions; no other entry (no CUDA call) exists."""
+    """K12's and K13's plan queries and launch configs, answering from
+    tables of shapes and counting the questions; no other entry (no CUDA
+    call) exists.  The fits queries answer the blocks a cluster (16 for the
+    shapes in ``wide``, else 8, 0 for none); a config answers rows 0 when
+    the clusters the card holds at once (``resident``, 14 by default) are
+    fewer than the stack's layers."""
 
-    def __init__(self, fwd, bwd):
+    def __init__(self, fwd, bwd, wide=(), resident=None):
         self.fwd, self.bwd, self.asked = fwd, bwd, []
+        self.wide, self.resident = set(wide), dict(resident or {})
+
+    def _blocks(self, units, out_dim, table):
+        if (units, out_dim) not in table:
+            return 0
+        return 16 if (units, out_dim) in self.wide else 8
 
     def lstm_stack_fwd_fits(self, units, out_dim, has_proj, bf16):
         self.asked.append(("fwd", units, out_dim, has_proj, bf16))
-        return int((units, out_dim) in self.fwd)
+        return self._blocks(units, out_dim, self.fwd)
 
     def lstm_stack_bwd_fits(self, units, out_dim, has_proj, bf16,
                             store_bf16):
         self.asked.append(("bwd", units, out_dim, has_proj, bf16,
                            store_bf16))
-        return int((units, out_dim) in self.bwd)
+        return self._blocks(units, out_dim, self.bwd)
+
+    def _config(self, which, table, device, steps, layers, batch, units,
+                out_dim, has_proj, bf16, info, scratch):
+        self.asked.append((which + " config", units, out_dim, layers))
+        blocks = self._blocks(units, out_dim, table)
+        held = self.resident.get((units, out_dim), 14)
+        rows = 4 if blocks and held >= layers else 0
+        for i, v in enumerate((blocks, rows, rows and 1, rows and 1,
+                               rows and 1, 2, 1000, held)):
+            info[i] = v
+        return 0
+
+    def lstm_stack_fwd_config(self, *args):
+        return self._config("fwd", self.fwd, *args)
+
+    def lstm_stack_bwd_config(self, *args):
+        return self._config("bwd", self.bwd, *(args[:8] + args[9:]))
 
 
 @pytest.fixture
 def fake_stack_plans(monkeypatch, fresh_warnings):
-    plans = FakeStackPlans(fwd={(320, 320), (200, 448)}, bwd={(320, 320)})
+    plans = FakeStackPlans(fwd={(320, 320), (200, 448), (1024, 256)},
+                           bwd={(320, 320), (1024, 256)}, wide={(1024, 256)},
+                           resident={(1024, 256): 7})
     monkeypatch.setattr(lstm_stack_kernels._build, "library", lambda: plans)
     lstm_stack_kernels._unplanned.cache_clear()
+    lstm_stack_kernels._config.cache_clear()
     yield plans
     lstm_stack_kernels._unplanned.cache_clear()
+    lstm_stack_kernels._config.cache_clear()
 
 
 @pytest.mark.parametrize("units,out_dim,train,refused_by", [
     (320, 320, True, None), (320, 320, False, None),
     (384, 384, False, "forward (K12)"), (384, 384, True, "forward (K12)"),
-    (200, 448, False, None), (200, 448, True, "backward (K13)")])
+    (200, 448, False, None), (200, 448, True, "backward (K13)"),
+    (1024, 256, True, None), (1024, None, False, "forward (K12)")])
 def test_stack_eligible_asks_the_plans_once_a_shape(fake_stack_plans, units,
                                                     out_dim, train,
                                                     refused_by):
     """On a CUDA device the stack predicate asks K12's plan and, in
     training, K13's (with the compute and store dtypes), once a shape: the
     second question, for a stack of another depth, is answered from the
-    cache.  A refusal names the kernel that has no plan and warns once;
-    nothing but the two plan queries is called."""
+    cache; then, for each depth, whether the card holds its layers at once
+    (the launchers' configs, once a shape and depth).  A refusal names the
+    kernel that has no plan and warns once; nothing but the plan queries
+    and the configs is called.  bf16 H = P = 1024 without a projection has
+    no plan (8 MB of wh a layer)."""
     cuda = torch.device("cuda")
+    has_proj = int(out_dim is not None)
+    out_dim = out_dim or units
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         for layers in (3, 2):
-            stack = make_stack(units, out_dim, layers=layers)
+            stack = make_stack(units, out_dim if has_proj else None,
+                               layers=layers)
             got = lstm_stack_kernels.stack_eligible(
                 stack, train, warn=True, device=cuda, dtype=torch.bfloat16,
                 store_dtype=torch.float32)
             assert got is (refused_by is None)
-    want = [("fwd", units, out_dim, 1, 1)]
+    want = [("fwd", units, out_dim, has_proj, 1)]
     if train and refused_by != "forward (K12)":
-        want.append(("bwd", units, out_dim, 1, 1, 0))
+        want.append(("bwd", units, out_dim, has_proj, 1, 0))
+    if refused_by is None:
+        for layers in (3, 2):
+            want.append(("fwd config", units, out_dim, layers))
+            if train:
+                want.append(("bwd config", units, out_dim, layers))
     assert fake_stack_plans.asked == want
     texts = [str(w.message) for w in seen]
     if refused_by is None:
@@ -301,14 +346,44 @@ def test_stack_eligible_asks_the_plans_once_a_shape(fake_stack_plans, units,
         assert "layer by layer" in texts[0]
 
 
+@pytest.mark.parametrize("train", [False, True], ids=["serve", "train"])
+def test_stack_eligible_refuses_a_stack_deeper_than_the_card_holds(
+        fake_stack_plans, train):
+    """A stack whose row tile's L clusters the card cannot hold at once
+    (here 7 sixteen-block clusters, a stack of 8 layers of H = 1024, P =
+    256) is refused before any launch, with one warning naming the
+    resident clusters and the depth; a stack of 7 such layers is taken."""
+    cuda = torch.device("cuda")
+    bf16 = dict(dtype=torch.bfloat16, store_dtype=torch.bfloat16)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            assert not lstm_stack_kernels.stack_eligible(
+                make_stack(1024, 256, layers=8), train, warn=True,
+                device=cuda, **bf16)
+        assert lstm_stack_kernels.stack_eligible(
+            make_stack(1024, 256, layers=7), train, warn=True, device=cuda,
+            **bf16)
+    texts = [str(w.message) for w in seen]
+    assert len(texts) == 1, texts
+    assert ("the card holds 7 clusters of the CUDA stack forward (K12) at "
+            "once for a bfloat16 stack of H=1024 P=256, fewer than its 8 "
+            "layers") in texts[0]
+    assert "layer by layer" in texts[0]
+    configs = [a for a in fake_stack_plans.asked if "config" in a[0]]
+    assert configs == [("fwd config", 1024, 256, 8), ("fwd config", 1024,
+                                                     256, 7)] + (
+        [("bwd config", 1024, 256, 7)] if train else [])
+
+
 def test_stack_eligible_asks_no_plan_past_the_shape_rules(fake_stack_plans):
-    """Past 512 units, a stack that is not uniform, a single layer, a
+    """Past 1024 units, a stack that is not uniform, a single layer, a
     backward with H or P not divisible by 4, and any stack on the CPU are
     decided before any plan is asked."""
     cuda = torch.device("cuda")
     bf16 = dict(dtype=torch.bfloat16, store_dtype=torch.bfloat16)
-    assert not lstm_stack_kernels.stack_eligible(make_stack(516, 516), False,
-                                                 device=cuda, **bf16)
+    assert not lstm_stack_kernels.stack_eligible(make_stack(1028, 1028),
+                                                 False, device=cuda, **bf16)
     mixed = make_stack(320, 320)[:2] + make_stack(384, 320)[2:]
     assert not lstm_stack_kernels.stack_eligible(mixed, False, device=cuda,
                                                  **bf16)
@@ -325,13 +400,13 @@ def test_stack_eligible_asks_no_plan_past_the_shape_rules(fake_stack_plans):
 
 @pytest.mark.parametrize("units,out_dim,device,eligible,asked", [
     (320, 320, "cuda", True, True), (384, 384, "cuda", False, True),
-    (516, 516, "cuda", False, False), (384, 384, "cpu", True, False),
-    (516, 516, "cpu", False, False)])
+    (1028, 1028, "cuda", False, False), (384, 384, "cpu", True, False),
+    (1028, 1028, "cpu", False, False), (1024, 256, "cuda", True, True)])
 def test_stack_layer_eligible_edges(fake_stack_plans, units, out_dim, device,
                                     eligible, asked):
     """One layer with carried states (streaming, after the stack route
-    refused): K12 at most 512 units and, on a CUDA device, with a forward
-    plan; the backward is never asked."""
+    refused): K12 at most 1024 units and, on a CUDA device, with a forward
+    plan; the backward is never asked, nor whether one layer is held."""
     cell = make_stack(units, out_dim, layers=1)[0]
     assert lstm_stack_kernels.stack_layer_eligible(
         cell, torch.device(device), torch.bfloat16) is eligible
@@ -364,8 +439,8 @@ def test_refusals_warn_once_per_reason(fresh_warnings):
 
 # --- the routed paths against the reference on the CPU ---
 
-def streaming_case(units=516, out_dim=8, d=6, batch=2, time_steps=5):
-    """A 2-layer stack past the kernels' 512 units (layer 1 residual),
+def streaming_case(units=1028, out_dim=8, d=6, batch=2, time_steps=5):
+    """A 2-layer stack past the kernels' 1024 units (layer 1 residual),
     inputs, lengths and carried states, float32."""
     rng = np.random.RandomState(units)
     layers = make_stack(units, out_dim, layers=2, d=d)
@@ -378,7 +453,7 @@ def streaming_case(units=516, out_dim=8, d=6, batch=2, time_steps=5):
 
 
 def test_streaming_past_the_kernels_matches_the_stack(fresh_warnings):
-    """With carried states (streaming), a stack past 512 units runs layer by
+    """With carried states (streaming), a stack past 1024 units runs layer by
     layer through the plain scan: outputs and final states equal the stack
     reference's (the plain version of K12 on the CPU)."""
     layers, x, seq, states = streaming_case()
@@ -581,7 +656,7 @@ def test_moe_route_on_gpu(cuda, fresh_warnings, d, v, dtype, match):
 
 @pytest.mark.cuda
 def test_streaming_route_on_gpu(cuda, fresh_warnings):
-    """A stack past 512 units with carried states on the card: the plain
+    """A stack past 1024 units with carried states on the card: the plain
     scan, as on the CPU, one warning, no K12 launch."""
     layers, x, seq, states = streaming_case()
     flags = [False, True]
@@ -590,7 +665,7 @@ def test_streaming_route_on_gpu(cuda, fresh_warnings):
                                             torch.float32,
                                             initial_states=states)
         before = lstm_stack_kernels.lstm_stack_forward.launches
-        with pytest.warns(UserWarning, match="516 units"):
+        with pytest.warns(UserWarning, match="1028 units"):
             got, got_states = lstm.stack_layers(
                 [{k: t.to(cuda) for k, t in c.items()} for c in layers],
                 x.to(cuda), seq.to(cuda), flags, torch.float32,
@@ -698,32 +773,55 @@ def test_layer_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
 
 
 # the stack shapes held against the launchers on the card: the flagship
-# lstm width, the widths past it up to K12/K13's 512 units, a narrow H
-# under a wide P, and float32
-STACK_SHAPES = [(320, 320, torch.bfloat16), (384, 384, torch.bfloat16),
-                (448, 448, torch.bfloat16), (512, 512, torch.bfloat16),
-                (200, 448, torch.bfloat16), (384, 384, torch.float32),
-                (512, 512, torch.float32)]
+# lstm width, the widths past it that take 16-block clusters (Kaldi's LSTMP
+# cell and projection, H = P = 384-512 with and without a projection), a
+# narrow H under a wide P, float32, bf16 H = P = 1024 without a projection
+# (no plan), and a 16-block stack of 8 layers (deeper than the 7 clusters
+# an H100 holds at once); (units, out_dim or None, dtype, layers)
+STACK_SHAPES = [(320, 320, torch.bfloat16, 4), (384, 384, torch.bfloat16, 4),
+                (448, 448, torch.bfloat16, 4), (512, 512, torch.bfloat16, 4),
+                (512, None, torch.bfloat16, 4),
+                (1024, 256, torch.bfloat16, 4), (200, 448, torch.bfloat16, 4),
+                (384, 384, torch.float32, 4), (512, 512, torch.float32, 4),
+                (1024, 256, torch.float32, 4),
+                (1024, None, torch.bfloat16, 4),
+                (384, 384, torch.bfloat16, 8)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("units,out_dim,dtype", STACK_SHAPES,
+@pytest.mark.parametrize("units,out_dim,dtype,layers", STACK_SHAPES,
                          ids=["bf16-320", "bf16-384", "bf16-448", "bf16-512",
-                              "bf16-200x448", "f32-384", "f32-512"])
+                              "bf16-512-noproj", "bf16-1024x256",
+                              "bf16-200x448", "f32-384", "f32-512",
+                              "f32-1024x256", "bf16-1024-noproj",
+                              "bf16-384-8layers"])
 def test_stack_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
-                                                         out_dim, dtype):
+                                                         out_dim, dtype,
+                                                         layers):
     """The stack predicate's plans are the launchers' own, and depend on
-    the shape alone: at B = 3, 64 and 512 (one row tile, and waves of
-    them), where it takes a 4-layer stack K12's (in training also K13's)
-    launch plan is found, and where it refuses the launcher's plan query
-    raises.  The answers are printed for the record."""
-    stack = make_stack(units, out_dim, layers=4, d=out_dim + 8)
+    the shape and the depth alone: at B = 3, 64 and 512 (one row tile, and
+    waves of them), where it takes a stack K12's (in training also K13's)
+    launch plan is found, of the blocks the fits query answers; where it
+    refuses, the launcher's plan query raises (no plan) or answers no rows
+    (the card holds fewer clusters at once than the stack has layers).
+    The answers are printed for the record."""
+    stack = make_stack(units, out_dim, layers=layers,
+                       d=(out_dim or units) + 8)
+    has_proj = out_dim is not None
+    out_dim = out_dim or units
     forward = lstm_stack_kernels.stack_eligible(stack, False, device=cuda,
                                                 dtype=dtype)
     backward = lstm_stack_kernels.stack_eligible(
         stack, True, device=cuda, dtype=dtype, store_dtype=torch.bfloat16)
-    print("stack H=%d P=%d %s: forward %s, training %s"
-          % (units, out_dim, dtype, forward, backward))
+    lib = lstm_stack_kernels._build.library()
+    bf16 = int(dtype == torch.bfloat16)
+    blocks = {False: lib.lstm_stack_fwd_fits(units, out_dim, int(has_proj),
+                                             bf16),
+              True: lib.lstm_stack_bwd_fits(units, out_dim, int(has_proj),
+                                            bf16, 1)}
+    print("stack H=%d P=%d %s x %d: forward %s (%d blocks), training %s "
+          "(%d blocks)" % (units, out_dim, dtype, layers, forward,
+                           blocks[False], backward, blocks[True]))
     for batch in (3, 64, 512):
         for train, eligible in ((False, forward), (True, backward)):
             if train and not forward:
@@ -731,24 +829,30 @@ def test_stack_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
 
             def plan():
                 return lstm_stack_kernels.stack_config(
-                    cuda, 40, 4, batch, units, out_dim, True, dtype,
+                    cuda, 40, layers, batch, units, out_dim, has_proj, dtype,
                     backward=train, store_dtype=torch.bfloat16)
 
-            if eligible:
-                assert plan()["rows"] > 0
-            else:
+            if not blocks[train]:
+                assert not eligible
                 with pytest.raises(RuntimeError,
                                    match="lstm_stack_%s_config"
                                    % ("bwd" if train else "fwd")):
                     plan()
+                continue
+            how = plan()
+            print("  B=%d %s: %s" % (batch, "K13" if train else "K12", how))
+            assert how["blocks"] == blocks[train]
+            assert (how["rows"] > 0) is eligible
+            assert (how["resident"] >= layers) is eligible
 
 
-def refused_stack_case(cuda, layers=3, d=20, batch=3, time_steps=17):
-    """A bf16 lstm stack of H = P = 384 (layer 0 fed D = 20, the others
-    residual) on the card, its inputs and lengths."""
-    rng = np.random.RandomState(384)
+def refused_stack_case(cuda, units=384, out_dim=384, layers=3, d=20, batch=3,
+                       time_steps=17):
+    """A bf16 lstm stack (layer 0 fed D = 20, the others residual) on the
+    card, its inputs and lengths."""
+    rng = np.random.RandomState(units)
     stack = [{k: t.to(cuda) for k, t in c.items()}
-             for c in make_stack(384, 384, layers=layers, d=d)]
+             for c in make_stack(units, out_dim, layers=layers, d=d)]
     x = torch.from_numpy(rng.randn(batch, time_steps, d).astype(
         np.float32)).to(cuda)
     seq = torch.tensor([time_steps, 9, 12], device=cuda)
@@ -757,13 +861,12 @@ def refused_stack_case(cuda, layers=3, d=20, batch=3, time_steps=17):
 
 @pytest.mark.cuda
 def test_stack_route_on_gpu(cuda, fresh_warnings):
-    """A bf16 lstm stack of H = P = 384 in training, for which K12 has no
-    launch plan (its weight slices and input stage exceed a block's shared
-    memory): the stack runs layer by layer, through K1 and K2 on 16-block
-    clusters (one launch of each a layer), equal bit for bit to that
-    composition on the same tensors, with the stack's warning and no K12
-    or K13 launch."""
-    stack, x, seq, flags = refused_stack_case(cuda)
+    """A bf16 lstm stack of 8 layers of H = P = 384 in training, deeper
+    than the sixteen-block clusters an H100 holds at once (7): the stack
+    runs layer by layer, through K1 and K2 on 16-block clusters (one launch
+    of each a layer), equal bit for bit to that composition on the same
+    tensors, with the stack's warning and no K12 or K13 launch."""
+    stack, x, seq, flags = refused_stack_case(cuda, layers=8)
     leaves = [t.requires_grad_() for c in stack for t in c.values()]
     wrappers = (lstm_stack_kernels.lstm_stack_forward,
                 lstm_stack_kernels.lstm_stack_backward,
@@ -771,8 +874,9 @@ def test_stack_route_on_gpu(cuda, fresh_warnings):
                 lstm_kernels.lstm_layer_backward)
     before = counted(*wrappers)
     with pytest.warns(UserWarning,
-                      match=r"stack forward \(K12\) has no launch plan for a "
-                      "bfloat16 stack of H=384 P=384"):
+                      match=r"clusters of the CUDA stack forward \(K12\) at "
+                      "once for a bfloat16 stack of H=384 P=384, fewer than "
+                      "its 8 layers"):
         got, _ = lstm.stack_layers(stack, x, seq, flags, torch.bfloat16)
     grads = torch.autograd.grad(got.sum(), leaves)
     torch.cuda.synchronize()
@@ -792,12 +896,14 @@ def test_stack_route_on_gpu(cuda, fresh_warnings):
 
 @pytest.mark.cuda
 def test_stack_streaming_route_on_gpu(cuda, fresh_warnings):
-    """The same stack with carried states (streaming): each layer through
-    the plain scan, since K12 has no plan for one layer of it either; equal
-    bit for bit to that composition, no K12 launch."""
-    stack, x, seq, flags = refused_stack_case(cuda)
+    """A bf16 stack of H = P = 1024 without a projection with carried
+    states (streaming): K12 has no plan for it (8 MB of wh a layer), nor
+    for one layer of it, so each layer runs the plain scan; equal bit for
+    bit to that composition, no K12 launch."""
+    stack, x, seq, flags = refused_stack_case(cuda, units=1024, out_dim=None,
+                                              layers=2)
     rng = np.random.RandomState(5)
-    states = [tuple(torch.from_numpy(rng.randn(3, 384).astype(
+    states = [tuple(torch.from_numpy(rng.randn(3, 1024).astype(
         np.float32)).to(cuda) for _ in range(2)) for _ in stack]
     before = lstm_stack_kernels.lstm_stack_forward.launches
     with torch.no_grad():
