@@ -23,6 +23,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   4. kernel B (MoE expert mix) against its plain version at N=12288, D=640,
      E=V=72, tau=10, keep 1.0 and 0.9; beside the bf16 kernel, cuBLAS's bare
      product x·W at the same shape (the product alone, not K4's function);
+     then past 128 targets (V-tiled): at V=136, 256, 1024 and 4096 (D=640,
+     72 experts) against the plain version at N=1100, float32 and bf16,
+     keep 1.0 and 0.9, two launches bit-equal; timed in turns at N=12288
+     for V=256 and 1024, beside the bound and cuBLAS's bare x·W;
   5. end to end: the flagship model (random weights from a seed) serves
      64 synthetic utterances through ``lstm_ctc_tpu_torch.bin.nnet_forward``
      on cuda, batch 32, in bfloat16 (the default on CUDA); the archive is
@@ -41,9 +45,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the plain versions (each also in us a step), and F.ctc_loss timed on
      the same shapes as the library yardstick; then one shape each wrapper
      module refuses, routed before any launch to the plain version (a CTC
-     lattice of 1101 positions, a MoE head of V=136 in bf16 and of D=1100
-     in float32, a bf16 BLSTM layer of H=P=1024 without a projection in
-     training): equal to the plain version, one warning, no kernel launch;
+     lattice of 1101 positions, a MoE head of V=129 in bf16 (outside the
+     kernels' V <= 128 or lcm(V, 128) <= 4096) and of D=1100 in float32
+     under the twokernel backward, a bf16 BLSTM layer of H=P=1024 without
+     a projection in training): equal to the plain version, one warning, no kernel launch;
      a bf16 lstm stack of 8 layers of H=P=384 in training, deeper than the
      sixteen-block clusters the card holds at once, layer by layer through
      K1 and K2 (once each a layer); and a streamed bf16 stack of H=P=1024
@@ -79,7 +84,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (stage 1 dz and db's partials, stage 2 K7's); beside K6,
      cuBLAS's bare product dz·Wᵀ (the product alone, not K6's function)
      and the time of W's two packed images (fwd_pack, bwd_pack: once a
-     train step);
+     train step); then K5 and K6 past 128 targets as phase 4 has K4 (K6
+     fed the plain stash; timed at N=14336, keep 0.9);
  10. the flagship MoE model (72 experts, the paper's treatment) trains for
      two iterations of nnet_train_loop (the newbob loop in one process;
      adam 1e-3, keep 0.9, batch 32, pack factor 3, bf16) on the same
@@ -214,10 +220,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      bfloat16; the train step and the forward on the parent's route
      (layer by layer through K1 and K2) for the record; then a cudnnlstm
      of H=P=512 through nnet_init, nnet_train and nnet_forward;
- 23. prints the kernels' JSON line (with rows for K1, K2 and K3 at
-     H=1024, P=256, their launches from phase 21, and for K12 and K13 on
+ 23. a 256-target head end to end: the flagship MoE model (4 x 320
+     BLSTM, projection 320, 72 experts, tau 10) over 256 targets, bf16,
+     through nnet_init, 3 packed nnet_train steps at keep 0.9 and
+     nnet_forward on 64 utterances, each run counted from zero (per train
+     step 1 K5 and 1 K6, per CV or forward batch 1 K4), no route warning,
+     finite losses and weights; float32 log-posteriors against the plain
+     versions'; the train step beside the same step with the head's mix
+     computed by the plain version (the parent's route), for the record;
+ 24. prints the kernels' JSON line (with rows for K1, K2 and K3 at
+     H=1024, P=256, their launches from phase 21, for K12 and K13 on
      16 blocks at H=1024, P=256 and at the cudnnlstm H=P=512, their
-     launches from phase 22), the summary lines, the nvidia-smi line, and
+     launches from phase 22, and for K4, K5 and K6 at V=256, their
+     launches from phase 23), the summary lines, the nvidia-smi line, and
      as the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (stated, with their reasons, in PERF.md): kernel vs plain,
@@ -504,49 +519,68 @@ def check_lstm(torch, pkg, device, dtype, reset, rng, shape=FLAGSHIP_LAYER):
     return worst_abs, ms, plain_ms
 
 
-def check_moe(torch, pkg, device, dtype, keep_prob, rng):
+def check_moe(torch, pkg, device, dtype, keep_prob, rng, targets=72,
+              rows=12288, rounds=10):
+    """K4 against its plain version at the flagship head's D = 640 and 72
+    experts over ``targets``, at ``rows`` rows: two launches bit-equal,
+    then timed in ``rounds`` turns with the plain version, beside its bound
+    and, in bf16, cuBLAS's bare x·W (not K4's function)."""
     moe, moe_kernels = pkg["moe"], pkg["moe_kernels"]
-    n, dim, experts, targets, tau = 12288, 640, 72, 72, 10.0
+    n, dim, experts, tau = rows, 640, 72, 10.0
+    ev = experts * targets
     gen = torch.Generator().manual_seed(12)
     params = moe.init_moe(gen, dim, targets, experts, device)
     x = torch.from_numpy(
         (0.5 * rng.randn(n, dim)).astype(np.float32)).to(device)
     b = torch.from_numpy(
-        (0.1 * rng.randn(experts * targets)).astype(np.float32)).to(device)
+        (0.1 * rng.randn(ev)).astype(np.float32)).to(device)
     gate = torch.softmax(torch.from_numpy(
         rng.randn(n, experts).astype(np.float32)).to(device), dim=-1)
     seed = -123457 if keep_prob < 1.0 else None
     args = (x, params["w_expert"], b, gate, experts, tau, keep_prob, seed,
             dtype)
     got = moe_kernels.moe_mix_fused(*args)
+    same = torch.equal(got, moe_kernels.moe_mix_fused(*args))
     ref = moe_kernels.moe_mix_reference(*args)
     torch.cuda.synchronize()
+    tag = "%-8s V=%d N=%d keep=%.1f" % (str(dtype).split(".")[-1], targets,
+                                        n, keep_prob)
     if not torch.isfinite(got).all():
-        fail("kernel B %s: non-finite output" % dtype)
+        fail("kernel B %s: non-finite output" % tag)
     abs_err, rel_err = errors(got, ref)
-    say("  kernel B %-8s keep=%.1f max_abs %.3e  rel %.3e"
-        % (str(dtype).split(".")[-1], keep_prob, abs_err, rel_err))
+    say("  kernel B %s max_abs %.3e  rel %.3e; two launches bit-equal: %s"
+        % (tag, abs_err, rel_err, same))
+    if not same:
+        fail("kernel B %s: two launches differ" % tag)
     if dtype == torch.float32 and rel_err > F32_REL_TOL:
-        fail("kernel B f32 keep=%.1f: relative error %.3e > %.1e"
-             % (keep_prob, rel_err, F32_REL_TOL))
+        fail("kernel B %s: relative error %.3e > %.1e"
+             % (tag, rel_err, F32_REL_TOL))
     if dtype == torch.bfloat16 and abs_err > BF16_ABS_TOL:
-        fail("kernel B bf16 keep=%.1f: abs error %.3e > %.1e"
-             % (keep_prob, abs_err, BF16_ABS_TOL))
+        fail("kernel B %s: abs error %.3e > %.1e"
+             % (tag, abs_err, BF16_ABS_TOL))
+    del got, ref
     ms, plain_ms = time_in_turns(
         torch, lambda: moe_kernels.moe_mix_fused(*args),
-        lambda: moe_kernels.moe_mix_reference(*args), rounds=10)
-    say("  kernel B %-8s keep=%.1f kernel %.3f ms  plain %.3f ms"
-        % (str(dtype).split(".")[-1], keep_prob, ms, plain_ms))
+        lambda: moe_kernels.moe_mix_reference(*args), rounds=rounds)
+    # x, out, gate and b read or written once in float32, W once in dtype
+    nbytes = 4 * (n * dim + n * targets + n * experts + ev) \
+        + dim * ev * dtype.itemsize
+    bound_ms, bound_by = bound(nbytes, 2 * n * dim * ev,
+                               BF16_FLOPS_PER_MS if dtype == torch.bfloat16
+                               else F32_FLOPS_PER_MS)
+    result = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "cublas_ms": None}
+    say("  kernel B %s on %s: kernel %.3f ms  plain %.3f ms  bound %.4f ms "
+        "(%s)" % (tag, SMI, ms, plain_ms, bound_ms, bound_by))
     if dtype == torch.bfloat16 and keep_prob == 1.0:
         xb = x.to(dtype)
         wb = params["w_expert"].to(dtype)
-        bare = median_ms(torch, lambda: torch.mm(xb, wb,
-                                                 out_dtype=torch.float32),
-                         reps=20)
+        result["cublas_ms"] = median_ms(
+            torch, lambda: torch.mm(xb, wb, out_dtype=torch.float32), reps=20)
         say("  the product alone (not K4's function): cuBLAS x(bf16) "
             "[%d, %d] x W [%d, %d] -> float32 %.3f ms, K4 %.3f ms"
-            % (n, dim, dim, experts * targets, bare, ms))
-    return abs_err, ms, plain_ms
+            % (n, dim, dim, ev, result["cublas_ms"], ms))
+    return result
 
 
 def write_corpus(pkg, work, rng, count=64):
@@ -1065,12 +1099,16 @@ def check_routes(torch, pkg, device, rng):
     if worst > CTC_TOL * max(1.0, float(ref.abs().max())):
         fail("the routed CTC differs from its plain version")
 
-    # MoE, V = 136 in bf16 and D = 1100 in float32, one training step each
+    # MoE, one training step each: V = 129 in bf16 under the default
+    # backward (outside the kernels' V <= 128 or lcm(V, 128) <= 4096, as
+    # the reference's fused_eligible), and D = 1100 in float32 under the
+    # twokernel backward
     wrappers = (mk.moe_mix_forward, mk.moe_mix_forward_stash,
                 mk.moe_mix_backward, mk.moe_mix_backward_noemit,
                 mk.moe_mix_wgrad, mk.moe_mix_backward_wgrad)
-    for d, v, dtype, match in ((640, 136, torch.bfloat16, "136 targets"),
-                               (1100, 72, torch.float32, "width of 1100")):
+    for d, v, dtype, match, mode in (
+            (640, 129, torch.bfloat16, "129 targets", "xla"),
+            (1100, 72, torch.float32, "width of 1100", "twokernel")):
         gen = torch.Generator().manual_seed(v)
         params = {k: t.to(device).requires_grad_()
                   for k, t in moe.init_moe(gen, d, v, 4).items()}
@@ -1083,7 +1121,7 @@ def check_routes(torch, pkg, device, rng):
         def head(generator):
             out = moe.apply_moe(params, xm, 4, 10.0, compute_dtype=dtype,
                                 keep_prob=0.9, generator=generator,
-                                wgrad_mode="twokernel")
+                                wgrad_mode=mode)
             return out, torch.autograd.grad(out, leaves, gout)
 
         (out, grads), text = routed(
@@ -1100,9 +1138,10 @@ def check_routes(torch, pkg, device, rng):
         ref_grads = torch.autograd.grad(ref, leaves, gout)
         same = bool(torch.equal(out, ref)) and all(
             torch.equal(a, b) for a, b in zip(grads, ref_grads))
-        say("  route, MoE D=%d V=%d %s training step: output and gradients "
-            "equal to the plain version's: %s; no K4-K9 launch; warned: %s"
-            % (d, v, str(dtype).split(".")[-1], same, text))
+        say("  route, MoE D=%d V=%d %s training step (%s backward): output "
+            "and gradients equal to the plain version's: %s; no K4-K9 "
+            "launch; warned: %s"
+            % (d, v, str(dtype).split(".")[-1], mode, same, text))
         if not same:
             fail("the routed MoE head differs from its plain version")
 
@@ -1725,12 +1764,16 @@ def hold_to_nudge(base, what, step, ref_what, ref, nudged):
     return loss_rel, grad_rel
 
 
-def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
+def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms,
+                parent=None, held_bf16=None):
     """On one packed batch of the training stream, from the trained weights
     in ``nnet``: the float32 step against the plain versions (each launch
     on its own tensors, then end to end under the nudge yardstick), one
     bfloat16 step with every launch held to its plain version, and a
-    profiled bfloat16 step."""
+    profiled bfloat16 step.  ``held_bf16`` names the launches the bf16
+    step holds (default: every one).  Returns its device kernels' ms, and
+    with ``parent`` = (a route's context, its median step ms) also the same
+    step's profiled on that route."""
     from lstm_ctc_tpu_torch.cli import init_from_config, make_shard_fn
     from lstm_ctc_tpu_torch.host.data import iterate_batches
     from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
@@ -1769,7 +1812,7 @@ def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
 
     # bfloat16: one step, every launch held to its plain version on the
     # tensors the model gave it
-    held = ("lstm_bwd", "ctc_alpha", "ctc_beta") + (
+    held = held_bf16 or ("lstm_bwd", "ctc_alpha", "ctc_beta") + (
         ("moe_fwd_stash", "moe_bwd") if moe else ())
     worst = {k: 0.0 for k in held}
     init_opt, step = make_train_step(train_config, 1e-3, "adam")
@@ -1778,11 +1821,11 @@ def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
         step(params, init_opt(params), {},
              torch.Generator(device).manual_seed(1), batch)
         torch.cuda.synchronize()
-    say("  bfloat16 train step, each launch vs its plain version: K2 "
-        "per-step carries max rel %.3e (bound %.0e); K10 %.3e, K11 %.3e "
-        "(bound %.0e on |diff|/max(1,|plain|))"
-        % (worst["lstm_bwd"], BF16_STEP_REL_TOL, worst["ctc_alpha"],
-           worst["ctc_beta"], CTC_TOL))
+    say("  bfloat16 train step, each launch vs its plain version: %sK10 "
+        "%.3e, K11 %.3e (bound %.0e on |diff|/max(1,|plain|))"
+        % ("K2 per-step carries max rel %.3e (bound %.0e); "
+           % (worst["lstm_bwd"], BF16_STEP_REL_TOL) if "lstm_bwd" in worst
+           else "", worst["ctc_alpha"], worst["ctc_beta"], CTC_TOL))
     if moe:
         say("  bfloat16 train step: K5 out max_abs %.3e (bound %.0e), th "
             "within one bf16 rounding step; K6 dx/dgate max rel %.3e (bound "
@@ -1790,8 +1833,16 @@ def check_steps(torch, pkg, device, config, nnet, train_batcher, step_ms):
             % (worst["moe_fwd_stash"], BF16_ABS_TOL, worst["moe_bwd"],
                BF16_MOE_REL_TOL))
 
-    profile_step(torch, init_opt, step, fresh_weights(torch, base), batch,
-                 device, step_ms)
+    busy = profile_step(torch, init_opt, step, fresh_weights(torch, base),
+                        batch, device, step_ms)
+    if parent is None:
+        return busy
+    route, route_ms = parent
+    say("  the same step on the parent's route:")
+    with route():
+        return busy, profile_step(torch, init_opt, step,
+                                  fresh_weights(torch, base), batch, device,
+                                  route_ms)
 
 
 @contextlib.contextmanager
@@ -1909,6 +1960,7 @@ def held_in_training(torch, pkg, worst):
                 fail("%s on the main path: rel %.3e, NEG_INF places "
                      "identical: %s" % (name, rel, same))
             return got
+        run.held = name
         return run
 
     def stash(*args):
@@ -1943,10 +1995,14 @@ def held_in_training(torch, pkg, worst):
                   held_dp("ctc_beta", k11, ctc_kernels.beta_reference)),
                  (moe_kernels, "moe_mix_forward_stash", stash),
                  (moe_kernels, "moe_mix_backward", mix_backward))
+    # each stand-in is installed where ``worst`` holds its name
+    backward.held, stash.held, mix_backward.held = (
+        "lstm_bwd", "moe_fwd_stash", "moe_bwd")
     with contextlib.ExitStack() as stack:
         for module, name, fn in stand_ins:
-            fn.launches = 0
-            stack.enter_context(mock.patch.object(module, name, fn))
+            if fn.held in worst:
+                fn.launches = 0
+                stack.enter_context(mock.patch.object(module, name, fn))
         yield
 
 
@@ -1962,12 +2018,13 @@ def kernel_rows(prof):
 
 # kernels whose share of a profile's device time is reported: label and a
 # pattern of the demangled name (K4 and K5 are one body, K5 with the stash;
-# K6 is moe_bwd_wgmma with the dz stream)
+# K6 is moe_bwd_wgmma<NI, kEmit, kDb, kTile> with the dz stream and no db
+# partials: kEmit and not kDb, as csrc/moe_bwd.cu launches it)
 SHARE_KERNELS = (
     ("K1 (lstm_fwd_kernel)", r"lstm_fwd_kernel"),
     ("K4 (moe_fwd_wgmma, no stash)", r"moe_fwd_wgmma<[^>]*false>"),
     ("K5 (moe_fwd_wgmma, stash)", r"moe_fwd_wgmma<[^>]*true>"),
-    ("K6 (moe_bwd_wgmma, dz)", r"moe_bwd_wgmma<[^>]*true>"))
+    ("K6 (moe_bwd_wgmma, dz)", r"moe_bwd_wgmma<\d+, true, false,"))
 
 
 def kernel_shares(rows, busy):
@@ -2016,12 +2073,14 @@ def profile_step(torch, init_opt, step, params, batch, device, step_ms):
         % (sum(h[0] for h in host), waits, ", ".join(
             "%s %.1f ms (%d x)" % (key[:40], ms, count)
             for ms, count, key in host[:8])))
+    return busy
 
 
-def moe_train_case(torch, pkg, device, rng):
+def moe_train_case(torch, pkg, device, rng, targets=72, rows=MOE_TRAIN_ROWS):
     """K5-K9's inputs at the training shape: x [N, 640], the expert
-    weights, bias, gate, an output cotangent and a device seed."""
-    n, dim, experts, targets = MOE_TRAIN_ROWS, 640, 72, 72
+    weights (72 experts over ``targets``), bias, gate, an output cotangent
+    and a device seed."""
+    n, dim, experts = rows, 640, 72
     gen = torch.Generator().manual_seed(14)
     w = pkg["moe"].init_moe(gen, dim, targets, experts, device)["w_expert"]
 
@@ -2043,29 +2102,69 @@ def bound(nbytes, flops, peak):
                                                            "operations")
 
 
-def check_moe_training(torch, pkg, device, rng):
-    """K5, K6, K8 and K9 against their plain versions at the training
-    shape, then timed in turns with them (keep 0.9, as training runs)."""
+def held_stats(pairs):
+    """{name: (max|diff|/max|plain|, max|diff|, finite)} of (kernel,
+    plain) pairs."""
+    return {key: (ratio(g, r), errors(g, r)[0],
+                  bool(g.float().isfinite().all()))
+            for key, (g, r) in pairs.items()}
+
+
+def check_moe_training(torch, pkg, device, rng, targets=72,
+                       rows=MOE_TRAIN_ROWS):
+    """K5 and K6 (and, up to 128 targets, K8 and K9) against their plain
+    versions at D = 640, 72 experts over ``targets``, ``rows`` rows, K5
+    and K6 launched twice (bit-equal); then timed in turns with them (keep
+    0.9, as training runs)."""
     mk = pkg["moe_kernels"]
-    x, w32, b, gate, gout, seed = moe_train_case(torch, pkg, device, rng)
+    x, w32, b, gate, gout, seed = moe_train_case(torch, pkg, device, rng,
+                                                 targets, rows)
     n, dim = x.shape
-    experts, targets, tau = 72, 72, 10.0
+    experts, tau = 72, 10.0
     ev = experts * targets
+    # the opt-in modes' K7, K8 and K9 take V <= 128 (ops/moe_kernels.py)
+    narrow = targets <= mk.MAX_V
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
+        tag = "%s V=%d N=%d" % (name, targets, n)
         w = w32.to(dtype).contiguous()
         for keep in (1.0, 0.9):
             args = (seed, experts, tau, keep)
             out, th = mk.moe_mix_forward_stash(x, w, b, gate, *args)
+            again = mk.moe_mix_forward_stash(x, w, b, gate, *args)
+            same = torch.equal(out, again[0]) and torch.equal(th, again[1])
+            del again
+            # each kernel's plain version freed once held (at V = 1024 in
+            # float32 each [N, E·V] tensor is 4.2 GB)
             ref_out, ref_th = mk.moe_stash_reference(x, w, b, gate, *args)
+            stats = held_stats({"out": (out, ref_out), "th": (th, ref_th)})
+            bf16 = dtype == torch.bfloat16
+            steps_ok = [within_bf16_step(th, ref_th)] if bf16 else []
+            del ref_out, ref_th
             dx, dgate, dz = mk.moe_mix_backward(th, w, gate, gout, *args)
+            again = mk.moe_mix_backward(th, w, gate, gout, *args)
+            same = same and all(torch.equal(g, a) for g, a in zip(
+                (dx, dgate, dz), again))
+            del again
             ref_dx, ref_dgate, ref_dz = mk.moe_backward_reference(
                 th, w, gate, gout, *args)
-            dx8, dgate8 = mk.moe_mix_backward_noemit(th, w, gate, gout, *args)
-            dw, db = mk.moe_mix_wgrad(x, th, gate, gout, *args)
-            ref_dw, ref_db = mk.moe_wgrad_reference(x, th, gate, gout, *args)
-            if dtype == torch.bfloat16:
+            stats.update(held_stats({"dx": (dx, ref_dx),
+                                     "dgate": (dgate, ref_dgate),
+                                     "dz": (dz, ref_dz)}))
+            steps_ok += [within_bf16_step(dz, ref_dz)] if bf16 else []
+            del ref_dx, ref_dgate, ref_dz
+            if not same:
+                fail("K5 or K6 %s keep=%.1f: two launches differ"
+                     % (tag, keep))
+            if narrow:
+                dx8, dgate8 = mk.moe_mix_backward_noemit(th, w, gate, gout,
+                                                         *args)
+                dw, db = mk.moe_mix_wgrad(x, th, gate, gout, *args)
+                stats.update(held_stats(dict(zip(("dw", "db"), zip(
+                    (dw, db), mk.moe_wgrad_reference(x, th, gate, gout,
+                                                     *args))))))
+            if narrow and dtype == torch.bfloat16:
                 # bf16 K9 makes K7's dz bits and db partials, then runs
                 # K7's second stage: (dw, db) equal K7's bit for bit
                 k7 = mk.moe_mix_backward_wgrad(x, th, w, gate, gout, *args)
@@ -2075,40 +2174,41 @@ def check_moe_training(torch, pkg, device, rng):
                 say("  K9 bfloat16 keep=%.1f: dw and db equal K7's bit for "
                     "bit" % keep)
             torch.cuda.synchronize()
-            pairs = {"out": (out, ref_out), "th": (th, ref_th),
-                     "dx": (dx, ref_dx), "dgate": (dgate, ref_dgate),
-                     "dz": (dz, ref_dz), "dw": (dw, ref_dw),
-                     "db": (db, ref_db)}
-            for key, (g, _) in pairs.items():
-                if not torch.isfinite(g.float()).all():
+            for key, (_, _, finite) in stats.items():
+                if not finite:
                     fail("K5-K9 %s keep=%.1f: non-finite %s"
-                         % (name, keep, key))
-            rels = {key: ratio(g, r) for key, (g, r) in pairs.items()}
-            same8 = torch.equal(dx8, dx) and torch.equal(dgate8, dgate)
-            say("  K5/K6/K9 %-8s keep=%.1f max|diff|/max|plain|: %s; K8's "
-                "dx and dgate equal K6's: %s"
-                % (name, keep, ", ".join("%s %.2e" % kv
-                                         for kv in rels.items()), same8))
+                         % (tag, keep, key))
+            rels = {key: st[0] for key, st in stats.items()}
+            abs_err = {key: st[1] for key, st in stats.items()}
+            same8 = not narrow or (torch.equal(dx8, dx)
+                                   and torch.equal(dgate8, dgate))
+            say("  K5/K6%s %s keep=%.1f max|diff|/max|plain|: %s; two "
+                "launches bit-equal%s"
+                % ("/K9" if narrow else "", tag, keep, ", ".join(
+                    "%s %.2e" % kv for kv in rels.items()),
+                   "; K8's dx and dgate equal K6's: %s" % same8
+                   if narrow else ""))
             if not same8:
-                fail("K8 differs from K6 (%s keep=%.1f)" % (name, keep))
+                fail("K8 differs from K6 (%s keep=%.1f)" % (tag, keep))
             if dtype == torch.float32:
                 if max(rels.values()) > F32_REL_TOL:
-                    fail("K5-K9 f32 keep=%.1f: relative error %.3e > %.1e"
-                         % (keep, max(rels.values()), F32_REL_TOL))
+                    fail("K5-K9 %s keep=%.1f: relative error %.3e > %.1e"
+                         % (tag, keep, max(rels.values()), F32_REL_TOL))
             else:
-                out_abs = errors(out, ref_out)[0]
-                steps_ok = (within_bf16_step(th, ref_th),
-                            within_bf16_step(dz, ref_dz))
-                grad_rel = max(rels[k] for k in ("dx", "dgate", "dw", "db"))
-                say("  K5-K9 bfloat16 keep=%.1f: out max_abs %.3e (bound "
-                    "%.0e); th, dz within one bf16 rounding step: %s, %s; "
-                    "dx, dgate, dw, db max rel %.3e (bound %.0e)"
-                    % ((keep, out_abs, BF16_ABS_TOL) + steps_ok
-                       + (grad_rel, BF16_MOE_REL_TOL)))
-                if (out_abs > BF16_ABS_TOL or not all(steps_ok)
+                grads = [k for k in ("dx", "dgate", "dw", "db") if k in rels]
+                grad_rel = max(rels[k] for k in grads)
+                say("  K5-K9 %s keep=%.1f: out max_abs %.3e (bound %.0e); "
+                    "th, dz within one bf16 rounding step: %s, %s; %s max "
+                    "rel %.3e (bound %.0e)"
+                    % ((tag, keep, abs_err["out"], BF16_ABS_TOL)
+                       + tuple(steps_ok)
+                       + (", ".join(grads), grad_rel, BF16_MOE_REL_TOL)))
+                if (abs_err["out"] > BF16_ABS_TOL or not all(steps_ok)
                         or grad_rel > BF16_MOE_REL_TOL):
-                    fail("K5-K9 bf16 keep=%.1f outside its bounds" % keep)
+                    fail("K5-K9 %s keep=%.1f outside its bounds"
+                         % (tag, keep))
             if keep == 1.0:
+                del out, th, dx, dgate, dz
                 continue
             # timed in turns with the plain versions, at keep 0.9
             isz = dtype.itemsize
@@ -2120,28 +2220,28 @@ def check_moe_training(torch, pkg, device, rng):
             cases = (
                 ("moe_fwd_stash", mk.moe_mix_forward_stash,
                  mk.moe_stash_reference, (x, w, b, gate) + args,
-                 n * dim * 4 + ev * 4 + small + n * ev * isz, out, ref_out),
+                 n * dim * 4 + ev * 4 + small + n * ev * isz, "out"),
                 ("moe_bwd", mk.moe_mix_backward, mk.moe_backward_reference,
-                 (th, w, gate, gout) + args, k8_bytes + n * ev * isz, dx,
-                 ref_dx),
+                 (th, w, gate, gout) + args, k8_bytes + n * ev * isz, "dx"),
                 ("moe_bwd_noemit", mk.moe_mix_backward_noemit,
                  mk.moe_backward_noemit_reference, (th, w, gate, gout) + args,
-                 k8_bytes, dx8, ref_dx),
+                 k8_bytes, "dx"),
                 ("moe_wgrad", mk.moe_mix_wgrad, mk.moe_wgrad_reference,
                  (x, th, gate, gout) + args,
                  n * dim * 4 + n * ev * isz + small - dim * ev * isz
-                 + dim * ev * 4 + ev * 4, dw, ref_dw))
-            for kname, kernel, plain, kargs, nbytes, got, ref in cases:
+                 + dim * ev * 4 + ev * 4, "dw"))
+            for kname, kernel, plain, kargs, nbytes, key in cases[
+                    :None if narrow else 2]:
                 ms, plain_ms = time_in_turns(
                     torch, lambda: kernel(*kargs), lambda: plain(*kargs),
                     rounds=3, kernel_reps=3)
                 bound_ms, bound_by = bound(nbytes, flops, peak)
-                say("  %-14s %-8s kernel %.3f ms  plain %.3f ms  bound %.4f "
-                    "ms (%s: %.1f MB, %.1f GFLOP)"
-                    % (kname, name, ms, plain_ms, bound_ms, bound_by,
+                say("  %-14s %s on %s: kernel %.3f ms  plain %.3f ms  bound "
+                    "%.4f ms (%s: %.1f MB, %.1f GFLOP)"
+                    % (kname, tag, SMI, ms, plain_ms, bound_ms, bound_by,
                        nbytes / 1e6, flops / 1e9))
                 result[(kname, dtype)] = {
-                    "max_abs_err": errors(got, ref)[0], "ms": ms,
+                    "max_abs_err": abs_err[key], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by}
 
@@ -2154,18 +2254,28 @@ def check_moe_training(torch, pkg, device, rng):
                 return mk.moe_mix_wgrad(x, th, gate, gout, *args)
 
             if dtype == torch.bfloat16:
-                dzb = dz.to(dtype)
+                dzb, xb = dz.to(dtype), x.to(dtype)
                 wt = w.t()
-                bare = median_ms(torch, lambda: torch.mm(
-                    dzb, wt, out_dtype=torch.float32), reps=20)
+                for kname, a, bmat in (("moe_fwd_stash", xb, w),
+                                       ("moe_bwd", dzb, wt)):
+                    result[(kname, dtype)]["cublas_ms"] = median_ms(
+                        torch, lambda: torch.mm(a, bmat,
+                                                out_dtype=torch.float32),
+                        reps=20)
                 pack_ms = [median_ms(torch, lambda: pack(w, experts), reps=20)
                            for pack in (mk.fwd_pack, mk.bwd_pack)]
-                say("  the product alone (not K6's function): cuBLAS dz(bf16) "
-                    "[%d, %d] x W^T [%d, %d] -> float32 %.3f ms, K6 %.3f ms; "
+                say("  the products alone (not K5's or K6's function): cuBLAS "
+                    "x(bf16) [%d, %d] x W [%d, %d] -> float32 %.3f ms, K5 "
+                    "%.3f ms; dz(bf16) x W^T -> float32 %.3f ms, K6 %.3f ms; "
                     "W's packed images (once a train step): fwd_pack %.3f ms, "
                     "bwd_pack %.3f ms"
-                    % ((n, ev, ev, dim, bare,
-                        result[("moe_bwd", dtype)]["ms"]) + tuple(pack_ms)))
+                    % ((n, dim, dim, ev) + tuple(
+                        result[(k, dtype)][f] for k in ("moe_fwd_stash",
+                                                        "moe_bwd")
+                        for f in ("cublas_ms", "ms")) + tuple(pack_ms)))
+                del dzb, xb
+            if not narrow:
+                continue
             k9 = result[("moe_wgrad", dtype)]
             busy, split, whole = profiled_split(
                 torch, lambda: mk.moe_mix_wgrad(x, th, gate, gout, *args),
@@ -2188,6 +2298,14 @@ def check_moe_training(torch, pkg, device, rng):
                           ratio(dw, dw_default)))
             result[("twokernel", dtype)] = (two_ms, default_ms)
     return result
+
+
+# target counts past 128 that the reference's fused kernels take (lcm(V,
+# 128) <= 4096), held to the plain versions in phases 4 and 9 at the main
+# paths' rows, except where the plain side's [N, E·V] float32 tensors
+# (14.5-16.9 GB each at V = 4096) would not fit beside each other
+WIDE_TARGETS = (136, 256, 1024, 4096)
+WIDE_ROWS = {4096: 1100}
 
 
 # K9's launches by kernel (csrc/moe_wgrad.cu): bf16 stage 1 makes dz and
@@ -3242,16 +3360,16 @@ def check_stack_bwd_wide(torch, pkg, device, rng):
     return result
 
 
-def check_posteriors(posts, raw_lengths, subsample=3):
-    """The archive holds every key, (raw // subsample) x 72 finite
+def check_posteriors(posts, raw_lengths, subsample=3, targets=72):
+    """The archive holds every key, (raw // subsample) x ``targets`` finite
     log-posteriors whose rows sum to one; returns the frame count."""
     if sorted(posts) != sorted(raw_lengths):
         fail("archive keys differ from the corpus keys")
     frames = 0
     for key, mat in posts.items():
-        if mat.shape != (raw_lengths[key] // subsample, 72):
-            fail("%s: shape %s, expected (%d, 72)"
-                 % (key, mat.shape, raw_lengths[key] // subsample))
+        if mat.shape != (raw_lengths[key] // subsample, targets):
+            fail("%s: shape %s, expected (%d, %d)"
+                 % (key, mat.shape, raw_lengths[key] // subsample, targets))
         if not np.isfinite(mat).all():
             fail("%s: non-finite log-posteriors" % key)
         m = mat.max(axis=1, keepdims=True)
@@ -4197,6 +4315,176 @@ def wide_end_to_end(torch, pkg, device, work, scp, rng):
     return result
 
 
+# --- phase 23: a 256-target head through K4, K5 and K6 past 128 targets ---
+
+# the flagship treatment model over 256 targets an expert (a subword or
+# syllable set; lcm(256, 128) = 256, which the reference's fused kernels
+# take), the rest the flagship's: 4 x 320 BLSTM, projection 320, 72
+# experts, tau 10
+WIDE_HEAD_CONFIG = dict(FLAGSHIP_CONFIG, num_targets=256)
+
+
+@contextlib.contextmanager
+def plain_head():
+    """The parent's route for a head past 128 targets: the expert mix by
+    its plain version under autograd (the kernels refused, no warning)."""
+    from lstm_ctc_tpu_torch.ops import moe_kernels
+
+    def refuse(*args, **kwargs):
+        return False
+
+    with mock.patch.object(moe_kernels, "mix_eligible", refuse):
+        yield
+
+
+def wide_head_end_to_end(torch, pkg, device, work, scp, rng):
+    """Phase 23: WIDE_HEAD_CONFIG through nnet_init, WIDE_STEPS packed steps
+    of nnet_train (keep 0.9) and nnet_forward on 64 utterances, bf16, on
+    phase 8's corpus: each run counted from zero (per train step 1 K5 and
+    1 K6, per CV or forward batch 1 K4), no route warning and no plain mix
+    on the card, finite losses and weights, the archive checked (256
+    targets); the same steps from the same weights with the head's mix by
+    its plain version (the parent's route), for the step time beside; one
+    step with each launch held to its plain version (float32 and bf16) and
+    profiled on both routes; bf16 nnet_forward with each launch held to
+    its plain version, and float32 log-posteriors against the plain
+    versions'."""
+    from lstm_ctc_tpu_torch.bin import nnet_forward, nnet_init, nnet_train
+    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
+    from lstm_ctc_tpu_torch.host import kaldi
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
+    from lstm_ctc_tpu_torch.train.graph import param_leaves
+    mk = pkg["moe_kernels"]
+    hdir = os.path.join(work, "wide_head")
+    os.makedirs(hdir)
+    targets = WIDE_HEAD_CONFIG["num_targets"]
+    if not mk.mix_eligible(2 * WIDE_HEAD_CONFIG["num_projects"], targets,
+                           torch.bfloat16):
+        fail("the kernels refuse a head of %d targets" % targets)
+    configs = {"bf16": WIDE_HEAD_CONFIG,
+               "f32": dict(WIDE_HEAD_CONFIG, compute_dtype="float32")}
+    paths = {}
+    for name, config in configs.items():
+        paths[name] = os.path.join(hdir, "nnet_%s.config" % name)
+        with open(paths[name], "w") as fh:
+            fh.write(format_config(config))
+    sub_scp, batcher = fold_subset(hdir, scp, WIDE_HEAD_CONFIG, WIDE_STEPS,
+                                   "head.scp")
+    steps = len(batcher.batch_plan(True, 777))
+    cv_batches = len(build_batcher(sub_scp, WIDE_HEAD_CONFIG, 32).batch_plan(
+        False, None))
+    common = ["--objective", "ctc", "--batch-size", "32", "--device",
+              "cuda", "--report-interval", "0"]
+    result = {"launches": counts()}
+
+    def counted(what, fn, want, parent=False):
+        """counted_entry with no plain mix on the card; on the parent's
+        route (which runs it) the launches are not added."""
+        if parent:
+            return counted_entry(torch, pkg, what, fn, want,
+                                 lambda seen: plain_head())
+        return counted_entry(
+            torch, pkg, what, fn, want,
+            lambda seen: plain_on_card(mk, "moe_mix_reference", seen),
+            result["launches"])
+
+    nnets = [os.path.join(hdir, "nnet%d.npz" % i) for i in range(3)]
+    tee, _ = counted("nnet_init", lambda: nnet_init.main(
+        [sub_scp, paths["bf16"], nnets[0]] + common), counts(
+            lstm_fwd=4 * cv_batches, moe_fwd=cv_batches,
+            ctc_alpha=cv_batches))
+    losses = [tee.value("cv_loss")]
+    layers = counts(lstm_fwd=4 * steps, lstm_bwd=4 * steps, ctc_alpha=steps,
+                    ctc_beta=steps)
+    stats = {}
+    for name, parent, out, want in (
+            ("kernels", False, nnets[1],
+             dict(layers, moe_fwd_stash=steps, moe_bwd=steps)),
+            ("plain", True, nnets[2], layers)):
+        metrics_file = os.path.join(hdir, "metrics_%s.jsonl" % name)
+        tee, _ = counted(
+            "nnet_train" + (" with the plain mix (the parent's route)"
+                            if parent else ""),
+            lambda: nnet_train.main(
+                [sub_scp, paths["bf16"], nnets[0], out, "--metrics-file",
+                 metrics_file, "--optimizer", "adam", "--learn-rate", "1e-3",
+                 "--pack-factor", "3"] + common), want, parent)
+        losses.append(tee.value("tr_loss"))
+        with open(metrics_file) as fh:
+            stats[name] = step_stats([json.loads(ln) for ln in fh], batcher)
+    result.update(stats["kernels"])
+    result["plain_step_ms"] = stats["plain"]["step_ms"]
+    result["plain_fps"] = stats["plain"]["fps"]
+    # one packed step from the trained weights: each launch on the step's
+    # own tensors against its plain version (float32; bf16: the head's K5
+    # and K6 and the CTC's K10 and K11), then profiled beside the same
+    # step with the plain mix (device kernels' ms)
+    result["device_ms"], result["plain_device_ms"] = check_steps(
+        torch, pkg, device, WIDE_HEAD_CONFIG, nnets[1], batcher,
+        result["step_ms"], parent=(plain_head, result["plain_step_ms"]),
+        held_bf16=("ctc_alpha", "ctc_beta", "moe_fwd_stash", "moe_bwd"))
+    template, state = init_from_config(WIDE_HEAD_CONFIG, device)
+    for path in nnets:
+        params, _, _ = load_checkpoint(path, template, state)
+        if not all(torch.isfinite(p).all() for p in param_leaves(params)):
+            fail("%s holds non-finite weights" % path)
+    if not all(math.isfinite(v) for v in losses):
+        fail("non-finite losses with the 256-target head: %s" % losses)
+    say("  cv_loss %.4f, tr_loss %.4f (the plain mix from the same weights "
+        "%.4f; %d steps, %d utterances, pack factor 3, keep 0.9, bf16) on "
+        "%s: median train step %.1f ms, %.1f real frames/s (packing fill "
+        "%.3f); with the plain mix (the parent's route) %.1f ms, %.1f real "
+        "frames/s" % (tuple(losses) + (
+            steps, len(batcher._lengths), SMI, result["step_ms"],
+            result["fps"], result["fill"], result["plain_step_ms"],
+            result["plain_fps"])))
+
+    # serving: 64 utterances, bf16, as a user runs it
+    scp64, raw_lengths = write_corpus(pkg, hdir, rng)
+    fwd_batches = len(build_batcher(scp64, WIDE_HEAD_CONFIG, 32).batch_plan(
+        False, None))
+    ark = os.path.join(hdir, "post.ark")
+    _, seconds = counted("nnet_forward", lambda: nnet_forward.main(
+        [scp64, paths["bf16"], nnets[1], "ark:" + ark, "--device", "cuda",
+         "--batch-size", "32"]), counts(lstm_fwd=4 * fwd_batches,
+                                        moe_fwd=fwd_batches))
+    frames = check_posteriors(read_archive(kaldi, ark), raw_lengths,
+                              targets=targets)
+    result["forward_fps"] = frames / seconds
+    say("  nnet_forward: 64 utterances, %d frames of %d targets in %.2f s "
+        "(%.1f frames/s, checkpoint load included)"
+        % (frames, targets, seconds, result["forward_fps"]))
+    # bf16, the main path again: every launch against its plain version on
+    # the same tensors, as phase 5 holds the flagship's
+    worst = {"lstm_fwd": 0.0, "lstm_fwd_seq": 0.0, "moe_fwd": 0.0}
+    with held_to_plain(torch, pkg, torch.bfloat16, worst):
+        nnet_forward.main([scp64, paths["bf16"], nnets[1],
+                           "ark:" + os.path.join(hdir, "post_held.ark"),
+                           "--device", "cuda", "--batch-size", "32"])
+    say("  bfloat16 nnet_forward, each launch vs its plain version: K1 per "
+        "step max rel %.3e (bound %.0e); K4 max_abs %.3e (bound %.0e)"
+        % (worst["lstm_fwd"], BF16_STEP_REL_TOL, worst["moe_fwd"],
+           BF16_ABS_TOL))
+
+    # float32 through the kernels against the plain versions
+    ark32 = os.path.join(hdir, "post_f32.ark")
+    nnet_forward.main([scp64, paths["f32"], nnets[1], "ark:" + ark32,
+                       "--device", "cuda", "--batch-size", "32"])
+    params, _, _ = load_checkpoint(nnets[1], template, state)
+    ref32 = plain_logposts(torch, pkg, params, state, build_batcher(
+        scp64, configs["f32"], 32), configs["f32"], device)
+    worst32, mean32 = diff_stats(read_archive(kaldi, ark32), ref32)
+    say("  float32 kernels vs plain versions, log-posteriors over %d "
+        "targets: max_abs %.3e mean_abs %.3e (bounds %.0e, %.0e)"
+        % (targets, worst32, mean32, E2E_F32_MAX_TOL, E2E_F32_MEAN_TOL))
+    if mean32 > E2E_F32_MEAN_TOL or worst32 > E2E_F32_MAX_TOL:
+        fail("float32 log-posteriors of the 256-target head differ from the "
+             "plain versions by %.3e on average, %.3e at most"
+             % (mean32, worst32))
+    return result
+
+
 # --- phases 13 and 22: Kaldi's LSTMP widths through 16-block K12 and K13 ---
 
 # the lstm family at the cell and recurrent-projection widths of Kaldi's
@@ -4606,8 +4894,18 @@ def main() -> None:
     moe_res = {}
     for dtype in (torch.float32, torch.bfloat16):
         for keep_prob in (1.0, 0.9):
-            moe_res[(dtype, keep_prob)] = check_moe(torch, pkg, device, dtype,
-                                                    keep_prob, rng)
+            moe_res[(72, dtype, keep_prob)] = check_moe(
+                torch, pkg, device, dtype, keep_prob, rng)
+    # past 128 targets, from their own seed (the later phases' draws stay
+    # as they were)
+    wide_moe_rng = np.random.RandomState(23)
+    for v in WIDE_TARGETS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for keep_prob in (1.0, 0.9):
+                moe_res[(v, dtype, keep_prob)] = check_moe(
+                    torch, pkg, device, dtype, keep_prob, wide_moe_rng, v,
+                    WIDE_ROWS.get(v, 12288), rounds=3)
+        torch.cuda.empty_cache()
     phase("phase 5 serving end to end (nnet_forward, flagship model, cuda)")
     e2e = end_to_end(torch, pkg, device, rng)
     phase("phase 6 K10/K11 (CTC alpha and beta DP), and the routes of "
@@ -4631,6 +4929,12 @@ def main() -> None:
         train = train_end_to_end(torch, pkg, device, work, scp)
         phase("phase 9 K5/K6/K8/K9 (MoE head training kernels)")
         moe_train = check_moe_training(torch, pkg, device, rng)
+        moe_train_wide = {}
+        for v in WIDE_TARGETS:
+            moe_train_wide[v] = check_moe_training(
+                torch, pkg, device, wide_moe_rng, v,
+                WIDE_ROWS.get(v, MOE_TRAIN_ROWS))
+            torch.cuda.empty_cache()
         phase("phase 10 MoE training end to end (nnet_train_loop, flagship "
             "MoE model, cuda)")
         moe_loop = train_moe_end_to_end(torch, pkg, device, work, scp)
@@ -4691,6 +4995,11 @@ def main() -> None:
               "16-block K12 and K13; cudnnlstm H=P=512, cuda)")
         wide_lstm = wide_lstm_end_to_end(torch, pkg, device, work, scp,
                                          stack_rng)
+        phase("phase 23 a 256-target head end to end (the flagship MoE "
+              "model over 256 targets; nnet_init / nnet_train / "
+              "nnet_forward on K4, K5 and K6 V-tiled, bf16, cuda)")
+        wide_head = wide_head_end_to_end(torch, pkg, device, work, scp,
+                                         wide_moe_rng)
 
     bad = reference_files()
     if "jax" in sys.modules or bad:
@@ -4699,7 +5008,7 @@ def main() -> None:
 
     launches = dict(train["launches"])
     for run in (e2e, moe_loop, serve, families, folds, recipe, dp_run, wide,
-                wide_lstm):
+                wide_lstm, wide_head):
         for k, v in run["launches"].items():
             launches[k] += v
     for k, v in wide_lstm["cudnn_launches"].items():
@@ -4708,13 +5017,10 @@ def main() -> None:
         if launches[name] == 0:
             fail("%s was never launched on the main paths" % name)
     a_err, a_ms, a_plain = lstm[(torch.bfloat16, False)]
-    b_err, b_ms, b_plain = moe_res[(torch.bfloat16, 1.0)]
+    k4 = moe_res[(72, torch.bfloat16, 1.0)]
     # K1: gx read and out written once (f32) at B=32, T=384, H=P=320
     k1_bytes = 384 * 64 * (4 * 320 + 320) * 4
     k1_flops = 2 * 384 * 64 * 320 * (4 * 320 + 320)
-    # K4: 2·N·D·E·V at N=12288, D=640, E=V=72; x, out and W (bf16) once
-    k4_flops = 2 * 12288 * 640 * 72 * 72
-    k4_bytes = 12288 * 640 * 4 + 12288 * 72 * 4 + 640 * 72 * 72 * 2
     k2 = bwd[(torch.bfloat16, True)]
     kernels = [
         {"name": "lstm_fwd", "route": "cuda",
@@ -4728,11 +5034,9 @@ def main() -> None:
         {"name": "moe_fwd", "route": "cuda",
          "source": "lstm_ctc_tpu_torch/csrc/moe_fwd.cu",
          "replaces": "lstm_ctc_tpu/ops/moe_pallas.py:212",
-         "launches": launches["moe_fwd"], "max_abs_err": b_err,
-         "ms": b_ms, "plain_ms": b_plain,
-         "bound_ms": max(k4_bytes / HBM_BYTES_PER_MS,
-                         k4_flops / BF16_FLOPS_PER_MS),
-         "bound_by": "operations", "library_ms": None},
+         "launches": launches["moe_fwd"], "library_ms": None,
+         **{k: k4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by")}},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "lstm_ctc_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "lstm_ctc_tpu/ops/lstm_pallas.py:134",
@@ -4751,7 +5055,8 @@ def main() -> None:
              "source": "lstm_ctc_tpu_torch/csrc/" + source,
              "replaces": "lstm_ctc_tpu/ops/moe_pallas.py:%d" % line,
              "launches": launches[name], "library_ms": None},
-            **moe_train[(name, torch.bfloat16)]))
+            **{k: moe_train[(name, torch.bfloat16)][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
     for name, line in (("ctc_alpha", 46), ("ctc_beta", 78)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -4827,6 +5132,23 @@ def main() -> None:
                  "library_ms": lib},
                 **{k: res[key][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by")}))
+    # K4, K5 and K6 V-tiled: bf16 at V = 256 (K4 N=12288 keep 1.0, K5 and
+    # K6 N=14336 keep 0.9), launches from phase 23's runs; cuBLAS's bare
+    # product is not their function (printed, not the library's time)
+    for name, line, res in (
+            ("moe_fwd", 212, moe_res[(256, torch.bfloat16, 1.0)]),
+            ("moe_fwd_stash", 217, moe_train_wide[256][
+                ("moe_fwd_stash", torch.bfloat16)]),
+            ("moe_bwd", 271, moe_train_wide[256][("moe_bwd",
+                                                  torch.bfloat16)])):
+        kernels.append(dict(
+            {"name": name + "_v256", "route": "cuda",
+             "source": "lstm_ctc_tpu_torch/csrc/%s.cu"
+             % ("moe_bwd" if name == "moe_bwd" else "moe_fwd"),
+             "replaces": "lstm_ctc_tpu/ops/moe_pallas.py:%d" % line,
+             "launches": wide_head["launches"][name], "library_ms": None},
+            **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}))
     two_ms, default_ms = moe_train[("twokernel", torch.bfloat16)]
     say("summary on %s: nnet_forward %.1f frames/s (64 utterances, model "
         "init and checkpoint load included); flagship forward B=32 T=384 "
@@ -4946,6 +5268,27 @@ def main() -> None:
            session["chunk_ms"], CHUNK_ROWS, session["rtf"],
            session["route_chunk_ms"], session["route_rtf"],
            wide_lstm["stream_chunk_ms"], wide_lstm["cudnn_forward_fps"]))
+    head_rows = []
+    for v in WIDE_TARGETS:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed = [moe_res[(v, dtype, 1.0)]] + [
+                moe_train_wide[v][(k, dtype)] for k in ("moe_fwd_stash",
+                                                        "moe_bwd")]
+            head_rows.append("V=%d %s: K4 %s, K5 %s, K6 %s" % ((
+                v, str(dtype).split(".")[-1]) + tuple(
+                    "%.3f vs %.3f" % (r["ms"], r["plain_ms"])
+                    for r in timed)))
+    say("summary of the head past 128 targets on %s (D=640, 72 experts; "
+        "K4 N=12288 keep 1.0, K5 and K6 N=14336 keep 0.9; V=4096 N=1100), "
+        "kernel vs plain ms: %s; the 256-target flagship's train step (B=32 "
+        "rows of 448 frames, pack 3, bf16), median %.1f ms, %.1f real "
+        "frames/s, one profiled step's device kernels %.1f ms (with the "
+        "plain mix, the parent's route: %.1f ms, %.1f, device %.1f ms); "
+        "nnet_forward %.1f frames/s"
+        % (smi, "; ".join(head_rows), wide_head["step_ms"], wide_head["fps"],
+           wide_head["device_ms"], wide_head["plain_step_ms"],
+           wide_head["plain_fps"], wide_head["plain_device_ms"],
+           wide_head["forward_fps"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -4968,7 +5311,13 @@ def main() -> None:
         + [wide_lstm[k] for k in ("step_ms", "fps", "route_step_ms",
                                   "route_fps", "forward_fps",
                                   "route_forward_fps", "stream_chunk_ms",
-                                  "cudnn_forward_fps")]
+                                  "cudnn_forward_fps")] \
+        + [res[k] for res in list(moe_res.values()) + [
+            r for run in moe_train_wide.values() for key, r in run.items()
+            if key[0] != "twokernel"] for k in ("ms", "plain_ms", "bound_ms")] \
+        + [wide_head[k] for k in ("step_ms", "fps", "plain_step_ms",
+                                  "plain_fps", "forward_fps", "device_ms",
+                                  "plain_device_ms")]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

@@ -41,6 +41,16 @@
 // (ops/moe_kernels.py bwd_pack: per slice and chunk, Wᵀ as [4 NI][64],
 // swizzled; W is [D, E·V], already K-major for this product).
 //
+// gout: up to V = 128 the block holds its rows' [64][V] tile (32 KB at
+// most), read once.  Past it (K6 only, up to V = 4096: every V whose lcm
+// with 128 is at most 4096, as the reference's fused kernels take) a
+// thread's 16 columns of chunk c need gout[n, k mod V] (one or two expert
+// segments), which each thread copies by cp.async a chunk ahead into its
+// own places of one of two gout slots (16 KB each, in the same 32 KB); the
+// order of every sum is the same either way.  (Staging at every V ran K6
+// slower at V = 72 on the H100 than the tile, so the tile stays where it
+// fits.)
+//
 // The ring: two W stages of [4 NI][64] (80 KB each at NI = 160) and two dz
 // slots.  full[c % 2] completes by the bytes of chunk c's copy; after the
 // products of chunk c complete (wgmma.wait_group 0), every warp arrives on
@@ -77,7 +87,8 @@
 // over the tiles (wg_product.cuh's group_sum order).
 //
 // float32: the FMA tile product of tile_product.cuh (no TF32), one block a
-// (row tile, 128 columns of D) looping over the experts (moe_bwd_kernel).
+// (row tile, 128 columns of D) looping over the experts and, past V = 128,
+// over K-chunks of 128 of each expert (moe_bwd_kernel).
 
 #include "tile_product.cuh"
 #include "wgmma.cuh"
@@ -88,7 +99,7 @@ constexpr int kSlice = 128;     // columns of D per block (the product's N)
 constexpr int kRowLanes = 16;   // threads per row in the dz stage
 
 struct BwdLayout {
-  Layout l;               // product: K = V, N = kSlice
+  Layout l;               // product: K = a chunk of V (at most kMaxV), N = kSlice
   size_t dz_elems, w_elems, buf_bytes;
 };
 
@@ -96,7 +107,7 @@ constexpr int kRows = Tile<float>::kRows;  // rows of a block
 
 __host__ __device__ BwdLayout bwd_layout(int v) {
   BwdLayout b;
-  b.l = layout<float>(v, kSlice);
+  b.l = layout<float>(min(v, kMaxV), kSlice);
   b.dz_elems = (size_t)kRows * b.l.ldx;   // dz tile [NB][ldx]
   b.w_elems = (size_t)b.l.dp * b.l.ldw;   // W_eᵀ slice [vp16][ldw]
   b.buf_bytes = sizeof(float) * (b.dz_elems + b.w_elems);
@@ -110,6 +121,11 @@ size_t bwd_smem(int v) {
 }
 
 // The float32 path: the FMA tile product of tile_product.cuh (no TF32).
+// Each expert's product of depth K = V runs in K-chunks of at most 128
+// columns (the W_eᵀ slice [K][128 + pad] of a chunk fits beside its dz
+// tile); a lane's dgate sum runs over its columns of every chunk in order
+// and is reduced at the expert's end, so the order of every sum is that of
+// one unchunked product.
 template <bool kEmit>
 __global__ void __launch_bounds__(kThreads) moe_bwd_kernel(
     const float* __restrict__ th,    // [N, E·V]
@@ -135,51 +151,64 @@ __global__ void __launch_bounds__(kThreads) moe_bwd_kernel(
   const uint32_t seed = dropout ? (uint32_t)seed_dev[0] : 0u;
   const int rlane = threadIdx.x % kRowLanes, rsub = threadIdx.x / kRowLanes;
 
+  constexpr int kPasses = kRows / kRowsPerPass;
   Product<float>::Acc acc;
   acc.zero();
-  for (int e = 0; e < experts; ++e) {
-    float* dzs = reinterpret_cast<float*>(smem_raw + (e & 1) * bl.buf_bytes);
-    float* ws = dzs + bl.dz_elems;
-    // W_eᵀ for this slice: ws[c][j] = W[d0 + j, e·V + c], zero padded
-    for (int i = threadIdx.x; i < kSlice * l.dp; i += kThreads) {
-      const int j = i / l.dp, c = i - j * l.dp;
-      ws[c * l.ldw + j] = (c < v && d0 + j < d) ? w[(size_t)(d0 + j) * ev + e * v + c] : 0.0f;
-    }
-    // dz of the row tile for expert e, and dgate[:, e]
-    for (int r0 = 0; r0 < kRows; r0 += kRowsPerPass) {
-      const int r = r0 + rsub, nn = n0 + r;
-      const bool row_ok = nn < n;
-      const float g = row_ok ? gate[(size_t)nn * experts + e] : 0.0f;
-      float dg = 0.0f;
+  float dg[kPasses];  // each pass's row: the open expert's dgate sum of the lane
 #pragma unroll
-      for (int jc = 0; jc < kMaxV / kRowLanes; ++jc) {
-        const int c = rlane + kRowLanes * jc;
-        if (c < l.dp) {
-          float dz = 0.0f;
-          if (row_ok && c < v) {
-            const float t = th[(size_t)nn * ev + e * v + c];
-            const float q = gout[(size_t)nn * v + c];
-            float a = tau * t;
-            dz = g * q * (tau * (1.0f - t * t));
-            if (dropout) {
-              const float m = drop_factor((uint32_t)nn, (uint32_t)(e * v + c), seed,
-                                          keep_prob, inv_keep);
-              a *= m;
-              dz *= m;
+  for (int p = 0; p < kPasses; ++p) dg[p] = 0.0f;
+  int it = 0;  // the (expert, K-chunk) step: its buffers
+  for (int e = 0; e < experts; ++e) {
+    for (int k0 = 0; k0 < v; k0 += kMaxV, ++it) {
+      const int kc = min(kMaxV, v - k0), col = e * v + k0;
+      const bool last = k0 + kc == v;
+      float* dzs = reinterpret_cast<float*>(smem_raw + (it & 1) * bl.buf_bytes);
+      float* ws = dzs + bl.dz_elems;
+      // W_eᵀ's chunk for this slice: ws[c][j] = W[d0 + j, e·V + k0 + c], zero padded
+      for (int i = threadIdx.x; i < kSlice * l.dp; i += kThreads) {
+        const int j = i / l.dp, c = i - j * l.dp;
+        ws[c * l.ldw + j] = (c < kc && d0 + j < d) ? w[(size_t)(d0 + j) * ev + col + c] : 0.0f;
+      }
+      // dz of the row tile for the chunk of expert e, and at its end dgate[:, e]
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p) {
+        const int r = p * kRowsPerPass + rsub, nn = n0 + r;
+        const bool row_ok = nn < n;
+        const float g = row_ok ? gate[(size_t)nn * experts + e] : 0.0f;
+#pragma unroll
+        for (int jc = 0; jc < kMaxV / kRowLanes; ++jc) {
+          const int c = rlane + kRowLanes * jc;
+          if (c < l.dp) {
+            float dz = 0.0f;
+            if (row_ok && c < kc) {
+              const float t = th[(size_t)nn * ev + col + c];
+              const float q = gout[(size_t)nn * v + k0 + c];
+              float a = tau * t;
+              dz = g * q * (tau * (1.0f - t * t));
+              if (dropout) {
+                const float m = drop_factor((uint32_t)nn, (uint32_t)(col + c), seed,
+                                            keep_prob, inv_keep);
+                a *= m;
+                dz *= m;
+              }
+              dg[p] = fmaf(q, a, dg[p]);
             }
-            dg = fmaf(q, a, dg);
+            dzs[r * l.ldx + c] = dz;
+            if (kEmit && lead && row_ok && c < kc) dz_out[(size_t)nn * ev + col + c] = dz;
           }
-          dzs[r * l.ldx + c] = dz;
-          if (kEmit && lead && row_ok && c < v) dz_out[(size_t)nn * ev + e * v + c] = dz;
+        }
+        if (last) {
+          float sum = dg[p];
+#pragma unroll
+          for (int off = kRowLanes / 2; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          if (lead && row_ok && rlane == 0) dgate[(size_t)nn * experts + e] = sum;
+          dg[p] = 0.0f;
         }
       }
-#pragma unroll
-      for (int off = kRowLanes / 2; off > 0; off >>= 1)
-        dg += __shfl_xor_sync(0xffffffffu, dg, off);
-      if (lead && row_ok && rlane == 0) dgate[(size_t)nn * experts + e] = dg;
+      __syncthreads();
+      acc.product(dzs, ws, 0, l.dp, l);
     }
-    __syncthreads();
-    acc.product(dzs, ws, 0, l.dp, l);
   }
 
   __syncthreads();  // every warp is done with the buffers zs aliases
@@ -198,7 +227,7 @@ int launch_f32(int device, const void* th, const void* w, const void* gate, cons
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
+  if (v <= 0 || v > kMaxTargets || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
   if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
   if (cdiv(n, kRows) > 65535) return cudaErrorInvalidValue;
   const size_t smem = bwd_smem(v);
@@ -230,12 +259,15 @@ constexpr int kUnits = kPerLane / 8;           // in 16-byte units of bf16
 __host__ __device__ constexpr int bwd_ni(int d) { return d <= 256 ? 64 : 160; }
 
 constexpr int kWarpSums = 8 * 64;               // db: a chunk's column sums of 8 warps
+// gout of a chunk, a thread's 16 columns: [4 quads][256 threads][4] float32
+constexpr int kGoutSlotFloats = kWgThreads * kPerLane;
+static_assert(kSlots * kGoutSlotFloats >= kWgRows * kMaxV, "the gout tile of V <= 128 fits");
 
-// W stages, dz slots, the gout tile [64][V] float32, the barriers, with
-// `db` two chunks' warp sums; 1 KB of slack for alignment
-inline size_t bwd_wg_smem(int ni, int v, bool db) {
+// W stages, dz slots, two gout slots, the barriers, with `db` two chunks'
+// warp sums; 1 KB of slack for alignment
+inline size_t bwd_wg_smem(int ni, bool db) {
   return 1024 + (size_t)kSlots * (4 * ni * kSwRow + kDzSlot) +
-         (size_t)kWgRows * v * sizeof(float) + 2 * kSlots * sizeof(uint64_t) +
+         (size_t)kSlots * kGoutSlotFloats * sizeof(float) + 2 * kSlots * sizeof(uint64_t) +
          (db ? 2 * kWarpSums * sizeof(float) : 0);
 }
 
@@ -313,6 +345,37 @@ __device__ __forceinline__ void fetch_ahead(Ahead& a, const __nv_bfloat16* __res
   for (int i = 0; i < 3; ++i) a.g[i] = e0 + i < experts ? __ldg(row + e0 + i) : 0.0f;
 }
 
+// gout of a thread's columns k = kb .. kb + 15 of chunk c, gout[n, k mod V]
+// (zero, one or more expert segments), copied a chunk ahead of its use by
+// cp.async into the thread's own places of a gout slot, [quad][thread][4]
+// (quad j holds columns 4j .. 4j + 3), so no other thread reads them and no
+// barrier is needed: the thread waits for its own copies (cp.async.wait)
+// before dz_chunk reads them.  vec4 (V a multiple of 4, gout 16-byte
+// aligned): four 16-byte copies, none crossing an expert's end; else sixteen
+// of 4 bytes.  Nothing is copied past E·V or N; the caller commits.
+__device__ __forceinline__ void fetch_gout(float* slot, const float* __restrict__ gout,
+                                           const DzLane& st, int c, int kk, int v, bool vec4) {
+  const int kb = c * 64 + st.part * kPerLane;
+  if (!st.ok || kb >= kk) return;
+  const float* row = gout + (size_t)st.nn * v;
+  float* dst = slot + threadIdx.x * 4;
+  int col = kb % v;
+  if (vec4) {
+#pragma unroll
+    for (int j = 0; j < kPerLane / 4; ++j) {
+      if (kb + 4 * j < kk) cp_async16_fill(dst + j * kWgThreads * 4, row + col, 16);
+      col += 4;
+      if (col == v) col = 0;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      if (kb + i < kk) cp_async4_fill(dst + (i >> 2) * kWgThreads * 4 + (i & 3), row + col, 4);
+      if (++col == v) col = 0;
+    }
+  }
+}
+
 // A thread's walk over its columns of a chunk: the expert e of the next
 // column, its position vv in e's V columns and e's gate g, the sum of the
 // open segment, and the thread's first segment once one closed.
@@ -337,10 +400,12 @@ __device__ __forceinline__ void close_segment(Walk& w, float sum, float* dgate_r
 }
 
 // dz of 8 columns (any V, columns past E·V zero); kGate: also the dgate
-// sums (K6's body; K9's dz stage leaves them out)
-template <bool kGate>
+// sums (K6's body; K9's dz stage leaves them out).  gout from the row's
+// [V] tile (kTile) or as the unit's 8 values fetch_gout staged.
+template <bool kGate, bool kTile>
 __device__ __forceinline__ void dz_unit(const float (&t)[8], float (&dzf)[8], Walk& w, int k0,
-                                        int kk, const float* grow, const float* __restrict__ gate_row,
+                                        int kk, const float* grow, const float (&q8)[8],
+                                        const float* __restrict__ gate_row,
                                         float* __restrict__ dgate_row, int experts, int v,
                                         float tau, bool dropout, uint32_t hx, uint32_t thr,
                                         float inv_keep) {
@@ -348,7 +413,7 @@ __device__ __forceinline__ void dz_unit(const float (&t)[8], float (&dzf)[8], Wa
   for (int i = 0; i < 8; ++i) {
     float dz = 0.0f;
     if (k0 + i < kk) {
-      const float q = grow[w.vv];
+      const float q = kTile ? grow[w.vv] : q8[i];
       float a = tau * t[i];
       dz = w.g * q * (tau * (1.0f - t[i] * t[i]));
       if (dropout) {
@@ -372,9 +437,10 @@ __device__ __forceinline__ void dz_unit(const float (&t)[8], float (&dzf)[8], Wa
 // the same for V >= 8 and 8 columns inside E·V: at most one expert ends in
 // them, at column bnd - 1, so the columns take their gate and sum by select
 // and the code has no branch per column (the sums in the same order)
-template <bool kDrop, bool kGate>
+template <bool kDrop, bool kGate, bool kTile>
 __device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8], Walk& w,
-                                             const float* grow, const float (&gates)[3], int e0,
+                                             const float* grow, const float (&q8)[8],
+                                             const float (&gates)[3], int e0,
                                              float* __restrict__ dgate_row, int v, float tau,
                                              uint32_t hx, uint32_t thr, float inv_keep) {
   const int bnd = v - w.vv;
@@ -384,7 +450,7 @@ __device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const bool next = i >= bnd;
-    const float q = grow[next ? w.vv + i - v : w.vv + i];
+    const float q = kTile ? grow[next ? w.vv + i - v : w.vv + i] : q8[i];
     float a = tau * t[i];
     float dz = (next ? gn : w.g) * q * (tau * (1.0f - t[i] * t[i]));
     if (kDrop) {
@@ -417,10 +483,10 @@ __device__ __forceinline__ void dz_unit_wide(const float (&t)[8], float (&dzf)[8
 // the previous chunk.  The order of every sum is fixed.  Without kGate
 // (K9's dz stage) there is no slot and no dgate: dz and db's warp sums
 // only, their bits those of K6's body.
-template <bool kEmit, bool kDb, bool kGate = true>
+template <bool kEmit, bool kDb, bool kGate, bool kTile>
 __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st, const Ahead& ah,
                                          const __nv_bfloat16* __restrict__ th,
-                                         const float* __restrict__ gate, const float* gs,
+                                         const float* __restrict__ gate, const float* gq,
                                          float* __restrict__ dgate,
                                          __nv_bfloat16* __restrict__ dz_out, int ldz,
                                          float* wsum, int experts, int v, float tau,
@@ -447,7 +513,10 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
     w.g = ah.g[0];
   }
   const __nv_bfloat16* trow = th + (size_t)st.nn * kk;
-  const float* grow = gs + st.row * v;
+  // gout: the row of the [64][V] tile (kTile), or this thread's places of
+  // the chunk's gout slot (fetch_gout)
+  const float* grow = gq + st.row * v;
+  const float* qs = gq + threadIdx.x * 4;
 #pragma unroll
   for (int u = 0; u < kUnits; ++u) {
     const int k0 = kb + 8 * u;
@@ -456,7 +525,13 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
     float dzf[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     const bool unit = live && k0 < kk;
     if (unit) {
-      float t[8];
+      float t[8], q8[8];
+      if (!kTile) {
+        const float4 qa = *reinterpret_cast<const float4*>(qs + 2 * u * kWgThreads * 4);
+        const float4 qb = *reinterpret_cast<const float4*>(qs + (2 * u + 1) * kWgThreads * 4);
+        q8[0] = qa.x; q8[1] = qa.y; q8[2] = qa.z; q8[3] = qa.w;
+        q8[4] = qb.x; q8[5] = qb.y; q8[6] = qb.z; q8[7] = qb.w;
+      }
       if (vec) {
         const uint32_t* rw = &ah.th[u].x;
 #pragma unroll
@@ -470,14 +545,14 @@ __device__ __forceinline__ void dz_chunk(int c, unsigned char* slot, DzLane& st,
         for (int i = 0; i < 8; ++i) t[i] = k0 + i < kk ? __bfloat162float(trow[k0 + i]) : 0.0f;
       }
       if (wide && dropout)
-        dz_unit_wide<true, kGate>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr,
-                                  inv_keep);
+        dz_unit_wide<true, kGate, kTile>(t, dzf, w, grow, q8, ah.g, e0, dgate_row, v, tau, hx,
+                                         thr, inv_keep);
       else if (wide)
-        dz_unit_wide<false, kGate>(t, dzf, w, grow, ah.g, e0, dgate_row, v, tau, hx, thr,
-                                   inv_keep);
+        dz_unit_wide<false, kGate, kTile>(t, dzf, w, grow, q8, ah.g, e0, dgate_row, v, tau, hx,
+                                          thr, inv_keep);
       else
-        dz_unit<kGate>(t, dzf, w, k0, kk, grow, gate_row, dgate_row, experts, v, tau, dropout, hx,
-                       thr, inv_keep);
+        dz_unit<kGate, kTile>(t, dzf, w, k0, kk, grow, q8, gate_row, dgate_row, experts, v, tau,
+                              dropout, hx, thr, inv_keep);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const __nv_bfloat162 h = __floats2bfloat162_rn(dzf[2 * i], dzf[2 * i + 1]);
@@ -561,8 +636,10 @@ __device__ __forceinline__ void store_dx(const float (&acc)[NI / 2], float* __re
 // accumulators (160 registers a thread at NI = 160, which is why the block
 // has no third warpgroup: 256 threads may use 255 registers each).  Thread
 // 0 keeps the W ring full: chunk c + 2 goes into stage c % 2 once both
-// blocks' warps released chunk c.
-template <int NI, bool kEmit, bool kDb>
+// blocks' warps released chunk c.  gout: with kTile (V <= 128) the block's
+// [64][V] tile, read once; else each thread's columns copied a chunk ahead
+// (fetch_gout) into two slots of the same 32 KB.
+template <int NI, bool kEmit, bool kDb, bool kTile>
 __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
     const __nv_bfloat16* __restrict__ th,  // [N, E·V]
     const __nv_bfloat16* __restrict__ wp,  // [slices][chunks][4 NI][64], swizzled
@@ -580,8 +657,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ws = align1024(smem_raw);
   unsigned char* dzs = ws + kSlots * kStage;
-  float* gs = reinterpret_cast<float*>(dzs + kSlots * kDzSlot);
-  uint64_t* full = reinterpret_cast<uint64_t*>(gs + kWgRows * v);
+  // gout: [64][V] (kTile) or [2][kGoutSlotFloats]
+  float* gq = reinterpret_cast<float*>(dzs + kSlots * kDzSlot);
+  uint64_t* full = reinterpret_cast<uint64_t*>(gq + kSlots * kGoutSlotFloats);
   uint64_t* empty = full + kSlots;
   float* wsums = reinterpret_cast<float*>(empty + kSlots);  // [2][8 warps][64]
   const int kk = experts * v, chunks = cdiv(kk, 64);
@@ -598,8 +676,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
     }
     mbar_init_fence();
   }
-  for (int i = tid; i < kWgRows * v; i += kWgThreads)
-    gs[i] = n0 + i / v < n ? gout[(size_t)n0 * v + i] : 0.0f;
+  if (kTile)
+    for (int i = tid; i < kWgRows * v; i += kWgThreads)
+      gq[i] = n0 + i / v < n ? gout[(size_t)n0 * v + i] : 0.0f;
   __syncthreads();
 
   // chunk c of W into stage c % 2
@@ -625,6 +704,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
   st.run = 0.0f;
   Ahead ahead;
   fetch_ahead(ahead, th, gate, st, 0, experts, v);
+  const bool gvec = (v & 3) == 0 && (reinterpret_cast<uintptr_t>(gout) & 15) == 0;
+  if (!kTile) {
+    fetch_gout(gq, gout, st, 0, kk, v, gvec);
+    cp_async_commit();
+  }
 
   const int g = tid / 128, wq = warp & 3;
   float acc0[kRegs], acc1[kRegs];
@@ -656,11 +740,22 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
     }
     if (c + 1 < chunks) {
       // slot (c + 1) % 2 was read by chunk c - 1, done before the last
-      // barrier; so were the warp sums of chunk c - 1
-      dz_chunk<kEmit, kDb>(c + 1, dzs + ((c + 1) & 1) * kDzSlot, st, ahead, th, gate, gs, dgate,
-                           dz_out, ldz, db ? wsums + ((c + 1) & 1) * kWarpSums : nullptr,
-                           experts, v, tau, dropout, thr, inv_keep);
-      if (c + 2 < chunks) fetch_ahead(ahead, th, gate, st, c + 2, experts, v);
+      // barrier; so were the warp sums of chunk c - 1.  Staged gout: the
+      // thread's copies of chunk c + 1 (the only ones in flight) land first.
+      if (!kTile) cp_async_wait_all();
+      dz_chunk<kEmit, kDb, true, kTile>(
+          c + 1, dzs + ((c + 1) & 1) * kDzSlot, st, ahead, th, gate,
+          kTile ? gq : gq + ((c + 1) & 1) * kGoutSlotFloats, dgate, dz_out, ldz,
+          db ? wsums + ((c + 1) & 1) * kWarpSums : nullptr, experts, v, tau, dropout, thr,
+          inv_keep);
+      if (c + 2 < chunks) {
+        fetch_ahead(ahead, th, gate, st, c + 2, experts, v);
+        if (!kTile) {
+          // into the slot chunk c read, in this thread's last dz stage
+          fetch_gout(gq + (c & 1) * kGoutSlotFloats, gout, st, c + 2, kk, v, gvec);
+          cp_async_commit();
+        }
+      }
     }
     if (c >= 0) {
       wg_wait<0>();
@@ -683,13 +778,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) moe_bwd_wgmma(
   store_dx<NI>(acc1, dx, n0, r0, cb, col0 + NI, n, d);
 }
 
-template <int NI, bool kEmit, bool kDb>
+template <int NI, bool kEmit, bool kDb, bool kTile>
 cudaError_t launch_bwd_wgmma(const void* th, const void* wp, const void* gate, const void* gout,
                              const void* seed, int n, int d, int experts, int v, float tau,
                              float keep_prob, void* dx, void* dgate, void* dz, int ldz,
                              float* db_part, cudaStream_t stream) {
-  const size_t smem = bwd_wg_smem(NI, v, kDb);
-  auto kernel = moe_bwd_wgmma<NI, kEmit, kDb>;
+  const size_t smem = bwd_wg_smem(NI, kDb);
+  auto kernel = moe_bwd_wgmma<NI, kEmit, kDb, kTile>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(n, kWgRows), cdiv(d, 4 * NI));
@@ -706,22 +801,24 @@ int launch_bf16(int device, const void* th, const void* wp, const void* gate, co
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
+  // K6 takes V up to 4096 (past 128 with gout staged a chunk at a time);
+  // K8 (no dz: the twokernel backward, whose K9 takes V <= 128) V <= 128
+  if (v <= 0 || v > (dz != nullptr ? kMaxTargets : kMaxV) || d <= 0 || experts <= 0)
+    return cudaErrorInvalidValue;
   if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int kk = experts * v;
-  if (bwd_ni(d) == 64)
-    return dz != nullptr
-               ? launch_bwd_wgmma<64, true, false>(th, wp, gate, gout, seed, n, d, experts, v,
-                                                   tau, keep_prob, dx, dgate, dz, kk, nullptr, s)
-               : launch_bwd_wgmma<64, false, false>(th, wp, gate, gout, seed, n, d, experts, v,
-                                                    tau, keep_prob, dx, dgate, dz, kk, nullptr,
-                                                    s);
-  return dz != nullptr
-             ? launch_bwd_wgmma<160, true, false>(th, wp, gate, gout, seed, n, d, experts, v, tau,
-                                                  keep_prob, dx, dgate, dz, kk, nullptr, s)
-             : launch_bwd_wgmma<160, false, false>(th, wp, gate, gout, seed, n, d, experts, v,
-                                                   tau, keep_prob, dx, dgate, dz, kk, nullptr, s);
+  const bool tile = v <= kMaxV;
+#define MOE_BWD_LAUNCH(NI, EMIT, TILE)                                                       \
+  launch_bwd_wgmma<NI, EMIT, false, TILE>(th, wp, gate, gout, seed, n, d, experts, v, tau,   \
+                                          keep_prob, dx, dgate, dz, kk, nullptr, s)
+  if (bwd_ni(d) == 64) {
+    if (dz == nullptr) return MOE_BWD_LAUNCH(64, false, true);
+    return tile ? MOE_BWD_LAUNCH(64, true, true) : MOE_BWD_LAUNCH(64, true, false);
+  }
+  if (dz == nullptr) return MOE_BWD_LAUNCH(160, false, true);
+  return tile ? MOE_BWD_LAUNCH(160, true, true) : MOE_BWD_LAUNCH(160, true, false);
+#undef MOE_BWD_LAUNCH
 }
 
 // K9's first stage (moe_wgrad.cu): K6's dz units alone, with no dx product
@@ -773,8 +870,8 @@ __global__ void __launch_bounds__(kWgThreads) moe_dz_db_kernel(
     // chunk c - 2's sums, the last readers of this buffer, were added
     // before the last barrier
     float* w = wsums + (c & 1) * kWarpSums;
-    dz_chunk<true, true, false>(c, nullptr, st, ahead, th, gate, gs, nullptr, dz_out, ldz, w,
-                                experts, v, tau, dropout, thr, inv_keep);
+    dz_chunk<true, true, false, true>(c, nullptr, st, ahead, th, gate, gs, nullptr, dz_out, ldz,
+                                      w, experts, v, tau, dropout, thr, inv_keep);
     __syncthreads();
     if (tid < 64 && c * 64 + tid < kk)
       db_part[(size_t)blockIdx.x * kk + c * 64 + tid] = db_tile_sum(w, tid);
@@ -809,10 +906,10 @@ extern "C" int moe_bwd_dz_db_bf16(MOE_BWD_ARGS, int ldz, float* db_part) {
   if (keep_prob < 1.0f && seed == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (bwd_ni(d) == 64)
-    return launch_bwd_wgmma<64, true, true>(th, w, gate, gout, seed, n, d, experts, v, tau,
-                                            keep_prob, dx, dgate, dz, ldz, db_part, s);
-  return launch_bwd_wgmma<160, true, true>(th, w, gate, gout, seed, n, d, experts, v, tau,
-                                           keep_prob, dx, dgate, dz, ldz, db_part, s);
+    return launch_bwd_wgmma<64, true, true, true>(th, w, gate, gout, seed, n, d, experts, v,
+                                                  tau, keep_prob, dx, dgate, dz, ldz, db_part, s);
+  return launch_bwd_wgmma<160, true, true, true>(th, w, gate, gout, seed, n, d, experts, v, tau,
+                                                 keep_prob, dx, dgate, dz, ldz, db_part, s);
 }
 
 // K9's first stage: dz in bf16 rows ldz apart (a multiple of 8, at least

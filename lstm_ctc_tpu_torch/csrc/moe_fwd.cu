@@ -56,9 +56,19 @@
 // While one warpgroup's epilogue runs, the others' products run.  K5
 // stores th as bf16 pairs from the registers.
 //
-// The grid: one block a 64-row tile, one block an SM (~180-220 KB of
-// shared memory); 192 blocks at N = 12288, 224 at N = 14336 on 132 SMs run
-// in two waves, the second 45% or 70% full.  Splitting the experts of a
+// V past 128 (every V whose lcm with 128 is at most 4096, as the
+// reference's fused kernels take): an expert's columns are cut into
+// V-tiles of 128, the rest padded to the first compiled width that holds
+// it (16, 32, 64, 72 or 128), and the V-tile is a grid dimension beside the
+// row tile: a block mixes all E experts for its own columns only, since
+// out[n, v] reads W's columns v of each expert and nothing else, so no
+// block needs another's sums.  The x tile is read once a V-tile; the ring,
+// the epilogue and the hash at global (n, e·V + v) are as above.  The tiles
+// of 128 are one launch and the rest, if any, a second (its own NP).
+//
+// The grid: one block a 64-row tile (and V-tile), one block an SM
+// (~180-220 KB of shared memory); 192 blocks at N = 12288, 224 at N =
+// 14336 on 132 SMs run in two waves, the second 45% or 70% full.  Splitting the experts of a
 // tile across blocks would even the waves but needs a second pass to sum
 // the mixes; not done.  Clusters of two blocks sharing each W stage by
 // multicast halve W's L2 traffic and were measured no faster (the kernel
@@ -69,7 +79,8 @@
 // warpgroups' mixes in warpgroup order; no atomics.
 //
 // float32: the FMA tile product of tile_product.cuh (no TF32), one block a
-// tile of 32 rows looping over the experts (moe_fwd_kernel).
+// tile of 32 rows and a V-tile of at most 128 columns, looping over the
+// experts (moe_fwd_kernel).
 
 #include "tile_product.cuh"
 #include "wgmma.cuh"
@@ -96,19 +107,19 @@ __host__ __device__ FwdLayout fwd_layout(int d, int v) {
   return f;
 }
 
-// One chunk of W_e (rows k0 .. k0 + 64, columns e·V .. e·V + V, zero
-// padded to vp) held in registers as 16-byte vectors between its load and
-// its store to shared memory.  Used when a row segment of W_e is a whole
-// number of 16-byte vectors (V % 4 == 0).
+// One chunk of a V-tile of W_e (rows k0 .. k0 + 64, the vt columns from
+// column col = e·V + v0, zero padded to vp) held in registers as 16-byte
+// vectors between its load and its store to shared memory.  Used when a
+// row segment of W_e is a whole number of 16-byte vectors (V % 4 == 0).
 struct ChunkRegs {
   static constexpr int kVecs = kChunk * (kMaxV / 4) / kThreads;
   uint4 reg[kVecs];
 
-  __device__ void load(const float* __restrict__ w, int k0, int d, int ev, int e, int v,
+  __device__ void load(const float* __restrict__ w, int k0, int d, int ev, int col, int vt,
                        const Layout& l) {
     const int per_row = l.vp / 4;
-    const int valid = v / 4;
-    const uint4* base = reinterpret_cast<const uint4*>(w + (size_t)e * v);
+    const int valid = vt / 4;
+    const uint4* base = reinterpret_cast<const uint4*>(w + col);
     const int row_vecs = ev / 4;
 #pragma unroll
     for (int j = 0; j < kVecs; ++j) {
@@ -134,15 +145,18 @@ struct ChunkRegs {
 
 // The same chunk staged element by element (any V).
 __device__ void stage_scalar(float* ws, const float* __restrict__ w, int k0, int d, int ev,
-                             int e, int v, const Layout& l) {
+                             int col, int vt, const Layout& l) {
   for (int i = threadIdx.x; i < kChunk * l.vp; i += kThreads) {
     const int kk = i / l.vp, c = i - kk * l.vp;
     const int k = k0 + kk;
-    ws[kk * l.ldw + c] = (k < d && c < v) ? w[(size_t)k * ev + e * v + c] : 0.0f;
+    ws[kk * l.ldw + c] = (k < d && c < vt) ? w[(size_t)k * ev + col + c] : 0.0f;
   }
 }
 
-// The float32 path: the FMA tile product of tile_product.cuh (no TF32).
+// The float32 path: the FMA tile product of tile_product.cuh (no TF32).  A
+// block owns 32 rows and one V-tile of at most 128 columns (the tile
+// product's widest N), columns v0 = 128 blockIdx.y .. of every expert: the
+// mix of its columns needs no other block's.
 template <bool kStash>
 __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
     const float* __restrict__ x,     // [N, D]
@@ -157,7 +171,8 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
   constexpr int kPerRow = kThreads / kRows;  // threads per output row
   constexpr int kCols = kMaxV / kPerRow;     // output columns per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const FwdLayout f = fwd_layout(d, v);
+  const int v0 = blockIdx.y * kMaxV, vt = min(kMaxV, v - v0);
+  const FwdLayout f = fwd_layout(d, vt);
   const Layout& l = f.l;
   float* xs = reinterpret_cast<float*>(smem_raw);                // [NB][ldx]
   float* ws = reinterpret_cast<float*>(smem_raw + f.x_bytes);    // 2 x [64][ldw]
@@ -186,18 +201,19 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
   ChunkRegs next;
   const int chunks = (l.dp + kChunk - 1) / kChunk;
   const int total = experts * chunks;
-  if (vec) next.load(w, 0, d, ev, 0, v, l);
+  if (vec) next.load(w, 0, d, ev, v0, vt, l);
   for (int it = 0; it < total; ++it) {
     const int e = it / chunks, k0 = (it - e * chunks) * kChunk;
+    const int col = e * v + v0;  // the tile's first column of expert e
     float* buf = ws + (it & 1) * f.w_elems;
     if (vec)
       next.store(buf, l);
     else
-      stage_scalar(buf, w, k0, d, ev, e, v, l);
+      stage_scalar(buf, w, k0, d, ev, col, vt, l);
     __syncthreads();
     if (vec && it + 1 < total) {
       const int e2 = (it + 1) / chunks;
-      next.load(w, (it + 1 - e2 * chunks) * kChunk, d, ev, e2, v, l);
+      next.load(w, (it + 1 - e2 * chunks) * kChunk, d, ev, e2 * v + v0, vt, l);
     }
     acc.product(xs, buf, k0, min(kChunk, l.dp - k0), l);
     if (k0 + kChunk < l.dp) continue;
@@ -209,11 +225,11 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
     __syncthreads();
     if (kStash) {
       // z -> th in place, and th to the stash in whole rows
-      for (int i = threadIdx.x; i < kRows * v; i += kThreads) {
-        const int r = i / v, c = i - r * v;
-        const float t = tanhf(zs[r * l.ldz + c] + b[e * v + c]);
+      for (int i = threadIdx.x; i < kRows * vt; i += kThreads) {
+        const int r = i / vt, c = i - r * vt;
+        const float t = tanhf(zs[r * l.ldz + c] + b[col + c]);
         zs[r * l.ldz + c] = t;
-        if (n0 + r < n) th[(size_t)(n0 + r) * ev + e * v + c] = t;
+        if (n0 + r < n) th[(size_t)(n0 + r) * ev + col + c] = t;
       }
       __syncthreads();
     }
@@ -222,11 +238,11 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int c = lane + kPerRow * j;
-        if (c < v) {
-          const float t = kStash ? zs[row * l.ldz + c] : tanhf(zs[row * l.ldz + c] + b[e * v + c]);
+        if (c < vt) {
+          const float t = kStash ? zs[row * l.ldz + c] : tanhf(zs[row * l.ldz + c] + b[col + c]);
           float a = tau * t;
           if (dropout) {
-            const float u = hash_uniform((uint32_t)(n0 + row), (uint32_t)(e * v + c), seed);
+            const float u = hash_uniform((uint32_t)(n0 + row), (uint32_t)(col + c), seed);
             a = u < keep_prob ? a * inv_keep : 0.0f;
           }
           mix[j] = fmaf(g, a, mix[j]);
@@ -240,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 2) moe_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = lane + kPerRow * j;
-      if (c < v) out[(size_t)(n0 + row) * v + c] = mix[j];
+      if (c < vt) out[(size_t)(n0 + row) * v + v0 + c] = mix[j];
     }
   }
 }
@@ -252,13 +268,14 @@ int launch_f32(int device, const void* x, const void* w, const void* b, const vo
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
+  if (v <= 0 || v > kMaxTargets || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
   if (kStash && keep_prob < 1.0f && seed_dev == nullptr) return cudaErrorInvalidValue;
-  const FwdLayout f = fwd_layout(d, v);
+  const FwdLayout f = fwd_layout(d, min(v, kMaxV));  // the widest V-tile
   const size_t smem = f.x_bytes + f.wz_bytes;
   err = set_smem(moe_fwd_kernel<kStash>, smem);
   if (err != cudaSuccess) return err;
-  moe_fwd_kernel<kStash><<<cdiv(n, kRows), kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(cdiv(n, kRows), cdiv(v, kMaxV));
+  moe_fwd_kernel<kStash><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const float*)b, (const float*)gate, n, d, experts, v,
       tau, keep_prob, seed, (const int32_t*)seed_dev, (float*)out, (float*)th);
   return cudaGetLastError();
@@ -274,6 +291,7 @@ constexpr int kWgRows = 64;                 // rows of a block (wgmma's M)
 __host__ __device__ constexpr int fwd_groups(int np) { return np <= 72 ? 3 : 2; }
 __host__ __device__ constexpr int fwd_threads(int np) { return 128 * fwd_groups(np) + 32; }
 constexpr int kFwdMaxStages = 16;
+constexpr int kVTile = 128;                 // the widest V-tile (wgmma N) a block takes
 constexpr int kXChunk = kWgRows * kSwRow;   // 64 rows x 64 columns of x
 
 // the padded expert width: wgmma's N (a multiple of 8) among the compiled
@@ -349,19 +367,21 @@ __device__ __forceinline__ void stage_x(unsigned char* xs, const float* __restri
 }
 
 // The epilogue of one expert from the accumulator registers, rows r0 and
-// r0 + 8 and columns 8j + cb and + 1: t = tanh(z + b) (K5 stashes it in
-// bf16 at th0 / th1, the rows' pointers at the expert's first column, null
-// past N), then mix += gate · drop(tau · t) from the unrounded t.  h0, h1:
-// the hash's row, seed and column terms of column cb.  With kFull (V = NP)
-// and kDrop fixed at compile time the full-width path has no per-column
-// branch, so that its tanh chains can interleave.
+// r0 + 8 and columns 8j + cb and + 1 of the block's V-tile of vt columns:
+// t = tanh(z + b) (K5 stashes it in bf16 at th0 / th1, the rows' pointers
+// at the tile's first column of the expert, null past N), then mix +=
+// gate · drop(tau · t) from the unrounded t.  h0, h1: the hash's row, seed
+// and column terms of column cb.  even: V is even, so th's pairs are
+// 4-byte aligned.  With kFull (vt = NP and V even) and kDrop fixed at
+// compile time the full-width path has no per-column branch, so that its
+// tanh chains can interleave.
 template <int NP, bool kStash, bool kFull, bool kDrop>
 __device__ __forceinline__ void expert_epilogue(const float (&z)[NP / 2], float (&mix)[NP / 2],
                                                 const float (&bias)[NP / 4], float g0, float g1,
-                                                int v, int cb, float tau, uint32_t h0,
+                                                int v, bool even, int cb, float tau, uint32_t h0,
                                                 uint32_t h1, uint32_t thr, float inv_keep,
                                                 __nv_bfloat16* th0, __nv_bfloat16* th1) {
-  const bool even_v = kFull || (v & 1) == 0;
+  const bool even_v = kFull || even;
 #pragma unroll
   for (int j = 0; j < NP / 8; ++j) {
     const int c = 8 * j + cb;
@@ -400,18 +420,27 @@ __device__ __forceinline__ void expert_epilogue(const float (&z)[NP / 2], float 
 
 // The last warp keeps the W ring full: stage q = (group p, chunk c) takes
 // the packed tiles (Gp + h, c), h < G, once the consumers released its
-// previous group (with stream_x, after the stage's x chunk).  The G = fwd_groups(NP) consumer warpgroups
-// before it take expert Gp + g of every group, run the m64nNPk16 products
-// over the chunks, then the epilogue from their accumulator registers.
-// Every warpgroup consumes every stage in order, so a stage's barrier phase
-// is never more than one ahead of its waiter.
+// previous group (with stream_x, after the stage's x chunk).  The G =
+// fwd_groups(NP) consumer warpgroups before it take expert Gp + g of every
+// group, run the m64nNPk16 products over the chunks, then the epilogue from
+// their accumulator registers.  Every warpgroup consumes every stage in
+// order, so a stage's barrier phase is never more than one ahead of its
+// waiter.
+//
+// V-tiles: block (i, t) owns rows 64 i .. and the V-tile of columns col_base
+// = v0 + NP t .. (at most NP) of every expert; out[n, v] needs only W's
+// columns v of each expert, so no block needs another's mix.  wp points at
+// the launch's first tile of expert 0; an expert's image is expert_bytes
+// apart (ops/moe_kernels.py fwd_pack: [chunks][NP][64] a tile, the tiles of
+// an expert in column order).
 template <int NP, bool kStash>
 __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
     const float* __restrict__ x,            // [N, D] float32
-    const __nv_bfloat16* __restrict__ wp,   // [E][chunks][NP][64], swizzled
+    const __nv_bfloat16* __restrict__ wp,   // [E][tiles][chunks][NP][64], swizzled
+    size_t expert_bytes,
     const float* __restrict__ b,            // [E·V]
     const float* __restrict__ gate,         // [N, E]
-    int n, int d, int experts, int v, float tau, float keep_prob, uint32_t seed_arg,
+    int n, int d, int experts, int v, int v0, float tau, float keep_prob, uint32_t seed_arg,
     const int32_t* __restrict__ seed_dev,   // K5's seed [1] (read if dropout)
     float* __restrict__ out,                // [N, V]
     __nv_bfloat16* __restrict__ th,         // [N, E·V] (K5)
@@ -428,6 +457,7 @@ __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * stage);
   uint64_t* empty = full + stages;
   const int n0 = blockIdx.x * kWgRows;
+  const int col_base = v0 + (int)blockIdx.y * NP, vt = min(NP, v - col_base);
   const int groups = cdiv(experts, kGroups), total = groups * chunks;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
 
@@ -445,7 +475,8 @@ __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
   if (wg == kGroups) {
     // the copy warp, converged (lane 0 issues)
     {
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(wp);
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(wp) +
+                                 (size_t)blockIdx.y * chunks * kTile;
       for (int q = 0; q < total; ++q) {
         const int s = q % stages, p = q / chunks, c = q - p * chunks;
         const int tiles = min(kGroups, experts - kGroups * p);
@@ -453,7 +484,8 @@ __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
         if (lane == 0) {
           mbar_expect(&full[s], kTile * tiles);
           for (int h = 0; h < tiles; ++h) {
-            const unsigned char* from = src + ((size_t)(kGroups * p + h) * chunks + c) * kTile;
+            const unsigned char* from =
+                src + (size_t)(kGroups * p + h) * expert_bytes + (size_t)c * kTile;
             bulk_copy(ring + (size_t)s * stage + w_at + h * kTile, from, kTile, &full[s]);
           }
         }
@@ -487,13 +519,13 @@ __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
       const int e = kGroups * p + g;
       const bool mine = e < experts;  // the last group may have fewer experts
       // expert e's bias and gates, loaded while its products run
-      const int col0 = e * v;
+      const int col0 = e * v + col_base;  // the tile's first column of expert e
       float bias[NP / 4], g0 = 0.0f, g1 = 0.0f;
 #pragma unroll
       for (int j = 0; j < NP / 8; ++j) {
         const int c = 8 * j + cb;
-        bias[2 * j] = mine && c < v ? __ldg(b + col0 + c) : 0.0f;
-        bias[2 * j + 1] = mine && c + 1 < v ? __ldg(b + col0 + c + 1) : 0.0f;
+        bias[2 * j] = mine && c < vt ? __ldg(b + col0 + c) : 0.0f;
+        bias[2 * j + 1] = mine && c + 1 < vt ? __ldg(b + col0 + c + 1) : 0.0f;
       }
       if (mine && ok0) g0 = __ldg(gate + (size_t)(n0 + r0) * experts + e);
       if (mine && ok1) g1 = __ldg(gate + (size_t)(n0 + r0 + 8) * experts + e);
@@ -533,20 +565,20 @@ __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
       __nv_bfloat16* th0 = kStash && ok0 ? th + (size_t)(n0 + r0) * ev + col0 : nullptr;
       __nv_bfloat16* th1 = kStash && ok1 ? th + (size_t)(n0 + r0 + 8) * ev + col0 : nullptr;
       const uint32_t hc = (uint32_t)(col0 + cb) * kHashCol;
-      if (v == NP) {
+      if (vt == NP && even_v) {
         if (dropout)
-          expert_epilogue<NP, kStash, true, true>(z, mix, bias, g0, g1, v, cb, tau, h0 + hc,
-                                                  h1 + hc, thr, inv_keep, th0, th1);
+          expert_epilogue<NP, kStash, true, true>(z, mix, bias, g0, g1, vt, even_v, cb, tau,
+                                                  h0 + hc, h1 + hc, thr, inv_keep, th0, th1);
         else
-          expert_epilogue<NP, kStash, true, false>(z, mix, bias, g0, g1, v, cb, tau, h0 + hc,
-                                                   h1 + hc, thr, inv_keep, th0, th1);
+          expert_epilogue<NP, kStash, true, false>(z, mix, bias, g0, g1, vt, even_v, cb, tau,
+                                                   h0 + hc, h1 + hc, thr, inv_keep, th0, th1);
       } else {
         if (dropout)
-          expert_epilogue<NP, kStash, false, true>(z, mix, bias, g0, g1, v, cb, tau, h0 + hc,
-                                                   h1 + hc, thr, inv_keep, th0, th1);
+          expert_epilogue<NP, kStash, false, true>(z, mix, bias, g0, g1, vt, even_v, cb, tau,
+                                                   h0 + hc, h1 + hc, thr, inv_keep, th0, th1);
         else
-          expert_epilogue<NP, kStash, false, false>(z, mix, bias, g0, g1, v, cb, tau, h0 + hc,
-                                                    h1 + hc, thr, inv_keep, th0, th1);
+          expert_epilogue<NP, kStash, false, false>(z, mix, bias, g0, g1, vt, even_v, cb, tau,
+                                                    h0 + hc, h1 + hc, thr, inv_keep, th0, th1);
       }
     }
 
@@ -568,13 +600,13 @@ __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
 #pragma unroll
       for (int j = 0; j < NP / 8; ++j) {
         const int c = 8 * j + cb;
-        if (c >= v) continue;
-        const bool two = c + 1 < v;
+        if (c >= vt) continue;
+        const bool two = c + 1 < vt;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (!(h == 0 ? ok0 : ok1)) continue;
           const float m0 = mix[4 * j + 2 * h], m1 = mix[4 * j + 2 * h + 1];
-          float* dst = out + (size_t)(n0 + r0 + 8 * h) * v + c;
+          float* dst = out + (size_t)(n0 + r0 + 8 * h) * v + col_base + c;
           if (even_v) {
             *reinterpret_cast<float2*>(dst) = make_float2(m0, m1);
           } else {
@@ -587,21 +619,29 @@ __global__ void __launch_bounds__(fwd_threads(NP), 1) moe_fwd_wgmma(
   }
 }
 
+// `tiles` V-tiles of NP columns from column v0, their packed image at wp
 template <int NP, bool kStash>
-cudaError_t launch_wgmma(const void* x, const void* wp, const void* b, const void* gate, int n,
-                         int d, int experts, int v, float tau, float keep_prob, uint32_t seed,
-                         const void* seed_dev, void* out, void* th, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* x, const unsigned char* wp, size_t expert_bytes, int v0,
+                         int tiles, const void* b, const void* gate, int n, int d, int experts,
+                         int v, float tau, float keep_prob, uint32_t seed, const void* seed_dev,
+                         void* out, void* th, cudaStream_t stream) {
   const FwdPlan p = fwd_plan(d, NP);
   auto kernel = moe_fwd_wgmma<NP, kStash>;
   const cudaError_t err = set_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
-  kernel<<<cdiv(n, kWgRows), fwd_threads(NP), p.smem, stream>>>(
-      (const float*)x, (const __nv_bfloat16*)wp, (const float*)b, (const float*)gate, n, d,
-      experts, v, tau, keep_prob, seed, (const int32_t*)seed_dev, (float*)out,
-      (__nv_bfloat16*)th, p.stages, p.stream_x);
+  const dim3 grid(cdiv(n, kWgRows), tiles);
+  kernel<<<grid, fwd_threads(NP), p.smem, stream>>>(
+      (const float*)x, (const __nv_bfloat16*)wp, expert_bytes, (const float*)b,
+      (const float*)gate, n, d, experts, v, v0, tau, keep_prob, seed, (const int32_t*)seed_dev,
+      (float*)out, (__nv_bfloat16*)th, p.stages, p.stream_x);
   return cudaGetLastError();
 }
 
+// The V-tiles of an expert's V columns (ops/moe_kernels.py fwd_tiles gives
+// the same): past V = 128, tiles of 128 columns, then the rest padded to
+// the first compiled width that holds it; one launch for the tiles of 128
+// and one for the rest, each a V-tile a grid row (a runtime count, not a
+// template axis).
 template <bool kStash>
 int launch_bf16(int device, const void* x, const void* wp, const void* b, const void* gate, int n,
                 int d, int experts, int v, float tau, float keep_prob, uint32_t seed,
@@ -609,25 +649,38 @@ int launch_bf16(int device, const void* x, const void* wp, const void* b, const 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  if (v <= 0 || v > kMaxV || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
+  if (v <= 0 || v > kMaxTargets || d <= 0 || experts <= 0) return cudaErrorInvalidValue;
   if (kStash && keep_prob < 1.0f && seed_dev == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (fwd_np(v)) {
+  const int chunks = cdiv(d, 64);
+  const int full = v > kVTile ? v / kVTile : 0, rest = v - full * kVTile;
+  const int rest_np = rest > 0 ? fwd_np(rest) : 0;
+  const size_t tile_row_bytes = (size_t)chunks * kSwRow;  // a tile's bytes per column of NP
+  const size_t expert_bytes = tile_row_bytes * (full * kVTile + rest_np);
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(wp);
+  if (full > 0) {
+    err = launch_wgmma<kVTile, kStash>(x, base, expert_bytes, 0, full, b, gate, n, d, experts, v,
+                                       tau, keep_prob, seed, seed_dev, out, th, s);
+    if (err != cudaSuccess || rest == 0) return err;
+  }
+  const unsigned char* wr = base + tile_row_bytes * full * kVTile;
+  const int v0 = full * kVTile;
+  switch (rest_np) {
     case 16:
-      return launch_wgmma<16, kStash>(x, wp, b, gate, n, d, experts, v, tau, keep_prob, seed,
-                                      seed_dev, out, th, s);
+      return launch_wgmma<16, kStash>(x, wr, expert_bytes, v0, 1, b, gate, n, d, experts, v, tau,
+                                      keep_prob, seed, seed_dev, out, th, s);
     case 32:
-      return launch_wgmma<32, kStash>(x, wp, b, gate, n, d, experts, v, tau, keep_prob, seed,
-                                      seed_dev, out, th, s);
+      return launch_wgmma<32, kStash>(x, wr, expert_bytes, v0, 1, b, gate, n, d, experts, v, tau,
+                                      keep_prob, seed, seed_dev, out, th, s);
     case 64:
-      return launch_wgmma<64, kStash>(x, wp, b, gate, n, d, experts, v, tau, keep_prob, seed,
-                                      seed_dev, out, th, s);
+      return launch_wgmma<64, kStash>(x, wr, expert_bytes, v0, 1, b, gate, n, d, experts, v, tau,
+                                      keep_prob, seed, seed_dev, out, th, s);
     case 72:
-      return launch_wgmma<72, kStash>(x, wp, b, gate, n, d, experts, v, tau, keep_prob, seed,
-                                      seed_dev, out, th, s);
+      return launch_wgmma<72, kStash>(x, wr, expert_bytes, v0, 1, b, gate, n, d, experts, v, tau,
+                                      keep_prob, seed, seed_dev, out, th, s);
     default:
-      return launch_wgmma<128, kStash>(x, wp, b, gate, n, d, experts, v, tau, keep_prob, seed,
-                                       seed_dev, out, th, s);
+      return launch_wgmma<128, kStash>(x, wr, expert_bytes, v0, 1, b, gate, n, d, experts, v,
+                                       tau, keep_prob, seed, seed_dev, out, th, s);
   }
 }
 

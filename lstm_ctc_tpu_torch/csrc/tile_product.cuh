@@ -16,6 +16,9 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxV = 128;     // widest N of a tile product
+// an expert's targets, at most, of the MoE head's K4-K6 (V-tiled or
+// K-chunked past kMaxV; ops/moe_kernels.py targets_eligible picks the set)
+constexpr int kMaxTargets = 4096;
 
 __host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 

@@ -7,10 +7,13 @@ expert logits); the mixed result is used directly as CTC logits.  The gate
 linear, softmax and dropout are plain torch; the expert mix goes through
 the fused kernels (``ops/moe_kernels.moe_mix_fused``: K4 in evaluation, K5
 with the K6 backward in training), which run their plain versions on the
-CPU.  A head the kernels refuse (``moe_kernels.mix_eligible``: more than
-128 targets, or a float32 input past 1024) takes the plain mix under
-autograd instead, with one warning, as the reference takes XLA's einsum
-(:110-140).
+CPU.  The kernels take every target count V <= 128 and every V whose lcm
+with 128 is at most 4096 (the reference's ``fused_eligible``: 136, 144,
+192, 200, 256, 384, 512, 1024, 2048, 4096, ...); a head they refuse
+(``moe_kernels.mix_eligible``: another V, more than 128 targets under the
+opt-in twokernel or kernel backward, or a float32 input past 1024) takes
+the plain mix under autograd instead, with one warning, as the reference
+takes XLA's einsum (:110-140).
 """
 
 from __future__ import annotations

@@ -34,18 +34,24 @@ On a CPU tensor a wrapper runs its plain version (``moe_mix_reference``,
 ``moe_stash_reference``, ``moe_backward_reference``,
 ``moe_backward_noemit_reference``, ``moe_wgrad_reference``,
 ``moe_backward_wgrad_reference``); on a CUDA tensor it launches its kernel
-or raises.  The kernels take V <= 128, and D <= 1024 where a float32
-body runs; ``models/moe.py`` asks ``mix_eligible`` first and runs the plain
-mix under autograd past that, as the reference takes XLA's einsum where
+or raises.  K4, K5 and K6 take every V the reference's fused kernels take
+(lcm(V, 128) <= 4096, its ``fused_eligible``) and every V <= 128; K7, K8
+and K9 (the opt-in modes) V <= 128; the float32 bodies D <= 1024.
+``models/moe.py`` asks ``mix_eligible`` first and runs the plain mix under
+autograd past that, as the reference takes XLA's einsum where
 ``fused_eligible`` refuses.
 
 The bf16 bodies of K4/K5 and K6/K8 read W as a packed image, the exact
 shared-memory operand tiles of their warpgroup products (``fwd_pack``,
 ``bwd_pack``), made once per weight tensor (``cells.derived``: once per
 model in serving, once per step in training, where the weights change).
+K4 and K5 cut an expert's V columns into tiles of at most 128
+(``fwd_tiles``), a grid dimension of their launch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -56,25 +62,44 @@ from .route import warn_once
 
 _M32 = 0xFFFFFFFF
 WGRAD_MODES = ("xla", "twokernel", "kernel")
-MAX_V = 128    # an expert's targets, at most (every body)
-MAX_D = 1024   # input width, at most, of the float32 bodies (bf16: any)
+MAX_V = 128       # an expert's targets, at most, of K7, K8 and K9
+MAX_COLS = 4096   # lcm(V, 128), at most, of K4-K6 past V = 128
+MAX_D = 1024      # input width, at most, of the float32 bodies (bf16: any)
+
+
+def targets_eligible(v: int, wgrad_mode: str = "xla") -> bool:
+    """Whether the kernels of ``wgrad_mode`` take ``v`` targets an expert:
+    under ``"xla"`` (K4, K5, K6) every V <= 128 and every V whose lcm with
+    128 is at most 4096 (the reference's ``fused_eligible``:
+    ``expert_block_size(V) · V <= MAX_COLS_BLOCK``, moe_pallas.py:104-112);
+    under ``"twokernel"`` (K8, K9) and ``"kernel"`` (K7) V <= 128."""
+    if v <= MAX_V:
+        return True
+    return wgrad_mode == "xla" and v * 128 // math.gcd(v, 128) <= MAX_COLS
 
 
 def mix_eligible(d: int, v: int, compute_dtype, wgrad_mode: str = "xla",
                  warn: bool = False) -> bool:
     """Whether the kernels of the expert mix take input width ``d`` and
     ``v`` targets an expert in ``compute_dtype``, under ``wgrad_mode``
-    (K4 or K5 forward, and its backward: K6, K8 + K9 or K7): V <= 128,
-    and D <= 1024 where a float32 body runs (every bf16 body takes any D).
-    With ``warn``, a refusal warns once per process for each reason."""
+    (K4 or K5 forward, and its backward: K6, K8 + K9 or K7):
+    ``targets_eligible``, and D <= 1024 where a float32 body runs (every
+    bf16 body takes any D).  With ``warn``, a refusal warns once per
+    process for each reason."""
     if wgrad_mode not in WGRAD_MODES:
         raise ValueError("wgrad_mode must be one of %s, got %r"
                          % (WGRAD_MODES, wgrad_mode))
-    if v > MAX_V:
-        if warn:
-            warn_once("moe targets", "moe: %d targets an expert exceed the "
-                      "CUDA kernels' %d; using the plain mix under "
-                      "autograd." % (v, MAX_V))
+    if not targets_eligible(v, wgrad_mode):
+        if warn and wgrad_mode == "xla":
+            warn_once("moe targets", "moe: %d targets an expert are outside "
+                      "the CUDA kernels' V <= %d or lcm(V, 128) <= %d; using "
+                      "the plain mix under autograd." % (v, MAX_V, MAX_COLS))
+        elif warn:
+            warn_once("moe targets " + wgrad_mode, "moe: %d targets an "
+                      "expert exceed the %d of moe_wgrad_mode = %s; using "
+                      "the plain mix under autograd (moe_wgrad_mode = xla "
+                      "takes V <= %d or lcm(V, 128) <= %d on the kernels)."
+                      % (v, MAX_V, wgrad_mode, MAX_V, MAX_COLS))
         return False
     if d > MAX_D and compute_dtype != torch.bfloat16:
         if warn:
@@ -115,17 +140,30 @@ def hash_uniform(seed, row0: int, col0: int, nrows: int, ncols: int,
     return (x >> 9).to(torch.float32) * (1.0 / (1 << 23))
 
 
-# The wgmma widths (N) compiled into K4/K5 (csrc/moe_fwd.cu fwd_np): an
-# expert's V columns are padded to the first that holds them.
+# The wgmma widths (N) compiled into K4/K5 (csrc/moe_fwd.cu fwd_np): a
+# V-tile's columns are padded to the first that holds them.
 FWD_PACK_WIDTHS = (16, 32, 64, 72, 128)
 
 
 def fwd_pack_width(v: int) -> int:
-    """K4/K5's padded expert width for V (csrc/moe_fwd.cu ``fwd_np``)."""
+    """K4/K5's padded width of a V-tile of ``v`` <= 128 columns (csrc/
+    moe_fwd.cu ``fwd_np``)."""
     for width in FWD_PACK_WIDTHS:
         if v <= width:
             return width
-    raise ValueError("the kernels take V <= 128, got %d" % v)
+    raise ValueError("a V-tile holds at most 128 columns, got %d" % v)
+
+
+def fwd_tiles(v: int):
+    """K4/K5's V-tiles of an expert's ``v`` columns, as (first column,
+    columns, padded width): tiles of 128, then the rest padded to
+    ``fwd_pack_width`` (csrc/moe_fwd.cu ``launch_bf16``).  One tile for
+    V <= 128."""
+    full, rest = divmod(v, 128) if v > 128 else (0, v)
+    tiles = [(128 * t, 128, 128) for t in range(full)]
+    if rest:
+        tiles.append((128 * full, rest, fwd_pack_width(rest)))
+    return tiles
 
 
 def bwd_pack_width(d: int) -> int:
@@ -149,18 +187,24 @@ def swizzle128(t: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_pack(w: torch.Tensor, num_experts: int) -> torch.Tensor:
-    """W ``[D, E·V]`` as K4/K5's image ``[E, chunks, NP, 64]`` in w's dtype
-    (the kernels take bf16; chunks = ceil(D / 64), NP =
-    ``fwd_pack_width(V)``): tile (e, c) is W_eᵀ, rows v and columns d = 64c
-    .. 64c + 63, zero past V and D, swizzled; one bulk copy of NP·128 bytes
-    a tile."""
+    """W ``[D, E·V]`` as K4/K5's image ``[E, chunks · VP, 64]`` in w's
+    dtype (the kernels take bf16; chunks = ceil(D / 64), VP the sum of the
+    padded widths NP of ``fwd_tiles(V)``): per expert, per V-tile and per
+    64-deep chunk c of D, the tile ``[NP, 64]`` of W_eᵀ, rows v of the tile
+    and columns d = 64c .. 64c + 63, zero past V and D, swizzled; one bulk
+    copy of NP·128 bytes a tile.  Tile (t, c) of expert e starts at row
+    chunks · v0 + c · NP of the expert's, v0 the tile's first column."""
     d, cols = w.shape
     v = cols // num_experts
-    width, chunks = fwd_pack_width(v), -(-d // 64)
-    t = w.reshape(d, num_experts, v).permute(1, 2, 0)
-    t = F.pad(t, (0, chunks * 64 - d, 0, width - v))
-    t = t.reshape(num_experts, width, chunks, 64).transpose(1, 2)
-    return swizzle128(t.contiguous())
+    chunks = -(-d // 64)
+    e_v_d = w.reshape(d, num_experts, v).permute(1, 2, 0)     # [E, V, D]
+    parts = []
+    for v0, count, width in fwd_tiles(v):
+        t = F.pad(e_v_d[:, v0:v0 + count],
+                  (0, chunks * 64 - d, 0, width - count))
+        t = t.reshape(num_experts, width, chunks, 64).transpose(1, 2)
+        parts.append(t.reshape(num_experts, chunks * width, 64))
+    return swizzle128(torch.cat(parts, 1).contiguous())
 
 
 def bwd_pack(w: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -202,19 +246,22 @@ def moe_mix_reference(x, w_expert, b_expert, gate, num_experts: int,
 
 
 def _check(x, d: int, cols: int, num_experts: int, keep_prob: float,
-           what: str, tensors=(), any_d: bool = False):
-    """The limits the kernels take (x's device, D, E·V); returns V.  The
-    bf16 bodies take any D (``any_d``), the float32 ones D <= 1024
-    (``mix_eligible``)."""
+           what: str, tensors=(), any_d: bool = False, mode: str = "xla"):
+    """The limits the kernels take (x's device, D, E·V); returns V.  V as
+    ``targets_eligible`` under ``mode``, the mode whose kernels these are
+    (K4-K6: ``"xla"``); the bf16 bodies take any D (``any_d``), the float32
+    ones D <= 1024 (``mix_eligible``)."""
     if x.device.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (what, x.device))
     v = cols // num_experts
     if v * num_experts != cols:
         raise ValueError("%s: %d columns do not split into %d experts"
                          % (what, cols, num_experts))
-    if v > MAX_V or (d > MAX_D and not any_d):
-        raise ValueError("%s: the kernel takes V <= %d and D <= %d, got "
-                         "V=%d D=%d" % (what, MAX_V, MAX_D, v, d))
+    if not targets_eligible(v, mode) or (d > MAX_D and not any_d):
+        raise ValueError("%s: the kernel takes V <= %d%s and D <= %d, got "
+                         "V=%d D=%d" % (what, MAX_V, " or lcm(V, 128) <= %d"
+                                        % MAX_COLS if mode == "xla" else "",
+                                        MAX_D, v, d))
     if not 0.0 < keep_prob <= 1.0:
         raise ValueError("keep_prob must be in (0, 1]")
     for t in tensors:
@@ -423,7 +470,8 @@ def _backward_launch(th, w, gate, gout, seed, num_experts, tau, keep_prob,
     n = th.shape[0]
     d = w.shape[0]
     v = _check(th, d, w.shape[1], num_experts, keep_prob, what,
-               (w, gate, gout, seed), any_d=w.dtype == torch.bfloat16)
+               (w, gate, gout, seed), any_d=w.dtype == torch.bfloat16,
+               mode="xla" if emit_dz else "twokernel")
     cdt = _compute_dtype_of(w)
     _expect(th, (n, num_experts * v), cdt, "th", what)
     _expect(w, (d, num_experts * v), cdt, "w", what)
@@ -491,7 +539,7 @@ def moe_mix_wgrad(x, th, gate, gout, seed, num_experts: int, tau: float,
     cols = th.shape[1]
     bf16 = cdt == torch.bfloat16
     v = _check(x, d, cols, num_experts, keep_prob, what,
-               (th, gate, gout, seed), any_d=bf16)
+               (th, gate, gout, seed), any_d=bf16, mode="twokernel")
     _expect(x, (n, d), torch.float32, "x", what)
     _expect(th, (n, num_experts * v), cdt, "th", what)
     _expect(gate, (n, num_experts), torch.float32, "gate", what)
@@ -534,7 +582,8 @@ def moe_mix_backward_wgrad(x, th, w, gate, gout, seed, num_experts: int,
     what = "moe_bwd_wgrad"
     n, d = x.shape
     v = _check(x, d, w.shape[1], num_experts, keep_prob, what,
-               (th, w, gate, gout, seed), any_d=w.dtype == torch.bfloat16)
+               (th, w, gate, gout, seed), any_d=w.dtype == torch.bfloat16,
+               mode="kernel")
     cdt = _compute_dtype_of(w)
     cols = num_experts * v
     _expect(x, (n, d), torch.float32, "x", what)

@@ -90,3 +90,26 @@ def test_key_mismatch_raises(tmp_path, saved, loaded, message):
     save_checkpoint(path, port_template(dict(CONFIG, **saved))[0])
     with pytest.raises(KeyError, match=message):
         load_checkpoint(path, port_template(dict(CONFIG, **loaded))[0])
+
+
+def test_wide_head_checkpoint_bridges_both_ways(tmp_path):
+    """A MoE head of 256 targets an expert (K4-K6 past 128): a JAX
+    checkpoint loads into the port array for array, and the port's save of
+    it loads back into JAX unchanged."""
+    config = dict(CONFIG, num_targets=256)
+    jparams, jstate = jax_init_model(jax.random.PRNGKey(3), config)
+    path = str(tmp_path / "nnet.npz")
+    jax_ckpt.save_checkpoint(path, jparams, jstate, extra={"epoch": 1})
+    params, _, _ = load_checkpoint(path, *port_template(config))
+    want = jax_ckpt.flatten_tree(jparams)
+    got = flatten_tree(params)
+    assert sorted(got) == sorted(want)
+    assert [v.shape for k, v in got.items() if k.endswith("w_expert")] == [
+        (2 * 8, 3 * 256)]  # both directions of the last projection
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    back_path = str(tmp_path / "port.npz")
+    save_checkpoint(back_path, params)
+    back, _, _ = jax_ckpt.load_checkpoint(back_path, jparams)
+    for a, b in zip(jax.tree.leaves(jparams), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

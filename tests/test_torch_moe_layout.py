@@ -58,9 +58,9 @@ def test_fwd_pack_unpacks_to_w(e, v, d):
     w = weights(e, v, d)
     image = mk.fwd_pack(w.to(torch.bfloat16), e)
     width, chunks = mk.fwd_pack_width(v), -(-d // 64)
-    assert image.shape == (e, chunks, width, 64)
+    assert image.shape == (e, chunks * width, 64)  # one V-tile
     assert image.dtype == torch.bfloat16 and image.is_contiguous()
-    tiles = unswizzle(image.float().numpy())       # [E, chunks, NP, 64]
+    tiles = unswizzle(image.float().numpy()).reshape(e, chunks, width, 64)
     wt = tiles.transpose(0, 2, 1, 3).reshape(e, width, chunks * 64)
     ref = w.to(torch.bfloat16).float().numpy().reshape(d, e, v)
     np.testing.assert_array_equal(wt[:, :v, :d], ref.transpose(1, 2, 0))
@@ -120,7 +120,8 @@ def emulate_fwd(x, w, b, gate, e, tau, keep_prob, seed):
     n, d = x.shape
     v = w.shape[1] // e
     width, chunks = mk.fwd_pack_width(v), -(-d // 64)
-    tiles = torch.from_numpy(unswizzle(mk.fwd_pack(w, e).numpy()))
+    tiles = torch.from_numpy(unswizzle(mk.fwd_pack(w, e).numpy())).reshape(
+        e, chunks, width, 64)
     tiles_n = -(-n // 64)
     xp = torch.zeros(tiles_n * 64, chunks * 64)
     xp[:n, :d] = x

@@ -4,12 +4,14 @@ predicates ``ctc_kernels.dp_eligible``, ``moe_kernels.mix_eligible``,
 ``lstm_kernels.layer_eligible`` and ``lstm_stack_kernels.stack_eligible``
 at their edges, one warning per process per reason, and the routed paths
 against the JAX package on the CPU (a CTC lattice past 1024 positions, a
-MoE head past 128 targets) at rtol = atol = 1e-5.  The ``cuda`` tests run
+MoE head of 136 targets under the twokernel backward, whose K8 and K9 take
+V <= 128) at rtol = atol = 1e-5.  The ``cuda`` tests run
 each refused shape on the card: equal to the plain version at the
 existing bounds, one warning, and no kernel launch.  JAX is imported by a
 fixture, so the ``cuda`` tests also run where JAX is not installed.
 """
 
+import math
 import types
 import warnings
 
@@ -81,10 +83,17 @@ def test_dp_eligible_edges(width, eligible):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d,v", [(1024, 128), (1024, 129), (1025, 128),
-                                 (1025, 129)])
+                                 (1025, 129), (1024, 136), (1025, 136),
+                                 (640, 4096), (1100, 4096), (640, 4097),
+                                 (640, 200), (640, 127)])
 def test_mix_eligible_edges(d, v, dtype, mode):
-    # V <= 128 for every body; D <= 1024 for the float32 bodies only
-    want = v <= 128 and (d <= 1024 or dtype == torch.bfloat16)
+    # "xla" (K4-K6): V <= 128, or lcm(V, 128) <= 4096 as the reference's
+    # fused_eligible (129: lcm 16512, refused; 136: 2176; 200: 3200; 4097:
+    # past 4096); "twokernel" and "kernel" (K7-K9): V <= 128; D <= 1024 for
+    # the float32 bodies only
+    wide = v * 128 // math.gcd(v, 128) <= 4096
+    want = ((v <= 128 or (wide and mode == "xla"))
+            and (d <= 1024 or dtype == torch.bfloat16))
     assert moe_kernels.mix_eligible(d, v, dtype, mode) is want
 
 
@@ -419,7 +428,7 @@ def test_refusals_warn_once_per_reason(fresh_warnings):
         warnings.simplefilter("always")
         assert not ctc_kernels.dp_eligible(1100, warn=True)
         assert not ctc_kernels.dp_eligible(2000, warn=True)
-        assert not moe_kernels.mix_eligible(640, 136, torch.bfloat16,
+        assert not moe_kernels.mix_eligible(640, 129, torch.bfloat16,
                                             warn=True)
         assert not moe_kernels.mix_eligible(1100, 72, torch.float32,
                                             warn=True)
@@ -433,7 +442,7 @@ def test_refusals_warn_once_per_reason(fresh_warnings):
     texts = [str(w.message) for w in seen]
     assert len(texts) == 4, texts
     assert "S=1100" in texts[0] and "plain recursion" in texts[0]
-    assert "136 targets" in texts[1] and "1100" in texts[2]
+    assert "129 targets" in texts[1] and "1100" in texts[2]
     assert "H=6 P=6" in texts[3]
 
 
@@ -542,15 +551,17 @@ def moe_case(seed, n=30, d=16, e=3, v=136):
 
 
 def test_moe_past_the_kernels_matches_jax(jref):
-    """A head of 136 targets an expert (past the kernels' 128) takes the
-    plain mix under autograd; its output and the gradients of x and every
-    weight equal the JAX package's head on the CPU (keep 1.0)."""
+    """A head of 136 targets an expert under ``moe_wgrad_mode =
+    twokernel`` (past K8's and K9's 128) takes the plain mix under
+    autograd; its output and the gradients of x and every weight equal the
+    JAX package's head on the CPU (keep 1.0)."""
     params, x, gout = moe_case(3)
+    assert not moe_kernels.mix_eligible(16, 136, torch.float32, "twokernel")
     e = 3
     leaves = {k: torch.from_numpy(a).requires_grad_()
               for k, a in params.items()}
     xt = torch.from_numpy(x).requires_grad_()
-    out = moe.apply_moe(leaves, xt, e, 10.0)
+    out = moe.apply_moe(leaves, xt, e, 10.0, wgrad_mode="twokernel")
     grads = torch.autograd.grad(out, [xt] + list(leaves.values()),
                                 torch.from_numpy(gout))
     jnp = jref.jnp
@@ -621,9 +632,10 @@ MOE_WRAPPERS = (moe_kernels.moe_mix_forward, moe_kernels.moe_mix_forward_stash,
     (64, 136, torch.bfloat16, "136 targets"),
     (1100, 72, torch.float32, "input width of 1100")])
 def test_moe_route_on_gpu(cuda, fresh_warnings, d, v, dtype, match):
-    """A head past the kernels (V = 136; float32 at D = 1100) in training on
-    the card: the plain mix under autograd, equal to the plain version on
-    the same tensors, one warning, no launch of K4-K9."""
+    """A head past the kernels of the twokernel backward (V = 136, which
+    K8 and K9 refuse; float32 at D = 1100) in training on the card: the
+    plain mix under autograd, equal to the plain version on the same
+    tensors, one warning, no launch of K4-K9."""
     params, x, gout = moe_case(4, n=200, d=d, e=4, v=v)
     leaves = {k: torch.from_numpy(a).to(cuda).requires_grad_()
               for k, a in params.items()}
