@@ -38,6 +38,9 @@ SIGNATURES = {
                      _P, _P, _P, _I, _P, _P, _P],
     "lstm_fwd_bf16": [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                       _P, _P, _P, _I, _P, _P, _P],
+    # lstm_fwd_bf16's, then the plan (1 resident, 2 streamed) and R
+    "lstm_fwd_bf16_forced": [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                             _I, _P, _P, _P, _I, _P, _P, _P, _I, _I],
     # device, gx, lengths, keep, c_all, h_all, wh slices, proj rows, peep,
     # forget_bias, dout, dcfin, dhfin, T, B, H, P, store_bf16, dgates,
     # out_blk and dout_p stashes, dc_in, dh_in, dwh, dproj, dpeep,
@@ -46,6 +49,9 @@ SIGNATURES = {
                     + [_P] * 10,
     "lstm_bwd_bf16": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
                      + [_P] * 10,
+    # lstm_bwd_bf16's, then the plan (1 resident, 2 streamed) and R
+    "lstm_bwd_bf16_forced": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
+                            + [_P] * 10 + [_I, _I],
     # K2's arguments (dgates: scratch), then x, wx, D, dx, dwx, dbias
     "lstm_bwd_fold_f32": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
                          + [_P] * 10 + [_P, _P, _I, _P, _P, _P],
@@ -165,8 +171,8 @@ def library() -> ctypes.CDLL:
     lib.kernels_error_string.argtypes = [ctypes.c_int]
     lib.kernels_error_string.restype = ctypes.c_char_p
     # H, P, has_proj, bf16 (K2: and store_bf16) -> the blocks a cluster of
-    # the kernel's launch plan for the shape (8 or 16), 0 if it has none
-    # (host arithmetic only)
+    # the kernel's launch plan for the shape (8 or 16, resident or
+    # streamed), 0 if it has none (host arithmetic only)
     lib.lstm_fwd_fits.argtypes = [_I] * 4
     lib.lstm_fwd_fits.restype = ctypes.c_int
     lib.lstm_bwd_fits.argtypes = [_I] * 5
@@ -180,11 +186,13 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_scratch_floats.argtypes = [_I, _I, _I, _I]
     lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
     # device, B, H, P, has_proj, bf16 -> blocks a cluster, rows a cluster,
-    # clusters, clusters resident at once, bytes (K1's launch and K2's)
+    # clusters, clusters resident at once, bytes, streamed or not, weight
+    # bytes a block held and streamed a step (K1's launch and K2's)
     for name in ("lstm_fwd_config", "lstm_bwd_config"):
         fn = getattr(lib, name)
         fn.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 4 + [
-            ctypes.POINTER(ctypes.c_longlong)]
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_I)] + [
+            ctypes.POINTER(ctypes.c_longlong)] * 2
         fn.restype = ctypes.c_int
     # device, T, B, H, P, D, bf16, store_bf16
     lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 8

@@ -69,8 +69,11 @@
 // staging, the inbox: 16 bytes a row and column), so at H = P = 512 only
 // R = 2 fits beside the slices: the 16-block plans add R = 2, tried last.
 // Fewer 16-block clusters are resident at once, so the clusters run in
-// waves more often.  Wider bf16 slices (H = P = 1024 without a projection)
-// and any H past 1024 are refused.
+// waves more often.  A block owns at most 128 units (H <= 2048); in float32
+// the slices are read from L2 whatever their size.  bf16 slices that fit
+// no resident plan (H = P = 1024 without a projection) take the streamed
+// plan of lstm_bwd_streamed.cu, which streams them from L2 at every step;
+// any H past 2048 is refused.
 //
 // The wrapper lays the weights out per slice: wh as K1 does ([2, C, P16,
 // 4, US]) and proj as rows ([2, C, U16, P16], U16 = US rounded up to 16),
@@ -481,40 +484,37 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(
   }
 }
 
-struct Args {
-  const void *gx, *lengths, *keep, *c_all, *h_all, *wh_sl, *proj_rows, *peep;
-  float forget_bias;
-  const void *dout, *dcfin, *dhfin;
-  int steps, batch, units, out_dim;
-  void *dgates, *outb_st, *doutp_st, *dc_in, *dh_in, *dwh, *dproj, *dpeep, *scratch;
-  cudaStream_t stream;
-};
-
-// How the recurrence is launched: blocks a cluster, batch rows a cluster,
-// clusters, those resident at once (the occupancy API's answer), dynamic
-// shared memory a block (rows = 0: not with this R).
-struct Launch {
-  int blocks, rows, clusters, resident;
-  size_t smem;
-};
+typedef LstmBwdArgs Args;
+typedef LstmBwdLaunch Launch;
 
 // K2's plan with C blocks and R rows a cluster, and whether its units a
 // block, threads and shared memory fit a block
 template <typename T, typename S>
 bool bwd_fits(int H, int P, bool has_proj, int rows, int C, BwdPlan* plan) {
   *plan = bwd_plan<T, S>(H, P, has_proj, rows, C);
-  return plan->us <= kBlockUnits && rows * plan->us <= kThreads &&
+  return plan->us <= kLayerUnits && rows * plan->us <= kThreads &&
          plan->bytes <= kMaxSmemPerBlock;
 }
 
-// The blocks a cluster of K2's plan: 8 where its R = 4 plan fits, else 16
-// where its R = 2 plan fits, else 0 (no plan).  Host arithmetic only.
+// K2's plans, in the order they are tried: resident on 8 blocks (R = 4
+// fits), resident on 16 (R = 2 fits), streamed on 16 (bf16, R = 2 fits;
+// lstm_bwd_streamed.cu)
+enum Kind { kNone = 0, kResident = 1, kStreamed = 2 };
+
+struct Route {
+  Kind kind;
+  int blocks;
+};
+
 template <typename T, typename S>
-int bwd_cluster(int H, int P, bool has_proj) {
+Route bwd_route(int H, int P, bool has_proj) {
   BwdPlan pl;
-  if (bwd_fits<T, S>(H, P, has_proj, 4, kCluster, &pl)) return kCluster;
-  if (bwd_fits<T, S>(H, P, has_proj, 2, kWideCluster, &pl)) return kWideCluster;
-  return 0;
+  if (bwd_fits<T, S>(H, P, has_proj, 4, kCluster, &pl)) return Route{kResident, kCluster};
+  if (bwd_fits<T, S>(H, P, has_proj, 2, kWideCluster, &pl)) return Route{kResident, kWideCluster};
+  if (kMma<T> && lstm_bwd_streamed_fits(H, P, has_proj, std::is_same<S, __nv_bfloat16>::value,
+                                        kWideCluster, 2, -1))
+    return Route{kStreamed, kWideCluster};
+  return Route{kNone, 0};
 }
 
 // Set up the launch with R rows a cluster, if its shared memory fits and
@@ -525,34 +525,23 @@ template <typename T, typename S, int R, int C>
 cudaError_t launch_rows(const Args& a, bool all, bool dry, Launch* how) {
   how->rows = 0;
   BwdPlan pl;
-  if (!bwd_fits<T, S>(a.units, a.out_dim, a.proj_rows != nullptr, R, C, &pl))
+  const bool has_proj = a.proj_rows != nullptr;
+  if (!bwd_fits<T, S>(a.units, a.out_dim, has_proj, R, C, &pl))
     return cudaSuccess;
   auto kernel = lstm_bwd_kernel<T, S, R, C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
-  if (err != cudaSuccess) return err;
-  if (C > kCluster) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  const int clusters = 2 * cdiv(a.batch, R);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * cdiv(a.batch, R), 2, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = pl.bytes;
-  cfg.stream = a.stream;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int fit = 0;
-  err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &cfg);
+  int fit;
+  cudaError_t err = cluster_config(kernel, a.batch, R, C, pl.bytes, a.stream, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
+  const int clusters = 2 * cdiv(a.batch, R);
   if (fit < (all ? clusters : 1)) return cudaSuccess;
-  *how = Launch{C, R, clusters, fit, pl.bytes};
+  // bf16 holds its slices; float32 reads wh twice and the proj rows once
+  // from L2 at every step
+  const long long wh = (long long)sizeof(T) * pl.p16 * pl.g;
+  const long long pj = has_proj ? (long long)sizeof(T) * pl.u16 * pl.p16 : 0;
+  *how = Launch{C, R, clusters, fit, pl.bytes, kMma<T> ? wh + pj : 0,
+                kMma<T> ? 0 : 2 * wh + pj};
   if (dry) return cudaSuccess;
   const bool peeps = a.peep != nullptr;
   float* peep_part = peeps ? (float*)a.scratch : nullptr;
@@ -569,7 +558,7 @@ cudaError_t launch_rows(const Args& a, bool all, bool dry, Launch* how) {
 // The smallest R of {4, 6, 8} whose clusters are all resident at once;
 // else the largest with at least one resident (the clusters then run in
 // waves; with 16 blocks R = 2 last); else the launch is refused, as it is
-// for shapes with no plan (bwd_cluster).
+// for shapes with no plan (bwd_route).
 template <typename T, typename S, int C>
 cudaError_t choose_rows(const Args& a, bool dry, Launch* how) {
   cudaError_t err;
@@ -591,8 +580,12 @@ cudaError_t choose_rows(const Args& a, bool dry, Launch* how) {
 
 template <typename T, typename S>
 cudaError_t choose(const Args& a, bool dry, Launch* how) {
-  *how = Launch{0, 0, 0, 0, 0};
-  switch (bwd_cluster<T, S>(a.units, a.out_dim, a.proj_rows != nullptr)) {
+  *how = Launch{0, 0, 0, 0, 0, 0, 0};
+  const Route route = bwd_route<T, S>(a.units, a.out_dim, a.proj_rows != nullptr);
+  if (route.kind == kStreamed)
+    return lstm_bwd_streamed(a, std::is_same<S, __nv_bfloat16>::value, kWideCluster, 0, -1, dry,
+                             a.peep ? (float*)a.scratch : nullptr, how);
+  switch (route.kind == kResident ? route.blocks : 0) {
     case kCluster:
       return choose_rows<T, S, kCluster>(a, dry, how);
     case kWideCluster:
@@ -602,12 +595,46 @@ cudaError_t choose(const Args& a, bool dry, Launch* how) {
   }
 }
 
+// A bf16 launch on the plan that `plan` names, at R = `rows` (chip_smoke.py
+// holds the plans against each other): 1, this shape's resident plan; 2,
+// the streamed plan with the blocks lstm_bwd_fits answers (the resident
+// plan's, so the dh partials are summed over the same blocks) and at most
+// half of wh's steps resident, so that the ring streams wh too; 3, the
+// same with every step of wh resident (refused where they do not all fit);
+// 4, with as many resident as fit.
+template <typename S>
+cudaError_t forced(const Args& a, int plan, int rows, Launch* how) {
+  typedef __nv_bfloat16 T;
+  *how = Launch{0, 0, 0, 0, 0, 0, 0};
+  const Route route = bwd_route<T, S>(a.units, a.out_dim, a.proj_rows != nullptr);
+  if (plan >= 2 && plan <= 4)
+    return lstm_bwd_streamed(a, std::is_same<S, __nv_bfloat16>::value, route.blocks, rows,
+                             plan == 2 ? cdiv(a.out_dim, 16) / 2 : plan == 3 ? kAllHeld : -1,
+                             false, a.peep ? (float*)a.scratch : nullptr, how);
+  if (plan != 1 || route.kind != kResident) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaErrorInvalidConfiguration;
+  switch (route.blocks * 16 + rows) {
+    case kCluster * 16 + 4: err = launch_rows<T, S, 4, kCluster>(a, false, false, how); break;
+    case kCluster * 16 + 6: err = launch_rows<T, S, 6, kCluster>(a, false, false, how); break;
+    case kCluster * 16 + 8: err = launch_rows<T, S, 8, kCluster>(a, false, false, how); break;
+    case kWideCluster * 16 + 2: err = launch_rows<T, S, 2, kWideCluster>(a, false, false, how); break;
+    case kWideCluster * 16 + 4: err = launch_rows<T, S, 4, kWideCluster>(a, false, false, how); break;
+    case kWideCluster * 16 + 6: err = launch_rows<T, S, 6, kWideCluster>(a, false, false, how); break;
+    case kWideCluster * 16 + 8: err = launch_rows<T, S, 8, kWideCluster>(a, false, false, how); break;
+    default: break;
+  }
+  if (err == cudaSuccess && !how->rows) return cudaErrorInvalidConfiguration;
+  return err;
+}
+
 // the peephole partials lead the scratch: one [2, 3, H] per row tile of the
 // smallest R (2)
 size_t peep_floats(int batch, int units) { return (size_t)cdiv(batch, 2) * 2 * 3 * units; }
 
+// The recurrence on its plan (`plan` 0), or on a forced plan and R (bf16:
+// `forced`), then the weight gradients
 template <typename T, typename S>
-int launch(int device, const Args& a) {
+int launch(int device, const Args& a, int plan = 0, int rows = 0) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int H = a.units, P = a.out_dim;
@@ -615,7 +642,10 @@ int launch(int device, const Args& a) {
   if (H <= 0 || P <= 0 || H % 4 || P % 4 || (!a.proj_rows && P != H))
     return cudaErrorInvalidValue;
   Launch how;
-  err = choose<T, S>(a, false, &how);
+  if constexpr (kMma<T>)
+    err = plan ? forced<S>(a, plan, rows, &how) : choose<T, S>(a, false, &how);
+  else
+    err = choose<T, S>(a, false, &how);
   if (err != cudaSuccess) return err;
   constexpr bool kBf16 = kMma<T>;
   return lstm_bwd_wgrad(kBf16, std::is_same<S, __nv_bfloat16>::value, a.h_all, a.keep,
@@ -648,28 +678,38 @@ extern "C" long long lstm_bwd_scratch_floats(int steps, int batch, int units,
          lstm_bwd_wgrad_scratch_floats(steps, batch, units, out_dim);
 }
 
-// The blocks a cluster of K2's launch plan for this shape (8 or 16), or 0
-// when K2 has none: host arithmetic only, no CUDA call.  R = 4 (16 blocks:
-// R = 2) needs the least threads and shared memory, so K2 takes a shape
-// when that plan fits; whether any of its clusters is resident is the
-// occupancy API's to say at the launch.
+// lstm_bwd_bf16 on a forced plan and R (`plan` 1 resident, 2-4 streamed
+// with half, all or as much of wh resident as fits; see `forced`): the slices laid out for lstm_bwd_fits's blocks
+extern "C" int lstm_bwd_bf16_forced(LSTM_BWD_ARGS, int plan, int rows) {
+  return store_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(device, LSTM_BWD_PACK, plan, rows)
+                    : launch<__nv_bfloat16, float>(device, LSTM_BWD_PACK, plan, rows);
+}
+
+// The blocks a cluster of K2's launch plan for this shape (8 or 16;
+// negative for the streamed plan, whose weight rows are laid out padded),
+// or 0 when K2 has none: host arithmetic only, no CUDA call.  R = 4 (16 blocks: R = 2) needs the least threads and shared
+// memory, so K2 takes a shape when that plan fits; whether any of its
+// clusters is resident is the occupancy API's to say at the launch.
 extern "C" int lstm_bwd_fits(int units, int out_dim, int has_proj, int bf16,
                              int store_bf16) {
   if (units <= 0 || out_dim <= 0) return 0;
   const bool proj = has_proj != 0;
-  if (bf16)
-    return store_bf16 ? bwd_cluster<__nv_bfloat16, __nv_bfloat16>(units, out_dim, proj)
-                      : bwd_cluster<__nv_bfloat16, float>(units, out_dim, proj);
-  return store_bf16 ? bwd_cluster<float, __nv_bfloat16>(units, out_dim, proj)
-                    : bwd_cluster<float, float>(units, out_dim, proj);
+  const Route r = !bf16 ? (store_bf16 ? bwd_route<float, __nv_bfloat16>(units, out_dim, proj)
+                                      : bwd_route<float, float>(units, out_dim, proj))
+                 : store_bf16 ? bwd_route<__nv_bfloat16, __nv_bfloat16>(units, out_dim, proj)
+                              : bwd_route<__nv_bfloat16, float>(units, out_dim, proj);
+  return r.kind == kStreamed ? -r.blocks : r.blocks;
 }
 
-// How K2 would launch on `device` at this shape: blocks a cluster, rows a
-// cluster, clusters, clusters resident at once, and dynamic shared memory
-// a block; a CUDA error if it cannot.
+// How K2 would launch on `device` at this shape (its states in the compute
+// dtype): blocks a cluster, rows a cluster, clusters, clusters resident at
+// once, dynamic shared memory a block, whether the plan is the streamed
+// one, and the weight bytes a block holds and streams a step; a CUDA error
+// if it cannot.
 extern "C" int lstm_bwd_config(int device, int batch, int units, int out_dim,
                                int has_proj, int bf16, int* blocks, int* rows,
-                               int* clusters, int* resident, long long* smem) {
+                               int* clusters, int* resident, long long* smem,
+                               int* streamed, long long* held, long long* streams) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Args a = {};
@@ -685,5 +725,9 @@ extern "C" int lstm_bwd_config(int device, int batch, int units, int out_dim,
   *clusters = how.clusters;
   *resident = how.resident;
   *smem = (long long)how.smem;
+  *streamed = bf16 && bwd_route<__nv_bfloat16, __nv_bfloat16>(units, out_dim, has_proj != 0)
+                              .kind == kStreamed;
+  *held = how.held;
+  *streams = how.streamed;
   return err;
 }

@@ -1,7 +1,10 @@
 // The C entry points of K2 (lstm_bwd.cu), which K3 (lstm_bwd_fold.cu) runs
 // first: the argument list as a macro, so that both files spell it once;
-// and the weight-gradient passes of K2 and K13 (lstm_bwd_wgrad.cu).
+// K2's streamed plan (lstm_bwd_streamed.cu); and the weight-gradient passes
+// of K2 and K13 (lstm_bwd_wgrad.cu).
 #pragma once
+
+#include <cuda_runtime.h>
 
 #define LSTM_BWD_ARGS                                                          \
   int device, const void *gx, const void *lengths, const void *keep,          \
@@ -19,6 +22,38 @@
 
 extern "C" int lstm_bwd_f32(LSTM_BWD_ARGS);
 extern "C" int lstm_bwd_bf16(LSTM_BWD_ARGS);
+
+// K2's arguments as its launchers pass them on (lstm_bwd.cu, and its
+// streamed plan in lstm_bwd_streamed.cu)
+struct LstmBwdArgs {
+  const void *gx, *lengths, *keep, *c_all, *h_all, *wh_sl, *proj_rows, *peep;
+  float forget_bias;
+  const void *dout, *dcfin, *dhfin;
+  int steps, batch, units, out_dim;
+  void *dgates, *outb_st, *doutp_st, *dc_in, *dh_in, *dwh, *dproj, *dpeep, *scratch;
+  cudaStream_t stream;
+};
+
+// How the recurrence is launched: blocks a cluster, batch rows a cluster,
+// clusters, those resident at once (the occupancy API's answer), dynamic
+// shared memory a block (rows = 0: not with this R); the weight bytes a
+// block holds, and streams from L2 a step.
+struct LstmBwdLaunch {
+  int blocks, rows, clusters, resident;
+  size_t smem;
+  long long held, streamed;
+};
+
+// K2's streamed plan (lstm_bwd_streamed.cu; bf16 compute, the store dtype
+// by store_bf16) with C blocks a cluster and R rows, wh's resident 16-deep
+// steps at most `cap` (-1: as many as fit; kAllHeld: all of them, or no
+// plan): whether it fits (host arithmetic only), and its launch (R = 0: the
+// largest R that fits; with `dry`, the launch is only planned), the
+// peephole partials at `peep_part`.
+bool lstm_bwd_streamed_fits(int units, int out_dim, bool has_proj, bool store_bf16, int C,
+                            int rows, int cap);
+cudaError_t lstm_bwd_streamed(const LstmBwdArgs& a, bool store_bf16, int C, int rows, int cap,
+                              bool dry, float* peep_part, LstmBwdLaunch* how);
 extern "C" long long lstm_bwd_scratch_floats(int steps, int batch, int units,
                                              int out_dim);
 

@@ -34,6 +34,7 @@ namespace {
 constexpr int kCluster = 8;       // blocks per cluster where an 8-block plan fits
 constexpr int kWideCluster = 16;  // past that: the H100's non-portable most
 constexpr int kBlockUnits = 64;   // hidden units a block owns, at most (the slices' layout)
+constexpr int kLayerUnits = 128;  // the same for K1 and K2 (H <= 2048 on 16 blocks)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlices = 16; // most k-slices one FMA product is split into
@@ -458,13 +459,28 @@ __device__ __forceinline__ float ld(const X* p, size_t i) {
 // 16][cols] (kNK false: fragments by ldmatrix.trans) or [cols][ldw], one
 // row per output column with k contiguous (kNK true: a weight used
 // transposed, fragments by ldmatrix).
+// mma_product_f32add over `tiles` 16-column tiles of w, its sums stored at
+// columns col0 .. of part[s] ([8][ldp] a slice): K2's streamed plan runs it
+// on one chunk of rows at a time; mma_product_f32add is all of w at once.
+template <bool kNK>
+__device__ __forceinline__ void mma_f32add_tiles(const __nv_bfloat16* a, int lda, int depth,
+                                                 const __nv_bfloat16* w, int ldw, int tiles,
+                                                 Split sp, float* part, int ldp, int col0);
+
 template <bool kNK>
 __device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int lda,
                                                    int depth, const __nv_bfloat16* w,
                                                    int ldw, int cols, Split sp,
                                                    float* part) {
+  mma_f32add_tiles<kNK>(a, lda, depth, w, ldw, cols / 16, sp, part, cols, 0);
+}
+
+template <bool kNK>
+__device__ __forceinline__ void mma_f32add_tiles(const __nv_bfloat16* a, int lda, int depth,
+                                                 const __nv_bfloat16* w, int ldw, int tiles,
+                                                 Split sp, float* part, int ldp, int col0) {
   const int lane = threadIdx.x & 31;
-  const int tiles = cols / 16, steps = cdiv(depth, 16);
+  const int steps = cdiv(depth, 16);
   // rows m = lane % 8 at k + 8·(lane / 8 % 2): A's fragments a0 = a1 and
   // a2 = a3
   const __nv_bfloat16* a_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
@@ -500,7 +516,7 @@ __device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int l
     }
     // lane holds rows lane / 4 (and + 8: padding, dropped), columns
     // 2·(lane % 4) and + 1 of each 8-column half
-    float* dst = part + ((size_t)s * 8 + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
+    float* dst = part + ((size_t)s * 8 + (lane >> 2)) * ldp + col0 + n * 16 + 2 * (lane & 3);
     *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
     *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
   }
@@ -762,6 +778,180 @@ __device__ __forceinline__ void wait_blocks(int* counters, int want, int& seen) 
     __threadfence();
   }
   __syncthreads();
+}
+
+// The cluster launch of a layer kernel (K1, K2) over 2·ceil(B/R) clusters
+// of C blocks (a direction and row tile each), with `smem` bytes a block:
+// its configuration, and the occupancy API's clusters resident at once in
+// `fit`
+template <typename K>
+cudaError_t cluster_config(K kernel, int batch, int R, int C, size_t smem, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int* fit) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (C > kCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C * cdiv(batch, R), 2, 1);
+  cfg->blockDim = dim3(kThreads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  *fit = 0;
+  return cudaOccupancyMaxActiveClusters(fit, (const void*)kernel, cfg);
+}
+
+// ---- the streamed plan (K1, K2): weight slices past shared memory ----
+//
+// A block keeps the first rows of its wh slice in shared memory and
+// streams the rest of its weights from L2 at every step, in a fixed
+// sequence of chunks (whole 16-deep k-steps of one matrix, laid out by the
+// wrapper as they lie in shared memory, so a chunk is one dense run of
+// bytes) through a ring of `depth` slots: chunk n lands in slot n % depth
+// by one bulk copy (cp.async.bulk) that completes its bytes on the slot's
+// barrier, whose phase n / depth the readers wait for.  A slot is refilled
+// with chunk n + depth by thread 0 right after the block barrier that ends
+// every thread's reads of chunk n, so up to `depth` chunks are in flight,
+// and the chunks of the next product (the next step's, too: the weights do
+// not depend on the step) land while the block does other work.  Only
+// chunks of the sequence are issued, so none is in flight when the block
+// exits.  Tried on the card and not kept: copying a chunk row by row
+// (the rows unpadded in global memory), a ring of 8 slots (whose plans
+// keep less of wh resident), and every thread's cp.async pieces of a chunk
+// in place of the bulk copy; none ran faster.
+constexpr int kChunkBytes = 24576;  // a chunk's bytes, about (at least 16 rows)
+constexpr int kMaxSlots = 4;        // the ring's slots, at most (2 at least)
+// a streamed plan's `cap` that holds every 16-deep step of wh resident, and
+// refuses the shape where they do not all fit (the ring then streams only
+// proj's rows): the plans' forced launches time it against the resident
+// plan; -1 holds as many as fit
+constexpr int kAllHeld = -2;
+
+// `bytes` (a multiple of 16) from global into this block's shared memory,
+// completing them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;  // one barrier a slot
+  int depth;
+  size_t slot;     // bytes a slot
+  template <typename T>
+  __device__ T* at(int n) const {
+    return reinterpret_cast<T*>(base + (size_t)(n % depth) * slot);
+  }
+  __device__ void wait(int n) const { mbar_wait(full + n % depth, (uint32_t)(n / depth) & 1u); }
+  // one thread: chunk n, `bytes` from `src`, into its slot, the slot's
+  // barrier armed for them
+  __device__ void issue(int n, const void* src, uint32_t bytes) const {
+    mbar_expect(full + n % depth, bytes);
+    bulk_load(base + (size_t)(n % depth) * slot, src, bytes, full + n % depth);
+  }
+};
+
+// The k-steps of one pass over a weight matrix's rows: the resident rows
+// first (steps [0, res) at `res_w`, row stride ldres), then the ring's
+// chunks of `chunk` steps (row stride ldw) from chunk `n` on, each waited
+// for, read by visit(w, step within the chunk's rows, global step), then
+// released: a block barrier, and thread 0 issues chunk n + depth when it
+// is below `total`.  Every thread of the block calls it.  n is advanced.
+template <typename Visit, typename Issue>
+__device__ __forceinline__ void stream_pass(int steps, const __nv_bfloat16* res_w, int ldres,
+                                            int res, const Ring& ring, int ldw, int chunk,
+                                            int& n, int total, Issue issue, Visit visit) {
+  int j = 0;
+  for (; j < res && j < steps; ++j) visit(res_w, ldres, j, j);
+  while (j < steps) {
+    ring.wait(n);
+    const __nv_bfloat16* w = ring.at<const __nv_bfloat16>(n);
+    const int j1 = min(steps, j + chunk);
+    for (int k = 0; j < j1; ++j, ++k) visit(w, ldw, k, j);
+    __syncthreads();
+    if (threadIdx.x == 0 && n + ring.depth < total) issue(n + ring.depth);
+    ++n;
+  }
+}
+
+// K1's products on the streamed plan (mma_product_t's roles: a tile of the
+// weights, read transposed, as mma's A, the <= 8 rows of a as its n):
+// out[r][c] (row stride ldo) = init(r, c), then + the sum of each k-slice
+// of `per` 16-deep steps, in slice order, each slice summed on the tensor
+// cores in step order into a zero accumulator: mma_product_t's slices,
+// added as its reader adds them (so a shape that fits both plans gives
+// the same bits on both).  Warp w owns the tiles w, w + 16, .. (TMAX at
+// most) over the whole depth.
+template <int TMAX, typename Init, typename Issue>
+__device__ __forceinline__ void streamed_product_t(const __nv_bfloat16* a, int lda, int depth,
+                                                   int cols, int per, const __nv_bfloat16* res_w,
+                                                   int ldres, int res, const Ring& ring, int ldw,
+                                                   int chunk, int& n, int total, Issue issue,
+                                                   Init init, float* out, int ldo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int tm = cols / 16;
+  float acc[TMAX][4], d[TMAX][4];
+#pragma unroll
+  for (int i = 0; i < TMAX; ++i) {
+    const int c = (warp + kWarps * i) * 16 + (lane >> 2), r = 2 * (lane & 3);
+    const bool in = warp + kWarps * i < tm;
+    acc[i][0] = in ? init(r, c) : 0.0f;
+    acc[i][1] = in ? init(r + 1, c) : 0.0f;
+    acc[i][2] = in ? init(r, c + 8) : 0.0f;
+    acc[i][3] = in ? init(r + 1, c + 8) : 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[i][e] = 0.0f;
+  }
+  const __nv_bfloat16* b_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
+  const int wrow = lane & 15, wcol = (lane >> 4) * 8;
+  stream_pass(cdiv(depth, 16), res_w, ldres, res, ring, ldw, chunk, n, total, issue,
+              [&](const __nv_bfloat16* w, int ld, int k, int j) {
+                if (j > 0 && j % per == 0) {
+#pragma unroll
+                  for (int i = 0; i < TMAX; ++i)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      acc[i][e] += d[i][e];
+                      d[i][e] = 0.0f;
+                    }
+                }
+                uint32_t fb[2];
+                ldsm_x2(fb, b_lane + j * 16);
+#pragma unroll
+                for (int i = 0; i < TMAX; ++i) {
+                  const int t = warp + kWarps * i;
+                  if (t < tm) {
+                    uint32_t fw[4];
+                    ldsm_x4_trans(fw, w + (size_t)(k * 16 + wrow) * ld + wcol + t * 16);
+                    const uint32_t fa[4] = {fw[0], fw[2], fw[1], fw[3]};
+                    mma_16816(d[i], fa, fb[0], fb[1]);
+                  }
+                }
+              });
+#pragma unroll
+  for (int i = 0; i < TMAX; ++i) {
+    const int t = warp + kWarps * i;
+    if (t < tm) {
+      float* dst = out + (size_t)(2 * (lane & 3)) * ldo + t * 16 + (lane >> 2);
+      dst[0] = acc[i][0] + d[i][0];
+      dst[ldo] = acc[i][1] + d[i][1];
+      dst[8] = acc[i][2] + d[i][2];
+      dst[ldo + 8] = acc[i][3] + d[i][3];
+    }
+  }
 }
 
 }  // namespace

@@ -108,13 +108,48 @@
 // lane in bf16, and each barrier waits for 16 slices.  Fewer 16-block
 // clusters are resident at once (7-8 on an H100 SXM), so the grid may run
 // in waves.  8 blocks stay wherever their plan fits: the flagship's layers
-// (H = P = 320) are unchanged.  A bf16 layer whose slices do not fit even
-// 16 blocks (H = P = 1024 without a projection: 8 MB of wh a direction) and
-// any H past 1024 are refused.
+// (H = P = 320) are unchanged.  A block owns at most 128 units (H <= 2048):
+// in float32 the slices are read from L2 whatever their size.
+//
+// The streamed plan: a bf16 layer whose slices fit no resident plan (H = P
+// = 1024 without a projection: 8 MB of wh a direction, a block's slice 528
+// KB; H = 2048 with P = 512) still runs on 16-block clusters, but a block
+// keeps only the first k-rows of its wh slice in shared memory and streams
+// the rest of wh, and all of proj, from L2 at every step through a ring
+// of chunks (lstm_cluster.cuh: a bulk copy a chunk, completing on its
+// slot's barrier, a slot refilled after the block barrier that ends its
+// reads).  The weights do not depend on the step, so the next step's first
+// chunks are in flight while the block hands off and waits for h.  A
+// step's bytes are then the streamed part of the slices (~528 KB a block
+// at H = P = 1024, which 7 resident clusters read from L2 together):
+// L2's bandwidth, not the latency chain, bounds this plan.  The products
+// stay on the tensor cores with the resident plan's roles and k-slices
+// (streamed_product_t: each warp owns whole column tiles over the whole
+// depth and adds its slices in order onto gx, as the cell thread adds the
+// resident plan's partial sums), so a shape that fits both plans gives the
+// same bits on both (chip_smoke.py forces this plan at the flagship width
+// and at H = P = 512).  wh rows are copied one by one into rows padded by
+// 16 bytes (the ldmatrix banks), proj's unpadded rows a chunk at a time.
+// Every cluster streams its direction's whole slices every step whatever
+// its rows, so the plan takes the largest R its threads allow (R·US <=
+// 512): fewer clusters, fewer waves.  Safety, beside the buffers above:
+//   - the ring is the block's own; a slot is refilled only after the
+//     block barrier that ends every thread's reads of its chunk, and read
+//     only after its barrier's phase for that chunk has completed;
+//   - gx(t) is waited for before the gate product (whose accumulators
+//     start from it), and the slot of step t-1 is refilled after that
+//     block barrier;
+//   - the partial sums (one "slice" per product here, the sums complete)
+//     are written at the end of a product, after the barrier of its last
+//     chunk, which every thread reaches only after it has read the last
+//     product's sums; proj always streams at least one chunk.
+//
+// Past 2048 units, the layer is refused.
 //
 // The wrapper lays the weights out per slice ([2, C, P16, 4, US] and
 // [2, C, H16, PS]: US a multiple of 8, PS of 16, the depths P16 and H16
-// rounded up to 16, zero-padded).  The kernel allocates nothing and
+// rounded up to 16, zero-padded; for the streamed plan each row of wh
+// padded by 16 bytes, [2, C, P16, 4·US + 8]).  The kernel allocates nothing and
 // launches on the caller's stream.  c_all and h_all (the per-step states a
 // backward pass needs) are written only when non-null, in float32 or, with
 // states_bf16, in bfloat16 (the store dtype of lstm_pallas.py:483-484).
@@ -458,6 +493,323 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
   cluster.sync();  // every hand-off has landed before any block leaves
 }
 
+// K1's streamed plan with C blocks a cluster and R rows (bf16), common to
+// host and device.  US, PS, QS, HS as FwdPlan's; LWS: the row stride of wh's
+// rows in shared memory (4·US + 16 bytes); ldg, ldp: of the two products'
+// sums; per_g, per_p: their k-slices in 16-deep steps (the resident plan's
+// at C blocks, where it has a split); wsteps, psteps: the 16-deep steps of
+// wh (P) and proj (H); res: wh's resident steps (at most `cap`, where cap
+// >= 0); cw, cp: the steps a chunk of wh and of proj; nw, np: chunks a step;
+// slots and slot: the ring.  The gx ring is 3 steps deep (fwd_plan's
+// kMinRing).  res_bytes, stream_bytes: a block's weight bytes held, and
+// streamed a step.
+struct StreamPlan {
+  int us, ps, qs, hs, lws, ldg, ldp, per_g, per_p, wsteps, psteps, res, cw, cp, nw, np, slots;
+  size_t slot, off_cell, off_part, off_bar, off_gx, off_keep, off_ring, off_res, bytes;
+  long long res_bytes, stream_bytes;
+};
+
+template <int C>
+__host__ __device__ StreamPlan stream_plan(int units, int out_dim, bool has_proj, int rows,
+                                           int cap) {
+  typedef __nv_bfloat16 T;
+  StreamPlan p;
+  p.us = round_up(cdiv(units, C), 8);
+  p.ps = has_proj ? round_up(cdiv(out_dim, C), 16) : p.us;
+  const int pad = 8, g = 4 * p.us;
+  p.hs = C * p.us + pad;
+  p.qs = C * p.ps + pad;
+  p.lws = g + pad;
+  p.ldg = g + 4;
+  p.ldp = p.ps + 4;
+  const TSplit tg = tsplit(g, out_dim, gate_k(C), gate_t(C));
+  const TSplit tp = tsplit(p.ps, units, kProjK, kProjT);
+  p.per_g = tg.per > 0 ? tg.per : gate_k(C);
+  p.per_p = tp.per > 0 ? tp.per : kProjK;
+  p.wsteps = cdiv(out_dim, 16);
+  p.psteps = has_proj ? cdiv(units, 16) : 0;
+  const size_t wrow = sizeof(T) * 16 * (size_t)p.lws, prow = sizeof(T) * 16 * (size_t)p.ps;
+  p.cw = kChunkBytes / wrow > 1 ? (int)(kChunkBytes / wrow) : 1;
+  p.cp = !has_proj ? 0 : kChunkBytes / prow > 1 ? (int)(kChunkBytes / prow) : 1;
+  p.slot = align128(p.cw * wrow > p.cp * prow ? p.cw * wrow : p.cp * prow);
+  p.off_cell = align128(sizeof(T) * 8 * (size_t)p.qs);
+  p.off_part = p.off_cell + align128(sizeof(T) * 8 * (size_t)p.hs);
+  p.off_bar = p.off_part + align128(sizeof(float) * 8 * (size_t)(p.ldg > p.ldp ? p.ldg : p.ldp));
+  p.off_gx = p.off_bar + 128;
+  p.off_keep = p.off_gx + align128(sizeof(float) * kMinRing * rows * 4 * p.us);
+  p.off_ring = p.off_keep + align128(sizeof(float) * kMinRing * rows);
+  const size_t left = kMaxSmemPerBlock > p.off_ring ? kMaxSmemPerBlock - p.off_ring : 0;
+  p.slots = left / p.slot < (size_t)kMaxSlots ? (int)(left / p.slot) : kMaxSlots;
+  p.off_res = p.off_ring + p.slots * p.slot;
+  const int fit = (int)((left - p.slots * p.slot) / wrow);
+  p.res = fit < p.wsteps ? fit : p.wsteps;
+  if (cap >= 0 && cap < p.res) p.res = cap;
+  p.nw = cdiv(p.wsteps - p.res, p.cw);
+  p.np = has_proj ? cdiv(p.psteps, p.cp) : 0;
+  p.bytes = p.off_res + p.res * wrow;
+  p.res_bytes = (long long)p.res * 16 * g * sizeof(T);
+  p.stream_bytes = (long long)(p.wsteps - p.res) * 16 * g * sizeof(T) +
+                   (long long)p.psteps * 16 * p.ps * sizeof(T);
+  return p;
+}
+
+// Whether the streamed plan fits: at most kLayerUnits units a block, R·US
+// and R·PS threads at most, at least two ring slots (and with cap =
+// kAllHeld, every step of wh resident).
+template <int C>
+bool stream_fits(int units, int out_dim, bool has_proj, int rows, int cap, StreamPlan* plan) {
+  *plan = stream_plan<C>(units, out_dim, has_proj, rows, cap);
+  return plan->us <= kLayerUnits && rows * plan->us <= kThreads &&
+         rows * plan->ps <= kThreads && plan->slots >= 2 && plan->bytes <= kMaxSmemPerBlock &&
+         (cap != kAllHeld || plan->res == plan->wsteps);
+}
+
+// K1 on the streamed plan (bf16): lstm_fwd_kernel's step with the products
+// of streamed_product_t; wh_sl [2, C, P16, LWS] (each row of 4·US padded
+// to LWS with zeros), proj_sl as lstm_fwd_kernel's; `cap` bounds wh's
+// resident steps (-1: none).
+template <int R, int C>
+__global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
+    const float* __restrict__ gx, const int* __restrict__ lengths,
+    const float* __restrict__ keep, const __nv_bfloat16* __restrict__ wh_sl,
+    const __nv_bfloat16* __restrict__ proj_sl, const float* __restrict__ peep,
+    float forget_bias, int steps, int batch, int units, int out_dim,
+    float* __restrict__ out, void* __restrict__ c_all, void* __restrict__ h_all,
+    bool states_bf16, float* __restrict__ cfin, float* __restrict__ hfin, int cap) {
+  typedef __nv_bfloat16 T;
+  constexpr int depth = kMinRing;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const int dir = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * R;
+  const int nr = min(R, batch - b0);
+  const int H = units, P = out_dim;
+  const bool has_proj = proj_sl != nullptr;
+  const StreamPlan pl = stream_plan<C>(H, P, has_proj, R, cap);
+  const int US = pl.us, PS = pl.ps, G = 4 * US;
+  const int u0 = q * US, nu = max(0, min(US, H - u0));
+  const int p0 = q * PS, np = max(0, min(PS, P - p0));
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* hq0 = reinterpret_cast<T*>(smem_raw);                   // [8][QS]
+  T* cellf = reinterpret_cast<T*>(smem_raw + pl.off_cell);   // [8][HS]
+  T* hq1 = has_proj ? hq0 : cellf;
+  float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
+  float* ring_gx = reinterpret_cast<float*>(smem_raw + pl.off_gx);
+  float* ring_keep = reinterpret_cast<float*>(smem_raw + pl.off_keep);
+  T* wres = reinterpret_cast<T*>(smem_raw + pl.off_res);
+  const Ring ring{smem_raw + pl.off_ring, bar + 3, pl.slots, pl.slot};
+
+  // wh's rows arrive padded as they lie in shared memory ([2, C, P16,
+  // LWS]: the streamed plan's layout), so that a chunk is one bulk copy
+  const int P16 = 16 * pl.wsteps, H16 = round_up(H, 16);
+  const size_t slot_q = (size_t)dir * C + q;
+  const T* wh_g = wh_sl + slot_q * (size_t)P16 * pl.lws;
+  const T* pj_g = has_proj ? proj_sl + slot_q * (size_t)H16 * PS : nullptr;
+  copy_rows(wres, pl.lws, wh_g, pl.lws, 16 * pl.res);
+  const T zero = Dtype<T>::from_float(0.0f);
+  for (int i = tid; i < 8 * pl.qs; i += kThreads) hq0[i] = zero;
+  for (int i = tid; i < 8 * pl.hs; i += kThreads) cellf[i] = zero;
+
+  const uint32_t bytes_c = C * nr * US * (uint32_t)sizeof(T);
+  const uint32_t bytes_h = C * nr * PS * (uint32_t)sizeof(T);
+  if (tid == 0) {
+    for (int i = 0; i < 3 + pl.slots; ++i) mbar_init(bar + i, 1);
+    mbar_init_fence();
+    if (steps > 1) mbar_expect(bar, bytes_h);
+    if (!has_proj && steps > 2) mbar_expect(bar + 1, bytes_h);
+    if (has_proj && steps > 0) mbar_expect(bar + 2, bytes_c);
+  }
+
+  const int rb = tid / US, jb = tid - rb * US;
+  const bool in_b = tid < nr * US;
+  const bool own_b = in_b && jb < nu;
+  const int ub = u0 + jb;
+  const int len_b = in_b ? lengths[b0 + rb] : 0;
+  const int rh = tid / PS, jh = tid - rh * PS;
+  const bool in_h = has_proj && tid < nr * PS;
+  const bool own_h = in_h && jh < np;
+  const int len_h = in_h ? lengths[b0 + rh] : 0;
+  const float* pd = peep ? peep + (size_t)dir * 3 * H : nullptr;
+  float pi = 0.0f, pf = 0.0f, po = 0.0f;
+  if (pd && own_b) {
+    pi = pd[ub];
+    pf = pd[H + ub];
+    po = pd[2 * H + ub];
+  }
+  float c_reg = 0.0f, h_reg = 0.0f;
+
+  // the gx ring, as lstm_fwd_kernel's
+  const int nchunk = nr * US, ncopy = nchunk + (keep ? nr : 0);
+  const size_t row_elems = (size_t)2 * batch * 4 * H;
+  const bool vec = H % 4 == 0;
+  int cp_n = 0, cp_dst[2] = {0, 0}, cp_have[2] = {0, 0};
+  long long cp_src[2] = {0, 0};
+  for (int i = kThreads - 1 - tid; i < ncopy; i += kThreads, ++cp_n) {
+    if (i < nchunk) {
+      const int r = i / US, e = i - r * US, k = e / (US / 4), c = 4 * (e - k * (US / 4));
+      cp_dst[cp_n] = ((r * 4 + k) * US + c);
+      cp_src[cp_n] = ((long long)dir * batch + b0 + r) * 4 * H + (long long)k * H + u0 + c;
+      cp_have[cp_n] = max(0, min(4, H - u0 - c));
+    } else {
+      cp_dst[cp_n] = -1 - (i - nchunk);
+      cp_src[cp_n] = b0 + (i - nchunk);
+    }
+  }
+  auto fetch = [&](int s, int slot) {
+    if (s < steps) {
+      for (int m = 0; m < cp_n; ++m) {
+        if (cp_dst[m] >= 0) {
+          float* dst = ring_gx + (size_t)slot * R * 4 * US + cp_dst[m];
+          const float* src = gx + (size_t)s * row_elems + cp_src[m];
+          const int have = cp_have[m];
+          if (vec) {
+            cp_async16_fill(dst, have > 0 ? src : gx, 4 * have);
+          } else {
+            for (int e = 0; e < 4; ++e)
+              cp_async4_fill(dst + e, e < have ? src + e : gx, e < have ? 4 : 0);
+          }
+        } else {
+          cp_async4_fill(ring_keep + (size_t)slot * R - 1 - cp_dst[m],
+                         keep + (size_t)s * batch + cp_src[m], 4);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s + 1 < depth; ++s) fetch(s, s);
+
+  // the weight chunks of a step: wh's streamed rows, then proj's (one
+  // thread issues each)
+  const int per_step = pl.nw + pl.np, total = steps * per_step;
+  auto issue = [&](int n) {
+    const int i = n % per_step;
+    if (i < pl.nw) {
+      const int r0 = 16 * (pl.res + i * pl.cw), rows = min(16 * pl.cw, P16 - r0);
+      ring.issue(n, wh_g + (size_t)r0 * pl.lws, sizeof(T) * rows * pl.lws);
+    } else {
+      const int r0 = 16 * (i - pl.nw) * pl.cp, rows = min(16 * pl.cp, H16 - r0);
+      ring.issue(n, pj_g + (size_t)r0 * PS, sizeof(T) * rows * PS);
+    }
+  };
+  cluster.sync();  // every block is resident, its barriers initialised
+  if (tid == 0)
+    for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
+  int chunk = 0;  // the next chunk to read
+
+  uint32_t parity = 0;
+  int slot = 0;
+  for (int t = 0; t < steps; ++t) {
+    const size_t row0 = (size_t)t * 2 * batch + (size_t)dir * batch + b0;
+    const bool next = t + 1 < steps;
+    const int slot1 = slot + 1 == depth ? 0 : slot + 1;
+    const int slot_prev = slot == 0 ? depth - 1 : slot - 1;
+
+    // a. h(t-1) and gx(t), then the gate sums from gx(t) on
+    const int hb = has_proj ? 0 : (t + 1) & 1;
+    const T* hq = hb ? hq1 : hq0;
+    if (t > 0) {
+      mbar_wait(bar + hb, (parity >> hb) & 1);
+      parity ^= 1u << hb;
+      const int s_next = has_proj ? t : t + 1;
+      if (tid == 0 && s_next + 1 < steps) mbar_expect(bar + hb, bytes_h);
+    }
+    cp_async_wait_pending(depth - kMinRing);
+    __syncthreads();
+    fetch(t + depth - 1, slot_prev);
+    const float* gxs = ring_gx + (size_t)slot * R * 4 * US;
+    streamed_product_t<2>(
+        hq, pl.qs, P, G, pl.per_g, wres, pl.lws, pl.res, ring, pl.lws, pl.cw, chunk, total,
+        issue,
+        [&](int r, int c) {
+          return r < nr ? gxs[(r * 4 + c / US) * US + c % US] : 0.0f;
+        },
+        part, pl.ldg);
+    __syncthreads();
+
+    // b. cell update of the owned units; hand off the cell output (or h)
+    float share = 0.0f, cv = 0.0f, hv = 0.0f, ov = 0.0f;
+    if (in_b) {
+      const float kn = keep && next ? ring_keep[slot1 * R + rb] : 1.0f;
+      if (own_b) {
+        float gate[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) gate[k] = part[rb * pl.ldg + k * US + jb];
+        const float cp = c_reg;
+        if (pd) {
+          gate[0] += pi * cp;
+          gate[2] += pf * cp;
+        }
+        const float cn = sigmoidf(gate[2] + forget_bias) * cp
+                         + sigmoidf(gate[0]) * tanhf(gate[1]);
+        if (pd) gate[3] += po * cn;
+        const float o = sigmoidf(gate[3]) * tanhf(cn);
+        const float m = t < len_b ? 1.0f : 0.0f;
+        cv = m * cn + (1.0f - m) * cp;
+        c_reg = kn * cv;
+        if (has_proj) {
+          share = o;
+        } else {
+          hv = m * o + (1.0f - m) * h_reg;
+          ov = m * o;
+          h_reg = kn * hv;
+          share = h_reg;
+        }
+      }
+    }
+    if (has_proj)
+      send_slice<T, C>(share, in_b, cellf, rb * pl.hs + u0 + jb, bar + 2);
+    else if (next)
+      send_slice<T, C>(share, in_b, t & 1 ? hq1 : hq0, rb * pl.qs + u0 + jb, bar + (t & 1));
+    if (own_b) {
+      if (c_all) put_state(c_all, (row0 + rb) * H + ub, cv, states_bf16);
+      if (!has_proj) {
+        out[(row0 + rb) * P + ub] = ov;
+        if (h_all) put_state(h_all, (row0 + rb) * P + ub, hv, states_bf16);
+      }
+    }
+    slot = slot1;
+    if (!has_proj) continue;
+
+    // c. the full cell output; d. the owned projection columns, all of
+    // proj streamed
+    mbar_wait(bar + 2, (parity >> 2) & 1);
+    parity ^= 4u;
+    if (tid == 0 && next) mbar_expect(bar + 2, bytes_c);
+    streamed_product_t<1>(cellf, pl.hs, H, PS, pl.per_p, wres, pl.lws, 0, ring, PS, pl.cp,
+                          chunk, total, issue, [](int, int) { return 0.0f; }, part, pl.ldp);
+    __syncthreads();
+
+    // e. masking; hand off h(t)
+    share = hv = ov = 0.0f;
+    if (in_h) {
+      const float kn = keep && next ? ring_keep[slot1 * R + rh] : 1.0f;
+      if (own_h) {
+        const float o = part[rh * pl.ldp + jh];
+        const float m = t < len_h ? 1.0f : 0.0f;
+        hv = m * o + (1.0f - m) * h_reg;
+        ov = m * o;
+        h_reg = kn * hv;
+        share = h_reg;
+      }
+    }
+    if (next) send_slice<T, C>(share, in_h, hq0, rh * pl.qs + p0 + jh, bar);
+    if (own_h) {
+      out[(row0 + rh) * P + p0 + jh] = ov;
+      if (h_all) put_state(h_all, (row0 + rh) * P + p0 + jh, hv, states_bf16);
+    }
+  }
+
+  const size_t frow = (size_t)dir * batch + b0;
+  if (own_b) cfin[(frow + rb) * H + ub] = c_reg;
+  if (has_proj ? own_h : own_b)
+    hfin[(frow + (has_proj ? rh : rb)) * P + (has_proj ? p0 + jh : ub)] = h_reg;
+  cp_async_wait_pending(0);
+  cluster.sync();  // every hand-off has landed before any block leaves
+}
+
 struct Args {
   const void *gx, *lengths, *keep, *wh_sl, *proj_sl, *peep;
   float forget_bias;
@@ -469,7 +821,7 @@ struct Args {
 };
 
 // K1's plan with C blocks a cluster, R rows a cluster and the deepest gx
-// ring that fits, and whether K1 has it at all: at most kBlockUnits units a
+// ring that fits, and whether K1 has it at all: at most kLayerUnits units a
 // block, R·US and R·PS threads at most, the bf16 products within
 // mma_product_t's bounds, shared memory within a block's.  Host arithmetic
 // only: the route asks it before any launch (R = 4 needs the least of each,
@@ -483,30 +835,45 @@ bool fwd_fits(int units, int out_dim, bool has_proj, int rows, int C, FwdPlan* p
   const FwdPlan pl = fwd_plan<T>(units, out_dim, has_proj, rows, d, C);
   *plan = pl;
   *depth = d;
-  if (pl.us > kBlockUnits || rows * pl.us > kThreads || rows * pl.ps > kThreads) return false;
+  if (pl.us > kLayerUnits || rows * pl.us > kThreads || rows * pl.ps > kThreads) return false;
   if (kMma<T> && (pl.tg.per == 0 || (has_proj && pl.tp.per == 0)))
     return false;  // no split fits the products' bounds
   return pl.bytes <= kMaxSmemPerBlock;
 }
 
-// The blocks a cluster of K1's plan: 8 where its R = 4 plan fits, else 16
-// where that fits, else 0 (no plan)
+// K1's plans, in the order they are tried: resident on 8 blocks, resident
+// on 16, streamed on 16 (bf16 only)
+enum Kind { kNone = 0, kResident = 1, kStreamed = 2 };
+
+struct Route {
+  Kind kind;
+  int blocks;
+};
+
+// K1's plan for this shape: the first of the resident plans whose R = 4
+// fits, else (bf16) the streamed plan where its R = 4 fits, else none
 template <typename T>
-int fwd_cluster(int units, int out_dim, bool has_proj) {
+Route fwd_route(int units, int out_dim, bool has_proj) {
   FwdPlan pl;
   int depth;
   const int sizes[2] = {kCluster, kWideCluster};
   for (int C : sizes)
-    if (fwd_fits<T>(units, out_dim, has_proj, 4, C, &pl, &depth)) return C;
-  return 0;
+    if (fwd_fits<T>(units, out_dim, has_proj, 4, C, &pl, &depth)) return Route{kResident, C};
+  StreamPlan sp;
+  if (kMma<T> && stream_fits<kWideCluster>(units, out_dim, has_proj, 4, -1, &sp))
+    return Route{kStreamed, kWideCluster};
+  return Route{kNone, 0};
 }
 
 // How K1 launches: C blocks a cluster, R batch rows a cluster, clusters,
 // those resident at once (the occupancy API's answer), dynamic shared
-// memory a block (rows = 0: not with this R).
+// memory a block (rows = 0: not with this R); the streamed plan's weight
+// bytes a block, held and streamed a step (a resident bf16 plan holds all
+// its slices; float32 reads them from L2 at every step).
 struct Launch {
   int blocks, rows, clusters, resident;
   size_t smem;
+  long long held, streamed;
 };
 
 // Set up the launch with R rows per cluster if its plan fits.  Unless
@@ -520,34 +887,20 @@ cudaError_t launch_rows(const Args& a, bool force, bool dry, Launch* how) {
   FwdPlan pl;
   int depth;
   if (!fwd_fits<T>(a.units, a.out_dim, has_proj, R, C, &pl, &depth)) return cudaSuccess;
-  const size_t smem = pl.bytes;
   auto kernel = lstm_fwd_kernel<T, R, C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (C > kCluster) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-
-  const int clusters = 2 * cdiv(a.batch, R);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * cdiv(a.batch, R), 2, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int fit = 0;
-  err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &cfg);
+  int fit;
+  cudaError_t err = cluster_config(kernel, a.batch, R, C, pl.bytes, a.stream, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
+  const int clusters = 2 * cdiv(a.batch, R);
   if (!force && fit < clusters) return cudaSuccess;
-  *how = Launch{C, R, clusters, fit, smem};
+  const long long slices = !kMma<T> ? 0 : (long long)sizeof(T) *
+      ((long long)round_up(a.out_dim, 16) * 4 * pl.us +
+       (has_proj ? (long long)round_up(a.units, 16) * pl.ps : 0));
+  const long long l2 = kMma<T> ? 0 : (long long)sizeof(T) *
+      ((long long)a.out_dim * 4 * pl.us + (has_proj ? (long long)a.units * pl.ps : 0));
+  *how = Launch{C, R, clusters, fit, pl.bytes, slices, l2};
   if (dry) return cudaSuccess;
   err = cudaLaunchKernelEx(
       &cfg, kernel, (const float*)a.gx, (const int*)a.lengths,
@@ -577,15 +930,60 @@ cudaError_t choose(const Args& a, bool dry, Launch* how) {
   return err;
 }
 
+// The streamed plan with R rows a cluster, if it fits (wh's resident steps
+// at most `cap`, -1: as many as fit); launched unless `dry`, whatever the
+// clusters resident at once (at least one).
+template <int R, int C>
+cudaError_t launch_streamed(const Args& a, int cap, bool dry, Launch* how) {
+  how->rows = 0;
+  StreamPlan pl;
+  if (!stream_fits<C>(a.units, a.out_dim, a.proj_sl != nullptr, R, cap, &pl))
+    return cudaSuccess;
+  auto kernel = lstm_fwd_streamed_kernel<R, C>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int fit;
+  cudaError_t err = cluster_config(kernel, a.batch, R, C, pl.bytes, a.stream, &cfg, attr, &fit);
+  if (err != cudaSuccess) return err;
+  if (fit < 1) return cudaSuccess;
+  *how = Launch{C, R, 2 * cdiv(a.batch, R), fit, pl.bytes, pl.res_bytes, pl.stream_bytes};
+  if (dry) return cudaSuccess;
+  typedef __nv_bfloat16 T;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, (const float*)a.gx, (const int*)a.lengths, (const float*)a.keep,
+      (const T*)a.wh_sl, (const T*)a.proj_sl, (const float*)a.peep, a.forget_bias, a.steps,
+      a.batch, a.units, a.out_dim, (float*)a.out, a.c_all, a.h_all, a.states_bf16,
+      (float*)a.cfin, (float*)a.hfin, cap);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The streamed plan takes the largest R its threads and shared memory
+// allow (every cluster streams the whole slices a step, whatever its rows)
+template <int C>
+cudaError_t choose_streamed(const Args& a, bool dry, Launch* how) {
+  cudaError_t err = launch_streamed<8, C>(a, -1, dry, how);
+  if (err != cudaSuccess || how->rows) return err;
+  err = launch_streamed<6, C>(a, -1, dry, how);
+  if (err != cudaSuccess || how->rows) return err;
+  err = launch_streamed<4, C>(a, -1, dry, how);
+  if (err == cudaSuccess && !how->rows) return cudaErrorInvalidConfiguration;
+  return err;
+}
+
 template <typename T>
 int launch(int device, const Args& a, bool dry, Launch* how) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  *how = Launch{0, 0, 0, 0, 0};
+  *how = Launch{0, 0, 0, 0, 0, 0, 0};
   if (a.batch <= 0) return cudaSuccess;
   if (a.units <= 0 || a.out_dim <= 0 || (!a.proj_sl && a.out_dim != a.units))
     return cudaErrorInvalidValue;
-  switch (fwd_cluster<T>(a.units, a.out_dim, a.proj_sl != nullptr)) {
+  const Route route = fwd_route<T>(a.units, a.out_dim, a.proj_sl != nullptr);
+  if (route.kind == kStreamed) {
+    if constexpr (kMma<T>) return choose_streamed<kWideCluster>(a, dry, how);
+  }
+  switch (route.kind == kResident ? route.blocks : 0) {
     case kCluster:
       return choose<T, kCluster>(a, dry, how);
     case kWideCluster:
@@ -593,6 +991,36 @@ int launch(int device, const Args& a, bool dry, Launch* how) {
     default:
       return cudaErrorInvalidConfiguration;
   }
+}
+
+// A bf16 launch on the plan that `plan` names, at R = `rows`, for holding
+// the plans against each other (chip_smoke.py): 1, the resident plan of
+// this shape; 2, the streamed plan with the resident plan's blocks a
+// cluster (16 where it has none; those are the blocks lstm_fwd_fits
+// answers, so the slices are laid out for them) and at most half of wh's
+// steps resident, so that the ring streams wh too; 3, the same with every
+// step of wh resident (refused where they do not all fit); 4, with as many
+// resident as fit.
+template <int C>
+cudaError_t forced(const Args& a, int plan, int rows, Launch* how) {
+  const bool has_proj = a.proj_sl != nullptr;
+  StreamPlan sp;
+  const int cap = plan == 2 ? cdiv(a.out_dim, 16) / 2 : plan == 3 ? kAllHeld : -1;
+  if (plan > 4 || (plan >= 2 && !stream_fits<C>(a.units, a.out_dim, has_proj, rows, cap, &sp)))
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaErrorInvalidConfiguration;
+  typedef __nv_bfloat16 T;
+  switch ((plan >= 2 ? 2 : plan) * 16 + rows) {
+    case 16 + 4: err = launch_rows<T, 4, C>(a, true, false, how); break;
+    case 16 + 6: err = launch_rows<T, 6, C>(a, true, false, how); break;
+    case 16 + 8: err = launch_rows<T, 8, C>(a, true, false, how); break;
+    case 32 + 4: err = launch_streamed<4, C>(a, cap, false, how); break;
+    case 32 + 6: err = launch_streamed<6, C>(a, cap, false, how); break;
+    case 32 + 8: err = launch_streamed<8, C>(a, cap, false, how); break;
+    default: break;
+  }
+  if (err == cudaSuccess && !how->rows) return cudaErrorInvalidConfiguration;
+  return err;
 }
 
 }  // namespace
@@ -618,20 +1046,44 @@ extern "C" int lstm_fwd_bf16(LSTM_FWD_ARGS) {
   return launch<__nv_bfloat16>(device, LSTM_FWD_PACK, false, &how);
 }
 
-// The blocks a cluster of K1's launch plan for this shape (8 or 16), or 0
-// when K1 has none: host arithmetic only, no CUDA call (fwd_fits at R = 4)
+// The blocks a cluster of K1's launch plan for this shape (8 or 16;
+// negative for the streamed plan, whose wh rows are laid out padded), or 0
+// when K1 has none: host arithmetic only, no CUDA call (the plans at R = 4)
 extern "C" int lstm_fwd_fits(int units, int out_dim, int has_proj, int bf16) {
   if (units <= 0 || out_dim <= 0) return 0;
-  return bf16 ? fwd_cluster<__nv_bfloat16>(units, out_dim, has_proj != 0)
-              : fwd_cluster<float>(units, out_dim, has_proj != 0);
+  const Route r = bf16 ? fwd_route<__nv_bfloat16>(units, out_dim, has_proj != 0)
+                       : fwd_route<float>(units, out_dim, has_proj != 0);
+  return r.kind == kStreamed ? -r.blocks : r.blocks;
+}
+
+// lstm_fwd_bf16 on a forced plan and R (`plan` 1 resident, 2-4 streamed
+// with half, all or as much of wh resident as fits; see `forced`): the slices laid out for lstm_fwd_fits's blocks, and for the
+// plan
+extern "C" int lstm_fwd_bf16_forced(LSTM_FWD_ARGS, int plan, int rows) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Launch how;
+  const Args a = LSTM_FWD_PACK;
+  const Route route = fwd_route<__nv_bfloat16>(units, out_dim, proj_sl != nullptr);
+  if (plan == 1 && route.kind != kResident) return cudaErrorInvalidConfiguration;
+  switch (route.blocks) {
+    case kCluster:
+      return forced<kCluster>(a, plan, rows, &how);
+    case kWideCluster:
+      return forced<kWideCluster>(a, plan, rows, &how);
+    default:
+      return cudaErrorInvalidConfiguration;
+  }
 }
 
 // How K1 would launch on `device` at this shape: blocks a cluster, rows a
-// cluster, clusters, clusters resident at once, and dynamic shared memory
-// a block; a CUDA error if it cannot.
+// cluster, clusters, clusters resident at once, dynamic shared memory a
+// block, whether the plan is the streamed one, and the weight bytes a
+// block holds and streams a step; a CUDA error if it cannot.
 extern "C" int lstm_fwd_config(int device, int batch, int units, int out_dim,
                                int has_proj, int bf16, int* blocks, int* rows,
-                               int* clusters, int* resident, long long* smem) {
+                               int* clusters, int* resident, long long* smem,
+                               int* streamed, long long* held, long long* streams) {
   Args a = {};
   a.batch = batch;
   a.units = units;
@@ -645,6 +1097,9 @@ extern "C" int lstm_fwd_config(int device, int batch, int units, int out_dim,
   *clusters = how.clusters;
   *resident = how.resident;
   *smem = (long long)how.smem;
+  *streamed = bf16 && fwd_route<__nv_bfloat16>(units, out_dim, has_proj != 0).kind == kStreamed;
+  *held = how.held;
+  *streams = how.streamed;
   return err;
 }
 

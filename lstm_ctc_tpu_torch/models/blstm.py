@@ -15,9 +15,9 @@ Counterpart of ``lstm_ctc_tpu/models/blstm.py:40-257``:
     the backward kernel (``lstm_kernels.bilstm_dual_scan_train``), and the
     MoE head's gate and expert dropout at the same keep probability, the
     head differentiable through its backward kernels;
-  * a layer the kernels refuse (``lstm_kernels.layer_eligible``: past 1024
+  * a layer the kernels refuse (``lstm_kernels.layer_eligible``: past 2048
     units, a backward with H or P not divisible by 4, no launch plan of K1
-    or K2 that fits a block, even with 16-block clusters) runs the plain
+    or K2, resident or streamed) runs the plain
     recurrence (``cells.bilstm_dual_scan``) under autograd, with one
     warning.
 

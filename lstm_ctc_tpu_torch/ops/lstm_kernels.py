@@ -17,13 +17,16 @@ On a CPU tensor a wrapper runs its plain version
 (``models/cells.dual_recurrence``, ``dual_recurrence_backward``,
 ``dual_recurrence_backward_fold``); on a CUDA tensor it launches its kernel
 or raises.  Each kernel runs a cluster of 8 blocks where its 8-block plan
-fits and of 16 where only that fits (up to 1024 units, 64 a block); the
-weights are laid out for the cluster size its plan gives.  The models ask
-``layer_eligible`` first and run a layer the kernels refuse (past 1024
-units, a backward with H or P not divisible by 4, a shape for which K1 or
-K2 has no launch plan that fits a block, such as a bf16 layer of H = P =
-1024 without a projection) through the plain recurrence under autograd.
-Any other error of a kernel raises.
+fits and of 16 where only that fits (up to 2048 units, 128 a block), its
+weight slices resident in shared memory (bf16; float32 reads them from
+L2); a bf16 layer whose slices fit no resident plan (H = P = 1024 without
+a projection, H = 2048 with P = 512) takes the streamed plan, 16 blocks
+that stream the slices from L2 at every step.  The weights are laid out
+for the cluster size its plan gives.  The models ask ``layer_eligible``
+first and run a layer the kernels refuse (past 2048 units, a backward with
+H or P not divisible by 4, a shape for which K1 or K2 has no launch plan)
+through the plain recurrence under autograd.  Any other error of a kernel
+raises.
 """
 
 from __future__ import annotations
@@ -38,8 +41,14 @@ from .. import _build
 from ..models import cells
 from .route import warn_once
 
-MAX_UNITS = 1024  # hidden units of a layer, at most (16 blocks of 64: _slices)
-BLOCK_UNITS = 64  # hidden units a cluster block owns, at most
+MAX_UNITS = 2048  # hidden units of a layer, at most (16 blocks of 128)
+LAYER_BLOCK_UNITS = 128  # hidden units a block of K1 or K2 owns, at most
+BLOCK_UNITS = 64  # the same of K12 and K13 (lstm_stack_kernels)
+# the forced plans' codes: the resident plan, the streamed plan with half
+# of wh's steps resident, with all of them, and with as many as fit
+# (``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu`` ``forced``)
+PLANS = {"resident": 1, "streamed": 2, "streamed, wh held": 3,
+         "streamed, wh held as fits": 4}
 
 
 def _ptr(t):
@@ -51,8 +60,8 @@ def _unplanned(units: int, out_dim: int, has_proj: bool, bf16: bool,
                store_bf16: bool, train: bool):
     """Which of K1 and, with ``train``, K2 has no launch plan for this
     shape, or None: the plans' own arithmetic in the library (each answers
-    the blocks a cluster of its plan, 0 for none), no CUDA call, asked once
-    a shape."""
+    the blocks a cluster of its plan, negative for the streamed plan, 0 for
+    none), no CUDA call, asked once a shape."""
     lib = _build.library()
     if not lib.lstm_fwd_fits(units, out_dim, int(has_proj), int(bf16)):
         return "forward (K1)"
@@ -91,8 +100,8 @@ def layer_eligible(device, units: int, out_dim: int, has_proj: bool, dtype,
     two half-batches) of ``units`` cells and ``out_dim`` outputs in the
     compute ``dtype``: K1, and with ``train`` K2 (K3 takes what K2 takes),
     its per-step states in ``store_dtype``.  A function of the shape: at
-    most 1024 units; in training H and P divisible by 4; on a CUDA
-    ``device``, a launch plan of K1 (and K2) that fits a block.  With
+    most 2048 units; in training H and P divisible by 4; on a CUDA
+    ``device``, a launch plan of K1 (and K2), resident or streamed.  With
     ``warn``, a refusal warns once per process for each reason."""
     refusal = _refusal(device, units, out_dim, has_proj, dtype, train,
                        store_dtype)
@@ -106,7 +115,7 @@ def layer_eligible(device, units: int, out_dim: int, has_proj: bool, dtype,
 
 def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
                        forget_bias: float, states: bool = False,
-                       store_dtype=torch.float32):
+                       store_dtype=torch.float32, _plan=None):
     """One BLSTM layer's recurrence over the whole sequence.
 
     Arguments and return value as ``cells.dual_recurrence``: gx
@@ -117,7 +126,9 @@ def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
     with ``states`` the per-step carried states c_all ``[T, 2B, H]`` and
     h_all ``[T, 2B, P]`` in ``store_dtype`` (float32 or bfloat16).  The
     weights' cluster layout is made once per weight tensor
-    (``cells.derived``)."""
+    (``cells.derived``).  ``_plan`` = (a name of ``PLANS``, R) forces a
+    bf16 launch onto that plan and R, to hold the plans against each other
+    (``csrc/lstm_fwd.cu`` ``forced``)."""
     if store_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("store dtype must be float32 or bfloat16, got %s"
                          % store_dtype)
@@ -152,15 +163,19 @@ def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
         raise ValueError("sequence_length must be [B]")
 
     lib = _build.library()
-    cluster = lib.lstm_fwd_fits(num_units, out_dim, int(proj is not None),
-                                int(wh.dtype == torch.bfloat16))
-    if not cluster:
+    plan = lib.lstm_fwd_fits(num_units, out_dim, int(proj is not None),
+                             int(wh.dtype == torch.bfloat16))
+    if not plan:
         raise RuntimeError("lstm_fwd: no launch plan for a %s layer of H=%d "
                            "P=%d" % (str(wh.dtype).split(".")[-1], num_units,
                                      out_dim))
+    cluster, streamed = abs(plan), plan < 0
+    if _plan is not None:
+        streamed = _plan[0] != "resident"
     wh_sl, proj_sl = cells.derived(
-        [t for t in (wh, proj) if t is not None], ("cluster slices", cluster),
-        lambda: _slices(wh, proj, cluster))
+        [t for t in (wh, proj) if t is not None],
+        ("cluster slices", cluster, streamed),
+        lambda: _slices(wh, proj, cluster, streamed))
     out = torch.empty(time_steps, b2, out_dim, device=gx.device)
     cfin = torch.empty(b2, num_units, device=gx.device)
     hfin = torch.empty(b2, out_dim, device=gx.device)
@@ -172,12 +187,18 @@ def lstm_layer_forward(gx, sequence_length, keep, wh, proj, peep,
                             dtype=store_dtype)
     launch = lib.lstm_fwd_bf16 if wh.dtype == torch.bfloat16 \
         else lib.lstm_fwd_f32
-    err = launch(gx.device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
-                 _ptr(wh_sl), _ptr(proj_sl), _ptr(peep), float(forget_bias),
-                 time_steps, batch, num_units, out_dim,
-                 _ptr(out), _ptr(c_all), _ptr(h_all),
-                 int(store_dtype == torch.bfloat16), _ptr(cfin), _ptr(hfin),
-                 torch.cuda.current_stream(gx.device).cuda_stream)
+    args = [gx.device.index or 0, _ptr(gx), _ptr(lengths), _ptr(keep),
+            _ptr(wh_sl), _ptr(proj_sl), _ptr(peep), float(forget_bias),
+            time_steps, batch, num_units, out_dim,
+            _ptr(out), _ptr(c_all), _ptr(h_all),
+            int(store_dtype == torch.bfloat16), _ptr(cfin), _ptr(hfin),
+            torch.cuda.current_stream(gx.device).cuda_stream]
+    if _plan is not None:
+        if wh.dtype != torch.bfloat16:
+            raise ValueError("a forced plan is a bf16 launch")
+        launch = lib.lstm_fwd_bf16_forced
+        args += [PLANS[_plan[0]], int(_plan[1])]
+    err = launch(*args)
     _build.check(err, "lstm_fwd")
     lstm_layer_forward.launches += 1
     return (out, cfin, hfin) + ((c_all, h_all) if states else ())
@@ -190,25 +211,32 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _slices(wh, proj, cluster: int):
+def _slices(wh, proj, cluster: int, padded: bool = False,
+            block_units: int = LAYER_BLOCK_UNITS):
     """The weights as the kernel's cluster blocks own them: block q holds
     hidden units [q·US, (q+1)·US) of all four gates and projection columns
     [q·PS, (q+1)·PS): wh ``[n, P, 4H]`` → ``[n, cluster, P16, 4, US]``,
     proj ``[n, H, P]`` → ``[n, cluster, H16, PS]``, zero-padded (n: the
     directions of a layer, or the layers of a stack).  US is a multiple of
-    8 and at most 64, PS a multiple of 16, P16 and H16 are P and H rounded
-    up to 16, as in ``csrc/lstm_fwd.cu`` ``fwd_plan`` (8 or 16 blocks) and
-    ``csrc/lstm_cluster.cuh`` ``plan`` (K12: 8 or 16)."""
+    8 and at most ``block_units`` (K1 and K2: 128; K12: 64), PS a multiple
+    of 16, P16 and H16 are P and H rounded up to 16, as in
+    ``csrc/lstm_fwd.cu`` ``fwd_plan`` (8 or 16 blocks) and
+    ``csrc/lstm_cluster.cuh`` ``plan`` (K12: 8 or 16).  With ``padded``
+    (the streamed plans), each row of wh's slice is padded by 8 zeros as
+    it lies in shared memory, ``[n, cluster, P16, 4·US + 8]``, so that a
+    chunk of rows is one bulk copy."""
     n, out_dim, h4 = wh.shape
     units = h4 // 4
     us = _round_up(-(-units // cluster), 8)
-    if us > BLOCK_UNITS:
+    if us > block_units:
         raise ValueError("the kernel takes at most %d units, got %d"
-                         % (BLOCK_UNITS * cluster, units))
+                         % (block_units * cluster, units))
     p16, h16 = _round_up(out_dim, 16), _round_up(units, 16)
     wh_sl = F.pad(wh.reshape(n, out_dim, 4, units),
                   (0, cluster * us - units, 0, 0, 0, p16 - out_dim))
     wh_sl = wh_sl.view(n, p16, 4, cluster, us).permute(0, 3, 1, 2, 4)
+    if padded:
+        wh_sl = F.pad(wh_sl.reshape(n, cluster, p16, 4 * us), (0, 8))
     if proj is None:
         return wh_sl.contiguous(), None
     ps = _round_up(-(-out_dim // cluster), 16)
@@ -244,7 +272,8 @@ def bilstm_dual_scan_fused(fw_params, bw_params, x, x_rev,
 
 def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
                         forget_bias: float, c_all, h_all, dout, dcfin, dhfin,
-                        store_dtype=torch.float32, steps: bool = False):
+                        store_dtype=torch.float32, steps: bool = False,
+                        _plan=None):
     """One BLSTM layer's backward over the whole sequence (K2).
 
     Arguments and return value as ``cells.dual_recurrence_backward``:
@@ -252,7 +281,8 @@ def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
     ``[2, H, P]`` or None, dpeep ``[2, 3, H]`` or None), and with
     ``steps`` the cotangents of the carried states entering each step,
     dc_in ``[T, 2B, H]`` and dh_in ``[T, 2B, P]``.  c_all and h_all are
-    in ``store_dtype``."""
+    in ``store_dtype``.  ``_plan`` forces a bf16 launch's plan and R, as
+    ``lstm_layer_forward``'s does (``csrc/lstm_bwd.cu`` ``forced``)."""
     if gx.device.type == "cpu":
         return cells.dual_recurrence_backward(
             gx, sequence_length, keep, wh, proj, peep, forget_bias, c_all,
@@ -260,7 +290,7 @@ def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
     dgates, dwh, dproj, dpeep, dc_in, dh_in, _ = _backward_launch(
         "lstm_layer_backward", None, gx, sequence_length, keep, wh, proj,
         peep, forget_bias, c_all, h_all, dout, dcfin, dhfin, store_dtype,
-        steps)
+        steps, _plan)
     lstm_layer_backward.launches += 1
     result = (dgates, dwh, dproj, dpeep)
     return result + ((dc_in, dh_in) if steps else ())
@@ -299,9 +329,10 @@ lstm_layer_backward_fold.launches = 0
 
 def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
                      forget_bias, c_all, h_all, dout, dcfin, dhfin,
-                     store_dtype, steps):
-    """Launch K2, or K3 when ``fold`` is (x2, wx).  Returns (dgates, dwh,
-    dproj, dpeep, dc_in, dh_in, (dx2, dwx, dbias) or None)."""
+                     store_dtype, steps, plan=None):
+    """Launch K2, or K3 when ``fold`` is (x2, wx); K2 on a forced plan and
+    R when ``plan`` is given.  Returns (dgates, dwh, dproj, dpeep, dc_in,
+    dh_in, (dx2, dwx, dbias) or None)."""
     if gx.device.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (what, gx.device))
     time_steps, b2, h4 = gx.shape
@@ -343,14 +374,17 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
 
     lib = _build.library()
     name = "lstm_bwd_fold" if fold else "lstm_bwd"
-    cluster = lib.lstm_bwd_fits(num_units, out_dim, int(proj is not None),
-                                int(wh.dtype == torch.bfloat16),
-                                int(store_dtype == torch.bfloat16))
-    if not cluster:
+    layout = lib.lstm_bwd_fits(num_units, out_dim, int(proj is not None),
+                               int(wh.dtype == torch.bfloat16),
+                               int(store_dtype == torch.bfloat16))
+    if not layout:
         raise RuntimeError("%s: no launch plan for a %s layer of H=%d P=%d"
                            % (name, str(wh.dtype).split(".")[-1], num_units,
                               out_dim))
-    wh_sl, proj_rows = _backward_slices(wh, proj, cluster)
+    cluster, streamed = abs(layout), layout < 0
+    if plan is not None:
+        streamed = plan[0] != "resident"
+    wh_sl, proj_rows = _backward_slices(wh, proj, cluster, streamed)
     dgates = empty(time_steps, b2, h4, dtype=store_dtype)
     outb = doutp = dproj = None
     if proj is not None:
@@ -384,7 +418,12 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
             _ptr(dproj), _ptr(dpeep), _ptr(scratch),
             torch.cuda.current_stream(device).cuda_stream]
     folded = None
-    if fold is None:
+    if plan is not None:
+        if not bf16 or fold is not None:
+            raise ValueError("a forced plan is a bf16 launch of K2")
+        launch = lib.lstm_bwd_bf16_forced
+        args += [PLANS[plan[0]], int(plan[1])]
+    elif fold is None:
         launch = lib.lstm_bwd_bf16 if bf16 else lib.lstm_bwd_f32
     else:
         folded = (empty(2, batch, time_steps, dim, dtype=store_dtype),
@@ -395,44 +434,50 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
     return dgates, dwh, dproj, dpeep, dc_in, dh_in, folded
 
 
-def _proj_rows(proj, cluster: int):
+def _proj_rows(proj, cluster: int, padded: bool = False):
     """proj as the backward's cluster blocks own it: block q holds the rows
     of its hidden units [q·US, (q+1)·US), proj ``[n, H, P]`` → ``[n,
     cluster, U16, P16]`` (U16: US rounded up to 16, P16: P rounded up to
-    16), zero-padded, as in ``csrc/lstm_bwd.cu`` ``bwd_plan``."""
+    16), zero-padded, as in ``csrc/lstm_bwd.cu`` ``bwd_plan``; with
+    ``padded`` (the streamed plan) each row padded by 8 zeros, ``[n,
+    cluster, U16, P16 + 8]``."""
     n, units, out_dim = proj.shape
     us = _round_up(-(-units // cluster), 8)
-    rows = F.pad(proj, (0, _round_up(out_dim, 16) - out_dim,
+    rows = F.pad(proj, (0, _round_up(out_dim, 16) - out_dim + 8 * padded,
                         0, cluster * us - units))
     rows = rows.view(n, cluster, us, rows.shape[-1])
     return F.pad(rows, (0, 0, 0, _round_up(us, 16) - us)).contiguous()
 
 
-def _backward_slices(wh, proj, cluster: int):
+def _backward_slices(wh, proj, cluster: int, padded: bool = False):
     """(wh slices as K1 holds them, proj rows or None) for K2, made once
-    per weight tensor (``cells.derived``)."""
+    per weight tensor (``cells.derived``); ``padded`` for the streamed
+    plan."""
     sources = [t for t in (wh, proj) if t is not None]
-    wh_sl = cells.derived(sources, ("cluster slices", cluster),
-                          lambda: _slices(wh, proj, cluster))[0]
+    wh_sl = cells.derived(sources, ("cluster slices", cluster, padded),
+                          lambda: _slices(wh, proj, cluster, padded))[0]
     if proj is None:
         return wh_sl, None
-    return wh_sl, cells.derived([proj], ("proj rows", cluster),
-                                lambda: _proj_rows(proj, cluster))
+    return wh_sl, cells.derived([proj], ("proj rows", cluster, padded),
+                                lambda: _proj_rows(proj, cluster, padded))
 
 
 def _config(what, device, batch, units, out_dim, has_proj, dtype) -> dict:
     lib = _build.library()
-    ints = [ctypes.c_int() for _ in range(4)]
-    smem = ctypes.c_longlong()
+    ints = [ctypes.c_int() for _ in range(5)]
+    longs = [ctypes.c_longlong() for _ in range(3)]
     err = getattr(lib, what)(device.index or 0, batch, units, out_dim,
                              int(has_proj), int(dtype == torch.bfloat16),
-                             *[ctypes.byref(v) for v in ints],
-                             ctypes.byref(smem))
+                             *[ctypes.byref(v) for v in ints[:4]],
+                             ctypes.byref(longs[0]), ctypes.byref(ints[4]),
+                             *[ctypes.byref(v) for v in longs[1:]])
     _build.check(err, what)
-    blocks, rows, clusters, resident = (v.value for v in ints)
+    blocks, rows, clusters, resident, streamed = (v.value for v in ints)
+    smem, held, streams = (v.value for v in longs)
     return {"blocks": blocks, "rows": rows, "clusters": clusters,
             "resident": resident, "waves": -(-clusters // max(resident, 1)),
-            "smem_bytes": smem.value}
+            "smem_bytes": smem, "streamed": bool(streamed),
+            "held_bytes": held, "streamed_bytes": streams}
 
 
 def forward_config(device, batch: int, units: int, out_dim: int,
@@ -440,8 +485,10 @@ def forward_config(device, batch: int, units: int, out_dim: int,
     """How K1 launches on ``device`` at this shape, as its launcher
     chooses: ``blocks`` a cluster (8 or 16), ``rows`` (batch rows a
     cluster, R), ``clusters``, ``resident`` (clusters resident at once, the
-    occupancy API's answer), ``waves`` and ``smem_bytes`` (shared memory a
-    block)."""
+    occupancy API's answer), ``waves``, ``smem_bytes`` (shared memory a
+    block), ``streamed`` (the streamed plan or not), and a block's weight
+    bytes ``held_bytes`` in shared memory and ``streamed_bytes`` read from
+    L2 at every step."""
     return _config("lstm_fwd_config", device, batch, units, out_dim,
                    has_proj, dtype)
 

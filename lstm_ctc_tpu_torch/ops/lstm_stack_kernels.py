@@ -619,7 +619,8 @@ def stack_slices(wz, proj, cluster: int, backward: bool = False) -> Dict:
     sources = [t for t in (wz, proj) if t is not None]
 
     def build():
-        wh_sl, proj_sl = _slices(wz[:, out_dim:], proj, cluster)
+        wh_sl, proj_sl = _slices(wz[:, out_dim:], proj, cluster,
+                                 block_units=BLOCK_UNITS)
         if backward:
             return {"wh_sl": wh_sl, "proj_rows": None if proj is None
                     else _proj_rows(proj, cluster)}

@@ -66,9 +66,9 @@ def test_backward_slices_reassemble_to_the_weights(units, proj, cluster):
                        [:, :units, :out_dim], pj)
     assert not rows[:, :, us:].any() and not rows[..., out_dim:].any()
     assert not rows[:, :, :us].reshape(2, cluster * us, p16)[:, units:].any()
-    # the wh slices are K1's own, made once
-    assert wh_sl is cells.derived([wh, pj], ("cluster slices", cluster),
-                                  lambda: None)[0]
+    # the wh slices are K1's own (of its resident plans' layout), made once
+    assert wh_sl is cells.derived([wh, pj], ("cluster slices", cluster,
+                                             False), lambda: None)[0]
 
 
 def cluster_backward(gx, seq, keep, wh, proj, peep, c_all, h_all, dout,

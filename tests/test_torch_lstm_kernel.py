@@ -265,19 +265,20 @@ def test_kernel_odd_widths_and_short_sequences_on_gpu(cuda, units, proj,
 
 @pytest.mark.parametrize("units,out_dim,proj,cluster", [
     (16, 8, True, 8), (20, 20, False, 8), (320, 320, True, 8),
-    (1024, 256, True, 16), (384, 384, True, 16), (36, 36, False, 16)],
+    (1024, 256, True, 16), (384, 384, True, 16), (36, 36, False, 16),
+    (2048, 512, True, 16)],
     ids=["16-8-True", "20-20-False", "320-320-True", "1024-256-True-16",
-         "384-384-True-16", "36-36-False-16"])
+         "384-384-True-16", "36-36-False-16", "2048-512-True-16"])
 def test_cluster_slices_layout(units, out_dim, proj, cluster):
     """Block q of a cluster (8 or 16 blocks) gets units [q·US, (q+1)·US) of
     every gate and projection columns [q·PS, (q+1)·PS); depths padded to 16
-    with zeros.  A block owns at most 64 units: 1024 with 16 blocks, not
-    with 8."""
+    with zeros.  A block of K1 or K2 owns at most 128 units: 2048 with 16
+    blocks, not with 8."""
     gen = torch.Generator().manual_seed(7)
     wh = torch.randn(2, out_dim, 4 * units, generator=gen)
     pj = torch.randn(2, units, out_dim, generator=gen) if proj else None
-    if units > 512:
-        with pytest.raises(ValueError, match="at most 512 units"):
+    if units > 1024:
+        with pytest.raises(ValueError, match="at most 1024 units"):
             lstm_kernels._slices(wh, pj, 8)
     wh_sl, pj_sl = lstm_kernels._slices(wh, pj, cluster)
     us = wh_sl.shape[-1]

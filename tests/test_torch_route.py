@@ -104,14 +104,16 @@ def test_mix_eligible_refuses_unknown_modes():
 
 @pytest.mark.parametrize("units,out_dim,train,eligible", [
     (512, 512, True, True), (513, 512, False, True), (513, 4, True, False),
-    (1024, 1024, True, True), (1025, 1024, False, False),
+    (1024, 1024, True, True), (1025, 1024, False, True),
     (1025, 4, True, False), (1024, 256, True, True),
     (320, 320, True, True), (6, 8, True, False), (8, 6, True, False),
-    (6, 6, False, True), (10, 320, True, False)])
+    (6, 6, False, True), (10, 320, True, False), (2048, 2048, True, True),
+    (2048, 512, True, True), (2049, 2048, False, False),
+    (2049, 4, True, False), (2052, 512, True, False)])
 def test_layer_eligible_shape_edges(units, out_dim, train, eligible):
     """The shape-only part (a CPU device asks the library nothing): at most
-    1024 units (16 blocks of 64); in training H and P divisible by 4 (6 and
-    10 are 2 mod 4)."""
+    2048 units (16 blocks of 128); in training H and P divisible by 4 (6
+    and 10 are 2 mod 4)."""
     assert lstm_kernels.layer_eligible(torch.device("cpu"), units, out_dim,
                                        out_dim != units, torch.bfloat16,
                                        train) is eligible
@@ -177,10 +179,10 @@ def test_layer_eligible_asks_the_plans_once_a_shape(fake_plans, units,
 
 
 def test_layer_eligible_asks_no_plan_past_the_shape_rules(fake_plans):
-    """Past 1024 units, or a backward with H or P not divisible by 4, the
+    """Past 2048 units, or a backward with H or P not divisible by 4, the
     shape rules refuse before any plan is asked."""
     cuda = torch.device("cuda")
-    assert not lstm_kernels.layer_eligible(cuda, 1028, 1028, False,
+    assert not lstm_kernels.layer_eligible(cuda, 2052, 2052, False,
                                            torch.float32, False)
     assert not lstm_kernels.layer_eligible(cuda, 6, 8, True, torch.float32,
                                            True)
@@ -188,8 +190,10 @@ def test_layer_eligible_asks_no_plan_past_the_shape_rules(fake_plans):
 
 
 # the widths past the 8-block plans that the 16-block ones take: Kaldi's
-# BLSTMP cell and projection (1024, 256), and H = P = 512 and 384
-WIDE = [(1024, 256), (512, 512), (384, 384)]
+# BLSTMP cell and projection (1024, 256), and H = P = 512 and 384; and the
+# streamed plan's: H = P = 1024 (no projection), 2048 cells with a
+# projection of 512 (Sak et al.'s LSTMP)
+WIDE = [(1024, 256), (512, 512), (384, 384), (1024, 1024), (2048, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -199,9 +203,9 @@ WIDE = [(1024, 256), (512, 512), (384, 384)]
 def test_layer_eligible_takes_the_wide_shapes(monkeypatch, fresh_warnings,
                                               units, out_dim, train, dtype):
     """Where the plans take a wide layer (the library answers 16, the
-    blocks a cluster of its plan), so does the predicate, on a CUDA device,
-    in serving and in training, asking nothing but the two plan queries;
-    H = 1025 is refused before any question."""
+    blocks a cluster of its plan, resident or streamed), so does the
+    predicate, on a CUDA device, in serving and in training, asking nothing
+    but the two plan queries; H = 2049 is refused before any question."""
     plans = FakePlans(fwd=set(WIDE), bwd=set(WIDE))
     plans.lstm_fwd_fits = lambda *a: 16 * FakePlans.lstm_fwd_fits(plans, *a)
     plans.lstm_bwd_fits = lambda *a: 16 * FakePlans.lstm_bwd_fits(plans, *a)
@@ -215,7 +219,7 @@ def test_layer_eligible_takes_the_wide_shapes(monkeypatch, fresh_warnings,
                 cuda, units, out_dim, out_dim != units, dtype, train, dtype,
                 warn=True)
             assert not lstm_kernels.layer_eligible(
-                cuda, 1025, out_dim, True, dtype, train, dtype)
+                cuda, 2049, out_dim, True, dtype, train, dtype)
     finally:
         lstm_kernels._unplanned.cache_clear()
     bf16 = int(dtype == torch.bfloat16)
@@ -691,16 +695,20 @@ def test_streaming_route_on_gpu(cuda, fresh_warnings):
         assert ratio(g[1].cpu(), r[1]) <= 1e-4
 
 
+ROUTED_UNITS = 2052  # past the layer kernels' 2048 units
+
+
 @pytest.mark.cuda
 def test_blstm_route_on_gpu(cuda, fresh_warnings):
-    """A bf16 BLSTM layer of H = P = 1024 without a projection in
-    training, for which K1 has no launch plan (its wh slice, 1024 x 256 a
-    block even with 16 blocks, exceeds shared memory; K2's too): the plain
-    recurrence under autograd, equal to cells.bilstm_dual_scan on the same
-    tensors, one warning, no K1, K2 or K3 launch."""
+    """A bf16 BLSTM layer of H = P = 2052 without a projection in
+    training, past the layer kernels' 2048 units (H = P = 1024, which this
+    test routed until the streamed plan took it, now runs K1 and K2): the
+    plain recurrence under autograd, equal to cells.bilstm_dual_scan on the
+    same tensors, one warning, no K1, K2 or K3 launch."""
     config = {"nnet_type": "blstm", "input_dim": 20, "num_layers": 1,
-              "num_neurons": 1024, "num_projects": 0, "num_targets": 9,
-              "use_peepholes": True, "compute_dtype": "bfloat16"}
+              "num_neurons": ROUTED_UNITS, "num_projects": 0,
+              "num_targets": 9, "use_peepholes": True,
+              "compute_dtype": "bfloat16"}
     gen = torch.Generator().manual_seed(5)
     params = blstm.init_blstm(gen, config, cuda)
     rng = np.random.RandomState(5)
@@ -712,8 +720,8 @@ def test_blstm_route_on_gpu(cuda, fresh_warnings):
                 lstm_kernels.lstm_layer_backward_fold)
     before = counted(*wrappers)
     with pytest.warns(UserWarning,
-                      match=r"forward \(K1\) has no launch plan for a "
-                      "bfloat16 layer of H=1024 P=1024"):
+                      match="a layer of %d units exceeds the CUDA layer "
+                      "kernels' 2048" % ROUTED_UNITS):
         logits, _, _ = blstm.apply_blstm(params, x, seq, config, train=True)
     grads = torch.autograd.grad(logits.sum(), leaves)
     torch.cuda.synchronize()
@@ -723,7 +731,7 @@ def test_blstm_route_on_gpu(cuda, fresh_warnings):
                                        rev, seq, blstm.FORGET_BIAS,
                                        compute_dtype=torch.bfloat16)
     cat = torch.cat([fw, cells.reverse_sequence(bw, seq)], dim=2)
-    ref = (cat.reshape(-1, 2048) @ params["head"]["w"]
+    ref = (cat.reshape(-1, 2 * ROUTED_UNITS) @ params["head"]["w"]
            + params["head"]["b"]).reshape(3, 17, 9)
     ref_grads = torch.autograd.grad(ref.sum(), leaves)
     assert torch.equal(logits, ref)
@@ -738,10 +746,16 @@ def test_blstm_route_on_gpu(cuda, fresh_warnings):
     (384, 384, torch.float32), (512, 512, torch.float32),
     (64, 640, torch.float32), (1024, 256, torch.bfloat16),
     (512, 512, torch.bfloat16), (1024, 256, torch.float32),
-    (1024, 1024, torch.bfloat16), (1028, 256, torch.float32)],
+    (1024, 1024, torch.bfloat16), (1028, 256, torch.float32),
+    (2048, 512, torch.bfloat16), (2048, 512, torch.float32),
+    (2052, 256, torch.float32), (2048, 2048, torch.bfloat16),
+    (2048, 2048, torch.float32), (2048, None, torch.bfloat16),
+    (2048, None, torch.float32)],
     ids=["bf16-320", "bf16-384", "bf16-200x448", "bf16-324", "f32-384",
          "f32-512", "f32-64x640", "bf16-1024x256", "bf16-512",
-         "f32-1024x256", "bf16-1024", "f32-1028x256"])
+         "f32-1024x256", "bf16-1024", "f32-1028x256", "bf16-2048x512",
+         "f32-2048x512", "f32-2052x256", "bf16-2048x2048", "f32-2048x2048",
+         "bf16-2048-noproj", "f32-2048-noproj"])
 def test_layer_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
                                                          out_dim, dtype):
     """The predicate's plans are the launchers' own: where it takes a
@@ -750,16 +764,20 @@ def test_layer_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
     launches of all clusters at once and in waves; at P = 640 in float32
     R = 8 has no plan, so the waves run with R = 6.  The widths past the
     8-block plans run 16-block clusters; bf16 H = P = 1024 (with a
-    projection: 1024 x 256 of wh a block) and H = 1028 have no plan."""
-    forward = lstm_kernels.layer_eligible(cuda, units, out_dim, True, dtype,
-                                          False)
-    backward = lstm_kernels.layer_eligible(cuda, units, out_dim, True,
+    projection: 1024 x 256 of wh a block), H = 2048, P = 512 and H = P =
+    2048 (the widest layer, with and without a projection: out_dim None)
+    the streamed plan; H = 2052 has no plan."""
+    has_proj = out_dim is not None
+    out_dim = out_dim or units
+    forward = lstm_kernels.layer_eligible(cuda, units, out_dim, has_proj,
+                                          dtype, False)
+    backward = lstm_kernels.layer_eligible(cuda, units, out_dim, has_proj,
                                            dtype, True, dtype)
     gen = torch.Generator().manual_seed(units)
     wh = (torch.randn(2, out_dim, 4 * units, generator=gen) * 0.05).to(
         cuda, dtype)
     proj = (torch.randn(2, units, out_dim, generator=gen) * 0.05).to(
-        cuda, dtype)
+        cuda, dtype) if has_proj else None
     for batch in (3, 64, 512):
         gx = torch.randn(5, 2 * batch, 4 * units, generator=gen).to(cuda)
         seq = torch.full((batch,), 5, dtype=torch.int32)
@@ -777,11 +795,11 @@ def test_layer_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
                 run()
         if backward:
             assert lstm_kernels.backward_config(cuda, batch, units, out_dim,
-                                                True, dtype)["rows"] > 0
+                                                has_proj, dtype)["rows"] > 0
         else:
             with pytest.raises(RuntimeError, match="lstm_bwd_config"):
                 lstm_kernels.backward_config(cuda, batch, units, out_dim,
-                                             True, dtype)
+                                             has_proj, dtype)
 
 
 # the stack shapes held against the launchers on the card: the flagship

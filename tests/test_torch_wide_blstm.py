@@ -2,7 +2,10 @@
 which the layer kernels take with 16-block clusters (``csrc/lstm_fwd.cu``,
 ``csrc/lstm_bwd.cu``; their cluster partitions are emulated at these
 widths in ``test_torch_lstm_fwd_cluster.py`` and
-``test_torch_lstm_bwd_cluster.py``).
+``test_torch_lstm_bwd_cluster.py``), and at the widths of their streamed
+plan (H = P = 1024 without a projection, 2048 cells with a projection of
+512; emulated in ``test_torch_lstm_streamed.py``): there the layer at B =
+2, T = 4, and a train step at 1024/1024, as at 1024/256.
 
 On the CPU the layer runs its plain versions (``cells.dual_recurrence``
 and, under autograd, ``cells.dual_recurrence_backward``).  Here, at H =
@@ -44,12 +47,13 @@ def jref():
                                  fused=bilstm_dual_scan_fused)
 
 
-def wide_case(seed, time_steps, batch=3, dim=8):
+def wide_case(seed, time_steps, batch=3, dim=8, units=UNITS, proj=PROJ):
     """Port parameters of both directions, numpy inputs with resets, and
-    output cotangents, from a seed."""
+    output cotangents, from a seed (``proj`` None: no projection)."""
     gen = torch.Generator().manual_seed(seed)
-    fw, bw = (cells.init_lstm_cell(gen, dim, UNITS, PROJ, True)
+    fw, bw = (cells.init_lstm_cell(gen, dim, units, proj, True)
               for _ in range(2))
+    out_dim = proj or units
     rng = np.random.RandomState(seed)
     x = rng.randn(batch, time_steps, dim).astype(np.float32)
     seq_len = np.array([time_steps, time_steps - 1, time_steps // 2],
@@ -57,10 +61,10 @@ def wide_case(seed, time_steps, batch=3, dim=8):
     reset_mask = np.zeros((batch, time_steps), np.float32)
     reset_mask[:, 0] = 1.0
     reset_mask[0, time_steps // 2] = 1.0
-    cots = [rng.randn(batch, time_steps, PROJ).astype(np.float32)
+    cots = [rng.randn(batch, time_steps, out_dim).astype(np.float32)
             for _ in range(2)]
     cots += [rng.randn(batch, n).astype(np.float32)
-             for n in (UNITS, PROJ, UNITS, PROJ)]
+             for n in (units, out_dim, units, out_dim)]
     return fw, bw, x, seq_len, reset_mask, cots
 
 
@@ -109,13 +113,8 @@ def port_outputs_and_grads(fw, bw, x, x_rev, seq_len, reset_mask, cots):
                    {k: v.grad for k, v in bw.items()}, xt.grad, xr.grad))
 
 
-@pytest.mark.parametrize("fused,time_steps", [(False, 6), (True, 4)],
-                         ids=["scan", "pallas-interpret"])
-def test_wide_layer_matches_jax(jref, fused, time_steps):
-    """The plain forward (the layer's outputs and final states) and its
-    autograd backward (every parameter's gradient and both inputs') at H =
-    1024, P = 256, with packed-row resets."""
-    fw, bw, x, seq_len, reset_mask, cots = wide_case(1, time_steps)
+def check_layer_against_jax(jref, fused, case):
+    fw, bw, x, seq_len, reset_mask, cots = case
     ref_out, ref_grads, x_rev = jax_outputs_and_grads(
         jref, jax_layer(jref, fused), fw, bw, x, seq_len, reset_mask, cots)
     before = (lstm_kernels.lstm_layer_forward.launches,
@@ -141,6 +140,33 @@ def test_wide_layer_matches_jax(jref, fused, time_steps):
                                **TOL)
     np.testing.assert_allclose(grads[3].numpy(), np.asarray(ref_grads[3]),
                                **TOL)
+
+
+@pytest.mark.parametrize("fused,time_steps", [(False, 6), (True, 4)],
+                         ids=["scan", "pallas-interpret"])
+def test_wide_layer_matches_jax(jref, fused, time_steps):
+    """The plain forward (the layer's outputs and final states) and its
+    autograd backward (every parameter's gradient and both inputs') at H =
+    1024, P = 256, with packed-row resets."""
+    check_layer_against_jax(jref, fused, wide_case(1, time_steps))
+
+
+# the widths of the layer kernels' streamed plan (on the card; the CPU runs
+# the plain versions): H = P = 1024 without a projection, and 2048 cells
+# with a projection of 512 (Sak, Senior and Beaufays' LSTMP)
+STREAMED = [(1024, None), (2048, 512)]
+
+
+@pytest.mark.parametrize("fused", [False, True],
+                         ids=["scan", "pallas-interpret"])
+@pytest.mark.parametrize("units,proj", STREAMED,
+                         ids=["1024-noproj", "2048x512"])
+def test_streamed_widths_match_jax(jref, units, proj, fused):
+    """The layer and every gradient at the streamed plan's widths, B = 2,
+    T = 4, with packed-row resets, against JAX's scan and its fused Pallas
+    layer in interpret mode."""
+    check_layer_against_jax(jref, fused, wide_case(
+        2, 4, batch=2, units=units, proj=proj))
 
 
 WIDE_CONFIG = dict(nnet_type="blstm", input_dim=4, left_context=1,
@@ -169,22 +195,37 @@ def test_wide_train_step_matches_jax(jref):
     """A 2-layer BLSTM of 1024 cells with 256-wide projections (layer 1
     fed 512 wide) and the MoE head: the loss and every parameter after one
     adam step, from the JAX package's initial weights through the bridge."""
+    check_train_step_against_jax(jref, WIDE_CONFIG, 2 * PROJ)
+
+
+@pytest.mark.parametrize("units,proj", STREAMED,
+                         ids=["1024-noproj", "2048x512"])
+def test_streamed_train_step_matches_jax(jref, units, proj):
+    """The same at the streamed plan's widths (on the card): H = P = 1024
+    without a projection (layer 1 fed 2048 wide) and 2048 cells with a
+    projection of 512 (layer 1 fed 1024 wide)."""
+    check_train_step_against_jax(
+        jref, dict(WIDE_CONFIG, num_neurons=units, num_projects=proj or 0),
+        2 * (proj or units), units)
+
+
+def check_train_step_against_jax(jref, config, layer1_width, units=UNITS):
     from lstm_ctc_tpu.models import init_model as jax_init_model
     from lstm_ctc_tpu.train.graph import make_train_step as jax_train_step
     from lstm_ctc_tpu_torch.train.checkpoint import tree_map
     from lstm_ctc_tpu_torch.train.graph import make_train_step, param_leaves
     jax, jnp = jref.jax, jref.jnp
     batch = labeled_batch()
-    jparams, jstate = jax_init_model(jax.random.PRNGKey(3), WIDE_CONFIG)
-    init, step = jax_train_step(WIDE_CONFIG, LEARN_RATE, "adam")
+    jparams, jstate = jax_init_model(jax.random.PRNGKey(3), config)
+    init, step = jax_train_step(config, LEARN_RATE, "adam")
     ref = jax.tree.map(jnp.array, jparams)
     ref, _, _, ref_metrics = step(
         ref, init(ref), jstate, jax.random.PRNGKey(0),
         {k: jnp.asarray(v) for k, v in batch.items()})
     params = tree_map(lambda t: t.requires_grad_(), params_from_numpy(
         jax.tree.map(np.asarray, jparams)))
-    assert params["fwd"][1]["wx"].shape == (2 * PROJ, 4 * UNITS)
-    port_init, port_step = make_train_step(WIDE_CONFIG, LEARN_RATE, "adam")
+    assert params["fwd"][1]["wx"].shape == (layer1_width, 4 * units)
+    port_init, port_step = make_train_step(config, LEARN_RATE, "adam")
     before = lstm_kernels.lstm_layer_backward.launches
     params, _, _, metrics = port_step(
         params, port_init(params), {}, None,
