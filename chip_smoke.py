@@ -1324,11 +1324,11 @@ def check_routes(torch, pkg, device, rng):
         fail("the deep lstm stack was not routed, or differs from its "
              "layer-by-layer version")
 
-    # a bf16 stack of H = P = 1024 without a projection, streamed (carried
-    # states): K12 has no plan for it (8 MB of wh a layer), nor for one
-    # layer of it, so each layer runs the plain scan
-    stack = make_stack(1024, None, 2)
-    states = [tuple(torch.from_numpy(0.1 * rng.randn(4, 1024).astype(
+    # a bf16 stack of H = P = 2052 without a projection, streamed (carried
+    # states): past the stack kernels' 2048 units, for the stack and for
+    # one layer of it, so each layer runs the plain scan
+    stack = make_stack(ROUTED_UNITS, None, 2)
+    states = [tuple(torch.from_numpy(0.1 * rng.randn(4, ROUTED_UNITS).astype(
         np.float32)).to(device) for _ in range(2)) for _ in stack]
 
     def stream():
@@ -1338,8 +1338,8 @@ def check_routes(torch, pkg, device, rng):
 
     (got, got_states), text = routed(
         torch, stream, (sk.lstm_stack_forward,),
-        r"stack forward \(K12\) has no launch plan for a bfloat16 stack of "
-        "H=1024 P=1024")
+        "a stack of %d units exceeds the CUDA stack kernels' 2048"
+        % ROUTED_UNITS)
     ref, ref_states = xb, []
     with torch.no_grad():
         for cell, residual, state in zip(stack, [False, True], states):
@@ -1350,9 +1350,9 @@ def check_routes(torch, pkg, device, rng):
     same = bool(torch.equal(got, ref)) and all(
         torch.equal(g, r) for a, b in zip(got_states, ref_states)
         for g, r in zip(a, b))
-    say("  route, streamed lstm stack bf16 H=P=1024 without a projection: "
+    say("  route, streamed lstm stack bf16 H=P=%d without a projection: "
         "outputs and carried states equal to the plain scans': %s; no K12 "
-        "launch; warned: %s" % (same, text))
+        "launch; warned: %s" % (ROUTED_UNITS, same, text))
     if not same:
         fail("the routed streamed stack differs from its plain scans")
 
@@ -2031,33 +2031,17 @@ def within_bf16_step(got, ref):
                  <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
 
 
-def dgates_float64(torch, cells, args, dc_in, dh_in):
-    """The dgates of every step of a K2 (or K3) launch on K2's ``args``
-    replayed in float64 from the kernel's own carries entering each step
-    (dc_in, dh_in) and the stored states, the products' operands rounded
-    to the compute dtype as the kernel rounds them (dout_p formed in
-    float32 first, as the kernel forms it).  Returns (dg, err), both [T,
-    2B, 4H] float64: err is a first-order bound on the float32
-    computation's error in each element, a running error bound: each
-    float32 sum off by u·Σ|terms| (u = 2^-24; the gate sums over P and
-    gx, dout_blk's over P, dc_new's three terms), each product and
-    transcendental function by a few u of its value, carried through the
-    derivatives of what follows (the gates' sigmoids and tanhs, c_new,
-    dc_new, the factors that take it to each element)."""
-    gx, seq, keep, wh, proj, peep, forget_bias, c_all, h_all, dout = args[:10]
-    time_steps, b2, h4 = gx.shape
-    units = h4 // 4
-    f64, cdt, u = torch.float64, wh.dtype, F32_UNIT
-    gx4, keep4, valid4 = cells._step_views(gx, seq, keep)
-    c0 = cells._previous(c_all, keep4).to(f64)
-    h_prev = cells._previous(h_all, keep4)
-    m = valid4.to(f64)
-
-    def view(x, dtype=f64):
-        return x.to(dtype).reshape(time_steps, 2, b2 // 2, x.shape[-1])
-
-    def rounded(x):
-        return x.to(cdt).to(f64)
+def cell_backward_float64(torch, gates, errs, c0, peep, forget_bias, m, dc,
+                          dob, edob):
+    """The cell backward of dgates_float64 (K2) and stack_dgates_float64
+    (K13) in float64 from the gate sums ``gates`` [..., L or 2, B, 4H] and
+    their error bounds ``errs``, c_prev ``c0``, the peepholes ``peep`` [L
+    or 2, 3, H] (or None), the mask ``m``, the carried dc, and dout_blk
+    ``dob`` with its bound ``edob``: each product and transcendental
+    function off by a few u of its value, each sum by u·Σ|terms|, carried
+    through the derivatives of what follows.  Returns (dg, err)."""
+    u = F32_UNIT
+    units = c0.shape[-1]
 
     def sig(x, e):
         y = torch.sigmoid(x)
@@ -2067,13 +2051,9 @@ def dgates_float64(torch, cells, args, dc_in, dh_in):
         y = torch.tanh(x)
         return y, (1.0 - y * y) * e + 4 * u * y.abs()
 
-    hq, whq = rounded(h_prev), rounded(wh)
-    gx64 = gx4.to(f64)
-    gates = gx64 + torch.matmul(hq, whq)
-    errs = u * (gx64.abs() + torch.matmul(hq.abs(), whq.abs()))
     (i, j, f, o), (ei, ej, ef, eo) = (gates.split(units, dim=-1),
                                       errs.split(units, dim=-1))
-    pe = None if peep is None else peep.to(f64)
+    pe = None if peep is None else peep.to(torch.float64)
     if pe is not None:
         pi, pf, po = (pe[:, k, None, :] for k in range(3))
         i = i + pi * c0
@@ -2092,16 +2072,6 @@ def dgates_float64(torch, cells, args, dc_in, dh_in):
         eo = eo + po.abs() * ecn + u * ((po * cn).abs() + o.abs())
     so, eso = sig(o, eo)
     tc, etc = tanh(cn, ecn)
-    dc, dh = view(dc_in), view(dh_in)
-    dout_p = valid4.float() * (view(dout, torch.float32)
-                               + view(dh_in, torch.float32))
-    if proj is None:
-        dob = m * (view(dout) + dh)
-        edob = u * dob.abs()
-    else:
-        dq, pt = rounded(dout_p), rounded(proj).transpose(-1, -2)
-        dob = torch.matmul(dq, pt)
-        edob = u * torch.matmul(dq.abs(), pt.abs())
     k_o = tc * so * (1.0 - so)
     d_o = dob * k_o
     e_ko = (so * (1.0 - so)).abs() * etc + (tc * (1.0 - 2 * so)).abs() * eso
@@ -2126,7 +2096,52 @@ def dgates_float64(torch, cells, args, dc_in, dh_in):
     err = torch.cat([k_i.abs() * e_dcn + dcn.abs() * e_ki,
                      k_j.abs() * e_dcn + dcn.abs() * e_kj,
                      k_f.abs() * e_dcn + dcn.abs() * e_kf, e_do], dim=-1)
-    err = err + 3 * u * dg.abs()
+    return dg, err + 3 * u * dg.abs()
+
+
+def dgates_float64(torch, cells, args, dc_in, dh_in):
+    """The dgates of every step of a K2 (or K3) launch on K2's ``args``
+    replayed in float64 from the kernel's own carries entering each step
+    (dc_in, dh_in) and the stored states, the products' operands rounded
+    to the compute dtype as the kernel rounds them (dout_p formed in
+    float32 first, as the kernel forms it).  Returns (dg, err), both [T,
+    2B, 4H] float64: err is a first-order bound on the float32
+    computation's error in each element, a running error bound: each
+    float32 sum off by u·Σ|terms| (u = 2^-24; the gate sums over P and
+    gx, dout_blk's over P, dc_new's three terms), each product and
+    transcendental function by a few u of its value, carried through the
+    derivatives of what follows (the gates' sigmoids and tanhs, c_new,
+    dc_new, the factors that take it to each element)."""
+    gx, seq, keep, wh, proj, peep, forget_bias, c_all, h_all, dout = args[:10]
+    time_steps, b2, h4 = gx.shape
+    f64, cdt, u = torch.float64, wh.dtype, F32_UNIT
+    gx4, keep4, valid4 = cells._step_views(gx, seq, keep)
+    c0 = cells._previous(c_all, keep4).to(f64)
+    h_prev = cells._previous(h_all, keep4)
+    m = valid4.to(f64)
+
+    def view(x, dtype=f64):
+        return x.to(dtype).reshape(time_steps, 2, b2 // 2, x.shape[-1])
+
+    def rounded(x):
+        return x.to(cdt).to(f64)
+
+    hq, whq = rounded(h_prev), rounded(wh)
+    gx64 = gx4.to(f64)
+    gates = gx64 + torch.matmul(hq, whq)
+    errs = u * (gx64.abs() + torch.matmul(hq.abs(), whq.abs()))
+    dc = view(dc_in)
+    dout_p = valid4.float() * (view(dout, torch.float32)
+                               + view(dh_in, torch.float32))
+    if proj is None:
+        dob = m * (view(dout) + view(dh_in))
+        edob = u * dob.abs()
+    else:
+        dq, pt = rounded(dout_p), rounded(proj).transpose(-1, -2)
+        dob = torch.matmul(dq, pt)
+        edob = u * torch.matmul(dq.abs(), pt.abs())
+    dg, err = cell_backward_float64(torch, gates, errs, c0, peep,
+                                    forget_bias, m, dc, dob, edob)
     return dg.reshape(time_steps, b2, h4), err.reshape(time_steps, b2, h4)
 
 
@@ -2807,9 +2822,12 @@ def train_moe_end_to_end(torch, pkg, device, work, scp):
 
 # --- phases 15-17: the opt-in folds, K3 and K7 ---
 
-# the A/B's variants (python -m lstm_ctc_tpu_torch.scripts.ab_train_step)
+# the A/B's variants (each profiled in this process), and the two the
+# A/B tool runs (python -m lstm_ctc_tpu_torch.scripts.ab_train_step, a
+# subprocess a variant, most of its time a process reaching the card)
 AB_VARIANTS = ("default=", "fold=lstm_fold_dx=true",
                "k7=moe_wgrad_mode=kernel", "twokernel=moe_wgrad_mode=twokernel")
+AB_TOOL_VARIANTS = AB_VARIANTS[:2]
 AB_STEPS = 30
 
 
@@ -2922,7 +2940,7 @@ def train_folds_end_to_end(torch, pkg, device, work, scp):
     # the A/B tool, one subprocess a variant
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "lstm_ctc_tpu_torch.scripts.ab_train_step"]
-    cmd += list(AB_VARIANTS) + ["--batch", "32", "--time-steps", "384",
+    cmd += list(AB_TOOL_VARIANTS) + ["--batch", "32", "--time-steps", "384",
                                 "--steps", str(AB_STEPS), "--repeats", "1",
                                 "--device", "cuda", "--timeout", "300"]
     start = time.perf_counter()
@@ -2935,7 +2953,7 @@ def train_folds_end_to_end(torch, pkg, device, work, scp):
         fail("the A/B tool failed (%d): %s %s"
              % (run.returncode, run.stdout[-1500:], run.stderr[-1500:]))
     summary = lines[-1]["summary"]
-    names = [ab.parse_variant(spec)[0] for spec in AB_VARIANTS]
+    names = [ab.parse_variant(spec)[0] for spec in AB_TOOL_VARIANTS]
     if sorted(summary) != sorted(names):
         fail("the A/B tool reported %s, expected %s" % (sorted(summary),
                                                           names))
@@ -3384,12 +3402,62 @@ def check_stack_bwd(torch, pkg, device, rng):
 WIDE_STACKS = (("lstm", 1024, 256), ("lstm", 512, 512), ("lstm", 448, 448),
                ("lstm", 384, 384), ("cudnnlstm", 512, None))
 STREAM_SHAPE = dict(batch=1, steps=CHUNK_ROWS)
+# ... and on the streamed plan (bf16 slices that fit no resident plan;
+# float32 reads its slices from L2, 128 units a block past 1024): Sak,
+# Senior and Beaufays' LSTMP (2048 cells, projection 512), the cudnnlstm
+# family at H = P = 768 and 1024, and H = P = 2048 at T = 32 (as phases 3
+# and 7 hold K1 and K2 there; float32 too at the 2048-cell shapes);
+# (family, H, P or None, T);
+# then a streaming chunk at Sak's widths
+STREAMED_STACKS = (("lstm", 2048, 512, 384), ("cudnnlstm", 768, None, 384),
+                   ("cudnnlstm", 1024, None, 384),
+                   ("cudnnlstm", 2048, None, 32))
+SAK = ("lstm", 2048, 512)
 
 
-def wide_name(family, units, proj, batch=32):
+def wide_cases(torch):
+    """Phases 11-12's 16-block cases, in order: (key, family, H, P or None,
+    stack_case's shape arguments, the dtypes held, the plain version timed
+    beside the kernel, the stack through stack_layers timed beside the
+    parent's route, on the streamed plan).  key: (family, H, P, False) at
+    B = 32, T = 384, (.., True) for a streaming chunk, (.., T) at another
+    T."""
+    both, bf16 = (torch.float32, torch.bfloat16), (torch.bfloat16,)
+    cases = [((family, units, proj, False), family, units, proj, {}, both,
+              (units, proj) in ((1024, 256), (512, None)), True, False)
+             for family, units, proj in WIDE_STACKS]
+    cases.append((("lstm", 1024, 256, True), "lstm", 1024, 256,
+                  STREAM_SHAPE, both, False, False, False))
+    for family, units, proj, steps in STREAMED_STACKS:
+        full = steps == 384
+        cases.append(((family, units, proj, False if full else steps),
+                      family, units, proj, {} if full else dict(steps=steps),
+                      both if units == 2048 else bf16,
+                      units == 1024 or proj is not None,
+                      full and units != 768, True))
+    cases.append((SAK + (True,),) + SAK + (STREAM_SHAPE, both, True, False,
+                                          True))
+    return cases
+
+
+def wide_name(family, units, proj, batch=32, steps=384):
     return "%s H=%d P=%d%s" % (family, units, proj or units,
-                               "" if batch == 32 else " B=%d T=%d"
-                               % (batch, CHUNK_ROWS))
+                               " B=%d T=%d" % (batch, steps)
+                               if (batch, steps) != (32, 384) else "")
+
+
+def stack_stream_line(how, layers, steps, ms):
+    """The streamed plan's weight traffic a launch (every block of every
+    cluster reads its streamed slices at every step of its wave) and the
+    rate the kernel reads it at; empty on a resident plan."""
+    if not how["streamed"]:
+        return ""
+    nbytes = how["streamed_bytes"] * how["blocks"] * layers * how["tiles"] \
+        * steps
+    return ("; the plan's streamed weights %.3f GB a launch (%d bytes a "
+            "block a step, %d held), read from L2 at %.3f TB/s over the "
+            "kernel's time" % (nbytes / 1e9, how["streamed_bytes"],
+                               how["held_bytes"], nbytes / ms / 1e9))
 
 
 def dropped_as_plain(sk, case, kchain, pchain):
@@ -3438,26 +3506,30 @@ def stack_routes(torch, pkg, params, x, seq, family, dtype, train):
 
 
 def check_stack_fwd_wide(torch, pkg, device, rng):
-    """Phase 11 at WIDE_STACKS and the streaming chunk: K12 on 16-block
-    clusters against its plain version (float32 ratio; bfloat16 each step
+    """Phase 11 at wide_cases: K12 on 16-block clusters, resident or
+    streamed, against its plain version (float32 ratio; bfloat16 each step
     replayed; keep 0.9 dropped as the plain mask), two bfloat16 launches
-    bit-equal, its launch, and its time beside the parent's route (the
-    stack through stack_layers, by K12 and layer by layer through K1)."""
+    bit-equal, its launch, and its time beside the plain version's and the
+    parent's route (the stack through stack_layers, by K12 and layer by
+    layer through K1)."""
     sk = pkg["lstm_stack_kernels"]
     result = {}
-    for family, units, proj in WIDE_STACKS + (("lstm", 1024, 256),):
-        stream = len(result) == len(WIDE_STACKS)
-        shape = dict(shape=(units, proj), **(STREAM_SHAPE if stream else {}))
-        name = wide_name(family, units, proj, shape.get("batch", 32))
+    for (key, family, units, proj, shape, dtypes, plain_timed, routes,
+         streamed) in wide_cases(torch):
+        shape = dict(shape, shape=(units, proj))
+        name = wide_name(family, units, proj, shape.get("batch", 32),
+                         shape.get("steps", 384))
         keep = 0.9 if family == "lstm" else 1.0
         worst = 0.0
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             case, _, _, _ = stack_case(torch, pkg, device, dtype, family, rng,
                                        keep, init=True, **shape)
             how = stack_how(sk, device, case)
-            if dtype == torch.bfloat16 and how["blocks"] != 16:
-                fail("K12 %s bf16 has %d blocks a cluster, not 16"
-                     % (name, how["blocks"]))
+            if dtype == torch.bfloat16 and (how["blocks"] != 16
+                                            or how["streamed"] != streamed):
+                fail("K12 %s bf16 has %d blocks a cluster (streamed %s), not "
+                     "16 (%s)" % (name, how["blocks"], how["streamed"],
+                                  streamed))
             got = sk.lstm_stack_forward(**case, states=True)
             if dtype == torch.float32:
                 out, chain, c_all, h_all, cfin, hfin = \
@@ -3491,64 +3563,215 @@ def check_stack_fwd_wide(torch, pkg, device, rng):
             if max(rels.values()) > tol or not dropped or not same:
                 fail("K12 %s %s outside its bounds (ratio bound %.0e)"
                      % (name, dtype, tol))
-        # timed, bf16: K12 alone (beside its plain version at Kaldi's
-        # widths and cuDNN's), and the stack beside the parent's route
+            del got, ref
+        # timed, bf16: K12 alone (beside its plain version where it is
+        # the row of a table), and the stack beside the parent's route
         case, params, x, seq = stack_case(torch, pkg, device, torch.bfloat16,
                                           family, rng, **shape)
-        if not stream and (units, proj) in ((1024, 256), (512, None)):
+        if plain_timed:
             ms, plain_ms = time_in_turns(
                 torch, lambda: sk.lstm_stack_forward(**case),
                 lambda: sk.stack_forward_reference(**case), rounds=2,
-                kernel_reps=3)
+                kernel_reps=1 if streamed else 3)
         else:
             ms, plain_ms = median_ms(
                 torch, lambda: sk.lstm_stack_forward(**case), 5), None
         bound_ms, bound_by = stack_bound(
             torch, case, sk.lstm_stack_forward(**case), torch.bfloat16)
+        how = stack_how(sk, device, case)
         res = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "launch": stack_how(sk, device, case)}
-        line = ("  K12 %s bfloat16 kernel %.3f ms (%s)%s bound %.4f ms (%s)"
+               "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
+        steps = case["gx0"].shape[0]
+        line = ("  K12 %s bfloat16 kernel %.3f ms (%s)%s bound %.4f ms (%s)%s"
                 % (name, ms, stack_launch(sk, device, case, ms),
                    "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
-                   bound_ms, bound_by))
-        if not stream:
+                   bound_ms, bound_by,
+                   stack_stream_line(how, STACK_LAYERS, steps, ms)))
+        if routes:
             stack, route = stack_routes(torch, pkg, params, x, seq, family,
                                         torch.bfloat16, False)
             res["stack_ms"], res["route_ms"] = time_in_turns(
-                torch, stack, route, rounds=3, kernel_reps=2)
+                torch, stack, route, rounds=2 if streamed else 3,
+                kernel_reps=1 if streamed else 2)
             line += ("; forward through stack_layers: the stack %.3f ms, "
                      "layer by layer through K1 (the parent's route) %.3f ms"
                      % (res["stack_ms"], res["route_ms"]))
         say(line)
-        result[(family, units, proj, stream)] = res
+        result[key] = res
+        del case, params, x
+        torch.cuda.empty_cache()
     return result
 
 
+def check_stack_forced(torch, pkg, device, rng):
+    """Phase 11: the streamed plan forced (lstm_stack_kernels' internal
+    ``_plan``, lstm_kernels.PLANS) where the resident plan fits, at Kaldi's
+    LSTMP widths (16 blocks), bf16, B=32, T=384: K12 at R=4 and 8 and K13
+    at R=4, with half of wh resident and with as much as fits, each equal
+    bit for bit to the resident plan at the same R, and timed against it
+    (median of 3)."""
+    sk = pkg["lstm_stack_kernels"]
+    case, _, _, _ = stack_case(torch, pkg, device, torch.bfloat16, "lstm",
+                               rng, 0.9, init=True, shape=(1024, 256))
+    case.pop("affine")
+    plans = ("streamed", "streamed, wh held as fits")
+    result = {}
+    for rows in (4, 8):
+        want = sk.lstm_stack_forward(**case, states=True,
+                                     _plan=("resident", rows))
+        times = {"resident": median_ms(torch, lambda: sk.lstm_stack_forward(
+            **case, _plan=("resident", rows)), 3)}
+        for plan in plans:
+            got = sk.lstm_stack_forward(**case, states=True,
+                                        _plan=(plan, rows))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail("K12 forced %s at R=%d differs from the resident plan"
+                     % (plan, rows))
+            times[plan] = median_ms(torch, lambda: sk.lstm_stack_forward(
+                **case, _plan=(plan, rows)), 3)
+        result[("K12", rows)] = times
+    out, cfin, hfin, chain, c_all, h_all = want
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all,
+                dout=0.1 * torch.ones_like(out), dcfin=torch.zeros_like(cfin),
+                dhfin=torch.zeros_like(hfin), store_dtype=torch.float32)
+    want = sk.lstm_stack_backward(**args, _plan=("resident", 4))
+    times = {"resident": median_ms(torch, lambda: sk.lstm_stack_backward(
+        **args, _plan=("resident", 4)), 3)}
+    for plan in plans:
+        got = sk.lstm_stack_backward(**args, _plan=(plan, 4))
+        if not all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(got, want)):
+            fail("K13 forced %s at R=4 differs from the resident plan"
+                 % plan)
+        times[plan] = median_ms(torch, lambda: sk.lstm_stack_backward(
+            **args, _plan=(plan, 4)), 3)
+    result[("K13", 4)] = times
+    say("  the streamed plan forced where the resident plan fits (lstm "
+        "H=1024 P=256, bf16, B=32, T=384, 16 blocks), bit-equal to the "
+        "resident plan at the same R: %s" % "; ".join(
+            "%s R=%d: %s" % (k[0], k[1], ", ".join(
+                "%s %.3f ms" % kv for kv in t.items()))
+            for k, t in result.items()))
+    return result
+
+
+def per_layer(torch, x, w):
+    """x ``[S, L, B, K]`` by each layer's w ``[L, K, N]``, one product a
+    layer (matmul would copy w once a step)."""
+    steps, layers, batch, depth = x.shape
+    y = torch.matmul(x.transpose(0, 1).reshape(layers, -1, depth), w)
+    return y.view(layers, steps, batch, -1).transpose(0, 1)
+
+
+def stack_dgates_float64(torch, sk, args, dc_in, dh_in, din, s0, s1):
+    """The dgates of wavefront steps s0 .. s1-1 of a K13 launch on ``args``
+    replayed in float64 from the kernel's own carries entering each step
+    (dc_in, dh_in), its layers' input cotangents din (the chain cotangent
+    of the layer below) and the stored states, the products' operands
+    rounded to the compute dtype as the kernel rounds them (dout_p formed
+    in float32 first): dgates_float64's rule for K2, on the stack's steps.
+    The gate sums of layers l >= 1 add gx_l (in_prev·wx_l, a float32
+    product) and the bias in float32 before h·wh, one more rounding in the
+    bound.  Returns (dg, err), [s1 - s0, L·B, 4H] float64."""
+    gx0, wz, proj = args["gx0"], args["wz"], args["proj"]
+    _, layers, batch, units, out_dim = sk._dims(gx0, wz)
+    steps = s1 - s0
+    f64, cdt, u = torch.float64, wz.dtype, F32_UNIT
+
+    def rounded(x):
+        return x.to(cdt).to(f64)
+
+    def view(x, dtype=f64):
+        return x[s0:s1].to(dtype).reshape(steps, layers, batch, x.shape[-1])
+
+    c0 = sk._previous(args["c_all"], args["cinit"], layers)[s0:s1].to(f64)
+    zq = rounded(torch.cat([sk._inputs_before(args["chain"], layers),
+                            sk._previous(args["h_all"], args["hinit"],
+                                         layers)], dim=-1)[s0:s1])
+    wzq = rounded(wz)
+    b64 = args["bias"].to(f64)[:, None, :]
+    gx64 = torch.zeros(steps, layers, batch, 4 * units, dtype=f64,
+                       device=gx0.device)
+    gx64[:, 0] = gx0[s0:s1].to(f64)
+    gates = per_layer(torch, zq, wzq) + b64 + gx64
+    errs = u * (per_layer(torch, zq.abs(), wzq.abs()) + b64.abs()
+                + gx64.abs() + gates.abs())
+    del zq
+    m32 = args["mask"][s0:s1].view(steps, layers, batch, 1).float()
+    m = m32.to(f64)
+    drop = sk._drop_mask(args["seed"], args["keep_prob"], gx0.shape[0],
+                         layers, batch, out_dim, gx0.device)
+    dchain = sk._chain_cotangents(args["dout"].float(),
+                                  din.transpose(0, 1).float(), drop)[s0:s1]
+    dout_p = m32 * (dchain + view(dh_in, torch.float32))
+    if proj is None:
+        dob = m * (dchain.to(f64) + view(dh_in))
+        edob = u * dob.abs()
+    else:
+        dq, pt = rounded(dout_p), rounded(proj).transpose(-1, -2)
+        dob = per_layer(torch, dq, pt)
+        edob = u * per_layer(torch, dq.abs(), pt.abs())
+    dg, err = cell_backward_float64(torch, gates, errs, c0, args["peep"],
+                                    args["forget_bias"], m, view(dc_in), dob,
+                                    edob)
+    lb = layers * batch
+    return dg.reshape(steps, lb, -1), err.reshape(steps, lb, -1)
+
+
+def stack_dgates_held(torch, sk, args, dgates, dc_in, dh_in, din, plain_dg,
+                      piece=16):
+    """K13's bf16 dgates (as stored) against stack_dgates_float64, a
+    ``piece`` of steps at a time (float64 at B = 32, T = 384 and 2048 cells
+    would not fit the card's memory at once), as dgates_held holds K2's:
+    (the worst |diff| / bound, the same of the plain f32 one-step replay
+    ``plain_dg``, the elements past one bf16 step of it: the old rule)."""
+    worst = plain = 0.0
+    old_rule = 0
+    for s0 in range(0, dgates.shape[0], piece):
+        s1 = min(dgates.shape[0], s0 + piece)
+        ref, err = stack_dgates_float64(torch, sk, args, dc_in, dh_in, din,
+                                        s0, s1)
+        bound = 2.0 ** -7 * ref.abs() + err + 1e-6
+        worst = max(worst, float(((dgates[s0:s1].to(ref.dtype) - ref).abs()
+                                  / bound).max()))
+        plain = max(plain, float(((plain_dg[s0:s1].to(ref.dtype) - ref).abs()
+                                  / bound).max()))
+        got, pd = dgates[s0:s1].float(), plain_dg[s0:s1].float()
+        old_rule += int(((got - pd).abs() > 2.0 ** -7 * pd.abs()
+                         + 1e-6).sum())
+        del ref, err, bound
+    return worst, plain, old_rule
+
+
 def check_stack_bwd_wide(torch, pkg, device, rng):
-    """Phase 12 at WIDE_STACKS and the streaming chunk: K13 on 16-block
-    clusters against its plain version (float32 ratio; bfloat16 each step
-    replayed, dgates within one rounding step, the weight gradients over
-    its own dgates), two bfloat16 launches bit-equal, its launch, and a
-    training forward and backward beside the parent's route (layer by
-    layer through K1 and K2)."""
+    """Phase 12 at wide_cases: K13 on 16-block clusters, resident or
+    streamed, against its plain version (float32 ratio; bfloat16 each step
+    replayed: the carries and din within 1e-3, dgates by dgates_float64's
+    rule on the stack's steps, the weight gradients over its own dgates),
+    two bfloat16 launches bit-equal, its launch, and a training forward and
+    backward beside the parent's route (layer by layer through K1 and
+    K2)."""
     sk = pkg["lstm_stack_kernels"]
     names = ("dgates", "dwz", "dbias", "dproj", "dpeep", "dcinit", "dhinit")
     result = {}
-    for family, units, proj in WIDE_STACKS + (("lstm", 1024, 256),):
-        stream = len(result) == len(WIDE_STACKS)
-        shape = dict(shape=(units, proj), **(STREAM_SHAPE if stream else {}))
-        name = wide_name(family, units, proj, shape.get("batch", 32))
+    for (key, family, units, proj, shape, dtypes, plain_timed, routes,
+         streamed) in wide_cases(torch):
+        shape = dict(shape, shape=(units, proj))
+        name = wide_name(family, units, proj, shape.get("batch", 32),
+                         shape.get("steps", 384))
         keep = 0.9 if family == "lstm" else 1.0
-        for dtype in (torch.float32, torch.bfloat16):
+        worst = None
+        for dtype in dtypes:
             case, params, x, seq = stack_case(torch, pkg, device, dtype,
                                               family, rng, keep, init=True,
                                               **shape)
             case.pop("affine")
             how = stack_how(sk, device, case, True, dtype)
-            if dtype == torch.bfloat16 and how["blocks"] != 16:
-                fail("K13 %s bf16 has %d blocks a cluster, not 16"
-                     % (name, how["blocks"]))
+            if dtype == torch.bfloat16 and (how["blocks"] != 16
+                                            or how["streamed"] != streamed):
+                fail("K13 %s bf16 has %d blocks a cluster (streamed %s), not "
+                     "16 (%s)" % (name, how["blocks"], how["streamed"],
+                                  streamed))
             out, cfin, hfin, chain, c_all, h_all = sk.lstm_stack_forward(
                 **case, states=True, store_dtype=dtype)
             dout = torch.from_numpy((0.1 * rng.randn(*out.shape)).astype(
@@ -3569,11 +3792,13 @@ def check_stack_bwd_wide(torch, pkg, device, rng):
                     fail("K13 %s f32: relative error %.3e > %.1e"
                          % (name, max(rels.values()), F32_REL_TOL))
                 worst = float((got[0].float() - ref[0].float()).abs().max())
+                del got, ref
                 continue
             full = sk.lstm_stack_backward(**args, steps_out=True)
             again = sk.lstm_stack_backward(**args, steps_out=True)
             same = all(a is None and b is None or torch.equal(a, b)
                        for a, b in zip(full, again))
+            del again
             dc_in, dh_in, din = full[7:]
             replay = {k: v for k, v in args.items()
                       if k not in ("dcfin", "dhfin")}
@@ -3584,56 +3809,65 @@ def check_stack_bwd_wide(torch, pkg, device, rng):
             step_rel = max(ratio(dc_out[1:], dc_in[:-1]),
                            ratio(dh_out[1:], dh_in[:-1]),
                            ratio(din_out[1:], din[1:]))
-            rounding = within_bf16_step(full[0], dg)
+            dg64, plain64, old_rule = stack_dgates_held(
+                torch, sk, args, full[0], dc_in, dh_in, din, dg)
+            if worst is None:
+                worst = float((full[0].float() - dg.float()).abs().max())
             wgrad_rels = {n: ratio(g, r) for n, g, r in zip(
                 ("dwz", "dbias", "dproj", "dpeep"), full[1:5], wgrads)
                 if r is not None}
             finite = all(torch.isfinite(t.float()).all() for t in full
                          if t is not None)
             say("  K13 %s bfloat16 per step: carries and din max rel %.3e "
-                "(bound %.0e); dgates within one bf16 rounding step: %s; "
-                "over the kernel's dgates: %s (bound %.0e); two launches "
-                "bit-equal: %s" % (name, step_rel, BF16_STEP_REL_TOL,
-                                   rounding, ", ".join(
-                                       "%s %.2e" % kv
-                                       for kv in wgrad_rels.items()),
-                                   BF16_STEP_REL_TOL, same))
-            if step_rel > BF16_STEP_REL_TOL or not rounding or max(
+                "(bound %.0e); dgates against the float64 replay of each "
+                "step: worst |diff|/bound %.3f (the plain f32 replay's %.3f; "
+                "elements past one bf16 step of the plain replay, the old "
+                "rule: %d); over the kernel's dgates: %s (bound %.0e); two "
+                "launches bit-equal: %s"
+                % (name, step_rel, BF16_STEP_REL_TOL, dg64, plain64, old_rule,
+                   ", ".join("%s %.2e" % kv for kv in wgrad_rels.items()),
+                   BF16_STEP_REL_TOL, same))
+            if step_rel > BF16_STEP_REL_TOL or dg64 > 1.0 or max(
                     wgrad_rels.values()) > BF16_STEP_REL_TOL or not same \
                     or not finite:
                 fail("K13 %s bf16 outside its bounds" % name)
-        # timed, bf16: K13 alone (beside its plain version at Kaldi's
-        # widths and cuDNN's), and a training step's stack beside the
-        # parent's route
-        if not stream and (units, proj) in ((1024, 256), (512, None)):
+        # timed, bf16: K13 alone (beside its plain version where it is the
+        # row of a table), and a training step's stack beside the parent's
+        # route
+        if plain_timed:
             ms, plain_ms = time_in_turns(
                 torch, lambda: sk.lstm_stack_backward(**args),
                 lambda: sk.stack_backward_reference(**args), rounds=2,
-                kernel_reps=2)
+                kernel_reps=1 if streamed else 2)
         else:
             ms, plain_ms = median_ms(
                 torch, lambda: sk.lstm_stack_backward(**args), 5), None
         bound_ms, bound_by = stack_bound(torch, args, full[:7],
                                          torch.bfloat16, True)
+        how = stack_how(sk, device, case, True, torch.bfloat16)
         res = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "launch": stack_how(sk, device, case, True, torch.bfloat16)}
-        line = ("  K13 %s bfloat16 kernel %.3f ms (%s)%s bound %.4f ms (%s)"
+               "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
+        steps = case["gx0"].shape[0]
+        line = ("  K13 %s bfloat16 kernel %.3f ms (%s)%s bound %.4f ms (%s)%s"
                 % (name, ms, stack_launch(sk, device, case, ms, True,
                                           torch.bfloat16),
                    "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
-                   bound_ms, bound_by))
-        if not stream:
+                   bound_ms, bound_by,
+                   stack_stream_line(how, STACK_LAYERS, steps, ms)))
+        if routes:
             stack, route = stack_routes(torch, pkg, params, x, seq, family,
                                         torch.bfloat16, True)
             res["stack_ms"], res["route_ms"] = time_in_turns(
-                torch, stack, route, rounds=3, kernel_reps=2)
+                torch, stack, route, rounds=2 if streamed else 3,
+                kernel_reps=1 if streamed else 2)
             line += ("; forward + backward through stack_layers: the stack "
                      "%.3f ms, layer by layer through K1 and K2 (the "
                      "parent's route) %.3f ms"
                      % (res["stack_ms"], res["route_ms"]))
         say(line)
-        result[(family, units, proj, stream)] = res
+        result[key] = res
+        del case, params, x, args, full
+        torch.cuda.empty_cache()
     return result
 
 
@@ -3972,8 +4206,9 @@ RECIPE_STAGES = ("data + LM", "TLG graph", "fbank + CMVN",
                  "lattice decode + WER")
 
 
-def start_seconds(argv, env, reps=3):
-    """Median wall seconds of a command that does little but start."""
+def start_seconds(argv, env, reps=1):
+    """Median wall seconds of a command that does little but start (one
+    start each: the model tool's ~10 s is mostly importing torch)."""
     times = []
     for _ in range(reps):
         start = time.perf_counter()
@@ -4031,7 +4266,7 @@ def recipe_end_to_end(torch, pkg, device, work, native):
         "build) -> %s" % (len(native["built"]), native["seconds"],
                           native["dir"]))
     starts = tool_start_times(here, env, work)
-    say("  start of a tool, median of 3 (s): %s" % ", ".join(
+    say("  start of a tool, one start each (s): %s" % ", ".join(
         "%s %.3f" % kv for kv in starts.items()))
     seconds = {}
     out = ""
@@ -4153,6 +4388,9 @@ BENCH_ROWS = ("flagship_b32_t384", "flagship_b64_t384",
               "lstm_bn_b32_t384", "streaming_lstm_b1_chunk16")
 PROFILE_SEGMENTS = ("fwd_chain", "fwd_logits", "ctc_fwd", "ctc_fwdbwd",
                     "fwd_loss", "grad", "full_step")
+# the steps of a timed window of the bench and of profile_step (both 100
+# by default; their rates on the card differ little at 30)
+BENCH_STEPS = 30
 
 
 def port_module(here, module, args, timeout):
@@ -4174,7 +4412,8 @@ def bench_on_card(here, kind):
     """Phase 19: ``python -m lstm_ctc_tpu_torch.bench`` at full widths,
     every row's rate finite and above 0, every MFU in (0, 1], the device
     named; then ``profile_step`` at B=32, T=384."""
-    proc, seconds = port_module(here, "lstm_ctc_tpu_torch.bench", [], 900)
+    proc, seconds = port_module(here, "lstm_ctc_tpu_torch.bench",
+                                ["--steps", str(BENCH_STEPS)], 900)
     line = proc.stdout.strip().splitlines()[-1]
     result = json.loads(line)
     rows = result["configs"]
@@ -4198,7 +4437,8 @@ def bench_on_card(here, kind):
     say(line)
     proc, seconds = port_module(
         here, "lstm_ctc_tpu_torch.scripts.profile_step",
-        ["--batch", "32", "--time-steps", "384"], 600)
+        ["--batch", "32", "--time-steps", "384", "--steps",
+         str(BENCH_STEPS)], 600)
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     segments = report["segments_ms"]
     if tuple(segments) != PROFILE_SEGMENTS or not all(
@@ -4606,7 +4846,12 @@ def wide_end_to_end(torch, pkg, device, work, scp, rng):
 STREAMED_CONFIG = dict(FLAGSHIP_CONFIG, num_neurons=1024, num_projects=0)
 STREAMED_LSTM_CONFIG = dict(FLAGSHIP_CONFIG, nnet_type="lstm",
                             num_neurons=2048, num_projects=512)
-STACK_UNITS_REASON = "lstm stack units"  # the lstm family's stack refusal
+# ... and the cudnnlstm family at H = P = 1024 (both on the streamed K12
+# and K13): train steps, utterances served, a streaming session's
+SAK_STEPS = 2
+STREAMED_CUDNN_CONFIG = dict(CUDNN_CONFIG, num_neurons=1024)
+SAK_UTTERANCES = 16
+SAK_SESSION = 4
 
 
 @contextlib.contextmanager
@@ -4766,9 +5011,8 @@ def streamed_end_to_end(torch, pkg, device, work, scp, rng):
     streamed plan: each run counted from zero (K1 and K2 once a layer a
     step), no route warning and no plain recurrence on the card, finite
     losses and weights, the archive checked; one step held and profiled
-    beside the parent's route (streamed_step); then STREAMED_LSTM_CONFIG
-    through nnet_init, one unpacked nnet_train step and nnet_forward,
-    layer by layer on K1 and K2 (the stack's refusal the one warning)."""
+    beside the parent's route (streamed_step); then the stack families on
+    the streamed K12 and K13 (sak_end_to_end)."""
     from lstm_ctc_tpu_torch.bin import nnet_forward, nnet_init, nnet_train
     from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
     from lstm_ctc_tpu_torch.host import kaldi
@@ -4780,8 +5024,7 @@ def streamed_end_to_end(torch, pkg, device, work, scp, rng):
     sdir = os.path.join(work, "streamed")
     os.makedirs(sdir)
     configs = {"bf16": STREAMED_CONFIG,
-               "fold": dict(STREAMED_CONFIG, lstm_fold_dx=True),
-               "lstm": STREAMED_LSTM_CONFIG}
+               "fold": dict(STREAMED_CONFIG, lstm_fold_dx=True)}
     paths = {}
     for name, config in configs.items():
         paths[name] = os.path.join(sdir, "nnet_%s.config" % name)
@@ -4875,43 +5118,257 @@ def streamed_end_to_end(torch, pkg, device, work, scp, rng):
         "checkpoint load included)" % (frames, seconds,
                                        result["forward_fps"]))
 
-    # the lstm family at 2048 cells, projection 512: layer by layer
-    lstm_scp, lstm_batcher = fold_subset(sdir, scp, STREAMED_LSTM_CONFIG, 1,
-                                         "lstm.scp", pack_factor=1)
-    lstm_steps = len(lstm_batcher.batch_plan(True, 777))
-    lstm_cv = len(build_batcher(lstm_scp, STREAMED_LSTM_CONFIG,
-                                32).batch_plan(False, None))
-    lnets = [os.path.join(sdir, "lstm%d.npz" % i) for i in range(2)]
-    allowed = (STACK_UNITS_REASON,)
-    tee, _ = counted("lstm 2048/512 nnet_init", lambda: nnet_init.main(
-        [lstm_scp, paths["lstm"], lnets[0]] + common), counts(
-            lstm_fwd=4 * lstm_cv, moe_fwd=lstm_cv, ctc_alpha=lstm_cv),
-        allowed)
-    lstm_losses = [tee.value("cv_loss")]
-    tee, lstm_seconds = counted("lstm 2048/512 nnet_train", lambda: (
-        nnet_train.main([lstm_scp, paths["lstm"], lnets[0], lnets[1],
-                         "--optimizer", "adam", "--learn-rate", "1e-3"]
-                        + common)), counts(
-            lstm_fwd=4 * lstm_steps, lstm_bwd=4 * lstm_steps,
-            moe_fwd_stash=lstm_steps, moe_bwd=lstm_steps,
-            ctc_alpha=lstm_steps, ctc_beta=lstm_steps), allowed)
-    lstm_losses.append(tee.value("tr_loss"))
-    fwd_lstm = len(build_batcher(scp64, STREAMED_LSTM_CONFIG, 32).batch_plan(
+    # the lstm family at Sak's LSTMP widths (2048 cells, projection 512)
+    # and the cudnnlstm family at H = P = 1024 on the streamed K12 and
+    # K13, and a streaming session beside the parent's route (each layer
+    # the plain scan)
+    if not all(math.isfinite(v) for v in losses):
+        fail("non-finite losses on the streamed plan: %s" % losses)
+    result["sak"] = stack_families_end_to_end(
+        torch, pkg, device, os.path.join(sdir, "sak"), scp, rng,
+        STREAMED_LSTM_CONFIG, STREAMED_CUDNN_CONFIG, SAK_STEPS,
+        SAK_UTTERANCES, True, False)
+    result["sak"]["session"] = wide_session(torch, pkg, device, rng,
+                                            STREAMED_LSTM_CONFIG, SAK_SESSION)
+    return result
+
+
+def stack_families_end_to_end(torch, pkg, device, wdir, scp, rng, config,
+                              cudnn_config, train_steps, utterances, streamed,
+                              plain_f32):
+    """Phases 22 and 24: the lstm family at ``config``'s widths (MoE head)
+    and a ``cudnn_config`` cudnnlstm on the stack kernels, bf16: through
+    nnet_init, ``train_steps`` unpacked nnet_train steps (keep 0.9),
+    nnet_forward on ``utterances`` utterances offline and --streaming (the
+    lstm family also in float32), each run counted from zero (per train
+    step 1 K12, 1 K13, 1 K5, 1 K6, 1 K10, 1 K11; per CV or forward batch 1
+    K12, 1 K4 and, in CV, 1 K10; per streamed chunk 1 K12 and 1 K4), no
+    route warning, no K1 or K2 and no plain scan on the card, the plans
+    16-block (on the streamed plan where ``streamed``); streamed against
+    offline log-posteriors in both dtypes (and, with ``plain_f32``, the
+    float32 ones against the plain versions'); beside the train step and
+    the forward, the parent's route timed (layer by layer through K1 and
+    K2)."""
+    from lstm_ctc_tpu_torch.bin import nnet_forward, nnet_init, nnet_train
+    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
+    from lstm_ctc_tpu_torch.host import kaldi
+    from lstm_ctc_tpu_torch.host.config import format_config
+    from lstm_ctc_tpu_torch.models import lstm
+    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
+    from lstm_ctc_tpu_torch.train.graph import param_leaves
+    sk = pkg["lstm_stack_kernels"]
+    os.makedirs(wdir)
+    configs = {"bf16": config,
+               "f32": dict(config, compute_dtype="float32"),
+               "cudnn": cudnn_config}
+    paths = {}
+    for name, cfg in configs.items():
+        paths[name] = os.path.join(wdir, "nnet_%s.config" % name)
+        with open(paths[name], "w") as fh:
+            fh.write(format_config(cfg))
+    name = "lstm %d/%d" % (config["num_neurons"], config["num_projects"])
+    cname = "cudnnlstm %d" % cudnn_config["num_neurons"]
+    for backward, kernel in ((False, "K12"), (True, "K13")):
+        for cfg in (config, cudnn_config):
+            units = cfg["num_neurons"]
+            out_dim = cfg["num_projects"] or units
+            how = sk.stack_config(device, 384 + STACK_LAYERS - 1,
+                                  STACK_LAYERS, 32, units, out_dim,
+                                  bool(cfg["num_projects"]),
+                                  torch.bfloat16, backward, torch.bfloat16)
+            say("  %s at %s H=%d P=%d, B=32, T=384, bf16: %s plan, %d "
+                "blocks a cluster, R=%d, %d clusters in %d wave(s), %d "
+                "resident at once, lag K=%d, %d bytes of shared memory a "
+                "block, weights a block %d bytes held, %d streamed a step"
+                % (kernel, cfg["nnet_type"], units, out_dim,
+                   "streamed" if how["streamed"] else "resident",
+                   how["blocks"], how["rows"], STACK_LAYERS * how["tiles"],
+                   how["waves"], how["resident"], how["lag"],
+                   how["smem_bytes"], how["held_bytes"],
+                   how["streamed_bytes"]))
+            if how["blocks"] != 16 or how["streamed"] != streamed:
+                fail("%s at H=%d P=%d: %d blocks a cluster, streamed %s "
+                     "(expected 16, %s)" % (kernel, units, out_dim,
+                                            how["blocks"], how["streamed"],
+                                            streamed))
+    sub_scp, batcher = fold_subset(wdir, scp, config, train_steps,
+                                   "train.scp", pack_factor=1)
+    steps = len(batcher.batch_plan(True, 777))
+    cv_batches = len(build_batcher(sub_scp, config, 32).batch_plan(
         False, None))
-    ark = os.path.join(sdir, "post_lstm.ark")
-    _, seconds = counted("lstm 2048/512 nnet_forward", lambda: (
-        nnet_forward.main([scp64, paths["lstm"], lnets[1], "ark:" + ark,
-                           "--device", "cuda", "--batch-size", "32"])),
-        counts(lstm_fwd=4 * fwd_lstm, moe_fwd=fwd_lstm), allowed)
-    lstm_frames = check_posteriors(read_archive(kaldi, ark), raw_lengths)
-    result["lstm_forward_fps"] = lstm_frames / seconds
-    if not all(math.isfinite(v) for v in losses + lstm_losses):
-        fail("non-finite losses on the streamed plan: %s, %s"
-             % (losses, lstm_losses))
-    say("  lstm 2048/512: cv_loss %.4f, tr_loss %.4f (%d step, unpacked, "
-        "nnet_train %.1f s in all); nnet_forward %.1f frames/s"
-        % (lstm_losses[0], lstm_losses[1], lstm_steps, lstm_seconds,
-           result["lstm_forward_fps"]))
+    frames = sum(batcher._lengths)
+    common = ["--objective", "ctc", "--batch-size", "32", "--device",
+              "cuda", "--report-interval", "0"]
+    result = {"launches": counts(), "cudnn_launches": counts()}
+
+    @contextlib.contextmanager
+    def watch(seen, parent=False):
+        with parent_route() if parent else contextlib.nullcontext(), \
+                plain_on_card(lstm, "lstm_scan", seen):
+            yield
+
+    def counted(what, fn, want, parent=False, into="launches"):
+        """counted_entry with no plain scan on the card; on the parent's
+        route the launches are not added to ``into``."""
+        return counted_entry(torch, pkg, what, fn, want,
+                             lambda seen: watch(seen, parent),
+                             None if parent else result[into])
+
+    nnets = [os.path.join(wdir, "nnet%d.npz" % i) for i in range(3)]
+    tee, _ = counted("%s nnet_init" % name, lambda: nnet_init.main(
+        [sub_scp, paths["bf16"], nnets[0]] + common), counts(
+            lstm_stack_fwd=cv_batches, moe_fwd=cv_batches,
+            ctc_alpha=cv_batches))
+    losses = [tee.value("cv_loss")]
+    train_counts = dict(moe_fwd_stash=steps, moe_bwd=steps, ctc_alpha=steps,
+                        ctc_beta=steps)
+    stats = {}
+    for tag, parent, out, want in (
+            ("stack", False, nnets[1], counts(lstm_stack_fwd=steps,
+                                              lstm_stack_bwd=steps,
+                                              **train_counts)),
+            ("route", True, nnets[2], counts(lstm_fwd=STACK_LAYERS * steps,
+                                             lstm_bwd=STACK_LAYERS * steps,
+                                             **train_counts))):
+        metrics_file = os.path.join(wdir, "metrics_%s.jsonl" % tag)
+        tee, _ = counted(
+            "%s nnet_train%s" % (name, " on the parent's route" if parent
+                                 else ""),
+            lambda: nnet_train.main(
+                [sub_scp, paths["bf16"], nnets[0], out, "--metrics-file",
+                 metrics_file, "--optimizer", "adam", "--learn-rate",
+                 "1e-3"] + common), want, parent)
+        losses.append(tee.value("tr_loss"))
+        with open(metrics_file) as fh:
+            times = [json.loads(ln)["step_time"] for ln in fh]
+        stats[tag] = (1e3 * statistics.median(times), frames / sum(times))
+    result["step_ms"], result["fps"] = stats["stack"]
+    result["route_step_ms"], result["route_fps"] = stats["route"]
+    template, state = init_from_config(config, device)
+    for path in nnets:
+        params, _, _ = load_checkpoint(path, template, state)
+        if not all(torch.isfinite(p).all() for p in param_leaves(params)):
+            fail("%s holds non-finite weights" % path)
+    say("  %s: cv_loss %.4f, tr_loss %.4f (the parent's route from the same "
+        "weights %.4f; %d steps of 32 unpacked utterances, keep 0.9); "
+        "median train step %.1f ms, %.1f real frames/s; on the parent's "
+        "route (layer by layer through K1 and K2) %.1f ms, %.1f real "
+        "frames/s" % ((name,) + tuple(losses) + (
+            steps, result["step_ms"], result["fps"], result["route_step_ms"],
+            result["route_fps"])))
+
+    # serving: offline and streamed, as a user runs them
+    scp_s, raw_lengths = write_corpus(pkg, wdir, rng, count=utterances)
+    fwd_batches = len(build_batcher(scp_s, config, 32).batch_plan(False,
+                                                                  None))
+    chunks = sum(-(-(n // 3) // CHUNK_ROWS) for n in raw_lengths.values())
+    streaming_args = ["--streaming", "true", "--chunk-frames",
+                      str(CHUNK_ROWS)]
+
+    def forward(tag, nnet, streaming, what, want, into="launches"):
+        """nnet_forward of ``nnet`` on the corpus, counted; (its archive,
+        its seconds)."""
+        ark = os.path.join(wdir, "post_%s%s.ark"
+                           % (tag, "_stream" if streaming else ""))
+        _, seconds = counted(
+            "%s nnet_forward %s%s" % (what, tag, " --streaming" if streaming
+                                      else ""),
+            lambda: nnet_forward.main(
+                [scp_s, paths[tag], nnet, "ark:" + ark, "--device", "cuda",
+                 "--batch-size", "32"] + (streaming_args if streaming
+                                          else [])), want, into=into)
+        posts = read_archive(kaldi, ark)
+        check_posteriors(posts, raw_lengths)
+        return posts, seconds
+
+    def streamed_vs_offline(posts):
+        worst, mean = diff_stats(posts[True], posts[False])
+        scale = max(float(np.abs(m).max()) for m in posts[False].values())
+        return worst, mean, worst / scale
+
+    posts, seconds = {}, {}
+    for tag in ("bf16", "f32"):
+        for streaming in (False, True):
+            posts[(tag, streaming)], seconds[(tag, streaming)] = forward(
+                tag, nnets[1], streaming, name,
+                counts(lstm_stack_fwd=chunks, moe_fwd=chunks) if streaming
+                else counts(lstm_stack_fwd=fwd_batches, moe_fwd=fwd_batches))
+    total = sum(m.shape[0] for m in posts[("bf16", False)].values())
+    result["forward_fps"] = total / seconds[("bf16", False)]
+    result["stream_chunk_ms"] = 1e3 * seconds[("bf16", True)] / chunks
+    _, route_s = counted("%s nnet_forward on the parent's route" % name,
+                         lambda: nnet_forward.main(
+                             [scp_s, paths["bf16"], nnets[1],
+                              "ark:" + os.path.join(wdir, "route.ark"),
+                              "--device", "cuda", "--batch-size", "32"]),
+                         counts(lstm_fwd=STACK_LAYERS * fwd_batches,
+                                moe_fwd=fwd_batches), parent=True)
+    result["route_forward_fps"] = total / route_s
+    stream = {tag: streamed_vs_offline({s: posts[(tag, s)]
+                                        for s in (False, True)})
+              for tag in ("bf16", "f32")}
+    plain_line = ""
+    if plain_f32:
+        params, _, _ = load_checkpoint(nnets[1], template, state)
+        ref32 = plain_logposts(torch, pkg, params, state, build_batcher(
+            scp_s, configs["f32"], 32), configs["f32"], device)
+        worst32, mean32 = diff_stats(posts[("f32", False)], ref32)
+        plain_line = ("; float32 kernels vs plain versions, log-posteriors: "
+                      "max_abs %.3e mean_abs %.3e (bounds %.0e, %.0e)"
+                      % (worst32, mean32, E2E_F32_MAX_TOL, E2E_F32_MEAN_TOL))
+        if mean32 > E2E_F32_MEAN_TOL or worst32 > E2E_F32_MAX_TOL:
+            fail("%s float32 log-posteriors differ from the plain versions "
+                 "by %.3e on average, %.3e at most" % (name, mean32, worst32))
+    say("  %s nnet_forward: %d utterances, %d frames in %.2f s (%.1f "
+        "frames/s, checkpoint load included; the parent's route %.1f "
+        "frames/s); --streaming in %d chunks of %d rows: %.2f s (%.3f ms a "
+        "chunk, the CLI's whole run); streamed vs offline: float32 max_abs "
+        "%.3e mean_abs %.3e ratio %.3e (bound %.0e), bfloat16 max_abs %.3e "
+        "mean_abs %.3e ratio %.3e (bound %.0e)%s"
+        % ((name, len(raw_lengths), total, seconds[("bf16", False)],
+            result["forward_fps"], result["route_forward_fps"], chunks,
+            CHUNK_ROWS, seconds[("bf16", True)], result["stream_chunk_ms"])
+           + stream["f32"] + (F32_REL_TOL,) + stream["bf16"]
+           + (BF16_STEP_REL_TOL, plain_line)))
+    if stream["f32"][2] > F32_REL_TOL or stream["bf16"][2] > \
+            BF16_STEP_REL_TOL:
+        fail("the %s's streamed output differs from its offline output"
+             % name)
+
+    # the cudnnlstm family: trains, serves and streams on the stack kernels
+    cnets = [os.path.join(wdir, "cudnn%d.npz" % i) for i in range(2)]
+    cscp, cbatcher = fold_subset(wdir, scp, cudnn_config, train_steps,
+                                 "cudnn.scp", pack_factor=1)
+    csteps = len(cbatcher.batch_plan(True, 777))
+    ccv = len(build_batcher(cscp, cudnn_config, 32).batch_plan(False, None))
+    tee, _ = counted("%s nnet_init" % cname, lambda: nnet_init.main(
+        [cscp, paths["cudnn"], cnets[0]] + common),
+        counts(lstm_stack_fwd=ccv, ctc_alpha=ccv), into="cudnn_launches")
+    closses = [tee.value("cv_loss")]
+    tee, _ = counted("%s nnet_train" % cname, lambda: nnet_train.main(
+        [cscp, paths["cudnn"], cnets[0], cnets[1], "--optimizer", "adam",
+         "--learn-rate", "1e-3"] + common),
+        counts(lstm_stack_fwd=csteps, lstm_stack_bwd=csteps,
+               ctc_alpha=csteps, ctc_beta=csteps), into="cudnn_launches")
+    closses.append(tee.value("tr_loss"))
+    cposts, cseconds = {}, {}
+    for streaming in (False, True):
+        cposts[streaming], cseconds[streaming] = forward(
+            "cudnn", cnets[1], streaming, cname,
+            counts(lstm_stack_fwd=chunks) if streaming
+            else counts(lstm_stack_fwd=fwd_batches), into="cudnn_launches")
+    result["cudnn_forward_fps"] = total / cseconds[False]
+    cstream = streamed_vs_offline(cposts)
+    if not all(math.isfinite(v) for v in losses + closses):
+        fail("non-finite losses on the stack kernels: %s, %s"
+             % (losses, closses))
+    say("  %s: cv_loss %.4f, tr_loss %.4f (%d steps); nnet_forward %.1f "
+        "frames/s; streamed vs offline ratio %.3e (bound %.0e)"
+        % (cname, closses[0], closses[1], csteps,
+           result["cudnn_forward_fps"], cstream[2], BF16_STEP_REL_TOL))
+    if cstream[2] > BF16_STEP_REL_TOL:
+        fail("the %s's streamed output differs from its offline output"
+             % cname)
     return result
 
 
@@ -5115,22 +5572,24 @@ def parent_route():
         yield
 
 
-def wide_session(torch, pkg, device, rng):
-    """Phase 13 at Kaldi's LSTMP widths: a streaming session of the wide
-    lstm model (random weights) over SESSION_UTTERANCES utterances in
-    chunks of CHUNK_ROWS rows: one K12 and one K4 launch a chunk, no plain
-    scan on the card, ms per chunk and the real-time factor; then the same
-    on the parent's route (each layer the plain scan), timed in turns."""
+def wide_session(torch, pkg, device, rng, config=None,
+                 utterances=SESSION_UTTERANCES):
+    """Phase 13 at Kaldi's LSTMP widths (phase 24 at Sak's: ``config``): a
+    streaming session of the wide lstm model (random weights) over
+    ``utterances`` utterances in chunks of CHUNK_ROWS rows: one K12 and one
+    K4 launch a chunk, no plain scan on the card, ms per chunk and the
+    real-time factor; then the same on the parent's route (each layer the
+    plain scan), timed in turns."""
     from lstm_ctc_tpu_torch.cli import init_from_config
     from lstm_ctc_tpu_torch.models import lstm
     from lstm_ctc_tpu_torch.models.streaming import StreamingSession
-    params, state = init_from_config(dict(WIDE_LSTM_CONFIG), device)
+    config = config or WIDE_LSTM_CONFIG
+    params, state = init_from_config(dict(config), device)
     raws = [rng.randn(int(rng.randint(600, 1201)), 40).astype(np.float32)
-            for _ in range(SESSION_UTTERANCES)]
+            for _ in range(utterances)]
     chunks = sum(-(-(raw.shape[0] // 3) // CHUNK_ROWS) for raw in raws)
     audio_s = FRAME_SHIFT_S * sum(raw.shape[0] for raw in raws)
-    session = StreamingSession(params, state, WIDE_LSTM_CONFIG,
-                               chunk_size=CHUNK_ROWS)
+    session = StreamingSession(params, state, config, chunk_size=CHUNK_ROWS)
 
     def serve():
         outs = []
@@ -5148,9 +5607,12 @@ def wide_session(torch, pkg, device, rng):
         fail("the wide streaming session ran the plain scan on the card %d "
              "times, or wrote non-finite posteriors" % len(seen))
     result = {"chunks": chunks}
+    warm = set()
     for route in (False, True, True, False):   # in turns
         with parent_route() if route else contextlib.nullcontext():
-            serve()   # warm
+            if route not in warm:   # the first run of each route warms it
+                serve()
+                warm.add(route)
             start = time.perf_counter()
             serve()
             torch.cuda.synchronize()
@@ -5160,233 +5622,24 @@ def wide_session(torch, pkg, device, rng):
     result["rtf"] = audio_s / (result["chunk_ms"] * chunks / 1e3)
     result["route_rtf"] = audio_s / (result["route_chunk_ms"] * chunks / 1e3)
     steps = CHUNK_ROWS + STACK_LAYERS - 1
+    units, out_dim = config["num_neurons"], config["num_projects"]
     how = pkg["lstm_stack_kernels"].stack_config(
-        device, steps, STACK_LAYERS, 1, 1024, 256, True, torch.bfloat16)
-    say("  wide streaming session (H=1024, P=256, MoE head, bf16), %d "
+        device, steps, STACK_LAYERS, 1, units, out_dim, True, torch.bfloat16)
+    result["launch"] = how
+    say("  wide streaming session (H=%d, P=%d, MoE head, bf16), %d "
         "utterances, %d chunks of %d rows: %.3f ms per chunk, real-time "
         "factor %.1f (the best of two runs); on the parent's route (each "
         "layer the plain scan) %.3f ms per chunk, real-time factor %.1f; "
-        "K12 on a chunk: %d blocks a cluster, R=%d, %d clusters, lag K=%d"
-        % (SESSION_UTTERANCES, chunks, CHUNK_ROWS, result["chunk_ms"],
-           result["rtf"], result["route_chunk_ms"], result["route_rtf"],
-           how["blocks"], how["rows"], STACK_LAYERS * how["tiles"],
-           how["lag"]))
+        "K12 on a chunk: %s plan, %d blocks a cluster, R=%d, %d clusters, "
+        "lag K=%d" % (units, out_dim, utterances, chunks, CHUNK_ROWS,
+                      result["chunk_ms"], result["rtf"],
+                      result["route_chunk_ms"], result["route_rtf"],
+                      "streamed" if how["streamed"] else "resident",
+                      how["blocks"], how["rows"], STACK_LAYERS * how["tiles"],
+                      how["lag"]))
     if how["blocks"] != 16:
         fail("K12 on a wide streaming chunk has %d blocks a cluster, not 16"
              % how["blocks"])
-    return result
-
-
-def wide_lstm_end_to_end(torch, pkg, device, work, scp, rng):
-    """Phase 22: the lstm family at Kaldi's LSTMP widths (WIDE_LSTM_CONFIG)
-    through nnet_init, WIDE_STEPS steps of nnet_train (unpacked, keep 0.9),
-    nnet_forward on 64 utterances and nnet_forward --streaming on the same
-    utterances, bf16, each run counted from zero (per train step 1 K12, 1
-    K13, 1 K5, 1 K6, 1 K10, 1 K11; per CV or forward batch 1 K12, 1 K4
-    and, in CV, 1 K10; per streamed chunk 1 K12 and 1 K4), no route
-    warning, no K1 or K2 and no plain scan on the card; float32
-    log-posteriors against the plain versions', streamed against offline
-    in both dtypes; the parent's route (layer by layer through K1 and K2)
-    timed for the train step and the forward; then the cudnnlstm family at
-    H = P = 512 through nnet_init, nnet_train and nnet_forward."""
-    from lstm_ctc_tpu_torch.bin import nnet_forward, nnet_init, nnet_train
-    from lstm_ctc_tpu_torch.cli import build_batcher, init_from_config
-    from lstm_ctc_tpu_torch.host import kaldi
-    from lstm_ctc_tpu_torch.host.config import format_config
-    from lstm_ctc_tpu_torch.models import lstm
-    from lstm_ctc_tpu_torch.train.checkpoint import load_checkpoint
-    from lstm_ctc_tpu_torch.train.graph import param_leaves
-    sk = pkg["lstm_stack_kernels"]
-    wdir = os.path.join(work, "wide_lstm")
-    os.makedirs(wdir)
-    configs = {"bf16": WIDE_LSTM_CONFIG,
-               "f32": dict(WIDE_LSTM_CONFIG, compute_dtype="float32"),
-               "cudnn": WIDE_CUDNN_CONFIG}
-    paths = {}
-    for name, config in configs.items():
-        paths[name] = os.path.join(wdir, "nnet_%s.config" % name)
-        with open(paths[name], "w") as fh:
-            fh.write(format_config(config))
-    for backward, kernel in ((False, "K12"), (True, "K13")):
-        for config in (WIDE_LSTM_CONFIG, WIDE_CUDNN_CONFIG):
-            units = config["num_neurons"]
-            out_dim = config["num_projects"] or units
-            how = sk.stack_config(device, 384 + STACK_LAYERS - 1,
-                                  STACK_LAYERS, 32, units, out_dim,
-                                  bool(config["num_projects"]),
-                                  torch.bfloat16, backward, torch.bfloat16)
-            say("  %s at %s H=%d P=%d, B=32, T=384, bf16: %d blocks a "
-                "cluster, R=%d, %d clusters in %d wave(s), %d resident at "
-                "once, lag K=%d, %d bytes of shared memory a block"
-                % (kernel, config["nnet_type"], units, out_dim, how["blocks"],
-                   how["rows"], STACK_LAYERS * how["tiles"], how["waves"],
-                   how["resident"], how["lag"], how["smem_bytes"]))
-            if how["blocks"] != 16:
-                fail("%s at H=%d P=%d has %d blocks a cluster, not 16"
-                     % (kernel, units, out_dim, how["blocks"]))
-    sub_scp, batcher = fold_subset(wdir, scp, WIDE_LSTM_CONFIG, WIDE_STEPS,
-                                   "wide.scp", pack_factor=1)
-    steps = len(batcher.batch_plan(True, 777))
-    cv_batches = len(build_batcher(sub_scp, WIDE_LSTM_CONFIG, 32).batch_plan(
-        False, None))
-    frames = sum(batcher._lengths)
-    common = ["--objective", "ctc", "--batch-size", "32", "--device",
-              "cuda", "--report-interval", "0"]
-    result = {"launches": counts(), "cudnn_launches": counts()}
-
-    @contextlib.contextmanager
-    def watch(seen, parent=False):
-        with parent_route() if parent else contextlib.nullcontext(), \
-                plain_on_card(lstm, "lstm_scan", seen):
-            yield
-
-    def counted(what, fn, want, parent=False, into="launches"):
-        """counted_entry with no plain scan on the card; on the parent's
-        route the launches are not added to ``into``."""
-        return counted_entry(
-            torch, pkg, what, fn, want,
-            lambda seen: watch(seen, parent),
-            None if parent else result[into])
-
-    nnets = [os.path.join(wdir, "nnet%d.npz" % i) for i in range(3)]
-    tee, _ = counted("nnet_init", lambda: nnet_init.main(
-        [sub_scp, paths["bf16"], nnets[0]] + common), counts(
-            lstm_stack_fwd=cv_batches, moe_fwd=cv_batches,
-            ctc_alpha=cv_batches))
-    losses = [tee.value("cv_loss")]
-    train_counts = dict(moe_fwd_stash=steps, moe_bwd=steps, ctc_alpha=steps,
-                        ctc_beta=steps)
-    stats = {}
-    for name, parent, out, want in (
-            ("stack", False, nnets[1], counts(lstm_stack_fwd=steps,
-                                               lstm_stack_bwd=steps,
-                                               **train_counts)),
-            ("route", True, nnets[2], counts(lstm_fwd=STACK_LAYERS * steps,
-                                              lstm_bwd=STACK_LAYERS * steps,
-                                              **train_counts))):
-        metrics_file = os.path.join(wdir, "metrics_%s.jsonl" % name)
-        tee, _ = counted(
-            "nnet_train" + (" on the parent's route" if parent else ""),
-            lambda: nnet_train.main(
-                [sub_scp, paths["bf16"], nnets[0], out, "--metrics-file",
-                 metrics_file, "--optimizer", "adam", "--learn-rate",
-                 "1e-3"] + common), want, parent)
-        losses.append(tee.value("tr_loss"))
-        with open(metrics_file) as fh:
-            times = [json.loads(ln)["step_time"] for ln in fh]
-        stats[name] = (1e3 * statistics.median(times), frames / sum(times))
-    result["step_ms"], result["fps"] = stats["stack"]
-    result["route_step_ms"], result["route_fps"] = stats["route"]
-    template, state = init_from_config(WIDE_LSTM_CONFIG, device)
-    for path in nnets:
-        params, _, _ = load_checkpoint(path, template, state)
-        if not all(torch.isfinite(p).all() for p in param_leaves(params)):
-            fail("%s holds non-finite weights" % path)
-    if not all(math.isfinite(v) for v in losses):
-        fail("non-finite losses at the wide widths: %s" % losses)
-    say("  cv_loss %.4f, tr_loss %.4f (the parent's route from the same "
-        "weights %.4f; %d steps of 32 unpacked utterances, keep 0.9); "
-        "median train step %.1f ms, %.1f real frames/s; on the parent's "
-        "route %.1f ms, %.1f real frames/s"
-        % (tuple(losses) + (steps, result["step_ms"], result["fps"],
-                            result["route_step_ms"], result["route_fps"])))
-
-    # serving: 64 utterances, offline and streamed, as a user runs them
-    scp64, raw_lengths = write_corpus(pkg, wdir, rng)
-    fwd_batches = len(build_batcher(scp64, WIDE_LSTM_CONFIG, 32).batch_plan(
-        False, None))
-    chunks = sum(-(-(n // 3) // CHUNK_ROWS) for n in raw_lengths.values())
-    posts, seconds = {}, {}
-    for tag in ("bf16", "f32"):
-        for streaming in (False, True):
-            ark = os.path.join(wdir, "post_%s%s.ark"
-                               % (tag, "_stream" if streaming else ""))
-            want = counts(lstm_stack_fwd=chunks, moe_fwd=chunks) \
-                if streaming else counts(lstm_stack_fwd=fwd_batches,
-                                         moe_fwd=fwd_batches)
-            extra = ["--streaming", "true", "--chunk-frames",
-                     str(CHUNK_ROWS)] if streaming else []
-            _, seconds[(tag, streaming)] = counted(
-                "nnet_forward %s%s" % (tag, " --streaming" if streaming
-                                       else ""),
-                lambda: nnet_forward.main(
-                    [scp64, paths[tag], nnets[1], "ark:" + ark, "--device",
-                     "cuda", "--batch-size", "32"] + extra), want)
-            posts[(tag, streaming)] = read_archive(kaldi, ark)
-            check_posteriors(posts[(tag, streaming)], raw_lengths)
-    total = sum(m.shape[0] for m in posts[("bf16", False)].values())
-    result["forward_fps"] = total / seconds[("bf16", False)]
-    result["stream_chunk_ms"] = 1e3 * seconds[("bf16", True)] / chunks
-    _, route_s = counted("nnet_forward on the parent's route",
-                         lambda: nnet_forward.main(
-                             [scp64, paths["bf16"], nnets[1],
-                              "ark:" + os.path.join(wdir, "route.ark"),
-                              "--device", "cuda", "--batch-size", "32"]),
-                         counts(lstm_fwd=STACK_LAYERS * fwd_batches,
-                                moe_fwd=fwd_batches), parent=True)
-    result["route_forward_fps"] = total / route_s
-    stream = {}
-    for tag in ("bf16", "f32"):
-        offline = posts[(tag, False)]
-        worst, mean = diff_stats(posts[(tag, True)], offline)
-        scale = max(float(np.abs(m).max()) for m in offline.values())
-        stream[tag] = (worst, mean, worst / scale)
-    params, _, _ = load_checkpoint(nnets[1], template, state)
-    ref32 = plain_logposts(torch, pkg, params, state, build_batcher(
-        scp64, configs["f32"], 32), configs["f32"], device)
-    worst32, mean32 = diff_stats(posts[("f32", False)], ref32)
-    say("  nnet_forward: %d utterances, %d frames in %.2f s (%.1f frames/s, "
-        "checkpoint load included; the parent's route %.1f frames/s); "
-        "--streaming in %d chunks of %d rows: %.2f s (%.3f ms a chunk, the "
-        "CLI's whole run); float32 kernels vs plain versions, "
-        "log-posteriors: max_abs %.3e mean_abs %.3e (bounds %.0e, %.0e); "
-        "streamed vs offline: float32 max_abs %.3e mean_abs %.3e ratio %.3e "
-        "(bound %.0e), bfloat16 max_abs %.3e mean_abs %.3e ratio %.3e "
-        "(bound %.0e)"
-        % ((len(raw_lengths), total, seconds[("bf16", False)],
-            result["forward_fps"], result["route_forward_fps"], chunks,
-            CHUNK_ROWS, seconds[("bf16", True)], result["stream_chunk_ms"],
-            worst32, mean32, E2E_F32_MAX_TOL, E2E_F32_MEAN_TOL)
-           + stream["f32"] + (F32_REL_TOL,) + stream["bf16"]
-           + (BF16_STEP_REL_TOL,)))
-    if mean32 > E2E_F32_MEAN_TOL or worst32 > E2E_F32_MAX_TOL:
-        fail("wide lstm float32 log-posteriors differ from the plain "
-             "versions by %.3e on average, %.3e at most" % (mean32, worst32))
-    if stream["f32"][2] > F32_REL_TOL or stream["bf16"][2] > \
-            BF16_STEP_REL_TOL:
-        fail("the wide lstm's streamed output differs from its offline "
-             "output")
-
-    # cudnnlstm at H = P = 512: trains and serves on 16-block K12 and K13
-    cnets = [os.path.join(wdir, "cudnn%d.npz" % i) for i in range(2)]
-    cscp, cbatcher = fold_subset(wdir, scp, WIDE_CUDNN_CONFIG, WIDE_STEPS,
-                                 "cudnn.scp", pack_factor=1)
-    csteps = len(cbatcher.batch_plan(True, 777))
-    ccv = len(build_batcher(cscp, WIDE_CUDNN_CONFIG, 32).batch_plan(False,
-                                                                    None))
-    tee, _ = counted("cudnnlstm nnet_init", lambda: nnet_init.main(
-        [cscp, paths["cudnn"], cnets[0]] + common),
-        counts(lstm_stack_fwd=ccv, ctc_alpha=ccv), into="cudnn_launches")
-    closses = [tee.value("cv_loss")]
-    tee, _ = counted("cudnnlstm nnet_train", lambda: nnet_train.main(
-        [cscp, paths["cudnn"], cnets[0], cnets[1], "--optimizer", "adam",
-         "--learn-rate", "1e-3"] + common),
-        counts(lstm_stack_fwd=csteps, lstm_stack_bwd=csteps,
-               ctc_alpha=csteps, ctc_beta=csteps), into="cudnn_launches")
-    closses.append(tee.value("tr_loss"))
-    cark = os.path.join(wdir, "cudnn.ark")
-    _, cseconds = counted("cudnnlstm nnet_forward", lambda: nnet_forward.main(
-        [scp64, paths["cudnn"], cnets[1], "ark:" + cark, "--device", "cuda",
-         "--batch-size", "32"]), counts(lstm_stack_fwd=fwd_batches),
-        into="cudnn_launches")
-    cposts = read_archive(kaldi, cark)
-    check_posteriors(cposts, raw_lengths)
-    if not all(math.isfinite(v) for v in closses):
-        fail("non-finite cudnnlstm losses at H=P=512: %s" % closses)
-    result["cudnn_forward_fps"] = total / cseconds
-    say("  cudnnlstm H=P=512: cv_loss %.4f, tr_loss %.4f (%d steps); "
-        "nnet_forward %.1f frames/s" % (closses[0], closses[1], csteps,
-                                        result["cudnn_forward_fps"]))
     return result
 
 
@@ -5568,6 +5821,10 @@ def main() -> None:
         k12_wide = check_stack_fwd_wide(torch, pkg, device, stack_rng)
         library_wide = cudnn_yardstick(torch, pkg, device, stack_rng,
                                        shape=(512, None))
+        # cuDNN at the streamed plan's cudnnlstm H = P = 1024
+        library_streamed = cudnn_yardstick(torch, pkg, device, stack_rng,
+                                           shape=(1024, None))
+        forced_stack = check_stack_forced(torch, pkg, device, stack_rng)
         phase("phase 12 K13 (unidirectional stack backward)")
         k13 = check_stack_bwd(torch, pkg, device, rng)
         k13_wide = check_stack_bwd_wide(torch, pkg, device, stack_rng)
@@ -5620,8 +5877,10 @@ def main() -> None:
               "x 1024 cells, projection 256, MoE head; nnet_init / "
               "nnet_train / nnet_forward, offline and --streaming, on "
               "16-block K12 and K13; cudnnlstm H=P=512, cuda)")
-        wide_lstm = wide_lstm_end_to_end(torch, pkg, device, work, scp,
-                                         stack_rng)
+        wide_lstm = stack_families_end_to_end(
+            torch, pkg, device, os.path.join(work, "wide_lstm"), scp,
+            stack_rng, WIDE_LSTM_CONFIG, WIDE_CUDNN_CONFIG, WIDE_STEPS, 64,
+            False, True)
         phase("phase 23 a 256-target head end to end (the flagship MoE "
               "model over 256 targets; nnet_init / nnet_train / "
               "nnet_forward on K4, K5 and K6 V-tiled, bf16, cuda)")
@@ -5630,7 +5889,9 @@ def main() -> None:
         phase("phase 24 the streamed plan end to end (the flagship MoE "
               "model at H=P=1024 without a projection; nnet_init / "
               "nnet_train / nnet_forward on K1, K2 and K3 streaming their "
-              "weights, bf16; the lstm family at 2048/512 layer by layer, "
+              "weights, bf16; the lstm family at 2048/512 and the "
+              "cudnnlstm family at H=P=1024 on K12 and K13 streaming "
+              "theirs, offline and --streaming, beside the parent's routes, "
               "cuda)")
         streamed = streamed_end_to_end(torch, pkg, device, work, scp,
                                        streamed_rng)
@@ -5645,8 +5906,10 @@ def main() -> None:
                 wide_lstm, wide_head, streamed):
         for k, v in run["launches"].items():
             launches[k] += v
-    for k, v in wide_lstm["cudnn_launches"].items():
-        launches[k] += v
+    for runs in (wide_lstm["cudnn_launches"], streamed["sak"]["launches"],
+                 streamed["sak"]["cudnn_launches"]):
+        for k, v in runs.items():
+            launches[k] += v
     for name in KERNEL_NAMES:
         if launches[name] == 0:
             fail("%s was never launched on the main paths" % name)
@@ -5783,6 +6046,28 @@ def main() -> None:
                  "library_ms": lib},
                 **{k: res[key][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by")}))
+    # K12 and K13 on the streamed plan (bf16, B=32, T=384, 4 layers): at
+    # Sak's LSTMP widths, 128 units a block (launches from phase 24's lstm
+    # runs; no PyTorch call has the peephole projected cell) and at the
+    # cudnnlstm H = P = 1024 (launches from phase 24's cudnnlstm runs;
+    # cuDNN's LSTM the library yardstick, which computes the same function)
+    for suffix, key, lib_ms, runs in (
+            ("_streamed", SAK + (False,), (None, None), "launches"),
+            ("_streamed_cudnnlstm", ("cudnnlstm", 1024, None, False),
+             (library_streamed["forward"], library_streamed["both"]),
+             "cudnn_launches")):
+        for name, line, res, lib in (("lstm_stack_fwd", 64, k12_wide,
+                                      lib_ms[0]),
+                                     ("lstm_stack_bwd", 184, k13_wide,
+                                      lib_ms[1])):
+            kernels.append(dict(
+                {"name": name + suffix, "route": "cuda",
+                 "source": "lstm_ctc_tpu_torch/csrc/%s.cu" % name,
+                 "replaces": "lstm_ctc_tpu/ops/lstm_stack_pallas.py:%d"
+                 % line, "launches": streamed["sak"][runs][name],
+                 "library_ms": lib},
+                **{k: res[key][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")}))
     # K4, K5 and K6 V-tiled: bf16 at V = 256 (K4 N=12288 keep 1.0, K5 and
     # K6 N=14336 keep 0.9), launches from phase 23's runs; cuBLAS's bare
     # product is not their function (printed, not the library's time)
@@ -5888,23 +6173,34 @@ def main() -> None:
                    for shape in WIDE_LAYERS[1:] for res in (lstm, bwd, fold))
            + (wide["step_ms"], wide["fps"], wide["forward_fps"])))
     wide_rows = []
-    for family, units, proj in WIDE_STACKS + (("lstm", 1024, 256),):
-        stream = len(wide_rows) == len(WIDE_STACKS)
-        f, b = (res[(family, units, proj, stream)] for res in (k12_wide,
-                                                              k13_wide))
-        wide_rows.append("%s: K12 %.3f ms, K13 %.3f ms (%s)%s" % (
-            wide_name(family, units, proj, 1 if stream else 32), f["ms"],
-            b["ms"], "K12 R=%d in %d wave(s), K13 R=%d in %d wave(s)" % (
+    for case in wide_cases(torch):
+        key, family, units, proj, shape = case[:5]
+        f, b = k12_wide[key], k13_wide[key]
+        wide_rows.append("%s: K12 %.3f ms%s, K13 %.3f ms%s (%s)%s" % (
+            wide_name(family, units, proj, shape.get("batch", 32),
+                      shape.get("steps", 384)), f["ms"],
+            "" if f["plain_ms"] is None else " (plain %.3f)" % f["plain_ms"],
+            b["ms"],
+            "" if b["plain_ms"] is None else " (plain %.3f)" % b["plain_ms"],
+            "%s plan, K12 R=%d in %d wave(s), K13 R=%d in %d wave(s)" % (
+                "streamed" if f["launch"]["streamed"] else "resident",
                 f["launch"]["rows"], f["launch"]["waves"],
                 b["launch"]["rows"], b["launch"]["waves"]),
-            "" if stream else "; through stack_layers forward %.3f ms (the "
-            "parent's route %.3f), forward + backward %.3f ms (%.3f)" % (
-                f["stack_ms"], f["route_ms"], b["stack_ms"], b["route_ms"])))
+            "" if "stack_ms" not in f else "; through stack_layers forward "
+            "%.3f ms (the parent's route %.3f), forward + backward %.3f ms "
+            "(%.3f)" % (f["stack_ms"], f["route_ms"], b["stack_ms"],
+                        b["route_ms"])))
     say("summary of the unidirectional stack on 16-block clusters on %s "
-        "(bf16, B=32, T=384, 4 layers; cuDNN's LSTM at H=P=512: forward "
-        "%.3f ms, forward + backward %.3f ms): %s"
+        "(bf16, B=32, T=384, 4 layers unless said; cuDNN's LSTM at H=P=512: "
+        "forward %.3f ms, forward + backward %.3f ms; at H=P=1024: %.3f ms, "
+        "%.3f ms): %s; the streamed plan forced at H=1024 P=256, bit-equal "
+        "to the resident plan: %s"
         % (smi, library_wide["forward"], library_wide["both"],
-           "; ".join(wide_rows)))
+           library_streamed["forward"], library_streamed["both"],
+           "; ".join(wide_rows), "; ".join(
+               "%s R=%d %s" % (k[0], k[1], ", ".join(
+                   "%s %.3f ms" % kv for kv in t.items()))
+               for k, t in forced_stack.items())))
     say("summary of Kaldi's LSTMP widths on %s (lstm, H=1024, P=256, MoE "
         "head, bf16): train step (B=32 unpacked, keep 0.9), median %.1f "
         "ms, %.1f real frames/s (the parent's route %.1f ms, %.1f); "
@@ -5972,12 +6268,36 @@ def main() -> None:
         "bf16), median %.1f ms, %.1f real frames/s, one profiled step's "
         "device kernels %.1f ms (the same step on the parent's route, the "
         "plain recurrence, after a warm-up step: median %.1f ms of %d on "
-        "the host clock); nnet_forward %.1f frames/s; the lstm family at "
-        "2048/512 nnet_forward %.1f frames/s"
+        "the host clock); nnet_forward %.1f frames/s"
         % (smi, "; ".join(streamed_rows), "; ".join(forced_rows),
            streamed["step_ms"], streamed["fps"], streamed["device_ms"],
-           streamed["route_ms"], ROUTE_STEPS, streamed["forward_fps"],
-           streamed["lstm_forward_fps"]))
+           streamed["route_ms"], ROUTE_STEPS, streamed["forward_fps"]))
+    sak = streamed["sak"]
+    say("summary of the stack's streamed plan on %s (K12 and K13, 16 "
+        "blocks streaming wh and proj; bf16, B=32, T=384, 4 layers): lstm "
+        "H=2048 P=512: K12 %.3f ms (plain %.3f), K13 %.3f ms (plain %.3f); "
+        "train step (B=32 unpacked, keep 0.9) median %.1f ms, %.1f real "
+        "frames/s (the parent's route, layer by layer through K1 and K2: "
+        "%.1f ms, %.1f); nnet_forward %.1f frames/s (the parent's route "
+        "%.1f); a streaming session %.3f ms per chunk of %d rows, real-time "
+        "factor %.1f (the parent's route, each layer the plain scan: %.3f "
+        "ms, %.1f); nnet_forward --streaming %.3f ms a chunk (the whole CLI "
+        "run); cudnnlstm H=P=1024: K12 %.3f ms, K13 %.3f ms (cuDNN's LSTM "
+        "forward %.3f ms, forward + backward %.3f ms), nnet_forward %.1f "
+        "frames/s; the build %.1f s"
+        % (smi, k12_wide[SAK + (False,)]["ms"],
+           k12_wide[SAK + (False,)]["plain_ms"],
+           k13_wide[SAK + (False,)]["ms"],
+           k13_wide[SAK + (False,)]["plain_ms"], sak["step_ms"],
+           sak["fps"], sak["route_step_ms"], sak["route_fps"],
+           sak["forward_fps"], sak["route_forward_fps"],
+           sak["session"]["chunk_ms"], CHUNK_ROWS, sak["session"]["rtf"],
+           sak["session"]["route_chunk_ms"], sak["session"]["route_rtf"],
+           sak["stream_chunk_ms"],
+           k12_wide[("cudnnlstm", 1024, None, False)]["ms"],
+           k13_wide[("cudnnlstm", 1024, None, False)]["ms"],
+           library_streamed["forward"], library_streamed["both"],
+           sak["cudnn_forward_fps"], info["seconds"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -5995,7 +6315,9 @@ def main() -> None:
         + [res[k] for res in list(k12_wide.values())
            + list(k13_wide.values())
            for k in ("stack_ms", "route_ms") if k in res] \
-        + [library_wide["forward"], library_wide["both"]] \
+        + [library_wide["forward"], library_wide["both"],
+           library_streamed["forward"], library_streamed["both"]] \
+        + [v for t in forced_stack.values() for v in t.values()] \
         + [session[k] for k in ("chunk_ms", "route_chunk_ms")] \
         + [wide_lstm[k] for k in ("step_ms", "fps", "route_step_ms",
                                   "route_fps", "forward_fps",
@@ -6008,7 +6330,14 @@ def main() -> None:
                                   "plain_fps", "forward_fps", "device_ms",
                                   "plain_device_ms")] \
         + [streamed[k] for k in ("step_ms", "fps", "device_ms", "route_ms",
-                                 "forward_fps", "lstm_forward_fps")]
+                                 "forward_fps")] \
+        + [streamed["sak"][k] for k in ("step_ms", "fps", "route_step_ms",
+                                        "route_fps", "forward_fps",
+                                        "route_forward_fps",
+                                        "stream_chunk_ms",
+                                        "cudnn_forward_fps")] \
+        + [streamed["sak"]["session"][k] for k in ("chunk_ms",
+                                                   "route_chunk_ms")]
     if not all(math.isfinite(v) for v in numbers):
         fail("non-finite timing")
     say(json.dumps({"ok": True, "device": {

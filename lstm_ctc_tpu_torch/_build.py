@@ -71,6 +71,9 @@ SIGNATURES = {
                           + [_I] + [_P] * 4,
     "lstm_stack_fwd_bf16": [_I] + [_P] * 12 + [_F, _F] + [_I] * 6 + [_P] * 4
                            + [_I] + [_P] * 4,
+    # lstm_stack_fwd_bf16's, then the plan (1 resident, 2-4 streamed) and R
+    "lstm_stack_fwd_bf16_forced": [_I] + [_P] * 12 + [_F, _F] + [_I] * 6
+                                  + [_P] * 4 + [_I] + [_P] * 4 + [_I, _I],
     # device, seed, gx0, mask, chain, c_all, h_all, cinit, hinit, wz, wh
     # slices, proj rows, bias, peep, forget_bias, keep_prob,
     # residual bits, dout, dcfin, dhfin, S, L, B, H, P, store_bf16, dgates,
@@ -80,6 +83,9 @@ SIGNATURES = {
                           + [_I] * 6 + [_P] * 13,
     "lstm_stack_bwd_bf16": [_I] + [_P] * 13 + [_F, _F, _I] + [_P] * 3
                            + [_I] * 6 + [_P] * 13,
+    # lstm_stack_bwd_bf16's, then the plan (1 resident, 2-4 streamed) and R
+    "lstm_stack_bwd_bf16_forced": [_I] + [_P] * 13 + [_F, _F, _I] + [_P] * 3
+                                  + [_I] * 6 + [_P] * 13 + [_I, _I],
     # device, x, w, b, gate, N, D, E, V, tau, keep_prob, seed, out, stream
     "moe_fwd_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                     ctypes.c_uint32, _P, _P],
@@ -178,7 +184,8 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_fits.argtypes = [_I] * 5
     lib.lstm_bwd_fits.restype = ctypes.c_int
     # the same of K12 and (with store_bf16) K13, at any of their R
-    # (the clusters the card holds at once not counted)
+    # (negative for their streamed plans; the clusters the card holds at
+    # once not counted)
     lib.lstm_stack_fwd_fits.argtypes = [_I] * 4
     lib.lstm_stack_fwd_fits.restype = ctypes.c_int
     lib.lstm_stack_bwd_fits.argtypes = [_I] * 5
@@ -199,7 +206,8 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_fold_scratch_floats.restype = ctypes.c_longlong
     # device, S, L, B, H, P, has_proj, bf16 (K13: and store_bf16) ->
     # {blocks, rows, tiles, tiles a wave, waves, lag, bytes, clusters
-    # resident at once} (rows 0: the L layers are not resident together),
+    # resident at once, streamed or not, weight bytes a block held and
+    # streamed a step} (rows 0: the L layers are not resident together),
     # scratch floats
     _LL = ctypes.POINTER(ctypes.c_longlong)
     lib.lstm_stack_fwd_config.argtypes = [_I] * 8 + [_LL, _LL]

@@ -180,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_streamed_kernel(
   const int US = pl.us, G = pl.g, PS = pl.ps, PW = pl.pw, P16 = pl.p16, nd = pl.nd;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
   const int p0 = q * PS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
+  const int tid = threadIdx.x;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* hq = reinterpret_cast<T*>(smem_raw);                  // [8][lda] h_prev
@@ -300,122 +300,21 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_streamed_kernel(
   };
   int chunk = 0;  // the next chunk to read
 
-  // 2. dout_blk over proj's chunks of rows (the units), each chunk's sums
-  // complete, as lstm_bwd.cu's slices: part[s][8][ND]
+  // 2. dout_blk over proj's chunks of rows (the units), part[s][8][ND]
   auto dob_pass = [&]() {
-    for (int i = 0; i < pl.np; ++i) {
-      ring.wait(chunk);
-      const int t0 = i * pl.cu, nt = min(pl.cu, pl.utiles - t0);
-      mma_f32add_tiles<true>(dq, pl.lda, P16, ring.at<const T>(chunk), pl.lpj, nt, pl.dob, part,
-                             nd, 16 * t0);
-      __syncthreads();
-      if (tid == 0 && chunk + pl.slots < total) issue(chunk + pl.slots);
-      ++chunk;
-    }
+    bwd_dob_pass(dq, pl.lda, P16, ring, pl.lpj, pl.np, pl.cu, pl.utiles, pl.dob, part, nd, chunk,
+                 total, issue);
   };
 
-  // 4. the pass over wh's rows p: with `dh_on` dh_prev's partial (dgates ·
-  // wh_qᵀ: a chunk's 16-row tile j complete over the depth G, by warp 15 -
-  // j % 16) into part [R][PW]; with `gate_on` the gate sums of the step
-  // before (gx + h_prev · wh_q: warp w owns the tiles w and w + 16 over the
-  // whole pass) into gsum [R][G].  Each in the resident plan's k-slices,
-  // added in slice order.
-  const int gtiles = G / 16;
-  const __nv_bfloat16* a_h = hq + (lane & 7) * pl.lda + ((lane >> 3) & 1) * 8;
-  const __nv_bfloat16* a_g = gq + (lane & 7) * pl.ldg + ((lane >> 3) & 1) * 8;
-  const int row = lane >> 2, col = 2 * (lane & 3);
+  // 4. the pass over wh's rows p: dh_prev's partial into part [R][PW],
+  // the gate sums of the step before (gx + h_prev · wh_q) into gsum [R][G]
   auto wh_pass = [&](bool dh_on, bool gate_on) {
-    float gacc[2][2][2], gd[2][2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int t = warp + kWarps * i, c = t * 16 + 8 * h + col + e;
-          gacc[i][h][e] = gate_on && t < gtiles && row < nr
-                              ? gx_s[(row * 4 + c / US) * US + c % US] : 0.0f;
-          gd[i][h][e] = 0.0f;
-        }
-    stream_pass(pl.wsteps, wres, pl.lws, pl.res, ring, pl.lws, pl.cw, chunk, total, issue,
-                [&](const T* w, int ldw, int k, int j) {
-      if (gate_on) {
-        if (j > 0 && j % pl.gates.per == 0) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                gacc[i][h][e] += gd[i][h][e];
-                gd[i][h][e] = 0.0f;
-              }
-        }
-        uint32_t fr[2];
-        ldsm_x2(fr, a_h + j * 16);
-        const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int t = warp + kWarps * i;
-          if (t < gtiles) {
-            uint32_t fb[4];
-            ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
-              gd[i][h][0] += z[0];
-              gd[i][h][1] += z[1];
-            }
-          }
-        }
-      }
-      if (dh_on && warp == kWarps - 1 - j % kWarps) {
-        const T* w_lane = w + (size_t)(k * 16 + (lane >> 4) * 8 + (lane & 7)) * ldw +
-                          ((lane >> 3) & 1) * 8;
-        float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, d[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-        for (int kk = 0; kk < pl.gsteps; ++kk) {
-          if (kk > 0 && kk % pl.dh.per == 0) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                acc[h][e] += d[h][e];
-                d[h][e] = 0.0f;
-              }
-          }
-          uint32_t fr[2], fb[4];
-          ldsm_x2(fr, a_g + kk * 16);
-          const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
-          ldsm_x4(fb, w_lane + kk * 16);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
-            d[h][0] += z[0];
-            d[h][1] += z[1];
-          }
-        }
-        float* dst = part + (size_t)row * PW + 16 * j + col;
-        if (row < R)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(dst + 8 * h) =
-                make_float2(acc[h][0] + d[h][0], acc[h][1] + d[h][1]);
-      }
-    });
-    if (gate_on) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int t = warp + kWarps * i;
-        if (t < gtiles && row < R)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(gsum + (size_t)row * G + t * 16 + 8 * h + col) =
-                make_float2(gacc[i][h][0] + gd[i][h][0], gacc[i][h][1] + gd[i][h][1]);
-      }
-    }
-    __syncthreads();
+    bwd_wh_pass(dh_on, gate_on, hq, pl.lda, gq, pl.ldg, G, pl.wsteps, pl.gsteps, pl.gates, pl.dh,
+                wres, pl.lws, pl.res, ring, pl.cw, chunk, total, issue,
+                [&](int r, int c) {
+                  return r < nr ? gx_s[(r * 4 + c / US) * US + c % US] : 0.0f;
+                },
+                R, gsum, part, PW);
   };
 
   cluster.sync();  // every block is resident and initialised

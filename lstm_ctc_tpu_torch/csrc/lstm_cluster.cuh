@@ -1,7 +1,7 @@
 // The cluster machinery of the LSTM kernels (lstm_fwd.cu, K1;
 // lstm_stack_fwd.cu, K12; lstm_bwd.cu, K2; lstm_stack_bwd.cu, K13): an
 // 8-block cluster per tile of R batch rows (16 blocks where an 8-block plan
-// does not fit, up to 1024 units), each block owning 1/8 (1/16) of
+// does not fit, up to 2048 units), each block owning 1/8 (1/16) of
 // the hidden units (all four gates of them) and of the projection columns; its
 // slices of the recurrent and projection weights stay in its shared memory
 // (bf16) or are read from L2 (float32).  Per step of a forward: the gate
@@ -33,11 +33,20 @@ namespace {
 
 constexpr int kCluster = 8;       // blocks per cluster where an 8-block plan fits
 constexpr int kWideCluster = 16;  // past that: the H100's non-portable most
-constexpr int kBlockUnits = 64;   // hidden units a block owns, at most (the slices' layout)
-constexpr int kLayerUnits = 128;  // the same for K1 and K2 (H <= 2048 on 16 blocks)
+constexpr int kBlockUnits = 64;   // hidden units a block of an 8-block K12 or K13 owns, at most
+constexpr int kLayerUnits = 128;  // the same of K1 and K2, and of 16 blocks (H <= 2048)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlices = 16; // most k-slices one FMA product is split into
+// the streamed plans' ring (below): a chunk's bytes, about (at least 16
+// rows), and the ring's slots, at most (2 at least)
+constexpr int kChunkBytes = 24576;
+constexpr int kMaxSlots = 4;
+// a streamed plan's `cap` that holds every 16-deep step of wh resident, and
+// refuses the shape where they do not all fit (the ring then streams only
+// proj's rows): the plans' forced launches time it against the resident
+// plan; -1 holds as many as fit
+constexpr int kAllHeld = -2;
 
 __host__ __device__ constexpr int round_up(int v, int m) { return cdiv(v, m) * m; }
 __host__ __device__ constexpr size_t align128(size_t v) { return (v + 127) / 128 * 128; }
@@ -106,25 +115,40 @@ __host__ __device__ Split mma_split(int cols, int depth, int most = kMaxSlices) 
 // (the tensor cores' A operands: 8 up to 8 rows, loaded once for mma's 16,
 // else 16; R in float32); prow: rows of each partial-sum block (arow in
 // bf16); LWA, LWD: row strides of the bf16 weight slices in shared memory
-// (padded by 16 bytes, LWD not with 16 blocks, as K1's); weight_bytes:
-// their size (0 in f32, whose slices stay in global memory).  The cell
-// output's buffer exists only with a projection.  The region of the
-// partial sums also holds the input rows a layer stages for a chunk's
-// product (kStage rows of the padded input width): the stage is used
-// before a chunk's steps, the partial sums within a step, and both only
-// by the block's own threads.
+// (padded by 16 bytes, LWD not with 16 blocks, as K1's); off_w, bytes:
+// where they start, and the block's shared memory in all (in f32, whose
+// slices stay in global memory, off_w = bytes).  The cell output's buffer
+// exists only with a projection.  The region of the partial sums also
+// holds the input rows a layer stages for a chunk's product (srows rows
+// of the padded input width: kStage, or half of it where a stage of kStage
+// rows would not fit, in a resident plan, or would be past kStageBytes, in
+// the streamed one): the stage is used before a chunk's steps, the partial
+// sums within a step, and both only by the block's own threads.
+//
+// The streamed plan (bf16, `stream`): the partial sums are the complete
+// sums [8][4·US] and [8][PS] (streamed_product adds the k-slices itself);
+// after the stage, the ring's barriers and slots, then wh's first `res`
+// 16-deep steps (at most `cap` where cap >= 0) at row stride LWA, as the
+// wrapper lays every row out in global memory; wsteps, psteps: 16-deep
+// steps of wh (P) and proj (H); cw, cp: steps a chunk of each; nw, np:
+// chunks a step; res_bytes, stream_bytes: a block's weight bytes held,
+// and streamed a step.
 constexpr int kStage = 32;
+constexpr size_t kStageBytes = 65536;
 
 struct Plan {
-  int us, ps, hs, qs, own, arow, prow, part, lwa, lwd;
+  int us, ps, hs, qs, own, arow, prow, part, lwa, lwd, srows;
   Split gates, proj;
-  size_t off_cell, off_c, off_h, off_stage, off_part, base_bytes,
-      weight_bytes;
+  size_t off_cell, off_c, off_h, off_stage, off_part, off_w, bytes;
+  int wsteps, psteps, res, cw, cp, nw, np, slots;
+  size_t slot, off_bar, off_ring;
+  long long res_bytes, stream_bytes;
 };
 
 template <typename T>
-__host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows, int C) {
-  Plan p;
+__host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows, int C,
+                              bool stream = false, int cap = -1) {
+  Plan p = {};
   p.us = round_up(cdiv(units, C), 8);
   p.ps = has_proj ? round_up(cdiv(out_dim, C), 16) : p.us;
   const int pad = 16 / (int)sizeof(T);
@@ -136,10 +160,11 @@ __host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows, i
   const int g = 4 * p.us;
   p.gates = kMma<T> ? mma_split(g, out_dim) : fma_split(g, out_dim);
   p.proj = kMma<T> ? mma_split(p.ps, units) : fma_split(p.ps, units);
-  const int part_gates = p.gates.slices * p.prow * g;
-  const int part_proj = has_proj ? p.proj.slices * p.prow * p.ps : 0;
+  const int part_gates = stream ? 8 * g : p.gates.slices * p.prow * g;
+  const int part_proj = !has_proj ? 0 : stream ? 8 * p.ps : p.proj.slices * p.prow * p.ps;
   p.part = part_gates > part_proj ? part_gates : part_proj;
-  const size_t in_stage = sizeof(T) * (size_t)kStage * (round_up(out_dim, 16) + pad);
+  p.lwa = g + pad;
+  p.lwd = p.ps + (C == kCluster ? pad : 0);
   const size_t part_bytes = sizeof(float) * (size_t)p.part;
   const int stage = p.us > p.ps ? p.us : p.ps;
   p.off_cell = align128(sizeof(T) * (size_t)p.arow * p.qs);
@@ -147,12 +172,39 @@ __host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows, i
   p.off_h = p.off_c + align128(sizeof(float) * (size_t)rows * p.us);
   p.off_stage = p.off_h + align128(sizeof(float) * (size_t)rows * p.own);
   p.off_part = p.off_stage + align128(sizeof(T) * (size_t)rows * stage);
-  p.base_bytes = p.off_part + align128(part_bytes > in_stage ? part_bytes : in_stage);
-  p.lwa = g + pad;
-  p.lwd = p.ps + (C == kCluster ? pad : 0);
-  p.weight_bytes = !kMma<T> ? 0 : sizeof(T) *
+  const size_t weights = !kMma<T> ? 0 : sizeof(T) *
       ((size_t)round_up(out_dim, 16) * p.lwa
        + (has_proj ? (size_t)round_up(units, 16) * p.lwd : 0));
+  const size_t row_in = sizeof(T) * (size_t)(round_up(out_dim, 16) + pad);
+  p.srows = kStage;
+  if (stream ? kStage * row_in > kStageBytes
+             : p.off_part + align128(kStage * row_in > part_bytes ? kStage * row_in : part_bytes) +
+                       weights > kMaxSmemPerBlock)
+    p.srows = kStage / 2;
+  const size_t in_stage = p.srows * row_in;
+  p.off_w = p.off_part + align128(part_bytes > in_stage ? part_bytes : in_stage);
+  p.bytes = p.off_w + weights;
+  if (!stream) return p;
+  p.wsteps = cdiv(out_dim, 16);
+  p.psteps = has_proj ? cdiv(units, 16) : 0;
+  const size_t wrow = sizeof(T) * 16 * (size_t)p.lwa, prow_b = sizeof(T) * 16 * (size_t)p.ps;
+  p.cw = kChunkBytes / wrow > 1 ? (int)(kChunkBytes / wrow) : 1;
+  p.cp = !has_proj ? 0 : kChunkBytes / prow_b > 1 ? (int)(kChunkBytes / prow_b) : 1;
+  p.slot = align128(p.cw * wrow > p.cp * prow_b ? p.cw * wrow : p.cp * prow_b);
+  p.off_bar = p.off_w;
+  p.off_ring = p.off_bar + 128;
+  const size_t left = kMaxSmemPerBlock > p.off_ring ? kMaxSmemPerBlock - p.off_ring : 0;
+  p.slots = left / p.slot < (size_t)kMaxSlots ? (int)(left / p.slot) : kMaxSlots;
+  p.off_w = p.off_ring + p.slots * p.slot;
+  const int fit = (int)((left - p.slots * p.slot) / wrow);
+  p.res = fit < p.wsteps ? fit : p.wsteps;
+  if (cap >= 0 && cap < p.res) p.res = cap;
+  p.nw = cdiv(p.wsteps - p.res, p.cw);
+  p.np = has_proj ? cdiv(p.psteps, p.cp) : 0;
+  p.bytes = p.off_w + p.res * wrow;
+  p.res_bytes = (long long)p.res * 16 * g * sizeof(T);
+  p.stream_bytes = (long long)(p.wsteps - p.res) * 16 * g * sizeof(T) +
+                   (long long)p.psteps * 16 * p.ps * sizeof(T);
   return p;
 }
 
@@ -575,8 +627,8 @@ __device__ __forceinline__ void fma_product_nk(const float* a, int lda, int dept
 // float32 (zero past the depth; rounded to T here); w is the block's rows
 // of the layer's wx, [cols][ldw] with k contiguous and zero past the depth
 // (ldw a multiple of 16), read from L2 at every use.  The rows are staged
-// kStage at a time into `as` ([kStage][lda] T in shared memory), each
-// thread's loads of a stage in flight together.  bf16: a warp owns a
+// srows at a time (a multiple of 16, at most kStage) into `as` ([srows][lda]
+// T in shared memory), each thread's loads of a stage in flight together.  bf16: a warp owns a
 // 16-column tile and both 16-row tiles of a stage, its B fragments loaded
 // from L2 straight into registers and its A fragments from shared memory,
 // 16 bytes a lane (frag_step); float32: a thread owns a column and 8 rows,
@@ -628,11 +680,13 @@ __device__ __forceinline__ void row4(const X* row, int k, int depth, bool vec,
 template <typename T, typename A, typename Bias, typename Put>
 __device__ __forceinline__ void input_product(int n, int depth, const A& a, T* as,
                                               int lda, const T* __restrict__ w,
-                                              int ldw, int cols, Bias bias_of, Put put) {
+                                              int ldw, int cols, Bias bias_of, Put put,
+                                              int srows = kStage) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int dpad = kMma<T> ? round_up(depth, 16) : round_up(depth, 4);
   // bf16: a warp owns at most one 16-column tile when cols <= 256 (US <=
-  // 64, as the slices' layout requires); its lane's four columns' bias
+  // 64), whose bias its lanes load once (past that each tile's bias is
+  // loaded as the tile starts); its lane's four columns' bias
   float bcol[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   if constexpr (kMma<T>) {
     const int tile = tid / 32;
@@ -642,15 +696,15 @@ __device__ __forceinline__ void input_product(int n, int depth, const A& a, T* a
 #pragma unroll
         for (int e = 0; e < 2; ++e) bcol[h][e] = bias_of(tile * 16 + 8 * h + 2 * (lane & 3) + e);
   }
-  for (int i0 = 0; i0 < n; i0 += kStage) {
-    const int rows = min(kStage, n - i0);
+  for (int i0 = 0; i0 < n; i0 += srows) {
+    const int rows = min(srows, n - i0);
     const int dq = dpad / 4;
-    for (int e0 = 0; e0 < kStage * dq; e0 += 8 * kThreads) {
+    for (int e0 = 0; e0 < srows * dq; e0 += 8 * kThreads) {
       float v[8][4];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int e = e0 + u * kThreads + tid, r = e / dq, k = 4 * (e - r * dq);
-        if (e < kStage * dq && r < rows && k < depth) {
+        if (e < srows * dq && r < rows && k < depth) {
           a(i0 + r, k, v[u]);
         } else {
 #pragma unroll
@@ -660,7 +714,7 @@ __device__ __forceinline__ void input_product(int n, int depth, const A& a, T* a
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int e = e0 + u * kThreads + tid, r = e / dq, k = 4 * (e - r * dq);
-        if (e < kStage * dq)
+        if (e < srows * dq)
 #pragma unroll
           for (int c = 0; c < 4; ++c) as[r * lda + k + c] = Dtype<T>::from_float(v[u][c]);
       }
@@ -670,7 +724,9 @@ __device__ __forceinline__ void input_product(int n, int depth, const A& a, T* a
       const int g = lane >> 2, t4 = lane & 3;
       const int mt = cdiv(rows, 16);
       for (int tile = tid / 32; tile < cols / 16; tile += kWarps) {
-        if (tile >= kWarps)  // past 256 columns: each tile's bias anew
+        // past 256 columns a warp owns several tiles: each tile's bias
+        // anew (the next stage's first tile too)
+        if (cols > 16 * kWarps)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -728,7 +784,7 @@ __device__ __forceinline__ void input_product(int n, int depth, const A& a, T* a
             }
       }
     } else {
-      for (int task = tid; task < cols * (kStage / 8); task += kThreads) {
+      for (int task = tid; task < cols * (srows / 8); task += kThreads) {
         const int c = task % cols, rg = task / cols;
         if (rg * 8 >= rows) continue;
         const float b = bias_of(c);
@@ -809,7 +865,9 @@ cudaError_t cluster_config(K kernel, int batch, int R, int C, size_t smem, cudaS
   return cudaOccupancyMaxActiveClusters(fit, (const void*)kernel, cfg);
 }
 
-// ---- the streamed plan (K1, K2): weight slices past shared memory ----
+// ---- the streamed plans (K1, K2, K12, K13): weight slices past shared
+// memory (K1's products: streamed_product_t; K12's: streamed_product; K2's
+// and K13's passes: bwd_dob_pass, bwd_wh_pass) ----
 //
 // A block keeps the first rows of its wh slice in shared memory and
 // streams the rest of its weights from L2 at every step, in a fixed
@@ -827,13 +885,7 @@ cudaError_t cluster_config(K kernel, int batch, int R, int C, size_t smem, cudaS
 // (the rows unpadded in global memory), a ring of 8 slots (whose plans
 // keep less of wh resident), and every thread's cp.async pieces of a chunk
 // in place of the bulk copy; none ran faster.
-constexpr int kChunkBytes = 24576;  // a chunk's bytes, about (at least 16 rows)
-constexpr int kMaxSlots = 4;        // the ring's slots, at most (2 at least)
-// a streamed plan's `cap` that holds every 16-deep step of wh resident, and
-// refuses the shape where they do not all fit (the ring then streams only
-// proj's rows): the plans' forced launches time it against the resident
-// plan; -1 holds as many as fit
-constexpr int kAllHeld = -2;
+// (kChunkBytes, kMaxSlots and kAllHeld are at the top.)
 
 // `bytes` (a multiple of 16) from global into this block's shared memory,
 // completing them on `bar`
@@ -952,6 +1004,215 @@ __device__ __forceinline__ void streamed_product_t(const __nv_bfloat16* a, int l
       dst[ldo + 8] = acc[i][3] + d[i][3];
     }
   }
+}
+
+// The same with mma_product's roles (K12 on the streamed plan): the <= 8
+// rows of a as mma's A (loaded once by ldmatrix.x2, mma's rows 8-15 their
+// copy, never stored), a 16-column tile of the weights as its B (two n =
+// 8 halves), each k-slice of `per` steps summed by the tensor cores into
+// one accumulator in step order, as mma_product sums it, and the slices
+// added in slice order onto init, as mma_product's reader adds them: a
+// shape that fits both plans gives the same bits on both.  out[r][c] (row
+// stride ldo) for r < 8; warp w owns the tiles w, w + 16, .. (TMAX at
+// most) over the whole depth.
+template <int TMAX, typename Init, typename Issue>
+__device__ __forceinline__ void streamed_product(const __nv_bfloat16* a, int lda, int depth,
+                                                 int cols, int per, const __nv_bfloat16* res_w,
+                                                 int ldres, int res, const Ring& ring, int ldw,
+                                                 int chunk, int& n, int total, Issue issue,
+                                                 Init init, float* out, int ldo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int tm = cols / 16, row = lane >> 2, col = 2 * (lane & 3);
+  float acc[TMAX][2][2], d[TMAX][2][4];
+#pragma unroll
+  for (int i = 0; i < TMAX; ++i) {
+    const bool in = warp + kWarps * i < tm;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = (warp + kWarps * i) * 16 + 8 * h + col;
+      acc[i][h][0] = in ? init(row, c) : 0.0f;
+      acc[i][h][1] = in ? init(row, c + 1) : 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[i][h][e] = 0.0f;
+    }
+  }
+  const __nv_bfloat16* a_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
+  const int wrow = lane & 15, wcol = (lane >> 4) * 8;
+  stream_pass(cdiv(depth, 16), res_w, ldres, res, ring, ldw, chunk, n, total, issue,
+              [&](const __nv_bfloat16* w, int ld, int k, int j) {
+                if (j > 0 && j % per == 0) {
+#pragma unroll
+                  for (int i = 0; i < TMAX; ++i)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                      acc[i][h][0] += d[i][h][0];
+                      acc[i][h][1] += d[i][h][1];
+#pragma unroll
+                      for (int e = 0; e < 4; ++e) d[i][h][e] = 0.0f;
+                    }
+                }
+                uint32_t fr[2];
+                ldsm_x2(fr, a_lane + j * 16);
+                const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
+#pragma unroll
+                for (int i = 0; i < TMAX; ++i) {
+                  const int t = warp + kWarps * i;
+                  if (t < tm) {
+                    uint32_t fb[4];
+                    ldsm_x4_trans(fb, w + (size_t)(k * 16 + wrow) * ld + wcol + t * 16);
+                    mma_16816(d[i][0], fa, fb[0], fb[1]);
+                    mma_16816(d[i][1], fa, fb[2], fb[3]);
+                  }
+                }
+              });
+#pragma unroll
+  for (int i = 0; i < TMAX; ++i) {
+    const int t = warp + kWarps * i;
+    if (t < tm)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(out + (size_t)row * ldo + t * 16 + 8 * h + col) =
+            make_float2(acc[i][h][0] + d[i][h][0], acc[i][h][1] + d[i][h][1]);
+  }
+}
+
+// ---- the backwards' passes on the streamed plan (K2, K13) ----
+//
+// dout_blk over proj's chunks of rows (the units), each chunk's sums
+// complete: mma_f32add_tiles over the chunk's 16-row tiles, part[s][8][nd]
+// as the resident plans' slices; then the chunk's release (a block barrier,
+// thread 0 issues chunk n + slots below `total`).  np chunks of cu tiles,
+// utiles in all.  Every thread of the block calls it.
+template <typename Issue>
+__device__ __forceinline__ void bwd_dob_pass(const __nv_bfloat16* dq, int lda, int p16,
+                                             const Ring& ring, int lpj, int np, int cu,
+                                             int utiles, Split dob, float* part, int nd, int& n,
+                                             int total, Issue issue) {
+  for (int i = 0; i < np; ++i) {
+    ring.wait(n);
+    const int t0 = i * cu, nt = min(cu, utiles - t0);
+    mma_f32add_tiles<true>(dq, lda, p16, ring.at<const __nv_bfloat16>(n), lpj, nt, dob, part, nd,
+                           16 * t0);
+    __syncthreads();
+    if (threadIdx.x == 0 && n + ring.depth < total) issue(n + ring.depth);
+    ++n;
+  }
+}
+
+// The pass over wh's rows p (wsteps 16-deep steps: `res` resident at
+// res_w, the rest streamed in chunks of cw, rows of stride lws): a chunk of
+// rows p holds every weight that dh_prev's columns p need (their whole
+// depth, the G = 4·US gate columns), and a slice of the depth of the gate
+// sums, so one pass serves both.  With `dh_on`, dh_prev's partial dgates ·
+// wh_qᵀ (gq [8][ldg], gsteps 16-deep steps of G; a chunk's 16-row tile j
+// complete over the depth, by warp 15 - j % 16) into part [rows][pw]; with
+// `gate_on`, the gate sums init(r, c) + hq · wh_q (hq [8][lda]; warp w owns
+// the tiles w and w + 16 over the whole pass) into gsum [rows][G].  Each in
+// the resident plans' k-slices (`gates`, `dh`) as mma_product_f32add sums
+// them, added in slice order: the bits of the resident plans.
+template <typename Init, typename Issue>
+__device__ __forceinline__ void bwd_wh_pass(bool dh_on, bool gate_on, const __nv_bfloat16* hq,
+                                            int lda, const __nv_bfloat16* gq, int ldg, int G,
+                                            int wsteps, int gsteps, Split gates, Split dh,
+                                            const __nv_bfloat16* res_w, int lws, int res,
+                                            const Ring& ring, int cw, int& n, int total,
+                                            Issue issue, Init init, int rows, float* gsum,
+                                            float* part, int pw) {
+  typedef __nv_bfloat16 T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int gtiles = G / 16, row = lane >> 2, col = 2 * (lane & 3);
+  const T* a_h = hq + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
+  const T* a_g = gq + (lane & 7) * ldg + ((lane >> 3) & 1) * 8;
+  float gacc[2][2][2], gd[2][2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = warp + kWarps * i, c = t * 16 + 8 * h + col + e;
+        gacc[i][h][e] = gate_on && t < gtiles ? init(row, c) : 0.0f;
+        gd[i][h][e] = 0.0f;
+      }
+  stream_pass(wsteps, res_w, lws, res, ring, lws, cw, n, total, issue,
+              [&](const T* w, int ldw, int k, int j) {
+    if (gate_on) {
+      if (j > 0 && j % gates.per == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              gacc[i][h][e] += gd[i][h][e];
+              gd[i][h][e] = 0.0f;
+            }
+      }
+      uint32_t fr[2];
+      ldsm_x2(fr, a_h + j * 16);
+      const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = warp + kWarps * i;
+        if (t < gtiles) {
+          uint32_t fb[4];
+          ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
+            gd[i][h][0] += z[0];
+            gd[i][h][1] += z[1];
+          }
+        }
+      }
+    }
+    if (dh_on && warp == kWarps - 1 - j % kWarps) {
+      const T* w_lane = w + (size_t)(k * 16 + (lane >> 4) * 8 + (lane & 7)) * ldw +
+                        ((lane >> 3) & 1) * 8;
+      float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, d[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+      for (int kk = 0; kk < gsteps; ++kk) {
+        if (kk > 0 && kk % dh.per == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              acc[h][e] += d[h][e];
+              d[h][e] = 0.0f;
+            }
+        }
+        uint32_t fr[2], fb[4];
+        ldsm_x2(fr, a_g + kk * 16);
+        const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
+        ldsm_x4(fb, w_lane + kk * 16);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
+          d[h][0] += z[0];
+          d[h][1] += z[1];
+        }
+      }
+      float* dst = part + (size_t)row * pw + 16 * j + col;
+      if (row < rows)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(dst + 8 * h) =
+              make_float2(acc[h][0] + d[h][0], acc[h][1] + d[h][1]);
+    }
+  });
+  if (gate_on) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = warp + kWarps * i;
+      if (t < gtiles && row < rows)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(gsum + (size_t)row * G + t * 16 + 8 * h + col) =
+              make_float2(gacc[i][h][0] + gd[i][h][0], gacc[i][h][1] + gd[i][h][1]);
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace

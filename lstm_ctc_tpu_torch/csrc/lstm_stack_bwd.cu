@@ -103,17 +103,34 @@ __device__ __forceinline__ float rnd(float v) {
 // bwd_plan, with C blocks a cluster), with each row's mask in place of K2's
 // keep and length, room for the seven column sums of a row tile, and
 // (float32, whose slices stay in L2) the rows of din's product staged where
-// bf16 keeps its slices.
+// bf16 keeps its slices: `staged` floats, kStage rows of the padded P, or
+// where those do not fit (H = P = 2048) the rows the product stages at once
+// (8·kThreads/PS rows of kDinPiece).  The streamed plan (bf16, `stream`): K2's
+// (lstm_bwd_streamed.cu bwd_stream_plan) likewise, gsum [R][G] (the gate
+// sums of the step before) after the inbox, one region of partial sums
+// (dout_blk's slices, or dh's [R][PW], or the column sums), the ring's
+// barriers and slots, then wh's first `res` 16-deep steps (at most `cap`
+// where cap >= 0) at row stride LWH, as the wrapper lays every row out in
+// global memory (proj's rows too, at LPJ); wsteps, gsteps: 16-deep steps
+// of P and of G; utiles: proj's 16-row tiles; cw, cu: steps of wh and
+// tiles of proj a chunk; nw, np: chunks a pass; res_bytes, stream_bytes: a
+// block's weight bytes held, and streamed a step.
+constexpr int kDinPiece = 64;  // float32 din product: the depth staged at once
+
 struct StackPlan {
-  int us, u16, g, ps, pw, p16, nd, wrows, arow, prow, lda, ldg, lwh, lpj, lin;
+  int us, u16, g, ps, pw, p16, nd, wrows, arow, prow, lda, ldg, lwh, lpj, lin, staged;
   Split gates, dob, dh;
   size_t off_dq, off_gq, off_dh, off_dnx, off_dnx2, off_hraw, off_craw, off_gxs,
-      off_rows, off_dc, off_inbox, off_part, off_wh, off_pj, bytes;
+      off_rows, off_dc, off_inbox, off_gsum, off_part, off_bar, off_ring, off_wh, off_pj,
+      bytes, slot;
+  int wsteps, gsteps, utiles, res, cw, cu, nw, np, slots;
+  long long res_bytes, stream_bytes;
 };
 
 template <typename T, typename S>
-__host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int C) {
-  StackPlan p;
+__host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int C,
+                                         bool stream = false, int cap = -1) {
+  StackPlan p = {};
   p.us = round_up(cdiv(H, C), 8);
   p.u16 = round_up(p.us, 16);
   p.g = 4 * p.us;
@@ -141,9 +158,10 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int
   }
   const size_t part_g = (size_t)p.gates.slices * p.prow * p.g;
   const size_t part_d = has_proj ? (size_t)p.dob.slices * p.prow * p.nd : 0;
-  const size_t part_h = (size_t)p.dh.slices * p.prow * p.pw;
+  const size_t part_h = stream ? (size_t)R * p.pw : (size_t)p.dh.slices * p.prow * p.pw;
   const size_t sums = (size_t)7 * R * p.us;
-  size_t part = part_g + part_d > part_h ? part_g + part_d : part_h;
+  size_t part = stream ? (part_d > part_h ? part_d : part_h)
+                       : (part_g + part_d > part_h ? part_g + part_d : part_h);
   part = part > sums ? part : sums;
   p.off_dq = align128(sizeof(T) * (size_t)p.arow * p.lda);
   p.off_gq = p.off_dq + align128(sizeof(T) * (size_t)p.arow * p.lda);
@@ -156,19 +174,50 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int
   p.off_rows = p.off_gxs + align128(sizeof(float) * (size_t)R * 4 * p.us);
   p.off_dc = p.off_rows + align128(sizeof(float) * 2 * (size_t)R);
   p.off_inbox = p.off_dc + align128(sizeof(float) * (size_t)R * p.us);
-  p.off_part = p.off_inbox + align128(sizeof(float) * (size_t)C * R * p.ps);
+  p.off_gsum = p.off_inbox + align128(sizeof(float) * (size_t)C * R * p.ps);
+  p.off_part = p.off_gsum + (stream ? align128(sizeof(float) * (size_t)R * p.g) : 0);
   p.off_wh = p.off_part + align128(sizeof(float) * part);
+  if (stream) {
+    p.wsteps = p.p16 / 16;
+    p.gsteps = p.g / 16;
+    p.utiles = has_proj ? p.u16 / 16 : 0;
+    const size_t wrow = sizeof(T) * 16 * (size_t)p.lwh, urow = sizeof(T) * 16 * (size_t)p.lpj;
+    p.cw = kChunkBytes / wrow > 1 ? (int)(kChunkBytes / wrow) : 1;
+    p.cu = !has_proj ? 0 : kChunkBytes / urow > 1 ? (int)(kChunkBytes / urow) : 1;
+    p.slot = align128(p.cw * wrow > p.cu * urow ? p.cw * wrow : p.cu * urow);
+    p.off_bar = p.off_wh;
+    p.off_ring = p.off_bar + 128;
+    const size_t left = kMaxSmemPerBlock > p.off_ring ? kMaxSmemPerBlock - p.off_ring : 0;
+    p.slots = left / p.slot < (size_t)kMaxSlots ? (int)(left / p.slot) : kMaxSlots;
+    p.off_wh = p.off_ring + p.slots * p.slot;
+    const int fit = (int)((left - p.slots * p.slot) / wrow);
+    p.res = fit < p.wsteps ? fit : p.wsteps;
+    if (cap >= 0 && cap < p.res) p.res = cap;
+    p.nw = cdiv(p.wsteps - p.res, p.cw);
+    p.np = has_proj ? cdiv(p.utiles, p.cu) : 0;
+    p.bytes = p.off_wh + p.res * wrow;
+    p.res_bytes = (long long)p.res * 16 * p.g * sizeof(T);
+    p.stream_bytes = (long long)(p.wsteps - p.res) * 16 * p.g * sizeof(T) +
+                     (long long)p.utiles * 16 * p.p16 * sizeof(T);
+    return p;
+  }
   p.off_pj = p.off_wh + (kMma<T> ? align128(sizeof(T) * (size_t)p.wrows * p.lwh) : 0);
   const size_t end = p.off_pj + (kMma<T> && has_proj ? align128(sizeof(T) * (size_t)p.u16 * p.lpj) : 0);
-  const size_t staged = p.off_wh + align128(sizeof(T) * (size_t)kStage * p.lin);
+  p.staged = kStage * p.lin;
+  size_t staged = p.off_wh + align128(sizeof(T) * (size_t)p.staged);
+  if (!kMma<T> && staged > kMaxSmemPerBlock) {
+    const int rows = 8 * (kThreads / p.ps);
+    if (rows * kDinPiece < p.staged) p.staged = rows * kDinPiece;
+    staged = p.off_wh + align128(sizeof(T) * (size_t)p.staged);
+  }
   p.bytes = end > staged ? end : staged;
   return p;
 }
 
 // T: the compute dtype (bf16: the products on the tensor cores, the slices
 // in shared memory; float32: FMA, the slices read from L2); S: the store
-// dtype
-template <typename T, typename S, int R, int C>
+// dtype; kStream: the streamed plan (bf16, 16 blocks)
+template <typename T, typename S, int R, int C, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     const int* __restrict__ seed,     // [1] or null (no dropout)
     const float* __restrict__ gx0,    // [S, B, 4H]
@@ -179,8 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     const float* __restrict__ cinit,  // [L·B, H]
     const float* __restrict__ hinit,  // [L·B, P]
     const T* __restrict__ wz,         // [L, 2P, 4H]: wx_l is its first P rows
-    const T* __restrict__ wh_sl,      // [L, C, P16, 4, US]
-    const T* __restrict__ pj_sl,      // [L, C, U16, P16] or null (P == H)
+    const T* __restrict__ wh_sl,      // [L, C, P16, 4, US] (streamed: [L, C, P16, LWH])
+    const T* __restrict__ pj_sl,      // [L, C, U16, P16] or null (P == H; streamed: LPJ)
     const float* __restrict__ bias,   // [L, 4H]
     const float* __restrict__ peep,   // [L, 3, H] or null
     float forget_bias, float keep_prob, int residual,
@@ -200,14 +249,15 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     T* __restrict__ dgc,              // scratch ring [L, 2K, B, 4H]
     float* __restrict__ col_part,     // [tiles, L, 7H]
     int* __restrict__ counters,       // [L, tiles, C], zero at the first wave
-    int tile0, int tiles, int lag) {
+    int tile0, int tiles, int lag,
+    int cap) {                        // streamed: wh's resident steps at most (-1: as fit)
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int l = layers - 1 - (int)blockIdx.y;  // the layers above come first
   const int tile = tile0 + blockIdx.x / C, b0 = tile * R;
   const int nr = min(R, batch - b0);
   const bool has_proj = pj_sl != nullptr;
-  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C);
+  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C, kStream, cap);
   const int US = pl.us, G = pl.g, PS = pl.ps, PW = pl.pw, P16 = pl.p16;
   const int prow = pl.prow, nd = pl.nd, H4 = 4 * H;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
@@ -230,15 +280,19 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   float* mask_s = reinterpret_cast<float*>(smem_raw + pl.off_rows);    // [2][R]
   float* dc = reinterpret_cast<float*>(smem_raw + pl.off_dc);    // [R][US]
   float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [C][R][PS]
+  float* gsum = reinterpret_cast<float*>(smem_raw + pl.off_gsum);    // streamed: [R][G]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
-  float* part_d = part + (size_t)pl.gates.slices * prow * G;
+  // dout_blk's partials (streamed: alone in the region, as K2's)
+  float* part_d = kStream ? part : part + (size_t)pl.gates.slices * prow * G;
   T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_wh);
   T* pj_s = reinterpret_cast<T*>(smem_raw + pl.off_pj);
   T* in_s = wh_s;  // float32: din's staged rows (no slices in shared memory)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
+  const Ring wring{smem_raw + pl.off_ring, full, pl.slots, pl.slot};
 
   const size_t slot = (size_t)l * C + q;
-  const T* wh_g = wh_sl + slot * (size_t)P16 * G;
-  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * P16 : nullptr;
+  const T* wh_g = wh_sl + slot * (size_t)P16 * (kStream ? pl.lwh : G);
+  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * (kStream ? pl.lpj : P16) : nullptr;
   const T* wx_l = wz + (size_t)l * 2 * P * H4;
   const bool last = l == layers - 1;
   const size_t plane = (size_t)steps * batch * P;  // one layer's din
@@ -257,7 +311,14 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     return ring + ((size_t)((steps - 1 - s) % (2 * lag)) * batch + b0 + r) * H4;
   };
 
-  if constexpr (kMma<T>) {
+  if constexpr (kStream) {
+    // wh's resident rows, as they lie in global memory
+    copy_rows(wh_s, pl.lwh, wh_g, pl.lwh, 16 * pl.res);
+    if (tid == 0) {
+      for (int i = 0; i < pl.slots; ++i) mbar_init(full + i, 1);
+      mbar_init_fence();
+    }
+  } else if constexpr (kMma<T>) {
     copy_rows(wh_s, pl.lwh, wh_g, G, P16);
     for (int i = tid; i < (pl.wrows - P16) * pl.lwh; i += kThreads)
       wh_s[(size_t)P16 * pl.lwh + i] = zero;
@@ -348,6 +409,36 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
       cnext = tt > 0 ? ld(c_raw, (size_t)rb * US + jb) : rnd<S>(cinit[(lrow + rb) * H + ub]);
     }
   };
+  // the streamed plan's chunk sequence: wh's streamed rows for the first
+  // gate sums, then a step at a time proj's rows and wh's streamed rows
+  // (one thread issues each), as K2's
+  const int per_step = pl.np + pl.nw, total = pl.nw + steps * per_step;
+  auto issue = [&](int n) {
+    const int i = n < pl.nw ? pl.np + n : (n - pl.nw) % per_step;
+    if (i < pl.np) {
+      const int r0 = 16 * i * pl.cu, rows = min(16 * pl.cu, pl.u16 - r0);
+      wring.issue(n, pj_g + (size_t)r0 * pl.lpj, sizeof(T) * rows * pl.lpj);
+    } else {
+      const int r0 = 16 * (pl.res + (i - pl.np) * pl.cw), rows = min(16 * pl.cw, P16 - r0);
+      wring.issue(n, wh_g + (size_t)r0 * pl.lwh, sizeof(T) * rows * pl.lwh);
+    }
+  };
+  int chunk = 0;  // the next chunk to read
+  // the streamed plan's pass over wh's rows: dh_prev's partial of this step
+  // into part [R][PW] (with dh_on), the gate sums of the step before
+  // (gx + bias + h_prev · wh_l) into gsum [R][G] (with gate_on)
+  auto wh_pass = [&](bool dh_on, bool gate_on) {
+    if constexpr (kStream)
+      bwd_wh_pass(dh_on, gate_on, hq, pl.lda, gq, pl.ldg, G, pl.wsteps, pl.gsteps, pl.gates,
+                  pl.dh, wh_s, pl.lwh, pl.res, wring, pl.cw, chunk, total, issue,
+                  [&](int r, int c) {
+                    const int k = c / US, j = c - k * US;
+                    return r < nr ? gx_s[(r * 4 + k) * US + j] +
+                                        (j < nu ? bias[(size_t)l * H4 + k * H + u0 + j] : 0.0f)
+                                  : 0.0f;
+                  },
+                  R, gsum, part, PW);
+  };
   auto gate_product = [&]() {
     if constexpr (kMma<T>)
       mma_product_f32add<false>(hq, pl.lda, P16, wh_s, pl.lwh, G, pl.gates, part);
@@ -414,9 +505,9 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
       // float32: the rows staged in shared memory (where bf16 keeps its
       // weight slices) 64 deep at a time; a thread owns a column and 8 rows,
       // wx_l's row read from L2 once for the 8
-      constexpr int kPiece = 64;
+      constexpr int kPiece = kDinPiece;
       float* as = reinterpret_cast<float*>(in_s);
-      const int most = min(8 * (kThreads / max(np, 1)), kStage * pl.lin / kPiece / 8 * 8);
+      const int most = min(8 * (kThreads / max(np, 1)), pl.staged / kPiece / 8 * 8);
       for (int i0 = 0; i0 < rows; i0 += most) {
         const int nrow = min(most, rows - i0), groups = cdiv(nrow, 8);
         const bool active = tid < np * groups;
@@ -462,12 +553,19 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   };
 
   cluster.sync();  // every block is resident and initialised
+  if constexpr (kStream) {
+    if (tid == 0)
+      for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
+  }
   if (steps > 0) {
     fetch_step(steps - 1);
     land_step(steps - 1);
     stash_step(steps - 1);
     __syncthreads();
-    gate_product();
+    if constexpr (kStream)
+      wh_pass(false, true);
+    else
+      gate_product();
   }
   __syncthreads();
 
@@ -494,13 +592,18 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     }
     __syncthreads();
 
-    // 2. dout_blk of the owned units
+    // 2. dout_blk of the owned units (streamed: over proj's chunks of rows)
     if (has_proj) {
-      if constexpr (kMma<T>)
-        mma_product_f32add<true>(dq, pl.lda, P16, pj_s, pl.lpj, nd, pl.dob, part_d);
-      else
-        fma_product_nk<R>(dq, pl.lda, P16, pj_g, P16, nd, pl.u16, pl.dob, part_d);
-      __syncthreads();
+      if constexpr (kStream) {
+        bwd_dob_pass(dq, pl.lda, P16, wring, pl.lpj, pl.np, pl.cu, pl.utiles, pl.dob, part_d, nd,
+                     chunk, total, issue);
+      } else {
+        if constexpr (kMma<T>)
+          mma_product_f32add<true>(dq, pl.lda, P16, pj_s, pl.lpj, nd, pl.dob, part_d);
+        else
+          fma_product_nk<R>(dq, pl.lda, P16, pj_g, P16, nd, pl.u16, pl.dob, part_d);
+        __syncthreads();
+      }
     }
 
     // 3. the cell backward of the owned units
@@ -510,9 +613,14 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
         float gate[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          float v = gnext[k];
-          for (int s = 0; s < pl.gates.slices; ++s)
-            v += part[((size_t)s * prow + rb) * G + k * US + jb];
+          float v;
+          if constexpr (kStream) {
+            v = gsum[(size_t)rb * G + k * US + jb];
+          } else {
+            v = gnext[k];
+            for (int s = 0; s < pl.gates.slices; ++s)
+              v += part[((size_t)s * prow + rb) * G + k * US + jb];
+          }
           gate[k] = v;
         }
         const float m = mask_s[(t & 1) * R + rb];
@@ -567,24 +675,40 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     __syncthreads();
 
     // 4. this block's partial dh_prev: dgates_q · wh_qᵀ, [R, PW]
+    // (streamed: the step before's staged loads first, then one pass over
+    // wh for dh_prev and the step before's gate sums)
     float* part_h = part;
-    if constexpr (kMma<T>)
-      mma_product_f32add<true>(gq, pl.ldg, G, wh_s, pl.lwh, PW, pl.dh, part_h);
-    else
-      fma_product_nk<R>(gq, pl.ldg, G, wh_g, G, PW, P16, pl.dh, part_h);
-    __syncthreads();
+    if constexpr (kStream) {
+      if (t > 0) {
+        land_step(t - 1);
+        stash_step(t - 1);
+        __syncthreads();
+      }
+      wh_pass(true, t > 0);
+    } else {
+      if constexpr (kMma<T>)
+        mma_product_f32add<true>(gq, pl.ldg, G, wh_s, pl.lwh, PW, pl.dh, part_h);
+      else
+        fma_product_nk<R>(gq, pl.ldg, G, wh_g, G, PW, P16, pl.dh, part_h);
+      __syncthreads();
+    }
 
     // 5a. reduce-scatter: each P-slice's partial into its owner's inbox
     const int quads = PW / 4;
     for (int i = tid; i < nr * quads; i += kThreads) {
       const int r = i / quads, p = 4 * (i - r * quads);
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int s = 0; s < pl.dh.slices; ++s) {
-        const float4 w = *reinterpret_cast<const float4*>(part_h + ((size_t)s * prow + r) * PW + p);
-        v.x += w.x;
-        v.y += w.y;
-        v.z += w.z;
-        v.w += w.w;
+      if constexpr (kStream) {
+        if (p < P16) v = *reinterpret_cast<const float4*>(part_h + (size_t)r * PW + p);
+      } else {
+        for (int s = 0; s < pl.dh.slices; ++s) {
+          const float4 w =
+              *reinterpret_cast<const float4*>(part_h + ((size_t)s * prow + r) * PW + p);
+          v.x += w.x;
+          v.y += w.y;
+          v.z += w.z;
+          v.w += w.w;
+        }
       }
       const int owner = p / PS;
       float* dst = cluster.map_shared_rank(inbox, owner) + ((size_t)q * R + r) * PS + p - owner * PS;
@@ -593,15 +717,19 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     // at the end of a chunk the ring's dgates are read by every block of
     // the cluster
     if (chunk_end) __threadfence();
-    __syncthreads();  // part_h is read before the next gate sums overwrite it
-    cluster_arrive();
-    if (t > 0) {
-      land_step(t - 1);
-      stash_step(t - 1);
-      __syncthreads();
-      gate_product();
+    if constexpr (kStream) {
+      cluster.sync();
+    } else {
+      __syncthreads();  // part_h is read before the next gate sums overwrite it
+      cluster_arrive();
+      if (t > 0) {
+        land_step(t - 1);
+        stash_step(t - 1);
+        __syncthreads();
+        gate_product();
+      }
+      cluster_wait();
     }
-    cluster_wait();
 
     // 5b. the C partials of the owned slice, in block order; the carry
     // update; the new slice into every block
@@ -673,11 +801,14 @@ struct Args {
 // How K13 launches: C blocks a cluster, rows a cluster, row tiles, tiles a
 // wave, waves, the lag K, dynamic shared memory a block, and the clusters
 // resident at once (rows = 0: not with this R, or no R whose L layers are
-// resident together).
+// resident together); whether on the streamed plan, and a block's weight
+// bytes held in shared memory and read from L2 at every step (bf16: the
+// streamed plan's streamed part; float32: wh twice and proj once).
 struct Launch {
   int blocks, rows, tiles, per_wave, waves, lag;
   size_t smem;
-  int resident;
+  int resident, streamed;
+  long long held, streams;
 };
 
 __host__ int lag_of(int steps) {
@@ -706,40 +837,57 @@ __host__ Scratch scratch_of(const Args& a, const Launch& how) {
 }
 
 // Whether a block of R rows of a C-block cluster fits this shape: at most
-// kBlockUnits units a block, its slices' threads and its shared memory
-// within a block's.  Host arithmetic only.
+// kBlockUnits units a block on 8 blocks and kLayerUnits on 16, its slices'
+// threads and its shared memory within a block's; on the streamed plan
+// (bf16, 16 blocks: wh's resident steps at most `cap`, -1 as many as fit,
+// kAllHeld all of them or no plan) at least two ring slots.  Host
+// arithmetic only.
 template <typename T, typename S, int R>
-__host__ bool fits(int units, int out_dim, bool has_proj, int C) {
-  const StackPlan pl = stack_plan<T, S>(units, out_dim, has_proj, R, C);
-  return pl.us <= kBlockUnits && R * pl.us <= kThreads && pl.bytes <= kMaxSmemPerBlock;
+__host__ bool fits(int units, int out_dim, bool has_proj, int C, bool stream = false,
+                   int cap = -1) {
+  if (stream && (!kMma<T> || C != kWideCluster)) return false;
+  const StackPlan pl = stack_plan<T, S>(units, out_dim, has_proj, R, C, stream, cap);
+  return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) && R * pl.us <= kThreads &&
+         pl.bytes <= kMaxSmemPerBlock &&
+         (!stream || (pl.slots >= 2 && (cap != kAllHeld || pl.res == pl.wsteps)));
 }
 
-// The blocks a cluster of K13's plan: 8 where some R of {4, 6, 8} fits 8
-// blocks, else 16 where some R of {2, 4, 6, 8} fits 16, else 0 (no plan).
-// Host arithmetic only.
+// K13's plans, in the order they are tried: resident on 8 blocks (some R
+// of {4, 6, 8}), resident on 16 (some R of {2, 4, 6, 8}), streamed on 16
+// (bf16; R of {2, 4})
+enum Kind { kNone = 0, kResident = 1, kStreamed = 2 };
+
+struct Route {
+  Kind kind;
+  int blocks;
+};
+
 template <typename T, typename S>
-__host__ int stack_cluster(int units, int out_dim, bool has_proj) {
+__host__ Route stack_route(int units, int out_dim, bool has_proj) {
   if (fits<T, S, 4>(units, out_dim, has_proj, kCluster) ||
       fits<T, S, 6>(units, out_dim, has_proj, kCluster) ||
       fits<T, S, 8>(units, out_dim, has_proj, kCluster))
-    return kCluster;
+    return Route{kResident, kCluster};
   if (fits<T, S, 2>(units, out_dim, has_proj, kWideCluster) ||
       fits<T, S, 4>(units, out_dim, has_proj, kWideCluster) ||
       fits<T, S, 6>(units, out_dim, has_proj, kWideCluster) ||
       fits<T, S, 8>(units, out_dim, has_proj, kWideCluster))
-    return kWideCluster;
-  return 0;
+    return Route{kResident, kWideCluster};
+  if (fits<T, S, 2>(units, out_dim, has_proj, kWideCluster, true) ||
+      fits<T, S, 4>(units, out_dim, has_proj, kWideCluster, true))
+    return Route{kStreamed, kWideCluster};
+  return Route{kNone, 0};
 }
 
-template <typename T, typename S, int R, int C>
-cudaError_t config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+template <typename T, typename S, int R, int C, bool kStream>
+cudaError_t config(const Args& a, int cap, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                    Launch* how) {
   how->rows = 0;
   how->resident = 0;
   const bool has_proj = a.pj_rows != nullptr;
-  if (!fits<T, S, R>(a.units, a.out_dim, has_proj, C)) return cudaSuccess;
-  const StackPlan pl = stack_plan<T, S>(a.units, a.out_dim, has_proj, R, C);
-  auto kernel = stack_bwd_kernel<T, S, R, C>;
+  if (!fits<T, S, R>(a.units, a.out_dim, has_proj, C, kStream, cap)) return cudaSuccess;
+  const StackPlan pl = stack_plan<T, S>(a.units, a.out_dim, has_proj, R, C, kStream, cap);
+  auto kernel = stack_bwd_kernel<T, S, R, C, kStream>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
   if (err != cudaSuccess) return err;
@@ -765,6 +913,8 @@ cudaError_t config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* 
   how->resident = fit;
   const int per_wave = min(tiles, fit / a.layers);
   if (per_wave < 1) return cudaSuccess;
+  const long long wh = (long long)sizeof(T) * pl.p16 * pl.g;
+  const long long pj = has_proj ? (long long)sizeof(T) * pl.u16 * pl.p16 : 0;
   how->blocks = C;
   how->rows = R;
   how->tiles = tiles;
@@ -772,56 +922,68 @@ cudaError_t config(const Args& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* 
   how->waves = cdiv(tiles, per_wave);
   how->lag = lag_of(a.steps);
   how->smem = pl.bytes;
+  how->streamed = kStream;
+  how->held = kStream ? pl.res_bytes : kMma<T> ? wh + pj : 0;
+  how->streams = kStream ? pl.stream_bytes : kMma<T> ? 0 : 2 * wh + pj;
   return cudaSuccess;
 }
 
 // The R of {4, 6, 8} with the fewest waves, then the smallest; with 16
-// blocks R = 2 last; rows = 0 when no R's L clusters are resident together
-// (how->resident: the most resident of any R).
-template <typename T, typename S, int C>
+// blocks R = 2 last; streamed R of {4, 2}; rows = 0 when no R's L clusters
+// are resident together (how->resident: the most resident of any R).
+template <typename T, typename S, int C, bool kStream>
 cudaError_t choose_rows(const Args& a, Launch* how) {
-  *how = Launch{C, 0, 0, 0, 0, 0, 0, 0};
+  *how = Launch{C, 0, 0, 0, 0, 0, 0, 0, kStream, 0, 0};
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch c;
   cudaError_t err;
 #define TRY(R)                                                          \
-  err = config<T, S, R, C>(a, &cfg, attr, &c);                          \
+  err = config<T, S, R, C, kStream>(a, -1, &cfg, attr, &c);             \
   if (err != cudaSuccess) return err;                                   \
   if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
   how->resident = max(how->resident, c.resident);
-  TRY(4) TRY(6) TRY(8)
-  if constexpr (C > kCluster) {
-    TRY(2)
+  if constexpr (kStream) {
+    TRY(4) TRY(2)
+  } else {
+    TRY(4) TRY(6) TRY(8)
+    if constexpr (C > kCluster) {
+      TRY(2)
+    }
   }
 #undef TRY
   return cudaSuccess;
 }
 
 // The launch plan, or an error: no plan for the shape
-// (cudaErrorInvalidConfiguration: bf16 slices wider than shared memory, as
-// K2's, or past 1024 units).  rows = 0: the plan exists but its L layers
+// (cudaErrorInvalidConfiguration: past 2048 units, or bf16 slices that fit
+// not even the streamed plan).  rows = 0: the plan exists but its L layers
 // are not resident together.
 template <typename T, typename S>
 cudaError_t choose(const Args& a, Launch* how) {
-  switch (stack_cluster<T, S>(a.units, a.out_dim, a.pj_rows != nullptr)) {
+  const Route r = stack_route<T, S>(a.units, a.out_dim, a.pj_rows != nullptr);
+  if (r.kind == kStreamed) {
+    if constexpr (kMma<T>) return choose_rows<T, S, kWideCluster, true>(a, how);
+  }
+  switch (r.kind == kResident ? r.blocks : 0) {
     case kCluster:
-      return choose_rows<T, S, kCluster>(a, how);
+      return choose_rows<T, S, kCluster, false>(a, how);
     case kWideCluster:
-      return choose_rows<T, S, kWideCluster>(a, how);
+      return choose_rows<T, S, kWideCluster, false>(a, how);
     default:
-      *how = Launch{0, 0, 0, 0, 0, 0, 0, 0};
+      *how = Launch{0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
       return cudaErrorInvalidConfiguration;
   }
 }
 
-template <typename T, typename S, int R, int C>
-cudaError_t run(const Args& a, const Launch& how) {
+template <typename T, typename S, int R, int C, bool kStream>
+cudaError_t run(const Args& a, int cap, const Launch& how) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch again;
-  cudaError_t err = config<T, S, R, C>(a, &cfg, attr, &again);
+  cudaError_t err = config<T, S, R, C, kStream>(a, cap, &cfg, attr, &again);
   if (err != cudaSuccess) return err;
+  if (!again.rows) return cudaErrorInvalidConfiguration;
   const int L = a.layers;
   const Scratch sc = scratch_of<T>(a, how);
   float* gxl = (float*)a.scratch;
@@ -840,14 +1002,15 @@ cudaError_t run(const Args& a, const Launch& how) {
     const int n = min(how.per_wave, how.tiles - tile0);
     cfg.gridDim = dim3(C * n, L, 1);
     err = cudaLaunchKernelEx(
-        &cfg, stack_bwd_kernel<T, S, R, C>, (const int*)a.seed, (const float*)a.gx0,
+        &cfg, stack_bwd_kernel<T, S, R, C, kStream>, (const int*)a.seed, (const float*)a.gx0,
         (const float*)a.mask, (const S*)a.chain, (const S*)a.c_all, (const S*)a.h_all,
-        (const float*)a.cinit, (const float*)a.hinit, (const T*)a.wz, (const T*)a.wh_sl, (const T*)a.pj_rows, (const float*)a.bias,
+        (const float*)a.cinit, (const float*)a.hinit, (const T*)a.wz, (const T*)a.wh_sl,
+        (const T*)a.pj_rows, (const float*)a.bias,
         (const float*)a.peep, a.forget_bias, a.keep_prob, a.residual,
         (const float*)a.dout, (const float*)a.dcfin, (const float*)a.dhfin, a.steps, L,
         a.batch, a.units, a.out_dim, (S*)a.dgates, (T*)a.outb_st, (T*)a.doutp_st,
         (float*)a.dcinit, (float*)a.dhinit, (float*)a.din, (float*)a.dc_in,
-        (float*)a.dh_in, gxl, ring, cols, counters, tile0, how.tiles, how.lag);
+        (float*)a.dh_in, gxl, ring, cols, counters, tile0, how.tiles, how.lag, cap);
     if (err != cudaSuccess) return err;
   }
   err = cudaGetLastError();
@@ -862,31 +1025,79 @@ cudaError_t run(const Args& a, const Launch& how) {
   return cudaGetLastError();
 }
 
+bool valid(const Args& a) {
+  const int H = a.units, P = a.out_dim;
+  return !(H <= 0 || P <= 0 || H % 4 || P % 4 || (!a.pj_rows && P != H));
+}
+
 template <typename T, typename S>
 int launch(int device, const Args& a) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int H = a.units, P = a.out_dim;
   if (a.batch <= 0 || a.steps <= 0 || a.layers <= 0) return cudaSuccess;
-  if (H <= 0 || P <= 0 || H % 4 || P % 4 || (!a.pj_rows && P != H))
-    return cudaErrorInvalidValue;
+  if (!valid(a)) return cudaErrorInvalidValue;
   Launch how;
   err = choose<T, S>(a, &how);
   if (err != cudaSuccess) return err;
   if (!how.rows) return cudaErrorInvalidConfiguration;  // the layers not resident together
+  if (how.streamed) {
+    if constexpr (kMma<T>) {
+      switch (how.rows) {
+        case 2: return run<T, S, 2, kWideCluster, true>(a, -1, how);
+        default: return run<T, S, 4, kWideCluster, true>(a, -1, how);
+      }
+    }
+  }
   if (how.blocks == kCluster) {
     switch (how.rows) {
-      case 4: return run<T, S, 4, kCluster>(a, how);
-      case 6: return run<T, S, 6, kCluster>(a, how);
-      default: return run<T, S, 8, kCluster>(a, how);
+      case 4: return run<T, S, 4, kCluster, false>(a, -1, how);
+      case 6: return run<T, S, 6, kCluster, false>(a, -1, how);
+      default: return run<T, S, 8, kCluster, false>(a, -1, how);
     }
   }
   switch (how.rows) {
-    case 2: return run<T, S, 2, kWideCluster>(a, how);
-    case 4: return run<T, S, 4, kWideCluster>(a, how);
-    case 6: return run<T, S, 6, kWideCluster>(a, how);
-    default: return run<T, S, 8, kWideCluster>(a, how);
+    case 2: return run<T, S, 2, kWideCluster, false>(a, -1, how);
+    case 4: return run<T, S, 4, kWideCluster, false>(a, -1, how);
+    case 6: return run<T, S, 6, kWideCluster, false>(a, -1, how);
+    default: return run<T, S, 8, kWideCluster, false>(a, -1, how);
   }
+}
+
+// A bf16 launch on the plan that `plan` names, at R = `rows`, for holding
+// the plans against each other (chip_smoke.py): 1, the resident plan of
+// this shape; 2, the streamed plan (16 blocks, which the shape's resident
+// plan must have, so the dh partials are summed over the same blocks) with
+// at most half of wh's steps resident, so that the ring streams wh too; 3,
+// the same with every step of wh resident (refused where they do not all
+// fit); 4, with as many resident as fit.
+template <typename S>
+int forced(int device, const Args& a, int plan, int rows) {
+  typedef __nv_bfloat16 T;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (a.batch <= 0 || a.steps <= 0 || a.layers <= 0) return cudaSuccess;
+  if (!valid(a)) return cudaErrorInvalidValue;
+  const Route r = stack_route<T, S>(a.units, a.out_dim, a.pj_rows != nullptr);
+  if (plan < 1 || plan > 4 || (plan == 1 && r.kind != kResident) ||
+      (plan > 1 && r.blocks != kWideCluster))
+    return cudaErrorInvalidConfiguration;
+  const int cap = plan == 2 ? cdiv(a.out_dim, 16) / 2 : plan == 3 ? kAllHeld : -1;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Launch how = {};
+  switch ((plan > 1) * 1000 + r.blocks * 16 + rows) {
+#define CASE(ST, C, R)                                                                 \
+  case ST * 1000 + C * 16 + R:                                                         \
+    err = config<T, S, R, C, ST == 1>(a, cap, &cfg, attr, &how);                       \
+    if (err == cudaSuccess && how.rows) return run<T, S, R, C, ST == 1>(a, cap, how);  \
+    break;
+    CASE(0, kCluster, 4) CASE(0, kCluster, 6) CASE(0, kCluster, 8)
+    CASE(0, kWideCluster, 2) CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 6)
+    CASE(0, kWideCluster, 8) CASE(1, kWideCluster, 2) CASE(1, kWideCluster, 4)
+#undef CASE
+    default: break;
+  }
+  return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -919,26 +1130,42 @@ extern "C" int lstm_stack_bwd_bf16(LSTM_STACK_BWD_ARGS) {
                     : launch<__nv_bfloat16, float>(device, LSTM_STACK_BWD_PACK);
 }
 
-// The blocks a cluster of K13's launch plan for this shape (8 or 16), or 0
-// when K13 has none: host arithmetic only, no CUDA call.  The clusters the
-// card holds at once, which config also asks, are not counted.
+// lstm_stack_bwd_bf16 on a forced plan and R (`plan` 1 resident, 2-4
+// streamed with half, all or as much of wh resident as fits; see
+// `forced`): the slices laid out for the plan, with lstm_stack_bwd_fits's
+// blocks
+extern "C" int lstm_stack_bwd_bf16_forced(LSTM_STACK_BWD_ARGS, int plan, int rows) {
+  return store_bf16 ? forced<__nv_bfloat16>(device, LSTM_STACK_BWD_PACK, plan, rows)
+                    : forced<float>(device, LSTM_STACK_BWD_PACK, plan, rows);
+}
+
+// The blocks a cluster of K13's launch plan for this shape (8 or 16;
+// negative for the streamed plan, whose weight rows are laid out padded),
+// or 0 when K13 has none: host arithmetic only, no CUDA call.  The
+// clusters the card holds at once, which config also asks, are not
+// counted.
 extern "C" int lstm_stack_bwd_fits(int units, int out_dim, int has_proj, int bf16,
                                    int store_bf16) {
   if (units <= 0 || out_dim <= 0 || units % 4 || out_dim % 4) return 0;
   using bf = __nv_bfloat16;
   const bool pj = has_proj != 0;
+  Route r;
   if (bf16)
-    return store_bf16 ? stack_cluster<bf, bf>(units, out_dim, pj)
-                      : stack_cluster<bf, float>(units, out_dim, pj);
-  return store_bf16 ? stack_cluster<float, bf>(units, out_dim, pj)
-                    : stack_cluster<float, float>(units, out_dim, pj);
+    r = store_bf16 ? stack_route<bf, bf>(units, out_dim, pj)
+                   : stack_route<bf, float>(units, out_dim, pj);
+  else
+    r = store_bf16 ? stack_route<float, bf>(units, out_dim, pj)
+                   : stack_route<float, float>(units, out_dim, pj);
+  return r.kind == kStreamed ? -r.blocks : r.blocks;
 }
 
 // How K13 would launch on `device` at this shape: info = {blocks a
 // cluster, rows a cluster, row tiles, tiles a wave, waves, lag K, shared
-// memory bytes a block, clusters resident at once}, and the scratch floats
-// the launch needs; rows = 0 when the card cannot hold the stack's L
-// clusters of a row tile together; a CUDA error if the shape has no plan.
+// memory bytes a block, clusters resident at once, streamed plan or not,
+// weight bytes a block holds, weight bytes a block reads from L2 a step},
+// and the scratch floats the launch needs; rows = 0 when the card cannot
+// hold the stack's L clusters of a row tile together; a CUDA error if the
+// shape has no plan.
 extern "C" int lstm_stack_bwd_config(int device, int steps, int layers, int batch,
                                      int units, int out_dim, int has_proj, int bf16,
                                      int store_bf16, long long* info, long long* scratch) {
@@ -962,9 +1189,10 @@ extern "C" int lstm_stack_bwd_config(int device, int steps, int layers, int batc
     sc = scratch_of<float>(a, how);
   }
   if (err != cudaSuccess) return err;
-  const long long v[8] = {how.blocks, how.rows, how.tiles, how.per_wave, how.waves,
-                          how.lag, (long long)how.smem, how.resident};
-  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  const long long v[11] = {how.blocks, how.rows, how.tiles, how.per_wave, how.waves,
+                           how.lag, (long long)how.smem, how.resident, how.streamed,
+                           how.held, how.streams};
+  for (int i = 0; i < 11; ++i) info[i] = v[i];
   *scratch = (long long)(sc.gxl + sc.ring + sc.cols + sc.wgrad + sc.counters);
   return cudaSuccess;
 }

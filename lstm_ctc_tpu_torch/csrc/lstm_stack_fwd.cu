@@ -60,20 +60,48 @@
 //
 // Wider stacks take 16-block clusters (C = 16, the H100's non-portable
 // most), where no 8-block plan fits, as K1 does (lstm_fwd.cu): a block
-// owns US = H/16 units, at most 64, so H <= 1024 (Kaldi's LSTMP widths, H
-// = 1024 with P = 256: wh's slice [256, 256] is 132 KB with its padding,
-// proj's [1024, 16] 32 KB, unpadded as K1's).  To fit beside them the A
-// operands of the products hold the 8 rows of R <= 8 (loaded once for
-// mma's 16) instead of 16, and the chunk's input stage shares the region
-// of the partial sums, which a step uses only after the chunk's product
-// is done.  The counters of a row tile are [L, C]: each layer waits for
-// the C blocks of the layer below; each hand-off goes to C blocks.  Only
-// 7 sixteen-block clusters are resident at once on an H100 SXM, so at L =
-// 4 a wave holds one row tile, and a stack of 8 or more such layers has no
-// launch.  8 blocks stay wherever their plan fits: the lstm family's
-// flagship width (H = P = 320) is unchanged.  A bf16 stack whose slices
-// do not fit even 16 blocks (H = P = 1024 without a projection: 8 MB of
-// wh a layer) and any H past 1024 are refused.
+// owns US = H/16 units, at most 128 (R·US <= 512 threads, so R = 4 past
+// 64 units), so H <= 2048 (Kaldi's LSTMP widths, H = 1024 with P = 256:
+// wh's slice [256, 256] is 132 KB with its padding, proj's [1024, 16] 32
+// KB, unpadded as K1's).  To fit beside them the A operands of the
+// products hold the 8 rows of R <= 8 (loaded once for mma's 16) instead
+// of 16, and the chunk's input stage shares the region of the partial
+// sums, which a step uses only after the chunk's product is done (16 rows
+// a stage where 32 do not fit).  The counters of a row tile are [L, C]:
+// each layer waits for the C blocks of the layer below; each hand-off goes
+// to C blocks.  Only 7 sixteen-block clusters are resident at once on an
+// H100 SXM, so at L = 4 a wave holds one row tile, and a stack of 8 or
+// more such layers has no launch.  8 blocks stay wherever their plan fits:
+// the lstm family's flagship width (H = P = 320) is unchanged.  In float32
+// the slices are read from L2 whatever their size.
+//
+// The streamed plan: a bf16 stack whose slices fit no resident plan (H =
+// P = 1024 without a projection: 8 MB of wh a layer; Sak, Senior and
+// Beaufays' LSTMP, 2048 cells with a projection of 512: 10.5 MB of wh and
+// proj a layer) runs on 16-block clusters whose blocks keep only wh's
+// first k-rows in shared memory and stream the rest of wh, and all of
+// proj, from L2 at every step through K1's ring of chunks (lstm_cluster.cuh:
+// a bulk copy a chunk, completing on its slot's barrier, a slot refilled
+// after the block barrier that ends its reads; wh's rows padded by 16
+// bytes in global memory as in shared memory, proj's unpadded), as
+// lstm_fwd_streamed_kernel does.  The weights do not depend on the step,
+// so the next products' first chunks are in flight while a block hands
+// off, waits for the layer below and runs a chunk's input product (which
+// stays as it is: wx_l's rows from L2).  The products keep the resident
+// plan's roles and k-slices (streamed_product: the rows as mma's A, the
+// slices added in order onto gx), so a shape that fits both plans gives
+// the same bits on both (chip_smoke.py forces this plan at Kaldi's LSTMP
+// widths).  Every step of every layer walks the same chunks whether or
+// not the layer is live, so every block of a cluster passes the same
+// block barriers; the wait on the layer below comes before a chunk's input
+// product, outside any pass over the ring.  A step's bytes are the
+// streamed part of the slices (~600 KB a block at 2048/512, which the L
+// resident clusters of a row tile read from L2 together): L2's bandwidth,
+// not the latency chain, bounds this plan.  Every cluster streams whole
+// slices whatever its rows, so R is as large as the threads allow (R·US
+// <= 512: 8 up to 64 units, 4 past).
+//
+// Past 2048 units, the stack is refused.
 //
 // Operands of every product are rounded to the compute dtype; sums, the
 // carries and `out` stay float32; chain, c_all and h_all are written in the
@@ -83,13 +111,17 @@
 
 namespace {
 
-template <typename T, int R, int C>
+// the gate product's tiles a warp on the streamed plan (4·US <= 512
+// columns: 32 tiles over 16 warps) and the projection's (PS <= 256)
+constexpr int kGateTiles = 2, kProjTiles = 1;
+
+template <typename T, int R, int C, bool kStream>
 __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     const int* __restrict__ seed,       // [1] or null (no dropout)
     const float* __restrict__ gx0,      // [S, B, 4H] layer 0's x·wx0 + b0
     const float* __restrict__ mask,     // [S, L·B]
     const T* __restrict__ wx_rows,      // [L, C, 4, US, P16] (layer 0 unread)
-    const T* __restrict__ wh_sl,        // [L, C, P16, 4, US]
+    const T* __restrict__ wh_sl,        // [L, C, P16, 4, US] (streamed: [L, C, P16, LWA])
     const T* __restrict__ proj_sl,      // [L, C, H16, PS] or null (P == H)
     const float* __restrict__ bias,     // [L, 4H] (layer 0 unread)
     const float* __restrict__ peep,     // [L, 3, H] or null
@@ -110,7 +142,8 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     float* __restrict__ gxl,            // scratch [L, K, B, 4H]
     float* __restrict__ in32,           // scratch [L-1, S, B, P]
     int* __restrict__ counters,         // [L, tiles, C], zero at the first wave
-    int tile0, int tiles, int lag) {
+    int tile0, int tiles, int lag,
+    int cap) {                          // streamed: wh's resident steps at most (-1: as fit)
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int l = blockIdx.y, tile = tile0 + blockIdx.x / C;
@@ -118,12 +151,12 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   const int nr = min(R, batch - b0);
   const int H = units, P = out_dim, LB = layers * batch;
   const bool has_proj = proj_sl != nullptr;
-  const Plan pl = plan<T>(H, P, has_proj, R, C);
+  const Plan pl = plan<T>(H, P, has_proj, R, C, kStream, cap);
   const int US = pl.us, PS = pl.ps, G = 4 * US, own = pl.own, prow = pl.prow;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
   const int p0 = q * PS, np = max(0, min(PS, P - p0));
   const int own_n = has_proj ? np : nu, own_0 = has_proj ? p0 : u0;
-  const int P16 = round_up(P, 16), lda_in = P16 + 16 / (int)sizeof(T);
+  const int P16 = round_up(P, 16), H16 = round_up(H, 16), lda_in = P16 + 16 / (int)sizeof(T);
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -133,21 +166,23 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   float* h_own = reinterpret_cast<float*>(smem_raw + pl.off_h);  // [R][own]
   T* stage = reinterpret_cast<T*>(smem_raw + pl.off_stage);  // [R][US or PS]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
-  T* wh_s = reinterpret_cast<T*>(smem_raw + pl.base_bytes);  // bf16 slices
+  T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_w);       // bf16 slices
   T* pj_s = wh_s + (size_t)P16 * pl.lwa;
   T* ain = reinterpret_cast<T*>(smem_raw + pl.off_part);     // the input stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
+  const Ring ring{smem_raw + pl.off_ring, full, pl.slots, pl.slot};
 
   const size_t slot = (size_t)l * C + q;
-  const size_t wh_elems = (size_t)P16 * G;
-  const size_t pj_elems = has_proj ? (size_t)round_up(H, 16) * PS : 0;
+  const size_t wh_elems = (size_t)P16 * (kStream ? pl.lwa : G);
+  const size_t pj_elems = has_proj ? (size_t)H16 * PS : 0;
   const size_t plane = (size_t)steps * batch * P;  // one [S, B, P] chain
   const size_t lrow = (size_t)l * batch + b0;      // the tile's first row in [L·B]
-  const T* wx_g = wx_rows + slot * wh_elems;
+  const T* wx_g = wx_rows + slot * (size_t)P16 * G;
   const T* wh_g = wh_sl + slot * wh_elems;
   const T* pj_g = has_proj ? proj_sl + slot * pj_elems : nullptr;
   const float* prev = l > 0 ? in32 + (size_t)(l - 1) * plane : nullptr;
   float* next = l == layers - 1 ? out : in32 + (size_t)l * plane;
-  float* ring = gxl + (size_t)l * lag * batch * 4 * H;
+  float* gring = gxl + (size_t)l * lag * batch * 4 * H;
   const bool res = l > 0 && ((residual >> l) & 1);
   const float* pd = peep ? peep + (size_t)l * 3 * H : nullptr;
   const float* aa = aff_a ? aff_a + (size_t)l * P : nullptr;
@@ -170,13 +205,20 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   // the row of gate inputs of step s (of the current chunk from s0)
   auto gx_row = [&](int s, int s0, int r) -> const float* {
     return l == 0 ? gx0 + ((size_t)s * batch + b0 + r) * 4 * H
-                  : ring + ((size_t)(s - s0) * batch + b0 + r) * 4 * H;
+                  : gring + ((size_t)(s - s0) * batch + b0 + r) * 4 * H;
   };
 
-  // the layer's recurrent weights and its initial states
-  if constexpr (kMma<T>) {
+  // the layer's recurrent weights (streamed: wh's resident rows, as they
+  // lie in global memory) and its initial states
+  if constexpr (kStream) {
+    copy_rows(wh_s, pl.lwa, wh_g, pl.lwa, 16 * pl.res);
+    if (tid == 0) {
+      for (int i = 0; i < pl.slots; ++i) mbar_init(full + i, 1);
+      mbar_init_fence();
+    }
+  } else if constexpr (kMma<T>) {
     copy_rows(wh_s, pl.lwa, wh_g, G, P16);
-    if (has_proj) copy_rows(pj_s, pl.lwd, pj_g, PS, round_up(H, 16));
+    if (has_proj) copy_rows(pj_s, pl.lwd, pj_g, PS, H16);
   }
   for (int i = tid; i < pl.arow * pl.qs; i += kThreads) {
     const int r = i / pl.qs, k = i - r * pl.qs;
@@ -192,7 +234,26 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     const int r = i / own, j = i - r * own;
     h_own[i] = r < nr && j < own_n ? hinit[(lrow + r) * P + own_0 + j] : 0.0f;
   }
-  cluster.sync();  // every block's states and weights are in place
+  cluster.sync();  // every block's states, weights and barriers are in place
+
+  // the streamed plan's chunks of a step: wh's streamed rows, then proj's
+  // (one thread issues each)
+  const int per_step = pl.nw + pl.np, total = steps * per_step;
+  auto issue = [&](int n) {
+    const int i = n % per_step;
+    if (i < pl.nw) {
+      const int r0 = 16 * (pl.res + i * pl.cw), rows = min(16 * pl.cw, P16 - r0);
+      ring.issue(n, wh_g + (size_t)r0 * pl.lwa, sizeof(T) * rows * pl.lwa);
+    } else {
+      const int r0 = 16 * (i - pl.nw) * pl.cp, rows = min(16 * pl.cp, H16 - r0);
+      ring.issue(n, pj_g + (size_t)r0 * PS, sizeof(T) * rows * PS);
+    }
+  };
+  int chunk = 0;  // the next chunk to read
+  if constexpr (kStream) {
+    if (tid == 0)
+      for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
+  }
 
   // phase b: thread (rb, jb) owns one unit of one row
   const int rb = tid / US, jb = tid - rb * US;
@@ -225,11 +286,12 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           },
           [&](int i, int c, float v) {
             const int s = s0 + i / nr, r = i % nr, k = c / US, j = c - k * US;
-            if (j < nu) ring[((size_t)(s - s0) * batch + b0 + r) * 4 * H + k * H + u0 + j] = v;
-          });
+            if (j < nu) gring[((size_t)(s - s0) * batch + b0 + r) * 4 * H + k * H + u0 + j] = v;
+          },
+          pl.srows);
     }
     float gnext[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (own_b) {
+    if (!kStream && own_b) {
       const float* g = gx_row(s0, s0, rb);
 #pragma unroll
       for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
@@ -241,11 +303,21 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
       const size_t srow = (size_t)s * LB + lrow;    // rows of [S, L·B, ·]
       const size_t brow = (size_t)s * batch + b0;   // rows of [S, B, ·]
 
-      // a. gate sums for the owned units
-      if constexpr (kMma<T>)
+      // a. gate sums for the owned units (streamed: complete, gx added)
+      if constexpr (kStream) {
+        streamed_product<kGateTiles>(
+            hq, pl.qs, P, G, pl.gates.per, wh_s, pl.lwa, pl.res, ring, pl.lwa, pl.cw, chunk,
+            total, issue,
+            [&](int r, int c) {
+              const int k = c / US, j = c - k * US;
+              return r < nr && j < nu ? gx_row(s, s0, r)[k * H + u0 + j] : 0.0f;
+            },
+            part, G);
+      } else if constexpr (kMma<T>) {
         mma_product(hq, pl.qs, P, wh_s, pl.lwa, G, pl.gates, part, prow);
-      else
+      } else {
         fma_product<R>(hq, pl.qs, P, wh_g, G, G, pl.gates, part);
+      }
       if (has_proj)
         __syncthreads();
       else
@@ -258,9 +330,14 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           float gate[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            float v = gnext[k];
-            for (int sl = 0; sl < pl.gates.slices; ++sl)
-              v += part[((size_t)sl * prow + rb) * G + k * US + jb];
+            float v;
+            if constexpr (kStream) {
+              v = part[(size_t)rb * G + k * US + jb];
+            } else {
+              v = gnext[k];
+              for (int sl = 0; sl < pl.gates.slices; ++sl)
+                v += part[((size_t)sl * prow + rb) * G + k * US + jb];
+            }
             gate[k] = v;
           }
           const int ib = rb * US + jb;
@@ -290,7 +367,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
             if (chain) put_state(chain, (srow + rb) * P + ub, ch, states_bf16);
             share = hv;
           }
-          if (s + 1 < s1) {
+          if (!kStream && s + 1 < s1) {
             const float* g = gx_row(s + 1, s0, rb);
 #pragma unroll
             for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
@@ -306,8 +383,12 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
       cluster.sync();
       if (!has_proj) continue;
 
-      // d. the owned projection columns
-      if constexpr (kMma<T>)
+      // d. the owned projection columns (streamed: all of proj, complete)
+      if constexpr (kStream)
+        streamed_product<kProjTiles>(cellf, pl.hs, H, PS, pl.proj.per, wh_s, pl.lwa, 0, ring, PS,
+                                     pl.cp, chunk, total, issue,
+                                     [](int, int) { return 0.0f; }, part, PS);
+      else if constexpr (kMma<T>)
         mma_product(cellf, pl.hs, H, pj_s, pl.lwd, PS, pl.proj, part, prow);
       else
         fma_product<R>(cellf, pl.hs, H, pj_g, PS, PS, pl.proj, part);
@@ -320,8 +401,11 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
         if (j < np) {
           const int p = p0 + j;
           float o = 0.0f;
-          for (int sl = 0; sl < pl.proj.slices; ++sl)
-            o += part[((size_t)sl * prow + r) * PS + j];
+          if constexpr (kStream)
+            o = part[(size_t)r * PS + j];
+          else
+            for (int sl = 0; sl < pl.proj.slices; ++sl)
+              o += part[((size_t)sl * prow + r) * PS + j];
           const float m = mask[srow + r];
           const float hv = m * o + (1.0f - m) * h_own[i];
           h_own[i] = hv;
@@ -369,11 +453,14 @@ struct StackArgs {
 // How K12 launches: C blocks a cluster, rows a cluster, row tiles, tiles a
 // wave, waves, the lag K, dynamic shared memory a block, and the clusters
 // resident at once (rows = 0: not with this R, or no R whose L layers are
-// resident together).
+// resident together); whether on the streamed plan, and a block's weight
+// bytes held in shared memory and read from L2 at every step (bf16: the
+// streamed plan's streamed part; float32: all its slices).
 struct Launch {
   int blocks, rows, tiles, per_wave, waves, lag;
   size_t smem;
-  int resident;
+  int resident, streamed;
+  long long held, streams;
 };
 
 __host__ int lag_of(int steps) {
@@ -390,13 +477,20 @@ __host__ size_t scratch_floats(const StackArgs& a, const Launch& how) {
 }
 
 // Whether a block of R rows of a C-block cluster fits this shape: at most
-// kBlockUnits units a block, its slices' threads and its shared memory
-// (`smem`) within a block's.  Host arithmetic only.
+// kBlockUnits units a block on 8 blocks and kLayerUnits on 16, its
+// slices' threads and its shared memory (`smem`) within a block's; on the
+// streamed plan (bf16, 16 blocks: wh's resident steps at most `cap`, -1 as
+// many as fit, kAllHeld all of them or no plan) at least two ring slots.
+// Host arithmetic only.
 template <typename T, int R>
-__host__ bool fits(int units, int out_dim, bool has_proj, int C, size_t* smem) {
-  const Plan pl = plan<T>(units, out_dim, has_proj, R, C);
-  *smem = pl.base_bytes + pl.weight_bytes;
-  return pl.us <= kBlockUnits && R * pl.us <= kThreads && *smem <= kMaxSmemPerBlock;
+__host__ bool fits(int units, int out_dim, bool has_proj, int C, size_t* smem,
+                   bool stream = false, int cap = -1) {
+  if (stream && (!kMma<T> || C != kWideCluster || R > 8)) return false;
+  const Plan pl = plan<T>(units, out_dim, has_proj, R, C, stream, cap);
+  *smem = pl.bytes;
+  return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) && R * pl.us <= kThreads &&
+         pl.bytes <= kMaxSmemPerBlock &&
+         (!stream || (pl.slots >= 2 && (cap != kAllHeld || pl.res == pl.wsteps)));
 }
 
 template <typename T>
@@ -408,23 +502,34 @@ __host__ bool fits_any(int units, int out_dim, bool has_proj, int C) {
          fits<T, 12>(units, out_dim, has_proj, C, &smem);
 }
 
-// The blocks a cluster of K12's plan: 8 where some R fits 8 blocks, else 16
-// where some R fits 16, else 0 (no plan).  Host arithmetic only.
+// K12's plans, in the order they are tried: resident on 8 blocks, resident
+// on 16, streamed on 16 (bf16 only; R = 4 needs the least of it)
+enum Kind { kNone = 0, kResident = 1, kStreamed = 2 };
+
+struct Route {
+  Kind kind;
+  int blocks;
+};
+
 template <typename T>
-__host__ int stack_cluster(int units, int out_dim, bool has_proj) {
-  if (fits_any<T>(units, out_dim, has_proj, kCluster)) return kCluster;
-  if (fits_any<T>(units, out_dim, has_proj, kWideCluster)) return kWideCluster;
-  return 0;
+__host__ Route stack_route(int units, int out_dim, bool has_proj) {
+  if (fits_any<T>(units, out_dim, has_proj, kCluster)) return Route{kResident, kCluster};
+  if (fits_any<T>(units, out_dim, has_proj, kWideCluster)) return Route{kResident, kWideCluster};
+  size_t smem;
+  if (fits<T, 4>(units, out_dim, has_proj, kWideCluster, &smem, true))
+    return Route{kStreamed, kWideCluster};
+  return Route{kNone, 0};
 }
 
-template <typename T, int R, int C>
-cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
+template <typename T, int R, int C, bool kStream>
+cudaError_t config(const StackArgs& a, int cap, cudaLaunchConfig_t* cfg,
                    cudaLaunchAttribute* attr, Launch* how) {
   how->rows = 0;
   how->resident = 0;
   size_t smem;
-  if (!fits<T, R>(a.units, a.out_dim, a.proj_sl != nullptr, C, &smem)) return cudaSuccess;
-  auto kernel = stack_fwd_kernel<T, R, C>;
+  const bool has_proj = a.proj_sl != nullptr;
+  if (!fits<T, R>(a.units, a.out_dim, has_proj, C, &smem, kStream, cap)) return cudaSuccess;
+  auto kernel = stack_fwd_kernel<T, R, C, kStream>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -450,6 +555,10 @@ cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
   how->resident = fit;
   const int per_wave = min(tiles, fit / a.layers);
   if (per_wave < 1) return cudaSuccess;
+  const Plan pl = plan<T>(a.units, a.out_dim, has_proj, R, C, kStream, cap);
+  const long long slices = (long long)sizeof(T) *
+      ((long long)round_up(a.out_dim, 16) * 4 * pl.us +
+       (has_proj ? (long long)round_up(a.units, 16) * pl.ps : 0));
   how->blocks = C;
   how->rows = R;
   how->tiles = tiles;
@@ -457,16 +566,19 @@ cudaError_t config(const StackArgs& a, cudaLaunchConfig_t* cfg,
   how->waves = cdiv(tiles, per_wave);
   how->lag = lag_of(a.steps);
   how->smem = smem;
+  how->streamed = kStream;
+  how->held = kStream ? pl.res_bytes : kMma<T> ? slices : 0;
+  how->streams = kStream ? pl.stream_bytes : kMma<T> ? 0 : slices;
   return cudaSuccess;
 }
 
 // every wave: all L layers of its row tiles, resident together
-template <typename T, int R, int C>
-cudaError_t run(const StackArgs& a, const Launch& how) {
+template <typename T, int R, int C, bool kStream>
+cudaError_t run(const StackArgs& a, int cap, const Launch& how) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch again;
-  cudaError_t err = config<T, R, C>(a, &cfg, attr, &again);
+  cudaError_t err = config<T, R, C, kStream>(a, cap, &cfg, attr, &again);
   if (err != cudaSuccess) return err;
   const int H = a.units, P = a.out_dim, L = a.layers;
   float* gxl = (float*)a.scratch;
@@ -478,54 +590,86 @@ cudaError_t run(const StackArgs& a, const Launch& how) {
     const int n = min(how.per_wave, how.tiles - tile0);
     cfg.gridDim = dim3(C * n, L, 1);
     err = cudaLaunchKernelEx(
-        &cfg, stack_fwd_kernel<T, R, C>, (const int*)a.seed, (const float*)a.gx0,
+        &cfg, stack_fwd_kernel<T, R, C, kStream>, (const int*)a.seed, (const float*)a.gx0,
         (const float*)a.mask, (const T*)a.wx_rows, (const T*)a.wh_sl,
         (const T*)a.proj_sl, (const float*)a.bias, (const float*)a.peep,
         (const float*)a.cinit, (const float*)a.hinit, (const float*)a.aff_a,
         (const float*)a.aff_b, a.forget_bias, a.keep_prob, a.residual, a.steps,
         a.layers, a.batch, a.units, a.out_dim, (float*)a.out, a.chain, a.c_all,
         a.h_all, a.states_bf16, (float*)a.cfin, (float*)a.hfin, gxl, in32, counters,
-        tile0, how.tiles, how.lag);
+        tile0, how.tiles, how.lag, cap);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
 }
 
-// The R of {4, 6, 8, 12} with the fewest waves, then the smallest; rows =
-// 0 when no R's L clusters are resident together (how->resident: the most
-// resident of any R).
-template <typename T, int C>
+// The R of {4, 6, 8, 12} (streamed: {4, 8}) with the fewest waves, then the
+// smallest; rows = 0 when no R's L clusters are resident together
+// (how->resident: the most resident of any R).
+template <typename T, int C, bool kStream>
 cudaError_t choose_rows(const StackArgs& a, Launch* how) {
-  *how = Launch{C, 0, 0, 0, 0, 0, 0, 0};
+  *how = Launch{C, 0, 0, 0, 0, 0, 0, 0, kStream, 0, 0};
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   Launch c;
   cudaError_t err;
 #define TRY(R)                                                          \
-  err = config<T, R, C>(a, &cfg, attr, &c);                             \
+  err = config<T, R, C, kStream>(a, -1, &cfg, attr, &c);                \
   if (err != cudaSuccess) return err;                                   \
   if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
   how->resident = max(how->resident, c.resident);
-  TRY(4) TRY(6) TRY(8) TRY(12)
+  if constexpr (kStream) {
+    TRY(4) TRY(8)
+  } else {
+    TRY(4) TRY(6) TRY(8) TRY(12)
+  }
 #undef TRY
   return cudaSuccess;
 }
 
 // The launch plan, or an error: no plan for the shape
-// (cudaErrorInvalidConfiguration: bf16 slices wider than shared memory, as
-// K1's, or past 1024 units).  rows = 0: the plan exists but its L layers
+// (cudaErrorInvalidConfiguration: past 2048 units, or bf16 slices that fit
+// not even the streamed plan).  rows = 0: the plan exists but its L layers
 // are not resident together.
 template <typename T>
 cudaError_t choose(const StackArgs& a, Launch* how) {
-  switch (stack_cluster<T>(a.units, a.out_dim, a.proj_sl != nullptr)) {
+  const Route r = stack_route<T>(a.units, a.out_dim, a.proj_sl != nullptr);
+  if (r.kind == kStreamed) {
+    if constexpr (kMma<T>) return choose_rows<T, kWideCluster, true>(a, how);
+  }
+  switch (r.kind == kResident ? r.blocks : 0) {
     case kCluster:
-      return choose_rows<T, kCluster>(a, how);
+      return choose_rows<T, kCluster, false>(a, how);
     case kWideCluster:
-      return choose_rows<T, kWideCluster>(a, how);
+      return choose_rows<T, kWideCluster, false>(a, how);
     default:
-      *how = Launch{0, 0, 0, 0, 0, 0, 0, 0};
+      *how = Launch{0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
       return cudaErrorInvalidConfiguration;
   }
+}
+
+template <typename T, int C, bool kStream>
+cudaError_t run_rows(const StackArgs& a, int cap, const Launch& how) {
+  if constexpr (kStream) {
+    switch (how.rows) {
+      case 4: return run<T, 4, C, true>(a, cap, how);
+      case 8: return run<T, 8, C, true>(a, cap, how);
+      default: return cudaErrorInvalidConfiguration;
+    }
+  } else {
+    switch (how.rows) {
+      case 4: return run<T, 4, C, false>(a, cap, how);
+      case 6: return run<T, 6, C, false>(a, cap, how);
+      case 8: return run<T, 8, C, false>(a, cap, how);
+      case 12: return run<T, 12, C, false>(a, cap, how);
+      default: return cudaErrorInvalidConfiguration;
+    }
+  }
+}
+
+bool valid(const StackArgs& a) {
+  return !(a.units <= 0 || a.out_dim <= 0 || (!a.proj_sl && a.out_dim != a.units) ||
+           (a.aff_a == nullptr) != (a.aff_b == nullptr));
 }
 
 template <typename T>
@@ -533,27 +677,52 @@ int launch(int device, const StackArgs& a) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (a.batch <= 0 || a.steps <= 0 || a.layers <= 0) return cudaSuccess;
-  if (a.units <= 0 || a.out_dim <= 0 || (!a.proj_sl && a.out_dim != a.units) ||
-      (a.aff_a == nullptr) != (a.aff_b == nullptr))
-    return cudaErrorInvalidValue;
+  if (!valid(a)) return cudaErrorInvalidValue;
   Launch how;
   err = choose<T>(a, &how);
   if (err != cudaSuccess) return err;
   if (!how.rows) return cudaErrorInvalidConfiguration;  // the layers not resident together
-  if (how.blocks == kCluster) {
-    switch (how.rows) {
-      case 4: return run<T, 4, kCluster>(a, how);
-      case 6: return run<T, 6, kCluster>(a, how);
-      case 8: return run<T, 8, kCluster>(a, how);
-      default: return run<T, 12, kCluster>(a, how);
-    }
+  if (how.streamed) {
+    if constexpr (kMma<T>) return run_rows<T, kWideCluster, true>(a, -1, how);
   }
-  switch (how.rows) {
-    case 4: return run<T, 4, kWideCluster>(a, how);
-    case 6: return run<T, 6, kWideCluster>(a, how);
-    case 8: return run<T, 8, kWideCluster>(a, how);
-    default: return run<T, 12, kWideCluster>(a, how);
+  return how.blocks == kCluster ? run_rows<T, kCluster, false>(a, -1, how)
+                                : run_rows<T, kWideCluster, false>(a, -1, how);
+}
+
+// A bf16 launch on the plan that `plan` names, at R = `rows`, for holding
+// the plans against each other (chip_smoke.py): 1, the resident plan of
+// this shape; 2, the streamed plan (16 blocks, which the shape's resident
+// plan must have, so the slices are laid out for them) with at most half
+// of wh's steps resident, so that the ring streams wh too; 3, the same
+// with every step of wh resident (refused where they do not all fit); 4,
+// with as many resident as fit.
+int forced(int device, const StackArgs& a, int plan, int rows) {
+  typedef __nv_bfloat16 T;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (a.batch <= 0 || a.steps <= 0 || a.layers <= 0) return cudaSuccess;
+  if (!valid(a)) return cudaErrorInvalidValue;
+  const Route r = stack_route<T>(a.units, a.out_dim, a.proj_sl != nullptr);
+  if (plan < 1 || plan > 4 || (plan == 1 && r.kind != kResident) ||
+      (plan > 1 && r.blocks != kWideCluster))
+    return cudaErrorInvalidConfiguration;
+  const int cap = plan == 2 ? cdiv(a.out_dim, 16) / 2 : plan == 3 ? kAllHeld : -1;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Launch how = {};
+  switch ((plan > 1) * 1000 + r.blocks * 16 + rows) {
+#define CASE(S, C, R)                                                               \
+  case S * 1000 + C * 16 + R:                                                       \
+    err = config<T, R, C, S == 1>(a, cap, &cfg, attr, &how);                        \
+    if (err == cudaSuccess && how.rows) return run<T, R, C, S == 1>(a, cap, how);   \
+    break;
+    CASE(0, kCluster, 4) CASE(0, kCluster, 6) CASE(0, kCluster, 8) CASE(0, kCluster, 12)
+    CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 6) CASE(0, kWideCluster, 8)
+    CASE(0, kWideCluster, 12) CASE(1, kWideCluster, 4) CASE(1, kWideCluster, 8)
+#undef CASE
+    default: break;
   }
+  return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -581,21 +750,33 @@ extern "C" int lstm_stack_fwd_bf16(LSTM_STACK_FWD_ARGS) {
   return launch<__nv_bfloat16>(device, LSTM_STACK_FWD_PACK);
 }
 
-// The blocks a cluster of K12's launch plan for this shape (8 or 16), or 0
+// lstm_stack_fwd_bf16 on a forced plan and R (`plan` 1 resident, 2-4
+// streamed with half, all or as much of wh resident as fits; see
+// `forced`): the slices laid out for the plan, with lstm_stack_fwd_fits's
+// blocks
+extern "C" int lstm_stack_fwd_bf16_forced(LSTM_STACK_FWD_ARGS, int plan, int rows) {
+  return forced(device, LSTM_STACK_FWD_PACK, plan, rows);
+}
+
+// The blocks a cluster of K12's launch plan for this shape (8 or 16;
+// negative for the streamed plan, whose wh rows are laid out padded), or 0
 // when K12 has none: host arithmetic only, no CUDA call.  The clusters the
 // card holds at once, which config also asks, are not counted.
 extern "C" int lstm_stack_fwd_fits(int units, int out_dim, int has_proj, int bf16) {
   if (units <= 0 || out_dim <= 0) return 0;
   const bool pj = has_proj != 0;
-  return bf16 ? stack_cluster<__nv_bfloat16>(units, out_dim, pj)
-              : stack_cluster<float>(units, out_dim, pj);
+  const Route r = bf16 ? stack_route<__nv_bfloat16>(units, out_dim, pj)
+                       : stack_route<float>(units, out_dim, pj);
+  return r.kind == kStreamed ? -r.blocks : r.blocks;
 }
 
 // How K12 would launch on `device` at this shape: info = {blocks a
 // cluster, rows a cluster, row tiles, tiles a wave, waves, lag K, shared
-// memory bytes a block, clusters resident at once}, and the scratch floats
-// the launch needs; rows = 0 when the card cannot hold the stack's L
-// clusters of a row tile together; a CUDA error if the shape has no plan.
+// memory bytes a block, clusters resident at once, streamed plan or not,
+// weight bytes a block holds, weight bytes a block reads from L2 a step},
+// and the scratch floats the launch needs; rows = 0 when the card cannot
+// hold the stack's L clusters of a row tile together; a CUDA error if the
+// shape has no plan.
 extern "C" int lstm_stack_fwd_config(int device, int steps, int layers, int batch,
                                      int units, int out_dim, int has_proj, int bf16,
                                      long long* info, long long* scratch) {
@@ -611,9 +792,10 @@ extern "C" int lstm_stack_fwd_config(int device, int steps, int layers, int batc
   Launch how = {};
   err = bf16 ? choose<__nv_bfloat16>(a, &how) : choose<float>(a, &how);
   if (err != cudaSuccess) return err;
-  const long long v[8] = {how.blocks, how.rows, how.tiles, how.per_wave, how.waves,
-                          how.lag, (long long)how.smem, how.resident};
-  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  const long long v[11] = {how.blocks, how.rows, how.tiles, how.per_wave, how.waves,
+                           how.lag, (long long)how.smem, how.resident, how.streamed,
+                           how.held, how.streams};
+  for (int i = 0; i < 11; ++i) info[i] = v[i];
   *scratch = (long long)scratch_floats(a, how);
   return cudaSuccess;
 }

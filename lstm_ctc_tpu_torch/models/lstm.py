@@ -17,9 +17,9 @@ layer's batch statistics first, so it runs layer by layer, each BN affine
 folded into the next layer's input weights (or the dense head), through
 the bidirectional layer kernels (K1, K2) with the two half-batches as the
 two directions; so does a stack that is not uniform, or that the stack
-kernels refuse (``stack_eligible``: past 1024 units, a backward with H or P
-not divisible by 4, a shape for which K12 or K13 has no launch plan that
-fits a block, a stack deeper than the clusters the card holds at once),
+kernels refuse (``stack_eligible``: past 2048 units, a backward with H or P
+not divisible by 4, a shape for which K12 or K13 has no launch plan, resident
+or streamed, a stack deeper than the clusters the card holds at once),
 and a layer the layer kernels refuse (``lstm_kernels.layer_eligible``)
 runs the plain recurrence under autograd, with one warning (streaming,
 with carried states, each layer through K12 alone, or the plain

@@ -42,8 +42,9 @@ from ..models import cells
 from .route import warn_once
 
 MAX_UNITS = 2048  # hidden units of a layer, at most (16 blocks of 128)
-LAYER_BLOCK_UNITS = 128  # hidden units a block of K1 or K2 owns, at most
-BLOCK_UNITS = 64  # the same of K12 and K13 (lstm_stack_kernels)
+# hidden units a block owns, at most: K1 and K2, and K12 and K13 on 16
+# blocks (64 on 8)
+LAYER_BLOCK_UNITS = 128
 # the forced plans' codes: the resident plan, the streamed plan with half
 # of wh's steps resident, with all of them, and with as many as fit
 # (``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu`` ``forced``)
@@ -218,7 +219,8 @@ def _slices(wh, proj, cluster: int, padded: bool = False,
     [q·PS, (q+1)·PS): wh ``[n, P, 4H]`` → ``[n, cluster, P16, 4, US]``,
     proj ``[n, H, P]`` → ``[n, cluster, H16, PS]``, zero-padded (n: the
     directions of a layer, or the layers of a stack).  US is a multiple of
-    8 and at most ``block_units`` (K1 and K2: 128; K12: 64), PS a multiple
+    8 and at most ``block_units`` (K1 and K2: 128; K12 and K13: 128 on 16
+    blocks, 64 on 8), PS a multiple
     of 16, P16 and H16 are P and H rounded up to 16, as in
     ``csrc/lstm_fwd.cu`` ``fwd_plan`` (8 or 16 blocks) and
     ``csrc/lstm_cluster.cuh`` ``plan`` (K12: 8 or 16).  With ``padded``

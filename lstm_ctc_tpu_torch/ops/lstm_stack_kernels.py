@@ -11,14 +11,20 @@ per-step stream is laid out by s with the layers stacked on the row axis
 ([S, L·B, ·]).  The kernels here keep that layout, its masks and its hash
 dropout (drawn at row s·L·B + l·B + b, column p), so they compute the same
 function, ordering the work for the card: both run one cluster per (layer,
-tile of batch rows), of 8 blocks where the 8-block plan fits and of 16
-where only that fits (up to 1024 units, 64 a block), with the layer's
-recurrent weights in its shared memory, the layers pipelined in chunks of
-K steps (the lag), each layer's input products off its recurrence
+tile of batch rows), of 8 blocks where the 8-block plan fits (up to 64
+units a block) and of 16 where only that fits (up to 128 a block, so up to
+2048 units), with the layer's recurrent weights in its shared memory (bf16;
+float32 reads them from L2), the layers pipelined in chunks of K steps
+(the lag), each layer's input products off its recurrence
 (``csrc/lstm_stack_fwd.cu``, ``csrc/lstm_stack_bwd.cu``; ``stack_config``
-says how they launch).  A row tile's L clusters run together, so a stack
-deeper than the clusters the card holds at once has no launch: the route
-(``stack_eligible``) runs it layer by layer.
+says how they launch).  A bf16 stack whose slices fit no resident plan
+(H = P = 1024 without a projection, 2048 cells with a projection of 512)
+takes the streamed plan: 16 blocks that keep wh's first rows in shared
+memory and stream the rest, and proj, from L2 at every step, as K1 and K2
+do.  A row tile's L clusters run together, so a stack deeper than the
+clusters the card holds at once has no launch: the route
+(``stack_eligible``) runs it layer by layer, as it does a stack past 2048
+units.
 
 Layer 0's input projection gx0 = x·wx0 + b0 is one GEMM outside the
 kernels, and in training its gradients are autograd's products over the
@@ -26,10 +32,12 @@ dgates rows of layer 0 that K13 emits, as XLA's are outside the TPU kernel.
 The packed weights: wz ``[L, 2P, 4H]`` (wz[l] = [wx_l; wh_l], layer 0's
 input slab zero) and proj ``[L, H, P]`` in the compute dtype; bias
 ``[L, 4H]`` (layer 0's zero, it is in gx0), peep ``[L, 3, H]`` (the i, f, o
-diagonals) in float32.  The kernels take them cut per cluster block for
-the blocks of the plan that launches (``stack_slices``): wh and proj as
-K1's slices, wx as rows of the block's gate columns (``_input_rows``),
-proj also as K2's rows for K13.
+diagonals) in float32, whatever the plan.  The kernels take them cut per
+cluster block for the blocks of the plan that launches (``stack_slices``):
+wh and proj as K1's slices, wx as rows of the block's gate columns
+(``_input_rows``), proj also as K2's rows for K13; on the streamed plan
+each row of wh (and of K13's proj rows) padded as it lies in shared
+memory, as K1's and K2's.
 
 On a CPU tensor a wrapper runs its plain version (``stack_forward_reference``,
 ``stack_backward_reference``); on a CUDA tensor it launches its kernel or
@@ -47,15 +55,15 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..models import cells
-from .lstm_kernels import (BLOCK_UNITS, _expect, _proj_rows, _ptr,
-                           _round_up, _slices)
+from .lstm_kernels import (LAYER_BLOCK_UNITS, PLANS, _expect, _proj_rows,
+                           _ptr, _round_up, _slices)
 from .moe_kernels import _seed_ptr, hash_uniform
 from .route import warn_once
 
 _DIAG = ("w_i_diag", "w_f_diag", "w_o_diag")
 # hidden units of a stack, at most: its clusters have at most 16 blocks of
-# at most 64 units
-MAX_UNITS = 16 * BLOCK_UNITS
+# at most 128 units, as the layer kernels'
+MAX_UNITS = 16 * LAYER_BLOCK_UNITS
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,7 +71,8 @@ def _unplanned(units: int, out_dim: int, has_proj: bool, bf16: bool,
                store_bf16: bool, train: bool):
     """Which of K12 and, with ``train``, K13 has no launch plan for this
     shape, or None: the plans' own arithmetic in the library (each answers
-    the blocks a cluster of its plan, 0 for none), no CUDA call, asked once
+    the blocks a cluster of its plan, negative for the streamed plan, 0
+    for none), no CUDA call, asked once
     a shape (the plans do not depend on the batch, the steps or the layers
     but through the clusters the card holds at once: ``_unheld``)."""
     lib = _build.library()
@@ -147,8 +156,8 @@ def stack_eligible(params_list: Sequence[Dict], train: bool = False,
                    warn: bool = False, device=None, dtype=torch.float32,
                    store_dtype=torch.float32) -> bool:
     """The stack kernels apply when the stack is uniform
-    (``stack_uniform``) and the kernels take its shape: at most 1024 units
-    (16 blocks of 64), with ``train`` (K13) H and P divisible by 4, and on
+    (``stack_uniform``) and the kernels take its shape: at most 2048 units
+    (16 blocks of 128), with ``train`` (K13) H and P divisible by 4, and on
     a CUDA ``device`` a launch plan of K12 (and K13) in the compute
     ``dtype`` (K13's states in ``store_dtype``) that fits a block, as
     ``lstm_kernels.layer_eligible`` asks K1's, and whose L clusters of a
@@ -177,8 +186,9 @@ def stack_eligible(params_list: Sequence[Dict], train: bool = False,
 
 def stack_layer_eligible(cell: Dict, device, dtype, warn: bool = False) -> bool:
     """Whether K12 runs this one layer forward with carried states (the
-    streaming path of a stack the stack route refused): at most 1024 units
-    and, on a CUDA ``device``, a launch plan of K12 in ``dtype``."""
+    streaming path of a stack the stack route refused): at most 2048 units
+    and, on a CUDA ``device``, a launch plan of K12 in ``dtype``, resident
+    or streamed."""
     units = cell["bias"].shape[0] // 4
     out_dim = cell["proj"].shape[1] if "proj" in cell else units
     return units <= MAX_UNITS and not _plan_refusal(
@@ -263,6 +273,18 @@ def _with_gx0(gates, gx0_s):
                       gates[..., 1:, :, :]], dim=-3)
 
 
+def _layer_matmul(x, w, cdt):
+    """``cells.matmul_f32`` of x ``[..., L, B, K]`` by each layer's w
+    ``[L, K, N]``, as one product a layer: matmul would broadcast w over
+    the leading dims (a replay's steps) and copy it once each."""
+    if x.dim() == 3:
+        return cells.matmul_f32(x, w, cdt)
+    layers, batch, depth = x.shape[-3:]
+    rows = x.movedim(-3, 0).reshape(layers, -1, depth)
+    y = cells.matmul_f32(rows, w, cdt)
+    return y.reshape((layers,) + x.shape[:-3] + (batch, -1)).movedim(0, -3)
+
+
 def _forward_step(gx0_s, m, inb, c, h, wz, bias, proj, peep, rvec,
                   forget_bias: float, drop_s, affine):
     """One wavefront step of every layer (``_make_fwd_kernel`` :96-167), on
@@ -272,7 +294,7 @@ def _forward_step(gx0_s, m, inb, c, h, wz, bias, proj, peep, rvec,
     num_units = c.shape[-1]
     cdt = wz.dtype
     z = torch.cat([inb, h], dim=-1)
-    gates = _with_gx0(cells.matmul_f32(z, wz, cdt) + bias[:, None, :], gx0_s)
+    gates = _with_gx0(_layer_matmul(z, wz, cdt) + bias[:, None, :], gx0_s)
     i, j, f, o = gates.split(num_units, dim=-1)
     if peep is not None:
         i = i + peep[:, 0, None, :] * c
@@ -282,7 +304,7 @@ def _forward_step(gx0_s, m, inb, c, h, wz, bias, proj, peep, rvec,
         o = o + peep[:, 2, None, :] * c_new
     out = torch.sigmoid(o) * torch.tanh(c_new)
     if proj is not None:
-        out = cells.matmul_f32(out, proj, cdt)
+        out = _layer_matmul(out, proj, cdt)
     chain = m * out + rvec * inb
     if drop_s is not None:
         chain = chain * drop_s
@@ -386,7 +408,7 @@ def _backward_step(gx0_s, m, z, c_prev, dchain, dc, dh, wz, bias, proj, peep,
     num_units = c_prev.shape[-1]
     out_dim = dchain.shape[-1]
     cdt = wz.dtype
-    gates = _with_gx0(cells.matmul_f32(z, wz, cdt) + bias[:, None, :], gx0_s)
+    gates = _with_gx0(_layer_matmul(z, wz, cdt) + bias[:, None, :], gx0_s)
     i, j, f, o = gates.split(num_units, dim=-1)
     if peep is not None:
         i = i + peep[:, 0, None, :] * c_prev
@@ -400,7 +422,7 @@ def _backward_step(gx0_s, m, z, c_prev, dchain, dc, dh, wz, bias, proj, peep,
     out_blk = so * tc
     # outp feeds h_next (m·outp) and the chain (m·outp)
     dout_p = m * (dchain + dh)
-    dout_blk = dout_p if proj is None else cells.matmul_f32(
+    dout_blk = dout_p if proj is None else _layer_matmul(
         dout_p, proj.transpose(-1, -2), cdt)
     do = dout_blk * tc * so * (1.0 - so)
     dc_new = dout_blk * so * (1.0 - tc * tc) + m * dc
@@ -413,7 +435,7 @@ def _backward_step(gx0_s, m, z, c_prev, dchain, dc, dh, wz, bias, proj, peep,
     if peep is not None:
         dc_prev = dc_prev + df * peep[:, 1, None, :] + di * peep[:, 0, None, :]
     dgates = torch.cat([di, dj, df, do], dim=-1)
-    dz = cells.matmul_f32(dgates, wz.transpose(-1, -2), cdt)
+    dz = _layer_matmul(dgates, wz.transpose(-1, -2), cdt)
     din = rvec * dchain + dz[..., :out_dim]
     dh_prev = (1.0 - m) * dh + dz[..., out_dim:]
     return dgates, dc_prev, dh_prev, din, c_new, out_blk, dout_p
@@ -609,25 +631,30 @@ def _input_rows(wx, cluster: int):
     return rows.permute(0, 3, 2, 4, 1).contiguous()
 
 
-def stack_slices(wz, proj, cluster: int, backward: bool = False) -> Dict:
+def stack_slices(wz, proj, cluster: int, backward: bool = False,
+                 streamed: bool = False) -> Dict:
     """The stack's weights cut per block of a ``cluster``-block cluster (8
-    or 16, as the kernel's plan answers), made once per weight tensor and
-    cluster size (``cells.derived``): ``wh_sl`` as K1's slices; for K12
-    ``wx_rows`` (``_input_rows``) and ``proj_sl`` as K1's slices; for K13
-    (``backward``) ``proj_rows`` as K2's (K13 reads wx from wz itself)."""
+    or 16, as the kernel's plan answers), made once per weight tensor,
+    cluster size and layout (``cells.derived``): ``wh_sl`` as K1's slices
+    (with ``streamed``, each row padded as K1's streamed plan pads it); for
+    K12 ``wx_rows`` (``_input_rows``) and ``proj_sl`` as K1's slices; for
+    K13 (``backward``) ``proj_rows`` as K2's (padded as K2's streamed plan
+    pads them; K13 reads wx from wz itself).  8 blocks own at most 64 units
+    each (512 units), 16 at most 128 (2048)."""
     out_dim = wz.shape[1] // 2
     sources = [t for t in (wz, proj) if t is not None]
 
     def build():
-        wh_sl, proj_sl = _slices(wz[:, out_dim:], proj, cluster,
-                                 block_units=BLOCK_UNITS)
+        wh_sl, proj_sl = _slices(wz[:, out_dim:], proj, cluster, streamed,
+                                 block_units=LAYER_BLOCK_UNITS * cluster // 16)
         if backward:
             return {"wh_sl": wh_sl, "proj_rows": None if proj is None
-                    else _proj_rows(proj, cluster)}
+                    else _proj_rows(proj, cluster, streamed)}
         return {"wx_rows": _input_rows(wz[:, :out_dim], cluster),
                 "wh_sl": wh_sl, "proj_sl": proj_sl}
 
-    return cells.derived(sources, ("stack slices", cluster, backward), build)
+    return cells.derived(sources, ("stack slices", cluster, backward,
+                                   streamed), build)
 
 
 def stack_config(device, steps: int, layers: int, batch: int, units: int,
@@ -640,11 +667,16 @@ def stack_config(device, steps: int, layers: int, batch: int, units: int,
     (row tiles a launch, all L layers of each resident together),
     ``waves``, ``lag`` (the chunk of steps a layer runs ahead of the next),
     ``smem_bytes`` (shared memory a block), ``resident`` (clusters the card
-    holds at once) and ``scratch_floats``, as the launcher chooses them.
-    Raises where the shape has no plan."""
-    return dict(_config(device.index or 0, steps, layers, batch, units,
-                        out_dim, bool(has_proj), dtype == torch.bfloat16,
-                        backward, store_dtype == torch.bfloat16))
+    holds at once), ``streamed`` (the streamed plan or not), a block's
+    weight bytes ``held_bytes`` in shared memory and ``streamed_bytes``
+    read from L2 at every step (float32 reads all its slices), and
+    ``scratch_floats``, as the launcher chooses them.  Raises where the
+    shape has no plan."""
+    how = dict(_config(device.index or 0, steps, layers, batch, units,
+                       out_dim, bool(has_proj), dtype == torch.bfloat16,
+                       backward, store_dtype == torch.bfloat16))
+    how["streamed"] = bool(how["streamed"])
+    return how
 
 
 @functools.lru_cache(maxsize=256)
@@ -653,7 +685,10 @@ def _config(device: int, steps, layers, batch, units, out_dim, has_proj,
     """``stack_config`` once per shape: the launcher's choice depends only
     on these and on the device."""
     lib = _build.library()
-    info = (ctypes.c_longlong * 8)()
+    keys = ("blocks", "rows", "tiles", "per_wave", "waves", "lag",
+            "smem_bytes", "resident", "streamed", "held_bytes",
+            "streamed_bytes")
+    info = (ctypes.c_longlong * len(keys))()
     scratch = ctypes.c_longlong()
     args = [device, steps, layers, batch, units, out_dim, int(has_proj),
             int(bf16)]
@@ -663,9 +698,17 @@ def _config(device: int, steps, layers, batch, units, out_dim, has_proj,
     else:
         err = lib.lstm_stack_fwd_config(*args, info, ctypes.byref(scratch))
     _build.check(err, "lstm_stack_%s_config" % ("bwd" if backward else "fwd"))
-    keys = ("blocks", "rows", "tiles", "per_wave", "waves", "lag",
-            "smem_bytes", "resident")
     return tuple(zip(keys, list(info))) + (("scratch_floats", scratch.value),)
+
+
+def _forced_plan(plan, dtype):
+    """(streamed layout or not, extra launch arguments) of a forced plan
+    (a name of ``lstm_kernels.PLANS`` and R), or (None, []) without one."""
+    if plan is None:
+        return None, []
+    if dtype != torch.bfloat16:
+        raise ValueError("a forced plan is a bf16 launch")
+    return plan[0] != "resident", [PLANS[plan[0]], int(plan[1])]
 
 
 def _held(how: dict, layers: int, what: str) -> None:
@@ -680,10 +723,13 @@ def _held(how: dict, layers: int, what: str) -> None:
 def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
                        residual, forget_bias: float, keep_prob: float = 1.0,
                        seed=None, affine=None, states: bool = False,
-                       store_dtype=torch.float32):
+                       store_dtype=torch.float32, _plan=None):
     """The stack's forward (K12).  Arguments and results as
     ``stack_forward_reference``: (out, cfin, hfin), and with ``states``
-    also (chain, c_all, h_all) in ``store_dtype``."""
+    also (chain, c_all, h_all) in ``store_dtype``.  ``_plan`` = (a name of
+    ``lstm_kernels.PLANS``, R) forces a bf16 launch onto that plan and R,
+    to hold the plans against each other (``csrc/lstm_stack_fwd.cu``
+    ``forced``)."""
     if store_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("store dtype must be float32 or bfloat16, got %s"
                          % store_dtype)
@@ -707,7 +753,10 @@ def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
     how = stack_config(device, steps, layers, batch, units, out_dim,
                        proj is not None, wz.dtype)
     _held(how, layers, "lstm_stack_fwd")
-    sl = stack_slices(wz, proj, how["blocks"])
+    streamed, forced = _forced_plan(_plan, wz.dtype)
+    sl = stack_slices(wz, proj, how["blocks"],
+                      streamed=how["streamed"] if streamed is None
+                      else streamed)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=device, dtype=dtype)
@@ -723,6 +772,8 @@ def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
     scratch = empty(how["scratch_floats"])
     launch = lib.lstm_stack_fwd_bf16 if wz.dtype == torch.bfloat16 \
         else lib.lstm_stack_fwd_f32
+    if forced:
+        launch = lib.lstm_stack_fwd_bf16_forced
     err = launch(device.index or 0, _seed_ptr(seed, keep_prob, device),
                  _ptr(gx0), _ptr(mask), _ptr(sl["wx_rows"]), _ptr(sl["wh_sl"]),
                  _ptr(sl["proj_sl"]), _ptr(bias), _ptr(peep), _ptr(cinit),
@@ -731,7 +782,7 @@ def lstm_stack_forward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
                  batch, units, out_dim, _ptr(out), _ptr(chain), _ptr(c_all),
                  _ptr(h_all), int(store_dtype == torch.bfloat16), _ptr(cfin),
                  _ptr(hfin), _ptr(scratch),
-                 torch.cuda.current_stream(device).cuda_stream)
+                 torch.cuda.current_stream(device).cuda_stream, *forced)
     _build.check(err, "lstm_stack_fwd")
     lstm_stack_forward.launches += 1
     return (out, cfin, hfin) + ((chain, c_all, h_all) if states else ())
@@ -743,9 +794,11 @@ lstm_stack_forward.launches = 0
 def lstm_stack_backward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
                         residual, forget_bias: float, keep_prob, seed, chain,
                         c_all, h_all, dout, dcfin, dhfin,
-                        store_dtype=torch.float32, steps_out: bool = False):
+                        store_dtype=torch.float32, steps_out: bool = False,
+                        _plan=None):
     """The stack's backward (K13).  Arguments and results as
-    ``stack_backward_reference``."""
+    ``stack_backward_reference``; ``_plan`` as ``lstm_stack_forward``'s
+    (``csrc/lstm_stack_bwd.cu`` ``forced``)."""
     if gx0.device.type == "cpu":
         return stack_backward_reference(
             gx0, mask, wz, bias, proj, peep, cinit, hinit, residual,
@@ -778,7 +831,10 @@ def lstm_stack_backward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
                        proj is not None, wz.dtype, backward=True,
                        store_dtype=store_dtype)
     _held(how, layers, "lstm_stack_bwd")
-    sl = stack_slices(wz, proj, how["blocks"], backward=True)
+    streamed, forced = _forced_plan(_plan, wz.dtype)
+    sl = stack_slices(wz, proj, how["blocks"], backward=True,
+                      streamed=how["streamed"] if streamed is None
+                      else streamed)
     dgates = empty(steps, lb, h4, dtype=store_dtype)
     outb = doutp = dproj = None
     if proj is not None:
@@ -797,6 +853,8 @@ def lstm_stack_backward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
     scratch = empty(how["scratch_floats"])
     launch = lib.lstm_stack_bwd_bf16 if wz.dtype == torch.bfloat16 \
         else lib.lstm_stack_bwd_f32
+    if forced:
+        launch = lib.lstm_stack_bwd_bf16_forced
     err = launch(device.index or 0, _seed_ptr(seed, keep_prob, device),
                  _ptr(gx0), _ptr(mask), _ptr(chain), _ptr(c_all),
                  _ptr(h_all), _ptr(cinit), _ptr(hinit), _ptr(wz),
@@ -808,7 +866,7 @@ def lstm_stack_backward(gx0, mask, wz, bias, proj, peep, cinit, hinit,
                  _ptr(outb), _ptr(doutp), _ptr(dcinit), _ptr(dhinit),
                  _ptr(din), _ptr(dc_in), _ptr(dh_in), _ptr(dwz), _ptr(dproj),
                  _ptr(dcols), _ptr(scratch),
-                 torch.cuda.current_stream(device).cuda_stream)
+                 torch.cuda.current_stream(device).cuda_stream, *forced)
     _build.check(err, "lstm_stack_bwd")
     lstm_stack_backward.launches += 1
     dpeep = None if peep is None else dcols[:, h4:].reshape(layers, 3, units)

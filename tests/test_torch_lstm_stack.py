@@ -564,3 +564,104 @@ def test_k12_k13_wide_on_16_blocks(cuda, units, proj):
                           units=320, proj=320, layers=4)
     assert blocks(cuda, flagship)["blocks"] == 8
     assert blocks(cuda, flagship, True)["blocks"] == 8
+
+
+# the streamed plan's widths (bf16 slices that fit no resident plan, 16
+# blocks): Sak, Senior and Beaufays' LSTMP (2048 cells, projection 512: 128
+# units a block), the cudnnlstm family at H = P = 768, 1024 and 2048
+STREAMED = [(2048, 512), (768, None), (1024, None), (2048, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units,proj", STREAMED)
+def test_k12_k13_streamed_plan(cuda, units, proj):
+    """K12 and K13 on the streamed plan: bfloat16 each step replayed from
+    the kernels' own states within 1e-3, K13's weight gradients over its
+    own dgates, two launches bit-equal, the plan streamed on 16 blocks;
+    float32 (its slices read from L2, 128 units a block past 1024) against
+    the plain versions at ratio <= 1e-4 (K13's din product staging fewer
+    rows at H = P = 2048, where 32 rows of P do not fit).  At B = 4, T =
+    32 a chunk's 5
+    steps of 4 rows spill into a second input stage where a stage holds 16
+    rows (P past 512), whose blocks own 128 units: each of a warp's two
+    tiles of gate columns takes its own bias in every stage."""
+    case = stack_case(19, cuda, torch.bfloat16, keep=0.9, init=True, batch=4,
+                      time_steps=32, units=units, proj=proj, layers=4)
+    case.pop("affine")
+    for backward in (False, True):
+        how = blocks(cuda, case, backward)
+        assert how["blocks"] == 16 and how["streamed"]
+        assert how["streamed_bytes"] > 0
+    first = sk.lstm_stack_forward(**case, states=True)
+    again = sk.lstm_stack_forward(**case, states=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    out, cfin, hfin, chain, c_all, h_all = first
+    replay = sk.stack_replay_steps(**case, affine=None, chain=chain,
+                                   c_all=c_all, h_all=h_all)
+    assert max(ratio(g, r) for g, r in zip((chain, c_all, h_all), replay)) \
+        <= 1e-3
+    dout = 0.1 * torch.randn(out.shape, generator=torch.Generator()
+                             .manual_seed(0)).to(cuda)
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all, dout=dout,
+                dcfin=torch.zeros_like(cfin), dhfin=torch.zeros_like(hfin))
+    grads = sk.lstm_stack_backward(**args, steps_out=True)
+    twice = sk.lstm_stack_backward(**args, steps_out=True)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(grads, twice))
+    dc_in, dh_in, din = grads[7:]
+    replay_args = {k: v for k, v in args.items() if k not in ("dcfin",
+                                                             "dhfin")}
+    _, dc_out, dh_out, din_out, wgrads = sk.stack_replay_backward_steps(
+        **replay_args, dc_in=dc_in, dh_in=dh_in, din=din, dgates=grads[0])
+    assert max(ratio(dc_out[1:], dc_in[:-1]), ratio(dh_out[1:], dh_in[:-1]),
+               ratio(din_out[1:], din[1:])) <= 1e-3
+    for got, want in zip(grads[1:5], wgrads):
+        if want is not None:
+            assert ratio(got, want) <= 1e-3
+    if units < 2048:
+        return
+    case = stack_case(20, cuda, torch.float32, keep=0.9, init=True, batch=3,
+                      time_steps=6, units=units, proj=proj, layers=2)
+    case.pop("affine")
+    assert not blocks(cuda, case)["streamed"]
+    got = sk.lstm_stack_forward(**case, states=True)
+    ref = sk.stack_forward_reference(**case)
+    for g, r in zip(got, (ref[0], ref[4], ref[5]) + ref[1:4]):
+        assert ratio(g, r) <= 1e-4
+    out, cfin, hfin, chain, c_all, h_all = got
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all,
+                dout=0.1 * torch.ones_like(out), dcfin=torch.zeros_like(cfin),
+                dhfin=torch.zeros_like(hfin))
+    for g, r in zip(sk.lstm_stack_backward(**args),
+                    sk.stack_backward_reference(**args)):
+        if r is not None:
+            assert ratio(g, r) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 8])
+def test_k12_k13_forced_streamed_plan_equals_resident(cuda, rows):
+    """At Kaldi's LSTMP widths (H = 1024, P = 256, resident on 16 blocks)
+    the streamed plan forced at the same R (with half of wh resident, and
+    with as much as fits) gives the resident plan's bits, forward and
+    backward (K13 at R = 4, the streamed plan's largest)."""
+    case = stack_case(21, cuda, torch.bfloat16, keep=0.9, init=True,
+                      batch=rows, time_steps=12, units=1024, proj=256,
+                      layers=4)
+    case.pop("affine")
+    want = sk.lstm_stack_forward(**case, states=True,
+                                 _plan=("resident", rows))
+    for plan in ("streamed", "streamed, wh held as fits"):
+        got = sk.lstm_stack_forward(**case, states=True, _plan=(plan, rows))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), plan
+    if rows != 4:
+        return
+    out, cfin, hfin, chain, c_all, h_all = want
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all,
+                dout=0.1 * torch.ones_like(out), dcfin=torch.zeros_like(cfin),
+                dhfin=torch.zeros_like(hfin))
+    ref = sk.lstm_stack_backward(**args, _plan=("resident", rows))
+    for plan in ("streamed", "streamed, wh held as fits"):
+        got = sk.lstm_stack_backward(**args, _plan=(plan, rows))
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(got, ref)), plan

@@ -1,0 +1,893 @@
+"""K12's and K13's streamed plans and 128-unit blocks
+(``csrc/lstm_stack_fwd.cu``, ``csrc/lstm_stack_bwd.cu`` with ``kStream``),
+emulated on the CPU.
+
+A bf16 stack whose weight slices fit no resident plan (2048 cells with a
+projection of 512, H = P = 1024 without one) runs 16-block clusters, one
+per (layer, tile of rows), whose blocks own up to 128 units each, keep the
+first rows of their wh slice in shared memory and stream the rest (and
+proj) from L2 at every step through ``lstm_cluster.cuh``'s ring of chunks,
+as K1's and K2's streamed plans do (``test_torch_lstm_streamed.py``).  The
+layers run as the stack kernels' pipeline (``test_torch_lstm_stack_
+pipeline.py``): K12's layer l waits, before a chunk of K steps, until the
+16 blocks of layer l-1 have counted the chains it reads; K13's layer l
+waits, a step ahead, until the blocks of layer l+1 have counted the din it
+reads, and counts its own din at the end of every chunk.
+
+Here all the layers' clusters of a row tile run together, each block as
+two warps with the kernels' ownership rules, under a scheduler that
+interleaves them at every point where a warp could be overtaken and lands
+a pending copy at any of them (random orders, and the lowest-numbered warp
+as far as it can go).  Every slot carries the chunk it holds and every
+read checks it before and after an interleaving point; the hand-off
+buffers (h, the cell output, dh, the inboxes) carry the step of each
+block's slice; what a layer writes for another becomes readable only when
+its block publishes its count.  The chunks are read from the padded
+layouts ``lstm_stack_kernels.stack_slices(..., streamed=True)`` gives, at
+the kernels' element offsets, and the plans' arithmetic (resident rows,
+chunk sizes, slots) is the kernels'.  The results are held to
+``stack_forward_reference`` and ``stack_backward_reference`` at rtol =
+atol = 1e-5 in float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lstm_ctc_tpu_torch.models import cells
+from lstm_ctc_tpu_torch.ops import lstm_stack_kernels as sk
+from test_torch_lstm_streamed import (ORDERS, SMEM, Hazard, Ring, Sched,
+                                      align128, cdiv, greedy_order,
+                                      mma_split, read_tagged, release,
+                                      ring_layout, round_up, wait_chunk)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+C = 16       # the streamed plans' blocks a cluster
+WARPS = 2    # warps a block in the emulation (the kernels run 16)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one intra-op thread: the emulation's many small ops slow
+    down when their thread pool shares busy cores (the suite's workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def k12_plan(units, out_dim, has_proj, rows, cap=-1):
+    """``lstm_cluster.cuh`` plan<bf16>(stream): the streamed plan of K12
+    with 16 blocks and R = ``rows``, and whether it fits."""
+    us = round_up(cdiv(units, C), 8)
+    ps = round_up(cdiv(out_dim, C), 16) if has_proj else us
+    g, own = 4 * us, ps if has_proj else us
+    qs, hs, arow = C * ps + 8, C * us + 8, 16 if rows > 8 else 8
+    p = dict(us=us, ps=ps, g=g, lwa=g + 8, wsteps=cdiv(out_dim, 16),
+             psteps=cdiv(units, 16) if has_proj else 0,
+             per_g=mma_split(g, out_dim)[0], per_p=mma_split(ps, units)[0])
+    part = max(8 * g, 8 * ps if has_proj else 0)
+    off = align128(2 * arow * qs) + (align128(2 * arow * hs) if has_proj
+                                     else 0)
+    off += (align128(4 * rows * us) + align128(4 * rows * own)
+            + align128(2 * rows * max(us, ps)))
+    row_in = 2 * (round_up(out_dim, 16) + 8)
+    p["srows"] = 32 if 32 * row_in <= 65536 else 16
+    off += align128(max(4 * part, p["srows"] * row_in)) + 128
+    wrow, prow = 2 * 16 * p["lwa"], 2 * 16 * ps
+    p["cw"] = max(1, 24576 // wrow)
+    p["cp"] = max(1, 24576 // prow) if has_proj else 0
+    slot = align128(max(p["cw"] * wrow, p["cp"] * prow))
+    p["slots"], p["res"] = ring_layout(off, wrow, p["wsteps"], slot, cap)
+    p["nw"] = cdiv(p["wsteps"] - p["res"], p["cw"])
+    p["np"] = cdiv(p["psteps"], p["cp"]) if has_proj else 0
+    nbytes = off + p["slots"] * slot + p["res"] * wrow
+    p["fits"] = (us <= 128 and rows * us <= 512 and rows <= 8
+                 and p["slots"] >= 2 and nbytes <= SMEM)
+    return p
+
+
+def k13_plan(units, out_dim, has_proj, rows, cap=-1, store=2):
+    """``csrc/lstm_stack_bwd.cu`` stack_plan<bf16, S>(stream): the streamed
+    plan of K13 with 16 blocks and R = ``rows`` (the states in ``store``
+    bytes), and whether it fits."""
+    us = round_up(cdiv(units, C), 8)
+    u16, g = round_up(us, 16), 4 * us
+    ps = round_up(cdiv(out_dim, C), 4)
+    pw, p16 = C * ps, round_up(out_dim, 16)
+    p = dict(us=us, u16=u16, g=g, ps=ps, pw=pw, p16=p16, lwh=g + 8,
+             lpj=p16 + 8, wsteps=p16 // 16, gsteps=g // 16,
+             utiles=u16 // 16 if has_proj else 0)
+    part = max(mma_split(u16, p16)[1] * 8 * u16 if has_proj else 0,
+               rows * pw, 7 * rows * us)
+    off = (2 * align128(2 * 8 * (p16 + 8)) + align128(2 * 8 * (g + 8))
+           + 3 * align128(4 * rows * pw) + align128(store * rows * out_dim)
+           + align128(store * rows * us) + align128(4 * rows * 4 * us)
+           + align128(4 * 2 * rows) + align128(4 * rows * us)
+           + align128(4 * C * rows * ps) + align128(4 * rows * g)
+           + align128(4 * part) + 128)
+    wrow, urow = 2 * 16 * p["lwh"], 2 * 16 * p["lpj"]
+    p["cw"] = max(1, 24576 // wrow)
+    p["cu"] = max(1, 24576 // urow) if has_proj else 0
+    slot = align128(max(p["cw"] * wrow, p["cu"] * urow))
+    p["slots"], p["res"] = ring_layout(off, wrow, p["wsteps"], slot, cap)
+    p["nw"] = cdiv(p["wsteps"] - p["res"], p["cw"])
+    p["np"] = cdiv(p["utiles"], p["cu"]) if has_proj else 0
+    nbytes = off + p["slots"] * slot + p["res"] * wrow
+    p["fits"] = (us <= 128 and rows * us <= 512 and p["slots"] >= 2
+                 and nbytes <= SMEM)
+    return p
+
+
+def largest_rows(plan_fn, *shape):
+    """A streamed launcher's R with one row tile (the emulation's): K12's
+    of {4, 8}, K13's of {4, 2}, the first that fits."""
+    for rows in (4, 8) if plan_fn is k12_plan else (4, 2):
+        if plan_fn(*shape, rows)["fits"]:
+            return rows
+    raise AssertionError("no streamed plan")
+
+
+class Count:
+    """A layer's 16 step counters, as a wait sees them: done once every
+    block has counted ``want``."""
+
+    def __init__(self):
+        self.v = [0] * C
+
+    def done(self, want):
+        return min(self.v) >= want
+
+
+def layer_group(tag, key):
+    """The stack's sync groups: a block ((layer, q)), a layer's cluster
+    (("layer", l)), or every warp ("cluster")."""
+    return key == "cluster" or tag == key or (
+        key[0] == "layer" and tag[0] == key[1])
+
+
+def stream_product(ring, chunk, n_chunks, chunk_rows, a, cols, init, w,
+                   block, issue, wres=None, refill_after_barrier=True):
+    """This warp's columns of init + a · w over the streamed depth: the
+    resident rows ``wres`` first, then ``n_chunks`` chunks of the ring
+    (each waited for, read around an interleaving point, released)."""
+    acc = init.clone()
+    k = 0
+    if wres is not None and wres.shape[0]:
+        k = wres.shape[0]
+        acc += a[:, :k] @ wres[:, cols]
+    for _ in range(n_chunks):
+        nrows = chunk_rows(chunk[0])[1]
+        yield wait_chunk(ring, chunk[0])
+        ring.read(chunk[0], nrows)
+        yield ("run",)
+        part = ring.read(chunk[0], nrows)
+        k1 = min(a.shape[1], k + nrows)
+        acc += a[:, k:k1] @ part[:k1 - k, cols]
+        k += nrows
+        yield from release(ring, chunk[0], w, block, issue,
+                           refill_after_barrier)
+        chunk[0] += 1
+    return acc
+
+
+def tile_cols(w, cols):
+    """This warp's 16-column tiles of ``cols`` columns (warp w: w, w + 2,
+    ..), as column indices."""
+    return torch.tensor([c for t in range(w, cols // 16, WARPS)
+                         for c in range(16 * t, 16 * t + 16)],
+                        dtype=torch.long)
+
+
+def lag_fwd(steps):
+    return min(8, max(2, cdiv(steps, 8)))
+
+
+def lag_bwd(steps):
+    return min(8, max(2, cdiv(steps, 16)))
+
+
+def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
+                 count=None):
+    """K12 on the streamed plan in plain torch (float32): (out, chain,
+    c_all, h_all, cfin, hfin) as ``stack_forward_reference`` returns
+    them."""
+    gx0, mask, wz, proj = case["gx0"], case["mask"], case["wz"], case["proj"]
+    bias, peep = case["bias"], case["peep"]
+    steps, layers, batch, units, out_dim = sk._dims(gx0, wz)
+    has_proj = proj is not None
+    rows = largest_rows(k12_plan, units, out_dim, has_proj)
+    pl = k12_plan(units, out_dim, has_proj, rows, cap)
+    us, ps, g, lwa = pl["us"], pl["ps"], pl["g"], pl["lwa"]
+    p16, h16 = 16 * pl["wsteps"], round_up(units, 16)
+    lag = lag or lag_fwd(steps)
+    sl = sk.stack_slices(wz, proj, C, streamed=True)
+    assert sl["wh_sl"].shape == (layers, C, p16, lwa)
+    wh_flat = sl["wh_sl"].reshape(-1)
+    pj_flat = sl["proj_sl"].reshape(-1) if has_proj else None
+    wx_rows = sl["wx_rows"]                   # [L, C, 4, US, P16]
+    drop = sk._drop_mask(case["seed"], case["keep_prob"], steps, layers,
+                         batch, out_dim, "cpu")
+    lb = layers * batch
+    chain = torch.zeros(steps, lb, out_dim)
+    c_all = torch.zeros(steps, lb, units)
+    h_all = torch.zeros(steps, lb, out_dim)
+    cfin, hfin = torch.zeros(lb, units), torch.zeros(lb, out_dim)
+    per_step = pl["nw"] + pl["np"]
+    total = steps * per_step
+
+    def chunk_rows(l, q, n):
+        """chunk n of block q's sequence at the kernel's offsets of the
+        padded layouts: (first row, rows, the chunk)."""
+        i = n % per_step
+        if i < pl["nw"]:
+            r0 = 16 * (pl["res"] + i * pl["cw"])
+            nrows = min(16 * pl["cw"], p16 - r0)
+            at = ((l * C + q) * p16 + r0) * lwa
+            return r0, nrows, wh_flat[at:at + nrows * lwa].view(nrows, lwa)
+        r0 = 16 * (i - pl["nw"]) * pl["cp"]
+        nrows = min(16 * pl["cp"], h16 - r0)
+        at = ((l * C + q) * h16 + r0) * ps
+        return r0, nrows, pj_flat[at:at + nrows * ps].view(nrows, ps)
+
+    class Block:
+        def __init__(self):
+            self.hq = torch.zeros(8, C * ps)
+            self.hq_tag = [-1] * C
+            self.cell = torch.zeros(8, C * us)
+            self.cell_tag = [-1] * C
+            self.ring = Ring(pl["slots"])
+            self.part = torch.zeros(8, max(g, ps))
+            self.c = self.h = self.gring = None
+
+    def program(sched, blocks, written, visible, counts, b0, l, q, w):
+        nr = min(rows, batch - b0)
+        me = blocks[l][q]
+        br = torch.arange(b0, b0 + nr)
+        lr = l * batch + br
+        u0, p0 = q * us, q * ps
+        nu = max(0, min(us, units - u0))
+        np_ = max(0, min(ps, out_dim - p0))
+        own0, own = (p0, np_) if has_proj else (u0, nu)
+        m_all = mask.view(steps, layers, batch)
+        res = l > 0 and case["residual"][l]
+        wres = wh_flat[(l * C + q) * p16 * lwa:][:16 * pl["res"] * lwa]
+        wres = wres.view(-1, lwa)
+        gcols, pcols = tile_cols(w, g), tile_cols(w, ps)
+        block, layer = (l, q), ("layer", l)
+
+        def issue(n):
+            if n < total:
+                sched.issue(me.ring, n, chunk_rows(l, q, n)[2].clone())
+
+        def finish(v, s, cols):
+            if drop is not None:
+                v = v * drop[s, l, br][:, cols]
+            if case["affine"] is not None:
+                v = v * case["affine"][0][l, cols] + case["affine"][1][l, cols]
+            return v
+
+        def emit(o, s, col0, nc):
+            """masking, the chain (residual, dropout, affine), the state
+            streams of this block's nc columns from col0; the new h
+            slice"""
+            m = m_all[s, l, br][:, None]
+            hv = m * o + (1.0 - m) * me.h
+            me.h = hv
+            v = torch.arange(col0, col0 + nc)
+            ch = (m * o)[:, :nc]
+            if res and s > 0:
+                ch = ch + visible[l - 1][s - 1][br][:, v]
+            ch = finish(ch, s, v)
+            written[l][s][br[:, None], v[None, :]] = ch
+            chain[s, lr[:, None], v[None, :]] = ch
+            h_all[s, lr[:, None], v[None, :]] = hv[:, :nc]
+            return hv
+
+        def share(buf, tags, col0, width, value, s):
+            for peer in blocks[l]:
+                getattr(peer, buf)[:nr, col0:col0 + width] = value
+                getattr(peer, tags)[q] = s
+
+        if w == 0:
+            me.c = torch.zeros(nr, us)
+            me.c[:, :nu] = case["cinit"][lr][:, u0:u0 + nu]
+            me.h = torch.zeros(nr, ps if has_proj else us)
+            me.h[:, :own] = case["hinit"][lr][:, own0:own0 + own]
+            me.hq[:nr, :out_dim] = case["hinit"][lr]
+        yield ("sync", layer)
+        if w == 0:
+            for n in range(pl["slots"]):
+                issue(n)
+        chunk = [0]
+        for s0 in range(0, steps, lag):
+            s1 = min(steps, s0 + lag)
+            if l > 0:
+                yield ("wait", counts[l - 1], s1 - 1)
+                yield ("sync", block)
+                if w == 0:
+                    # the chunk's input product, from the published chains
+                    inp = torch.stack([visible[l - 1][s - 1][br] if s > 0
+                                       else torch.zeros(nr, out_dim)
+                                       for s in range(s0, s1)])
+                    rows_q = wx_rows[l, q].reshape(g, -1)[:, :out_dim]
+                    bq = torch.zeros(4, us)
+                    bq[:, :nu] = bias[l].view(4, units)[:, u0:u0 + nu]
+                    me.gring = inp @ rows_q.t() + bq.reshape(g)
+                yield ("sync", block)
+            for s in range(s0, s1):
+                h_prev = read_tagged(me.hq, me.hq_tag, s - 1 if s else -1,
+                                     nr)[:, :out_dim]
+                h_pad = torch.zeros(nr, p16)
+                h_pad[:, :out_dim] = h_prev
+                if l == 0:
+                    gxs = torch.zeros(nr, 4, us)
+                    gxs[:, :, :nu] = gx0[s, br].view(nr, 4, units)[
+                        :, :, u0:u0 + nu]
+                    gxs = gxs.reshape(nr, g)
+                else:
+                    gxs = me.gring[s - s0]
+                acc = yield from stream_product(
+                    me.ring, chunk, pl["nw"],
+                    lambda n: chunk_rows(l, q, n), h_pad, gcols,
+                    gxs[:, gcols], w, block, issue, wres,
+                    refill_after_barrier)
+                # hq is read through the whole pass
+                read_tagged(me.hq, me.hq_tag, s - 1 if s else -1, nr)
+                me.part[:nr, gcols] = acc
+                yield ("sync", block)
+                if not has_proj:
+                    yield ("sync", layer)
+                if w == 0:
+                    gi, gj, gf, go = me.part[:nr, :g].view(nr, 4, us).unbind(1)
+                    pi, pf, po = torch.zeros(3, us)
+                    if peep is not None:
+                        pi[:nu], pf[:nu], po[:nu] = peep[l, :, u0:u0 + nu]
+                    cp = me.c
+                    cn = (torch.sigmoid(gf + pf * cp + case["forget_bias"])
+                          * cp + torch.sigmoid(gi + pi * cp) * torch.tanh(gj))
+                    o = torch.sigmoid(go + po * cn) * torch.tanh(cn)
+                    m = m_all[s, l, br][:, None]
+                    me.c = m * cn + (1.0 - m) * cp
+                    c_all[s, lr, u0:u0 + nu] = me.c[:, :nu]
+                    if has_proj:
+                        share("cell", "cell_tag", u0, us, o, s)
+                    else:
+                        hv = emit(o, s, u0, nu)
+                        share("hq", "hq_tag", u0, us, hv, s)
+                yield ("sync", layer)
+                if not has_proj:
+                    continue
+                cell = read_tagged(me.cell, me.cell_tag, s, nr)[:, :units]
+                c_pad = torch.zeros(nr, h16)
+                c_pad[:, :units] = cell
+                acc = yield from stream_product(
+                    me.ring, chunk, pl["np"],
+                    lambda n: chunk_rows(l, q, n), c_pad, pcols,
+                    torch.zeros(nr, len(pcols)), w, block, issue,
+                    refill_after_barrier=refill_after_barrier)
+                read_tagged(me.cell, me.cell_tag, s, nr)
+                me.part[:nr, pcols] = acc
+                yield ("sync", block)
+                if w == 0:
+                    hv = emit(me.part[:nr, :ps], s, p0, np_)
+                    share("hq", "hq_tag", p0, ps, hv, s)
+                yield ("sync", layer)
+            if l + 1 < layers:
+                # publish: the chunk's chains of this block's columns
+                yield ("sync", block)
+                if w == 0:
+                    cols = torch.arange(own0, own0 + own)
+                    for s in range(s0, s1):
+                        visible[l][s][br[:, None], cols[None, :]] = \
+                            written[l][s][br[:, None], cols[None, :]]
+                    counts[l].v[q] = s1
+        if w == 0:
+            cfin[lr, u0:u0 + nu] = me.c[:, :nu]
+            hfin[lr, own0:own0 + own] = me.h[:, :own]
+
+    out = torch.zeros(steps, batch, out_dim)
+    for b0 in range(0, batch, rows):
+        sched = Sched(order, layer_group)
+        blocks = [[Block() for _ in range(C)] for _ in range(layers)]
+        written = [torch.zeros(steps, batch, out_dim) for _ in range(layers)]
+        visible = [torch.zeros(steps, batch, out_dim) for _ in range(layers)]
+        counts = [(count or Count)() for _ in range(layers)]
+        sched.run([((l, q), program(sched, blocks, written, visible, counts,
+                                    b0, l, q, w))
+                   for l in range(layers) for q in range(C)
+                   for w in range(WARPS)])
+        out[:, b0:b0 + rows] = written[-1][:, b0:b0 + rows]
+    return out, chain, c_all, h_all, cfin, hfin
+
+
+def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
+                 refill_after_barrier=True, lag=None):
+    """K13 on the streamed plan in plain torch (float32): (dgates, dbias,
+    dpeep, dcinit, dhinit, dc_in, dh_in, din) as
+    ``stack_backward_reference`` gives them."""
+    gx0, mask, wz, proj = case["gx0"], case["mask"], case["wz"], case["proj"]
+    bias, peep = case["bias"], case["peep"]
+    _, chain, c_all, h_all, _, _ = fwd
+    steps, layers, batch, units, out_dim = sk._dims(gx0, wz)
+    has_proj = proj is not None
+    rows = largest_rows(k13_plan, units, out_dim, has_proj)
+    pl = k13_plan(units, out_dim, has_proj, rows, cap)
+    us, u16, g, ps, pw, p16 = (pl[k] for k in ("us", "u16", "g", "ps", "pw",
+                                               "p16"))
+    lwh, lpj = pl["lwh"], pl["lpj"]
+    lag = lag or lag_bwd(steps)
+    sl = sk.stack_slices(wz, proj, C, backward=True, streamed=True)
+    assert sl["wh_sl"].shape == (layers, C, p16, lwh)
+    wh_flat = sl["wh_sl"].reshape(-1)
+    if has_proj:
+        assert sl["proj_rows"].shape == (layers, C, u16, lpj)
+        pj_flat = sl["proj_rows"].reshape(-1)
+    drop = sk._drop_mask(case["seed"], case["keep_prob"], steps, layers,
+                         batch, out_dim, "cpu")
+    lb, h4 = layers * batch, 4 * units
+    # the gate inputs of layers l >= 1 before the recurrence (gxl), from
+    # the stored chains
+    in_prev = sk._inputs_before(chain, layers)          # [S, L, B, P]
+    gxl = in_prev @ wz[:, :out_dim]                      # [S, L, B, 4H]
+    dgates = torch.zeros(steps, lb, h4)
+    dc_in, dh_in = torch.zeros(steps, lb, units), torch.zeros(steps, lb,
+                                                             out_dim)
+    din = torch.zeros(layers, steps, batch, out_dim)
+    dcinit, dhinit = torch.zeros(lb, units), torch.zeros(lb, out_dim)
+    sums = torch.zeros(layers, 7, units)
+    per_step = pl["np"] + pl["nw"]
+    total = pl["nw"] + steps * per_step
+
+    def chunk_rows(l, q, n):
+        i = pl["np"] + n if n < pl["nw"] else (n - pl["nw"]) % per_step
+        if i < pl["np"]:
+            r0 = 16 * i * pl["cu"]
+            nrows = min(16 * pl["cu"], u16 - r0)
+            at = ((l * C + q) * u16 + r0) * lpj
+            return r0, nrows, pj_flat[at:at + nrows * lpj].view(nrows, lpj)
+        r0 = 16 * (pl["res"] + (i - pl["np"]) * pl["cw"])
+        nrows = min(16 * pl["cw"], p16 - r0)
+        at = ((l * C + q) * p16 + r0) * lwh
+        return r0, nrows, wh_flat[at:at + nrows * lwh].view(nrows, lwh)
+
+    class Block:
+        def __init__(self, nr):
+            self.ring = Ring(pl["slots"])
+            self.dh = torch.zeros(nr, pw)
+            self.dh_tag = [-1] * C
+            self.inbox = torch.zeros(C, nr, ps)
+            self.inbox_tag = [-1] * C
+            self.gsum = torch.zeros(nr, g)
+            self.part_h = torch.zeros(nr, p16)
+            self.part_d = torch.zeros(nr, u16)
+            self.gq = None
+            self.dc = None
+            self.staged = None
+            self.sums = torch.zeros(7, us)
+
+    def program(sched, blocks, written, visible, counts, b0, l, q, w):
+        nr = min(rows, batch - b0)
+        me = blocks[l][q]
+        br = torch.arange(b0, b0 + nr)
+        lr = l * batch + br
+        u0, p0 = q * us, q * ps
+        nu = max(0, min(us, units - u0))
+        npq = max(0, min(ps, out_dim - p0))
+        last = l == layers - 1
+        res = l > 0 and case["residual"][l]
+        m_all = mask.view(steps, layers, batch)
+        wres = wh_flat[(l * C + q) * p16 * lwh:][:16 * pl["res"] * lwh]
+        wres = wres.view(-1, lwh)
+        gcols = tile_cols(w, g)
+        block, layer = (l, q), ("layer", l)
+        bq = torch.zeros(4, us)
+        bq[:, :nu] = bias[l].view(4, units)[:, u0:u0 + nu]
+
+        def issue(n):
+            if n < total:
+                sched.issue(me.ring, n, chunk_rows(l, q, n)[2].clone())
+
+        def fetch(tt):
+            """What step tt reads that no carry feeds, once the layer above
+            has counted its din at tt + 1 (the kernel's cp.async a step
+            ahead): dchain, h_prev, c_prev, the gate inputs + bias."""
+            if not last and tt + 1 < steps:
+                yield ("wait", counts[l + 1], steps - 1 - tt)
+            if last:
+                dch = dout[tt, br]
+            elif tt + 1 < steps:
+                dch = visible[l + 1][tt + 1][br].clone()
+            else:
+                dch = torch.zeros(nr, out_dim)
+            hp = torch.zeros(nr, p16)
+            cp = torch.zeros(nr, us)
+            if tt > 0:
+                hp[:, :out_dim] = h_all[tt - 1, lr]
+                cp[:, :nu] = c_all[tt - 1, lr][:, u0:u0 + nu]
+            else:
+                hp[:, :out_dim] = case["hinit"][lr]
+                cp[:, :nu] = case["cinit"][lr][:, u0:u0 + nu]
+            gxt = torch.zeros(nr, 4, us)
+            src = gx0[tt, br] if l == 0 else gxl[tt, l, br]
+            gxt[:, :, :nu] = src.view(nr, 4, units)[:, :, u0:u0 + nu]
+            return dict(dch=dch, hp=hp, cp=cp,
+                        gx=gxt.reshape(nr, g) + bq.reshape(g))
+
+        def wh_pass(chunk, dh_on, st):
+            """4: dh's partial from me.gq (by rows p, tile j by warp
+            1 - j % 2), and with ``st`` (the step before's staged loads)
+            the gate sums, this warp's columns, into me.gsum."""
+            acc = st["gx"][:, gcols].clone() if st is not None else None
+
+            def rows_at(wrows, r0, nrows):
+                if acc is not None:
+                    acc.add_(st["hp"][:, r0:r0 + nrows] @ wrows[:nrows, gcols])
+                if dh_on:
+                    for j in range(r0 // 16, (r0 + nrows) // 16):
+                        if w == WARPS - 1 - j % WARPS:
+                            blk = wrows[16 * j - r0:16 * j - r0 + 16, :g]
+                            me.part_h[:, 16 * j:16 * j + 16] = me.gq @ blk.t()
+
+            rows_at(wres, 0, 16 * pl["res"])
+            for _ in range(pl["nw"]):
+                r0, nrows, _ = chunk_rows(l, q, chunk[0])
+                yield wait_chunk(me.ring, chunk[0])
+                me.ring.read(chunk[0], nrows)
+                yield ("run",)
+                rows_at(me.ring.read(chunk[0], nrows), r0, nrows)
+                yield from release(me.ring, chunk[0], w, block, issue,
+                                   refill_after_barrier)
+                chunk[0] += 1
+            if acc is not None:
+                me.gsum[:, gcols] = acc
+            yield ("sync", block)
+
+        if w == 0:
+            me.dh[:, :out_dim] = dhfin[lr]
+            me.dc = torch.zeros(nr, us)
+            me.dc[:, :nu] = dcfin[lr][:, u0:u0 + nu]
+        yield ("sync", layer)
+        if w == 0:
+            for n in range(pl["slots"]):
+                issue(n)
+        chunk = [0]
+        staged = yield from fetch(steps - 1)
+        yield ("sync", block)
+        yield from wh_pass(chunk, False, staged)
+        for t in range(steps - 1, -1, -1):
+            cur = staged
+            m = m_all[t, l, br][:, None]
+            done = steps - t
+            chunk_end = l > 0 and (done % lag == 0 or t == 0)
+            if t > 0:
+                staged = yield from fetch(t - 1)
+            dh = read_tagged(me.dh, me.dh_tag,
+                             -1 if t == steps - 1 else t + 1, nr)
+            dch = cur["dch"]
+            if drop is not None:
+                dch = dch * drop[t, l, br]
+            if w == 0:
+                cols = torch.arange(p0, p0 + npq)
+                dh_in[t, lr[:, None], cols[None, :]] = dh[:, p0:p0 + npq]
+                if l > 0:
+                    written[l][t][br[:, None], cols[None, :]] = (
+                        dch[:, p0:p0 + npq] if res else 0.0)
+            dq = torch.zeros(nr, p16)
+            dq[:, :out_dim] = m * (dch + dh[:, :out_dim])
+            yield ("sync", block)
+            # 2. dout_blk over proj's chunks of rows, this warp's tiles
+            for _ in range(pl["np"]):
+                r0, nrows, _ = chunk_rows(l, q, chunk[0])
+                yield wait_chunk(me.ring, chunk[0])
+                me.ring.read(chunk[0], nrows)
+                yield ("run",)
+                rows_c = me.ring.read(chunk[0], nrows)
+                for j in range(w, nrows // 16, WARPS):
+                    me.part_d[:, r0 + 16 * j:r0 + 16 * j + 16] = (
+                        dq @ rows_c[16 * j:16 * j + 16, :p16].t())
+                yield from release(me.ring, chunk[0], w, block, issue,
+                                   refill_after_barrier)
+                chunk[0] += 1
+            # 3. the cell backward (warp 0)
+            if w == 0:
+                c0 = cur["cp"]
+                gi, gj, gf, go = me.gsum.view(nr, 4, us).unbind(1)
+                pi, pf, po = torch.zeros(3, us)
+                if peep is not None:
+                    pi[:nu], pf[:nu], po[:nu] = peep[l, :, u0:u0 + nu]
+                si, tj = torch.sigmoid(gi + pi * c0), torch.tanh(gj)
+                sf = torch.sigmoid(gf + pf * c0 + case["forget_bias"])
+                cn = sf * c0 + si * tj
+                so, tc = torch.sigmoid(go + po * cn), torch.tanh(cn)
+                if has_proj:
+                    db = me.part_d[:, :us]
+                else:
+                    db = torch.zeros(nr, us)
+                    db[:, :nu] = (m * (dch + dh[:, :out_dim]))[:, u0:u0 + nu]
+                dcv = me.dc
+                dc_in[t, lr, u0:u0 + nu] = dcv[:, :nu]
+                d_o = db * tc * so * (1 - so)
+                dcn = db * so * (1 - tc * tc) + m * dcv + d_o * po
+                d_f = dcn * c0 * sf * (1 - sf)
+                d_i = dcn * tj * si * (1 - si)
+                d_j = dcn * si * (1 - tj * tj)
+                me.dc = dcn * sf + (1 - m) * dcv + d_f * pf + d_i * pi
+                dg = torch.stack([d_i, d_j, d_f, d_o], 1)   # [nr, 4, US]
+                dg[:, :, nu:] = 0.0
+                for k in range(4):
+                    at = k * units + u0
+                    dgates[t, lr, at:at + nu] = dg[:, k, :nu]
+                me.sums[:4] += dg.sum(0)
+                me.sums[4] += (d_i * c0).sum(0)
+                me.sums[5] += (d_f * c0).sum(0)
+                me.sums[6] += (d_o * cn).sum(0)
+                me.gq = dg.reshape(nr, g)
+            yield ("sync", block)
+            # 3b, 4: the step before's staged loads, the pass over wh
+            yield from wh_pass(chunk, True, staged if t > 0 else None)
+            # 5a. reduce-scatter into the owners' inboxes (warp 0)
+            if w == 0:
+                padded = torch.nn.functional.pad(me.part_h, (0, pw - p16))
+                for owner in range(C):
+                    peer = blocks[l][owner]
+                    peer.inbox[q] = padded[:, owner * ps:(owner + 1) * ps]
+                    peer.inbox_tag[q] = t
+            yield ("sync", layer)
+            # 5b. the partials in block order, the new slice to every block
+            if w == 0:
+                s = read_tagged(me.inbox[0], [me.inbox_tag[0]], t, nr)
+                for b in range(1, C):
+                    s = s + read_tagged(me.inbox[b], [me.inbox_tag[b]], t,
+                                        nr)
+                cols = torch.arange(p0, p0 + ps)
+                new = (1 - m) * dh[:, p0:p0 + ps] + s
+                new[:, cols >= out_dim] = 0.0
+                for peer in blocks[l]:
+                    peer.dh[:, p0:p0 + ps] = new
+                    peer.dh_tag[q] = t
+            yield ("sync", layer)
+            # 6. a chunk's din, counted for the layer below
+            if chunk_end:
+                cnt = done - (done - 1) // lag * lag
+                if w == 0:
+                    wx = wz[l, :out_dim]                     # [P, 4H]
+                    cols = torch.arange(p0, p0 + npq)
+                    for s in range(t, t + cnt):
+                        dgl = dgates[s, lr]
+                        written[l][s][br[:, None], cols[None, :]] += (
+                            dgl @ wx[p0:p0 + npq].t())
+                        visible[l][s][br[:, None], cols[None, :]] = \
+                            written[l][s][br[:, None], cols[None, :]]
+                yield ("sync", block)
+                if w == 0:
+                    counts[l].v[q] = done
+        if w == 0:
+            dcinit[lr, u0:u0 + nu] = me.dc[:, :nu]
+            dh = read_tagged(me.dh, me.dh_tag, 0, nr)
+            dhinit[lr, p0:p0 + npq] = dh[:, p0:p0 + npq]
+            sums[l, :, u0:u0 + nu] += me.sums[:, :nu]
+
+    for b0 in range(0, batch, rows):
+        sched = Sched(order, layer_group)
+        nr = min(rows, batch - b0)
+        blocks = [[Block(nr) for _ in range(C)] for _ in range(layers)]
+        written = [torch.zeros(steps, batch, out_dim) for _ in range(layers)]
+        visible = [torch.zeros(steps, batch, out_dim) for _ in range(layers)]
+        counts = [Count() for _ in range(layers)]
+        sched.run([((l, q), program(sched, blocks, written, visible, counts,
+                                    b0, l, q, w))
+                   for l in range(layers) for q in range(C)
+                   for w in range(WARPS)])
+        for l in range(1, layers):
+            din[l, :, b0:b0 + nr] = written[l][:, b0:b0 + nr]
+    dbias = sums[:, :4].reshape(layers, h4)
+    dpeep = sums[:, 4:] if peep is not None else None
+    return dgates, dbias, dpeep, dcinit, dhinit, dc_in, dh_in, din
+
+
+def make_case(seed, units, proj, batch=2, time_steps=3, layers=2, keep=0.9,
+              affine=False):
+    """A stack's K12 arguments from a numpy seed (the lstm family with a
+    projection: peepholes, layer 1 residual; the cudnnlstm family without:
+    neither), float32, ragged lengths, carried initial states."""
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
+    dim = 12
+    params, d = [], dim
+    for _ in range(layers):
+        params.append(cells.init_lstm_cell(gen, d, units, proj,
+                                           proj is not None))
+        d = proj or units
+    for p in params:
+        p["bias"] = torch.from_numpy(
+            (0.1 * rng.randn(4 * units)).astype(np.float32))
+    x = torch.from_numpy(rng.randn(batch, time_steps, dim).astype(np.float32))
+    lengths = np.array([time_steps, max(1, time_steps - 1)][:batch])
+    seq = torch.from_numpy(lengths.astype(np.int32))
+    wz, bias, pw, peep = sk.stack_weights(params, torch.float32)
+    gx = x @ params[0]["wx"] + params[0]["bias"]
+    gx0 = torch.nn.functional.pad(gx.transpose(0, 1),
+                                  (0, 0, 0, 0, 0, layers - 1)).contiguous()
+    out_dim, lb = proj or units, layers * batch
+    aff = None
+    if affine:
+        aff = (torch.from_numpy((0.5 + rng.rand(layers, out_dim)).astype(
+            np.float32)), torch.from_numpy((0.2 * rng.randn(
+                layers, out_dim)).astype(np.float32)))
+    return dict(
+        gx0=gx0, mask=sk.stack_mask(seq, time_steps, layers, "cpu"), wz=wz,
+        bias=bias, proj=pw, peep=peep,
+        cinit=torch.from_numpy((0.1 * rng.randn(lb, units)).astype(
+            np.float32)),
+        hinit=torch.from_numpy((0.1 * rng.randn(lb, out_dim)).astype(
+            np.float32)),
+        residual=(False,) + (proj is not None,) * (layers - 1),
+        forget_bias=1.0, keep_prob=keep if proj is not None else 1.0,
+        seed=torch.tensor([-1234567], dtype=torch.int32), affine=aff)
+
+
+# Sak, Senior and Beaufays' LSTMP (2048 cells, projection 512: 128 units a
+# block); the cudnnlstm family at H = P = 1024 (64 a block)
+SHAPES = [(2048, 512), (1024, None)]
+SHAPE_IDS = ["2048x512", "1024-noproj"]
+
+
+def close(got, want, names):
+    for name, g, r in zip(names, got, want):
+        if r is None:
+            assert g is None, name
+            continue
+        np.testing.assert_allclose(g.numpy(), r.float().numpy(),
+                                   err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("order", [o for _, o in ORDERS],
+                         ids=[n for n, _ in ORDERS])
+@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
+def test_stack_streamed_forward_matches_plain(units, proj, order):
+    case = make_case(1, units, proj, affine=proj is None)
+    got = k12_streamed(case, order, lag=2)
+    ref = sk.stack_forward_reference(**case)
+    close(got, ref, ("out", "chain", "c_all", "h_all", "cfin", "hfin"))
+
+
+@pytest.mark.parametrize("order", [o for _, o in ORDERS],
+                         ids=[n for n, _ in ORDERS])
+@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
+def test_stack_streamed_backward_matches_plain(units, proj, order):
+    case = make_case(2, units, proj)
+    fwd = sk.stack_forward_reference(**case)
+    rng = np.random.RandomState(7)
+    out, _, _, _, cfin, hfin = fwd
+    dout = torch.from_numpy((0.1 * rng.randn(*out.shape)).astype(np.float32))
+    dcfin = torch.from_numpy(rng.randn(*cfin.shape).astype(np.float32))
+    dhfin = torch.from_numpy(rng.randn(*hfin.shape).astype(np.float32))
+    _, chain, c_all, h_all, _, _ = fwd
+    ref = sk.stack_backward_reference(
+        **{k: v for k, v in case.items() if k != "affine"}, chain=chain,
+        c_all=c_all, h_all=h_all, dout=dout, dcfin=dcfin, dhfin=dhfin,
+        steps_out=True)
+    got = k13_streamed(case, fwd, dout, dcfin, dhfin, order, lag=2)
+    dgates, _, dbias, _, dpeep, dcinit, dhinit, dc_in, dh_in, din = ref
+    close(got, (dgates, dbias, dpeep, dcinit, dhinit, dc_in, dh_in, din),
+          ("dgates", "dbias", "dpeep", "dcinit", "dhinit", "dc_in", "dh_in",
+           "din"))
+
+
+HELD = {(2048, 512): (49152, 65536), (1024, None): (106496, 24576),
+        (2048, None): (49152, 0)}
+
+
+@pytest.mark.parametrize("units,proj", SHAPES + [(2048, None)],
+                         ids=SHAPE_IDS + ["2048-noproj"])
+def test_stack_streamed_plans_stream_and_fill_the_ring(units, proj):
+    """The plans the emulation runs are the kernels': K12 takes R = 4 at
+    128 units a block and 8 at 64, K13 at most that (R = 2 at H = P =
+    2048); two to four slots, wh's first rows in the rest of shared
+    memory, chunks to stream every step; K12's input stage is 16 rows
+    where 32 would pass 64 KB; capped at half of wh's steps (the forced
+    plan) the ring streams the rest."""
+    out_dim, has_proj = proj or units, proj is not None
+    rows_f = largest_rows(k12_plan, units, out_dim, has_proj)
+    rows_b = largest_rows(k13_plan, units, out_dim, has_proj)
+    assert rows_f == 4
+    assert k12_plan(units, out_dim, has_proj, 8)["fits"] is (units <= 1024)
+    assert rows_b == (2 if out_dim == 2048 else 4)
+    assert k12_plan(units, out_dim, has_proj, 4)["srows"] == (
+        16 if out_dim >= 1024 else 32)
+    for plan, rows in ((k12_plan, rows_f), (k13_plan, rows_b)):
+        pl = plan(units, out_dim, has_proj, rows)
+        assert 2 <= pl["slots"] <= 4
+        assert pl["res"] < pl["wsteps"] and pl["nw"] > 0
+        # wh's bytes a block holds, as stack_config reported them on an
+        # H100 (K12 R = 4; K13 R = 4, at H = P = 2048 R = 2)
+        assert pl["res"] * 16 * pl["g"] * 2 == HELD[(units, proj)][
+            plan is k13_plan]
+        half = plan(units, out_dim, has_proj, rows, pl["wsteps"] // 2)
+        assert half["res"] == min(pl["res"], pl["wsteps"] // 2)
+        assert half["nw"] >= pl["nw"]
+
+
+@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
+def test_stack_padded_slices_read_back_at_the_kernel_offsets(units, proj):
+    """128 (or 64) units a block: row r of layer l's block q's wh slice
+    lies at element ((l·C + q)·P16 + r)·LWA of the streamed layout,
+    gate-major, 8 zeros after its 4·US columns; K13's proj rows at
+    ((l·C + q)·U16 + u)·LPJ, padded likewise; K12's proj slices and wx
+    rows as the resident plans'."""
+    case = make_case(4, units, proj, batch=1, time_steps=1)
+    wz, pj = case["wz"], case["proj"]
+    layers, out_dim = wz.shape[0], wz.shape[1] // 2
+    us = round_up(cdiv(units, C), 8)
+    lwa, p16 = 4 * us + 8, round_up(out_dim, 16)
+    fwd = sk.stack_slices(wz, pj, C, streamed=True)
+    res = sk.stack_slices(wz, pj, C)
+    flat = fwd["wh_sl"].reshape(-1)
+    gates = wz[:, out_dim:].view(layers, out_dim, 4, units)
+    for l in range(layers):
+        for q in (0, 7, C - 1):
+            for r in (0, out_dim // 2, out_dim - 1, p16 - 1):
+                row = flat[((l * C + q) * p16 + r) * lwa:][:lwa]
+                assert not row[4 * us:].any()
+                for k in range(4):
+                    u = torch.arange(q * us, q * us + us)
+                    want = torch.zeros(us)
+                    ok = (u < units) & (r < out_dim)
+                    if r < out_dim:
+                        want[ok] = gates[l, r, k, u[ok]]
+                    assert torch.equal(row[k * us:(k + 1) * us], want)
+    assert torch.equal(fwd["wx_rows"], res["wx_rows"])
+    assert torch.equal(fwd["wh_sl"].view(layers, C, p16, lwa)[..., :4 * us],
+                       res["wh_sl"].reshape(layers, C, p16, 4 * us))
+    bwd = sk.stack_slices(wz, pj, C, backward=True, streamed=True)
+    assert torch.equal(bwd["wh_sl"], fwd["wh_sl"])
+    if pj is None:
+        assert fwd["proj_sl"] is None and bwd["proj_rows"] is None
+        return
+    assert torch.equal(fwd["proj_sl"], res["proj_sl"])
+    u16, lpj = round_up(us, 16), p16 + 8
+    rows = bwd["proj_rows"].reshape(-1)
+    for l in range(layers):
+        for q in (0, C - 1):
+            for j in (0, us - 1, u16 - 1):
+                row = rows[((l * C + q) * u16 + j) * lpj:][:lpj]
+                u = q * us + j
+                assert not row[out_dim:].any()
+                if j < us and u < units:
+                    assert torch.equal(row[:out_dim], pj[l, u])
+                else:
+                    assert not row.any()
+
+
+def test_stack_refill_before_the_block_barrier_is_caught():
+    """Without the block barrier between a chunk's last read and its
+    refill, warp 0 refills the slot while warp 1 still reads it: the
+    emulation sees the slot in flight (K12 and K13)."""
+    case = make_case(3, 1024, None, batch=1, time_steps=2)
+    with pytest.raises(Hazard, match="in flight"):
+        k12_streamed(case, greedy_order, refill_after_barrier=False)
+    fwd = sk.stack_forward_reference(**case)
+    zeros = torch.zeros(case["cinit"].shape), torch.zeros(
+        case["hinit"].shape)
+    with pytest.raises(Hazard, match="in flight"):
+        k13_streamed(case, fwd, torch.ones(fwd[0].shape), *zeros,
+                     greedy_order, refill_after_barrier=False)
+
+
+def test_stack_a_wait_on_too_few_steps_is_caught():
+    """A layer that waits for one step fewer than its chunk reads runs its
+    input product from chains not yet published: the streamed forward no
+    longer equals the plain version."""
+    case = make_case(5, 1024, None, time_steps=4)
+    ref = sk.stack_forward_reference(**case)
+
+    class Short(Count):
+        def done(self, want):
+            return min(self.v) >= want - 1
+
+    # the upper layer first, copies landed as soon as they are issued
+    got = k12_streamed(case, lambda cands: cands[-1], lag=2, count=Short)
+    assert not torch.allclose(got[1], ref[1], **TOL)
+    got = k12_streamed(case, lambda cands: cands[-1], lag=2)
+    close(got, ref, ("out", "chain", "c_all", "h_all", "cfin", "hfin"))

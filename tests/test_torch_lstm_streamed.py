@@ -205,14 +205,20 @@ class Ring:
         return self.data[s][:want_rows]
 
 
+def same_group(tag, key):
+    """A sync group: the warps tagged ``key``, or every warp ("cluster")."""
+    return key == "cluster" or tag == key
+
+
 class Sched:
     """Runs warps (generators yielding ("run",), ("wait", barrier,
     parity), ("sync", group)) and lands pending copies, in the order
     `order` picks from the runnable candidates (warps by index, then the
-    pending landings)."""
+    pending landings); ``member(tag, key)`` says whether a warp tagged
+    ``tag`` takes part in the sync of group ``key``."""
 
-    def __init__(self, order):
-        self.order, self.pending = order, []
+    def __init__(self, order, member=same_group):
+        self.order, self.pending, self.member = order, [], member
 
     def issue(self, ring, n, data):
         s = n % len(ring.chunk)
@@ -240,8 +246,7 @@ class Sched:
                     syncs.setdefault(key, []).append(i)
             released = False
             for key, members in syncs.items():
-                group = live if key == "cluster" else [
-                    i for i in live if warps[i][0] == key]
+                group = [i for i in live if self.member(warps[i][0], key)]
                 if len(members) == len(group):
                     for i in members:
                         advance(i)

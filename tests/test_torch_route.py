@@ -245,11 +245,13 @@ def make_stack(units, out_dim, layers=3, d=10):
 
 @pytest.mark.parametrize("units,out_dim,train,eligible", [
     (8, 4, True, True), (8, 4, False, True), (6, 4, True, False),
-    (6, 4, False, True), (8, 6, True, False), (1028, 4, False, False),
-    (512, 4, True, True), (1024, 4, True, True), (1025, 4, False, False)])
+    (6, 4, False, True), (8, 6, True, False), (1028, 4, False, True),
+    (512, 4, True, True), (1024, 4, True, True), (1025, 4, False, True),
+    (2052, 4, False, False), (2048, 4, True, True), (2049, 4, False, False),
+    (1536, 8, True, True)])
 def test_stack_eligible_shape_rules(units, out_dim, train, eligible):
     """K13 takes H and P divisible by 4 (training only); K12 and K13 at
-    most 1024 units (16 blocks of 64)."""
+    most 2048 units (16 blocks of 128), as the layer kernels."""
     stack = make_stack(units, out_dim)
     assert lstm_stack_kernels.stack_eligible(stack, train) is eligible
 
@@ -258,17 +260,20 @@ class FakeStackPlans:
     """K12's and K13's plan queries and launch configs, answering from
     tables of shapes and counting the questions; no other entry (no CUDA
     call) exists.  The fits queries answer the blocks a cluster (16 for the
-    shapes in ``wide``, else 8, 0 for none); a config answers rows 0 when
-    the clusters the card holds at once (``resident``, 14 by default) are
-    fewer than the stack's layers."""
+    shapes in ``wide``, -16 for those in ``streamed``, else 8, 0 for none);
+    a config answers rows 0 when the clusters the card holds at once
+    (``resident``, 14 by default) are fewer than the stack's layers."""
 
-    def __init__(self, fwd, bwd, wide=(), resident=None):
+    def __init__(self, fwd, bwd, wide=(), resident=None, streamed=()):
         self.fwd, self.bwd, self.asked = fwd, bwd, []
         self.wide, self.resident = set(wide), dict(resident or {})
+        self.streamed = set(streamed)
 
     def _blocks(self, units, out_dim, table):
         if (units, out_dim) not in table:
             return 0
+        if (units, out_dim) in self.streamed:
+            return -16
         return 16 if (units, out_dim) in self.wide else 8
 
     def lstm_stack_fwd_fits(self, units, out_dim, has_proj, bf16):
@@ -287,8 +292,9 @@ class FakeStackPlans:
         blocks = self._blocks(units, out_dim, table)
         held = self.resident.get((units, out_dim), 14)
         rows = 4 if blocks and held >= layers else 0
-        for i, v in enumerate((blocks, rows, rows and 1, rows and 1,
-                               rows and 1, 2, 1000, held)):
+        for i, v in enumerate((abs(blocks), rows, rows and 1, rows and 1,
+                               rows and 1, 2, 1000, held, int(blocks < 0),
+                               1000, 0)):
             info[i] = v
         return 0
 
@@ -301,9 +307,11 @@ class FakeStackPlans:
 
 @pytest.fixture
 def fake_stack_plans(monkeypatch, fresh_warnings):
-    plans = FakeStackPlans(fwd={(320, 320), (200, 448), (1024, 256)},
-                           bwd={(320, 320), (1024, 256)}, wide={(1024, 256)},
-                           resident={(1024, 256): 7})
+    plans = FakeStackPlans(fwd={(320, 320), (200, 448), (1024, 256),
+                                (2048, 512), (1024, 1024)},
+                           bwd={(320, 320), (1024, 256), (2048, 512)},
+                           wide={(1024, 256)}, resident={(1024, 256): 7},
+                           streamed={(2048, 512), (1024, 1024)})
     monkeypatch.setattr(lstm_stack_kernels._build, "library", lambda: plans)
     lstm_stack_kernels._unplanned.cache_clear()
     lstm_stack_kernels._config.cache_clear()
@@ -316,7 +324,9 @@ def fake_stack_plans(monkeypatch, fresh_warnings):
     (320, 320, True, None), (320, 320, False, None),
     (384, 384, False, "forward (K12)"), (384, 384, True, "forward (K12)"),
     (200, 448, False, None), (200, 448, True, "backward (K13)"),
-    (1024, 256, True, None), (1024, None, False, "forward (K12)")])
+    (1024, 256, True, None), (1024, None, False, None),
+    (1024, None, True, "backward (K13)"), (2048, 512, True, None),
+    (640, None, False, "forward (K12)")])
 def test_stack_eligible_asks_the_plans_once_a_shape(fake_stack_plans, units,
                                                     out_dim, train,
                                                     refused_by):
@@ -326,8 +336,9 @@ def test_stack_eligible_asks_the_plans_once_a_shape(fake_stack_plans, units,
     cache; then, for each depth, whether the card holds its layers at once
     (the launchers' configs, once a shape and depth).  A refusal names the
     kernel that has no plan and warns once; nothing but the plan queries
-    and the configs is called.  bf16 H = P = 1024 without a projection has
-    no plan (8 MB of wh a layer)."""
+    and the configs is called.  The streamed plans (a negative answer) are
+    plans: bf16 H = P = 1024 without a projection (8 MB of wh a layer) and
+    2048 cells with a projection of 512 take them."""
     cuda = torch.device("cuda")
     has_proj = int(out_dim is not None)
     out_dim = out_dim or units
@@ -390,12 +401,12 @@ def test_stack_eligible_refuses_a_stack_deeper_than_the_card_holds(
 
 
 def test_stack_eligible_asks_no_plan_past_the_shape_rules(fake_stack_plans):
-    """Past 1024 units, a stack that is not uniform, a single layer, a
+    """Past 2048 units, a stack that is not uniform, a single layer, a
     backward with H or P not divisible by 4, and any stack on the CPU are
     decided before any plan is asked."""
     cuda = torch.device("cuda")
     bf16 = dict(dtype=torch.bfloat16, store_dtype=torch.bfloat16)
-    assert not lstm_stack_kernels.stack_eligible(make_stack(1028, 1028),
+    assert not lstm_stack_kernels.stack_eligible(make_stack(2052, 8),
                                                  False, device=cuda, **bf16)
     mixed = make_stack(320, 320)[:2] + make_stack(384, 320)[2:]
     assert not lstm_stack_kernels.stack_eligible(mixed, False, device=cuda,
@@ -413,13 +424,15 @@ def test_stack_eligible_asks_no_plan_past_the_shape_rules(fake_stack_plans):
 
 @pytest.mark.parametrize("units,out_dim,device,eligible,asked", [
     (320, 320, "cuda", True, True), (384, 384, "cuda", False, True),
-    (1028, 1028, "cuda", False, False), (384, 384, "cpu", True, False),
-    (1028, 1028, "cpu", False, False), (1024, 256, "cuda", True, True)])
+    (2052, 8, "cuda", False, False), (384, 384, "cpu", True, False),
+    (2052, 8, "cpu", False, False), (1024, 256, "cuda", True, True),
+    (2048, 512, "cuda", True, True), (1028, 8, "cpu", True, False)])
 def test_stack_layer_eligible_edges(fake_stack_plans, units, out_dim, device,
                                     eligible, asked):
     """One layer with carried states (streaming, after the stack route
-    refused): K12 at most 1024 units and, on a CUDA device, with a forward
-    plan; the backward is never asked, nor whether one layer is held."""
+    refused): K12 at most 2048 units and, on a CUDA device, with a forward
+    plan, resident or streamed (2048/512); the backward is never asked, nor
+    whether one layer is held."""
     cell = make_stack(units, out_dim, layers=1)[0]
     assert lstm_stack_kernels.stack_layer_eligible(
         cell, torch.device(device), torch.bfloat16) is eligible
@@ -452,8 +465,8 @@ def test_refusals_warn_once_per_reason(fresh_warnings):
 
 # --- the routed paths against the reference on the CPU ---
 
-def streaming_case(units=1028, out_dim=8, d=6, batch=2, time_steps=5):
-    """A 2-layer stack past the kernels' 1024 units (layer 1 residual),
+def streaming_case(units=2052, out_dim=8, d=6, batch=2, time_steps=5):
+    """A 2-layer stack past the kernels' 2048 units (layer 1 residual),
     inputs, lengths and carried states, float32."""
     rng = np.random.RandomState(units)
     layers = make_stack(units, out_dim, layers=2, d=d)
@@ -466,7 +479,7 @@ def streaming_case(units=1028, out_dim=8, d=6, batch=2, time_steps=5):
 
 
 def test_streaming_past_the_kernels_matches_the_stack(fresh_warnings):
-    """With carried states (streaming), a stack past 1024 units runs layer by
+    """With carried states (streaming), a stack past 2048 units runs layer by
     layer through the plain scan: outputs and final states equal the stack
     reference's (the plain version of K12 on the CPU)."""
     layers, x, seq, states = streaming_case()
@@ -672,7 +685,7 @@ def test_moe_route_on_gpu(cuda, fresh_warnings, d, v, dtype, match):
 
 @pytest.mark.cuda
 def test_streaming_route_on_gpu(cuda, fresh_warnings):
-    """A stack past 1024 units with carried states on the card: the plain
+    """A stack past 2048 units with carried states on the card: the plain
     scan, as on the CPU, one warning, no K12 launch."""
     layers, x, seq, states = streaming_case()
     flags = [False, True]
@@ -681,7 +694,7 @@ def test_streaming_route_on_gpu(cuda, fresh_warnings):
                                             torch.float32,
                                             initial_states=states)
         before = lstm_stack_kernels.lstm_stack_forward.launches
-        with pytest.warns(UserWarning, match="1028 units"):
+        with pytest.warns(UserWarning, match="2052 units"):
             got, got_states = lstm.stack_layers(
                 [{k: t.to(cuda) for k, t in c.items()} for c in layers],
                 x.to(cuda), seq.to(cuda), flags, torch.float32,
@@ -805,9 +818,11 @@ def test_layer_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
 # the stack shapes held against the launchers on the card: the flagship
 # lstm width, the widths past it that take 16-block clusters (Kaldi's LSTMP
 # cell and projection, H = P = 384-512 with and without a projection), a
-# narrow H under a wide P, float32, bf16 H = P = 1024 without a projection
-# (no plan), and a 16-block stack of 8 layers (deeper than the 7 clusters
-# an H100 holds at once); (units, out_dim or None, dtype, layers)
+# narrow H under a wide P, float32, the streamed plan's bf16 widths (H = P
+# = 768 and 1024 without a projection, Sak's 2048/512, H = P = 2048), the
+# same widths in float32 (128 units a block past 1024), and a 16-block
+# stack of 8 layers (deeper than the 7 clusters an H100 holds at once);
+# (units, out_dim or None, dtype, layers)
 STACK_SHAPES = [(320, 320, torch.bfloat16, 4), (384, 384, torch.bfloat16, 4),
                 (448, 448, torch.bfloat16, 4), (512, 512, torch.bfloat16, 4),
                 (512, None, torch.bfloat16, 4),
@@ -815,7 +830,12 @@ STACK_SHAPES = [(320, 320, torch.bfloat16, 4), (384, 384, torch.bfloat16, 4),
                 (384, 384, torch.float32, 4), (512, 512, torch.float32, 4),
                 (1024, 256, torch.float32, 4),
                 (1024, None, torch.bfloat16, 4),
-                (384, 384, torch.bfloat16, 8)]
+                (384, 384, torch.bfloat16, 8),
+                (768, None, torch.bfloat16, 4),
+                (2048, 512, torch.bfloat16, 4),
+                (2048, 512, torch.float32, 4),
+                (2048, None, torch.bfloat16, 4),
+                (2048, None, torch.float32, 4)]
 
 
 @pytest.mark.cuda
@@ -824,7 +844,9 @@ STACK_SHAPES = [(320, 320, torch.bfloat16, 4), (384, 384, torch.bfloat16, 4),
                               "bf16-512-noproj", "bf16-1024x256",
                               "bf16-200x448", "f32-384", "f32-512",
                               "f32-1024x256", "bf16-1024-noproj",
-                              "bf16-384-8layers"])
+                              "bf16-384-8layers", "bf16-768-noproj",
+                              "bf16-2048x512", "f32-2048x512",
+                              "bf16-2048-noproj", "f32-2048-noproj"])
 def test_stack_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
                                                          out_dim, dtype,
                                                          layers):
@@ -871,7 +893,8 @@ def test_stack_eligible_agrees_with_the_launchers_on_gpu(cuda, units,
                 continue
             how = plan()
             print("  B=%d %s: %s" % (batch, "K13" if train else "K12", how))
-            assert how["blocks"] == blocks[train]
+            assert how["blocks"] == abs(blocks[train])
+            assert how["streamed"] is (blocks[train] < 0)
             assert (how["rows"] > 0) is eligible
             assert (how["resident"] >= layers) is eligible
 
@@ -926,18 +949,20 @@ def test_stack_route_on_gpu(cuda, fresh_warnings):
 
 @pytest.mark.cuda
 def test_stack_streaming_route_on_gpu(cuda, fresh_warnings):
-    """A bf16 stack of H = P = 1024 without a projection with carried
-    states (streaming): K12 has no plan for it (8 MB of wh a layer), nor
-    for one layer of it, so each layer runs the plain scan; equal bit for
-    bit to that composition, no K12 launch."""
-    stack, x, seq, flags = refused_stack_case(cuda, units=1024, out_dim=None,
-                                              layers=2)
+    """A bf16 stack of H = P = 2052 without a projection with carried
+    states (streaming): past the stack kernels' 2048 units, for the stack
+    and for one layer of it, so each layer runs the plain scan; equal bit
+    for bit to that composition, no K12 launch.  (H = P = 1024, which this
+    test routed until the streamed plan took it, now runs K12.)"""
+    stack, x, seq, flags = refused_stack_case(cuda, units=ROUTED_UNITS,
+                                              out_dim=None, layers=2)
     rng = np.random.RandomState(5)
-    states = [tuple(torch.from_numpy(rng.randn(3, 1024).astype(
+    states = [tuple(torch.from_numpy(rng.randn(3, ROUTED_UNITS).astype(
         np.float32)).to(cuda) for _ in range(2)) for _ in stack]
     before = lstm_stack_kernels.lstm_stack_forward.launches
     with torch.no_grad():
-        with pytest.warns(UserWarning, match=r"stack forward \(K12\)"):
+        with pytest.warns(UserWarning, match="a stack of %d units exceeds "
+                          "the CUDA stack kernels' 2048" % ROUTED_UNITS):
             got, got_states = lstm.stack_layers(stack, x, seq, flags,
                                                 torch.bfloat16,
                                                 initial_states=states)

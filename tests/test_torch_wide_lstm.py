@@ -1,20 +1,24 @@
 """The unidirectional stack at Kaldi's LSTMP widths (cell 1024, recurrent
 projection 256), which the stack kernels take with 16-block clusters
 (``csrc/lstm_stack_fwd.cu``, ``csrc/lstm_stack_bwd.cu``; their partitions
-are emulated with 16 blocks in ``test_torch_lstm_stack_pipeline.py``).
+are emulated with 16 blocks in ``test_torch_lstm_stack_pipeline.py``), and
+at Sak, Senior and Beaufays' LSTMP widths (cell 2048, projection 512),
+which they take on the streamed plan, 128 units a block (emulated in
+``test_torch_lstm_stack_streamed.py``).
 
 On the CPU the stack runs its plain versions (``stack_forward_reference``
 and, under autograd, ``stack_backward_reference``).  Here, at H = 1024, P
 = 256, with inputs from a numpy seed in float32, they are held against the
 JAX package: a 2-layer stack's outputs, final states and every gradient
 against its ``lstm_stack_fused`` (the Pallas wavefront kernels in
-interpret mode, store float32; B = 3, T = 6) at rtol = atol = 1e-5; and a
+interpret mode, store float32; B = 3, T = 6; at 2048/512 B = 2, T = 4)
+at rtol = atol = 1e-5; and a
 2-layer ``lstm`` model with the MoE head, on the same weights through the
 checkpoint bridge, against the JAX package's train step at keep 1.0: the
 loss and the parameters after one adam step at rtol = atol = 1e-4, at the
 recipes' learning rate of 1e-3 (adam's first step moves each weight by
-about lr whatever the gradient's size).  The streaming session at that
-width equals the offline forward (rtol = atol = 1e-4); and a uniform stack
+about lr whatever the gradient's size).  The streaming session at both
+widths equals the offline forward (rtol = atol = 1e-4); and a uniform stack
 the route runs layer by layer (a plan refusal, faked) applies the stack
 kernels' hash dropout: at keep 0.9 it equals the plain K12 with the same
 seed (rtol = atol = 1e-5).
@@ -33,6 +37,8 @@ from lstm_ctc_tpu_torch.train.checkpoint import params_from_numpy
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 UNITS, PROJ = 1024, 256  # Kaldi's nnet3 LSTMP cell-dim and projection
+# Sak, Senior and Beaufays' LSTMP (2014): 2048 cells, projection 512
+SAK_UNITS, SAK_PROJ = 2048, 512
 
 
 @pytest.fixture(scope="module")
@@ -43,14 +49,15 @@ def jref():
     return types.SimpleNamespace(jax=jax, jnp=jnp, stack=lstm_stack_pallas)
 
 
-def wide_stack(seed, layers=2, dim=12):
-    """A uniform stack of peephole cells of 1024 units with 256-wide
-    projections (layer 0 fed ``dim`` wide), non-zero biases."""
+def wide_stack(seed, layers=2, dim=12, units=UNITS, proj=PROJ):
+    """A uniform stack of peephole cells of ``units`` (1024) with
+    ``proj``-wide (256) projections (layer 0 fed ``dim`` wide), non-zero
+    biases."""
     gen = torch.Generator().manual_seed(seed)
     params, d = [], dim
     for _ in range(layers):
-        params.append(cells.init_lstm_cell(gen, d, UNITS, PROJ, True))
-        d = PROJ
+        params.append(cells.init_lstm_cell(gen, d, units, proj, True))
+        d = proj
     rng = np.random.RandomState(seed)
     for p in params:
         p["bias"] = torch.from_numpy(
@@ -70,16 +77,28 @@ def test_wide_stack_matches_jax(jref):
     autograd backward (every parameter's gradient and dx) of a 2-layer
     stack at H = 1024, P = 256 (layer 1 residual), with initial states and
     their gradients."""
+    stack_matches_jax(jref, UNITS, PROJ, batch=3, time_steps=6)
+
+
+def test_sak_lstmp_stack_matches_jax(jref):
+    """The same at Sak, Senior and Beaufays' LSTMP widths, H = 2048, P =
+    512 (B = 2, T = 4)."""
+    stack_matches_jax(jref, SAK_UNITS, SAK_PROJ, batch=2, time_steps=4)
+
+
+def stack_matches_jax(jref, units, proj, batch, time_steps):
     jnp = jref.jnp
-    params = wide_stack(1)
-    x, seq = wide_inputs(1)
+    params = wide_stack(1, units=units, proj=proj)
+    x, seq = wide_inputs(1, batch, time_steps)
     flags = (False, True)
     rng = np.random.RandomState(2)
-    init = [(0.1 * rng.randn(3, UNITS).astype(np.float32),
-             0.1 * rng.randn(3, PROJ).astype(np.float32)) for _ in range(2)]
-    cot = rng.randn(3, 6, PROJ).astype(np.float32)
-    state_cots = [(rng.randn(3, UNITS).astype(np.float32),
-                   rng.randn(3, PROJ).astype(np.float32)) for _ in range(2)]
+    init = [(0.1 * rng.randn(batch, units).astype(np.float32),
+             0.1 * rng.randn(batch, proj).astype(np.float32))
+            for _ in range(2)]
+    cot = rng.randn(batch, time_steps, proj).astype(np.float32)
+    state_cots = [(rng.randn(batch, units).astype(np.float32),
+                   rng.randn(batch, proj).astype(np.float32))
+                  for _ in range(2)]
 
     def jax_loss(ps, xs, states):
         out, fin = jref.stack.lstm_stack_fused(
@@ -212,10 +231,20 @@ def test_wide_streaming_matches_offline():
     """The streaming session (the stack's plain version with carried
     states, chunks of 5 model rows, raw frames fed 7 at a time) equals the
     offline forward at H = 1024, P = 256."""
+    streaming_matches_offline(dict(WIDE_CONFIG, num_experts=0, num_layers=3))
+
+
+def test_sak_lstmp_streaming_matches_offline():
+    """The same at H = 2048, P = 512 (2 layers)."""
+    streaming_matches_offline(dict(WIDE_CONFIG, num_experts=0, num_layers=2,
+                                   num_neurons=SAK_UNITS,
+                                   num_projects=SAK_PROJ))
+
+
+def streaming_matches_offline(config):
     from lstm_ctc_tpu_torch.host.data import splice_frames, subsample_frames
     from lstm_ctc_tpu_torch.models import apply_model, init_model
     from lstm_ctc_tpu_torch.models.streaming import StreamingSession
-    config = dict(WIDE_CONFIG, num_experts=0, num_layers=3)
     params, state = init_model(torch.Generator().manual_seed(4), config)
     raw = np.random.RandomState(4).randn(40, 4).astype(np.float32)
     session = StreamingSession(params, state, config, chunk_size=5)
