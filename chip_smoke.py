@@ -3460,6 +3460,69 @@ def stack_stream_line(how, layers, steps, ms):
                                how["held_bytes"], nbytes / ms / 1e9))
 
 
+# the streamed launches held against the same launch forced onto R = 4 (as
+# much of wh resident as fits: one row a cell-phase thread), at B = 32: the
+# launcher's R (16 or 32 rows a cluster, a cell-phase thread several rows)
+# in 1-2 waves where R = 4 runs 8
+FOUR_ROWS = ("streamed, wh held as fits", 4)
+
+
+def rows_line(how, rows, resident, batch, layers, steps, ms):
+    """R, the waves and the us a wave-step of a launch of ``rows`` rows a
+    cluster (the waves of a forced R from the clusters the launcher's plan
+    holds at once)"""
+    tiles = -(-batch // rows)
+    waves = -(-tiles // max(1, min(tiles, resident // layers)))
+    return "R=%d in %d wave(s), %.2f us a wave-step" % (
+        rows, waves, 1e3 * ms / (steps * waves))
+
+
+def four_rows(torch, sk, name, how, case, args=None):
+    """K12 (with ``args``, K13 on them) at the launcher's R beside the same
+    launch forced at R = 4, timed in turns (median of 2), and held to it:
+    K12's outputs and states, K13's dgates, weight products, carries and din
+    bit-equal; K13's column sums (each thread's rows added first) within
+    BF16_STEP_REL_TOL."""
+    steps, batch = case["gx0"].shape[:2]
+    if args is None:
+        what = "K12"
+        run = lambda **kw: sk.lstm_stack_forward(**case, **kw)
+        got, want = run(states=True), run(states=True, _plan=FOUR_ROWS)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        sums = 0.0
+    else:
+        what = "K13"
+        run = lambda **kw: sk.lstm_stack_backward(**args, **kw)
+        got, want = run(steps_out=True), run(steps_out=True,
+                                             _plan=FOUR_ROWS)
+        names = ("dgates", "dwz", "dbias", "dproj", "dpeep", "dcinit",
+                 "dhinit", "dc_in", "dh_in", "din")
+        same = all(a is None and b is None or torch.equal(a, b)
+                   for n, a, b in zip(names, got, want)
+                   if n not in ("dbias", "dpeep"))
+        sums = max(ratio(a, b) for n, a, b in zip(names, got, want)
+                   if n in ("dbias", "dpeep") and b is not None)
+    del got, want
+    ms, ms4 = time_in_turns(torch, run, lambda: run(_plan=FOUR_ROWS),
+                            rounds=2, kernel_reps=1)
+    layers = case["wz"].shape[0]
+    say("  %s %s bfloat16 at the launcher's %s: %.3f ms; forced at %s: "
+        "%.3f ms (%.2fx); bit-equal row for row: %s%s"
+        % (what, name, rows_line(how, how["rows"], how["resident"], batch,
+                                 layers, steps, ms), ms,
+           rows_line(how, 4, how["resident"], batch, layers, steps, ms4),
+           ms4, ms4 / ms, same, "" if args is None else
+           "; column sums max rel %.2e (bound %.0e)" % (sums,
+                                                        BF16_STEP_REL_TOL)))
+    if not same or sums > BF16_STEP_REL_TOL:
+        fail("%s %s at R=%d differs from R=4" % (what, name, how["rows"]))
+    if steps == 384 and (how["rows"] < 16 or how["waves"] > 2):
+        fail("%s %s launches R=%d in %d waves, not 16+ in 1-2"
+             % (what, name, how["rows"], how["waves"]))
+    return {"ms": ms, "r4_ms": ms4, "rows": how["rows"],
+            "waves": how["waves"], "col_sums_rel": sums}
+
+
 def dropped_as_plain(sk, case, kchain, pchain):
     """The kernel's chain is zero where the plain mask drops and non-zero
     where the plain version keeps a non-zero value."""
@@ -3587,6 +3650,8 @@ def check_stack_fwd_wide(torch, pkg, device, rng):
                    "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
                    bound_ms, bound_by,
                    stack_stream_line(how, STACK_LAYERS, steps, ms)))
+        if streamed and shape.get("batch", 32) == 32:
+            res["four"] = four_rows(torch, sk, name, how, case)
         if routes:
             stack, route = stack_routes(torch, pkg, params, x, seq, family,
                                         torch.bfloat16, False)
@@ -3854,6 +3919,8 @@ def check_stack_bwd_wide(torch, pkg, device, rng):
                    "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
                    bound_ms, bound_by,
                    stack_stream_line(how, STACK_LAYERS, steps, ms)))
+        if streamed and shape.get("batch", 32) == 32:
+            res["four"] = four_rows(torch, sk, name, how, case, args)
         if routes:
             stack, route = stack_routes(torch, pkg, params, x, seq, family,
                                         torch.bfloat16, True)
@@ -5637,9 +5704,9 @@ def wide_session(torch, pkg, device, rng, config=None,
                       "streamed" if how["streamed"] else "resident",
                       how["blocks"], how["rows"], STACK_LAYERS * how["tiles"],
                       how["lag"]))
-    if how["blocks"] != 16:
-        fail("K12 on a wide streaming chunk has %d blocks a cluster, not 16"
-             % how["blocks"])
+    if how["blocks"] != 16 or how["rows"] != 4:
+        fail("K12 on a wide streaming chunk has %d blocks a cluster and R=%d, "
+             "not 16 and 4" % (how["blocks"], how["rows"]))
     return result
 
 
@@ -5821,9 +5888,11 @@ def main() -> None:
         k12_wide = check_stack_fwd_wide(torch, pkg, device, stack_rng)
         library_wide = cudnn_yardstick(torch, pkg, device, stack_rng,
                                        shape=(512, None))
-        # cuDNN at the streamed plan's cudnnlstm H = P = 1024
+        # cuDNN at the streamed plan's cudnnlstm H = P = 1024 and 768
         library_streamed = cudnn_yardstick(torch, pkg, device, stack_rng,
                                            shape=(1024, None))
+        library_768 = cudnn_yardstick(torch, pkg, device, stack_rng,
+                                      shape=(768, None))
         forced_stack = check_stack_forced(torch, pkg, device, stack_rng)
         phase("phase 12 K13 (unidirectional stack backward)")
         k13 = check_stack_bwd(torch, pkg, device, rng)
@@ -6189,14 +6258,19 @@ def main() -> None:
             "" if "stack_ms" not in f else "; through stack_layers forward "
             "%.3f ms (the parent's route %.3f), forward + backward %.3f ms "
             "(%.3f)" % (f["stack_ms"], f["route_ms"], b["stack_ms"],
-                        b["route_ms"])))
+                        b["route_ms"]))
+            + ("" if "four" not in f else "; in turns with R=4 forced: K12 "
+               "%.3f ms against %.3f, K13 %.3f against %.3f" % (
+                   f["four"]["ms"], f["four"]["r4_ms"], b["four"]["ms"],
+                   b["four"]["r4_ms"])))
     say("summary of the unidirectional stack on 16-block clusters on %s "
         "(bf16, B=32, T=384, 4 layers unless said; cuDNN's LSTM at H=P=512: "
         "forward %.3f ms, forward + backward %.3f ms; at H=P=1024: %.3f ms, "
-        "%.3f ms): %s; the streamed plan forced at H=1024 P=256, bit-equal "
-        "to the resident plan: %s"
+        "%.3f ms; at H=P=768: %.3f ms, %.3f ms): %s; the streamed plan "
+        "forced at H=1024 P=256, bit-equal to the resident plan: %s"
         % (smi, library_wide["forward"], library_wide["both"],
            library_streamed["forward"], library_streamed["both"],
+           library_768["forward"], library_768["both"],
            "; ".join(wide_rows), "; ".join(
                "%s R=%d %s" % (k[0], k[1], ", ".join(
                    "%s %.3f ms" % kv for kv in t.items()))
@@ -6316,7 +6390,11 @@ def main() -> None:
            + list(k13_wide.values())
            for k in ("stack_ms", "route_ms") if k in res] \
         + [library_wide["forward"], library_wide["both"],
-           library_streamed["forward"], library_streamed["both"]] \
+           library_streamed["forward"], library_streamed["both"],
+           library_768["forward"], library_768["both"]] \
+        + [res["four"][k] for res in list(k12_wide.values())
+           + list(k13_wide.values()) if "four" in res
+           for k in ("ms", "r4_ms")] \
         + [v for t in forced_stack.values() for v in t.values()] \
         + [session[k] for k in ("chunk_ms", "route_chunk_ms")] \
         + [wide_lstm[k] for k in ("step_ms", "fps", "route_step_ms",

@@ -108,14 +108,31 @@ __host__ __device__ Split mma_split(int cols, int depth, int most = kMaxSlices) 
   return best;
 }
 
+// The streamed plans' cell phase (K12, K13): thread tid owns unit tid % US
+// of rows tid / US, + kThreads / US, .. below R, so a block takes more rows
+// than it has threads for units; kThreadRows such rows at most
+constexpr int kThreadRows = 8;
+
+__host__ __device__ constexpr int thread_rows(int rows, int us) {
+  return cdiv(rows, kThreads / us);
+}
+
+// a cell-phase thread's rows at most with R rows a cluster, at any US up to
+// kLayerUnits: the bound of its unrolled loop
+__host__ __device__ constexpr int cell_rows(int rows) {
+  return cdiv(rows, kThreads / kLayerUnits) < kThreadRows ? cdiv(rows, kThreads / kLayerUnits)
+                                                          : kThreadRows;
+}
+
 // K12's shared-memory plan with C blocks a cluster, common to host and
 // device.  US, PS: units and projection columns per block; HS, QS: row
 // strides of the full cell output and of the full h (C·US, C·PS, plus 16
 // bytes so that rows fall on other banks); arow: rows of those buffers
 // (the tensor cores' A operands: 8 up to 8 rows, loaded once for mma's 16,
-// else 16; R in float32); prow: rows of each partial-sum block (arow in
-// bf16); LWA, LWD: row strides of the bf16 weight slices in shared memory
-// (padded by 16 bytes, LWD not with 16 blocks, as K1's); off_w, bytes:
+// else R rounded up to 16-row tiles; R in float32); prow: rows of each
+// partial-sum block (arow in bf16); LWA, LWD: row strides of the bf16
+// weight slices in shared memory (padded by 16 bytes, LWD not with 16
+// blocks, as K1's); off_w, bytes:
 // where they start, and the block's shared memory in all (in f32, whose
 // slices stay in global memory, off_w = bytes).  The cell output's buffer
 // exists only with a projection.  The region of the partial sums also
@@ -126,13 +143,13 @@ __host__ __device__ Split mma_split(int cols, int depth, int most = kMaxSlices) 
 // sums within a step, and both only by the block's own threads.
 //
 // The streamed plan (bf16, `stream`): the partial sums are the complete
-// sums [8][4·US] and [8][PS] (streamed_product adds the k-slices itself);
-// after the stage, the ring's barriers and slots, then wh's first `res`
-// 16-deep steps (at most `cap` where cap >= 0) at row stride LWA, as the
-// wrapper lays every row out in global memory; wsteps, psteps: 16-deep
-// steps of wh (P) and proj (H); cw, cp: steps a chunk of each; nw, np:
-// chunks a step; res_bytes, stream_bytes: a block's weight bytes held,
-// and streamed a step.
+// sums [arow][4·US] and [arow][PS] (streamed_product adds the k-slices
+// itself); after the stage, the ring's barriers and slots, then wh's
+// first `res` 16-deep steps (at most `cap` where cap >= 0) at row stride
+// LWA, as the wrapper lays every row out in global memory; wsteps,
+// psteps: 16-deep steps of wh (P) and proj (H); cw, cp: steps a chunk of
+// each; nw, np: chunks a step; res_bytes, stream_bytes: a block's weight
+// bytes held, and streamed a step.
 constexpr int kStage = 32;
 constexpr size_t kStageBytes = 65536;
 
@@ -155,13 +172,13 @@ __host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows, i
   p.hs = C * p.us + pad;
   p.qs = C * p.ps + pad;
   p.own = has_proj ? p.ps : p.us;
-  p.arow = kMma<T> ? (rows > 8 ? 16 : 8) : rows;
+  p.arow = kMma<T> ? (rows > 8 ? round_up(rows, 16) : 8) : rows;
   p.prow = p.arow;
   const int g = 4 * p.us;
   p.gates = kMma<T> ? mma_split(g, out_dim) : fma_split(g, out_dim);
   p.proj = kMma<T> ? mma_split(p.ps, units) : fma_split(p.ps, units);
-  const int part_gates = stream ? 8 * g : p.gates.slices * p.prow * g;
-  const int part_proj = !has_proj ? 0 : stream ? 8 * p.ps : p.proj.slices * p.prow * p.ps;
+  const int part_gates = stream ? p.arow * g : p.gates.slices * p.prow * g;
+  const int part_proj = !has_proj ? 0 : stream ? p.arow * p.ps : p.proj.slices * p.prow * p.ps;
   p.part = part_gates > part_proj ? part_gates : part_proj;
   p.lwa = g + pad;
   p.lwd = p.ps + (C == kCluster ? pad : 0);
@@ -317,6 +334,18 @@ __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
       *reinterpret_cast<float2*>(dst + 8 * cols + 8) = make_float2(d[1][2], d[1][3]);
     }
   }
+}
+
+// d += a·b as mma_16816, but not volatile: a product has no effect beyond
+// its result, so the compiler may place it after later fragment loads, and
+// a warp's chain of 16-deep steps runs its loads ahead of its products
+// (volatile asm keeps program order: each step would wait out its loads)
+__device__ __forceinline__ void mma_16816_free(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The two halves of a cluster barrier (arrive releases this thread's writes,
@@ -512,9 +541,11 @@ __device__ __forceinline__ float ld(const X* p, size_t i) {
 // row per output column with k contiguous (kNK true: a weight used
 // transposed, fragments by ldmatrix).
 // mma_product_f32add over `tiles` 16-column tiles of w, its sums stored at
-// columns col0 .. of part[s] ([8][ldp] a slice): K2's streamed plan runs it
-// on one chunk of rows at a time; mma_product_f32add is all of w at once.
-template <bool kNK>
+// columns col0 .. of part[s] ([AROW][ldp] a slice): K2's and K13's streamed
+// plans run it on one chunk of rows at a time; mma_product_f32add is all of
+// w at once.  AROW 16: a holds 16 rows, mma's whole A (ldmatrix.x4), and
+// every row of its sums is stored.
+template <bool kNK, int AROW = 8>
 __device__ __forceinline__ void mma_f32add_tiles(const __nv_bfloat16* a, int lda, int depth,
                                                  const __nv_bfloat16* w, int ldw, int tiles,
                                                  Split sp, float* part, int ldp, int col0);
@@ -527,15 +558,17 @@ __device__ __forceinline__ void mma_product_f32add(const __nv_bfloat16* a, int l
   mma_f32add_tiles<kNK>(a, lda, depth, w, ldw, cols / 16, sp, part, cols, 0);
 }
 
-template <bool kNK>
+template <bool kNK, int AROW>
 __device__ __forceinline__ void mma_f32add_tiles(const __nv_bfloat16* a, int lda, int depth,
                                                  const __nv_bfloat16* w, int ldw, int tiles,
                                                  Split sp, float* part, int ldp, int col0) {
+  static_assert(AROW == 8 || AROW == 16, "8 rows, or mma's 16");
   const int lane = threadIdx.x & 31;
   const int steps = cdiv(depth, 16);
   // rows m = lane % 8 at k + 8·(lane / 8 % 2): A's fragments a0 = a1 and
-  // a2 = a3
-  const __nv_bfloat16* a_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
+  // a2 = a3 (AROW 16: rows lane % 16 at k + 8·(lane / 16))
+  const __nv_bfloat16* a_lane = AROW == 8 ? a + (lane & 7) * lda + ((lane >> 3) & 1) * 8
+                                          : a + (lane & 15) * lda + (lane >> 4) * 8;
   // kNK: w rows n = 8·(lane / 16) + lane % 8 at k + 8·((lane / 8) % 2), the
   // four matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15,
   // k 8-15), the b0 and b1 of each 8-column half; else w rows k = lane % 16
@@ -551,9 +584,15 @@ __device__ __forceinline__ void mma_f32add_tiles(const __nv_bfloat16* a, int lda
     // run ahead of the adds
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) {
-      uint32_t fr[2], fb[4];
-      ldsm_x2(fr, a_lane + k * 16);
-      const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
+      uint32_t fa[4], fb[4];
+      if constexpr (AROW == 8) {
+        uint32_t fr[2];
+        ldsm_x2(fr, a_lane + k * 16);
+        fa[0] = fa[1] = fr[0];
+        fa[2] = fa[3] = fr[1];
+      } else {
+        ldsm_x4(fa, a_lane + k * 16);
+      }
       if constexpr (kNK)
         ldsm_x4(fb, w_lane + (size_t)n * 16 * ldw + k * 16);
       else
@@ -566,11 +605,15 @@ __device__ __forceinline__ void mma_f32add_tiles(const __nv_bfloat16* a, int lda
         for (int i = 0; i < 4; ++i) d[h][i] += z[i];
       }
     }
-    // lane holds rows lane / 4 (and + 8: padding, dropped), columns
-    // 2·(lane % 4) and + 1 of each 8-column half
-    float* dst = part + ((size_t)s * 8 + (lane >> 2)) * ldp + col0 + n * 16 + 2 * (lane & 3);
+    // lane holds rows lane / 4 (and + 8: padding, dropped at AROW 8),
+    // columns 2·(lane % 4) and + 1 of each 8-column half
+    float* dst = part + ((size_t)s * AROW + (lane >> 2)) * ldp + col0 + n * 16 + 2 * (lane & 3);
     *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
     *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
+    if constexpr (AROW == 16) {
+      *reinterpret_cast<float2*>(dst + 8 * ldp) = make_float2(d[0][2], d[0][3]);
+      *reinterpret_cast<float2*>(dst + 8 * ldp + 8) = make_float2(d[1][2], d[1][3]);
+    }
   }
 }
 
@@ -867,7 +910,8 @@ cudaError_t cluster_config(K kernel, int batch, int R, int C, size_t smem, cudaS
 
 // ---- the streamed plans (K1, K2, K12, K13): weight slices past shared
 // memory (K1's products: streamed_product_t; K12's: streamed_product; K2's
-// and K13's passes: bwd_dob_pass, bwd_wh_pass) ----
+// passes: bwd_dob_pass, bwd_wh_pass; K13's: bwd_dob_pass and its own
+// stack_wh_pass, lstm_stack_bwd.cu) ----
 //
 // A block keeps the first rows of its wh slice in shared memory and
 // streams the rest of its weights from L2 at every step, in a fixed
@@ -1006,37 +1050,49 @@ __device__ __forceinline__ void streamed_product_t(const __nv_bfloat16* a, int l
   }
 }
 
-// The same with mma_product's roles (K12 on the streamed plan): the <= 8
-// rows of a as mma's A (loaded once by ldmatrix.x2, mma's rows 8-15 their
-// copy, never stored), a 16-column tile of the weights as its B (two n =
-// 8 halves), each k-slice of `per` steps summed by the tensor cores into
-// one accumulator in step order, as mma_product sums it, and the slices
-// added in slice order onto init, as mma_product's reader adds them: a
-// shape that fits both plans gives the same bits on both.  out[r][c] (row
-// stride ldo) for r < 8; warp w owns the tiles w, w + 16, .. (TMAX at
-// most) over the whole depth.
-template <int TMAX, typename Init, typename Issue>
+// The same with mma_product's roles (K12 on the streamed plan): the rows
+// of a as mma's A, a 16-column tile of the weights as its B (two n = 8
+// halves), each k-slice of `per` steps summed by the tensor cores into one
+// accumulator in step order, as mma_product sums it, and the slices added
+// in slice order onto init, as mma_product's reader adds them: a shape
+// that fits both plans gives the same bits on both.  a holds AROW rows
+// (rows past R zero): 8, loaded once by ldmatrix.x2 (mma's rows 8-15 their
+// copy, never stored), or one or two whole 16-row tiles (ldmatrix.x4),
+// which share each B fragment, so one pass over the chunks serves them
+// all.  A row's sums do not depend on the rows beside it, so a row gives
+// the same bits at any AROW.  out[r][c] (row stride ldo) for r < AROW;
+// warp w owns the tiles w, w + 16, .. (TMAX at most) over the whole depth.
+template <int TMAX, int AROW, typename Init, typename Issue>
 __device__ __forceinline__ void streamed_product(const __nv_bfloat16* a, int lda, int depth,
                                                  int cols, int per, const __nv_bfloat16* res_w,
                                                  int ldres, int res, const Ring& ring, int ldw,
                                                  int chunk, int& n, int total, Issue issue,
                                                  Init init, float* out, int ldo) {
+  static_assert(AROW == 8 || AROW == 16 || AROW == 32, "8 rows, or one or two 16-row tiles");
+  constexpr int MT = AROW == 8 ? 1 : AROW / 16;  // mma's 16-row tiles
+  constexpr int RH = AROW == 8 ? 1 : 2;          // rows a lane stores of a tile
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int tm = cols / 16, row = lane >> 2, col = 2 * (lane & 3);
-  float acc[TMAX][2][2], d[TMAX][2][4];
+  float acc[TMAX][MT][2][2 * RH], d[TMAX][MT][2][4];
 #pragma unroll
   for (int i = 0; i < TMAX; ++i) {
     const bool in = warp + kWarps * i < tm;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = (warp + kWarps * i) * 16 + 8 * h + col;
-      acc[i][h][0] = in ? init(row, c) : 0.0f;
-      acc[i][h][1] = in ? init(row, c + 1) : 0.0f;
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) d[i][h][e] = 0.0f;
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int c = (warp + kWarps * i) * 16 + 8 * h + col;
+#pragma unroll
+        for (int e = 0; e < RH; ++e) {
+          acc[i][m][h][2 * e] = in ? init(16 * m + row + 8 * e, c) : 0.0f;
+          acc[i][m][h][2 * e + 1] = in ? init(16 * m + row + 8 * e, c + 1) : 0.0f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[i][m][h][e] = 0.0f;
+      }
   }
-  const __nv_bfloat16* a_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* a_lane = AROW == 8 ? a + (lane & 7) * lda + ((lane >> 3) & 1) * 8
+                                          : a + (lane & 15) * lda + (lane >> 4) * 8;
   const int wrow = lane & 15, wcol = (lane >> 4) * 8;
   stream_pass(cdiv(depth, 16), res_w, ldres, res, ring, ldw, chunk, n, total, issue,
               [&](const __nv_bfloat16* w, int ld, int k, int j) {
@@ -1044,24 +1100,38 @@ __device__ __forceinline__ void streamed_product(const __nv_bfloat16* a, int lda
 #pragma unroll
                   for (int i = 0; i < TMAX; ++i)
 #pragma unroll
-                    for (int h = 0; h < 2; ++h) {
-                      acc[i][h][0] += d[i][h][0];
-                      acc[i][h][1] += d[i][h][1];
+                    for (int m = 0; m < MT; ++m)
 #pragma unroll
-                      for (int e = 0; e < 4; ++e) d[i][h][e] = 0.0f;
-                    }
+                      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                        for (int e = 0; e < 2 * RH; ++e) acc[i][m][h][e] += d[i][m][h][e];
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) d[i][m][h][e] = 0.0f;
+                      }
                 }
-                uint32_t fr[2];
-                ldsm_x2(fr, a_lane + j * 16);
-                const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
+                uint32_t fa[MT][4];
+#pragma unroll
+                for (int m = 0; m < MT; ++m) {
+                  if constexpr (AROW == 8) {
+                    uint32_t fr[2];
+                    ldsm_x2(fr, a_lane + j * 16);
+                    fa[m][0] = fa[m][1] = fr[0];
+                    fa[m][2] = fa[m][3] = fr[1];
+                  } else {
+                    ldsm_x4(fa[m], a_lane + (size_t)m * 16 * lda + j * 16);
+                  }
+                }
 #pragma unroll
                 for (int i = 0; i < TMAX; ++i) {
                   const int t = warp + kWarps * i;
                   if (t < tm) {
                     uint32_t fb[4];
                     ldsm_x4_trans(fb, w + (size_t)(k * 16 + wrow) * ld + wcol + t * 16);
-                    mma_16816(d[i][0], fa, fb[0], fb[1]);
-                    mma_16816(d[i][1], fa, fb[2], fb[3]);
+#pragma unroll
+                    for (int m = 0; m < MT; ++m) {
+                      mma_16816(d[i][m][0], fa[m], fb[0], fb[1]);
+                      mma_16816(d[i][m][1], fa[m], fb[2], fb[3]);
+                    }
                   }
                 }
               });
@@ -1070,20 +1140,26 @@ __device__ __forceinline__ void streamed_product(const __nv_bfloat16* a, int lda
     const int t = warp + kWarps * i;
     if (t < tm)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(out + (size_t)row * ldo + t * 16 + 8 * h + col) =
-            make_float2(acc[i][h][0] + d[i][h][0], acc[i][h][1] + d[i][h][1]);
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < RH; ++e)
+            *reinterpret_cast<float2*>(out + (size_t)(16 * m + row + 8 * e) * ldo + t * 16 +
+                                       8 * h + col) =
+                make_float2(acc[i][m][h][2 * e] + d[i][m][h][2 * e],
+                            acc[i][m][h][2 * e + 1] + d[i][m][h][2 * e + 1]);
   }
 }
 
 // ---- the backwards' passes on the streamed plan (K2, K13) ----
 //
 // dout_blk over proj's chunks of rows (the units), each chunk's sums
-// complete: mma_f32add_tiles over the chunk's 16-row tiles, part[s][8][nd]
+// complete: mma_f32add_tiles over the chunk's 16-row tiles, part[s][AROW][nd]
 // as the resident plans' slices; then the chunk's release (a block barrier,
 // thread 0 issues chunk n + slots below `total`).  np chunks of cu tiles,
 // utiles in all.  Every thread of the block calls it.
-template <typename Issue>
+template <int AROW = 8, typename Issue>
 __device__ __forceinline__ void bwd_dob_pass(const __nv_bfloat16* dq, int lda, int p16,
                                              const Ring& ring, int lpj, int np, int cu,
                                              int utiles, Split dob, float* part, int nd, int& n,
@@ -1091,8 +1167,8 @@ __device__ __forceinline__ void bwd_dob_pass(const __nv_bfloat16* dq, int lda, i
   for (int i = 0; i < np; ++i) {
     ring.wait(n);
     const int t0 = i * cu, nt = min(cu, utiles - t0);
-    mma_f32add_tiles<true>(dq, lda, p16, ring.at<const __nv_bfloat16>(n), lpj, nt, dob, part, nd,
-                           16 * t0);
+    mma_f32add_tiles<true, AROW>(dq, lda, p16, ring.at<const __nv_bfloat16>(n), lpj, nt, dob,
+                                 part, nd, 16 * t0);
     __syncthreads();
     if (threadIdx.x == 0 && n + ring.depth < total) issue(n + ring.depth);
     ++n;

@@ -86,6 +86,32 @@
 // at H = P = 512 with a projection only R = 2 fits beside the slices: the
 // 16-block plans add R = 2, tried last.  Only 7 sixteen-block clusters are
 // resident at once on an H100 SXM: at L = 4 a wave holds one row tile.
+//
+// The streamed plan (bf16 slices past every resident plan, up to 2048
+// units, 128 a block: stack_bwd_streamed_kernel) streams wh, and proj's
+// rows, from L2 at every step as K2's streamed plan does
+// (lstm_bwd_streamed.cu): dout_blk over proj's chunks (bwd_dob_pass), and
+// one pass over wh's rows serving dh_prev and the step before's gate sums
+// (stack_wh_pass: K2's pass, its sums and bits, shaped for 16 rows).
+// Every cluster streams
+// whole slices whatever its rows, so it takes as many rows as shared
+// memory holds: R of {4, 8, 16}, then 2, the fewest waves first, then the
+// smallest (B = 32: R = 16, two waves, at 2048/512 and H = P = 768-1024; a
+// streaming chunk R = 4).  To hold 16 rows beside the ring a block keeps
+// only what it owns: the carry dh and dchain of its own P-slice (without a
+// projection its P-slice is its units), the gate inputs read from L2 as a
+// pass starts, h_prev copied straight into the A operand where the store
+// dtype is bf16.  The pass over wh writes each 16-column tile of the
+// block's dh partial straight into the inboxes of its owners; after the
+// cluster barrier each owner adds the C partials in block order, updates
+// its slice and writes the next step's dout_p of it, rounded, into every
+// block (the A operand of dout_blk), and a second cluster barrier ends the
+// inboxes' reads and makes dout_p whole.  A cell-phase thread owns unit
+// tid % US of rows tid / US, + 512 / US, .. (the unit's constants in
+// registers; its column sums add its rows in row order, then the threads'
+// sums are added in row order); past 8 rows the products' A operands are
+// a whole 16-row tile.  Each row's arithmetic is the same at any R, so
+// dgates, din and the carries are bit-equal across R.
 
 #include <type_traits>
 
@@ -105,16 +131,17 @@ __device__ __forceinline__ float rnd(float v) {
 // (float32, whose slices stay in L2) the rows of din's product staged where
 // bf16 keeps its slices: `staged` floats, kStage rows of the padded P, or
 // where those do not fit (H = P = 2048) the rows the product stages at once
-// (8·kThreads/PS rows of kDinPiece).  The streamed plan (bf16, `stream`): K2's
-// (lstm_bwd_streamed.cu bwd_stream_plan) likewise, gsum [R][G] (the gate
-// sums of the step before) after the inbox, one region of partial sums
-// (dout_blk's slices, or dh's [R][PW], or the column sums), the ring's
-// barriers and slots, then wh's first `res` 16-deep steps (at most `cap`
-// where cap >= 0) at row stride LWH, as the wrapper lays every row out in
-// global memory (proj's rows too, at LPJ); wsteps, gsteps: 16-deep steps
-// of P and of G; utiles: proj's 16-row tiles; cw, cu: steps of wh and
-// tiles of proj a chunk; nw, np: chunks a pass; res_bytes, stream_bytes: a
-// block's weight bytes held, and streamed a step.
+// (8·kThreads/PS rows of kDinPiece).  The streamed plan (bf16, `stream`):
+// the A operands of arow rows (8, or 16 past 8 rows), the buffers of the
+// block's own slices (listed below), gsum [R][G] (the gate sums of the step
+// before), one region of dout_blk's partial sums (the column sums at the
+// end), the ring's barriers and slots, then wh's first `res` 16-deep steps
+// (at most `cap` where cap >= 0) at row stride LWH, as the wrapper lays
+// every row out in global memory (proj's rows too, at LPJ); wsteps,
+// gsteps: 16-deep steps of P and of G; utiles: proj's 16-row tiles; cw,
+// cu: steps of wh and tiles of proj a chunk; nw, np: chunks a pass;
+// res_bytes, stream_bytes: a block's weight bytes held, and streamed a
+// step.
 constexpr int kDinPiece = 64;  // float32 din product: the depth staged at once
 
 struct StackPlan {
@@ -134,14 +161,16 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int
   p.us = round_up(cdiv(H, C), 8);
   p.u16 = round_up(p.us, 16);
   p.g = 4 * p.us;
-  p.ps = round_up(cdiv(P, C), 4);
+  // streamed without a projection: a block's P-slice is its units, whose
+  // dout_p its cell phase reads
+  p.ps = stream && !has_proj ? p.us : round_up(cdiv(P, C), 4);
   p.pw = C * p.ps;
   p.p16 = round_up(P, 16);
   p.nd = kMma<T> ? p.u16 : p.us;
   p.wrows = p.p16 > p.pw ? p.p16 : p.pw;
   const int pad = 16 / (int)sizeof(T);
-  p.arow = kMma<T> ? 8 : R;
-  p.prow = kMma<T> ? 8 : R;
+  p.arow = kMma<T> ? (stream && R > 8 ? 16 : 8) : R;
+  p.prow = p.arow;
   p.lda = p.p16 + pad;
   p.ldg = p.g + pad;
   p.lwh = p.g + pad;
@@ -158,26 +187,28 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int
   }
   const size_t part_g = (size_t)p.gates.slices * p.prow * p.g;
   const size_t part_d = has_proj ? (size_t)p.dob.slices * p.prow * p.nd : 0;
-  const size_t part_h = stream ? (size_t)R * p.pw : (size_t)p.dh.slices * p.prow * p.pw;
-  const size_t sums = (size_t)7 * R * p.us;
-  size_t part = stream ? (part_d > part_h ? part_d : part_h)
-                       : (part_g + part_d > part_h ? part_g + part_d : part_h);
-  part = part > sums ? part : sums;
-  p.off_dq = align128(sizeof(T) * (size_t)p.arow * p.lda);
-  p.off_gq = p.off_dq + align128(sizeof(T) * (size_t)p.arow * p.lda);
-  p.off_dh = p.off_gq + align128(sizeof(T) * (size_t)p.arow * p.ldg);
-  p.off_dnx = p.off_dh + align128(sizeof(float) * (size_t)R * p.pw);
-  p.off_dnx2 = p.off_dnx + align128(sizeof(float) * (size_t)R * p.pw);
-  p.off_hraw = p.off_dnx2 + align128(sizeof(float) * (size_t)R * p.pw);
-  p.off_craw = p.off_hraw + align128(sizeof(S) * (size_t)R * P);
-  p.off_gxs = p.off_craw + align128(sizeof(S) * (size_t)R * p.us);
-  p.off_rows = p.off_gxs + align128(sizeof(float) * (size_t)R * 4 * p.us);
-  p.off_dc = p.off_rows + align128(sizeof(float) * 2 * (size_t)R);
-  p.off_inbox = p.off_dc + align128(sizeof(float) * (size_t)R * p.us);
-  p.off_gsum = p.off_inbox + align128(sizeof(float) * (size_t)C * R * p.ps);
-  p.off_part = p.off_gsum + (stream ? align128(sizeof(float) * (size_t)R * p.g) : 0);
-  p.off_wh = p.off_part + align128(sizeof(float) * part);
   if (stream) {
+    // hq; dq (with a projection); gq; the carry's own slice dh [R][PS];
+    // dchain's own slice [2][R][PS] and c_prev [2][R][US] by step parity;
+    // h_prev staged [R][P] where the store dtype is not the compute dtype;
+    // the masks; dc; the inboxes; gsum; dout_blk's slices, and at the end
+    // the column sums [7][kThreads / US][US]
+    const size_t sums = (size_t)7 * (kThreads / p.us) * p.us;
+    const size_t part = part_d > sums ? part_d : sums;
+    const size_t aq = align128(sizeof(T) * (size_t)p.arow * p.lda);
+    p.off_dq = aq;
+    p.off_gq = p.off_dq + (has_proj ? aq : 0);
+    p.off_dh = p.off_gq + align128(sizeof(T) * (size_t)p.arow * p.ldg);
+    p.off_dnx = p.off_dh + align128(sizeof(float) * (size_t)R * p.ps);
+    p.off_hraw = p.off_dnx + align128(sizeof(float) * 2 * (size_t)R * p.ps);
+    p.off_craw = p.off_hraw +
+        (std::is_same<S, T>::value ? 0 : align128(sizeof(S) * (size_t)R * P));
+    p.off_rows = p.off_craw + align128(sizeof(S) * 2 * (size_t)R * p.us);
+    p.off_dc = p.off_rows + align128(sizeof(float) * 2 * (size_t)R);
+    p.off_inbox = p.off_dc + align128(sizeof(float) * (size_t)R * p.us);
+    p.off_gsum = p.off_inbox + align128(sizeof(float) * (size_t)C * R * p.ps);
+    p.off_part = p.off_gsum + align128(sizeof(float) * (size_t)R * p.g);
+    p.off_wh = p.off_part + align128(sizeof(float) * part);
     p.wsteps = p.p16 / 16;
     p.gsteps = p.g / 16;
     p.utiles = has_proj ? p.u16 / 16 : 0;
@@ -201,6 +232,23 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int
                      (long long)p.utiles * 16 * p.p16 * sizeof(T);
     return p;
   }
+  const size_t part_h = (size_t)p.dh.slices * p.prow * p.pw;
+  const size_t sums = (size_t)7 * R * p.us;
+  size_t part = part_g + part_d > part_h ? part_g + part_d : part_h;
+  part = part > sums ? part : sums;
+  p.off_dq = align128(sizeof(T) * (size_t)p.arow * p.lda);
+  p.off_gq = p.off_dq + align128(sizeof(T) * (size_t)p.arow * p.lda);
+  p.off_dh = p.off_gq + align128(sizeof(T) * (size_t)p.arow * p.ldg);
+  p.off_dnx = p.off_dh + align128(sizeof(float) * (size_t)R * p.pw);
+  p.off_dnx2 = p.off_dnx + align128(sizeof(float) * (size_t)R * p.pw);
+  p.off_hraw = p.off_dnx2 + align128(sizeof(float) * (size_t)R * p.pw);
+  p.off_craw = p.off_hraw + align128(sizeof(S) * (size_t)R * P);
+  p.off_gxs = p.off_craw + align128(sizeof(S) * (size_t)R * p.us);
+  p.off_rows = p.off_gxs + align128(sizeof(float) * (size_t)R * 4 * p.us);
+  p.off_dc = p.off_rows + align128(sizeof(float) * 2 * (size_t)R);
+  p.off_inbox = p.off_dc + align128(sizeof(float) * (size_t)R * p.us);
+  p.off_part = p.off_inbox + align128(sizeof(float) * (size_t)C * R * p.ps);
+  p.off_wh = p.off_part + align128(sizeof(float) * part);
   p.off_pj = p.off_wh + (kMma<T> ? align128(sizeof(T) * (size_t)p.wrows * p.lwh) : 0);
   const size_t end = p.off_pj + (kMma<T> && has_proj ? align128(sizeof(T) * (size_t)p.u16 * p.lpj) : 0);
   p.staged = kStage * p.lin;
@@ -214,10 +262,117 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int
   return p;
 }
 
-// T: the compute dtype (bf16: the products on the tensor cores, the slices
-// in shared memory; float32: FMA, the slices read from L2); S: the store
-// dtype; kStream: the streamed plan (bf16, 16 blocks)
-template <typename T, typename S, int R, int C, bool kStream>
+// din of this block's P-slice (columns p0 .. p0 + np) += dgates·wx_lᵀ over
+// steps t0 .. t0+cnt-1 of the row tile's nr rows from b0: dgates from the
+// compute-dtype ring (ring_row(s, r)), wx_l [P, 4H] from L2; float32 stages
+// the rows in `in_s` (`staged` floats)
+template <typename T, typename RingRow>
+__device__ __forceinline__ void din_steps(int t0, int cnt, int nr, int np, int p0, int H4,
+                                          const T* __restrict__ wx_l, RingRow ring_row,
+                                          float* __restrict__ din_l, int batch, int b0, int P,
+                                          T* in_s, int staged) {
+  const int tid = threadIdx.x;
+  const int rows = cnt * nr;
+  if constexpr (kMma<T>) {
+    // a warp a 16-row, 8-column tile; dgates rows and wx_l rows loaded
+    // from L2 straight into fragments, 16 bytes a lane (frag_step)
+    const int lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
+    const int ntn = cdiv(np, 8);
+    for (int task = tid / 32; task < cdiv(rows, 16) * ntn; task += kWarps) {
+      const int mt = task / ntn, nt = task - mt * ntn;
+      const T* pa[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = mt * 16 + g4 + 8 * h;
+        pa[h] = i < rows ? ring_row(t0 + i / nr, i % nr) + 8 * t4 : nullptr;
+      }
+      const int n = nt * 8 + g4;
+      const T* pb = n < np ? wx_l + (size_t)(p0 + n) * H4 + 8 * t4 : nullptr;
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      // kBatch 32-deep steps at a time, their loads issued together
+      // before the products (the mma asm keeps program order)
+      constexpr int kBatch = 4;
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (int k0 = 0; k0 < H4; k0 += 32 * kBatch) {
+        uint4 qa[kBatch][2], qb[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int k = k0 + 32 * u;
+          const bool in = k + 8 * t4 + 8 <= H4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            qa[u][h] = in && pa[h] ? __ldcg(reinterpret_cast<const uint4*>(pa[h] + k)) : z;
+          qb[u] = in && pb ? __ldg(reinterpret_cast<const uint4*>(pb + k)) : z;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (k0 + 32 * u < H4) frag_step(d, qa[u][0], qa[u][1], qb[u]);
+      }
+      // lane holds rows g4 and g4 + 8, columns 2·t4 and + 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = mt * 16 + g4 + 8 * (e >> 1), c = nt * 8 + 2 * t4 + (e & 1);
+        if (i < rows && c < np) {
+          const int s = t0 + i / nr, r = i % nr;
+          din_l[((size_t)s * batch + b0 + r) * P + p0 + c] += d[e];
+        }
+      }
+    }
+  } else {
+    // float32: the rows staged in shared memory (where bf16 keeps its
+    // weight slices) 64 deep at a time; a thread owns a column and 8 rows,
+    // wx_l's row read from L2 once for the 8
+    constexpr int kPiece = kDinPiece;
+    float* as = reinterpret_cast<float*>(in_s);
+    const int most = min(8 * (kThreads / max(np, 1)), staged / kPiece / 8 * 8);
+    for (int i0 = 0; i0 < rows; i0 += most) {
+      const int nrow = min(most, rows - i0), groups = cdiv(nrow, 8);
+      const bool active = tid < np * groups;
+      const int c = active ? tid % np : 0, rg = active ? tid / np : 0;
+      const float* w = reinterpret_cast<const float*>(wx_l) + (size_t)(p0 + c) * H4;
+      float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int k0 = 0; k0 < H4; k0 += kPiece) {
+        const int kq = min(kPiece, H4 - k0) / 4;
+        __syncthreads();  // the piece before is consumed
+        for (int e = tid; e < nrow * kq; e += kThreads) {
+          const int i = e / kq, k = 4 * (e - i * kq), s = t0 + (i0 + i) / nr;
+          const float* a = reinterpret_cast<const float*>(ring_row(s, (i0 + i) % nr));
+          *reinterpret_cast<float4*>(as + i * kPiece + k) =
+              __ldcg(reinterpret_cast<const float4*>(a + k0 + k));
+        }
+        __syncthreads();
+        if (active) {
+#pragma unroll 4
+          for (int k = 0; k < 4 * kq; k += 4) {
+            const float4 y = __ldg(reinterpret_cast<const float4*>(w + k0 + k));
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const float4 x = *reinterpret_cast<const float4*>(as + (rg * 8 + r) * kPiece + k);
+              acc[r] = fmaf(x.x, y.x, acc[r]);
+              acc[r] = fmaf(x.y, y.y, acc[r]);
+              acc[r] = fmaf(x.z, y.z, acc[r]);
+              acc[r] = fmaf(x.w, y.w, acc[r]);
+            }
+          }
+        }
+      }
+      if (active)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int i = i0 + rg * 8 + r;
+          if (rg * 8 + r < nrow) {
+            const int s = t0 + i / nr;
+            din_l[((size_t)s * batch + b0 + i % nr) * P + p0 + c] += acc[r];
+          }
+        }
+    }
+  }
+}
+
+// The resident plans.  T: the compute dtype (bf16: the products on the
+// tensor cores, the slices in shared memory; float32: FMA, the slices read
+// from L2); S: the store dtype
+template <typename T, typename S, int R, int C>
 __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     const int* __restrict__ seed,     // [1] or null (no dropout)
     const float* __restrict__ gx0,    // [S, B, 4H]
@@ -228,8 +383,8 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     const float* __restrict__ cinit,  // [L·B, H]
     const float* __restrict__ hinit,  // [L·B, P]
     const T* __restrict__ wz,         // [L, 2P, 4H]: wx_l is its first P rows
-    const T* __restrict__ wh_sl,      // [L, C, P16, 4, US] (streamed: [L, C, P16, LWH])
-    const T* __restrict__ pj_sl,      // [L, C, U16, P16] or null (P == H; streamed: LPJ)
+    const T* __restrict__ wh_sl,      // [L, C, P16, 4, US]
+    const T* __restrict__ pj_sl,      // [L, C, U16, P16] or null (P == H)
     const float* __restrict__ bias,   // [L, 4H]
     const float* __restrict__ peep,   // [L, 3, H] or null
     float forget_bias, float keep_prob, int residual,
@@ -250,14 +405,14 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     float* __restrict__ col_part,     // [tiles, L, 7H]
     int* __restrict__ counters,       // [L, tiles, C], zero at the first wave
     int tile0, int tiles, int lag,
-    int cap) {                        // streamed: wh's resident steps at most (-1: as fit)
+    int cap) {                        // ignored: the resident plans hold all of wh
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int l = layers - 1 - (int)blockIdx.y;  // the layers above come first
   const int tile = tile0 + blockIdx.x / C, b0 = tile * R;
   const int nr = min(R, batch - b0);
   const bool has_proj = pj_sl != nullptr;
-  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C, kStream, cap);
+  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C, false, cap);
   const int US = pl.us, G = pl.g, PS = pl.ps, PW = pl.pw, P16 = pl.p16;
   const int prow = pl.prow, nd = pl.nd, H4 = 4 * H;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
@@ -280,19 +435,15 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   float* mask_s = reinterpret_cast<float*>(smem_raw + pl.off_rows);    // [2][R]
   float* dc = reinterpret_cast<float*>(smem_raw + pl.off_dc);    // [R][US]
   float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [C][R][PS]
-  float* gsum = reinterpret_cast<float*>(smem_raw + pl.off_gsum);    // streamed: [R][G]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
-  // dout_blk's partials (streamed: alone in the region, as K2's)
-  float* part_d = kStream ? part : part + (size_t)pl.gates.slices * prow * G;
+  float* part_d = part + (size_t)pl.gates.slices * prow * G;  // dout_blk's partials
   T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_wh);
   T* pj_s = reinterpret_cast<T*>(smem_raw + pl.off_pj);
   T* in_s = wh_s;  // float32: din's staged rows (no slices in shared memory)
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
-  const Ring wring{smem_raw + pl.off_ring, full, pl.slots, pl.slot};
 
   const size_t slot = (size_t)l * C + q;
-  const T* wh_g = wh_sl + slot * (size_t)P16 * (kStream ? pl.lwh : G);
-  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * (kStream ? pl.lpj : P16) : nullptr;
+  const T* wh_g = wh_sl + slot * (size_t)P16 * G;
+  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * P16 : nullptr;
   const T* wx_l = wz + (size_t)l * 2 * P * H4;
   const bool last = l == layers - 1;
   const size_t plane = (size_t)steps * batch * P;  // one layer's din
@@ -311,14 +462,7 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     return ring + ((size_t)((steps - 1 - s) % (2 * lag)) * batch + b0 + r) * H4;
   };
 
-  if constexpr (kStream) {
-    // wh's resident rows, as they lie in global memory
-    copy_rows(wh_s, pl.lwh, wh_g, pl.lwh, 16 * pl.res);
-    if (tid == 0) {
-      for (int i = 0; i < pl.slots; ++i) mbar_init(full + i, 1);
-      mbar_init_fence();
-    }
-  } else if constexpr (kMma<T>) {
+  if constexpr (kMma<T>) {
     copy_rows(wh_s, pl.lwh, wh_g, G, P16);
     for (int i = tid; i < (pl.wrows - P16) * pl.lwh; i += kThreads)
       wh_s[(size_t)P16 * pl.lwh + i] = zero;
@@ -409,36 +553,6 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
       cnext = tt > 0 ? ld(c_raw, (size_t)rb * US + jb) : rnd<S>(cinit[(lrow + rb) * H + ub]);
     }
   };
-  // the streamed plan's chunk sequence: wh's streamed rows for the first
-  // gate sums, then a step at a time proj's rows and wh's streamed rows
-  // (one thread issues each), as K2's
-  const int per_step = pl.np + pl.nw, total = pl.nw + steps * per_step;
-  auto issue = [&](int n) {
-    const int i = n < pl.nw ? pl.np + n : (n - pl.nw) % per_step;
-    if (i < pl.np) {
-      const int r0 = 16 * i * pl.cu, rows = min(16 * pl.cu, pl.u16 - r0);
-      wring.issue(n, pj_g + (size_t)r0 * pl.lpj, sizeof(T) * rows * pl.lpj);
-    } else {
-      const int r0 = 16 * (pl.res + (i - pl.np) * pl.cw), rows = min(16 * pl.cw, P16 - r0);
-      wring.issue(n, wh_g + (size_t)r0 * pl.lwh, sizeof(T) * rows * pl.lwh);
-    }
-  };
-  int chunk = 0;  // the next chunk to read
-  // the streamed plan's pass over wh's rows: dh_prev's partial of this step
-  // into part [R][PW] (with dh_on), the gate sums of the step before
-  // (gx + bias + h_prev · wh_l) into gsum [R][G] (with gate_on)
-  auto wh_pass = [&](bool dh_on, bool gate_on) {
-    if constexpr (kStream)
-      bwd_wh_pass(dh_on, gate_on, hq, pl.lda, gq, pl.ldg, G, pl.wsteps, pl.gsteps, pl.gates,
-                  pl.dh, wh_s, pl.lwh, pl.res, wring, pl.cw, chunk, total, issue,
-                  [&](int r, int c) {
-                    const int k = c / US, j = c - k * US;
-                    return r < nr ? gx_s[(r * 4 + k) * US + j] +
-                                        (j < nu ? bias[(size_t)l * H4 + k * H + u0 + j] : 0.0f)
-                                  : 0.0f;
-                  },
-                  R, gsum, part, PW);
-  };
   auto gate_product = [&]() {
     if constexpr (kMma<T>)
       mma_product_f32add<false>(hq, pl.lda, P16, wh_s, pl.lwh, G, pl.gates, part);
@@ -453,119 +567,17 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
                        inv_keep);
     return v;
   };
-  // din of this block's P-slice += dgates·wx_lᵀ over steps t0 .. t0+cnt-1
   auto din_product = [&](int t0, int cnt) {
-    const int rows = cnt * nr;
-    if constexpr (kMma<T>) {
-      // a warp a 16-row, 8-column tile; dgates rows and wx_l rows loaded
-      // from L2 straight into fragments, 16 bytes a lane (frag_step)
-      const int lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
-      const int ntn = cdiv(np, 8);
-      for (int task = tid / 32; task < cdiv(rows, 16) * ntn; task += kWarps) {
-        const int mt = task / ntn, nt = task - mt * ntn;
-        const T* pa[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = mt * 16 + g4 + 8 * h;
-          pa[h] = i < rows ? ring_row(t0 + i / nr, i % nr) + 8 * t4 : nullptr;
-        }
-        const int n = nt * 8 + g4;
-        const T* pb = n < np ? wx_l + (size_t)(p0 + n) * H4 + 8 * t4 : nullptr;
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        // kBatch 32-deep steps at a time, their loads issued together
-        // before the products (the mma asm keeps program order)
-        constexpr int kBatch = 4;
-        const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-        for (int k0 = 0; k0 < H4; k0 += 32 * kBatch) {
-          uint4 qa[kBatch][2], qb[kBatch];
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            const int k = k0 + 32 * u;
-            const bool in = k + 8 * t4 + 8 <= H4;
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-              qa[u][h] = in && pa[h] ? __ldcg(reinterpret_cast<const uint4*>(pa[h] + k)) : z;
-            qb[u] = in && pb ? __ldg(reinterpret_cast<const uint4*>(pb + k)) : z;
-          }
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u)
-            if (k0 + 32 * u < H4) frag_step(d, qa[u][0], qa[u][1], qb[u]);
-        }
-        // lane holds rows g4 and g4 + 8, columns 2·t4 and + 1
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = mt * 16 + g4 + 8 * (e >> 1), c = nt * 8 + 2 * t4 + (e & 1);
-          if (i < rows && c < np) {
-            const int s = t0 + i / nr, r = i % nr;
-            din_l[((size_t)s * batch + b0 + r) * P + p0 + c] += d[e];
-          }
-        }
-      }
-    } else {
-      // float32: the rows staged in shared memory (where bf16 keeps its
-      // weight slices) 64 deep at a time; a thread owns a column and 8 rows,
-      // wx_l's row read from L2 once for the 8
-      constexpr int kPiece = kDinPiece;
-      float* as = reinterpret_cast<float*>(in_s);
-      const int most = min(8 * (kThreads / max(np, 1)), pl.staged / kPiece / 8 * 8);
-      for (int i0 = 0; i0 < rows; i0 += most) {
-        const int nrow = min(most, rows - i0), groups = cdiv(nrow, 8);
-        const bool active = tid < np * groups;
-        const int c = active ? tid % np : 0, rg = active ? tid / np : 0;
-        const float* w = reinterpret_cast<const float*>(wx_l) + (size_t)(p0 + c) * H4;
-        float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        for (int k0 = 0; k0 < H4; k0 += kPiece) {
-          const int kq = min(kPiece, H4 - k0) / 4;
-          __syncthreads();  // the piece before is consumed
-          for (int e = tid; e < nrow * kq; e += kThreads) {
-            const int i = e / kq, k = 4 * (e - i * kq), s = t0 + (i0 + i) / nr;
-            const float* a = reinterpret_cast<const float*>(ring_row(s, (i0 + i) % nr));
-            *reinterpret_cast<float4*>(as + i * kPiece + k) =
-                __ldcg(reinterpret_cast<const float4*>(a + k0 + k));
-          }
-          __syncthreads();
-          if (active) {
-#pragma unroll 4
-            for (int k = 0; k < 4 * kq; k += 4) {
-              const float4 y = __ldg(reinterpret_cast<const float4*>(w + k0 + k));
-#pragma unroll
-              for (int r = 0; r < 8; ++r) {
-                const float4 x = *reinterpret_cast<const float4*>(as + (rg * 8 + r) * kPiece + k);
-                acc[r] = fmaf(x.x, y.x, acc[r]);
-                acc[r] = fmaf(x.y, y.y, acc[r]);
-                acc[r] = fmaf(x.z, y.z, acc[r]);
-                acc[r] = fmaf(x.w, y.w, acc[r]);
-              }
-            }
-          }
-        }
-        if (active)
-#pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            const int i = i0 + rg * 8 + r;
-            if (rg * 8 + r < nrow) {
-              const int s = t0 + i / nr;
-              din_l[((size_t)s * batch + b0 + i % nr) * P + p0 + c] += acc[r];
-            }
-          }
-      }
-    }
+    din_steps(t0, cnt, nr, np, p0, H4, wx_l, ring_row, din_l, batch, b0, P, in_s, pl.staged);
   };
 
   cluster.sync();  // every block is resident and initialised
-  if constexpr (kStream) {
-    if (tid == 0)
-      for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
-  }
   if (steps > 0) {
     fetch_step(steps - 1);
     land_step(steps - 1);
     stash_step(steps - 1);
     __syncthreads();
-    if constexpr (kStream)
-      wh_pass(false, true);
-    else
-      gate_product();
+    gate_product();
   }
   __syncthreads();
 
@@ -592,18 +604,13 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     }
     __syncthreads();
 
-    // 2. dout_blk of the owned units (streamed: over proj's chunks of rows)
+    // 2. dout_blk of the owned units
     if (has_proj) {
-      if constexpr (kStream) {
-        bwd_dob_pass(dq, pl.lda, P16, wring, pl.lpj, pl.np, pl.cu, pl.utiles, pl.dob, part_d, nd,
-                     chunk, total, issue);
-      } else {
-        if constexpr (kMma<T>)
-          mma_product_f32add<true>(dq, pl.lda, P16, pj_s, pl.lpj, nd, pl.dob, part_d);
-        else
-          fma_product_nk<R>(dq, pl.lda, P16, pj_g, P16, nd, pl.u16, pl.dob, part_d);
-        __syncthreads();
-      }
+      if constexpr (kMma<T>)
+        mma_product_f32add<true>(dq, pl.lda, P16, pj_s, pl.lpj, nd, pl.dob, part_d);
+      else
+        fma_product_nk<R>(dq, pl.lda, P16, pj_g, P16, nd, pl.u16, pl.dob, part_d);
+      __syncthreads();
     }
 
     // 3. the cell backward of the owned units
@@ -613,14 +620,9 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
         float gate[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          float v;
-          if constexpr (kStream) {
-            v = gsum[(size_t)rb * G + k * US + jb];
-          } else {
-            v = gnext[k];
-            for (int s = 0; s < pl.gates.slices; ++s)
-              v += part[((size_t)s * prow + rb) * G + k * US + jb];
-          }
+          float v = gnext[k];
+          for (int s = 0; s < pl.gates.slices; ++s)
+            v += part[((size_t)s * prow + rb) * G + k * US + jb];
           gate[k] = v;
         }
         const float m = mask_s[(t & 1) * R + rb];
@@ -675,40 +677,25 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     __syncthreads();
 
     // 4. this block's partial dh_prev: dgates_q · wh_qᵀ, [R, PW]
-    // (streamed: the step before's staged loads first, then one pass over
-    // wh for dh_prev and the step before's gate sums)
     float* part_h = part;
-    if constexpr (kStream) {
-      if (t > 0) {
-        land_step(t - 1);
-        stash_step(t - 1);
-        __syncthreads();
-      }
-      wh_pass(true, t > 0);
-    } else {
-      if constexpr (kMma<T>)
-        mma_product_f32add<true>(gq, pl.ldg, G, wh_s, pl.lwh, PW, pl.dh, part_h);
-      else
-        fma_product_nk<R>(gq, pl.ldg, G, wh_g, G, PW, P16, pl.dh, part_h);
-      __syncthreads();
-    }
+    if constexpr (kMma<T>)
+      mma_product_f32add<true>(gq, pl.ldg, G, wh_s, pl.lwh, PW, pl.dh, part_h);
+    else
+      fma_product_nk<R>(gq, pl.ldg, G, wh_g, G, PW, P16, pl.dh, part_h);
+    __syncthreads();
 
     // 5a. reduce-scatter: each P-slice's partial into its owner's inbox
     const int quads = PW / 4;
     for (int i = tid; i < nr * quads; i += kThreads) {
       const int r = i / quads, p = 4 * (i - r * quads);
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if constexpr (kStream) {
-        if (p < P16) v = *reinterpret_cast<const float4*>(part_h + (size_t)r * PW + p);
-      } else {
-        for (int s = 0; s < pl.dh.slices; ++s) {
-          const float4 w =
-              *reinterpret_cast<const float4*>(part_h + ((size_t)s * prow + r) * PW + p);
-          v.x += w.x;
-          v.y += w.y;
-          v.z += w.z;
-          v.w += w.w;
-        }
+      for (int s = 0; s < pl.dh.slices; ++s) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(part_h + ((size_t)s * prow + r) * PW + p);
+        v.x += w.x;
+        v.y += w.y;
+        v.z += w.z;
+        v.w += w.w;
       }
       const int owner = p / PS;
       float* dst = cluster.map_shared_rank(inbox, owner) + ((size_t)q * R + r) * PS + p - owner * PS;
@@ -717,19 +704,15 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
     // at the end of a chunk the ring's dgates are read by every block of
     // the cluster
     if (chunk_end) __threadfence();
-    if constexpr (kStream) {
-      cluster.sync();
-    } else {
-      __syncthreads();  // part_h is read before the next gate sums overwrite it
-      cluster_arrive();
-      if (t > 0) {
-        land_step(t - 1);
-        stash_step(t - 1);
-        __syncthreads();
-        gate_product();
-      }
-      cluster_wait();
+    __syncthreads();  // part_h is read before the next gate sums overwrite it
+    cluster_arrive();
+    if (t > 0) {
+      land_step(t - 1);
+      stash_step(t - 1);
+      __syncthreads();
+      gate_product();
     }
+    cluster_wait();
 
     // 5b. the C partials of the owned slice, in block order; the carry
     // update; the new slice into every block
@@ -786,6 +769,568 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   }
 }
 
+// The streamed plan's pass over wh's rows p: K2's (lstm_cluster.cuh
+// bwd_wh_pass: one pass serves dh_prev's partial and the step before's
+// gate sums, in the resident plans' k-slices, so with their bits), with A
+// operands of AROW rows (8 loaded once for mma's 16, or a whole 16-row
+// tile) and shaped for 16 rows: the gate sums' init and finished slices
+// are held in gsum (each lane its own elements), not in registers; the 16
+// columns p of a chunk's tile j feed dh_prev on two warps, 15 - (2·j + h)
+// % 16 for the 8-column half h, each summing its half over the depth in
+// one chain; the products are not volatile, so a warp's loads run ahead.
+// dh_prev's sums of rows r < rows go to put_dh(r, p, columns p and p + 1).
+template <int AROW, typename Init, typename Issue, typename PutDh>
+__device__ __forceinline__ void stack_wh_pass(bool dh_on, bool gate_on,
+                                              const __nv_bfloat16* hq, int lda,
+                                              const __nv_bfloat16* gq, int ldg, int G,
+                                              int wsteps, int gsteps, Split gates, Split dh,
+                                              const __nv_bfloat16* res_w, int lws, int res,
+                                              const Ring& ring, int cw, int& n, int total,
+                                              Issue issue, Init init, int rows, float* gsum,
+                                              PutDh put_dh) {
+  static_assert(AROW == 8 || AROW == 16, "8 rows, or mma's 16");
+  constexpr int RH = AROW == 8 ? 1 : 2;  // rows a lane stores: lane / 4 (and + 8)
+  typedef __nv_bfloat16 T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int gtiles = G / 16, row = lane >> 2, col = 2 * (lane & 3);
+  // A's rows: lane % 8 at k + 8·(lane / 8 % 2) (AROW 16: lane % 16 at k +
+  // 8·(lane / 16))
+  const int a_row = AROW == 8 ? lane & 7 : lane & 15;
+  const int a_off = AROW == 8 ? ((lane >> 3) & 1) * 8 : (lane >> 4) * 8;
+  const T* a_h = hq + a_row * lda + a_off;
+  const T* a_g = gq + a_row * ldg + a_off;
+  auto frag_a = [&](uint32_t (&fa)[4], const T* p) {
+    if constexpr (AROW == 8) {
+      uint32_t fr[2];
+      ldsm_x2(fr, p);
+      fa[0] = fa[1] = fr[0];
+      fa[2] = fa[3] = fr[1];
+    } else {
+      ldsm_x4(fa, p);
+    }
+  };
+  // the lane's gate-sum elements: tile i, half h, element e (rows row and
+  // row + 8, columns c and c + 1)
+  auto gate_at = [&](int i, int h, int e, int& r, int& c) {
+    const int t = warp + kWarps * i;
+    r = row + 8 * (e >> 1);
+    c = t * 16 + 8 * h + col + (e & 1);
+    return gate_on && t < gtiles && r < rows;
+  };
+  float gd[2][2][2 * RH];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2 * RH; ++e) {
+        int r, c;
+        if (gate_at(i, h, e, r, c)) gsum[(size_t)r * G + c] = init(r, c);
+        gd[i][h][e] = 0.0f;
+      }
+  // add the slice's sums onto gsum
+  auto flush = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2 * RH; ++e) {
+          int r, c;
+          if (gate_at(i, h, e, r, c)) gsum[(size_t)r * G + c] += gd[i][h][e];
+          gd[i][h][e] = 0.0f;
+        }
+  };
+  stream_pass(wsteps, res_w, lws, res, ring, lws, cw, n, total, issue,
+              [&](const T* w, int ldw, int k, int j) {
+    if (gate_on) {
+      if (j > 0 && j % gates.per == 0) flush();
+      uint32_t fa[4];
+      frag_a(fa, a_h + j * 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = warp + kWarps * i;
+        if (t < gtiles) {
+          uint32_t fb[4];
+          ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_16816_free(z, fa, fb[2 * h], fb[2 * h + 1]);
+#pragma unroll
+            for (int e = 0; e < 2 * RH; ++e) gd[i][h][e] += z[e];
+          }
+        }
+      }
+    }
+    if (dh_on) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (warp != kWarps - 1 - (2 * j + h) % kWarps) continue;
+        // B: wh's rows n = 16·k + 8·h + lane % 8 at k + 8·(lane / 8 % 2)
+        const T* w_lane = w + (size_t)(k * 16 + 8 * h + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8;
+        // each k-slice's steps summed in order into d (a zero
+        // accumulator a step, as mma_f32add_tiles), the slices in order
+        // into acc; a step's fragments are loaded while the step before
+        // multiplies
+        float acc[2 * RH];
+#pragma unroll
+        for (int e = 0; e < 2 * RH; ++e) acc[e] = 0.0f;
+        for (int s0 = 0; s0 < gsteps; s0 += dh.per) {
+          const int s1 = min(gsteps, s0 + dh.per);
+          float d[2 * RH];
+#pragma unroll
+          for (int e = 0; e < 2 * RH; ++e) d[e] = 0.0f;
+          auto step = [&](const uint32_t (&fa)[4], const uint32_t (&fb)[2]) {
+            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_16816_free(z, fa, fb[0], fb[1]);
+#pragma unroll
+            for (int e = 0; e < 2 * RH; ++e) d[e] += z[e];
+          };
+          uint32_t fa0[4], fb0[2], fa1[4], fb1[2];
+          frag_a(fa0, a_g + s0 * 16);
+          ldsm_x2(fb0, w_lane + s0 * 16);
+          int kk = s0;
+          for (; kk + 1 < s1; kk += 2) {
+            frag_a(fa1, a_g + (kk + 1) * 16);
+            ldsm_x2(fb1, w_lane + (kk + 1) * 16);
+            step(fa0, fb0);
+            if (kk + 2 < s1) {
+              frag_a(fa0, a_g + (kk + 2) * 16);
+              ldsm_x2(fb0, w_lane + (kk + 2) * 16);
+            }
+            step(fa1, fb1);
+          }
+          if (kk < s1) step(fa0, fb0);
+#pragma unroll
+          for (int e = 0; e < 2 * RH; ++e) acc[e] += d[e];
+        }
+#pragma unroll
+        for (int e = 0; e < RH; ++e)
+          if (row + 8 * e < rows)
+            put_dh(row + 8 * e, 16 * j + 8 * h + col, acc[2 * e], acc[2 * e + 1]);
+      }
+    }
+  });
+  if (gate_on) flush();
+  __syncthreads();
+}
+
+// The streamed plan (bf16, 16 blocks, R of {2, 4, 8, 16}; S: the store
+// dtype): the resident plans' step, with wh streamed as K2's streamed plan
+// streams it and the buffers of the R rows cut to what a block owns, so
+// that a cluster of 16 rows fits beside the ring (see the design notes at
+// the top).
+template <typename S, int R>
+__global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
+    const int* __restrict__ seed, const float* __restrict__ gx0, const float* __restrict__ mask,
+    const S* __restrict__ chain, const S* __restrict__ c_all, const S* __restrict__ h_all,
+    const float* __restrict__ cinit, const float* __restrict__ hinit,
+    const __nv_bfloat16* __restrict__ wz,
+    const __nv_bfloat16* __restrict__ wh_sl,  // [L, C, P16, LWH]
+    const __nv_bfloat16* __restrict__ pj_sl,  // [L, C, U16, LPJ] or null (P == H)
+    const float* __restrict__ bias, const float* __restrict__ peep, float forget_bias,
+    float keep_prob, int residual, const float* __restrict__ dout,
+    const float* __restrict__ dcfin, const float* __restrict__ dhfin, int steps, int layers,
+    int batch, int H, int P, S* __restrict__ dgates, __nv_bfloat16* __restrict__ outb_st,
+    __nv_bfloat16* __restrict__ doutp_st, float* __restrict__ dcinit,
+    float* __restrict__ dhinit, float* __restrict__ din, float* __restrict__ dc_in,
+    float* __restrict__ dh_in, const float* __restrict__ gxl, __nv_bfloat16* __restrict__ dgc,
+    float* __restrict__ col_part, int* __restrict__ counters, int tile0, int tiles, int lag,
+    int cap) {
+  typedef __nv_bfloat16 T;
+  constexpr int C = kWideCluster;
+  constexpr int kArow = R > 8 ? 16 : 8;  // the products' rows of A
+  constexpr int kRows = cell_rows(R);    // a cell-phase thread's rows at most
+  constexpr bool kStaged = !std::is_same<S, T>::value;  // h_prev staged, then rounded
+  static_assert(R <= 16, "one 16-row tile of mma's A");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const int l = layers - 1 - (int)blockIdx.y;  // the layers above come first
+  const int tile = tile0 + blockIdx.x / C, b0 = tile * R;
+  const int nr = min(R, batch - b0);
+  const bool has_proj = pj_sl != nullptr;
+  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C, true, cap);
+  const int US = pl.us, G = pl.g, PS = pl.ps, P16 = pl.p16, nd = pl.nd, H4 = 4 * H;
+  const int u0 = q * US, nu = max(0, min(US, H - u0));
+  const int p0 = q * PS, np = max(0, min(PS, P - p0));
+  const int tid = threadIdx.x;
+  const size_t LB = (size_t)layers * batch, lrow = (size_t)l * batch + b0;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* hq = reinterpret_cast<T*>(smem_raw);                  // [kArow][lda] h_prev
+  T* dq = reinterpret_cast<T*>(smem_raw + pl.off_dq);      // [kArow][lda] dout_p (proj)
+  T* gq = reinterpret_cast<T*>(smem_raw + pl.off_gq);      // [kArow][ldg] dgates
+  float* dh = reinterpret_cast<float*>(smem_raw + pl.off_dh);    // [R][PS] the carry's slice
+  float* dnx = reinterpret_cast<float*>(smem_raw + pl.off_dnx);  // [2][R][PS] dchain's slice
+  S* h_raw = reinterpret_cast<S*>(smem_raw + pl.off_hraw);       // [R][P] (kStaged)
+  S* c_raw = reinterpret_cast<S*>(smem_raw + pl.off_craw);       // [2][R][US] c_prev
+  float* mask_s = reinterpret_cast<float*>(smem_raw + pl.off_rows);  // [2][R]
+  float* dc = reinterpret_cast<float*>(smem_raw + pl.off_dc);        // [R][US]
+  float* inbox = reinterpret_cast<float*>(smem_raw + pl.off_inbox);  // [C][R][PS]
+  float* gsum = reinterpret_cast<float*>(smem_raw + pl.off_gsum);    // [R][G]
+  float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);    // dout_blk's slices
+  T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_wh);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
+  const Ring wring{smem_raw + pl.off_ring, full, pl.slots, pl.slot};
+
+  const size_t slot = (size_t)l * C + q;
+  const T* wh_g = wh_sl + slot * (size_t)P16 * pl.lwh;
+  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * pl.lpj : nullptr;
+  const T* wx_l = wz + (size_t)l * 2 * P * H4;
+  const bool last = l == layers - 1;
+  const size_t plane = (size_t)steps * batch * P;  // one layer's din
+  float* din_l = din + (size_t)l * plane;
+  const float* din_above = last ? nullptr : din + (size_t)(l + 1) * plane;
+  const float* gx_src = l > 0 ? gxl + (size_t)(l - 1) * steps * batch * H4 : gx0;
+  const float* bias_l = bias + (size_t)l * H4;
+  T* ring = dgc + (size_t)l * 2 * lag * batch * H4;
+  const bool res = l > 0 && ((residual >> l) & 1);
+  const bool drop = seed != nullptr && keep_prob < 1.0f;
+  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
+  const float inv_keep = 1.0f / keep_prob;
+  int* const above = last ? nullptr : counters + ((size_t)(l + 1) * tiles + tile) * C;
+  int* const mine = counters + ((size_t)l * tiles + tile) * C + q;
+  const T zero = Dtype<T>::from_float(0.0f);
+  auto ring_row = [&](int s, int r) {
+    return ring + ((size_t)((steps - 1 - s) % (2 * lag)) * batch + b0 + r) * H4;
+  };
+
+  // wh's resident rows, as they lie in global memory; the carries' slices
+  copy_rows(wh_s, pl.lwh, wh_g, pl.lwh, 16 * pl.res);
+  if (tid == 0) {
+    for (int i = 0; i < pl.slots; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+  }
+  for (int i = tid; i < kArow * pl.lda; i += kThreads) {
+    hq[i] = zero;
+    if (has_proj) dq[i] = zero;
+  }
+  for (int i = tid; i < kArow * pl.ldg; i += kThreads) gq[i] = zero;
+  for (int i = tid; i < R * PS; i += kThreads) {
+    const int r = i / PS, c = i - r * PS;
+    dh[i] = r < nr && c < np ? dhfin[(lrow + r) * P + p0 + c] : 0.0f;
+  }
+  for (int i = tid; i < R * US; i += kThreads) {
+    const int r = i / US, j = i - r * US;
+    dc[i] = r < nr && j < nu ? dcfin[(lrow + r) * H + u0 + j] : 0.0f;
+  }
+
+  // the cell phase: thread tid owns unit jb of rows rb0, rb0 + RS, .. below
+  // nr
+  const int RS = kThreads / US, rb0 = tid / US, jb = tid - rb0 * US;
+  const bool in_b = rb0 < RS, own_u = jb < nu;
+  const int ub = u0 + jb;
+  const float* pd = peep ? peep + (size_t)l * 3 * H : nullptr;
+  // the column sums over dgates as stored (dbias i, j, f, o; the peephole
+  // sums i, f, o) of the thread's rows, added in row order
+  float sums[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+
+  // the chain cotangent entering step tt at (row r, owned column c)
+  auto dchain = [&](int tt, int r, int c) {
+    float v = dnx[((tt & 1) * R + r) * PS + c];
+    if (drop)
+      v *= drop_factor((uint32_t)((size_t)tt * LB + lrow + r), (uint32_t)(p0 + c), sd,
+                       keep_prob, inv_keep);
+    return v;
+  };
+  // What step tt reads that no carry feeds: dchain of the owned P-slice
+  // (layer l+1's din at tt+1, once its blocks have counted it, or dout),
+  // the previous h (straight into hq where the store dtype is bf16) and the
+  // owned units' previous c, by cp.async a step ahead (4 elements a copy;
+  // at tt = 0 the initial states, rounded to the store dtype).
+  float mask_next = 0.0f;  // thread r < nr: row r's mask at the step fetched
+  int seen = 0;            // thread q < C: the count last read of block q above
+  auto fetch_step = [&](int tt) {
+    if (!last && tt + 1 < steps) wait_blocks<C>(above, steps - 1 - tt, seen);
+    const size_t r0 = (size_t)tt * LB + lrow, rp = r0 - LB;
+    const size_t d0 = ((size_t)(last ? tt : tt + 1) * batch + b0) * P + p0;
+    const float* dsrc = last ? dout + d0 : (tt + 1 < steps ? din_above + d0 : nullptr);
+    if (tid < nr) mask_next = mask[r0 + tid];
+    float* dn = dnx + (size_t)(tt & 1) * R * PS;
+    const int cq = np / 4;
+    for (int i = tid; i < nr * cq; i += kThreads) {
+      const int r = i / cq, c = 4 * (i - r * cq);
+      if (dsrc)
+        cp_async4(dn + r * PS + c, dsrc + (size_t)r * P + c);
+      else
+        *reinterpret_cast<float4*>(dn + r * PS + c) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    const int pq = P / 4;
+    for (int i = tid; i < nr * pq; i += kThreads) {
+      const int r = i / pq, p = 4 * (i - r * pq);
+      S* dst;
+      if constexpr (kStaged)
+        dst = h_raw + r * P + p;
+      else
+        dst = hq + r * pl.lda + p;
+      if (tt > 0) {
+        cp_async4(dst, h_all + (rp + r) * P + p);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = Dtype<S>::from_float(hinit[(lrow + r) * P + p + e]);
+      }
+    }
+    S* cn = c_raw + (size_t)(tt & 1) * R * US;
+    const int uq = nu / 4;
+    for (int i = tid; i < nr * uq; i += kThreads) {
+      const int r = i / uq, j = 4 * (i - r * uq);
+      if (tt > 0) {
+        cp_async4(cn + r * US + j, c_all + (rp + r) * H + u0 + j);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cn[r * US + j + e] = Dtype<S>::from_float(cinit[(lrow + r) * H + u0 + j + e]);
+      }
+    }
+    cp_async_commit();
+  };
+  auto land_step = [&](int tt) {
+    cp_async_wait_all();
+    if (tid < nr) mask_s[(tt & 1) * R + tid] = mask_next;
+    __syncthreads();
+    if constexpr (kStaged) {
+      for (int i = tid; i < nr * P; i += kThreads) {
+        const int r = i / P, p = i - r * P;
+        hq[r * pl.lda + p] = Dtype<T>::from_float(ld(h_raw, (size_t)r * P + p));
+      }
+      __syncthreads();
+    }
+  };
+  // the chunk sequence: wh's streamed rows for the first gate sums, then a
+  // step at a time proj's rows and wh's streamed rows (one thread issues
+  // each), as K2's
+  const int per_step = pl.np + pl.nw, total = pl.nw + steps * per_step;
+  auto issue = [&](int n) {
+    const int i = n < pl.nw ? pl.np + n : (n - pl.nw) % per_step;
+    if (i < pl.np) {
+      const int r0 = 16 * i * pl.cu, rows = min(16 * pl.cu, pl.u16 - r0);
+      wring.issue(n, pj_g + (size_t)r0 * pl.lpj, sizeof(T) * rows * pl.lpj);
+    } else {
+      const int r0 = 16 * (pl.res + (i - pl.np) * pl.cw), rows = min(16 * pl.cw, P16 - r0);
+      wring.issue(n, wh_g + (size_t)r0 * pl.lwh, sizeof(T) * rows * pl.lwh);
+    }
+  };
+  int chunk = 0;  // the next chunk to read
+  // the pass over wh's rows: this step's partial dh_prev = dgates_q · wh_qᵀ
+  // straight into the owners' inboxes (with dh_on; inbox[q] of the owner of
+  // each P-slice), and the gate sums of step tt >= 0 (gx + bias + h_prev ·
+  // wh_l, gx read from L2 as the pass starts) into gsum
+  auto wh_pass = [&](bool dh_on, int tt) {
+    stack_wh_pass<kArow>(
+        dh_on, tt >= 0, hq, pl.lda, gq, pl.ldg, G, pl.wsteps, pl.gsteps, pl.gates, pl.dh, wh_s,
+        pl.lwh, pl.res, wring, pl.cw, chunk, total, issue,
+        [&](int r, int c) {
+          const int k = c / US, j = c - k * US;
+          return r < nr && j < nu
+                     ? __ldg(gx_src + ((size_t)tt * batch + b0 + r) * H4 + k * H + u0 + j) +
+                           __ldg(bias_l + k * H + u0 + j)
+                     : 0.0f;
+        },
+        nr, gsum,
+        [&](int r, int p, float v0, float v1) {
+          const int owner = p / PS;
+          float* dst = cluster.map_shared_rank(inbox, owner) + ((size_t)q * R + r) * PS + p -
+                       owner * PS;
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        });
+  };
+  // dout_p of step tt at row r, owned columns c .. c+3, from the carry's
+  // slice v, rounded, into every block's dq (the A operand of dout_blk).
+  // dchain's dropout product is rounded before the add, as the resident
+  // plans round it (their dchain value has other uses there): an FMA here
+  // would round dout_p otherwise now and then
+  auto share_dq = [&](int tt, int r, int c, const float (&v)[4]) {
+    const float m = mask_s[(tt & 1) * R + r];
+    __align__(8) T x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float d = dnx[((tt & 1) * R + r) * PS + c + e];
+      if (drop)
+        d = __fmul_rn(d, drop_factor((uint32_t)((size_t)tt * LB + lrow + r), (uint32_t)(p0 + c + e),
+                                     sd, keep_prob, inv_keep));
+      x[e] = Dtype<T>::from_float(m * __fadd_rn(d, v[e]));
+    }
+    const uint2 word = *reinterpret_cast<const uint2*>(x);
+    for (int b = 0; b < C; ++b)
+      *reinterpret_cast<uint2*>(cluster.map_shared_rank(dq, b) + r * pl.lda + p0 + c) = word;
+  };
+  auto din_product = [&](int t0, int cnt) {
+    din_steps<T>(t0, cnt, nr, np, p0, H4, wx_l, ring_row, din_l, batch, b0, P, nullptr, 0);
+  };
+
+  cluster.sync();  // every block is resident and initialised
+  if (tid == 0)
+    for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
+  const int nq = np / 4;  // the owned P-slice's quads of columns
+  fetch_step(steps - 1);
+  land_step(steps - 1);
+  if (has_proj)
+    for (int i = tid; i < nr * nq; i += kThreads) {
+      const int r = i / nq, c = 4 * (i - r * nq);
+      const float v[4] = {dh[r * PS + c], dh[r * PS + c + 1], dh[r * PS + c + 2],
+                          dh[r * PS + c + 3]};
+      share_dq(steps - 1, r, c, v);
+    }
+  cluster.sync();  // the first step's dout_p in every block
+  wh_pass(false, steps - 1);
+
+  for (int t = steps - 1; t >= 0; --t) {
+    const size_t row0 = (size_t)t * LB + lrow;   // rows of [S, L·B, ·]
+    const size_t brow = (size_t)t * batch + b0;  // rows of [S, B, ·]
+    const int done = steps - t;                   // steps finished after this one
+    const bool chunk_end = l > 0 && (done % lag == 0 || t == 0);
+    if (t > 0) fetch_step(t - 1);
+
+    // 1. the stashes and din's residual part of the owned P-slice
+    for (int i = tid; i < nr * np; i += kThreads) {
+      const int r = i / np, c = i - r * np, p = p0 + c;
+      const float dcv = dchain(t, r, c), dhv = dh[r * PS + c];
+      if (doutp_st) doutp_st[(row0 + r) * P + p] = dq[r * pl.lda + p];
+      if (dh_in) dh_in[(row0 + r) * P + p] = dhv;
+      if (l > 0) din_l[(brow + r) * P + p] = res ? dcv : 0.0f;
+    }
+
+    // 2. dout_blk of the owned units, over proj's chunks of rows
+    if (has_proj)
+      bwd_dob_pass<kArow>(dq, pl.lda, P16, wring, pl.lpj, pl.np, pl.cu, pl.utiles, pl.dob, part,
+                          nd, chunk, total, issue);
+
+    // 3. the cell backward of the owned units, a thread's rows in turn, the
+    // unit's peepholes in registers for them (loaded a step at a time: none
+    // stays live through the pass over wh)
+    float pi = 0.0f, pf = 0.0f, po = 0.0f;
+    if (pd && in_b && own_u) {
+      pi = __ldg(pd + ub);
+      pf = __ldg(pd + H + ub);
+      po = __ldg(pd + 2 * H + ub);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int rb = rb0 + i * RS;
+      if (!in_b || rb >= nr) break;
+      float dgv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (own_u) {
+        float gate[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) gate[k] = gsum[(size_t)rb * G + k * US + jb];
+        const float m = mask_s[(t & 1) * R + rb];
+        const float c0 = ld(c_raw, ((size_t)(t & 1) * R + rb) * US + jb);
+        // the resident plans' statements in their order, as written there:
+        // the compiler contracts them alike, so the plans give the same bits
+        gate[0] += pi * c0;
+        gate[2] += pf * c0;
+        const float si = sigmoidf(gate[0]), tj = tanhf(gate[1]);
+        const float sf = sigmoidf(gate[2] + forget_bias);
+        const float cn = sf * c0 + si * tj;
+        gate[3] += po * cn;
+        const float so = sigmoidf(gate[3]), tc = tanhf(cn);
+        float db;
+        if (has_proj) {
+          db = 0.0f;
+          for (int s = 0; s < pl.dob.slices; ++s) db += part[((size_t)s * kArow + rb) * nd + jb];
+        } else {
+          db = m * (dchain(t, rb, jb) + dh[rb * PS + jb]);  // PS = US: the unit's column
+        }
+        const int ib = rb * US + jb;
+        const float dcv = dc[ib];
+        if (dc_in) dc_in[(row0 + rb) * H + ub] = dcv;
+        const float d_o = db * tc * so * (1.0f - so);
+        const float dcn = db * so * (1.0f - tc * tc) + m * dcv + d_o * po;
+        const float d_f = dcn * c0 * sf * (1.0f - sf);
+        const float d_i = dcn * tj * si * (1.0f - si);
+        const float d_j = dcn * si * (1.0f - tj * tj);
+        dc[ib] = dcn * sf + (1.0f - m) * dcv + d_f * pf + d_i * pi;
+        dgv[0] = d_i;
+        dgv[1] = d_j;
+        dgv[2] = d_f;
+        dgv[3] = d_o;
+        S* dg_row = dgates + (row0 + rb) * H4;
+        T* dgc_row = ring_row(t, rb);
+        float stored[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const S v = Dtype<S>::from_float(dgv[k]);
+          dg_row[k * H + ub] = v;
+          if (l > 0) dgc_row[k * H + ub] = Dtype<T>::from_float(dgv[k]);
+          stored[k] = Dtype<S>::to_float(v);
+          sums[k] += stored[k];
+        }
+        sums[4] = fmaf(stored[0], c0, sums[4]);
+        sums[5] = fmaf(stored[2], c0, sums[5]);
+        sums[6] = fmaf(stored[3], cn, sums[6]);
+        if (outb_st) outb_st[(row0 + rb) * H + ub] = Dtype<T>::from_float(so * tc);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) gq[rb * pl.ldg + k * US + jb] = Dtype<T>::from_float(dgv[k]);
+    }
+    __syncthreads();
+
+    // 4. the step before's staged loads, then one pass over wh: dh_prev's
+    // partials into the owners' inboxes, the step before's gate sums
+    if (t > 0) land_step(t - 1);
+    wh_pass(true, t - 1);
+    // at the end of a chunk the ring's dgates are read by every block of
+    // the cluster
+    if (chunk_end) __threadfence();
+    cluster.sync();  // every inbox complete, every read of dq done
+
+    // 5. the owned slice: the C partials in block order, the carry, and the
+    // step before's dout_p into every block
+    for (int i = tid; i < nr * nq; i += kThreads) {
+      const int r = i / nq, c = 4 * (i - r * nq);
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int b = 0; b < C; ++b) {
+        const float4 w = *reinterpret_cast<const float4*>(inbox + ((size_t)b * R + r) * PS + c);
+        s[0] += w.x;
+        s[1] += w.y;
+        s[2] += w.z;
+        s[3] += w.w;
+      }
+      const float m = mask_s[(t & 1) * R + r];
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = (1.0f - m) * dh[r * PS + c + e] + s[e];
+        dh[r * PS + c + e] = v[e];
+      }
+      if (has_proj && t > 0) share_dq(t - 1, r, c, v);
+    }
+    cluster.sync();
+
+    // 6. a chunk's din, counted for the layer below
+    if (chunk_end) {
+      const int cnt = done - (done - 1) / lag * lag;
+      din_product(t, cnt);
+      publish(mine, done);
+    }
+  }
+
+  // the carries left after step 0 are the initial states' cotangents
+  for (int i = tid; i < nr * US; i += kThreads) {
+    const int r = i / US, j = i - r * US;
+    if (j < nu) dcinit[(lrow + r) * H + u0 + j] = dc[i];
+  }
+  for (int i = tid; i < nr * np; i += kThreads) {
+    const int r = i / np, c = i - r * np;
+    dhinit[(lrow + r) * P + p0 + c] = dh[r * PS + c];
+  }
+  // this row tile's column sums: each thread's rows, then the threads' in
+  // row order
+  float* st = part;  // [7][RS][US]
+  if (in_b)
+    for (int k = 0; k < 7; ++k) st[(k * RS + rb0) * US + jb] = sums[k];
+  __syncthreads();
+  float* out = col_part + ((size_t)tile * layers + l) * 7 * H;
+  const int rows = min(RS, nr);
+  for (int i = tid; i < 7 * nu; i += kThreads) {
+    const int k = i / nu, j = i - k * nu;
+    float v = 0.0f;
+    for (int r = 0; r < rows; ++r) v += st[(k * RS + r) * US + j];
+    out[k * H + u0 + j] = v;
+  }
+}
+
 struct Args {
   const void *seed, *gx0, *mask, *chain, *c_all, *h_all, *cinit, *hinit;
   const void *wz, *wh_sl, *pj_rows, *bias, *peep;
@@ -818,7 +1363,9 @@ __host__ int lag_of(int steps) {
 
 // The scratch floats: gxl [L-1, S, B, 4H], the dgates ring [L, 2K, B, 4H]
 // (compute dtype), the column sums [tiles, L, 7H], the weight-gradient
-// products', and the counters [L, tiles, C] (int32).
+// products', and the counters [L, tiles, C] (int32); the sums and counters
+// with room for the tiles and blocks of any plan a launch of the shape may
+// be forced onto (R >= 2, C <= 16).
 struct Scratch {
   size_t gxl, ring, cols, wgrad, counters;
 };
@@ -829,32 +1376,35 @@ __host__ Scratch scratch_of(const Args& a, const Launch& how) {
   const size_t H4 = 4 * (size_t)a.units;
   s.gxl = (size_t)(a.layers - 1) * a.steps * a.batch * H4;
   s.ring = ((size_t)a.layers * 2 * how.lag * a.batch * H4 * sizeof(T) + 15) / 16 * 4;
-  s.cols = (size_t)how.tiles * a.layers * 7 * a.units;
+  const size_t tiles = (size_t)cdiv(a.batch, 2);
+  s.cols = tiles * a.layers * 7 * a.units;
   s.wgrad = (size_t)lstm_stack_wgrad_scratch_floats(a.steps, a.layers, a.batch, a.units,
                                                     a.out_dim);
-  s.counters = (size_t)a.layers * how.tiles * how.blocks;
+  s.counters = (size_t)a.layers * tiles * kWideCluster;
   return s;
 }
 
 // Whether a block of R rows of a C-block cluster fits this shape: at most
-// kBlockUnits units a block on 8 blocks and kLayerUnits on 16, its slices'
-// threads and its shared memory within a block's; on the streamed plan
-// (bf16, 16 blocks: wh's resident steps at most `cap`, -1 as many as fit,
-// kAllHeld all of them or no plan) at least two ring slots.  Host
-// arithmetic only.
+// kBlockUnits units a block on 8 blocks and kLayerUnits on 16, its shared
+// memory within a block's, and its cell phase's rows a thread: one on the
+// resident plans (R·US <= kThreads), at most cell_rows(R) on the streamed
+// plan (bf16, 16 blocks, R <= 16: wh's resident steps at most `cap`, -1 as
+// many as fit, kAllHeld all of them or no plan), which also needs at least
+// two ring slots.  Host arithmetic only.
 template <typename T, typename S, int R>
 __host__ bool fits(int units, int out_dim, bool has_proj, int C, bool stream = false,
                    int cap = -1) {
-  if (stream && (!kMma<T> || C != kWideCluster)) return false;
+  if (stream && (!kMma<T> || C != kWideCluster || R > 16)) return false;
   const StackPlan pl = stack_plan<T, S>(units, out_dim, has_proj, R, C, stream, cap);
-  return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) && R * pl.us <= kThreads &&
+  return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) &&
+         thread_rows(R, pl.us) <= (stream ? cell_rows(R) : 1) &&
          pl.bytes <= kMaxSmemPerBlock &&
          (!stream || (pl.slots >= 2 && (cap != kAllHeld || pl.res == pl.wsteps)));
 }
 
 // K13's plans, in the order they are tried: resident on 8 blocks (some R
 // of {4, 6, 8}), resident on 16 (some R of {2, 4, 6, 8}), streamed on 16
-// (bf16; R of {2, 4})
+// (bf16; R of {2, 4}: the smallest, which launches pick from {4, 8, 16, 2})
 enum Kind { kNone = 0, kResident = 1, kStreamed = 2 };
 
 struct Route {
@@ -879,6 +1429,15 @@ __host__ Route stack_route(int units, int out_dim, bool has_proj) {
   return Route{kNone, 0};
 }
 
+// the kernel of a plan: the resident plans' or the streamed plan's (bf16)
+template <typename T, typename S, int R, int C, bool kStream>
+__host__ auto bwd_kernel() {
+  if constexpr (kStream)
+    return stack_bwd_streamed_kernel<S, R>;
+  else
+    return stack_bwd_kernel<T, S, R, C>;
+}
+
 template <typename T, typename S, int R, int C, bool kStream>
 cudaError_t config(const Args& a, int cap, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                    Launch* how) {
@@ -887,7 +1446,7 @@ cudaError_t config(const Args& a, int cap, cudaLaunchConfig_t* cfg, cudaLaunchAt
   const bool has_proj = a.pj_rows != nullptr;
   if (!fits<T, S, R>(a.units, a.out_dim, has_proj, C, kStream, cap)) return cudaSuccess;
   const StackPlan pl = stack_plan<T, S>(a.units, a.out_dim, has_proj, R, C, kStream, cap);
-  auto kernel = stack_bwd_kernel<T, S, R, C, kStream>;
+  auto kernel = bwd_kernel<T, S, R, C, kStream>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
   if (err != cudaSuccess) return err;
@@ -929,8 +1488,9 @@ cudaError_t config(const Args& a, int cap, cudaLaunchConfig_t* cfg, cudaLaunchAt
 }
 
 // The R of {4, 6, 8} with the fewest waves, then the smallest; with 16
-// blocks R = 2 last; streamed R of {4, 2}; rows = 0 when no R's L clusters
-// are resident together (how->resident: the most resident of any R).
+// blocks R = 2 last; streamed R of {4, 8, 16}, then 2; rows = 0 when no R's
+// L clusters are resident together (how->resident: the most resident of
+// any R).
 template <typename T, typename S, int C, bool kStream>
 cudaError_t choose_rows(const Args& a, Launch* how) {
   *how = Launch{C, 0, 0, 0, 0, 0, 0, 0, kStream, 0, 0};
@@ -944,7 +1504,7 @@ cudaError_t choose_rows(const Args& a, Launch* how) {
   if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
   how->resident = max(how->resident, c.resident);
   if constexpr (kStream) {
-    TRY(4) TRY(2)
+    TRY(4) TRY(8) TRY(16) TRY(2)
   } else {
     TRY(4) TRY(6) TRY(8)
     if constexpr (C > kCluster) {
@@ -991,7 +1551,7 @@ cudaError_t run(const Args& a, int cap, const Launch& how) {
   float* cols = gxl + sc.gxl + sc.ring;
   float* wgrad = cols + sc.cols;
   int* counters = (int*)(wgrad + sc.wgrad);
-  err = cudaMemsetAsync(counters, 0, sizeof(int) * sc.counters, a.stream);
+  err = cudaMemsetAsync(counters, 0, sizeof(int) * L * how.tiles * C, a.stream);
   if (err != cudaSuccess) return err;
   constexpr bool kBf16 = kMma<T>;
   constexpr bool kStoreBf16 = std::is_same<S, __nv_bfloat16>::value;
@@ -1002,7 +1562,7 @@ cudaError_t run(const Args& a, int cap, const Launch& how) {
     const int n = min(how.per_wave, how.tiles - tile0);
     cfg.gridDim = dim3(C * n, L, 1);
     err = cudaLaunchKernelEx(
-        &cfg, stack_bwd_kernel<T, S, R, C, kStream>, (const int*)a.seed, (const float*)a.gx0,
+        &cfg, bwd_kernel<T, S, R, C, kStream>(), (const int*)a.seed, (const float*)a.gx0,
         (const float*)a.mask, (const S*)a.chain, (const S*)a.c_all, (const S*)a.h_all,
         (const float*)a.cinit, (const float*)a.hinit, (const T*)a.wz, (const T*)a.wh_sl,
         (const T*)a.pj_rows, (const float*)a.bias,
@@ -1044,7 +1604,9 @@ int launch(int device, const Args& a) {
     if constexpr (kMma<T>) {
       switch (how.rows) {
         case 2: return run<T, S, 2, kWideCluster, true>(a, -1, how);
-        default: return run<T, S, 4, kWideCluster, true>(a, -1, how);
+        case 4: return run<T, S, 4, kWideCluster, true>(a, -1, how);
+        case 8: return run<T, S, 8, kWideCluster, true>(a, -1, how);
+        default: return run<T, S, 16, kWideCluster, true>(a, -1, how);
       }
     }
   }
@@ -1094,6 +1656,7 @@ int forced(int device, const Args& a, int plan, int rows) {
     CASE(0, kCluster, 4) CASE(0, kCluster, 6) CASE(0, kCluster, 8)
     CASE(0, kWideCluster, 2) CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 6)
     CASE(0, kWideCluster, 8) CASE(1, kWideCluster, 2) CASE(1, kWideCluster, 4)
+    CASE(1, kWideCluster, 8) CASE(1, kWideCluster, 16)
 #undef CASE
     default: break;
   }

@@ -95,11 +95,18 @@
 // not the layer is live, so every block of a cluster passes the same
 // block barriers; the wait on the layer below comes before a chunk's input
 // product, outside any pass over the ring.  A step's bytes are the
-// streamed part of the slices (~600 KB a block at 2048/512, which the L
-// resident clusters of a row tile read from L2 together): L2's bandwidth,
-// not the latency chain, bounds this plan.  Every cluster streams whole
-// slices whatever its rows, so R is as large as the threads allow (R·US
-// <= 512: 8 up to 64 units, 4 past).
+// streamed part of the slices (~650 KB a block at 2048/512), and every
+// cluster streams whole slices whatever its rows, so a wave-step costs
+// about the same at any R: the plan takes as many rows a cluster as shared
+// memory holds, R of {4, 8, 16, 32} with the fewest waves, then the
+// smallest (B = 32: R = 16 at 2048/512, two waves of one row tile; R = 32
+// at H = P = 768-1024, one wave; a streaming chunk, B = 1: R = 4).  A
+// cell-phase thread owns unit tid % US of rows tid / US, + 512 / US, ..
+// (cell_rows at most), its peepholes in registers; past 8 rows the
+// products' A operand is one or two whole 16-row tiles, which share each
+// chunk's B fragments (streamed_product), so one pass over the ring serves
+// 32 rows.  A row's sums do not depend on the rows beside it and the
+// dropout is keyed by the global row: every R gives the same bits.
 //
 // Past 2048 units, the stack is refused.
 //
@@ -158,6 +165,10 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   const int own_n = has_proj ? np : nu, own_0 = has_proj ? p0 : u0;
   const int P16 = round_up(P, 16), H16 = round_up(H, 16), lda_in = P16 + 16 / (int)sizeof(T);
   const int tid = threadIdx.x;
+  // the streamed products' rows of A (pl.arow), and a cell-phase thread's
+  // rows at most
+  constexpr int kArow = R > 16 ? 32 : R > 8 ? 16 : 8;
+  constexpr int kRows = kStream ? cell_rows(R) : 1;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* hq = reinterpret_cast<T*>(smem_raw);                    // [arow][QS] h
@@ -255,10 +266,10 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
       for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
   }
 
-  // phase b: thread (rb, jb) owns one unit of one row
-  const int rb = tid / US, jb = tid - rb * US;
-  const bool in_b = tid < R * US && rb < nr;
-  const bool own_b = in_b && jb < nu;
+  // phase b: thread tid owns unit jb of rows rb0, rb0 + RS, .. below nr (on
+  // the resident plans R <= RS: one row)
+  const int RS = kThreads / US, rb0 = tid / US, jb = tid - rb0 * US;
+  const bool in_b = rb0 < RS, own_u = jb < nu;
   const int ub = u0 + jb;
 
   int seen = 0;  // thread q < C: the count last read of block q below
@@ -291,8 +302,8 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           pl.srows);
     }
     float gnext[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (!kStream && own_b) {
-      const float* g = gx_row(s0, s0, rb);
+    if (!kStream && in_b && rb0 < nr && own_u) {
+      const float* g = gx_row(s0, s0, rb0);
 #pragma unroll
       for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
     }
@@ -305,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
 
       // a. gate sums for the owned units (streamed: complete, gx added)
       if constexpr (kStream) {
-        streamed_product<kGateTiles>(
+        streamed_product<kGateTiles, kArow>(
             hq, pl.qs, P, G, pl.gates.per, wh_s, pl.lwa, pl.res, ring, pl.lwa, pl.cw, chunk,
             total, issue,
             [&](int r, int c) {
@@ -323,10 +334,20 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
       else
         cluster.sync();  // every block is done reading hq before b rewrites it
 
-      // b. cell update of the owned units
-      if (in_b) {
+      // b. cell update of the owned units, a thread's rows in turn, the
+      // unit's peepholes in registers for them
+      float pi = 0.0f, pf = 0.0f, po = 0.0f;
+      if (pd && in_b && rb0 < nr && own_u) {
+        pi = pd[ub];
+        pf = pd[H + ub];
+        po = pd[2 * H + ub];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int rb = rb0 + i * RS;
+        if (!in_b || rb >= nr) break;
         float share = 0.0f;
-        if (own_b) {
+        if (own_u) {
           float gate[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
@@ -343,12 +364,12 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           const int ib = rb * US + jb;
           const float cp = c_own[ib];
           if (pd) {
-            gate[0] += pd[ub] * cp;
-            gate[2] += pd[H + ub] * cp;
+            gate[0] += pi * cp;
+            gate[2] += pf * cp;
           }
           const float cn = sigmoidf(gate[2] + forget_bias) * cp
                            + sigmoidf(gate[0]) * tanhf(gate[1]);
-          if (pd) gate[3] += pd[2 * H + ub] * cn;
+          if (pd) gate[3] += po * cn;
           const float o = sigmoidf(gate[3]) * tanhf(cn);
           const float m = mask[srow + rb];
           const float cv = m * cn + (1.0f - m) * cp;
@@ -385,7 +406,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
 
       // d. the owned projection columns (streamed: all of proj, complete)
       if constexpr (kStream)
-        streamed_product<kProjTiles>(cellf, pl.hs, H, PS, pl.proj.per, wh_s, pl.lwa, 0, ring, PS,
+        streamed_product<kProjTiles, kArow>(cellf, pl.hs, H, PS, pl.proj.per, wh_s, pl.lwa, 0, ring, PS,
                                      pl.cp, chunk, total, issue,
                                      [](int, int) { return 0.0f; }, part, PS);
       else if constexpr (kMma<T>)
@@ -469,26 +490,30 @@ __host__ int lag_of(int steps) {
 }
 
 // The scratch: the gxl ring [L, K, B, 4H], the chains of layers 0 .. L-2
-// [L-1, S, B, P] (float32), the counters [L, tiles, C] (int32).
+// [L-1, S, B, P] (float32), the counters [L, tiles, C] (int32), with room
+// for the tiles and blocks of any plan a launch of the shape may be forced
+// onto (R >= 4, C <= 16).
 __host__ size_t scratch_floats(const StackArgs& a, const Launch& how) {
   return (size_t)a.layers * how.lag * a.batch * 4 * a.units
          + (size_t)(a.layers - 1) * a.steps * a.batch * a.out_dim
-         + (size_t)a.layers * how.tiles * how.blocks;
+         + (size_t)a.layers * cdiv(a.batch, 4) * kWideCluster;
 }
 
 // Whether a block of R rows of a C-block cluster fits this shape: at most
 // kBlockUnits units a block on 8 blocks and kLayerUnits on 16, its
-// slices' threads and its shared memory (`smem`) within a block's; on the
-// streamed plan (bf16, 16 blocks: wh's resident steps at most `cap`, -1 as
-// many as fit, kAllHeld all of them or no plan) at least two ring slots.
-// Host arithmetic only.
+// shared memory (`smem`) within a block's, and its cell phase's rows a
+// thread: one on the resident plans (R·US <= kThreads), at most cell_rows(R)
+// on the streamed plan (bf16, 16 blocks: wh's resident steps at most
+// `cap`, -1 as many as fit, kAllHeld all of them or no plan), which also
+// needs at least two ring slots.  Host arithmetic only.
 template <typename T, int R>
 __host__ bool fits(int units, int out_dim, bool has_proj, int C, size_t* smem,
                    bool stream = false, int cap = -1) {
-  if (stream && (!kMma<T> || C != kWideCluster || R > 8)) return false;
+  if (stream && (!kMma<T> || C != kWideCluster)) return false;
   const Plan pl = plan<T>(units, out_dim, has_proj, R, C, stream, cap);
   *smem = pl.bytes;
-  return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) && R * pl.us <= kThreads &&
+  return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) &&
+         thread_rows(R, pl.us) <= (stream ? cell_rows(R) : 1) &&
          pl.bytes <= kMaxSmemPerBlock &&
          (!stream || (pl.slots >= 2 && (cap != kAllHeld || pl.res == pl.wsteps)));
 }
@@ -603,8 +628,8 @@ cudaError_t run(const StackArgs& a, int cap, const Launch& how) {
   return cudaGetLastError();
 }
 
-// The R of {4, 6, 8, 12} (streamed: {4, 8}) with the fewest waves, then the
-// smallest; rows = 0 when no R's L clusters are resident together
+// The R of {4, 6, 8, 12} (streamed: {4, 8, 16, 32}) with the fewest waves,
+// then the smallest; rows = 0 when no R's L clusters are resident together
 // (how->resident: the most resident of any R).
 template <typename T, int C, bool kStream>
 cudaError_t choose_rows(const StackArgs& a, Launch* how) {
@@ -619,7 +644,7 @@ cudaError_t choose_rows(const StackArgs& a, Launch* how) {
   if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
   how->resident = max(how->resident, c.resident);
   if constexpr (kStream) {
-    TRY(4) TRY(8)
+    TRY(4) TRY(8) TRY(16) TRY(32)
   } else {
     TRY(4) TRY(6) TRY(8) TRY(12)
   }
@@ -654,6 +679,8 @@ cudaError_t run_rows(const StackArgs& a, int cap, const Launch& how) {
     switch (how.rows) {
       case 4: return run<T, 4, C, true>(a, cap, how);
       case 8: return run<T, 8, C, true>(a, cap, how);
+      case 16: return run<T, 16, C, true>(a, cap, how);
+      case 32: return run<T, 32, C, true>(a, cap, how);
       default: return cudaErrorInvalidConfiguration;
     }
   } else {
@@ -719,6 +746,7 @@ int forced(int device, const StackArgs& a, int plan, int rows) {
     CASE(0, kCluster, 4) CASE(0, kCluster, 6) CASE(0, kCluster, 8) CASE(0, kCluster, 12)
     CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 6) CASE(0, kWideCluster, 8)
     CASE(0, kWideCluster, 12) CASE(1, kWideCluster, 4) CASE(1, kWideCluster, 8)
+    CASE(1, kWideCluster, 16) CASE(1, kWideCluster, 32)
 #undef CASE
     default: break;
   }

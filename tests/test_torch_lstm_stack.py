@@ -665,3 +665,43 @@ def test_k12_k13_forced_streamed_plan_equals_resident(cuda, rows):
         got = sk.lstm_stack_backward(**args, _plan=(plan, rows))
         assert all(a is None and b is None or torch.equal(a, b)
                    for a, b in zip(got, ref)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [32, 21])
+@pytest.mark.parametrize("units,proj", STREAMED[:3])
+def test_k12_k13_streamed_rows_equal_four_rows(cuda, units, proj, batch):
+    """On the streamed plan a B = 32 stack launches 16 or 32 rows a cluster
+    (a cell-phase thread owns several rows) in at most two waves, and gives
+    the bits of the same launch forced at R = 4, row for row: K12's outputs
+    and states; K13's dgates, weight products, carries and din.  K13's
+    column sums add each thread's rows before the threads': within 1e-5 of
+    R = 4's.  B = 21 leaves a ragged last tile."""
+    case = stack_case(22, cuda, torch.bfloat16, keep=0.9, init=True,
+                      batch=batch, time_steps=10, units=units, proj=proj,
+                      layers=4)
+    case.pop("affine")
+    for backward in (False, True):
+        how = blocks(cuda, case, backward)
+        assert how["streamed"] and how["rows"] >= 16 and how["waves"] <= 2
+    four = ("streamed, wh held as fits", 4)
+    got = sk.lstm_stack_forward(**case, states=True)
+    want = sk.lstm_stack_forward(**case, states=True, _plan=four)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    out, cfin, hfin, chain, c_all, h_all = got
+    gen = torch.Generator().manual_seed(1)
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all,
+                dout=0.1 * torch.randn(out.shape, generator=gen).to(cuda),
+                dcfin=torch.randn(cfin.shape, generator=gen).to(cuda),
+                dhfin=torch.randn(hfin.shape, generator=gen).to(cuda))
+    grads = sk.lstm_stack_backward(**args, steps_out=True)
+    ref = sk.lstm_stack_backward(**args, steps_out=True, _plan=four)
+    names = ("dgates", "dwz", "dbias", "dproj", "dpeep", "dcinit", "dhinit",
+             "dc_in", "dh_in", "din")
+    for name, g, r in zip(names, grads, ref):
+        if r is None:
+            assert g is None, name
+        elif name in ("dbias", "dpeep"):
+            assert ratio(g, r) <= 1e-5, name
+        else:
+            assert torch.equal(g, r), name

@@ -56,17 +56,34 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+THREADS = 512  # a block's threads (kThreads)
+
+
+def thread_rows(rows, us):
+    """``lstm_cluster.cuh`` thread_rows: a cell-phase thread's rows (it owns
+    unit tid % US of rows tid / US, + THREADS / US, ..)."""
+    return cdiv(rows, THREADS // us)
+
+
+def cell_rows(rows):
+    """``lstm_cluster.cuh`` cell_rows: the most rows a thread owns with R
+    rows a cluster, up to 128 units a block (8 at most)."""
+    return min(8, cdiv(rows, THREADS // 128))
+
+
 def k12_plan(units, out_dim, has_proj, rows, cap=-1):
     """``lstm_cluster.cuh`` plan<bf16>(stream): the streamed plan of K12
-    with 16 blocks and R = ``rows``, and whether it fits."""
+    with 16 blocks and R = ``rows`` (the products' A operands of 8 rows,
+    or of R rounded up to 16-row tiles), and whether it fits."""
     us = round_up(cdiv(units, C), 8)
     ps = round_up(cdiv(out_dim, C), 16) if has_proj else us
     g, own = 4 * us, ps if has_proj else us
-    qs, hs, arow = C * ps + 8, C * us + 8, 16 if rows > 8 else 8
+    arow = 8 if rows <= 8 else round_up(rows, 16)
+    qs, hs = C * ps + 8, C * us + 8
     p = dict(us=us, ps=ps, g=g, lwa=g + 8, wsteps=cdiv(out_dim, 16),
-             psteps=cdiv(units, 16) if has_proj else 0,
+             psteps=cdiv(units, 16) if has_proj else 0, arow=arow,
              per_g=mma_split(g, out_dim)[0], per_p=mma_split(ps, units)[0])
-    part = max(8 * g, 8 * ps if has_proj else 0)
+    part = max(arow * g, arow * ps if has_proj else 0)
     off = align128(2 * arow * qs) + (align128(2 * arow * hs) if has_proj
                                      else 0)
     off += (align128(4 * rows * us) + align128(4 * rows * own)
@@ -82,7 +99,7 @@ def k12_plan(units, out_dim, has_proj, rows, cap=-1):
     p["nw"] = cdiv(p["wsteps"] - p["res"], p["cw"])
     p["np"] = cdiv(p["psteps"], p["cp"]) if has_proj else 0
     nbytes = off + p["slots"] * slot + p["res"] * wrow
-    p["fits"] = (us <= 128 and rows * us <= 512 and rows <= 8
+    p["fits"] = (us <= 128 and thread_rows(rows, us) <= cell_rows(rows)
                  and p["slots"] >= 2 and nbytes <= SMEM)
     return p
 
@@ -90,22 +107,25 @@ def k12_plan(units, out_dim, has_proj, rows, cap=-1):
 def k13_plan(units, out_dim, has_proj, rows, cap=-1, store=2):
     """``csrc/lstm_stack_bwd.cu`` stack_plan<bf16, S>(stream): the streamed
     plan of K13 with 16 blocks and R = ``rows`` (the states in ``store``
-    bytes), and whether it fits."""
+    bytes; without a projection a block's P-slice is its units), and
+    whether it fits."""
     us = round_up(cdiv(units, C), 8)
     u16, g = round_up(us, 16), 4 * us
-    ps = round_up(cdiv(out_dim, C), 4)
+    ps = round_up(cdiv(out_dim, C), 4) if has_proj else us
     pw, p16 = C * ps, round_up(out_dim, 16)
+    arow = 16 if rows > 8 else 8
     p = dict(us=us, u16=u16, g=g, ps=ps, pw=pw, p16=p16, lwh=g + 8,
-             lpj=p16 + 8, wsteps=p16 // 16, gsteps=g // 16,
+             lpj=p16 + 8, wsteps=p16 // 16, gsteps=g // 16, arow=arow,
              utiles=u16 // 16 if has_proj else 0)
-    part = max(mma_split(u16, p16)[1] * 8 * u16 if has_proj else 0,
-               rows * pw, 7 * rows * us)
-    off = (2 * align128(2 * 8 * (p16 + 8)) + align128(2 * 8 * (g + 8))
-           + 3 * align128(4 * rows * pw) + align128(store * rows * out_dim)
-           + align128(store * rows * us) + align128(4 * rows * 4 * us)
-           + align128(4 * 2 * rows) + align128(4 * rows * us)
-           + align128(4 * C * rows * ps) + align128(4 * rows * g)
-           + align128(4 * part) + 128)
+    part = max(mma_split(u16, p16)[1] * arow * u16 if has_proj else 0,
+               7 * (THREADS // us) * us)
+    aq = align128(2 * arow * (p16 + 8))
+    off = (aq * (2 if has_proj else 1) + align128(2 * arow * (g + 8))
+           + align128(4 * rows * ps) + align128(4 * 2 * rows * ps)
+           + (0 if store == 2 else align128(store * rows * out_dim))
+           + align128(store * 2 * rows * us) + align128(4 * 2 * rows)
+           + align128(4 * rows * us) + align128(4 * C * rows * ps)
+           + align128(4 * rows * g) + align128(4 * part) + 128)
     wrow, urow = 2 * 16 * p["lwh"], 2 * 16 * p["lpj"]
     p["cw"] = max(1, 24576 // wrow)
     p["cu"] = max(1, 24576 // urow) if has_proj else 0
@@ -114,18 +134,48 @@ def k13_plan(units, out_dim, has_proj, rows, cap=-1, store=2):
     p["nw"] = cdiv(p["wsteps"] - p["res"], p["cw"])
     p["np"] = cdiv(p["utiles"], p["cu"]) if has_proj else 0
     nbytes = off + p["slots"] * slot + p["res"] * wrow
-    p["fits"] = (us <= 128 and rows * us <= 512 and p["slots"] >= 2
-                 and nbytes <= SMEM)
+    p["fits"] = (us <= 128 and rows <= 16
+                 and thread_rows(rows, us) <= cell_rows(rows)
+                 and p["slots"] >= 2 and nbytes <= SMEM)
     return p
 
 
-def largest_rows(plan_fn, *shape):
-    """A streamed launcher's R with one row tile (the emulation's): K12's
-    of {4, 8}, K13's of {4, 2}, the first that fits."""
-    for rows in (4, 8) if plan_fn is k12_plan else (4, 2):
-        if plan_fn(*shape, rows)["fits"]:
-            return rows
-    raise AssertionError("no streamed plan")
+# the streamed launchers' R, in the order they are tried
+K12_ROWS, K13_ROWS = (4, 8, 16, 32), (4, 8, 16, 2)
+
+
+def launch_rows(plan_fn, units, out_dim, has_proj, batch, layers=4,
+                resident=7):
+    """A streamed launcher's choice (choose_rows): (R, row tiles a wave,
+    waves) with the fewest waves, then the smallest R, where the card holds
+    ``resident`` sixteen-block clusters at once (7 on an H100) and a wave
+    holds resident // layers row tiles."""
+    best = None
+    for rows in K12_ROWS if plan_fn is k12_plan else K13_ROWS:
+        if not plan_fn(units, out_dim, has_proj, rows)["fits"]:
+            continue
+        tiles = cdiv(batch, rows)
+        per_wave = min(tiles, resident // layers)
+        waves = cdiv(tiles, per_wave)
+        if best is None or waves < best[2]:
+            best = (rows, per_wave, waves)
+    assert best is not None, "no streamed plan"
+    return best
+
+
+def cell_threads(rows, us, nr):
+    """The cell phase's rows in turn: for each of a thread's rows i, the
+    rows rb0 + i·RS of the threads rb0 < RS = THREADS // US, below nr, as
+    (rb0, row) pairs; every row of the tile comes exactly once."""
+    rs = THREADS // us
+    turns = []
+    for i in range(thread_rows(rows, us)):
+        turns.append([(rb0, rb0 + i * rs) for rb0 in range(rs)
+                      if rb0 + i * rs < nr])
+    seen = sorted(r for turn in turns for _, r in turn)
+    assert seen == list(range(nr)), "a row owned twice or not at all"
+    assert len(turns) <= cell_rows(rows)
+    return turns
 
 
 class Count:
@@ -188,16 +238,17 @@ def lag_bwd(steps):
 
 
 def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
-                 count=None):
-    """K12 on the streamed plan in plain torch (float32): (out, chain,
-    c_all, h_all, cfin, hfin) as ``stack_forward_reference`` returns
-    them."""
+                 count=None, rows=None):
+    """K12 on the streamed plan in plain torch (float32), at the launcher's
+    R (or ``rows``): (out, chain, c_all, h_all, cfin, hfin) as
+    ``stack_forward_reference`` returns them."""
     gx0, mask, wz, proj = case["gx0"], case["mask"], case["wz"], case["proj"]
     bias, peep = case["bias"], case["peep"]
     steps, layers, batch, units, out_dim = sk._dims(gx0, wz)
     has_proj = proj is not None
-    rows = largest_rows(k12_plan, units, out_dim, has_proj)
+    rows = rows or launch_rows(k12_plan, units, out_dim, has_proj, batch)[0]
     pl = k12_plan(units, out_dim, has_proj, rows, cap)
+    assert pl["fits"]
     us, ps, g, lwa = pl["us"], pl["ps"], pl["g"], pl["lwa"]
     p16, h16 = 16 * pl["wsteps"], round_up(units, 16)
     lag = lag or lag_fwd(steps)
@@ -232,12 +283,12 @@ def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
 
     class Block:
         def __init__(self):
-            self.hq = torch.zeros(8, C * ps)
+            self.hq = torch.zeros(pl["arow"], C * ps)
             self.hq_tag = [-1] * C
-            self.cell = torch.zeros(8, C * us)
+            self.cell = torch.zeros(pl["arow"], C * us)
             self.cell_tag = [-1] * C
             self.ring = Ring(pl["slots"])
-            self.part = torch.zeros(8, max(g, ps))
+            self.part = torch.zeros(pl["arow"], max(g, ps))
             self.c = self.h = self.gring = None
 
     def program(sched, blocks, written, visible, counts, b0, l, q, w):
@@ -339,16 +390,23 @@ def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
                 if not has_proj:
                     yield ("sync", layer)
                 if w == 0:
-                    gi, gj, gf, go = me.part[:nr, :g].view(nr, 4, us).unbind(1)
+                    # the cell phase: a thread's rows in turn, its unit's
+                    # peepholes the same for each
                     pi, pf, po = torch.zeros(3, us)
                     if peep is not None:
                         pi[:nu], pf[:nu], po[:nu] = peep[l, :, u0:u0 + nu]
-                    cp = me.c
-                    cn = (torch.sigmoid(gf + pf * cp + case["forget_bias"])
-                          * cp + torch.sigmoid(gi + pi * cp) * torch.tanh(gj))
-                    o = torch.sigmoid(go + po * cn) * torch.tanh(cn)
-                    m = m_all[s, l, br][:, None]
-                    me.c = m * cn + (1.0 - m) * cp
+                    o = torch.zeros(nr, us)
+                    for turn in cell_threads(rows, us, nr):
+                        rr = torch.tensor([r for _, r in turn])
+                        gi, gj, gf, go = me.part[rr, :g].view(
+                            len(rr), 4, us).unbind(1)
+                        cp = me.c[rr]
+                        cn = (torch.sigmoid(gf + pf * cp
+                                            + case["forget_bias"]) * cp
+                              + torch.sigmoid(gi + pi * cp) * torch.tanh(gj))
+                        o[rr] = torch.sigmoid(go + po * cn) * torch.tanh(cn)
+                        m = m_all[s, l, br[rr]][:, None]
+                        me.c[rr] = m * cn + (1.0 - m) * cp
                     c_all[s, lr, u0:u0 + nu] = me.c[:, :nu]
                     if has_proj:
                         share("cell", "cell_tag", u0, us, o, s)
@@ -402,20 +460,29 @@ def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
 
 
 def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
-                 refill_after_barrier=True, lag=None):
-    """K13 on the streamed plan in plain torch (float32): (dgates, dbias,
-    dpeep, dcinit, dhinit, dc_in, dh_in, din) as
-    ``stack_backward_reference`` gives them."""
+                 refill_after_barrier=True, lag=None, rows=None,
+                 inbox_barrier=True):
+    """K13 on the streamed plan in plain torch (float32), at the launcher's
+    R (or ``rows``): (dgates, dbias, dpeep, dcinit, dhinit, dc_in, dh_in,
+    din) as ``stack_backward_reference`` gives them.  A block keeps the
+    carry dh and dchain of its own P-slice only: the pass over wh writes
+    each 16-column tile of its dh partial straight into the owners'
+    inboxes, and each owner, after the cluster barrier, adds the 16
+    partials in block order, updates its slice and writes the next step's
+    dout_p of it into every block (dq: the A operand of dout_blk).  Without
+    ``inbox_barrier`` the cluster barrier that ends an owner's reads of its
+    inboxes is left out."""
     gx0, mask, wz, proj = case["gx0"], case["mask"], case["wz"], case["proj"]
     bias, peep = case["bias"], case["peep"]
     _, chain, c_all, h_all, _, _ = fwd
     steps, layers, batch, units, out_dim = sk._dims(gx0, wz)
     has_proj = proj is not None
-    rows = largest_rows(k13_plan, units, out_dim, has_proj)
+    rows = rows or launch_rows(k13_plan, units, out_dim, has_proj, batch)[0]
     pl = k13_plan(units, out_dim, has_proj, rows, cap)
-    us, u16, g, ps, pw, p16 = (pl[k] for k in ("us", "u16", "g", "ps", "pw",
-                                               "p16"))
+    assert pl["fits"]
+    us, u16, g, ps, p16 = (pl[k] for k in ("us", "u16", "g", "ps", "p16"))
     lwh, lpj = pl["lwh"], pl["lpj"]
+    rs = THREADS // us
     lag = lag or lag_bwd(steps)
     sl = sk.stack_slices(wz, proj, C, backward=True, streamed=True)
     assert sl["wh_sl"].shape == (layers, C, p16, lwh)
@@ -454,17 +521,19 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
     class Block:
         def __init__(self, nr):
             self.ring = Ring(pl["slots"])
-            self.dh = torch.zeros(nr, pw)
-            self.dh_tag = [-1] * C
+            self.dh = None                      # [nr, PS] the carry's slice
+            self.dq = torch.zeros(nr, p16)      # dout_p, from every owner
+            self.dq_tag = [-1] * C
+            # [C sources][nr][PS] and each column's step; the step last
+            # read of each source's
             self.inbox = torch.zeros(C, nr, ps)
-            self.inbox_tag = [-1] * C
+            self.inbox_tag = [[-1] * ps for _ in range(C)]
+            self.inbox_read = [-1] * C
             self.gsum = torch.zeros(nr, g)
-            self.part_h = torch.zeros(nr, p16)
             self.part_d = torch.zeros(nr, u16)
             self.gq = None
             self.dc = None
-            self.staged = None
-            self.sums = torch.zeros(7, us)
+            self.sums = torch.zeros(rs, 7, us)  # a thread's rows' sums
 
     def program(sched, blocks, written, visible, counts, b0, l, q, w):
         nr = min(rows, batch - b0)
@@ -474,6 +543,7 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
         u0, p0 = q * us, q * ps
         nu = max(0, min(us, units - u0))
         npq = max(0, min(ps, out_dim - p0))
+        own = torch.arange(p0, p0 + npq)
         last = l == layers - 1
         res = l > 0 and case["residual"][l]
         m_all = mask.view(steps, layers, batch)
@@ -483,6 +553,9 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
         block, layer = (l, q), ("layer", l)
         bq = torch.zeros(4, us)
         bq[:, :nu] = bias[l].view(4, units)[:, u0:u0 + nu]
+        pi, pf, po = torch.zeros(3, us)
+        if peep is not None:
+            pi[:nu], pf[:nu], po[:nu] = peep[l, :, u0:u0 + nu]
 
         def issue(n):
             if n < total:
@@ -491,15 +564,18 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
         def fetch(tt):
             """What step tt reads that no carry feeds, once the layer above
             has counted its din at tt + 1 (the kernel's cp.async a step
-            ahead): dchain, h_prev, c_prev, the gate inputs + bias."""
+            ahead): dchain of the owned P-slice, h_prev, c_prev, the mask
+            (the gate inputs are read as the pass over wh starts)."""
             if not last and tt + 1 < steps:
                 yield ("wait", counts[l + 1], steps - 1 - tt)
             if last:
-                dch = dout[tt, br]
+                dch = dout[tt, br][:, own]
             elif tt + 1 < steps:
-                dch = visible[l + 1][tt + 1][br].clone()
+                dch = visible[l + 1][tt + 1][br][:, own]
             else:
-                dch = torch.zeros(nr, out_dim)
+                dch = torch.zeros(nr, npq)
+            if drop is not None:
+                dch = dch * drop[tt, l, br][:, own]
             hp = torch.zeros(nr, p16)
             cp = torch.zeros(nr, us)
             if tt > 0:
@@ -508,26 +584,51 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
             else:
                 hp[:, :out_dim] = case["hinit"][lr]
                 cp[:, :nu] = case["cinit"][lr][:, u0:u0 + nu]
+            return dict(t=tt, dch=dch, hp=hp, cp=cp,
+                        m=m_all[tt, l, br][:, None])
+
+        def gate_inputs(tt):
             gxt = torch.zeros(nr, 4, us)
             src = gx0[tt, br] if l == 0 else gxl[tt, l, br]
             gxt[:, :, :nu] = src.view(nr, 4, units)[:, :, u0:u0 + nu]
-            return dict(dch=dch, hp=hp, cp=cp,
-                        gx=gxt.reshape(nr, g) + bq.reshape(g))
+            return gxt.reshape(nr, g) + bq.reshape(g)
 
-        def wh_pass(chunk, dh_on, st):
-            """4: dh's partial from me.gq (by rows p, tile j by warp
-            1 - j % 2), and with ``st`` (the step before's staged loads)
-            the gate sums, this warp's columns, into me.gsum."""
-            acc = st["gx"][:, gcols].clone() if st is not None else None
+        def to_inboxes(c0, value, t):
+            """dh partial columns c0 .. c0 + 7 (half a 16-column tile) of
+            this step into the inbox[q] of each owner of them"""
+            for owner in range(c0 // ps, (c0 + 7) // ps + 1):
+                lo, hi = max(c0, owner * ps), min(c0 + 8, (owner + 1) * ps)
+                peer = blocks[l][owner]
+                tags = peer.inbox_tag[q]
+                for c in range(lo - owner * ps, hi - owner * ps):
+                    if tags[c] not in (-1, peer.inbox_read[q]):
+                        raise Hazard("block %d's inbox overwritten before "
+                                     "its owner read it" % owner)
+                    tags[c] = t
+                peer.inbox[q][:, lo - owner * ps:hi - owner * ps] = \
+                    value[:, lo - c0:hi - c0]
+
+        def wh_pass(chunk, dh_t, st):
+            """4: with dh_t, this step's dh partial from me.gq (by rows p,
+            the 8-column half h of tile j by warp 1 - (2·j + h) % 2) into
+            the owners' inboxes; with ``st`` (the step before's staged
+            loads) the gate sums, this warp's columns, into me.gsum, which
+            holds their init from the pass's start."""
+            acc = None
+            if st is not None:
+                me.gsum[:, gcols] = gate_inputs(st["t"])[:, gcols]
+                acc = torch.zeros(nr, len(gcols))
 
             def rows_at(wrows, r0, nrows):
                 if acc is not None:
                     acc.add_(st["hp"][:, r0:r0 + nrows] @ wrows[:nrows, gcols])
-                if dh_on:
+                if dh_t is not None:
                     for j in range(r0 // 16, (r0 + nrows) // 16):
-                        if w == WARPS - 1 - j % WARPS:
-                            blk = wrows[16 * j - r0:16 * j - r0 + 16, :g]
-                            me.part_h[:, 16 * j:16 * j + 16] = me.gq @ blk.t()
+                        for h in range(2):
+                            if w != WARPS - 1 - (2 * j + h) % WARPS:
+                                continue
+                            blk = wrows[16 * j - r0 + 8 * h:][:8, :g]
+                            to_inboxes(16 * j + 8 * h, me.gq @ blk.t(), dh_t)
 
             rows_at(wres, 0, 16 * pl["res"])
             for _ in range(pl["nw"]):
@@ -540,11 +641,19 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
                                    refill_after_barrier)
                 chunk[0] += 1
             if acc is not None:
-                me.gsum[:, gcols] = acc
+                me.gsum[:, gcols] += acc
             yield ("sync", block)
 
+        def share_dq(st, v):
+            """dout_p of the staged step over the owned slice, from the
+            carry's slice v, into every block's dq"""
+            for peer in blocks[l]:
+                peer.dq[:, p0:p0 + npq] = st["m"] * (st["dch"] + v)
+                peer.dq_tag[q] = st["t"]
+
         if w == 0:
-            me.dh[:, :out_dim] = dhfin[lr]
+            me.dh = torch.zeros(nr, ps)
+            me.dh[:, :npq] = dhfin[lr][:, own]
             me.dc = torch.zeros(nr, us)
             me.dc[:, :nu] = dcfin[lr][:, u0:u0 + nu]
         yield ("sync", layer)
@@ -554,119 +663,121 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
         chunk = [0]
         staged = yield from fetch(steps - 1)
         yield ("sync", block)
-        yield from wh_pass(chunk, False, staged)
+        if w == 0 and has_proj:
+            share_dq(staged, me.dh[:, :npq])
+        yield ("sync", layer)
+        yield from wh_pass(chunk, None, staged)
         for t in range(steps - 1, -1, -1):
             cur = staged
-            m = m_all[t, l, br][:, None]
+            m = cur["m"]
             done = steps - t
             chunk_end = l > 0 and (done % lag == 0 or t == 0)
             if t > 0:
                 staged = yield from fetch(t - 1)
-            dh = read_tagged(me.dh, me.dh_tag,
-                             -1 if t == steps - 1 else t + 1, nr)
             dch = cur["dch"]
-            if drop is not None:
-                dch = dch * drop[t, l, br]
             if w == 0:
-                cols = torch.arange(p0, p0 + npq)
-                dh_in[t, lr[:, None], cols[None, :]] = dh[:, p0:p0 + npq]
+                # 1. the stashes and din's residual part of the owned slice
+                dh_in[t, lr[:, None], own[None, :]] = me.dh[:, :npq]
                 if l > 0:
-                    written[l][t][br[:, None], cols[None, :]] = (
-                        dch[:, p0:p0 + npq] if res else 0.0)
-            dq = torch.zeros(nr, p16)
-            dq[:, :out_dim] = m * (dch + dh[:, :out_dim])
+                    written[l][t][br[:, None], own[None, :]] = (
+                        dch if res else 0.0)
             yield ("sync", block)
             # 2. dout_blk over proj's chunks of rows, this warp's tiles
             for _ in range(pl["np"]):
                 r0, nrows, _ = chunk_rows(l, q, chunk[0])
                 yield wait_chunk(me.ring, chunk[0])
                 me.ring.read(chunk[0], nrows)
+                read_tagged(me.dq, me.dq_tag, t, nr)
                 yield ("run",)
                 rows_c = me.ring.read(chunk[0], nrows)
+                dq = read_tagged(me.dq, me.dq_tag, t, nr)
                 for j in range(w, nrows // 16, WARPS):
                     me.part_d[:, r0 + 16 * j:r0 + 16 * j + 16] = (
                         dq @ rows_c[16 * j:16 * j + 16, :p16].t())
                 yield from release(me.ring, chunk[0], w, block, issue,
                                    refill_after_barrier)
                 chunk[0] += 1
-            # 3. the cell backward (warp 0)
+            # 3. the cell backward (warp 0), a thread's rows in turn
             if w == 0:
-                c0 = cur["cp"]
-                gi, gj, gf, go = me.gsum.view(nr, 4, us).unbind(1)
-                pi, pf, po = torch.zeros(3, us)
-                if peep is not None:
-                    pi[:nu], pf[:nu], po[:nu] = peep[l, :, u0:u0 + nu]
-                si, tj = torch.sigmoid(gi + pi * c0), torch.tanh(gj)
-                sf = torch.sigmoid(gf + pf * c0 + case["forget_bias"])
-                cn = sf * c0 + si * tj
-                so, tc = torch.sigmoid(go + po * cn), torch.tanh(cn)
-                if has_proj:
-                    db = me.part_d[:, :us]
-                else:
-                    db = torch.zeros(nr, us)
-                    db[:, :nu] = (m * (dch + dh[:, :out_dim]))[:, u0:u0 + nu]
-                dcv = me.dc
-                dc_in[t, lr, u0:u0 + nu] = dcv[:, :nu]
-                d_o = db * tc * so * (1 - so)
-                dcn = db * so * (1 - tc * tc) + m * dcv + d_o * po
-                d_f = dcn * c0 * sf * (1 - sf)
-                d_i = dcn * tj * si * (1 - si)
-                d_j = dcn * si * (1 - tj * tj)
-                me.dc = dcn * sf + (1 - m) * dcv + d_f * pf + d_i * pi
-                dg = torch.stack([d_i, d_j, d_f, d_o], 1)   # [nr, 4, US]
-                dg[:, :, nu:] = 0.0
-                for k in range(4):
-                    at = k * units + u0
-                    dgates[t, lr, at:at + nu] = dg[:, k, :nu]
-                me.sums[:4] += dg.sum(0)
-                me.sums[4] += (d_i * c0).sum(0)
-                me.sums[5] += (d_f * c0).sum(0)
-                me.sums[6] += (d_o * cn).sum(0)
-                me.gq = dg.reshape(nr, g)
+                dgq = torch.zeros(nr, 4, us)
+                for turn in cell_threads(rows, us, nr):
+                    rr = torch.tensor([r for _, r in turn])
+                    c0 = cur["cp"][rr]
+                    mr = m[rr]
+                    gi, gj, gf, go = me.gsum[rr].view(len(rr), 4, us).unbind(1)
+                    si, tj = torch.sigmoid(gi + pi * c0), torch.tanh(gj)
+                    sf = torch.sigmoid(gf + pf * c0 + case["forget_bias"])
+                    cn = sf * c0 + si * tj
+                    so, tc = torch.sigmoid(go + po * cn), torch.tanh(cn)
+                    if has_proj:
+                        db = me.part_d[rr, :us]
+                    else:
+                        # PS = US: the units' own columns
+                        db = torch.zeros(len(rr), us)
+                        db[:, :nu] = (mr * (dch[rr] + me.dh[rr, :npq]))[:, :nu]
+                    dcv = me.dc[rr]
+                    dc_in[t, lr[rr], u0:u0 + nu] = dcv[:, :nu]
+                    d_o = db * tc * so * (1 - so)
+                    dcn = db * so * (1 - tc * tc) + mr * dcv + d_o * po
+                    d_f = dcn * c0 * sf * (1 - sf)
+                    d_i = dcn * tj * si * (1 - si)
+                    d_j = dcn * si * (1 - tj * tj)
+                    me.dc[rr] = dcn * sf + (1 - mr) * dcv + d_f * pf + d_i * pi
+                    dg = torch.stack([d_i, d_j, d_f, d_o], 1)   # [n, 4, US]
+                    dg[:, :, nu:] = 0.0
+                    for k in range(4):
+                        at = k * units + u0
+                        dgates[t, lr[rr], at:at + nu] = dg[:, k, :nu]
+                    dgq[rr] = dg
+                    # each thread's column sums, its rows in order
+                    thr = torch.tensor([rb0 for rb0, _ in turn])
+                    me.sums[thr, :4] += dg
+                    me.sums[thr, 4] += d_i * c0
+                    me.sums[thr, 5] += d_f * c0
+                    me.sums[thr, 6] += d_o * cn
+                me.gq = dgq.reshape(nr, g)
             yield ("sync", block)
             # 3b, 4: the step before's staged loads, the pass over wh
-            yield from wh_pass(chunk, True, staged if t > 0 else None)
-            # 5a. reduce-scatter into the owners' inboxes (warp 0)
-            if w == 0:
-                padded = torch.nn.functional.pad(me.part_h, (0, pw - p16))
-                for owner in range(C):
-                    peer = blocks[l][owner]
-                    peer.inbox[q] = padded[:, owner * ps:(owner + 1) * ps]
-                    peer.inbox_tag[q] = t
+            yield from wh_pass(chunk, t, staged if t > 0 else None)
             yield ("sync", layer)
-            # 5b. the partials in block order, the new slice to every block
+            # 5. the partials in block order, the carry's slice, the step
+            # before's dout_p into every block (warp 0, whenever it gets
+            # there)
+            yield ("run",)
             if w == 0:
-                s = read_tagged(me.inbox[0], [me.inbox_tag[0]], t, nr)
-                for b in range(1, C):
-                    s = s + read_tagged(me.inbox[b], [me.inbox_tag[b]], t,
-                                        nr)
-                cols = torch.arange(p0, p0 + ps)
-                new = (1 - m) * dh[:, p0:p0 + ps] + s
-                new[:, cols >= out_dim] = 0.0
-                for peer in blocks[l]:
-                    peer.dh[:, p0:p0 + ps] = new
-                    peer.dh_tag[q] = t
-            yield ("sync", layer)
+                s = None
+                for b in range(C):
+                    part = read_tagged(me.inbox[b], me.inbox_tag[b][:npq], t,
+                                       nr)[:, :npq]
+                    s = part if s is None else s + part
+                    me.inbox_read[b] = t
+                me.dh[:, :npq] = (1 - m) * me.dh[:, :npq] + s
+                if has_proj and t > 0:
+                    share_dq(staged, me.dh[:, :npq])
+            if inbox_barrier:
+                yield ("sync", layer)
             # 6. a chunk's din, counted for the layer below
             if chunk_end:
                 cnt = done - (done - 1) // lag * lag
                 if w == 0:
                     wx = wz[l, :out_dim]                     # [P, 4H]
-                    cols = torch.arange(p0, p0 + npq)
-                    for s in range(t, t + cnt):
-                        dgl = dgates[s, lr]
-                        written[l][s][br[:, None], cols[None, :]] += (
+                    for s_ in range(t, t + cnt):
+                        dgl = dgates[s_, lr]
+                        written[l][s_][br[:, None], own[None, :]] += (
                             dgl @ wx[p0:p0 + npq].t())
-                        visible[l][s][br[:, None], cols[None, :]] = \
-                            written[l][s][br[:, None], cols[None, :]]
+                        visible[l][s_][br[:, None], own[None, :]] = \
+                            written[l][s_][br[:, None], own[None, :]]
                 yield ("sync", block)
                 if w == 0:
                     counts[l].v[q] = done
         if w == 0:
             dcinit[lr, u0:u0 + nu] = me.dc[:, :nu]
-            dh = read_tagged(me.dh, me.dh_tag, 0, nr)
-            dhinit[lr, p0:p0 + npq] = dh[:, p0:p0 + npq]
-            sums[l, :, u0:u0 + nu] += me.sums[:, :nu]
+            dhinit[lr[:, None], own[None, :]] = me.dh[:, :npq]
+            # the row tile's column sums: the threads' in row order
+            tot = torch.zeros(7, us)
+            for rb0 in range(min(rs, nr)):
+                tot = tot + me.sums[rb0]
+            sums[l, :, u0:u0 + nu] += tot[:, :nu]
 
     for b0 in range(0, batch, rows):
         sched = Sched(order, layer_group)
@@ -703,7 +814,7 @@ def make_case(seed, units, proj, batch=2, time_steps=3, layers=2, keep=0.9,
         p["bias"] = torch.from_numpy(
             (0.1 * rng.randn(4 * units)).astype(np.float32))
     x = torch.from_numpy(rng.randn(batch, time_steps, dim).astype(np.float32))
-    lengths = np.array([time_steps, max(1, time_steps - 1)][:batch])
+    lengths = np.array([time_steps, max(1, time_steps - 1)] * batch)[:batch]
     seq = torch.from_numpy(lengths.astype(np.int32))
     wz, bias, pw, peep = sk.stack_weights(params, torch.float32)
     gx = x @ params[0]["wx"] + params[0]["bias"]
@@ -742,71 +853,115 @@ def close(got, want, names):
                                    err_msg=name, **TOL)
 
 
-@pytest.mark.parametrize("order", [o for _, o in ORDERS],
-                         ids=[n for n, _ in ORDERS])
+# (scheduler, R, batch): the launchers' R at B = 2 under each order; then R
+# with two rows for some cell-phase threads (8 at 128 units a block, 16 at
+# 64) over a ragged tile (B below R)
+RUNS = [(o, None, 2) for _, o in ORDERS] + [(greedy_order, "two", None)]
+RUN_IDS = [n for n, _ in ORDERS] + ["greedy-two-rows-ragged"]
+TWO_ROWS = {(2048, 512): (8, 5), (1024, None): (16, 9)}
+
+
+def run_shape(units, proj, rows, batch):
+    """(R, batch) of a RUNS entry at a shape"""
+    if rows == "two":
+        rows, batch = TWO_ROWS[(units, proj)]
+        assert thread_rows(rows, round_up(cdiv(units, C), 8)) == 2
+        assert batch % rows
+    return rows, batch
+
+
+@pytest.mark.parametrize("order,rows,batch", RUNS, ids=RUN_IDS)
 @pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
-def test_stack_streamed_forward_matches_plain(units, proj, order):
-    case = make_case(1, units, proj, affine=proj is None)
-    got = k12_streamed(case, order, lag=2)
+def test_stack_streamed_forward_matches_plain(units, proj, order, rows,
+                                              batch):
+    rows, batch = run_shape(units, proj, rows, batch)
+    case = make_case(1, units, proj, batch=batch, affine=proj is None)
+    got = k12_streamed(case, order, lag=2, rows=rows)
     ref = sk.stack_forward_reference(**case)
     close(got, ref, ("out", "chain", "c_all", "h_all", "cfin", "hfin"))
 
 
-@pytest.mark.parametrize("order", [o for _, o in ORDERS],
-                         ids=[n for n, _ in ORDERS])
-@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
-def test_stack_streamed_backward_matches_plain(units, proj, order):
-    case = make_case(2, units, proj)
+def backward_case(units, proj, batch, seed=2):
+    case = make_case(seed, units, proj, batch=batch)
     fwd = sk.stack_forward_reference(**case)
     rng = np.random.RandomState(7)
     out, _, _, _, cfin, hfin = fwd
     dout = torch.from_numpy((0.1 * rng.randn(*out.shape)).astype(np.float32))
     dcfin = torch.from_numpy(rng.randn(*cfin.shape).astype(np.float32))
     dhfin = torch.from_numpy(rng.randn(*hfin.shape).astype(np.float32))
+    return case, fwd, dout, dcfin, dhfin
+
+
+@pytest.mark.parametrize("order,rows,batch", RUNS, ids=RUN_IDS)
+@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
+def test_stack_streamed_backward_matches_plain(units, proj, order, rows,
+                                               batch):
+    rows, batch = run_shape(units, proj, rows, batch)
+    case, fwd, dout, dcfin, dhfin = backward_case(units, proj, batch)
     _, chain, c_all, h_all, _, _ = fwd
     ref = sk.stack_backward_reference(
         **{k: v for k, v in case.items() if k != "affine"}, chain=chain,
         c_all=c_all, h_all=h_all, dout=dout, dcfin=dcfin, dhfin=dhfin,
         steps_out=True)
-    got = k13_streamed(case, fwd, dout, dcfin, dhfin, order, lag=2)
+    got = k13_streamed(case, fwd, dout, dcfin, dhfin, order, lag=2,
+                       rows=rows)
     dgates, _, dbias, _, dpeep, dcinit, dhinit, dc_in, dh_in, din = ref
     close(got, (dgates, dbias, dpeep, dcinit, dhinit, dc_in, dh_in, din),
           ("dgates", "dbias", "dpeep", "dcinit", "dhinit", "dc_in", "dh_in",
            "din"))
 
 
-HELD = {(2048, 512): (49152, 65536), (1024, None): (106496, 24576),
-        (2048, None): (49152, 0)}
+# wh's bytes a block holds at R = 4 (K12's, K13's), as stack_config
+# reports them on an H100
+HELD = {(2048, 512): (49152, 98304), (1024, None): (106496, 98304),
+        (2048, None): (49152, 49152)}
 
 
 @pytest.mark.parametrize("units,proj", SHAPES + [(2048, None)],
                          ids=SHAPE_IDS + ["2048-noproj"])
 def test_stack_streamed_plans_stream_and_fill_the_ring(units, proj):
-    """The plans the emulation runs are the kernels': K12 takes R = 4 at
-    128 units a block and 8 at 64, K13 at most that (R = 2 at H = P =
-    2048); two to four slots, wh's first rows in the rest of shared
-    memory, chunks to stream every step; K12's input stage is 16 rows
-    where 32 would pass 64 KB; capped at half of wh's steps (the forced
-    plan) the ring streams the rest."""
+    """The plans the emulation runs are the kernels': a streaming chunk (B
+    = 1) launches R = 4 forward and backward; two to four slots, wh's first
+    rows in the rest of shared memory, chunks to stream every step; K12's
+    input stage is 16 rows where 32 would pass 64 KB; capped at half of
+    wh's steps (the forced plan) the ring streams the rest."""
     out_dim, has_proj = proj or units, proj is not None
-    rows_f = largest_rows(k12_plan, units, out_dim, has_proj)
-    rows_b = largest_rows(k13_plan, units, out_dim, has_proj)
-    assert rows_f == 4
-    assert k12_plan(units, out_dim, has_proj, 8)["fits"] is (units <= 1024)
-    assert rows_b == (2 if out_dim == 2048 else 4)
+    for plan in (k12_plan, k13_plan):
+        assert launch_rows(plan, units, out_dim, has_proj, 1) == (4, 1, 1)
     assert k12_plan(units, out_dim, has_proj, 4)["srows"] == (
         16 if out_dim >= 1024 else 32)
-    for plan, rows in ((k12_plan, rows_f), (k13_plan, rows_b)):
-        pl = plan(units, out_dim, has_proj, rows)
+    for plan in (k12_plan, k13_plan):
+        pl = plan(units, out_dim, has_proj, 4)
         assert 2 <= pl["slots"] <= 4
         assert pl["res"] < pl["wsteps"] and pl["nw"] > 0
-        # wh's bytes a block holds, as stack_config reported them on an
-        # H100 (K12 R = 4; K13 R = 4, at H = P = 2048 R = 2)
         assert pl["res"] * 16 * pl["g"] * 2 == HELD[(units, proj)][
             plan is k13_plan]
-        half = plan(units, out_dim, has_proj, rows, pl["wsteps"] // 2)
+        half = plan(units, out_dim, has_proj, 4, pl["wsteps"] // 2)
         assert half["res"] == min(pl["res"], pl["wsteps"] // 2)
         assert half["nw"] >= pl["nw"]
+
+
+@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
+def test_stack_streamed_b32_launches_at_most_two_tiles(units, proj):
+    """At B = 32 the launchers take R = 16 or 32 (a cell-phase thread owns
+    several rows; the products' A operands one or two whole 16-row tiles),
+    so with 7 sixteen-block clusters resident a 4-layer stack runs at most
+    two row tiles, one a wave, where R = 4 ran eight; each plan keeps at
+    least two ring slots, and the rows a thread stay within cell_rows."""
+    out_dim, has_proj = proj or units, proj is not None
+    us = round_up(cdiv(units, C), 8)
+    for plan in (k12_plan, k13_plan):
+        rows, per_wave, waves = launch_rows(plan, units, out_dim, has_proj,
+                                            32)
+        pl = plan(units, out_dim, has_proj, rows)
+        assert rows >= 16 and per_wave == 1 and cdiv(32, rows) == waves <= 2
+        assert pl["slots"] >= 2 and pl["arow"] == round_up(rows, 16)
+        assert 2 <= thread_rows(rows, us) <= cell_rows(rows)
+        assert launch_rows(plan, units, out_dim, has_proj, 32,
+                           resident=4)[2] == waves
+    assert launch_rows(k12_plan, units, out_dim, has_proj, 32)[0] == (
+        16 if has_proj else 32)
+    assert launch_rows(k13_plan, units, out_dim, has_proj, 32)[0] == 16
 
 
 @pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
@@ -873,6 +1028,24 @@ def test_stack_refill_before_the_block_barrier_is_caught():
     with pytest.raises(Hazard, match="in flight"):
         k13_streamed(case, fwd, torch.ones(fwd[0].shape), *zeros,
                      greedy_order, refill_after_barrier=False)
+
+
+@pytest.mark.parametrize("units,proj,rows,batch,caught", [
+    (1024, None, 16, 9, "inbox overwritten"),
+    (2048, 512, 8, 5, "read step")], ids=SHAPE_IDS[::-1])
+def test_stack_inbox_write_before_its_owner_read_is_caught(units, proj, rows,
+                                                           batch, caught):
+    """Without the cluster barrier that ends the owners' reads of their
+    inboxes and their writes of dq, a block runs ahead into the next step:
+    its pass over wh writes its dh partial into an inbox its owner has not
+    read yet, and (with a projection, first) its dout_blk reads dq slices
+    their owners have not written yet.  The emulation sees it (K13 with
+    two rows for some cell-phase threads, a ragged tile)."""
+    case, fwd, dout, dcfin, dhfin = backward_case(units, proj, batch, seed=6)
+    # the highest-numbered block first, copies landed as soon as issued
+    with pytest.raises(Hazard, match=caught):
+        k13_streamed(case, fwd, dout, dcfin, dhfin, lambda c: c[-1],
+                     rows=rows, inbox_barrier=False)
 
 
 def test_stack_a_wait_on_too_few_steps_is_caught():
