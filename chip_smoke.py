@@ -129,9 +129,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (cudnnlstm; cuDNN's yardstick there too) and a streaming chunk (B=1,
      16 rows): float32 and bfloat16 at keep 0.9 (lstm) with initial
      states, two bfloat16 launches bit-equal, the launch (blocks, R,
-     clusters, waves, those resident at once), timed (beside the plain
-     version at 1024/256 and cudnnlstm 512) and through stack_layers
-     beside the parent's route, layer by layer through K1;
+     clusters, waves, those resident at once, shared memory a block),
+     timed (beside the plain version at 1024/256 and cudnnlstm 512) and
+     through stack_layers beside the parent's route, layer by layer
+     through K1; each B = 32 launch in turns with the same launch forced
+     onto one row a cell-phase thread (K12 R = 8, K13 R = 4; the streamed
+     plan R = 4), bit-equal, in at most 2 waves (K12) and 4 (K13); at
+     cudnnlstm 512 K12 + K13 as a train step calls them beside cuDNN's
+     forward + backward, on the events and on the device kernels;
  12. K13 (its backward) against its plain version at both widths (keep 0.9
      for lstm), under phase 7's rules (bfloat16: each step replayed from the
      kernel's own carries and input cotangents); timed in turns; then at
@@ -3246,13 +3251,17 @@ def kernel_split(rows, groups):
     return split
 
 
-def cudnn_yardstick(torch, pkg, device, rng, shape=None):
+def cudnn_yardstick(torch, pkg, device, rng, shape=None, with_stack=False):
     """The library yardstick at the cudnnlstm width (``shape``: (H, None)
     instead of 320; full lengths): cuDNN's LSTM gives K12's outputs in
     float32 (TF32 off); then cuDNN's forward, and its forward plus
     backward, timed in bf16 beside K12 and K13, with its weights in one
     buffer (no copy at a call), and each call's device time from the
-    profiler beside its time on the CUDA events."""
+    profiler beside its time on the CUDA events.  With ``with_stack``, K12
+    and K13 as a training step calls them (K12 storing its states in bf16,
+    then K13 on them) timed in turns with cuDNN's forward + backward, on
+    the events and on the device kernels: cuDNN's events carry host work
+    of its own, so the kernels are compared with it on the device."""
     sk = pkg["lstm_stack_kernels"]
     width = "H=P=%d" % (shape or (320,))[0]
     case, params, x, _ = stack_case(torch, pkg, device, torch.float32,
@@ -3292,6 +3301,10 @@ def cudnn_yardstick(torch, pkg, device, rng, shape=None):
                                     kernel_reps=2)
         fwd_dev, fwd_rows = device_ms(torch, forward)
         both_dev, both_rows = device_ms(torch, both)
+        result = {"forward": lib_fwd, "both": lib_both,
+                  "forward_device": fwd_dev, "both_device": both_dev}
+        if with_stack:
+            result.update(stack_beside_cudnn(torch, sk, case16, both))
     compacted = [w for w in caught if "contiguous chunk" in str(w.message)]
     if compacted:
         fail("cuDNN copied its weights at a call: %s" % compacted[0].message)
@@ -3300,12 +3313,49 @@ def cudnn_yardstick(torch, pkg, device, rng, shape=None):
         "device kernels (K12, one launch, %.3f ms); forward + backward %.3f "
         "ms, %.3f ms of device kernels"
         % (width, lib_fwd, fwd_dev, k12_ms, lib_both, both_dev))
+    if with_stack:
+        say("  K12 + K13 bf16, cudnnlstm %s (K12 with its states in bf16, "
+            "then K13 on them; K13's gate-input and weight-gradient "
+            "products included): %.3f ms on the events, %.3f ms of device "
+            "kernels, beside cuDNN's forward + backward in the same turns "
+            "%.3f ms on the events, %.3f ms of device kernels: %.2fx on the "
+            "device kernels, which the kernel table compares (cuDNN's "
+            "events carry %.3f ms of host work beyond its kernels), %.2fx "
+            "on the events"
+            % (width, result["stack_ms"], result["stack_device"],
+               result["cudnn_ms"], both_dev,
+               result["stack_device"] / both_dev,
+               result["cudnn_ms"] - both_dev,
+               result["stack_ms"] / result["cudnn_ms"]))
     for tag, rows in (("forward", fwd_rows), ("forward + backward",
                                               both_rows)):
         say("    cuDNN %s kernels: %s" % (tag, "; ".join(
             "%.3f ms %d x %s" % (ms, count, key[:60])
             for ms, count, key in rows[:5])))
-    return {"forward": lib_fwd, "both": lib_both}
+    return result
+
+
+def stack_beside_cudnn(torch, sk, case, cudnn_both):
+    """K12 and K13 on ``case`` (bf16) as a training step calls them, timed
+    in turns with ``cudnn_both`` (cuDNN's forward + backward; median of
+    3), and the device time of one call of each from the profiler."""
+    bf16 = torch.bfloat16
+    args = {k: v for k, v in case.items() if k != "affine"}
+    out = sk.lstm_stack_forward(**args)[0]
+    dout = torch.ones_like(out)
+
+    def stack():
+        out, cfin, hfin, chain, c_all, h_all = sk.lstm_stack_forward(
+            **args, states=True, store_dtype=bf16)
+        sk.lstm_stack_backward(**args, chain=chain, c_all=c_all, h_all=h_all,
+                               dout=dout, dcfin=torch.zeros_like(cfin),
+                               dhfin=torch.zeros_like(hfin),
+                               store_dtype=bf16)
+
+    stack_ms, cudnn_ms = time_in_turns(torch, stack, cudnn_both, rounds=3,
+                                       kernel_reps=1)
+    return {"stack_ms": stack_ms, "cudnn_ms": cudnn_ms,
+            "stack_device": device_ms(torch, stack)[0]}
 
 
 def check_stack_bwd(torch, pkg, device, rng):
@@ -3460,11 +3510,17 @@ def stack_stream_line(how, layers, steps, ms):
                                how["held_bytes"], nbytes / ms / 1e9))
 
 
-# the streamed launches held against the same launch forced onto R = 4 (as
-# much of wh resident as fits: one row a cell-phase thread), at B = 32: the
-# launcher's R (16 or 32 rows a cluster, a cell-phase thread several rows)
-# in 1-2 waves where R = 4 runs 8
-FOUR_ROWS = ("streamed, wh held as fits", 4)
+# the 16-block launches at B = 32 held against the same launch forced onto
+# one row a cell-phase thread: the streamed plan at R = 4 (as much of wh
+# resident as fits), where the launcher's R (16 or 32 rows a cluster, a
+# cell-phase thread several rows) runs 1-2 waves and R = 4 runs 8; the
+# resident plan at the R its one-row launcher took at Kaldi's LSTMP widths
+# (K12 8 in 4 waves, K13 4 in 8), where the launcher's (K12 16-32, K13
+# 8-16) runs at most 2 waves (K12) and 4 (K13); (K12's, K13's) plan and R,
+# and the most waves the launcher's R may take at T = 384
+ONE_ROW = {True: ((("streamed, wh held as fits", 4), 2),
+                  (("streamed, wh held as fits", 4), 2)),
+           False: ((("resident", 8), 2), (("resident", 4), 4))}
 
 
 def rows_line(how, rows, resident, batch, layers, steps, ms):
@@ -3477,24 +3533,26 @@ def rows_line(how, rows, resident, batch, layers, steps, ms):
         rows, waves, 1e3 * ms / (steps * waves))
 
 
-def four_rows(torch, sk, name, how, case, args=None):
+def one_row(torch, sk, name, how, case, args=None):
     """K12 (with ``args``, K13 on them) at the launcher's R beside the same
-    launch forced at R = 4, timed in turns (median of 2), and held to it:
-    K12's outputs and states, K13's dgates, weight products, carries and din
-    bit-equal; K13's column sums (each thread's rows added first) within
-    BF16_STEP_REL_TOL."""
+    launch forced onto one row a cell-phase thread (ONE_ROW), timed in
+    turns (median of 2), and held to it: K12's outputs and states, K13's
+    dgates, weight products, carries and din bit-equal; K13's column sums
+    (each thread's rows added first) within BF16_STEP_REL_TOL; each line
+    with both launches' R and waves and the launcher's clusters resident
+    at once and shared memory a block."""
     steps, batch = case["gx0"].shape[:2]
+    forced, most = ONE_ROW[bool(how["streamed"])][args is not None]
     if args is None:
         what = "K12"
         run = lambda **kw: sk.lstm_stack_forward(**case, **kw)
-        got, want = run(states=True), run(states=True, _plan=FOUR_ROWS)
+        got, want = run(states=True), run(states=True, _plan=forced)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         sums = 0.0
     else:
         what = "K13"
         run = lambda **kw: sk.lstm_stack_backward(**args, **kw)
-        got, want = run(steps_out=True), run(steps_out=True,
-                                             _plan=FOUR_ROWS)
+        got, want = run(steps_out=True), run(steps_out=True, _plan=forced)
         names = ("dgates", "dwz", "dbias", "dproj", "dpeep", "dcinit",
                  "dhinit", "dc_in", "dh_in", "din")
         same = all(a is None and b is None or torch.equal(a, b)
@@ -3503,24 +3561,30 @@ def four_rows(torch, sk, name, how, case, args=None):
         sums = max(ratio(a, b) for n, a, b in zip(names, got, want)
                    if n in ("dbias", "dpeep") and b is not None)
     del got, want
-    ms, ms4 = time_in_turns(torch, run, lambda: run(_plan=FOUR_ROWS),
-                            rounds=2, kernel_reps=1)
+    ms, forced_ms = time_in_turns(torch, run, lambda: run(_plan=forced),
+                                  rounds=2, kernel_reps=1)
     layers = case["wz"].shape[0]
-    say("  %s %s bfloat16 at the launcher's %s: %.3f ms; forced at %s: "
-        "%.3f ms (%.2fx); bit-equal row for row: %s%s"
-        % (what, name, rows_line(how, how["rows"], how["resident"], batch,
-                                 layers, steps, ms), ms,
-           rows_line(how, 4, how["resident"], batch, layers, steps, ms4),
-           ms4, ms4 / ms, same, "" if args is None else
-           "; column sums max rel %.2e (bound %.0e)" % (sums,
-                                                        BF16_STEP_REL_TOL)))
+    say("  %s %s bfloat16 on the %s plan at the launcher's %s (%d clusters "
+        "resident at once, %d bytes of shared memory a block): %.3f ms; "
+        "forced at %s: %.3f ms (%.2fx); bit-equal row for row: %s%s"
+        % (what, name, "streamed" if how["streamed"] else "resident",
+           rows_line(how, how["rows"], how["resident"], batch, layers, steps,
+                     ms), how["resident"], how["smem_bytes"], ms,
+           rows_line(how, forced[1], how["resident"], batch, layers, steps,
+                     forced_ms), forced_ms, forced_ms / ms, same,
+           "" if args is None else "; column sums max rel %.2e (bound %.0e)"
+           % (sums, BF16_STEP_REL_TOL)))
     if not same or sums > BF16_STEP_REL_TOL:
-        fail("%s %s at R=%d differs from R=4" % (what, name, how["rows"]))
-    if steps == 384 and (how["rows"] < 16 or how["waves"] > 2):
-        fail("%s %s launches R=%d in %d waves, not 16+ in 1-2"
-             % (what, name, how["rows"], how["waves"]))
-    return {"ms": ms, "r4_ms": ms4, "rows": how["rows"],
-            "waves": how["waves"], "col_sums_rel": sums}
+        fail("%s %s at R=%d differs from R=%d" % (what, name, how["rows"],
+                                                 forced[1]))
+    # the wavefront's S steps are T + L - 1
+    if steps - layers + 1 == 384 and (how["rows"] <= forced[1]
+                                      or how["waves"] > most):
+        fail("%s %s launches R=%d in %d waves, not more rows than %d in at "
+             "most %d" % (what, name, how["rows"], how["waves"], forced[1],
+                          most))
+    return {"ms": ms, "forced_ms": forced_ms, "forced_rows": forced[1],
+            "rows": how["rows"], "waves": how["waves"], "col_sums_rel": sums}
 
 
 def dropped_as_plain(sk, case, kchain, pchain):
@@ -3650,8 +3714,8 @@ def check_stack_fwd_wide(torch, pkg, device, rng):
                    "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
                    bound_ms, bound_by,
                    stack_stream_line(how, STACK_LAYERS, steps, ms)))
-        if streamed and shape.get("batch", 32) == 32:
-            res["four"] = four_rows(torch, sk, name, how, case)
+        if shape.get("batch", 32) == 32:
+            res["one_row"] = one_row(torch, sk, name, how, case)
         if routes:
             stack, route = stack_routes(torch, pkg, params, x, seq, family,
                                         torch.bfloat16, False)
@@ -3674,7 +3738,9 @@ def check_stack_forced(torch, pkg, device, rng):
     LSTMP widths (16 blocks), bf16, B=32, T=384: K12 at R=4 and 8 and K13
     at R=4, with half of wh resident and with as much as fits, each equal
     bit for bit to the resident plan at the same R, and timed against it
-    (median of 3)."""
+    (median of 3).  K13's resident plan of 16 blocks is the streamed plan's
+    kernel with every weight held, so its half holds the held pass against
+    the ring's within one kernel body."""
     sk = pkg["lstm_stack_kernels"]
     case, _, _, _ = stack_case(torch, pkg, device, torch.bfloat16, "lstm",
                                rng, 0.9, init=True, shape=(1024, 256))
@@ -3711,12 +3777,21 @@ def check_stack_forced(torch, pkg, device, rng):
         times[plan] = median_ms(torch, lambda: sk.lstm_stack_backward(
             **args, _plan=(plan, 4)), 3)
     result[("K13", 4)] = times
+    plans = []
+    for what, how in (("K12", stack_how(sk, device, case)),
+                      ("K13", stack_how(sk, device, case, True,
+                                        torch.float32))):
+        plans.append("%s R=%d in %d wave(s), %d clusters resident at once, "
+                     "%d bytes of shared memory a block"
+                     % (what, how["rows"], how["waves"], how["resident"],
+                        how["smem_bytes"]))
     say("  the streamed plan forced where the resident plan fits (lstm "
         "H=1024 P=256, bf16, B=32, T=384, 16 blocks), bit-equal to the "
-        "resident plan at the same R: %s" % "; ".join(
+        "resident plan at the same R: %s (the launcher's own resident "
+        "plans there, K13's states in float32: %s)" % ("; ".join(
             "%s R=%d: %s" % (k[0], k[1], ", ".join(
                 "%s %.3f ms" % kv for kv in t.items()))
-            for k, t in result.items()))
+            for k, t in result.items()), "; ".join(plans)))
     return result
 
 
@@ -3919,8 +3994,8 @@ def check_stack_bwd_wide(torch, pkg, device, rng):
                    "" if plain_ms is None else "  plain %.3f ms" % plain_ms,
                    bound_ms, bound_by,
                    stack_stream_line(how, STACK_LAYERS, steps, ms)))
-        if streamed and shape.get("batch", 32) == 32:
-            res["four"] = four_rows(torch, sk, name, how, case, args)
+        if shape.get("batch", 32) == 32:
+            res["one_row"] = one_row(torch, sk, name, how, case, args)
         if routes:
             stack, route = stack_routes(torch, pkg, params, x, seq, family,
                                         torch.bfloat16, True)
@@ -5887,12 +5962,10 @@ def main() -> None:
         stack_rng = np.random.RandomState(22)
         k12_wide = check_stack_fwd_wide(torch, pkg, device, stack_rng)
         library_wide = cudnn_yardstick(torch, pkg, device, stack_rng,
-                                       shape=(512, None))
-        # cuDNN at the streamed plan's cudnnlstm H = P = 1024 and 768
+                                       shape=(512, None), with_stack=True)
+        # cuDNN at the streamed plan's cudnnlstm H = P = 1024
         library_streamed = cudnn_yardstick(torch, pkg, device, stack_rng,
                                            shape=(1024, None))
-        library_768 = cudnn_yardstick(torch, pkg, device, stack_rng,
-                                      shape=(768, None))
         forced_stack = check_stack_forced(torch, pkg, device, stack_rng)
         phase("phase 12 K13 (unidirectional stack backward)")
         k13 = check_stack_bwd(torch, pkg, device, rng)
@@ -6259,18 +6332,23 @@ def main() -> None:
             "%.3f ms (the parent's route %.3f), forward + backward %.3f ms "
             "(%.3f)" % (f["stack_ms"], f["route_ms"], b["stack_ms"],
                         b["route_ms"]))
-            + ("" if "four" not in f else "; in turns with R=4 forced: K12 "
-               "%.3f ms against %.3f, K13 %.3f against %.3f" % (
-                   f["four"]["ms"], f["four"]["r4_ms"], b["four"]["ms"],
-                   b["four"]["r4_ms"])))
+            + ("" if "one_row" not in f else "; in turns with the same "
+               "launch forced at K12 R=%d and K13 R=%d: K12 %.3f ms against "
+               "%.3f, K13 %.3f against %.3f" % (
+                   f["one_row"]["forced_rows"], b["one_row"]["forced_rows"],
+                   f["one_row"]["ms"], f["one_row"]["forced_ms"],
+                   b["one_row"]["ms"], b["one_row"]["forced_ms"])))
     say("summary of the unidirectional stack on 16-block clusters on %s "
         "(bf16, B=32, T=384, 4 layers unless said; cuDNN's LSTM at H=P=512: "
-        "forward %.3f ms, forward + backward %.3f ms; at H=P=1024: %.3f ms, "
-        "%.3f ms; at H=P=768: %.3f ms, %.3f ms): %s; the streamed plan "
-        "forced at H=1024 P=256, bit-equal to the resident plan: %s"
+        "forward %.3f ms, forward + backward %.3f ms on the events, %.3f ms "
+        "of device kernels, beside K12 + K13 as a step calls them %.3f ms "
+        "on the events, %.3f ms of device kernels; at H=P=1024: %.3f ms, "
+        "%.3f ms): %s; the streamed plan forced at H=1024 P=256, bit-equal "
+        "to the resident plan: %s"
         % (smi, library_wide["forward"], library_wide["both"],
+           library_wide["both_device"], library_wide["stack_ms"],
+           library_wide["stack_device"],
            library_streamed["forward"], library_streamed["both"],
-           library_768["forward"], library_768["both"],
            "; ".join(wide_rows), "; ".join(
                "%s R=%d %s" % (k[0], k[1], ", ".join(
                    "%s %.3f ms" % kv for kv in t.items()))
@@ -6389,12 +6467,12 @@ def main() -> None:
         + [res[k] for res in list(k12_wide.values())
            + list(k13_wide.values())
            for k in ("stack_ms", "route_ms") if k in res] \
-        + [library_wide["forward"], library_wide["both"],
-           library_streamed["forward"], library_streamed["both"],
-           library_768["forward"], library_768["both"]] \
-        + [res["four"][k] for res in list(k12_wide.values())
-           + list(k13_wide.values()) if "four" in res
-           for k in ("ms", "r4_ms")] \
+        + [library_wide[k] for k in ("forward", "both", "both_device",
+                                     "stack_ms", "stack_device")] \
+        + [library_streamed["forward"], library_streamed["both"]] \
+        + [res["one_row"][k] for res in list(k12_wide.values())
+           + list(k13_wide.values()) if "one_row" in res
+           for k in ("ms", "forced_ms")] \
         + [v for t in forced_stack.values() for v in t.values()] \
         + [session[k] for k in ("chunk_ms", "route_chunk_ms")] \
         + [wide_lstm[k] for k in ("step_ms", "fps", "route_step_ms",

@@ -108,9 +108,10 @@ __host__ __device__ Split mma_split(int cols, int depth, int most = kMaxSlices) 
   return best;
 }
 
-// The streamed plans' cell phase (K12, K13): thread tid owns unit tid % US
-// of rows tid / US, + kThreads / US, .. below R, so a block takes more rows
-// than it has threads for units; kThreadRows such rows at most
+// The cell phase of the 16-block plans of K12 and K13 (bf16, resident or
+// streamed): thread tid owns unit tid % US of rows tid / US, + kThreads /
+// US, .. below R, so a block takes more rows than it has threads for
+// units; kThreadRows such rows at most
 constexpr int kThreadRows = 8;
 
 __host__ __device__ constexpr int thread_rows(int rows, int us) {
@@ -118,10 +119,28 @@ __host__ __device__ constexpr int thread_rows(int rows, int us) {
 }
 
 // a cell-phase thread's rows at most with R rows a cluster, at any US up to
-// kLayerUnits: the bound of its unrolled loop
-__host__ __device__ constexpr int cell_rows(int rows) {
-  return cdiv(rows, kThreads / kLayerUnits) < kThreadRows ? cdiv(rows, kThreads / kLayerUnits)
-                                                          : kThreadRows;
+// `units` (kLayerUnits, or kBlockUnits where a plan takes several rows a
+// thread only up to 64 units a block): the bound of its unrolled loop
+__host__ __device__ constexpr int cell_rows(int rows, int units = kLayerUnits) {
+  return cdiv(rows, kThreads / units) < kThreadRows ? cdiv(rows, kThreads / units)
+                                                    : kThreadRows;
+}
+
+// Whether a plan of C blocks takes several rows a cell-phase thread: the
+// bf16 plans of 16 blocks (K12: R of {4, 8, 16, 32}; K13: the streamed
+// plan's kernel, with every weight held on the resident plan); the 8-block
+// and float32 plans take one
+template <typename T>
+__host__ __device__ constexpr bool multi_row(int C) {
+  return kMma<T> && C == kWideCluster;
+}
+
+// Whether K12 carries c in the registers of its cell-phase threads (the
+// resident plan of several rows a thread, at up to kBlockUnits units a
+// block) or in shared memory [R][US]
+template <typename T>
+__host__ __device__ constexpr bool c_in_regs(int rows, int C, bool stream) {
+  return multi_row<T>(C) && !stream && cell_rows(rows, kBlockUnits) > 1;
 }
 
 // K12's shared-memory plan with C blocks a cluster, common to host and
@@ -130,7 +149,10 @@ __host__ __device__ constexpr int cell_rows(int rows) {
 // bytes so that rows fall on other banks); arow: rows of those buffers
 // (the tensor cores' A operands: 8 up to 8 rows, loaded once for mma's 16,
 // else R rounded up to 16-row tiles; R in float32); prow: rows of each
-// partial-sum block (arow in bf16); LWA, LWD: row strides of the bf16
+// partial-sum block (arow in bf16); c: the carried c [R][US], in shared
+// memory unless the plan is the resident one of 16 blocks in bf16 with
+// several rows a cell-phase thread (cell_rows(R, kBlockUnits) > 1), whose
+// threads keep it in registers; LWA, LWD: row strides of the bf16
 // weight slices in shared memory (padded by 16 bytes, LWD not with 16
 // blocks, as K1's); off_w, bytes:
 // where they start, and the block's shared memory in all (in f32, whose
@@ -186,7 +208,8 @@ __host__ __device__ Plan plan(int units, int out_dim, bool has_proj, int rows, i
   const int stage = p.us > p.ps ? p.us : p.ps;
   p.off_cell = align128(sizeof(T) * (size_t)p.arow * p.qs);
   p.off_c = p.off_cell + (has_proj ? align128(sizeof(T) * (size_t)p.arow * p.hs) : 0);
-  p.off_h = p.off_c + align128(sizeof(float) * (size_t)rows * p.us);
+  p.off_h = p.off_c + (c_in_regs<T>(rows, C, stream) ? 0
+                                                     : align128(sizeof(float) * (size_t)rows * p.us));
   p.off_stage = p.off_h + align128(sizeof(float) * (size_t)rows * p.own);
   p.off_part = p.off_stage + align128(sizeof(T) * (size_t)rows * stage);
   const size_t weights = !kMma<T> ? 0 : sizeof(T) *
@@ -288,50 +311,64 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* row) {
 }
 
 // The same product on the tensor cores, both operands in shared memory: a
-// is [prow][lda] bf16 (rows past R are zero; prow 8 or 16), w is [depth
-// rounded to 16][cols] bf16 with row stride ldw; part[s] is [prow][cols].
-// At prow 8 the rows of a are loaded once by ldmatrix.x2 and are mma's
-// rows 8-15 again, whose sums are never stored.  A warp owns one 16-column
-// tile and `per` 16-deep steps of k.
+// is [AROW][lda] bf16 (rows past R are zero), w is [depth rounded to
+// 16][cols] bf16 with row stride ldw; part[s] is [AROW][cols].  At AROW 8
+// the rows of a are loaded once by ldmatrix.x2 and are mma's rows 8-15
+// again, whose sums are never stored; at 16 and 32 a is one or two whole
+// 16-row tiles (ldmatrix.x4), which share each B fragment.  A row's sums
+// do not depend on the rows beside it, so a row gives the same bits at any
+// AROW.  A warp owns one 16-column tile and `per` 16-deep steps of k.
+template <int AROW>
 __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
                                             int depth, const __nv_bfloat16* w,
                                             int ldw, int cols, Split sp,
-                                            float* part, int prow = 8) {
+                                            float* part) {
+  static_assert(AROW == 8 || AROW == 16 || AROW == 32, "8 rows, or one or two 16-row tiles");
+  constexpr int MT = AROW == 8 ? 1 : AROW / 16;  // mma's 16-row tiles
   const int lane = threadIdx.x & 31;
   const int tiles = cols / 16, steps = cdiv(depth, 16);
   // ldmatrix row addresses: a rows m = lane % 16 at k + 8·(lane / 16)
-  // (prow 8: m = lane % 8 at k + 8·(lane / 8 % 2)); w rows k = lane % 16
+  // (AROW 8: m = lane % 8 at k + 8·(lane / 8 % 2)); w rows k = lane % 16
   // at column n + 8·(lane / 16)
-  const bool wide = prow > 8;
-  const __nv_bfloat16* a_lane = wide ? a + (lane & 15) * lda + (lane >> 4) * 8
-                                     : a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* a_lane = AROW == 8 ? a + (lane & 7) * lda + ((lane >> 3) & 1) * 8
+                                          : a + (lane & 15) * lda + (lane >> 4) * 8;
   const __nv_bfloat16* w_lane = w + (size_t)(lane & 15) * ldw + (lane >> 4) * 8;
   for (int task = threadIdx.x / 32; task < tiles * sp.slices; task += kWarps) {
     const int n = task % tiles, s = task / tiles;
     const int k0 = s * sp.per, k1 = min(steps, k0 + sp.per);
-    float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    float d[MT][2][4] = {};
     for (int k = k0; k < k1; ++k) {
-      uint32_t fa[4], fb[4];
-      if (wide) {
-        ldsm_x4(fa, a_lane + k * 16);
-      } else {
-        uint32_t fr[2];
-        ldsm_x2(fr, a_lane + k * 16);
-        fa[0] = fa[1] = fr[0];
-        fa[2] = fa[3] = fr[1];
+      uint32_t fa[MT][4], fb[4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if constexpr (AROW == 8) {
+          uint32_t fr[2];
+          ldsm_x2(fr, a_lane + k * 16);
+          fa[m][0] = fa[m][1] = fr[0];
+          fa[m][2] = fa[m][3] = fr[1];
+        } else {
+          ldsm_x4(fa[m], a_lane + (size_t)m * 16 * lda + k * 16);
+        }
       }
       ldsm_x4_trans(fb, w_lane + (size_t)k * 16 * ldw + n * 16);
-      mma_16816(d[0], fa, fb[0], fb[1]);
-      mma_16816(d[1], fa, fb[2], fb[3]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_16816(d[m][0], fa[m], fb[0], fb[1]);
+        mma_16816(d[m][1], fa[m], fb[2], fb[3]);
+      }
     }
-    // lane holds rows lane / 4 and + 8 (a copy of them unless prow is 16),
-    // columns 2·(lane % 4) and + 1 of each 8-column half
-    float* dst = part + ((size_t)s * prow + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
-    *reinterpret_cast<float2*>(dst) = make_float2(d[0][0], d[0][1]);
-    *reinterpret_cast<float2*>(dst + 8) = make_float2(d[1][0], d[1][1]);
-    if (wide) {
-      *reinterpret_cast<float2*>(dst + 8 * cols) = make_float2(d[0][2], d[0][3]);
-      *reinterpret_cast<float2*>(dst + 8 * cols + 8) = make_float2(d[1][2], d[1][3]);
+    // lane holds rows lane / 4 and + 8 of each tile (at AROW 8 the second
+    // a copy, not stored), columns 2·(lane % 4) and + 1 of each 8-column
+    // half
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float* dst = part + ((size_t)s * AROW + 16 * m + (lane >> 2)) * cols + n * 16 + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(dst) = make_float2(d[m][0][0], d[m][0][1]);
+      *reinterpret_cast<float2*>(dst + 8) = make_float2(d[m][1][0], d[m][1][1]);
+      if constexpr (AROW > 8) {
+        *reinterpret_cast<float2*>(dst + 8 * cols) = make_float2(d[m][0][2], d[m][0][3]);
+        *reinterpret_cast<float2*>(dst + 8 * cols + 8) = make_float2(d[m][1][2], d[m][1][3]);
+      }
     }
   }
 }

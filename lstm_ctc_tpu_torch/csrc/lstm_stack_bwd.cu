@@ -77,15 +77,27 @@
 //
 // Where no 8-block plan fits (bf16 slices past shared memory, from H = P =
 // 324 with a projection; any stack past 512 units) the cluster has 16
-// blocks, as K2's: a block owns at most 64 units, so H <= 1024, and keeps
-// its wh slice [P, 4·US] and proj rows [US, P] (~165 KB at H = 1024, P =
-// 256); dh is reduced over 16 blocks' partials in block order and
-// all-gathered to 16, and each layer waits for the 16 blocks of the layer
-// above.  The A operands hold the 8 rows of R (mma_product_f32add loads
-// them once for mma's 16), as K2's.  The buffers of R rows grow with P, so
-// at H = P = 512 with a projection only R = 2 fits beside the slices: the
-// 16-block plans add R = 2, tried last.  Only 7 sixteen-block clusters are
-// resident at once on an H100 SXM: at L = 4 a wave holds one row tile.
+// blocks, as K2's: a block owns at most 64 units, so H <= 1024 (128 past
+// that, below), and keeps its wh slice [P, 4·US] and proj rows [US, P]
+// (~165 KB at H = 1024, P = 256), and each layer waits for the 16 blocks
+// of the layer above.  Only 7 sixteen-block clusters are resident at once
+// on an H100 SXM: at L = 4 a wave holds one row tile, and each wave pays
+// the whole sequential chain again, so a cluster takes as many rows as
+// shared memory holds.  In bf16 it runs the streamed plan's kernel (below)
+// with every weight held and no ring: a block keeps only its own slices of
+// the R rows' buffers, a cell-phase thread owns several rows, the
+// products' A operands are a whole 16-row tile past 8 rows, and its pass
+// over wh runs a warp's dh_prev half-tiles first, then its gate tiles in
+// one tight loop (the ring's order, step by step, left the held pass
+// waiting on each step's loads and products: 1.1-1.2x slower).  So R of
+// {4, 8, 16}, then 2, with the fewest
+// waves (B = 32: R = 8 in 4 waves at 1024/256
+// and H = P = 448-512 with a projection, R = 16 in 2 at H = P = 384 and at
+// 512 without one; a streaming chunk R = 4).  In float32 (slices read
+// from L2) the buffers are the full-width ones of the 8-block plan: dh is
+// reduced over 16 blocks' partials in block order and all-gathered to 16,
+// the A operands hold R rows, one row a cell-phase thread, R of {4, 6,
+// 8}, then 2.
 //
 // The streamed plan (bf16 slices past every resident plan, up to 2048
 // units, 128 a block: stack_bwd_streamed_kernel) streams wh, and proj's
@@ -141,7 +153,9 @@ __device__ __forceinline__ float rnd(float v) {
 // gsteps: 16-deep steps of P and of G; utiles: proj's 16-row tiles; cw,
 // cu: steps of wh and tiles of proj a chunk; nw, np: chunks a pass;
 // res_bytes, stream_bytes: a block's weight bytes held, and streamed a
-// step.
+// step.  With `held` (bf16 on 16 blocks, resident) the same buffers, no
+// ring, every step of wh at off_wh and all of proj's rows at off_pj, at
+// the same strides.
 constexpr int kDinPiece = 64;  // float32 din product: the depth staged at once
 
 struct StackPlan {
@@ -156,8 +170,10 @@ struct StackPlan {
 
 template <typename T, typename S>
 __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int C,
-                                         bool stream = false, int cap = -1) {
+                                         bool stream = false, int cap = -1,
+                                         bool held = false) {
   StackPlan p = {};
+  stream = stream || held;
   p.us = round_up(cdiv(H, C), 8);
   p.u16 = round_up(p.us, 16);
   p.g = 4 * p.us;
@@ -212,6 +228,17 @@ __host__ __device__ StackPlan stack_plan(int H, int P, bool has_proj, int R, int
     p.wsteps = p.p16 / 16;
     p.gsteps = p.g / 16;
     p.utiles = has_proj ? p.u16 / 16 : 0;
+    if (held) {
+      const size_t wh = sizeof(T) * (size_t)p.p16 * p.lwh;
+      const size_t pj = has_proj ? sizeof(T) * (size_t)p.u16 * p.lpj : 0;
+      p.off_bar = p.off_ring = p.off_wh;
+      p.off_pj = p.off_wh + align128(wh);
+      p.bytes = p.off_pj + align128(pj);
+      p.res = p.wsteps;
+      p.res_bytes = (long long)(p.wsteps * 16 * p.g + (has_proj ? p.utiles * 16 * p.p16 : 0)) *
+                    (long long)sizeof(T);
+      return p;
+    }
     const size_t wrow = sizeof(T) * 16 * (size_t)p.lwh, urow = sizeof(T) * 16 * (size_t)p.lpj;
     p.cw = kChunkBytes / wrow > 1 ? (int)(kChunkBytes / wrow) : 1;
     p.cu = !has_proj ? 0 : kChunkBytes / urow > 1 ? (int)(kChunkBytes / urow) : 1;
@@ -779,7 +806,12 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
 // % 16 for the 8-column half h, each summing its half over the depth in
 // one chain; the products are not volatile, so a warp's loads run ahead.
 // dh_prev's sums of rows r < rows go to put_dh(r, p, columns p and p + 1).
-template <int AROW, typename Init, typename Issue, typename PutDh>
+// kHeld (every step of wh resident, no ring): a warp runs its dh_prev
+// half-tiles first, then its gate tiles over all the steps in one tight
+// loop, where interleaving them step by step, as the ring's chunks need,
+// left each step's loads and products waiting on one another: the same
+// sums in the same order.
+template <int AROW, bool kHeld, typename Init, typename Issue, typename PutDh>
 __device__ __forceinline__ void stack_wh_pass(bool dh_on, bool gate_on,
                                               const __nv_bfloat16* hq, int lda,
                                               const __nv_bfloat16* gq, int ldg, int G,
@@ -841,94 +873,111 @@ __device__ __forceinline__ void stack_wh_pass(bool dh_on, bool gate_on,
           gd[i][h][e] = 0.0f;
         }
   };
-  stream_pass(wsteps, res_w, lws, res, ring, lws, cw, n, total, issue,
-              [&](const T* w, int ldw, int k, int j) {
+  // the gate sums' 16-deep step j (at row k of w)
+  auto gate_step = [&](const T* w, int ldw, int k, int j) {
+    if (j > 0 && j % gates.per == 0) flush();
+    uint32_t fa[4];
+    frag_a(fa, a_h + j * 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = warp + kWarps * i;
+      if (t < gtiles) {
+        uint32_t fb[4];
+        ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_16816_free(z, fa, fb[2 * h], fb[2 * h + 1]);
+#pragma unroll
+          for (int e = 0; e < 2 * RH; ++e) gd[i][h][e] += z[e];
+        }
+      }
+    }
+  };
+  // dh_prev's columns 16·j + 8·h .. + 7 (at rows 16·k + 8·h of w), over
+  // the whole depth of G
+  auto dh_half = [&](const T* w, int ldw, int k, int j, int h) {
+    // B: wh's rows n = 16·k + 8·h + lane % 8 at k + 8·(lane / 8 % 2)
+    const T* w_lane = w + (size_t)(k * 16 + 8 * h + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8;
+    // each k-slice's steps summed in order into d (a zero
+    // accumulator a step, as mma_f32add_tiles), the slices in order
+    // into acc; a step's fragments are loaded while the step before
+    // multiplies
+    float acc[2 * RH];
+#pragma unroll
+    for (int e = 0; e < 2 * RH; ++e) acc[e] = 0.0f;
+    for (int s0 = 0; s0 < gsteps; s0 += dh.per) {
+      const int s1 = min(gsteps, s0 + dh.per);
+      float d[2 * RH];
+#pragma unroll
+      for (int e = 0; e < 2 * RH; ++e) d[e] = 0.0f;
+      auto step = [&](const uint32_t (&fa)[4], const uint32_t (&fb)[2]) {
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_16816_free(z, fa, fb[0], fb[1]);
+#pragma unroll
+        for (int e = 0; e < 2 * RH; ++e) d[e] += z[e];
+      };
+      uint32_t fa0[4], fb0[2], fa1[4], fb1[2];
+      frag_a(fa0, a_g + s0 * 16);
+      ldsm_x2(fb0, w_lane + s0 * 16);
+      int kk = s0;
+      for (; kk + 1 < s1; kk += 2) {
+        frag_a(fa1, a_g + (kk + 1) * 16);
+        ldsm_x2(fb1, w_lane + (kk + 1) * 16);
+        step(fa0, fb0);
+        if (kk + 2 < s1) {
+          frag_a(fa0, a_g + (kk + 2) * 16);
+          ldsm_x2(fb0, w_lane + (kk + 2) * 16);
+        }
+        step(fa1, fb1);
+      }
+      if (kk < s1) step(fa0, fb0);
+#pragma unroll
+      for (int e = 0; e < 2 * RH; ++e) acc[e] += d[e];
+    }
+#pragma unroll
+    for (int e = 0; e < RH; ++e)
+      if (row + 8 * e < rows)
+        put_dh(row + 8 * e, 16 * j + 8 * h + col, acc[2 * e], acc[2 * e + 1]);
+  };
+  if constexpr (kHeld) {
+    // the half-tiles m = 2·j + h of this warp: 15 - warp, + 16, ..
+    if (dh_on)
+      for (int m = kWarps - 1 - warp; m < 2 * wsteps; m += kWarps)
+        dh_half(res_w, lws, m >> 1, m >> 1, m & 1);
     if (gate_on) {
-      if (j > 0 && j % gates.per == 0) flush();
-      uint32_t fa[4];
-      frag_a(fa, a_h + j * 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int t = warp + kWarps * i;
-        if (t < gtiles) {
-          uint32_t fb[4];
-          ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma_16816_free(z, fa, fb[2 * h], fb[2 * h + 1]);
-#pragma unroll
-            for (int e = 0; e < 2 * RH; ++e) gd[i][h][e] += z[e];
-          }
-        }
-      }
+#pragma unroll 4
+      for (int j = 0; j < wsteps; ++j) gate_step(res_w, lws, j, j);
     }
-    if (dh_on) {
+  } else {
+    stream_pass(wsteps, res_w, lws, res, ring, lws, cw, n, total, issue,
+                [&](const T* w, int ldw, int k, int j) {
+                  if (gate_on) gate_step(w, ldw, k, j);
+                  if (dh_on) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (warp != kWarps - 1 - (2 * j + h) % kWarps) continue;
-        // B: wh's rows n = 16·k + 8·h + lane % 8 at k + 8·(lane / 8 % 2)
-        const T* w_lane = w + (size_t)(k * 16 + 8 * h + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8;
-        // each k-slice's steps summed in order into d (a zero
-        // accumulator a step, as mma_f32add_tiles), the slices in order
-        // into acc; a step's fragments are loaded while the step before
-        // multiplies
-        float acc[2 * RH];
-#pragma unroll
-        for (int e = 0; e < 2 * RH; ++e) acc[e] = 0.0f;
-        for (int s0 = 0; s0 < gsteps; s0 += dh.per) {
-          const int s1 = min(gsteps, s0 + dh.per);
-          float d[2 * RH];
-#pragma unroll
-          for (int e = 0; e < 2 * RH; ++e) d[e] = 0.0f;
-          auto step = [&](const uint32_t (&fa)[4], const uint32_t (&fb)[2]) {
-            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma_16816_free(z, fa, fb[0], fb[1]);
-#pragma unroll
-            for (int e = 0; e < 2 * RH; ++e) d[e] += z[e];
-          };
-          uint32_t fa0[4], fb0[2], fa1[4], fb1[2];
-          frag_a(fa0, a_g + s0 * 16);
-          ldsm_x2(fb0, w_lane + s0 * 16);
-          int kk = s0;
-          for (; kk + 1 < s1; kk += 2) {
-            frag_a(fa1, a_g + (kk + 1) * 16);
-            ldsm_x2(fb1, w_lane + (kk + 1) * 16);
-            step(fa0, fb0);
-            if (kk + 2 < s1) {
-              frag_a(fa0, a_g + (kk + 2) * 16);
-              ldsm_x2(fb0, w_lane + (kk + 2) * 16);
-            }
-            step(fa1, fb1);
-          }
-          if (kk < s1) step(fa0, fb0);
-#pragma unroll
-          for (int e = 0; e < 2 * RH; ++e) acc[e] += d[e];
-        }
-#pragma unroll
-        for (int e = 0; e < RH; ++e)
-          if (row + 8 * e < rows)
-            put_dh(row + 8 * e, 16 * j + 8 * h + col, acc[2 * e], acc[2 * e + 1]);
-      }
-    }
-  });
+                    for (int h = 0; h < 2; ++h)
+                      if (warp == kWarps - 1 - (2 * j + h) % kWarps) dh_half(w, ldw, k, j, h);
+                  }
+                });
+  }
   if (gate_on) flush();
   __syncthreads();
 }
 
-// The streamed plan (bf16, 16 blocks, R of {2, 4, 8, 16}; S: the store
-// dtype): the resident plans' step, with wh streamed as K2's streamed plan
-// streams it and the buffers of the R rows cut to what a block owns, so
-// that a cluster of 16 rows fits beside the ring (see the design notes at
-// the top).
-template <typename S, int R>
+// The bf16 plans of 16 blocks (R of {2, 4, 8, 16}; S: the store dtype):
+// the resident plans' step, with the buffers of the R rows cut to what a
+// block owns, and wh streamed as K2's streamed plan streams it, or with
+// kHeld every weight resident (the resident plan of 16 blocks), so that a
+// cluster of 8-16 rows fits beside the ring or the slices (see the design
+// notes at the top).
+template <typename S, int R, bool kHeld>
 __global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
     const int* __restrict__ seed, const float* __restrict__ gx0, const float* __restrict__ mask,
     const S* __restrict__ chain, const S* __restrict__ c_all, const S* __restrict__ h_all,
     const float* __restrict__ cinit, const float* __restrict__ hinit,
     const __nv_bfloat16* __restrict__ wz,
-    const __nv_bfloat16* __restrict__ wh_sl,  // [L, C, P16, LWH]
-    const __nv_bfloat16* __restrict__ pj_sl,  // [L, C, U16, LPJ] or null (P == H)
+    const __nv_bfloat16* __restrict__ wh_sl,  // [L, C, P16, LWH] (kHeld: [L, C, P16, 4·US])
+    const __nv_bfloat16* __restrict__ pj_sl,  // [L, C, U16, LPJ] (kHeld: P16) or null (P == H)
     const float* __restrict__ bias, const float* __restrict__ peep, float forget_bias,
     float keep_prob, int residual, const float* __restrict__ dout,
     const float* __restrict__ dcfin, const float* __restrict__ dhfin, int steps, int layers,
@@ -950,7 +999,7 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
   const int tile = tile0 + blockIdx.x / C, b0 = tile * R;
   const int nr = min(R, batch - b0);
   const bool has_proj = pj_sl != nullptr;
-  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C, true, cap);
+  const StackPlan pl = stack_plan<T, S>(H, P, has_proj, R, C, true, cap, kHeld);
   const int US = pl.us, G = pl.g, PS = pl.ps, P16 = pl.p16, nd = pl.nd, H4 = 4 * H;
   const int u0 = q * US, nu = max(0, min(US, H - u0));
   const int p0 = q * PS, np = max(0, min(PS, P - p0));
@@ -971,12 +1020,16 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
   float* gsum = reinterpret_cast<float*>(smem_raw + pl.off_gsum);    // [R][G]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);    // dout_blk's slices
   T* wh_s = reinterpret_cast<T*>(smem_raw + pl.off_wh);
+  T* pj_s = reinterpret_cast<T*>(smem_raw + pl.off_pj);  // kHeld
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
   const Ring wring{smem_raw + pl.off_ring, full, pl.slots, pl.slot};
 
+  // the slices as the wrapper lays them out: rows padded to the shared
+  // memory's strides (streamed), or dense (held)
+  const int lwh_g = kHeld ? G : pl.lwh, lpj_g = kHeld ? P16 : pl.lpj;
   const size_t slot = (size_t)l * C + q;
-  const T* wh_g = wh_sl + slot * (size_t)P16 * pl.lwh;
-  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * pl.lpj : nullptr;
+  const T* wh_g = wh_sl + slot * (size_t)P16 * lwh_g;
+  const T* pj_g = has_proj ? pj_sl + slot * (size_t)pl.u16 * lpj_g : nullptr;
   const T* wx_l = wz + (size_t)l * 2 * P * H4;
   const bool last = l == layers - 1;
   const size_t plane = (size_t)steps * batch * P;  // one layer's din
@@ -996,8 +1049,9 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
     return ring + ((size_t)((steps - 1 - s) % (2 * lag)) * batch + b0 + r) * H4;
   };
 
-  // wh's resident rows, as they lie in global memory; the carries' slices
-  copy_rows(wh_s, pl.lwh, wh_g, pl.lwh, 16 * pl.res);
+  // wh's resident rows (held: all of wh and proj); the carries' slices
+  copy_rows(wh_s, pl.lwh, wh_g, lwh_g, 16 * pl.res);
+  if (kHeld && has_proj) copy_rows(pj_s, pl.lpj, pj_g, lpj_g, pl.u16);
   if (tid == 0) {
     for (int i = 0; i < pl.slots; ++i) mbar_init(full + i, 1);
     mbar_init_fence();
@@ -1117,7 +1171,7 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
   // each P-slice), and the gate sums of step tt >= 0 (gx + bias + h_prev ·
   // wh_l, gx read from L2 as the pass starts) into gsum
   auto wh_pass = [&](bool dh_on, int tt) {
-    stack_wh_pass<kArow>(
+    stack_wh_pass<kArow, kHeld>(
         dh_on, tt >= 0, hq, pl.lda, gq, pl.ldg, G, pl.wsteps, pl.gsteps, pl.gates, pl.dh, wh_s,
         pl.lwh, pl.res, wring, pl.cw, chunk, total, issue,
         [&](int r, int c) {
@@ -1191,10 +1245,18 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
       if (l > 0) din_l[(brow + r) * P + p] = res ? dcv : 0.0f;
     }
 
-    // 2. dout_blk of the owned units, over proj's chunks of rows
-    if (has_proj)
-      bwd_dob_pass<kArow>(dq, pl.lda, P16, wring, pl.lpj, pl.np, pl.cu, pl.utiles, pl.dob, part,
-                          nd, chunk, total, issue);
+    // 2. dout_blk of the owned units, over proj's chunks of rows (held:
+    // all of them at once)
+    if (has_proj) {
+      if constexpr (kHeld) {
+        mma_f32add_tiles<true, kArow>(dq, pl.lda, P16, pj_s, pl.lpj, pl.utiles, pl.dob, part,
+                                      nd, 0);
+        __syncthreads();
+      } else {
+        bwd_dob_pass<kArow>(dq, pl.lda, P16, wring, pl.lpj, pl.np, pl.cu, pl.utiles, pl.dob,
+                            part, nd, chunk, total, issue);
+      }
+    }
 
     // 3. the cell backward of the owned units, a thread's rows in turn, the
     // unit's peepholes in registers for them (loaded a step at a time: none
@@ -1384,27 +1446,38 @@ __host__ Scratch scratch_of(const Args& a, const Launch& how) {
   return s;
 }
 
+// The plan of R rows of a C-block cluster (streamed or resident)
+template <typename T, typename S>
+__host__ StackPlan plan_of(int units, int out_dim, bool has_proj, int R, int C, bool stream,
+                           int cap) {
+  return stack_plan<T, S>(units, out_dim, has_proj, R, C, stream, cap,
+                          !stream && multi_row<T>(C));
+}
+
 // Whether a block of R rows of a C-block cluster fits this shape: at most
 // kBlockUnits units a block on 8 blocks and kLayerUnits on 16, its shared
-// memory within a block's, and its cell phase's rows a thread: one on the
-// resident plans (R·US <= kThreads), at most cell_rows(R) on the streamed
-// plan (bf16, 16 blocks, R <= 16: wh's resident steps at most `cap`, -1 as
-// many as fit, kAllHeld all of them or no plan), which also needs at least
+// memory within a block's, and its cell phase's rows a thread: at most
+// cell_rows(R) on the bf16 plans of 16 blocks (R <= 16), one on the others
+// (R·US <= kThreads); the streamed plan (wh's resident steps at most `cap`,
+// -1 as many as fit, kAllHeld all of them or no plan) also needs at least
 // two ring slots.  Host arithmetic only.
 template <typename T, typename S, int R>
 __host__ bool fits(int units, int out_dim, bool has_proj, int C, bool stream = false,
                    int cap = -1) {
-  if (stream && (!kMma<T> || C != kWideCluster || R > 16)) return false;
-  const StackPlan pl = stack_plan<T, S>(units, out_dim, has_proj, R, C, stream, cap);
+  if (stream && (!kMma<T> || C != kWideCluster)) return false;
+  const bool multi = multi_row<T>(C);  // several rows a cell-phase thread
+  if (multi && R > 16) return false;
+  const StackPlan pl = plan_of<T, S>(units, out_dim, has_proj, R, C, stream, cap);
   return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) &&
-         thread_rows(R, pl.us) <= (stream ? cell_rows(R) : 1) &&
+         thread_rows(R, pl.us) <= (multi ? cell_rows(R) : 1) &&
          pl.bytes <= kMaxSmemPerBlock &&
          (!stream || (pl.slots >= 2 && (cap != kAllHeld || pl.res == pl.wsteps)));
 }
 
 // K13's plans, in the order they are tried: resident on 8 blocks (some R
-// of {4, 6, 8}), resident on 16 (some R of {2, 4, 6, 8}), streamed on 16
-// (bf16; R of {2, 4}: the smallest, which launches pick from {4, 8, 16, 2})
+// of {4, 6, 8}), resident on 16 (some R of {2, 4, 6, 8}: the smallest,
+// which launches pick from {4, 6, 8, 2}, bf16 from {4, 8, 16, 2}),
+// streamed on 16 (bf16; R of {2, 4}, likewise)
 enum Kind { kNone = 0, kResident = 1, kStreamed = 2 };
 
 struct Route {
@@ -1429,11 +1502,14 @@ __host__ Route stack_route(int units, int out_dim, bool has_proj) {
   return Route{kNone, 0};
 }
 
-// the kernel of a plan: the resident plans' or the streamed plan's (bf16)
+// the kernel of a plan: the streamed plan's (bf16), with every weight held
+// for the resident plan of 16 blocks in bf16, else the resident plans'
 template <typename T, typename S, int R, int C, bool kStream>
 __host__ auto bwd_kernel() {
   if constexpr (kStream)
-    return stack_bwd_streamed_kernel<S, R>;
+    return stack_bwd_streamed_kernel<S, R, false>;
+  else if constexpr (multi_row<T>(C))
+    return stack_bwd_streamed_kernel<S, R, true>;
   else
     return stack_bwd_kernel<T, S, R, C>;
 }
@@ -1445,7 +1521,7 @@ cudaError_t config(const Args& a, int cap, cudaLaunchConfig_t* cfg, cudaLaunchAt
   how->resident = 0;
   const bool has_proj = a.pj_rows != nullptr;
   if (!fits<T, S, R>(a.units, a.out_dim, has_proj, C, kStream, cap)) return cudaSuccess;
-  const StackPlan pl = stack_plan<T, S>(a.units, a.out_dim, has_proj, R, C, kStream, cap);
+  const StackPlan pl = plan_of<T, S>(a.units, a.out_dim, has_proj, R, C, kStream, cap);
   auto kernel = bwd_kernel<T, S, R, C, kStream>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
@@ -1488,9 +1564,9 @@ cudaError_t config(const Args& a, int cap, cudaLaunchConfig_t* cfg, cudaLaunchAt
 }
 
 // The R of {4, 6, 8} with the fewest waves, then the smallest; with 16
-// blocks R = 2 last; streamed R of {4, 8, 16}, then 2; rows = 0 when no R's
-// L clusters are resident together (how->resident: the most resident of
-// any R).
+// blocks R = 2 last; bf16 on 16 blocks (resident or streamed) R of {4, 8,
+// 16}, then 2; rows = 0 when no R's L clusters are resident together
+// (how->resident: the most resident of any R).
 template <typename T, typename S, int C, bool kStream>
 cudaError_t choose_rows(const Args& a, Launch* how) {
   *how = Launch{C, 0, 0, 0, 0, 0, 0, 0, kStream, 0, 0};
@@ -1503,7 +1579,7 @@ cudaError_t choose_rows(const Args& a, Launch* how) {
   if (err != cudaSuccess) return err;                                   \
   if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
   how->resident = max(how->resident, c.resident);
-  if constexpr (kStream) {
+  if constexpr (multi_row<T>(C)) {
     TRY(4) TRY(8) TRY(16) TRY(2)
   } else {
     TRY(4) TRY(6) TRY(8)
@@ -1590,6 +1666,25 @@ bool valid(const Args& a) {
   return !(H <= 0 || P <= 0 || H % 4 || P % 4 || (!a.pj_rows && P != H));
 }
 
+// a bf16 launch of 16 blocks, streamed or resident
+template <typename T, typename S>
+cudaError_t run_rows(const Args& a, const Launch& how) {
+  if (how.streamed) {
+    switch (how.rows) {
+      case 2: return run<T, S, 2, kWideCluster, true>(a, -1, how);
+      case 4: return run<T, S, 4, kWideCluster, true>(a, -1, how);
+      case 8: return run<T, S, 8, kWideCluster, true>(a, -1, how);
+      default: return run<T, S, 16, kWideCluster, true>(a, -1, how);
+    }
+  }
+  switch (how.rows) {
+    case 2: return run<T, S, 2, kWideCluster, false>(a, -1, how);
+    case 4: return run<T, S, 4, kWideCluster, false>(a, -1, how);
+    case 8: return run<T, S, 8, kWideCluster, false>(a, -1, how);
+    default: return run<T, S, 16, kWideCluster, false>(a, -1, how);
+  }
+}
+
 template <typename T, typename S>
 int launch(int device, const Args& a) {
   cudaError_t err = cudaSetDevice(device);
@@ -1600,16 +1695,6 @@ int launch(int device, const Args& a) {
   err = choose<T, S>(a, &how);
   if (err != cudaSuccess) return err;
   if (!how.rows) return cudaErrorInvalidConfiguration;  // the layers not resident together
-  if (how.streamed) {
-    if constexpr (kMma<T>) {
-      switch (how.rows) {
-        case 2: return run<T, S, 2, kWideCluster, true>(a, -1, how);
-        case 4: return run<T, S, 4, kWideCluster, true>(a, -1, how);
-        case 8: return run<T, S, 8, kWideCluster, true>(a, -1, how);
-        default: return run<T, S, 16, kWideCluster, true>(a, -1, how);
-      }
-    }
-  }
   if (how.blocks == kCluster) {
     switch (how.rows) {
       case 4: return run<T, S, 4, kCluster, false>(a, -1, how);
@@ -1617,11 +1702,15 @@ int launch(int device, const Args& a) {
       default: return run<T, S, 8, kCluster, false>(a, -1, how);
     }
   }
-  switch (how.rows) {
-    case 2: return run<T, S, 2, kWideCluster, false>(a, -1, how);
-    case 4: return run<T, S, 4, kWideCluster, false>(a, -1, how);
-    case 6: return run<T, S, 6, kWideCluster, false>(a, -1, how);
-    default: return run<T, S, 8, kWideCluster, false>(a, -1, how);
+  if constexpr (multi_row<T>(kWideCluster)) {
+    return run_rows<T, S>(a, how);
+  } else {
+    switch (how.rows) {
+      case 2: return run<T, S, 2, kWideCluster, false>(a, -1, how);
+      case 4: return run<T, S, 4, kWideCluster, false>(a, -1, how);
+      case 6: return run<T, S, 6, kWideCluster, false>(a, -1, how);
+      default: return run<T, S, 8, kWideCluster, false>(a, -1, how);
+    }
   }
 }
 
@@ -1654,8 +1743,8 @@ int forced(int device, const Args& a, int plan, int rows) {
     if (err == cudaSuccess && how.rows) return run<T, S, R, C, ST == 1>(a, cap, how);  \
     break;
     CASE(0, kCluster, 4) CASE(0, kCluster, 6) CASE(0, kCluster, 8)
-    CASE(0, kWideCluster, 2) CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 6)
-    CASE(0, kWideCluster, 8) CASE(1, kWideCluster, 2) CASE(1, kWideCluster, 4)
+    CASE(0, kWideCluster, 2) CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 8)
+    CASE(0, kWideCluster, 16) CASE(1, kWideCluster, 2) CASE(1, kWideCluster, 4)
     CASE(1, kWideCluster, 8) CASE(1, kWideCluster, 16)
 #undef CASE
     default: break;

@@ -60,20 +60,30 @@
 //
 // Wider stacks take 16-block clusters (C = 16, the H100's non-portable
 // most), where no 8-block plan fits, as K1 does (lstm_fwd.cu): a block
-// owns US = H/16 units, at most 128 (R·US <= 512 threads, so R = 4 past
-// 64 units), so H <= 2048 (Kaldi's LSTMP widths, H = 1024 with P = 256:
-// wh's slice [256, 256] is 132 KB with its padding, proj's [1024, 16] 32
-// KB, unpadded as K1's).  To fit beside them the A operands of the
-// products hold the 8 rows of R <= 8 (loaded once for mma's 16) instead
-// of 16, and the chunk's input stage shares the region of the partial
-// sums, which a step uses only after the chunk's product is done (16 rows
-// a stage where 32 do not fit).  The counters of a row tile are [L, C]:
-// each layer waits for the C blocks of the layer below; each hand-off goes
-// to C blocks.  Only 7 sixteen-block clusters are resident at once on an
-// H100 SXM, so at L = 4 a wave holds one row tile, and a stack of 8 or
-// more such layers has no launch.  8 blocks stay wherever their plan fits:
-// the lstm family's flagship width (H = P = 320) is unchanged.  In float32
-// the slices are read from L2 whatever their size.
+// owns US = H/16 units, at most 128, so H <= 2048 (Kaldi's LSTMP widths,
+// H = 1024 with P = 256: wh's slice [256, 256] is 132 KB with its padding,
+// proj's [1024, 16] 32 KB, unpadded as K1's).  The chunk's input stage
+// shares the region of the partial sums, which a step uses only after the
+// chunk's product is done (16 rows a stage where 32 do not fit).  The
+// counters of a row tile are [L, C]: each layer waits for the C blocks of
+// the layer below; each hand-off goes to C blocks.  Only 7 sixteen-block
+// clusters are resident at once on an H100 SXM, so at L = 4 a wave holds
+// one row tile, and a stack of 8 or more such layers has no launch: the
+// waves are what a 16-block launch pays for, each the whole sequential
+// chain again.  So in bf16 a cluster takes as many rows as shared memory
+// holds, R of {4, 8, 16, 32} with the fewest waves, then the smallest (B =
+// 32: R = 16 in two waves at 1024/256 and H = P = 384-512 with a
+// projection, R = 32 in one at H = P = 512 without; a streaming chunk, B
+// = 1: R = 4): a cell-phase thread owns unit tid % US of rows tid / US, +
+// 512 / US, .. (cell_rows at most; 64 units a block at most past 8 rows),
+// with several rows their carried c in registers (which frees the 512 bytes
+// that R = 16 lacks at 1024/256), and the products' A operands are one or
+// two whole 16-row tiles on each B
+// fragment of the resident slices (mma_product<AROW>: the same k-slices,
+// summed in the same order, at any R).  8 blocks stay wherever their plan
+// fits, one row a thread: the lstm family's flagship width (H = P = 320)
+// is unchanged.  In float32 the slices are read from L2 whatever their
+// size, one row a thread.
 //
 // The streamed plan: a bf16 stack whose slices fit no resident plan (H =
 // P = 1024 without a projection: 8 MB of wh a layer; Sak, Senior and
@@ -122,6 +132,16 @@ namespace {
 // columns: 32 tiles over 16 warps) and the projection's (PS <= 256)
 constexpr int kGateTiles = 2, kProjTiles = 1;
 
+// A cell-phase thread's rows at most: one; on the bf16 plans of 16 blocks
+// cell_rows, at up to 128 units a block on the streamed plan and up to 64
+// on the resident one, whose thread keeps each row's next gate inputs (and
+// with several rows its carried c) in registers through the step (past 64
+// units a block it takes R of 4)
+template <typename T, bool kStream>
+__host__ __device__ constexpr int row_bound(int rows, int C) {
+  return !multi_row<T>(C) ? 1 : cell_rows(rows, kStream ? kLayerUnits : kBlockUnits);
+}
+
 template <typename T, int R, int C, bool kStream>
 __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
     const int* __restrict__ seed,       // [1] or null (no dropout)
@@ -165,15 +185,18 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   const int own_n = has_proj ? np : nu, own_0 = has_proj ? p0 : u0;
   const int P16 = round_up(P, 16), H16 = round_up(H, 16), lda_in = P16 + 16 / (int)sizeof(T);
   const int tid = threadIdx.x;
-  // the streamed products' rows of A (pl.arow), and a cell-phase thread's
-  // rows at most
+  // the bf16 products' rows of A (pl.arow), and a cell-phase thread's rows
+  // at most (one on the 8-block and float32 plans)
   constexpr int kArow = R > 16 ? 32 : R > 8 ? 16 : 8;
-  constexpr int kRows = kStream ? cell_rows(R) : 1;
+  constexpr int kRows = row_bound<T, kStream>(R, C);
+  // the carried c in registers (the resident plan of several rows a
+  // thread) or in shared memory
+  constexpr bool kCRegs = c_in_regs<T>(R, C, kStream);
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* hq = reinterpret_cast<T*>(smem_raw);                    // [arow][QS] h
   T* cellf = reinterpret_cast<T*>(smem_raw + pl.off_cell);   // [arow][HS]
-  float* c_own = reinterpret_cast<float*>(smem_raw + pl.off_c);  // [R][US]
+  float* c_own = reinterpret_cast<float*>(smem_raw + pl.off_c);  // [R][US] (!kCRegs)
   float* h_own = reinterpret_cast<float*>(smem_raw + pl.off_h);  // [R][own]
   T* stage = reinterpret_cast<T*>(smem_raw + pl.off_stage);  // [R][US or PS]
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
@@ -237,10 +260,11 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   }
   if (has_proj)
     for (int i = tid; i < pl.arow * pl.hs; i += kThreads) cellf[i] = zero;
-  for (int i = tid; i < R * US; i += kThreads) {
-    const int r = i / US, j = i - r * US;
-    c_own[i] = r < nr && j < nu ? cinit[(lrow + r) * H + u0 + j] : 0.0f;
-  }
+  if constexpr (!kCRegs)
+    for (int i = tid; i < R * US; i += kThreads) {
+      const int r = i / US, j = i - r * US;
+      c_own[i] = r < nr && j < nu ? cinit[(lrow + r) * H + u0 + j] : 0.0f;
+    }
   for (int i = tid; i < R * own; i += kThreads) {
     const int r = i / own, j = i - r * own;
     h_own[i] = r < nr && j < own_n ? hinit[(lrow + r) * P + own_0 + j] : 0.0f;
@@ -266,11 +290,20 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
       for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
   }
 
-  // phase b: thread tid owns unit jb of rows rb0, rb0 + RS, .. below nr (on
-  // the resident plans R <= RS: one row)
+  // phase b: thread tid owns unit jb of rows rb0, rb0 + RS, .. below nr
+  // (kRows at most; on the 8-block and float32 plans R <= RS: one row),
+  // with kCRegs their carried c in registers
   const int RS = kThreads / US, rb0 = tid / US, jb = tid - rb0 * US;
   const bool in_b = rb0 < RS, own_u = jb < nu;
   const int ub = u0 + jb;
+  float c_reg[kRows];
+  if constexpr (kCRegs) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int rb = rb0 + i * RS;
+      c_reg[i] = in_b && rb < nr && own_u ? cinit[(lrow + rb) * H + ub] : 0.0f;
+    }
+  }
 
   int seen = 0;  // thread q < C: the count last read of block q below
   for (int s0 = 0; s0 < steps; s0 += lag) {
@@ -301,11 +334,19 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           },
           pl.srows);
     }
-    float gnext[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (!kStream && in_b && rb0 < nr && own_u) {
-      const float* g = gx_row(s0, s0, rb0);
+    // resident: each of the thread's rows' gate inputs of the next step,
+    // loaded a step ahead
+    float gnext[kRows][4] = {};
+    if constexpr (!kStream) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
+      for (int i = 0; i < kRows; ++i) {
+        const int rb = rb0 + i * RS;
+        if (in_b && rb < nr && own_u) {
+          const float* g = gx_row(s0, s0, rb);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) gnext[i][k] = g[k * H + ub];
+        }
+      }
     }
 
     // 2. the chunk's steps (K1's step loop, with the chain and the layer's
@@ -325,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
             },
             part, G);
       } else if constexpr (kMma<T>) {
-        mma_product(hq, pl.qs, P, wh_s, pl.lwa, G, pl.gates, part, prow);
+        mma_product<kArow>(hq, pl.qs, P, wh_s, pl.lwa, G, pl.gates, part);
       } else {
         fma_product<R>(hq, pl.qs, P, wh_g, G, G, pl.gates, part);
       }
@@ -355,14 +396,14 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
             if constexpr (kStream) {
               v = part[(size_t)rb * G + k * US + jb];
             } else {
-              v = gnext[k];
+              v = gnext[i][k];
               for (int sl = 0; sl < pl.gates.slices; ++sl)
                 v += part[((size_t)sl * prow + rb) * G + k * US + jb];
             }
             gate[k] = v;
           }
           const int ib = rb * US + jb;
-          const float cp = c_own[ib];
+          const float cp = kCRegs ? c_reg[i] : c_own[ib];
           if (pd) {
             gate[0] += pi * cp;
             gate[2] += pf * cp;
@@ -373,7 +414,10 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           const float o = sigmoidf(gate[3]) * tanhf(cn);
           const float m = mask[srow + rb];
           const float cv = m * cn + (1.0f - m) * cp;
-          c_own[ib] = cv;
+          if constexpr (kCRegs)
+            c_reg[i] = cv;
+          else
+            c_own[ib] = cv;
           if (c_all) put_state(c_all, (srow + rb) * H + ub, cv, states_bf16);
           if (has_proj) {
             share = o;
@@ -391,7 +435,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
           if (!kStream && s + 1 < s1) {
             const float* g = gx_row(s + 1, s0, rb);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) gnext[k] = g[k * H + ub];
+            for (int k = 0; k < 4; ++k) gnext[i][k] = g[k * H + ub];
           }
         }
         stage[rb * US + jb] = Dtype<T>::from_float(share);
@@ -410,7 +454,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
                                      pl.cp, chunk, total, issue,
                                      [](int, int) { return 0.0f; }, part, PS);
       else if constexpr (kMma<T>)
-        mma_product(cellf, pl.hs, H, pj_s, pl.lwd, PS, pl.proj, part, prow);
+        mma_product<kArow>(cellf, pl.hs, H, pj_s, pl.lwd, PS, pl.proj, part);
       else
         fma_product<R>(cellf, pl.hs, H, pj_g, PS, PS, pl.proj, part);
       __syncthreads();
@@ -450,9 +494,17 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(
   }
 
   // the layer's final states
-  for (int i = tid; i < nr * US; i += kThreads) {
-    const int r = i / US, j = i - r * US;
-    if (j < nu) cfin[(lrow + r) * H + u0 + j] = c_own[i];
+  if constexpr (kCRegs) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int rb = rb0 + i * RS;
+      if (in_b && rb < nr && own_u) cfin[(lrow + rb) * H + ub] = c_reg[i];
+    }
+  } else {
+    for (int i = tid; i < nr * US; i += kThreads) {
+      const int r = i / US, j = i - r * US;
+      if (j < nu) cfin[(lrow + r) * H + u0 + j] = c_own[i];
+    }
   }
   for (int i = tid; i < nr * own; i += kThreads) {
     const int r = i / own, j = i - r * own;
@@ -502,9 +554,9 @@ __host__ size_t scratch_floats(const StackArgs& a, const Launch& how) {
 // Whether a block of R rows of a C-block cluster fits this shape: at most
 // kBlockUnits units a block on 8 blocks and kLayerUnits on 16, its
 // shared memory (`smem`) within a block's, and its cell phase's rows a
-// thread: one on the resident plans (R·US <= kThreads), at most cell_rows(R)
-// on the streamed plan (bf16, 16 blocks: wh's resident steps at most
-// `cap`, -1 as many as fit, kAllHeld all of them or no plan), which also
+// thread: at most row_bound (one on the 8-block and float32 plans, R·US <=
+// kThreads); the streamed plan (bf16, 16 blocks: wh's resident steps at
+// most `cap`, -1 as many as fit, kAllHeld all of them or no plan) also
 // needs at least two ring slots.  Host arithmetic only.
 template <typename T, int R>
 __host__ bool fits(int units, int out_dim, bool has_proj, int C, size_t* smem,
@@ -513,7 +565,8 @@ __host__ bool fits(int units, int out_dim, bool has_proj, int C, size_t* smem,
   const Plan pl = plan<T>(units, out_dim, has_proj, R, C, stream, cap);
   *smem = pl.bytes;
   return pl.us <= (C == kCluster ? kBlockUnits : kLayerUnits) &&
-         thread_rows(R, pl.us) <= (stream ? cell_rows(R) : 1) &&
+         thread_rows(R, pl.us) <= (stream ? row_bound<T, true>(R, C)
+                                          : row_bound<T, false>(R, C)) &&
          pl.bytes <= kMaxSmemPerBlock &&
          (!stream || (pl.slots >= 2 && (cap != kAllHeld || pl.res == pl.wsteps)));
 }
@@ -628,9 +681,10 @@ cudaError_t run(const StackArgs& a, int cap, const Launch& how) {
   return cudaGetLastError();
 }
 
-// The R of {4, 6, 8, 12} (streamed: {4, 8, 16, 32}) with the fewest waves,
-// then the smallest; rows = 0 when no R's L clusters are resident together
-// (how->resident: the most resident of any R).
+// The R of {4, 6, 8, 12} (bf16 on 16 blocks, resident or streamed: {4, 8,
+// 16, 32}) with the fewest waves, then the smallest; rows = 0 when no R's
+// L clusters are resident together (how->resident: the most resident of
+// any R).
 template <typename T, int C, bool kStream>
 cudaError_t choose_rows(const StackArgs& a, Launch* how) {
   *how = Launch{C, 0, 0, 0, 0, 0, 0, 0, kStream, 0, 0};
@@ -643,7 +697,7 @@ cudaError_t choose_rows(const StackArgs& a, Launch* how) {
   if (err != cudaSuccess) return err;                                   \
   if (c.rows && (!how->rows || c.waves < how->waves)) *how = c;         \
   how->resident = max(how->resident, c.resident);
-  if constexpr (kStream) {
+  if constexpr (multi_row<T>(C)) {
     TRY(4) TRY(8) TRY(16) TRY(32)
   } else {
     TRY(4) TRY(6) TRY(8) TRY(12)
@@ -675,20 +729,20 @@ cudaError_t choose(const StackArgs& a, Launch* how) {
 
 template <typename T, int C, bool kStream>
 cudaError_t run_rows(const StackArgs& a, int cap, const Launch& how) {
-  if constexpr (kStream) {
+  if constexpr (multi_row<T>(C)) {
     switch (how.rows) {
-      case 4: return run<T, 4, C, true>(a, cap, how);
-      case 8: return run<T, 8, C, true>(a, cap, how);
-      case 16: return run<T, 16, C, true>(a, cap, how);
-      case 32: return run<T, 32, C, true>(a, cap, how);
+      case 4: return run<T, 4, C, kStream>(a, cap, how);
+      case 8: return run<T, 8, C, kStream>(a, cap, how);
+      case 16: return run<T, 16, C, kStream>(a, cap, how);
+      case 32: return run<T, 32, C, kStream>(a, cap, how);
       default: return cudaErrorInvalidConfiguration;
     }
   } else {
     switch (how.rows) {
-      case 4: return run<T, 4, C, false>(a, cap, how);
-      case 6: return run<T, 6, C, false>(a, cap, how);
-      case 8: return run<T, 8, C, false>(a, cap, how);
-      case 12: return run<T, 12, C, false>(a, cap, how);
+      case 4: return run<T, 4, C, kStream>(a, cap, how);
+      case 6: return run<T, 6, C, kStream>(a, cap, how);
+      case 8: return run<T, 8, C, kStream>(a, cap, how);
+      case 12: return run<T, 12, C, kStream>(a, cap, how);
       default: return cudaErrorInvalidConfiguration;
     }
   }
@@ -744,8 +798,8 @@ int forced(int device, const StackArgs& a, int plan, int rows) {
     if (err == cudaSuccess && how.rows) return run<T, R, C, S == 1>(a, cap, how);   \
     break;
     CASE(0, kCluster, 4) CASE(0, kCluster, 6) CASE(0, kCluster, 8) CASE(0, kCluster, 12)
-    CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 6) CASE(0, kWideCluster, 8)
-    CASE(0, kWideCluster, 12) CASE(1, kWideCluster, 4) CASE(1, kWideCluster, 8)
+    CASE(0, kWideCluster, 4) CASE(0, kWideCluster, 8) CASE(0, kWideCluster, 16)
+    CASE(0, kWideCluster, 32) CASE(1, kWideCluster, 4) CASE(1, kWideCluster, 8)
     CASE(1, kWideCluster, 16) CASE(1, kWideCluster, 32)
 #undef CASE
     default: break;

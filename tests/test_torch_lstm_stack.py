@@ -486,12 +486,12 @@ def test_k12_k13_bf16_steps_replay(cuda, units, proj):
 WIDE = [(1024, 256), (512, 512), (448, 448), (384, 384), (512, None)]
 
 
-def blocks(cuda, case, backward=False):
+def blocks(cuda, case, backward=False, store=None):
     steps, batch, h4 = case["gx0"].shape
     layers, p2, _ = case["wz"].shape
     return sk.stack_config(cuda, steps, layers, batch, h4 // 4, p2 // 2,
                            case["proj"] is not None, case["wz"].dtype,
-                           backward, case["wz"].dtype)
+                           backward, store or case["wz"].dtype)
 
 
 @pytest.mark.cuda
@@ -499,11 +499,16 @@ def blocks(cuda, case, backward=False):
 def test_k12_k13_wide_on_16_blocks(cuda, units, proj):
     """K12 and K13 on 16-block clusters: float32 against the plain versions
     at keep 0.9 with initial states (ratio <= 1e-4), at B = 5 (one row
-    tile) and B = 20 (row tiles in waves); bfloat16 each step replayed from
-    the kernels' own states within 1e-3, and K13's weight gradients over
-    its own dgates; two bfloat16 launches bit-equal.  In float32, whose
-    slices stay in L2, 8 blocks hold up to 512 units.  The flagship width
-    keeps 8 blocks."""
+    tile) and B = 20 (row tiles in waves); bfloat16 at B = 20 (K12 takes 16
+    or 32 rows a cluster, several a cell-phase thread, a ragged last tile)
+    each step replayed from the kernels' own states within 1e-3 (K12's in
+    float32: it carries c in float32, which bf16 states would round), and
+    K13's on states stored in float32 (one row a thread, R = 4) and in
+    bf16 (8 or 16 rows), each step replayed within 1e-3 and its weight
+    gradients over its own dgates; two bfloat16 launches bit-equal.  In
+    float32, whose slices stay in L2, 8 blocks hold up to 512 units.  The
+    flagship width keeps 8 blocks: K12 at R = 12 in one wave, K13 at R = 6
+    in two."""
     for batch in (5, 20):
         case = stack_case(16, cuda, torch.float32, keep=0.9, init=True,
                           batch=batch, time_steps=12, units=units, proj=proj,
@@ -529,11 +534,12 @@ def test_k12_k13_wide_on_16_blocks(cuda, units, proj):
         for g, r in zip(grads, want):
             if r is not None:
                 assert ratio(g, r) <= 1e-4
-    case = stack_case(17, cuda, torch.bfloat16, keep=0.9, init=True, batch=6,
-                      time_steps=24, units=units, proj=proj, layers=4)
+    case = stack_case(17, cuda, torch.bfloat16, keep=0.9, init=True,
+                      batch=20, time_steps=24, units=units, proj=proj,
+                      layers=4)
     case.pop("affine")
-    assert blocks(cuda, case)["blocks"] == 16
-    assert blocks(cuda, case, True)["blocks"] == 16
+    how = blocks(cuda, case)
+    assert how["blocks"] == 16 and how["rows"] >= 16
     first = sk.lstm_stack_forward(**case, states=True)
     again = sk.lstm_stack_forward(**case, states=True)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
@@ -544,26 +550,83 @@ def test_k12_k13_wide_on_16_blocks(cuda, units, proj):
         <= 1e-3
     dout = 0.1 * torch.randn(out.shape, generator=torch.Generator()
                              .manual_seed(0)).to(cuda)
-    args = dict(case, chain=chain, c_all=c_all, h_all=h_all, dout=dout,
-                dcfin=torch.zeros_like(cfin), dhfin=torch.zeros_like(hfin))
-    grads = sk.lstm_stack_backward(**args, steps_out=True)
-    twice = sk.lstm_stack_backward(**args, steps_out=True)
-    assert all(a is None and b is None or torch.equal(a, b)
-               for a, b in zip(grads, twice))
-    dc_in, dh_in, din = grads[7:]
-    replay_args = {k: v for k, v in args.items() if k not in ("dcfin",
-                                                             "dhfin")}
-    _, dc_out, dh_out, din_out, wgrads = sk.stack_replay_backward_steps(
-        **replay_args, dc_in=dc_in, dh_in=dh_in, din=din, dgates=grads[0])
-    assert max(ratio(dc_out[1:], dc_in[:-1]), ratio(dh_out[1:], dh_in[:-1]),
-               ratio(din_out[1:], din[1:])) <= 1e-3
-    for got, want in zip(grads[1:5], wgrads):
-        if want is not None:
-            assert ratio(got, want) <= 1e-3
+    for store, rows in ((torch.float32, 4), (torch.bfloat16, 8)):
+        how = blocks(cuda, case, True, store)
+        assert how["blocks"] == 16 and not how["streamed"]
+        assert how["rows"] >= rows
+        out, cfin, hfin, chain, c_all, h_all = sk.lstm_stack_forward(
+            **case, states=True, store_dtype=store)
+        args = dict(case, chain=chain, c_all=c_all, h_all=h_all, dout=dout,
+                    dcfin=torch.zeros_like(cfin),
+                    dhfin=torch.zeros_like(hfin), store_dtype=store)
+        grads = sk.lstm_stack_backward(**args, steps_out=True)
+        twice = sk.lstm_stack_backward(**args, steps_out=True)
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(grads, twice))
+        dc_in, dh_in, din = grads[7:]
+        replay_args = {k: v for k, v in args.items() if k not in ("dcfin",
+                                                                 "dhfin")}
+        _, dc_out, dh_out, din_out, wgrads = sk.stack_replay_backward_steps(
+            **replay_args, dc_in=dc_in, dh_in=dh_in, din=din,
+            dgates=grads[0])
+        assert max(ratio(dc_out[1:], dc_in[:-1]),
+                   ratio(dh_out[1:], dh_in[:-1]),
+                   ratio(din_out[1:], din[1:])) <= 1e-3, store
+        for got, want in zip(grads[1:5], wgrads):
+            if want is not None:
+                assert ratio(got, want) <= 1e-3, store
     flagship = stack_case(18, cuda, torch.bfloat16, batch=32, time_steps=8,
                           units=320, proj=320, layers=4)
-    assert blocks(cuda, flagship)["blocks"] == 8
-    assert blocks(cuda, flagship, True)["blocks"] == 8
+    how = blocks(cuda, flagship)
+    assert (how["blocks"], how["rows"], how["waves"]) == (8, 12, 1)
+    how = blocks(cuda, flagship, True)
+    assert (how["blocks"], how["rows"], how["waves"]) == (8, 6, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [32, 21])
+@pytest.mark.parametrize("units,proj", WIDE)
+def test_k12_k13_resident_rows_equal_four_rows(cuda, units, proj, batch):
+    """On the resident plan of 16 blocks (bf16, bf16 states) a B = 32 stack
+    launches K12 at 16 or 32 rows a cluster in at most two waves and K13 at
+    8 or 16 in at most four (a cell-phase thread owns several rows; K13 runs
+    the streamed plan's kernel with every weight held), and gives the bits
+    of the same launch forced at R = 4, one row a thread, row for row:
+    K12's outputs and states; K13's dgates, weight products, carries and
+    din.  K13's column sums add each thread's rows before the threads':
+    within 1e-5 of R = 4's.  B = 21 leaves a ragged last tile."""
+    case = stack_case(23, cuda, torch.bfloat16, keep=0.9, init=True,
+                      batch=batch, time_steps=10, units=units, proj=proj,
+                      layers=4)
+    case.pop("affine")
+    bf16 = torch.bfloat16
+    for backward, most in ((False, 2), (True, 4)):
+        how = blocks(cuda, case, backward)
+        assert how["blocks"] == 16 and not how["streamed"]
+        assert how["rows"] >= (8 if backward else 16) and how["waves"] <= most
+    four = ("resident", 4)
+    got = sk.lstm_stack_forward(**case, states=True, store_dtype=bf16)
+    want = sk.lstm_stack_forward(**case, states=True, store_dtype=bf16,
+                                 _plan=four)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    out, cfin, hfin, chain, c_all, h_all = got
+    gen = torch.Generator().manual_seed(1)
+    args = dict(case, chain=chain, c_all=c_all, h_all=h_all,
+                dout=0.1 * torch.randn(out.shape, generator=gen).to(cuda),
+                dcfin=torch.randn(cfin.shape, generator=gen).to(cuda),
+                dhfin=torch.randn(hfin.shape, generator=gen).to(cuda),
+                store_dtype=bf16)
+    grads = sk.lstm_stack_backward(**args, steps_out=True)
+    ref = sk.lstm_stack_backward(**args, steps_out=True, _plan=four)
+    names = ("dgates", "dwz", "dbias", "dproj", "dpeep", "dcinit", "dhinit",
+             "dc_in", "dh_in", "din")
+    for name, g, r in zip(names, grads, ref):
+        if r is None:
+            assert g is None, name
+        elif name in ("dbias", "dpeep"):
+            assert ratio(g, r) <= 1e-5, name
+        else:
+            assert torch.equal(g, r), name
 
 
 # the streamed plan's widths (bf16 slices that fit no resident plan, 16
@@ -644,7 +707,11 @@ def test_k12_k13_forced_streamed_plan_equals_resident(cuda, rows):
     """At Kaldi's LSTMP widths (H = 1024, P = 256, resident on 16 blocks)
     the streamed plan forced at the same R (with half of wh resident, and
     with as much as fits) gives the resident plan's bits, forward and
-    backward (K13 at R = 4, the streamed plan's largest)."""
+    backward (K13 at R = 4, the streamed plan's largest).  K13's resident
+    plan of 16 blocks runs the streamed plan's kernel with every weight
+    held, so its half holds the held pass (no ring, a warp's dh half-tiles
+    before its gate tiles) against the ring's within one kernel body; the
+    8-block body is held to the plain version by the tests above."""
     case = stack_case(21, cuda, torch.bfloat16, keep=0.9, init=True,
                       batch=rows, time_steps=12, units=1024, proj=256,
                       layers=4)

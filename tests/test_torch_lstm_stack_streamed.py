@@ -65,10 +65,10 @@ def thread_rows(rows, us):
     return cdiv(rows, THREADS // us)
 
 
-def cell_rows(rows):
+def cell_rows(rows, units=128):
     """``lstm_cluster.cuh`` cell_rows: the most rows a thread owns with R
-    rows a cluster, up to 128 units a block (8 at most)."""
-    return min(8, cdiv(rows, THREADS // 128))
+    rows a cluster, up to ``units`` a block (8 at most)."""
+    return min(8, cdiv(rows, THREADS // units))
 
 
 def k12_plan(units, out_dim, has_proj, rows, cap=-1):
@@ -104,11 +104,52 @@ def k12_plan(units, out_dim, has_proj, rows, cap=-1):
     return p
 
 
-def k13_plan(units, out_dim, has_proj, rows, cap=-1, store=2):
+def k12_resident_plan(units, out_dim, has_proj, rows, cl=C):
+    """``lstm_cluster.cuh`` plan<bf16>, resident, on ``cl`` blocks: the
+    slices held in shared memory (wh's rows padded by 16 bytes, proj's
+    only on 8 blocks), the partial sums of each k-slice [slices][arow]
+    [cols], the input stage in their region (16 rows where 32 do not fit),
+    no ring, the carried c in the cell-phase threads' registers where a
+    thread has several rows (c_in_regs: 16 blocks only); and whether it
+    fits: on 16 blocks several rows a thread up to 64 units a block, on 8
+    one row a thread (R·US <= 512) up to 64 units a block."""
+    us = round_up(cdiv(units, cl), 8)
+    ps = round_up(cdiv(out_dim, cl), 16) if has_proj else us
+    g, own = 4 * us, ps if has_proj else us
+    arow = 8 if rows <= 8 else round_up(rows, 16)
+    qs, hs = cl * ps + 8, cl * us + 8
+    per_g, sl_g = mma_split(g, out_dim)
+    per_p, sl_p = mma_split(ps, units)
+    part = max(sl_g * arow * g, sl_p * arow * ps if has_proj else 0)
+    c_regs = cl == C and cell_rows(rows, 64) > 1
+    off = (align128(2 * arow * qs) + (align128(2 * arow * hs) if has_proj
+                                       else 0)
+           + (0 if c_regs else align128(4 * rows * us))
+           + align128(4 * rows * own) + align128(2 * rows * max(us, ps)))
+    lwd = ps + (8 if cl != C else 0)
+    weights = 2 * (round_up(out_dim, 16) * (g + 8)
+                   + (round_up(units, 16) * lwd if has_proj else 0))
+    row_in = 2 * (round_up(out_dim, 16) + 8)
+    srows = 32 if off + align128(max(32 * row_in, 4 * part)) + weights \
+        <= SMEM else 16
+    nbytes = off + align128(max(4 * part, srows * row_in)) + weights
+    p = dict(us=us, ps=ps, g=g, lwa=g + 8, wsteps=cdiv(out_dim, 16),
+             psteps=cdiv(units, 16) if has_proj else 0, arow=arow,
+             per_g=per_g, per_p=per_p, srows=srows, slots=0,
+             res=cdiv(out_dim, 16), nw=0, np=0, bytes=nbytes)
+    rows_ok = (thread_rows(rows, us) <= cell_rows(rows, 64) if cl == C
+               else rows * us <= THREADS)
+    p["fits"] = us <= (128 if cl == C else 64) and rows_ok and nbytes <= SMEM
+    return p
+
+
+def k13_plan(units, out_dim, has_proj, rows, cap=-1, store=2, held=False):
     """``csrc/lstm_stack_bwd.cu`` stack_plan<bf16, S>(stream): the streamed
     plan of K13 with 16 blocks and R = ``rows`` (the states in ``store``
     bytes; without a projection a block's P-slice is its units), and
-    whether it fits."""
+    whether it fits; with ``held`` the resident plan of 16 blocks (the
+    same buffers, every step of wh and all of proj's rows held, no
+    ring)."""
     us = round_up(cdiv(units, C), 8)
     u16, g = round_up(us, 16), 4 * us
     ps = round_up(cdiv(out_dim, C), 4) if has_proj else us
@@ -125,7 +166,16 @@ def k13_plan(units, out_dim, has_proj, rows, cap=-1, store=2):
            + (0 if store == 2 else align128(store * rows * out_dim))
            + align128(store * 2 * rows * us) + align128(4 * 2 * rows)
            + align128(4 * rows * us) + align128(4 * C * rows * ps)
-           + align128(4 * rows * g) + align128(4 * part) + 128)
+           + align128(4 * rows * g) + align128(4 * part))
+    if held:
+        nbytes = (off + align128(2 * p16 * p["lwh"])
+                  + (align128(2 * u16 * p["lpj"]) if has_proj else 0))
+        p.update(slots=0, res=p["wsteps"], nw=0, np=0, bytes=nbytes)
+        p["fits"] = (us <= 128 and rows <= 16
+                     and thread_rows(rows, us) <= cell_rows(rows)
+                     and nbytes <= SMEM)
+        return p
+    off += 128
     wrow, urow = 2 * 16 * p["lwh"], 2 * 16 * p["lpj"]
     p["cw"] = max(1, 24576 // wrow)
     p["cu"] = max(1, 24576 // urow) if has_proj else 0
@@ -140,18 +190,24 @@ def k13_plan(units, out_dim, has_proj, rows, cap=-1, store=2):
     return p
 
 
-# the streamed launchers' R, in the order they are tried
+def k13_resident_plan(units, out_dim, has_proj, rows, store=2):
+    return k13_plan(units, out_dim, has_proj, rows, store=store, held=True)
+
+
+# the launchers' R of the bf16 plans of 16 blocks, in the order they are
+# tried
 K12_ROWS, K13_ROWS = (4, 8, 16, 32), (4, 8, 16, 2)
 
 
 def launch_rows(plan_fn, units, out_dim, has_proj, batch, layers=4,
                 resident=7):
-    """A streamed launcher's choice (choose_rows): (R, row tiles a wave,
-    waves) with the fewest waves, then the smallest R, where the card holds
-    ``resident`` sixteen-block clusters at once (7 on an H100) and a wave
-    holds resident // layers row tiles."""
+    """The launcher's choice on a bf16 plan of 16 blocks (choose_rows): (R,
+    row tiles a wave, waves) with the fewest waves, then the smallest R,
+    where the card holds ``resident`` sixteen-block clusters at once (7 on
+    an H100) and a wave holds resident // layers row tiles."""
     best = None
-    for rows in K12_ROWS if plan_fn is k12_plan else K13_ROWS:
+    k12 = plan_fn in (k12_plan, k12_resident_plan)
+    for rows in K12_ROWS if k12 else K13_ROWS:
         if not plan_fn(units, out_dim, has_proj, rows)["fits"]:
             continue
         tiles = cdiv(batch, rows)
@@ -159,7 +215,7 @@ def launch_rows(plan_fn, units, out_dim, has_proj, batch, layers=4,
         waves = cdiv(tiles, per_wave)
         if best is None or waves < best[2]:
             best = (rows, per_wave, waves)
-    assert best is not None, "no streamed plan"
+    assert best is not None, "no plan"
     return best
 
 
@@ -197,15 +253,21 @@ def layer_group(tag, key):
 
 
 def stream_product(ring, chunk, n_chunks, chunk_rows, a, cols, init, w,
-                   block, issue, wres=None, refill_after_barrier=True):
+                   block, issue, wres=None, refill_after_barrier=True,
+                   per=None):
     """This warp's columns of init + a · w over the streamed depth: the
-    resident rows ``wres`` first, then ``n_chunks`` chunks of the ring
-    (each waited for, read around an interleaving point, released)."""
+    resident rows ``wres`` first (with ``per``, the resident plan's: each
+    k-slice of ``per`` 16-deep steps summed alone, the slices added in
+    order), then ``n_chunks`` chunks of the ring (each waited for, read
+    around an interleaving point, released)."""
     acc = init.clone()
     k = 0
     if wres is not None and wres.shape[0]:
         k = wres.shape[0]
-        acc += a[:, :k] @ wres[:, cols]
+        step = k if per is None else 16 * per
+        for k0 in range(0, k, step):
+            k1 = min(k, k0 + step)
+            acc += a[:, k0:k1] @ wres[k0:k1, cols]
     for _ in range(n_chunks):
         nrows = chunk_rows(chunk[0])[1]
         yield wait_chunk(ring, chunk[0])
@@ -238,23 +300,31 @@ def lag_bwd(steps):
 
 
 def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
-                 count=None, rows=None):
+                 count=None, rows=None, held=False):
     """K12 on the streamed plan in plain torch (float32), at the launcher's
     R (or ``rows``): (out, chain, c_all, h_all, cfin, hfin) as
-    ``stack_forward_reference`` returns them."""
+    ``stack_forward_reference`` returns them.  With ``held``, the resident
+    plan of 16 blocks: the dense slices all in shared memory, each product
+    summed by the resident plan's k-slices, no ring."""
     gx0, mask, wz, proj = case["gx0"], case["mask"], case["wz"], case["proj"]
     bias, peep = case["bias"], case["peep"]
     steps, layers, batch, units, out_dim = sk._dims(gx0, wz)
     has_proj = proj is not None
-    rows = rows or launch_rows(k12_plan, units, out_dim, has_proj, batch)[0]
-    pl = k12_plan(units, out_dim, has_proj, rows, cap)
+    plan_fn = k12_resident_plan if held else k12_plan
+    rows = rows or launch_rows(plan_fn, units, out_dim, has_proj, batch)[0]
+    pl = k12_resident_plan(units, out_dim, has_proj, rows) if held else \
+        k12_plan(units, out_dim, has_proj, rows, cap)
     assert pl["fits"]
     us, ps, g, lwa = pl["us"], pl["ps"], pl["g"], pl["lwa"]
     p16, h16 = 16 * pl["wsteps"], round_up(units, 16)
     lag = lag or lag_fwd(steps)
-    sl = sk.stack_slices(wz, proj, C, streamed=True)
-    assert sl["wh_sl"].shape == (layers, C, p16, lwa)
-    wh_flat = sl["wh_sl"].reshape(-1)
+    sl = sk.stack_slices(wz, proj, C, streamed=not held)
+    if held:
+        assert sl["wh_sl"].shape == (layers, C, p16, 4, us)
+        wh_flat = sl["wh_sl"].reshape(layers, C, p16, g)
+    else:
+        assert sl["wh_sl"].shape == (layers, C, p16, lwa)
+        wh_flat = sl["wh_sl"].reshape(-1)
     pj_flat = sl["proj_sl"].reshape(-1) if has_proj else None
     wx_rows = sl["wx_rows"]                   # [L, C, 4, US, P16]
     drop = sk._drop_mask(case["seed"], case["keep_prob"], steps, layers,
@@ -302,8 +372,14 @@ def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
         own0, own = (p0, np_) if has_proj else (u0, nu)
         m_all = mask.view(steps, layers, batch)
         res = l > 0 and case["residual"][l]
-        wres = wh_flat[(l * C + q) * p16 * lwa:][:16 * pl["res"] * lwa]
-        wres = wres.view(-1, lwa)
+        if held:
+            wres = wh_flat[l, q]
+            pres = sl["proj_sl"][l, q] if has_proj else None
+            per_g, per_p = pl["per_g"], pl["per_p"]
+        else:
+            wres = wh_flat[(l * C + q) * p16 * lwa:][:16 * pl["res"] * lwa]
+            wres = wres.view(-1, lwa)
+            pres = per_g = per_p = None
         gcols, pcols = tile_cols(w, g), tile_cols(w, ps)
         block, layer = (l, q), ("layer", l)
 
@@ -382,7 +458,7 @@ def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
                     me.ring, chunk, pl["nw"],
                     lambda n: chunk_rows(l, q, n), h_pad, gcols,
                     gxs[:, gcols], w, block, issue, wres,
-                    refill_after_barrier)
+                    refill_after_barrier, per_g)
                 # hq is read through the whole pass
                 read_tagged(me.hq, me.hq_tag, s - 1 if s else -1, nr)
                 me.part[:nr, gcols] = acc
@@ -422,8 +498,8 @@ def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
                 acc = yield from stream_product(
                     me.ring, chunk, pl["np"],
                     lambda n: chunk_rows(l, q, n), c_pad, pcols,
-                    torch.zeros(nr, len(pcols)), w, block, issue,
-                    refill_after_barrier=refill_after_barrier)
+                    torch.zeros(nr, len(pcols)), w, block, issue, pres,
+                    refill_after_barrier, per_p)
                 read_tagged(me.cell, me.cell_tag, s, nr)
                 me.part[:nr, pcols] = acc
                 yield ("sync", block)
@@ -461,7 +537,7 @@ def k12_streamed(case, order, cap=-1, refill_after_barrier=True, lag=None,
 
 def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
                  refill_after_barrier=True, lag=None, rows=None,
-                 inbox_barrier=True):
+                 inbox_barrier=True, held=False):
     """K13 on the streamed plan in plain torch (float32), at the launcher's
     R (or ``rows``): (dgates, dbias, dpeep, dcinit, dhinit, dc_in, dh_in,
     din) as ``stack_backward_reference`` gives them.  A block keeps the
@@ -471,25 +547,34 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
     partials in block order, updates its slice and writes the next step's
     dout_p of it into every block (dq: the A operand of dout_blk).  Without
     ``inbox_barrier`` the cluster barrier that ends an owner's reads of its
-    inboxes is left out."""
+    inboxes is left out.  With ``held``, the resident plan of 16 blocks:
+    the same kernel with the dense slices all in shared memory, dout_blk
+    over all of proj's rows at once, no ring."""
     gx0, mask, wz, proj = case["gx0"], case["mask"], case["wz"], case["proj"]
     bias, peep = case["bias"], case["peep"]
     _, chain, c_all, h_all, _, _ = fwd
     steps, layers, batch, units, out_dim = sk._dims(gx0, wz)
     has_proj = proj is not None
-    rows = rows or launch_rows(k13_plan, units, out_dim, has_proj, batch)[0]
-    pl = k13_plan(units, out_dim, has_proj, rows, cap)
+    plan_fn = k13_resident_plan if held else k13_plan
+    rows = rows or launch_rows(plan_fn, units, out_dim, has_proj, batch)[0]
+    pl = k13_plan(units, out_dim, has_proj, rows, cap, held=held)
     assert pl["fits"]
     us, u16, g, ps, p16 = (pl[k] for k in ("us", "u16", "g", "ps", "p16"))
     lwh, lpj = pl["lwh"], pl["lpj"]
     rs = THREADS // us
     lag = lag or lag_bwd(steps)
-    sl = sk.stack_slices(wz, proj, C, backward=True, streamed=True)
-    assert sl["wh_sl"].shape == (layers, C, p16, lwh)
-    wh_flat = sl["wh_sl"].reshape(-1)
-    if has_proj:
-        assert sl["proj_rows"].shape == (layers, C, u16, lpj)
-        pj_flat = sl["proj_rows"].reshape(-1)
+    sl = sk.stack_slices(wz, proj, C, backward=True, streamed=not held)
+    if held:
+        assert sl["wh_sl"].shape == (layers, C, p16, 4, us)
+        wh_held = sl["wh_sl"].reshape(layers, C, p16, g)
+        if has_proj:
+            assert sl["proj_rows"].shape == (layers, C, u16, p16)
+    else:
+        assert sl["wh_sl"].shape == (layers, C, p16, lwh)
+        wh_flat = sl["wh_sl"].reshape(-1)
+        if has_proj:
+            assert sl["proj_rows"].shape == (layers, C, u16, lpj)
+            pj_flat = sl["proj_rows"].reshape(-1)
     drop = sk._drop_mask(case["seed"], case["keep_prob"], steps, layers,
                          batch, out_dim, "cpu")
     lb, h4 = layers * batch, 4 * units
@@ -547,8 +632,11 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
         last = l == layers - 1
         res = l > 0 and case["residual"][l]
         m_all = mask.view(steps, layers, batch)
-        wres = wh_flat[(l * C + q) * p16 * lwh:][:16 * pl["res"] * lwh]
-        wres = wres.view(-1, lwh)
+        if held:
+            wres = wh_held[l, q]
+        else:
+            wres = wh_flat[(l * C + q) * p16 * lwh:][:16 * pl["res"] * lwh]
+            wres = wres.view(-1, lwh)
         gcols = tile_cols(w, g)
         block, layer = (l, q), ("layer", l)
         bq = torch.zeros(4, us)
@@ -682,7 +770,17 @@ def k13_streamed(case, fwd, dout, dcfin, dhfin, order, cap=-1,
                     written[l][t][br[:, None], own[None, :]] = (
                         dch if res else 0.0)
             yield ("sync", block)
-            # 2. dout_blk over proj's chunks of rows, this warp's tiles
+            # 2. dout_blk over proj's chunks of rows (held: all at once),
+            # this warp's tiles
+            if held and has_proj:
+                read_tagged(me.dq, me.dq_tag, t, nr)
+                yield ("run",)
+                dq = read_tagged(me.dq, me.dq_tag, t, nr)
+                rows_q = sl["proj_rows"][l, q]
+                for j in range(w, pl["utiles"], WARPS):
+                    me.part_d[:, 16 * j:16 * j + 16] = (
+                        dq @ rows_q[16 * j:16 * j + 16].t())
+                yield ("sync", block)
             for _ in range(pl["np"]):
                 r0, nrows, _ = chunk_rows(l, q, chunk[0])
                 yield wait_chunk(me.ring, chunk[0])
@@ -947,8 +1045,11 @@ def test_stack_streamed_b32_launches_at_most_two_tiles(units, proj):
     several rows; the products' A operands one or two whole 16-row tiles),
     so with 7 sixteen-block clusters resident a 4-layer stack runs at most
     two row tiles, one a wave, where R = 4 ran eight; each plan keeps at
-    least two ring slots, and the rows a thread stay within cell_rows."""
+    least two ring slots, and the rows a thread stay within cell_rows.
+    Neither resident plan of 16 blocks holds these slices."""
     out_dim, has_proj = proj or units, proj is not None
+    assert not k12_resident_plan(units, out_dim, has_proj, 4)["fits"]
+    assert not k13_resident_plan(units, out_dim, has_proj, 2)["fits"]
     us = round_up(cdiv(units, C), 8)
     for plan in (k12_plan, k13_plan):
         rows, per_wave, waves = launch_rows(plan, units, out_dim, has_proj,
