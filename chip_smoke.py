@@ -412,22 +412,24 @@ def elapsed_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def time_in_turns(torch, kernel, plain, rounds: int, kernel_reps: int = 4):
+def time_in_turns(torch, kernel, plain, rounds: int, kernel_reps: int = 4,
+                  also=None):
     """Median ms of ``kernel`` and of ``plain``, after a warm-up of both,
     measured in turns (plain then kernel, kernel then plain, ...), so that
-    clock and neighbour drift fall on both alike."""
-    for fn in (kernel, plain, kernel, plain):
+    clock and neighbour drift fall on both alike; with ``also`` (another
+    launch of the kernel's, timed as it is, after it in each turn) its
+    median third."""
+    kernels = (kernel,) if also is None else (kernel, also)
+    for fn in kernels + (plain,) + kernels + (plain,):
         fn()
     torch.cuda.synchronize()
-    kernel_ms, plain_ms = [], []
+    times = {fn: [] for fn in kernels + (plain,)}
     for r in range(rounds):
-        for fn in ((plain, kernel) if r % 2 == 0 else (kernel, plain)):
-            if fn is kernel:
-                kernel_ms += [elapsed_ms(torch, kernel)
-                              for _ in range(kernel_reps)]
-            else:
-                plain_ms.append(elapsed_ms(torch, plain))
-    return statistics.median(kernel_ms), statistics.median(plain_ms)
+        for fn in ((plain,) + kernels if r % 2 == 0 else kernels + (plain,)):
+            times[fn] += [elapsed_ms(torch, fn) for _ in range(
+                1 if fn is plain else kernel_reps)]
+    return tuple(statistics.median(times[fn])
+                 for fn in (kernel, plain) + kernels[1:])
 
 
 def median_ms(torch, fn, reps: int) -> float:
@@ -467,6 +469,38 @@ def layer_name(dtype, shape, steps=384):
     return (name if shape == FLAGSHIP_LAYER else "%s H=%d P=%d%s D=%d" % (
         name, units, proj or units, "" if proj else " (no projection)",
         dim)) + ("" if steps == 384 else " T=%d" % steps)
+
+
+# the streamed layer launches at B = 32 held against the same launch forced
+# onto the R the parent's one-row launchers took (a cell-phase thread one
+# row; as much of wh resident as fits): (H, P) -> (K1's R, K2's R)
+ONE_ROW_PLAN = "streamed, wh held as fits"
+PARENT_ROWS = {(1024, 1024): (8, 6), (768, 768): (8, 8), (2048, 512): (4, 4),
+               (2048, 2048): (4, 2)}
+
+
+def layer_rows_line(how, steps, ms):
+    """A streamed layer launch's R, clusters, waves, shared memory, the
+    weight bytes it streams (a block a step, and a launch, with the rate
+    it reads them at) and the us a wave-step"""
+    nbytes = streamed_bytes(how, steps)
+    return ("R=%d, %d clusters in %d wave(s) (%d resident at once), %d "
+            "bytes of shared memory a block, %d bytes streamed a block a "
+            "step (%.3f GB a launch, read at %.3f TB/s), %.2f us a "
+            "wave-step" % (how["rows"], how["clusters"], how["waves"],
+                           how["resident"], how["smem_bytes"],
+                           how["streamed_bytes"], nbytes / 1e9,
+                           nbytes / ms / 1e9,
+                           1e3 * ms / (steps * how["waves"])))
+
+
+def one_row_config(lstm_kernels, device, which, units, out_dim, has_proj,
+                   dtype):
+    """The launch forced onto the parent's one-row R (PARENT_ROWS), as its
+    launcher's config says it"""
+    rows = PARENT_ROWS[(units, out_dim)][which == "backward"]
+    config = getattr(lstm_kernels, which + "_config")
+    return config(device, 32, units, out_dim, has_proj, dtype, rows=rows)
 
 
 def launch_line(how):
@@ -583,9 +617,29 @@ def check_lstm(torch, pkg, device, dtype, reset, rng, shape=FLAGSHIP_LAYER,
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail("kernel A %s: two launches differ" % name)
         say("  kernel A %s reset=%-5s two launches bit-equal" % (name, reset))
-    ms, plain_ms = time_in_turns(
+    # the streamed plan at B = 32: the launcher's R beside the same launch
+    # forced onto the parent's one-row R, held bit for bit (out, the states
+    # in both store dtypes, the final c and h) and timed in turns
+    forced = None
+    if dtype == torch.bfloat16 and (units, out_dim or units) in PARENT_ROWS:
+        one = (ONE_ROW_PLAN, PARENT_ROWS[(units, out_dim or units)][0])
+        for store in (torch.bfloat16, torch.float32):
+            a = lstm_kernels.lstm_layer_forward(*args, states=True,
+                                                store_dtype=store)
+            b = lstm_kernels.lstm_layer_forward(*args, states=True,
+                                                store_dtype=store, _plan=one)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail("kernel A %s: the launcher's R differs from R=%d (states "
+                     "in %s)" % (name, one[1], store))
+        del a, b
+        say("  kernel A %s reset=%-5s the launcher's R bit-equal row for row "
+            "to the same launch forced at R=%d (out, c_all, h_all in bf16 "
+            "and float32, the final c and h): True" % (name, reset, one[1]))
+        forced = lambda: lstm_kernels.lstm_layer_forward(*args, _plan=one)
+    timed = time_in_turns(
         torch, lambda: lstm_kernels.lstm_layer_forward(*args),
-        lambda: cells.dual_recurrence(*args), rounds=5)
+        lambda: cells.dual_recurrence(*args), rounds=5, also=forced)
+    ms, plain_ms = timed[:2]
     how = layer_launch(lstm_kernels, device, "forward", args, dtype)
     say("  kernel A %-8s reset=%-5s kernel %.3f ms (%.2f us a step; %s)  "
         "plain %.3f ms" % (name, reset, ms, ms / steps * 1e3, launch_line(how),
@@ -594,8 +648,19 @@ def check_lstm(torch, pkg, device, dtype, reset, rng, shape=FLAGSHIP_LAYER,
         bound_ms, bound_by = lstm_fwd_bound(torch, args, got, dtype)
         say("  kernel A %s reset=%-5s bound %.4f ms (%s)%s"
             % (name, reset, bound_ms, bound_by, stream_line(how, steps, ms)))
-        return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
+        res = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
+        if forced is not None:
+            fhow = one_row_config(lstm_kernels, device, "forward", units,
+                                  out_dim or units, args[4] is not None,
+                                  dtype)
+            say("  kernel A %s reset=%-5s in turns: the launcher's %s: %.3f "
+                "ms; forced at the parent's one-row %s: %.3f ms (%.2fx)"
+                % (name, reset, layer_rows_line(how, steps, ms), ms,
+                   layer_rows_line(fhow, steps, timed[2]), timed[2],
+                   timed[2] / ms))
+            res.update(forced_ms=timed[2], forced_launch=fhow)
+        return res
     if dtype == torch.bfloat16 and reset:
         # as the train step calls it: the per-step states kept in bf16
         train_ms = median_ms(torch, lambda: lstm_kernels.lstm_layer_forward(
@@ -1453,11 +1518,17 @@ def check_lstm_bwd(torch, pkg, device, dtype, reset, rng,
                    for a, b in zip(got, again)):
             fail("K2 %s: two launches differ" % name)
         say("  K2 %s reset=%-5s two launches bit-equal" % (name, reset))
-    ms, plain_ms = time_in_turns(
+    units, out_dim = shape[0], shape[1] or shape[0]
+    forced = None
+    if dtype == torch.bfloat16 and (units, out_dim) in PARENT_ROWS:
+        one = (ONE_ROW_PLAN, PARENT_ROWS[(units, out_dim)][1])
+        forced = one_row_backward(torch, lstm_kernels, name, args, one)
+    timed = time_in_turns(
         torch, lambda: lstm_kernels.lstm_layer_backward(*args,
                                                         store_dtype=dtype),
         lambda: cells.dual_recurrence_backward(*args, store_dtype=dtype),
-        rounds=3, kernel_reps=2)
+        rounds=3, kernel_reps=2, also=forced)
+    ms, plain_ms = timed[:2]
     steps = args[0].shape[0]
     how = layer_launch(lstm_kernels, device, "backward", args, dtype)
     bound_ms, bound_by = lstm_bwd_bound(torch, args, got, dtype)
@@ -1465,8 +1536,61 @@ def check_lstm_bwd(torch, pkg, device, dtype, reset, rng,
         "%.3f ms  bound %.4f ms (%s)%s"
         % (name, reset, ms, 1e3 * ms / steps, launch_line(how), plain_ms,
            bound_ms, bound_by, stream_line(how, steps, ms)))
-    return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
+    res = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "launch": how}
+    if forced is not None:
+        fhow = one_row_config(lstm_kernels, device, "backward", units,
+                              out_dim, args[4] is not None, dtype)
+        say("  K2 %s reset=%-5s in turns: the launcher's %s: %.3f ms; forced "
+            "at the parent's one-row %s: %.3f ms (%.2fx)"
+            % (name, reset, layer_rows_line(how, steps, ms), ms,
+               layer_rows_line(fhow, steps, timed[2]), timed[2],
+               timed[2] / ms))
+        res.update(forced_ms=timed[2], forced_launch=fhow)
+    return res
+
+
+def one_row_backward(torch, lstm_kernels, name, args, one):
+    """K2 at the launcher's R against the same launch forced at ``one`` (the
+    parent's one-row R), with the states in bf16 (``args``) and float32 (a
+    forward of ``args`` that keeps them so): dgates, dc_in, dh_in, the
+    out_blk and dout_p stashes, dwh and dproj bit-equal; dpeep (each
+    thread's rows added first, in other row tiles) within
+    BF16_STEP_REL_TOL.  Returns the forced launch, as ``check_lstm_bwd``
+    times it."""
+    cases = [(args, torch.bfloat16)]
+    states = lstm_kernels.lstm_layer_forward(*args[:7], states=True,
+                                             store_dtype=torch.float32)
+    cases.append((args[:7] + states[3:] + args[9:], torch.float32))
+    names = ("dgates", "dwh", "dproj", "dpeep", "dc_in", "dh_in", "fold",
+             "stashes")
+    worst = 0.0
+    for case, store in cases:
+        got, want = (lstm_kernels._backward_launch(
+            "K2", None, *case, store, True, plan)
+            for plan in (None, one))
+        for n, a, b in zip(names, got, want):
+            if n == "stashes":
+                pairs = list(zip(a, b))
+            else:
+                pairs = [(a, b)]
+            for x, y in pairs:
+                if x is None and y is None:
+                    continue
+                if n == "dpeep":
+                    worst = max(worst, ratio(x, y))
+                elif not torch.equal(x, y):
+                    fail("K2 %s: %s at the launcher's R differs from R=%d "
+                         "(states in %s)" % (name, n, one[1], store))
+    if worst > BF16_STEP_REL_TOL:
+        fail("K2 %s: dpeep at the launcher's R max rel %.3e from R=%d > %.0e"
+             % (name, worst, one[1], BF16_STEP_REL_TOL))
+    say("  K2 %s the launcher's R bit-equal row for row to the same launch "
+        "forced at R=%d (dgates, dc_in, dh_in, the out_blk and dout_p "
+        "stashes, dwh, dproj; states in bf16 and float32): True; dpeep max "
+        "rel %.2e (bound %.0e)" % (name, one[1], worst, BF16_STEP_REL_TOL))
+    return lambda: lstm_kernels.lstm_layer_backward(
+        *args, store_dtype=torch.bfloat16, _plan=one)
 
 
 def weight_grads_rel(got, ref):
@@ -6388,27 +6512,34 @@ def main() -> None:
            wide_head["device_ms"], wide_head["plain_step_ms"],
            wide_head["plain_fps"], wide_head["plain_device_ms"],
            wide_head["forward_fps"]))
+    def one_row_note(res):
+        if "forced_ms" not in res:
+            return ""
+        return " (forced at the parent's R=%d: %.3f ms)" % (
+            res["forced_launch"]["rows"], res["forced_ms"])
+
     streamed_rows = []
     for shape in STREAMED_LAYERS:
         for dtype in ((torch.float32,) if shape in STREAMED_F32 else ()) + (
                 torch.bfloat16,):
             f, b, fo = (res[(dtype, shape)] for res in (lstm, bwd, fold))
             streamed_rows.append(
-                "%s: K1 %.3f ms vs plain %.3f, bound %.4f (%s); K2 %.3f vs "
-                "%.3f, bound %.4f (%s); K3 %.3f vs %.3f, bound %.4f"
-                % (layer_name(dtype, shape), f["ms"], f["plain_ms"],
-                   f["bound_ms"], launch_line(f["launch"]), b["ms"],
-                   b["plain_ms"], b["bound_ms"], launch_line(b["launch"]),
-                   fo["ms"], fo["plain_ms"], fo["bound_ms"]))
+                "%s: K1 %.3f ms%s vs plain %.3f, bound %.4f (%s); K2 %.3f%s "
+                "vs %.3f, bound %.4f (%s); K3 %.3f vs %.3f, bound %.4f"
+                % (layer_name(dtype, shape), f["ms"], one_row_note(f),
+                   f["plain_ms"], f["bound_ms"], launch_line(f["launch"]),
+                   b["ms"], one_row_note(b), b["plain_ms"], b["bound_ms"],
+                   launch_line(b["launch"]), fo["ms"], fo["plain_ms"],
+                   fo["bound_ms"]))
     for dtype in (torch.float32, torch.bfloat16):
         f, b = lstm[(dtype, WIDEST_LAYER)], bwd[(dtype, WIDEST_LAYER)]
         streamed_rows.append(
-            "%s: K1 %.3f ms vs plain %.3f, bound %.4f (%s); K2 %.3f vs %.3f, "
-            "bound %.4f (%s)"
+            "%s: K1 %.3f ms%s vs plain %.3f, bound %.4f (%s); K2 %.3f%s vs "
+            "%.3f, bound %.4f (%s)"
             % (layer_name(dtype, WIDEST_LAYER, WIDEST_STEPS), f["ms"],
-               f["plain_ms"], f["bound_ms"], launch_line(f["launch"]),
-               b["ms"], b["plain_ms"], b["bound_ms"],
-               launch_line(b["launch"])))
+               one_row_note(f), f["plain_ms"], f["bound_ms"],
+               launch_line(f["launch"]), b["ms"], one_row_note(b),
+               b["plain_ms"], b["bound_ms"], launch_line(b["launch"])))
     forced_rows = ["%s, %s: K1 %.3f vs %.3f ms, K2 %.3f vs %.3f"
                    % ((layer_name(torch.bfloat16, shape), what) + t)
                    for shape, runs in forced.items()
@@ -6450,6 +6581,8 @@ def main() -> None:
            k13_wide[("cudnnlstm", 1024, None, False)]["ms"],
            library_streamed["forward"], library_streamed["both"],
            sak["cudnn_forward_fps"], info["seconds"]))
+    say("chip_smoke: %.1f s of command time on %s (the build %.1f s)"
+        % (time.perf_counter() - START, smi, info["seconds"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     numbers = [k[key] for k in kernels for key in ("ms", "plain_ms")] + [
@@ -6474,6 +6607,8 @@ def main() -> None:
            + list(k13_wide.values()) if "one_row" in res
            for k in ("ms", "forced_ms")] \
         + [v for t in forced_stack.values() for v in t.values()] \
+        + [res["forced_ms"] for res in list(lstm.values()) + list(bwd.values())
+           if isinstance(res, dict) and "forced_ms" in res] \
         + [session[k] for k in ("chunk_ms", "route_chunk_ms")] \
         + [wide_lstm[k] for k in ("step_ms", "fps", "route_step_ms",
                                   "route_fps", "forward_fps",

@@ -49,6 +49,10 @@ SIGNATURES = {
                     + [_P] * 10,
     "lstm_bwd_bf16": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
                      + [_P] * 10,
+    # a buffer of int64 (or NULL) for the streamed K1's or K2's clock64
+    # stamps of its phases (scripts/layer_stamps.py)
+    "lstm_fwd_stamps": [_P],
+    "lstm_bwd_stamps": [_P],
     # lstm_bwd_bf16's, then the plan (1 resident, 2 streamed) and R
     "lstm_bwd_bf16_forced": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] * 5
                             + [_P] * 10 + [_I, _I],
@@ -194,12 +198,13 @@ def library() -> ctypes.CDLL:
     lib.lstm_bwd_scratch_floats.restype = ctypes.c_longlong
     # device, B, H, P, has_proj, bf16 -> blocks a cluster, rows a cluster,
     # clusters, clusters resident at once, bytes, streamed or not, weight
-    # bytes a block held and streamed a step (K1's launch and K2's)
+    # bytes a block held and streamed a step (K1's launch and K2's); then R
+    # (the streamed plan at that R, 0: the launcher's choice)
     for name in ("lstm_fwd_config", "lstm_bwd_config"):
         fn = getattr(lib, name)
         fn.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 4 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_I)] + [
-            ctypes.POINTER(ctypes.c_longlong)] * 2
+            ctypes.POINTER(ctypes.c_longlong)] * 2 + [_I]
         fn.restype = ctypes.c_int
     # device, T, B, H, P, D, bf16, store_bf16
     lib.lstm_bwd_fold_scratch_floats.argtypes = [_I] * 8

@@ -705,11 +705,13 @@ extern "C" int lstm_bwd_fits(int units, int out_dim, int has_proj, int bf16,
 // dtype): blocks a cluster, rows a cluster, clusters, clusters resident at
 // once, dynamic shared memory a block, whether the plan is the streamed
 // one, and the weight bytes a block holds and streams a step; a CUDA error
-// if it cannot.
+// if it cannot.  With `at` > 0 and a streamed plan, the launch at R = `at`
+// (a forced launch's).
 extern "C" int lstm_bwd_config(int device, int batch, int units, int out_dim,
                                int has_proj, int bf16, int* blocks, int* rows,
                                int* clusters, int* resident, long long* smem,
-                               int* streamed, long long* held, long long* streams) {
+                               int* streamed, long long* held, long long* streams,
+                               int at) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Args a = {};
@@ -717,16 +719,20 @@ extern "C" int lstm_bwd_config(int device, int batch, int units, int out_dim,
   a.units = units;
   a.out_dim = out_dim;
   a.proj_rows = has_proj ? (const void*)1 : nullptr;
-  Launch how;
-  err = bf16 ? choose<__nv_bfloat16, __nv_bfloat16>(a, true, &how)
-             : choose<float, float>(a, true, &how);
+  Launch how = {0, 0, 0, 0, 0, 0, 0};
+  const bool stream = bf16 && bwd_route<__nv_bfloat16, __nv_bfloat16>(units, out_dim, has_proj != 0)
+                                  .kind == kStreamed;
+  if (stream && at > 0)
+    err = lstm_bwd_streamed(a, true, kWideCluster, at, -1, true, nullptr, &how);
+  else
+    err = bf16 ? choose<__nv_bfloat16, __nv_bfloat16>(a, true, &how)
+               : choose<float, float>(a, true, &how);
   *blocks = how.blocks;
   *rows = how.rows;
   *clusters = how.clusters;
   *resident = how.resident;
   *smem = (long long)how.smem;
-  *streamed = bf16 && bwd_route<__nv_bfloat16, __nv_bfloat16>(units, out_dim, has_proj != 0)
-                              .kind == kStreamed;
+  *streamed = stream;
   *held = how.held;
   *streams = how.streamed;
   return err;

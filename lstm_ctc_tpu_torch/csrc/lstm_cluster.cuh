@@ -47,6 +47,9 @@ constexpr int kMaxSlots = 4;
 // proj's rows): the plans' forced launches time it against the resident
 // plan; -1 holds as many as fit
 constexpr int kAllHeld = -2;
+// the phases a streamed layer kernel's clock64 stamps sum (K1: lstm_fwd.cu,
+// K2: lstm_bwd_streamed.cu)
+constexpr int kStampPhases = 6;
 
 __host__ __device__ constexpr int round_up(int v, int m) { return cdiv(v, m) * m; }
 __host__ __device__ constexpr size_t align128(size_t v) { return (v + 127) / 128 * 128; }
@@ -947,8 +950,7 @@ cudaError_t cluster_config(K kernel, int batch, int R, int C, size_t smem, cudaS
 
 // ---- the streamed plans (K1, K2, K12, K13): weight slices past shared
 // memory (K1's products: streamed_product_t; K12's: streamed_product; K2's
-// passes: bwd_dob_pass, bwd_wh_pass; K13's: bwd_dob_pass and its own
-// stack_wh_pass, lstm_stack_bwd.cu) ----
+// and K13's passes: bwd_dob_pass, bwd_wh_pass) ----
 //
 // A block keeps the first rows of its wh slice in shared memory and
 // streams the rest of its weights from L2 at every step, in a fixed
@@ -1021,32 +1023,40 @@ __device__ __forceinline__ void stream_pass(int steps, const __nv_bfloat16* res_
 }
 
 // K1's products on the streamed plan (mma_product_t's roles: a tile of the
-// weights, read transposed, as mma's A, the <= 8 rows of a as its n):
-// out[r][c] (row stride ldo) = init(r, c), then + the sum of each k-slice
-// of `per` 16-deep steps, in slice order, each slice summed on the tensor
-// cores in step order into a zero accumulator: mma_product_t's slices,
-// added as its reader adds them (so a shape that fits both plans gives
-// the same bits on both).  Warp w owns the tiles w, w + 16, .. (TMAX at
-// most) over the whole depth.
-template <int TMAX, typename Init, typename Issue>
+// weights, read transposed, as mma's A, the rows of a as its n): out[r][c]
+// (row stride ldo) = init(r, c), then + the sum of each k-slice of `per`
+// 16-deep steps, in slice order, each slice summed on the tensor cores in
+// step order into a zero accumulator: mma_product_t's slices, added as its
+// reader adds them (so a shape that fits both plans gives the same bits on
+// both).  a holds NT n8 tiles of rows (8 or 16 rows; rows past R zero),
+// which share each A fragment of the weights, so one pass over the ring
+// serves 16 rows; a row's sums do not depend on the rows beside it, so a
+// row gives the same bits at any NT.  Warp w owns the tiles w, w + 16, ..
+// (TMAX at most) over the whole depth.
+template <int TMAX, int NT, typename Init, typename Issue>
 __device__ __forceinline__ void streamed_product_t(const __nv_bfloat16* a, int lda, int depth,
                                                    int cols, int per, const __nv_bfloat16* res_w,
                                                    int ldres, int res, const Ring& ring, int ldw,
                                                    int chunk, int& n, int total, Issue issue,
                                                    Init init, float* out, int ldo) {
+  static_assert(NT == 1 || NT == 2, "8 or 16 rows");
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int tm = cols / 16;
-  float acc[TMAX][4], d[TMAX][4];
+  float acc[TMAX][NT][4], d[TMAX][NT][4];
 #pragma unroll
   for (int i = 0; i < TMAX; ++i) {
-    const int c = (warp + kWarps * i) * 16 + (lane >> 2), r = 2 * (lane & 3);
+    const int c = (warp + kWarps * i) * 16 + (lane >> 2);
     const bool in = warp + kWarps * i < tm;
-    acc[i][0] = in ? init(r, c) : 0.0f;
-    acc[i][1] = in ? init(r + 1, c) : 0.0f;
-    acc[i][2] = in ? init(r, c + 8) : 0.0f;
-    acc[i][3] = in ? init(r + 1, c + 8) : 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) d[i][e] = 0.0f;
+    for (int m = 0; m < NT; ++m) {
+      const int r = 8 * m + 2 * (lane & 3);
+      acc[i][m][0] = in ? init(r, c) : 0.0f;
+      acc[i][m][1] = in ? init(r + 1, c) : 0.0f;
+      acc[i][m][2] = in ? init(r, c + 8) : 0.0f;
+      acc[i][m][3] = in ? init(r + 1, c + 8) : 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[i][m][e] = 0.0f;
+    }
   }
   const __nv_bfloat16* b_lane = a + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
   const int wrow = lane & 15, wcol = (lane >> 4) * 8;
@@ -1056,13 +1066,16 @@ __device__ __forceinline__ void streamed_product_t(const __nv_bfloat16* a, int l
 #pragma unroll
                   for (int i = 0; i < TMAX; ++i)
 #pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                      acc[i][e] += d[i][e];
-                      d[i][e] = 0.0f;
-                    }
+                    for (int m = 0; m < NT; ++m)
+#pragma unroll
+                      for (int e = 0; e < 4; ++e) {
+                        acc[i][m][e] += d[i][m][e];
+                        d[i][m][e] = 0.0f;
+                      }
                 }
-                uint32_t fb[2];
-                ldsm_x2(fb, b_lane + j * 16);
+                uint32_t fb[NT][2];
+#pragma unroll
+                for (int m = 0; m < NT; ++m) ldsm_x2(fb[m], b_lane + (size_t)m * 8 * lda + j * 16);
 #pragma unroll
                 for (int i = 0; i < TMAX; ++i) {
                   const int t = warp + kWarps * i;
@@ -1070,20 +1083,23 @@ __device__ __forceinline__ void streamed_product_t(const __nv_bfloat16* a, int l
                     uint32_t fw[4];
                     ldsm_x4_trans(fw, w + (size_t)(k * 16 + wrow) * ld + wcol + t * 16);
                     const uint32_t fa[4] = {fw[0], fw[2], fw[1], fw[3]};
-                    mma_16816(d[i], fa, fb[0], fb[1]);
+#pragma unroll
+                    for (int m = 0; m < NT; ++m) mma_16816(d[i][m], fa, fb[m][0], fb[m][1]);
                   }
                 }
               });
 #pragma unroll
   for (int i = 0; i < TMAX; ++i) {
     const int t = warp + kWarps * i;
-    if (t < tm) {
-      float* dst = out + (size_t)(2 * (lane & 3)) * ldo + t * 16 + (lane >> 2);
-      dst[0] = acc[i][0] + d[i][0];
-      dst[ldo] = acc[i][1] + d[i][1];
-      dst[8] = acc[i][2] + d[i][2];
-      dst[ldo + 8] = acc[i][3] + d[i][3];
-    }
+    if (t < tm)
+#pragma unroll
+      for (int m = 0; m < NT; ++m) {
+        float* dst = out + (size_t)(8 * m + 2 * (lane & 3)) * ldo + t * 16 + (lane >> 2);
+        dst[0] = acc[i][m][0] + d[i][m][0];
+        dst[ldo] = acc[i][m][1] + d[i][m][1];
+        dst[8] = acc[i][m][2] + d[i][m][2];
+        dst[ldo + 8] = acc[i][m][3] + d[i][m][3];
+      }
   }
 }
 
@@ -1217,114 +1233,174 @@ __device__ __forceinline__ void bwd_dob_pass(const __nv_bfloat16* dq, int lda, i
 // rows p holds every weight that dh_prev's columns p need (their whole
 // depth, the G = 4·US gate columns), and a slice of the depth of the gate
 // sums, so one pass serves both.  With `dh_on`, dh_prev's partial dgates ·
-// wh_qᵀ (gq [8][ldg], gsteps 16-deep steps of G; a chunk's 16-row tile j
-// complete over the depth, by warp 15 - j % 16) into part [rows][pw]; with
-// `gate_on`, the gate sums init(r, c) + hq · wh_q (hq [8][lda]; warp w owns
-// the tiles w and w + 16 over the whole pass) into gsum [rows][G].  Each in
-// the resident plans' k-slices (`gates`, `dh`) as mma_product_f32add sums
-// them, added in slice order: the bits of the resident plans.
-template <typename Init, typename Issue>
+// wh_qᵀ (gq [AROW][ldg], gsteps 16-deep steps of G): the 16 columns p of a
+// chunk's tile j on two warps, 15 - (2·j + h) % 16 for the 8-column half h,
+// each summing its half over the whole depth in one chain, its sums of rows
+// r < rows handed to put_dh(r, p, columns p and p + 1); with `gate_on`, the
+// gate sums init(r, c) + hq · wh_q (hq [AROW][lda]; warp w owns the tiles w
+// and w + 16 over the whole pass) into gsum [rows][G], which holds their
+// init and finished slices (each lane its own elements).  Each in the
+// resident plans' k-slices (`gates`, `dh`) as mma_product_f32add sums them
+// (each 16-deep step into a zero accumulator, added in float32), added in
+// slice order: the bits of the resident plans.  A operands of AROW rows: 8,
+// loaded once for mma's 16 (rows 8-15 a copy, never stored), or a whole
+// 16-row tile; a row's sums do not depend on the rows beside it, so a row
+// gives the same bits at any AROW.  The products are not volatile, so a
+// warp's loads run ahead of them.  kHeld (every step of wh resident, no
+// ring: K13's resident plan of 16 blocks): a warp runs its dh_prev
+// half-tiles first, then its gate tiles over all the steps in one tight
+// loop, where interleaving them step by step, as the ring's chunks need,
+// left each step's loads and products waiting on one another: the same
+// sums in the same order.  K2 and K13 on the streamed plan run it.
+template <int AROW, bool kHeld, typename Init, typename Issue, typename PutDh>
 __device__ __forceinline__ void bwd_wh_pass(bool dh_on, bool gate_on, const __nv_bfloat16* hq,
                                             int lda, const __nv_bfloat16* gq, int ldg, int G,
                                             int wsteps, int gsteps, Split gates, Split dh,
                                             const __nv_bfloat16* res_w, int lws, int res,
                                             const Ring& ring, int cw, int& n, int total,
                                             Issue issue, Init init, int rows, float* gsum,
-                                            float* part, int pw) {
+                                            PutDh put_dh) {
+  static_assert(AROW == 8 || AROW == 16, "8 rows, or mma's 16");
+  constexpr int RH = AROW == 8 ? 1 : 2;  // rows a lane stores: lane / 4 (and + 8)
   typedef __nv_bfloat16 T;
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int gtiles = G / 16, row = lane >> 2, col = 2 * (lane & 3);
-  const T* a_h = hq + (lane & 7) * lda + ((lane >> 3) & 1) * 8;
-  const T* a_g = gq + (lane & 7) * ldg + ((lane >> 3) & 1) * 8;
-  float gacc[2][2][2], gd[2][2][2];
+  // A's rows: lane % 8 at k + 8·(lane / 8 % 2) (AROW 16: lane % 16 at k +
+  // 8·(lane / 16))
+  const int a_row = AROW == 8 ? lane & 7 : lane & 15;
+  const int a_off = AROW == 8 ? ((lane >> 3) & 1) * 8 : (lane >> 4) * 8;
+  const T* a_h = hq + a_row * lda + a_off;
+  const T* a_g = gq + a_row * ldg + a_off;
+  auto frag_a = [&](uint32_t (&fa)[4], const T* p) {
+    if constexpr (AROW == 8) {
+      uint32_t fr[2];
+      ldsm_x2(fr, p);
+      fa[0] = fa[1] = fr[0];
+      fa[2] = fa[3] = fr[1];
+    } else {
+      ldsm_x4(fa, p);
+    }
+  };
+  // the lane's gate-sum elements: tile i, half h, element e (rows row and
+  // row + 8, columns c and c + 1)
+  auto gate_at = [&](int i, int h, int e, int& r, int& c) {
+    const int t = warp + kWarps * i;
+    r = row + 8 * (e >> 1);
+    c = t * 16 + 8 * h + col + (e & 1);
+    return gate_on && t < gtiles && r < rows;
+  };
+  float gd[2][2][2 * RH];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int t = warp + kWarps * i, c = t * 16 + 8 * h + col + e;
-        gacc[i][h][e] = gate_on && t < gtiles ? init(row, c) : 0.0f;
+      for (int e = 0; e < 2 * RH; ++e) {
+        int r, c;
+        if (gate_at(i, h, e, r, c)) gsum[(size_t)r * G + c] = init(r, c);
         gd[i][h][e] = 0.0f;
       }
-  stream_pass(wsteps, res_w, lws, res, ring, lws, cw, n, total, issue,
-              [&](const T* w, int ldw, int k, int j) {
-    if (gate_on) {
-      if (j > 0 && j % gates.per == 0) {
+  // add the slice's sums onto gsum
+  auto flush = [&]() {
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              gacc[i][h][e] += gd[i][h][e];
-              gd[i][h][e] = 0.0f;
-            }
-      }
-      uint32_t fr[2];
-      ldsm_x2(fr, a_h + j * 16);
-      const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int t = warp + kWarps * i;
-        if (t < gtiles) {
-          uint32_t fb[4];
-          ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
-            gd[i][h][0] += z[0];
-            gd[i][h][1] += z[1];
-          }
+        for (int e = 0; e < 2 * RH; ++e) {
+          int r, c;
+          if (gate_at(i, h, e, r, c)) gsum[(size_t)r * G + c] += gd[i][h][e];
+          gd[i][h][e] = 0.0f;
         }
-      }
-    }
-    if (dh_on && warp == kWarps - 1 - j % kWarps) {
-      const T* w_lane = w + (size_t)(k * 16 + (lane >> 4) * 8 + (lane & 7)) * ldw +
-                        ((lane >> 3) & 1) * 8;
-      float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, d[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-      for (int kk = 0; kk < gsteps; ++kk) {
-        if (kk > 0 && kk % dh.per == 0) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              acc[h][e] += d[h][e];
-              d[h][e] = 0.0f;
-            }
-        }
-        uint32_t fr[2], fb[4];
-        ldsm_x2(fr, a_g + kk * 16);
-        const uint32_t fa[4] = {fr[0], fr[0], fr[1], fr[1]};
-        ldsm_x4(fb, w_lane + kk * 16);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_16816(z, fa, fb[2 * h], fb[2 * h + 1]);
-          d[h][0] += z[0];
-          d[h][1] += z[1];
-        }
-      }
-      float* dst = part + (size_t)row * pw + 16 * j + col;
-      if (row < rows)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(dst + 8 * h) =
-              make_float2(acc[h][0] + d[h][0], acc[h][1] + d[h][1]);
-    }
-  });
-  if (gate_on) {
+  };
+  // the gate sums' 16-deep step j (at row k of w)
+  auto gate_step = [&](const T* w, int ldw, int k, int j) {
+    if (j > 0 && j % gates.per == 0) flush();
+    uint32_t fa[4];
+    frag_a(fa, a_h + j * 16);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int t = warp + kWarps * i;
-      if (t < gtiles && row < rows)
+      if (t < gtiles) {
+        uint32_t fb[4];
+        ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(gsum + (size_t)row * G + t * 16 + 8 * h + col) =
-              make_float2(gacc[i][h][0] + gd[i][h][0], gacc[i][h][1] + gd[i][h][1]);
+        for (int h = 0; h < 2; ++h) {
+          float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_16816_free(z, fa, fb[2 * h], fb[2 * h + 1]);
+#pragma unroll
+          for (int e = 0; e < 2 * RH; ++e) gd[i][h][e] += z[e];
+        }
+      }
     }
+  };
+  // dh_prev's columns 16·j + 8·h .. + 7 (at rows 16·k + 8·h of w), over
+  // the whole depth of G
+  auto dh_half = [&](const T* w, int ldw, int k, int j, int h) {
+    // B: wh's rows n = 16·k + 8·h + lane % 8 at k + 8·(lane / 8 % 2)
+    const T* w_lane = w + (size_t)(k * 16 + 8 * h + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8;
+    // each k-slice's steps summed in order into d (a zero
+    // accumulator a step, as mma_f32add_tiles), the slices in order
+    // into acc; a step's fragments are loaded while the step before
+    // multiplies
+    float acc[2 * RH];
+#pragma unroll
+    for (int e = 0; e < 2 * RH; ++e) acc[e] = 0.0f;
+    for (int s0 = 0; s0 < gsteps; s0 += dh.per) {
+      const int s1 = min(gsteps, s0 + dh.per);
+      float d[2 * RH];
+#pragma unroll
+      for (int e = 0; e < 2 * RH; ++e) d[e] = 0.0f;
+      auto step = [&](const uint32_t (&fa)[4], const uint32_t (&fb)[2]) {
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_16816_free(z, fa, fb[0], fb[1]);
+#pragma unroll
+        for (int e = 0; e < 2 * RH; ++e) d[e] += z[e];
+      };
+      uint32_t fa0[4], fb0[2], fa1[4], fb1[2];
+      frag_a(fa0, a_g + s0 * 16);
+      ldsm_x2(fb0, w_lane + s0 * 16);
+      int kk = s0;
+      for (; kk + 1 < s1; kk += 2) {
+        frag_a(fa1, a_g + (kk + 1) * 16);
+        ldsm_x2(fb1, w_lane + (kk + 1) * 16);
+        step(fa0, fb0);
+        if (kk + 2 < s1) {
+          frag_a(fa0, a_g + (kk + 2) * 16);
+          ldsm_x2(fb0, w_lane + (kk + 2) * 16);
+        }
+        step(fa1, fb1);
+      }
+      if (kk < s1) step(fa0, fb0);
+#pragma unroll
+      for (int e = 0; e < 2 * RH; ++e) acc[e] += d[e];
+    }
+#pragma unroll
+    for (int e = 0; e < RH; ++e)
+      if (row + 8 * e < rows)
+        put_dh(row + 8 * e, 16 * j + 8 * h + col, acc[2 * e], acc[2 * e + 1]);
+  };
+  if constexpr (kHeld) {
+    // the half-tiles m = 2·j + h of this warp: 15 - warp, + 16, ..
+    if (dh_on)
+      for (int m = kWarps - 1 - warp; m < 2 * wsteps; m += kWarps)
+        dh_half(res_w, lws, m >> 1, m >> 1, m & 1);
+    if (gate_on) {
+#pragma unroll 4
+      for (int j = 0; j < wsteps; ++j) gate_step(res_w, lws, j, j);
+    }
+  } else {
+    stream_pass(wsteps, res_w, lws, res, ring, lws, cw, n, total, issue,
+                [&](const T* w, int ldw, int k, int j) {
+                  if (gate_on) gate_step(w, ldw, k, j);
+                  if (dh_on) {
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                      if (warp == kWarps - 1 - (2 * j + h) % kWarps) dh_half(w, ldw, k, j, h);
+                  }
+                });
   }
+  if (gate_on) flush();
   __syncthreads();
 }
 

@@ -131,18 +131,27 @@
 // and at H = P = 512).  wh rows are copied one by one into rows padded by
 // 16 bytes (the ldmatrix banks), proj's unpadded rows a chunk at a time.
 // Every cluster streams its direction's whole slices every step whatever
-// its rows, so the plan takes the largest R its threads allow (R·US <=
-// 512): fewer clusters, fewer waves.  Safety, beside the buffers above:
+// its rows, so a cluster takes as many rows as shared memory holds: a
+// thread of the cell phase owns unit tid % US of rows tid / US, + 512 /
+// US, .. (cell_rows at most; the masking phase likewise its column of rows
+// tid / PS, ..), their carries in registers, and past 8 rows the products
+// take the rows as two n8 tiles that share each A fragment of the weights,
+// so one pass over the ring serves 16 rows; gx is read from L2 into the
+// gate sums' init as the product starts, and keep(t+1) into registers as
+// the step starts (no ring of them).  The launcher tries R of {16, 8, 6,
+// 4, 2} (16 on 16 blocks only) and takes the fewest waves, then the fewest
+// clusters, then the smallest R: at B = 32, R = 16 in one wave at every
+// streamed width, 768 to 2048 units.  A row's sums do not depend on the
+// rows beside it, so every R gives the same bits.  Safety, beside the
+// buffers above:
 //   - the ring is the block's own; a slot is refilled only after the
 //     block barrier that ends every thread's reads of its chunk, and read
 //     only after its barrier's phase for that chunk has completed;
-//   - gx(t) is waited for before the gate product (whose accumulators
-//     start from it), and the slot of step t-1 is refilled after that
-//     block barrier;
 //   - the partial sums (one "slice" per product here, the sums complete)
-//     are written at the end of a product, after the barrier of its last
-//     chunk, which every thread reaches only after it has read the last
-//     product's sums; proj always streams at least one chunk.
+//     are written at the end of a product, after a block barrier that
+//     every thread reaches only after it has read the last product's sums:
+//     the one before the gate product, and for proj's product (which
+//     always streams at least one chunk) the barrier of its chunks.
 //
 // Past 2048 units, the layer is refused.
 //
@@ -494,18 +503,21 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(
 }
 
 // K1's streamed plan with C blocks a cluster and R rows (bf16), common to
-// host and device.  US, PS, QS, HS as FwdPlan's; LWS: the row stride of wh's
-// rows in shared memory (4·US + 16 bytes); ldg, ldp: of the two products'
-// sums; per_g, per_p: their k-slices in 16-deep steps (the resident plan's
-// at C blocks, where it has a split); wsteps, psteps: the 16-deep steps of
-// wh (P) and proj (H); res: wh's resident steps (at most `cap`, where cap
-// >= 0); cw, cp: the steps a chunk of wh and of proj; nw, np: chunks a step;
-// slots and slot: the ring.  The gx ring is 3 steps deep (fwd_plan's
-// kMinRing).  res_bytes, stream_bytes: a block's weight bytes held, and
-// streamed a step.
+// host and device.  US, PS, QS, HS as FwdPlan's; arow: the rows of the full
+// h, the cell output and the sums (8, or 16 past 8 rows: the products take
+// them as one or two n8 tiles); LWS: the row stride of wh's rows in shared
+// memory (4·US + 16 bytes); ldg, ldp: of the two products' sums; per_g,
+// per_p: their k-slices in 16-deep steps (the resident plan's at C blocks,
+// where it has a split); wsteps, psteps: the 16-deep steps of wh (P) and
+// proj (H); res: wh's resident steps (at most `cap`, where cap >= 0); cw,
+// cp: the steps a chunk of wh and of proj; nw, np: chunks a step; slots and
+// slot: the ring.  gx and keep are read from L2 (no ring of them).
+// res_bytes, stream_bytes: a block's weight bytes held, and streamed a
+// step.
 struct StreamPlan {
-  int us, ps, qs, hs, lws, ldg, ldp, per_g, per_p, wsteps, psteps, res, cw, cp, nw, np, slots;
-  size_t slot, off_cell, off_part, off_bar, off_gx, off_keep, off_ring, off_res, bytes;
+  int us, ps, qs, hs, arow, lws, ldg, ldp, per_g, per_p, wsteps, psteps, res, cw, cp, nw, np,
+      slots;
+  size_t slot, off_cell, off_part, off_bar, off_ring, off_res, bytes;
   long long res_bytes, stream_bytes;
 };
 
@@ -519,6 +531,7 @@ __host__ __device__ StreamPlan stream_plan(int units, int out_dim, bool has_proj
   const int pad = 8, g = 4 * p.us;
   p.hs = C * p.us + pad;
   p.qs = C * p.ps + pad;
+  p.arow = rows > 8 ? 16 : 8;
   p.lws = g + pad;
   p.ldg = g + 4;
   p.ldp = p.ps + 4;
@@ -532,12 +545,11 @@ __host__ __device__ StreamPlan stream_plan(int units, int out_dim, bool has_proj
   p.cw = kChunkBytes / wrow > 1 ? (int)(kChunkBytes / wrow) : 1;
   p.cp = !has_proj ? 0 : kChunkBytes / prow > 1 ? (int)(kChunkBytes / prow) : 1;
   p.slot = align128(p.cw * wrow > p.cp * prow ? p.cw * wrow : p.cp * prow);
-  p.off_cell = align128(sizeof(T) * 8 * (size_t)p.qs);
-  p.off_part = p.off_cell + align128(sizeof(T) * 8 * (size_t)p.hs);
-  p.off_bar = p.off_part + align128(sizeof(float) * 8 * (size_t)(p.ldg > p.ldp ? p.ldg : p.ldp));
-  p.off_gx = p.off_bar + 128;
-  p.off_keep = p.off_gx + align128(sizeof(float) * kMinRing * rows * 4 * p.us);
-  p.off_ring = p.off_keep + align128(sizeof(float) * kMinRing * rows);
+  p.off_cell = align128(sizeof(T) * p.arow * (size_t)p.qs);
+  p.off_part = p.off_cell + align128(sizeof(T) * p.arow * (size_t)p.hs);
+  p.off_bar = p.off_part +
+              align128(sizeof(float) * p.arow * (size_t)(p.ldg > p.ldp ? p.ldg : p.ldp));
+  p.off_ring = p.off_bar + 128;
   const size_t left = kMaxSmemPerBlock > p.off_ring ? kMaxSmemPerBlock - p.off_ring : 0;
   p.slots = left / p.slot < (size_t)kMaxSlots ? (int)(left / p.slot) : kMaxSlots;
   p.off_res = p.off_ring + p.slots * p.slot;
@@ -553,21 +565,37 @@ __host__ __device__ StreamPlan stream_plan(int units, int out_dim, bool has_proj
   return p;
 }
 
-// Whether the streamed plan fits: at most kLayerUnits units a block, R·US
-// and R·PS threads at most, at least two ring slots (and with cap =
-// kAllHeld, every step of wh resident).
+// Whether the streamed plan fits: at most kLayerUnits units a block, 16
+// rows, cell_rows(R) rows a thread of the cell phase and of the masking
+// phase, at least two ring slots (and with cap = kAllHeld, every step of wh
+// resident).
 template <int C>
 bool stream_fits(int units, int out_dim, bool has_proj, int rows, int cap, StreamPlan* plan) {
   *plan = stream_plan<C>(units, out_dim, has_proj, rows, cap);
-  return plan->us <= kLayerUnits && rows * plan->us <= kThreads &&
-         rows * plan->ps <= kThreads && plan->slots >= 2 && plan->bytes <= kMaxSmemPerBlock &&
-         (cap != kAllHeld || plan->res == plan->wsteps);
+  return plan->us <= kLayerUnits && rows <= 16 &&
+         thread_rows(rows, plan->us) <= cell_rows(rows) &&
+         thread_rows(rows, plan->ps) <= cell_rows(rows) && plan->slots >= 2 &&
+         plan->bytes <= kMaxSmemPerBlock && (cap != kAllHeld || plan->res == plan->wsteps);
 }
+
+// clock64 stamps of a step's phases (scripts/layer_stamps.py): where
+// lstm_fwd_stamps has pointed this at a buffer of 1 + kStampPhases, thread 0
+// of the first block of the first cluster adds each phase's cycles up in
+// shared memory (beside the barriers) and writes the steps and the sums
+// there at its end: a (the wait for h(t-1)), a (the gate product), b (the
+// cell phase and its hand-off), c (the wait for the cell output), d (the
+// projection's product), e (masking and the hand-off of h).  Null in
+// every other launch.
+__constant__ long long* c_fwd_stamps;
 
 // K1 on the streamed plan (bf16): lstm_fwd_kernel's step with the products
 // of streamed_product_t; wh_sl [2, C, P16, LWS] (each row of 4·US padded
 // to LWS with zeros), proj_sl as lstm_fwd_kernel's; `cap` bounds wh's
-// resident steps (-1: none).
+// resident steps (-1: as many as fit).  A thread of the cell phase owns
+// unit tid % US of rows tid / US, + 512 / US, .. (kRows at most), its
+// carried c (and, without a projection, h) of each in registers; with a
+// projection a thread of the masking phase likewise owns column tid % PS
+// of rows tid / PS, + 512 / PS, .., its carried h of each in registers.
 template <int R, int C>
 __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
     const float* __restrict__ gx, const int* __restrict__ lengths,
@@ -577,7 +605,9 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
     float* __restrict__ out, void* __restrict__ c_all, void* __restrict__ h_all,
     bool states_bf16, float* __restrict__ cfin, float* __restrict__ hfin, int cap) {
   typedef __nv_bfloat16 T;
-  constexpr int depth = kMinRing;
+  constexpr int NT = R > 8 ? 2 : 1;    // the products' n8 tiles of rows
+  constexpr int kRows = cell_rows(R);  // a thread's rows at most
+  static_assert(R <= 16, "two n8 tiles of rows");
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int dir = blockIdx.y;
@@ -592,13 +622,11 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* hq0 = reinterpret_cast<T*>(smem_raw);                   // [8][QS]
-  T* cellf = reinterpret_cast<T*>(smem_raw + pl.off_cell);   // [8][HS]
+  T* hq0 = reinterpret_cast<T*>(smem_raw);                   // [arow][QS]
+  T* cellf = reinterpret_cast<T*>(smem_raw + pl.off_cell);   // [arow][HS]
   T* hq1 = has_proj ? hq0 : cellf;
   float* part = reinterpret_cast<float*>(smem_raw + pl.off_part);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + pl.off_bar);
-  float* ring_gx = reinterpret_cast<float*>(smem_raw + pl.off_gx);
-  float* ring_keep = reinterpret_cast<float*>(smem_raw + pl.off_keep);
   T* wres = reinterpret_cast<T*>(smem_raw + pl.off_res);
   const Ring ring{smem_raw + pl.off_ring, bar + 3, pl.slots, pl.slot};
 
@@ -610,8 +638,8 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
   const T* pj_g = has_proj ? proj_sl + slot_q * (size_t)H16 * PS : nullptr;
   copy_rows(wres, pl.lws, wh_g, pl.lws, 16 * pl.res);
   const T zero = Dtype<T>::from_float(0.0f);
-  for (int i = tid; i < 8 * pl.qs; i += kThreads) hq0[i] = zero;
-  for (int i = tid; i < 8 * pl.hs; i += kThreads) cellf[i] = zero;
+  for (int i = tid; i < pl.arow * pl.qs; i += kThreads) hq0[i] = zero;
+  for (int i = tid; i < pl.arow * pl.hs; i += kThreads) cellf[i] = zero;
 
   const uint32_t bytes_c = C * nr * US * (uint32_t)sizeof(T);
   const uint32_t bytes_h = C * nr * PS * (uint32_t)sizeof(T);
@@ -623,63 +651,31 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
     if (has_proj && steps > 0) mbar_expect(bar + 2, bytes_c);
   }
 
-  const int rb = tid / US, jb = tid - rb * US;
-  const bool in_b = tid < nr * US;
-  const bool own_b = in_b && jb < nu;
+  // the cell phase: unit jb of rows rb0 + i·RS; the masking phase (with a
+  // projection): column jh of rows rh0 + i·RSH; their rows' lengths and
+  // carries in registers
+  const int RS = kThreads / US, rb0 = tid / US, jb = tid - rb0 * US;
+  const int RSH = kThreads / PS, rh0 = tid / PS, jh = tid - rh0 * PS;
+  const bool own_u = jb < nu, own_p = jh < np;
   const int ub = u0 + jb;
-  const int len_b = in_b ? lengths[b0 + rb] : 0;
-  const int rh = tid / PS, jh = tid - rh * PS;
-  const bool in_h = has_proj && tid < nr * PS;
-  const bool own_h = in_h && jh < np;
-  const int len_h = in_h ? lengths[b0 + rh] : 0;
+  int len_b[kRows], len_h[kRows];
+  float c_reg[kRows], h_reg[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int rb = rb0 + i * RS, rh = rh0 + i * RSH;
+    len_b[i] = rb0 < RS && rb < nr ? lengths[b0 + rb] : 0;
+    len_h[i] = has_proj && rh0 < RSH && rh < nr ? lengths[b0 + rh] : 0;
+    c_reg[i] = h_reg[i] = 0.0f;
+  }
   const float* pd = peep ? peep + (size_t)dir * 3 * H : nullptr;
   float pi = 0.0f, pf = 0.0f, po = 0.0f;
-  if (pd && own_b) {
+  if (pd && rb0 < RS && own_u) {
     pi = pd[ub];
     pf = pd[H + ub];
     po = pd[2 * H + ub];
   }
-  float c_reg = 0.0f, h_reg = 0.0f;
-
-  // the gx ring, as lstm_fwd_kernel's
-  const int nchunk = nr * US, ncopy = nchunk + (keep ? nr : 0);
   const size_t row_elems = (size_t)2 * batch * 4 * H;
-  const bool vec = H % 4 == 0;
-  int cp_n = 0, cp_dst[2] = {0, 0}, cp_have[2] = {0, 0};
-  long long cp_src[2] = {0, 0};
-  for (int i = kThreads - 1 - tid; i < ncopy; i += kThreads, ++cp_n) {
-    if (i < nchunk) {
-      const int r = i / US, e = i - r * US, k = e / (US / 4), c = 4 * (e - k * (US / 4));
-      cp_dst[cp_n] = ((r * 4 + k) * US + c);
-      cp_src[cp_n] = ((long long)dir * batch + b0 + r) * 4 * H + (long long)k * H + u0 + c;
-      cp_have[cp_n] = max(0, min(4, H - u0 - c));
-    } else {
-      cp_dst[cp_n] = -1 - (i - nchunk);
-      cp_src[cp_n] = b0 + (i - nchunk);
-    }
-  }
-  auto fetch = [&](int s, int slot) {
-    if (s < steps) {
-      for (int m = 0; m < cp_n; ++m) {
-        if (cp_dst[m] >= 0) {
-          float* dst = ring_gx + (size_t)slot * R * 4 * US + cp_dst[m];
-          const float* src = gx + (size_t)s * row_elems + cp_src[m];
-          const int have = cp_have[m];
-          if (vec) {
-            cp_async16_fill(dst, have > 0 ? src : gx, 4 * have);
-          } else {
-            for (int e = 0; e < 4; ++e)
-              cp_async4_fill(dst + e, e < have ? src + e : gx, e < have ? 4 : 0);
-          }
-        } else {
-          cp_async4_fill(ring_keep + (size_t)slot * R - 1 - cp_dst[m],
-                         keep + (size_t)s * batch + cp_src[m], 4);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s + 1 < depth; ++s) fetch(s, s);
+  const float* gx_dir = gx + ((size_t)dir * batch + b0) * 4 * H;
 
   // the weight chunks of a step: wh's streamed rows, then proj's (one
   // thread issues each)
@@ -694,20 +690,46 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
       ring.issue(n, pj_g + (size_t)r0 * PS, sizeof(T) * rows * PS);
     }
   };
+  // the stamps (c_fwd_stamps), beside the barriers (3 + kMaxSlots of the
+  // region's 128 bytes)
+  long long* const stamps = c_fwd_stamps;
+  const bool stamp = stamps != nullptr && tid == 0 && blockIdx.x == 0 && dir == 0;
+  long long* const phase_sum = reinterpret_cast<long long*>(smem_raw + pl.off_bar + 64);
+  long long clk = 0;
+  auto mark = [&](int k) {
+    if (stamp) {
+      const long long now = clock64();
+      phase_sum[k] += now - clk;
+      clk = now;
+    }
+  };
   cluster.sync();  // every block is resident, its barriers initialised
   if (tid == 0)
     for (int n = 0; n < pl.slots && n < total; ++n) issue(n);
   int chunk = 0;  // the next chunk to read
+  if (stamp) {
+    for (int k = 0; k < kStampPhases; ++k) phase_sum[k] = 0;
+    clk = clock64();
+  }
 
   uint32_t parity = 0;
-  int slot = 0;
   for (int t = 0; t < steps; ++t) {
     const size_t row0 = (size_t)t * 2 * batch + (size_t)dir * batch + b0;
     const bool next = t + 1 < steps;
-    const int slot1 = slot + 1 == depth ? 0 : slot + 1;
-    const int slot_prev = slot == 0 ? depth - 1 : slot - 1;
+    // keep(t+1) of each of the thread's rows, loaded as the step starts
+    float kn_b[kRows], kn_h[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int rb = rb0 + i * RS, rh = rh0 + i * RSH;
+      kn_b[i] = keep && next && rb0 < RS && rb < nr ? keep[(size_t)(t + 1) * batch + b0 + rb]
+                                                     : 1.0f;
+      kn_h[i] = keep && next && has_proj && rh0 < RSH && rh < nr
+                    ? keep[(size_t)(t + 1) * batch + b0 + rh]
+                    : 1.0f;
+    }
 
-    // a. h(t-1) and gx(t), then the gate sums from gx(t) on
+    // a. h(t-1), then the gate sums from gx(t) on (gx read from L2 into
+    // the sums' init)
     const int hb = has_proj ? 0 : (t + 1) & 1;
     const T* hq = hb ? hq1 : hq0;
     if (t > 0) {
@@ -716,28 +738,33 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
       const int s_next = has_proj ? t : t + 1;
       if (tid == 0 && s_next + 1 < steps) mbar_expect(bar + hb, bytes_h);
     }
-    cp_async_wait_pending(depth - kMinRing);
     __syncthreads();
-    fetch(t + depth - 1, slot_prev);
-    const float* gxs = ring_gx + (size_t)slot * R * 4 * US;
-    streamed_product_t<2>(
+    mark(0);
+    const float* gxt = gx_dir + (size_t)t * row_elems;
+    streamed_product_t<2, NT>(
         hq, pl.qs, P, G, pl.per_g, wres, pl.lws, pl.res, ring, pl.lws, pl.cw, chunk, total,
         issue,
         [&](int r, int c) {
-          return r < nr ? gxs[(r * 4 + c / US) * US + c % US] : 0.0f;
+          const int k = c / US, j = c - k * US;
+          return r < nr && j < nu ? __ldg(gxt + (size_t)r * 4 * H + k * H + u0 + j) : 0.0f;
         },
         part, pl.ldg);
     __syncthreads();
+    mark(1);
 
-    // b. cell update of the owned units; hand off the cell output (or h)
-    float share = 0.0f, cv = 0.0f, hv = 0.0f, ov = 0.0f;
-    if (in_b) {
-      const float kn = keep && next ? ring_keep[slot1 * R + rb] : 1.0f;
+    // b. cell update of the owned units, a thread's rows in turn; hand off
+    // the cell output (or h)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int rb = rb0 + i * RS;
+      const bool in_b = rb0 < RS && rb < nr, own_b = in_b && own_u;
+      float share = 0.0f, cv = 0.0f, hv = 0.0f, ov = 0.0f;
       if (own_b) {
+        const float kn = kn_b[i];
         float gate[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) gate[k] = part[rb * pl.ldg + k * US + jb];
-        const float cp = c_reg;
+        const float cp = c_reg[i];
         if (pd) {
           gate[0] += pi * cp;
           gate[2] += pf * cp;
@@ -746,31 +773,31 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
                          + sigmoidf(gate[0]) * tanhf(gate[1]);
         if (pd) gate[3] += po * cn;
         const float o = sigmoidf(gate[3]) * tanhf(cn);
-        const float m = t < len_b ? 1.0f : 0.0f;
+        const float m = t < len_b[i] ? 1.0f : 0.0f;
         cv = m * cn + (1.0f - m) * cp;
-        c_reg = kn * cv;
+        c_reg[i] = kn * cv;
         if (has_proj) {
           share = o;
         } else {
-          hv = m * o + (1.0f - m) * h_reg;
+          hv = m * o + (1.0f - m) * h_reg[i];
           ov = m * o;
-          h_reg = kn * hv;
-          share = h_reg;
+          h_reg[i] = kn * hv;
+          share = h_reg[i];
+        }
+      }
+      if (has_proj)
+        send_slice<T, C>(share, in_b, cellf, rb * pl.hs + u0 + jb, bar + 2);
+      else if (next)
+        send_slice<T, C>(share, in_b, t & 1 ? hq1 : hq0, rb * pl.qs + u0 + jb, bar + (t & 1));
+      if (own_b) {
+        if (c_all) put_state(c_all, (row0 + rb) * H + ub, cv, states_bf16);
+        if (!has_proj) {
+          out[(row0 + rb) * P + ub] = ov;
+          if (h_all) put_state(h_all, (row0 + rb) * P + ub, hv, states_bf16);
         }
       }
     }
-    if (has_proj)
-      send_slice<T, C>(share, in_b, cellf, rb * pl.hs + u0 + jb, bar + 2);
-    else if (next)
-      send_slice<T, C>(share, in_b, t & 1 ? hq1 : hq0, rb * pl.qs + u0 + jb, bar + (t & 1));
-    if (own_b) {
-      if (c_all) put_state(c_all, (row0 + rb) * H + ub, cv, states_bf16);
-      if (!has_proj) {
-        out[(row0 + rb) * P + ub] = ov;
-        if (h_all) put_state(h_all, (row0 + rb) * P + ub, hv, states_bf16);
-      }
-    }
-    slot = slot1;
+    mark(2);
     if (!has_proj) continue;
 
     // c. the full cell output; d. the owned projection columns, all of
@@ -778,35 +805,49 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_streamed_kernel(
     mbar_wait(bar + 2, (parity >> 2) & 1);
     parity ^= 4u;
     if (tid == 0 && next) mbar_expect(bar + 2, bytes_c);
-    streamed_product_t<1>(cellf, pl.hs, H, PS, pl.per_p, wres, pl.lws, 0, ring, PS, pl.cp,
-                          chunk, total, issue, [](int, int) { return 0.0f; }, part, pl.ldp);
+    mark(3);
+    streamed_product_t<1, NT>(cellf, pl.hs, H, PS, pl.per_p, wres, pl.lws, 0, ring, PS, pl.cp,
+                              chunk, total, issue, [](int, int) { return 0.0f; }, part, pl.ldp);
     __syncthreads();
+    mark(4);
 
-    // e. masking; hand off h(t)
-    share = hv = ov = 0.0f;
-    if (in_h) {
-      const float kn = keep && next ? ring_keep[slot1 * R + rh] : 1.0f;
+    // e. masking, a thread's rows in turn; hand off h(t)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int rh = rh0 + i * RSH;
+      const bool in_h = rh0 < RSH && rh < nr, own_h = in_h && own_p;
+      float share = 0.0f, hv = 0.0f, ov = 0.0f;
       if (own_h) {
         const float o = part[rh * pl.ldp + jh];
-        const float m = t < len_h ? 1.0f : 0.0f;
-        hv = m * o + (1.0f - m) * h_reg;
+        const float m = t < len_h[i] ? 1.0f : 0.0f;
+        hv = m * o + (1.0f - m) * h_reg[i];
         ov = m * o;
-        h_reg = kn * hv;
-        share = h_reg;
+        h_reg[i] = kn_h[i] * hv;
+        share = h_reg[i];
+      }
+      if (next) send_slice<T, C>(share, in_h, hq0, rh * pl.qs + p0 + jh, bar);
+      if (own_h) {
+        out[(row0 + rh) * P + p0 + jh] = ov;
+        if (h_all) put_state(h_all, (row0 + rh) * P + p0 + jh, hv, states_bf16);
       }
     }
-    if (next) send_slice<T, C>(share, in_h, hq0, rh * pl.qs + p0 + jh, bar);
-    if (own_h) {
-      out[(row0 + rh) * P + p0 + jh] = ov;
-      if (h_all) put_state(h_all, (row0 + rh) * P + p0 + jh, hv, states_bf16);
-    }
+    mark(5);
+  }
+  if (stamp) {
+    stamps[0] = steps;
+    for (int k = 0; k < kStampPhases; ++k) stamps[1 + k] = phase_sum[k];
   }
 
   const size_t frow = (size_t)dir * batch + b0;
-  if (own_b) cfin[(frow + rb) * H + ub] = c_reg;
-  if (has_proj ? own_h : own_b)
-    hfin[(frow + (has_proj ? rh : rb)) * P + (has_proj ? p0 + jh : ub)] = h_reg;
-  cp_async_wait_pending(0);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int rb = rb0 + i * RS, rh = rh0 + i * RSH;
+    if (rb0 < RS && rb < nr && own_u) {
+      cfin[(frow + rb) * H + ub] = c_reg[i];
+      if (!has_proj) hfin[(frow + rb) * P + ub] = h_reg[i];
+    }
+    if (has_proj && rh0 < RSH && rh < nr && own_p) hfin[(frow + rh) * P + p0 + jh] = h_reg[i];
+  }
   cluster.sync();  // every hand-off has landed before any block leaves
 }
 
@@ -958,15 +999,39 @@ cudaError_t launch_streamed(const Args& a, int cap, bool dry, Launch* how) {
   return cudaGetLastError();
 }
 
-// The streamed plan takes the largest R its threads and shared memory
-// allow (every cluster streams the whole slices a step, whatever its rows)
+template <int C>
+cudaError_t streamed_at(const Args& a, int rows, int cap, bool dry, Launch* how) {
+  switch (rows) {
+    case 2: return launch_streamed<2, C>(a, cap, dry, how);
+    case 4: return launch_streamed<4, C>(a, cap, dry, how);
+    case 6: return launch_streamed<6, C>(a, cap, dry, how);
+    case 8: return launch_streamed<8, C>(a, cap, dry, how);
+    case 16:
+      if constexpr (C == kWideCluster) return launch_streamed<16, C>(a, cap, dry, how);
+      break;
+    default:
+      break;
+  }
+  how->rows = 0;
+  return cudaSuccess;
+}
+
+// The streamed plan's R: of {2, 4, 6, 8, 16} (16 with 16 blocks) the one
+// with the fewest waves, then the fewest clusters (every cluster streams
+// the whole slices a step, whatever its rows), then the smallest
 template <int C>
 cudaError_t choose_streamed(const Args& a, bool dry, Launch* how) {
-  cudaError_t err = launch_streamed<8, C>(a, -1, dry, how);
-  if (err != cudaSuccess || how->rows) return err;
-  err = launch_streamed<6, C>(a, -1, dry, how);
-  if (err != cudaSuccess || how->rows) return err;
-  err = launch_streamed<4, C>(a, -1, dry, how);
+  Launch best{0, 0, 0, 0, 0, 0, 0}, c;
+  for (int r : {2, 4, 6, 8, 16}) {
+    const cudaError_t err = streamed_at<C>(a, r, -1, true, &c);
+    if (err != cudaSuccess) return err;
+    if (!c.rows) continue;
+    const int waves = cdiv(c.clusters, c.resident), best_waves = cdiv(best.clusters,
+                                                                      max(best.resident, 1));
+    if (!best.rows || waves < best_waves || (waves == best_waves && c.clusters < best.clusters))
+      best = c;
+  }
+  const cudaError_t err = streamed_at<C>(a, best.rows, -1, dry, how);
   if (err == cudaSuccess && !how->rows) return cudaErrorInvalidConfiguration;
   return err;
 }
@@ -1010,20 +1075,26 @@ cudaError_t forced(const Args& a, int plan, int rows, Launch* how) {
     return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaErrorInvalidConfiguration;
   typedef __nv_bfloat16 T;
-  switch ((plan >= 2 ? 2 : plan) * 16 + rows) {
-    case 16 + 4: err = launch_rows<T, 4, C>(a, true, false, how); break;
-    case 16 + 6: err = launch_rows<T, 6, C>(a, true, false, how); break;
-    case 16 + 8: err = launch_rows<T, 8, C>(a, true, false, how); break;
-    case 32 + 4: err = launch_streamed<4, C>(a, cap, false, how); break;
-    case 32 + 6: err = launch_streamed<6, C>(a, cap, false, how); break;
-    case 32 + 8: err = launch_streamed<8, C>(a, cap, false, how); break;
-    default: break;
+  if (plan >= 2) {
+    err = streamed_at<C>(a, rows, cap, false, how);
+  } else {
+    switch (rows) {
+      case 4: err = launch_rows<T, 4, C>(a, true, false, how); break;
+      case 6: err = launch_rows<T, 6, C>(a, true, false, how); break;
+      case 8: err = launch_rows<T, 8, C>(a, true, false, how); break;
+      default: break;
+    }
   }
   if (err == cudaSuccess && !how->rows) return cudaErrorInvalidConfiguration;
   return err;
 }
 
 }  // namespace
+
+// Point the streamed kernel's stamps at `stamps` (null: none)
+extern "C" int lstm_fwd_stamps(void* stamps) {
+  return cudaMemcpyToSymbol(c_fwd_stamps, &stamps, sizeof(stamps));
+}
 
 #define LSTM_FWD_ARGS                                                          \
   int device, const void *gx, const void *lengths, const void *keep,          \
@@ -1079,25 +1150,36 @@ extern "C" int lstm_fwd_bf16_forced(LSTM_FWD_ARGS, int plan, int rows) {
 // How K1 would launch on `device` at this shape: blocks a cluster, rows a
 // cluster, clusters, clusters resident at once, dynamic shared memory a
 // block, whether the plan is the streamed one, and the weight bytes a
-// block holds and streams a step; a CUDA error if it cannot.
+// block holds and streams a step; a CUDA error if it cannot.  With `at`
+// > 0 and a streamed plan, the launch at R = `at` (a forced launch's).
 extern "C" int lstm_fwd_config(int device, int batch, int units, int out_dim,
                                int has_proj, int bf16, int* blocks, int* rows,
                                int* clusters, int* resident, long long* smem,
-                               int* streamed, long long* held, long long* streams) {
+                               int* streamed, long long* held, long long* streams,
+                               int at) {
   Args a = {};
   a.batch = batch;
   a.units = units;
   a.out_dim = out_dim;
   a.proj_sl = has_proj ? (const void*)1 : nullptr;
-  Launch how;
-  const int err = bf16 ? launch<__nv_bfloat16>(device, a, true, &how)
-                       : launch<float>(device, a, true, &how);
+  Launch how = {0, 0, 0, 0, 0, 0, 0};
+  const bool stream =
+      bf16 && fwd_route<__nv_bfloat16>(units, out_dim, has_proj != 0).kind == kStreamed;
+  int err;
+  if (stream && at > 0) {
+    err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = streamed_at<kWideCluster>(a, at, -1, true, &how);
+    if (err == cudaSuccess && !how.rows) err = cudaErrorInvalidConfiguration;
+  } else {
+    err = bf16 ? launch<__nv_bfloat16>(device, a, true, &how)
+               : launch<float>(device, a, true, &how);
+  }
   *blocks = how.blocks;
   *rows = how.rows;
   *clusters = how.clusters;
   *resident = how.resident;
   *smem = (long long)how.smem;
-  *streamed = bf16 && fwd_route<__nv_bfloat16>(units, out_dim, has_proj != 0).kind == kStreamed;
+  *streamed = stream;
   *held = how.held;
   *streams = how.streamed;
   return err;

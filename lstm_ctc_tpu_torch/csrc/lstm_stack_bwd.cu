@@ -104,7 +104,7 @@
 // rows, from L2 at every step as K2's streamed plan does
 // (lstm_bwd_streamed.cu): dout_blk over proj's chunks (bwd_dob_pass), and
 // one pass over wh's rows serving dh_prev and the step before's gate sums
-// (stack_wh_pass: K2's pass, its sums and bits, shaped for 16 rows).
+// (lstm_cluster.cuh bwd_wh_pass, K2's, with 16-row A operands).
 // Every cluster streams
 // whole slices whatever its rows, so it takes as many rows as shared
 // memory holds: R of {4, 8, 16}, then 2, the fewest waves first, then the
@@ -796,174 +796,6 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_kernel(
   }
 }
 
-// The streamed plan's pass over wh's rows p: K2's (lstm_cluster.cuh
-// bwd_wh_pass: one pass serves dh_prev's partial and the step before's
-// gate sums, in the resident plans' k-slices, so with their bits), with A
-// operands of AROW rows (8 loaded once for mma's 16, or a whole 16-row
-// tile) and shaped for 16 rows: the gate sums' init and finished slices
-// are held in gsum (each lane its own elements), not in registers; the 16
-// columns p of a chunk's tile j feed dh_prev on two warps, 15 - (2·j + h)
-// % 16 for the 8-column half h, each summing its half over the depth in
-// one chain; the products are not volatile, so a warp's loads run ahead.
-// dh_prev's sums of rows r < rows go to put_dh(r, p, columns p and p + 1).
-// kHeld (every step of wh resident, no ring): a warp runs its dh_prev
-// half-tiles first, then its gate tiles over all the steps in one tight
-// loop, where interleaving them step by step, as the ring's chunks need,
-// left each step's loads and products waiting on one another: the same
-// sums in the same order.
-template <int AROW, bool kHeld, typename Init, typename Issue, typename PutDh>
-__device__ __forceinline__ void stack_wh_pass(bool dh_on, bool gate_on,
-                                              const __nv_bfloat16* hq, int lda,
-                                              const __nv_bfloat16* gq, int ldg, int G,
-                                              int wsteps, int gsteps, Split gates, Split dh,
-                                              const __nv_bfloat16* res_w, int lws, int res,
-                                              const Ring& ring, int cw, int& n, int total,
-                                              Issue issue, Init init, int rows, float* gsum,
-                                              PutDh put_dh) {
-  static_assert(AROW == 8 || AROW == 16, "8 rows, or mma's 16");
-  constexpr int RH = AROW == 8 ? 1 : 2;  // rows a lane stores: lane / 4 (and + 8)
-  typedef __nv_bfloat16 T;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int gtiles = G / 16, row = lane >> 2, col = 2 * (lane & 3);
-  // A's rows: lane % 8 at k + 8·(lane / 8 % 2) (AROW 16: lane % 16 at k +
-  // 8·(lane / 16))
-  const int a_row = AROW == 8 ? lane & 7 : lane & 15;
-  const int a_off = AROW == 8 ? ((lane >> 3) & 1) * 8 : (lane >> 4) * 8;
-  const T* a_h = hq + a_row * lda + a_off;
-  const T* a_g = gq + a_row * ldg + a_off;
-  auto frag_a = [&](uint32_t (&fa)[4], const T* p) {
-    if constexpr (AROW == 8) {
-      uint32_t fr[2];
-      ldsm_x2(fr, p);
-      fa[0] = fa[1] = fr[0];
-      fa[2] = fa[3] = fr[1];
-    } else {
-      ldsm_x4(fa, p);
-    }
-  };
-  // the lane's gate-sum elements: tile i, half h, element e (rows row and
-  // row + 8, columns c and c + 1)
-  auto gate_at = [&](int i, int h, int e, int& r, int& c) {
-    const int t = warp + kWarps * i;
-    r = row + 8 * (e >> 1);
-    c = t * 16 + 8 * h + col + (e & 1);
-    return gate_on && t < gtiles && r < rows;
-  };
-  float gd[2][2][2 * RH];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 2 * RH; ++e) {
-        int r, c;
-        if (gate_at(i, h, e, r, c)) gsum[(size_t)r * G + c] = init(r, c);
-        gd[i][h][e] = 0.0f;
-      }
-  // add the slice's sums onto gsum
-  auto flush = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2 * RH; ++e) {
-          int r, c;
-          if (gate_at(i, h, e, r, c)) gsum[(size_t)r * G + c] += gd[i][h][e];
-          gd[i][h][e] = 0.0f;
-        }
-  };
-  // the gate sums' 16-deep step j (at row k of w)
-  auto gate_step = [&](const T* w, int ldw, int k, int j) {
-    if (j > 0 && j % gates.per == 0) flush();
-    uint32_t fa[4];
-    frag_a(fa, a_h + j * 16);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int t = warp + kWarps * i;
-      if (t < gtiles) {
-        uint32_t fb[4];
-        ldsm_x4_trans(fb, w + (size_t)(k * 16 + (lane & 15)) * ldw + (lane >> 4) * 8 + t * 16);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_16816_free(z, fa, fb[2 * h], fb[2 * h + 1]);
-#pragma unroll
-          for (int e = 0; e < 2 * RH; ++e) gd[i][h][e] += z[e];
-        }
-      }
-    }
-  };
-  // dh_prev's columns 16·j + 8·h .. + 7 (at rows 16·k + 8·h of w), over
-  // the whole depth of G
-  auto dh_half = [&](const T* w, int ldw, int k, int j, int h) {
-    // B: wh's rows n = 16·k + 8·h + lane % 8 at k + 8·(lane / 8 % 2)
-    const T* w_lane = w + (size_t)(k * 16 + 8 * h + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8;
-    // each k-slice's steps summed in order into d (a zero
-    // accumulator a step, as mma_f32add_tiles), the slices in order
-    // into acc; a step's fragments are loaded while the step before
-    // multiplies
-    float acc[2 * RH];
-#pragma unroll
-    for (int e = 0; e < 2 * RH; ++e) acc[e] = 0.0f;
-    for (int s0 = 0; s0 < gsteps; s0 += dh.per) {
-      const int s1 = min(gsteps, s0 + dh.per);
-      float d[2 * RH];
-#pragma unroll
-      for (int e = 0; e < 2 * RH; ++e) d[e] = 0.0f;
-      auto step = [&](const uint32_t (&fa)[4], const uint32_t (&fb)[2]) {
-        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_16816_free(z, fa, fb[0], fb[1]);
-#pragma unroll
-        for (int e = 0; e < 2 * RH; ++e) d[e] += z[e];
-      };
-      uint32_t fa0[4], fb0[2], fa1[4], fb1[2];
-      frag_a(fa0, a_g + s0 * 16);
-      ldsm_x2(fb0, w_lane + s0 * 16);
-      int kk = s0;
-      for (; kk + 1 < s1; kk += 2) {
-        frag_a(fa1, a_g + (kk + 1) * 16);
-        ldsm_x2(fb1, w_lane + (kk + 1) * 16);
-        step(fa0, fb0);
-        if (kk + 2 < s1) {
-          frag_a(fa0, a_g + (kk + 2) * 16);
-          ldsm_x2(fb0, w_lane + (kk + 2) * 16);
-        }
-        step(fa1, fb1);
-      }
-      if (kk < s1) step(fa0, fb0);
-#pragma unroll
-      for (int e = 0; e < 2 * RH; ++e) acc[e] += d[e];
-    }
-#pragma unroll
-    for (int e = 0; e < RH; ++e)
-      if (row + 8 * e < rows)
-        put_dh(row + 8 * e, 16 * j + 8 * h + col, acc[2 * e], acc[2 * e + 1]);
-  };
-  if constexpr (kHeld) {
-    // the half-tiles m = 2·j + h of this warp: 15 - warp, + 16, ..
-    if (dh_on)
-      for (int m = kWarps - 1 - warp; m < 2 * wsteps; m += kWarps)
-        dh_half(res_w, lws, m >> 1, m >> 1, m & 1);
-    if (gate_on) {
-#pragma unroll 4
-      for (int j = 0; j < wsteps; ++j) gate_step(res_w, lws, j, j);
-    }
-  } else {
-    stream_pass(wsteps, res_w, lws, res, ring, lws, cw, n, total, issue,
-                [&](const T* w, int ldw, int k, int j) {
-                  if (gate_on) gate_step(w, ldw, k, j);
-                  if (dh_on) {
-#pragma unroll
-                    for (int h = 0; h < 2; ++h)
-                      if (warp == kWarps - 1 - (2 * j + h) % kWarps) dh_half(w, ldw, k, j, h);
-                  }
-                });
-  }
-  if (gate_on) flush();
-  __syncthreads();
-}
-
 // The bf16 plans of 16 blocks (R of {2, 4, 8, 16}; S: the store dtype):
 // the resident plans' step, with the buffers of the R rows cut to what a
 // block owns, and wh streamed as K2's streamed plan streams it, or with
@@ -1171,7 +1003,7 @@ __global__ void __launch_bounds__(kThreads, 1) stack_bwd_streamed_kernel(
   // each P-slice), and the gate sums of step tt >= 0 (gx + bias + h_prev ·
   // wh_l, gx read from L2 as the pass starts) into gsum
   auto wh_pass = [&](bool dh_on, int tt) {
-    stack_wh_pass<kArow, kHeld>(
+    bwd_wh_pass<kArow, kHeld>(
         dh_on, tt >= 0, hq, pl.lda, gq, pl.ldg, G, pl.wsteps, pl.gsteps, pl.gates, pl.dh, wh_s,
         pl.lwh, pl.res, wring, pl.cw, chunk, total, issue,
         [&](int r, int c) {

@@ -289,7 +289,7 @@ def lstm_layer_backward(gx, sequence_length, keep, wh, proj, peep,
         return cells.dual_recurrence_backward(
             gx, sequence_length, keep, wh, proj, peep, forget_bias, c_all,
             h_all, dout, dcfin, dhfin, store_dtype, steps)
-    dgates, dwh, dproj, dpeep, dc_in, dh_in, _ = _backward_launch(
+    dgates, dwh, dproj, dpeep, dc_in, dh_in, _, _ = _backward_launch(
         "lstm_layer_backward", None, gx, sequence_length, keep, wh, proj,
         peep, forget_bias, c_all, h_all, dout, dcfin, dhfin, store_dtype,
         steps, _plan)
@@ -317,7 +317,7 @@ def lstm_layer_backward_fold(x2, wx, gx, sequence_length, keep, wh, proj,
         return cells.dual_recurrence_backward_fold(
             x2, wx, gx, sequence_length, keep, wh, proj, peep, forget_bias,
             c_all, h_all, dout, dcfin, dhfin, store_dtype, steps)
-    dgates, dwh, dproj, dpeep, dc_in, dh_in, folded = _backward_launch(
+    dgates, dwh, dproj, dpeep, dc_in, dh_in, folded, _ = _backward_launch(
         "lstm_layer_backward_fold", (x2, wx), gx, sequence_length, keep, wh,
         proj, peep, forget_bias, c_all, h_all, dout, dcfin, dhfin,
         store_dtype, steps)
@@ -334,7 +334,8 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
                      store_dtype, steps, plan=None):
     """Launch K2, or K3 when ``fold`` is (x2, wx); K2 on a forced plan and
     R when ``plan`` is given.  Returns (dgates, dwh, dproj, dpeep, dc_in,
-    dh_in, (dx2, dwx, dbias) or None)."""
+    dh_in, (dx2, dwx, dbias) or None, (the out_blk and dout_p stashes) or
+    (None, None) without a projection)."""
     if gx.device.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (what, gx.device))
     time_steps, b2, h4 = gx.shape
@@ -433,7 +434,7 @@ def _backward_launch(what, fold, gx, sequence_length, keep, wh, proj, peep,
         args += [_ptr(x2), _ptr(wx), dim] + [_ptr(t) for t in folded]
         launch = lib.lstm_bwd_fold_bf16 if bf16 else lib.lstm_bwd_fold_f32
     _build.check(launch(*args), name)
-    return dgates, dwh, dproj, dpeep, dc_in, dh_in, folded
+    return dgates, dwh, dproj, dpeep, dc_in, dh_in, folded, (outb, doutp)
 
 
 def _proj_rows(proj, cluster: int, padded: bool = False):
@@ -464,7 +465,8 @@ def _backward_slices(wh, proj, cluster: int, padded: bool = False):
                                 lambda: _proj_rows(proj, cluster, padded))
 
 
-def _config(what, device, batch, units, out_dim, has_proj, dtype) -> dict:
+def _config(what, device, batch, units, out_dim, has_proj, dtype,
+            at=0) -> dict:
     lib = _build.library()
     ints = [ctypes.c_int() for _ in range(5)]
     longs = [ctypes.c_longlong() for _ in range(3)]
@@ -472,7 +474,7 @@ def _config(what, device, batch, units, out_dim, has_proj, dtype) -> dict:
                              int(has_proj), int(dtype == torch.bfloat16),
                              *[ctypes.byref(v) for v in ints[:4]],
                              ctypes.byref(longs[0]), ctypes.byref(ints[4]),
-                             *[ctypes.byref(v) for v in longs[1:]])
+                             *[ctypes.byref(v) for v in longs[1:]], at)
     _build.check(err, what)
     blocks, rows, clusters, resident, streamed = (v.value for v in ints)
     smem, held, streams = (v.value for v in longs)
@@ -483,24 +485,52 @@ def _config(what, device, batch, units, out_dim, has_proj, dtype) -> dict:
 
 
 def forward_config(device, batch: int, units: int, out_dim: int,
-                   has_proj: bool, dtype) -> dict:
+                   has_proj: bool, dtype, rows: int = 0) -> dict:
     """How K1 launches on ``device`` at this shape, as its launcher
     chooses: ``blocks`` a cluster (8 or 16), ``rows`` (batch rows a
     cluster, R), ``clusters``, ``resident`` (clusters resident at once, the
     occupancy API's answer), ``waves``, ``smem_bytes`` (shared memory a
     block), ``streamed`` (the streamed plan or not), and a block's weight
     bytes ``held_bytes`` in shared memory and ``streamed_bytes`` read from
-    L2 at every step."""
+    L2 at every step.  With ``rows`` on the streamed plan: the launch at
+    that R, as a forced launch (``_plan`` "streamed, wh held as fits")
+    takes it."""
     return _config("lstm_fwd_config", device, batch, units, out_dim,
-                   has_proj, dtype)
+                   has_proj, dtype, rows)
 
 
 def backward_config(device, batch: int, units: int, out_dim: int,
-                    has_proj: bool, dtype) -> dict:
+                    has_proj: bool, dtype, rows: int = 0) -> dict:
     """How K2 launches on ``device`` at this shape (its per-step states in
     ``dtype``), as ``forward_config`` says K1's."""
     return _config("lstm_bwd_config", device, batch, units, out_dim,
-                   has_proj, dtype)
+                   has_proj, dtype, rows)
+
+
+# the phases the streamed K1's and K2's clock64 stamps sum (csrc/lstm_fwd.cu
+# c_fwd_stamps, csrc/lstm_bwd_streamed.cu c_bwd_stamps)
+STAMP_PHASES = {
+    "forward": ("wait for h", "gate product", "cell phase and hand-off",
+                "wait for the cell output", "projection product",
+                "masking and hand-off"),
+    "backward": ("stashes and dout_blk", "cell phase",
+                 "loads and the pass over wh", "first cluster barrier",
+                 "owners' sums and dout_p", "second cluster barrier")}
+
+
+def stamp_phases(which: str, stamps) -> None:
+    """Point the streamed K1's (``which`` "forward") or K2's ("backward")
+    clock64 stamps at ``stamps``, a CUDA int64 tensor of 1 + 6 (at a
+    launch's end: its steps, then each of STAMP_PHASES' cycles summed over
+    the steps by thread 0 of the first block of the first cluster), or at
+    nothing (None): ``scripts/layer_stamps.py``'s switch, off in every
+    other launch."""
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.numel() != 7
+                               or stamps.device.type != "cuda"):
+        raise ValueError("stamps: expected a CUDA int64 tensor of 7")
+    name = "lstm_fwd_stamps" if which == "forward" else "lstm_bwd_stamps"
+    _build.check(getattr(_build.library(), name)(_ptr(stamps)), name)
 
 
 class _LstmLayer(torch.autograd.Function):

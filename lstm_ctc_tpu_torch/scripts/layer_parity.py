@@ -9,19 +9,19 @@ process a tree (each builds its kernels from its own sources):
         --save <tree>.pt
     python lstm_ctc_tpu_torch/scripts/layer_parity.py --compare A.pt B.pt
 
-``--save`` runs each streamed layer shape (bf16, B = 32, T = 128, seeded)
-through K1 (``lstm_layer_forward`` with its states), K2
-(``lstm_layer_backward`` with the carries' cotangents) and K3
+``--save`` runs each streamed layer shape (bf16, B = 32, T = 128, and H
+= P = 2048 at T = 32; seeded) through K1 (``lstm_layer_forward`` with its
+states), K2 (``lstm_layer_backward`` with the carries' cotangents) and K3
 (``lstm_layer_backward_fold``), and each stack shape (4 layers, seeded)
 through K12 (``lstm_stack_forward`` with its states) and K13
-(``lstm_stack_backward``), saves a digest of every output's bytes (K13's
-column sums themselves), and prints each kernel's
-median time over 5 calls on CUDA events with its launch (the stack's R
-and waves) and the tree's path; ``--compare`` prints whether every saved
-tensor of A equals B's bit for bit (K13's column sums, dbias and dpeep,
-within 1e-5 of B's largest where a shape's R may differ between the
-trees: their rows are added in another order), and exits 1 where one
-does not.
+(``lstm_stack_backward``), saves a digest of every output's bytes (K2's
+and K3's dpeep and K13's column sums themselves), and prints each
+kernel's median time over 5 calls on CUDA events with its launch (R and
+waves) and the tree's path; ``--compare`` prints whether every saved
+tensor of A equals B's bit for bit (K2's and K3's dpeep and K13's column
+sums, dbias and dpeep, within 1e-5 of B's largest where a shape's R may
+differ between the trees: their rows are added in another order), and
+exits 1 where one does not.
 """
 
 import argparse
@@ -31,9 +31,13 @@ import sys
 import numpy as np
 import torch
 
-# (H, the projection or None, the layer's input width D)
-SHAPES = ((1024, None, 2048), (768, 768, 1536), (2048, 512, 1024))
-BATCH, STEPS = 32, 128
+# (H, the projection or None, the layer's input width D, T)
+SHAPES = ((1024, None, 2048, 128), (768, 768, 1536, 128),
+          (2048, 512, 1024, 128), (2048, None, 4096, 32))
+BATCH = 32
+# the outputs whose rows each thread adds first (dpeep: K2's fourth, K3's
+# sixth), which move with R
+MOVED = {"K2": (3,), "K3": (5,)}
 # the stacks: (H, the projection or None, dtype, B, T, whether the trees'
 # R may differ): the 8-block plans (the families' flagship width), the
 # 16-block resident plans (Kaldi's LSTMP, H = P = 512 with a projection),
@@ -51,7 +55,7 @@ STACKS = ((320, 320, "bf16", 32, 128, False),
 STACK_LAYERS, STACK_INPUT = 4, 120
 
 
-def case(units, proj, dim, device):
+def case(units, proj, dim, steps, device):
     """A streamed layer's arguments from a numpy seed (ragged lengths)."""
     rng = np.random.RandomState(units + dim)
     out_dim = proj or units
@@ -60,13 +64,13 @@ def case(units, proj, dim, device):
         return torch.from_numpy((scale * rng.randn(*shape)).astype(
             np.float32)).to(device=device, dtype=dtype)
 
-    lengths = rng.randint(STEPS // 2, STEPS + 1, BATCH)
-    lengths[0] = STEPS
-    x2 = t(2, BATCH, STEPS, dim, scale=1.0)
+    lengths = rng.randint(steps // 2, steps + 1, BATCH)
+    lengths[0] = steps
+    x2 = t(2, BATCH, steps, dim, scale=1.0)
     wx = t(2, dim, 4 * units, scale=dim ** -0.5, dtype=torch.bfloat16)
     bias = t(2, 4 * units)
     gx = torch.einsum("zbtd,zdg->tzbg", x2.bfloat16().float(), wx.float())
-    gx = (gx + bias[None, :, None]).reshape(STEPS, 2 * BATCH, 4 * units)
+    gx = (gx + bias[None, :, None]).reshape(steps, 2 * BATCH, 4 * units)
     return dict(
         x2=x2, wx=wx, gx=gx.contiguous(),
         seq=torch.from_numpy(lengths.astype(np.int32)).to(device),
@@ -76,7 +80,7 @@ def case(units, proj, dim, device):
                                          scale=units ** -0.5,
                                          dtype=torch.bfloat16),
         peep=None if proj is None else t(2, 3, units),
-        dout=t(STEPS, 2 * BATCH, out_dim),
+        dout=t(steps, 2 * BATCH, out_dim),
         dcfin=t(2 * BATCH, units), dhfin=t(2 * BATCH, out_dim))
 
 
@@ -146,9 +150,10 @@ def save(path):
     from lstm_ctc_tpu_torch.ops import lstm_kernels as lk
     device = torch.device("cuda")
     saved = {}
-    for units, proj, dim in SHAPES:
-        c = case(units, proj, dim, device)
-        name = "H=%d P=%d D=%d" % (units, proj or units, dim)
+    for units, proj, dim, steps in SHAPES:
+        c = case(units, proj, dim, steps, device)
+        name = "H=%d P=%d D=%d" % (units, proj or units, dim) + (
+            "" if steps == 128 else " T=%d" % steps)
 
         def k1():
             return lk.lstm_layer_forward(c["gx"], c["seq"], None, c["wh"],
@@ -172,10 +177,16 @@ def save(path):
         for kernel, fn in (("K1", k1), ("K2", k2), ("K3", k3)):
             for i, v in enumerate(fn()):
                 if v is not None:
-                    keep(saved, "%s %s %d" % (kernel, name, i), v)
-            print("%s %s bf16 B=%d T=%d: %.3f ms (%s)"
-                  % (kernel, name, BATCH, STEPS, median_ms(fn),
-                     lk.__file__))
+                    sums = i in MOVED.get(kernel, ())
+                    keep(saved, "%s %s %d%s" % (kernel, name, i,
+                                                " sums" if sums else ""),
+                         v, sums)
+            how = (lk.forward_config if kernel == "K1" else
+                   lk.backward_config)(device, BATCH, units, proj or units,
+                                       proj is not None, torch.bfloat16)
+            print("%s %s bf16 B=%d T=%d: %.3f ms (R=%d in %d wave(s); %s)"
+                  % (kernel, name, BATCH, steps, median_ms(fn), how["rows"],
+                     how["waves"], lk.__file__))
     save_stacks(saved, device)
     torch.save(saved, path)
 

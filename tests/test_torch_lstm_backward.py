@@ -273,9 +273,9 @@ def test_kernel_refuses_bf16_slices_past_shared_memory(cuda):
     # as K1 does: at H = P = 1024 without a projection the bf16 slices do
     # not fit in a block's shared memory even with 16 blocks, so K2 takes
     # the streamed plan (16 blocks, most of the slices streamed from L2 at
-    # every step, the largest R that fits); float32 reads its slices from
-    # L2 and launches the resident body, with 16 blocks of 64 units; past
-    # 2048 units (128 a block) K2 has no plan
+    # every step); float32 reads its slices from L2 and launches the
+    # resident body, with 8 blocks of 128 units; past 2048 units (128 a
+    # block) K2 has no plan
     how = lstm_kernels.backward_config(cuda, 5, 1024, 1024, False,
                                        torch.bfloat16)
     assert how["streamed"] and how["blocks"] == 16 and how["rows"] > 0
@@ -285,7 +285,7 @@ def test_kernel_refuses_bf16_slices_past_shared_memory(cuda):
             lstm_kernels.backward_config(cuda, 5, 2052, 2052, False, dtype)
     how = lstm_kernels.backward_config(cuda, 5, 1024, 1024, False,
                                        torch.float32)
-    assert how["rows"] > 0 and how["blocks"] == 16 and not how["streamed"]
+    assert how["rows"] > 0 and how["blocks"] == 8 and not how["streamed"]
     # H = P = 384 in bf16, which 8 blocks cannot hold, takes 16
     assert lstm_kernels.backward_config(cuda, 5, 384, 384, True,
                                         torch.bfloat16)["blocks"] == 16

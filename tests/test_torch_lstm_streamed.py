@@ -82,60 +82,91 @@ def ring_layout(fixed, wrow, wsteps, slot, cap):
     return slots, res if cap < 0 else min(res, cap)
 
 
+THREADS = 512  # a block's threads (kThreads)
+
+
+def thread_rows(rows, us):
+    """``lstm_cluster.cuh`` thread_rows: a cell-phase thread's rows (it owns
+    unit tid % US of rows tid / US, + THREADS / US, ..)."""
+    return cdiv(rows, THREADS // us)
+
+
+def cell_rows(rows, units=128):
+    """``lstm_cluster.cuh`` cell_rows: the most rows a thread owns with R
+    rows a cluster, up to ``units`` a block (8 at most)."""
+    return min(8, cdiv(rows, THREADS // units))
+
+
 def fwd_plan(units, out_dim, has_proj, rows, cap=-1):
-    """``csrc/lstm_fwd.cu`` stream_plan<16> (bf16), and whether it fits."""
+    """``csrc/lstm_fwd.cu`` stream_plan<16> (bf16), and whether it fits:
+    the full h, the cell output and the sums of ``arow`` rows (8, or 16
+    past 8 rows), no ring of gx; ``bytes`` of shared memory a block and its
+    weight bytes ``held`` and ``streamed`` a step."""
     us = round_up(cdiv(units, C), 8)
     ps = round_up(cdiv(out_dim, C), 16) if has_proj else us
     g = 4 * us
-    p = dict(us=us, ps=ps, g=g, lws=g + 8, wsteps=cdiv(out_dim, 16),
+    arow = 16 if rows > 8 else 8
+    p = dict(us=us, ps=ps, g=g, arow=arow, lws=g + 8,
+             wsteps=cdiv(out_dim, 16),
              psteps=cdiv(units, 16) if has_proj else 0)
     wrow, prow = 2 * 16 * p["lws"], 2 * 16 * ps
     p["cw"] = max(1, CHUNK_BYTES // wrow)
     p["cp"] = max(1, CHUNK_BYTES // prow) if has_proj else 0
     slot = align128(max(p["cw"] * wrow, p["cp"] * prow))
     hs, qs = C * us + 8, C * ps + 8
-    off_part = align128(2 * 8 * qs) + align128(2 * 8 * hs)
-    off_gx = off_part + align128(4 * 8 * max(g + 4, ps + 4)) + 128
-    fixed = off_gx + align128(4 * 3 * rows * 4 * us) + align128(4 * 3 * rows)
+    fixed = (align128(2 * arow * qs) + align128(2 * arow * hs)
+             + align128(4 * arow * max(g + 4, ps + 4)) + 128)
     p["slots"], p["res"] = ring_layout(fixed, wrow, p["wsteps"], slot, cap)
     p["nw"] = cdiv(p["wsteps"] - p["res"], p["cw"])
     p["np"] = cdiv(p["psteps"], p["cp"]) if has_proj else 0
-    nbytes = fixed + p["slots"] * slot + p["res"] * wrow
-    p["fits"] = (us <= 128 and rows * us <= 512 and rows * ps <= 512
-                 and p["slots"] >= 2 and nbytes <= SMEM)
+    p["bytes"] = fixed + p["slots"] * slot + p["res"] * wrow
+    p["held"] = 2 * 16 * g * p["res"]
+    p["streamed"] = (2 * 16 * g * (p["wsteps"] - p["res"])
+                     + 2 * 16 * ps * p["psteps"])
+    p["fits"] = (us <= 128 and rows <= 16
+                 and thread_rows(rows, us) <= cell_rows(rows)
+                 and thread_rows(rows, ps) <= cell_rows(rows)
+                 and p["slots"] >= 2 and p["bytes"] <= SMEM)
     return p
 
 
 def bwd_plan(units, out_dim, has_proj, rows, cap=-1, store=2):
     """``csrc/lstm_bwd_streamed.cu`` bwd_stream_plan (bf16, the states in
     `store` bytes: bf16, as the train step keeps them), and whether it
-    fits."""
+    fits: a block keeps only its own P-slice (its units without a
+    projection) of the carry dh and of dout, the A operands of ``arow``
+    rows; ``bytes``, ``held`` and ``streamed`` as fwd_plan's."""
     us = round_up(cdiv(units, C), 8)
     u16, g = round_up(us, 16), 4 * us
-    ps = round_up(cdiv(out_dim, C), 4)
+    ps = round_up(cdiv(out_dim, C), 4) if has_proj else us
     pw, p16 = C * ps, round_up(out_dim, 16)
-    p = dict(us=us, u16=u16, g=g, ps=ps, pw=pw, p16=p16, lws=g + 8,
-             lpj=p16 + 8, wsteps=p16 // 16,
+    arow = 16 if rows > 8 else 8
+    p = dict(us=us, u16=u16, g=g, ps=ps, pw=pw, p16=p16, arow=arow,
+             lws=g + 8, lpj=p16 + 8, wsteps=p16 // 16,
              utiles=u16 // 16 if has_proj else 0)
     wrow, urow = 2 * 16 * p["lws"], 2 * 16 * p["lpj"]
     p["cw"] = max(1, CHUNK_BYTES // wrow)
     p["cu"] = max(1, CHUNK_BYTES // urow) if has_proj else 0
     slot = align128(max(p["cw"] * wrow, p["cu"] * urow))
-    dob_slices = mma_split(u16, p16)[1]
-    part = max(dob_slices * 8 * u16 if has_proj else 0, rows * pw,
-               3 * rows * us)
-    fixed = (2 * align128(2 * 8 * (p16 + 8)) + align128(2 * 8 * (g + 8))
-             + 3 * align128(4 * rows * pw)
-             + align128(store * rows * out_dim) + align128(store * rows * us)
-             + align128(4 * rows * 4 * us) + align128(4 * 3 * rows)
+    part = max(mma_split(u16, p16)[1] * arow * u16 if has_proj else 0,
+               3 * (THREADS // us) * us)
+    aq = align128(2 * arow * (p16 + 8))
+    fixed = (aq * (2 if has_proj else 1) + align128(2 * arow * (g + 8))
+             + align128(4 * rows * ps) + align128(4 * 2 * rows * ps)
+             + (0 if store == 2 else align128(store * rows * out_dim))
+             + align128(store * 2 * rows * us) + align128(4 * 3 * rows)
              + align128(4 * rows * us) + align128(4 * C * rows * ps)
              + align128(4 * rows * g) + align128(4 * part) + 128)
     p["slots"], p["res"] = ring_layout(fixed, wrow, p["wsteps"], slot, cap)
     p["nw"] = cdiv(p["wsteps"] - p["res"], p["cw"])
     p["np"] = cdiv(p["utiles"], p["cu"]) if has_proj else 0
-    nbytes = fixed + p["slots"] * slot + p["res"] * wrow
-    p["fits"] = (us <= 128 and rows * us <= 512 and p["slots"] >= 2
-                 and nbytes <= SMEM)
+    p["bytes"] = fixed + p["slots"] * slot + p["res"] * wrow
+    p["held"] = 2 * 16 * g * p["res"]
+    p["streamed"] = (2 * 16 * g * (p["wsteps"] - p["res"])
+                     + 2 * 16 * p16 * p["utiles"])
+    p["fits"] = (us <= 128 and rows <= 16
+                 and thread_rows(rows, us) <= cell_rows(rows)
+                 and p["slots"] >= 2 and p["bytes"] <= SMEM)
     return p
 
 
@@ -151,13 +182,44 @@ def mma_split(cols, depth, most=16):
     return best
 
 
-def largest_rows(plan_fn, *shape):
-    """The streamed launchers' R: the largest of {8, 6, 4} (K2: and 2) that
-    fits."""
-    for rows in (8, 6, 4) if plan_fn is fwd_plan else (8, 6, 4, 2):
-        if plan_fn(*shape, rows)["fits"]:
-            return rows
-    raise AssertionError("no streamed plan")
+# the R the streamed launchers try (16 on 16 blocks only)
+LAYER_ROWS = (2, 4, 6, 8, 16)
+
+
+def launch_rows(plan_fn, units, out_dim, has_proj, batch, resident=7,
+                **kw):
+    """The streamed launchers' choice (choose_streamed, launch_plan): (R,
+    clusters, waves) with the fewest waves, then the fewest clusters, then
+    the smallest R, where the card holds ``resident`` sixteen-block
+    clusters at once (7 on an H100) and a layer runs 2·ceil(B/R)."""
+    best = None
+    for rows in LAYER_ROWS:
+        if not plan_fn(units, out_dim, has_proj, rows, **kw)["fits"]:
+            continue
+        clusters = 2 * cdiv(batch, rows)
+        waves = cdiv(clusters, resident)
+        if best is None or (waves, clusters) < best[0]:
+            best = ((waves, clusters), rows)
+    assert best is not None, "no streamed plan"
+    (waves, clusters), rows = best
+    return rows, clusters, waves
+
+
+def cell_threads(rows, us, nr):
+    """A phase's rows in turn: for each of a thread's rows i, the rows rb0
+    + i·RS of the threads rb0 < RS = THREADS // US (US: the units, or the
+    projection columns, a block), below nr, as (rb0, row) pairs; every row
+    of the tile comes exactly once."""
+    rs = THREADS // us
+    turns = []
+    for i in range(thread_rows(rows, us)):
+        turns.append([(rb0, rb0 + i * rs) for rb0 in range(rs)
+                      if rb0 + i * rs < nr])
+    turns = [turn for turn in turns if turn]
+    seen = sorted(r for turn in turns for _, r in turn)
+    assert seen == list(range(nr)), "a row owned twice or not at all"
+    assert len(turns) <= cell_rows(rows)
+    return turns
 
 
 class Barrier:
@@ -305,15 +367,19 @@ def release(ring, n, w, block, issue, barrier=True):
 
 
 def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
-                 barrier_before_refill=True):
-    """K1's streamed plan in plain torch (float32): (out, cfin, hfin,
-    c_all, h_all)."""
+                 barrier_before_refill=True, rows=None):
+    """K1's streamed plan in plain torch (float32), at the launcher's R (or
+    ``rows``): (out, cfin, hfin, c_all, h_all).  The cell phase (and with
+    a projection the masking phase) takes a thread's rows in turn
+    (cell_threads), handing each turn's rows off to every block: a
+    receiver's barrier counts a landing a block and turn."""
     steps, b2, h4 = gx.shape
     batch, units = b2 // 2, h4 // 4
     has_proj = proj is not None
     out_dim = proj.shape[2] if has_proj else units
-    rows = largest_rows(fwd_plan, units, out_dim, has_proj)
+    rows = rows or launch_rows(fwd_plan, units, out_dim, has_proj, batch)[0]
     pl = fwd_plan(units, out_dim, has_proj, rows, cap)
+    assert pl["fits"]
     us, ps, g, lws = pl["us"], pl["ps"], pl["g"], pl["lws"]
     p16, h16 = 16 * pl["wsteps"], round_up(units, 16)
     wh_sl, pj_sl = lstm_kernels._slices(wh, proj, C, padded=True)
@@ -344,13 +410,13 @@ def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
 
     class Block:
         def __init__(self):
-            self.hq = [torch.zeros(8, C * ps) for _ in range(2)]
+            self.hq = [torch.zeros(pl["arow"], C * ps) for _ in range(2)]
             self.hq_tag = [[-1] * C for _ in range(2)]
-            self.cell = torch.zeros(8, C * us)
+            self.cell = torch.zeros(pl["arow"], C * us)
             self.cell_tag = [-1] * C
             self.bar = [Barrier() for _ in range(3)]
             self.ring = Ring(pl["slots"])
-            self.part = torch.zeros(8, max(g, ps))
+            self.part = torch.zeros(pl["arow"], max(g, ps))
             self.c = self.h = None
 
     def program(sched, blocks, d, b0, q, w):
@@ -364,6 +430,14 @@ def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
         lens = seq[br][:, None]
         wres = wh_flat[(d * C + q) * p16 * lws:][:16 * pl["res"] * lws]
         wres = wres.view(-1, lws)
+        # the cell phase's and the masking phase's rows in turn; a
+        # receiver's barrier counts one landing a block and turn
+        cell_turns = [torch.tensor([r for _, r in turn])
+                      for turn in cell_threads(rows, us, nr)]
+        h_turns = [torch.tensor([r for _, r in turn])
+                   for turn in cell_threads(rows, ps, nr)] if has_proj \
+            else cell_turns
+        n_c, n_h = C * len(cell_turns), C * len(h_turns)
 
         def issue(n):
             if n < total:
@@ -400,17 +474,20 @@ def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
         if w == 0:
             me.c, me.h = torch.zeros(nr, us), torch.zeros(nr, ps)
             if steps > 1:
-                me.bar[0].arm(C)
+                me.bar[0].arm(n_h)
             if not has_proj and steps > 2:
-                me.bar[1].arm(C)
+                me.bar[1].arm(n_h)
             if has_proj and steps > 0:
-                me.bar[2].arm(C)
+                me.bar[2].arm(n_c)
         yield ("sync", "cluster")
         if w == 0:
             for n in range(pl["slots"]):
                 issue(n)
         chunk = [0]
         parity = [0, 0, 0]
+        pi, pf, po = torch.zeros(3, us)
+        if peep is not None:
+            pi[:nu], pf[:nu], po[:nu] = peep[d, :, u0:u0 + nu]
         for t in range(steps):
             nxt = t + 1 < steps
             hb = 0 if has_proj else (t + 1) & 1
@@ -419,12 +496,13 @@ def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
                 parity[hb] ^= 1
                 s_next = t if has_proj else t + 1
                 if w == 0 and s_next + 1 < steps:
-                    me.bar[hb].arm(C)
-            yield ("sync", (d, q))                        # gx(t) is in
+                    me.bar[hb].arm(n_h)
+            yield ("sync", (d, q))
             h_prev = read_tagged(me.hq[hb], me.hq_tag[hb], t - 1,
                                  nr)[:, :out_dim]
             h_pad = torch.zeros(nr, p16)
             h_pad[:, :out_dim] = h_prev
+            # gx(t) read from L2 into the sums' init
             gxt = torch.zeros(nr, 4, us)
             gxt[:, :, :nu] = gx[t, rr].view(nr, 4, units)[:, :, u0:u0 + nu]
             acc = yield from product(h_pad, p16, gcols, True,
@@ -432,42 +510,41 @@ def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
             me.part[:nr, gcols] = acc
             yield ("sync", (d, q))
             if w == 0:
-                gate = me.part[:nr, :g].view(nr, 4, us)
-                gi, gj, gf, go = gate.unbind(1)
-                pi, pf, po = torch.zeros(3, us)
-                if peep is not None:
-                    pi[:nu], pf[:nu], po[:nu] = peep[d, :, u0:u0 + nu]
-                cp = me.c
-                cn = (torch.sigmoid(gf + pf * cp + FORGET_BIAS) * cp
-                      + torch.sigmoid(gi + pi * cp) * torch.tanh(gj))
-                o = torch.sigmoid(go + po * cn) * torch.tanh(cn)
-                m = (t < lens).float()
-                kn = keep[t + 1, br][:, None] if nxt and keep is not None \
-                    else 1.0
-                cv = m * cn + (1.0 - m) * cp
-                me.c = kn * cv
-                c_all[t, rr, u0:u0 + nu] = cv[:, :nu]
-                if has_proj:
-                    for peer in blocks:
-                        peer.cell[:nr, u0:u0 + us] = o
-                        peer.cell_tag[q] = t
-                        peer.bar[2].land()
-                else:
-                    hv = m * o + (1.0 - m) * me.h
-                    me.h = kn * hv
-                    if nxt:
+                m_all = (t < lens).float()
+                kn_all = keep[t + 1, br][:, None] if nxt and keep is not None \
+                    else torch.ones(nr, 1)
+                for turn in cell_turns:
+                    gate = me.part[turn, :g].view(len(turn), 4, us)
+                    gi, gj, gf, go = gate.unbind(1)
+                    cp = me.c[turn]
+                    cn = (torch.sigmoid(gf + pf * cp + FORGET_BIAS) * cp
+                          + torch.sigmoid(gi + pi * cp) * torch.tanh(gj))
+                    o = torch.sigmoid(go + po * cn) * torch.tanh(cn)
+                    m, kn = m_all[turn], kn_all[turn]
+                    cv = m * cn + (1.0 - m) * cp
+                    me.c[turn] = kn * cv
+                    c_all[t, rr[turn], u0:u0 + nu] = cv[:, :nu]
+                    if has_proj:
                         for peer in blocks:
-                            peer.hq[t & 1][:nr, u0:u0 + us] = me.h
-                            peer.hq_tag[t & 1][q] = t
-                            peer.bar[t & 1].land()
-                    out[t, rr, u0:u0 + nu] = (m * o)[:, :nu]
-                    h_all[t, rr, u0:u0 + nu] = hv[:, :nu]
+                            peer.cell[turn, u0:u0 + us] = o
+                            peer.cell_tag[q] = t
+                            peer.bar[2].land()
+                    else:
+                        hv = m * o + (1.0 - m) * me.h[turn]
+                        me.h[turn] = kn * hv
+                        if nxt:
+                            for peer in blocks:
+                                peer.hq[t & 1][turn, u0:u0 + us] = me.h[turn]
+                                peer.hq_tag[t & 1][q] = t
+                                peer.bar[t & 1].land()
+                        out[t, rr[turn], u0:u0 + nu] = (m * o)[:, :nu]
+                        h_all[t, rr[turn], u0:u0 + nu] = hv[:, :nu]
             if not has_proj:
                 continue
             yield ("wait", me.bar[2], parity[2])
             parity[2] ^= 1
             if w == 0 and nxt:
-                me.bar[2].arm(C)
+                me.bar[2].arm(n_c)
             cell = read_tagged(me.cell, me.cell_tag, t, nr)[:, :units]
             c_pad = torch.zeros(nr, h16)
             c_pad[:, :units] = cell
@@ -476,19 +553,21 @@ def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
             me.part[:nr, pcols] = acc
             yield ("sync", (d, q))
             if w == 0:
-                o = me.part[:nr, :ps]
-                m = (t < lens).float()
-                kn = keep[t + 1, br][:, None] if nxt and keep is not None \
-                    else 1.0
-                hv = m * o + (1.0 - m) * me.h
-                me.h = kn * hv
-                if nxt:
-                    for peer in blocks:
-                        peer.hq[0][:nr, p0:p0 + ps] = me.h
-                        peer.hq_tag[0][q] = t
-                        peer.bar[0].land()
-                out[t, rr, p0:p0 + np_] = (m * o)[:, :np_]
-                h_all[t, rr, p0:p0 + np_] = hv[:, :np_]
+                m_all = (t < lens).float()
+                kn_all = keep[t + 1, br][:, None] if nxt and keep is not None \
+                    else torch.ones(nr, 1)
+                for turn in h_turns:
+                    o = me.part[turn, :ps]
+                    m, kn = m_all[turn], kn_all[turn]
+                    hv = m * o + (1.0 - m) * me.h[turn]
+                    me.h[turn] = kn * hv
+                    if nxt:
+                        for peer in blocks:
+                            peer.hq[0][turn, p0:p0 + ps] = me.h[turn]
+                            peer.hq_tag[0][q] = t
+                            peer.bar[0].land()
+                    out[t, rr[turn], p0:p0 + np_] = (m * o)[:, :np_]
+                    h_all[t, rr[turn], p0:p0 + np_] = hv[:, :np_]
         if w == 0:
             cfin[rr, u0:u0 + nu] = me.c[:, :nu]
             if has_proj:
@@ -507,18 +586,30 @@ def fwd_streamed(gx, seq, keep, wh, proj, peep, order, cap=-1,
 
 
 def bwd_streamed(gx, seq, keep, wh, proj, peep, c_all, h_all, dout, dcfin,
-                 dhfin, order, cap=-1, barrier_before_refill=True):
-    """K2's streamed plan in plain torch (float32): (dgates, dh_in,
-    dpeep)."""
+                 dhfin, order, cap=-1, barrier_before_refill=True, rows=None,
+                 inbox_barrier=True):
+    """K2's streamed plan in plain torch (float32), at the launcher's R (or
+    ``rows``): (dgates, dh_in, dpeep).  A block keeps the carry dh and
+    dout of its own P-slice only (its units without a projection): the
+    pass over wh writes each 8-column half of its dh partial's 16-column
+    tiles straight into the owners' inboxes (tile j's half h by warp 1 -
+    (2·j + h) % 2), and each owner, after the cluster barrier, adds the 16
+    partials in block order, updates its slice and writes the step
+    before's dout_p of it into every block (dq: the A operand of
+    dout_blk); the cell phase takes a thread's rows in turn, each thread's
+    peephole sums its rows in order.  Without ``inbox_barrier`` the
+    cluster barrier that ends an owner's reads of its inboxes is left
+    out."""
     steps, b2, h4 = gx.shape
     batch, units = b2 // 2, h4 // 4
     has_proj = proj is not None
     out_dim = h_all.shape[2]
-    rows = largest_rows(bwd_plan, units, out_dim, has_proj)
+    rows = rows or launch_rows(bwd_plan, units, out_dim, has_proj, batch)[0]
     pl = bwd_plan(units, out_dim, has_proj, rows, cap)
-    us, u16, g, ps, pw, p16 = (pl[k] for k in ("us", "u16", "g", "ps", "pw",
-                                               "p16"))
+    assert pl["fits"]
+    us, u16, g, ps, p16 = (pl[k] for k in ("us", "u16", "g", "ps", "p16"))
     lws, lpj = pl["lws"], pl["lpj"]
+    rs = THREADS // us
     wh_sl, pj_rows = lstm_kernels._backward_slices(wh, proj, C, padded=True)
     assert wh_sl.shape == (2, C, p16, lws)
     wh_flat = wh_sl.reshape(-1)
@@ -546,69 +637,97 @@ def bwd_streamed(gx, seq, keep, wh, proj, peep, c_all, h_all, dout, dcfin,
     class Block:
         def __init__(self, nr):
             self.ring = Ring(pl["slots"])
-            self.dh = torch.zeros(nr, pw)
-            self.dh_tag = [-1] * C
+            self.dh = None                      # [nr, PS] the carry's slice
+            self.dq = torch.zeros(nr, p16)      # dout_p, from every owner
+            self.dq_tag = [-1] * C
+            # [C sources][nr][PS] and each column's step; the step last
+            # read of each source's
             self.inbox = torch.zeros(C, nr, ps)
-            self.inbox_tag = [-1] * C
-            self.gsum = None
-            self.part_h = torch.zeros(nr, p16)
+            self.inbox_tag = [[-1] * ps for _ in range(C)]
+            self.inbox_read = [-1] * C
+            self.gsum = torch.zeros(nr, g)
             self.part_d = torch.zeros(nr, u16)
             self.gq = None
             self.dc = None
-            self.sums = torch.zeros(3, us)
+            self.sums = torch.zeros(rs, 3, us)  # a thread's rows' sums
 
     def program(sched, blocks, d, b0, q, w):
         nr = min(rows, batch - b0)
         me = blocks[q]
         br = torch.arange(b0, b0 + nr)
         rr = d * batch + br
-        u0 = q * us
+        u0, p0 = q * us, q * ps
         nu = max(0, min(us, units - u0))
-        p0 = q * ps
+        npq = max(0, min(ps, out_dim - p0))
+        own = torch.arange(p0, p0 + npq)
         lens = seq[br][:, None]
         wres = wh_flat[(d * C + q) * p16 * lws:][:16 * pl["res"] * lws]
         wres = wres.view(-1, lws)
         gcols = [c for t in range(w, g // 16, WARPS)
                  for c in range(16 * t, 16 * t + 16)]
+        pi, pf, po = torch.zeros(3, us)
+        if peep is not None:
+            pi[:nu], pf[:nu], po[:nu] = peep[d, :, u0:u0 + nu]
 
         def issue(n):
             if n < total:
                 sched.issue(me.ring, n, chunk_rows(n, d, q)[2].clone())
 
-        def next_chunk(chunk):
-            yield from release(me.ring, chunk[0], w, (d, q), issue,
-                               barrier_before_refill)
-            chunk[0] += 1
-
-        def staged(tt):
-            """gx(tt) of the block's units [nr, G] and h_prev, c_prev of
-            step tt, kept (zero at tt = 0)."""
-            kp = keep[tt, br][:, None] if keep is not None else 1.0
-            gxt = torch.zeros(nr, 4, us)
-            gxt[:, :, :nu] = gx[tt, rr].view(nr, 4, units)[:, :, u0:u0 + nu]
+        def fetch(tt):
+            """What step tt reads that no carry feeds (the kernel's cp.async
+            a step ahead): dout of the owned P-slice, h_prev and c_prev kept
+            (times keep(tt); zero at tt = 0), the mask and keep (the gate
+            inputs are read as the pass over wh starts)."""
+            kp = keep[tt, br][:, None] if keep is not None else \
+                torch.ones(nr, 1)
             hp = torch.zeros(nr, p16)
             cp = torch.zeros(nr, us)
             if tt > 0:
                 hp[:, :out_dim] = kp * h_all[tt - 1, rr]
                 cp[:, :nu] = kp * c_all[tt - 1, rr][:, u0:u0 + nu]
-            return gxt.reshape(nr, g), hp, cp
+            return dict(t=tt, dout=dout[tt, rr][:, own], hp=hp, cp=cp,
+                        m=(tt < lens).float(), kp=kp)
 
-        def wh_pass(chunk, dh_on, gate_tt):
-            """4: dh's partial from me.gq (by rows p, the tile j of warp
-            1 - j % 2) and the gate sums of step gate_tt (this warp's
-            columns); the gate sums into me.gsum."""
-            gx_t, hp, _ = staged(gate_tt) if gate_tt is not None else (
-                None, None, None)
-            acc = gx_t[:, gcols].clone() if gate_tt is not None else None
+        def gate_inputs(tt):
+            gxt = torch.zeros(nr, 4, us)
+            gxt[:, :, :nu] = gx[tt, rr].view(nr, 4, units)[:, :, u0:u0 + nu]
+            return gxt.reshape(nr, g)
+
+        def to_inboxes(c0, value, t):
+            """dh partial columns c0 .. c0 + 7 (half a 16-column tile) of
+            this step into the inbox[q] of each owner of them"""
+            for owner in range(c0 // ps, (c0 + 7) // ps + 1):
+                lo, hi = max(c0, owner * ps), min(c0 + 8, (owner + 1) * ps)
+                peer = blocks[owner]
+                tags = peer.inbox_tag[q]
+                for c in range(lo - owner * ps, hi - owner * ps):
+                    if tags[c] not in (-1, peer.inbox_read[q]):
+                        raise Hazard("block %d's inbox overwritten before "
+                                     "its owner read it" % owner)
+                    tags[c] = t
+                peer.inbox[q][:, lo - owner * ps:hi - owner * ps] = \
+                    value[:, lo - c0:hi - c0]
+
+        def wh_pass(chunk, dh_t, st):
+            """4: with dh_t, this step's dh partial from me.gq (by rows p)
+            into the owners' inboxes; with ``st`` (the step before's staged
+            loads) the gate sums, this warp's columns, into me.gsum, which
+            holds their init (gx) from the pass's start."""
+            acc = None
+            if st is not None:
+                me.gsum[:, gcols] = gate_inputs(st["t"])[:, gcols]
+                acc = torch.zeros(nr, len(gcols))
 
             def rows_at(wrows, r0, nrows):
                 if acc is not None:
-                    acc.add_(hp[:, r0:r0 + nrows] @ wrows[:nrows, gcols])
-                if dh_on:
+                    acc.add_(st["hp"][:, r0:r0 + nrows] @ wrows[:nrows, gcols])
+                if dh_t is not None:
                     for j in range(r0 // 16, (r0 + nrows) // 16):
-                        if w == WARPS - 1 - j % WARPS:
-                            blk = wrows[16 * j - r0:16 * j - r0 + 16, :g]
-                            me.part_h[:, 16 * j:16 * j + 16] = me.gq @ blk.t()
+                        for h in range(2):
+                            if w != WARPS - 1 - (2 * j + h) % WARPS:
+                                continue
+                            blk = wrows[16 * j - r0 + 8 * h:][:8, :g]
+                            to_inboxes(16 * j + 8 * h, me.gq @ blk.t(), dh_t)
 
             rows_at(wres, 0, 16 * pl["res"])
             for _ in range(pl["nw"]):
@@ -617,105 +736,124 @@ def bwd_streamed(gx, seq, keep, wh, proj, peep, c_all, h_all, dout, dcfin,
                 me.ring.read(chunk[0], nrows)
                 yield ("run",)
                 rows_at(me.ring.read(chunk[0], nrows), r0, nrows)
-                yield from next_chunk(chunk)
+                yield from release(me.ring, chunk[0], w, (d, q), issue,
+                                   barrier_before_refill)
+                chunk[0] += 1
             if acc is not None:
-                me.gsum[:, gcols] = acc
+                me.gsum[:, gcols] += acc
             yield ("sync", (d, q))
 
+        def share_dq(st, v):
+            """dout_p of the staged step over the owned slice, from the
+            carry's slice v, into every block's dq"""
+            for peer in blocks:
+                peer.dq[:, p0:p0 + npq] = st["m"] * (st["dout"] + v)
+                peer.dq_tag[q] = st["t"]
+
         if w == 0:
-            me.dh[:, :out_dim] = dhfin[rr]
+            me.dh = torch.zeros(nr, ps)
+            me.dh[:, :npq] = dhfin[rr][:, own]
             me.dc = torch.zeros(nr, us)
             me.dc[:, :nu] = dcfin[rr][:, u0:u0 + nu]
-            me.gsum = torch.zeros(nr, g)
         yield ("sync", "cluster")
         if w == 0:
             for n in range(pl["slots"]):
                 issue(n)
         chunk = [0]
+        staged = fetch(steps - 1)
         yield ("sync", (d, q))
-        yield from wh_pass(chunk, False, steps - 1)
+        if w == 0 and has_proj:
+            share_dq(staged, me.dh[:, :npq])
+        yield ("sync", "cluster")
+        yield from wh_pass(chunk, None, staged)
         for t in range(steps - 1, -1, -1):
-            kp = keep[t, br][:, None] if keep is not None else 1.0
-            m = (t < lens).float()
-            dh = read_tagged(me.dh, me.dh_tag, -1 if t == steps - 1 else t + 1,
-                             nr)
+            cur = staged
+            m, kp = cur["m"], cur["kp"]
+            if t > 0:
+                staged = fetch(t - 1)
             if w == 0:
-                dh_in[t, rr, p0:p0 + ps] = dh[:, p0:p0 + ps][:, :max(
-                    0, min(ps, out_dim - p0))]
-            dq = torch.zeros(nr, p16)
-            dq[:, :out_dim] = m * (dout[t, rr] + dh[:, :out_dim])
+                # 1. the stash of the owned slice
+                dh_in[t, rr[:, None], own[None, :]] = me.dh[:, :npq]
             yield ("sync", (d, q))
             # 2. dout_blk over proj's chunks of rows, this warp's tiles
             for _ in range(pl["np"]):
                 r0, nrows, _ = chunk_rows(chunk[0], d, q)
                 yield wait_chunk(me.ring, chunk[0])
                 me.ring.read(chunk[0], nrows)
+                read_tagged(me.dq, me.dq_tag, t, nr)
                 yield ("run",)
                 block = me.ring.read(chunk[0], nrows)
+                dq = read_tagged(me.dq, me.dq_tag, t, nr)
                 for j in range(w, nrows // 16, WARPS):
                     me.part_d[:, r0 + 16 * j:r0 + 16 * j + 16] = (
                         dq @ block[16 * j:16 * j + 16, :p16].t())
-                yield from next_chunk(chunk)
-            # 3. the cell backward (warp 0)
+                yield from release(me.ring, chunk[0], w, (d, q), issue,
+                                   barrier_before_refill)
+                chunk[0] += 1
+            # 3. the cell backward (warp 0), a thread's rows in turn
             if w == 0:
-                _, _, c0 = staged(t)
-                gi, gj, gf, go = me.gsum.view(nr, 4, us).unbind(1)
-                pi, pf, po = torch.zeros(3, us)
-                if peep is not None:
-                    pi[:nu], pf[:nu], po[:nu] = peep[d, :, u0:u0 + nu]
-                si, tj = torch.sigmoid(gi + pi * c0), torch.tanh(gj)
-                sf = torch.sigmoid(gf + pf * c0 + FORGET_BIAS)
-                cn = sf * c0 + si * tj
-                so, tc = torch.sigmoid(go + po * cn), torch.tanh(cn)
-                if has_proj:
-                    db = me.part_d[:, :us]
-                else:
-                    db = torch.zeros(nr, us)
-                    db[:, :nu] = (m * (dout[t, rr] + dh[:, :out_dim]))[
-                        :, u0:u0 + nu]
-                dcv = me.dc
-                d_o = db * tc * so * (1 - so)
-                dcn = db * so * (1 - tc * tc) + m * dcv + d_o * po
-                d_f = dcn * c0 * sf * (1 - sf)
-                d_i = dcn * tj * si * (1 - si)
-                d_j = dcn * si * (1 - tj * tj)
-                me.dc = kp * (dcn * sf + (1 - m) * dcv + d_f * pf
-                              + d_i * pi)
-                dg = torch.stack([d_i, d_j, d_f, d_o], 1)   # [nr, 4, US]
-                dg[:, :, nu:] = 0.0
-                for k in range(4):
-                    at = k * units + u0
-                    dgates[t, rr, at:at + nu] = dg[:, k, :nu]
-                me.sums[0] += (d_i * c0).sum(0)
-                me.sums[1] += (d_f * c0).sum(0)
-                me.sums[2] += (d_o * cn).sum(0)
-                me.gq = dg.reshape(nr, g)
+                dgq = torch.zeros(nr, 4, us)
+                for turn in cell_threads(rows, us, nr):
+                    ri = torch.tensor([r for _, r in turn])
+                    c0, mr, kr = cur["cp"][ri], m[ri], kp[ri]
+                    gi, gj, gf, go = me.gsum[ri].view(len(ri), 4, us).unbind(1)
+                    si, tj = torch.sigmoid(gi + pi * c0), torch.tanh(gj)
+                    sf = torch.sigmoid(gf + pf * c0 + FORGET_BIAS)
+                    cn = sf * c0 + si * tj
+                    so, tc = torch.sigmoid(go + po * cn), torch.tanh(cn)
+                    if has_proj:
+                        db = me.part_d[ri, :us]
+                    else:
+                        # PS = US: the units' own columns
+                        db = torch.zeros(len(ri), us)
+                        db[:, :nu] = (mr * (cur["dout"][ri]
+                                            + me.dh[ri, :npq]))[:, :nu]
+                    dcv = me.dc[ri]
+                    d_o = db * tc * so * (1 - so)
+                    dcn = db * so * (1 - tc * tc) + mr * dcv + d_o * po
+                    d_f = dcn * c0 * sf * (1 - sf)
+                    d_i = dcn * tj * si * (1 - si)
+                    d_j = dcn * si * (1 - tj * tj)
+                    me.dc[ri] = kr * (dcn * sf + (1 - mr) * dcv + d_f * pf
+                                      + d_i * pi)
+                    dg = torch.stack([d_i, d_j, d_f, d_o], 1)   # [n, 4, US]
+                    dg[:, :, nu:] = 0.0
+                    for k in range(4):
+                        at = k * units + u0
+                        dgates[t, rr[ri], at:at + nu] = dg[:, k, :nu]
+                    dgq[ri] = dg
+                    # each thread's peephole sums, its rows in order
+                    thr = torch.tensor([rb0 for rb0, _ in turn])
+                    me.sums[thr, 0] += d_i * c0
+                    me.sums[thr, 1] += d_f * c0
+                    me.sums[thr, 2] += d_o * cn
+                me.gq = dgq.reshape(nr, g)
             yield ("sync", (d, q))
-            # 4. the pass over wh
-            yield from wh_pass(chunk, True, t - 1 if t > 0 else None)
-            # 5a. reduce-scatter into the owners' inboxes (warp 0)
-            if w == 0:
-                for owner in range(C):
-                    blocks[owner].inbox[q] = torch.nn.functional.pad(
-                        me.part_h, (0, pw - p16))[:, owner * ps:
-                                                  (owner + 1) * ps]
-                    blocks[owner].inbox_tag[q] = t
+            # 4. the step before's staged loads, the pass over wh
+            yield from wh_pass(chunk, t, staged if t > 0 else None)
             yield ("sync", "cluster")
-            # 5b. the partials in block order, the new slice to every block
+            # 5. the partials in block order, the carry's slice, the step
+            # before's dout_p into every block (warp 0, whenever it gets
+            # there)
+            yield ("run",)
             if w == 0:
-                s = read_tagged(me.inbox[0], [me.inbox_tag[0]], t, nr)
-                for b in range(1, C):
-                    s = s + read_tagged(me.inbox[b], [me.inbox_tag[b]], t,
-                                        nr)
-                cols = torch.arange(p0, p0 + ps)
-                new = kp * ((1 - m) * dh[:, p0:p0 + ps] + s)
-                new[:, cols >= out_dim] = 0.0
-                for peer in blocks:
-                    peer.dh[:, p0:p0 + ps] = new
-                    peer.dh_tag[q] = t
-            yield ("sync", "cluster")
+                s = None
+                for b in range(C):
+                    part = read_tagged(me.inbox[b], me.inbox_tag[b][:npq], t,
+                                       nr)[:, :npq]
+                    s = part if s is None else s + part
+                    me.inbox_read[b] = t
+                me.dh[:, :npq] = kp * ((1 - m) * me.dh[:, :npq] + s)
+                if has_proj and t > 0:
+                    share_dq(staged, me.dh[:, :npq])
+            if inbox_barrier:
+                yield ("sync", "cluster")
         if w == 0:
-            sums[(d, b0, q)] = (u0, nu, me.sums)
+            # the row tile's peephole sums: the threads' in row order
+            tot = torch.zeros(3, us)
+            for rb0 in range(min(rs, nr)):
+                tot = tot + me.sums[rb0]
+            sums[(d, b0, q)] = (u0, nu, tot)
 
     for d in range(2):
         for b0 in range(0, batch, rows):
@@ -731,14 +869,16 @@ def bwd_streamed(gx, seq, keep, wh, proj, peep, c_all, h_all, dout, dcfin,
 
 
 def make_case(seed, units, out_dim, batch=2, steps=3, reset=True):
-    """A layer's inputs from a numpy seed: gx, the lengths, keep (packed
-    rows reset inside the sequence), the weights (with peepholes)."""
+    """A layer's inputs from a numpy seed: gx, the lengths (every second
+    row one step short), keep (packed rows reset inside the sequence), the
+    weights (with peepholes)."""
     rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
     pair = [cells.init_lstm_cell(gen, 4, units, out_dim, True)
             for _ in range(2)]
     wh, pj, peep = cells.recurrent_weights(pair[0], pair[1], torch.float32)
-    seq = torch.from_numpy(np.array([steps, steps - 1][:batch], np.int32))
+    seq = torch.from_numpy(np.array([steps, steps - 1] * batch,
+                                    np.int32)[:batch])
     reset_mask = None
     if reset:
         mask = np.zeros((batch, steps), np.float32)
@@ -751,17 +891,22 @@ def make_case(seed, units, out_dim, batch=2, steps=3, reset=True):
     return gx, seq, keep, wh, pj, peep, rng
 
 
-# H = P = 1024 without a projection; 2048 cells with a projection of 512
+# H = P = 1024 without a projection (64 units a block); 2048 cells with a
+# projection of 512 (128 a block)
 SHAPES = [(1024, None), (2048, 512)]
 SHAPE_IDS = ["1024-noproj", "2048x512"]
+# (scheduler, R, batch): the launchers' R at B = 2 under each order; then R
+# = 16 over two tiles, the second ragged (9 rows: two turns of the cell
+# phase at 64 units a block, three at 128)
+RUNS = [(o, None, 2) for _, o in ORDERS] + [(greedy_order, 16, 25)]
+RUN_IDS = [n for n, _ in ORDERS] + ["greedy-16-rows-ragged"]
 
 
-@pytest.mark.parametrize("order", [o for _, o in ORDERS],
-                         ids=[n for n, _ in ORDERS])
+@pytest.mark.parametrize("order,rows,batch", RUNS, ids=RUN_IDS)
 @pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
-def test_streamed_forward_matches_plain(units, proj, order):
-    gx, seq, keep, wh, pj, peep, _ = make_case(1, units, proj)
-    got = fwd_streamed(gx, seq, keep, wh, pj, peep, order)
+def test_streamed_forward_matches_plain(units, proj, order, rows, batch):
+    gx, seq, keep, wh, pj, peep, _ = make_case(1, units, proj, batch)
+    got = fwd_streamed(gx, seq, keep, wh, pj, peep, order, rows=rows)
     ref = cells.dual_recurrence(gx, seq, keep, wh, pj, peep, FORGET_BIAS,
                                 states=True)
     for name, g, r in zip(("out", "cfin", "hfin", "c_all", "h_all"), got,
@@ -769,11 +914,8 @@ def test_streamed_forward_matches_plain(units, proj, order):
         np.testing.assert_allclose(g.numpy(), r.numpy(), err_msg=name, **TOL)
 
 
-@pytest.mark.parametrize("order", [o for _, o in ORDERS],
-                         ids=[n for n, _ in ORDERS])
-@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
-def test_streamed_backward_matches_plain(units, proj, order):
-    gx, seq, keep, wh, pj, peep, rng = make_case(2, units, proj)
+def backward_case(units, proj, batch, seed=2):
+    gx, seq, keep, wh, pj, peep, rng = make_case(seed, units, proj, batch)
     _, _, _, c_all, h_all = cells.dual_recurrence(
         gx, seq, keep, wh, pj, peep, FORGET_BIAS, states=True)
     out_dim = h_all.shape[2]
@@ -782,12 +924,17 @@ def test_streamed_backward_matches_plain(units, proj, order):
                              .astype(np.float32))
     dhfin = torch.from_numpy(rng.randn(gx.shape[1], out_dim)
                              .astype(np.float32))
-    args = (gx, seq, keep, wh, pj, peep, FORGET_BIAS, c_all, h_all, dout,
+    return (gx, seq, keep, wh, pj, peep, FORGET_BIAS, c_all, h_all, dout,
             dcfin, dhfin)
+
+
+@pytest.mark.parametrize("order,rows,batch", RUNS, ids=RUN_IDS)
+@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
+def test_streamed_backward_matches_plain(units, proj, order, rows, batch):
+    args = backward_case(units, proj, batch)
     dgates, _, _, dpeep, _, dh_in = cells.dual_recurrence_backward(
         *args, steps=True)
-    got = bwd_streamed(gx, seq, keep, wh, pj, peep, c_all, h_all, dout,
-                       dcfin, dhfin, order)
+    got = bwd_streamed(*args[:6], *args[7:], order, rows=rows)
     for name, g, r in zip(("dgates", "dh_in", "dpeep"), got,
                           (dgates, dh_in, dpeep)):
         np.testing.assert_allclose(g.numpy(), r.numpy(), err_msg=name, **TOL)
@@ -795,25 +942,123 @@ def test_streamed_backward_matches_plain(units, proj, order):
 
 @pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
 def test_streamed_plans_stream_and_fill_the_ring(units, proj):
-    """The plans the emulation runs are the kernels' at these shapes: K1's
-    largest R (8 at 1024 units, 4 at 2048), K2's at most that, two to four
+    """The plans the emulation runs are the kernels' at these shapes: at B
+    = 32 both launchers take R = 16, four clusters in one wave, two to four
     slots, the rest of shared memory holding wh's first rows, and chunks to
     stream every step; with the resident rows capped at half of wh (the
     forced plan's cap) the ring streams the rest."""
     out_dim = proj or units
-    rows_f = largest_rows(fwd_plan, units, out_dim, proj is not None)
-    rows_b = largest_rows(bwd_plan, units, out_dim, proj is not None)
-    assert rows_f == 512 // max(64, units // 16)
-    assert rows_b <= rows_f
     for plan in (fwd_plan, bwd_plan):
-        rows = rows_f if plan is fwd_plan else rows_b
+        rows, clusters, waves = launch_rows(plan, units, out_dim,
+                                            proj is not None, 32)
+        assert (rows, clusters, waves) == (16, 4, 1)
         pl = plan(units, out_dim, proj is not None, rows)
+        assert pl["arow"] == 16
         assert 2 <= pl["slots"] <= MAX_SLOTS
         assert pl["res"] < pl["wsteps"] and pl["nw"] > 0
         half = plan(units, out_dim, proj is not None, rows,
                     pl["wsteps"] // 2)
         assert half["res"] == min(pl["res"], pl["wsteps"] // 2)
         assert half["nw"] >= pl["nw"]
+
+
+# the streamed widths at B = 32: (H, the projection or None) and the
+# launchers' (R, clusters, waves) for K1 and K2, the states in bf16, and
+# K2's R with float32 states (h_prev staged as float32 beside the rows);
+# H = P = 2048's K2 takes 8 rows: its inbox of 16 rows alone would be 128
+# KB
+B32 = {(1024, None): ((16, 4, 1), (16, 4, 1), 8),
+       (768, 768): ((16, 4, 1), (16, 4, 1), 8),
+       (2048, 512): ((16, 4, 1), (16, 4, 1), 16),
+       (2048, None): ((16, 4, 1), (8, 8, 2), 6)}
+
+
+@pytest.mark.parametrize("units,proj", list(B32),
+                         ids=["%d-%s" % (u, p or "noproj") for u, p in B32])
+def test_streamed_launchers_at_b32(units, proj):
+    """At B = 32 every streamed launch runs one wave but K2's at H = P =
+    2048 (two of 8 clusters, where the one-row plans ran 2-5), a
+    cell-phase thread owning up to four rows; K2 with float32 states takes
+    16 rows only where its staged h_prev fits beside them (2048/512)."""
+    out_dim = proj or units
+    got = tuple(launch_rows(plan, units, out_dim, proj is not None, 32)
+                for plan in (fwd_plan, bwd_plan))
+    assert got == B32[(units, proj)][:2]
+    for plan, (rows, _, _) in zip((fwd_plan, bwd_plan), got):
+        us = plan(units, out_dim, proj is not None, rows)["us"]
+        assert 1 <= thread_rows(rows, us) <= min(4, cell_rows(rows))
+    f32 = launch_rows(bwd_plan, units, out_dim, proj is not None, 32,
+                      store=4)[0]
+    assert f32 == B32[(units, proj)][2]
+
+
+@pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
+def test_inbox_write_before_its_owner_read_is_caught(units, proj):
+    """Without the cluster barrier that ends the owners' reads of their
+    inboxes and their writes of dq, a block runs ahead into the next step:
+    its pass over wh writes its dh partial into an inbox its owner has not
+    read yet."""
+    args = backward_case(units, proj, 2)
+    with pytest.raises(Hazard, match="inbox overwritten|holding"):
+        bwd_streamed(*args[:6], *args[7:], greedy_order,
+                     inbox_barrier=False)
+
+
+def test_stamp_phases_refuses_a_buffer_the_kernels_cannot_fill():
+    """The stamps' switch (``scripts/layer_stamps.py``) takes only a CUDA
+    int64 buffer of the steps and six phases, and refuses any other before
+    a CUDA call; each kernel names six phases."""
+    for bad in (torch.zeros(7, dtype=torch.int64), torch.zeros(7),
+                torch.zeros(6, dtype=torch.int64)):
+        for which in ("forward", "backward"):
+            with pytest.raises(ValueError, match="stamps"):
+                lstm_kernels.stamp_phases(which, bad)
+    assert sorted(lstm_kernels.STAMP_PHASES) == ["backward", "forward"]
+    assert all(len(p) == 6 for p in lstm_kernels.STAMP_PHASES.values())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units,proj", list(B32),
+                         ids=["%d-%s" % (u, p or "noproj") for u, p in B32])
+def test_plans_are_the_kernels_on_gpu(cuda, units, proj):
+    """fwd_plan and bwd_plan, and the launchers' choice, field by field
+    against the kernels' own (``forward_config``, ``backward_config``) at
+    B = 32: R, clusters, waves, shared memory a block, and the weight
+    bytes held and streamed a step, at the launcher's R and at each R
+    they try (a forced launch's plan; refused where the copy says it does
+    not fit); so a copy fails wherever the C++ moves."""
+    out_dim = proj or units
+    has_proj = proj is not None
+    for plan, config in ((fwd_plan, lstm_kernels.forward_config),
+                         (bwd_plan, lstm_kernels.backward_config)):
+        how = config(cuda, 32, units, out_dim, has_proj, torch.bfloat16)
+        rows, clusters, waves = launch_rows(plan, units, out_dim, has_proj,
+                                            32, resident=how["resident"])
+        assert how["streamed"] and how["blocks"] == C
+        assert (how["rows"], how["clusters"], how["waves"]) == (
+            rows, clusters, waves)
+        for r in LAYER_ROWS:
+            pl = plan(units, out_dim, has_proj, r)
+            if not pl["fits"]:
+                with pytest.raises(RuntimeError, match="config"):
+                    config(cuda, 32, units, out_dim, has_proj,
+                           torch.bfloat16, rows=r)
+                continue
+            at = config(cuda, 32, units, out_dim, has_proj, torch.bfloat16,
+                        rows=r)
+            assert (at["rows"], at["clusters"]) == (r, 2 * cdiv(32, r))
+            assert (at["smem_bytes"], at["held_bytes"],
+                    at["streamed_bytes"]) == (pl["bytes"], pl["held"],
+                                              pl["streamed"])
+            if r == rows:
+                assert at == how
 
 
 @pytest.mark.parametrize("units,proj", SHAPES, ids=SHAPE_IDS)
